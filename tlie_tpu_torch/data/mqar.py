@@ -1,0 +1,129 @@
+"""MQAR, multi-query associative recall: the numpy generator of
+``tlie_tpu/data/mqar.py`` copied as it is, a dataset holder with its train
+and test streams, and the masked accuracy of ``tlie_tpu/data/base.py``.
+
+The port does not carry the native C++ generator: ``MQAR`` always draws with
+numpy, as ``tlie_tpu``'s ``MQAR(use_native=False)`` does.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+
+def multiquery_ar(
+    vocab_size: int,
+    num_examples: int,
+    input_seq_len: int,
+    seed: int,
+    power_a: float = 0.01,
+    num_kv_pairs: int = 8,
+    random_non_queries: bool = True,
+    **kwargs,
+):
+    """Generate (inputs, labels) int64 arrays of shape (num_examples, L)."""
+    if input_seq_len % 2 != 0:
+        raise ValueError("input_seq_len must be even")
+    if vocab_size <= input_seq_len:
+        raise ValueError("vocab_size must exceed input_seq_len")
+    if num_kv_pairs * 4 > input_seq_len:
+        raise ValueError("num_kv_pairs * 4 must not exceed input_seq_len")
+
+    rng = np.random.default_rng(seed)
+    context_size = num_kv_pairs * 2
+    key_vocab_size = vocab_size // 2
+
+    # unique keys / values per example: slice per-row permutations
+    def unique_choice(lo, hi, k):
+        u = rng.random((num_examples, hi - lo))
+        return lo + np.argsort(u, axis=1)[:, :k]
+
+    keys = unique_choice(1, key_vocab_size, num_kv_pairs)
+    values = unique_choice(key_vocab_size, vocab_size, num_kv_pairs)
+
+    kvs = np.zeros((num_examples, context_size), dtype=np.int64)
+    kvs[:, 0::2] = keys
+    kvs[:, 1::2] = values
+
+    # power-law gap distribution over the query region
+    space = (input_seq_len - context_size) // 2
+    p = power_a * np.arange(1, space + 1) ** (power_a - 1)
+    p = p / p.sum()
+    # weighted sampling without replacement per row: Gumbel-top-k
+    gumbel = -np.log(-np.log(rng.random((num_examples, space))))
+    gaps = np.argsort(-(np.log(p)[None, :] + gumbel), axis=1)[:, :num_kv_pairs]
+
+    queries = np.zeros((num_examples, input_seq_len - context_size + 1), dtype=np.int64)
+    np.put_along_axis(queries, gaps * 2, keys, axis=1)
+    examples = np.concatenate([kvs, queries], axis=1)
+
+    labels = np.full((num_examples, input_seq_len + 1), -100, dtype=np.int64)
+    np.put_along_axis(labels, gaps * 2 + context_size + 1, values, axis=1)
+
+    inputs, labels = examples[:, :-1], labels[:, 1:]
+
+    if random_non_queries:
+        zeros = inputs == 0
+        inputs = np.where(zeros, rng.integers(0, vocab_size, size=inputs.shape), inputs)
+    return inputs, labels
+
+
+class MQAR:
+    """MQAR splits as ``tlie_tpu.data.mqar.MQAR`` draws them: the train split
+    from ``seed``, the test split from its own stream ``seed + 1``."""
+
+    # ref dataloaders/mqar.py:143-155
+    init_defaults = {
+        "seed": 42,
+        "vocab_size": 8_192,
+        "num_train_examples": 100_000,
+        "num_test_examples": 3_000,
+        "input_seq_length": 64,
+        "num_kv_pairs": 8,
+        "train_power_a": 0.01,
+        "test_power_a": 0.01,
+        "random_non_queries": True,
+    }
+
+    def __init__(self, _name_: str = "mqar", data_dir=None, **cfg):
+        if _name_ != "mqar":
+            raise ValueError(f"Dataset name mismatch: {_name_} != mqar")
+        merged = dict(self.init_defaults)
+        merged.update(cfg)
+        for k, v in merged.items():
+            setattr(self, k, v)
+
+    @property
+    def l_max(self) -> int:
+        return self.input_seq_length
+
+    @property
+    def d_output(self) -> int:
+        return self.vocab_size
+
+    def split(self, name: str) -> Tuple[np.ndarray, np.ndarray]:
+        """(inputs, labels) of the ``"train"`` or ``"test"`` split."""
+        if name not in ("train", "test"):
+            raise ValueError(f"unknown split {name!r}")
+        train = name == "train"
+        return multiquery_ar(
+            vocab_size=self.vocab_size,
+            num_examples=self.num_train_examples if train else self.num_test_examples,
+            input_seq_len=self.input_seq_length,
+            seed=self.seed if train else self.seed + 1,  # distinct stream from train
+            power_a=self.train_power_a if train else self.test_power_a,
+            num_kv_pairs=self.num_kv_pairs,
+            random_non_queries=self.random_non_queries,
+        )
+
+
+def masked_accuracy(logits: torch.Tensor, labels: torch.Tensor, ignore_idx: int = -100):
+    """Accuracy over positions whose label != ignore_idx (MQAR metric,
+    ref dataloaders/mqar.py:171)."""
+    pred = torch.argmax(logits, dim=-1)
+    mask = labels != ignore_idx
+    correct = (mask & (pred == labels)).sum()
+    return correct / mask.sum().clamp_min(1)
