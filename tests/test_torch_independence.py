@@ -47,7 +47,7 @@ from tlie_tpu_torch.training import prep_batch
 from tlie_tpu_torch.analysis import eval_eig
 cfg = dict(MQAR_LRU_FULL["model"], input_dim=64, output_dim=64, hidden_dim=8,
            state_dim=8, seq_len=16)
-model = build_models(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+_, model, _ = build_models(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
 x, y = MQAR(input_seq_length=16, num_kv_pairs=2, vocab_size=64, num_test_examples=4).split("test")
 x, y = prep_batch((x, y), 16, 64, lang_model=True, device="cpu")
 with torch.no_grad():

@@ -86,7 +86,8 @@ def test_real_decay_with_complex_input_is_promoted_to_a_pair():
 
 def test_cuda_request_raises_and_does_not_fall_back(monkeypatch):
     """A tensor routed to the card (device check mocked: no card here) must
-    reach the kernel wrapper and raise, never the plain loop."""
+    reach the kernel wrapper and raise, never the plain loop; the reverse
+    scan too, through the forward kernel's reverse mode."""
     def no_fallback(*a, **k):
         raise AssertionError("fell back to the plain version")
 
@@ -95,7 +96,7 @@ def test_cuda_request_raises_and_does_not_fall_back(monkeypatch):
     a, b = (_torch(x) for x in _inputs(True))
     with pytest.raises(ValueError, match="CUDA tensors only"):
         diag_linear_scan(a, b)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="CUDA tensors only"):
         diag_linear_scan(a, b, reverse=True)
 
 

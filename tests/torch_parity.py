@@ -45,8 +45,8 @@ def jax_weights(model_cfg, seed=0, stats_seed=1):
 
 
 def port_model(model_cfg, params, batch_stats):
-    """The port's model on the CPU, carrying the JAX weights."""
-    model = build_models(model_cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    """The port's eval-mode model on the CPU, carrying the JAX weights."""
+    _, model, _ = build_models(model_cfg, generator=torch.Generator().manual_seed(0), device="cpu")
     model.load_state_dict(params_from_jax(params, batch_stats))
     return model
 

@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from ..models.registry import build_models
+from ..training.checkpoint import restore_checkpoint
 from .artifacts import artifact_name, save_artifacts, write_percentage_file_ssm
 from .binning import PHASE_THRESHOLDS, RADIUS_THRESHOLDS, threshold_analysis_ssm
 from .extractors import eig_lru
@@ -53,7 +54,8 @@ def eval_eig(args: Dict[str, Any], conf_args: Dict[str, Any], perf: float,
              params, *, device="cuda"):
     """Spectra pipeline for the LRU.
 
-    ``params`` is the trained model or its ``state_dict``; the artifacts go to
+    ``params`` is the trained model, its ``state_dict``, or the path of the
+    port's checkpoint (``training.save_checkpoint``); the artifacts go to
     ``conf_args["save_path"]/<artifact name>-perf<perf>``.  Returns
     (eig, eig_init, percentage, percentage_init, percentage_phase,
     percentage_phase_init) as ``tlie_tpu``'s ``eval_eig`` does."""
@@ -63,11 +65,16 @@ def eval_eig(args: Dict[str, Any], conf_args: Dict[str, Any], perf: float,
     model_config.pop("compute_dtype", None)
     seed = args["seed"]
 
-    init_model = build_models(
+    _, init_model, _ = build_models(
         model_config, generator=torch.Generator().manual_seed(seed), device=device
     )
     eig_init = extract_ssm_family(ssm_layer_params(init_model.state_dict()), model_config)
-    trained = params.state_dict() if isinstance(params, nn.Module) else params
+    if isinstance(params, nn.Module):
+        trained = params.state_dict()
+    elif isinstance(params, (str, os.PathLike)):
+        trained = restore_checkpoint(os.fspath(params))["model"]
+    else:
+        trained = params
     eig = extract_ssm_family(ssm_layer_params(trained), model_config)
 
     arrays: Dict[str, Any] = {}

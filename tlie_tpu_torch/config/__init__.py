@@ -1,3 +1,9 @@
-from .schema import MQAR_LRU_FULL, derive_runtime_fields, load_yaml
+from .schema import (
+    MQAR_LRU_FULL, checkpoint_name, derive_runtime_fields, lang_model, load_yaml,
+    step_driven, train_fields,
+)
 
-__all__ = ["MQAR_LRU_FULL", "derive_runtime_fields", "load_yaml"]
+__all__ = [
+    "MQAR_LRU_FULL", "checkpoint_name", "derive_runtime_fields", "lang_model", "load_yaml",
+    "step_driven", "train_fields",
+]

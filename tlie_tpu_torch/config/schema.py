@@ -1,5 +1,7 @@
 """Experiment configuration: the parts of ``tlie_tpu/config/schema.py`` the
-LRU slice uses, and the full-width MQAR LRU as a Python dict.
+LRU slices use (runtime fields, ``lang_model``, ``checkpoint_name``), the
+train fields and the step-driven choice of ``tlie_tpu/training/loop.py``,
+and the full-width MQAR LRU as a Python dict.
 
 YAML is read only inside :func:`load_yaml`, so that the package and the card
 run (``chip_smoke.py``) need no ``yaml`` module.
@@ -9,7 +11,7 @@ from __future__ import annotations
 
 import copy
 from pathlib import Path
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 # Next-token style tasks (ref launch.py:119).
 LANG_MODEL_DATASETS = ("WikiText", "MQAR")
@@ -38,6 +40,74 @@ def derive_runtime_fields(raw: Dict[str, Any], l_max: int, train_size: int) -> D
     cfg["train"]["train_size"] = int(train_size)
     cfg["model"]["seq_len"] = int(l_max)
     return cfg
+
+
+def lang_model(cfg: Dict[str, Any]) -> bool:
+    """Next-token task? (``ExperimentConfig.lang_model``)."""
+    return cfg["dataset"].get("name") in LANG_MODEL_DATASETS
+
+
+def checkpoint_name(cfg: Dict[str, Any]) -> Optional[str]:
+    """Checkpoint path stem embedding the run's hyperparameters, None when
+    the config has no ``save`` (``ExperimentConfig.checkpoint_name``)."""
+    if cfg.get("save") is None:
+        return None
+    model = cfg["model"]
+    return (
+        f"{cfg['save']}-seed-{cfg['seed']}-layers-{model['num_layers']}"
+        f"dim_conv{model.get('dim_conv', 0)}-s_d-{model['state_dim']}"
+    )
+
+
+def step_driven(cfg: Dict[str, Any]) -> bool:
+    """The loop's cadence choice (``training/loop.py:170-172``): steps and
+    ``eval_every`` rather than epochs."""
+    family = cfg["model"]["layer"]
+    lm = bool(cfg.get("lang_model", lang_model(cfg)))
+    return family in ("mamba", "transformer") and lm or (
+        family in ("lru", "s4", "s5")
+        and (lm or (family == "lru" and cfg["dataset"].get("_name_") == "listops"))
+    )
+
+
+# train options the port does not carry yet, with the value that leaves them off
+_NOT_PORTED = {
+    "fused_xent": False, "checkpoint_every": None, "resume": False,
+    "model_parallel": 1, "sequence_parallel": 1,
+}
+
+
+def train_fields(cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """The train settings the step-driven loop reads, with
+    ``tlie_tpu/training/loop.py``'s defaults (``warmup_steps`` wins over
+    ``warmup``; ``ssm_lr`` defaults to ``lr``; plateau decay is on when
+    ``reduce_factor`` is given).  Raises for what the port does not run yet:
+    epoch-driven training, the fused head, resume snapshots and the
+    multi-device modes."""
+    if not step_driven(cfg):
+        raise NotImplementedError("epoch-driven training is not ported yet")
+    train = cfg["train"]
+    for key, off in _NOT_PORTED.items():
+        if train.get(key) not in (None, off):
+            raise NotImplementedError(f"train.{key} is not ported yet")
+    lr = train["lr"]
+    return {
+        "total_steps": int(train["total_steps"]),
+        "eval_every": int(train["eval_every"]),
+        "warmup": int(train.get("warmup_steps", train.get("warmup", 0)) or 0),
+        "batch_size": int(train["batch_size"]),
+        "lr": lr,
+        "ssm_lr": train.get("ssm_lr", lr),
+        "lr_min": train.get("lr_min", 1e-6),
+        "wd": train["wd"],
+        "betas": tuple(train.get("betas") or (0.9, 0.999)),
+        "cosine": train.get("cosine_anneal", True),
+        "stop_criterion": train.get("stop_criterion"),
+        "plateau": "reduce_factor" in train,
+        "reduce_factor": train.get("reduce_factor", 0.2),
+        "lr_patience": train.get("lr_patience", 20),
+        "sparse_head": train.get("sparse_head", True),
+    }
 
 
 # configs/tasks/mqar/mqar-lru.yaml after derive_runtime_fields with the MQAR

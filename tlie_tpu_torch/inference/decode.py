@@ -49,7 +49,7 @@ class Decoder:
         if isinstance(params, nn.Module):
             self.model = params.eval()
         else:
-            self.model = build_models(cfg, generator=torch.Generator(), device=device)
+            _, self.model, _ = build_models(cfg, generator=torch.Generator(), device=device)
             self.model.load_state_dict(params)
         self.device = next(self.model.parameters()).device
         self.vocab = cfg["input_dim"]

@@ -7,8 +7,9 @@ complex input projection, and a real readout::
     h_t = λ ⊙ h_{t-1} + γ ⊙ B u_t ;  y_t = Re[C h_t] + D ⊙ u_t
 
 The recurrence runs through :func:`tlie_tpu_torch.ops.diag_linear_scan`: on
-the card the hand-written diagonal-scan kernel, with λ shared across the
-batch (read at batch stride 0, never materialised per example).
+the card the hand-written diagonal-scan kernels, forward and backward, with
+λ passed as its (N,) pair: read at batch and time stride 0, never
+materialised per example or per step, and its gradient comes back at (N,).
 """
 
 from __future__ import annotations
@@ -51,12 +52,9 @@ class LRU(nn.Module):
 
     def scan(self, u: torch.Tensor):
         """States h (..., L, N) as a (re, im) pair for input u (..., L, d_model)."""
-        L = u.shape[-2]
-        lam_re, lam_im = self.lam()
         bn_re, bn_im = self.input_matrix()
         bu = (u @ bn_re.T, u @ bn_im.T)  # (..., L, N) pair
-        a = (lam_re.expand(L, self.d_hidden), lam_im.expand(L, self.d_hidden))
-        return diag_linear_scan(a, bu)
+        return diag_linear_scan(self.lam(), bu)
 
     def readout(self, h, u: torch.Tensor) -> torch.Tensor:
         """y = Re[C h] + D ⊙ u."""

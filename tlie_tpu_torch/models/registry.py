@@ -1,26 +1,32 @@
-"""Model registry: config dict → the evaluation model, counterpart of
-``tlie_tpu/models/registry.py::build_models`` for the ``lru`` family."""
+"""Model registry: config dict → (train model, eval model, family),
+counterpart of ``tlie_tpu/models/registry.py::build_models`` for the ``lru``
+family."""
 
 from __future__ import annotations
 
+import copy
+import itertools
 from functools import partial
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 
 from ..device import resolve_device
-from .backbone import ClassificationModel
+from .backbone import BroadcastDropout, ClassificationModel
 from .lru import LRU
 
 MODEL_FAMILIES = ("mamba", "transformer", "lru", "s4", "s5")
 
 
 def build_models(model_config: Dict[str, Any], *, generator: torch.Generator,
-                 device="cuda") -> ClassificationModel:
-    """The eval-mode model of ``model_config`` on ``device``, initialised from
-    ``generator`` (a CPU generator, so the weights do not depend on the
-    device).  Like ``tlie_tpu``'s registry it returns logits, not log-probs
-    (argmax, masked CE and perplexity do not change)."""
+                 device="cuda") -> Tuple[ClassificationModel, ClassificationModel, str]:
+    """``(train_model, eval_model, family)`` for ``model_config`` on
+    ``device``: one module in ``.train()`` and one in ``.eval()`` that share
+    every parameter and BatchNorm statistic, so a step on the first shows in
+    the second.  Weights are drawn from ``generator`` (a CPU generator, so
+    they do not depend on the device); the dropout masks from a device
+    generator seeded from it.  Like ``tlie_tpu``'s registry the models return
+    logits, not log-probs (argmax, masked CE and perplexity do not change)."""
     layer = model_config["layer"]
     if layer != "lru":
         if layer in MODEL_FAMILIES:
@@ -46,5 +52,14 @@ def build_models(model_config: Dict[str, Any], *, generator: torch.Generator,
         prenorm=model_config["prenorm"],
         norm=model_config["norm"],
         logits_output=True,
-    )
-    return model.to(dev).eval()
+        dropout=model_config.get("dropout", 0.0),
+    ).to(dev)
+    seed = int(torch.randint(2**62, (1,), generator=generator))
+    dropout_gen = torch.Generator(device=dev).manual_seed(seed)
+    for m in model.modules():
+        if isinstance(m, BroadcastDropout):
+            m.generator = dropout_gen
+    shared = {id(t): t for t in itertools.chain(model.parameters(), model.buffers())}
+    shared[id(dropout_gen)] = dropout_gen
+    eval_model = copy.deepcopy(model, shared)
+    return model.train(), eval_model.eval(), layer

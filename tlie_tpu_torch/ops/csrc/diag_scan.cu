@@ -1,9 +1,12 @@
 // Diagonal linear recurrence h_t = a_t * h_{t-1} + b_t with h_{-1} = 0,
-// inclusive, forward in time, float32, real or complex as (re, im) planes.
+// inclusive, float32, real or complex as (re, im) planes, forward in time or,
+// with `reverse`, right to left (h_t = a_t * h_{t+1} + b_t, h_L = 0).
 //
 // Replaces the TPU kernel tlie_tpu/ops/pallas_scan.py::_run_scan_planes
 // (bodies _complex_kernel and _real_kernel, reached from
-// pallas_diag_linear_scan), forward only.
+// pallas_diag_linear_scan).  The TPU flips the planes in memory for the
+// reverse scan; here `reverse` only maps logical step t to physical index
+// L-1-t, so nothing is copied.  The backward is diag_scan_bwd.cu.
 //
 // Bound on the H100: memory. Every element of b is read once and every
 // element of h written once, with a handful of flops per element. At the
@@ -41,7 +44,7 @@ diag_scan_kernel(const float* __restrict__ a_re, const float* __restrict__ a_im,
                  const float* __restrict__ b_re, const float* __restrict__ b_im,
                  float* __restrict__ h_re, float* __restrict__ h_im,
                  int64_t L, int64_t N, int64_t n_tiles,
-                 int64_t a_bstride, int64_t a_tstride) {
+                 int64_t a_bstride, int64_t a_tstride, int reverse) {
   __shared__ float agg[4][kChunks][kLanes];
 
   const int lane = threadIdx.x;
@@ -55,17 +58,21 @@ diag_scan_kernel(const float* __restrict__ a_re, const float* __restrict__ a_im,
   const int64_t t1 = imin(L, t0 + span);
   const int64_t b_off = batch * L * N + n;
   const int64_t a_off = batch * a_bstride + n;
+  // logical step t is physical time index p = t_base + t_sign * t
+  const int64_t t_sign = reverse ? -1 : 1;
+  const int64_t t_base = reverse ? L - 1 : 0;
 
   // pass 1: aggregate of this chunk
   float Ar = 1.f, Ai = 0.f, Hr = 0.f, Hi = 0.f;
   if (active) {
 #pragma unroll 8
     for (int64_t t = t0; t < t1; ++t) {
-      const float ar = a_re[a_off + t * a_tstride];
-      const float br = b_re[b_off + t * N];
+      const int64_t p = t_base + t_sign * t;
+      const float ar = a_re[a_off + p * a_tstride];
+      const float br = b_re[b_off + p * N];
       if constexpr (kComplex) {
-        const float ai = a_im[a_off + t * a_tstride];
-        const float bi = b_im[b_off + t * N];
+        const float ai = a_im[a_off + p * a_tstride];
+        const float bi = b_im[b_off + p * N];
         const float hr = ar * Hr - ai * Hi + br;
         const float hi = ar * Hi + ai * Hr + bi;
         const float pr = ar * Ar - ai * Ai;
@@ -96,19 +103,20 @@ diag_scan_kernel(const float* __restrict__ a_re, const float* __restrict__ a_im,
   // pass 2: rescan from the carried state and write h
 #pragma unroll 8
   for (int64_t t = t0; t < t1; ++t) {
-    const float ar = a_re[a_off + t * a_tstride];
-    const float br = b_re[b_off + t * N];
+    const int64_t p = t_base + t_sign * t;
+    const float ar = a_re[a_off + p * a_tstride];
+    const float br = b_re[b_off + p * N];
     if constexpr (kComplex) {
-      const float ai = a_im[a_off + t * a_tstride];
-      const float bi = b_im[b_off + t * N];
+      const float ai = a_im[a_off + p * a_tstride];
+      const float bi = b_im[b_off + p * N];
       const float nr = ar * cr - ai * ci + br;
       const float ni = ar * ci + ai * cr + bi;
       cr = nr; ci = ni;
-      h_re[b_off + t * N] = cr;
-      h_im[b_off + t * N] = ci;
+      h_re[b_off + p * N] = cr;
+      h_im[b_off + p * N] = ci;
     } else {
       cr = ar * cr + br;
-      h_re[b_off + t * N] = cr;
+      h_re[b_off + p * N] = cr;
     }
   }
 }
@@ -117,25 +125,27 @@ diag_scan_kernel(const float* __restrict__ a_re, const float* __restrict__ a_im,
 
 // b and h are contiguous (batch, L, N); a is read at
 // a[batch * a_bstride + t * a_tstride + n]. For the real recurrence the
-// *_im pointers are ignored. Launches on `stream` and returns
+// *_im pointers are ignored. `reverse` scans right to left. Launches on
+// `stream` and returns
 // cudaGetLastError() (0 on success).
 extern "C" int tlie_diag_scan_f32(const float* a_re, const float* a_im,
                                   const float* b_re, const float* b_im,
                                   float* h_re, float* h_im,
                                   int64_t batch, int64_t L, int64_t N,
                                   int64_t a_bstride, int64_t a_tstride,
-                                  int is_complex, void* stream) {
+                                  int is_complex, int reverse, void* stream) {
   const int64_t n_tiles = (N + kLanes - 1) / kLanes;
   const dim3 grid(static_cast<unsigned int>(batch * n_tiles));
   const dim3 block(kLanes, kChunks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_complex) {
     diag_scan_kernel<true><<<grid, block, 0, s>>>(
-        a_re, a_im, b_re, b_im, h_re, h_im, L, N, n_tiles, a_bstride, a_tstride);
+        a_re, a_im, b_re, b_im, h_re, h_im, L, N, n_tiles, a_bstride, a_tstride,
+        reverse);
   } else {
     diag_scan_kernel<false><<<grid, block, 0, s>>>(
         a_re, nullptr, b_re, nullptr, h_re, nullptr, L, N, n_tiles, a_bstride,
-        a_tstride);
+        a_tstride, reverse);
   }
   return static_cast<int>(cudaGetLastError());
 }
