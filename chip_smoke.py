@@ -5,28 +5,37 @@
 
 It builds the port's CUDA kernels from ``tlie_tpu_torch/ops/csrc`` with
 ``nvcc`` (into ``tlie_tpu_torch/_build/``, one ``nvcc`` per source, all at
-once), holds each kernel against its plain PyTorch version on the card, and
-drives the full-width MQAR LRU (``MQAR_LRU_FULL``: L=512, d_model=128,
-N=128, 2 layers, vocab 8192, batch 64, weights from the config's seed)
-along two paths, each with the launch counts set to 0 just before it and
-read just after:
+once), holds each kernel against its plain PyTorch version on the card
+(the diagonal scan forward and backward, and the three kernels of the fused
+decoder + cross-entropy head), and drives two full-width models along three
+paths, each with the launch counts set to 0 just before it and read just
+after:
 
-1. evaluation, eigen-analysis and serving of the random-weight model;
-2. training through ``tlie_tpu_torch.training.train`` (200 steps, an eval
-   every 100, on a train split cut to 8,192 examples), the checkpoint, and
-   eval_eig and serving of the trained weights.
+1. the MQAR LRU (``MQAR_LRU_FULL``: L=512, d_model=128, N=128, 2 layers,
+   vocab 8192, batch 64, weights from the config's seed): evaluation,
+   eigen-analysis and serving of the random-weight model;
+2. the same model trained through ``tlie_tpu_torch.training.train`` (200
+   steps, an eval every 100, on a train split cut to 8,192 examples), the
+   checkpoint, and eval_eig and serving of the trained weights;
+3. the WikiText-103 LRU language model (``WIKITEXT_LRU_SHORT``: 6 layers,
+   d_model and N 512, block 1024, batch 8, the GPT-2 vocabulary of 50,257,
+   BatchNorm, the synthetic token stream) trained with ``fused_xent: true``
+   for 20 steps and one eval (perplexity), then eigen-analysed from its
+   checkpoint and served.
 
-It then checks one training step on the card against the same step on the
-CPU, and times each kernel against its bound and its plain version.  Each
-phase prints one line with its wall seconds; any failed check raises and the
-exit code is non-zero.  The last three lines are the kernel table as JSON,
-the card's name and power limit from ``nvidia-smi``, and
+It also checks one MQAR training step on the card against the same step on
+the CPU, one fused-head WikiText step against the dense-head step on the
+card, and times each kernel against its bound, its plain version and, where
+one exists, the PyTorch library call computing the same function.  Each
+phase prints one line with its wall seconds; any failed check raises and
+the exit code is non-zero.  The last three lines are the kernel table as
+JSON, the card's name and power limit from ``nvidia-smi``, and
 ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or outside a checkout of the repository, it fails and
 prints no result.  It writes nothing inside the checkout except the kernel
-build; the checkpoint and the eigen-analysis artifacts go to a temporary
-directory that is removed at the end.
+build; the checkpoints and the eigen-analysis artifacts go to temporary
+directories that are removed at the end.
 """
 
 from __future__ import annotations
@@ -84,9 +93,31 @@ GRAD_F64_FACTOR = 8.0
 PARAM_ATOL = 1e-6
 STATS_RTOL = 1e-5
 TRAIN_STEPS, EVAL_EVERY, TRAIN_EXAMPLES = 200, 100, 8192
+# the WikiText LM path: 20 steps and one eval (the config runs 1,500 with an
+# eval every 500); its train and test streams are the config's own
+LM_STEPS = 20
+# the fused head's kernels against their plain version: the LM's (B·L, D, V)
+# and two small shapes, a vocabulary below one 128-wide tile and a ragged one
+XENT_SHAPES = {"m8192_d512_v50257": (8192, 512, 50257), "m128_d512_v300": (128, 512, 300),
+               "m1024_d512_v1000": (1024, 512, 1000)}
+LM_BLOCK = 1024  # a -100 label ends each block of the LM's shifted labels
+# fused head vs plain: loss and lse within 1e-5 relative.  A gradient element
+# sums V (dh) or M (dW, db) terms t·x with t = softmax - onehot; it is held to
+# XENT_RTOL of the sum of its terms' magnitudes for the rounding of that sum,
+# plus the rounding of t itself: t's relative error is the absolute error of
+# its logit, a float32 sum of D products, at most about sqrt(D)·u·Z with
+# Z = max|h_m|·max|W_v| + max|b| (Cauchy-Schwarz) and u = 2^-24.
+XENT_RTOL = 1e-5
+F32_UNIT = 2.0 ** -24
+# fused-head step vs dense-head step on the card: both are held to the
+# dense step in float64 on the CPU, leaf by leaf; the fused step's error may
+# be at most GRAD_F64_FACTOR times the dense float32 step's own, or 1e-5 of
+# the leaf's max (the leaves next to a BatchNorm are row sums that cancel, so
+# their float32 error is large beside their max, as in the MQAR step check)
 # device kernels of a training step by kind, from their names (first match)
 OP_KINDS = (
     ("scan kernels", ("diag_scan", "sum_rows")),
+    ("fused head kernels", ("xent",)),
     ("matmul", ("gemm", "Kernel2", "xmma")),
     ("optimizer", ("multi_tensor_apply",)),
     ("sort, gather, scatter", ("sort", "Sort", "radix", "index", "gather", "scatter",
@@ -214,6 +245,128 @@ def grad_err(got, want):
     return worst
 
 
+def median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def xent_inputs(dev, gen, M, D, V):
+    """h (M, D), the decoder weight as nn.Linear keeps it (V, D) with w its
+    (D, V) transpose, b (V,), labels (M,) with -100 on the last row of each
+    block (or of the whole batch where it is shorter than a block)."""
+    h = torch.randn(M, D, device=dev, generator=gen)
+    weight = torch.randn(V, D, device=dev, generator=gen) / math.sqrt(D)
+    b = 0.1 * torch.randn(V, device=dev, generator=gen)
+    labels = torch.randint(0, V, (M,), device=dev, generator=gen)
+    labels[min(M, LM_BLOCK) - 1::LM_BLOCK] = -100
+    return h, weight, b, labels
+
+
+def xent_grad_rtol(h, w, b) -> float:
+    """The stated tolerance of a fused-head gradient element, as a multiple
+    of the sum of its terms' magnitudes (see XENT_RTOL)."""
+    z = (h.norm(dim=1).max() * w.norm(dim=0).max() + b.abs().max()).item()
+    return XENT_RTOL + math.sqrt(h.shape[1]) * F32_UNIT * z
+
+
+def check_fused_xent(fx, h, w, b, labels, f64: bool):
+    """Each of the three kernels against the plain version on the same
+    inputs: (fields, max abs errors by kernel).  With ``f64`` both are also
+    held to the same function in float64, for the record."""
+    loss, lse = fx.fused_xent_fwd_cuda(h, w, b, labels)
+    ref_loss, ref_lse = fx.fused_xent_fwd_plain(h, w, b, labels)
+    n_valid = int((labels != -100).sum())
+    gscale = torch.full((1,), 1.0 / n_valid, device=h.device)
+    dh = fx.fused_xent_dh_cuda(h, w, b, labels, ref_lse, gscale)
+    dw, db = fx.fused_xent_dw_cuda(h, w, b, labels, ref_lse, gscale)
+    torch.cuda.synchronize()
+    ref = fx.fused_xent_bwd_plain(h, w, b, labels, ref_lse, gscale)
+    scales = fx.grad_term_scales(h, w, b, labels, ref_lse, gscale)
+    rtol = xent_grad_rtol(h, w, b)
+    loss_rel = abs(loss.sum().item() - ref_loss.sum().item()) / abs(ref_loss.sum().item())
+    lse_rel = ((lse - ref_lse).abs() / ref_lse.abs()).max().item()
+    fields = {"loss_rel": f"{loss_rel:.2e}", "lse_rel": f"{lse_rel:.2e}",
+              "grad_rtol_of_term_sums": f"{rtol:.2e}"}
+    errs = {"fused_xent_fwd": max((loss - ref_loss).abs().max().item(),
+                                  (lse - ref_lse).abs().max().item()),
+            "fused_xent_dh": 0.0, "fused_xent_dw": 0.0}
+    ok = loss_rel <= XENT_RTOL and lse_rel <= XENT_RTOL
+    kernel_of = {"dh": "fused_xent_dh", "dw": "fused_xent_dw", "db": "fused_xent_dw"}
+    for name, got, want, scale in zip(("dh", "dw", "db"), (dh, dw, db), ref, scales):
+        ratio = ((got - want).abs() / (rtol * scale + 1e-30)).max().item()
+        fields[f"{name}_err_over_tol"] = f"{ratio:.3f}"
+        errs[kernel_of[name]] = max(errs[kernel_of[name]], (got - want).abs().max().item())
+        ok = ok and ratio <= 1.0
+    if f64:
+        h64, w64, b64 = h.double(), w.double(), b.double()
+        loss64, lse64 = fx.fused_xent_fwd_plain(h64, w64, b64, labels)
+        ref64 = fx.fused_xent_bwd_plain(h64, w64, b64, labels, lse64, gscale.double())
+        s64 = fx.grad_term_scales(h64, w64, b64, labels, lse64, gscale.double())
+        for name, got, plain, want, scale in zip(("dh", "dw", "db"), (dh, dw, db), ref, ref64, s64):
+            k_e = ((got.double() - want).abs() / (scale + 1e-300)).max().item()
+            p_e = ((plain.double() - want).abs() / (scale + 1e-300)).max().item()
+            fields[f"{name}_vs_f64_over_term_sums"] = f"kernel={k_e:.2e},plain={p_e:.2e}"
+        fields["lse_vs_f64_rel"] = (
+            f"kernel={((lse.double() - lse64).abs() / lse64.abs()).max().item():.2e},"
+            f"plain={((ref_lse.double() - lse64).abs() / lse64.abs()).max().item():.2e}")
+        del loss64, ref64, s64
+    if not ok:
+        raise AssertionError(f"fused_xent kernels vs plain: {fields}")
+    return fields, errs, (ref_lse, gscale)
+
+
+def time_fused_xent(fx, h, w, b, labels, lse, gscale, flush):
+    """L2-cold medians of 21 launches of each kernel, of its plain version
+    and of the library call computing the same function (addmm and
+    F.cross_entropy, autograd for the gradients), and each kernel's bound:
+    {kernel: (ms, plain_ms, library_ms, bound_ms, bound_by, bytes, flops)}."""
+    import torch.nn.functional as F
+
+    M, D = h.shape
+    V = w.shape[1]
+    n_valid = int((labels != -100).sum())
+    ms = {
+        "fused_xent_fwd": lambda: fx.fused_xent_fwd_cuda(h, w, b, labels),
+        "fused_xent_dh": lambda: fx.fused_xent_dh_cuda(h, w, b, labels, lse, gscale),
+        "fused_xent_dw": lambda: fx.fused_xent_dw_cuda(h, w, b, labels, lse, gscale),
+    }
+    plain = {
+        "fused_xent_fwd": lambda: fx.fused_xent_fwd_plain(h, w, b, labels),
+        "fused_xent_dh": lambda: fx._dlogits_plain(h, w, b, labels, lse, gscale) @ w.t(),
+        "fused_xent_dw": lambda: (lambda t: ((t.t() @ h).t(), t.sum(0)))(
+            fx._dlogits_plain(h, w, b, labels, lse, gscale)),
+    }
+    hl = h.clone().requires_grad_()
+    weight = w.t().detach().clone().requires_grad_()
+    bl = b.clone().requires_grad_()
+    lib_loss = F.cross_entropy(torch.addmm(bl, hl, weight.t()), labels, ignore_index=-100)
+    library = {
+        "fused_xent_fwd": lambda: F.cross_entropy(torch.addmm(b, h, w), labels, ignore_index=-100),
+        "fused_xent_dh": lambda: torch.autograd.grad(lib_loss, hl, retain_graph=True),
+        "fused_xent_dw": lambda: torch.autograd.grad(lib_loss, (weight, bl), retain_graph=True),
+    }
+    # bytes: each input read once, each output written once; operations: the
+    # products (2·M·D·V for the forward's logits over every row, which all
+    # get an lse; the backward recomputes the logits and does one more
+    # product, over the valid rows its output needs)
+    f4, i8 = 4, 8
+    in_bytes = (M * D + D * V + V) * f4 + M * i8
+    io = {"fused_xent_fwd": (in_bytes + 2 * M * f4, 2 * M * D * V),
+          "fused_xent_dh": (in_bytes + (M + 1) * f4 + M * D * f4, 4 * n_valid * D * V),
+          "fused_xent_dw": (in_bytes + (M + 1) * f4 + (D * V + V) * f4, 4 * n_valid * D * V)}
+    out = {}
+    for name in ms:
+        with torch.no_grad():
+            k_ms = median(cuda_ms(ms[name], 21, flush))
+            p_ms = median(cuda_ms(plain[name], 21, flush))
+        l_ms = median(cuda_ms(library[name], 21, flush))
+        n_bytes, flops = io[name]
+        bytes_ms, flops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+        out[name] = (k_ms, p_ms, l_ms, max(bytes_ms, flops_ms),
+                     "bytes" if bytes_ms >= flops_ms else "operations", n_bytes, flops)
+    del lib_loss
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card",
@@ -222,11 +375,12 @@ def main() -> int:
     # imported after the card check: a copy of this script alone has no package
     from tlie_tpu_torch.analysis import eval_eig
     from tlie_tpu_torch.analysis.eval_eig import extract_ssm_family, ssm_layer_params
-    from tlie_tpu_torch.config import MQAR_LRU_FULL, derive_runtime_fields
-    from tlie_tpu_torch.data import MQAR, masked_accuracy
+    from tlie_tpu_torch.config import MQAR_LRU_FULL, WIKITEXT_LRU_SHORT, derive_runtime_fields
+    from tlie_tpu_torch.data import MQAR, WikiText, masked_accuracy
     from tlie_tpu_torch.inference import Decoder
     from tlie_tpu_torch.models import build_models
     from tlie_tpu_torch.ops import LAUNCHES, diag_linear_scan
+    from tlie_tpu_torch.ops import fused_xent as fx
     from tlie_tpu_torch.ops.scan import (
         DIAG_SCAN, DIAG_SCAN_BWD, diag_scan_bwd_cuda, diag_scan_bwd_plain, diag_scan_cuda,
         diag_scan_plain,
@@ -256,7 +410,8 @@ def main() -> int:
 
     # 2. the nvcc build: one nvcc per source, all started together
     with Phase("build") as ph:
-        libs = {"diag_scan": DIAG_SCAN, "diag_scan_bwd": DIAG_SCAN_BWD}
+        libs = {"diag_scan": DIAG_SCAN, "diag_scan_bwd": DIAG_SCAN_BWD,
+                "fused_xent": fx.FUSED_XENT}
         with ThreadPoolExecutor(len(libs)) as pool:
             reports = dict(zip(libs, pool.map(lambda lib: lib.load(), libs.values())))
         for name, report in reports.items():
@@ -283,6 +438,9 @@ def main() -> int:
             "real_b64_l512_n128_full_a": (ring((64, 512, 128))[0].abs(),
                                           torch.randn(64, 512, 128, device=dev, generator=gen)),
             "complex_b3_l997_n96_const_a": (ring((96,)), normal_pair((3, 997, 96))),
+            # the WikiText LM's shape: 8 x 32-lane tiles of 512 channels,
+            # 8 time chunks of 128 steps
+            "complex_b8_l1024_n512_lambda": (ring((512,)), normal_pair((8, 1024, 512))),
         }
         for name, (a, b) in cases.items():
             h = diag_scan_cuda(a, b)
@@ -301,6 +459,7 @@ def main() -> int:
             "real_b8_l512_n128_full_a": (ring((8, 512, 128))[0].abs(),
                                          torch.randn(8, 512, 128, device=dev, generator=gen)),
             "complex_b3_l997_n96_lambda": (ring((96,)), normal_pair((3, 997, 96))),
+            "complex_b8_l1024_n512_lambda": (ring((512,)), normal_pair((8, 1024, 512))),
         }
         for name, (a, b) in cases.items():
             for reverse in (False, True):
@@ -319,6 +478,28 @@ def main() -> int:
                                   f"da_abs={da_e:.2e},da_err_over_tol={da_ratio:.3f}")
                 if not (h_err <= SCAN_RTOL_OF_MAX * h_scale and d_e <= d_tol and da_ratio <= 1.0):
                     raise AssertionError(f"diag_scan_bwd {tag}: {ph.fields[tag]}")
+
+    # the fused head's three kernels against the plain version, at the LM's
+    # (B·L, D, V) and two small shapes; times at the LM's shape
+    flush = torch.empty(64 * 2**20, device=dev)  # 256 MB, over the 50 MB L2
+    with Phase("fused_xent_vs_plain") as ph:
+        xent_errs = {}
+        for name, (M, D, V) in XENT_SHAPES.items():
+            h, weight, b, labels = xent_inputs(dev, gen, M, D, V)
+            fields, errs, (lse, gscale) = check_fused_xent(
+                fx, h, weight.t(), b, labels, f64=(M, D, V) == XENT_SHAPES["m8192_d512_v50257"])
+            ph.fields[name] = repr(fields)
+            if not xent_errs:  # the LM's shape comes first
+                xent_errs, xent_io = errs, (h, weight, b, labels, lse, gscale)
+    with Phase("fused_xent_timing") as ph:
+        h, weight, b, labels, lse, gscale = xent_io
+        xent_times = time_fused_xent(fx, h, weight.t(), b, labels, lse, gscale, flush)
+        for name, (k_ms, p_ms, l_ms, bound, by, n_bytes, flops) in xent_times.items():
+            ph.fields[name] = (f"ms_cold_median={k_ms:.4f},plain_ms={p_ms:.4f},"
+                               f"library_ms={l_ms:.4f},bound_ms={bound:.4f}({by}),"
+                               f"gflop={flops / 1e9:.1f},tflops={flops / k_ms / 1e9:.2f}")
+        del h, weight, b, labels, lse, gscale, xent_io
+        torch.cuda.empty_cache()
 
     # the full-width model, its data and its weights
     cfg = MQAR_LRU_FULL
@@ -377,13 +558,13 @@ def main() -> int:
                 raise AssertionError("init spectra off the [r_min, r_max] ring / phase range")
             (out_dir,) = [os.path.join(tmp, d) for d in os.listdir(tmp)]
             files = sorted(os.listdir(out_dir))
-            want = sorted([f"{k}.npy" for k in (
+            want_files = sorted([f"{k}.npy" for k in (
                 "eig", "eig_init", "percentage", "percentage_init", "percentage_phase",
                 "percentage_phase_init", "percentage_mean", "percentage_init_mean",
                 "percentage_std", "percentage_init_std")] + ["percentage_file.txt"]
                 + (["used_config.yaml"] if has_yaml else []))
-            if files != want:
-                raise AssertionError(f"artifact files {files} != {want}")
+            if files != want_files:
+                raise AssertionError(f"artifact files {files} != {want_files}")
             ph.fields.update(eig_shape=eig.shape, n_files=len(files),
                              radius_pct_layer0=np.round(perc[:, 0], 1).tolist())
     finally:
@@ -483,8 +664,9 @@ def main() -> int:
             train_s = time.perf_counter() - t0
             path2 = dict(LAUNCHES)
             n_eval_batches = len(result.history) * (len(test_split[0]) // bsz)
-            want = {"diag_scan": n_layers * (TRAIN_STEPS + n_eval_batches),
-                    "diag_scan_bwd": n_layers * TRAIN_STEPS}
+            want = dict.fromkeys(LAUNCHES, 0)  # the MQAR LRU trains through the sparse head
+            want.update(diag_scan=n_layers * (TRAIN_STEPS + n_eval_batches),
+                        diag_scan_bwd=n_layers * TRAIN_STEPS)
             if path2 != want:
                 raise AssertionError(f"training launches {path2}, expected {want}")
             for rec in result.history:
@@ -631,7 +813,6 @@ def main() -> int:
             ph.fields.update(device_busy_ms="not measured")
 
     # 11. the kernels at the path's shape: time, bound, plain version
-    flush = torch.empty(64 * 2**20, device=dev)  # 256 MB, over the 50 MB L2
     with Phase("kernel_timing") as ph, torch.no_grad():
         lam, (bn_re, bn_im) = seq.lam(), seq.input_matrix()
         a = lam  # the (N,) pair the LRU passes
@@ -676,12 +857,203 @@ def main() -> int:
                          bound_ms=f"{b_bound:.5f}", bytes=b_bytes, plain_ms=f"{b_plain:.3f}",
                          d_max_abs_err=f"{d_e:.3e}", da_max_abs_err=f"{da_e:.3e}")
 
+    # main path 3, the WikiText LM trained through the fused head, then its
+    # checkpoint eigen-analysed and served: every count set to 0 before
+    # training, read after training and again after serving
+    lm_cfg = copy.deepcopy(WIKITEXT_LRU_SHORT)
+    lm_m = lm_cfg["model"]
+    lm_bsz, lm_L, lm_layers = lm_cfg["train"]["batch_size"], lm_m["seq_len"], lm_m["num_layers"]
+    lm_tmp = tempfile.mkdtemp(prefix="tlie_lm_")
+    lm_cfg["save"] = os.path.join(lm_tmp, "checkpoint", "wikitext-lru-short")
+    lm_cfg["train"].update(total_steps=LM_STEPS, eval_every=LM_STEPS, fused_xent=True)
+    try:
+        with Phase("lm_data") as ph:
+            lm_data = WikiText(**lm_cfg["dataset"])
+            lm_train, lm_test = lm_data.split("train"), lm_data.split("test")
+            lm_cfg = derive_runtime_fields(lm_cfg, lm_data.l_max, len(lm_train[0]))
+            if lm_cfg["train"]["train_size"] != WIKITEXT_LRU_SHORT["train"]["train_size"]:
+                raise AssertionError("the synthetic stream is not the config's")
+            ph.fields.update(train_blocks=len(lm_train[0]), test_blocks=len(lm_test[0]),
+                             block=lm_L, vocab=lm_data.d_output)
+
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        with Phase("lm_train") as ph:
+            t0 = time.perf_counter()
+            lm_result = train(lm_cfg, lm_train, lm_test, device=dev)
+            torch.cuda.synchronize()
+            lm_train_s = time.perf_counter() - t0
+            path3 = dict(LAUNCHES)
+            n_eval_batches = len(lm_result.history) * (len(lm_test[0]) // lm_bsz)
+            # the fused kernels once per step each and never in the eval
+            # (dense head); the scans once per layer per step and eval batch
+            want = dict.fromkeys(LAUNCHES, 0)
+            want.update(diag_scan=lm_layers * (LM_STEPS + n_eval_batches),
+                        diag_scan_bwd=lm_layers * LM_STEPS, fused_xent_fwd=LM_STEPS,
+                        fused_xent_dh=LM_STEPS, fused_xent_dw=LM_STEPS)
+            if path3 != want:
+                raise AssertionError(f"LM training launches {path3}, expected {want}")
+            for rec in lm_result.history:
+                if not all(np.isfinite(v) for v in rec.values()) or rec["test_perf"] < 1.0:
+                    raise AssertionError(f"LM training numbers {rec}")
+            ph.fields.update(steps=LM_STEPS, seconds=f"{lm_train_s:.2f}",
+                             eval_batches=n_eval_batches,
+                             history=repr([{k: round(v, 4) for k, v in r.items()}
+                                           for r in lm_result.history]),
+                             launches=repr(path3))
+
+        with Phase("lm_checkpoint_eval_eig_serving") as ph:
+            ckpt_path, perf = lm_result
+            eig_dir = os.path.join(lm_tmp, "analysis")
+            eig, eig_init, perc, _, _, _ = eval_eig(lm_cfg, {"save_path": eig_dir}, perf,
+                                                    ckpt_path, device=dev)
+            live = extract_ssm_family(ssm_layer_params(
+                {k: v.cpu() for k, v in lm_result.model.state_dict().items()}), lm_m)
+            (run_dir,) = os.listdir(eig_dir)
+            files = sorted(os.listdir(os.path.join(eig_dir, run_dir)))
+            if eig.shape != (lm_m["state_dim"], lm_layers) or not np.array_equal(eig, live):
+                raise AssertionError("LM spectra from the checkpoint differ from the live weights")
+            if files != want_files or not run_dir.startswith("WikiText"):
+                raise AssertionError(f"LM artifacts {run_dir}: {files}")
+            dec = Decoder(lm_m, lm_result.eval_model)
+            prompts = torch.as_tensor(lm_test[0][:8, : lm_L - n_new], device=dev)
+            out = dec.generate(prompts, n_new)
+            _, last = dec.prefill(prompts)
+            with torch.no_grad():
+                full_prompt = lm_result.eval_model(prompts)[:, -1]
+            torch.cuda.synchronize()
+            if out.shape != (8, lm_L) or int(out.min()) < 0 or int(out.max()) >= lm_m["output_dim"]:
+                raise AssertionError("generation from the trained LM failed")
+            if not torch.allclose(last, full_prompt, rtol=LOGIT_RTOL, atol=LOGIT_ATOL):
+                raise AssertionError(
+                    f"LM prefill vs forward: {(last - full_prompt).abs().max().item()}")
+            ph.fields.update(checkpoint=os.path.basename(ckpt_path), perplexity=f"{perf:.2f}",
+                             artifacts=run_dir, n_files=len(files),
+                             radius_pct_layer0=np.round(perc[:, 0], 1).tolist(),
+                             prefill_vs_forward_max_abs=f"{(last - full_prompt).abs().max().item():.3e}")
+        path3_all = dict(LAUNCHES)
+        print(f"[launches] LM training: {path3}; with eval_eig, serving: {path3_all}", flush=True)
+    finally:
+        shutil.rmtree(lm_tmp, ignore_errors=True)
+
+    # 12. one fused-head LM step against one dense-head step, on the card,
+    # from the same weights (dropout 0) and batch
+    with Phase("lm_fused_vs_dense_step") as ph:
+        lm_x = torch.as_tensor(lm_train[0][:lm_bsz], device=dev)
+        lm_y = torch.as_tensor(lm_train[1][:lm_bsz], device=dev)
+        lt = lm_cfg["train"]
+        lm_lrs = {"regular": lt["lr"], "ssm": lt["ssm_lr"]}
+
+        def lm_step(fused):
+            m, _, _ = build_models(lm_m, generator=torch.Generator().manual_seed(lm_cfg["seed"]),
+                                   device=dev)
+            opt = make_optimizer(m, lm_m["ssm_lr_vars"], lt["lr"], lt["ssm_lr"], lt["wd"],
+                                 tuple(lt["betas"]))
+            feats = []  # the backbone's features, then their gradient
+
+            def keep(mod, inp, out):
+                feats.append(out.detach())
+                out.register_hook(feats.append)
+
+            hook = m.encoder.register_forward_hook(keep)
+            loss = train_step(m, opt, lm_x, lm_y, lm_lrs, fused_head=fused)
+            hook.remove()
+            grads = {n: p.grad for n, p in m.named_parameters()}
+            return float(loss), feats[0], feats[1], grads, [b.clone() for b in m.buffers()]
+
+        f_loss, feats, f_df, f_g, f_stats = lm_step(True)
+        d_loss, _, d_df, d_g, d_stats = lm_step(False)
+        # the same weights on the CPU: their decoder gives the head's term
+        # sums, and the dense step in float64 is the reference
+        ref_m, _, _ = build_models(lm_m, generator=torch.Generator().manual_seed(lm_cfg["seed"]),
+                                   device="cpu")
+        rows = feats.reshape(-1, feats.shape[-1])
+        w_lm = ref_m.decoder.weight.detach().to(dev).t()
+        b_lm = ref_m.decoder.bias.detach().to(dev)
+        labels = lm_y.reshape(-1)
+        _, lse = fx.fused_xent_fwd_plain(rows, w_lm, b_lm, labels)
+        gscale = torch.full((1,), 1.0 / int((labels != -100).sum()), device=dev)
+        s_dh, s_dw, s_db = fx.grad_term_scales(rows, w_lm, b_lm, labels, lse, gscale)
+        rtol = xent_grad_rtol(rows, w_lm, b_lm)
+        head = {"features": ((f_df - d_df).reshape(-1, rows.shape[1]).abs(), s_dh),
+                "decoder.weight": ((f_g["decoder.weight"] - d_g["decoder.weight"]).abs(), s_dw.t()),
+                "decoder.bias": ((f_g["decoder.bias"] - d_g["decoder.bias"]).abs(), s_db)}
+        head_ratio = max((err / (rtol * sc + 1e-30)).max().item() for err, sc in head.values())
+        del rows, w_lm, b_lm, lse, s_dh, s_dw, s_db, head
+        t0 = time.perf_counter()
+        ref_m = ref_m.double()
+        ref_loss = cross_entropy_loss(ref_m(lm_x.cpu()), lm_y.cpu())
+        ref_loss.backward()
+        f64_s = time.perf_counter() - t0
+        g_ratio, g_leaf = 0.0, ""
+        for n, p in ref_m.named_parameters():
+            g64 = p.grad
+            e_fused = (f_g[n].cpu().double() - g64).abs().max().item()
+            e_dense = (d_g[n].cpu().double() - g64).abs().max().item()
+            allowed = max(GRAD_F64_FACTOR * e_dense, 1e-5 * g64.abs().max().item())
+            if e_fused / allowed > g_ratio:
+                g_ratio, g_leaf = e_fused / allowed, n
+        loss64_rel = abs(f_loss - ref_loss.item()) / abs(ref_loss.item())
+        del ref_m, ref_loss
+        s_worst = max(((a - c).abs() / c.abs().clamp_min(1.0)).max().item()
+                      for a, c in zip(f_stats, d_stats))
+        loss_rel = abs(f_loss - d_loss) / abs(d_loss)
+        ph.fields.update(loss_fused=f"{f_loss:.6f}", loss_dense=f"{d_loss:.6f}",
+                         loss_rel=f"{loss_rel:.2e}",
+                         head_grads_err_over_tol=f"{head_ratio:.3f}(rtol_of_term_sums={rtol:.2e})",
+                         loss_vs_f64_rel=f"{loss64_rel:.2e}", f64_cpu_step_s=f"{f64_s:.1f}",
+                         grads_vs_f64_err_over_allowed=f"{g_ratio:.3f}({g_leaf})",
+                         batch_stats_worst_rel=f"{s_worst:.2e}")
+        if not (loss_rel <= XENT_RTOL and loss64_rel <= XENT_RTOL and head_ratio <= 1.0
+                and g_ratio <= 1.0 and s_worst <= STATS_RTOL):
+            raise AssertionError(f"fused vs dense LM step: {ph.fields}")
+        del f_g, d_g, feats, f_df, d_df
+        torch.cuda.empty_cache()
+
+    # 13. an LM training step's time and the fused head's share of it
+    with Phase("lm_train_step_timing") as ph:
+        lm_opt = make_optimizer(lm_result.model, lm_m["ssm_lr_vars"], lt["lr"], lt["ssm_lr"],
+                                lt["wd"], tuple(lt["betas"]))
+
+        def lm_one_step():
+            train_step(lm_result.model, lm_opt, lm_x, lm_y, lm_lrs, fused_head=True)
+
+        for _ in range(2):
+            lm_one_step()
+        torch.cuda.synchronize()
+        n_timed = 5
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n_timed):
+            lm_one_step()
+        end.record()
+        torch.cuda.synchronize()
+        lm_step_ms = start.elapsed_time(end) / n_timed
+        ops = top_device_ops(lm_one_step, k=1000)
+        busy = sum(t for _, t in ops)
+        ph.fields.update(ms_per_step=f"{lm_step_ms:.3f}",
+                         train_tokens_per_s=f"{lm_bsz * lm_L / lm_step_ms * 1e3:.0f}")
+        if busy > 0:
+            head_ms = sum(t for name, t in ops if "xent" in name)
+            by_kind = {}
+            for name, t in ops:
+                op_kind = next((k for k, pats in OP_KINDS if any(p in name for p in pats)), "other")
+                by_kind[op_kind] = round(by_kind.get(op_kind, 0.0) + t, 4)
+            ph.fields.update(device_busy_ms=f"{busy:.4f}",
+                             idle_share=f"{max(0.0, 1 - busy / lm_step_ms):.3f}",
+                             fused_head_ms=f"{head_ms:.4f}",
+                             fused_head_share_of_device=f"{head_ms / busy:.4f}",
+                             device_ms_by_kind=repr(sorted(by_kind.items(), key=lambda kv: -kv[1])),
+                             top_device_ops_ms=repr(short(ops[:10])))
+        else:
+            ph.fields.update(device_busy_ms="not measured")
+
     kernels = [{
         "name": "diag_scan",
         "route": "cuda",
         "source": "tlie_tpu_torch/ops/csrc/diag_scan.cu",
         "replaces": "tlie_tpu/ops/pallas_scan.py:107",
-        "launches": path1["diag_scan"] + path2_all["diag_scan"],
+        "launches": path1["diag_scan"] + path2_all["diag_scan"] + path3_all["diag_scan"],
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain,
@@ -693,7 +1065,8 @@ def main() -> int:
         "route": "cuda",
         "source": "tlie_tpu_torch/ops/csrc/diag_scan_bwd.cu",
         "replaces": "tlie_tpu/ops/pallas_scan.py:192",
-        "launches": path1["diag_scan_bwd"] + path2_all["diag_scan_bwd"],
+        "launches": (path1["diag_scan_bwd"] + path2_all["diag_scan_bwd"]
+                     + path3_all["diag_scan_bwd"]),
         "max_abs_err": max(d_e, da_e),
         "ms": b_ms,
         "plain_ms": b_plain,
@@ -701,6 +1074,23 @@ def main() -> int:
         "bound_by": "bytes" if b_bytes_ms >= b_flops_ms else "operations",
         "library_ms": None,  # no single PyTorch call computes the recurrence's gradient
     }]
+    replaces = {"fused_xent_fwd": "tlie_tpu/ops/fused_xent.py:126",
+                "fused_xent_dh": "tlie_tpu/ops/fused_xent.py:228",
+                "fused_xent_dw": "tlie_tpu/ops/fused_xent.py:246"}
+    for name, (k_ms, p_ms, l_ms, bound, by, _, _) in xent_times.items():
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "tlie_tpu_torch/ops/csrc/fused_xent.cu",
+            "replaces": replaces[name],
+            "launches": path3_all[name],
+            "max_abs_err": xent_errs[name],
+            "ms": k_ms,
+            "plain_ms": p_ms,
+            "bound_ms": bound,
+            "bound_by": by,
+            "library_ms": l_ms,  # addmm + F.cross_entropy, autograd for the gradients
+        })
     print(f"[total] {time.perf_counter() - T_START:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

@@ -101,3 +101,72 @@ def test_backward_kernel_matches_plain(cuda_device, shape, a_shape, reverse):
     tol = RTOL_OF_MAX * _sum_to(d_abs.max() * h_prev + d_abs * hmax, torch.Size(a_shape))
     for x, y in zip(da, da_ref):
         assert x.shape == a_shape and bool(((x - y).abs() <= tol).all())
+
+
+# -- the fused decoder + cross-entropy kernels ----------------------------------
+# loss and lse within 1e-5 relative (float32 sums of D products, exp and log);
+# each gradient element within (1e-5 + sqrt(D)·u·Z) of the sum of the
+# magnitudes of its terms: dh sums V terms and dW M terms, so float32
+# rounding grows with that sum, not with the element's own size; and each
+# term's factor softmax - onehot carries the absolute rounding of its logit
+# as a relative error, a sum of D products bounded by Z = max|h_m|·max|W_v|
+# + max|b| (u = 2^-24), as chip_smoke.py states.
+
+XENT_RTOL = 1e-5
+
+
+def _grad_rtol(h, w, b):
+    z = (h.norm(dim=1).max() * w.norm(dim=0).max() + b.abs().max()).item()
+    return XENT_RTOL + h.shape[1] ** 0.5 * 2.0 ** -24 * z
+
+
+def _xent_inputs(device, M, D, V, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    h = torch.randn(M, D, device=device, generator=g)
+    w = (torch.randn(V, D, device=device, generator=g) / D ** 0.5).t()  # nn.Linear layout
+    b = 0.1 * torch.randn(V, device=device, generator=g)
+    labels = torch.randint(0, V, (M,), device=device, generator=g)
+    labels[::7] = -100
+    return h, w, b, labels
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M, D, V", [(128, 32, 300), (1024, 64, 1000), (256, 512, 50257)],
+                         ids=["v_below_tile", "ragged_v", "lm_width"])
+def test_fused_xent_kernels_match_plain(cuda_device, M, D, V):
+    from tlie_tpu_torch.ops import fused_xent as fx
+
+    h, w, b, labels = _xent_inputs(cuda_device, M, D, V, seed=3)
+    before = {k: LAUNCHES[k] for k in ("fused_xent_fwd", "fused_xent_dh", "fused_xent_dw")}
+    loss, lse = fx.fused_xent_fwd_cuda(h, w, b, labels)
+    ref_loss, ref_lse = fx.fused_xent_fwd_plain(h, w, b, labels)
+    gscale = torch.full((1,), 1.0 / int((labels != -100).sum()), device=cuda_device)
+    dh = fx.fused_xent_dh_cuda(h, w, b, labels, ref_lse, gscale)
+    dw, db = fx.fused_xent_dw_cuda(h, w, b, labels, ref_lse, gscale)
+    torch.cuda.synchronize()
+    assert {k: LAUNCHES[k] - n for k, n in before.items()} == dict.fromkeys(before, 1)
+    ref = fx.fused_xent_bwd_plain(h, w, b, labels, ref_lse, gscale)
+    scales = fx.grad_term_scales(h, w, b, labels, ref_lse, gscale)
+    assert bool(((lse - ref_lse).abs() <= XENT_RTOL * ref_lse.abs()).all())
+    assert float(loss.sum()) == pytest.approx(float(ref_loss.sum()), rel=XENT_RTOL)
+    assert dw.shape == w.shape and dw.stride() == w.stride()
+    rtol = _grad_rtol(h, w, b)
+    for got, want, scale in zip((dh, dw, db), ref, scales):
+        assert bool(((got - want).abs() <= rtol * scale + 1e-30).all())
+
+
+@pytest.mark.gpu
+def test_fused_xent_autograd_goes_through_the_kernels(cuda_device):
+    from tlie_tpu_torch.ops import fused_xent as fx
+
+    h, w, b, labels = _xent_inputs(cuda_device, 256, 64, 700, seed=4)
+    weight = w.t().contiguous().requires_grad_()
+    hh, bb = h.clone().requires_grad_(), b.clone().requires_grad_()
+    before = dict(LAUNCHES)
+    fx.fused_softmax_xent(hh, weight.t(), bb, labels).backward()
+    for k in ("fused_xent_fwd", "fused_xent_dh", "fused_xent_dw"):
+        assert LAUNCHES[k] == before[k] + 1
+    with pytest.raises(ValueError, match="transpose of a row-major"):
+        fx.fused_softmax_xent(h, w.contiguous(), b, labels)
+    with pytest.raises(TypeError, match="float32"):
+        fx.fused_softmax_xent(h.bfloat16(), w, b, labels)

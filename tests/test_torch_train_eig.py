@@ -108,10 +108,12 @@ def test_train_fields_refuse_what_is_not_ported():
     cfg = small_config()
     cfg["lang_model"] = True
     assert train_fields(cfg)["warmup"] == 60
-    for key, value in (("fused_xent", True), ("checkpoint_every", 100), ("sequence_parallel", 2)):
+    for key, value in (("checkpoint_every", 100), ("sequence_parallel", 2)):
         bad = dict(cfg, train=dict(cfg["train"], **{key: value}))
         with pytest.raises(NotImplementedError, match=key):
             train_fields(bad)
+    # the fused head is ported: the flag is taken
+    assert train_fields(dict(cfg, train=dict(cfg["train"], fused_xent=True)))["warmup"] == 60
     epochs = dict(cfg, lang_model=False, dataset=dict(cfg["dataset"], _name_="cifar"))
     with pytest.raises(NotImplementedError, match="epoch-driven"):
         train_fields(epochs)

@@ -1,7 +1,7 @@
 """Experiment configuration: the parts of ``tlie_tpu/config/schema.py`` the
 LRU slices use (runtime fields, ``lang_model``, ``checkpoint_name``), the
 train fields and the step-driven choice of ``tlie_tpu/training/loop.py``,
-and the full-width MQAR LRU as a Python dict.
+and the full-width MQAR LRU and WikiText LRU as Python dicts.
 
 YAML is read only inside :func:`load_yaml`, so that the package and the card
 run (``chip_smoke.py``) need no ``yaml`` module.
@@ -72,8 +72,7 @@ def step_driven(cfg: Dict[str, Any]) -> bool:
 
 # train options the port does not carry yet, with the value that leaves them off
 _NOT_PORTED = {
-    "fused_xent": False, "checkpoint_every": None, "resume": False,
-    "model_parallel": 1, "sequence_parallel": 1,
+    "checkpoint_every": None, "resume": False, "model_parallel": 1, "sequence_parallel": 1,
 }
 
 
@@ -82,8 +81,7 @@ def train_fields(cfg: Dict[str, Any]) -> Dict[str, Any]:
     ``tlie_tpu/training/loop.py``'s defaults (``warmup_steps`` wins over
     ``warmup``; ``ssm_lr`` defaults to ``lr``; plateau decay is on when
     ``reduce_factor`` is given).  Raises for what the port does not run yet:
-    epoch-driven training, the fused head, resume snapshots and the
-    multi-device modes."""
+    epoch-driven training, resume snapshots and the multi-device modes."""
     if not step_driven(cfg):
         raise NotImplementedError("epoch-driven training is not ported yet")
     train = cfg["train"]
@@ -135,6 +133,37 @@ MQAR_LRU_FULL: Dict[str, Any] = {
         "ssm_lr_vars": ["Lambda_re", "Lambda_im", "P", "B", "log_step"],
         "prenorm": False, "dual": False, "decode": False,
         "r_min": 0.9, "r_max": 0.99, "seq_len": 512,
+    },
+    "lang_model": True,
+}
+
+
+# configs/wikitext-lru-short.yaml after derive_runtime_fields with the
+# synthetic WikiText-103 it names (block 1024: 1,953 train blocks of the
+# 2,000,000-token stream); a CPU test pins this dict to the YAML as
+# tlie_tpu.config resolves it.  The config leaves train.fused_xent off; the
+# card run turns it on.
+WIKITEXT_LRU_SHORT: Dict[str, Any] = {
+    "seed": 1919,
+    "save": "./checkpoint/wikitext-lru-short",
+    "dataset": {
+        "name": "WikiText", "_name_": "wikitext", "version": 103, "block_size": 1024,
+        "data_dir": "", "fixed_size": True, "synthetic": True,
+    },
+    "train": {
+        "total_steps": 1500, "batch_size": 8, "eval_every": 500, "betas": [0.9, 0.95],
+        "param_group": None, "wd": 0.1, "cosine_anneal": True, "warmup_steps": 150,
+        "lr": 0.001, "ssm_lr": 0.001, "lr_min": 1.0e-07, "reduce_factor": 0.5,
+        "lr_patience": 5, "padded": False, "train_size": 1953,
+    },
+    "model": {
+        "layer": "lru", "dt_min": 0.001, "dt_max": 0.1, "num_layers": 6,
+        "activation": "full_glu", "input_dim": 50257, "output_dim": 50257,
+        "hidden_dim": 512, "state_dim": 512, "dropout": 0, "norm": "batch",
+        "pooling": "none",
+        "ssm_lr_vars": ["Lambda_re", "Lambda_im", "P", "B", "log_step"],
+        "prenorm": False, "dual": False, "decode": False,
+        "r_min": 0.9, "r_max": 0.99, "seq_len": 1024,
     },
     "lang_model": True,
 }

@@ -1,3 +1,8 @@
-from .mqar import MQAR, masked_accuracy, multiquery_ar
+from .base import masked_accuracy, perplexity
+from .mqar import MQAR, multiquery_ar
+from .wikitext import WikiText
 
-__all__ = ["MQAR", "masked_accuracy", "multiquery_ar"]
+# the datasets the port loads, by the config's ``dataset._name_``
+DATASETS = {"mqar": MQAR, "wikitext": WikiText}
+
+__all__ = ["DATASETS", "MQAR", "WikiText", "masked_accuracy", "multiquery_ar", "perplexity"]

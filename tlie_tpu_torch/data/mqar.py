@@ -1,6 +1,6 @@
 """MQAR, multi-query associative recall: the numpy generator of
-``tlie_tpu/data/mqar.py`` copied as it is, a dataset holder with its train
-and test streams, and the masked accuracy of ``tlie_tpu/data/base.py``.
+``tlie_tpu/data/mqar.py`` copied as it is, and a dataset holder with its
+train and test streams and its metric, the masked accuracy.
 
 The port does not carry the native C++ generator: ``MQAR`` always draws with
 numpy, as ``tlie_tpu``'s ``MQAR(use_native=False)`` does.
@@ -11,7 +11,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
-import torch
+
+from .base import masked_accuracy
 
 
 def multiquery_ar(
@@ -104,6 +105,10 @@ class MQAR:
     def d_output(self) -> int:
         return self.vocab_size
 
+    @staticmethod
+    def get_metrics():
+        return masked_accuracy
+
     def split(self, name: str) -> Tuple[np.ndarray, np.ndarray]:
         """(inputs, labels) of the ``"train"`` or ``"test"`` split."""
         if name not in ("train", "test"):
@@ -118,12 +123,3 @@ class MQAR:
             num_kv_pairs=self.num_kv_pairs,
             random_non_queries=self.random_non_queries,
         )
-
-
-def masked_accuracy(logits: torch.Tensor, labels: torch.Tensor, ignore_idx: int = -100):
-    """Accuracy over positions whose label != ignore_idx (MQAR metric,
-    ref dataloaders/mqar.py:171)."""
-    pred = torch.argmax(logits, dim=-1)
-    mask = labels != ignore_idx
-    correct = (mask & (pred == labels)).sum()
-    return correct / mask.sum().clamp_min(1)

@@ -7,13 +7,16 @@ path (on the card, the diagonal-scan kernel) and keeps the last state;
 ``step`` then advances one token in O(1).  ``stepwise_logits`` is the
 teacher-forced step path, the parity surface against the full forward.
 
-The decoder reuses the model's own modules (encoder gather, norms, GLU,
-head); only the SSM core differs between the full-sequence and the one-token
-paths.
+The decoder serves an eval-mode copy of the model it is given (encoder
+gather, norms, GLU, head): the weights as they were when it was built, as
+``tlie_tpu``'s decoder serves the params tree it was handed.  The caller's
+module is left as it was, in its own mode.  Only the SSM core differs
+between the full-sequence and the one-token paths.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Dict, Mapping, Tuple, Union
 
 import torch
@@ -32,7 +35,7 @@ class Decoder:
     >>> out = dec.generate(prompt_tokens, n_new=16)     # greedy
 
     ``params`` is a port ``state_dict`` (as ``compat.params_from_jax`` gives
-    it) or a built ``ClassificationModel``."""
+    it) or a built ``ClassificationModel``, which is copied, not changed."""
 
     def __init__(self, model_cfg: Dict[str, Any],
                  params: Union[Mapping[str, torch.Tensor], ClassificationModel],
@@ -47,7 +50,7 @@ class Decoder:
             raise ValueError("decode requires pooling: none")
         self.cfg = cfg
         if isinstance(params, nn.Module):
-            self.model = params.eval()
+            self.model = copy.deepcopy(params).eval()
         else:
             _, self.model, _ = build_models(cfg, generator=torch.Generator(), device=device)
             self.model.load_state_dict(params)

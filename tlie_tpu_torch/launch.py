@@ -7,8 +7,9 @@
 run trains on the card unless ``--device cpu`` is given (a CUDA request
 without a card raises), writes the checkpoint named by the config's
 ``save``, and runs ``eval_eig`` of the trained weights into the analysis
-config's ``save_path``.  This slice runs MQAR only; ``--sweep`` and W&B are
-not ported yet and raise.
+config's ``save_path``.  The datasets are those of
+:data:`tlie_tpu_torch.data.DATASETS` (MQAR, WikiText); ``--sweep`` and W&B
+are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -47,11 +48,12 @@ def main(argv=None) -> int:
     do_analysis = args.analysis_config != "no-analysis"
     conf_args = load_yaml(_resolve(args.analysis_config)) if do_analysis else None
 
-    from .data import MQAR
+    from .data import DATASETS
 
-    if cfg["dataset"].get("_name_") != "mqar":
-        raise NotImplementedError(f"dataset {cfg['dataset'].get('_name_')!r} is not ported yet")
-    data = MQAR(**cfg["dataset"])
+    name = cfg["dataset"].get("_name_")
+    if name not in DATASETS:
+        raise NotImplementedError(f"dataset {name!r} is not ported yet")
+    data = DATASETS[name](**cfg["dataset"])
     train_split, test_split = data.split("train"), data.split("test")
     cfg = derive_runtime_fields(cfg, data.l_max, len(train_split[0]))
 

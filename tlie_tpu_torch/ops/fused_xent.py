@@ -1,0 +1,284 @@
+"""Fused decoder + softmax cross-entropy, counterpart of
+``tlie_tpu/ops/fused_xent.py``.
+
+``fused_softmax_xent(h, w, b, labels)`` is the mean, over the rows whose
+label is not −100 (their count clamped to at least 1), of the softmax
+cross-entropy of ``h @ w + b``: h (M, D), w (D, V), b (V,), labels (M,) in
+JAX's layout.  :class:`FusedXentFn` is its ``torch.autograd.Function``
+(the ``jax.custom_vjp`` of the reference), giving (dh, dw, db).
+
+The weight's layout: the port's decoder is an ``nn.Linear`` whose weight is
+(V, D), and ``w`` is its transpose ``weight.t()``, a (D, V) view with strides
+(1, D).  That is the one layout the function takes, on every device: the
+kernels read the (V, D) rows in place, so the 103 MB weight of the WikiText
+LM is never copied, and a contiguous (D, V) ``w`` raises instead of being
+transposed silently.  ``dw`` comes back in the same layout.
+
+Float32 only: bf16 operands (``tlie_tpu/training/scan_loop.py:265-266``)
+raise.
+
+Where the work runs follows the tensors:
+
+* CUDA tensors go to the three kernels of ``csrc/fused_xent.cu``
+  (:func:`fused_xent_fwd_cuda`, :func:`fused_xent_dh_cuda`,
+  :func:`fused_xent_dw_cuda`), which replace the reference's three Pallas
+  kernels; the logits never reach device memory.  There is no fallback: a
+  tensor they do not take raises.
+* CPU tensors go to :func:`fused_xent_fwd_plain` and
+  :func:`fused_xent_bwd_plain`: the materialised ``h @ w + b``, its masked
+  logsumexp, and the backward written out as
+  ``(softmax − onehot) · g / n_valid`` (the reference's ``_vjp_bwd``).  They
+  are also what the kernels are held against on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from ._build import LAUNCHES, CudaLibrary, check
+
+IGNORE = -100
+
+# The reference's row tiles (tlie_tpu/ops/fused_xent.py:46).  The CUDA
+# kernels tile rows by their own 32; _pick_tm keeps the reference's rule for
+# which row counts the function takes.
+_TM_CANDIDATES = (1024, 512, 256, 128)
+_MAX_D = 1024  # the backward's (32, D) accumulator lives in shared memory
+_KERNEL_Q = 128  # vocabulary rows per tile of the forward kernel
+
+_P, _I = ctypes.c_void_p, ctypes.c_int64
+FUSED_XENT = CudaLibrary("fused_xent", {
+    "tlie_fused_xent_fwd_f32": (_P,) * 7 + (_I,) * 4 + (_P,),
+    "tlie_fused_xent_dh_f32": (_P,) * 7 + (_I,) * 3 + (_P,),
+    "tlie_fused_xent_dw_f32": (_P,) * 8 + (_I,) * 3 + (_P,),
+})
+for _name in ("fused_xent_fwd", "fused_xent_dh", "fused_xent_dw"):
+    LAUNCHES.setdefault(_name, 0)
+
+
+def _pick_tm(M: int) -> int:
+    for tm in _TM_CANDIDATES:
+        if M % tm == 0:
+            return tm
+    raise ValueError(f"row count {M} not tileable by 128")
+
+
+def fused_xent_eligible(M: int, D: int, V: int) -> bool:
+    # V needs no divisibility: a ragged trailing vocab tile is masked to
+    # -1e30 in-kernel, contributing exp(-1e30 - m) = 0 to every statistic
+    # and zero gradient
+    return M % _TM_CANDIDATES[-1] == 0 and D <= 1024
+
+
+def fused_softmax_xent(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                       labels: torch.Tensor) -> torch.Tensor:
+    """Mean masked softmax cross-entropy of ``h @ w + b`` against
+    ``labels`` (−100 ignored), a scalar; differentiable in h, w and b."""
+    _check_operands(h, w, b, labels)
+    return FusedXentFn.apply(h, w, b, labels)
+
+
+def _check_operands(h, w, b, labels) -> None:
+    """The contract of the function on every device: float32 h (M, D)
+    contiguous, w (D, V) as the transpose of a row-major (V, D) weight,
+    b (V,), integer labels (M,), and M a multiple of 128 (``_pick_tm``)."""
+    for name, t in (("h", h), ("w", w), ("b", b)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"fused_softmax_xent takes float32 operands; {name} is {t.dtype} "
+                            "(bf16 operands are not ported yet)")
+    if h.dim() != 2 or w.dim() != 2 or b.dim() != 1 or labels.dim() != 1:
+        raise ValueError("fused_softmax_xent takes h (M, D), w (D, V), b (V,), labels (M,)")
+    (M, D), V = h.shape, w.shape[1]
+    if w.shape[0] != D or b.shape[0] != V or labels.shape[0] != M:
+        raise ValueError(f"shapes h {tuple(h.shape)}, w {tuple(w.shape)}, b {tuple(b.shape)}, "
+                         f"labels {tuple(labels.shape)} do not agree")
+    if not w.t().is_contiguous():
+        raise ValueError(
+            "fused_softmax_xent takes w as the transpose of a row-major (V, D) weight "
+            f"(nn.Linear.weight.t(), strides (1, D)); got strides {w.stride()}: "
+            "the 103 MB decoder weight is not copied to another layout")
+    if not h.is_contiguous() or not b.is_contiguous():
+        raise ValueError("fused_softmax_xent takes contiguous h and b")
+    if labels.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"labels must be integers, got {labels.dtype}")
+    if not (h.device == w.device == b.device == labels.device):
+        raise ValueError("fused_softmax_xent: operands on different devices")
+    if h.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"fused_softmax_xent runs on cuda or cpu, not {h.device}")
+    _pick_tm(M)  # raises where the reference's kernel takes no row tile
+    if D > _MAX_D:
+        raise ValueError(f"fused_softmax_xent takes D <= {_MAX_D}, got {D}")
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    """The routing decision: the kernels for CUDA tensors, the plain
+    versions for CPU tensors (``_check_operands`` refuses any other)."""
+    return t.device.type == "cuda"
+
+
+class FusedXentFn(torch.autograd.Function):
+    """Autograd around the fused head: the kernels for CUDA tensors, the
+    plain versions for CPU tensors, forward and backward alike.  Saves
+    (h, w, b, labels, lse, n_valid) as the reference's ``_vjp_fwd`` does."""
+
+    @staticmethod
+    def forward(ctx, h, w, b, labels):
+        labels = labels.long()
+        ctx.cuda = _on_cuda(h)
+        fwd = fused_xent_fwd_cuda if ctx.cuda else fused_xent_fwd_plain
+        loss_rows, lse = fwd(h, w, b, labels)
+        n_valid = (labels != IGNORE).sum().clamp_min(1)
+        ctx.save_for_backward(h, w, b, labels, lse, n_valid)
+        return loss_rows.sum() / n_valid
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w, b, labels, lse, n_valid = ctx.saved_tensors
+        gscale = (g.float() / n_valid).reshape(1)
+        if ctx.cuda:
+            dh = fused_xent_dh_cuda(h, w, b, labels, lse, gscale)
+            dw, db = fused_xent_dw_cuda(h, w, b, labels, lse, gscale)
+        else:
+            dh, dw, db = fused_xent_bwd_plain(h, w, b, labels, lse, gscale)
+        return dh, dw, db, None
+
+
+# -- plain versions -------------------------------------------------------------
+
+
+def fused_xent_fwd_plain(h, w, b, labels) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(loss per row, lse per row) from the materialised logits; the loss
+    is 0 on ignored rows, the lse is every row's."""
+    logits = torch.addmm(b, h, w)
+    lse = torch.logsumexp(logits, dim=-1)
+    valid = labels != IGNORE
+    picked = torch.gather(logits, 1, labels.clamp_min(0)[:, None])[:, 0]
+    return torch.where(valid, lse - picked, torch.zeros_like(lse)), lse
+
+
+def fused_xent_bwd_plain(h, w, b, labels, lse, gscale):
+    """(dh, dw, db) for the cotangent ``gscale`` (g / n_valid, shape (1,))
+    on every valid row's loss: t = (softmax − onehot) · gscale on valid rows
+    and 0 on ignored ones; dh = t wᵀ, dw = hᵀ t, db = Σ_rows t.  dw comes
+    back in w's layout."""
+    t = _dlogits_plain(h, w, b, labels, lse, gscale)
+    dw = (t.t() @ h).t()  # (D, V) with strides (1, D), as w
+    return t @ w.t(), dw, t.sum(0)
+
+
+def _dlogits_plain(h, w, b, labels, lse, gscale) -> torch.Tensor:
+    """The materialised (M, V) t = (softmax − onehot) · gscale · valid."""
+    t = torch.exp(torch.addmm(b, h, w) - lse[:, None])
+    valid = labels != IGNORE
+    rows = torch.arange(labels.shape[0], device=labels.device)
+    t[rows[valid], labels[valid]] -= 1.0
+    return t * (gscale * valid.to(t.dtype))[:, None]
+
+
+# -- the kernels ------------------------------------------------------------------
+
+
+def _check_cuda(tensors, what: str) -> torch.device:
+    dev = tensors[0].device
+    for t in tensors:
+        if not isinstance(t, torch.Tensor) or t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{what} takes CUDA tensors on one device")
+    return dev
+
+
+def forward_splits(M: int, V: int, n_sms: int) -> int:
+    """Vocabulary splits of the forward kernel: enough blocks for about four
+    per SM, each split with at least one 128-row vocabulary tile."""
+    row_tiles = -(-M // 32)
+    n_tiles = -(-V // _KERNEL_Q)
+    want = max(1, min(n_tiles, -(-4 * n_sms // row_tiles)))
+    per_split = -(-n_tiles // want)
+    return -(-n_tiles // per_split)
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def fused_xent_fwd_cuda(h, w, b, labels) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the forward of ``csrc/fused_xent.cu``: (loss per row, lse per
+    row), as :func:`fused_xent_fwd_plain`.  Operands as
+    :func:`fused_softmax_xent` takes them, labels int64, all on one card."""
+    dev = _check_cuda((h, w, b, labels), "fused_xent_fwd_cuda")
+    _check_operands(h, w, b, labels)
+    M, D = h.shape
+    V = w.shape[1]
+    labels = labels.long()
+    loss = torch.empty(M, device=dev)
+    lse = torch.empty(M, device=dev)
+    if M == 0:
+        return loss, lse
+    splits = forward_splits(M, V, torch.cuda.get_device_properties(dev).multi_processor_count)
+    part = torch.empty(3, splits, M, device=dev)
+    fn = FUSED_XENT.fn("tlie_fused_xent_fwd_f32")
+    with torch.cuda.device(dev):
+        err = fn(h.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(), loss.data_ptr(),
+                 lse.data_ptr(), part.data_ptr(), M, D, V, splits, _stream(dev))
+    check(err, "fused_xent_fwd")
+    LAUNCHES["fused_xent_fwd"] += 1
+    return loss, lse
+
+
+def _bwd_args(h, w, b, labels, lse, gscale, what):
+    dev = _check_cuda((h, w, b, labels, lse, gscale), what)
+    _check_operands(h, w, b, labels)
+    M = h.shape[0]
+    if lse.shape != (M,) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"{what}: lse must be contiguous float32 ({M},)")
+    if gscale.shape != (1,) or gscale.dtype != torch.float32:
+        raise ValueError(f"{what}: gscale must be float32 of shape (1,)")
+    return dev, labels.long()
+
+
+def fused_xent_dh_cuda(h, w, b, labels, lse, gscale) -> torch.Tensor:
+    """Launch the dh kernel of ``csrc/fused_xent.cu``: dh (M, D), as the
+    first output of :func:`fused_xent_bwd_plain`."""
+    dev, labels = _bwd_args(h, w, b, labels, lse, gscale, "fused_xent_dh_cuda")
+    M, D = h.shape
+    dh = torch.empty(M, D, device=dev)
+    if dh.numel() == 0:
+        return dh.zero_()
+    fn = FUSED_XENT.fn("tlie_fused_xent_dh_f32")
+    with torch.cuda.device(dev):
+        err = fn(h.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(), lse.data_ptr(),
+                 gscale.data_ptr(), dh.data_ptr(), M, D, w.shape[1], _stream(dev))
+    check(err, "fused_xent_dh")
+    LAUNCHES["fused_xent_dh"] += 1
+    return dh
+
+
+def fused_xent_dw_cuda(h, w, b, labels, lse, gscale) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the dW/db kernel of ``csrc/fused_xent.cu``: (dw, db), dw
+    (D, V) in w's layout (written as its (V, D) rows), as
+    :func:`fused_xent_bwd_plain`."""
+    dev, labels = _bwd_args(h, w, b, labels, lse, gscale, "fused_xent_dw_cuda")
+    M, D = h.shape
+    V = w.shape[1]
+    dw_rows = torch.empty(V, D, device=dev)
+    db = torch.empty(V, device=dev)
+    if M == 0 or dw_rows.numel() == 0:
+        return dw_rows.zero_().t(), db.zero_()
+    fn = FUSED_XENT.fn("tlie_fused_xent_dw_f32")
+    with torch.cuda.device(dev):
+        err = fn(h.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(), lse.data_ptr(),
+                 gscale.data_ptr(), dw_rows.data_ptr(), db.data_ptr(), M, D, V, _stream(dev))
+    check(err, "fused_xent_dw")
+    LAUNCHES["fused_xent_dw"] += 1
+    return dw_rows.t(), db
+
+
+def grad_term_scales(h, w, b, labels, lse, gscale):
+    """Σ|terms| of every gradient element, the scale to which float32
+    rounding of a sum is held: (|t| |w|ᵀ, |h|ᵀ |t| in w's layout, Σ_rows |t|)
+    with t as in :func:`fused_xent_bwd_plain`.  dh sums V terms per element
+    and dw M, so their errors are held to these sums, not to max|dh|."""
+    t = _dlogits_plain(h, w, b, labels, lse, gscale).abs()
+    return t @ w.t().abs(), (t.t() @ h.abs()).t(), t.sum(0)

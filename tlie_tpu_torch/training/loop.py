@@ -7,9 +7,14 @@ steps/s, tracks the best result, decays the plateau rates, and stops early
 once the test metric exceeds ``stop_criterion``.  The final checkpoint goes
 to ``checkpoint_name() + "-perf{:.3f}"`` as a ``.pth`` file.
 
+The decoder head of the training steps is the dense one, the sparse one
+(MQAR's few valid labels) or, with ``train.fused_xent``, the fused decoder +
+CE head, chosen as ``tlie_tpu`` chooses it (``loop.py:292-350``).  The eval
+runs the dense or sparse head and the dataset's metric.
+
 Not ported yet, and refused by :func:`tlie_tpu_torch.config.train_fields`:
-epoch-driven runs, data/tensor/sequence parallelism, the fused head,
-``checkpoint_every``/resume; W&B logging is not carried.
+epoch-driven runs, data/tensor/sequence parallelism, ``checkpoint_every``/
+resume; W&B logging is not carried.
 """
 
 from __future__ import annotations
@@ -22,10 +27,14 @@ import numpy as np
 import torch
 
 from ..config import checkpoint_name, lang_model, train_fields
+from ..data import DATASETS
 from ..device import resolve_device
 from ..models.registry import build_models
+from ..ops.fused_xent import fused_xent_eligible
 from .checkpoint import save_checkpoint
-from .scan_loop import batch_indices, eval_indices, evaluate, put_dataset, sparse_head_k_for
+from .scan_loop import (
+    batch_indices, eval_indices, evaluate, per_position, put_dataset, sparse_head_k_for,
+)
 from .schedules import PlateauState, lr_for_step, reduce_lr_on_plateau
 from .state import make_optimizer
 from .steps import train_step
@@ -43,15 +52,36 @@ class TrainResult(tuple):
         return result
 
 
+def use_fused_head(cfg: Dict[str, Any], batch_size: int) -> bool:
+    """``train.fused_xent`` on a next-token task with a per-position head
+    whose (B·L, D) rows the fused head takes (``loop.py:292-325``, without
+    ``tlie_tpu``'s TPU-only condition: the port runs the plain version on
+    the CPU and the kernels on the card)."""
+    model_cfg = cfg["model"]
+    return (
+        bool(cfg["train"].get("fused_xent", False))
+        and bool(cfg.get("lang_model", lang_model(cfg)))
+        and per_position(model_cfg)
+        and fused_xent_eligible(batch_size * model_cfg["seq_len"], model_cfg["hidden_dim"],
+                                model_cfg["output_dim"])
+    )
+
+
 def train(cfg: Dict[str, Any], train_split: Tuple[np.ndarray, np.ndarray],
           test_split: Tuple[np.ndarray, np.ndarray], *, device="cuda") -> TrainResult:
     """Train the configuration ``cfg`` (a resolved config dict, runtime
-    fields derived) on the (inputs, labels) splits; returns a
+    fields derived) on the (inputs, labels) splits, evaluating with the
+    metric of its dataset (``cfg["dataset"]["_name_"]``); returns a
     :class:`TrainResult`.  Runs on the card unless ``device="cpu"``."""
     dev = resolve_device(device)
     f = train_fields(cfg)
     model_cfg = cfg["model"]
     bsz = f["batch_size"]
+    for name, split in (("train", train_split), ("test", test_split)):
+        if len(split[0]) < bsz:
+            raise ValueError(f"the {name} split holds {len(split[0])} examples, fewer than "
+                             f"one batch of {bsz}")
+    metric = DATASETS[cfg["dataset"]["_name_"]].get_metrics()
 
     model, eval_model, _ = build_models(
         model_cfg, generator=torch.Generator().manual_seed(cfg["seed"]), device=dev)
@@ -63,9 +93,12 @@ def train(cfg: Dict[str, Any], train_split: Tuple[np.ndarray, np.ndarray],
 
     train_data = put_dataset(*train_split, dev)
     test_data = put_dataset(*test_split, dev)
+    fused = use_fused_head(cfg, bsz)
     sparse_k = None
-    if f["sparse_head"] and bool(cfg.get("lang_model", lang_model(cfg))):
+    if f["sparse_head"] and bool(cfg.get("lang_model", lang_model(cfg))) and not fused:
         sparse_k = sparse_head_k_for(model_cfg, train_split[1], test_split[1])
+    if fused:
+        print("[train] fused decoder+softmax-CE head enabled")
     if sparse_k is not None:
         print(f"[train] sparse decoder head: K={sparse_k} of L={model_cfg['seq_len']}")
     eval_idx = torch.as_tensor(eval_indices(len(test_split[0]), bsz), device=dev).long()
@@ -89,9 +122,9 @@ def train(cfg: Dict[str, Any], train_split: Tuple[np.ndarray, np.ndarray],
                 "ssm": lr_for_step(step + j, plateau.ssm_lr, warmup, total, f["cosine"], f["lr_min"]),
             }
             x, y = train_data.inputs[idx[j]], train_data.labels[idx[j]]
-            loss_sum += train_step(model, optimizer, x, y, lrs, sparse_k)
+            loss_sum += train_step(model, optimizer, x, y, lrs, sparse_k, fused)
         step += k
-        test_loss, test_perf = evaluate(eval_model, test_data, eval_idx, sparse_k)
+        test_loss, test_perf = evaluate(eval_model, test_data, eval_idx, sparse_k, metric)
         train_loss = float(loss_sum) / k
         elapsed = time.perf_counter() - t_start
         sps = (step - steps_timed) / max(elapsed, 1e-9)
@@ -101,6 +134,8 @@ def train(cfg: Dict[str, Any], train_split: Tuple[np.ndarray, np.ndarray],
         sys.stdout.flush()
         history.append({"step": step, "train_loss": train_loss, "test_loss": test_loss,
                         "test_perf": test_perf, "steps_per_s": sps})
+        # higher is better for every metric, perplexity included, as in
+        # tlie_tpu (loop.py:449, schedules.py:44)
         best_perf = max(best_perf, test_perf)
         if f["plateau"]:
             plateau = reduce_lr_on_plateau(plateau, test_perf, factor=f["reduce_factor"],
@@ -110,7 +145,7 @@ def train(cfg: Dict[str, Any], train_split: Tuple[np.ndarray, np.ndarray],
             stop = True
 
     if np.isinf(test_loss):  # no eval boundary was reached
-        test_loss, test_perf = evaluate(eval_model, test_data, eval_idx, sparse_k)
+        test_loss, test_perf = evaluate(eval_model, test_data, eval_idx, sparse_k, metric)
     print(f"Best test perf: {best_perf:.4f}")
 
     path = None

@@ -9,7 +9,7 @@ that :func:`batch_indices` draws on the host exactly as ``tlie_tpu`` does.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,21 +31,24 @@ def put_dataset(inputs: np.ndarray, labels: np.ndarray, device) -> DeviceData:
                       torch.as_tensor(labels, dtype=torch.long, device=device))
 
 
+def per_position(model_cfg) -> bool:
+    """A decoder on every position: no classifier, not dual, and the
+    transformer or ``pooling: none`` (``tlie_tpu/training/loop.py:292-300``,
+    the gate the sparse and fused heads share)."""
+    return (
+        not model_cfg.get("classifier", False)
+        and not model_cfg.get("dual", False)
+        and (model_cfg.get("layer") == "transformer" or model_cfg.get("pooling") == "none")
+    )
+
+
 def sparse_head_k_for(model_cfg, train_labels, test_labels=None) -> Optional[int]:
     """K for the sparse decoder head, or None where it does not apply
     (copied from ``tlie_tpu``): per-position decoders with 2-D (B, L)
     labels at least 4× sparse in valid (non −100) entries.  K is the most
     valid labels of any row over both splits, so no valid label is dropped
     from the loss or the metric."""
-    per_pos = (
-        not model_cfg.get("classifier", False)
-        and not model_cfg.get("dual", False)
-        and (
-            model_cfg.get("layer") == "transformer"
-            or model_cfg.get("pooling") == "none"
-        )
-    )
-    if not per_pos:
+    if not per_position(model_cfg):
         return None
     tr = np.asarray(train_labels)
     if tr.ndim != 2:
@@ -88,12 +91,15 @@ def eval_indices(n: int, batch_size: int) -> np.ndarray:
 
 @torch.no_grad()
 def evaluate(eval_model: nn.Module, data: DeviceData, idx: torch.Tensor,
-             sparse_k: Optional[int]) -> Tuple[float, float]:
-    """(mean loss, mean masked accuracy) over the batches of ``idx``: the
-    means of the per-batch values, as ``make_eval_block`` takes them."""
+             sparse_k: Optional[int], metric: Callable = compute_accuracy) -> Tuple[float, float]:
+    """(mean loss, mean metric) over the batches of ``idx``: the means of
+    the per-batch values, as ``make_eval_block`` takes them.  ``metric`` is
+    the dataset's (masked accuracy for MQAR, perplexity for WikiText).  The
+    eval runs the dense head, or the sparse one with ``sparse_k``, never the
+    fused head, as in ``tlie_tpu``."""
     losses, metrics = [], []
     for idx_t in idx:
         logits, y = head_logits(eval_model, data.inputs[idx_t], data.labels[idx_t], sparse_k)
         losses.append(cross_entropy_loss(logits, y))
-        metrics.append(compute_accuracy(logits, y))
+        metrics.append(metric(logits, y))
     return float(torch.stack(losses).mean()), float(torch.stack(metrics).mean())

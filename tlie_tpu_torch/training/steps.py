@@ -1,7 +1,7 @@
 """One training step and the per-batch pieces around it, counterparts of
 ``tlie_tpu/training/steps.py`` (``cross_entropy_loss``, ``compute_accuracy``,
-``prep_batch``, ``train_step``) and of the sparse decoder head of
-``tlie_tpu/training/scan_loop.py`` (:222-250)."""
+``prep_batch``, ``train_step``) and of the sparse and fused decoder heads of
+``tlie_tpu/training/scan_loop.py`` (:222-269)."""
 
 from __future__ import annotations
 
@@ -12,7 +12,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..data.mqar import masked_accuracy as compute_accuracy
+from ..data.base import masked_accuracy as compute_accuracy
+from ..ops.fused_xent import fused_softmax_xent
 from .state import set_group_learning_rates
 
 IGNORE_IDX = -100
@@ -56,17 +57,41 @@ def head_logits(model: nn.Module, x: torch.Tensor, y: torch.Tensor,
     return model.decoder(feats), torch.gather(y, 1, pos)
 
 
+def fused_head_loss(model: nn.Module, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The loss through the fused decoder + CE head (``_fused_loss``,
+    ``scan_loop.py:252-269``): the backbone features on (B·L, d) rows,
+    then ``fused_softmax_xent`` with the decoder's weight read in place
+    (``weight.t()``, no copy) and its bias, or zeros where it has none.  The
+    features run in the model's own mode, so a training-mode BatchNorm
+    updates its running statistics here as in the dense and sparse heads
+    (the reference's fused head fails on BatchNorm models; this one does
+    not)."""
+    feats = model.features(x)
+    d = feats.shape[-1]
+    dec = model.decoder
+    w = dec.weight.t()
+    b = dec.bias if dec.bias is not None else torch.zeros(w.shape[1], device=w.device)
+    return fused_softmax_xent(feats.reshape(-1, d), w, b, y.reshape(-1))
+
+
 def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, x: torch.Tensor,
                y: torch.Tensor, lrs: Dict[str, float],
-               sparse_k: Optional[int] = None) -> torch.Tensor:
+               sparse_k: Optional[int] = None, fused_head: bool = False) -> torch.Tensor:
     """One optimisation step of ``model`` (in training mode) on the batch:
     the group learning rates are set, the gradients zeroed, the loss taken
     (its forward updates the BatchNorm running statistics, as flax's
     ``mutable=["batch_stats"]`` apply does), back-propagated, and the
-    optimiser stepped.  Returns the loss, detached, on the device."""
+    optimiser stepped.  The loss goes through the dense head, the sparse
+    head (``sparse_k``) or the fused head (``fused_head``), which exclude
+    each other.  Returns the loss, detached, on the device."""
+    if fused_head and sparse_k is not None:
+        raise ValueError("the sparse head is mutually exclusive with the fused head")
     set_group_learning_rates(optimizer, lrs)
     optimizer.zero_grad(set_to_none=True)
-    loss = cross_entropy_loss(*head_logits(model, x, y, sparse_k))
+    if fused_head:
+        loss = fused_head_loss(model, x, y)
+    else:
+        loss = cross_entropy_loss(*head_logits(model, x, y, sparse_k))
     loss.backward()
     optimizer.step()
     return loss.detach()
