@@ -6,10 +6,10 @@
 It builds the port's CUDA kernels from ``tlie_tpu_torch/ops/csrc`` with
 ``nvcc`` (into ``tlie_tpu_torch/_build/``, one ``nvcc`` per source, all at
 once), holds each kernel against its plain PyTorch version on the card
-(the diagonal scan forward and backward, and the three kernels of the fused
-decoder + cross-entropy head), and drives two full-width models along three
-paths, each with the launch counts set to 0 just before it and read just
-after:
+(the diagonal scan forward and backward, the three kernels of the fused
+decoder + cross-entropy head, and the three of the SSD's decay attention),
+and drives three full-width models along four paths, each with the launch
+counts set to 0 just before it and read just after:
 
 1. the MQAR LRU (``MQAR_LRU_FULL``: L=512, d_model=128, N=128, 2 layers,
    vocab 8192, batch 64, weights from the config's seed): evaluation,
@@ -21,11 +21,16 @@ after:
    d_model and N 512, block 1024, batch 8, the GPT-2 vocabulary of 50,257,
    BatchNorm, the synthetic token stream) trained with ``fused_xent: true``
    for 20 steps and one eval (perplexity), then eigen-analysed from its
-   checkpoint and served.
+   checkpoint and served;
+4. the MQAR Mamba-2 (``MQAR_MAMBA2_FULL``: 2 layers, d_model 128, N 128, one
+   head of 128, vocab 8192, L 512, batch 64): its forward on the test batch,
+   200 training steps (AdamW behind the global-norm clip, the sparse head) on
+   the same cut train split, the checkpoint reloaded and eigen-analysed from
+   activations.
 
-It also checks one MQAR training step on the card against the same step on
-the CPU, one fused-head WikiText step against the dense-head step on the
-card, and times each kernel against its bound, its plain version and, where
+It also checks one MQAR training step of the LRU and one of the Mamba-2 on
+the card against the same step on the CPU, one fused-head WikiText step
+against the dense-head step on the card, and times each kernel against its bound, its plain version and, where
 one exists, the PyTorch library call computing the same function.  Each
 phase prints one line with its wall seconds; any failed check raises and
 the exit code is non-zero.  The last three lines are the kernel table as
@@ -114,9 +119,32 @@ F32_UNIT = 2.0 ** -24
 # be at most GRAD_F64_FACTOR times the dense float32 step's own, or 1e-5 of
 # the leaf's max (the leaves next to a BatchNorm are row sums that cancel, so
 # their float32 error is large beside their max, as in the MQAR step check)
+# the decay attention's three kernels against their plain version: the MQAR
+# Mamba-2 shape, the WikiText Mamba-2 shape and a ragged small one (BG, Q, N,
+# Hg, P)
+SSD_SHAPES = {"mqar_bg64_q512_n128_hg1_p128": (64, 512, 128, 1, 128),
+              "wikitext_bg8_q1024_n512_hg8_p64": (8, 1024, 512, 8, 64),
+              "ragged_bg3_q77_n40_hg3_p33": (3, 77, 40, 3, 33)}
+# decay attention vs plain: each output element (y, dC, dcs_i, dB, dxdt,
+# dcs_j) within SSD_RTOL of the sum of its terms' magnitudes
+# (decay_attention.term_scales): float32 sums of up to N + Q terms (C·B over
+# N, then the scores over j), rounded in another order; the decay exp(cs_i -
+# cs_j) is formed from the same difference on both sides
+SSD_RTOL = 1e-5
+# one Mamba-2 step's gradients, card vs CPU, both held to float64 on the
+# CPU: the card's error may be GRAD_F64_FACTOR times the CPU's, or 1e-4 of
+# the leaf's max, the tolerance the CPU tests hold the port's gradients to
+# JAX's with.  dt_bias and A_log are one number per head summed over all
+# 64*512 positions through dcs = dcs_i + dcs_j, two sums that cancel, so one
+# float32 draw of the CPU's error says little about the card's.
+MAMBA_GRAD_RTOL_OF_MAX = 1e-4
+# the MQAR Mamba-2 path: 200 steps and an eval every 100 (the config runs
+# 40,000 with an eval every 200), on the same train split cut as the LRU's
+MAMBA_STEPS, MAMBA_EVAL_EVERY = 200, 100
 # device kernels of a training step by kind, from their names (first match)
 OP_KINDS = (
     ("scan kernels", ("diag_scan", "sum_rows")),
+    ("decay attention kernels", ("decay_attention",)),
     ("fused head kernels", ("xent",)),
     ("matmul", ("gemm", "Kernel2", "xmma")),
     ("optimizer", ("multi_tensor_apply",)),
@@ -367,6 +395,120 @@ def time_fused_xent(fx, h, w, b, labels, lse, gscale, flush):
     return out
 
 
+def decay_inputs(dev, gen, BG, Q, N, Hg, P):
+    """C as a row-strided view (the SSD slices C and B out of the conv
+    output), B, cs as the within-chunk cumsum of dt·A with dt in [0, 0.1)
+    and A in (-16, -1] (|cs| reaches hundreds at Q = 512), xdt and a
+    cotangent dy."""
+    C = torch.randn(BG, Q, N + 8, device=dev, generator=gen)[:, :, 4:4 + N]
+    B = torch.randn(BG, Q, N, device=dev, generator=gen)
+    dt = 0.1 * torch.rand(BG, Hg, Q, device=dev, generator=gen)
+    A = -1 - 15 * torch.rand(1, Hg, 1, device=dev, generator=gen)
+    cs = torch.cumsum(dt * A, -1).contiguous()
+    x = torch.randn(BG, Hg, Q, P, device=dev, generator=gen)
+    dy = torch.randn(BG, Hg, Q, P, device=dev, generator=gen)
+    return C, B, cs, x, dy
+
+
+DECAY_OUTPUTS = (("y", "decay_attention_fwd"), ("dC", "decay_attention_bwd_i"),
+                 ("dcs_i", "decay_attention_bwd_i"), ("dB", "decay_attention_bwd_j"),
+                 ("dxdt", "decay_attention_bwd_j"), ("dcs_j", "decay_attention_bwd_j"))
+
+
+def check_decay_attention(dattn, C, B, cs, x, dy, f64: bool):
+    """The three kernels against the plain version on the same inputs:
+    (fields, max abs error by kernel).  With ``f64`` both are also held to
+    the plain version in float64, for the record."""
+    got = ((dattn.decay_attention_fwd_cuda(C, B, cs, x),)
+           + dattn.decay_attention_bwd_i_cuda(C, B, cs, x, dy)
+           + dattn.decay_attention_bwd_j_cuda(C, B, cs, x, dy))
+    torch.cuda.synchronize()
+    want = ((dattn.decay_attention_plain(C, B, cs, x),)
+            + dattn.decay_attention_bwd_plain(C, B, cs, x, dy))
+    scales = dattn.term_scales(C, B, cs, x, dy)
+    fields, errs, ok = {}, {}, True
+    for (name, kernel), a, b, sc in zip(DECAY_OUTPUTS, got, want, scales):
+        ratio = ((a - b).abs() / (SSD_RTOL * sc + 1e-30)).max().item()
+        fields[f"{name}_err_over_tol"] = f"{ratio:.3e}"
+        errs[kernel] = max(errs.get(kernel, 0.0), (a - b).abs().max().item())
+        ok = ok and ratio <= 1.0 and bool(torch.isfinite(a).all())
+    if f64:
+        ref = (C.double(), B.double(), cs.double(), x.double(), dy.double())
+        ref = ((dattn.decay_attention_plain(*ref[:4]).cpu(),)
+               + tuple(t.cpu() for t in dattn.decay_attention_bwd_plain(*ref)))
+        for (name, _), a, b, r, sc in zip(DECAY_OUTPUTS, got, want, ref, scales):
+            sc = sc.cpu().double() + 1e-300
+            k_e = ((a.cpu().double() - r).abs() / sc).max().item()
+            p_e = ((b.cpu().double() - r).abs() / sc).max().item()
+            fields[f"{name}_vs_f64_over_term_sums"] = f"kernel={k_e:.2e},plain={p_e:.2e}"
+    if not ok:
+        raise AssertionError(f"decay attention kernels vs plain: {fields}")
+    return fields, errs
+
+
+def decay_einsum(C, B, cs, x):
+    """The materialised form as tlie_tpu's XLA path writes it
+    (ops/ssd.py:215-223), in einsums: cuBLAS products, autograd backward."""
+    Q = cs.shape[-1]
+    seg = cs[..., :, None] - cs[..., None, :]
+    causal = torch.ones(Q, Q, dtype=torch.bool, device=cs.device).tril()
+    scores = torch.einsum("bin,bjn->bij", C, B)[:, None] * torch.exp(
+        seg.masked_fill(~causal, float("-inf")))
+    return torch.einsum("bhij,bhjp->bhip", scores, x)
+
+
+def time_decay_attention(dattn, C, B, cs, x, dy, flush):
+    """L2-cold medians of 21 launches of each kernel, warm medians, the plain
+    version's and the einsum form's cold medians, and each kernel's bound:
+    {kernel: (ms, warm_ms, plain_ms, einsum_ms, bound_ms, bound_by, bytes, flops)}."""
+    BG, Hg, Q, P = x.shape
+    N = C.shape[2]
+    ms = {
+        "decay_attention_fwd": lambda: dattn.decay_attention_fwd_cuda(C, B, cs, x),
+        "decay_attention_bwd_i": lambda: dattn.decay_attention_bwd_i_cuda(C, B, cs, x, dy),
+        "decay_attention_bwd_j": lambda: dattn.decay_attention_bwd_j_cuda(C, B, cs, x, dy),
+    }
+    plain = {
+        "decay_attention_fwd": lambda: dattn.decay_attention_plain(C, B, cs, x),
+        "decay_attention_bwd_i": lambda: dattn.decay_attention_bwd_i_plain(C, B, cs, x, dy),
+        "decay_attention_bwd_j": lambda: dattn.decay_attention_bwd_j_plain(C, B, cs, x, dy),
+    }
+    leaves = [t.detach().clone().requires_grad_() for t in (C, B, cs, x)]
+    y_lib = decay_einsum(*leaves)
+    einsum = {
+        "decay_attention_fwd": lambda: decay_einsum(C, B, cs, x),
+        "decay_attention_bwd_i": lambda: torch.autograd.grad(
+            y_lib, (leaves[0], leaves[2]), dy, retain_graph=True),
+        "decay_attention_bwd_j": lambda: torch.autograd.grad(
+            y_lib, (leaves[1], leaves[3], leaves[2]), dy, retain_graph=True),
+    }
+    # bytes: each input read once, each output written once; operations: the
+    # products over the causal pairs (j <= i), per group for C·B and its
+    # gradients (2N each), per head for the P-wide ones (2P each)
+    f4 = 4
+    pairs = BG * Q * (Q + 1) // 2
+    ins = (2 * BG * Q * N + BG * Hg * Q + BG * Hg * Q * P) * f4  # C, B, cs, x
+    io = {"decay_attention_fwd": (ins + BG * Hg * Q * P * f4, pairs * (2 * N + 2 * Hg * P)),
+          "decay_attention_bwd_i": (ins + BG * Hg * Q * P * f4 + (BG * Q * N + BG * Hg * Q) * f4,
+                                    pairs * (4 * N + 2 * Hg * P)),
+          "decay_attention_bwd_j": (ins + BG * Hg * Q * P * f4
+                                    + (BG * Q * N + BG * Hg * Q * P + BG * Hg * Q) * f4,
+                                    pairs * (4 * N + 4 * Hg * P))}
+    out = {}
+    for name in ms:
+        with torch.no_grad():
+            k_ms = median(cuda_ms(ms[name], 21, flush))
+            w_ms = median(cuda_ms(ms[name], 21))
+            p_ms = median(cuda_ms(plain[name], 21, flush))
+        e_ms = median(cuda_ms(einsum[name], 21, flush))
+        n_bytes, flops = io[name]
+        bytes_ms, flops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+        out[name] = (k_ms, w_ms, p_ms, e_ms, max(bytes_ms, flops_ms),
+                     "bytes" if bytes_ms >= flops_ms else "operations", n_bytes, flops)
+    del y_lib, leaves
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card",
@@ -374,20 +516,28 @@ def main() -> int:
         return 1
     # imported after the card check: a copy of this script alone has no package
     from tlie_tpu_torch.analysis import eval_eig
-    from tlie_tpu_torch.analysis.eval_eig import extract_ssm_family, ssm_layer_params
-    from tlie_tpu_torch.config import MQAR_LRU_FULL, WIKITEXT_LRU_SHORT, derive_runtime_fields
+    from tlie_tpu_torch.analysis.eval_eig import (
+        extract_mamba_family, extract_ssm_family, ssm_layer_params,
+    )
+    from tlie_tpu_torch.config import (
+        MQAR_LRU_FULL, MQAR_MAMBA2_FULL, WIKITEXT_LRU_SHORT, derive_runtime_fields, train_fields,
+    )
     from tlie_tpu_torch.data import MQAR, WikiText, masked_accuracy
     from tlie_tpu_torch.inference import Decoder
     from tlie_tpu_torch.models import build_models
     from tlie_tpu_torch.ops import LAUNCHES, diag_linear_scan
+    from tlie_tpu_torch.ops import decay_attention as dattn
     from tlie_tpu_torch.ops import fused_xent as fx
+    from tlie_tpu_torch.ops.ssd import _auto_chunk
     from tlie_tpu_torch.ops.scan import (
         DIAG_SCAN, DIAG_SCAN_BWD, diag_scan_bwd_cuda, diag_scan_bwd_plain, diag_scan_cuda,
         diag_scan_plain,
     )
     from tlie_tpu_torch.training import prep_batch, restore_checkpoint, train, train_step
     from tlie_tpu_torch.training.scan_loop import sparse_head_k_for
-    from tlie_tpu_torch.training.state import make_optimizer
+    from tlie_tpu_torch.training.state import (
+        clip_by_global_norm_, make_family_optimizer, make_optimizer,
+    )
     from tlie_tpu_torch.training.steps import cross_entropy_loss, head_logits
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -411,7 +561,7 @@ def main() -> int:
     # 2. the nvcc build: one nvcc per source, all started together
     with Phase("build") as ph:
         libs = {"diag_scan": DIAG_SCAN, "diag_scan_bwd": DIAG_SCAN_BWD,
-                "fused_xent": fx.FUSED_XENT}
+                "fused_xent": fx.FUSED_XENT, "decay_attention": dattn.DECAY_ATTENTION}
         with ThreadPoolExecutor(len(libs)) as pool:
             reports = dict(zip(libs, pool.map(lambda lib: lib.load(), libs.values())))
         for name, report in reports.items():
@@ -499,6 +649,21 @@ def main() -> int:
                                f"library_ms={l_ms:.4f},bound_ms={bound:.4f}({by}),"
                                f"gflop={flops / 1e9:.1f},tflops={flops / k_ms / 1e9:.2f}")
         del h, weight, b, labels, lse, gscale, xent_io
+        torch.cuda.empty_cache()
+
+    # the decay attention's three kernels against the plain version, at the
+    # MQAR Mamba-2 shape, the WikiText Mamba-2 shape and a ragged one (with
+    # float64 for the record there); the MQAR shape's inputs are kept for the
+    # timing
+    with Phase("decay_attention_vs_plain") as ph:
+        decay_errs = {}
+        for name, (BG, Q, N, Hg, P) in SSD_SHAPES.items():
+            ins = decay_inputs(dev, gen, BG, Q, N, Hg, P)
+            fields, errs = check_decay_attention(dattn, *ins, f64=name.startswith("ragged"))
+            ph.fields[name] = repr(fields)
+            if not decay_errs:  # the MQAR shape comes first
+                decay_errs, decay_io = errs, ins
+            del ins
         torch.cuda.empty_cache()
 
     # the full-width model, its data and its weights
@@ -1047,6 +1212,220 @@ def main() -> int:
                              top_device_ops_ms=repr(short(ops[:10])))
         else:
             ph.fields.update(device_busy_ms="not measured")
+    del lm_opt, lm_result, lm_x, lm_y
+    torch.cuda.empty_cache()
+
+    # main path 4, the MQAR Mamba-2: its forward on the test batch, then 200
+    # training steps, the checkpoint reloaded and eigen-analysed; every count
+    # set to 0 before the forward, read after training and again after the
+    # eigen-analysis
+    mam = MQAR_MAMBA2_FULL
+    mm = mam["model"]
+    m_layers = mm["num_layers"]
+    _, mamba, _ = build_models(mm, generator=torch.Generator().manual_seed(mam["seed"]), device=dev)
+    # the same dataset as the LRU's (L 512, 64 pairs): the same test split
+    m_inputs, m_labels = prep_batch((test_x[:bsz], test_y[:bsz]), L, mm["input_dim"],
+                                    lang_model=True, device=dev)
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    with Phase("mamba_forward") as ph, torch.no_grad():
+        m_logits = mamba(m_inputs)
+        torch.cuda.synchronize()
+        if LAUNCHES["decay_attention_fwd"] != m_layers:
+            raise AssertionError(f"the Mamba-2 forward launched decay_attention_fwd "
+                                 f"{LAUNCHES['decay_attention_fwd']} times, expected {m_layers}")
+        if m_logits.shape != (bsz, L, mm["output_dim"]) or not torch.isfinite(m_logits).all():
+            raise AssertionError(f"Mamba-2 forward output {tuple(m_logits.shape)}")
+        m_acc = float(masked_accuracy(m_logits, m_labels))
+        m_fwd_ms = min(cuda_ms(lambda: mamba(m_inputs), 3))
+        m_top = top_device_ops(lambda: mamba(m_inputs))
+        _, cpu_mamba, _ = build_models(mm, generator=torch.Generator(), device="cpu")
+        cpu_mamba.load_state_dict({k: v.cpu() for k, v in mamba.state_dict().items()})
+        ref = cpu_mamba(m_inputs[:2].cpu())
+        m_cpu_err = (m_logits[:2].cpu() - ref).abs().max().item()
+        if not torch.allclose(m_logits[:2].cpu(), ref, rtol=LOGIT_RTOL, atol=LOGIT_ATOL):
+            raise AssertionError(f"Mamba-2 card vs CPU forward: max abs err {m_cpu_err}")
+        ph.fields.update(chunk=_auto_chunk(bsz, L, mm["num_heads"], dev),
+                         chunk_on_cpu=_auto_chunk(bsz, L, mm["num_heads"], "cpu"),
+                         masked_acc=f"{m_acc:.6f}", forward_ms=f"{m_fwd_ms:.3f}",
+                         decay_attention_fwd_launches_per_forward=m_layers,
+                         vs_cpu_max_abs=f"{m_cpu_err:.3e}", top_device_ops_ms=repr(short(m_top)))
+        del cpu_mamba, ref
+
+    mcfg4 = copy.deepcopy(mam)
+    m_tmp = tempfile.mkdtemp(prefix="tlie_mamba_")
+    mcfg4["save"] = os.path.join(m_tmp, "checkpoint", "mqar-mamba2")
+    mcfg4["train"].update(total_steps=MAMBA_STEPS, eval_every=MAMBA_EVAL_EVERY)
+    mcfg4["dataset"]["num_train_examples"] = TRAIN_EXAMPLES
+    mcfg4 = derive_runtime_fields(mcfg4, L, len(train_split[0]))
+    try:
+        with Phase("mamba_train") as ph:
+            fwd_before = LAUNCHES["decay_attention_fwd"]
+            t0 = time.perf_counter()
+            m_result = train(mcfg4, train_split, test_split, device=dev)
+            torch.cuda.synchronize()
+            m_train_s = time.perf_counter() - t0
+            path4 = dict(LAUNCHES)
+            n_eval_batches = len(m_result.history) * (len(test_split[0]) // bsz)
+            # one forward launch per layer per step and eval batch, one of each
+            # backward per layer per step; no other kernel
+            want = dict.fromkeys(LAUNCHES, 0)
+            want.update(decay_attention_fwd=fwd_before + m_layers * (MAMBA_STEPS + n_eval_batches),
+                        decay_attention_bwd_i=m_layers * MAMBA_STEPS,
+                        decay_attention_bwd_j=m_layers * MAMBA_STEPS)
+            if path4 != want:
+                raise AssertionError(f"Mamba-2 training launches {path4}, expected {want}")
+            for rec in m_result.history:
+                if not all(np.isfinite(v) for v in rec.values()):
+                    raise AssertionError(f"non-finite Mamba-2 training numbers {rec}")
+            m_trained = m_result.model.state_dict()
+            m_init = build_models(mm, generator=torch.Generator().manual_seed(mam["seed"]),
+                                  device=dev)[0].state_dict()
+            frozen = [k for k, v in m_trained.items() if torch.equal(v, m_init[k])]
+            if frozen:
+                raise AssertionError(f"Mamba-2 parameters that did not move: {frozen}")
+            ph.fields.update(steps=MAMBA_STEPS, seconds=f"{m_train_s:.2f}",
+                             eval_batches=n_eval_batches,
+                             history=repr([{k: round(v, 4) for k, v in r.items()}
+                                           for r in m_result.history]),
+                             launches=repr(path4))
+
+        with Phase("mamba_checkpoint_eval_eig") as ph:
+            ckpt_path, perf = m_result
+            ckpt = restore_checkpoint(ckpt_path)
+            for k, v in m_trained.items():
+                if not torch.equal(ckpt["model"][k], v.cpu()):
+                    raise AssertionError(f"Mamba-2 checkpoint entry {k} differs from the live "
+                                         "weights")
+            eig_dir = os.path.join(m_tmp, "analysis")
+            batch = test_x[:bsz]  # the analysis config's batch_size: the first 64 test examples
+            eig, eig_init, perc, perc_init, _, _ = eval_eig(mcfg4, {"save_path": eig_dir}, perf,
+                                                            ckpt_path, device=dev, batch=batch)
+            live = extract_mamba_family(m_result.eval_model, m_inputs)
+            (run_dir,) = os.listdir(eig_dir)
+            files = sorted(os.listdir(os.path.join(eig_dir, run_dir)))
+            saved = np.load(os.path.join(eig_dir, run_dir, "eig.npy"))
+            want_shape = (bsz, L, mm["num_heads"], m_layers)
+            if eig.shape != want_shape or eig_init.shape != want_shape:
+                raise AssertionError(f"Mamba-2 spectra {eig.shape}, {eig_init.shape}")
+            if not (np.array_equal(saved, eig) and np.abs(eig - live).max() <= 1e-6):
+                raise AssertionError("Mamba-2 spectra from the checkpoint differ from the live "
+                                     "model's")
+            if not (np.all((eig_init > 0) & (eig_init <= 1)) and np.all((eig > 0) & (eig <= 1))):
+                raise AssertionError("Mamba-2 eigenvalues outside (0, 1]")
+            if files != want_files or not run_dir.startswith(f"MQARdmodel{mm['hidden_dim']}"):
+                raise AssertionError(f"Mamba-2 artifacts {run_dir}: {files}")
+            ph.fields.update(checkpoint=os.path.basename(ckpt_path), perf=f"{perf:.4f}",
+                             artifacts=run_dir, n_files=len(files),
+                             eig_vs_live_max_abs=f"{np.abs(eig - live).max():.3e}",
+                             radius_pct_mean_layer0=np.round(perc[:, :, 0, 0].mean(1), 2).tolist(),
+                             radius_pct_init_mean_layer0=np.round(
+                                 perc_init[:, :, 0, 0].mean(1), 2).tolist())
+        path4_all = dict(LAUNCHES)
+        print(f"[launches] Mamba-2 forward and training: {path4}; with eval_eig: {path4_all}",
+              flush=True)
+    finally:
+        shutil.rmtree(m_tmp, ignore_errors=True)
+
+    # one Mamba-2 step (sparse head, AdamW behind the global-norm clip) from
+    # the same weights and batch, on the card (kernels) and on the CPU (plain
+    # versions), both held to the same step in float64 on the CPU
+    m_f = train_fields(mcfg4)
+    m_sparse_k = sparse_head_k_for(mm, train_split[1], test_split[1])
+    m_lrs = {"regular": m_f["lr"]}
+
+    def m_fresh(device):
+        m, _, family = build_models(mm, generator=torch.Generator().manual_seed(mam["seed"]),
+                                    device=device)
+        opt, clip = make_family_optimizer(m, family, mm, mcfg4["train"], m_f)
+        return m, opt, clip
+
+    with Phase("mamba_train_step_card_vs_cpu") as ph:
+        card_m, card_opt, clip = m_fresh(dev)
+        cpu_m, cpu_opt, _ = m_fresh("cpu")
+        train_step(card_m, card_opt, x_step, y_step, m_lrs, m_sparse_k, clip_norm=clip)
+        t0 = time.perf_counter()
+        train_step(cpu_m, cpu_opt, x_step.cpu(), y_step.cpu(), m_lrs, m_sparse_k, clip_norm=clip)
+        cpu_g = {n: p.grad for n, p in cpu_m.named_parameters()}
+        card_g = {n: p.grad.cpu() for n, p in card_m.named_parameters()}
+        ref_m = m_fresh("cpu")[0].double()
+        cross_entropy_loss(*head_logits(ref_m, x_step.cpu(), y_step.cpu(), m_sparse_k)).backward()
+        raw_norm = float(clip_by_global_norm_(ref_m.parameters(), clip))
+        cpu_s = time.perf_counter() - t0
+        g_ratio, g_leaf = 0.0, ""
+        for n, p in ref_m.named_parameters():
+            g64 = p.grad
+            e_card = (card_g[n].double() - g64).abs().max().item()
+            e_cpu = (cpu_g[n].double() - g64).abs().max().item()
+            allowed = max(GRAD_F64_FACTOR * e_cpu,
+                          MAMBA_GRAD_RTOL_OF_MAX * g64.abs().max().item())
+            if e_card / allowed > g_ratio:
+                g_ratio, g_leaf = e_card / allowed, n
+        g_worst = grad_err(card_g, cpu_g)
+        p_worst = p_anywhere = 0.0
+        for (n, p), q in zip(card_m.named_parameters(), cpu_m.parameters()):
+            p_err = (p.detach().cpu() - q.detach()).abs()
+            g_abs = cpu_g[n].abs()
+            det = g_abs >= 1e-2 * g_abs.max()
+            p_worst = max(p_worst, p_err[det].max().item() if bool(det.any()) else 0.0)
+            p_anywhere = max(p_anywhere, p_err.max().item())
+        ph.fields.update(raw_grad_norm_f64=f"{raw_norm:.4f}", clip=clip,
+                         grad_err_over_allowed=f"{g_ratio:.3f}({g_leaf})",
+                         grad_card_vs_cpu_worst_rel_to_leaf_max=f"{g_worst:.3e}",
+                         param_worst_where_grad_determined=f"{p_worst:.3e}",
+                         param_worst_anywhere=f"{p_anywhere:.3e}", cpu_steps_s=f"{cpu_s:.1f}")
+        if not (g_ratio <= 1.0 and p_worst <= PARAM_ATOL
+                and p_anywhere <= 2 * m_f["lr"] + PARAM_ATOL):
+            raise AssertionError(f"Mamba-2 card vs CPU step: {ph.fields}")
+        del cpu_m, cpu_opt, ref_m, cpu_g, card_g
+
+    # a Mamba-2 training step's time and where it goes
+    with Phase("mamba_train_step_timing") as ph:
+        def m_one_step():
+            train_step(card_m, card_opt, x_step, y_step, m_lrs, m_sparse_k, clip_norm=clip)
+
+        for _ in range(3):
+            m_one_step()
+        torch.cuda.synchronize()
+        n_timed = 20
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n_timed):
+            m_one_step()
+        end.record()
+        torch.cuda.synchronize()
+        m_step_ms = start.elapsed_time(end) / n_timed
+        ops = top_device_ops(m_one_step, k=1000)
+        busy = sum(t for _, t in ops)
+        ph.fields.update(ms_per_step=f"{m_step_ms:.3f}",
+                         train_tokens_per_s=f"{bsz * L / m_step_ms * 1e3:.0f}")
+        if busy > 0:
+            da_ms = sum(t for name, t in ops if "decay_attention" in name)
+            by_kind = {}
+            for name, t in ops:
+                op_kind = next((k for k, pats in OP_KINDS if any(p in name for p in pats)), "other")
+                by_kind[op_kind] = round(by_kind.get(op_kind, 0.0) + t, 4)
+            ph.fields.update(device_busy_ms=f"{busy:.4f}",
+                             idle_share=f"{max(0.0, 1 - busy / m_step_ms):.3f}",
+                             decay_attention_ms=f"{da_ms:.4f}",
+                             decay_attention_share_of_device=f"{da_ms / busy:.4f}",
+                             device_ms_by_kind=repr(sorted(by_kind.items(), key=lambda kv: -kv[1])),
+                             top_device_ops_ms=repr(short(ops[:12])))
+        else:
+            ph.fields.update(device_busy_ms="not measured")
+        del card_m, card_opt
+
+    # the decay attention's kernels at the MQAR Mamba-2 shape: time, bound,
+    # plain version and the einsum form
+    with Phase("decay_attention_timing") as ph:
+        decay_times = time_decay_attention(dattn, *decay_io, flush)
+        for name, (k_ms, w_ms, p_ms, e_ms, bound, by, n_bytes, flops) in decay_times.items():
+            ph.fields[name] = (f"ms_cold_median={k_ms:.5f},ms_warm_median={w_ms:.5f},"
+                               f"plain_ms={p_ms:.5f},einsum_autograd_ms={e_ms:.5f},"
+                               f"bound_ms={bound:.5f}({by}),gflop={flops / 1e9:.3f},"
+                               f"mbytes={n_bytes / 1e6:.1f},tflops={flops / k_ms / 1e9:.2f}")
+        del decay_io
+
 
     kernels = [{
         "name": "diag_scan",
@@ -1090,6 +1469,23 @@ def main() -> int:
             "bound_ms": bound,
             "bound_by": by,
             "library_ms": l_ms,  # addmm + F.cross_entropy, autograd for the gradients
+        })
+    replaces = {"decay_attention_fwd": "tlie_tpu/ops/pallas_ssd.py:252",
+                "decay_attention_bwd_i": "tlie_tpu/ops/pallas_ssd.py:272",
+                "decay_attention_bwd_j": "tlie_tpu/ops/pallas_ssd.py:293"}
+    for name, (k_ms, _, p_ms, _, bound, by, _, _) in decay_times.items():
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "tlie_tpu_torch/ops/csrc/decay_attention.cu",
+            "replaces": replaces[name],
+            "launches": path4_all[name],
+            "max_abs_err": decay_errs[name],
+            "ms": k_ms,
+            "plain_ms": p_ms,
+            "bound_ms": bound,
+            "bound_by": by,
+            "library_ms": None,  # no single PyTorch call computes the decay attention
         })
     print(f"[total] {time.perf_counter() - T_START:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

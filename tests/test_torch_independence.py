@@ -54,6 +54,12 @@ with torch.no_grad():
     acc = float(masked_accuracy(model(x), y))
 out = Decoder(cfg, model).generate(x[:, :8], 2)
 assert out.shape == (4, 10), out.shape
+from tlie_tpu_torch.config import MQAR_MAMBA2_FULL
+mcfg = dict(MQAR_MAMBA2_FULL["model"], vocab_size=64, output_dim=64, hidden_dim=16,
+            state_dim=8, seq_len=16)
+_, mamba, _ = build_models(mcfg, generator=torch.Generator().manual_seed(0), device="cpu")
+with torch.no_grad():
+    assert mamba(x).shape == (4, 16, 64)
 assert not any(m in sys.modules and sys.modules[m] is not None for m in {forbidden!r})
 print("ok", acc)
 """

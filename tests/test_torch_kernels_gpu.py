@@ -170,3 +170,78 @@ def test_fused_xent_autograd_goes_through_the_kernels(cuda_device):
         fx.fused_softmax_xent(h, w.contiguous(), b, labels)
     with pytest.raises(TypeError, match="float32"):
         fx.fused_softmax_xent(h.bfloat16(), w, b, labels)
+
+
+# -- the decay attention of the SSD (csrc/decay_attention.cu) -------------------
+
+SSD_RTOL_OF_TERMS = 1e-5  # each output within 1e-5 of the sum of its terms' magnitudes
+
+
+def _decay_inputs(device, BG, Q, N, Hg, P, seed):
+    """C as a row-strided view (the SSD's layout), B, cs with |cs| in the
+    hundreds, xdt and a cotangent, from a device generator."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    C = torch.randn(BG, Q, N + 7, device=device, generator=g)[:, :, 3:3 + N]
+    B = torch.randn(BG, Q, N, device=device, generator=g)
+    dt = 0.1 * torch.rand(BG, Hg, Q, device=device, generator=g)
+    A = -1 - 15 * torch.rand(1, Hg, 1, device=device, generator=g)
+    cs = torch.cumsum(dt * A, -1).contiguous()
+    x = torch.randn(BG, Hg, Q, P, device=device, generator=g)
+    dy = torch.randn(BG, Hg, Q, P, device=device, generator=g)
+    return C, B, cs, x, dy
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("BG, Q, N, Hg, P", [(4, 512, 128, 1, 128), (2, 256, 64, 4, 64),
+                                             (3, 77, 40, 3, 33)],
+                         ids=["mqar_like", "heads", "ragged"])
+def test_decay_attention_kernels_match_plain(cuda_device, BG, Q, N, Hg, P):
+    from tlie_tpu_torch.ops import decay_attention as da
+
+    C, B, cs, x, dy = _decay_inputs(cuda_device, BG, Q, N, Hg, P, seed=Q)
+    keys = ("decay_attention_fwd", "decay_attention_bwd_i", "decay_attention_bwd_j")
+    before = {k: LAUNCHES[k] for k in keys}
+    y = da.decay_attention_fwd_cuda(C, B, cs, x)
+    dC, dcs_i = da.decay_attention_bwd_i_cuda(C, B, cs, x, dy)
+    dB, dxdt, dcs_j = da.decay_attention_bwd_j_cuda(C, B, cs, x, dy)
+    torch.cuda.synchronize()
+    assert {k: LAUNCHES[k] - n for k, n in before.items()} == dict.fromkeys(keys, 1)
+    want = (da.decay_attention_plain(C, B, cs, x),) + da.decay_attention_bwd_plain(C, B, cs, x, dy)
+    got = (y, dC, dcs_i, dB, dxdt, dcs_j)
+    for a, b, scale in zip(got, want, da.term_scales(C, B, cs, x, dy)):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all())
+        assert bool(((a - b).abs() <= SSD_RTOL_OF_TERMS * scale + 1e-30).all())
+
+
+@pytest.mark.gpu
+def test_decay_attention_autograd_and_the_ssd_go_through_the_kernels(cuda_device):
+    from tlie_tpu_torch.ops import decay_attention as da
+    from tlie_tpu_torch.ops.ssd import ssd_chunked_scan
+
+    C, B, cs, x, dy = _decay_inputs(cuda_device, 2, 128, 32, 2, 16, seed=5)
+    t = [a.clone().requires_grad_() for a in (C, B, cs, x)]
+    keys = ("decay_attention_fwd", "decay_attention_bwd_i", "decay_attention_bwd_j")
+    before = {k: LAUNCHES[k] for k in keys}
+    da.decay_attention(*t).backward(dy)
+    assert {k: LAUNCHES[k] - n for k, n in before.items()} == dict.fromkeys(keys, 1)
+    cpu = [a.detach().cpu().clone().requires_grad_() for a in (C, B, cs, x)]
+    da.decay_attention(*cpu).backward(dy.cpu())
+    scales = da.term_scales(C, B, cs, x, dy)
+    dcs_scale = scales[2] + scales[5]
+    for got, want, scale in zip(t, cpu, (scales[1], scales[3], dcs_scale, scales[4])):
+        assert bool(((got.grad.cpu() - want.grad).abs()
+                     <= SSD_RTOL_OF_TERMS * scale.cpu() + 1e-30).all())
+    # the chunked scan on the card: one forward launch per chunk arm call
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    xs = torch.randn(2, 64, 4, 8, device=cuda_device, generator=g)
+    dt = 0.1 * torch.rand(2, 64, 4, device=cuda_device, generator=g)
+    Bm = torch.randn(2, 64, 2, 16, device=cuda_device, generator=g)
+    Cm = torch.randn(2, 64, 2, 16, device=cuda_device, generator=g)
+    A = -torch.rand(4, device=cuda_device, generator=g) - 0.5
+    n = LAUNCHES["decay_attention_fwd"]
+    y = ssd_chunked_scan(xs, dt, A, Bm, Cm, chunk_size=16)
+    assert LAUNCHES["decay_attention_fwd"] == n + 1
+    ref = ssd_chunked_scan(*(a.cpu() for a in (xs, dt, A, Bm, Cm)), chunk_size=16)
+    torch.testing.assert_close(y.cpu(), ref, rtol=0, atol=1e-5 * ref.abs().max().item())
+    with pytest.raises(ValueError, match="contiguous"):
+        da.decay_attention(C, B, cs, x.transpose(2, 3).contiguous().transpose(2, 3))

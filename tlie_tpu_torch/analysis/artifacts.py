@@ -1,6 +1,7 @@
-"""Artifact emission for the SSM families: .npy arrays, the percentage text
-report and the config snapshot, copied from ``tlie_tpu/analysis/artifacts.py``
-with the same file set and names.
+"""Artifact emission: .npy arrays, the percentage text reports (the Mamba
+family's per batch, head and layer; the SSM families' per layer) and the
+config snapshot, copied from ``tlie_tpu/analysis/artifacts.py`` with the
+same file set and names.
 
 The port uploads nothing (no W&B).  ``used_config.yaml`` is written when the
 ``yaml`` module imports and left out when it does not.
@@ -20,6 +21,47 @@ _ARTIFACT_KEYS = (
     "percentage_mean", "percentage_init_mean",
     "percentage_std", "percentage_init_std",
 )
+
+
+def write_percentage_file(
+    path: str, thresholds_radius, percentage, percentage_init,
+    percentage_mean=None, percentage_init_mean=None,
+    percentage_std=None, percentage_init_std=None,
+    batch_selection=(0, 2, 4, 6),
+) -> None:
+    """Per-(batch, head, layer) report for the attention/mamba families
+    (ref eval_eig.py:393-433)."""
+    num_heads = np.shape(percentage)[2]
+    num_layers = np.shape(percentage)[3]
+    batch_size = np.shape(percentage)[1]
+    sel = [b for b in batch_selection if b < batch_size]
+
+    with open(path, "w") as f:
+        print("threshold radius:", thresholds_radius, "\n", file=f)
+        print("batch selection:", np.array(sel), "\n", file=f)
+        for bi, b in enumerate(sel):
+            for h in range(num_heads):
+                for l in range(num_layers):
+                    print("percentage batch dimension", b, "head", h, "layer", l,
+                          "radius init: ", np.round(percentage_init[:, b, h, l], 1), file=f)
+                for l in range(num_layers):
+                    print("percentage batch dimension", b, "head", h, "layer", l,
+                          "radius: ", np.round(percentage[:, b, h, l], 1), file=f)
+                if bi == 0 and percentage_mean is not None:
+                    for l in range(num_layers):
+                        print("percentage batch mean head", h, "layer", l,
+                              "radius init: ", np.round(percentage_init_mean[:, h, l], 1), file=f)
+                    for l in range(num_layers):
+                        print("percentage batch mean head", h, "layer", l,
+                              "radius: ", np.round(percentage_mean[:, h, l], 1), file=f)
+                    for l in range(num_layers):
+                        print("percentage batch std head", h, "layer", l,
+                              "radius init: ", np.round(percentage_init_std[:, h, l], 1), file=f)
+                    for l in range(num_layers):
+                        print("percentage batch std head", h, "layer", l,
+                              "radius: ", np.round(percentage_std[:, h, l], 1), file=f)
+                print("\n", file=f)
+            print("\n", file=f)
 
 
 def write_percentage_file_ssm(

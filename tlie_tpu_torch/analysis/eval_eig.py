@@ -1,12 +1,18 @@
-"""Eigen-spectroscopy for the LRU: parameters → per-layer spectra → binning →
-artifacts.  Counterpart of the SSM branch of
-``tlie_tpu/analysis/eval_eig.py::eval_eig`` (:384-433).
+"""Eigen-spectroscopy: per-layer spectra → binning → artifacts, counterpart
+of ``tlie_tpu/analysis/eval_eig.py::eval_eig`` for the LRU (its SSM branch,
+:384-433) and for Mamba-2 (its attention-family branch, :324-382).
 
-For the SSM families the spectra depend on the parameters only, so no batch
-runs through the model.  The init spectra come from the port's own seeded
-init (``torch.Generator`` seeded with ``args["seed"]``); JAX's draws cannot be
-reproduced, so they match ``tlie_tpu``'s in distribution, not pointwise.
-The trained spectra come from the parameters handed in.
+For the LRU the spectra depend on the parameters only, so no batch runs
+through the model.  For Mamba-2 they come from a forward pass: one analysis
+batch goes through the blocks, and layer i's λ_t = exp(dt_t·A) is taken from
+layer i's *own output* re-projected through its own ``in_proj`` — the
+reference's layer-chain quirk (``eval_eig.py:12-17``), kept for parity.  Both
+passes run in evaluation mode.
+
+The init spectra come from the port's own seeded init (``torch.Generator``
+seeded with ``args["seed"]``); JAX's draws cannot be reproduced, so they
+match ``tlie_tpu``'s in distribution, not pointwise.  The trained spectra
+come from the parameters handed in.
 
 Nothing is written unless the caller names the directory:
 ``conf_args["save_path"]`` is required.
@@ -24,9 +30,13 @@ from torch import nn
 
 from ..models.registry import build_models
 from ..training.checkpoint import restore_checkpoint
-from .artifacts import artifact_name, save_artifacts, write_percentage_file_ssm
-from .binning import PHASE_THRESHOLDS, RADIUS_THRESHOLDS, threshold_analysis_ssm
-from .extractors import eig_lru
+from .artifacts import (
+    artifact_name, save_artifacts, write_percentage_file, write_percentage_file_ssm,
+)
+from .binning import (
+    PHASE_THRESHOLDS, RADIUS_THRESHOLDS, threshold_analysis, threshold_analysis_ssm,
+)
+from .extractors import eig_lru, eig_mamba2
 
 _SEQ_KEY = re.compile(r"^encoder\.layers\.(\d+)\.seq\.(\w+)$")
 
@@ -50,14 +60,40 @@ def extract_ssm_family(layer_list, model_config) -> np.ndarray:
     return np.concatenate(cols, axis=-1)
 
 
+@torch.no_grad()
+def extract_mamba_family(model: nn.Module, inputs: torch.Tensor) -> np.ndarray:
+    """Per-layer λ of the Mamba-2 family → float32 (B, L, nheads, layers),
+    from the activations after each block (``_extract_attention_family``)."""
+    h = model.encoder(inputs)
+    etas = []
+    for block in model.blocks:
+        h = block(h)
+        m = block.mamba
+        eta = eig_mamba2(h, m.in_proj.weight, m.in_proj.bias, m.dt_bias, m.A_log,
+                         m.d_inner, m.ngroups, m.d_state)
+        etas.append(eta.cpu().numpy()[..., None])
+    return np.concatenate(etas, axis=-1)
+
+
+def _trained_state(params) -> Mapping[str, torch.Tensor]:
+    if isinstance(params, nn.Module):
+        return params.state_dict()
+    if isinstance(params, (str, os.PathLike)):
+        return restore_checkpoint(os.fspath(params))["model"]
+    return params
+
+
 def eval_eig(args: Dict[str, Any], conf_args: Dict[str, Any], perf: float,
-             params, *, device="cuda"):
-    """Spectra pipeline for the LRU.
+             params, *, device="cuda", batch=None):
+    """Spectra pipeline for the LRU and Mamba-2.
 
     ``params`` is the trained model, its ``state_dict``, or the path of the
-    port's checkpoint (``training.save_checkpoint``); the artifacts go to
-    ``conf_args["save_path"]/<artifact name>-perf<perf>``.  Returns
-    (eig, eig_init, percentage, percentage_init, percentage_phase,
+    port's checkpoint (``training.save_checkpoint``); ``batch`` is the
+    analysis batch of integer tokens (B, L) the Mamba family's spectra are
+    taken on (``tlie_tpu`` takes the first batch of the unshuffled test
+    split, of the analysis config's ``batch_size``); the LRU needs none.  The
+    artifacts go to ``conf_args["save_path"]/<artifact name>-perf<perf>``.
+    Returns (eig, eig_init, percentage, percentage_init, percentage_phase,
     percentage_phase_init) as ``tlie_tpu``'s ``eval_eig`` does."""
     if not conf_args.get("save_path"):
         raise ValueError("eval_eig needs conf_args['save_path']: it writes nowhere by default")
@@ -65,18 +101,67 @@ def eval_eig(args: Dict[str, Any], conf_args: Dict[str, Any], perf: float,
     model_config.pop("compute_dtype", None)
     seed = args["seed"]
 
-    _, init_model, _ = build_models(
+    _, init_model, family = build_models(
         model_config, generator=torch.Generator().manual_seed(seed), device=device
     )
-    eig_init = extract_ssm_family(ssm_layer_params(init_model.state_dict()), model_config)
-    if isinstance(params, nn.Module):
-        trained = params.state_dict()
-    elif isinstance(params, (str, os.PathLike)):
-        trained = restore_checkpoint(os.fspath(params))["model"]
+    out_dir = os.path.join(conf_args["save_path"], artifact_name(args, perf) + f"-perf{perf:0.3f}")
+    if family == "mamba":
+        arrays = _mamba_arrays(init_model, _trained_state(params), batch, model_config, device)
+        os.makedirs(out_dir, exist_ok=True)
+        write_percentage_file(
+            os.path.join(out_dir, "percentage_file.txt"), RADIUS_THRESHOLDS,
+            arrays["percentage"], arrays["percentage_init"],
+            arrays["percentage_mean"], arrays["percentage_init_mean"],
+            arrays["percentage_std"], arrays["percentage_init_std"],
+        )
     else:
-        trained = params
-    eig = extract_ssm_family(ssm_layer_params(trained), model_config)
+        arrays = _ssm_arrays(init_model, _trained_state(params), model_config)
+        os.makedirs(out_dir, exist_ok=True)
+        write_percentage_file_ssm(
+            os.path.join(out_dir, "percentage_file.txt"),
+            RADIUS_THRESHOLDS, PHASE_THRESHOLDS,
+            arrays["percentage"], arrays["percentage_init"],
+            arrays["percentage_phase"], arrays["percentage_phase_init"],
+        )
+    save_artifacts(out_dir, arrays, args)
+    return (
+        arrays["eig"], arrays["eig_init"],
+        arrays["percentage"], arrays["percentage_init"],
+        arrays["percentage_phase"], arrays["percentage_phase_init"],
+    )
 
+
+def _mamba_arrays(init_model, trained, batch, model_config, device) -> Dict[str, Any]:
+    """The Mamba branch (``eval_eig.py:324-382``): spectra of the init and
+    the trained model on the analysis batch, radius and phase binned per
+    (example, head, layer), with the batch mean and std."""
+    if batch is None:
+        raise ValueError("the Mamba family's spectra need an analysis batch (batch=...)")
+    inputs = torch.as_tensor(np.asarray(batch), device=device).long()
+    eig_init = extract_mamba_family(init_model, inputs)
+    _, model, _ = build_models(model_config, generator=torch.Generator(), device=device)
+    model.load_state_dict(trained)
+    eig = extract_mamba_family(model, inputs)
+
+    arrays: Dict[str, Any] = {}
+    arrays["percentage_init"] = threshold_analysis(np.abs(eig_init), RADIUS_THRESHOLDS)
+    arrays["percentage"] = threshold_analysis(np.abs(eig), RADIUS_THRESHOLDS)
+    ph_init = np.arctan2(np.zeros_like(eig_init), eig_init) * 180 / np.pi
+    ph = np.arctan2(np.zeros_like(eig), eig) * 180 / np.pi
+    arrays["percentage_phase_init"] = threshold_analysis(ph_init, PHASE_THRESHOLDS)
+    arrays["percentage_phase"] = threshold_analysis(ph, PHASE_THRESHOLDS)
+    arrays["percentage_init_mean"] = np.mean(arrays["percentage_init"], axis=1)
+    arrays["percentage_init_std"] = np.std(arrays["percentage_init"], axis=1)
+    arrays["percentage_mean"] = np.mean(arrays["percentage"], axis=1)
+    arrays["percentage_std"] = np.std(arrays["percentage"], axis=1)
+    arrays["eig"], arrays["eig_init"] = eig, eig_init
+    return arrays
+
+
+def _ssm_arrays(init_model, trained, model_config) -> Dict[str, Any]:
+    """The SSM branch (``eval_eig.py:384-433``) for the LRU."""
+    eig_init = extract_ssm_family(ssm_layer_params(init_model.state_dict()), model_config)
+    eig = extract_ssm_family(ssm_layer_params(trained), model_config)
     arrays: Dict[str, Any] = {}
     arrays["percentage_init"] = threshold_analysis_ssm(np.abs(eig_init), RADIUS_THRESHOLDS)
     arrays["percentage"] = threshold_analysis_ssm(np.abs(eig), RADIUS_THRESHOLDS)
@@ -87,18 +172,4 @@ def eval_eig(args: Dict[str, Any], conf_args: Dict[str, Any], perf: float,
     for key in ("percentage_init_mean", "percentage_init_std", "percentage_mean", "percentage_std"):
         arrays[key] = np.zeros(())
     arrays["eig"], arrays["eig_init"] = eig, eig_init
-
-    out_dir = os.path.join(conf_args["save_path"], artifact_name(args, perf) + f"-perf{perf:0.3f}")
-    os.makedirs(out_dir, exist_ok=True)
-    write_percentage_file_ssm(
-        os.path.join(out_dir, "percentage_file.txt"),
-        RADIUS_THRESHOLDS, PHASE_THRESHOLDS,
-        arrays["percentage"], arrays["percentage_init"],
-        arrays["percentage_phase"], arrays["percentage_phase_init"],
-    )
-    save_artifacts(out_dir, arrays, args)
-    return (
-        arrays["eig"], arrays["eig_init"],
-        arrays["percentage"], arrays["percentage_init"],
-        arrays["percentage_phase"], arrays["percentage_phase_init"],
-    )
+    return arrays

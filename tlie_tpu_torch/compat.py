@@ -3,10 +3,16 @@ the port's ``state_dict``.
 
 The flax tree of the SSM backbone (``encoder/encoder``,
 ``encoder/layers_i/{seq,out1,out2,normalize}``, ``decoder``) maps name for
-name onto the port's modules.  Dense kernels (in, out) become ``nn.Linear``
-weights (out, in); the token encoder keeps flax's (in, out) layout, since it
-is a gather table.  ``batch_stats`` {mean, var} are the BatchNorm running
-statistics.  One table of rules serves both directions, so
+name onto the port's modules.  The Mamba family keeps the reference's torch
+names (``encoder.word_embeddings``, ``blocks.{i}.mamba.*``,
+``blocks.{i}.glu.linear``, ``blocks.{i}.norm``), which map onto
+``encoder/word_embeddings/embedding``, ``blocks_i/mamba/*``,
+``blocks_i/glu_layer/linear`` and ``blocks_i/norm_layer`` as
+``tlie_tpu/analysis/compat.py`` maps them.  Dense kernels (in, out) become
+``nn.Linear`` weights (out, in); the SSM token encoder keeps flax's (in,
+out) layout, since it is a gather table; the depthwise conv's (K, C) becomes
+``nn.Conv1d``'s (C, 1, K).  ``batch_stats`` {mean, var} are the BatchNorm
+running statistics.  One table of rules serves both directions, so
 ``params_to_jax`` is the exact inverse of ``params_from_jax``.
 """
 
@@ -23,20 +29,36 @@ LRU_PARAMS = ("nu_log", "theta_log", "gamma_log", "B_re", "B_im", "C_re", "C_im"
 _LAYER = r"encoder\.layers\.(?P<i>\d+)"
 _FLAX_LAYER = r"encoder/layers_(?P<i>\d+)"
 _LRU = "(?P<p>" + "|".join(LRU_PARAMS) + ")"
-# (state_dict key, flax "collection/path", transposed), as regexes with the
-# same named groups on both sides
+_BLOCK = r"blocks\.(?P<i>\d+)"
+_FLAX_BLOCK = r"params/blocks_(?P<i>\d+)"
+_PROJ = r"(?P<pr>in_proj|out_proj)"
+# layout changes between the two sides
+T, CONV = "T", "conv"
+# (state_dict key, flax "collection/path", layout change), as regexes with
+# the same named groups on both sides
 _RULES = (
-    (r"encoder\.encoder\.weight", r"params/encoder/encoder/kernel", False),
-    (r"encoder\.encoder\.bias", r"params/encoder/encoder/bias", False),
-    (_LAYER + r"\.seq\." + _LRU, r"params/" + _FLAX_LAYER + r"/seq/" + _LRU, False),
-    (_LAYER + r"\.(?P<o>out[12])\.weight", r"params/" + _FLAX_LAYER + r"/(?P<o>out[12])/kernel", True),
-    (_LAYER + r"\.(?P<o>out[12])\.bias", r"params/" + _FLAX_LAYER + r"/(?P<o>out[12])/bias", False),
-    (_LAYER + r"\.normalize\.weight", r"params/" + _FLAX_LAYER + r"/normalize/scale", False),
-    (_LAYER + r"\.normalize\.bias", r"params/" + _FLAX_LAYER + r"/normalize/bias", False),
-    (_LAYER + r"\.normalize\.running_mean", r"batch_stats/" + _FLAX_LAYER + r"/normalize/mean", False),
-    (_LAYER + r"\.normalize\.running_var", r"batch_stats/" + _FLAX_LAYER + r"/normalize/var", False),
-    (r"decoder\.weight", r"params/decoder/kernel", True),
-    (r"decoder\.bias", r"params/decoder/bias", False),
+    (r"encoder\.encoder\.weight", r"params/encoder/encoder/kernel", None),
+    (r"encoder\.encoder\.bias", r"params/encoder/encoder/bias", None),
+    (_LAYER + r"\.seq\." + _LRU, r"params/" + _FLAX_LAYER + r"/seq/" + _LRU, None),
+    (_LAYER + r"\.(?P<o>out[12])\.weight", r"params/" + _FLAX_LAYER + r"/(?P<o>out[12])/kernel", T),
+    (_LAYER + r"\.(?P<o>out[12])\.bias", r"params/" + _FLAX_LAYER + r"/(?P<o>out[12])/bias", None),
+    (_LAYER + r"\.normalize\.weight", r"params/" + _FLAX_LAYER + r"/normalize/scale", None),
+    (_LAYER + r"\.normalize\.bias", r"params/" + _FLAX_LAYER + r"/normalize/bias", None),
+    (_LAYER + r"\.normalize\.running_mean", r"batch_stats/" + _FLAX_LAYER + r"/normalize/mean", None),
+    (_LAYER + r"\.normalize\.running_var", r"batch_stats/" + _FLAX_LAYER + r"/normalize/var", None),
+    (r"decoder\.weight", r"params/decoder/kernel", T),
+    (r"decoder\.bias", r"params/decoder/bias", None),
+    # the Mamba family
+    (r"encoder\.word_embeddings\.weight", r"params/encoder/word_embeddings/embedding", None),
+    (_BLOCK + r"\.mamba\." + _PROJ + r"\.weight", _FLAX_BLOCK + r"/mamba/" + _PROJ + r"/kernel", T),
+    (_BLOCK + r"\.mamba\.conv1d\.weight", _FLAX_BLOCK + r"/mamba/conv1d/weight", CONV),
+    (_BLOCK + r"\.mamba\.conv1d\.bias", _FLAX_BLOCK + r"/mamba/conv1d/bias", None),
+    (_BLOCK + r"\.mamba\.(?P<p>dt_bias|A_log|D|init_states)",
+     _FLAX_BLOCK + r"/mamba/(?P<p>dt_bias|A_log|D|init_states)", None),
+    (_BLOCK + r"\.glu\.linear\.weight", _FLAX_BLOCK + r"/glu_layer/linear/kernel", T),
+    (_BLOCK + r"\.glu\.linear\.bias", _FLAX_BLOCK + r"/glu_layer/linear/bias", None),
+    (_BLOCK + r"\.norm\.weight", _FLAX_BLOCK + r"/norm_layer/scale", None),
+    (_BLOCK + r"\.norm\.bias", _FLAX_BLOCK + r"/norm_layer/bias", None),
 )
 
 
@@ -46,7 +68,7 @@ def _fill(pattern: str, groups: Mapping[str, str]) -> str:
     return out.replace("\\", "")
 
 
-def _translate(name: str, src: int) -> Optional[Tuple[str, bool]]:
+def _translate(name: str, src: int) -> Optional[Tuple[str, Optional[str]]]:
     """Map ``name`` from side ``src`` (0: state_dict, 1: flax) to the other
     side; None when no rule takes it."""
     for rule in _RULES:
@@ -56,7 +78,7 @@ def _translate(name: str, src: int) -> Optional[Tuple[str, bool]]:
     return None
 
 
-def _to_flax(key: str) -> Tuple[Tuple[str, ...], bool]:
+def _to_flax(key: str) -> Tuple[Tuple[str, ...], Optional[str]]:
     found = _translate(key, 0)
     if found is None:
         raise ValueError(f"state_dict key {key!r} has no place in the flax tree")
@@ -66,6 +88,22 @@ def _to_flax(key: str) -> Tuple[Tuple[str, ...], bool]:
 def flax_path(key: str) -> Tuple[str, ...]:
     """The flax ``(collection, *path)`` of a port ``state_dict`` key."""
     return _to_flax(key)[0]
+
+
+def _to_port_layout(arr: np.ndarray, change: Optional[str]) -> np.ndarray:
+    if change == T:
+        return arr.T
+    if change == CONV:  # (K, C) -> (C, 1, K)
+        return arr.T[:, None, :]
+    return arr
+
+
+def _to_flax_layout(arr: np.ndarray, change: Optional[str]) -> np.ndarray:
+    if change == T:
+        return arr.T
+    if change == CONV:  # (C, 1, K) -> (K, C)
+        return arr[:, 0, :].T
+    return arr
 
 
 def _leaves(tree: Mapping, prefix=()):
@@ -78,9 +116,10 @@ def _leaves(tree: Mapping, prefix=()):
 
 def params_from_jax(params: Mapping[str, Any],
                     batch_stats: Optional[Mapping[str, Any]] = None) -> Dict[str, torch.Tensor]:
-    """The port's ``state_dict`` for an LRU ``ClassificationModel`` from the
-    flax ``params`` (and ``batch_stats`` for ``norm: batch``) as numpy
-    arrays.  Raises if a flax leaf has no place in the port."""
+    """The port's ``state_dict`` for an LRU ``ClassificationModel`` or a
+    ``Mamba`` from the flax ``params`` (and ``batch_stats`` for ``norm:
+    batch``) as numpy arrays.  Raises if a flax leaf has no place in the
+    port."""
     out: Dict[str, torch.Tensor] = {}
     left = []
     trees = {"params": params, "batch_stats": batch_stats or {}}
@@ -90,9 +129,9 @@ def params_from_jax(params: Mapping[str, Any],
             if found is None:
                 left.append((collection,) + path)
                 continue
-            key, transposed = found
+            key, change = found
             arr = np.asarray(value, dtype=np.float32)
-            out[key] = torch.tensor(arr.T if transposed else arr)
+            out[key] = torch.tensor(np.ascontiguousarray(_to_port_layout(arr, change)))
     if left:
         raise ValueError(f"flax leaves with no place in the port: {left}")
     return out
@@ -104,10 +143,8 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]):
     BatchNorm), the trees ``tlie_tpu``'s model and extractors take."""
     trees: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}}
     for key, value in state_dict.items():
-        (collection, *path), transposed = _to_flax(key)
-        arr = value.detach().cpu().numpy().astype(np.float32)
-        if transposed:
-            arr = arr.T
+        (collection, *path), change = _to_flax(key)
+        arr = _to_flax_layout(value.detach().cpu().numpy().astype(np.float32), change)
         node = trees[collection]
         for k in path[:-1]:
             node = node.setdefault(k, {})

@@ -1,7 +1,7 @@
 """Experiment configuration: the parts of ``tlie_tpu/config/schema.py`` the
 LRU slices use (runtime fields, ``lang_model``, ``checkpoint_name``), the
 train fields and the step-driven choice of ``tlie_tpu/training/loop.py``,
-and the full-width MQAR LRU and WikiText LRU as Python dicts.
+and the full-width MQAR LRU, MQAR Mamba-2 and WikiText LRU as Python dicts.
 
 YAML is read only inside :func:`load_yaml`, so that the package and the card
 run (``chip_smoke.py``) need no ``yaml`` module.
@@ -164,6 +164,34 @@ WIKITEXT_LRU_SHORT: Dict[str, Any] = {
         "ssm_lr_vars": ["Lambda_re", "Lambda_im", "P", "B", "log_step"],
         "prenorm": False, "dual": False, "decode": False,
         "r_min": 0.9, "r_max": 0.99, "seq_len": 1024,
+    },
+    "lang_model": True,
+}
+
+
+# configs/tasks/mqar/mqar-mamba2.yaml after derive_runtime_fields with the
+# MQAR dataset it names (L = 512, 100 000 training examples by default); a CPU
+# test pins this dict to the YAML as tlie_tpu.config resolves it.
+MQAR_MAMBA2_FULL: Dict[str, Any] = {
+    "seed": 1919,
+    "save": "./checkpoint/mqar-mamba2",
+    "dataset": {
+        "name": "MQAR", "_name_": "mqar", "input_seq_length": 512,
+        "num_kv_pairs": 64, "data_dir": "", "fixed_size": True,
+    },
+    "train": {
+        "total_steps": 40000, "batch_size": 64, "eval_every": 200,
+        "stop_criterion": 0.99, "cosine_anneal": True, "param_group": None,
+        "wd": 0.1, "warmup_steps": 4000, "lr": 0.01,
+        "padded": False, "train_size": 100000,
+    },
+    "model": {
+        "layer": "mamba", "version": "mamba2", "num_layers": 2, "num_heads": 1,
+        "input_dim": 1, "output_dim": 8192, "hidden_dim": 128, "state_dim": 128,
+        "conv_dim": 4, "expansion": 1, "dropout": 0.0, "glu": True, "norm": "layer",
+        "dual": False, "prenorm": True, "pooling": "none", "embedding": True,
+        "token_embedding": True, "vocab_size": 8192, "max_pos_embed": 512,
+        "mixer": "none", "mixer_dim": 128, "classifier": False, "seq_len": 512,
     },
     "lang_model": True,
 }

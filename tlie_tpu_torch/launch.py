@@ -3,6 +3,9 @@
     python -m tlie_tpu_torch.launch --config configs/tasks/mqar/mqar-lru.yaml \\
         --analysis_config configs/analysis/mqar.yaml [--device cpu]
 
+The model families are the LRU (``layer: lru``) and Mamba-2 (``layer: mamba``,
+e.g. ``configs/tasks/mqar/mqar-mamba2.yaml``).
+
 ``--config`` paths resolve against ``configs/`` first, then as given.  The
 run trains on the card unless ``--device cpu`` is given (a CUDA request
 without a card raises), writes the checkpoint named by the config's
@@ -67,7 +70,10 @@ def main(argv=None) -> int:
         print("Running eigenvalue evaluation")
         from .analysis import eval_eig
 
-        eval_eig(cfg, conf_args, perf, result.model, device=device)
+        # the Mamba family's spectra are taken on the first analysis batch
+        # of the test split, as tlie_tpu's unshuffled analysis loader gives it
+        batch = test_split[0][: conf_args["batch_size"]]
+        eval_eig(cfg, conf_args, perf, result.model, device=device, batch=batch)
         print("Finished!")
     return 0
 

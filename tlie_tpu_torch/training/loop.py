@@ -36,7 +36,7 @@ from .scan_loop import (
     batch_indices, eval_indices, evaluate, per_position, put_dataset, sparse_head_k_for,
 )
 from .schedules import PlateauState, lr_for_step, reduce_lr_on_plateau
-from .state import make_optimizer
+from .state import make_family_optimizer
 from .steps import train_step
 
 
@@ -83,13 +83,13 @@ def train(cfg: Dict[str, Any], train_split: Tuple[np.ndarray, np.ndarray],
                              f"one batch of {bsz}")
     metric = DATASETS[cfg["dataset"]["_name_"]].get_metrics()
 
-    model, eval_model, _ = build_models(
+    model, eval_model, family = build_models(
         model_cfg, generator=torch.Generator().manual_seed(cfg["seed"]), device=dev)
     nr_params = sum(p.numel() for p in model.parameters())
-    nr_encoder = sum(p.numel() for p in model.encoder.encoder.parameters())
+    embed = getattr(model.encoder, "encoder", model.encoder)  # the SSM backbone nests it
+    nr_encoder = sum(p.numel() for p in embed.parameters())
     print(f"Nr. of parameters: {nr_params} (encoder: {nr_encoder})")
-    optimizer = make_optimizer(model, model_cfg.get("ssm_lr_vars", []), f["lr"],
-                               f["ssm_lr"], f["wd"], f["betas"])
+    optimizer, clip_norm = make_family_optimizer(model, family, model_cfg, cfg["train"], f)
 
     train_data = put_dataset(*train_split, dev)
     test_data = put_dataset(*test_split, dev)
@@ -122,7 +122,7 @@ def train(cfg: Dict[str, Any], train_split: Tuple[np.ndarray, np.ndarray],
                 "ssm": lr_for_step(step + j, plateau.ssm_lr, warmup, total, f["cosine"], f["lr_min"]),
             }
             x, y = train_data.inputs[idx[j]], train_data.labels[idx[j]]
-            loss_sum += train_step(model, optimizer, x, y, lrs, sparse_k, fused)
+            loss_sum += train_step(model, optimizer, x, y, lrs, sparse_k, fused, clip_norm)
         step += k
         test_loss, test_perf = evaluate(eval_model, test_data, eval_idx, sparse_k, metric)
         train_loss = float(loss_sum) / k

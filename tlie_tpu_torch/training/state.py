@@ -1,5 +1,7 @@
 """Optimiser construction: the ``{ssm, regular}`` groups of
-``tlie_tpu/training/state.py::_grouped_tx``.
+``tlie_tpu/training/state.py::_grouped_tx`` for the SSM families, and
+``create_train_state_adamw``'s AdamW behind a global-norm clip for the Mamba
+family (:func:`make_family_optimizer` chooses, as ``loop.py::_make_state``).
 
 A parameter is in ``ssm`` when its flax leaf name is in the config's
 ``ssm_lr_vars``: Adam at ``ssm_lr`` with no weight decay.  Everything else is
@@ -17,7 +19,7 @@ in ``tlie_tpu``.
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Sequence, Tuple
+from typing import Any, Dict, Iterable, List, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -51,3 +53,38 @@ def set_group_learning_rates(optimizer: torch.optim.Optimizer, lrs: Dict[str, fl
     """Write each group's learning rate for the coming step."""
     for group in optimizer.param_groups:
         group["lr"] = lrs[group["name"]]
+
+
+def make_family_optimizer(model: nn.Module, family: str, model_cfg: Dict[str, Any],
+                          train_cfg: Dict[str, Any], f: Dict[str, Any]):
+    """``(optimizer, clip_norm)`` for the family (``loop.py::_make_state``):
+    the SSM families take the ``{ssm, regular}`` groups and no clip; the
+    Mamba family ``create_train_state_adamw``'s one AdamW group,
+    ``regular``, decaying every parameter (optax's ``adamw``, eps 1e-8),
+    behind a clip at global norm 1.0 (:func:`clip_by_global_norm_`, applied
+    by ``train_step``).  A non-null ``train.param_group`` raises: its extra
+    group is not ported yet."""
+    if family == "mamba":
+        if train_cfg.get("param_group") is not None:
+            raise NotImplementedError("train.param_group is not ported yet")
+        group = {"params": list(model.parameters()), "name": "regular", "lr": f["lr"],
+                 "weight_decay": f["wd"]}
+        return torch.optim.AdamW([group], betas=tuple(f["betas"]), eps=1e-8), 1.0
+    return make_optimizer(model, model_cfg.get("ssm_lr_vars", []), f["lr"], f["ssm_lr"],
+                          f["wd"], f["betas"]), None
+
+
+@torch.no_grad()
+def clip_by_global_norm_(params: Iterable[nn.Parameter], max_norm: float) -> torch.Tensor:
+    """optax's ``clip_by_global_norm``, in place on the gradients: with
+    norm = sqrt(Σ g²) over every gradient, each g becomes g / norm · max_norm
+    where norm ≥ max_norm and stays as it is otherwise.  (Not
+    ``torch.nn.utils.clip_grad_norm_``, which scales by max_norm / (norm +
+    1e-6) and so moves gradients whose norm is just below max_norm.)
+    Returns the norm, on the device, without a host sync."""
+    grads = [p.grad for p in params if p.grad is not None]
+    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm * max_norm))
+    return norm

@@ -14,7 +14,7 @@ from torch import nn
 
 from ..data.base import masked_accuracy as compute_accuracy
 from ..ops.fused_xent import fused_softmax_xent
-from .state import set_group_learning_rates
+from .state import clip_by_global_norm_, set_group_learning_rates
 
 IGNORE_IDX = -100
 
@@ -76,12 +76,14 @@ def fused_head_loss(model: nn.Module, x: torch.Tensor, y: torch.Tensor) -> torch
 
 def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, x: torch.Tensor,
                y: torch.Tensor, lrs: Dict[str, float],
-               sparse_k: Optional[int] = None, fused_head: bool = False) -> torch.Tensor:
+               sparse_k: Optional[int] = None, fused_head: bool = False,
+               clip_norm: Optional[float] = None) -> torch.Tensor:
     """One optimisation step of ``model`` (in training mode) on the batch:
     the group learning rates are set, the gradients zeroed, the loss taken
     (its forward updates the BatchNorm running statistics, as flax's
-    ``mutable=["batch_stats"]`` apply does), back-propagated, and the
-    optimiser stepped.  The loss goes through the dense head, the sparse
+    ``mutable=["batch_stats"]`` apply does), back-propagated, clipped to
+    the global norm ``clip_norm`` where one is given (the Mamba family's
+    optax chain), and the optimiser stepped.  The loss goes through the dense head, the sparse
     head (``sparse_k``) or the fused head (``fused_head``), which exclude
     each other.  Returns the loss, detached, on the device."""
     if fused_head and sparse_k is not None:
@@ -93,6 +95,8 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, x: torch.Tens
     else:
         loss = cross_entropy_loss(*head_logits(model, x, y, sparse_k))
     loss.backward()
+    if clip_norm is not None:
+        clip_by_global_norm_(model.parameters(), clip_norm)
     optimizer.step()
     return loss.detach()
 
