@@ -7,9 +7,10 @@ It builds the port's CUDA kernels from ``tlie_tpu_torch/ops/csrc`` with
 ``nvcc`` (into ``tlie_tpu_torch/_build/``, one ``nvcc`` per source, all at
 once), holds each kernel against its plain PyTorch version on the card
 (the diagonal scan forward and backward, the three kernels of the fused
-decoder + cross-entropy head, and the three of the SSD's decay attention),
-and drives three full-width models along four paths, each with the launch
-counts set to 0 just before it and read just after:
+decoder + cross-entropy head, the three of the SSD's decay attention and the
+three of the flash attention), and drives four full-width models along five
+paths, each with the launch counts set to 0 just before it and read just
+after:
 
 1. the MQAR LRU (``MQAR_LRU_FULL``: L=512, d_model=128, N=128, 2 layers,
    vocab 8192, batch 64, weights from the config's seed): evaluation,
@@ -26,12 +27,20 @@ counts set to 0 just before it and read just after:
    head of 128, vocab 8192, L 512, batch 64): its forward on the test batch,
    200 training steps (AdamW behind the global-norm clip, the sparse head) on
    the same cut train split, the checkpoint reloaded and eigen-analysed from
-   activations.
+   activations;
+5. the MQAR softmax transformer (``MQAR_SM_ATTENTION_FULL``: 2 layers,
+   d_model 128, one head of 128, vocab 8192, position table 512, L 512,
+   batch 64, dropout 0.1): its forward on the test batch, 200 training steps
+   (AdamW behind the clip, the sparse head) on the same cut train split, the
+   checkpoint reloaded and eigen-analysed from activations, and serving (64
+   prompts cut to 384 tokens, prefill plus 16 greedy tokens over the KV
+   cache, the step path against the full forward).
 
-It also checks one MQAR training step of the LRU and one of the Mamba-2 on
-the card against the same step on the CPU, one fused-head WikiText step
-against the dense-head step on the card, and times each kernel against its bound, its plain version and, where
-one exists, the PyTorch library call computing the same function.  Each
+It also checks one MQAR training step of the LRU, of the Mamba-2 and of the
+transformer on the card against the same step on the CPU, one fused-head
+WikiText step against the dense-head step on the card, and times each kernel
+against its bound, its plain version and, where one exists, the PyTorch
+library call computing the same function.  Each
 phase prints one line with its wall seconds; any failed check raises and
 the exit code is non-zero.  The last three lines are the kernel table as
 JSON, the card's name and power limit from ``nvidia-smi``, and
@@ -141,10 +150,32 @@ MAMBA_GRAD_RTOL_OF_MAX = 1e-4
 # the MQAR Mamba-2 path: 200 steps and an eval every 100 (the config runs
 # 40,000 with an eval every 200), on the same train split cut as the LRU's
 MAMBA_STEPS, MAMBA_EVAL_EVERY = 200, 100
+# the flash attention's three kernels against their plain version: the MQAR
+# transformer's (B, L, H, D), a multi-head shape and a ragged one
+ATTN_SHAPES = {"mqar_b64_l512_h1_d128": (64, 512, 1, 128),
+               "heads_b4_l1024_h4_d64": (4, 1024, 4, 64),
+               "ragged_b3_l77_h3_d40": (3, 77, 3, 40)}
+# flash attention vs plain: each output element (o, dq, dk, dv) within
+# ATTN_RTOL plus attention.logit_rtol of the sum of its terms' magnitudes
+# (attention.term_scales): float32 sums of up to D + L terms rounded in
+# another order, and the rounding of the logits, which enter P's exponent;
+# lse within the same fraction of max(1, |lse|)
+ATTN_RTOL = 1e-5
+# the MQAR transformer path: 200 steps and an eval every 100 (the config runs
+# 40,000 with an eval every 200), on the same train split cut as the LRU's;
+# serving takes the test batch's prompts cut to 384 tokens (a multiple of the
+# TPU kernel's 128-row block) and 16 greedy tokens, inside max_pos_embed 512
+TF_STEPS, TF_EVAL_EVERY, TF_PROMPT = 200, 100, 384
+# one transformer step's gradients, card vs CPU, both held to float64 on the
+# CPU: the card's error may be GRAD_F64_FACTOR times the CPU's, or 1e-4 of
+# the leaf's max, the tolerance the CPU tests hold the port's gradients to
+# JAX's with
+TF_GRAD_RTOL_OF_MAX = 1e-4
 # device kernels of a training step by kind, from their names (first match)
 OP_KINDS = (
     ("scan kernels", ("diag_scan", "sum_rows")),
     ("decay attention kernels", ("decay_attention",)),
+    ("flash attention kernels", ("flash_attention",)),
     ("fused head kernels", ("xent",)),
     ("matmul", ("gemm", "Kernel2", "xmma")),
     ("optimizer", ("multi_tensor_apply",)),
@@ -509,6 +540,425 @@ def time_decay_attention(dattn, C, B, cs, x, dy, flush):
     return out
 
 
+def attention_inputs(dev, gen, B, L, H, D):
+    """q, k, v as head-strided views of one projection (MHA splits them out
+    of Wqkv, and the kernels read them in place) and a cotangent do."""
+    qkv = torch.randn(B, L, 3 * H * D + 8, device=dev, generator=gen)
+    q, k, v = (qkv[..., i * H * D:(i + 1) * H * D].reshape(B, L, H, D) for i in range(3))
+    return q, k, v, torch.randn(B, L, H, D, device=dev, generator=gen)
+
+
+ATTN_OUTPUTS = (("o", "flash_attention_fwd"), ("dq", "flash_attention_bwd_dq"),
+                ("dk", "flash_attention_bwd_dkv"), ("dv", "flash_attention_bwd_dkv"))
+
+
+def check_flash_attention(fa, q, k, v, do, f64: bool):
+    """The three kernels against the plain version on the same inputs (the
+    backward kernels on the plain forward's lse and di): (fields, max abs
+    error by kernel, (lse, di)).  With ``f64`` both are also held to the
+    plain version in float64, for the record."""
+    scale = q.shape[-1] ** -0.5
+    o, lse = fa.flash_attention_fwd_cuda(q, k, v, scale)
+    o_ref, lse_ref = fa.flash_attention_plain(q, k, v, scale)
+    di = fa.attention_di(o_ref, do)
+    dk, dv = fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse_ref, di, scale)
+    dq = fa.flash_attention_bwd_dq_cuda(q, k, v, do, lse_ref, di, scale)
+    torch.cuda.synchronize()
+    dk_ref, dv_ref = fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse_ref, di, scale)
+    want = (o_ref, fa.flash_attention_bwd_dq_plain(q, k, v, do, lse_ref, di, scale), dk_ref,
+            dv_ref)
+    got = (o, dq, dk, dv)
+    scales = fa.term_scales(q, k, v, do, lse_ref, scale)
+    rtol = ATTN_RTOL + fa.logit_rtol(q, k, scale)
+    lse_ratio = ((lse - lse_ref).abs() / (rtol * lse_ref.abs().clamp_min(1.0))).max().item()
+    fields = {"rtol_of_term_sums": f"{rtol:.2e}", "lse_err_over_tol": f"{lse_ratio:.3e}"}
+    errs = {"flash_attention_fwd": (lse - lse_ref).abs().max().item()}
+    ok = lse_ratio <= 1.0
+    for (name, kernel), a, b, sc in zip(ATTN_OUTPUTS, got, want, scales):
+        ratio = ((a - b).abs() / (rtol * sc + 1e-30)).max().item()
+        fields[f"{name}_err_over_tol"] = f"{ratio:.3e}"
+        errs[kernel] = max(errs.get(kernel, 0.0), (a - b).abs().max().item())
+        ok = ok and ratio <= 1.0 and bool(torch.isfinite(a).all()) and a.abs().max().item() > 0
+    if f64:
+        q64, k64, v64, do64 = (t.double() for t in (q, k, v, do))
+        o64, lse64 = fa.flash_attention_plain(q64, k64, v64, scale)
+        di64 = fa.attention_di(o64, do64)
+        dk64, dv64 = fa.flash_attention_bwd_dkv_plain(q64, k64, v64, do64, lse64, di64, scale)
+        ref = (o64, fa.flash_attention_bwd_dq_plain(q64, k64, v64, do64, lse64, di64, scale),
+               dk64, dv64)
+        for (name, _), a, b, r, sc in zip(ATTN_OUTPUTS, got, want, ref, scales):
+            sc = sc.double() + 1e-300
+            k_e = ((a.double() - r).abs() / sc).max().item()
+            p_e = ((b.double() - r).abs() / sc).max().item()
+            fields[f"{name}_vs_f64_over_term_sums"] = f"kernel={k_e:.2e},plain={p_e:.2e}"
+    if not ok:
+        raise AssertionError(f"flash attention kernels vs plain: {fields}")
+    return fields, errs, (lse_ref, di)
+
+
+def time_flash_attention(fa, q, k, v, do, lse, di, flush):
+    """L2-cold medians of 21 launches of each kernel, warm medians, the plain
+    version's and the library call's cold medians (F.scaled_dot_product_attention
+    with is_causal=True in float32, its autograd for the gradients), and each
+    kernel's bound: {kernel: (ms, warm_ms, plain_ms, library_ms, bound_ms,
+    bound_by, bytes, flops)}."""
+    import torch.nn.functional as F
+
+    B, L, H, D = q.shape
+    scale = D ** -0.5
+    ms = {
+        "flash_attention_fwd": lambda: fa.flash_attention_fwd_cuda(q, k, v, scale),
+        "flash_attention_bwd_dkv": lambda: fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, di,
+                                                                           scale),
+        "flash_attention_bwd_dq": lambda: fa.flash_attention_bwd_dq_cuda(q, k, v, do, lse, di,
+                                                                         scale),
+    }
+    plain = {
+        "flash_attention_fwd": lambda: fa.flash_attention_plain(q, k, v, scale),
+        "flash_attention_bwd_dkv": lambda: fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, di,
+                                                                            scale),
+        "flash_attention_bwd_dq": lambda: fa.flash_attention_bwd_dq_plain(q, k, v, do, lse, di,
+                                                                          scale),
+    }
+    # SDPA takes (B, H, L, D): the same tensors, transposed views
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    library = {
+        "flash_attention_fwd": lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True),
+        "flash_attention_bwd_dkv": lambda: torch.autograd.grad(o_lib, (kt, vt), dot,
+                                                               retain_graph=True),
+        "flash_attention_bwd_dq": lambda: torch.autograd.grad(o_lib, qt, dot, retain_graph=True),
+    }
+    # bytes: each input read once, each output written once; operations: the
+    # products over the causal pairs (j <= i): q.k and p v forward (4D a
+    # pair), q.k, do.v, p^T do and ds^T q for dK/dV (8D), q.k, do.v and ds k
+    # for dQ (6D)
+    f4, n = 4, B * L * H * D
+    pairs = B * H * L * (L + 1) // 2
+    rows = B * H * L
+    io = {"flash_attention_fwd": ((3 * n + n + rows) * f4, 4 * D * pairs),
+          "flash_attention_bwd_dkv": ((4 * n + 2 * rows + 2 * n) * f4, 8 * D * pairs),
+          "flash_attention_bwd_dq": ((4 * n + 2 * rows + n) * f4, 6 * D * pairs)}
+    out = {}
+    for name in ms:
+        with torch.no_grad():
+            k_ms = median(cuda_ms(ms[name], 21, flush))
+            w_ms = median(cuda_ms(ms[name], 21))
+            p_ms = median(cuda_ms(plain[name], 21, flush))
+        l_ms = median(cuda_ms(library[name], 21, flush))
+        n_bytes, flops = io[name]
+        bytes_ms, flops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+        out[name] = (k_ms, w_ms, p_ms, l_ms, max(bytes_ms, flops_ms),
+                     "bytes" if bytes_ms >= flops_ms else "operations", n_bytes, flops)
+    del o_lib, qt, kt, vt
+    return out
+
+
+def step_profile(one_step, tokens_per_step: int, kernel_pattern: str, kernel_field: str,
+                 n_warm: int = 3, n_timed: int = 20):
+    """Fields of a training step's timing phase: ms per step from CUDA events
+    around ``n_timed`` back-to-back steps after ``n_warm`` warm ones, train
+    tokens/s, and from ``torch.profiler`` over one step the device busy time,
+    the idle share, the time and share of the kernels whose names hold
+    ``kernel_pattern``, and device time by kind."""
+    for _ in range(n_warm):
+        one_step()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n_timed):
+        one_step()
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / n_timed
+    ops = top_device_ops(one_step, k=1000)
+    busy = sum(t for _, t in ops)
+    fields = {"ms_per_step": f"{step_ms:.3f}",
+              "train_tokens_per_s": f"{tokens_per_step / step_ms * 1e3:.0f}"}
+    if busy <= 0:  # the profiler saw no device time: the CUDA-event time stands alone
+        fields["device_busy_ms"] = "not measured"
+        return fields
+    k_ms = sum(t for name, t in ops if kernel_pattern in name)
+    by_kind = {}
+    for name, t in ops:
+        op_kind = next((k for k, pats in OP_KINDS if any(p in name for p in pats)), "other")
+        by_kind[op_kind] = round(by_kind.get(op_kind, 0.0) + t, 4)
+    fields.update({"device_busy_ms": f"{busy:.4f}",
+                   "idle_share": f"{max(0.0, 1 - busy / step_ms):.3f}",
+                   f"{kernel_field}_ms": f"{k_ms:.4f}",
+                   f"{kernel_field}_share_of_device": f"{k_ms / busy:.4f}",
+                   "device_ms_by_kind": repr(sorted(by_kind.items(), key=lambda kv: -kv[1])),
+                   "top_device_ops_ms": repr(short(ops[:12]))})
+    return fields
+
+
+def transformer_path(dev, gen, flush, test_x, test_y, train_split, want_files):
+    """Main path 5, the full-width MQAR softmax transformer
+    (``MQAR_SM_ATTENTION_FULL``: 2 layers, d_model 128, one head of 128,
+    vocab 8192, position table 512, L 512, batch 64, dropout 0.1, weights
+    from seed 1919) through the three flash-attention kernels: first each
+    kernel against its plain version at three shapes; then, with every
+    launch count set to 0, the forward on the test batch (card against CPU),
+    200 training steps with 2 evals, the checkpoint reloaded and
+    eigen-analysed, and serving; the counts are read there.  Then one card
+    step against the CPU step, the step's time and where it goes, and the
+    kernels' times.  Returns (launches of the path, kernel times, max abs
+    errors by kernel)."""
+    from tlie_tpu_torch.analysis import eval_eig
+    from tlie_tpu_torch.analysis.eval_eig import extract_attention_family
+    from tlie_tpu_torch.config import MQAR_SM_ATTENTION_FULL, derive_runtime_fields, train_fields
+    from tlie_tpu_torch.data import masked_accuracy
+    from tlie_tpu_torch.inference import Decoder
+    from tlie_tpu_torch.models import build_models
+    from tlie_tpu_torch.ops import LAUNCHES
+    from tlie_tpu_torch.ops import attention as fa
+    from tlie_tpu_torch.training import prep_batch, restore_checkpoint, train, train_step
+    from tlie_tpu_torch.training.scan_loop import sparse_head_k_for
+    from tlie_tpu_torch.training.state import clip_by_global_norm_, make_family_optimizer
+    from tlie_tpu_torch.training.steps import cross_entropy_loss, head_logits
+
+    kernels = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+    with Phase("flash_attention_vs_plain") as ph:
+        attn_errs = {}
+        for name, (B, L, H, D) in ATTN_SHAPES.items():
+            ins = attention_inputs(dev, gen, B, L, H, D)
+            fields, errs, rows = check_flash_attention(fa, *ins, f64=name.startswith("ragged"))
+            ph.fields[name] = repr(fields)
+            if not attn_errs:  # the MQAR shape comes first
+                attn_errs, attn_io = errs, ins + rows
+            del ins, rows
+        torch.cuda.empty_cache()
+
+    sm = MQAR_SM_ATTENTION_FULL
+    smm = sm["model"]
+    n_layers, bsz, L = smm["num_layers"], sm["train"]["batch_size"], smm["seq_len"]
+    _, model, _ = build_models(smm, generator=torch.Generator().manual_seed(sm["seed"]), device=dev)
+    inputs, labels = prep_batch((test_x[:bsz], test_y[:bsz]), L, smm["input_dim"],
+                                lang_model=True, device=dev)
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    with Phase("tf_forward") as ph, torch.no_grad():
+        logits = model(inputs)
+        torch.cuda.synchronize()
+        if LAUNCHES["flash_attention_fwd"] != n_layers:
+            raise AssertionError(f"the transformer's forward launched flash_attention_fwd "
+                                 f"{LAUNCHES['flash_attention_fwd']} times, expected {n_layers}")
+        if logits.shape != (bsz, L, smm["output_dim"]) or not torch.isfinite(logits).all():
+            raise AssertionError(f"transformer forward output {tuple(logits.shape)}")
+        acc = float(masked_accuracy(logits, labels))
+        fwd_ms = min(cuda_ms(lambda: model(inputs), 3))
+        top = top_device_ops(lambda: model(inputs))
+        _, cpu_model, _ = build_models(smm, generator=torch.Generator(), device="cpu")
+        cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        ref = cpu_model(inputs[:2].cpu())
+        cpu_err = (logits[:2].cpu() - ref).abs().max().item()
+        if not torch.allclose(logits[:2].cpu(), ref, rtol=LOGIT_RTOL, atol=LOGIT_ATOL):
+            raise AssertionError(f"transformer card vs CPU forward: max abs err {cpu_err}")
+        ph.fields.update(masked_acc=f"{acc:.6f}", forward_ms=f"{fwd_ms:.3f}",
+                         flash_attention_fwd_launches_per_forward=n_layers,
+                         vs_cpu_max_abs=f"{cpu_err:.3e}", top_device_ops_ms=repr(short(top)))
+        del cpu_model, ref
+
+    tcfg = copy.deepcopy(sm)
+    tmp = tempfile.mkdtemp(prefix="tlie_tf_")
+    tcfg["save"] = os.path.join(tmp, "checkpoint", "mqar-sm-attention")
+    tcfg["train"].update(total_steps=TF_STEPS, eval_every=TF_EVAL_EVERY)
+    tcfg["dataset"]["num_train_examples"] = TRAIN_EXAMPLES
+    tcfg = derive_runtime_fields(tcfg, L, len(train_split[0]))
+    test_split = (test_x, test_y)
+    try:
+        with Phase("tf_train") as ph:
+            fwd_before = LAUNCHES["flash_attention_fwd"]
+            t0 = time.perf_counter()
+            result = train(tcfg, train_split, test_split, device=dev)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            path5 = dict(LAUNCHES)
+            n_eval_batches = len(result.history) * (len(test_x) // bsz)
+            # one forward launch per layer per step and eval batch, one of each
+            # backward per layer per step; no other kernel
+            want = dict.fromkeys(LAUNCHES, 0)
+            want.update(flash_attention_fwd=fwd_before + n_layers * (TF_STEPS + n_eval_batches),
+                        flash_attention_bwd_dkv=n_layers * TF_STEPS,
+                        flash_attention_bwd_dq=n_layers * TF_STEPS)
+            if path5 != want:
+                raise AssertionError(f"transformer training launches {path5}, expected {want}")
+            for rec in result.history:
+                if not all(np.isfinite(v) for v in rec.values()):
+                    raise AssertionError(f"non-finite transformer training numbers {rec}")
+            trained = result.model.state_dict()
+            init = build_models(smm, generator=torch.Generator().manual_seed(sm["seed"]),
+                                device=dev)[0].state_dict()
+            frozen = [k for k, v in trained.items() if torch.equal(v, init[k])]
+            if frozen:
+                raise AssertionError(f"transformer parameters that did not move: {frozen}")
+            ph.fields.update(steps=TF_STEPS, seconds=f"{train_s:.2f}", eval_batches=n_eval_batches,
+                             history=repr([{k: round(v, 4) for k, v in r.items()}
+                                           for r in result.history]),
+                             launches=repr(path5))
+
+        with Phase("tf_checkpoint_eval_eig") as ph:
+            ckpt_path, perf = result
+            ckpt = restore_checkpoint(ckpt_path)
+            for k, v in trained.items():
+                if not torch.equal(ckpt["model"][k], v.cpu()):
+                    raise AssertionError(f"transformer checkpoint entry {k} differs from the live "
+                                         "weights")
+            eig_dir = os.path.join(tmp, "analysis")
+            before = LAUNCHES["flash_attention_fwd"]
+            eig, eig_init, perc, perc_init, _, _ = eval_eig(
+                tcfg, {"save_path": eig_dir}, perf, ckpt_path, device=dev, batch=test_x[:bsz])
+            if LAUNCHES["flash_attention_fwd"] - before != 2 * n_layers:
+                raise AssertionError("eval_eig's two forwards did not go through the kernel")
+            live = extract_attention_family(result.eval_model, inputs)
+            (run_dir,) = os.listdir(eig_dir)
+            files = sorted(os.listdir(os.path.join(eig_dir, run_dir)))
+            saved = np.load(os.path.join(eig_dir, run_dir, "eig.npy"))
+            want_shape = (bsz, L - 1, smm["num_heads"], n_layers)
+            if eig.shape != want_shape or eig_init.shape != want_shape:
+                raise AssertionError(f"transformer spectra {eig.shape}, {eig_init.shape}")
+            live_rel = float(np.max(np.abs(eig - live) / np.abs(live)))
+            if not (np.array_equal(saved, eig) and live_rel <= 1e-6):
+                raise AssertionError(f"transformer spectra from the checkpoint differ from the "
+                                     f"live model's: {live_rel}")
+            if not (np.all(eig_init > 0) and np.all(eig > 0) and np.isfinite(eig).all()):
+                raise AssertionError("transformer η not finite and positive")
+            if files != want_files or not run_dir.startswith(f"MQARdmodel{smm['hidden_dim']}"):
+                raise AssertionError(f"transformer artifacts {run_dir}: {files}")
+            ph.fields.update(checkpoint=os.path.basename(ckpt_path), perf=f"{perf:.4f}",
+                             artifacts=run_dir, n_files=len(files),
+                             eig_vs_live_max_rel=f"{live_rel:.3e}",
+                             eta_range_trained=f"[{eig.min():.4g}, {eig.max():.4g}]",
+                             radius_pct_mean_layer0=np.round(perc[:, :, 0, 0].mean(1), 2).tolist(),
+                             radius_pct_init_mean_layer0=np.round(
+                                 perc_init[:, :, 0, 0].mean(1), 2).tolist())
+
+        with Phase("tf_serving") as ph:
+            n_new = 16
+            dec = Decoder(smm, result.eval_model)
+            prompts = inputs[:, :TF_PROMPT]
+            before = LAUNCHES["flash_attention_fwd"]
+            _, last = dec.prefill(prompts, TF_PROMPT + n_new)
+            torch.cuda.synchronize()
+            if LAUNCHES["flash_attention_fwd"] - before != n_layers:
+                raise AssertionError("prefill did not go through flash_attention_fwd once a layer")
+            with torch.no_grad():
+                full_prompt = result.eval_model(prompts)[:, -1]
+            prefill_err = (last - full_prompt).abs().max().item()
+            if not torch.allclose(last, full_prompt, rtol=LOGIT_RTOL, atol=LOGIT_ATOL):
+                raise AssertionError(f"transformer prefill vs forward: {prefill_err}")
+            dec.generate(prompts, n_new)  # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = dec.generate(prompts, n_new)
+            torch.cuda.synchronize()
+            gen_s = time.perf_counter() - t0
+            if out.shape != (bsz, TF_PROMPT + n_new) or not torch.equal(out[:, :TF_PROMPT], prompts):
+                raise AssertionError(f"transformer generate output {tuple(out.shape)}")
+            if int(out.min()) < 0 or int(out.max()) >= smm["output_dim"]:
+                raise AssertionError("generated ids out of the vocab")
+            # the step path over the KV cache against the full forward on the
+            # generated tokens, every position
+            n_check = 8
+            sw = dec.stepwise_logits(out[:n_check])
+            with torch.no_grad():
+                full = result.eval_model(out[:n_check])
+            step_err = (sw - full).abs().max().item()
+            if not torch.allclose(sw, full, rtol=LOGIT_RTOL, atol=LOGIT_ATOL):
+                raise AssertionError(f"transformer stepwise vs forward: {step_err}")
+            try:
+                dec.generate(inputs[:2], n_new)  # 512 + 16 positions against a table of 512
+                raise AssertionError("generation past max_pos_embed did not raise")
+            except ValueError:
+                pass
+            ph.fields.update(prefill_plus_generate_s=f"{gen_s:.4f}",
+                             tokens_per_s=f"{bsz * n_new / gen_s:.1f}",
+                             prefill_vs_forward_max_abs=f"{prefill_err:.3e}",
+                             stepwise_vs_forward_max_abs=f"{step_err:.3e}",
+                             past_max_pos_embed="ValueError")
+        path5_all = dict(LAUNCHES)
+        print(f"[launches] transformer forward and training: {path5}; with eval_eig, serving: "
+              f"{path5_all}", flush=True)
+        if any(path5_all[k] for k in LAUNCHES if k not in kernels):
+            raise AssertionError(f"path 5 launched other kernels: {path5_all}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # one step (sparse head, AdamW behind the global-norm clip) from the same
+    # weights and batch at dropout 0, on the card (kernels) and on the CPU
+    # (plain versions), both held to the same step in float64 on the CPU
+    step_cfg = dict(smm, dropout=0.0)
+    f = train_fields(tcfg)
+    sparse_k = sparse_head_k_for(smm, train_split[1], test_y)
+    lrs = {"regular": f["lr"]}
+    x_step = torch.as_tensor(train_split[0][:bsz], device=dev).long()
+    y_step = torch.as_tensor(train_split[1][:bsz], device=dev).long()
+
+    def fresh(device):
+        m, _, family = build_models(step_cfg, generator=torch.Generator().manual_seed(sm["seed"]),
+                                    device=device)
+        opt, clip = make_family_optimizer(m, family, step_cfg, tcfg["train"], f)
+        return m, opt, clip
+
+    with Phase("tf_train_step_card_vs_cpu") as ph:
+        card_m, card_opt, clip = fresh(dev)
+        cpu_m, cpu_opt, _ = fresh("cpu")
+        train_step(card_m, card_opt, x_step, y_step, lrs, sparse_k, clip_norm=clip)
+        t0 = time.perf_counter()
+        train_step(cpu_m, cpu_opt, x_step.cpu(), y_step.cpu(), lrs, sparse_k, clip_norm=clip)
+        cpu_g = {n: p.grad for n, p in cpu_m.named_parameters()}
+        card_g = {n: p.grad.cpu() for n, p in card_m.named_parameters()}
+        ref_m = fresh("cpu")[0].double()
+        cross_entropy_loss(*head_logits(ref_m, x_step.cpu(), y_step.cpu(), sparse_k)).backward()
+        raw_norm = float(clip_by_global_norm_(ref_m.parameters(), clip))
+        cpu_s = time.perf_counter() - t0
+        g_ratio, g_leaf = 0.0, ""
+        for n, p in ref_m.named_parameters():
+            g64 = p.grad
+            e_card = (card_g[n].double() - g64).abs().max().item()
+            e_cpu = (cpu_g[n].double() - g64).abs().max().item()
+            allowed = max(GRAD_F64_FACTOR * e_cpu, TF_GRAD_RTOL_OF_MAX * g64.abs().max().item())
+            if e_card / allowed > g_ratio:
+                g_ratio, g_leaf = e_card / allowed, n
+        g_worst = grad_err(card_g, cpu_g)
+        p_worst = p_anywhere = 0.0
+        for (n, p), q in zip(card_m.named_parameters(), cpu_m.parameters()):
+            p_err = (p.detach().cpu() - q.detach()).abs()
+            g_abs = cpu_g[n].abs()
+            det = g_abs >= 1e-2 * g_abs.max()
+            p_worst = max(p_worst, p_err[det].max().item() if bool(det.any()) else 0.0)
+            p_anywhere = max(p_anywhere, p_err.max().item())
+        ph.fields.update(raw_grad_norm_f64=f"{raw_norm:.4f}", clip=clip,
+                         grad_err_over_allowed=f"{g_ratio:.3f}({g_leaf})",
+                         grad_card_vs_cpu_worst_rel_to_leaf_max=f"{g_worst:.3e}",
+                         param_worst_where_grad_determined=f"{p_worst:.3e}",
+                         param_worst_anywhere=f"{p_anywhere:.3e}", cpu_steps_s=f"{cpu_s:.1f}")
+        if not (g_ratio <= 1.0 and p_worst <= PARAM_ATOL
+                and p_anywhere <= 2 * f["lr"] + PARAM_ATOL):
+            raise AssertionError(f"transformer card vs CPU step: {ph.fields}")
+        del cpu_m, cpu_opt, ref_m, cpu_g, card_g
+
+    with Phase("tf_train_step_timing") as ph:
+        ph.fields.update(step_profile(
+            lambda: train_step(card_m, card_opt, x_step, y_step, lrs, sparse_k, clip_norm=clip),
+            bsz * L, "flash_attention", "flash_attention"))
+        del card_m, card_opt
+
+    # the kernels at the MQAR shape: time, bound, plain version and SDPA
+    with Phase("flash_attention_timing") as ph:
+        attn_times = time_flash_attention(fa, *attn_io, flush)
+        for name, (k_ms, w_ms, p_ms, l_ms, bound, by, n_bytes, flops) in attn_times.items():
+            ph.fields[name] = (f"ms_cold_median={k_ms:.5f},ms_warm_median={w_ms:.5f},"
+                               f"plain_ms={p_ms:.5f},sdpa_ms={l_ms:.5f},"
+                               f"bound_ms={bound:.5f}({by}),gflop={flops / 1e9:.3f},"
+                               f"mbytes={n_bytes / 1e6:.1f},tflops={flops / k_ms / 1e9:.2f}")
+        del attn_io
+        torch.cuda.empty_cache()
+    return path5_all, attn_times, attn_errs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card",
@@ -517,7 +967,7 @@ def main() -> int:
     # imported after the card check: a copy of this script alone has no package
     from tlie_tpu_torch.analysis import eval_eig
     from tlie_tpu_torch.analysis.eval_eig import (
-        extract_mamba_family, extract_ssm_family, ssm_layer_params,
+        extract_attention_family, extract_ssm_family, ssm_layer_params,
     )
     from tlie_tpu_torch.config import (
         MQAR_LRU_FULL, MQAR_MAMBA2_FULL, WIKITEXT_LRU_SHORT, derive_runtime_fields, train_fields,
@@ -527,6 +977,7 @@ def main() -> int:
     from tlie_tpu_torch.models import build_models
     from tlie_tpu_torch.ops import LAUNCHES, diag_linear_scan
     from tlie_tpu_torch.ops import decay_attention as dattn
+    from tlie_tpu_torch.ops.attention import FLASH_ATTENTION
     from tlie_tpu_torch.ops import fused_xent as fx
     from tlie_tpu_torch.ops.ssd import _auto_chunk
     from tlie_tpu_torch.ops.scan import (
@@ -561,7 +1012,8 @@ def main() -> int:
     # 2. the nvcc build: one nvcc per source, all started together
     with Phase("build") as ph:
         libs = {"diag_scan": DIAG_SCAN, "diag_scan_bwd": DIAG_SCAN_BWD,
-                "fused_xent": fx.FUSED_XENT, "decay_attention": dattn.DECAY_ATTENTION}
+                "fused_xent": fx.FUSED_XENT, "decay_attention": dattn.DECAY_ATTENTION,
+                "flash_attention": FLASH_ATTENTION}
         with ThreadPoolExecutor(len(libs)) as pool:
             reports = dict(zip(libs, pool.map(lambda lib: lib.load(), libs.values())))
         for name, report in reports.items():
@@ -1179,39 +1631,9 @@ def main() -> int:
     with Phase("lm_train_step_timing") as ph:
         lm_opt = make_optimizer(lm_result.model, lm_m["ssm_lr_vars"], lt["lr"], lt["ssm_lr"],
                                 lt["wd"], tuple(lt["betas"]))
-
-        def lm_one_step():
-            train_step(lm_result.model, lm_opt, lm_x, lm_y, lm_lrs, fused_head=True)
-
-        for _ in range(2):
-            lm_one_step()
-        torch.cuda.synchronize()
-        n_timed = 5
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(n_timed):
-            lm_one_step()
-        end.record()
-        torch.cuda.synchronize()
-        lm_step_ms = start.elapsed_time(end) / n_timed
-        ops = top_device_ops(lm_one_step, k=1000)
-        busy = sum(t for _, t in ops)
-        ph.fields.update(ms_per_step=f"{lm_step_ms:.3f}",
-                         train_tokens_per_s=f"{lm_bsz * lm_L / lm_step_ms * 1e3:.0f}")
-        if busy > 0:
-            head_ms = sum(t for name, t in ops if "xent" in name)
-            by_kind = {}
-            for name, t in ops:
-                op_kind = next((k for k, pats in OP_KINDS if any(p in name for p in pats)), "other")
-                by_kind[op_kind] = round(by_kind.get(op_kind, 0.0) + t, 4)
-            ph.fields.update(device_busy_ms=f"{busy:.4f}",
-                             idle_share=f"{max(0.0, 1 - busy / lm_step_ms):.3f}",
-                             fused_head_ms=f"{head_ms:.4f}",
-                             fused_head_share_of_device=f"{head_ms / busy:.4f}",
-                             device_ms_by_kind=repr(sorted(by_kind.items(), key=lambda kv: -kv[1])),
-                             top_device_ops_ms=repr(short(ops[:10])))
-        else:
-            ph.fields.update(device_busy_ms="not measured")
+        ph.fields.update(step_profile(
+            lambda: train_step(lm_result.model, lm_opt, lm_x, lm_y, lm_lrs, fused_head=True),
+            lm_bsz * lm_L, "xent", "fused_head", n_warm=2, n_timed=5))
     del lm_opt, lm_result, lm_x, lm_y
     torch.cuda.empty_cache()
 
@@ -1301,7 +1723,7 @@ def main() -> int:
             batch = test_x[:bsz]  # the analysis config's batch_size: the first 64 test examples
             eig, eig_init, perc, perc_init, _, _ = eval_eig(mcfg4, {"save_path": eig_dir}, perf,
                                                             ckpt_path, device=dev, batch=batch)
-            live = extract_mamba_family(m_result.eval_model, m_inputs)
+            live = extract_attention_family(m_result.eval_model, m_inputs)
             (run_dir,) = os.listdir(eig_dir)
             files = sorted(os.listdir(os.path.join(eig_dir, run_dir)))
             saved = np.load(os.path.join(eig_dir, run_dir, "eig.npy"))
@@ -1381,38 +1803,10 @@ def main() -> int:
 
     # a Mamba-2 training step's time and where it goes
     with Phase("mamba_train_step_timing") as ph:
-        def m_one_step():
-            train_step(card_m, card_opt, x_step, y_step, m_lrs, m_sparse_k, clip_norm=clip)
-
-        for _ in range(3):
-            m_one_step()
-        torch.cuda.synchronize()
-        n_timed = 20
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(n_timed):
-            m_one_step()
-        end.record()
-        torch.cuda.synchronize()
-        m_step_ms = start.elapsed_time(end) / n_timed
-        ops = top_device_ops(m_one_step, k=1000)
-        busy = sum(t for _, t in ops)
-        ph.fields.update(ms_per_step=f"{m_step_ms:.3f}",
-                         train_tokens_per_s=f"{bsz * L / m_step_ms * 1e3:.0f}")
-        if busy > 0:
-            da_ms = sum(t for name, t in ops if "decay_attention" in name)
-            by_kind = {}
-            for name, t in ops:
-                op_kind = next((k for k, pats in OP_KINDS if any(p in name for p in pats)), "other")
-                by_kind[op_kind] = round(by_kind.get(op_kind, 0.0) + t, 4)
-            ph.fields.update(device_busy_ms=f"{busy:.4f}",
-                             idle_share=f"{max(0.0, 1 - busy / m_step_ms):.3f}",
-                             decay_attention_ms=f"{da_ms:.4f}",
-                             decay_attention_share_of_device=f"{da_ms / busy:.4f}",
-                             device_ms_by_kind=repr(sorted(by_kind.items(), key=lambda kv: -kv[1])),
-                             top_device_ops_ms=repr(short(ops[:12])))
-        else:
-            ph.fields.update(device_busy_ms="not measured")
+        ph.fields.update(step_profile(
+            lambda: train_step(card_m, card_opt, x_step, y_step, m_lrs, m_sparse_k,
+                               clip_norm=clip),
+            bsz * L, "decay_attention", "decay_attention"))
         del card_m, card_opt
 
     # the decay attention's kernels at the MQAR Mamba-2 shape: time, bound,
@@ -1426,6 +1820,9 @@ def main() -> int:
                                f"mbytes={n_bytes / 1e6:.1f},tflops={flops / k_ms / 1e9:.2f}")
         del decay_io
 
+    # main path 5, the MQAR softmax transformer through the flash kernels
+    path5_all, attn_times, attn_errs = transformer_path(dev, gen, flush, test_x, test_y,
+                                                        train_split, want_files)
 
     kernels = [{
         "name": "diag_scan",
@@ -1486,6 +1883,23 @@ def main() -> int:
             "bound_ms": bound,
             "bound_by": by,
             "library_ms": None,  # no single PyTorch call computes the decay attention
+        })
+    replaces = {"flash_attention_fwd": "tlie_tpu/ops/attention.py:49",
+                "flash_attention_bwd_dkv": "tlie_tpu/ops/attention.py:49",
+                "flash_attention_bwd_dq": "tlie_tpu/ops/attention.py:49"}
+    for name, (k_ms, _, p_ms, l_ms, bound, by, _, _) in attn_times.items():
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "tlie_tpu_torch/ops/csrc/flash_attention.cu",
+            "replaces": replaces[name],
+            "launches": path5_all[name],
+            "max_abs_err": attn_errs[name],
+            "ms": k_ms,
+            "plain_ms": p_ms,
+            "bound_ms": bound,
+            "bound_by": by,
+            "library_ms": l_ms,  # F.scaled_dot_product_attention, autograd for the gradients
         })
     print(f"[total] {time.perf_counter() - T_START:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

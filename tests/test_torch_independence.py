@@ -60,6 +60,14 @@ mcfg = dict(MQAR_MAMBA2_FULL["model"], vocab_size=64, output_dim=64, hidden_dim=
 _, mamba, _ = build_models(mcfg, generator=torch.Generator().manual_seed(0), device="cpu")
 with torch.no_grad():
     assert mamba(x).shape == (4, 16, 64)
+from tlie_tpu_torch.config import MQAR_SM_ATTENTION_FULL
+tcfg = dict(MQAR_SM_ATTENTION_FULL["model"], vocab_size=64, output_dim=64, hidden_dim=16,
+            state_dim=16, num_heads=2, max_pos_embed=16, seq_len=16)
+tf, tf_eval, _ = build_models(tcfg, generator=torch.Generator().manual_seed(0), device="cpu")
+tf(x).sum().backward()
+assert tf.layers[0].attention.Wqkv.weight.grad is not None
+out = Decoder(tcfg, tf_eval).generate(x[:, :8], 4)
+assert out.shape == (4, 12), out.shape
 assert not any(m in sys.modules and sys.modules[m] is not None for m in {forbidden!r})
 print("ok", acc)
 """

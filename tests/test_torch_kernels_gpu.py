@@ -9,7 +9,9 @@ it there:
 Without a card every test skips (the fixture decides, not the import).
 Tolerance: 1e-5 of max|h| (and of max|d| for the backward), as for the CPU
 tests and chip_smoke.py; ``da`` within 1e-5 of Σ (max|d|·|h_{t-1}| +
-|d_t|·max|h|) over the axes it is summed along.
+|d_t|·max|h|) over the axes it is summed along.  The fused head, the decay
+attention and the flash attention hold each output element to a stated
+fraction of the sum of its terms' magnitudes (see each section).
 """
 
 import pytest
@@ -245,3 +247,71 @@ def test_decay_attention_autograd_and_the_ssd_go_through_the_kernels(cuda_device
     torch.testing.assert_close(y.cpu(), ref, rtol=0, atol=1e-5 * ref.abs().max().item())
     with pytest.raises(ValueError, match="contiguous"):
         da.decay_attention(C, B, cs, x.transpose(2, 3).contiguous().transpose(2, 3))
+
+
+# -- the flash attention (csrc/flash_attention.cu) -------------------------------
+
+ATTN_RTOL_OF_TERMS = 1e-5  # plus attention.logit_rtol, of the sum of the terms' magnitudes
+
+
+def _attention_inputs(device, B, L, H, D, seed):
+    """q, k, v as head-strided views of one projection (MHA's Wqkv split)
+    and a contiguous cotangent, from a device generator."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    qkv = torch.randn(B, L, 3 * H * D + 5, device=device, generator=g)
+    q, k, v = (qkv[..., i * H * D:(i + 1) * H * D].reshape(B, L, H, D) for i in range(3))
+    return q, k, v, torch.randn(B, L, H, D, device=device, generator=g)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B, L, H, D", [(64, 512, 1, 128), (4, 1024, 4, 64), (3, 77, 3, 40)],
+                         ids=["mqar", "heads", "ragged"])
+def test_flash_attention_kernels_match_plain(cuda_device, B, L, H, D):
+    from tlie_tpu_torch.ops import attention as fa
+
+    q, k, v, do = _attention_inputs(cuda_device, B, L, H, D, seed=L)
+    scale = D ** -0.5
+    keys = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+    before = {key: LAUNCHES[key] for key in keys}
+    o, lse = fa.flash_attention_fwd_cuda(q, k, v, scale)
+    o_ref, lse_ref = fa.flash_attention_plain(q, k, v, scale)
+    di = fa.attention_di(o_ref, do)
+    dk, dv = fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse_ref, di, scale)
+    dq = fa.flash_attention_bwd_dq_cuda(q, k, v, do, lse_ref, di, scale)
+    torch.cuda.synchronize()
+    assert {key: LAUNCHES[key] - n for key, n in before.items()} == dict.fromkeys(keys, 1)
+    rtol = ATTN_RTOL_OF_TERMS + fa.logit_rtol(q, k, scale)
+    dk_ref, dv_ref = fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse_ref, di, scale)
+    want = (o_ref, fa.flash_attention_bwd_dq_plain(q, k, v, do, lse_ref, di, scale), dk_ref, dv_ref)
+    scales = fa.term_scales(q, k, v, do, lse_ref, scale)
+    assert bool(((lse - lse_ref).abs() <= rtol * lse_ref.abs().clamp_min(1.0)).all())
+    for got, w, s in zip((o, dq, dk, dv), want, scales):
+        assert got.shape == w.shape and bool(torch.isfinite(got).all())
+        assert bool(((got - w).abs() <= rtol * s + 1e-30).all())
+
+
+@pytest.mark.gpu
+def test_flash_attention_autograd_goes_through_the_kernels(cuda_device):
+    from tlie_tpu_torch.ops import attention as fa
+
+    q, k, v, do = _attention_inputs(cuda_device, 2, 200, 2, 32, seed=9)
+    t = [a.detach().clone().requires_grad_() for a in (q, k, v)]
+    keys = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+    before = {key: LAUNCHES[key] for key in keys}
+    o = fa.causal_softmax_attention(*t)
+    o.backward(do)
+    assert {key: LAUNCHES[key] - n for key, n in before.items()} == dict.fromkeys(keys, 1)
+    cpu = [a.detach().cpu().clone().requires_grad_() for a in (q, k, v)]
+    o_cpu = fa.causal_softmax_attention(*cpu)
+    o_cpu.backward(do.cpu())
+    _, lse = fa.flash_attention_plain(q, k, v, 32 ** -0.5)
+    rtol = ATTN_RTOL_OF_TERMS + fa.logit_rtol(q, k, 32 ** -0.5)
+    scales = fa.term_scales(q, k, v, do, lse, 32 ** -0.5)
+    for got, want, s in zip([o] + [a.grad for a in t], [o_cpu] + [a.grad for a in cpu], scales):
+        assert bool(((got.detach().cpu() - want.detach()).abs()
+                     <= 2 * rtol * s.cpu() + 1e-30).all())
+    with pytest.raises(TypeError, match="float32"):
+        fa.causal_softmax_attention(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.zeros(1, 8, 1, 136, device=cuda_device)
+        fa.causal_softmax_attention(big, big, big)

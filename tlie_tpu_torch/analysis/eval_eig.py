@@ -1,13 +1,16 @@
 """Eigen-spectroscopy: per-layer spectra → binning → artifacts, counterpart
 of ``tlie_tpu/analysis/eval_eig.py::eval_eig`` for the LRU (its SSM branch,
-:384-433) and for Mamba-2 (its attention-family branch, :324-382).
+:384-433) and for Mamba-2 and the softmax transformer (its attention-family
+branch, :324-382).
 
 For the LRU the spectra depend on the parameters only, so no batch runs
-through the model.  For Mamba-2 they come from a forward pass: one analysis
-batch goes through the blocks, and layer i's λ_t = exp(dt_t·A) is taken from
-layer i's *own output* re-projected through its own ``in_proj`` — the
-reference's layer-chain quirk (``eval_eig.py:12-17``), kept for parity.  Both
-passes run in evaluation mode.
+through the model.  For Mamba-2 and the transformer they come from a forward
+pass: one analysis batch goes through the blocks, and layer i's spectrum is
+taken from layer i's *own output* re-projected through its own projection —
+Mamba-2's λ_t = exp(dt_t·A) through ``in_proj``, the transformer's η_t of
+the softmax normaliser through ``Wqkv`` — the reference's layer-chain quirk
+(``eval_eig.py:12-17``), kept for parity.  Both passes run in evaluation
+mode.
 
 The init spectra come from the port's own seeded init (``torch.Generator``
 seeded with ``args["seed"]``); JAX's draws cannot be reproduced, so they
@@ -36,7 +39,7 @@ from .artifacts import (
 from .binning import (
     PHASE_THRESHOLDS, RADIUS_THRESHOLDS, threshold_analysis, threshold_analysis_ssm,
 )
-from .extractors import eig_lru, eig_mamba2
+from .extractors import eig_att_softmax, eig_lru, eig_mamba2
 
 _SEQ_KEY = re.compile(r"^encoder\.layers\.(\d+)\.seq\.(\w+)$")
 
@@ -61,16 +64,23 @@ def extract_ssm_family(layer_list, model_config) -> np.ndarray:
 
 
 @torch.no_grad()
-def extract_mamba_family(model: nn.Module, inputs: torch.Tensor) -> np.ndarray:
-    """Per-layer λ of the Mamba-2 family → float32 (B, L, nheads, layers),
-    from the activations after each block (``_extract_attention_family``)."""
+def extract_attention_family(model: nn.Module, inputs: torch.Tensor) -> np.ndarray:
+    """Per-layer spectra from the activations after each block
+    (``_extract_attention_family``): Mamba-2's λ → float32 (B, L, nheads,
+    layers), the softmax transformer's η → float32 (B, L−1, H, layers).
+    The encoder runs without its dropout and the final norm is not applied,
+    as the reference's collector runs them."""
     h = model.encoder(inputs)
     etas = []
-    for block in model.blocks:
+    for block in model.blocks if hasattr(model, "blocks") else model.layers:
         h = block(h)
-        m = block.mamba
-        eta = eig_mamba2(h, m.in_proj.weight, m.in_proj.bias, m.dt_bias, m.A_log,
-                         m.d_inner, m.ngroups, m.d_state)
+        if hasattr(block, "mamba"):
+            m = block.mamba
+            eta = eig_mamba2(h, m.in_proj.weight, m.in_proj.bias, m.dt_bias, m.A_log,
+                             m.d_inner, m.ngroups, m.d_state)
+        else:
+            a = block.attention
+            eta = eig_att_softmax(h, a.Wqkv.weight, a.Wqkv.bias, a.d_qk, a.num_heads)
         etas.append(eta.cpu().numpy()[..., None])
     return np.concatenate(etas, axis=-1)
 
@@ -85,13 +95,14 @@ def _trained_state(params) -> Mapping[str, torch.Tensor]:
 
 def eval_eig(args: Dict[str, Any], conf_args: Dict[str, Any], perf: float,
              params, *, device="cuda", batch=None):
-    """Spectra pipeline for the LRU and Mamba-2.
+    """Spectra pipeline for the LRU, Mamba-2 and the softmax transformer.
 
     ``params`` is the trained model, its ``state_dict``, or the path of the
     port's checkpoint (``training.save_checkpoint``); ``batch`` is the
-    analysis batch of integer tokens (B, L) the Mamba family's spectra are
-    taken on (``tlie_tpu`` takes the first batch of the unshuffled test
-    split, of the analysis config's ``batch_size``); the LRU needs none.  The
+    analysis batch of integer tokens (B, L) the Mamba and transformer
+    families' spectra are taken on (``tlie_tpu`` takes the first batch of the
+    unshuffled test split, of the analysis config's ``batch_size``); the LRU
+    needs none.  The
     artifacts go to ``conf_args["save_path"]/<artifact name>-perf<perf>``.
     Returns (eig, eig_init, percentage, percentage_init, percentage_phase,
     percentage_phase_init) as ``tlie_tpu``'s ``eval_eig`` does."""
@@ -105,8 +116,9 @@ def eval_eig(args: Dict[str, Any], conf_args: Dict[str, Any], perf: float,
         model_config, generator=torch.Generator().manual_seed(seed), device=device
     )
     out_dir = os.path.join(conf_args["save_path"], artifact_name(args, perf) + f"-perf{perf:0.3f}")
-    if family == "mamba":
-        arrays = _mamba_arrays(init_model, _trained_state(params), batch, model_config, device)
+    if family in ("mamba", "transformer"):
+        arrays = _attention_arrays(init_model, _trained_state(params), batch, model_config,
+                                   device)
         os.makedirs(out_dir, exist_ok=True)
         write_percentage_file(
             os.path.join(out_dir, "percentage_file.txt"), RADIUS_THRESHOLDS,
@@ -131,23 +143,30 @@ def eval_eig(args: Dict[str, Any], conf_args: Dict[str, Any], perf: float,
     )
 
 
-def _mamba_arrays(init_model, trained, batch, model_config, device) -> Dict[str, Any]:
-    """The Mamba branch (``eval_eig.py:324-382``): spectra of the init and
-    the trained model on the analysis batch, radius and phase binned per
-    (example, head, layer), with the batch mean and std."""
+def _attention_arrays(init_model, trained, batch, model_config, device) -> Dict[str, Any]:
+    """The attention-family branch (``eval_eig.py:324-382``): spectra of the
+    init and the trained model on the analysis batch, radius and phase
+    binned per (example, head, layer), with the batch mean and std.  The
+    Mamba family bins |λ| and its angle; the transformer's η is real and is
+    binned as it is, its phase as 0·η (ref :668-674)."""
     if batch is None:
-        raise ValueError("the Mamba family's spectra need an analysis batch (batch=...)")
+        raise ValueError(f"the {model_config['layer']} family's spectra need an analysis batch "
+                         "(batch=...)")
     inputs = torch.as_tensor(np.asarray(batch), device=device).long()
-    eig_init = extract_mamba_family(init_model, inputs)
+    eig_init = extract_attention_family(init_model, inputs)
     _, model, _ = build_models(model_config, generator=torch.Generator(), device=device)
     model.load_state_dict(trained)
-    eig = extract_mamba_family(model, inputs)
+    eig = extract_attention_family(model, inputs)
 
     arrays: Dict[str, Any] = {}
-    arrays["percentage_init"] = threshold_analysis(np.abs(eig_init), RADIUS_THRESHOLDS)
-    arrays["percentage"] = threshold_analysis(np.abs(eig), RADIUS_THRESHOLDS)
-    ph_init = np.arctan2(np.zeros_like(eig_init), eig_init) * 180 / np.pi
-    ph = np.arctan2(np.zeros_like(eig), eig) * 180 / np.pi
+    if model_config["layer"] == "mamba":
+        rad_init, rad = np.abs(eig_init), np.abs(eig)
+        ph_init = np.arctan2(np.zeros_like(eig_init), eig_init) * 180 / np.pi
+        ph = np.arctan2(np.zeros_like(eig), eig) * 180 / np.pi
+    else:
+        rad_init, rad, ph_init, ph = eig_init, eig, 0 * eig_init, 0 * eig
+    arrays["percentage_init"] = threshold_analysis(rad_init, RADIUS_THRESHOLDS)
+    arrays["percentage"] = threshold_analysis(rad, RADIUS_THRESHOLDS)
     arrays["percentage_phase_init"] = threshold_analysis(ph_init, PHASE_THRESHOLDS)
     arrays["percentage_phase"] = threshold_analysis(ph, PHASE_THRESHOLDS)
     arrays["percentage_init_mean"] = np.mean(arrays["percentage_init"], axis=1)

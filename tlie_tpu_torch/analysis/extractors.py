@@ -1,6 +1,6 @@
 """Eigenvalue extractors, counterpart of ``tlie_tpu/analysis/extractors.py``
-for the LRU and Mamba-2.  Complex spectra are native complex tensors
-(ROADMAP rule 5)."""
+for the LRU, Mamba-2 and softmax attention.  Complex spectra are native
+complex tensors (ROADMAP rule 5)."""
 
 from __future__ import annotations
 
@@ -29,3 +29,36 @@ def eig_mamba2(x: torch.Tensor, in_proj_weight: torch.Tensor, in_proj_bias, dt_b
         proj = proj + in_proj_bias
     dt = F.softplus(proj[..., d_inner + 2 * ngroups * d_state:] + dt_bias)
     return torch.exp(dt * (-torch.exp(A_log)))
+
+
+def eta_softmax_from_qk(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """η_t of the softmax-attention normaliser recurrence from q, k heads
+    (B, L, H, D) → (B, L−1, H) (``eta_softmax_from_qk``, ref
+    eval_eig.py:43-95): η_t = ν_t/ν_{t+1}, ν_t = Σ_s exp(score[t, s] − m_t),
+    with the scores above the diagonal set to 0 *and* the subtracted row max
+    m_t (taken over the row, zeros included) set to 0 there, so that each
+    masked entry adds exp(0) = 1 to ν_t.  The reference's quirk, kept."""
+    L = q.shape[1]
+    scores = torch.einsum("bthd,bshd->btsh", q, k)
+    causal = torch.ones(L, L, dtype=torch.bool, device=q.device).tril()[None, :, :, None]
+    scores = torch.where(causal, scores, torch.zeros((), dtype=scores.dtype, device=q.device))
+    m = scores.amax(dim=2)  # (B, L, H), the zeros included
+    shifted = torch.where(causal, scores - m[:, :, None, :], torch.zeros((), dtype=scores.dtype,
+                                                                          device=q.device))
+    se = torch.exp(shifted).sum(dim=2)
+    return (se[:, :-1] / se[:, 1:]) * torch.exp(m[:, :-1] - m[:, 1:])
+
+
+def eig_att_softmax(x: torch.Tensor, wqkv_weight: torch.Tensor, wqkv_bias, d_qk: int,
+                    num_heads: int) -> torch.Tensor:
+    """η_t of softmax attention recomputed from the fused ``Wqkv`` projection
+    of x (``eig_att_softmax``); ``wqkv_weight`` is the ``nn.Linear`` (out,
+    in) weight.  Returns (B, L−1, H) float32."""
+    B, L, _ = x.shape
+    head_dim = d_qk // num_heads
+    qkv = x @ wqkv_weight.t()
+    if wqkv_bias is not None:
+        qkv = qkv + wqkv_bias
+    q = qkv[..., :d_qk].reshape(B, L, num_heads, head_dim)
+    k = qkv[..., d_qk: 2 * d_qk].reshape(B, L, num_heads, head_dim)
+    return eta_softmax_from_qk(q, k)

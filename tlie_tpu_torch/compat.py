@@ -8,8 +8,12 @@ names (``encoder.word_embeddings``, ``blocks.{i}.mamba.*``,
 ``blocks.{i}.glu.linear``, ``blocks.{i}.norm``), which map onto
 ``encoder/word_embeddings/embedding``, ``blocks_i/mamba/*``,
 ``blocks_i/glu_layer/linear`` and ``blocks_i/norm_layer`` as
-``tlie_tpu/analysis/compat.py`` maps them.  Dense kernels (in, out) become
-``nn.Linear`` weights (out, in); the SSM token encoder keeps flax's (in,
+``tlie_tpu/analysis/compat.py`` maps them; so does the transformer family
+(``encoder.position_embeddings``,
+``layers.{i}.attention.{Wqkv,out_proj,conv1d}``, ``layers.{i}.norm``,
+``layers.{i}.mixer.linear``, ``norm``) onto ``layers_i/attention/*``,
+``layers_i/norm``, ``layers_i/mixer/linear`` and ``norm``.  Dense kernels
+(in, out) become ``nn.Linear`` weights (out, in); the SSM token encoder keeps flax's (in,
 out) layout, since it is a gather table; the depthwise conv's (K, C) becomes
 ``nn.Conv1d``'s (C, 1, K).  ``batch_stats`` {mean, var} are the BatchNorm
 running statistics.  One table of rules serves both directions, so
@@ -32,6 +36,9 @@ _LRU = "(?P<p>" + "|".join(LRU_PARAMS) + ")"
 _BLOCK = r"blocks\.(?P<i>\d+)"
 _FLAX_BLOCK = r"params/blocks_(?P<i>\d+)"
 _PROJ = r"(?P<pr>in_proj|out_proj)"
+_TF = r"layers\.(?P<i>\d+)"
+_FLAX_TF = r"params/layers_(?P<i>\d+)"
+_ATT = r"(?P<a>Wqkv|out_proj)"
 # layout changes between the two sides
 T, CONV = "T", "conv"
 # (state_dict key, flax "collection/path", layout change), as regexes with
@@ -59,6 +66,19 @@ _RULES = (
     (_BLOCK + r"\.glu\.linear\.bias", _FLAX_BLOCK + r"/glu_layer/linear/bias", None),
     (_BLOCK + r"\.norm\.weight", _FLAX_BLOCK + r"/norm_layer/scale", None),
     (_BLOCK + r"\.norm\.bias", _FLAX_BLOCK + r"/norm_layer/bias", None),
+    # the transformer family
+    (r"encoder\.position_embeddings\.weight", r"params/encoder/position_embeddings/embedding",
+     None),
+    (_TF + r"\.attention\." + _ATT + r"\.weight", _FLAX_TF + r"/attention/" + _ATT + r"/kernel", T),
+    (_TF + r"\.attention\." + _ATT + r"\.bias", _FLAX_TF + r"/attention/" + _ATT + r"/bias", None),
+    (_TF + r"\.attention\.conv1d\.weight", _FLAX_TF + r"/attention/conv1d/weight", CONV),
+    (_TF + r"\.attention\.conv1d\.bias", _FLAX_TF + r"/attention/conv1d/bias", None),
+    (_TF + r"\.norm\.weight", _FLAX_TF + r"/norm/scale", None),
+    (_TF + r"\.norm\.bias", _FLAX_TF + r"/norm/bias", None),
+    (_TF + r"\.mixer\.linear\.weight", _FLAX_TF + r"/mixer/linear/kernel", T),
+    (_TF + r"\.mixer\.linear\.bias", _FLAX_TF + r"/mixer/linear/bias", None),
+    (r"norm\.weight", r"params/norm/scale", None),
+    (r"norm\.bias", r"params/norm/bias", None),
 )
 
 
@@ -116,9 +136,9 @@ def _leaves(tree: Mapping, prefix=()):
 
 def params_from_jax(params: Mapping[str, Any],
                     batch_stats: Optional[Mapping[str, Any]] = None) -> Dict[str, torch.Tensor]:
-    """The port's ``state_dict`` for an LRU ``ClassificationModel`` or a
-    ``Mamba`` from the flax ``params`` (and ``batch_stats`` for ``norm:
-    batch``) as numpy arrays.  Raises if a flax leaf has no place in the
+    """The port's ``state_dict`` for an LRU ``ClassificationModel``, a
+    ``Mamba`` or a ``Transformer`` from the flax ``params`` (and
+    ``batch_stats`` for ``norm: batch``) as numpy arrays.  Raises if a flax leaf has no place in the
     port."""
     out: Dict[str, torch.Tensor] = {}
     left = []

@@ -1,7 +1,8 @@
 """Experiment configuration: the parts of ``tlie_tpu/config/schema.py`` the
 LRU slices use (runtime fields, ``lang_model``, ``checkpoint_name``), the
 train fields and the step-driven choice of ``tlie_tpu/training/loop.py``,
-and the full-width MQAR LRU, MQAR Mamba-2 and WikiText LRU as Python dicts.
+and the full-width MQAR LRU, MQAR Mamba-2, MQAR softmax transformer and
+WikiText LRU as Python dicts.
 
 YAML is read only inside :func:`load_yaml`, so that the package and the card
 run (``chip_smoke.py``) need no ``yaml`` module.
@@ -192,6 +193,35 @@ MQAR_MAMBA2_FULL: Dict[str, Any] = {
         "dual": False, "prenorm": True, "pooling": "none", "embedding": True,
         "token_embedding": True, "vocab_size": 8192, "max_pos_embed": 512,
         "mixer": "none", "mixer_dim": 128, "classifier": False, "seq_len": 512,
+    },
+    "lang_model": True,
+}
+
+
+# configs/tasks/mqar/mqar-sm-attention.yaml after derive_runtime_fields with
+# the MQAR dataset it names (L = 512, 100 000 training examples by default); a
+# CPU test pins this dict to the YAML as tlie_tpu.config resolves it.  A
+# transformer with classifier: false ignores its pooling: mean.
+MQAR_SM_ATTENTION_FULL: Dict[str, Any] = {
+    "seed": 1919,
+    "save": "./checkpoint/mqar-sm-attention",
+    "dataset": {
+        "name": "MQAR", "_name_": "mqar", "input_seq_length": 512,
+        "num_kv_pairs": 64, "data_dir": "", "fixed_size": True,
+    },
+    "train": {
+        "total_steps": 40000, "batch_size": 64, "eval_every": 200,
+        "stop_criterion": 0.99, "cosine_anneal": True, "param_group": None,
+        "wd": 0.1, "warmup_steps": 4000, "lr": 0.00046416,
+        "padded": False, "train_size": 100000,
+    },
+    "model": {
+        "input_dim": 1, "output_dim": 8192, "layer": "transformer", "num_layers": 2,
+        "hidden_dim": 128, "state_dim": 128, "num_heads": 1, "att_dropout": 0.0,
+        "norm": "layer", "embedding": True, "vocab_size": 8192, "max_pos_embed": 512,
+        "mixer": "none", "mixer_dim": 128, "dropout": 0.1, "classifier": False,
+        "pooling": "mean", "dual": False, "attention_fn": "sm-attention", "use_flash": True,
+        "seq_len": 512,
     },
     "lang_model": True,
 }

@@ -3,8 +3,10 @@
     python -m tlie_tpu_torch.launch --config configs/tasks/mqar/mqar-lru.yaml \\
         --analysis_config configs/analysis/mqar.yaml [--device cpu]
 
-The model families are the LRU (``layer: lru``) and Mamba-2 (``layer: mamba``,
-e.g. ``configs/tasks/mqar/mqar-mamba2.yaml``).
+The model families are the LRU (``layer: lru``), Mamba-2 (``layer: mamba``,
+e.g. ``configs/tasks/mqar/mqar-mamba2.yaml``) and the softmax transformer
+(``layer: transformer`` with ``attention_fn: sm-attention``, e.g.
+``configs/tasks/mqar/mqar-sm-attention.yaml``).
 
 ``--config`` paths resolve against ``configs/`` first, then as given.  The
 run trains on the card unless ``--device cpu`` is given (a CUDA request
@@ -70,8 +72,9 @@ def main(argv=None) -> int:
         print("Running eigenvalue evaluation")
         from .analysis import eval_eig
 
-        # the Mamba family's spectra are taken on the first analysis batch
-        # of the test split, as tlie_tpu's unshuffled analysis loader gives it
+        # the Mamba and transformer families' spectra are taken on the first
+        # analysis batch of the test split, as tlie_tpu's unshuffled analysis
+        # loader gives it
         batch = test_split[0][: conf_args["batch_size"]]
         eval_eig(cfg, conf_args, perf, result.model, device=device, batch=batch)
         print("Finished!")

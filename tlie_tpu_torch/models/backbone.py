@@ -15,13 +15,14 @@ evaluation dropout is the identity and BatchNorm uses the running statistics.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from .initializers import lecun_normal_
+from .layers import Dropout
 
 ACTIVATIONS = ("full_glu", "half_glu1", "half_glu2", "gelu")
 
@@ -90,26 +91,13 @@ class BatchNorm(nn.Module):
         return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
 
 
-class BroadcastDropout(nn.Module):
+class BroadcastDropout(Dropout):
     """flax ``nn.Dropout(rate, broadcast_dims=[-2])``: in training mode one
     keep mask per (example, feature), shared across time (axis -2), with the
-    kept values scaled by 1/(1-rate).  Masks come from ``generator`` (the
-    device's default generator when None)."""
+    kept values scaled by 1/(1-rate)."""
 
-    def __init__(self, rate: float, generator: Optional[torch.Generator] = None):
-        super().__init__()
-        self.rate, self.generator = rate, generator
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training or self.rate == 0.0:
-            return x
-        if self.rate == 1.0:
-            return torch.zeros_like(x)
-        keep = 1.0 - self.rate
-        shape = x.shape[:-2] + (1, x.shape[-1])
-        mask = torch.empty(shape, device=x.device, dtype=x.dtype)
-        mask.bernoulli_(keep, generator=self.generator)
-        return x * mask / keep
+    def mask_shape(self, x: torch.Tensor) -> torch.Size:
+        return x.shape[:-2] + (1, x.shape[-1])
 
 
 class SequenceLayer(nn.Module):

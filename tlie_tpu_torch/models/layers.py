@@ -1,7 +1,8 @@
-"""Shared blocks of the Mamba family, counterparts of
+"""Shared blocks of the Mamba and transformer families, counterparts of
 ``tlie_tpu/models/layers.py``: the torch default initialisers drawn from an
-explicit ``torch.Generator``, ``GLU``, ``TokenEmbeddings`` and
-``DepthwiseCausalConv``.
+explicit ``torch.Generator``, ``GLU``, ``TokenEmbeddings`` (with the
+transformer's position table), ``DepthwiseCausalConv`` and the element-wise
+``Dropout``.
 
 Module and parameter names are the reference's torch names, so a port
 ``state_dict`` maps onto the flax tree through
@@ -12,6 +13,7 @@ Module and parameter names are the reference's torch names, so a port
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
@@ -60,15 +62,51 @@ class GLU(nn.Module):
 
 
 class TokenEmbeddings(nn.Module):
-    """Learnable token embeddings (``TokenEmbeddings``).  The Mamba family
-    passes ``max_position_embeddings`` 0, so there is no position table."""
+    """Learnable token embeddings plus, where ``max_position_embeddings`` >
+    0, learnable position embeddings (``TokenEmbeddings``), both N(0, 1).
+    The Mamba family passes 0, so it has no position table.  A position past
+    the table raises (``F.embedding``'s ``IndexError``); the reference's
+    gather fills NaN there."""
 
-    def __init__(self, embed_dim: int, vocab_size: int, generator: torch.Generator):
+    def __init__(self, embed_dim: int, vocab_size: int, generator: torch.Generator,
+                 max_position_embeddings: int = 0):
         super().__init__()
         self.word_embeddings = torch_embed_init(nn.Embedding(vocab_size, embed_dim), generator)
+        self.position_embeddings = (
+            torch_embed_init(nn.Embedding(max_position_embeddings, embed_dim), generator)
+            if max_position_embeddings > 0 else None)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
-        return self.word_embeddings(input_ids)
+    def forward(self, input_ids: torch.Tensor, position_ids=None) -> torch.Tensor:
+        emb = self.word_embeddings(input_ids)
+        if self.position_embeddings is not None:
+            if position_ids is None:
+                position_ids = torch.arange(input_ids.shape[-1], device=input_ids.device)
+            emb = emb + self.position_embeddings(position_ids)
+        return emb
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout(rate)``: in training mode an element-wise keep mask,
+    the kept values scaled by 1/(1-rate); the identity in evaluation.  Masks
+    come from ``generator`` (the device's default generator when None),
+    which ``build_models`` sets to the model's dropout generator."""
+
+    def __init__(self, rate: float, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.rate, self.generator = rate, generator
+
+    def mask_shape(self, x: torch.Tensor) -> torch.Size:
+        return x.shape
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.rate == 1.0:
+            return torch.zeros_like(x)
+        keep = 1.0 - self.rate
+        mask = torch.empty(self.mask_shape(x), device=x.device, dtype=x.dtype)
+        mask.bernoulli_(keep, generator=self.generator)
+        return x * mask / keep
 
 
 class DepthwiseCausalConv(nn.Module):

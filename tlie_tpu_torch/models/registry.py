@@ -1,6 +1,6 @@
 """Model registry: config dict → (train model, eval model, family),
-counterpart of ``tlie_tpu/models/registry.py::build_models`` for the ``lru``
-and ``mamba`` families."""
+counterpart of ``tlie_tpu/models/registry.py::build_models`` for the ``lru``,
+``mamba`` and ``transformer`` families."""
 
 from __future__ import annotations
 
@@ -13,9 +13,11 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from .backbone import BroadcastDropout, ClassificationModel
+from .backbone import ClassificationModel
+from .layers import Dropout
 from .lru import LRU
 from .mamba2 import Mamba
+from .transformer import Transformer
 
 MODEL_FAMILIES = ("mamba", "transformer", "lru", "s4", "s5")
 
@@ -30,19 +32,19 @@ def build_models(model_config: Dict[str, Any], *, generator: torch.Generator,
     generator seeded from it.  Like ``tlie_tpu``'s registry the models return
     logits, not log-probs (argmax, masked CE and perplexity do not change)."""
     layer = model_config["layer"]
-    if layer not in ("lru", "mamba"):
+    if layer not in ("lru", "mamba", "transformer"):
         if layer in MODEL_FAMILIES:
             raise NotImplementedError(f"model family {layer!r} is not ported yet")
         raise RuntimeError(f"{layer} is not a valid model option")
     if model_config.get("compute_dtype", "float32") != "float32":
         raise NotImplementedError("bf16 mixed precision is not ported yet")
     dev = resolve_device(device)
-    model = (_lru_model(model_config, generator) if layer == "lru"
-             else Mamba(model_config, generator)).to(dev)
+    family = {"lru": _lru_model, "mamba": Mamba, "transformer": Transformer}[layer]
+    model = family(model_config, generator).to(dev)
     seed = int(torch.randint(2**62, (1,), generator=generator))
     dropout_gen = torch.Generator(device=dev).manual_seed(seed)
     for m in model.modules():
-        if isinstance(m, BroadcastDropout):
+        if isinstance(m, Dropout):  # BroadcastDropout too
             m.generator = dropout_gen
     shared = {id(t): t for t in itertools.chain(model.parameters(), model.buffers())}
     shared[id(dropout_gen)] = dropout_gen

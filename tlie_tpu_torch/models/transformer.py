@@ -1,0 +1,107 @@
+"""The transformer family, counterpart of ``tlie_tpu/models/transformer.py``
+(``TransformerBlock`` at ``:24``, ``Transformer`` at ``:138``) with softmax
+attention.
+
+A block is ``x + drop(attention(norm(x)))`` then ``norm`` again and the
+mixer; with ``mixer: none`` it returns ``norm(x + drop(attention(norm(x))))``
+(no second residual), with ``mixer: glu`` ``x + glu(norm(x))``.  Both
+LayerNorms of a block are one module, ``layers.{i}.norm``, so they share
+weights: the reference's quirk, kept.  The model is token (+ position)
+embeddings, element-wise dropout, the blocks, a final LayerNorm and a
+bias-free per-position decoder; it returns logits.  Parameter names are the
+reference's torch names (``encoder.word_embeddings``,
+``encoder.position_embeddings``, ``layers.{i}.attention.{Wqkv,out_proj}``,
+``layers.{i}.norm``, ``norm``, ``decoder``).
+
+Weights are drawn from an explicit ``torch.Generator`` with the reference's
+distributions.  Not ported yet, and refused: linear and norm attention, the
+``mlp`` and ``hybrid`` mixers, ``use_gate``, the classifier and dual heads,
+the dense input encoder (``embedding: false``), bf16.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+from torch import nn
+
+from .attention_layers import MHA
+from .layers import GLU, Dropout, TokenEmbeddings, linear
+
+
+class TransformerBlock(nn.Module):
+    """One pre-norm attention block (``TransformerBlock``), with flax's
+    LayerNorm (eps 1e-5, biased variance, the same as ``nn.LayerNorm``)."""
+
+    def __init__(self, hidden_dim: int, cfg: Dict[str, Any], generator: torch.Generator):
+        super().__init__()
+        attention_fn = cfg["attention_fn"]
+        if attention_fn in ("lin-attention", "norm-attention"):
+            raise NotImplementedError(f"attention_fn {attention_fn} is not ported yet")
+        if attention_fn != "sm-attention":
+            raise RuntimeError(f"attention_fn {attention_fn} not implemented")
+        if cfg.get("use_gate", False):
+            raise NotImplementedError("use_gate is not ported yet")
+        self.attention = MHA(
+            hidden_dim, generator, d_qk=cfg["state_dim"], num_heads=cfg["num_heads"],
+            dim_conv=cfg.get("dim_conv", 0), lin_att=False,
+            dropout=cfg.get("att_dropout", 0.0), use_flash=cfg.get("use_flash", False),
+            conv_type=cfg.get("conv_type", "full"),
+        )
+        mixer = cfg["mixer"]
+        if mixer in ("mlp", "hybrid"):
+            raise NotImplementedError(f"the {mixer} mixer is not ported yet")
+        if mixer not in ("glu", "none"):
+            raise RuntimeError(f"{mixer} mixer not implemented yet!")
+        self.mixer = GLU(hidden_dim, generator) if mixer == "glu" else None
+        if cfg["norm"] != "layer":
+            raise RuntimeError(f"{cfg['norm']} norm not implemented yet!")
+        self.norm = nn.LayerNorm(hidden_dim, eps=1e-5)
+        self.drop = Dropout(cfg["dropout"])
+
+    def mix(self, x: torch.Tensor) -> torch.Tensor:
+        """The second half of the block on the residual stream x: norm, the
+        mixer, and the residual unless the mixer is ``none``."""
+        y = self.norm(x)
+        if self.mixer is None:
+            return y
+        return x + self.mixer(y)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.drop(self.attention(self.norm(x)))
+        return self.mix(x)
+
+
+class Transformer(nn.Module):
+    """Embeddings → dropout → N × TransformerBlock → LayerNorm → decoder
+    (``Transformer`` with ``classifier: false``); returns logits."""
+
+    def __init__(self, cfg: Dict[str, Any], generator: torch.Generator):
+        super().__init__()
+        if cfg.get("classifier", False) or cfg.get("dual", False):
+            raise NotImplementedError("the transformer's classifier and dual heads are not "
+                                      "ported yet")
+        if not cfg.get("embedding", False):
+            raise NotImplementedError("the dense input encoder (embedding: false) is not "
+                                      "ported yet")
+        hidden = cfg["hidden_dim"]
+        self.encoder = TokenEmbeddings(hidden, cfg["vocab_size"], generator,
+                                       cfg.get("max_pos_embed", 0))
+        self.layers = nn.ModuleList(
+            TransformerBlock(hidden, cfg, generator) for _ in range(cfg["num_layers"]))
+        self.decoder = linear(hidden, cfg["output_dim"], generator, bias=False)
+        if cfg["norm"] != "layer":
+            raise RuntimeError(f"{cfg['norm']} norm not implemented yet!")
+        self.norm = nn.LayerNorm(hidden, eps=1e-5)
+        self.drop = Dropout(cfg["dropout"])
+
+    def features(self, x: torch.Tensor) -> torch.Tensor:
+        """Backbone features before the decoder (``features``)."""
+        x = self.drop(self.encoder(x))
+        for layer in self.layers:
+            x = layer(x)
+        return self.norm(x)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.decoder(self.features(x))

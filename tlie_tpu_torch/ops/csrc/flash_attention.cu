@@ -1,0 +1,441 @@
+// Causal softmax attention, float32, and its gradient:
+//
+//   o[b,i,h,:] = sum_{j<=i} softmax_j(scale * q[b,i,h,:] . k[b,j,h,:]) * v[b,j,h,:]
+//   lse[b,h,i] = log sum_{j<=i} exp(scale * q_i . k_j)
+//
+// with the (L, L) scores never in device memory.
+//
+// Replaces the three TPU kernels that tlie_tpu/ops/attention.py:49
+// (_pallas_flash_attention) reaches through JAX's Pallas TPU flash kernel
+// (jax/experimental/pallas/ops/tpu/flash_attention.py, jax 0.9.0):
+//   tlie_flash_attention_fwd_f32     <- the pallas_call at :758 (_flash_attention_kernel :331)
+//   tlie_flash_attention_bwd_dkv_f32 <- the pallas_call at :1121 (_flash_attention_dkv_kernel :796)
+//   tlie_flash_attention_bwd_dq_f32  <- the pallas_call at :1456 (_flash_attention_dq_kernel :1146)
+// What they compute is carried over, not their blocks. The TPU saves the row
+// max m and sum l, each broadcast to 128 lanes; here the forward writes one
+// log-sum-exp a row, and the backward recomputes P = exp(scale S - lse).
+// di = rowsum(o * do) comes in precomputed, as the TPU computes it in XLA.
+//
+// Layout. q, k and v are (B, L, H, D) with the last dimension contiguous and
+// any batch, row and head strides (the port's MHA splits them out of the
+// Wqkv projection as views, and the kernels read them in place). o, do, dq,
+// dk and dv are contiguous (B, L, H, D); lse and di contiguous (B, H, L).
+// D <= 128.
+//
+// Bound on the H100: operations. At the MQAR shape (B 64, L 512, H 1,
+// D 128) the causal pairs are 64 * 512 * 513 / 2 = 8.4 M; the forward does
+// two products over them (q.k and p v, 4D flops a pair), 4.3 GFLOP, 0.064 ms
+// at 67 TFLOP/s of float32 outside the tensor cores, against 67 MB of
+// operands, 0.020 ms at 3.35 TB/s. dK/dV does four products (8D a pair),
+// dQ three (6D).
+//
+// Design. Every product is a float32 SIMT tile product on shared memory (no
+// TF32: parity is held at float32). A block of 256 threads owns 64 rows of
+// one (b, h), each thread a 4 x 4 piece of every 64 x 64 tile, and walks the
+// 64-wide tiles of the other sequence index that the causal mask leaves.
+// Head dims past 64 are a second 64-wide column tile of the accumulators,
+// held in registers beside the first:
+//   forward: block (b h, i-tile) walks j-tiles j <= i: S = q_i k_j^T over D,
+//            the online softmax (running row max m and sum l, rescaling the
+//            o accumulator by exp(m_old - m_new)), then P v_j into o. It
+//            writes o / l and lse = m + log l.
+//   dK/dV:   block (b h, j-tile) walks i-tiles i >= j: S^T = k_j q_i^T and
+//            dP^T = v_j do_i^T over D, P = exp(scale S - lse_i),
+//            dS = P (dP - di_i); then dv_j += P^T do_i and dk_j += dS^T q_i
+//            (times scale once, at the store).
+//   dQ:      block (b h, i-tile) walks j-tiles j <= i: S and dP as above,
+//            dq_i += dS k_j (times scale at the store).
+// Each output element has one writer, so there are no atomics and every
+// launch is deterministic. exp is taken only where j <= i (and i < L); a
+// masked logit never reaches an exp. Rows past L (a ragged last tile) load
+// as 0, keep m = -inf without ever forming -inf - (-inf), and are not
+// stored. The tiles whose blocks walk the most (the last i-tiles forward and
+// in dQ, the first j-tiles in dK/dV) are launched first.
+//
+// The shared tiles take 44 KB of static shared memory whatever D is.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <cstdint>
+
+namespace {
+
+constexpr int kThreads = 256;  // 16 x 16 threads, each a 4 x 4 piece
+constexpr int kT = 64;         // tile edge: rows of i and j, columns of D
+constexpr int kK = 16;         // depth of one shared-memory step of a q.k tile
+constexpr int kPad = 4;        // row padding of the shared tiles (keeps float4 alignment)
+constexpr int kMaxD = 128;     // head dims up to two 64-wide column tiles
+constexpr int kDT = kMaxD / kT;
+static_assert(kT * kK % kThreads == 0 && kT * kT % kThreads == 0,
+              "tile loads split evenly over the threads");
+static_assert(kT == 4 * 16 && kThreads == 16 * 16, "16 x 16 threads of 4 x 4 pieces");
+
+struct Smem {
+  __align__(16) float a[kK][kT + kPad];  // depth-major step of the first operand
+  __align__(16) float b[kK][kT + kPad];  // depth-major step of the second operand
+  __align__(16) float s[kT][kT + kPad];  // probabilities or dS, s[k][row] for the second product
+  __align__(16) float v[kT][kT + kPad];  // value tile, v[k][col]
+  float lse[kT];                          // lse of the rows the scores are taken for
+  float di[kT];                           // di of the same rows
+};
+
+__device__ __forceinline__ void zero(float acc[4][4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+}
+
+// acc[r][c] = sum_k A[4ty + r][k] * Bm[4tx + c][k] over k < K, where A and Bm
+// point at the first row of their 64-row tiles, rows are lda / ldb apart,
+// depth is contiguous, and rows at or past a_rows / b_rows read as 0.
+// Starts and ends with every thread past its last use of sm.a and sm.b.
+__device__ __forceinline__ void tile_nt(const float* __restrict__ A, int64_t a_rows, int64_t lda,
+                                        const float* __restrict__ Bm, int64_t b_rows,
+                                        int64_t ldb, int64_t K, Smem& sm, float acc[4][4]) {
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  zero(acc);
+  for (int64_t k0 = 0; k0 < K; k0 += kK) {
+    // 16 neighbouring threads read 16 neighbouring floats of one row
+#pragma unroll
+    for (int it = 0; it < kT * kK / kThreads; ++it) {
+      const int e = tid + it * kThreads, r = e / kK, c = e % kK;
+      const int64_t k = k0 + c;
+      sm.a[c][r] = (r < a_rows && k < K) ? A[r * lda + k] : 0.f;
+      sm.b[c][r] = (r < b_rows && k < K) ? Bm[r * ldb + k] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int c = 0; c < kK; ++c) {
+      const float4 a = *reinterpret_cast<const float4*>(&sm.a[c][ty * 4]);
+      const float4 b = *reinterpret_cast<const float4*>(&sm.b[c][tx * 4]);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[r][q] = fmaf(av[r], bv[q], acc[r][q]);
+    }
+    __syncthreads();
+  }
+}
+
+// sm.v[r][c] = V[r * ldv + c] for r < rows, c < cols, else 0.
+__device__ __forceinline__ void load_values(const float* __restrict__ V, int64_t rows,
+                                            int64_t cols, int64_t ldv, Smem& sm) {
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int it = 0; it < kT * kT / kThreads; ++it) {
+    const int e = tid + it * kThreads, r = e / kT, c = e % kT;
+    sm.v[r][c] = (r < rows && c < cols) ? V[r * ldv + c] : 0.f;
+  }
+}
+
+// Up to 64 values of a (B, H, L) row into dst (0 past `rows`).
+__device__ __forceinline__ void load_rows(const float* __restrict__ src, int64_t rows,
+                                          float* dst) {
+  const int tid = threadIdx.x;
+  if (tid < kT) dst[tid] = tid < rows ? src[tid] : 0.f;
+}
+
+// acc[r][c] += sum_k sm.s[k][4ty + r] * sm.v[k][4tx + c]: the second product,
+// after a __syncthreads() that published sm.s and sm.v.
+__device__ __forceinline__ void tile_sv(const Smem& sm, float acc[4][4]) {
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+#pragma unroll 8
+  for (int k = 0; k < kT; ++k) {
+    const float4 a = *reinterpret_cast<const float4*>(&sm.s[k][ty * 4]);
+    const float4 b = *reinterpret_cast<const float4*>(&sm.v[k][tx * 4]);
+    const float av[4] = {a.x, a.y, a.z, a.w};
+    const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[r][q] = fmaf(av[r], bv[q], acc[r][q]);
+  }
+}
+
+// For each 64-wide column tile t of the D columns: sm.v = the 64 rows of V
+// (row stride ldv) in columns 64t.., then acc[t] += sm.s^T-product with it.
+// Called after the caller wrote sm.s; ends with every thread past its reads.
+__device__ __forceinline__ void accumulate(const float* __restrict__ V, int64_t rows,
+                                           int64_t ldv, int64_t D, Smem& sm,
+                                           float acc[kDT][4][4]) {
+#pragma unroll
+  for (int t = 0; t < kDT; ++t) {
+    if (t * kT >= D) break;  // uniform over the block
+    load_values(V + t * kT, rows, D - t * kT, ldv, sm);
+    __syncthreads();
+    tile_sv(sm, acc[t]);
+    __syncthreads();
+  }
+}
+
+// Reductions over the 16 threads that share ty (16 neighbouring lanes of a warp).
+__device__ __forceinline__ float sum16(float v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+__device__ __forceinline__ float max16(float v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// Store the thread's 4 x 4 pieces of the D columns at rows row0 + 4ty + r
+// (row stride ld), each row scaled by rscale[r].
+__device__ __forceinline__ void store_rows(float* __restrict__ out, int64_t row0, int64_t rows,
+                                           int64_t ld, int64_t D, const float rscale[4],
+                                           const float acc[kDT][4][4]) {
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+#pragma unroll
+  for (int t = 0; t < kDT; ++t) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int64_t row = row0 + ty * 4 + r;
+      if (row >= rows) continue;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int64_t col = t * kT + tx * 4 + c;
+        if (col < D) out[row * ld + col] = acc[t][r][c] * rscale[r];
+      }
+    }
+  }
+}
+
+struct Dims {
+  int64_t L, H, D;
+  int64_t q_bs, q_ls, q_hs;  // batch, row and head strides of q, in elements
+  int64_t k_bs, k_ls, k_hs;
+  int64_t v_bs, v_ls, v_hs;
+  float scale;
+};
+
+// grid (B * H, ceil(L / 64)); i-tile = last - blockIdx.y
+__global__ void __launch_bounds__(kThreads)
+flash_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ o,
+                           float* __restrict__ lse, Dims d) {
+  __shared__ Smem sm;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int64_t bh = blockIdx.x, b = bh / d.H, h = bh % d.H;
+  const int64_t i0 = static_cast<int64_t>(gridDim.y - 1 - blockIdx.y) * kT;
+  const float* qb = q + b * d.q_bs + h * d.q_hs;
+  const float* kb = k + b * d.k_bs + h * d.k_hs;
+  const float* vb = v + b * d.v_bs + h * d.v_hs;
+
+  float acc[kDT][4][4], s[4][4];
+  float m[4], l[4];
+#pragma unroll
+  for (int t = 0; t < kDT; ++t) zero(acc[t]);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) m[r] = -INFINITY, l[r] = 0.f;
+
+  for (int64_t j0 = 0; j0 <= i0; j0 += kT) {
+    tile_nt(qb + i0 * d.q_ls, d.L - i0, d.q_ls, kb + j0 * d.k_ls, d.L - j0, d.k_ls, d.D, sm, s);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int li = ty * 4 + r;
+      const int64_t i = i0 + li;
+      float tmax = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int64_t j = j0 + tx * 4 + c;
+        s[r][c] *= d.scale;
+        if (j <= i && i < d.L) tmax = fmaxf(tmax, s[r][c]);
+      }
+      const float m_new = fmaxf(m[r], max16(tmax));
+      // a row with no valid entry yet (only rows past L) keeps m = -inf,
+      // p = 0 and its (zero) accumulator: no -inf - (-inf) is formed
+      const bool live = m_new != -INFINITY;
+      const float alpha = live ? expf(m[r] - m_new) : 1.f;
+      float psum = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int lj = tx * 4 + c;
+        const int64_t j = j0 + lj;
+        const float p = (j <= i && i < d.L) ? expf(s[r][c] - m_new) : 0.f;
+        psum += p;
+        sm.s[lj][li] = p;
+      }
+      l[r] = l[r] * alpha + sum16(psum);
+      m[r] = m_new;
+#pragma unroll
+      for (int t = 0; t < kDT; ++t)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[t][r][c] *= alpha;
+    }
+    accumulate(vb + j0 * d.v_ls, d.L - j0, d.v_ls, d.D, sm, acc);
+  }
+
+  float inv[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int64_t i = i0 + ty * 4 + r;
+    inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
+    if (tx == 0 && i < d.L) lse[bh * d.L + i] = m[r] + logf(l[r]);
+  }
+  store_rows(o + (b * d.L * d.H + h) * d.D, i0, d.L, d.H * d.D, d.D, inv, acc);
+}
+
+// grid (B * H, ceil(L / 64)); j-tile = blockIdx.y
+__global__ void __launch_bounds__(kThreads)
+flash_attention_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                               const float* __restrict__ v, const float* __restrict__ dout,
+                               const float* __restrict__ lse, const float* __restrict__ di,
+                               float* __restrict__ dk, float* __restrict__ dv, Dims d) {
+  __shared__ Smem sm;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int64_t bh = blockIdx.x, b = bh / d.H, h = bh % d.H;
+  const int64_t j0 = static_cast<int64_t>(blockIdx.y) * kT;
+  const float* qb = q + b * d.q_bs + h * d.q_hs;
+  const float* kb = k + b * d.k_bs + h * d.k_hs;
+  const float* vb = v + b * d.v_bs + h * d.v_hs;
+  const int64_t ld = d.H * d.D;  // row stride of the contiguous (B, L, H, D) tensors
+  const float* dob = dout + (b * d.L * d.H + h) * d.D;
+
+  // the block's rows are j (4ty + r), the walked columns i (4tx + c); the
+  // shared P and dS are stored s[i][j] for the products over i
+  float acc_dk[kDT][4][4], acc_dv[kDT][4][4], p[4][4], ds[4][4];
+#pragma unroll
+  for (int t = 0; t < kDT; ++t) zero(acc_dk[t]), zero(acc_dv[t]);
+
+  for (int64_t i0 = j0; i0 < d.L; i0 += kT) {
+    load_rows(lse + bh * d.L + i0, d.L - i0, sm.lse);
+    load_rows(di + bh * d.L + i0, d.L - i0, sm.di);
+    tile_nt(kb + j0 * d.k_ls, d.L - j0, d.k_ls, qb + i0 * d.q_ls, d.L - i0, d.q_ls, d.D, sm, p);
+    tile_nt(vb + j0 * d.v_ls, d.L - j0, d.v_ls, dob + i0 * ld, d.L - i0, ld, d.D, sm, ds);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int lj = ty * 4 + r;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int li = tx * 4 + c;
+        const int64_t j = j0 + lj, i = i0 + li;
+        const bool valid = j <= i && i < d.L;
+        p[r][c] = valid ? expf(p[r][c] * d.scale - sm.lse[li]) : 0.f;
+        ds[r][c] = p[r][c] * (ds[r][c] - sm.di[li]);
+        sm.s[li][lj] = p[r][c];
+      }
+    }
+    accumulate(dob + i0 * ld, d.L - i0, ld, d.D, sm, acc_dv);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) sm.s[tx * 4 + c][ty * 4 + r] = ds[r][c];
+    accumulate(qb + i0 * d.q_ls, d.L - i0, d.q_ls, d.D, sm, acc_dk);
+  }
+
+  const float one[4] = {1.f, 1.f, 1.f, 1.f};
+  const float sc[4] = {d.scale, d.scale, d.scale, d.scale};
+  const int64_t out0 = (b * d.L * d.H + h) * d.D;
+  store_rows(dv + out0, j0, d.L, ld, d.D, one, acc_dv);
+  store_rows(dk + out0, j0, d.L, ld, d.D, sc, acc_dk);
+}
+
+// grid (B * H, ceil(L / 64)); i-tile = last - blockIdx.y
+__global__ void __launch_bounds__(kThreads)
+flash_attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, const float* __restrict__ dout,
+                              const float* __restrict__ lse, const float* __restrict__ di,
+                              float* __restrict__ dq, Dims d) {
+  __shared__ Smem sm;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int64_t bh = blockIdx.x, b = bh / d.H, h = bh % d.H;
+  const int64_t i0 = static_cast<int64_t>(gridDim.y - 1 - blockIdx.y) * kT;
+  const float* qb = q + b * d.q_bs + h * d.q_hs;
+  const float* kb = k + b * d.k_bs + h * d.k_hs;
+  const float* vb = v + b * d.v_bs + h * d.v_hs;
+  const int64_t ld = d.H * d.D;
+  const float* dob = dout + (b * d.L * d.H + h) * d.D;
+
+  float acc[kDT][4][4], p[4][4], ds[4][4];
+#pragma unroll
+  for (int t = 0; t < kDT; ++t) zero(acc[t]);
+  load_rows(lse + bh * d.L + i0, d.L - i0, sm.lse);  // published by tile_nt's first barrier
+  load_rows(di + bh * d.L + i0, d.L - i0, sm.di);
+
+  for (int64_t j0 = 0; j0 <= i0; j0 += kT) {
+    tile_nt(qb + i0 * d.q_ls, d.L - i0, d.q_ls, kb + j0 * d.k_ls, d.L - j0, d.k_ls, d.D, sm, p);
+    tile_nt(dob + i0 * ld, d.L - i0, ld, vb + j0 * d.v_ls, d.L - j0, d.v_ls, d.D, sm, ds);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int li = ty * 4 + r;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int lj = tx * 4 + c;
+        const int64_t i = i0 + li, j = j0 + lj;
+        const bool valid = j <= i && i < d.L;
+        const float pv = valid ? expf(p[r][c] * d.scale - sm.lse[li]) : 0.f;
+        sm.s[lj][li] = pv * (ds[r][c] - sm.di[li]);
+      }
+    }
+    accumulate(kb + j0 * d.k_ls, d.L - j0, d.k_ls, d.D, sm, acc);
+  }
+
+  const float sc[4] = {d.scale, d.scale, d.scale, d.scale};
+  store_rows(dq + (b * d.L * d.H + h) * d.D, i0, d.L, ld, d.D, sc, acc);
+}
+
+constexpr int64_t kMaxGridY = 65535;
+
+int64_t tiles(int64_t n) { return (n + kT - 1) / kT; }
+
+bool bad_shape(int64_t B, int64_t L, int64_t H, int64_t D) {
+  return B < 1 || L < 1 || H < 1 || D < 1 || D > kMaxD || tiles(L) > kMaxGridY ||
+         B * H > INT32_MAX;
+}
+
+dim3 grid_of(int64_t B, int64_t L, int64_t H) {
+  return dim3(static_cast<unsigned int>(B * H), static_cast<unsigned int>(tiles(L)));
+}
+
+}  // namespace
+
+// Each entry launches one kernel on `stream` and returns cudaGetLastError()
+// (0 on success), or cudaErrorInvalidValue for a shape it does not take.
+// Shapes: B, L, H >= 1, 1 <= D <= 128; strides in elements.
+extern "C" int tlie_flash_attention_fwd_f32(const float* q, const float* k, const float* v,
+                                            float* o, float* lse, int64_t B, int64_t L,
+                                            int64_t H, int64_t D, int64_t q_bs, int64_t q_ls,
+                                            int64_t q_hs, int64_t k_bs, int64_t k_ls,
+                                            int64_t k_hs, int64_t v_bs, int64_t v_ls,
+                                            int64_t v_hs, float scale, void* stream) {
+  if (bad_shape(B, L, H, D)) return static_cast<int>(cudaErrorInvalidValue);
+  const Dims d{L, H, D, q_bs, q_ls, q_hs, k_bs, k_ls, k_hs, v_bs, v_ls, v_hs, scale};
+  flash_attention_fwd_kernel<<<grid_of(B, L, H), kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(q, k, v, o, lse, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tlie_flash_attention_bwd_dkv_f32(const float* q, const float* k, const float* v,
+                                                const float* dout, const float* lse,
+                                                const float* di, float* dk, float* dv,
+                                                int64_t B, int64_t L, int64_t H, int64_t D,
+                                                int64_t q_bs, int64_t q_ls, int64_t q_hs,
+                                                int64_t k_bs, int64_t k_ls, int64_t k_hs,
+                                                int64_t v_bs, int64_t v_ls, int64_t v_hs,
+                                                float scale, void* stream) {
+  if (bad_shape(B, L, H, D)) return static_cast<int>(cudaErrorInvalidValue);
+  const Dims d{L, H, D, q_bs, q_ls, q_hs, k_bs, k_ls, k_hs, v_bs, v_ls, v_hs, scale};
+  flash_attention_bwd_dkv_kernel<<<grid_of(B, L, H), kThreads, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(q, k, v, dout, lse, di,
+                                                                        dk, dv, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tlie_flash_attention_bwd_dq_f32(const float* q, const float* k, const float* v,
+                                               const float* dout, const float* lse,
+                                               const float* di, float* dq, int64_t B, int64_t L,
+                                               int64_t H, int64_t D, int64_t q_bs, int64_t q_ls,
+                                               int64_t q_hs, int64_t k_bs, int64_t k_ls,
+                                               int64_t k_hs, int64_t v_bs, int64_t v_ls,
+                                               int64_t v_hs, float scale, void* stream) {
+  if (bad_shape(B, L, H, D)) return static_cast<int>(cudaErrorInvalidValue);
+  const Dims d{L, H, D, q_bs, q_ls, q_hs, k_bs, k_ls, k_hs, v_bs, v_ls, v_hs, scale};
+  flash_attention_bwd_dq_kernel<<<grid_of(B, L, H), kThreads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(q, k, v, dout, lse, di,
+                                                                       dq, d);
+  return static_cast<int>(cudaGetLastError());
+}

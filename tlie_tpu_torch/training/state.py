@@ -1,7 +1,8 @@
 """Optimiser construction: the ``{ssm, regular}`` groups of
 ``tlie_tpu/training/state.py::_grouped_tx`` for the SSM families, and
 ``create_train_state_adamw``'s AdamW behind a global-norm clip for the Mamba
-family (:func:`make_family_optimizer` chooses, as ``loop.py::_make_state``).
+and transformer families (:func:`make_family_optimizer` chooses, as
+``loop.py::_make_state``).
 
 A parameter is in ``ssm`` when its flax leaf name is in the config's
 ``ssm_lr_vars``: Adam at ``ssm_lr`` with no weight decay.  Everything else is
@@ -59,12 +60,12 @@ def make_family_optimizer(model: nn.Module, family: str, model_cfg: Dict[str, An
                           train_cfg: Dict[str, Any], f: Dict[str, Any]):
     """``(optimizer, clip_norm)`` for the family (``loop.py::_make_state``):
     the SSM families take the ``{ssm, regular}`` groups and no clip; the
-    Mamba family ``create_train_state_adamw``'s one AdamW group,
+    Mamba and transformer families ``create_train_state_adamw``'s one AdamW group,
     ``regular``, decaying every parameter (optax's ``adamw``, eps 1e-8),
     behind a clip at global norm 1.0 (:func:`clip_by_global_norm_`, applied
     by ``train_step``).  A non-null ``train.param_group`` raises: its extra
     group is not ported yet."""
-    if family == "mamba":
+    if family in ("mamba", "transformer"):
         if train_cfg.get("param_group") is not None:
             raise NotImplementedError("train.param_group is not ported yet")
         group = {"params": list(model.parameters()), "name": "regular", "lr": f["lr"],
