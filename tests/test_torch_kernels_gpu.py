@@ -112,7 +112,11 @@ def test_backward_kernel_matches_plain(cuda_device, shape, a_shape, reverse):
 # rounding grows with that sum, not with the element's own size; and each
 # term's factor softmax - onehot carries the absolute rounding of its logit
 # as a relative error, a sum of D products bounded by Z = max|h_m|·max|W_v|
-# + max|b| (u = 2^-24), as chip_smoke.py states.
+# + max|b| (u = 2^-24), as chip_smoke.py states.  The backward kernels run
+# their products on the tensor cores (csrc/fused_xent.cu): d_max is the
+# wrapper's largest D, which takes the 32-row plan; ragged_d (D 100, not a
+# multiple of 8) pads the depth with zeros; odd_d (D 97) also takes the
+# 4-byte copies of rows that are not 16-byte aligned.
 
 XENT_RTOL = 1e-5
 
@@ -133,8 +137,10 @@ def _xent_inputs(device, M, D, V, seed):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("M, D, V", [(128, 32, 300), (1024, 64, 1000), (256, 512, 50257)],
-                         ids=["v_below_tile", "ragged_v", "lm_width"])
+@pytest.mark.parametrize("M, D, V", [(128, 32, 300), (1024, 64, 1000), (256, 512, 50257),
+                                     (256, 1024, 3000), (384, 100, 2001), (256, 97, 1000)],
+                         ids=["v_below_tile", "ragged_v", "lm_width", "d_max", "ragged_d",
+                              "odd_d"])
 def test_fused_xent_kernels_match_plain(cuda_device, M, D, V):
     from tlie_tpu_torch.ops import fused_xent as fx
 

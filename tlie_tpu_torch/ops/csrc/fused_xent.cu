@@ -16,33 +16,84 @@
 // Bound on the H100: operations. At the LM head's shapes (M 8192, D 512,
 // V 50257) the forward is 2*M*D*V = 421.6 GFLOP and each backward kernel
 // recomputes the logits and does one more product of that size (843
-// GFLOP), against 67 TFLOP/s of float32 outside the tensor cores: 6.3, 12.6
-// and 12.6 ms. The operands are 16.8 MB (h) and 103 MB (W).
+// GFLOP): 6.3, 12.6 and 12.6 ms at 67 TFLOP/s of float32 outside the tensor
+// cores. The backward kernels run on the tensor cores as three TF32 products
+// each (below): 3 * 843 GFLOP at 495 TFLOP/s of dense TF32 is 5.1 ms. The
+// operands are 16.8 MB (h) and 103 MB (W).
 //
-// Design. Every kernel is one tiled float32 SIMT product on shared-memory
-// tiles (no TF32: parity is held at float32). 256 threads each hold a 4 x 4
-// tile of a 32 x 128 block of logits: 32 rows of the block's own operand
-// (the "P" side) against 128 rows of the streamed operand (the "Q" side),
-// both read K-contiguous in depth steps of 16 through padded shared memory.
-//   forward: P = rows of h, Q = vocabulary. A block walks its share of the
-//            vocabulary tiles keeping a running (max, sum-exp, picked logit)
-//            per row and thread; the 32 threads of a warp merge theirs at
-//            the end. The TPU keeps the row tile for the whole vocabulary;
-//            here M / 32 = 256 row tiles would fill the card once, so the
-//            vocabulary is split across blocks too and a second launch
-//            merges the partial triples of each row (in split order, so the
-//            result does not depend on scheduling).
-//   dh:      P = rows of h, Q = vocabulary. Per vocabulary tile the block
-//            recomputes the logits, forms t = (softmax - onehot) * g on valid
-//            rows, and adds t @ W_tile into a (32, D) accumulator in shared
-//            memory.
+// Forward. One tiled float32 SIMT product on shared-memory tiles. 256
+// threads each hold a 4 x 4 tile of a 32 x 128 block of logits: 32 rows of h
+// (the "P" side) against 128 vocabulary rows (the "Q" side), both read
+// K-contiguous in depth steps of 16 through padded shared memory. A block
+// walks its share of the vocabulary tiles keeping a running (max, sum-exp,
+// picked logit) per row and thread; the 32 threads of a warp merge theirs at
+// the end. The TPU keeps the row tile for the whole vocabulary; here M / 32
+// = 256 row tiles would fill the card once, so the vocabulary is split
+// across blocks too and a second launch merges the partial triples of each
+// row (in split order, so the result does not depend on scheduling).
+//
+// Backward. One kernel, xent_bwd_kernel<kVocabIsP, kPRows>, for both:
+//   dh:      P = rows of h, Q = vocabulary. Per 128-row vocabulary tile the
+//            block recomputes the logits, forms t = (softmax - onehot) * g on
+//            valid rows, and adds t @ W_tile into a (kPRows, D) accumulator in
+//            shared memory.
 //   dW, db:  P = vocabulary, Q = rows of h: the same loop with the roles
-//            swapped, adding t^T @ h_tile into the (32, D) rows of dW the
-//            block owns, and the sums of t into db. A block owns its output,
-//            so neither backward needs atomics, and both are deterministic.
+//            swapped, adding t^T @ h_tile into the kPRows rows of dW the block
+//            owns, and the sums of t into db. A block owns its output, so
+//            neither needs atomics, and both are deterministic.
+// Both products run on the tensor cores, mma.sync.aligned.m16n8k8 on TF32
+// with float32 accumulators, as three products of a split operand:
+//   split:   x = big + small, big = TF32(x), small = TF32(x - big), both
+//            rounded to nearest with ties away from zero (the rounding of
+//            cvt.rna.tf32.f32, written as an integer add and mask: ptxas
+//            makes cvt.rna four instructions, a finite test and a select
+//            around the same two); |x - big - small| <= 2^-22 |x|. Each
+//            product is small*big + big*small + big*big, the small ones
+//            first; small*small (2^-24 relative) is left out. The split is
+//            made in registers as each fragment is read from shared memory,
+//            so the tiles stay one float32 plane (two planes would not fit
+//            beside the accumulator) and land there by cp.async untouched.
+//   tiles:   8 warps; a (kPRows x 128) tile of either product is 2 x 4 warps
+//            of 32 x 32 (kPRows 64) or 1 x 8 of 32 x 16 (kPRows 32), each warp
+//            2 x kNT fragments of 16 x 8. The logits read P and Q
+//            K-contiguous (.row.col); the second product reads t from
+//            shared memory, where the logits' C fragments leave it, and the
+//            Q block [q][d] with the transposed index. Within each depth-8
+//            step the depth is permuted the same way for both operands so
+//            that a lane's two values of a row are neighbours (one 8-byte
+//            read); the row strides make every fragment read hit each bank
+//            once.
+//   sums:    no tensor-core sum is deeper than one shared-memory step: the
+//            logits are summed 32 deep (kBK) into fresh accumulators and
+//            then added in float32; the second product sums one tile's 128
+//            rows of q into fresh accumulators and adds them to the shared
+//            accumulator with an ordinary float32 add. The tensor cores may
+//            not round to nearest; bounding their depth keeps dh's sum over
+//            50,257 vocabulary entries at float32 quality.
+//   plans:   kPRows 64 for D <= 512 (accumulator 133 KB, 224 KB of shared
+//            memory in all), kPRows 32 above (D <= 1024: 132 KB, 196 KB); one
+//            block of 256 threads per SM. The operands of each step are
+//            copied with cp.async into one half of a two-step buffer while
+//            the tensor cores work on the other, 16 bytes a copy where D %
+//            4 == 0 and the operands are 16-byte aligned, else 4.
+//   traffic: each block streams the other operand twice per launch, once in
+//            depth steps for the logits and once in column blocks for the
+//            second product, and rereads its own kPRows rows per tile: (kPRows +
+//            2 * 128) * D * 4 bytes a tile, 33.0 GB from L2 per launch at the
+//            LM's shape for either kernel (128 blocks x 393 tiles for dh,
+//            786 x 64 for dW).
+//   ptxas:   registers a thread, no spills, for <dh, 64>, <dh, 32>, <dW, 64>,
+//            <dW, 32>: 176, 129, 174, 122 (nvcc -Xptxas -v, sm_90a).
+//   SASS:    cuobjdump -sass of the built library holds HMMA.1688.F32.TF32 in
+//            all four: 192 in each kPRows 64 instantiation, 96 in each kPRows 32
+//            (chip_smoke.py's build phase counts them and fails on none).
+//   bound:   at the LM's shape both kernels are held by the rate of
+//            mma.sync on TF32, well below the tensor cores' 495 TFLOP/s:
+//            wgmma with TMA is the next step (PERF.md).
 // Columns past V (the ragged last vocabulary tile, e.g. 50257 = 392 * 128 +
 // 81) are never read: the loads test the bound and the statistics skip
-// them, as the TPU's _col_mask sets them to -1e30.
+// them, as the TPU's _col_mask sets them to -1e30. Depth past D and rows past
+// the operands are read as zeros; t is 0 on ignored rows.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -50,18 +101,18 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kP = 32;    // rows of the block's own operand
+constexpr int kP = 32;    // rows of h per block of the forward
 constexpr int kQ = 128;   // rows of the streamed operand per tile
-constexpr int kK = 16;    // depth of one shared-memory step of the logits product
+constexpr int kK = 16;    // depth of one shared-memory step of the forward's logits
 constexpr int kTD = 128;  // output columns per chunk of the backward's second product
 constexpr int kKC = 32;   // depth of one shared-memory step of that product
-constexpr int kPad = 4;   // row padding of the shared tiles (keeps float4 alignment)
+constexpr int kPad = 4;   // row padding of the forward's tiles (keeps float4 alignment)
 constexpr int kMergeThreads = 256;
 constexpr int64_t kIgnore = -100;
 constexpr float kNegBig = -1e30f;
-static_assert(kP * kK % kThreads == 0 && kQ * kK % kThreads == 0 &&
-              kKC * kTD % kThreads == 0, "tile loads split evenly over the threads");
-static_assert(kP == 4 * (kThreads / 32) && kQ == 4 * 32 && kTD == 4 * 32,
+static_assert(kP * kK % kThreads == 0 && kQ * kK % kThreads == 0,
+              "tile loads split evenly over the threads");
+static_assert(kP == 4 * (kThreads / 32) && kQ == 4 * 32,
               "each thread holds a 4 x 4 tile: 8 warps of P rows, 32 lanes of columns");
 
 __device__ __forceinline__ int64_t imin(int64_t x, int64_t y) { return x < y ? x : y; }
@@ -219,145 +270,453 @@ __global__ void xent_fwd_merge_kernel(const float* __restrict__ part,
   loss[row] = labels[row] != kIgnore ? l - pk : 0.f;
 }
 
-// Backward: grid ceil(P rows / kP), dynamic shared memory kP * Dpad floats
+// -- the backward on the tensor cores -----------------------------------------
+
+constexpr int kWarps = kThreads / 32;
+constexpr int kBK = 32;          // depth of one shared-memory step of the backward's logits
+// Row strides of the shared tiles, in floats, chosen so that a warp's
+// fragment reads hit every bank once: float2 reads at (8g + 2t) where the
+// stride is 8 modulo 32, float reads at (8t + g) where it is 4.
+constexpr int kBKPad = kBK + 8;  // the logits' operands, [row][k]
+constexpr int kTPad = kQ + 8;    // t, [p][q]
+constexpr int kCPad = kTD + 4;   // a Q block of the second product, [q][d]
+constexpr int kOutPad = 8;       // the accumulator, [p][d] (float2 updates)
+
+// x rounded to TF32 (10 stored mantissa bits), to nearest with ties away from
+// 0: the rounding of cvt.rna.tf32.f32, equal to it for every finite x and for
+// +-inf. ptxas turns cvt.rna into four instructions (this add and mask, and a
+// finite test and a select around them); written out it is two.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small + r with big, small TF32 and |r| <= 2^-22 |x|.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// c += a · b for one 16 x 8 x 8 fragment (PTX "mma.m16n8k8", .tf32): with
+// g = lane / 4 and t = lane % 4, a = A(g, t), A(g+8, t), A(g, t+4), A(g+8, t+4);
+// b = B(t, g), B(t+4, g); c = C(g, 2t), C(g, 2t+1), C(g+8, 2t), C(g+8, 2t+1).
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One depth-8 step of a warp's (16 kMT) x (8 kNT) tile in three TF32
+// products, c += As·Bb + Ab·Bs + Ab·Bb (the two small ones first). The step's
+// depth is permuted, the same way for both operands, so that a lane's two
+// values of a row are neighbours: its k slots t and t + 4 take depth 2t and
+// 2t + 1. a(m, t) returns (A(m, 2t), A(m, 2t+1)) and b(n, t) returns
+// (B(2t, n), B(2t+1, n)) for m < 16 kMT, n < 8 kNT, read from shared memory;
+// each value is split where it is read.
+template <int kMT, int kNT, class A, class B>
+__device__ __forceinline__ void mma_step_3xtf32(float (&c)[kMT][kNT][4], A a, B b) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  uint32_t ab[kMT][4], as[kMT][4], bb[kNT][2], bs[kNT][2];
+#pragma unroll
+  for (int i = 0; i < kMT; ++i) {
+    const float2 lo = a(16 * i + g, t), hi = a(16 * i + g + 8, t);
+    split_tf32(lo.x, ab[i][0], as[i][0]);
+    split_tf32(hi.x, ab[i][1], as[i][1]);
+    split_tf32(lo.y, ab[i][2], as[i][2]);
+    split_tf32(hi.y, ab[i][3], as[i][3]);
+  }
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) {
+    const float2 v = b(8 * j + g, t);
+    split_tf32(v.x, bb[j][0], bs[j][0]);
+    split_tf32(v.y, bb[j][1], bs[j][1]);
+  }
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) mma_tf32(c[i][j], as[i], bb[j]);
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) mma_tf32(c[i][j], ab[i], bs[j]);
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) mma_tf32(c[i][j], ab[i], bb[j]);
+}
+
+// 16 (or 4) bytes from global to shared memory, not through registers; where
+// `in` is false nothing is read and the bytes are zeroed.
+__device__ __forceinline__ void cp_async(float* dst, const float* src, bool in, int bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+                 "r"(in ? 16 : 0));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+                 "r"(in ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// A thread's share of 16-byte copies of (kR x kC) blocks of a row-major
+// matrix of floats with rows of D (D % 4 == 0, the matrix 16-byte aligned):
+// rows tid / (kC / 4) + it * kRows and columns 4 (tid % (kC / 4)) + 0..3 of
+// each block, neighbouring threads on neighbouring bytes of a row. Made where
+// the block's first row r0 is fixed, so that a step only moves the block.
+template <int kR, int kC, int kLd>
+struct Copy16 {
+  static constexpr int kTPR = kC / 4, kRows = kThreads / kTPR;
+  static_assert(kR % kRows == 0 && kLd % 4 == 0, "whole 16-byte copies");
+  const float* src;  // the thread's first float of the block at (r0, 0)
+  int rows, cols;    // rows from it on, and columns from it on, inside the matrix
+  int dst;           // its offset in a shared block
+
+  __device__ __forceinline__ Copy16(const float* m, int64_t r0, int64_t r_lim, int64_t D) {
+    const int r = threadIdx.x / kTPR, c = 4 * (threadIdx.x % kTPR);
+    src = m + (r0 + r) * D + c;
+    rows = static_cast<int>(r_lim - r0 - r);
+    cols = static_cast<int>(D - c);
+    dst = r * kLd + c;
+  }
+
+  // Starts copying the block at rows r0 + dr.., columns dc.. into `block`,
+  // zero past the matrix.
+  __device__ __forceinline__ void start(float* block, int dr, int64_t dc, int64_t D) const {
+#pragma unroll
+    for (int it = 0; it < kR / kRows; ++it) {
+      const int rr = dr + it * kRows;
+      cp_async(block + dst + it * kRows * kLd, src + rr * D + dc, rr < rows && dc < cols, 16);
+    }
+  }
+};
+
+// The same block copy 4 bytes at a time, for any D and alignment.
+template <int kR, int kC, int kLd>
+__device__ __forceinline__ void copy_block4(float* block, const float* __restrict__ m,
+                                            int64_t r0, int64_t r_lim, int64_t c0, int64_t D) {
+  static_assert(kR * kC % kThreads == 0, "whole copies");
+#pragma unroll 4
+  for (int it = 0; it < kR * kC / kThreads; ++it) {
+    const int e = threadIdx.x + it * kThreads, r = e / kC, c = e % kC;
+    const int64_t row = r0 + r, col = c0 + c;
+    const bool in = row < r_lim && col < D;
+    cp_async(block + r * kLd + c, in ? m + row * D + col : m, in, 4);
+  }
+}
+
+// The warps' tiling of a (kPRows x 128) tile: kWM warps along P by kWN along
+// the columns, each holding 32 x (8 kNT) as 2 x kNT fragments of 16 x 8.
+template <int kPRows>
+struct Tiling {
+  static constexpr int kWM = kPRows / 32;
+  static constexpr int kWN = kWarps / kWM;
+  static constexpr int kNT = kQ / (8 * kWN);
+  static_assert(kWM * kWN == kWarps && kNT * 8 * kWN == kQ, "8 warps tile kPRows x 128");
+};
+
+// s = P[p0, p0 + kPRows) · Q[q0, q0 + kQ)ᵀ over depth D for the calling thread's
+// fragment elements (Tiling, C layout of mma_tf32). Rows past p_rows / q_rows
+// and depth past D read as 0. Each kBK-deep step is summed on the tensor
+// cores into fresh accumulators and then added to s in float32, so no
+// tensor-core sum is deeper than kBK. The steps' operands are copied into the
+// two halves of buf in turn, the next while the tensor cores work on this
+// one. Needs all threads past their last use of buf on entry; on return some
+// may still read it.
+template <int kPRows>
+__device__ __forceinline__ void logits_tile_tc(
+    const float* __restrict__ Pm, int64_t p0, int64_t p_rows,
+    const float* __restrict__ Qm, int64_t q0, int64_t q_rows, int64_t D, bool vec,
+    float* buf, float (&s)[2][Tiling<kPRows>::kNT][4]) {
+  using TL = Tiling<kPRows>;
+  constexpr int kNT = TL::kNT;
+  constexpr int kStage = (kPRows + kQ) * kBKPad;
+  const int warp = threadIdx.x / 32;
+  const int m0 = 32 * (warp / TL::kWN), n0 = 8 * kNT * (warp % TL::kWN);
+  const Copy16<kPRows, kBK, kBKPad> p_copy(Pm, p0, p_rows, D);
+  const Copy16<kQ, kBK, kBKPad> q_copy(Qm, q0, q_rows, D);
+  auto start = [&](int64_t k0, float* st) {
+    if (vec) {
+      p_copy.start(st, 0, k0, D);
+      q_copy.start(st + kPRows * kBKPad, 0, k0, D);
+    } else {
+      copy_block4<kPRows, kBK, kBKPad>(st, Pm, p0, p_rows, k0, D);
+      copy_block4<kQ, kBK, kBKPad>(st + kPRows * kBKPad, Qm, q0, q_rows, k0, D);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) s[i][j][r] = 0.f;
+
+  const int n_steps = static_cast<int>((D + kBK - 1) / kBK);
+  start(0, buf);
+  for (int step = 0; step < n_steps; ++step) {
+    cp_async_wait_all();
+    __syncthreads();  // this step's operands are in; the other half is free
+    if (step + 1 < n_steps)
+      start(static_cast<int64_t>(step + 1) * kBK, buf + (step + 1) % 2 * kStage);
+    const auto Ps = reinterpret_cast<const float (*)[kBKPad]>(buf + step % 2 * kStage);
+    const auto Qs = Ps + kPRows;
+    float c[2][kNT][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) c[i][j][r] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 8)
+      mma_step_3xtf32<2, kNT>(
+          c,
+          [&](int m, int t) {
+            return *reinterpret_cast<const float2*>(&Ps[m0 + m][kk + 2 * t]);
+          },
+          [&](int n, int t) {
+            return *reinterpret_cast<const float2*>(&Qs[n0 + n][kk + 2 * t]);
+          });
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) s[i][j][r] += c[i][j][r];
+  }
+}
+
+// Floats of the two-step operand buffer: two steps of the logits' operands
+// or two Q blocks of the second product, whichever is larger.
+__host__ __device__ constexpr int bwd_buf_floats(int kPRows) {
+  return 2 * ((kPRows + kQ) * kBKPad > kKC * kCPad ? (kPRows + kQ) * kBKPad : kKC * kCPad);
+}
+
+// Backward: grid ceil(P rows / kPRows), dynamic shared memory bwd_smem_floats
 // (Dpad = D rounded up to kTD). kVocabIsP false computes dh (P = h, Q = W),
 // true computes dW and db (P = W, Q = h). gscale points at g / n_valid.
-template <bool kVocabIsP>
-__global__ void __launch_bounds__(kThreads)
+template <bool kVocabIsP, int kPRows>
+__global__ void __launch_bounds__(kThreads, 1)
 xent_bwd_kernel(const float* __restrict__ h, const float* __restrict__ w,
                 const float* __restrict__ b, const int64_t* __restrict__ labels,
                 const float* __restrict__ lse, const float* __restrict__ gscale,
                 float* __restrict__ out, float* __restrict__ db,
                 int64_t M, int64_t D, int64_t V, int64_t Dpad) {
-  extern __shared__ __align__(16) float out_s[];  // [kP][Dpad]
-  __shared__ __align__(16) float Ps[kK][kP + kPad];
-  __shared__ __align__(16) float Qs[kK][kQ + kPad];
-  __shared__ __align__(16) float Ts[kQ][kP + kPad];  // t, transposed: [q][p]
-  __shared__ __align__(16) float Cs[kKC][kTD + kPad];
+  using TL = Tiling<kPRows>;
+  constexpr int kNT = TL::kNT;
+  constexpr int kCStage = kKC * kCPad;
+  const int64_t ostride = Dpad + kOutPad;
+  extern __shared__ __align__(16) float smem[];
+  float* out_s = smem;               // [kPRows][ostride]
+  float* buf = smem + kPRows * ostride;  // two steps' operands of one product at a time
+  auto Ts = reinterpret_cast<float (*)[kTPad]>(buf + bwd_buf_floats(kPRows));  // [kPRows][kTPad]
 
-  const int tid = threadIdx.x, ty = tid / 32, tx = tid % 32;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+  const int m0 = 32 * (warp / TL::kWN), n0 = 8 * kNT * (warp % TL::kWN);
   const float* __restrict__ Pm = kVocabIsP ? w : h;
   const float* __restrict__ Qm = kVocabIsP ? h : w;
   const int64_t p_rows = kVocabIsP ? V : M;
   const int64_t q_rows = kVocabIsP ? M : V;
-  const int64_t p0 = static_cast<int64_t>(blockIdx.x) * kP;
-  const float g = *gscale;
+  const int64_t p0 = static_cast<int64_t>(blockIdx.x) * kPRows;
+  const float g_scale = *gscale;
+  const bool vec =
+      D % 4 == 0 && (reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(w)) % 16 == 0;
 
-  for (int64_t e = tid; e < kP * Dpad; e += kThreads) out_s[e] = 0.f;
+  for (int64_t e = tid; e < kPRows * ostride; e += kThreads) out_s[e] = 0.f;
 
-  // what the P side fixes: a row (its lse and label) or a vocabulary entry (its bias)
-  float p_lse[4], p_bias[4];
-  int64_t p_lab[4];
+  // what the P side fixes for the thread's fragment rows m0 + 16 i + 8 hh + g:
+  // a row (its lse and label) or a vocabulary entry (its bias)
+  float p_lse[2][2], p_bias[2][2], db_acc[2][2];
+  int64_t p_lab[2][2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int64_t p = p0 + ty * 4 + i;
-    const bool in = p < p_rows;
-    p_lse[i] = (!kVocabIsP && in) ? lse[p] : 0.f;
-    p_lab[i] = (!kVocabIsP && in) ? labels[p] : kIgnore;
-    p_bias[i] = (kVocabIsP && in) ? b[p] : 0.f;
-  }
-  float db_acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int64_t p = p0 + m0 + 16 * i + 8 * hh + g;
+      const bool in = p < p_rows;
+      p_lse[i][hh] = (!kVocabIsP && in) ? lse[p] : 0.f;
+      p_lab[i][hh] = (!kVocabIsP && in) ? labels[p] : kIgnore;
+      p_bias[i][hh] = (kVocabIsP && in) ? b[p] : 0.f;
+      db_acc[i][hh] = 0.f;
+    }
 
+  const int n_dc = static_cast<int>(Dpad / kTD);  // column chunks of the second product
   for (int64_t q0 = 0; q0 < q_rows; q0 += kQ) {
-    float acc[4][4];
-    logits_tile(Pm, p0, p_rows, Qm, q0, q_rows, D, Ps, Qs, acc);
+    float s[2][kNT][4];
+    logits_tile_tc<kPRows>(Pm, p0, p_rows, Qm, q0, q_rows, D, vec, buf, s);
 
-    // t = (exp(logit - lse) - onehot) * g on valid rows, 0 elsewhere
+    // t = (exp(logit - lse) - onehot) * g on valid rows, 0 elsewhere, into
+    // Ts[p][q], the two neighbouring columns of a fragment together
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int64_t q = q0 + tx * 4 + j;
-      const bool q_in = q < q_rows;
-      const float q_lse = (kVocabIsP && q_in) ? lse[q] : 0.f;
-      const int64_t q_lab = (kVocabIsP && q_in) ? labels[q] : kIgnore;
-      const float q_bias = (!kVocabIsP && q_in) ? b[q] : 0.f;
+    for (int j = 0; j < kNT; ++j) {
+      const int qc = n0 + 8 * j + 2 * t4;
+      bool q_in[2];
+      float q_lse[2], q_bias[2];
+      int64_t q_lab[2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int64_t p = p0 + ty * 4 + i;
-        const int64_t v = kVocabIsP ? p : q;
-        const int64_t lab = kVocabIsP ? q_lab : p_lab[i];
-        const float l = kVocabIsP ? q_lse : p_lse[i];
-        const float bias = kVocabIsP ? p_bias[i] : q_bias;
-        float t = 0.f;
-        if (q_in && p < p_rows && lab != kIgnore) {
-          t = (expf(acc[i][j] + bias - l) - (v == lab ? 1.f : 0.f)) * g;
+      for (int e = 0; e < 2; ++e) {
+        const int64_t q = q0 + qc + e;
+        q_in[e] = q < q_rows;
+        q_lse[e] = (kVocabIsP && q_in[e]) ? lse[q] : 0.f;
+        q_lab[e] = (kVocabIsP && q_in[e]) ? labels[q] : kIgnore;
+        q_bias[e] = (!kVocabIsP && q_in[e]) ? b[q] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int pc = m0 + 16 * i + 8 * hh + g;
+          const int64_t p = p0 + pc;
+          float t[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int64_t v = kVocabIsP ? p : q0 + qc + e;
+            const int64_t lab = kVocabIsP ? q_lab[e] : p_lab[i][hh];
+            const float l = kVocabIsP ? q_lse[e] : p_lse[i][hh];
+            const float bias = kVocabIsP ? p_bias[i][hh] : q_bias[e];
+            t[e] = 0.f;
+            if (q_in[e] && p < p_rows && lab != kIgnore) {
+              t[e] = (expf(s[i][j][2 * hh + e] + bias - l) - (v == lab ? 1.f : 0.f)) * g_scale;
+            }
+            db_acc[i][hh] += t[e];
+          }
+          *reinterpret_cast<float2*>(&Ts[pc][qc]) = make_float2(t[0], t[1]);
         }
-        Ts[tx * 4 + j][ty * 4 + i] = t;
-        db_acc[i] += t;
+    }
+
+    __syncthreads();  // t is in; every thread is past the logits' last read of buf
+
+    // out[p][:] += sum over the tile's q of t[p][q] * Q[q][:], by column
+    // chunks of kTD, each summed over the tile's kQ rows (kKC at a time) on
+    // the tensor cores and then added to out_s in float32; the Q blocks are
+    // copied into the two halves of buf in turn, as in logits_tile_tc
+    constexpr int kSteps = kQ / kKC;
+    const Copy16<kKC, kTD, kCPad> c_copy(Qm, q0, q_rows, D);
+    auto start = [&](int step, float* st) {
+      const int kc = step % kSteps * kKC;
+      const int64_t d0 = static_cast<int64_t>(step / kSteps) * kTD;
+      if (vec)
+        c_copy.start(st, kc, d0, D);
+      else
+        copy_block4<kKC, kTD, kCPad>(st, Qm, q0 + kc, q_rows, d0, D);
+      cp_async_commit();
+    };
+    const int n_steps = n_dc * kSteps;
+    start(0, buf);
+    float acc[2][kNT][4];
+    for (int step = 0; step < n_steps; ++step) {
+      cp_async_wait_all();
+      __syncthreads();
+      if (step + 1 < n_steps) start(step + 1, buf + (step + 1) % 2 * kCStage);
+      const auto Cs = reinterpret_cast<const float (*)[kCPad]>(buf + step % 2 * kCStage);
+      const int kc = step % kSteps * kKC;
+      if (kc == 0) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < kNT; ++j)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < kKC; kk += 8)
+        mma_step_3xtf32<2, kNT>(
+            acc,
+            [&](int m, int t) {
+              return *reinterpret_cast<const float2*>(&Ts[m0 + m][kc + kk + 2 * t]);
+            },
+            [&](int n, int t) {
+              return make_float2(Cs[kk + 2 * t][n0 + n], Cs[kk + 2 * t + 1][n0 + n]);
+            });
+      if (kc + kKC == kQ) {
+        // each thread owns these elements of out_s: no race
+        const int64_t d0 = static_cast<int64_t>(step / kSteps) * kTD;
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+            for (int j = 0; j < kNT; ++j) {
+              float2* o = reinterpret_cast<float2*>(
+                  &out_s[(m0 + 16 * i + 8 * hh + g) * ostride + d0 + n0 + 8 * j + 2 * t4]);
+              float2 x = *o;
+              x.x += acc[i][j][2 * hh];
+              x.y += acc[i][j][2 * hh + 1];
+              *o = x;
+            }
       }
     }
-    __syncthreads();
-
-    // out[p][:] += sum over the tile's q of t[p][q] * Q[q][:], by column chunks
-    for (int64_t d0 = 0; d0 < D; d0 += kTD) {
-      float acc2[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc2[i][j] = 0.f;
-      for (int n0 = 0; n0 < kQ; n0 += kKC) {
-        // 128 neighbouring threads read one row's 128 neighbouring floats
-#pragma unroll
-        for (int it = 0; it < kKC * kTD / kThreads; ++it) {
-          const int e = tid + it * kThreads, n = e / kTD, c = e % kTD;
-          const int64_t q = q0 + n0 + n, d = d0 + c;
-          Cs[n][c] = (q < q_rows && d < D) ? Qm[q * D + d] : 0.f;
-        }
-        __syncthreads();
-#pragma unroll 8
-        for (int n = 0; n < kKC; ++n) {
-          const float4 a = *reinterpret_cast<const float4*>(&Ts[n0 + n][ty * 4]);
-          const float4 c = *reinterpret_cast<const float4*>(&Cs[n][tx * 4]);
-          const float av[4] = {a.x, a.y, a.z, a.w};
-          const float cv[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc2[i][j] = fmaf(av[i], cv[j], acc2[i][j]);
-        }
-        __syncthreads();
-      }
-      // each thread owns these elements of out_s: no race
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) out_s[(ty * 4 + i) * Dpad + d0 + tx * 4 + j] += acc2[i][j];
-    }
+    __syncthreads();  // every thread is past its last read of buf and Ts
   }
-  __syncthreads();
 
-  for (int64_t e = tid; e < kP * D; e += kThreads) {
+  for (int64_t e = tid; e < kPRows * D; e += kThreads) {
     const int64_t r = e / D, d = e % D;
-    if (p0 + r < p_rows) out[(p0 + r) * D + d] = out_s[r * Dpad + d];
+    if (p0 + r < p_rows) out[(p0 + r) * D + d] = out_s[r * ostride + d];
   }
   if (kVocabIsP) {
+    // the four lanes of a quad share their rows, the kWN warps of a row band
+    // hold other columns: sum the lanes, then the warps in order (through
+    // Ts, free since the last tile)
+    auto db_s = reinterpret_cast<float (*)[kPRows]>(&Ts[0][0]);  // [kWN][kPRows]
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        db_acc[i] += __shfl_xor_sync(0xffffffffu, db_acc[i], off);
-      const int64_t v = p0 + ty * 4 + i;
-      if (tx == 0 && v < V) db[v] = db_acc[i];
+      for (int hh = 0; hh < 2; ++hh) {
+        float v = db_acc[i][hh];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        if (t4 == 0) db_s[warp % TL::kWN][m0 + 16 * i + 8 * hh + g] = v;
+      }
+    __syncthreads();
+    for (int r = tid; r < kPRows; r += kThreads) {
+      float sum = 0.f;
+#pragma unroll
+      for (int wn = 0; wn < TL::kWN; ++wn) sum += db_s[wn][r];
+      if (p0 + r < V) db[p0 + r] = sum;
     }
   }
 }
 
 int64_t padded_depth(int64_t D) { return (D + kTD - 1) / kTD * kTD; }
 
+// Floats of the backward's dynamic shared memory: the (kPRows, Dpad) float32
+// accumulator (rows padded by kOutPad), the two-step operand buffer of either
+// product, and t.
+int64_t bwd_smem_floats(int kPRows, int64_t Dpad) {
+  return kPRows * (Dpad + kOutPad) + bwd_buf_floats(kPRows) + kPRows * kTPad;
+}
+
+template <bool kVocabIsP, int kPRows>
+int launch_bwd_rows(const float* h, const float* w, const float* b, const int64_t* labels,
+               const float* lse, const float* gscale, float* out, float* db,
+               int64_t M, int64_t D, int64_t V, cudaStream_t s) {
+  const int64_t Dpad = padded_depth(D);
+  const size_t smem = static_cast<size_t>(bwd_smem_floats(kPRows, Dpad)) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      xent_bwd_kernel<kVocabIsP, kPRows>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t rows = kVocabIsP ? V : M;
+  const dim3 grid(static_cast<unsigned int>((rows + kPRows - 1) / kPRows));
+  xent_bwd_kernel<kVocabIsP, kPRows><<<grid, kThreads, smem, s>>>(
+      h, w, b, labels, lse, gscale, out, db, M, D, V, Dpad);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// 64 rows of the block's own operand where the accumulator fits beside them
+// (D <= 512: 133 KB of it, 224 KB in all), 32 above (D <= 1024: 132 KB, 196 KB).
 template <bool kVocabIsP>
 int launch_bwd(const float* h, const float* w, const float* b, const int64_t* labels,
                const float* lse, const float* gscale, float* out, float* db,
                int64_t M, int64_t D, int64_t V, cudaStream_t s) {
-  const int64_t Dpad = padded_depth(D);
-  const size_t smem = static_cast<size_t>(kP * Dpad) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      xent_bwd_kernel<kVocabIsP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t rows = kVocabIsP ? V : M;
-  const dim3 grid(static_cast<unsigned int>((rows + kP - 1) / kP));
-  xent_bwd_kernel<kVocabIsP><<<grid, kThreads, smem, s>>>(
-      h, w, b, labels, lse, gscale, out, db, M, D, V, Dpad);
-  return static_cast<int>(cudaGetLastError());
+  return padded_depth(D) <= 512
+             ? launch_bwd_rows<kVocabIsP, 64>(h, w, b, labels, lse, gscale, out, db, M, D, V, s)
+             : launch_bwd_rows<kVocabIsP, 32>(h, w, b, labels, lse, gscale, out, db, M, D, V, s);
 }
 
 }  // namespace

@@ -43,10 +43,10 @@ from ._build import LAUNCHES, CudaLibrary, check
 IGNORE = -100
 
 # The reference's row tiles (tlie_tpu/ops/fused_xent.py:46).  The CUDA
-# kernels tile rows by their own 32; _pick_tm keeps the reference's rule for
-# which row counts the function takes.
+# kernels tile rows by their own 32 (forward) and 64 or 32 (backward);
+# _pick_tm keeps the reference's rule for which row counts the function takes.
 _TM_CANDIDATES = (1024, 512, 256, 128)
-_MAX_D = 1024  # the backward's (32, D) accumulator lives in shared memory
+_MAX_D = 1024  # the backward's (64 or 32, D) accumulator lives in shared memory
 _KERNEL_Q = 128  # vocabulary rows per tile of the forward kernel
 
 _P, _I = ctypes.c_void_p, ctypes.c_int64
