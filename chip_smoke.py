@@ -46,11 +46,6 @@ the exit code is non-zero.  The last three lines are the kernel table as
 JSON, the card's name and power limit from ``nvidia-smi``, and
 ``{"ok": true, "device": {...}}``.
 
-``python3 chip_smoke.py --head`` stops after the fused head's kernels: the
-build, the scan kernels' and the head's checks against their plain
-versions, and the head's times, printed as one JSON line before the
-``nvidia-smi`` line; it drives no path and prints no ``ok`` line.
-
 Without a CUDA device, or outside a checkout of the repository, it fails and
 prints no result.  It writes nothing inside the checkout except the kernel
 build; the checkpoints and the eigen-analysis artifacts go to temporary
@@ -223,6 +218,27 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def bwd_hmma(lib_path, nvcc: str) -> dict:
+    """The HMMA opcodes, with their counts, of each instantiation of the fused
+    head's backward kernel in the built library, from ``cuobjdump -sass``
+    (beside ``nvcc``): {"dh_p64": {"HMMA.1688.F32.TF32": 192}, ...}."""
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    instr = re.compile(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?(HMMA\S*)")
+    counts, ops = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"xent_bwd_kernelILb([01])ELi(\d+)E", line)
+            ops = None if m is None else counts.setdefault(
+                f"{'dw' if m.group(1) == '1' else 'dh'}_p{m.group(2)}", {})
+        elif ops is not None:
+            m = instr.search(line)
+            if m:
+                ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+    return counts
+
+
 def cuda_ms(fn, repeat: int, flush: torch.Tensor = None):
     """Per-call device times (ms) of ``fn`` from CUDA events, one call per
     pair of events.  Before each call the stream gets work of its own
@@ -388,10 +404,11 @@ def time_fused_xent(fx, h, w, b, labels, lse, gscale, flush):
     and of the library call computing the same function (addmm and
     F.cross_entropy, autograd for the gradients), and each kernel's bound:
     {kernel: (ms, plain_ms, library_ms, bound_ms, bound_by, bytes, flops,
-    bound_tc_ms)}.  bound_tc_ms is a backward kernel's bound on the tensor
-    cores, which take each of its products as three TF32 products, at
-    TF32_FLOPS_PER_S (None for the forward, which runs in float32 outside
-    them)."""
+    bound_f32_ms)}.  The forward's operations run in float32 outside the
+    tensor cores, at FP32_FLOPS_PER_S.  A backward kernel runs its products on
+    the tensor cores, each as three TF32 products at TF32_FLOPS_PER_S; its
+    bound_ms is the lesser of that and float32 outside them (bound_f32_ms,
+    None for the forward)."""
     import torch.nn.functional as F
 
     M, D = h.shape
@@ -433,10 +450,13 @@ def time_fused_xent(fx, h, w, b, labels, lse, gscale, flush):
             p_ms = median(cuda_ms(plain[name], 21, flush))
         l_ms = median(cuda_ms(library[name], 21, flush))
         n_bytes, flops = io[name]
-        bytes_ms, flops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
-        tc_ms = None if name == "fused_xent_fwd" else 3 * flops / TF32_FLOPS_PER_S * 1e3
+        bytes_ms, f32_ms = n_bytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+        flops_ms = f32_ms
+        if name != "fused_xent_fwd":
+            flops_ms = min(f32_ms, 3 * flops / TF32_FLOPS_PER_S * 1e3)
         out[name] = (k_ms, p_ms, l_ms, max(bytes_ms, flops_ms),
-                     "bytes" if bytes_ms >= flops_ms else "operations", n_bytes, flops, tc_ms)
+                     "bytes" if bytes_ms >= flops_ms else "operations", n_bytes, flops,
+                     None if name == "fused_xent_fwd" else f32_ms)
     del lib_loss
     return out
 
@@ -994,7 +1014,7 @@ def main() -> int:
     from tlie_tpu_torch.ops import decay_attention as dattn
     from tlie_tpu_torch.ops.attention import FLASH_ATTENTION
     from tlie_tpu_torch.ops import fused_xent as fx
-    from tlie_tpu_torch.ops._build import sass_opcodes
+    from tlie_tpu_torch.ops._build import find_nvcc
     from tlie_tpu_torch.ops.ssd import _auto_chunk
     from tlie_tpu_torch.ops.scan import (
         DIAG_SCAN, DIAG_SCAN_BWD, diag_scan_bwd_cuda, diag_scan_bwd_plain, diag_scan_cuda,
@@ -1039,11 +1059,7 @@ def main() -> int:
             ph.fields[f"{name}_ptxas"] = repr(regs)
         # the fused head's backward kernels run their products on the tensor
         # cores: each instantiation's SASS holds TF32 HMMA instructions
-        hmma = {}
-        for kernel, ops in sass_opcodes(reports["fused_xent"].path, "HMMA").items():
-            m = re.search(r"xent_bwd_kernelILb([01])ELi(\d+)E", kernel)
-            if m:
-                hmma[f"{'dw' if m.group(1) == '1' else 'dh'}_p{m.group(2)}"] = ops
+        hmma = bwd_hmma(reports["fused_xent"].path, find_nvcc())
         ph.fields["fused_xent_bwd_sass_hmma"] = repr(hmma)
         if not hmma or not all(any(".TF32" in op for op in ops) for ops in hmma.values()):
             raise AssertionError(f"fused_xent backward kernels without TF32 HMMA: {hmma}")
@@ -1122,21 +1138,14 @@ def main() -> int:
     with Phase("fused_xent_timing") as ph:
         h, weight, b, labels, lse, gscale = xent_io
         xent_times = time_fused_xent(fx, h, weight.t(), b, labels, lse, gscale, flush)
-        for name, (k_ms, p_ms, l_ms, bound, by, n_bytes, flops, tc) in xent_times.items():
+        for name, (k_ms, p_ms, l_ms, bound, by, n_bytes, flops, f32) in xent_times.items():
             ph.fields[name] = (f"ms_cold_median={k_ms:.4f},plain_ms={p_ms:.4f},"
                                f"library_ms={l_ms:.4f},over_library={k_ms / l_ms:.3f},"
-                               f"bound_ms={bound:.4f}({by}),"
-                               + (f"bound_tc_ms={tc:.4f}," if tc is not None else "")
+                               f"bound_ms={bound:.4f}({by}),over_bound={k_ms / bound:.3f},"
+                               + (f"bound_f32_ms={f32:.4f}," if f32 is not None else "")
                                + f"gflop={flops / 1e9:.1f},tflops={flops / k_ms / 1e9:.2f}")
         del h, weight, b, labels, lse, gscale, xent_io
         torch.cuda.empty_cache()
-    if "--head" in sys.argv[1:]:
-        keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "bytes", "flops",
-                "bound_tc_ms")
-        print(json.dumps({"fused_head": {name: dict(zip(keys, row))
-                                         for name, row in xent_times.items()}}), flush=True)
-        print(nvidia_smi_line(), flush=True)
-        return 0
 
     # the decay attention's three kernels against the plain version, at the
     # MQAR Mamba-2 shape, the WikiText Mamba-2 shape and a ragged one (with
@@ -1888,7 +1897,7 @@ def main() -> int:
     replaces = {"fused_xent_fwd": "tlie_tpu/ops/fused_xent.py:126",
                 "fused_xent_dh": "tlie_tpu/ops/fused_xent.py:228",
                 "fused_xent_dw": "tlie_tpu/ops/fused_xent.py:246"}
-    for name, (k_ms, p_ms, l_ms, bound, by, _, _, tc) in xent_times.items():
+    for name, (k_ms, p_ms, l_ms, bound, by, _, _, _) in xent_times.items():
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -1901,7 +1910,6 @@ def main() -> int:
             "bound_ms": bound,
             "bound_by": by,
             "library_ms": l_ms,  # addmm + F.cross_entropy, autograd for the gradients
-            **({} if tc is None else {"bound_tc_ms": tc}),
         })
     replaces = {"decay_attention_fwd": "tlie_tpu/ops/pallas_ssd.py:252",
                 "decay_attention_bwd_i": "tlie_tpu/ops/pallas_ssd.py:272",

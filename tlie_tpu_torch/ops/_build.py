@@ -14,7 +14,6 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
-import re
 import shutil
 import subprocess
 import time
@@ -109,27 +108,6 @@ class CudaLibrary:
     def fn(self, fname: str):
         self.load()
         return getattr(self._lib, fname)
-
-
-def sass_opcodes(path: Path, prefix: str) -> Dict[str, Dict[str, int]]:
-    """Count, for each kernel of a built library, its instructions whose opcode
-    starts with ``prefix`` (e.g. ``HMMA``), by full opcode, from ``cuobjdump
-    -sass`` (beside ``nvcc``): {mangled kernel name: {opcode: count}}."""
-    cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
-    instr = re.compile(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?(" + re.escape(prefix) + r"\S*)")
-    counts: Dict[str, Dict[str, int]] = {}
-    kernel = None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            kernel = line.split("Function :", 1)[1].strip()
-            counts[kernel] = {}
-        elif kernel is not None:
-            m = instr.search(line)
-            if m:
-                counts[kernel][m.group(1)] = counts[kernel].get(m.group(1), 0) + 1
-    return counts
 
 
 def check(err: int, what: str) -> None:

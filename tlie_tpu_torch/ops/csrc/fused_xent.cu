@@ -75,7 +75,11 @@
 //            block of 256 threads per SM. The operands of each step are
 //            copied with cp.async into one half of a two-step buffer while
 //            the tensor cores work on the other, 16 bytes a copy where D %
-//            4 == 0 and the operands are 16-byte aligned, else 4.
+//            4 == 0 and the operands are 16-byte aligned, else 4. A
+//            zero-filled copy past the matrix is handed the matrix's first
+//            address, so no copy gets an address outside it; the 16-byte
+//            copies test for that once a block, and copy a block that lies
+//            inside the matrix without the test.
 //   traffic: each block streams the other operand twice per launch, once in
 //            depth steps for the logits and once in column blocks for the
 //            second product, and rereads its own kPRows rows per tile: (kPRows +
@@ -83,7 +87,7 @@
 //            LM's shape for either kernel (128 blocks x 393 tiles for dh,
 //            786 x 64 for dW).
 //   ptxas:   registers a thread, no spills, for <dh, 64>, <dh, 32>, <dW, 64>,
-//            <dW, 32>: 176, 129, 174, 122 (nvcc -Xptxas -v, sm_90a).
+//            <dW, 32>: 178, 133, 171, 121 (nvcc -Xptxas -v, sm_90a).
 //   SASS:    cuobjdump -sass of the built library holds HMMA.1688.F32.TF32 in
 //            all four: 192 in each kPRows 64 instantiation, 96 in each kPRows 32
 //            (chip_smoke.py's build phase counts them and fails on none).
@@ -372,25 +376,39 @@ template <int kR, int kC, int kLd>
 struct Copy16 {
   static constexpr int kTPR = kC / 4, kRows = kThreads / kTPR;
   static_assert(kR % kRows == 0 && kLd % 4 == 0, "whole 16-byte copies");
+  const float* m;    // the matrix
   const float* src;  // the thread's first float of the block at (r0, 0)
   int rows, cols;    // rows from it on, and columns from it on, inside the matrix
   int dst;           // its offset in a shared block
+  int block_rows;    // rows from r0 on inside the matrix, the same for all threads
 
-  __device__ __forceinline__ Copy16(const float* m, int64_t r0, int64_t r_lim, int64_t D) {
+  __device__ __forceinline__ Copy16(const float* m_, int64_t r0, int64_t r_lim, int64_t D) {
     const int r = threadIdx.x / kTPR, c = 4 * (threadIdx.x % kTPR);
-    src = m + (r0 + r) * D + c;
+    m = m_;
+    src = m_ + (r0 + r) * D + c;
     rows = static_cast<int>(r_lim - r0 - r);
     cols = static_cast<int>(D - c);
     dst = r * kLd + c;
+    block_rows = static_cast<int>(r_lim - r0);
   }
 
   // Starts copying the block at rows r0 + dr.., columns dc.. into `block`,
-  // zero past the matrix.
+  // zero past the matrix. A block that reaches past the matrix hands its
+  // zero-filled copies m itself as their source (as copy_block4 does), so
+  // that no copy gets an address outside the matrix; the test is made once
+  // for the whole block, and a block inside the matrix copies without it.
   __device__ __forceinline__ void start(float* block, int dr, int64_t dc, int64_t D) const {
+    if (dr + kR <= block_rows && dc + kC <= D) {
 #pragma unroll
-    for (int it = 0; it < kR / kRows; ++it) {
-      const int rr = dr + it * kRows;
-      cp_async(block + dst + it * kRows * kLd, src + rr * D + dc, rr < rows && dc < cols, 16);
+      for (int it = 0; it < kR / kRows; ++it)
+        cp_async(block + dst + it * kRows * kLd, src + (dr + it * kRows) * D + dc, true, 16);
+    } else {
+#pragma unroll
+      for (int it = 0; it < kR / kRows; ++it) {
+        const int rr = dr + it * kRows;
+        const bool in = rr < rows && dc < cols;
+        cp_async(block + dst + it * kRows * kLd, in ? src + rr * D + dc : m, in, 16);
+      }
     }
   }
 };
