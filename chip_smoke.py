@@ -1307,11 +1307,18 @@ def main() -> int:
     tcfg["dataset"]["num_train_examples"] = TRAIN_EXAMPLES
     try:
         with Phase("train_data") as ph:
-            train_split = MQAR(**tcfg["dataset"]).split("train")
+            train_data = MQAR(**tcfg["dataset"])
+            train_split = train_data.split("train")
             test_split = (test_x, test_y)
             tcfg = derive_runtime_fields(tcfg, L, len(train_split[0]))
-            ph.fields.update(train_examples=f"{len(train_split[0])}(cut_from_100000)",
+            ph.fields.update(generator=train_data.generator,
+                             train_examples=f"{len(train_split[0])}(cut_from_100000)",
                              test_examples=len(test_split[0]))
+            # the reference draws with the native generator wherever c++
+            # builds it, and the card machine has the compiler nvcc needs
+            if train_data.generator != "native" or data.generator != "native":
+                raise AssertionError(f"MQAR drew with {train_data.generator}, not the native "
+                                     "generator the reference uses")
         init = {k: v.clone() for k, v in build_models(
             mcfg, generator=torch.Generator().manual_seed(cfg["seed"]),
             device=dev)[0].state_dict().items()}

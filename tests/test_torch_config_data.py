@@ -1,6 +1,7 @@
 """The port's copies of framework-neutral code against the originals: the
 full-width MQAR LRU config dict, YAML loading and runtime fields, and the
-MQAR generator with its separate test stream (byte-equal arrays)."""
+MQAR generators, native and numpy, with their separate test streams
+(byte-equal arrays)."""
 
 import glob
 
@@ -59,10 +60,30 @@ def test_mqar_splits_use_their_own_streams():
                num_train_examples=40, num_test_examples=16, seed=1919)
     ref = JaxMQAR(_name_="mqar", use_native=False, **cfg)
     ref.setup()
-    port = MQAR(_name_="mqar", **cfg)
+    port = MQAR(_name_="mqar", use_native=False, **cfg)
+    assert port.generator == "numpy"
     for split in ("train", "test"):
         x, y = port.split(split)
         np.testing.assert_array_equal(x, getattr(ref, f"{split}_inputs"))
         np.testing.assert_array_equal(y, getattr(ref, f"{split}_labels"))
     assert port.l_max == 64 and port.d_output == 256
+    assert not np.array_equal(port.split("train")[0][:16], port.split("test")[0])
+
+
+def test_default_mqar_is_the_references_native_draw():
+    """Both packages draw with the C++ generator by default, where ``c++``
+    builds it (here it does): the same bytes for the same config and seed."""
+    cfg = dict(input_seq_length=128, num_kv_pairs=8, vocab_size=512,
+               num_train_examples=48, num_test_examples=16, seed=1919)
+    ref = JaxMQAR(_name_="mqar", **cfg)
+    ref.setup()
+    port = MQAR(_name_="mqar", **cfg)
+    assert port.generator == "native"
+    numpy_draw = MQAR(_name_="mqar", use_native=False, **cfg)
+    for split in ("train", "test"):
+        x, y = port.split(split)
+        for got, want in ((x, getattr(ref, f"{split}_inputs")), (y, getattr(ref, f"{split}_labels"))):
+            assert got.dtype == want.dtype and got.shape == want.shape
+            assert got.tobytes() == want.tobytes()
+        assert not np.array_equal(x, numpy_draw.split(split)[0])  # the two generators differ
     assert not np.array_equal(port.split("train")[0][:16], port.split("test")[0])

@@ -228,6 +228,20 @@ def test_auto_chunk_matches_jax_on_the_cpu(B, L, H):
     assert ssd._auto_chunk(B, L, H, "cpu") == jax_ssd._auto_chunk(B, L, H)
 
 
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_tlie_ssd_budget_overrides_the_budget_as_in_jax(monkeypatch, device):
+    """``TLIE_SSD_BUDGET`` (elements) wins over the device's budget in both
+    packages (``tests/test_ops_kernels.py``'s case): at 1e6, B4 × L512 × H8
+    needs 4·512·q·8 ≤ 1e6, so q = 32.  It is read before the device is
+    asked, so the CUDA case runs without a card."""
+    monkeypatch.setenv("TLIE_SSD_BUDGET", "1000000")
+    assert ssd._budget_elements(device) == 1_000_000 == jax_ssd._budget_elements()
+    assert ssd._auto_chunk(4, 512, 8, device) == 32 == jax_ssd._auto_chunk(4, 512, 8)
+    monkeypatch.setenv("TLIE_SSD_BUDGET", "2.5e6")
+    assert ssd._budget_elements(device) == 2_500_000 == jax_ssd._budget_elements()
+    assert ssd._auto_chunk(4, 512, 8, device) == jax_ssd._auto_chunk(4, 512, 8) == 128
+
+
 def test_largest_divisor_chunk_and_expand_groups_match_jax():
     for L, q in ((48, 20), (96, 64), (7, 4), (512, 512)):
         assert ssd._largest_divisor_chunk(L, q) == jax_ssd._largest_divisor_chunk(L, q)

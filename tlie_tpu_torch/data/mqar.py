@@ -2,8 +2,11 @@
 ``tlie_tpu/data/mqar.py`` copied as it is, and a dataset holder with its
 train and test streams and its metric, the masked accuracy.
 
-The port does not carry the native C++ generator: ``MQAR`` always draws with
-numpy, as ``tlie_tpu``'s ``MQAR(use_native=False)`` does.
+``MQAR`` draws as ``tlie_tpu``'s ``MQAR.setup`` does: with the native C++
+generator (``csrc/mqar_gen.cpp``, built by :mod:`.native`) unless
+``use_native`` is False or no compiler builds it, and with numpy then.  The
+two generators give different arrays for one seed; ``MQAR.generator`` says
+which one draws.
 """
 
 from __future__ import annotations
@@ -13,6 +16,17 @@ from typing import Tuple
 import numpy as np
 
 from .base import masked_accuracy
+from .native import mqar_generate_native
+
+
+def _check_shape(vocab_size: int, input_seq_len: int, num_kv_pairs: int) -> None:
+    """The shapes either generator takes."""
+    if input_seq_len % 2 != 0:
+        raise ValueError("input_seq_len must be even")
+    if vocab_size <= input_seq_len:
+        raise ValueError("vocab_size must exceed input_seq_len")
+    if num_kv_pairs * 4 > input_seq_len:
+        raise ValueError("num_kv_pairs * 4 must not exceed input_seq_len")
 
 
 def multiquery_ar(
@@ -26,12 +40,7 @@ def multiquery_ar(
     **kwargs,
 ):
     """Generate (inputs, labels) int64 arrays of shape (num_examples, L)."""
-    if input_seq_len % 2 != 0:
-        raise ValueError("input_seq_len must be even")
-    if vocab_size <= input_seq_len:
-        raise ValueError("vocab_size must exceed input_seq_len")
-    if num_kv_pairs * 4 > input_seq_len:
-        raise ValueError("num_kv_pairs * 4 must not exceed input_seq_len")
+    _check_shape(vocab_size, input_seq_len, num_kv_pairs)
 
     rng = np.random.default_rng(seed)
     context_size = num_kv_pairs * 2
@@ -74,7 +83,8 @@ def multiquery_ar(
 
 class MQAR:
     """MQAR splits as ``tlie_tpu.data.mqar.MQAR`` draws them: the train split
-    from ``seed``, the test split from its own stream ``seed + 1``."""
+    from ``seed``, the test split from its own stream ``seed + 1``, with the
+    native generator unless ``use_native`` is False (``generator``)."""
 
     # ref dataloaders/mqar.py:143-155
     init_defaults = {
@@ -89,13 +99,23 @@ class MQAR:
         "random_non_queries": True,
     }
 
-    def __init__(self, _name_: str = "mqar", data_dir=None, **cfg):
+    def __init__(self, _name_: str = "mqar", data_dir=None, use_native: bool = True, **cfg):
         if _name_ != "mqar":
             raise ValueError(f"Dataset name mismatch: {_name_} != mqar")
         merged = dict(self.init_defaults)
         merged.update(cfg)
         for k, v in merged.items():
             setattr(self, k, v)
+        self.use_native = use_native
+
+    @property
+    def generator(self) -> str:
+        """``"native"`` or ``"numpy"``: the generator that draws the splits
+        (numpy where ``use_native`` is False or no compiler builds the
+        native one, as in the reference)."""
+        from .native import _load
+
+        return "native" if self.use_native and _load() is not None else "numpy"
 
     @property
     def l_max(self) -> int:
@@ -114,7 +134,7 @@ class MQAR:
         if name not in ("train", "test"):
             raise ValueError(f"unknown split {name!r}")
         train = name == "train"
-        return multiquery_ar(
+        kw = dict(
             vocab_size=self.vocab_size,
             num_examples=self.num_train_examples if train else self.num_test_examples,
             input_seq_len=self.input_seq_length,
@@ -123,3 +143,7 @@ class MQAR:
             num_kv_pairs=self.num_kv_pairs,
             random_non_queries=self.random_non_queries,
         )
+        if self.generator == "native":
+            _check_shape(kw["vocab_size"], kw["input_seq_len"], kw["num_kv_pairs"])
+            return mqar_generate_native(**kw)
+        return multiquery_ar(**kw)

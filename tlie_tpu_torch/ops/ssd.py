@@ -20,6 +20,7 @@ on the CPU): the port has no bf16 path yet.
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -31,11 +32,16 @@ from .decay_attention import decay_attention
 _BUDGET_PER_HBM_BYTE = 75_000_000 / 16e9
 
 
-def _budget_elements(device) -> int:
-    """Element budget for the intra-chunk decay tensor: the card's total
-    memory times tlie_tpu's ratio (deterministic per device, so the chunk
-    and with it the numerics do not depend on what else is allocated); on
-    the CPU, tlie_tpu's default of 75e6."""
+def _budget_elements(device="cpu") -> int:
+    """Element budget for the intra-chunk decay tensor: ``TLIE_SSD_BUDGET``
+    (a count of elements, read as ``tlie_tpu`` reads it) where it is set, on
+    every device; else the card's total memory times tlie_tpu's ratio
+    (deterministic per device, so the chunk and with it the numerics do not
+    depend on what else is allocated); on the CPU, tlie_tpu's default of
+    75e6."""
+    env = os.environ.get("TLIE_SSD_BUDGET")
+    if env:
+        return int(float(env))
     dev = torch.device(device)
     if dev.type == "cuda":
         total = torch.cuda.get_device_properties(dev).total_memory
