@@ -76,9 +76,9 @@ T_START = time.perf_counter()
 # beside every time.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
-# dense TF32 on the tensor cores (the same data sheet): the fused head's two
-# backward kernels run their products there, as three TF32 products each
-# (the split x = big + small that keeps float32 accuracy)
+# dense TF32 on the tensor cores (the same data sheet): the fused head's three
+# kernels run their products there, as three TF32 products each (the split
+# x = big + small that keeps float32 accuracy)
 TF32_FLOPS_PER_S = 495e12
 
 # kernel vs plain on the card: f32 sequential and chunked accumulation over
@@ -218,24 +218,39 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bwd_hmma(lib_path, nvcc: str) -> dict:
-    """The HMMA opcodes, with their counts, of each instantiation of the fused
-    head's backward kernel in the built library, from ``cuobjdump -sass``
-    (beside ``nvcc``): {"dh_p64": {"HMMA.1688.F32.TF32": 192}, ...}."""
+# the tensor-core kernels, by the name tensor_core_hmma gives each, and the
+# library that holds each
+TC_KERNELS = {"fwd_p64": "fused_xent", "dh_p64": "fused_xent", "dh_p32": "fused_xent",
+              "dw_p64": "fused_xent", "dw_p32": "fused_xent"}
+
+
+def tensor_core_hmma(lib_paths, nvcc: str) -> dict:
+    """The HMMA opcodes, with their counts, of each tensor-core kernel in the
+    built libraries, from ``cuobjdump -sass`` (beside ``nvcc``): each
+    instantiation of the fused head's forward and backward kernels,
+    {"dh_p64": {"HMMA.1688.F32.TF32": 192}, ...}."""
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
     instr = re.compile(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?(HMMA\S*)")
-    counts, ops = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            m = re.search(r"xent_bwd_kernelILb([01])ELi(\d+)E", line)
-            ops = None if m is None else counts.setdefault(
-                f"{'dw' if m.group(1) == '1' else 'dh'}_p{m.group(2)}", {})
-        elif ops is not None:
-            m = instr.search(line)
-            if m:
-                ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+    names = ((re.compile(r"xent_bwd_kernelILb([01])ELi(\d+)E"),
+              lambda m: f"{'dw' if m.group(1) == '1' else 'dh'}_p{m.group(2)}"),
+             (re.compile(r"xent_fwd_kernelILi(\d+)E"), lambda m: f"fwd_p{m.group(1)}"))
+    counts = {}
+    for lib_path in lib_paths:
+        sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
+        ops = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                ops = None
+                for pattern, key in names:
+                    m = pattern.search(line)
+                    if m:
+                        ops = counts.setdefault(key(m), {})
+                        break
+            elif ops is not None:
+                m = instr.search(line)
+                if m:
+                    ops[m.group(1)] = ops.get(m.group(1), 0) + 1
     return counts
 
 
@@ -369,12 +384,15 @@ def check_fused_xent(fx, h, w, b, labels, f64: bool):
     rtol = xent_grad_rtol(h, w, b)
     loss_rel = abs(loss.sum().item() - ref_loss.sum().item()) / abs(ref_loss.sum().item())
     lse_rel = ((lse - ref_lse).abs() / ref_lse.abs()).max().item()
+    rows_ratio = ((loss - ref_loss).abs()
+                  / (XENT_RTOL * fx.loss_term_scales(ref_loss, ref_lse))).max().item()
     fields = {"loss_rel": f"{loss_rel:.2e}", "lse_rel": f"{lse_rel:.2e}",
+              "loss_rows_err_over_tol": f"{rows_ratio:.3f}",
               "grad_rtol_of_term_sums": f"{rtol:.2e}"}
     errs = {"fused_xent_fwd": max((loss - ref_loss).abs().max().item(),
                                   (lse - ref_lse).abs().max().item()),
             "fused_xent_dh": 0.0, "fused_xent_dw": 0.0}
-    ok = loss_rel <= XENT_RTOL and lse_rel <= XENT_RTOL
+    ok = loss_rel <= XENT_RTOL and lse_rel <= XENT_RTOL and rows_ratio <= 1.0
     kernel_of = {"dh": "fused_xent_dh", "dw": "fused_xent_dw", "db": "fused_xent_dw"}
     for name, got, want, scale in zip(("dh", "dw", "db"), (dh, dw, db), ref, scales):
         ratio = ((got - want).abs() / (rtol * scale + 1e-30)).max().item()
@@ -393,6 +411,10 @@ def check_fused_xent(fx, h, w, b, labels, f64: bool):
         fields["lse_vs_f64_rel"] = (
             f"kernel={((lse.double() - lse64).abs() / lse64.abs()).max().item():.2e},"
             f"plain={((ref_lse.double() - lse64).abs() / lse64.abs()).max().item():.2e}")
+        rows64 = fx.loss_term_scales(loss64, lse64)
+        fields["loss_rows_vs_f64_over_term_sums"] = (
+            f"kernel={((loss.double() - loss64).abs() / rows64).max().item():.2e},"
+            f"plain={((ref_loss.double() - loss64).abs() / rows64).max().item():.2e}")
         del loss64, ref64, s64
     if not ok:
         raise AssertionError(f"fused_xent kernels vs plain: {fields}")
@@ -400,15 +422,14 @@ def check_fused_xent(fx, h, w, b, labels, f64: bool):
 
 
 def time_fused_xent(fx, h, w, b, labels, lse, gscale, flush):
-    """L2-cold medians of 21 launches of each kernel, of its plain version
-    and of the library call computing the same function (addmm and
-    F.cross_entropy, autograd for the gradients), and each kernel's bound:
-    {kernel: (ms, plain_ms, library_ms, bound_ms, bound_by, bytes, flops,
-    bound_f32_ms)}.  The forward's operations run in float32 outside the
-    tensor cores, at FP32_FLOPS_PER_S.  A backward kernel runs its products on
-    the tensor cores, each as three TF32 products at TF32_FLOPS_PER_S; its
-    bound_ms is the lesser of that and float32 outside them (bound_f32_ms,
-    None for the forward)."""
+    """L2-cold medians of 21 launches of each kernel, its warm median, the
+    cold medians of its plain version and of the library call computing the
+    same function (addmm and F.cross_entropy, autograd for the gradients),
+    and each kernel's bound: {kernel: (ms, warm_ms, plain_ms, library_ms,
+    bound_ms, bound_by, bytes, flops, bound_f32_ms)}.  Each kernel runs its
+    products on the tensor cores, each as three TF32 products at
+    TF32_FLOPS_PER_S; its bound_ms is the lesser of that and float32 outside
+    them (bound_f32_ms, at FP32_FLOPS_PER_S)."""
     import torch.nn.functional as F
 
     M, D = h.shape
@@ -447,16 +468,14 @@ def time_fused_xent(fx, h, w, b, labels, lse, gscale, flush):
     for name in ms:
         with torch.no_grad():
             k_ms = median(cuda_ms(ms[name], 21, flush))
+            w_ms = median(cuda_ms(ms[name], 21))
             p_ms = median(cuda_ms(plain[name], 21, flush))
         l_ms = median(cuda_ms(library[name], 21, flush))
         n_bytes, flops = io[name]
         bytes_ms, f32_ms = n_bytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
-        flops_ms = f32_ms
-        if name != "fused_xent_fwd":
-            flops_ms = min(f32_ms, 3 * flops / TF32_FLOPS_PER_S * 1e3)
-        out[name] = (k_ms, p_ms, l_ms, max(bytes_ms, flops_ms),
-                     "bytes" if bytes_ms >= flops_ms else "operations", n_bytes, flops,
-                     None if name == "fused_xent_fwd" else f32_ms)
+        flops_ms = min(f32_ms, 3 * flops / TF32_FLOPS_PER_S * 1e3)
+        out[name] = (k_ms, w_ms, p_ms, l_ms, max(bytes_ms, flops_ms),
+                     "bytes" if bytes_ms >= flops_ms else "operations", n_bytes, flops, f32_ms)
     del lib_loss
     return out
 
@@ -1057,12 +1076,14 @@ def main() -> int:
                     if "registers" in ln]
             ph.fields[f"{name}_nvcc_s"] = f"{report.seconds:.2f}"
             ph.fields[f"{name}_ptxas"] = repr(regs)
-        # the fused head's backward kernels run their products on the tensor
-        # cores: each instantiation's SASS holds TF32 HMMA instructions
-        hmma = bwd_hmma(reports["fused_xent"].path, find_nvcc())
-        ph.fields["fused_xent_bwd_sass_hmma"] = repr(hmma)
-        if not hmma or not all(any(".TF32" in op for op in ops) for ops in hmma.values()):
-            raise AssertionError(f"fused_xent backward kernels without TF32 HMMA: {hmma}")
+        # the fused head's three kernels run their products on the tensor
+        # cores: each one's SASS holds TF32 HMMAs
+        hmma = tensor_core_hmma(
+            [reports[lib].path for lib in sorted(set(TC_KERNELS.values()))], find_nvcc())
+        ph.fields["tensor_core_sass_hmma"] = repr(hmma)
+        if sorted(hmma) != sorted(TC_KERNELS) or not all(
+                ops.get("HMMA.1688.F32.TF32", 0) > 0 for ops in hmma.values()):
+            raise AssertionError(f"tensor-core kernels without HMMA.1688.F32.TF32: {hmma}")
 
     # 3. each kernel against its plain version, at the path's shape and two others
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1138,12 +1159,14 @@ def main() -> int:
     with Phase("fused_xent_timing") as ph:
         h, weight, b, labels, lse, gscale = xent_io
         xent_times = time_fused_xent(fx, h, weight.t(), b, labels, lse, gscale, flush)
-        for name, (k_ms, p_ms, l_ms, bound, by, n_bytes, flops, f32) in xent_times.items():
-            ph.fields[name] = (f"ms_cold_median={k_ms:.4f},plain_ms={p_ms:.4f},"
+        for name, (k_ms, w_ms, p_ms, l_ms, bound, by, n_bytes, flops,
+                   f32) in xent_times.items():
+            ph.fields[name] = (f"ms_cold_median={k_ms:.4f},ms_warm_median={w_ms:.4f},"
+                               f"plain_ms={p_ms:.4f},"
                                f"library_ms={l_ms:.4f},over_library={k_ms / l_ms:.3f},"
                                f"bound_ms={bound:.4f}({by}),over_bound={k_ms / bound:.3f},"
-                               + (f"bound_f32_ms={f32:.4f}," if f32 is not None else "")
-                               + f"gflop={flops / 1e9:.1f},tflops={flops / k_ms / 1e9:.2f}")
+                               f"bound_f32_ms={f32:.4f},"
+                               f"gflop={flops / 1e9:.1f},tflops={flops / k_ms / 1e9:.2f}")
         del h, weight, b, labels, lse, gscale, xent_io
         torch.cuda.empty_cache()
 
@@ -1904,7 +1927,7 @@ def main() -> int:
     replaces = {"fused_xent_fwd": "tlie_tpu/ops/fused_xent.py:126",
                 "fused_xent_dh": "tlie_tpu/ops/fused_xent.py:228",
                 "fused_xent_dw": "tlie_tpu/ops/fused_xent.py:246"}
-    for name, (k_ms, p_ms, l_ms, bound, by, _, _, _) in xent_times.items():
+    for name, (k_ms, _, p_ms, l_ms, bound, by, _, _, _) in xent_times.items():
         kernels.append({
             "name": name,
             "route": "cuda",

@@ -9,6 +9,9 @@ view.  Tolerances: the loss within 1e-5 relative and each gradient within
 gradients up to 1,000 terms of size below 1/256).
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -144,11 +147,21 @@ def test_refuses_bf16_and_other_layouts():
 
 
 def test_forward_splits_cover_the_vocabulary():
+    """Every split gets at least one 128-wide vocabulary tile, the splits
+    cover the vocabulary, and with the kernel's row tile (64 rows of h,
+    ``kFwdRows`` in the source) there are about 32 blocks per SM."""
+    src = (Path(fx.__file__).resolve().parent / "csrc" / "fused_xent.cu").read_text()
+    rows = int(re.search(r"constexpr int kFwdRows = (\d+);", src).group(1))
+    assert rows == fx._KERNEL_ROWS == 64
     for M, V, sms in ((8192, 50257, 132), (128, 300, 132), (1024, 1000, 132), (32, 50257, 8)):
         splits = fx.forward_splits(M, V, sms)
         n_tiles = -(-V // 128)
         per = -(-n_tiles // splits)
         assert 1 <= splits <= n_tiles and (splits - 1) * per < n_tiles <= splits * per
+    # the LM's shape: 128 row tiles x 33 splits of 12 vocabulary tiles, 4,224
+    # blocks, 32 per SM of an H100
+    assert fx.forward_splits(8192, 50257, 132) == 33
+    assert -(-8192 // rows) * 33 == 32 * 132
 
 
 def test_cross_entropy_of_the_port_matches_jax_on_ragged_logits():

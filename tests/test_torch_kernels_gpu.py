@@ -106,17 +106,20 @@ def test_backward_kernel_matches_plain(cuda_device, shape, a_shape, reverse):
 
 
 # -- the fused decoder + cross-entropy kernels ----------------------------------
-# loss and lse within 1e-5 relative (float32 sums of D products, exp and log);
+# loss and lse within 1e-5 relative (float32 sums of D products, exp and log),
+# each row's loss within 1e-5 of |lse| + |picked logit| (fx.loss_term_scales);
 # each gradient element within (1e-5 + sqrt(D)·u·Z) of the sum of the
 # magnitudes of its terms: dh sums V terms and dW M terms, so float32
 # rounding grows with that sum, not with the element's own size; and each
 # term's factor softmax - onehot carries the absolute rounding of its logit
 # as a relative error, a sum of D products bounded by Z = max|h_m|·max|W_v|
-# + max|b| (u = 2^-24), as chip_smoke.py states.  The backward kernels run
+# + max|b| (u = 2^-24), as chip_smoke.py states.  All three kernels run
 # their products on the tensor cores (csrc/fused_xent.cu): d_max is the
-# wrapper's largest D, which takes the 32-row plan; ragged_d (D 100, not a
-# multiple of 8) pads the depth with zeros; odd_d (D 97) also takes the
-# 4-byte copies of rows that are not 16-byte aligned.
+# wrapper's largest D, which takes the backward's 32-row plan; lm_width has
+# the LM's ragged last vocabulary tile (50257 = 392 * 128 + 81); ragged_d (D
+# 100, not a multiple of 8) pads the depth with zeros; odd_d (D 97) also
+# takes the 4-byte copies of rows that are not 16-byte aligned.  Every case
+# has ignored labels (every 7th row).
 
 XENT_RTOL = 1e-5
 
@@ -157,10 +160,37 @@ def test_fused_xent_kernels_match_plain(cuda_device, M, D, V):
     scales = fx.grad_term_scales(h, w, b, labels, ref_lse, gscale)
     assert bool(((lse - ref_lse).abs() <= XENT_RTOL * ref_lse.abs()).all())
     assert float(loss.sum()) == pytest.approx(float(ref_loss.sum()), rel=XENT_RTOL)
+    assert bool(((loss - ref_loss).abs()
+                 <= XENT_RTOL * fx.loss_term_scales(ref_loss, ref_lse)).all())
     assert dw.shape == w.shape and dw.stride() == w.stride()
     rtol = _grad_rtol(h, w, b)
     for got, want, scale in zip((dh, dw, db), ref, scales):
         assert bool(((got - want).abs() <= rtol * scale + 1e-30).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M, D", [(200, 64), (40, 97)], ids=["ragged_rows", "below_a_tile"])
+def test_fused_xent_forward_kernel_takes_a_ragged_row_tile(cuda_device, M, D):
+    """The forward kernel tiles rows by 64; the wrapper takes M a multiple
+    of 128 (the reference's rule), so rows past M are reached through the C
+    entry itself, on an h of M rows and the LM's vocabulary."""
+    from tlie_tpu_torch.ops import fused_xent as fx
+
+    h, w, b, labels = _xent_inputs(cuda_device, M, D, 50257, seed=5)
+    loss = torch.empty(M, device=cuda_device)
+    lse = torch.empty(M, device=cuda_device)
+    splits = fx.forward_splits(M, 50257, torch.cuda.get_device_properties(0).multi_processor_count)
+    part = torch.empty(3, splits, M, device=cuda_device)
+    err = fx.FUSED_XENT.fn("tlie_fused_xent_fwd_f32")(
+        h.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(), loss.data_ptr(),
+        lse.data_ptr(), part.data_ptr(), M, D, 50257, splits,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    ref_loss, ref_lse = fx.fused_xent_fwd_plain(h, w, b, labels)
+    assert bool(((lse - ref_lse).abs() <= XENT_RTOL * ref_lse.abs()).all())
+    assert bool(((loss - ref_loss).abs()
+                 <= XENT_RTOL * fx.loss_term_scales(ref_loss, ref_lse)).all())
 
 
 @pytest.mark.gpu

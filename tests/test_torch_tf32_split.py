@@ -1,19 +1,31 @@
-"""The numerical design of the fused head's backward kernels
-(``tlie_tpu_torch/ops/csrc/fused_xent.cu``), emulated on the CPU.
+"""The numerical design of the port's tensor-core kernels, emulated on the
+CPU: the fused head's forward and its dh and dW/db kernels
+(``tlie_tpu_torch/ops/csrc/fused_xent.cu``) and the flash attention's
+forward (``flash_attention.cu``).
 
-The kernels run both products of dh and dW on the tensor cores in TF32, with
-each operand split x = big + small (big = TF32(x), small = TF32(x − big),
-rounded to nearest with ties away from zero) and each product taken as
-small·big + big·small + big·big.  The logits are summed 32 deep at a time
-before a float32 add, the second product one 128-row vocabulary (or row)
-tile at a time.  Here the same split and the same partial sums run in
-float32 on the CPU, from numpy inputs made from a seed, and the result is
-held to the float64 plain version under the tolerance the card holds the
-kernels to (``chip_smoke.py``, ``tests/test_torch_kernels_gpu.py``):
-XENT_RTOL + √D·2⁻²⁴·Z of the sum of each element's terms' magnitudes, with
-Z = max‖h_m‖·max‖W_v‖ + max|b|.  A single TF32 product fails it, so the test
-is not vacuous.  The emulation rounds sums in float32 where the tensor cores
-may truncate; the card tests hold the kernels themselves.
+The kernels run their products on the tensor cores in TF32, with each
+operand split x = big + small (big = TF32(x), small = TF32(x − big), rounded
+to nearest with ties away from zero) and each product taken as
+small·big + big·small + big·big (``tf32_mma.cuh``).  The head's logits are
+summed 32 deep at a time before a float32 add, its second product one
+128-row vocabulary (or row) tile at a time; the flash forward sums S = q kᵀ
+32 deep and P v over one 64-row j tile at a time, with the online rescale.
+Here the same split and the same partial sums run in float32 on the CPU,
+from numpy inputs made from a seed, and the result is held to the float64
+plain version under the tolerance the card holds the kernels to
+(``chip_smoke.py``, ``tests/test_torch_kernels_gpu.py``):
+
+* the head's gradients: XENT_RTOL + √D·2⁻²⁴·Z of the sum of each element's
+  terms' magnitudes, with Z = max‖h_m‖·max‖W_v‖ + max|b|;
+* the head's forward: lse within XENT_RTOL relative, the batch's loss sum
+  within XENT_RTOL relative, and each row's loss within XENT_RTOL of
+  |lse| + |picked logit|;
+* the flash forward: o within ATTN_RTOL + ``logit_rtol`` of the sum of its
+  terms' magnitudes, lse within the same fraction of max(1, |lse|).
+
+A single TF32 product fails each, so the tests are not vacuous.  The
+emulation rounds sums in float32 where the tensor cores may truncate; the
+card tests hold the kernels themselves.
 """
 
 import re
@@ -24,13 +36,17 @@ import numpy as np
 import pytest
 import torch
 
+from tlie_tpu_torch.ops import attention as fa
 from tlie_tpu_torch.ops import fused_xent as fx
 
 torch.set_num_threads(1)
 XENT_RTOL = 1e-5
+ATTN_RTOL = 1e-5
 F32_UNIT = 2.0 ** -24
-KQ, KBK = 128, 32  # the kernels' tile of the streamed operand and their logits' depth step
-SOURCE = Path(fx.__file__).resolve().parent / "csrc" / "fused_xent.cu"
+KQ, KBK = 128, 32  # the head's tile of the streamed operand and its logits' depth step
+KT, KSK = 64, 32   # the flash forward's tile edge (rows of i and j) and its S depth step
+CSRC = Path(fx.__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "fused_xent.cu"
 
 
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:
@@ -49,12 +65,12 @@ def mm_tf32(a: torch.Tensor, b: torch.Tensor, depth: int, products: int = 3) -> 
     fresh sum that is then added to the result: three products of the split
     (small·big + big·small + big·big), or big·big alone."""
     (ab, as_), (bb, bs) = split(a), split(b)
-    out = torch.zeros(a.shape[0], b.shape[1])
-    for k0 in range(0, a.shape[1], depth):
+    out = torch.zeros(*a.shape[:-1], b.shape[-1])
+    for k0 in range(0, a.shape[-1], depth):
         k = slice(k0, k0 + depth)
-        part = ab[:, k] @ bb[k]
+        part = ab[..., k] @ bb[..., k, :]
         if products == 3:
-            part = as_[:, k] @ bb[k] + ab[:, k] @ bs[k] + part
+            part = as_[..., k] @ bb[..., k, :] + ab[..., k] @ bs[..., k, :] + part
         out += part
     return out
 
@@ -131,11 +147,16 @@ def test_split_keeps_22_bits():
 
 
 def test_emulation_follows_the_kernel_source():
-    src = SOURCE.read_text()
-    assert "(__float_as_uint(x) + 0x1000u) & 0xffffe000u" in src
-    assert re.search(r"constexpr int kQ = (\d+);", src).group(1) == str(KQ)
-    assert re.search(r"constexpr int kBK = (\d+);", src).group(1) == str(KBK)
-    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in src
+    def const(src, name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    shared = (CSRC / "tf32_mma.cuh").read_text()
+    assert "(__float_as_uint(x) + 0x1000u) & 0xffffe000u" in shared
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in shared
+    head = SOURCE.read_text()
+    assert '#include "tf32_mma.cuh"' in head
+    assert const(head, "kQ") == KQ and const(head, "kBK") == KBK
+    assert "logits_tile_tc<kPRows>(h, p0, M, w, q0, V, D, vec, buf, x)" in head  # the forward
 
 
 @pytest.mark.parametrize("grad", ["dh", "dw", "db"])
@@ -148,3 +169,57 @@ def test_three_product_split_holds_the_float32_tolerance(D, grad):
 def test_a_single_tf32_product_fails_it(D):
     ratios = _case(D, 1)
     assert ratios["dh"] > 1.0 and ratios["dw"] > 1.0
+
+
+# -- the head's forward ------------------------------------------------------------
+
+
+def emulated_forward(h, w, b, labels, products=3):
+    """(loss per row, lse) as the forward kernel computes them: each 128-wide
+    vocabulary tile's logits (``mm_tf32``, KBK deep) plus the bias, folded
+    into a running max and sum-exp per row, the label's logit picked."""
+    M, V = h.shape[0], w.shape[1]
+    weight = w.t()
+    m, s, picked = torch.full((M,), -1e30), torch.zeros(M), torch.zeros(M)
+    for v0 in range(0, V, KQ):
+        v = torch.arange(v0, min(v0 + KQ, V))
+        x = mm_tf32(h, weight[v].t(), KBK, products) + b[v]
+        m_new = torch.maximum(m, x.max(1).values)
+        s = s * torch.exp(m - m_new) + torch.exp(x - m_new[:, None]).sum(1)
+        m = m_new
+        picked += (x * (labels[:, None] == v)).sum(1)
+    lse = m + torch.log(s)
+    return torch.where(labels != fx.IGNORE, lse - picked, torch.zeros_like(lse)), lse
+
+
+@lru_cache(maxsize=None)
+def _fwd_case(D, products):
+    """Each forward check's worst error over its tolerance, against float64.
+    V 2001 leaves a ragged last vocabulary tile of 81."""
+    h, w, b, labels = _inputs(64, D, 2001, seed=D + 1)
+    loss, lse = emulated_forward(h, w, b, labels, products)
+    loss64, lse64 = fx.fused_xent_fwd_plain(h.double(), w.double(), b.double(), labels)
+    return {
+        "lse": ((lse.double() - lse64).abs() / (XENT_RTOL * lse64.abs())).max().item(),
+        "loss_sum": abs(loss.double().sum() - loss64.sum()).item()
+        / (XENT_RTOL * abs(loss64.sum().item())),
+        "loss_rows": ((loss.double() - loss64).abs()
+                      / (XENT_RTOL * fx.loss_term_scales(loss64, lse64))).max().item(),
+    }
+
+
+@pytest.mark.parametrize("check", ["lse", "loss_sum", "loss_rows"])
+@pytest.mark.parametrize("D", [512, 1024, 100])
+def test_forward_three_product_split_holds_the_float32_tolerance(D, check):
+    assert _fwd_case(D, 3)[check] <= 1.0
+
+
+@pytest.mark.parametrize("D", [512, 1024, 100])
+def test_forward_single_tf32_product_fails_it(D):
+    """One TF32 product rounds each logit by about 2⁻¹¹ of its terms.  lse is
+    a softmax-weighted mean of the logits and the loss sum a sum over rows,
+    so their errors, random in sign, average out and the lse and loss-sum
+    checks alone would pass it at some widths; each row's picked logit
+    carries its error undamped, and the per-row loss check fails it."""
+    assert _fwd_case(D, 1)["loss_rows"] > 1.0
+

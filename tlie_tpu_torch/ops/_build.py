@@ -4,7 +4,8 @@ Each ``ops/csrc/*.cu`` file has a plain C interface and includes no PyTorch
 header, so ``nvcc`` turns it into a shared library in seconds.  The library
 is built at first use into ``tlie_tpu_torch/_build/`` (listed in
 ``.gitignore``), named by a hash of its source and flags, so an edited source
-is rebuilt and a stale library is never loaded.  The build writes to a
+is rebuilt and a stale library is never loaded; the hash also covers the
+headers of ``csrc/`` (``*.cuh``), which the sources include.  The build writes to a
 temporary name and renames it into place: no lock file, no half-written
 library.
 """
@@ -61,7 +62,8 @@ def build(name: str) -> BuildReport:
     """Compile ``csrc/<name>.cu`` into ``_build/<name>-<hash>.so`` unless that
     library exists already."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     out = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
     if out.exists():
         return BuildReport(out, 0.0, "")

@@ -17,20 +17,26 @@
 // V 50257) the forward is 2*M*D*V = 421.6 GFLOP and each backward kernel
 // recomputes the logits and does one more product of that size (843
 // GFLOP): 6.3, 12.6 and 12.6 ms at 67 TFLOP/s of float32 outside the tensor
-// cores. The backward kernels run on the tensor cores as three TF32 products
-// each (below): 3 * 843 GFLOP at 495 TFLOP/s of dense TF32 is 5.1 ms. The
-// operands are 16.8 MB (h) and 103 MB (W).
+// cores. All three run on the tensor cores as three TF32 products each
+// (below): 3 * 421.6 GFLOP at 495 TFLOP/s of dense TF32 is 2.6 ms for the
+// forward, 3 * 843 GFLOP 5.1 ms for each backward kernel. The operands are
+// 16.8 MB (h) and 103 MB (W).
 //
-// Forward. One tiled float32 SIMT product on shared-memory tiles. 256
-// threads each hold a 4 x 4 tile of a 32 x 128 block of logits: 32 rows of h
-// (the "P" side) against 128 vocabulary rows (the "Q" side), both read
-// K-contiguous in depth steps of 16 through padded shared memory. A block
-// walks its share of the vocabulary tiles keeping a running (max, sum-exp,
-// picked logit) per row and thread; the 32 threads of a warp merge theirs at
-// the end. The TPU keeps the row tile for the whole vocabulary; here M / 32
-// = 256 row tiles would fill the card once, so the vocabulary is split
-// across blocks too and a second launch merges the partial triples of each
-// row (in split order, so the result does not depend on scheduling).
+// Forward, xent_fwd_kernel<kFwdRows>. P = 64 rows of h, Q = vocabulary: a
+// block takes the logits of each 128-row vocabulary tile of its share from
+// logits_tile_tc (the backward's, below) and folds bias, the column mask,
+// the label pick and a running (max, sum-exp) into the C fragments in
+// registers, each thread for its own columns of its four rows; at the end
+// the quad's lanes merge theirs, then the row band's warps, in order, through
+// shared memory. Its shared memory is the two-step operand buffer alone (61
+// KB; no accumulator), so two blocks share an SM and the row tile is twice
+// the SIMT kernel's 32: W (103 MB) is streamed M / 64 = 128 times a launch,
+// and each block rereads its 64 rows of h for every tile, 19.8 GB from L2 in
+// all at the LM's shape. The TPU keeps the row tile for the whole
+// vocabulary; here the vocabulary is split across blocks too (about 32
+// blocks per SM, which shortens the last wave's tail) and a second launch
+// merges the partial triples of each row (in split order, so the result
+// does not depend on scheduling).
 //
 // Backward. One kernel, xent_bwd_kernel<kVocabIsP, kPRows>, for both:
 //   dh:      P = rows of h, Q = vocabulary. Per 128-row vocabulary tile the
@@ -42,7 +48,8 @@
 //            owns, and the sums of t into db. A block owns its output, so
 //            neither needs atomics, and both are deterministic.
 // Both products run on the tensor cores, mma.sync.aligned.m16n8k8 on TF32
-// with float32 accumulators, as three products of a split operand:
+// with float32 accumulators, as three products of a split operand
+// (tf32_mma.cuh):
 //   split:   x = big + small, big = TF32(x), small = TF32(x - big), both
 //            rounded to nearest with ties away from zero (the rounding of
 //            cvt.rna.tf32.f32, written as an integer add and mask: ptxas
@@ -87,10 +94,12 @@
 //            LM's shape for either kernel (128 blocks x 393 tiles for dh,
 //            786 x 64 for dW).
 //   ptxas:   registers a thread, no spills, for <dh, 64>, <dh, 32>, <dW, 64>,
-//            <dW, 32>: 178, 133, 171, 121 (nvcc -Xptxas -v, sm_90a).
+//            <dW, 32>: 178, 133, 171, 121; the forward <64>: 128, its cap for
+//            two blocks an SM (146 uncapped, at one block an SM: 9.48
+//            against 7.58 ms) (nvcc -Xptxas -v, sm_90a).
 //   SASS:    cuobjdump -sass of the built library holds HMMA.1688.F32.TF32 in
-//            all four: 192 in each kPRows 64 instantiation, 96 in each kPRows 32
-//            (chip_smoke.py's build phase counts them and fails on none).
+//            all five (chip_smoke.py's build phase counts them and fails on
+//            none).
 //   bound:   at the LM's shape both kernels are held by the rate of
 //            mma.sync on TF32, well below the tensor cores' 495 TFLOP/s:
 //            wgmma with TMA is the next step (PERF.md).
@@ -102,68 +111,19 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kP = 32;    // rows of h per block of the forward
 constexpr int kQ = 128;   // rows of the streamed operand per tile
-constexpr int kK = 16;    // depth of one shared-memory step of the forward's logits
 constexpr int kTD = 128;  // output columns per chunk of the backward's second product
 constexpr int kKC = 32;   // depth of one shared-memory step of that product
-constexpr int kPad = 4;   // row padding of the forward's tiles (keeps float4 alignment)
 constexpr int kMergeThreads = 256;
 constexpr int64_t kIgnore = -100;
 constexpr float kNegBig = -1e30f;
-static_assert(kP * kK % kThreads == 0 && kQ * kK % kThreads == 0,
-              "tile loads split evenly over the threads");
-static_assert(kP == 4 * (kThreads / 32) && kQ == 4 * 32,
-              "each thread holds a 4 x 4 tile: 8 warps of P rows, 32 lanes of columns");
 
 __device__ __forceinline__ int64_t imin(int64_t x, int64_t y) { return x < y ? x : y; }
-
-// acc[i][j] = sum_k P[p0 + 4*ty + i][k] * Q[q0 + 4*tx + j][k] for the calling
-// thread (ty = tid / 32, tx = tid % 32). Both operands are row-major with
-// rows of length D; rows past p_rows / q_rows and depth past D read as 0.
-// Starts and ends with all threads past their last use of Ps and Qs.
-__device__ __forceinline__ void logits_tile(
-    const float* __restrict__ Pm, int64_t p0, int64_t p_rows,
-    const float* __restrict__ Qm, int64_t q0, int64_t q_rows, int64_t D,
-    float (*Ps)[kP + kPad], float (*Qs)[kQ + kPad], float acc[4][4]) {
-  const int tid = threadIdx.x, ty = tid / 32, tx = tid % 32;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int64_t k0 = 0; k0 < D; k0 += kK) {
-    // 16 neighbouring threads read 16 neighbouring floats of one row
-#pragma unroll
-    for (int it = 0; it < kP * kK / kThreads; ++it) {
-      const int e = tid + it * kThreads, r = e / kK, c = e % kK;
-      const int64_t row = p0 + r, k = k0 + c;
-      Ps[c][r] = (row < p_rows && k < D) ? Pm[row * D + k] : 0.f;
-    }
-#pragma unroll
-    for (int it = 0; it < kQ * kK / kThreads; ++it) {
-      const int e = tid + it * kThreads, r = e / kK, c = e % kK;
-      const int64_t row = q0 + r, k = k0 + c;
-      Qs[c][r] = (row < q_rows && k < D) ? Qm[row * D + k] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int c = 0; c < kK; ++c) {
-      const float4 a = *reinterpret_cast<const float4*>(&Ps[c][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Qs[c][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-}
 
 // Running (max, sum-exp) merge of (m2, s2) into (m, s).
 __device__ __forceinline__ void merge_stats(float& m, float& s, float m2, float s2) {
@@ -172,112 +132,10 @@ __device__ __forceinline__ void merge_stats(float& m, float& s, float m2, float 
   m = mn;
 }
 
-// Forward, first launch: grid (ceil(M / kP), splits). Block (x, y) walks
-// vocabulary tiles [y * tiles_per_split, (y + 1) * tiles_per_split) for rows
-// [x * kP, x * kP + kP) and writes each row's partial (max, sum-exp, picked
-// logit) at part[{0, 1, 2} * splits * M + y * M + row].
-__global__ void __launch_bounds__(kThreads)
-xent_fwd_kernel(const float* __restrict__ h, const float* __restrict__ w,
-                const float* __restrict__ b, const int64_t* __restrict__ labels,
-                float* __restrict__ part, int64_t M, int64_t D, int64_t V,
-                int64_t tiles_per_split) {
-  __shared__ __align__(16) float Ps[kK][kP + kPad];
-  __shared__ __align__(16) float Qs[kK][kQ + kPad];
-  const int tid = threadIdx.x, ty = tid / 32, tx = tid % 32;
-  const int64_t p0 = static_cast<int64_t>(blockIdx.x) * kP;
-  const int64_t split = blockIdx.y, splits = gridDim.y;
-  const int64_t n_tiles = (V + kQ - 1) / kQ;
-  const int64_t tile0 = split * tiles_per_split;
-  const int64_t tile1 = imin(n_tiles, tile0 + tiles_per_split);
-
-  float m[4], s[4], pk[4];
-  int64_t lab[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int64_t row = p0 + ty * 4 + i;
-    m[i] = kNegBig;
-    s[i] = 0.f;
-    pk[i] = 0.f;
-    lab[i] = row < M ? labels[row] : kIgnore;
-  }
-
-  for (int64_t tile = tile0; tile < tile1; ++tile) {
-    const int64_t q0 = tile * kQ;
-    float acc[4][4];
-    logits_tile(h, p0, M, w, q0, V, D, Ps, Qs, acc);
-    int64_t v[4];
-    float bias[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      v[j] = q0 + tx * 4 + j;
-      bias[j] = v[j] < V ? b[v[j]] : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float x[4], tmax = kNegBig;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        x[j] = v[j] < V ? acc[i][j] + bias[j] : kNegBig;
-        tmax = fmaxf(tmax, x[j]);
-        if (v[j] == lab[i]) pk[i] += x[j];
-      }
-      const float mn = fmaxf(m[i], tmax);
-      float add = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (v[j] < V) add += expf(x[j] - mn);
-      s[i] = s[i] * expf(m[i] - mn) + add;
-      m[i] = mn;
-    }
-  }
-
-  // the 32 threads of a warp share their rows: merge across them
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float mo = __shfl_xor_sync(0xffffffffu, m[i], off);
-      const float so = __shfl_xor_sync(0xffffffffu, s[i], off);
-      const float po = __shfl_xor_sync(0xffffffffu, pk[i], off);
-      merge_stats(m[i], s[i], mo, so);
-      pk[i] += po;
-    }
-  }
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int64_t row = p0 + ty * 4 + i;
-      if (row < M) {
-        part[(0 * splits + split) * M + row] = m[i];
-        part[(1 * splits + split) * M + row] = s[i];
-        part[(2 * splits + split) * M + row] = pk[i];
-      }
-    }
-  }
-}
-
-// Forward, second launch: one thread per row merges the splits in order into
-// lse and the row's loss (0 where the label is ignored).
-__global__ void xent_fwd_merge_kernel(const float* __restrict__ part,
-                                      const int64_t* __restrict__ labels,
-                                      float* __restrict__ loss, float* __restrict__ lse,
-                                      int64_t M, int64_t splits) {
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * kMergeThreads + threadIdx.x;
-  if (row >= M) return;
-  float m = kNegBig, s = 0.f, pk = 0.f;
-  for (int64_t y = 0; y < splits; ++y) {
-    merge_stats(m, s, part[(0 * splits + y) * M + row], part[(1 * splits + y) * M + row]);
-    pk += part[(2 * splits + y) * M + row];
-  }
-  const float l = m + logf(s);
-  lse[row] = l;
-  loss[row] = labels[row] != kIgnore ? l - pk : 0.f;
-}
-
-// -- the backward on the tensor cores -----------------------------------------
+// -- the products on the tensor cores -----------------------------------------
 
 constexpr int kWarps = kThreads / 32;
-constexpr int kBK = 32;          // depth of one shared-memory step of the backward's logits
+constexpr int kBK = 32;          // depth of one shared-memory step of the logits
 // Row strides of the shared tiles, in floats, chosen so that a warp's
 // fragment reads hit every bank once: float2 reads at (8g + 2t) where the
 // stride is 8 modulo 32, float reads at (8t + g) where it is 4.
@@ -285,87 +143,6 @@ constexpr int kBKPad = kBK + 8;  // the logits' operands, [row][k]
 constexpr int kTPad = kQ + 8;    // t, [p][q]
 constexpr int kCPad = kTD + 4;   // a Q block of the second product, [q][d]
 constexpr int kOutPad = 8;       // the accumulator, [p][d] (float2 updates)
-
-// x rounded to TF32 (10 stored mantissa bits), to nearest with ties away from
-// 0: the rounding of cvt.rna.tf32.f32, equal to it for every finite x and for
-// +-inf. ptxas turns cvt.rna into four instructions (this add and mask, and a
-// finite test and a select around them); written out it is two.
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = big + small + r with big, small TF32 and |r| <= 2^-22 |x|.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
-  big = tf32_rna(x);
-  small = tf32_rna(x - __uint_as_float(big));
-}
-
-// c += a · b for one 16 x 8 x 8 fragment (PTX "mma.m16n8k8", .tf32): with
-// g = lane / 4 and t = lane % 4, a = A(g, t), A(g+8, t), A(g, t+4), A(g+8, t+4);
-// b = B(t, g), B(t+4, g); c = C(g, 2t), C(g, 2t+1), C(g+8, 2t), C(g+8, 2t+1).
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// One depth-8 step of a warp's (16 kMT) x (8 kNT) tile in three TF32
-// products, c += As·Bb + Ab·Bs + Ab·Bb (the two small ones first). The step's
-// depth is permuted, the same way for both operands, so that a lane's two
-// values of a row are neighbours: its k slots t and t + 4 take depth 2t and
-// 2t + 1. a(m, t) returns (A(m, 2t), A(m, 2t+1)) and b(n, t) returns
-// (B(2t, n), B(2t+1, n)) for m < 16 kMT, n < 8 kNT, read from shared memory;
-// each value is split where it is read.
-template <int kMT, int kNT, class A, class B>
-__device__ __forceinline__ void mma_step_3xtf32(float (&c)[kMT][kNT][4], A a, B b) {
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  uint32_t ab[kMT][4], as[kMT][4], bb[kNT][2], bs[kNT][2];
-#pragma unroll
-  for (int i = 0; i < kMT; ++i) {
-    const float2 lo = a(16 * i + g, t), hi = a(16 * i + g + 8, t);
-    split_tf32(lo.x, ab[i][0], as[i][0]);
-    split_tf32(hi.x, ab[i][1], as[i][1]);
-    split_tf32(lo.y, ab[i][2], as[i][2]);
-    split_tf32(hi.y, ab[i][3], as[i][3]);
-  }
-#pragma unroll
-  for (int j = 0; j < kNT; ++j) {
-    const float2 v = b(8 * j + g, t);
-    split_tf32(v.x, bb[j][0], bs[j][0]);
-    split_tf32(v.y, bb[j][1], bs[j][1]);
-  }
-#pragma unroll
-  for (int i = 0; i < kMT; ++i)
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) mma_tf32(c[i][j], as[i], bb[j]);
-#pragma unroll
-  for (int i = 0; i < kMT; ++i)
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) mma_tf32(c[i][j], ab[i], bs[j]);
-#pragma unroll
-  for (int i = 0; i < kMT; ++i)
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) mma_tf32(c[i][j], ab[i], bb[j]);
-}
-
-// 16 (or 4) bytes from global to shared memory, not through registers; where
-// `in` is false nothing is read and the bytes are zeroed.
-__device__ __forceinline__ void cp_async(float* dst, const float* src, bool in, int bytes) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  if (bytes == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-                 "r"(in ? 16 : 0));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-                 "r"(in ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 
 // A thread's share of 16-byte copies of (kR x kC) blocks of a row-major
 // matrix of floats with rows of D (D % 4 == 0, the matrix 16-byte aligned):
@@ -507,6 +284,164 @@ __device__ __forceinline__ void logits_tile_tc(
 #pragma unroll
         for (int r = 0; r < 4; ++r) s[i][j][r] += c[i][j][r];
   }
+}
+
+// Forward: rows of h per block (P = rows of h, Q = vocabulary). 64 rows
+// stream W half as often as the SIMT kernel's 32 and leave two blocks to an
+// SM (128 registers, 64 KB of shared memory each); 128 rows would halve the
+// streaming again, but take 236 registers and one block an SM, and measured
+// slower on the H100 (7.57 against 7.35 ms at the LM's shape).
+constexpr int kFwdRows = 64;
+
+// Floats of the forward's dynamic shared memory: the two-step operand buffer
+// of the logits and the (max, sum-exp, picked) triples of the kWN warps of a
+// row band, [3][kWN][kPRows].
+template <int kPRows>
+__host__ __device__ constexpr int fwd_smem_floats() {
+  return 2 * (kPRows + kQ) * kBKPad + 3 * Tiling<kPRows>::kWN * kPRows;
+}
+
+// Forward, first launch: grid (ceil(M / kPRows), splits). Block (x, y) walks
+// vocabulary tiles [y * tiles_per_split, (y + 1) * tiles_per_split) for rows
+// [x * kPRows, (x + 1) * kPRows) and writes each row's partial (max, sum-exp,
+// picked logit) at part[{0, 1, 2} * splits * M + y * M + row]. The logits of
+// a tile come from logits_tile_tc in the C layout; bias, the column mask
+// (v < V), the label pick and the running max and sum-exp are applied to
+// them in registers, each thread keeping the statistics of its own columns
+// of its four rows. At the end the four lanes of a quad (which share rows)
+// merge theirs, then the kWN warps of a row band merge in order through
+// shared memory, so the result does not depend on scheduling.
+template <int kPRows>
+__global__ void __launch_bounds__(kThreads, 2)
+xent_fwd_kernel(const float* __restrict__ h, const float* __restrict__ w,
+                const float* __restrict__ b, const int64_t* __restrict__ labels,
+                float* __restrict__ part, int64_t M, int64_t D, int64_t V,
+                int64_t tiles_per_split) {
+  using TL = Tiling<kPRows>;
+  constexpr int kNT = TL::kNT;
+  extern __shared__ __align__(16) float smem[];
+  float* buf = smem;                                     // the logits' operands
+  float* stats = smem + 2 * (kPRows + kQ) * kBKPad;      // [3][kWN][kPRows]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+  const int wn = warp % TL::kWN;
+  const int m0 = 32 * (warp / TL::kWN), n0 = 8 * kNT * wn;
+  const int64_t p0 = static_cast<int64_t>(blockIdx.x) * kPRows;
+  const int64_t split = blockIdx.y, splits = gridDim.y;
+  const int64_t n_tiles = (V + kQ - 1) / kQ;
+  const int64_t tile0 = split * tiles_per_split;
+  const int64_t tile1 = imin(n_tiles, tile0 + tiles_per_split);
+  const bool vec =
+      D % 4 == 0 && (reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(w)) % 16 == 0;
+
+  // the thread's rows m0 + 16 i + 8 hh + g
+  float m[2][2], s[2][2], pk[2][2];
+  int64_t lab[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int64_t row = p0 + m0 + 16 * i + 8 * hh + g;
+      m[i][hh] = kNegBig;
+      s[i][hh] = 0.f;
+      pk[i][hh] = 0.f;
+      lab[i][hh] = row < M ? labels[row] : kIgnore;
+    }
+
+  for (int64_t tile = tile0; tile < tile1; ++tile) {
+    const int64_t q0 = tile * kQ;
+    float x[2][kNT][4];
+    logits_tile_tc<kPRows>(h, p0, M, w, q0, V, D, vec, buf, x);
+    // the thread's columns q0 + n0 + 8 j + 2 t4 + e
+    float bias[kNT][2];
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int64_t v = q0 + n0 + 8 * j + 2 * t4 + e;
+        bias[j][e] = v < V ? b[v] : 0.f;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float tmax = kNegBig;
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int64_t v = q0 + n0 + 8 * j + 2 * t4 + e;
+            float& xv = x[i][j][2 * hh + e];
+            xv = v < V ? xv + bias[j][e] : kNegBig;
+            tmax = fmaxf(tmax, xv);
+            if (v == lab[i][hh]) pk[i][hh] += xv;
+          }
+        const float mn = fmaxf(m[i][hh], tmax);
+        float add = 0.f;
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (q0 + n0 + 8 * j + 2 * t4 + e < V) add += expf(x[i][j][2 * hh + e] - mn);
+        s[i][hh] = s[i][hh] * expf(m[i][hh] - mn) + add;
+        m[i][hh] = mn;
+      }
+    __syncthreads();  // every thread is past the logits' last read of buf
+  }
+
+  // the four lanes of a quad share their rows; then the kWN warps of a row
+  // band, in order
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        const float mo = __shfl_xor_sync(0xffffffffu, m[i][hh], off);
+        const float so = __shfl_xor_sync(0xffffffffu, s[i][hh], off);
+        const float po = __shfl_xor_sync(0xffffffffu, pk[i][hh], off);
+        merge_stats(m[i][hh], s[i][hh], mo, so);
+        pk[i][hh] += po;
+      }
+      if (t4 == 0) {
+        const int r = m0 + 16 * i + 8 * hh + g;
+        stats[(0 * TL::kWN + wn) * kPRows + r] = m[i][hh];
+        stats[(1 * TL::kWN + wn) * kPRows + r] = s[i][hh];
+        stats[(2 * TL::kWN + wn) * kPRows + r] = pk[i][hh];
+      }
+    }
+  __syncthreads();
+  for (int r = tid; r < kPRows; r += kThreads) {
+    const int64_t row = p0 + r;
+    if (row >= M) continue;
+    float mm = kNegBig, ss = 0.f, pp = 0.f;
+#pragma unroll
+    for (int k = 0; k < TL::kWN; ++k) {
+      merge_stats(mm, ss, stats[(0 * TL::kWN + k) * kPRows + r],
+                  stats[(1 * TL::kWN + k) * kPRows + r]);
+      pp += stats[(2 * TL::kWN + k) * kPRows + r];
+    }
+    part[(0 * splits + split) * M + row] = mm;
+    part[(1 * splits + split) * M + row] = ss;
+    part[(2 * splits + split) * M + row] = pp;
+  }
+}
+
+// Forward, second launch: one thread per row merges the splits in order into
+// lse and the row's loss (0 where the label is ignored).
+__global__ void xent_fwd_merge_kernel(const float* __restrict__ part,
+                                      const int64_t* __restrict__ labels,
+                                      float* __restrict__ loss, float* __restrict__ lse,
+                                      int64_t M, int64_t splits) {
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kMergeThreads + threadIdx.x;
+  if (row >= M) return;
+  float m = kNegBig, s = 0.f, pk = 0.f;
+  for (int64_t y = 0; y < splits; ++y) {
+    merge_stats(m, s, part[(0 * splits + y) * M + row], part[(1 * splits + y) * M + row]);
+    pk += part[(2 * splits + y) * M + row];
+  }
+  const float l = m + logf(s);
+  lse[row] = l;
+  loss[row] = labels[row] != kIgnore ? l - pk : 0.f;
 }
 
 // Floats of the two-step operand buffer: two steps of the logits' operands
@@ -740,8 +675,9 @@ int launch_bwd(const float* h, const float* w, const float* b, const int64_t* la
 }  // namespace
 
 // Row loss and lse of the forward. `part` holds 3 * splits * M floats of
-// scratch; splits is at most ceil(V / 128). Two launches on `stream`;
-// returns cudaGetLastError() (0 on success).
+// scratch; splits is at most ceil(V / 128), and the rows are tiled by
+// kFwdRows (tlie_tpu_torch/ops/fused_xent.py splits by the same tile). Two
+// launches on `stream`; returns cudaGetLastError() (0 on success).
 extern "C" int tlie_fused_xent_fwd_f32(const float* h, const float* w, const float* b,
                                        const int64_t* labels, float* loss, float* lse,
                                        float* part, int64_t M, int64_t D, int64_t V,
@@ -749,10 +685,15 @@ extern "C" int tlie_fused_xent_fwd_f32(const float* h, const float* w, const flo
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t n_tiles = (V + kQ - 1) / kQ;
   const int64_t tiles_per_split = (n_tiles + splits - 1) / splits;
-  const dim3 grid(static_cast<unsigned int>((M + kP - 1) / kP),
+  const int smem = fwd_smem_floats<kFwdRows>() * static_cast<int>(sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(
+      xent_fwd_kernel<kFwdRows>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned int>((M + kFwdRows - 1) / kFwdRows),
                   static_cast<unsigned int>(splits));
-  xent_fwd_kernel<<<grid, kThreads, 0, s>>>(h, w, b, labels, part, M, D, V, tiles_per_split);
-  cudaError_t err = cudaGetLastError();
+  xent_fwd_kernel<kFwdRows><<<grid, kThreads, smem, s>>>(h, w, b, labels, part, M, D, V,
+                                                         tiles_per_split);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 merge_grid(static_cast<unsigned int>((M + kMergeThreads - 1) / kMergeThreads));
   xent_fwd_merge_kernel<<<merge_grid, kMergeThreads, 0, s>>>(part, labels, loss, lse, M, splits);
