@@ -77,8 +77,9 @@ T_START = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 # dense TF32 on the tensor cores (the same data sheet): the fused head's three
-# kernels run their products there, as three TF32 products each (the split
-# x = big + small that keeps float32 accuracy)
+# kernels and the flash attention's forward run their products there, as
+# three TF32 products each (the split x = big + small that keeps float32
+# accuracy)
 TF32_FLOPS_PER_S = 495e12
 
 # kernel vs plain on the card: f32 sequential and chunked accumulation over
@@ -221,19 +222,21 @@ def nvidia_smi_line() -> str:
 # the tensor-core kernels, by the name tensor_core_hmma gives each, and the
 # library that holds each
 TC_KERNELS = {"fwd_p64": "fused_xent", "dh_p64": "fused_xent", "dh_p32": "fused_xent",
-              "dw_p64": "fused_xent", "dw_p32": "fused_xent"}
+              "dw_p64": "fused_xent", "dw_p32": "fused_xent",
+              "flash_fwd": "flash_attention"}
 
 
 def tensor_core_hmma(lib_paths, nvcc: str) -> dict:
     """The HMMA opcodes, with their counts, of each tensor-core kernel in the
     built libraries, from ``cuobjdump -sass`` (beside ``nvcc``): each
-    instantiation of the fused head's forward and backward kernels,
-    {"dh_p64": {"HMMA.1688.F32.TF32": 192}, ...}."""
+    instantiation of the fused head's forward and backward kernels and the
+    flash attention's forward, {"dh_p64": {"HMMA.1688.F32.TF32": 192}, ...}."""
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     instr = re.compile(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?(HMMA\S*)")
     names = ((re.compile(r"xent_bwd_kernelILb([01])ELi(\d+)E"),
               lambda m: f"{'dw' if m.group(1) == '1' else 'dh'}_p{m.group(2)}"),
-             (re.compile(r"xent_fwd_kernelILi(\d+)E"), lambda m: f"fwd_p{m.group(1)}"))
+             (re.compile(r"xent_fwd_kernelILi(\d+)E"), lambda m: f"fwd_p{m.group(1)}"),
+             (re.compile(r"flash_attention_fwd_kernel"), lambda m: "flash_fwd"))
     counts = {}
     for lib_path in lib_paths:
         sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True,
@@ -651,11 +654,15 @@ def check_flash_attention(fa, q, k, v, do, f64: bool):
 
 
 def time_flash_attention(fa, q, k, v, do, lse, di, flush):
-    """L2-cold medians of 21 launches of each kernel, warm medians, the plain
-    version's and the library call's cold medians (F.scaled_dot_product_attention
+    """L2-cold medians of 21 launches of each kernel, warm medians, the
+    plain version's and the library call's cold medians (F.scaled_dot_product_attention
     with is_causal=True in float32, its autograd for the gradients), and each
-    kernel's bound: {kernel: (ms, warm_ms, plain_ms, library_ms, bound_ms,
-    bound_by, bytes, flops)}."""
+    kernel's bound: ({kernel: (ms, warm_ms, plain_ms, library_ms, bound_ms,
+    bound_by, bytes, flops, bound_f32_ms)}, the device kernels SDPA's forward
+    ran, by name, from ``torch.profiler``).  The forward runs its products on
+    the tensor cores as three TF32 products each: its bound is the lesser of
+    that and float32 outside them; the backward kernels run float32 outside
+    them."""
     import torch.nn.functional as F
 
     B, L, H, D = q.shape
@@ -703,11 +710,19 @@ def time_flash_attention(fa, q, k, v, do, lse, di, flush):
             p_ms = median(cuda_ms(plain[name], 21, flush))
         l_ms = median(cuda_ms(library[name], 21, flush))
         n_bytes, flops = io[name]
-        bytes_ms, flops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+        bytes_ms, f32_ms = n_bytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+        flops_ms = f32_ms
+        if name == "flash_attention_fwd":
+            flops_ms = min(f32_ms, 3 * flops / TF32_FLOPS_PER_S * 1e3)
         out[name] = (k_ms, w_ms, p_ms, l_ms, max(bytes_ms, flops_ms),
-                     "bytes" if bytes_ms >= flops_ms else "operations", n_bytes, flops)
+                     "bytes" if bytes_ms >= flops_ms else "operations", n_bytes, flops, f32_ms)
+    with torch.no_grad():
+        for _ in range(3):  # a late profile in a long run may see no device time
+            sdpa_kernels = top_device_ops(library["flash_attention_fwd"])
+            if sdpa_kernels:
+                break
     del o_lib, qt, kt, vt
-    return out
+    return out, sdpa_kernels
 
 
 def step_profile(one_step, tokens_per_step: int, kernel_pattern: str, kernel_field: str,
@@ -778,7 +793,9 @@ def transformer_path(dev, gen, flush, test_x, test_y, train_split, want_files):
         attn_errs = {}
         for name, (B, L, H, D) in ATTN_SHAPES.items():
             ins = attention_inputs(dev, gen, B, L, H, D)
-            fields, errs, rows = check_flash_attention(fa, *ins, f64=name.startswith("ragged"))
+            # float64 for the record at the MQAR and the ragged shape
+            fields, errs, rows = check_flash_attention(fa, *ins,
+                                                       f64=not name.startswith("heads"))
             ph.fields[name] = repr(fields)
             if not attn_errs:  # the MQAR shape comes first
                 attn_errs, attn_io = errs, ins + rows
@@ -1002,12 +1019,17 @@ def transformer_path(dev, gen, flush, test_x, test_y, train_split, want_files):
 
     # the kernels at the MQAR shape: time, bound, plain version and SDPA
     with Phase("flash_attention_timing") as ph:
-        attn_times = time_flash_attention(fa, *attn_io, flush)
-        for name, (k_ms, w_ms, p_ms, l_ms, bound, by, n_bytes, flops) in attn_times.items():
+        attn_times, sdpa_kernels = time_flash_attention(fa, *attn_io, flush)
+        for name, (k_ms, w_ms, p_ms, l_ms, bound, by, n_bytes, flops,
+                   f32) in attn_times.items():
             ph.fields[name] = (f"ms_cold_median={k_ms:.5f},ms_warm_median={w_ms:.5f},"
                                f"plain_ms={p_ms:.5f},sdpa_ms={l_ms:.5f},"
-                               f"bound_ms={bound:.5f}({by}),gflop={flops / 1e9:.3f},"
+                               f"over_library={k_ms / l_ms:.3f},"
+                               f"bound_ms={bound:.5f}({by}),over_bound={k_ms / bound:.3f},"
+                               f"bound_f32_ms={f32:.5f},gflop={flops / 1e9:.3f},"
                                f"mbytes={n_bytes / 1e6:.1f},tflops={flops / k_ms / 1e9:.2f}")
+        # which SDPA backend ran for float32: its device kernels by name
+        ph.fields["sdpa_fwd_device_kernels_ms"] = repr(sdpa_kernels)
         del attn_io
         torch.cuda.empty_cache()
     return path5_all, attn_times, attn_errs
@@ -1076,8 +1098,8 @@ def main() -> int:
                     if "registers" in ln]
             ph.fields[f"{name}_nvcc_s"] = f"{report.seconds:.2f}"
             ph.fields[f"{name}_ptxas"] = repr(regs)
-        # the fused head's three kernels run their products on the tensor
-        # cores: each one's SASS holds TF32 HMMAs
+        # the fused head's three kernels and the flash forward run their
+        # products on the tensor cores: each one's SASS holds TF32 HMMAs
         hmma = tensor_core_hmma(
             [reports[lib].path for lib in sorted(set(TC_KERNELS.values()))], find_nvcc())
         ph.fields["tensor_core_sass_hmma"] = repr(hmma)
@@ -1961,7 +1983,7 @@ def main() -> int:
     replaces = {"flash_attention_fwd": "tlie_tpu/ops/attention.py:49",
                 "flash_attention_bwd_dkv": "tlie_tpu/ops/attention.py:49",
                 "flash_attention_bwd_dq": "tlie_tpu/ops/attention.py:49"}
-    for name, (k_ms, _, p_ms, l_ms, bound, by, _, _) in attn_times.items():
+    for name, (k_ms, _, p_ms, l_ms, bound, by, _, _, _) in attn_times.items():
         kernels.append({
             "name": name,
             "route": "cuda",

@@ -290,22 +290,27 @@ def test_decay_attention_autograd_and_the_ssd_go_through_the_kernels(cuda_device
 ATTN_RTOL_OF_TERMS = 1e-5  # plus attention.logit_rtol, of the sum of the terms' magnitudes
 
 
-def _attention_inputs(device, B, L, H, D, seed):
-    """q, k, v as head-strided views of one projection (MHA's Wqkv split)
-    and a contiguous cotangent, from a device generator."""
+def _attention_inputs(device, B, L, H, D, seed, pad=5):
+    """q, k, v as head-strided views of one projection (MHA's Wqkv split,
+    ``pad`` floats more a row: 5 leaves the rows unaligned, so the forward
+    copies 4 bytes at a time, a multiple of 4 lets it copy 16) and a
+    contiguous cotangent, from a device generator."""
     g = torch.Generator(device=device).manual_seed(seed)
-    qkv = torch.randn(B, L, 3 * H * D + 5, device=device, generator=g)
+    qkv = torch.randn(B, L, 3 * H * D + pad, device=device, generator=g)
     q, k, v = (qkv[..., i * H * D:(i + 1) * H * D].reshape(B, L, H, D) for i in range(3))
     return q, k, v, torch.randn(B, L, H, D, device=device, generator=g)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B, L, H, D", [(64, 512, 1, 128), (4, 1024, 4, 64), (3, 77, 3, 40)],
-                         ids=["mqar", "heads", "ragged"])
-def test_flash_attention_kernels_match_plain(cuda_device, B, L, H, D):
+@pytest.mark.parametrize("B, L, H, D, pad", [(64, 512, 1, 128, 5), (4, 1024, 4, 64, 5),
+                                             (3, 77, 3, 40, 5), (2, 200, 2, 100, 5),
+                                             (3, 333, 2, 128, 8), (2, 130, 4, 64, 0)],
+                         ids=["mqar", "heads", "ragged", "ragged_d100", "aligned_d128",
+                              "aligned_d64"])
+def test_flash_attention_kernels_match_plain(cuda_device, B, L, H, D, pad):
     from tlie_tpu_torch.ops import attention as fa
 
-    q, k, v, do = _attention_inputs(cuda_device, B, L, H, D, seed=L)
+    q, k, v, do = _attention_inputs(cuda_device, B, L, H, D, seed=L, pad=pad)
     scale = D ** -0.5
     keys = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
     before = {key: LAUNCHES[key] for key in keys}

@@ -157,6 +157,10 @@ def test_emulation_follows_the_kernel_source():
     assert '#include "tf32_mma.cuh"' in head
     assert const(head, "kQ") == KQ and const(head, "kBK") == KBK
     assert "logits_tile_tc<kPRows>(h, p0, M, w, q0, V, D, vec, buf, x)" in head  # the forward
+    flash = (CSRC / "flash_attention.cu").read_text()
+    assert '#include "tf32_mma.cuh"' in flash
+    assert const(flash, "kT") == KT and const(flash, "kSK") == KSK
+    assert flash.count("mma_step_3xtf32<1, 8>") == 2  # S and P v
 
 
 @pytest.mark.parametrize("grad", ["dh", "dw", "db"])
@@ -223,3 +227,65 @@ def test_forward_single_tf32_product_fails_it(D):
     carries its error undamped, and the per-row loss check fails it."""
     assert _fwd_case(D, 1)["loss_rows"] > 1.0
 
+
+# -- the flash attention's forward -------------------------------------------------
+
+
+def emulated_flash_forward(q, k, v, scale, products=3):
+    """(o, lse) as the forward kernel computes them: for each 64-row i tile,
+    the j tiles j ≤ i with S = q kᵀ (``mm_tf32``, KSK deep) times scale, the
+    online softmax (rescaling o by exp(m_old − m_new)), and P v summed over
+    the tile's 64 j before the float32 add.  q, k, v (B, L, H, D)."""
+    B, L, H, D = q.shape
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))  # (B, H, L, D)
+    o = torch.zeros(B, H, L, D)
+    lse = torch.zeros(B, H, L)
+    for i0 in range(0, L, KT):
+        i = torch.arange(i0, min(i0 + KT, L))
+        m = torch.full((B, H, len(i)), float("-inf"))
+        acc, l = torch.zeros(B, H, len(i), D), torch.zeros(B, H, len(i))
+        for j0 in range(0, i0 + 1, KT):
+            j = torch.arange(j0, min(j0 + KT, L))
+            s = mm_tf32(qh[:, :, i], kh[:, :, j].transpose(-1, -2), KSK, products) * scale
+            valid = j[None, :] <= i[:, None]
+            m_new = torch.maximum(m, s.masked_fill(~valid, float("-inf")).amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.where(valid, torch.exp(s - m_new[..., None]), torch.zeros(()))
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + mm_tf32(p, vh[:, :, j], KT, products)
+            m = m_new
+        o[:, :, i] = acc / l[..., None]
+        lse[:, :, i] = m + torch.log(l)
+    return o.transpose(1, 2), lse
+
+
+@lru_cache(maxsize=None)
+def _flash_case(D, products):
+    """o's and lse's worst errors over their tolerances, against float64; L
+    200 is not a multiple of the 64-row tile."""
+    rng = np.random.default_rng(D)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 200, 2, D)).astype(np.float32))
+               for _ in range(3))
+    scale = D ** -0.5
+    o, lse = emulated_flash_forward(q, k, v, scale, products)
+    o64, lse64 = fa.flash_attention_plain(q.double(), k.double(), v.double(), scale)
+    rtol = ATTN_RTOL + fa.logit_rtol(q, k, scale)
+    o_scale = fa.term_scales(q.double(), k.double(), v.double(), v.double(), lse64, scale)[0]
+    lse_tol = rtol * lse64.abs().clamp_min(1.0)
+    return {"o": ((o.double() - o64).abs() / (rtol * o_scale + 1e-300)).max().item(),
+            "lse": ((lse.double() - lse64).abs() / lse_tol).max().item()}
+
+
+@pytest.mark.parametrize("out", ["o", "lse"])
+@pytest.mark.parametrize("D", [64, 100, 128])
+def test_flash_forward_three_product_split_holds_the_float32_tolerance(D, out):
+    assert _flash_case(D, 3)[out] <= 1.0
+
+
+@pytest.mark.parametrize("D", [64, 100, 128])
+def test_flash_forward_single_tf32_product_fails_it(D):
+    """A row whose first tile holds few j (row 0 has o = v_0) takes v's TF32
+    rounding, 2⁻¹² of |v|, nearly undamped, and each logit's rounding, far
+    above ``logit_rtol``, reaches lse: both fail."""
+    ratios = _flash_case(D, 1)
+    assert ratios["o"] > 1.0 and ratios["lse"] > 1.0

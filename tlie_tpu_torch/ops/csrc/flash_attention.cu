@@ -24,21 +24,30 @@
 //
 // Bound on the H100: operations. At the MQAR shape (B 64, L 512, H 1,
 // D 128) the causal pairs are 64 * 512 * 513 / 2 = 8.4 M; the forward does
-// two products over them (q.k and p v, 4D flops a pair), 4.3 GFLOP, 0.064 ms
-// at 67 TFLOP/s of float32 outside the tensor cores, against 67 MB of
-// operands, 0.020 ms at 3.35 TB/s. dK/dV does four products (8D a pair),
-// dQ three (6D).
+// two products over them (q.k and p v, 4D flops a pair), 4.3 GFLOP: 0.064 ms
+// at 67 TFLOP/s of float32 outside the tensor cores, 0.026 ms as three TF32
+// products at 495 TFLOP/s on them, against 67 MB of operands, 0.020 ms at
+// 3.35 TB/s. dK/dV does four products (8D a pair), dQ three (6D).
 //
-// Design. Every product is a float32 SIMT tile product on shared memory (no
-// TF32: parity is held at float32). A block of 256 threads owns 64 rows of
-// one (b, h), each thread a 4 x 4 piece of every 64 x 64 tile, and walks the
-// 64-wide tiles of the other sequence index that the causal mask leaves.
-// Head dims past 64 are a second 64-wide column tile of the accumulators,
-// held in registers beside the first:
-//   forward: block (b h, i-tile) walks j-tiles j <= i: S = q_i k_j^T over D,
-//            the online softmax (running row max m and sum l, rescaling the
-//            o accumulator by exp(m_old - m_new)), then P v_j into o. It
-//            writes o / l and lse = m + log l.
+// Forward, on the tensor cores (mma.sync m16n8k8 on TF32, float32
+// accumulators, each product as three TF32 products of a split operand:
+// tf32_mma.cuh). A block of 4 warps owns 64 rows of i of one (b, h); each
+// warp owns 16 whole rows, so the online softmax needs only the quad of
+// lanes that shares a row. q is copied once into shared memory, k_j and v_j
+// land by cp.async for each j-tile j <= i (v_j while S is formed), S = q k_j^T
+// is summed 32 deep into fresh accumulators and then added in float32, the
+// running row max m and sum l rescale the o accumulator by exp(m_old -
+// m_new), and P passes through the warp's slice of shared memory (the space
+// k_j held) from the C layout into the A layout for o += P v_j, summed over
+// the tile's 64 j into fresh accumulators for each 64-column half of D.
+// Two blocks share an SM (103 KB of shared memory each). It writes o / l
+// and lse = m + log l.
+//
+// Backward: float32 SIMT tile products on shared memory. A block of 256
+// threads owns 64 rows of one (b, h), each thread a 4 x 4 piece of every
+// 64 x 64 tile, and walks the 64-wide tiles of the other sequence index that
+// the causal mask leaves. Head dims past 64 are a second 64-wide column tile
+// of the accumulators, held in registers beside the first:
 //   dK/dV:   block (b h, j-tile) walks i-tiles i >= j: S^T = k_j q_i^T and
 //            dP^T = v_j do_i^T over D, P = exp(scale S - lse_i),
 //            dS = P (dP - di_i); then dv_j += P^T do_i and dk_j += dS^T q_i
@@ -52,11 +61,14 @@
 // stored. The tiles whose blocks walk the most (the last i-tiles forward and
 // in dQ, the first j-tiles in dK/dV) are launched first.
 //
-// The shared tiles take 44 KB of static shared memory whatever D is.
+// The backward's shared tiles take 44 KB of static shared memory whatever D
+// is.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <cstdint>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -171,18 +183,6 @@ __device__ __forceinline__ void accumulate(const float* __restrict__ V, int64_t 
   }
 }
 
-// Reductions over the 16 threads that share ty (16 neighbouring lanes of a warp).
-__device__ __forceinline__ float sum16(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-__device__ __forceinline__ float max16(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
 // Store the thread's 4 x 4 pieces of the D columns at rows row0 + 4ty + r
 // (row stride ld), each row scaled by rscale[r].
 __device__ __forceinline__ void store_rows(float* __restrict__ out, int64_t row0, int64_t rows,
@@ -211,73 +211,6 @@ struct Dims {
   int64_t v_bs, v_ls, v_hs;
   float scale;
 };
-
-// grid (B * H, ceil(L / 64)); i-tile = last - blockIdx.y
-__global__ void __launch_bounds__(kThreads)
-flash_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                           const float* __restrict__ v, float* __restrict__ o,
-                           float* __restrict__ lse, Dims d) {
-  __shared__ Smem sm;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int64_t bh = blockIdx.x, b = bh / d.H, h = bh % d.H;
-  const int64_t i0 = static_cast<int64_t>(gridDim.y - 1 - blockIdx.y) * kT;
-  const float* qb = q + b * d.q_bs + h * d.q_hs;
-  const float* kb = k + b * d.k_bs + h * d.k_hs;
-  const float* vb = v + b * d.v_bs + h * d.v_hs;
-
-  float acc[kDT][4][4], s[4][4];
-  float m[4], l[4];
-#pragma unroll
-  for (int t = 0; t < kDT; ++t) zero(acc[t]);
-#pragma unroll
-  for (int r = 0; r < 4; ++r) m[r] = -INFINITY, l[r] = 0.f;
-
-  for (int64_t j0 = 0; j0 <= i0; j0 += kT) {
-    tile_nt(qb + i0 * d.q_ls, d.L - i0, d.q_ls, kb + j0 * d.k_ls, d.L - j0, d.k_ls, d.D, sm, s);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int li = ty * 4 + r;
-      const int64_t i = i0 + li;
-      float tmax = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int64_t j = j0 + tx * 4 + c;
-        s[r][c] *= d.scale;
-        if (j <= i && i < d.L) tmax = fmaxf(tmax, s[r][c]);
-      }
-      const float m_new = fmaxf(m[r], max16(tmax));
-      // a row with no valid entry yet (only rows past L) keeps m = -inf,
-      // p = 0 and its (zero) accumulator: no -inf - (-inf) is formed
-      const bool live = m_new != -INFINITY;
-      const float alpha = live ? expf(m[r] - m_new) : 1.f;
-      float psum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int lj = tx * 4 + c;
-        const int64_t j = j0 + lj;
-        const float p = (j <= i && i < d.L) ? expf(s[r][c] - m_new) : 0.f;
-        psum += p;
-        sm.s[lj][li] = p;
-      }
-      l[r] = l[r] * alpha + sum16(psum);
-      m[r] = m_new;
-#pragma unroll
-      for (int t = 0; t < kDT; ++t)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[t][r][c] *= alpha;
-    }
-    accumulate(vb + j0 * d.v_ls, d.L - j0, d.v_ls, d.D, sm, acc);
-  }
-
-  float inv[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int64_t i = i0 + ty * 4 + r;
-    inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
-    if (tx == 0 && i < d.L) lse[bh * d.L + i] = m[r] + logf(l[r]);
-  }
-  store_rows(o + (b * d.L * d.H + h) * d.D, i0, d.L, d.H * d.D, d.D, inv, acc);
-}
 
 // grid (B * H, ceil(L / 64)); j-tile = blockIdx.y
 __global__ void __launch_bounds__(kThreads)
@@ -378,6 +311,221 @@ flash_attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restri
   store_rows(dq + (b * d.L * d.H + h) * d.D, i0, d.L, ld, d.D, sc, acc);
 }
 
+// -- the forward on the tensor cores ---------------------------------------------
+
+constexpr int kFwdThreads = 128;   // 4 warps, each 16 whole rows of the block's 64
+constexpr int kSK = 32;            // depth of one fresh tensor-core sum of S
+// Row strides of the shared tiles, in floats: float2 fragment reads at
+// (8g + 2t) hit every bank once where the stride is 8 modulo 32 (q, k, P),
+// float reads at (8t + g) where it is 4 (v).
+constexpr int kQKLd = kMaxD + 8;
+constexpr int kVLd = kMaxD + 4;
+constexpr int kPLd = kT + 8;
+// q, k_j (whose space the warps' P slices take once S is formed) and v_j:
+// 103,424 bytes, two blocks to an SM.
+constexpr int kFwdSmemFloats = 2 * kT * kQKLd + kT * kVLd;
+static_assert((kFwdThreads / 32) * 16 == kT && (kFwdThreads / 32) * 16 * kPLd <= kT * kQKLd,
+              "4 warps of 16 rows; their P slices fit where k_j was");
+
+// Starts copying rows [0, 64) and columns [0, width) of a tile whose first
+// row is `src` (rows ld apart) into dst (rows kLd apart), zero where the row
+// is at or past `rows` or the column at or past D. 16 bytes a copy where
+// `vec` (D % 4 == 0 and every row 16-byte aligned), else 4. A zero-filled
+// copy is handed `src` itself, so no copy gets an address outside the tensor.
+template <int kLd>
+__device__ __forceinline__ void copy_tile(float* dst, const float* __restrict__ src, int64_t ld,
+                                          int64_t rows, int64_t D, int width, bool vec) {
+  if (vec) {
+    const int per_row = width / 4;
+    for (int e = threadIdx.x; e < kT * per_row; e += kFwdThreads) {
+      const int r = e / per_row, c = 4 * (e % per_row);
+      const bool in = r < rows && c < D;
+      cp_async(dst + r * kLd + c, in ? src + r * ld + c : src, in, 16);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kT * width; e += kFwdThreads) {
+      const int r = e / width, c = e % width;
+      const bool in = r < rows && c < D;
+      cp_async(dst + r * kLd + c, in ? src + r * ld + c : src, in, 4);
+    }
+  }
+}
+
+// grid (B * H, ceil(L / 64)), dynamic shared memory kFwdSmemFloats;
+// i-tile = last - blockIdx.y. Warp w owns rows 16w.. of the i-tile; lane
+// (g, t4) holds rows 16w + g and 16w + g + 8 of each C fragment, columns
+// 8n + 2t4 and 8n + 2t4 + 1. Per j-tile: k_j and v_j land by cp.async (v_j
+// while S is formed); S = q k_j^T on the tensor cores, kSK deep into fresh
+// accumulators, then a float32 add; the online softmax on the C fragments
+// (max and sum across the quad that shares a row); P through the warp's
+// slice of shared memory into the A layout; o += P v_j, the tile's 64 j
+// summed into fresh accumulators for each 64-column half of D, then a
+// float32 add.
+__global__ void __launch_bounds__(kFwdThreads, 2)
+flash_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ o,
+                           float* __restrict__ lse, Dims d) {
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;              // [kT][kQKLd]
+  float* ks = qs + kT * kQKLd;   // [kT][kQKLd], then the P slices [4][16][kPLd]
+  float* vs = ks + kT * kQKLd;   // [kT][kVLd]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+  const int r0 = 16 * warp;
+  float* ps = ks + r0 * kPLd;    // the warp's P slice
+  const int64_t bh = blockIdx.x, b = bh / d.H, h = bh % d.H;
+  const int64_t i0 = static_cast<int64_t>(gridDim.y - 1 - blockIdx.y) * kT;
+  const float* qb = q + b * d.q_bs + h * d.q_hs;
+  const float* kb = k + b * d.k_bs + h * d.k_hs;
+  const float* vb = v + b * d.v_bs + h * d.v_hs;
+  // columns copied (zero past D): whole 64-column halves
+  const int width = d.D <= kT ? kT : 2 * kT;
+  const bool vec =
+      d.D % 4 == 0 &&
+      (d.q_bs | d.q_ls | d.q_hs | d.k_bs | d.k_ls | d.k_hs | d.v_bs | d.v_ls | d.v_hs) % 4 == 0 &&
+      (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v)) % 16 == 0;
+
+  float acc[2][8][4];  // o of the thread's two rows, by 64-column half
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[hf][n][r] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  copy_tile<kQKLd>(qs, qb + i0 * d.q_ls, d.q_ls, d.L - i0, d.D, width, vec);
+  for (int64_t j0 = 0; j0 <= i0; j0 += kT) {
+    copy_tile<kQKLd>(ks, kb + j0 * d.k_ls, d.k_ls, d.L - j0, d.D, width, vec);
+    cp_async_commit();  // (q's copies go with the first k_j's)
+    copy_tile<kVLd>(vs, vb + j0 * d.v_ls, d.v_ls, d.L - j0, d.D, width, vec);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // q and k_j are in
+
+    float s[1][8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) s[0][n][r] = 0.f;
+    for (int k0 = 0; k0 < width; k0 += kSK) {
+      float c[1][8][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) c[0][n][r] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kSK; kk += 8)
+        mma_step_3xtf32<1, 8>(
+            c,
+            [&](int mm, int t) {
+              return *reinterpret_cast<const float2*>(&qs[(r0 + mm) * kQKLd + k0 + kk + 2 * t]);
+            },
+            [&](int n, int t) {
+              return *reinterpret_cast<const float2*>(&ks[n * kQKLd + k0 + kk + 2 * t]);
+            });
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) s[0][n][r] += c[0][n][r];
+    }
+    __syncthreads();  // every warp is past its reads of k_j: the P slices take its place
+
+    // the online softmax on the C fragments; exp only where j <= i < L
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int64_t i = i0 + r0 + g + 8 * hh;
+      float tmax = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int64_t j = j0 + 8 * n + 2 * t4 + e;
+          float& x = s[0][n][2 * hh + e];
+          x *= d.scale;
+          if (j <= i && i < d.L) tmax = fmaxf(tmax, x);
+        }
+      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
+      const float m_new = fmaxf(m[hh], tmax);
+      // a row with no valid entry yet (only rows past L) keeps m = -inf,
+      // p = 0 and its (zero) accumulator: no -inf - (-inf) is formed
+      const bool live = m_new != -INFINITY;
+      const float alpha = live ? expf(m[hh] - m_new) : 1.f;
+      float psum = 0.f;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        float p[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int64_t j = j0 + 8 * n + 2 * t4 + e;
+          p[e] = (j <= i && i < d.L) ? expf(s[0][n][2 * hh + e] - m_new) : 0.f;
+          psum += p[e];
+        }
+        *reinterpret_cast<float2*>(&ps[(g + 8 * hh) * kPLd + 8 * n + 2 * t4]) =
+            make_float2(p[0], p[1]);
+      }
+      psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+      psum += __shfl_xor_sync(0xffffffffu, psum, 2);
+      l[hh] = l[hh] * alpha + psum;
+      m[hh] = m_new;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) acc[hf][n][2 * hh + e] *= alpha;
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // v_j and every warp's P slice are in
+
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      if (hf * kT >= width) break;  // uniform over the block
+      float c[1][8][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) c[0][n][r] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kT; kk += 8)
+        mma_step_3xtf32<1, 8>(
+            c,
+            [&](int mm, int t) {
+              return *reinterpret_cast<const float2*>(&ps[mm * kPLd + kk + 2 * t]);
+            },
+            [&](int n, int t) {
+              const float* col = vs + (kk + 2 * t) * kVLd + hf * kT + n;
+              return make_float2(col[0], col[kVLd]);
+            });
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[hf][n][r] += c[0][n][r];
+    }
+    __syncthreads();  // every warp is past its reads of v_j and of its P slice
+  }
+
+  const int64_t ld = d.H * d.D;
+  float* ob = o + (b * d.L * d.H + h) * d.D;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int64_t i = i0 + r0 + g + 8 * hh;
+    if (i >= d.L) continue;
+    const float inv = l[hh] > 0.f ? 1.f / l[hh] : 0.f;
+    if (t4 == 0) lse[bh * d.L + i] = m[hh] + logf(l[hh]);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int64_t col = hf * kT + 8 * n + 2 * t4 + e;
+          if (col < d.D) ob[i * ld + col] = acc[hf][n][2 * hh + e] * inv;
+        }
+  }
+}
+
 constexpr int64_t kMaxGridY = 65535;
 
 int64_t tiles(int64_t n) { return (n + kT - 1) / kT; }
@@ -404,7 +552,11 @@ extern "C" int tlie_flash_attention_fwd_f32(const float* q, const float* k, cons
                                             int64_t v_hs, float scale, void* stream) {
   if (bad_shape(B, L, H, D)) return static_cast<int>(cudaErrorInvalidValue);
   const Dims d{L, H, D, q_bs, q_ls, q_hs, k_bs, k_ls, k_hs, v_bs, v_ls, v_hs, scale};
-  flash_attention_fwd_kernel<<<grid_of(B, L, H), kThreads, 0,
+  const int smem = kFwdSmemFloats * static_cast<int>(sizeof(float));
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_attention_fwd_kernel<<<grid_of(B, L, H), kFwdThreads, smem,
                                static_cast<cudaStream_t>(stream)>>>(q, k, v, o, lse, d);
   return static_cast<int>(cudaGetLastError());
 }
