@@ -658,8 +658,9 @@ def time_flash_attention(fa, q, k, v, do, lse, di, flush):
     plain version's and the library call's cold medians (F.scaled_dot_product_attention
     with is_causal=True in float32, its autograd for the gradients), and each
     kernel's bound: ({kernel: (ms, warm_ms, plain_ms, library_ms, bound_ms,
-    bound_by, bytes, flops, bound_f32_ms)}, the device kernels SDPA's forward
-    ran, by name, from ``torch.profiler``).  The forward runs its products on
+    bound_by, bytes, flops, bound_f32_ms)}, (SDPA's backend for these
+    inputs, the device kernels its forward ran, by name, from
+    ``torch.profiler``)).  The forward runs its products on
     the tensor cores as three TF32 products each: its bound is the lesser of
     that and float32 outside them; the backward kernels run float32 outside
     them."""
@@ -716,13 +717,15 @@ def time_flash_attention(fa, q, k, v, do, lse, di, flush):
             flops_ms = min(f32_ms, 3 * flops / TF32_FLOPS_PER_S * 1e3)
         out[name] = (k_ms, w_ms, p_ms, l_ms, max(bytes_ms, flops_ms),
                      "bytes" if bytes_ms >= flops_ms else "operations", n_bytes, flops, f32_ms)
+    # SDPA's backend, as its dispatcher picks it, and its kernels by name from
+    # torch.profiler (which late in a long run has seen no device time)
+    from torch.nn.attention import SDPBackend
+
+    backend = SDPBackend(torch._fused_sdp_choice(qt, kt, vt, None, 0.0, True)).name
     with torch.no_grad():
-        for _ in range(3):  # a late profile in a long run may see no device time
-            sdpa_kernels = top_device_ops(library["flash_attention_fwd"])
-            if sdpa_kernels:
-                break
+        sdpa_kernels = top_device_ops(library["flash_attention_fwd"]) or "not seen"
     del o_lib, qt, kt, vt
-    return out, sdpa_kernels
+    return out, (backend, sdpa_kernels)
 
 
 def step_profile(one_step, tokens_per_step: int, kernel_pattern: str, kernel_field: str,
@@ -1028,8 +1031,9 @@ def transformer_path(dev, gen, flush, test_x, test_y, train_split, want_files):
                                f"bound_ms={bound:.5f}({by}),over_bound={k_ms / bound:.3f},"
                                f"bound_f32_ms={f32:.5f},gflop={flops / 1e9:.3f},"
                                f"mbytes={n_bytes / 1e6:.1f},tflops={flops / k_ms / 1e9:.2f}")
-        # which SDPA backend ran for float32: its device kernels by name
-        ph.fields["sdpa_fwd_device_kernels_ms"] = repr(sdpa_kernels)
+        # which SDPA backend ran for float32, and its device kernels by name
+        ph.fields["sdpa_fwd_backend"] = sdpa_kernels[0]
+        ph.fields["sdpa_fwd_device_kernels_ms"] = repr(sdpa_kernels[1])
         del attn_io
         torch.cuda.empty_cache()
     return path5_all, attn_times, attn_errs
