@@ -77,8 +77,8 @@ T_START = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 # dense TF32 on the tensor cores (the same data sheet): the fused head's three
-# kernels and the flash attention's forward run their products there, as
-# three TF32 products each (the split x = big + small that keeps float32
+# kernels, the flash attention's forward and the decay attention's forward
+# and bwd_j run their products there, as three TF32 products each (the split x = big + small that keeps float32
 # accuracy)
 TF32_FLOPS_PER_S = 495e12
 
@@ -223,20 +223,24 @@ def nvidia_smi_line() -> str:
 # library that holds each
 TC_KERNELS = {"fwd_p64": "fused_xent", "dh_p64": "fused_xent", "dh_p32": "fused_xent",
               "dw_p64": "fused_xent", "dw_p32": "fused_xent",
-              "flash_fwd": "flash_attention"}
+              "flash_fwd": "flash_attention", "decay_fwd": "decay_attention",
+              "decay_bwd_j": "decay_attention"}
 
 
 def tensor_core_hmma(lib_paths, nvcc: str) -> dict:
     """The HMMA opcodes, with their counts, of each tensor-core kernel in the
     built libraries, from ``cuobjdump -sass`` (beside ``nvcc``): each
     instantiation of the fused head's forward and backward kernels and the
-    flash attention's forward, {"dh_p64": {"HMMA.1688.F32.TF32": 192}, ...}."""
+    flash attention's and the decay attention's forwards and the decay
+    attention's bwd_j, {"dh_p64": {"HMMA.1688.F32.TF32": 192}, ...}."""
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     instr = re.compile(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?(HMMA\S*)")
     names = ((re.compile(r"xent_bwd_kernelILb([01])ELi(\d+)E"),
               lambda m: f"{'dw' if m.group(1) == '1' else 'dh'}_p{m.group(2)}"),
              (re.compile(r"xent_fwd_kernelILi(\d+)E"), lambda m: f"fwd_p{m.group(1)}"),
-             (re.compile(r"flash_attention_fwd_kernel"), lambda m: "flash_fwd"))
+             (re.compile(r"flash_attention_fwd_kernel"), lambda m: "flash_fwd"),
+             (re.compile(r"decay_attention_fwd_kernel"), lambda m: "decay_fwd"),
+             (re.compile(r"decay_attention_bwd_j_kernel"), lambda m: "decay_bwd_j"))
     counts = {}
     for lib_path in lib_paths:
         sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True,
@@ -262,7 +266,11 @@ def cuda_ms(fn, repeat: int, flush: torch.Tensor = None):
     pair of events.  Before each call the stream gets work of its own
     (``flush`` overwritten, which also leaves the L2 cache cold, or a short
     device sleep), so the host enqueues the call before the start event fires
-    and the time is the device's, not the wrapper's host overhead."""
+    and the time is the device's, not the wrapper's host overhead.  One
+    untimed call comes first, so the series starts on a card that has just
+    run ``fn``, not on one coming from host-side work."""
+    fn()
+    torch.cuda.synchronize()
     times = []
     for _ in range(repeat):
         if flush is not None:
@@ -545,10 +553,18 @@ def decay_einsum(C, B, cs, x):
     return torch.einsum("bhij,bhjp->bhip", scores, x)
 
 
+# the decay attention's kernels on the tensor cores (three TF32 products a
+# product); bwd_i runs float32 outside them
+DECAY_TC = ("decay_attention_fwd", "decay_attention_bwd_j")
+
+
 def time_decay_attention(dattn, C, B, cs, x, dy, flush):
     """L2-cold medians of 21 launches of each kernel, warm medians, the plain
     version's and the einsum form's cold medians, and each kernel's bound:
-    {kernel: (ms, warm_ms, plain_ms, einsum_ms, bound_ms, bound_by, bytes, flops)}."""
+    {kernel: (ms, warm_ms, plain_ms, einsum_ms, bound_ms, bound_by, bytes,
+    flops, bound_f32_ms)}.  The kernels of DECAY_TC run their products on
+    the tensor cores as three TF32 products each: their bound is the lesser
+    of that and float32 outside them; bwd_i's is float32's."""
     BG, Hg, Q, P = x.shape
     N = C.shape[2]
     ms = {
@@ -590,9 +606,12 @@ def time_decay_attention(dattn, C, B, cs, x, dy, flush):
             p_ms = median(cuda_ms(plain[name], 21, flush))
         e_ms = median(cuda_ms(einsum[name], 21, flush))
         n_bytes, flops = io[name]
-        bytes_ms, flops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+        bytes_ms, f32_ms = n_bytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+        flops_ms = f32_ms
+        if name in DECAY_TC:
+            flops_ms = min(f32_ms, 3 * flops / TF32_FLOPS_PER_S * 1e3)
         out[name] = (k_ms, w_ms, p_ms, e_ms, max(bytes_ms, flops_ms),
-                     "bytes" if bytes_ms >= flops_ms else "operations", n_bytes, flops)
+                     "bytes" if bytes_ms >= flops_ms else "operations", n_bytes, flops, f32_ms)
     del y_lib, leaves
     return out
 
@@ -1102,8 +1121,9 @@ def main() -> int:
                     if "registers" in ln]
             ph.fields[f"{name}_nvcc_s"] = f"{report.seconds:.2f}"
             ph.fields[f"{name}_ptxas"] = repr(regs)
-        # the fused head's three kernels and the flash forward run their
-        # products on the tensor cores: each one's SASS holds TF32 HMMAs
+        # the fused head's three kernels, the flash forward and the decay
+        # attention's forward and bwd_j run their products on the tensor
+        # cores: each one's SASS holds TF32 HMMAs
         hmma = tensor_core_hmma(
             [reports[lib].path for lib in sorted(set(TC_KERNELS.values()))], find_nvcc())
         ph.fields["tensor_core_sass_hmma"] = repr(hmma)
@@ -1910,15 +1930,30 @@ def main() -> int:
         del card_m, card_opt
 
     # the decay attention's kernels at the MQAR Mamba-2 shape: time, bound,
-    # plain version and the einsum form
+    # plain version and the einsum form; the tensor-core kernels also at the
+    # WikiText Mamba-2 shape, for the record
     with Phase("decay_attention_timing") as ph:
         decay_times = time_decay_attention(dattn, *decay_io, flush)
-        for name, (k_ms, w_ms, p_ms, e_ms, bound, by, n_bytes, flops) in decay_times.items():
+        for name, (k_ms, w_ms, p_ms, e_ms, bound, by, n_bytes, flops,
+                   f32) in decay_times.items():
             ph.fields[name] = (f"ms_cold_median={k_ms:.5f},ms_warm_median={w_ms:.5f},"
                                f"plain_ms={p_ms:.5f},einsum_autograd_ms={e_ms:.5f},"
-                               f"bound_ms={bound:.5f}({by}),gflop={flops / 1e9:.3f},"
+                               f"over_einsum={k_ms / e_ms:.3f},"
+                               f"bound_ms={bound:.5f}({by}),over_bound={k_ms / bound:.3f},"
+                               f"bound_f32_ms={f32:.5f},gflop={flops / 1e9:.3f},"
                                f"mbytes={n_bytes / 1e6:.1f},tflops={flops / k_ms / 1e9:.2f}")
         del decay_io
+        wt_name = "wikitext_bg8_q1024_n512_hg8_p64"
+        wt = decay_inputs(dev, gen, *SSD_SHAPES[wt_name])
+        wt_fns = {"decay_attention_fwd": lambda: dattn.decay_attention_fwd_cuda(*wt[:4]),
+                  "decay_attention_bwd_j": lambda: dattn.decay_attention_bwd_j_cuda(*wt)}
+        for name in DECAY_TC:
+            with torch.no_grad():
+                k_ms = median(cuda_ms(wt_fns[name], 21, flush))
+                w_ms = median(cuda_ms(wt_fns[name], 21))
+            ph.fields[f"{name}_{wt_name}"] = f"ms_cold_median={k_ms:.5f},ms_warm_median={w_ms:.5f}"
+        del wt, wt_fns
+        torch.cuda.empty_cache()
 
     # main path 5, the MQAR softmax transformer through the flash kernels
     path5_all, attn_times, attn_errs = transformer_path(dev, gen, flush, test_x, test_y,
@@ -1970,7 +2005,7 @@ def main() -> int:
     replaces = {"decay_attention_fwd": "tlie_tpu/ops/pallas_ssd.py:252",
                 "decay_attention_bwd_i": "tlie_tpu/ops/pallas_ssd.py:272",
                 "decay_attention_bwd_j": "tlie_tpu/ops/pallas_ssd.py:293"}
-    for name, (k_ms, _, p_ms, _, bound, by, _, _) in decay_times.items():
+    for name, (k_ms, _, p_ms, _, bound, by, _, _, _) in decay_times.items():
         kernels.append({
             "name": name,
             "route": "cuda",

@@ -215,11 +215,13 @@ def test_fused_xent_autograd_goes_through_the_kernels(cuda_device):
 SSD_RTOL_OF_TERMS = 1e-5  # each output within 1e-5 of the sum of its terms' magnitudes
 
 
-def _decay_inputs(device, BG, Q, N, Hg, P, seed):
-    """C as a row-strided view (the SSD's layout), B, cs with |cs| in the
+def _decay_inputs(device, BG, Q, N, Hg, P, seed, pad=7):
+    """C as a row-strided view (the SSD's layout, ``pad`` floats more a row:
+    7 or 5 leave its rows unaligned, so the tensor-core kernels copy C and B
+    4 bytes at a time; 8 lets them copy 16), B, cs with |cs| in the
     hundreds, xdt and a cotangent, from a device generator."""
     g = torch.Generator(device=device).manual_seed(seed)
-    C = torch.randn(BG, Q, N + 7, device=device, generator=g)[:, :, 3:3 + N]
+    C = torch.randn(BG, Q, N + pad, device=device, generator=g)[:, :, pad // 2:pad // 2 + N]
     B = torch.randn(BG, Q, N, device=device, generator=g)
     dt = 0.1 * torch.rand(BG, Hg, Q, device=device, generator=g)
     A = -1 - 15 * torch.rand(1, Hg, 1, device=device, generator=g)
@@ -230,13 +232,17 @@ def _decay_inputs(device, BG, Q, N, Hg, P, seed):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("BG, Q, N, Hg, P", [(4, 512, 128, 1, 128), (2, 256, 64, 4, 64),
-                                             (3, 77, 40, 3, 33)],
-                         ids=["mqar_like", "heads", "ragged"])
-def test_decay_attention_kernels_match_plain(cuda_device, BG, Q, N, Hg, P):
+@pytest.mark.parametrize("BG, Q, N, Hg, P, pad", [
+    (4, 512, 128, 1, 128, 7), (2, 256, 64, 4, 64, 7), (3, 77, 40, 3, 33, 7),
+    (2, 1024, 512, 8, 64, 8), (3, 200, 64, 2, 64, 5), (2, 256, 64, 1, 160, 8)],
+    ids=["mqar_like", "heads", "ragged", "wikitext_bg2", "c_stride_not_4", "p160_two_slices"])
+def test_decay_attention_kernels_match_plain(cuda_device, BG, Q, N, Hg, P, pad):
+    """The WikiText Mamba-2 shape at a reduced batch (N 512 in four slices of
+    bwd_j's dB, four slabs of two heads), C rows 16-byte aligned there and at
+    P 160 (two 128-wide slices of P), unaligned in the other cases."""
     from tlie_tpu_torch.ops import decay_attention as da
 
-    C, B, cs, x, dy = _decay_inputs(cuda_device, BG, Q, N, Hg, P, seed=Q)
+    C, B, cs, x, dy = _decay_inputs(cuda_device, BG, Q, N, Hg, P, seed=Q, pad=pad)
     keys = ("decay_attention_fwd", "decay_attention_bwd_i", "decay_attention_bwd_j")
     before = {k: LAUNCHES[k] for k in keys}
     y = da.decay_attention_fwd_cuda(C, B, cs, x)

@@ -1,7 +1,8 @@
 """The numerical design of the port's tensor-core kernels, emulated on the
 CPU: the fused head's forward and its dh and dW/db kernels
-(``tlie_tpu_torch/ops/csrc/fused_xent.cu``) and the flash attention's
-forward (``flash_attention.cu``).
+(``tlie_tpu_torch/ops/csrc/fused_xent.cu``), the flash attention's
+forward (``flash_attention.cu``) and the decay attention's forward and bwd_j
+(``decay_attention.cu``).
 
 The kernels run their products on the tensor cores in TF32, with each
 operand split x = big + small (big = TF32(x), small = TF32(x − big), rounded
@@ -9,7 +10,9 @@ to nearest with ties away from zero) and each product taken as
 small·big + big·small + big·big (``tf32_mma.cuh``).  The head's logits are
 summed 32 deep at a time before a float32 add, its second product one
 128-row vocabulary (or row) tile at a time; the flash forward sums S = q kᵀ
-32 deep and P v over one 64-row j tile at a time, with the online rescale.
+32 deep and P v over one 64-row j tile at a time, with the online rescale;
+the decay attention sums C·B and dy·x 32 deep and its second products over
+one 64-row tile of i or j at a time.
 Here the same split and the same partial sums run in float32 on the CPU,
 from numpy inputs made from a seed, and the result is held to the float64
 plain version under the tolerance the card holds the kernels to
@@ -21,7 +24,9 @@ plain version under the tolerance the card holds the kernels to
   within XENT_RTOL relative, and each row's loss within XENT_RTOL of
   |lse| + |picked logit|;
 * the flash forward: o within ATTN_RTOL + ``logit_rtol`` of the sum of its
-  terms' magnitudes, lse within the same fraction of max(1, |lse|).
+  terms' magnitudes, lse within the same fraction of max(1, |lse|);
+* the decay attention: y, dB, dxdt and dcs_j within SSD_RTOL of the sum of
+  each element's terms' magnitudes (``decay_attention.term_scales``).
 
 A single TF32 product fails each, so the tests are not vacuous.  The
 emulation rounds sums in float32 where the tensor cores may truncate; the
@@ -37,6 +42,7 @@ import pytest
 import torch
 
 from tlie_tpu_torch.ops import attention as fa
+from tlie_tpu_torch.ops import decay_attention as da
 from tlie_tpu_torch.ops import fused_xent as fx
 
 torch.set_num_threads(1)
@@ -45,6 +51,8 @@ ATTN_RTOL = 1e-5
 F32_UNIT = 2.0 ** -24
 KQ, KBK = 128, 32  # the head's tile of the streamed operand and its logits' depth step
 KT, KSK = 64, 32   # the flash forward's tile edge (rows of i and j) and its S depth step
+SSD_RTOL = 1e-5
+KSSD = 32          # the decay attention's depth step over N and P (its tile edge is KT)
 CSRC = Path(fx.__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "fused_xent.cu"
 
@@ -289,3 +297,116 @@ def test_flash_forward_single_tf32_product_fails_it(D):
     above ``logit_rtol``, reaches lse: both fail."""
     ratios = _flash_case(D, 1)
     assert ratios["o"] > 1.0 and ratios["lse"] > 1.0
+
+
+# -- the decay attention's forward and bwd_j ---------------------------------------
+
+
+def _decay_tile(cs, i, j):
+    """exp(cs_i − cs_j) where j ≤ i, else 0, for rows i and columns j:
+    (BG, Hg, len(i), len(j)), the difference taken before the exp."""
+    causal = j[None, :] <= i[:, None]
+    seg = (cs[..., i, None] - cs[..., None, j]).masked_fill(~causal, 0.0)
+    return torch.where(causal, torch.exp(seg), torch.zeros(()))
+
+
+def emulated_decay_forward(C, B, cs, x, products=3):
+    """y as the forward kernel computes it: for each 64-row i tile, the j
+    tiles j ≤ i with S = C_i B_jᵀ (``mm_tf32``, KSSD deep), times the decay,
+    then S x_j summed over the tile's 64 j before the float32 add."""
+    BG, Hg, Q, P = x.shape
+    y = torch.zeros(BG, Hg, Q, P)
+    for i0 in range(0, Q, KT):
+        i = torch.arange(i0, min(i0 + KT, Q))
+        acc = torch.zeros(BG, Hg, len(i), P)
+        for j0 in range(0, i0 + 1, KT):
+            j = torch.arange(j0, min(j0 + KT, Q))
+            s = mm_tf32(C[:, i], B[:, j].transpose(1, 2), KSSD, products)
+            acc += mm_tf32(s[:, None] * _decay_tile(cs, i, j), x[:, :, j], KT, products)
+        y[:, :, i] = acc
+    return y
+
+
+def emulated_decay_bwd_j(C, B, cs, x, dy, products=3):
+    """(dB, dxdt, dcs_j) as bwd_j computes them: for each 64-row j tile, the i
+    tiles i ≥ j with CBᵀ = B_j C_iᵀ and each head's dSᵀ = x_j dy_iᵀ (KSSD
+    deep), Dh = dSᵀ ⊙ decayᵀ, dcs_j −= rowsum(Dh ⊙ CBᵀ), dx_h += (CBᵀ ⊙
+    decayᵀ) dy_i and dB += (Σ_h Dh) C_i, the last two summed over the tile's
+    64 i before the float32 add."""
+    BG, Hg, Q, P = x.shape
+    dB, dx, dcs = torch.zeros(BG, Q, C.shape[2]), torch.zeros_like(x), torch.zeros(BG, Hg, Q)
+    for j0 in range(0, Q, KT):
+        j = torch.arange(j0, min(j0 + KT, Q))
+        for i0 in range(j0, Q, KT):
+            i = torch.arange(i0, min(i0 + KT, Q))
+            cbt = mm_tf32(B[:, j], C[:, i].transpose(1, 2), KSSD, products)
+            dect = _decay_tile(cs, i, j).transpose(-1, -2)
+            dh = mm_tf32(x[:, :, j], dy[:, :, i].transpose(-1, -2), KSSD, products) * dect
+            dcs[:, :, j] -= (dh * cbt[:, None]).sum(-1)
+            dcbt = dh[:, 0]
+            for h in range(1, Hg):
+                dcbt = dcbt + dh[:, h]
+            dx[:, :, j] += mm_tf32(cbt[:, None] * dect, dy[:, :, i], KT, products)
+            dB[:, j] += mm_tf32(dcbt, C[:, i], KT, products)
+    return dB, dx, dcs
+
+
+@lru_cache(maxsize=None)
+def _decay_case(N, Hg, P, products):
+    """y's, dB's, dxdt's and dcs_j's worst errors over their tolerances,
+    against float64.  Q 200 is not a multiple of the 64-row tile; cs is the
+    cumsum of dt·A with dt in [0, 0.1) and A in (−16, −1], as the card's
+    inputs are drawn (``chip_smoke.decay_inputs``)."""
+    rng = np.random.default_rng(100 * N + 10 * Hg + P)
+    BG, Q = 2, 200
+    C, B = (torch.from_numpy(rng.standard_normal((BG, Q, N)).astype(np.float32))
+            for _ in range(2))
+    dt = 0.1 * rng.random((BG, Hg, Q))
+    A = -1 - 15 * rng.random((1, Hg, 1))
+    cs = torch.from_numpy(np.cumsum(dt * A, -1).astype(np.float32))
+    x, dy = (torch.from_numpy(rng.standard_normal((BG, Hg, Q, P)).astype(np.float32))
+             for _ in range(2))
+    got = (emulated_decay_forward(C, B, cs, x, products),) + emulated_decay_bwd_j(
+        C, B, cs, x, dy, products)
+    ref = tuple(t.double() for t in (C, B, cs, x, dy))
+    want = (da.decay_attention_plain(*ref[:4]),) + da.decay_attention_bwd_j_plain(*ref)
+    y_sc, _, _, dB_sc, dx_sc, dcs_sc = da.term_scales(*ref)
+    return {name: ((g.double() - w).abs() / (SSD_RTOL * sc + 1e-300)).max().item()
+            for name, g, w, sc in zip(("y", "dB", "dxdt", "dcs_j"), got, want,
+                                      (y_sc, dB_sc, dx_sc, dcs_sc))}
+
+
+DECAY_SHAPES = [(40, 3, 33), (128, 1, 64), (128, 3, 33), (40, 1, 64)]  # (N, Hg, P)
+
+
+@pytest.mark.parametrize("out", ["y", "dB", "dxdt", "dcs_j"])
+@pytest.mark.parametrize("N, Hg, P", DECAY_SHAPES)
+def test_decay_three_product_split_holds_the_float32_tolerance(N, Hg, P, out):
+    assert _decay_case(N, Hg, P, 3)[out] <= 1.0
+
+
+@pytest.mark.parametrize("N, Hg, P", DECAY_SHAPES)
+def test_decay_single_tf32_product_fails_it(N, Hg, P):
+    """One TF32 product rounds each operand by up to 2⁻¹¹ of itself, about
+    50 times SSD_RTOL: an element whose terms are few or share a sign keeps
+    much of that error, and every output fails (dcs_j, whose terms' signs are
+    random over a whole row of i, by the least margin)."""
+    ratios = _decay_case(N, Hg, P, 1)
+    assert all(ratios[out] > 1.0 for out in ("y", "dB", "dxdt", "dcs_j")), ratios
+
+
+def test_decay_emulation_follows_the_kernel_source():
+    def const(src, name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    src = (CSRC / "decay_attention.cu").read_text()
+    assert '#include "tf32_mma.cuh"' in src
+    assert const(src, "kT") == KT and const(src, "kSK") == KSSD
+    # the first products sum KSSD deep: S in the forward, and in bwd_j CBᵀ
+    # and dSᵀ through one call that both warp groups run
+    assert src.count("product_nt32<k") == 2
+    assert "for (int kk = 0; kk < kSK; kk += 8)" in src
+    # the second products sum one tile's KT of j (the forward's S x) or of i
+    # (bwd_j's dB and dx, again one call for both groups)
+    assert src.count("product_64<kDLd, kTLd>(") == 1
+    assert src.count("for (int kk = 0; kk < kT; kk += 8)") == 2

@@ -42,12 +42,13 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
 }
 
 // One depth-8 step of a warp's (16 kMT) x (8 kNT) tile in three TF32
-// products, c += As·Bb + Ab·Bs + Ab·Bb (the two small ones first). The step's
-// depth is permuted, the same way for both operands, so that a lane's two
-// values of a row are neighbours: its k slots t and t + 4 take depth 2t and
-// 2t + 1. a(m, t) returns (A(m, 2t), A(m, 2t+1)) and b(n, t) returns
-// (B(2t, n), B(2t+1, n)) for m < 16 kMT, n < 8 kNT, read from shared memory;
-// each value is split where it is read.
+// products, c += As·Bb + Ab·Bs + Ab·Bb (the two small ones first). a(m, t)
+// returns A's values at a lane's k slots t and t + 4 of row m, b(n, t) B's
+// at the same slots of column n, for m < 16 kMT, n < 8 kNT, read from shared
+// memory; each value is split where it is read. Which depth each slot takes
+// is the caller's choice, the same for both operands: depth 2t and 2t + 1,
+// so that a lane reads a row's two values as one float2, or depth t and
+// t + 4, where reading a column by rows 4 apart suits the strides better.
 template <int kMT, int kNT, class A, class B>
 __device__ __forceinline__ void mma_step_3xtf32(float (&c)[kMT][kNT][4], A a, B b) {
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;

@@ -14,8 +14,11 @@ Where the work runs follows the tensors:
 * CUDA tensors go to the three kernels of ``csrc/decay_attention.cu``
   (:func:`decay_attention_fwd_cuda`, :func:`decay_attention_bwd_i_cuda`,
   :func:`decay_attention_bwd_j_cuda`), which replace the reference's three
-  Pallas kernels; the (Q, Q) scores never reach device memory.  There is no
-  fallback: a tensor they do not take raises.
+  Pallas kernels; the (Q, Q) scores never reach device memory.  The forward
+  and the j-indexed backward run their products on the tensor cores, each as
+  three TF32 products of a split operand (float32 accuracy); the i-indexed
+  backward runs float32 outside them.  There is no fallback: a tensor they
+  do not take raises.
 * CPU tensors go to :func:`decay_attention_plain`,
   :func:`decay_attention_bwd_i_plain` and :func:`decay_attention_bwd_j_plain`:
   the materialised form of
