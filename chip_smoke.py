@@ -78,8 +78,8 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 # dense TF32 on the tensor cores (the same data sheet): the fused head's three
 # kernels, the flash attention's forward and the decay attention's forward
-# and bwd_j run their products there, as three TF32 products each (the split x = big + small that keeps float32
-# accuracy)
+# and bwd_j run their products there, as three TF32 products each (the split
+# x = big + small that keeps float32 accuracy)
 TF32_FLOPS_PER_S = 495e12
 
 # kernel vs plain on the card: f32 sequential and chunked accumulation over

@@ -11,8 +11,8 @@ small·big + big·small + big·big (``tf32_mma.cuh``).  The head's logits are
 summed 32 deep at a time before a float32 add, its second product one
 128-row vocabulary (or row) tile at a time; the flash forward sums S = q kᵀ
 32 deep and P v over one 64-row j tile at a time, with the online rescale;
-the decay attention sums C·B and dy·x 32 deep and its second products over
-one 64-row tile of i or j at a time.
+the decay attention sums every product 8 deep (one m16n8k8 step) before its
+float32 add.
 Here the same split and the same partial sums run in float32 on the CPU,
 from numpy inputs made from a seed, and the result is held to the float64
 plain version under the tolerance the card holds the kernels to
@@ -52,7 +52,7 @@ F32_UNIT = 2.0 ** -24
 KQ, KBK = 128, 32  # the head's tile of the streamed operand and its logits' depth step
 KT, KSK = 64, 32   # the flash forward's tile edge (rows of i and j) and its S depth step
 SSD_RTOL = 1e-5
-KSSD = 32          # the decay attention's depth step over N and P (its tile edge is KT)
+KFRESH = 8         # the decay attention's fresh-sum depth (its tile edge is KT)
 CSRC = Path(fx.__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "fused_xent.cu"
 
@@ -312,8 +312,8 @@ def _decay_tile(cs, i, j):
 
 def emulated_decay_forward(C, B, cs, x, products=3):
     """y as the forward kernel computes it: for each 64-row i tile, the j
-    tiles j ≤ i with S = C_i B_jᵀ (``mm_tf32``, KSSD deep), times the decay,
-    then S x_j summed over the tile's 64 j before the float32 add."""
+    tiles j ≤ i with S = C_i B_jᵀ (``mm_tf32``, KFRESH deep), times the
+    decay, then y += S x_j, also KFRESH deep."""
     BG, Hg, Q, P = x.shape
     y = torch.zeros(BG, Hg, Q, P)
     for i0 in range(0, Q, KT):
@@ -321,33 +321,32 @@ def emulated_decay_forward(C, B, cs, x, products=3):
         acc = torch.zeros(BG, Hg, len(i), P)
         for j0 in range(0, i0 + 1, KT):
             j = torch.arange(j0, min(j0 + KT, Q))
-            s = mm_tf32(C[:, i], B[:, j].transpose(1, 2), KSSD, products)
-            acc += mm_tf32(s[:, None] * _decay_tile(cs, i, j), x[:, :, j], KT, products)
+            s = mm_tf32(C[:, i], B[:, j].transpose(1, 2), KFRESH, products)
+            acc += mm_tf32(s[:, None] * _decay_tile(cs, i, j), x[:, :, j], KFRESH, products)
         y[:, :, i] = acc
     return y
 
 
 def emulated_decay_bwd_j(C, B, cs, x, dy, products=3):
     """(dB, dxdt, dcs_j) as bwd_j computes them: for each 64-row j tile, the i
-    tiles i ≥ j with CBᵀ = B_j C_iᵀ and each head's dSᵀ = x_j dy_iᵀ (KSSD
-    deep), Dh = dSᵀ ⊙ decayᵀ, dcs_j −= rowsum(Dh ⊙ CBᵀ), dx_h += (CBᵀ ⊙
-    decayᵀ) dy_i and dB += (Σ_h Dh) C_i, the last two summed over the tile's
-    64 i before the float32 add."""
+    tiles i ≥ j with CBᵀ = B_j C_iᵀ and each head's dSᵀ = x_j dy_iᵀ, Dh =
+    dSᵀ ⊙ decayᵀ, dcs_j −= rowsum(Dh ⊙ CBᵀ), dx_h += (CBᵀ ⊙ decayᵀ) dy_i and
+    dB += (Σ_h Dh) C_i, every product KFRESH deep."""
     BG, Hg, Q, P = x.shape
     dB, dx, dcs = torch.zeros(BG, Q, C.shape[2]), torch.zeros_like(x), torch.zeros(BG, Hg, Q)
     for j0 in range(0, Q, KT):
         j = torch.arange(j0, min(j0 + KT, Q))
         for i0 in range(j0, Q, KT):
             i = torch.arange(i0, min(i0 + KT, Q))
-            cbt = mm_tf32(B[:, j], C[:, i].transpose(1, 2), KSSD, products)
+            cbt = mm_tf32(B[:, j], C[:, i].transpose(1, 2), KFRESH, products)
             dect = _decay_tile(cs, i, j).transpose(-1, -2)
-            dh = mm_tf32(x[:, :, j], dy[:, :, i].transpose(-1, -2), KSSD, products) * dect
+            dh = mm_tf32(x[:, :, j], dy[:, :, i].transpose(-1, -2), KFRESH, products) * dect
             dcs[:, :, j] -= (dh * cbt[:, None]).sum(-1)
             dcbt = dh[:, 0]
             for h in range(1, Hg):
                 dcbt = dcbt + dh[:, h]
-            dx[:, :, j] += mm_tf32(cbt[:, None] * dect, dy[:, :, i], KT, products)
-            dB[:, j] += mm_tf32(dcbt, C[:, i], KT, products)
+            dx[:, :, j] += mm_tf32(cbt[:, None] * dect, dy[:, :, i], KFRESH, products)
+            dB[:, j] += mm_tf32(dcbt, C[:, i], KFRESH, products)
     return dB, dx, dcs
 
 
@@ -401,12 +400,13 @@ def test_decay_emulation_follows_the_kernel_source():
 
     src = (CSRC / "decay_attention.cu").read_text()
     assert '#include "tf32_mma.cuh"' in src
-    assert const(src, "kT") == KT and const(src, "kSK") == KSSD
-    # the first products sum KSSD deep: S in the forward, and in bwd_j CBᵀ
-    # and dSᵀ through one call that both warp groups run
-    assert src.count("product_nt32<k") == 2
-    assert "for (int kk = 0; kk < kSK; kk += 8)" in src
-    # the second products sum one tile's KT of j (the forward's S x) or of i
-    # (bwd_j's dB and dx, again one call for both groups)
-    assert src.count("product_64<kDLd, kTLd>(") == 1
-    assert src.count("for (int kk = 0; kk < kT; kk += 8)") == 2
+    assert const(src, "kT") == KT and const(src, "kFresh") == KFRESH
+    # every product is a run of fresh sums, each added in float32: S in the
+    # forward and bwd_j's CBᵀ and dSᵀ (one call both warp groups run) over
+    # their depth steps, the forward's S x and bwd_j's dB and dx (again one
+    # call) over a tile's KT of j or i
+    assert src.count("product_nt32<k") == 2 and src.count("product_64<kDLd, kTLd>(") == 1
+    assert src.count("for (int k0 = 0; k0 < kSK; k0 += kFresh) {") == 1
+    assert src.count("for (int k0 = 0; k0 < kT; k0 += kFresh) {") == 2
+    assert src.count("for (int kk = k0; kk < k0 + kFresh; kk += 8)") == 3
+    assert src.count("add_frags(acc, c);") == 2 and "add_frags(acc[hf], c);" in src

@@ -34,9 +34,9 @@
 //
 // The forward and bwd_j, on the tensor cores (mma.sync m16n8k8 on TF32,
 // float32 accumulators, each product as three TF32 products of a split
-// operand: tf32_mma.cuh). No tensor-core sum runs deeper than one
-// shared-memory step (32 over N or P, one tile's 64 over i or j) before a
-// float32 add. The columns of y and dx are cut into slabs of 128: two heads
+// operand: tf32_mma.cuh). No tensor-core sum runs deeper than kFresh = 8
+// (one m16n8k8 step) before a float32 add; the operands land in
+// shared-memory steps of 32 over N or P, one tile's 64 over i or j. The columns of y and dx are cut into slabs of 128: two heads
 // where P <= 64 (one 64-column half each), else a 128-wide slice of one
 // head's P; at the MQAR shape one slab holds them all.
 //
@@ -47,7 +47,7 @@
 //            is multiplied); x_j lands while S is formed; S times the head's
 //            decay on the C fragments, through the warp's slice of shared
 //            memory (in the ring stage the last step used) into the A layout;
-//            y += S x_j, summed fresh over the tile's 64 j, then added.
+//            y += S x_j over the tile's 64 j.
 //            C_i B_j^T is formed once per tile pair and slab: once at the
 //            MQAR shape, ceil(Hg / 2) times where P <= 64 (4 at the WikiText
 //            Mamba-2 shape, Hg 8, P 64), Hg * ceil(P / 128) times where P > 64.
@@ -76,12 +76,12 @@
 //            group B copied, and group B's dx the dy_i group A copied. Both
 //            groups run one code for their first product and one for their
 //            second, with their own operands: with a copy of each product
-//            for each group (and the quarters unrolled) the kernel took
-//            0.497 ms against 0.281 at the MQAR shape, its HMMAs spread over
-//            1,536 instructions of SASS against 288 (card run on an H100,
-//            PERF.md).
+//            for each group and the quarters unrolled (1,536 HMMA
+//            instructions of SASS against 288) the kernel took 0.496 ms
+//            against 0.279 at the MQAR shape, in one call on an H100 80GB
+//            HBM3 at 700 W (PERF.md, PR 12).
 //
-// ptxas (nvcc -Xptxas -v, sm_90a, CUDA 12.8): the forward 232 registers,
+// ptxas (nvcc -Xptxas -v, sm_90a, CUDA 12.8): the forward 222 registers,
 // 75,776 bytes of dynamic shared memory, two blocks an SM; bwd_j 254
 // registers, 194,560 bytes, one block of 8 warps an SM; no spills.
 //
@@ -286,6 +286,15 @@ decay_attention_bwd_i_kernel(const float* __restrict__ C, const float* __restric
 // -- the forward and bwd_j on the tensor cores -------------------------------------
 
 constexpr int kSK = 32;  // depth of one shared-memory step of a product over N or P
+// depth of one fresh tensor-core sum (three chained HMMAs a fragment) before
+// its float32 add. The tensor cores truncate their sums: where a fresh sum
+// ran 32 deep (64 in the second products) the small products met a large
+// accumulator, and the bias toward zero that left summed, not averaged, over
+// the 32,768 positions of the MQAR Mamba-2's dt_bias gradient (card against
+// CPU: 0.832 of its tolerance, against 0.066 at 8 and 0.040 with the float32
+// SIMT kernels). The loops over fresh sums stay rolled: unrolled at 8 deep
+// they spill.
+constexpr int kFresh = 8;
 constexpr int kW = 128;  // columns of a slab of y or dx, and of a bwd_j operand tile
 
 // The heads and columns of P that the two 64-column halves of a slab hold.
@@ -368,42 +377,67 @@ __device__ __forceinline__ void add_frags(float (&acc)[8][4], const float (&c)[1
     for (int r = 0; r < 4; ++r) acc[n][r] += c[0][n][r];
 }
 
-// c += the warp's 16 rows of A times a 64-deep tile V (64 x 8 columns),
-// the depth in natural order (a lane's slots t and t + 4 take depth t and
+// acc += the warp's 16 rows of A times a 64-deep tile V (64 x 8 columns),
+// kFresh deep at a time into a fresh sum that is then added in float32, the
+// depth in natural order (a lane's slots t and t + 4 take depth t and
 // t + 4): A's rows kALd apart at `a` (float reads at (4g + t) where kALd is 4
 // modulo 32), V's rows kVLd apart at `v` (float reads at (8t + g) where kVLd
 // is 8 modulo 32). The second products of bwd_j.
 template <int kALd, int kVLd>
-__device__ __forceinline__ void product_64(float (&c)[1][8][4], const float* a, const float* v) {
+__device__ __forceinline__ void product_64(float (&acc)[8][4], const float* a, const float* v) {
+#pragma unroll 1
+  for (int k0 = 0; k0 < kT; k0 += kFresh) {
+    float c[1][8][4];
+    zero_frags(c);
 #pragma unroll
-  for (int kk = 0; kk < kT; kk += 8)
-    mma_step_3xtf32<1, 8>(
-        c,
-        [&](int mm, int t) {
-          const float* row = a + mm * kALd + kk + t;
-          return make_float2(row[0], row[4]);
-        },
-        [&](int n, int t) {
-          const float* col = v + (kk + t) * kVLd + n;
-          return make_float2(col[0], col[4 * kVLd]);
-        });
+    for (int kk = k0; kk < k0 + kFresh; kk += 8)
+      mma_step_3xtf32<1, 8>(
+          c,
+          [&](int mm, int t) {
+            const float* row = a + mm * kALd + kk + t;
+            return make_float2(row[0], row[4]);
+          },
+          [&](int n, int t) {
+            const float* col = v + (kk + t) * kVLd + n;
+            return make_float2(col[0], col[4 * kVLd]);
+          });
+    add_frags(acc, c);
+  }
 }
 
-// c += 32 deep of the warp's 16 rows of A times the 64 rows of Bm
-// (A Bm^T), both row-major, rows kLd apart, read as float2 at the depth
-// pairs (2t, 2t + 1) (every bank once where kLd is 8 modulo 32).
+// acc += 32 deep of the warp's 16 rows of A times the 64 rows of Bm
+// (A Bm^T), kFresh deep at a time as above, both row-major, rows kLd apart,
+// read as float2 at the depth pairs (2t, 2t + 1) (every bank once where kLd
+// is 8 modulo 32).
 template <int kLd>
-__device__ __forceinline__ void product_nt32(float (&c)[1][8][4], const float* a, const float* bm) {
+__device__ __forceinline__ void product_nt32(float (&acc)[8][4], const float* a, const float* bm) {
+#pragma unroll 1
+  for (int k0 = 0; k0 < kSK; k0 += kFresh) {
+    float c[1][8][4];
+    zero_frags(c);
 #pragma unroll
-  for (int kk = 0; kk < kSK; kk += 8)
-    mma_step_3xtf32<1, 8>(
-        c,
-        [&](int mm, int t) {
-          return *reinterpret_cast<const float2*>(a + mm * kLd + kk + 2 * t);
-        },
-        [&](int n, int t) {
-          return *reinterpret_cast<const float2*>(bm + n * kLd + kk + 2 * t);
-        });
+    for (int kk = k0; kk < k0 + kFresh; kk += 8)
+      mma_step_3xtf32<1, 8>(
+          c,
+          [&](int mm, int t) {
+            return *reinterpret_cast<const float2*>(a + mm * kLd + kk + 2 * t);
+          },
+          [&](int n, int t) {
+            return *reinterpret_cast<const float2*>(bm + n * kLd + kk + 2 * t);
+          });
+    add_frags(acc, c);
+  }
+}
+
+__device__ __forceinline__ void swap_frags(float (&a)[8][4], float (&b)[8][4]) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float t = a[n][r];
+      a[n][r] = b[n][r];
+      b[n][r] = t;
+    }
 }
 
 constexpr int kFwdThreads = 128;  // 4 warps, each 16 whole rows of the block's 64
@@ -500,10 +534,7 @@ decay_attention_fwd_kernel(const float* __restrict__ C, const float* __restrict_
         load_cs_halves(j0, cs_j);
       }
       const float* st = ring + (q & 1) * kStepFloats;
-      float c[1][8][4];
-      zero_frags(c);
-      product_nt32<kStepLd>(c, st + r0 * kStepLd, st + kT * kStepLd);
-      add_frags(s[0], c);
+      product_nt32<kStepLd>(s[0], st + r0 * kStepLd, st + kT * kStepLd);
     }
     const int q_last = jt * nk + nk - 1;
     __syncthreads();  // every warp is past its reads of the last step: its stage takes the S slices
@@ -541,20 +572,23 @@ decay_attention_fwd_kernel(const float* __restrict__ C, const float* __restrict_
         write_s(1);
         __syncwarp();
       }
-      float c[1][8][4];
-      zero_frags(c);
+#pragma unroll 1
+      for (int k0 = 0; k0 < kT; k0 += kFresh) {
+        float c[1][8][4];
+        zero_frags(c);
 #pragma unroll
-      for (int kk = 0; kk < kT; kk += 8)
-        mma_step_3xtf32<1, 8>(
-            c,
-            [&](int mm, int t) {
-              return *reinterpret_cast<const float2*>(&ss[mm * kSLd + kk + 2 * t]);
-            },
-            [&](int n, int t) {
-              const float* col = xs + (kk + 2 * t) * kXLd + hf * kT + n;
-              return make_float2(col[0], col[kXLd]);
-            });
-      add_frags(acc[hf], c);
+        for (int kk = k0; kk < k0 + kFresh; kk += 8)
+          mma_step_3xtf32<1, 8>(
+              c,
+              [&](int mm, int t) {
+                return *reinterpret_cast<const float2*>(&ss[mm * kSLd + kk + 2 * t]);
+              },
+              [&](int n, int t) {
+                const float* col = xs + (kk + 2 * t) * kXLd + hf * kT + n;
+                return make_float2(col[0], col[kXLd]);
+              });
+        add_frags(acc[hf], c);
+      }
     }
   }
 
@@ -706,12 +740,8 @@ decay_attention_bwd_j_kernel(const float* __restrict__ C, const float* __restric
         for (int q = 0; q < 4; ++q) {
           cp_async_wait_n(3 - q);
           group_sync(grp_b ? 2 : 1);  // quarter q of both tiles is in
-          if (c0 + q * kSK < depth) {
-            float c[1][8][4];
-            zero_frags(c);
-            product_nt32<kTLd>(c, tile_j + r0 * kTLd + q * kSK, tile_i + q * kSK);
-            add_frags(f[0], c);
-          }
+          if (c0 + q * kSK < depth)
+            product_nt32<kTLd>(f[0], tile_j + r0 * kTLd + q * kSK, tile_i + q * kSK);
         }
         if (b_step && k == nN - 1) {  // publish CB^T for group A's dcs_j
 #pragma unroll
@@ -788,37 +818,35 @@ decay_attention_bwd_j_kernel(const float* __restrict__ C, const float* __restric
       const float* tile = grp_b ? ty : tc;
 #pragma unroll 1
       for (int hf = 0; hf < 2; ++hf) {
-        if (grp_b ? sl.cols_of(hf) == 0 : s * kW + hf * kT >= d.N) continue;  // uniform
-        if (grp_b && (hf == 0 || two)) {  // S^T of the half's head into the warp's slice
-          __syncwarp();
-          const float* ch = cs_b + hf * 2 * kT;
+        // acc[0] is the half in hand: the two swap places after each half
+        if (grp_b ? sl.cols_of(hf) > 0 : s * kW + hf * kT < d.N) {  // uniform
+          if (grp_b && (hf == 0 || two)) {  // S^T of the half's head into the warp's slice
+            __syncwarp();
+            const float* ch = cs_b + hf * 2 * kT;
 #pragma unroll
-          for (int hh = 0; hh < 2; ++hh) {
-            const int lj = r0 + g + 8 * hh;
-            const int64_t j = j0 + lj;
-            const float cj = ch[lj];
+            for (int hh = 0; hh < 2; ++hh) {
+              const int lj = r0 + g + 8 * hh;
+              const int64_t j = j0 + lj;
+              const float cj = ch[lj];
 #pragma unroll
-            for (int n = 0; n < 8; ++n) {
-              float v[2];
+              for (int n = 0; n < 8; ++n) {
+                float v[2];
 #pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                const int li = 8 * n + 2 * t4 + e;
-                const int64_t i = i0 + li;
-                v[e] = j <= i && i < d.Q ? f[0][n][2 * hh + e] * expf(ch[kT + li] - cj) : 0.f;
+                for (int e = 0; e < 2; ++e) {
+                  const int li = 8 * n + 2 * t4 + e;
+                  const int64_t i = i0 + li;
+                  v[e] = j <= i && i < d.Q ? f[0][n][2 * hh + e] * expf(ch[kT + li] - cj)
+                                           : 0.f;
+                }
+                *reinterpret_cast<float2*>(&sts[lj * kDLd + 8 * n + 2 * t4]) =
+                    make_float2(v[0], v[1]);
               }
-              *reinterpret_cast<float2*>(&sts[lj * kDLd + 8 * n + 2 * t4]) =
-                  make_float2(v[0], v[1]);
             }
+            __syncwarp();
           }
-          __syncwarp();
+          product_64<kDLd, kTLd>(acc[0], slice, tile + hf * kT);
         }
-        float c[1][8][4];
-        zero_frags(c);
-        product_64<kDLd, kTLd>(c, slice, tile + hf * kT);
-        if (hf == 0)
-          add_frags(acc[0], c);
-        else
-          add_frags(acc[1], c);
+        swap_frags(acc[0], acc[1]);
       }
     }
     __syncthreads();  // every warp is past the i-tile's tiles and slices
