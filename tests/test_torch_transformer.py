@@ -560,11 +560,11 @@ def test_chip_smoke_path_5_runs_on_the_cpu_with_counting_plain_kernels(monkeypat
     launches, times, errs = cs.transformer_path(
         torch.device("cpu"), torch.Generator().manual_seed(0), torch.empty(1024), test_x, test_y,
         data.split("train"), files)
-    # 2 per forward: 5 in the forward phase and its CPU reference (counted
-    # here, where every tensor is routed to the counting wrappers), 4 steps,
-    # 3 eval batches twice, 8 in eval_eig and serving; 2 of each backward per
-    # step
-    assert launches["flash_attention_fwd"] == 2 * (5 + 1 + 4 + 6 + 8)
+    # 2 per forward: 6 in the forward phase (the checked one, one untimed and
+    # three timed, one profiled) and its CPU reference (counted here, where
+    # every tensor is routed to the counting wrappers), 4 steps, 3 eval
+    # batches twice, 8 in eval_eig and serving; 2 of each backward per step
+    assert launches["flash_attention_fwd"] == 2 * (6 + 1 + 4 + 6 + 8)
     assert launches["flash_attention_bwd_dkv"] == launches["flash_attention_bwd_dq"] == 2 * 4
     assert set(times) == set(errs) == {"flash_attention_fwd", "flash_attention_bwd_dkv",
                                        "flash_attention_bwd_dq"}

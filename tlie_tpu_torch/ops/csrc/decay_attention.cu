@@ -36,9 +36,10 @@
 // float32 accumulators, each product as three TF32 products of a split
 // operand: tf32_mma.cuh). No tensor-core sum runs deeper than kFresh = 8
 // (one m16n8k8 step) before a float32 add; the operands land in
-// shared-memory steps of 32 over N or P, one tile's 64 over i or j. The columns of y and dx are cut into slabs of 128: two heads
-// where P <= 64 (one 64-column half each), else a 128-wide slice of one
-// head's P; at the MQAR shape one slab holds them all.
+// shared-memory steps of 32 over N or P, one tile's 64 over i or j. The
+// columns of y and dx are cut into slabs of 128: two heads where P <= 64
+// (one 64-column half each), else a 128-wide slice of one head's P; at the
+// MQAR shape one slab holds them all.
 //
 //   forward: block (bg, slab, i-tile) of 4 warps, each warp 16 whole rows of
 //            i. For each j-tile j <= i: S = C_i B_j^T over N, in depth steps
@@ -79,7 +80,7 @@
 //            for each group and the quarters unrolled (1,536 HMMA
 //            instructions of SASS against 288) the kernel took 0.496 ms
 //            against 0.279 at the MQAR shape, in one call on an H100 80GB
-//            HBM3 at 700 W (PERF.md, PR 12).
+//            HBM3 at 700 W (PERF.md).
 //
 // ptxas (nvcc -Xptxas -v, sm_90a, CUDA 12.8): the forward 222 registers,
 // 75,776 bytes of dynamic shared memory, two blocks an SM; bwd_j 254
@@ -484,7 +485,7 @@ decay_attention_fwd_kernel(const float* __restrict__ C, const float* __restrict_
   const int n_j = static_cast<int>(i0 / kT) + 1;
   const int total = n_j * nk;
 
-  auto issue_step = [&](int q) {
+  auto start_step = [&](int q) {
     const int64_t j0 = static_cast<int64_t>(q / nk) * kT;
     const int64_t k0 = static_cast<int64_t>(q % nk) * kSK;
     float* st = ring + (q & 1) * kStepFloats;
@@ -512,7 +513,7 @@ decay_attention_fwd_kernel(const float* __restrict__ C, const float* __restrict_
       for (int r = 0; r < 4; ++r) acc[hf][n][r] = 0.f;
 
   load_cs_halves(i0, cs_i);
-  issue_step(0);
+  start_step(0);
   for (int jt = 0; jt < n_j; ++jt) {
     const int64_t j0 = static_cast<int64_t>(jt) * kT;
     float s[1][8][4];
@@ -522,7 +523,7 @@ decay_attention_fwd_kernel(const float* __restrict__ C, const float* __restrict_
       // at kq == 1 the newest group in flight is x_j's, not needed yet
       if (kq == 1) cp_async_wait<1>(); else cp_async_wait<0>();
       __syncthreads();  // step q is in; every warp is past step q - 1 and the last tile's S x
-      if (q + 1 < total) issue_step(q + 1);
+      if (q + 1 < total) start_step(q + 1);
       if (kq == 0) {  // x_j and its cs
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf)
