@@ -223,23 +223,26 @@ def nvidia_smi_line() -> str:
 # library that holds each
 TC_KERNELS = {"fwd_p64": "fused_xent", "dh_p64": "fused_xent", "dh_p32": "fused_xent",
               "dw_p64": "fused_xent", "dw_p32": "fused_xent",
-              "flash_fwd": "flash_attention", "decay_fwd": "decay_attention",
+              "flash_fwd": "flash_attention", "flash_bwd_dkv": "flash_attention",
+              "decay_fwd": "decay_attention", "decay_bwd_i": "decay_attention",
               "decay_bwd_j": "decay_attention"}
 
 
 def tensor_core_hmma(lib_paths, nvcc: str) -> dict:
     """The HMMA opcodes, with their counts, of each tensor-core kernel in the
     built libraries, from ``cuobjdump -sass`` (beside ``nvcc``): each
-    instantiation of the fused head's forward and backward kernels and the
-    flash attention's and the decay attention's forwards and the decay
-    attention's bwd_j, {"dh_p64": {"HMMA.1688.F32.TF32": 192}, ...}."""
+    instantiation of the fused head's forward and backward kernels, the
+    flash attention's forward and dK/dV, and the decay attention's forward,
+    bwd_i and bwd_j, {"dh_p64": {"HMMA.1688.F32.TF32": 192}, ...}."""
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     instr = re.compile(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?(HMMA\S*)")
     names = ((re.compile(r"xent_bwd_kernelILb([01])ELi(\d+)E"),
               lambda m: f"{'dw' if m.group(1) == '1' else 'dh'}_p{m.group(2)}"),
              (re.compile(r"xent_fwd_kernelILi(\d+)E"), lambda m: f"fwd_p{m.group(1)}"),
              (re.compile(r"flash_attention_fwd_kernel"), lambda m: "flash_fwd"),
+             (re.compile(r"flash_attention_bwd_dkv_kernel"), lambda m: "flash_bwd_dkv"),
              (re.compile(r"decay_attention_fwd_kernel"), lambda m: "decay_fwd"),
+             (re.compile(r"decay_attention_bwd_i_kernel"), lambda m: "decay_bwd_i"),
              (re.compile(r"decay_attention_bwd_j_kernel"), lambda m: "decay_bwd_j"))
     counts = {}
     for lib_path in lib_paths:
@@ -553,9 +556,9 @@ def decay_einsum(C, B, cs, x):
     return torch.einsum("bhij,bhjp->bhip", scores, x)
 
 
-# the decay attention's kernels on the tensor cores (three TF32 products a
-# product); bwd_i runs float32 outside them
-DECAY_TC = ("decay_attention_fwd", "decay_attention_bwd_j")
+# the decay attention's kernels, all on the tensor cores (three TF32 products
+# a product)
+DECAY_TC = ("decay_attention_fwd", "decay_attention_bwd_i", "decay_attention_bwd_j")
 
 
 def time_decay_attention(dattn, C, B, cs, x, dy, flush):
@@ -564,7 +567,7 @@ def time_decay_attention(dattn, C, B, cs, x, dy, flush):
     {kernel: (ms, warm_ms, plain_ms, einsum_ms, bound_ms, bound_by, bytes,
     flops, bound_f32_ms)}.  The kernels of DECAY_TC run their products on
     the tensor cores as three TF32 products each: their bound is the lesser
-    of that and float32 outside them; bwd_i's is float32's."""
+    of that and float32 outside them."""
     BG, Hg, Q, P = x.shape
     N = C.shape[2]
     ms = {
@@ -672,6 +675,11 @@ def check_flash_attention(fa, q, k, v, do, f64: bool):
     return fields, errs, (lse_ref, di)
 
 
+# the flash attention's kernels on the tensor cores (three TF32 products a
+# product); dQ runs float32 outside them
+ATTN_TC = ("flash_attention_fwd", "flash_attention_bwd_dkv")
+
+
 def time_flash_attention(fa, q, k, v, do, lse, di, flush):
     """L2-cold medians of 21 launches of each kernel, warm medians, the
     plain version's and the library call's cold medians (F.scaled_dot_product_attention
@@ -679,10 +687,9 @@ def time_flash_attention(fa, q, k, v, do, lse, di, flush):
     kernel's bound: ({kernel: (ms, warm_ms, plain_ms, library_ms, bound_ms,
     bound_by, bytes, flops, bound_f32_ms)}, (SDPA's backend for these
     inputs, the device kernels its forward ran, by name, from
-    ``torch.profiler``)).  The forward runs its products on
-    the tensor cores as three TF32 products each: its bound is the lesser of
-    that and float32 outside them; the backward kernels run float32 outside
-    them."""
+    ``torch.profiler``)).  The kernels of ATTN_TC run their products on
+    the tensor cores as three TF32 products each: their bound is the lesser
+    of that and float32 outside them; dQ's is float32's."""
     import torch.nn.functional as F
 
     B, L, H, D = q.shape
@@ -732,7 +739,7 @@ def time_flash_attention(fa, q, k, v, do, lse, di, flush):
         n_bytes, flops = io[name]
         bytes_ms, f32_ms = n_bytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
         flops_ms = f32_ms
-        if name == "flash_attention_fwd":
+        if name in ATTN_TC:
             flops_ms = min(f32_ms, 3 * flops / TF32_FLOPS_PER_S * 1e3)
         out[name] = (k_ms, w_ms, p_ms, l_ms, max(bytes_ms, flops_ms),
                      "bytes" if bytes_ms >= flops_ms else "operations", n_bytes, flops, f32_ms)
@@ -812,7 +819,7 @@ def transformer_path(dev, gen, flush, test_x, test_y, train_split, want_files):
 
     kernels = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
     with Phase("flash_attention_vs_plain") as ph:
-        attn_errs = {}
+        attn_errs, second = {}, None
         for name, (B, L, H, D) in ATTN_SHAPES.items():
             ins = attention_inputs(dev, gen, B, L, H, D)
             # float64 for the record at the MQAR and the ragged shape
@@ -821,6 +828,8 @@ def transformer_path(dev, gen, flush, test_x, test_y, train_split, want_files):
             ph.fields[name] = repr(fields)
             if not attn_errs:  # the MQAR shape comes first
                 attn_errs, attn_io = errs, ins + rows
+            elif second is None:  # the multi-head shape: dK/dV's time there, for the record
+                second = name, ins + rows
             del ins, rows
         torch.cuda.empty_cache()
 
@@ -1008,11 +1017,14 @@ def transformer_path(dev, gen, flush, test_x, test_y, train_split, want_files):
         raw_norm = float(clip_by_global_norm_(ref_m.parameters(), clip))
         cpu_s = time.perf_counter() - t0
         g_ratio, g_leaf = 0.0, ""
+        wqkv = {}  # the projection that the dK/dV kernel's gradients sum into
         for n, p in ref_m.named_parameters():
             g64 = p.grad
             e_card = (card_g[n].double() - g64).abs().max().item()
             e_cpu = (cpu_g[n].double() - g64).abs().max().item()
             allowed = max(GRAD_F64_FACTOR * e_cpu, TF_GRAD_RTOL_OF_MAX * g64.abs().max().item())
+            if "Wqkv" in n:
+                wqkv[n] = round(e_card / allowed, 4)
             if e_card / allowed > g_ratio:
                 g_ratio, g_leaf = e_card / allowed, n
         g_worst = grad_err(card_g, cpu_g)
@@ -1025,6 +1037,7 @@ def transformer_path(dev, gen, flush, test_x, test_y, train_split, want_files):
             p_anywhere = max(p_anywhere, p_err.max().item())
         ph.fields.update(raw_grad_norm_f64=f"{raw_norm:.4f}", clip=clip,
                          grad_err_over_allowed=f"{g_ratio:.3f}({g_leaf})",
+                         wqkv_grad_err_over_allowed=repr(wqkv),
                          grad_card_vs_cpu_worst_rel_to_leaf_max=f"{g_worst:.3e}",
                          param_worst_where_grad_determined=f"{p_worst:.3e}",
                          param_worst_anywhere=f"{p_anywhere:.3e}", cpu_steps_s=f"{cpu_s:.1f}")
@@ -1053,7 +1066,15 @@ def transformer_path(dev, gen, flush, test_x, test_y, train_split, want_files):
         # which SDPA backend ran for float32, and its device kernels by name
         ph.fields["sdpa_fwd_backend"] = sdpa_kernels[0]
         ph.fields["sdpa_fwd_device_kernels_ms"] = repr(sdpa_kernels[1])
-        del attn_io
+        # dK/dV at ATTN_SHAPES' second shape, for the record
+        second_name, (q, k, v, do, lse, di) = second
+        scale = q.shape[-1] ** -0.5
+        with torch.no_grad():
+            dkv = lambda: fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, di, scale)  # noqa: E731
+            k_ms, w_ms = median(cuda_ms(dkv, 21, flush)), median(cuda_ms(dkv, 21))
+        ph.fields[f"flash_attention_bwd_dkv_{second_name}"] = (
+            f"ms_cold_median={k_ms:.5f},ms_warm_median={w_ms:.5f}")
+        del attn_io, second, q, k, v, do, lse, di
         torch.cuda.empty_cache()
     return path5_all, attn_times, attn_errs
 
@@ -1121,8 +1142,8 @@ def main() -> int:
                     if "registers" in ln]
             ph.fields[f"{name}_nvcc_s"] = f"{report.seconds:.2f}"
             ph.fields[f"{name}_ptxas"] = repr(regs)
-        # the fused head's three kernels, the flash forward and the decay
-        # attention's forward and bwd_j run their products on the tensor
+        # the fused head's three kernels, the flash forward and dK/dV and the
+        # decay attention's three kernels run their products on the tensor
         # cores: each one's SASS holds TF32 HMMAs
         hmma = tensor_core_hmma(
             [reports[lib].path for lib in sorted(set(TC_KERNELS.values()))], find_nvcc())
@@ -1895,12 +1916,15 @@ def main() -> int:
         raw_norm = float(clip_by_global_norm_(ref_m.parameters(), clip))
         cpu_s = time.perf_counter() - t0
         g_ratio, g_leaf = 0.0, ""
+        per_head = {}  # the leaves that sum dcs = dcs_i + dcs_j over every position
         for n, p in ref_m.named_parameters():
             g64 = p.grad
             e_card = (card_g[n].double() - g64).abs().max().item()
             e_cpu = (cpu_g[n].double() - g64).abs().max().item()
             allowed = max(GRAD_F64_FACTOR * e_cpu,
                           MAMBA_GRAD_RTOL_OF_MAX * g64.abs().max().item())
+            if n.endswith(("dt_bias", "A_log")):
+                per_head[n] = round(e_card / allowed, 4)
             if e_card / allowed > g_ratio:
                 g_ratio, g_leaf = e_card / allowed, n
         g_worst = grad_err(card_g, cpu_g)
@@ -1913,6 +1937,7 @@ def main() -> int:
             p_anywhere = max(p_anywhere, p_err.max().item())
         ph.fields.update(raw_grad_norm_f64=f"{raw_norm:.4f}", clip=clip,
                          grad_err_over_allowed=f"{g_ratio:.3f}({g_leaf})",
+                         dt_bias_a_log_grad_err_over_allowed=repr(per_head),
                          grad_card_vs_cpu_worst_rel_to_leaf_max=f"{g_worst:.3e}",
                          param_worst_where_grad_determined=f"{p_worst:.3e}",
                          param_worst_anywhere=f"{p_anywhere:.3e}", cpu_steps_s=f"{cpu_s:.1f}")
@@ -1930,8 +1955,8 @@ def main() -> int:
         del card_m, card_opt
 
     # the decay attention's kernels at the MQAR Mamba-2 shape: time, bound,
-    # plain version and the einsum form; the tensor-core kernels also at the
-    # WikiText Mamba-2 shape, for the record
+    # plain version and the einsum form; also at the WikiText Mamba-2 shape,
+    # for the record
     with Phase("decay_attention_timing") as ph:
         decay_times = time_decay_attention(dattn, *decay_io, flush)
         for name, (k_ms, w_ms, p_ms, e_ms, bound, by, n_bytes, flops,
@@ -1946,6 +1971,7 @@ def main() -> int:
         wt_name = "wikitext_bg8_q1024_n512_hg8_p64"
         wt = decay_inputs(dev, gen, *SSD_SHAPES[wt_name])
         wt_fns = {"decay_attention_fwd": lambda: dattn.decay_attention_fwd_cuda(*wt[:4]),
+                  "decay_attention_bwd_i": lambda: dattn.decay_attention_bwd_i_cuda(*wt),
                   "decay_attention_bwd_j": lambda: dattn.decay_attention_bwd_j_cuda(*wt)}
         for name in DECAY_TC:
             with torch.no_grad():

@@ -215,34 +215,42 @@ def test_fused_xent_autograd_goes_through_the_kernels(cuda_device):
 SSD_RTOL_OF_TERMS = 1e-5  # each output within 1e-5 of the sum of its terms' magnitudes
 
 
-def _decay_inputs(device, BG, Q, N, Hg, P, seed, pad=7):
+def _decay_inputs(device, BG, Q, N, Hg, P, seed, pad=7, x_offset=0):
     """C as a row-strided view (the SSD's layout, ``pad`` floats more a row:
     7 or 5 leave its rows unaligned, so the tensor-core kernels copy C and B
     4 bytes at a time; 8 lets them copy 16), B, cs with |cs| in the
-    hundreds, xdt and a cotangent, from a device generator."""
+    hundreds, xdt and a cotangent, from a device generator.  xdt and dy
+    start ``x_offset`` floats into their storage (1: not 16-byte aligned,
+    so the kernels copy them 4 bytes at a time)."""
     g = torch.Generator(device=device).manual_seed(seed)
     C = torch.randn(BG, Q, N + pad, device=device, generator=g)[:, :, pad // 2:pad // 2 + N]
     B = torch.randn(BG, Q, N, device=device, generator=g)
     dt = 0.1 * torch.rand(BG, Hg, Q, device=device, generator=g)
     A = -1 - 15 * torch.rand(1, Hg, 1, device=device, generator=g)
     cs = torch.cumsum(dt * A, -1).contiguous()
-    x = torch.randn(BG, Hg, Q, P, device=device, generator=g)
-    dy = torch.randn(BG, Hg, Q, P, device=device, generator=g)
+    n = BG * Hg * Q * P
+    x, dy = (torch.randn(n + x_offset, device=device, generator=g)[x_offset:].view(BG, Hg, Q, P)
+             for _ in range(2))
     return C, B, cs, x, dy
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("BG, Q, N, Hg, P, pad", [
     (4, 512, 128, 1, 128, 7), (2, 256, 64, 4, 64, 7), (3, 77, 40, 3, 33, 7),
-    (2, 1024, 512, 8, 64, 8), (3, 200, 64, 2, 64, 5), (2, 256, 64, 1, 160, 8)],
-    ids=["mqar_like", "heads", "ragged", "wikitext_bg2", "c_stride_not_4", "p160_two_slices"])
+    (2, 1024, 512, 8, 64, 8), (3, 200, 64, 2, 64, 5), (2, 256, 64, 1, 160, 8),
+    (2, 256, 128, 1, 128, -8)],
+    ids=["mqar_like", "heads", "ragged", "wikitext_bg2", "c_stride_not_4", "p160_two_slices",
+         "x_base_not_16_bytes"])
 def test_decay_attention_kernels_match_plain(cuda_device, BG, Q, N, Hg, P, pad):
     """The WikiText Mamba-2 shape at a reduced batch (N 512 in four slices of
-    bwd_j's dB, four slabs of two heads), C rows 16-byte aligned there and at
-    P 160 (two 128-wide slices of P), unaligned in the other cases."""
+    bwd_j's dB and of bwd_i's dC, four slabs of two heads), C rows 16-byte
+    aligned there and at P 160 (two 128-wide slices of P), unaligned in the
+    other cases; a negative ``pad`` aligns C and starts xdt and dy one float
+    past a 16-byte boundary instead, at the MQAR widths."""
     from tlie_tpu_torch.ops import decay_attention as da
 
-    C, B, cs, x, dy = _decay_inputs(cuda_device, BG, Q, N, Hg, P, seed=Q, pad=pad)
+    C, B, cs, x, dy = _decay_inputs(cuda_device, BG, Q, N, Hg, P, seed=Q, pad=abs(pad),
+                                    x_offset=int(pad < 0))
     keys = ("decay_attention_fwd", "decay_attention_bwd_i", "decay_attention_bwd_j")
     before = {k: LAUNCHES[k] for k in keys}
     y = da.decay_attention_fwd_cuda(C, B, cs, x)
@@ -296,27 +304,34 @@ def test_decay_attention_autograd_and_the_ssd_go_through_the_kernels(cuda_device
 ATTN_RTOL_OF_TERMS = 1e-5  # plus attention.logit_rtol, of the sum of the terms' magnitudes
 
 
-def _attention_inputs(device, B, L, H, D, seed, pad=5):
+def _attention_inputs(device, B, L, H, D, seed, pad=5, base=0):
     """q, k, v as head-strided views of one projection (MHA's Wqkv split,
-    ``pad`` floats more a row: 5 leaves the rows unaligned, so the forward
-    copies 4 bytes at a time, a multiple of 4 lets it copy 16) and a
-    contiguous cotangent, from a device generator."""
+    ``pad`` floats more a row: 5 leaves the rows unaligned, so the
+    tensor-core kernels copy 4 bytes at a time, a multiple of 4 lets them
+    copy 16; ``base`` floats before q, 1 leaves the rows' starts unaligned
+    whatever ``pad`` is) and a contiguous cotangent, from a device
+    generator."""
     g = torch.Generator(device=device).manual_seed(seed)
     qkv = torch.randn(B, L, 3 * H * D + pad, device=device, generator=g)
-    q, k, v = (qkv[..., i * H * D:(i + 1) * H * D].reshape(B, L, H, D) for i in range(3))
+    q, k, v = (qkv[..., base + i * H * D:base + (i + 1) * H * D].reshape(B, L, H, D)
+               for i in range(3))
     return q, k, v, torch.randn(B, L, H, D, device=device, generator=g)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B, L, H, D, pad", [(64, 512, 1, 128, 5), (4, 1024, 4, 64, 5),
                                              (3, 77, 3, 40, 5), (2, 200, 2, 100, 5),
-                                             (3, 333, 2, 128, 8), (2, 130, 4, 64, 0)],
+                                             (3, 333, 2, 128, 8), (2, 130, 4, 64, 0),
+                                             (4, 256, 1, 128, -8)],
                          ids=["mqar", "heads", "ragged", "ragged_d100", "aligned_d128",
-                              "aligned_d64"])
+                              "aligned_d64", "base_not_16_bytes"])
 def test_flash_attention_kernels_match_plain(cuda_device, B, L, H, D, pad):
+    """A negative ``pad`` keeps the row strides multiples of 4 floats and
+    starts q, k and v one float past a 16-byte boundary instead."""
     from tlie_tpu_torch.ops import attention as fa
 
-    q, k, v, do = _attention_inputs(cuda_device, B, L, H, D, seed=L, pad=pad)
+    q, k, v, do = _attention_inputs(cuda_device, B, L, H, D, seed=L, pad=abs(pad),
+                                    base=int(pad < 0))
     scale = D ** -0.5
     keys = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
     before = {key: LAUNCHES[key] for key in keys}

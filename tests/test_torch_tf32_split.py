@@ -1,8 +1,8 @@
 """The numerical design of the port's tensor-core kernels, emulated on the
 CPU: the fused head's forward and its dh and dW/db kernels
 (``tlie_tpu_torch/ops/csrc/fused_xent.cu``), the flash attention's
-forward (``flash_attention.cu``) and the decay attention's forward and bwd_j
-(``decay_attention.cu``).
+forward and dK/dV kernel (``flash_attention.cu``) and the decay attention's
+forward, bwd_i and bwd_j (``decay_attention.cu``).
 
 The kernels run their products on the tensor cores in TF32, with each
 operand split x = big + small (big = TF32(x), small = TF32(x − big), rounded
@@ -11,8 +11,8 @@ small·big + big·small + big·big (``tf32_mma.cuh``).  The head's logits are
 summed 32 deep at a time before a float32 add, its second product one
 128-row vocabulary (or row) tile at a time; the flash forward sums S = q kᵀ
 32 deep and P v over one 64-row j tile at a time, with the online rescale;
-the decay attention sums every product 8 deep (one m16n8k8 step) before its
-float32 add.
+the flash dK/dV kernel and the decay attention sum every product 8 deep (one
+m16n8k8 step) before its float32 add.
 Here the same split and the same partial sums run in float32 on the CPU,
 from numpy inputs made from a seed, and the result is held to the float64
 plain version under the tolerance the card holds the kernels to
@@ -23,10 +23,12 @@ plain version under the tolerance the card holds the kernels to
 * the head's forward: lse within XENT_RTOL relative, the batch's loss sum
   within XENT_RTOL relative, and each row's loss within XENT_RTOL of
   |lse| + |picked logit|;
-* the flash forward: o within ATTN_RTOL + ``logit_rtol`` of the sum of its
-  terms' magnitudes, lse within the same fraction of max(1, |lse|);
-* the decay attention: y, dB, dxdt and dcs_j within SSD_RTOL of the sum of
-  each element's terms' magnitudes (``decay_attention.term_scales``).
+* the flash attention: o, dk and dv within ATTN_RTOL + ``logit_rtol`` of the
+  sum of their terms' magnitudes, lse within the same fraction of
+  max(1, |lse|);
+* the decay attention: y, dC, dcs_i, dB, dxdt and dcs_j within SSD_RTOL of
+  the sum of each element's terms' magnitudes
+  (``decay_attention.term_scales``).
 
 A single TF32 product fails each, so the tests are not vacuous.  The
 emulation rounds sums in float32 where the tensor cores may truncate; the
@@ -52,7 +54,7 @@ F32_UNIT = 2.0 ** -24
 KQ, KBK = 128, 32  # the head's tile of the streamed operand and its logits' depth step
 KT, KSK = 64, 32   # the flash forward's tile edge (rows of i and j) and its S depth step
 SSD_RTOL = 1e-5
-KFRESH = 8         # the decay attention's fresh-sum depth (its tile edge is KT)
+KFRESH = 8         # the fresh-sum depth of dK/dV and the decay attention (tile edge KT)
 CSRC = Path(fx.__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "fused_xent.cu"
 
@@ -167,8 +169,12 @@ def test_emulation_follows_the_kernel_source():
     assert "logits_tile_tc<kPRows>(h, p0, M, w, q0, V, D, vec, buf, x)" in head  # the forward
     flash = (CSRC / "flash_attention.cu").read_text()
     assert '#include "tf32_mma.cuh"' in flash
-    assert const(flash, "kT") == KT and const(flash, "kSK") == KSK
-    assert flash.count("mma_step_3xtf32<1, 8>") == 2  # S and P v
+    assert const(shared, "kT") == KT and const(flash, "kSK") == KSK
+    assert flash.count("mma_step_3xtf32<1, 8>") == 2  # the forward's S and P v
+    # dK/dV: Sᵀ and dPᵀ in one call both warp groups run, dv and dk in
+    # another, each a run of KFRESH-deep fresh sums (tf32_mma.cuh)
+    assert const(shared, "kFresh") == KFRESH
+    assert flash.count("product_nt32<kTLd>(") == 1 and flash.count("product_64<kDLd, kTLd>(") == 1
 
 
 @pytest.mark.parametrize("grad", ["dh", "dw", "db"])
@@ -236,7 +242,7 @@ def test_forward_single_tf32_product_fails_it(D):
     assert _fwd_case(D, 1)["loss_rows"] > 1.0
 
 
-# -- the flash attention's forward -------------------------------------------------
+# -- the flash attention's forward and dK/dV ---------------------------------------
 
 
 def emulated_flash_forward(q, k, v, scale, products=3):
@@ -299,7 +305,68 @@ def test_flash_forward_single_tf32_product_fails_it(D):
     assert ratios["o"] > 1.0 and ratios["lse"] > 1.0
 
 
-# -- the decay attention's forward and bwd_j ---------------------------------------
+def emulated_flash_bwd_dkv(q, k, v, do, lse, di, scale, products=3):
+    """(dk, dv) as the dK/dV kernel computes them: for each 64-row j tile, the
+    i tiles i ≥ j with Sᵀ = k_j q_iᵀ and dPᵀ = v_j do_iᵀ (``mm_tf32``, KFRESH
+    deep), Pᵀ = exp(scale·Sᵀ − lse_i) where j ≤ i, dSᵀ = Pᵀ ⊙ (dPᵀ − di_i),
+    then dv += Pᵀ do_i and dk += dSᵀ q_i, also KFRESH deep; dk times scale
+    at the end.  q, k, v, do (B, L, H, D); lse, di (B, H, L)."""
+    B, L, H, D = q.shape
+    qh, kh, vh, doh = (t.transpose(1, 2) for t in (q, k, v, do))  # (B, H, L, D)
+    dk, dv = torch.zeros(B, H, L, D), torch.zeros(B, H, L, D)
+    for j0 in range(0, L, KT):
+        j = torch.arange(j0, min(j0 + KT, L))
+        acc_k, acc_v = torch.zeros(B, H, len(j), D), torch.zeros(B, H, len(j), D)
+        for i0 in range(j0, L, KT):
+            i = torch.arange(i0, min(i0 + KT, L))
+            st = mm_tf32(kh[:, :, j], qh[:, :, i].transpose(-1, -2), KFRESH, products)
+            valid = j[:, None] <= i[None, :]
+            pt = torch.where(valid, torch.exp(st * scale - lse[:, :, None, i]), torch.zeros(()))
+            dpt = mm_tf32(vh[:, :, j], doh[:, :, i].transpose(-1, -2), KFRESH, products)
+            dst = pt * (dpt - di[:, :, None, i])
+            acc_v += mm_tf32(pt, doh[:, :, i], KFRESH, products)
+            acc_k += mm_tf32(dst, qh[:, :, i], KFRESH, products)
+        dk[:, :, j], dv[:, :, j] = acc_k * scale, acc_v
+    return dk.transpose(1, 2), dv.transpose(1, 2)
+
+
+@lru_cache(maxsize=None)
+def _flash_dkv_case(D, products):
+    """dk's and dv's worst errors over their tolerances, against float64, on
+    the forward case's q, k, v (L 200) and a cotangent; the emulation gets
+    lse and di from the float32 plain forward, as the kernel does."""
+    rng = np.random.default_rng(D)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 200, 2, D)).astype(np.float32))
+               for _ in range(3))
+    do = torch.from_numpy(rng.standard_normal((2, 200, 2, D)).astype(np.float32))
+    scale = D ** -0.5
+    o, lse = fa.flash_attention_plain(q, k, v, scale)
+    got = emulated_flash_bwd_dkv(q, k, v, do, lse, fa.attention_di(o, do), scale, products)
+    ref = tuple(t.double() for t in (q, k, v, do))
+    o64, lse64 = fa.flash_attention_plain(*ref[:3], scale)
+    want = fa.flash_attention_bwd_dkv_plain(*ref, lse64, fa.attention_di(o64, ref[3]), scale)
+    rtol = ATTN_RTOL + fa.logit_rtol(q, k, scale)
+    scales = fa.term_scales(*ref, lse64, scale)[2:]
+    return {name: ((g.double() - w).abs() / (rtol * sc + 1e-300)).max().item()
+            for name, g, w, sc in zip(("dk", "dv"), got, want, scales)}
+
+
+@pytest.mark.parametrize("out", ["dk", "dv"])
+@pytest.mark.parametrize("D", [64, 100, 128])
+def test_flash_dkv_three_product_split_holds_the_float32_tolerance(D, out):
+    assert _flash_dkv_case(D, 3)[out] <= 1.0
+
+
+@pytest.mark.parametrize("D", [64, 100, 128])
+def test_flash_dkv_single_tf32_product_fails_it(D):
+    """One TF32 product rounds each operand by up to 2⁻¹¹ of itself: a j row
+    near the end, whose dk and dv sum few i, keeps that error nearly
+    undamped, far above ATTN_RTOL + ``logit_rtol``."""
+    ratios = _flash_dkv_case(D, 1)
+    assert ratios["dk"] > 1.0 and ratios["dv"] > 1.0, ratios
+
+
+# -- the decay attention's forward, bwd_i and bwd_j --------------------------------
 
 
 def _decay_tile(cs, i, j):
@@ -350,12 +417,32 @@ def emulated_decay_bwd_j(C, B, cs, x, dy, products=3):
     return dB, dx, dcs
 
 
-@lru_cache(maxsize=None)
-def _decay_case(N, Hg, P, products):
-    """y's, dB's, dxdt's and dcs_j's worst errors over their tolerances,
-    against float64.  Q 200 is not a multiple of the 64-row tile; cs is the
-    cumsum of dt·A with dt in [0, 0.1) and A in (−16, −1], as the card's
-    inputs are drawn (``chip_smoke.decay_inputs``)."""
+def emulated_decay_bwd_i(C, B, cs, x, dy, products=3):
+    """(dC, dcs_i) as bwd_i computes them: for each 64-row i tile, the j
+    tiles j ≤ i with CB = C_i B_jᵀ once and each head's dS = dy_i x_jᵀ, Dh =
+    dS ⊙ decay, dcs_i += rowsum(Dh ⊙ CB) and dC += (Σ_h Dh) B_j, every
+    product KFRESH deep."""
+    BG, Hg, Q, P = x.shape
+    dC, dcs = torch.zeros(BG, Q, C.shape[2]), torch.zeros(BG, Hg, Q)
+    for i0 in range(0, Q, KT):
+        i = torch.arange(i0, min(i0 + KT, Q))
+        for j0 in range(0, i0 + 1, KT):
+            j = torch.arange(j0, min(j0 + KT, Q))
+            cb = mm_tf32(C[:, i], B[:, j].transpose(1, 2), KFRESH, products)
+            dh = mm_tf32(dy[:, :, i], x[:, :, j].transpose(-1, -2), KFRESH, products)
+            dh = dh * _decay_tile(cs, i, j)
+            dcs[:, :, i] += (dh * cb[:, None]).sum(-1)
+            dcb = dh[:, 0]
+            for h in range(1, Hg):
+                dcb = dcb + dh[:, h]
+            dC[:, i] += mm_tf32(dcb, B[:, j], KFRESH, products)
+    return dC, dcs
+
+
+def _decay_inputs(N, Hg, P):
+    """C, B, cs, xdt and dy at BG 2, Q 200 (not a multiple of the 64-row
+    tile); cs is the cumsum of dt·A with dt in [0, 0.1) and A in (−16, −1],
+    as the card's inputs are drawn (``chip_smoke.decay_inputs``)."""
     rng = np.random.default_rng(100 * N + 10 * Hg + P)
     BG, Q = 2, 200
     C, B = (torch.from_numpy(rng.standard_normal((BG, Q, N)).astype(np.float32))
@@ -365,6 +452,14 @@ def _decay_case(N, Hg, P, products):
     cs = torch.from_numpy(np.cumsum(dt * A, -1).astype(np.float32))
     x, dy = (torch.from_numpy(rng.standard_normal((BG, Hg, Q, P)).astype(np.float32))
              for _ in range(2))
+    return C, B, cs, x, dy
+
+
+@lru_cache(maxsize=None)
+def _decay_case(N, Hg, P, products):
+    """y's, dB's, dxdt's and dcs_j's worst errors over their tolerances,
+    against float64, on ``_decay_inputs``."""
+    C, B, cs, x, dy = _decay_inputs(N, Hg, P)
     got = (emulated_decay_forward(C, B, cs, x, products),) + emulated_decay_bwd_j(
         C, B, cs, x, dy, products)
     ref = tuple(t.double() for t in (C, B, cs, x, dy))
@@ -373,6 +468,19 @@ def _decay_case(N, Hg, P, products):
     return {name: ((g.double() - w).abs() / (SSD_RTOL * sc + 1e-300)).max().item()
             for name, g, w, sc in zip(("y", "dB", "dxdt", "dcs_j"), got, want,
                                       (y_sc, dB_sc, dx_sc, dcs_sc))}
+
+
+@lru_cache(maxsize=None)
+def _decay_bwd_i_case(N, Hg, P, products):
+    """dC's and dcs_i's worst errors over their tolerances, against float64,
+    on ``_decay_inputs``."""
+    C, B, cs, x, dy = _decay_inputs(N, Hg, P)
+    got = emulated_decay_bwd_i(C, B, cs, x, dy, products)
+    ref = tuple(t.double() for t in (C, B, cs, x, dy))
+    want = da.decay_attention_bwd_i_plain(*ref)
+    scales = da.term_scales(*ref)[1:3]
+    return {name: ((g.double() - w).abs() / (SSD_RTOL * sc + 1e-300)).max().item()
+            for name, g, w, sc in zip(("dC", "dcs_i"), got, want, scales)}
 
 
 DECAY_SHAPES = [(40, 3, 33), (128, 1, 64), (128, 3, 33), (40, 1, 64)]  # (N, Hg, P)
@@ -394,19 +502,38 @@ def test_decay_single_tf32_product_fails_it(N, Hg, P):
     assert all(ratios[out] > 1.0 for out in ("y", "dB", "dxdt", "dcs_j")), ratios
 
 
+@pytest.mark.parametrize("out", ["dC", "dcs_i"])
+@pytest.mark.parametrize("N, Hg, P", DECAY_SHAPES)
+def test_decay_bwd_i_three_product_split_holds_the_float32_tolerance(N, Hg, P, out):
+    assert _decay_bwd_i_case(N, Hg, P, 3)[out] <= 1.0
+
+
+@pytest.mark.parametrize("N, Hg, P", DECAY_SHAPES)
+def test_decay_bwd_i_single_tf32_product_fails_it(N, Hg, P):
+    """As for bwd_j: each operand's TF32 rounding, about 50 times SSD_RTOL,
+    survives in the elements with few terms (the first rows of i)."""
+    ratios = _decay_bwd_i_case(N, Hg, P, 1)
+    assert ratios["dC"] > 1.0 and ratios["dcs_i"] > 1.0, ratios
+
+
 def test_decay_emulation_follows_the_kernel_source():
     def const(src, name):
         return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
     src = (CSRC / "decay_attention.cu").read_text()
+    shared = (CSRC / "tf32_mma.cuh").read_text()
     assert '#include "tf32_mma.cuh"' in src
-    assert const(src, "kT") == KT and const(src, "kFresh") == KFRESH
-    # every product is a run of fresh sums, each added in float32: S in the
-    # forward and bwd_j's CBᵀ and dSᵀ (one call both warp groups run) over
-    # their depth steps, the forward's S x and bwd_j's dB and dx (again one
-    # call) over a tile's KT of j or i
-    assert src.count("product_nt32<k") == 2 and src.count("product_64<kDLd, kTLd>(") == 1
-    assert src.count("for (int k0 = 0; k0 < kSK; k0 += kFresh) {") == 1
-    assert src.count("for (int k0 = 0; k0 < kT; k0 += kFresh) {") == 2
-    assert src.count("for (int kk = k0; kk < k0 + kFresh; kk += 8)") == 3
-    assert src.count("add_frags(acc, c);") == 2 and "add_frags(acc[hf], c);" in src
+    assert const(shared, "kT") == KT and const(shared, "kFresh") == KFRESH
+    # every product is a run of fresh sums, each added in float32: the first
+    # products (the forward's S, bwd_j's CBᵀ and dSᵀ, bwd_i's CB and dS: one
+    # call in each kernel, both warp groups of a backward kernel run it) over
+    # their depth steps, the second products (bwd_j's dB and dx, bwd_i's dC:
+    # again one call each) over a tile's KT of j or i, in tf32_mma.cuh; the
+    # forward's S x, over a tile's KT of j, in the kernel itself
+    assert src.count("product_nt32<k") == 3 and src.count("product_64<kDLd, kTLd>(") == 2
+    assert shared.count("for (int k0 = 0; k0 < kStep; k0 += kFresh) {") == 1
+    assert shared.count("for (int k0 = 0; k0 < kT; k0 += kFresh) {") == 1
+    assert src.count("for (int k0 = 0; k0 < kT; k0 += kFresh) {") == 1
+    assert shared.count("for (int kk = k0; kk < k0 + kFresh; kk += 8)") == 2
+    assert src.count("for (int kk = k0; kk < k0 + kFresh; kk += 8)") == 1
+    assert shared.count("add_frags(acc, c);") == 2 and "add_frags(acc[hf], c);" in src

@@ -27,7 +27,9 @@
 // two products over them (q.k and p v, 4D flops a pair), 4.3 GFLOP: 0.064 ms
 // at 67 TFLOP/s of float32 outside the tensor cores, 0.026 ms as three TF32
 // products at 495 TFLOP/s on them, against 67 MB of operands, 0.020 ms at
-// 3.35 TB/s. dK/dV does four products (8D a pair), dQ three (6D).
+// 3.35 TB/s. dK/dV does four products (8D a pair): 0.052 ms as three TF32
+// products on the tensor cores; dQ three (6D): 0.096 ms at float32 outside
+// them.
 //
 // Forward, on the tensor cores (mma.sync m16n8k8 on TF32, float32
 // accumulators, each product as three TF32 products of a split operand:
@@ -44,26 +46,36 @@
 // thread, no spills: nvcc -Xptxas -v, sm_90a). It writes o / l and
 // lse = m + log l.
 //
-// Backward: float32 SIMT tile products on shared memory. A block of 256
-// threads owns 64 rows of one (b, h), each thread a 4 x 4 piece of every
-// 64 x 64 tile, and walks the 64-wide tiles of the other sequence index that
-// the causal mask leaves. Head dims past 64 are a second 64-wide column tile
-// of the accumulators, held in registers beside the first:
-//   dK/dV:   block (b h, j-tile) walks i-tiles i >= j: S^T = k_j q_i^T and
-//            dP^T = v_j do_i^T over D, P = exp(scale S - lse_i),
-//            dS = P (dP - di_i); then dv_j += P^T do_i and dk_j += dS^T q_i
-//            (times scale once, at the store).
-//   dQ:      block (b h, i-tile) walks j-tiles j <= i: S and dP as above,
-//            dq_i += dS k_j (times scale at the store).
+// dK/dV, on the tensor cores too, each product summed no deeper than kFresh
+// = 8 before a float32 add (dk and dv sum over up to L rows of i, and their
+// gradients over every position into Wqkv): block (b h, j-tile) of 8 warps
+// in two groups of 4, each warp 16 whole rows of j, walking the i-tiles
+// i >= j. Group B forms S^T = k_j q_i^T over D, P^T = exp(scale S^T -
+// lse_i) where j <= i < L, publishes P^T in shared memory and adds dv +=
+// P^T do_i; group A forms dP^T = v_j do_i^T over D, dS^T = P^T (dP^T -
+// di_i) and adds dk += dS^T q_i (times scale once, at the store). Each of
+// the four products is formed once per tile pair, two in each group: at the
+// MQAR shape 4 x 4 warps x 8 fragments x 16 depth steps of 8 x 3 = 6,144
+// mma.sync. It is the decay attention's bwd_j (decay_attention.cu) with the
+// softmax's elementwise step in place of the decay: both groups run one code
+// for their first product and one for their second. ptxas (nvcc -Xptxas
+// -v, sm_90a, CUDA 12.8): 218 registers, 174,592 bytes of dynamic shared
+// memory, one block of 8 warps an SM, no spills.
+//
+// dQ: float32 SIMT tile products on shared memory. A block of 256 threads
+// owns 64 rows of i of one (b, h), each thread a 4 x 4 piece of every 64 x
+// 64 tile, and walks the j-tiles j <= i: S = q_i k_j^T and dP = do_i v_j^T
+// over D, P = exp(scale S - lse_i), dS = P (dP - di_i), dq_i += dS k_j
+// (times scale at the store). Head dims past 64 are a second 64-wide column
+// tile of the accumulator, held in registers beside the first. Its shared
+// tiles take 44 KB of static shared memory whatever D is.
+//
 // Each output element has one writer, so there are no atomics and every
 // launch is deterministic. exp is taken only where j <= i (and i < L); a
 // masked logit never reaches an exp. Rows past L (a ragged last tile) load
 // as 0, keep m = -inf without ever forming -inf - (-inf), and are not
 // stored. The tiles whose blocks walk the most (the last i-tiles forward and
 // in dQ, the first j-tiles in dK/dV) are launched first.
-//
-// The backward's shared tiles take 44 KB of static shared memory whatever D
-// is.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -74,7 +86,6 @@
 namespace {
 
 constexpr int kThreads = 256;  // 16 x 16 threads, each a 4 x 4 piece
-constexpr int kT = 64;         // tile edge: rows of i and j, columns of D
 constexpr int kK = 16;         // depth of one shared-memory step of a q.k tile
 constexpr int kPad = 4;        // row padding of the shared tiles (keeps float4 alignment)
 constexpr int kMaxD = 128;     // head dims up to two 64-wide column tiles
@@ -213,61 +224,6 @@ struct Dims {
   float scale;
 };
 
-// grid (B * H, ceil(L / 64)); j-tile = blockIdx.y
-__global__ void __launch_bounds__(kThreads)
-flash_attention_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                               const float* __restrict__ v, const float* __restrict__ dout,
-                               const float* __restrict__ lse, const float* __restrict__ di,
-                               float* __restrict__ dk, float* __restrict__ dv, Dims d) {
-  __shared__ Smem sm;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int64_t bh = blockIdx.x, b = bh / d.H, h = bh % d.H;
-  const int64_t j0 = static_cast<int64_t>(blockIdx.y) * kT;
-  const float* qb = q + b * d.q_bs + h * d.q_hs;
-  const float* kb = k + b * d.k_bs + h * d.k_hs;
-  const float* vb = v + b * d.v_bs + h * d.v_hs;
-  const int64_t ld = d.H * d.D;  // row stride of the contiguous (B, L, H, D) tensors
-  const float* dob = dout + (b * d.L * d.H + h) * d.D;
-
-  // the block's rows are j (4ty + r), the walked columns i (4tx + c); the
-  // shared P and dS are stored s[i][j] for the products over i
-  float acc_dk[kDT][4][4], acc_dv[kDT][4][4], p[4][4], ds[4][4];
-#pragma unroll
-  for (int t = 0; t < kDT; ++t) zero(acc_dk[t]), zero(acc_dv[t]);
-
-  for (int64_t i0 = j0; i0 < d.L; i0 += kT) {
-    load_rows(lse + bh * d.L + i0, d.L - i0, sm.lse);
-    load_rows(di + bh * d.L + i0, d.L - i0, sm.di);
-    tile_nt(kb + j0 * d.k_ls, d.L - j0, d.k_ls, qb + i0 * d.q_ls, d.L - i0, d.q_ls, d.D, sm, p);
-    tile_nt(vb + j0 * d.v_ls, d.L - j0, d.v_ls, dob + i0 * ld, d.L - i0, ld, d.D, sm, ds);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int lj = ty * 4 + r;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int li = tx * 4 + c;
-        const int64_t j = j0 + lj, i = i0 + li;
-        const bool valid = j <= i && i < d.L;
-        p[r][c] = valid ? expf(p[r][c] * d.scale - sm.lse[li]) : 0.f;
-        ds[r][c] = p[r][c] * (ds[r][c] - sm.di[li]);
-        sm.s[li][lj] = p[r][c];
-      }
-    }
-    accumulate(dob + i0 * ld, d.L - i0, ld, d.D, sm, acc_dv);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) sm.s[tx * 4 + c][ty * 4 + r] = ds[r][c];
-    accumulate(qb + i0 * d.q_ls, d.L - i0, d.q_ls, d.D, sm, acc_dk);
-  }
-
-  const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  const float sc[4] = {d.scale, d.scale, d.scale, d.scale};
-  const int64_t out0 = (b * d.L * d.H + h) * d.D;
-  store_rows(dv + out0, j0, d.L, ld, d.D, one, acc_dv);
-  store_rows(dk + out0, j0, d.L, ld, d.D, sc, acc_dk);
-}
-
 // grid (B * H, ceil(L / 64)); i-tile = last - blockIdx.y
 __global__ void __launch_bounds__(kThreads)
 flash_attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -334,8 +290,9 @@ static_assert((kFwdThreads / 32) * 16 == kT && (kFwdThreads / 32) * 16 * kPLd <=
 // `vec` (D % 4 == 0 and every row 16-byte aligned), else 4. A zero-filled
 // copy is handed `src` itself, so no copy gets an address outside the tensor.
 template <int kLd>
-__device__ __forceinline__ void copy_tile(float* dst, const float* __restrict__ src, int64_t ld,
-                                          int64_t rows, int64_t D, int width, bool vec) {
+__device__ __forceinline__ void copy_fwd_tile(float* dst, const float* __restrict__ src,
+                                              int64_t ld, int64_t rows, int64_t D, int width,
+                                              bool vec) {
   if (vec) {
     const int per_row = width / 4;
     for (int e = threadIdx.x; e < kT * per_row; e += kFwdThreads) {
@@ -395,11 +352,11 @@ flash_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict_
       for (int r = 0; r < 4; ++r) acc[hf][n][r] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
-  copy_tile<kQKLd>(qs, qb + i0 * d.q_ls, d.q_ls, d.L - i0, d.D, width, vec);
+  copy_fwd_tile<kQKLd>(qs, qb + i0 * d.q_ls, d.q_ls, d.L - i0, d.D, width, vec);
   for (int64_t j0 = 0; j0 <= i0; j0 += kT) {
-    copy_tile<kQKLd>(ks, kb + j0 * d.k_ls, d.k_ls, d.L - j0, d.D, width, vec);
+    copy_fwd_tile<kQKLd>(ks, kb + j0 * d.k_ls, d.k_ls, d.L - j0, d.D, width, vec);
     cp_async_commit();  // (q's copies go with the first k_j's)
-    copy_tile<kVLd>(vs, vb + j0 * d.v_ls, d.v_ls, d.L - j0, d.D, width, vec);
+    copy_fwd_tile<kVLd>(vs, vb + j0 * d.v_ls, d.v_ls, d.L - j0, d.D, width, vec);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();  // q and k_j are in
@@ -527,6 +484,163 @@ flash_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict_
   }
 }
 
+// -- dK/dV on the tensor cores -----------------------------------------------------
+
+constexpr int kDkvThreads = 256;  // two groups of 4 warps, each warp 16 whole rows of the j-tile
+// Row strides of the dK/dV kernel's shared tiles, in floats: the operand
+// tiles are read as float2 at (8g + 2t) along their rows in the first
+// products and as float at (8t + g) down their columns in the second (8
+// modulo 32 serves both); the P^T and dS^T slices at (4g + t) in the A
+// layout (4 modulo 32).
+constexpr int kTLd = kMaxD + 8;
+constexpr int kDLd = kT + 4;
+// k_j, q_i, v_j and do_i, P^T and dS^T, lse_i and di_i: 174,592 bytes
+constexpr int kDkvSmemFloats = 4 * kT * kTLd + 2 * kT * kDLd + 2 * kT;
+static_assert(kMaxD == 4 * kStep, "a row of D is four depth quarters");
+
+// grid (B * H, ceil(L / 64)), dynamic shared memory kDkvSmemFloats; block
+// (b h, j-tile = blockIdx.y) walks the i-tiles i >= j. Warps 0-3 are group A
+// (dP^T = v_j do_i^T, dS^T = P^T (dP^T - di_i), dk += dS^T q_i), warps 4-7
+// group B (S^T = k_j q_i^T, P^T = exp(scale S^T - lse_i), dv += P^T do_i);
+// warp w of either holds rows 16 (w % 4) + g and + 8 of the j-tile, and
+// columns 8n + 2t4 and + 1 of each C fragment (i for S^T and dP^T, D for the
+// accumulators). k_j and v_j land once and stay put; q_i and do_i land by
+// cp.async in four depth quarters, each group copying the one its first
+// product reads and waiting only for its own, at its own barrier; after the
+// block's barrier group A reads the P^T group B published, and each group's
+// second product reads the tile the other group copied.
+__global__ void __launch_bounds__(kDkvThreads, 1)
+flash_attention_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                               const float* __restrict__ v, const float* __restrict__ dout,
+                               const float* __restrict__ lse, const float* __restrict__ di,
+                               float* __restrict__ dk, float* __restrict__ dv, Dims d) {
+  extern __shared__ __align__(16) float smem[];
+  float* tk = smem;                 // k_j [kT][kTLd]
+  float* tq = tk + kT * kTLd;       // q_i
+  float* tv = tq + kT * kTLd;       // v_j
+  float* tdo = tv + kT * kTLd;      // do_i
+  float* pts = tdo + kT * kTLd;     // P^T [kT][kDLd] (group B)
+  float* dss = pts + kT * kDLd;     // dS^T [kT][kDLd] (group A)
+  float* rows_i = dss + kT * kDLd;  // [lse_i | di_i][kT]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+  const bool grp_b = warp >= 4;
+  const int gtid = threadIdx.x % 128;
+  const int r0 = 16 * (warp % 4);
+  const int64_t bh = blockIdx.x, b = bh / d.H, h = bh % d.H;
+  const int64_t j0 = static_cast<int64_t>(blockIdx.y) * kT;
+  const int64_t ld = d.H * d.D;  // row stride of the contiguous (B, L, H, D) tensors
+  const float* qb = q + b * d.q_bs + h * d.q_hs;
+  const float* dob = dout + (b * d.L * d.H + h) * d.D;
+  const bool vec =
+      d.D % 4 == 0 &&
+      (d.q_bs | d.q_ls | d.q_hs | d.k_bs | d.k_ls | d.k_hs | d.v_bs | d.v_ls | d.v_hs) % 4 == 0 &&
+      (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout)) % 16 == 0;
+  // the group's first product: rows of the j-tile (k_j or v_j) times rows of
+  // the i-tile (q_i or do_i) over D
+  const float* own = grp_b ? k + b * d.k_bs + h * d.k_hs + j0 * d.k_ls
+                           : v + b * d.v_bs + h * d.v_hs + j0 * d.v_ls;
+  const int64_t ld_own = grp_b ? d.k_ls : d.v_ls, ld_walk = grp_b ? d.q_ls : ld;
+  float* tile_own = grp_b ? tk : tv;
+  float* tile_walk = grp_b ? tq : tdo;
+
+  float acc[2][8][4];  // dk (group A) or dv (group B) of the thread's two rows, by 64-column half
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[hf][n][r] = 0.f;
+  float f[1][8][4];  // S^T (group B) or dP^T (group A)
+
+  for (int64_t i0 = j0; i0 < d.L; i0 += kT) {
+    const bool first = i0 == j0;
+    const float* walk = grp_b ? qb + i0 * d.q_ls : dob + i0 * ld;
+    if (gtid < kT)  // lse_i (group B), di_i (group A); 0 past L
+      rows_i[(grp_b ? 0 : kT) + gtid] =
+          i0 + gtid < d.L ? (grp_b ? lse : di)[bh * d.L + i0 + gtid] : 0.f;
+    zero_frags(f);
+#pragma unroll 1
+    for (int qq = 0; qq < 4; ++qq) {  // a copy group a depth quarter
+      if (first)
+        copy_tile<kTLd, kStep>(tile_own + qq * kStep, own + qq * kStep, ld_own, d.L - j0,
+                               d.D - qq * kStep, vec, grp_b ? k : v, gtid, 128);
+      copy_tile<kTLd, kStep>(tile_walk + qq * kStep, walk + qq * kStep, ld_walk, d.L - i0,
+                             d.D - qq * kStep, vec, grp_b ? q : dout, gtid, 128);
+      cp_async_commit();
+    }
+#pragma unroll 1
+    for (int qq = 0; qq < 4; ++qq) {
+      cp_async_wait_n(3 - qq);
+      group_sync(grp_b ? 2 : 1);  // quarter qq of both tiles is in
+      if (qq * kStep < d.D)
+        product_nt32<kTLd>(f[0], tile_own + r0 * kTLd + qq * kStep, tile_walk + qq * kStep);
+    }
+    if (grp_b) {  // P^T = exp(scale S^T - lse_i) where j <= i < L, published for group A
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int lj = r0 + g + 8 * hh;
+        const int64_t j = j0 + lj;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          float p[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int li = 8 * n + 2 * t4 + e;
+            const int64_t i = i0 + li;
+            p[e] = j <= i && i < d.L ? expf(f[0][n][2 * hh + e] * d.scale - rows_i[li]) : 0.f;
+          }
+          *reinterpret_cast<float2*>(&pts[lj * kDLd + 8 * n + 2 * t4]) = make_float2(p[0], p[1]);
+        }
+      }
+    }
+    __syncthreads();  // P^T is published; q_i and do_i are in
+    if (!grp_b) {  // dS^T = P^T (dP^T - di_i) into the warp's rows
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int lj = r0 + g + 8 * hh;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const int li = 8 * n + 2 * t4;
+          const float2 p = *reinterpret_cast<const float2*>(&pts[lj * kDLd + li]);
+          *reinterpret_cast<float2*>(&dss[lj * kDLd + li]) =
+              make_float2(p.x * (f[0][n][2 * hh] - rows_i[kT + li]),
+                          p.y * (f[0][n][2 * hh + 1] - rows_i[kT + li + 1]));
+        }
+      }
+      __syncwarp();
+    }
+    // the second products, one code for both groups: dv += P^T do_i (group
+    // B), dk += dS^T q_i (group A), each over the i-tile's 64 rows
+    const float* slice = (grp_b ? pts : dss) + r0 * kDLd;
+    const float* tile = grp_b ? tdo : tq;
+#pragma unroll 1
+    for (int hf = 0; hf < 2; ++hf) {
+      // acc[0] is the half in hand: the two swap places after each half
+      if (hf * kT < d.D) product_64<kDLd, kTLd>(acc[0], slice, tile + hf * kT);  // uniform
+      swap_frags(acc[0], acc[1]);
+    }
+    __syncthreads();  // every warp is past the i-tile's tiles and slices
+  }
+
+  const float sc = grp_b ? 1.f : d.scale;  // dk is scaled once, here
+  float* out = (grp_b ? dv : dk) + (b * d.L * d.H + h) * d.D;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int64_t j = j0 + r0 + g + 8 * hh;
+    if (j >= d.L) continue;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int64_t col = hf * kT + 8 * n + 2 * t4 + e;
+          if (col < d.D) out[j * ld + col] = acc[hf][n][2 * hh + e] * sc;
+        }
+  }
+}
+
 constexpr int64_t kMaxGridY = 65535;
 
 int64_t tiles(int64_t n) { return (n + kT - 1) / kT; }
@@ -572,7 +686,11 @@ extern "C" int tlie_flash_attention_bwd_dkv_f32(const float* q, const float* k, 
                                                 float scale, void* stream) {
   if (bad_shape(B, L, H, D)) return static_cast<int>(cudaErrorInvalidValue);
   const Dims d{L, H, D, q_bs, q_ls, q_hs, k_bs, k_ls, k_hs, v_bs, v_ls, v_hs, scale};
-  flash_attention_bwd_dkv_kernel<<<grid_of(B, L, H), kThreads, 0,
+  const int smem = kDkvSmemFloats * static_cast<int>(sizeof(float));
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_attention_bwd_dkv_kernel<<<grid_of(B, L, H), kDkvThreads, smem,
                                    static_cast<cudaStream_t>(stream)>>>(q, k, v, dout, lse, di,
                                                                         dk, dv, d);
   return static_cast<int>(cudaGetLastError());

@@ -1,5 +1,7 @@
 // TF32 tensor-core products at float32 accuracy, and asynchronous copies to
-// shared memory: the pieces that fused_xent.cu and flash_attention.cu share.
+// shared memory: the pieces that fused_xent.cu, flash_attention.cu and
+// decay_attention.cu share, and the warp products on 64-row tiles that the
+// decay attention's kernels and the flash attention's dK/dV run.
 //
 // A product runs as three TF32 products of a split operand: x = big + small,
 // big = TF32(x), small = TF32(x - big), |x - big - small| <= 2^-22 |x|; each
@@ -100,6 +102,137 @@ __device__ __forceinline__ void cp_async_wait_all() {
 template <int kPending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Waits until at most n (0 to 3) of this thread's copy groups are in flight.
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    default: cp_async_wait<3>();
+  }
+}
+
+// The barrier of one group of 128 threads (ids 1 and 2; __syncthreads is 0).
+__device__ __forceinline__ void group_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// -- warp products on 64-row tiles ---------------------------------------------------
+
+constexpr int kT = 64;     // tile edge: a tile's rows, and a warp's 16 of them times 4
+constexpr int kStep = 32;  // depth of one shared-memory step of a first product
+// depth of one fresh tensor-core sum (three chained HMMAs a fragment) before
+// its float32 add. The tensor cores truncate their sums: where a fresh sum
+// ran 32 deep (64 in the second products) the small products met a large
+// accumulator, and the bias toward zero that left summed, not averaged, over
+// the 32,768 positions of the MQAR Mamba-2's dt_bias gradient (card against
+// CPU: 0.832 of its tolerance, against 0.066 at 8 and 0.040 with the float32
+// SIMT kernels). The loops over fresh sums stay rolled: unrolled at 8 deep
+// they spill.
+constexpr int kFresh = 8;
+
+// Starts copying rows [0, 64) and columns [0, kWidth) of a tile whose first
+// row is `src` (rows ld apart) into dst (rows kLd apart), zero where the row
+// is at or past `rows` or the column at or past `cols`, spread over n threads
+// of which this is `tid`. 16 bytes a copy where `vec` (cols, the strides and
+// the base all multiples of 4 floats), else 4. A zero-filled copy is handed
+// `safe`, the tensor's first element, so no copy gets an address outside it.
+template <int kLd, int kWidth>
+__device__ __forceinline__ void copy_tile(float* dst, const float* src, int64_t ld, int64_t rows,
+                                          int64_t cols, bool vec, const float* safe, int tid,
+                                          int n) {
+  if (vec) {
+    for (int e = tid; e < kT * kWidth / 4; e += n) {
+      const int r = e / (kWidth / 4), c = 4 * (e % (kWidth / 4));
+      const bool in = r < rows && c < cols;
+      cp_async(dst + r * kLd + c, in ? src + r * ld + c : safe, in, 16);
+    }
+  } else {
+    for (int e = tid; e < kT * kWidth; e += n) {
+      const int r = e / kWidth, c = e % kWidth;
+      const bool in = r < rows && c < cols;
+      cp_async(dst + r * kLd + c, in ? src + r * ld + c : safe, in, 4);
+    }
+  }
+}
+
+__device__ __forceinline__ void zero_frags(float (&c)[1][8][4]) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) c[0][n][r] = 0.f;
+}
+
+__device__ __forceinline__ void add_frags(float (&acc)[8][4], const float (&c)[1][8][4]) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[n][r] += c[0][n][r];
+}
+
+__device__ __forceinline__ void swap_frags(float (&a)[8][4], float (&b)[8][4]) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float t = a[n][r];
+      a[n][r] = b[n][r];
+      b[n][r] = t;
+    }
+}
+
+// acc += the warp's 16 rows of A times a 64-deep tile V (64 x 8 columns),
+// kFresh deep at a time into a fresh sum that is then added in float32, the
+// depth in natural order (a lane's slots t and t + 4 take depth t and
+// t + 4): A's rows kALd apart at `a` (float reads at (4g + t) where kALd is 4
+// modulo 32), V's rows kVLd apart at `v` (float reads at (8t + g) where kVLd
+// is 8 modulo 32). The second products.
+template <int kALd, int kVLd>
+__device__ __forceinline__ void product_64(float (&acc)[8][4], const float* a, const float* v) {
+#pragma unroll 1
+  for (int k0 = 0; k0 < kT; k0 += kFresh) {
+    float c[1][8][4];
+    zero_frags(c);
+#pragma unroll
+    for (int kk = k0; kk < k0 + kFresh; kk += 8)
+      mma_step_3xtf32<1, 8>(
+          c,
+          [&](int mm, int t) {
+            const float* row = a + mm * kALd + kk + t;
+            return make_float2(row[0], row[4]);
+          },
+          [&](int n, int t) {
+            const float* col = v + (kk + t) * kVLd + n;
+            return make_float2(col[0], col[4 * kVLd]);
+          });
+    add_frags(acc, c);
+  }
+}
+
+// acc += kStep deep of the warp's 16 rows of A times the 64 rows of Bm
+// (A Bm^T), kFresh deep at a time as above, both row-major, rows kLd apart,
+// read as float2 at the depth pairs (2t, 2t + 1) (every bank once where kLd
+// is 8 modulo 32). The first products.
+template <int kLd>
+__device__ __forceinline__ void product_nt32(float (&acc)[8][4], const float* a, const float* bm) {
+#pragma unroll 1
+  for (int k0 = 0; k0 < kStep; k0 += kFresh) {
+    float c[1][8][4];
+    zero_frags(c);
+#pragma unroll
+    for (int kk = k0; kk < k0 + kFresh; kk += 8)
+      mma_step_3xtf32<1, 8>(
+          c,
+          [&](int mm, int t) {
+            return *reinterpret_cast<const float2*>(a + mm * kLd + kk + 2 * t);
+          },
+          [&](int n, int t) {
+            return *reinterpret_cast<const float2*>(bm + n * kLd + kk + 2 * t);
+          });
+    add_frags(acc, c);
+  }
 }
 
 }  // namespace
