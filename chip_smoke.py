@@ -619,6 +619,18 @@ def time_decay_attention(dattn, C, B, cs, x, dy, flush):
     return out
 
 
+def timing_fields(t, library: str, over: str) -> str:
+    """One kernel's entry of ``time_decay_attention`` or
+    ``time_flash_attention`` as a phase field, the library call's time and
+    the kernel's ratio to it under the names given."""
+    k_ms, w_ms, p_ms, l_ms, bound, by, n_bytes, flops, f32 = t
+    return (f"ms_cold_median={k_ms:.5f},ms_warm_median={w_ms:.5f},plain_ms={p_ms:.5f},"
+            f"{library}={l_ms:.5f},{over}={k_ms / l_ms:.3f},"
+            f"bound_ms={bound:.5f}({by}),over_bound={k_ms / bound:.3f},"
+            f"bound_f32_ms={f32:.5f},gflop={flops / 1e9:.3f},"
+            f"mbytes={n_bytes / 1e6:.1f},tflops={flops / k_ms / 1e9:.2f}")
+
+
 def attention_inputs(dev, gen, B, L, H, D):
     """q, k, v as head-strided views of one projection (MHA splits them out
     of Wqkv, and the kernels read them in place) and a cotangent do."""
@@ -1055,26 +1067,16 @@ def transformer_path(dev, gen, flush, test_x, test_y, train_split, want_files):
     # the kernels at the MQAR shape: time, bound, plain version and SDPA
     with Phase("flash_attention_timing") as ph:
         attn_times, sdpa_kernels = time_flash_attention(fa, *attn_io, flush)
-        for name, (k_ms, w_ms, p_ms, l_ms, bound, by, n_bytes, flops,
-                   f32) in attn_times.items():
-            ph.fields[name] = (f"ms_cold_median={k_ms:.5f},ms_warm_median={w_ms:.5f},"
-                               f"plain_ms={p_ms:.5f},sdpa_ms={l_ms:.5f},"
-                               f"over_library={k_ms / l_ms:.3f},"
-                               f"bound_ms={bound:.5f}({by}),over_bound={k_ms / bound:.3f},"
-                               f"bound_f32_ms={f32:.5f},gflop={flops / 1e9:.3f},"
-                               f"mbytes={n_bytes / 1e6:.1f},tflops={flops / k_ms / 1e9:.2f}")
+        for name, t in attn_times.items():
+            ph.fields[name] = timing_fields(t, "sdpa_ms", "over_library")
         # which SDPA backend ran for float32, and its device kernels by name
         ph.fields["sdpa_fwd_backend"] = sdpa_kernels[0]
         ph.fields["sdpa_fwd_device_kernels_ms"] = repr(sdpa_kernels[1])
-        # dK/dV at ATTN_SHAPES' second shape, for the record
-        second_name, (q, k, v, do, lse, di) = second
-        scale = q.shape[-1] ** -0.5
-        with torch.no_grad():
-            dkv = lambda: fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, di, scale)  # noqa: E731
-            k_ms, w_ms = median(cuda_ms(dkv, 21, flush)), median(cuda_ms(dkv, 21))
-        ph.fields[f"flash_attention_bwd_dkv_{second_name}"] = (
-            f"ms_cold_median={k_ms:.5f},ms_warm_median={w_ms:.5f}")
-        del attn_io, second, q, k, v, do, lse, di
+        # the same at ATTN_SHAPES' second shape, for the record
+        second_name, second_io = second
+        for name, t in time_flash_attention(fa, *second_io, flush)[0].items():
+            ph.fields[f"{name}_{second_name}"] = timing_fields(t, "sdpa_ms", "over_library")
+        del attn_io, second, second_io
         torch.cuda.empty_cache()
     return path5_all, attn_times, attn_errs
 
@@ -1954,31 +1956,19 @@ def main() -> int:
             bsz * L, "decay_attention", "decay_attention"))
         del card_m, card_opt
 
-    # the decay attention's kernels at the MQAR Mamba-2 shape: time, bound,
-    # plain version and the einsum form; also at the WikiText Mamba-2 shape,
-    # for the record
+    # the decay attention's kernels at the MQAR Mamba-2 shape and, for the
+    # record, the WikiText Mamba-2 shape: time, bound, plain version and the
+    # einsum form
     with Phase("decay_attention_timing") as ph:
         decay_times = time_decay_attention(dattn, *decay_io, flush)
-        for name, (k_ms, w_ms, p_ms, e_ms, bound, by, n_bytes, flops,
-                   f32) in decay_times.items():
-            ph.fields[name] = (f"ms_cold_median={k_ms:.5f},ms_warm_median={w_ms:.5f},"
-                               f"plain_ms={p_ms:.5f},einsum_autograd_ms={e_ms:.5f},"
-                               f"over_einsum={k_ms / e_ms:.3f},"
-                               f"bound_ms={bound:.5f}({by}),over_bound={k_ms / bound:.3f},"
-                               f"bound_f32_ms={f32:.5f},gflop={flops / 1e9:.3f},"
-                               f"mbytes={n_bytes / 1e6:.1f},tflops={flops / k_ms / 1e9:.2f}")
+        for name, t in decay_times.items():
+            ph.fields[name] = timing_fields(t, "einsum_autograd_ms", "over_einsum")
         del decay_io
         wt_name = "wikitext_bg8_q1024_n512_hg8_p64"
         wt = decay_inputs(dev, gen, *SSD_SHAPES[wt_name])
-        wt_fns = {"decay_attention_fwd": lambda: dattn.decay_attention_fwd_cuda(*wt[:4]),
-                  "decay_attention_bwd_i": lambda: dattn.decay_attention_bwd_i_cuda(*wt),
-                  "decay_attention_bwd_j": lambda: dattn.decay_attention_bwd_j_cuda(*wt)}
-        for name in DECAY_TC:
-            with torch.no_grad():
-                k_ms = median(cuda_ms(wt_fns[name], 21, flush))
-                w_ms = median(cuda_ms(wt_fns[name], 21))
-            ph.fields[f"{name}_{wt_name}"] = f"ms_cold_median={k_ms:.5f},ms_warm_median={w_ms:.5f}"
-        del wt, wt_fns
+        for name, t in time_decay_attention(dattn, *wt, flush).items():
+            ph.fields[f"{name}_{wt_name}"] = timing_fields(t, "einsum_autograd_ms", "over_einsum")
+        del wt
         torch.cuda.empty_cache()
 
     # main path 5, the MQAR softmax transformer through the flash kernels
