@@ -235,22 +235,22 @@ def _decay_inputs(device, BG, Q, N, Hg, P, seed, pad=7, x_offset=0):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("BG, Q, N, Hg, P, pad", [
-    (4, 512, 128, 1, 128, 7), (2, 256, 64, 4, 64, 7), (3, 77, 40, 3, 33, 7),
-    (2, 1024, 512, 8, 64, 8), (3, 200, 64, 2, 64, 5), (2, 256, 64, 1, 160, 8),
-    (2, 256, 128, 1, 128, -8)],
+@pytest.mark.parametrize("BG, Q, N, Hg, P, pad, x_offset", [
+    (4, 512, 128, 1, 128, 7, 0), (2, 256, 64, 4, 64, 7, 0), (3, 77, 40, 3, 33, 7, 0),
+    (2, 1024, 512, 8, 64, 8, 0), (3, 200, 64, 2, 64, 5, 0), (2, 256, 64, 1, 160, 8, 0),
+    (2, 256, 128, 1, 128, 8, 1)],
     ids=["mqar_like", "heads", "ragged", "wikitext_bg2", "c_stride_not_4", "p160_two_slices",
          "x_base_not_16_bytes"])
-def test_decay_attention_kernels_match_plain(cuda_device, BG, Q, N, Hg, P, pad):
+def test_decay_attention_kernels_match_plain(cuda_device, BG, Q, N, Hg, P, pad, x_offset):
     """The WikiText Mamba-2 shape at a reduced batch (N 512 in four slices of
     bwd_j's dB and of bwd_i's dC, four slabs of two heads), C rows 16-byte
     aligned there and at P 160 (two 128-wide slices of P), unaligned in the
-    other cases; a negative ``pad`` aligns C and starts xdt and dy one float
-    past a 16-byte boundary instead, at the MQAR widths."""
+    other cases; the last case aligns C and starts xdt and dy one float past
+    a 16-byte boundary (``x_offset`` 1), at the MQAR widths."""
     from tlie_tpu_torch.ops import decay_attention as da
 
-    C, B, cs, x, dy = _decay_inputs(cuda_device, BG, Q, N, Hg, P, seed=Q, pad=abs(pad),
-                                    x_offset=int(pad < 0))
+    C, B, cs, x, dy = _decay_inputs(cuda_device, BG, Q, N, Hg, P, seed=Q, pad=pad,
+                                    x_offset=x_offset)
     keys = ("decay_attention_fwd", "decay_attention_bwd_i", "decay_attention_bwd_j")
     before = {k: LAUNCHES[k] for k in keys}
     y = da.decay_attention_fwd_cuda(C, B, cs, x)
@@ -319,19 +319,21 @@ def _attention_inputs(device, B, L, H, D, seed, pad=5, base=0):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B, L, H, D, pad", [(64, 512, 1, 128, 5), (4, 1024, 4, 64, 5),
-                                             (3, 77, 3, 40, 5), (2, 200, 2, 100, 5),
-                                             (3, 333, 2, 128, 8), (2, 130, 4, 64, 0),
-                                             (4, 256, 1, 128, -8)],
+@pytest.mark.parametrize("B, L, H, D, pad, base", [(64, 512, 1, 128, 5, 0),
+                                                   (4, 1024, 4, 64, 5, 0),
+                                                   (3, 77, 3, 40, 5, 0),
+                                                   (2, 200, 2, 100, 5, 0),
+                                                   (3, 333, 2, 128, 8, 0),
+                                                   (2, 130, 4, 64, 0, 0),
+                                                   (4, 256, 1, 128, 8, 1)],
                          ids=["mqar", "heads", "ragged", "ragged_d100", "aligned_d128",
                               "aligned_d64", "base_not_16_bytes"])
-def test_flash_attention_kernels_match_plain(cuda_device, B, L, H, D, pad):
-    """A negative ``pad`` keeps the row strides multiples of 4 floats and
-    starts q, k and v one float past a 16-byte boundary instead."""
+def test_flash_attention_kernels_match_plain(cuda_device, B, L, H, D, pad, base):
+    """The last case keeps the row strides multiples of 4 floats and starts
+    q, k and v one float past a 16-byte boundary (``base`` 1)."""
     from tlie_tpu_torch.ops import attention as fa
 
-    q, k, v, do = _attention_inputs(cuda_device, B, L, H, D, seed=L, pad=abs(pad),
-                                    base=int(pad < 0))
+    q, k, v, do = _attention_inputs(cuda_device, B, L, H, D, seed=L, pad=pad, base=base)
     scale = D ** -0.5
     keys = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
     before = {key: LAUNCHES[key] for key in keys}

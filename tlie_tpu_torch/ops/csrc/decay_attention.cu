@@ -586,12 +586,12 @@ decay_attention_bwd_j_kernel(const float* __restrict__ C, const float* __restric
 // The 128-wide chunks of N that one bwd_i block holds dC for: 64 floats of
 // dC a lane, as bwd_j's accumulators. Where N > 128 each block forms every
 // head's dS for its own chunks, ceil(N / (128 kIChunks)) times per tile
-// pair. At the WikiText Mamba-2 shape (N 512) 2 took 1.204 ms L2-cold
-// against 1.940 with 1 (dS formed twice against 4 times, half the blocks),
-// in one call of tlie_tpu_torch.kernel_ab on an H100 80GB HBM3 at 700 W; at
-// the MQAR shape, one chunk either way. A dC accumulator of all 512 columns
-// in shared memory (128 KB) does not fit beside the four 64 x 128 operand
-// tiles (139 KB).
+// pair. At the WikiText Mamba-2 shape (N 512) 2 forms dS twice against 4
+// times with 1, in half the blocks: chip_smoke.py's timing of bwd_i there,
+// run from this tree and from a copy with kIChunks = 1, decided it
+// (PERF.md, row 3); at the MQAR shape, one chunk either way. A dC
+// accumulator of all 512 columns in shared memory (128 KB) does not fit
+// beside the four 64 x 128 operand tiles (139 KB).
 constexpr int kIChunks = 2;
 static_assert(kIChunks == 1 || kIChunks == 2, "dC's chunks swap through acc[0]");
 // C_i, B_j, dy_i and x_j, CB, dCB and cs: 176,128 bytes
