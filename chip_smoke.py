@@ -76,10 +76,10 @@ T_START = time.perf_counter()
 # beside every time.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
-# dense TF32 on the tensor cores (the same data sheet): the fused head's three
-# kernels, the flash attention's forward and the decay attention's forward
-# and bwd_j run their products there, as three TF32 products each (the split
-# x = big + small that keeps float32 accuracy)
+# dense TF32 on the tensor cores (the same data sheet): the fused head's, the
+# flash attention's and the decay attention's three kernels each run their
+# products there, as three TF32 products each (the split x = big + small
+# that keeps float32 accuracy)
 TF32_FLOPS_PER_S = 495e12
 
 # kernel vs plain on the card: f32 sequential and chunked accumulation over
@@ -224,6 +224,7 @@ def nvidia_smi_line() -> str:
 TC_KERNELS = {"fwd_p64": "fused_xent", "dh_p64": "fused_xent", "dh_p32": "fused_xent",
               "dw_p64": "fused_xent", "dw_p32": "fused_xent",
               "flash_fwd": "flash_attention", "flash_bwd_dkv": "flash_attention",
+              "flash_bwd_dq": "flash_attention",
               "decay_fwd": "decay_attention", "decay_bwd_i": "decay_attention",
               "decay_bwd_j": "decay_attention"}
 
@@ -232,8 +233,8 @@ def tensor_core_hmma(lib_paths, nvcc: str) -> dict:
     """The HMMA opcodes, with their counts, of each tensor-core kernel in the
     built libraries, from ``cuobjdump -sass`` (beside ``nvcc``): each
     instantiation of the fused head's forward and backward kernels, the
-    flash attention's forward and dK/dV, and the decay attention's forward,
-    bwd_i and bwd_j, {"dh_p64": {"HMMA.1688.F32.TF32": 192}, ...}."""
+    flash attention's three, and the decay attention's forward, bwd_i and
+    bwd_j, {"dh_p64": {"HMMA.1688.F32.TF32": 192}, ...}."""
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     instr = re.compile(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?(HMMA\S*)")
     names = ((re.compile(r"xent_bwd_kernelILb([01])ELi(\d+)E"),
@@ -241,6 +242,7 @@ def tensor_core_hmma(lib_paths, nvcc: str) -> dict:
              (re.compile(r"xent_fwd_kernelILi(\d+)E"), lambda m: f"fwd_p{m.group(1)}"),
              (re.compile(r"flash_attention_fwd_kernel"), lambda m: "flash_fwd"),
              (re.compile(r"flash_attention_bwd_dkv_kernel"), lambda m: "flash_bwd_dkv"),
+             (re.compile(r"flash_attention_bwd_dq_kernel"), lambda m: "flash_bwd_dq"),
              (re.compile(r"decay_attention_fwd_kernel"), lambda m: "decay_fwd"),
              (re.compile(r"decay_attention_bwd_i_kernel"), lambda m: "decay_bwd_i"),
              (re.compile(r"decay_attention_bwd_j_kernel"), lambda m: "decay_bwd_j"))
@@ -688,8 +690,8 @@ def check_flash_attention(fa, q, k, v, do, f64: bool):
 
 
 # the flash attention's kernels on the tensor cores (three TF32 products a
-# product); dQ runs float32 outside them
-ATTN_TC = ("flash_attention_fwd", "flash_attention_bwd_dkv")
+# product)
+ATTN_TC = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
 
 
 def time_flash_attention(fa, q, k, v, do, lse, di, flush):
@@ -701,7 +703,7 @@ def time_flash_attention(fa, q, k, v, do, lse, di, flush):
     inputs, the device kernels its forward ran, by name, from
     ``torch.profiler``)).  The kernels of ATTN_TC run their products on
     the tensor cores as three TF32 products each: their bound is the lesser
-    of that and float32 outside them; dQ's is float32's."""
+    of that and float32 outside them."""
     import torch.nn.functional as F
 
     B, L, H, D = q.shape
@@ -1144,9 +1146,9 @@ def main() -> int:
                     if "registers" in ln]
             ph.fields[f"{name}_nvcc_s"] = f"{report.seconds:.2f}"
             ph.fields[f"{name}_ptxas"] = repr(regs)
-        # the fused head's three kernels, the flash forward and dK/dV and the
-        # decay attention's three kernels run their products on the tensor
-        # cores: each one's SASS holds TF32 HMMAs
+        # the fused head's three kernels, the flash attention's three and the
+        # decay attention's three run their products on the tensor cores:
+        # each one's SASS holds TF32 HMMAs
         hmma = tensor_core_hmma(
             [reports[lib].path for lib in sorted(set(TC_KERNELS.values()))], find_nvcc())
         ph.fields["tensor_core_sass_hmma"] = repr(hmma)

@@ -1,7 +1,7 @@
 """The numerical design of the port's tensor-core kernels, emulated on the
 CPU: the fused head's forward and its dh and dW/db kernels
 (``tlie_tpu_torch/ops/csrc/fused_xent.cu``), the flash attention's
-forward and dK/dV kernel (``flash_attention.cu``) and the decay attention's
+forward, dK/dV and dQ kernels (``flash_attention.cu``) and the decay attention's
 forward, bwd_i and bwd_j (``decay_attention.cu``).
 
 The kernels run their products on the tensor cores in TF32, with each
@@ -11,8 +11,8 @@ small·big + big·small + big·big (``tf32_mma.cuh``).  The head's logits are
 summed 32 deep at a time before a float32 add, its second product one
 128-row vocabulary (or row) tile at a time; the flash forward sums S = q kᵀ
 32 deep and P v over one 64-row j tile at a time, with the online rescale;
-the flash dK/dV kernel and the decay attention sum every product 8 deep (one
-m16n8k8 step) before its float32 add.
+the flash dK/dV and dQ kernels and the decay attention sum every product 8
+deep (one m16n8k8 step) before its float32 add.
 Here the same split and the same partial sums run in float32 on the CPU,
 from numpy inputs made from a seed, and the result is held to the float64
 plain version under the tolerance the card holds the kernels to
@@ -23,7 +23,7 @@ plain version under the tolerance the card holds the kernels to
 * the head's forward: lse within XENT_RTOL relative, the batch's loss sum
   within XENT_RTOL relative, and each row's loss within XENT_RTOL of
   |lse| + |picked logit|;
-* the flash attention: o, dk and dv within ATTN_RTOL + ``logit_rtol`` of the
+* the flash attention: o, dq, dk and dv within ATTN_RTOL + ``logit_rtol`` of the
   sum of their terms' magnitudes, lse within the same fraction of
   max(1, |lse|);
 * the decay attention: y, dC, dcs_i, dB, dxdt and dcs_j within SSD_RTOL of
@@ -54,7 +54,7 @@ F32_UNIT = 2.0 ** -24
 KQ, KBK = 128, 32  # the head's tile of the streamed operand and its logits' depth step
 KT, KSK = 64, 32   # the flash forward's tile edge (rows of i and j) and its S depth step
 SSD_RTOL = 1e-5
-KFRESH = 8         # the fresh-sum depth of dK/dV and the decay attention (tile edge KT)
+KFRESH = 8         # the fresh-sum depth of dK/dV, dQ and the decay attention (tile edge KT)
 CSRC = Path(fx.__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "fused_xent.cu"
 
@@ -172,9 +172,11 @@ def test_emulation_follows_the_kernel_source():
     assert const(shared, "kT") == KT and const(flash, "kSK") == KSK
     assert flash.count("mma_step_3xtf32<1, 8>") == 2  # the forward's S and P v
     # dK/dV: Sᵀ and dPᵀ in one call both warp groups run, dv and dk in
-    # another, each a run of KFRESH-deep fresh sums (tf32_mma.cuh)
+    # another; dQ: S and dP in one, dq in another; each a run of KFRESH-deep
+    # fresh sums (tf32_mma.cuh)
     assert const(shared, "kFresh") == KFRESH
-    assert flash.count("product_nt32<kTLd>(") == 1 and flash.count("product_64<kDLd, kTLd>(") == 1
+    assert flash.count("product_nt32<kTLd>(") == 2 and flash.count("product_64<kDLd, kTLd>(") == 2
+    assert "flash_attention_bwd_dq_kernel" in flash and "tile_nt(" not in flash
 
 
 @pytest.mark.parametrize("grad", ["dh", "dw", "db"])
@@ -364,6 +366,62 @@ def test_flash_dkv_single_tf32_product_fails_it(D):
     undamped, far above ATTN_RTOL + ``logit_rtol``."""
     ratios = _flash_dkv_case(D, 1)
     assert ratios["dk"] > 1.0 and ratios["dv"] > 1.0, ratios
+
+
+def emulated_flash_bwd_dq(q, k, v, do, lse, di, scale, products=3):
+    """dq as the dQ kernel computes it: for each 64-row i tile, the j tiles
+    j ≤ i with S = q_i k_jᵀ and dP = do_i v_jᵀ (``mm_tf32``, KFRESH deep), P =
+    exp(scale·S − lse_i) where j ≤ i, dS = P ⊙ (dP − di_i), then dq += dS k_j,
+    also KFRESH deep; dq times scale at the end.  q, k, v, do (B, L, H, D);
+    lse, di (B, H, L)."""
+    B, L, H, D = q.shape
+    qh, kh, vh, doh = (t.transpose(1, 2) for t in (q, k, v, do))  # (B, H, L, D)
+    dq = torch.zeros(B, H, L, D)
+    for i0 in range(0, L, KT):
+        i = torch.arange(i0, min(i0 + KT, L))
+        acc = torch.zeros(B, H, len(i), D)
+        for j0 in range(0, i0 + 1, KT):
+            j = torch.arange(j0, min(j0 + KT, L))
+            s = mm_tf32(qh[:, :, i], kh[:, :, j].transpose(-1, -2), KFRESH, products)
+            valid = j[None, :] <= i[:, None]
+            p = torch.where(valid, torch.exp(s * scale - lse[:, :, i, None]), torch.zeros(()))
+            dp = mm_tf32(doh[:, :, i], vh[:, :, j].transpose(-1, -2), KFRESH, products)
+            ds = p * (dp - di[:, :, i, None])
+            acc += mm_tf32(ds, kh[:, :, j], KFRESH, products)
+        dq[:, :, i] = acc * scale
+    return dq.transpose(1, 2)
+
+
+@lru_cache(maxsize=None)
+def _flash_dq_case(D, products):
+    """dq's worst error over its tolerance, against float64, on the dK/dV
+    case's inputs (L 200); lse and di from the float32 plain forward, as the
+    kernel gets them."""
+    rng = np.random.default_rng(D)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 200, 2, D)).astype(np.float32))
+               for _ in range(3))
+    do = torch.from_numpy(rng.standard_normal((2, 200, 2, D)).astype(np.float32))
+    scale = D ** -0.5
+    o, lse = fa.flash_attention_plain(q, k, v, scale)
+    got = emulated_flash_bwd_dq(q, k, v, do, lse, fa.attention_di(o, do), scale, products)
+    ref = tuple(t.double() for t in (q, k, v, do))
+    o64, lse64 = fa.flash_attention_plain(*ref[:3], scale)
+    want = fa.flash_attention_bwd_dq_plain(*ref, lse64, fa.attention_di(o64, ref[3]), scale)
+    rtol = ATTN_RTOL + fa.logit_rtol(q, k, scale)
+    sc = fa.term_scales(*ref, lse64, scale)[1]
+    return ((got.double() - want).abs() / (rtol * sc + 1e-300)).max().item()
+
+
+@pytest.mark.parametrize("D", [64, 100, 128])
+def test_flash_dq_three_product_split_holds_the_float32_tolerance(D):
+    assert _flash_dq_case(D, 3) <= 1.0
+
+
+@pytest.mark.parametrize("D", [64, 100, 128])
+def test_flash_dq_single_tf32_product_fails_it(D):
+    """As for dK/dV: row 0's dq is one term, dS_00 k_0, and the first rows sum
+    few, so each operand's TF32 rounding stays nearly undamped."""
+    assert _flash_dq_case(D, 1) > 1.0
 
 
 # -- the decay attention's forward, bwd_i and bwd_j --------------------------------

@@ -28,8 +28,7 @@
 // at 67 TFLOP/s of float32 outside the tensor cores, 0.026 ms as three TF32
 // products at 495 TFLOP/s on them, against 67 MB of operands, 0.020 ms at
 // 3.35 TB/s. dK/dV does four products (8D a pair): 0.052 ms as three TF32
-// products on the tensor cores; dQ three (6D): 0.096 ms at float32 outside
-// them.
+// products on the tensor cores; dQ three (6D): 0.039 ms so.
 //
 // Forward, on the tensor cores (mma.sync m16n8k8 on TF32, float32
 // accumulators, each product as three TF32 products of a split operand:
@@ -62,13 +61,25 @@
 // -v, sm_90a, CUDA 12.8): 218 registers, 174,592 bytes of dynamic shared
 // memory, one block of 8 warps an SM, no spills.
 //
-// dQ: float32 SIMT tile products on shared memory. A block of 256 threads
-// owns 64 rows of i of one (b, h), each thread a 4 x 4 piece of every 64 x
-// 64 tile, and walks the j-tiles j <= i: S = q_i k_j^T and dP = do_i v_j^T
-// over D, P = exp(scale S - lse_i), dS = P (dP - di_i), dq_i += dS k_j
-// (times scale at the store). Head dims past 64 are a second 64-wide column
-// tile of the accumulator, held in registers beside the first. Its shared
-// tiles take 44 KB of static shared memory whatever D is.
+// dQ, on the tensor cores too: dK/dV mirrored, as the decay attention's
+// bwd_i mirrors its bwd_j. Block (b h, i-tile) of 8 warps in two groups of
+// 4, each warp 16 whole rows of i, walking the j-tiles j <= i; q_i and do_i
+// land once and stay put, k_j and v_j land for each j-tile in four depth
+// quarters. Group B forms S = q_i k_j^T over D, P = exp(scale S - lse_i)
+// where j <= i < L, and publishes P in shared memory; group A forms dP =
+// do_i v_j^T over D and, after the block's barrier, dS = P (dP - di_i) in
+// place of its rows of P; then both groups add dS k_j to dq, group A
+// columns 0-63 of D and group B columns 64-127, kFresh = 8 deep before each
+// float32 add as in dK/dV (dq sums over up to L rows of j, and its gradient
+// over every position into Wqkv), times scale once, at the store. Each of
+// the three products is formed once per tile pair: at the MQAR shape 2 x 4
+// warps x 8 fragments x 16 depth steps of 8 x 3 (S, dP) + 8 warps x 8 x 8
+// x 3 (dq) = 4,608 mma.sync. Where D <= 64 dq has no columns 64-127: group
+// B forms S and P, then waits at the barriers while group A adds dS k_j
+// alone (at D 64, dq's 768 mma.sync, a third of a tile pair's 2,304, run
+// on half the warps). ptxas (nvcc -Xptxas -v, sm_90a, CUDA 12.8): 181
+// registers, 157,184 bytes of dynamic shared memory, one block of 8 warps
+// an SM, no spills.
 //
 // Each output element has one writer, so there are no atomics and every
 // launch is deterministic. exp is taken only where j <= i (and i < L); a
@@ -85,136 +96,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // 16 x 16 threads, each a 4 x 4 piece
-constexpr int kK = 16;         // depth of one shared-memory step of a q.k tile
-constexpr int kPad = 4;        // row padding of the shared tiles (keeps float4 alignment)
-constexpr int kMaxD = 128;     // head dims up to two 64-wide column tiles
-constexpr int kDT = kMaxD / kT;
-static_assert(kT * kK % kThreads == 0 && kT * kT % kThreads == 0,
-              "tile loads split evenly over the threads");
-static_assert(kT == 4 * 16 && kThreads == 16 * 16, "16 x 16 threads of 4 x 4 pieces");
-
-struct Smem {
-  __align__(16) float a[kK][kT + kPad];  // depth-major step of the first operand
-  __align__(16) float b[kK][kT + kPad];  // depth-major step of the second operand
-  __align__(16) float s[kT][kT + kPad];  // probabilities or dS, s[k][row] for the second product
-  __align__(16) float v[kT][kT + kPad];  // value tile, v[k][col]
-  float lse[kT];                          // lse of the rows the scores are taken for
-  float di[kT];                           // di of the same rows
-};
-
-__device__ __forceinline__ void zero(float acc[4][4]) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-}
-
-// acc[r][c] = sum_k A[4ty + r][k] * Bm[4tx + c][k] over k < K, where A and Bm
-// point at the first row of their 64-row tiles, rows are lda / ldb apart,
-// depth is contiguous, and rows at or past a_rows / b_rows read as 0.
-// Starts and ends with every thread past its last use of sm.a and sm.b.
-__device__ __forceinline__ void tile_nt(const float* __restrict__ A, int64_t a_rows, int64_t lda,
-                                        const float* __restrict__ Bm, int64_t b_rows,
-                                        int64_t ldb, int64_t K, Smem& sm, float acc[4][4]) {
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  zero(acc);
-  for (int64_t k0 = 0; k0 < K; k0 += kK) {
-    // 16 neighbouring threads read 16 neighbouring floats of one row
-#pragma unroll
-    for (int it = 0; it < kT * kK / kThreads; ++it) {
-      const int e = tid + it * kThreads, r = e / kK, c = e % kK;
-      const int64_t k = k0 + c;
-      sm.a[c][r] = (r < a_rows && k < K) ? A[r * lda + k] : 0.f;
-      sm.b[c][r] = (r < b_rows && k < K) ? Bm[r * ldb + k] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int c = 0; c < kK; ++c) {
-      const float4 a = *reinterpret_cast<const float4*>(&sm.a[c][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&sm.b[c][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[r][q] = fmaf(av[r], bv[q], acc[r][q]);
-    }
-    __syncthreads();
-  }
-}
-
-// sm.v[r][c] = V[r * ldv + c] for r < rows, c < cols, else 0.
-__device__ __forceinline__ void load_values(const float* __restrict__ V, int64_t rows,
-                                            int64_t cols, int64_t ldv, Smem& sm) {
-  const int tid = threadIdx.x;
-#pragma unroll
-  for (int it = 0; it < kT * kT / kThreads; ++it) {
-    const int e = tid + it * kThreads, r = e / kT, c = e % kT;
-    sm.v[r][c] = (r < rows && c < cols) ? V[r * ldv + c] : 0.f;
-  }
-}
-
-// Up to 64 values of a (B, H, L) row into dst (0 past `rows`).
-__device__ __forceinline__ void load_rows(const float* __restrict__ src, int64_t rows,
-                                          float* dst) {
-  const int tid = threadIdx.x;
-  if (tid < kT) dst[tid] = tid < rows ? src[tid] : 0.f;
-}
-
-// acc[r][c] += sum_k sm.s[k][4ty + r] * sm.v[k][4tx + c]: the second product,
-// after a __syncthreads() that published sm.s and sm.v.
-__device__ __forceinline__ void tile_sv(const Smem& sm, float acc[4][4]) {
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-#pragma unroll 8
-  for (int k = 0; k < kT; ++k) {
-    const float4 a = *reinterpret_cast<const float4*>(&sm.s[k][ty * 4]);
-    const float4 b = *reinterpret_cast<const float4*>(&sm.v[k][tx * 4]);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[r][q] = fmaf(av[r], bv[q], acc[r][q]);
-  }
-}
-
-// For each 64-wide column tile t of the D columns: sm.v = the 64 rows of V
-// (row stride ldv) in columns 64t.., then acc[t] += sm.s^T-product with it.
-// Called after the caller wrote sm.s; ends with every thread past its reads.
-__device__ __forceinline__ void accumulate(const float* __restrict__ V, int64_t rows,
-                                           int64_t ldv, int64_t D, Smem& sm,
-                                           float acc[kDT][4][4]) {
-#pragma unroll
-  for (int t = 0; t < kDT; ++t) {
-    if (t * kT >= D) break;  // uniform over the block
-    load_values(V + t * kT, rows, D - t * kT, ldv, sm);
-    __syncthreads();
-    tile_sv(sm, acc[t]);
-    __syncthreads();
-  }
-}
-
-// Store the thread's 4 x 4 pieces of the D columns at rows row0 + 4ty + r
-// (row stride ld), each row scaled by rscale[r].
-__device__ __forceinline__ void store_rows(float* __restrict__ out, int64_t row0, int64_t rows,
-                                           int64_t ld, int64_t D, const float rscale[4],
-                                           const float acc[kDT][4][4]) {
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-#pragma unroll
-  for (int t = 0; t < kDT; ++t) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int64_t row = row0 + ty * 4 + r;
-      if (row >= rows) continue;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int64_t col = t * kT + tx * 4 + c;
-        if (col < D) out[row * ld + col] = acc[t][r][c] * rscale[r];
-      }
-    }
-  }
-}
+constexpr int kMaxD = 128;  // head dims up to two 64-wide column tiles
 
 struct Dims {
   int64_t L, H, D;
@@ -223,50 +105,6 @@ struct Dims {
   int64_t v_bs, v_ls, v_hs;
   float scale;
 };
-
-// grid (B * H, ceil(L / 64)); i-tile = last - blockIdx.y
-__global__ void __launch_bounds__(kThreads)
-flash_attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                              const float* __restrict__ v, const float* __restrict__ dout,
-                              const float* __restrict__ lse, const float* __restrict__ di,
-                              float* __restrict__ dq, Dims d) {
-  __shared__ Smem sm;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int64_t bh = blockIdx.x, b = bh / d.H, h = bh % d.H;
-  const int64_t i0 = static_cast<int64_t>(gridDim.y - 1 - blockIdx.y) * kT;
-  const float* qb = q + b * d.q_bs + h * d.q_hs;
-  const float* kb = k + b * d.k_bs + h * d.k_hs;
-  const float* vb = v + b * d.v_bs + h * d.v_hs;
-  const int64_t ld = d.H * d.D;
-  const float* dob = dout + (b * d.L * d.H + h) * d.D;
-
-  float acc[kDT][4][4], p[4][4], ds[4][4];
-#pragma unroll
-  for (int t = 0; t < kDT; ++t) zero(acc[t]);
-  load_rows(lse + bh * d.L + i0, d.L - i0, sm.lse);  // published by tile_nt's first barrier
-  load_rows(di + bh * d.L + i0, d.L - i0, sm.di);
-
-  for (int64_t j0 = 0; j0 <= i0; j0 += kT) {
-    tile_nt(qb + i0 * d.q_ls, d.L - i0, d.q_ls, kb + j0 * d.k_ls, d.L - j0, d.k_ls, d.D, sm, p);
-    tile_nt(dob + i0 * ld, d.L - i0, ld, vb + j0 * d.v_ls, d.L - j0, d.v_ls, d.D, sm, ds);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int li = ty * 4 + r;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int lj = tx * 4 + c;
-        const int64_t i = i0 + li, j = j0 + lj;
-        const bool valid = j <= i && i < d.L;
-        const float pv = valid ? expf(p[r][c] * d.scale - sm.lse[li]) : 0.f;
-        sm.s[lj][li] = pv * (ds[r][c] - sm.di[li]);
-      }
-    }
-    accumulate(kb + j0 * d.k_ls, d.L - j0, d.k_ls, d.D, sm, acc);
-  }
-
-  const float sc[4] = {d.scale, d.scale, d.scale, d.scale};
-  store_rows(dq + (b * d.L * d.H + h) * d.D, i0, d.L, ld, d.D, sc, acc);
-}
 
 // -- the forward on the tensor cores ---------------------------------------------
 
@@ -486,12 +324,14 @@ flash_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict_
 
 // -- dK/dV on the tensor cores -----------------------------------------------------
 
-constexpr int kDkvThreads = 256;  // two groups of 4 warps, each warp 16 whole rows of the j-tile
-// Row strides of the dK/dV kernel's shared tiles, in floats: the operand
+// the backward kernels: two groups of 4 warps, each warp 16 whole rows of
+// the block's tile (j for dK/dV, i for dQ)
+constexpr int kBwdThreads = 256;
+// Row strides of the backward kernels' shared tiles, in floats: the operand
 // tiles are read as float2 at (8g + 2t) along their rows in the first
 // products and as float at (8t + g) down their columns in the second (8
 // modulo 32 serves both); the P^T and dS^T slices at (4g + t) in the A
-// layout (4 modulo 32).
+// layout (4 modulo 32), as are dQ's P and dS.
 constexpr int kTLd = kMaxD + 8;
 constexpr int kDLd = kT + 4;
 // k_j, q_i, v_j and do_i, P^T and dS^T, lse_i and di_i: 174,592 bytes
@@ -509,7 +349,7 @@ static_assert(kMaxD == 4 * kStep, "a row of D is four depth quarters");
 // product reads and waiting only for its own, at its own barrier; after the
 // block's barrier group A reads the P^T group B published, and each group's
 // second product reads the tile the other group copied.
-__global__ void __launch_bounds__(kDkvThreads, 1)
+__global__ void __launch_bounds__(kBwdThreads, 1)
 flash_attention_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                const float* __restrict__ v, const float* __restrict__ dout,
                                const float* __restrict__ lse, const float* __restrict__ di,
@@ -641,6 +481,138 @@ flash_attention_bwd_dkv_kernel(const float* __restrict__ q, const float* __restr
   }
 }
 
+// -- dQ on the tensor cores ---------------------------------------------------------
+
+// q_i, k_j, do_i and v_j, P (then dS), lse_i and di_i: 157,184 bytes
+constexpr int kDqSmemFloats = 4 * kT * kTLd + kT * kDLd + 2 * kT;
+
+// grid (B * H, ceil(L / 64)), dynamic shared memory kDqSmemFloats; block
+// (b h, i-tile = last - blockIdx.y) walks the j-tiles j <= i. Warps 0-3 are
+// group A (dP = do_i v_j^T, then dS = P (dP - di_i)), warps 4-7 group B (S =
+// q_i k_j^T, P = exp(scale S - lse_i)); warp w of either holds rows 16 (w %
+// 4) + g and + 8 of the i-tile, and columns 8n + 2t4 and + 1 of each C
+// fragment (j for S and dP, D for dq). q_i and do_i land once and stay put;
+// k_j and v_j land by cp.async in four depth quarters, each group copying
+// the one its first product reads and waiting only for its own, at its own
+// barrier. After the block's barrier group A turns the P group B published
+// into dS in place; after the next, both groups add dS k_j to dq (the k_j
+// group B copied), group A into columns 0-63 of D, group B into 64-127.
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, const float* __restrict__ dout,
+                              const float* __restrict__ lse, const float* __restrict__ di,
+                              float* __restrict__ dq, Dims d) {
+  extern __shared__ __align__(16) float smem[];
+  float* tq = smem;                 // q_i [kT][kTLd]
+  float* tk = tq + kT * kTLd;       // k_j
+  float* tdo = tk + kT * kTLd;      // do_i
+  float* tv = tdo + kT * kTLd;      // v_j
+  float* ps = tv + kT * kTLd;       // P, then dS [kT][kDLd]
+  float* rows_i = ps + kT * kDLd;   // [lse_i | di_i][kT]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+  const bool grp_b = warp >= 4;
+  const int gtid = threadIdx.x % 128;
+  const int r0 = 16 * (warp % 4);
+  const int64_t bh = blockIdx.x, b = bh / d.H, h = bh % d.H;
+  const int64_t i0 = static_cast<int64_t>(gridDim.y - 1 - blockIdx.y) * kT;
+  const int64_t ld = d.H * d.D;  // row stride of the contiguous (B, L, H, D) tensors
+  const bool vec =
+      d.D % 4 == 0 &&
+      (d.q_bs | d.q_ls | d.q_hs | d.k_bs | d.k_ls | d.k_hs | d.v_bs | d.v_ls | d.v_hs) % 4 == 0 &&
+      (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout)) % 16 == 0;
+  // the group's first product: rows of the i-tile (q_i or do_i) times rows of
+  // the j-tile (k_j or v_j) over D
+  const float* own = grp_b ? q + b * d.q_bs + h * d.q_hs + i0 * d.q_ls
+                           : dout + (b * d.L * d.H + h) * d.D + i0 * ld;
+  const float* walk = grp_b ? k + b * d.k_bs + h * d.k_hs : v + b * d.v_bs + h * d.v_hs;
+  const int64_t ld_own = grp_b ? d.q_ls : ld, ld_walk = grp_b ? d.k_ls : d.v_ls;
+  float* tile_own = grp_b ? tq : tdo;
+  float* tile_walk = grp_b ? tk : tv;
+  if (gtid < kT)  // lse_i (group B), di_i (group A); 0 past L
+    rows_i[(grp_b ? 0 : kT) + gtid] =
+        i0 + gtid < d.L ? (grp_b ? lse : di)[bh * d.L + i0 + gtid] : 0.f;
+
+  float acc[8][4];  // dq of the thread's two rows, in the group's 64 columns of D
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[n][r] = 0.f;
+  float f[1][8][4];  // S (group B) or dP (group A)
+
+  for (int64_t j0 = 0; j0 <= i0; j0 += kT) {
+    const bool first = j0 == 0;
+    zero_frags(f);
+#pragma unroll 1
+    for (int qq = 0; qq < 4; ++qq) {  // a copy group a depth quarter
+      if (first)
+        copy_tile<kTLd, kStep>(tile_own + qq * kStep, own + qq * kStep, ld_own, d.L - i0,
+                               d.D - qq * kStep, vec, grp_b ? q : dout, gtid, 128);
+      copy_tile<kTLd, kStep>(tile_walk + qq * kStep, walk + j0 * ld_walk + qq * kStep, ld_walk,
+                             d.L - j0, d.D - qq * kStep, vec, grp_b ? k : v, gtid, 128);
+      cp_async_commit();
+    }
+#pragma unroll 1
+    for (int qq = 0; qq < 4; ++qq) {
+      cp_async_wait_n(3 - qq);
+      group_sync(grp_b ? 2 : 1);  // quarter qq of both tiles is in
+      if (qq * kStep < d.D)
+        product_nt32<kTLd>(f[0], tile_own + r0 * kTLd + qq * kStep, tile_walk + qq * kStep);
+    }
+    if (grp_b) {  // P = exp(scale S - lse_i) where j <= i < L, published for group A
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int li = r0 + g + 8 * hh;
+        const int64_t i = i0 + li;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          float p[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int64_t j = j0 + 8 * n + 2 * t4 + e;
+            p[e] = j <= i && i < d.L ? expf(f[0][n][2 * hh + e] * d.scale - rows_i[li]) : 0.f;
+          }
+          *reinterpret_cast<float2*>(&ps[li * kDLd + 8 * n + 2 * t4]) = make_float2(p[0], p[1]);
+        }
+      }
+    }
+    __syncthreads();  // P is published; k_j and v_j are in
+    if (!grp_b) {  // dS = P (dP - di_i), in place of the warp's rows of P
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int li = r0 + g + 8 * hh;
+        const float dii = rows_i[kT + li];
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          float2* x = reinterpret_cast<float2*>(&ps[li * kDLd + 8 * n + 2 * t4]);
+          const float2 p = *x;
+          *x = make_float2(p.x * (f[0][n][2 * hh] - dii), p.y * (f[0][n][2 * hh + 1] - dii));
+        }
+      }
+    }
+    __syncthreads();  // dS is in
+    // the second product, one code for both groups: dq += dS k_j over the
+    // j-tile's 64 rows, each group into its 64 columns of D
+    if ((grp_b ? kT : 0) < d.D)  // uniform over the group
+      product_64<kDLd, kTLd>(acc, ps + r0 * kDLd, tk + (grp_b ? kT : 0));
+    __syncthreads();  // every warp is past the j-tile's tiles and dS
+  }
+
+  float* out = dq + (b * d.L * d.H + h) * d.D;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int64_t i = i0 + r0 + g + 8 * hh;
+    if (i >= d.L) continue;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int64_t col = (grp_b ? kT : 0) + 8 * n + 2 * t4 + e;
+        if (col < d.D) out[i * ld + col] = acc[n][2 * hh + e] * d.scale;  // scaled once, here
+      }
+  }
+}
+
 constexpr int64_t kMaxGridY = 65535;
 
 int64_t tiles(int64_t n) { return (n + kT - 1) / kT; }
@@ -690,7 +662,7 @@ extern "C" int tlie_flash_attention_bwd_dkv_f32(const float* q, const float* k, 
   const cudaError_t err = cudaFuncSetAttribute(
       flash_attention_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_attention_bwd_dkv_kernel<<<grid_of(B, L, H), kDkvThreads, smem,
+  flash_attention_bwd_dkv_kernel<<<grid_of(B, L, H), kBwdThreads, smem,
                                    static_cast<cudaStream_t>(stream)>>>(q, k, v, dout, lse, di,
                                                                         dk, dv, d);
   return static_cast<int>(cudaGetLastError());
@@ -705,7 +677,11 @@ extern "C" int tlie_flash_attention_bwd_dq_f32(const float* q, const float* k, c
                                                int64_t v_hs, float scale, void* stream) {
   if (bad_shape(B, L, H, D)) return static_cast<int>(cudaErrorInvalidValue);
   const Dims d{L, H, D, q_bs, q_ls, q_hs, k_bs, k_ls, k_hs, v_bs, v_ls, v_hs, scale};
-  flash_attention_bwd_dq_kernel<<<grid_of(B, L, H), kThreads, 0,
+  const int smem = kDqSmemFloats * static_cast<int>(sizeof(float));
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_attention_bwd_dq_kernel<<<grid_of(B, L, H), kBwdThreads, smem,
                                   static_cast<cudaStream_t>(stream)>>>(q, k, v, dout, lse, di,
                                                                        dq, d);
   return static_cast<int>(cudaGetLastError());
