@@ -365,6 +365,26 @@ def median(xs):
     return sorted(xs)[len(xs) // 2]
 
 
+def time_scan_kernel(kernel, plain, n_bytes: int, flops: int, flush):
+    """One scan kernel's L2-cold and warm medians of 21 launches, the plain
+    loop's best of 2 and the bound from the bytes and float32 operations
+    given: (ms, warm_ms, plain_ms, bound_ms, bound_by)."""
+    cold = median(cuda_ms(kernel, 21, flush))
+    warm = median(cuda_ms(kernel, 21))
+    plain_ms = min(cuda_ms(plain, 2))
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / FP32_FLOPS_PER_S * 1e3
+    return (cold, warm, plain_ms, max(bytes_ms, flops_ms),
+            "bytes" if bytes_ms >= flops_ms else "operations")
+
+
+def scan_timing_fields(t, n_bytes: int) -> str:
+    """One entry of ``time_scan_kernel`` as a phase field."""
+    ms, warm, plain_ms, bound, by = t
+    return (f"cold_median={ms:.5f},warm_median={warm:.5f},plain_ms={plain_ms:.3f},"
+            f"bound_ms={bound:.5f}({by}),over_bound={ms / bound:.3f},bytes={n_bytes}")
+
+
 def xent_inputs(dev, gen, M, D, V):
     """h (M, D), the decoder weight as nn.Linear keeps it (V, D) with w its
     (D, V) transpose, b (V,), labels (M,) with -100 on the last row of each
@@ -1210,9 +1230,15 @@ def main() -> int:
                 torch.cuda.synchronize()
                 da_ref, d_ref = diag_scan_bwd_plain(a, ref, g, reverse=reverse)
                 d_e, d_tol, da_e, da_ratio = bwd_err(a, ref, da, d, da_ref, d_ref, reverse)
+                # no atomics: a second launch gives the same bits
+                same = all(torch.equal(x, y) for x, y in zip(
+                    _planes(da) + _planes(d), sum(map(_planes, diag_scan_bwd_cuda(
+                        a, ref, g, reverse=reverse)), ())))
                 ph.fields[tag] = (f"h_rel={h_err / h_scale:.2e},d_abs={d_e:.2e}/tol={d_tol:.2e},"
-                                  f"da_abs={da_e:.2e},da_err_over_tol={da_ratio:.3f}")
-                if not (h_err <= SCAN_RTOL_OF_MAX * h_scale and d_e <= d_tol and da_ratio <= 1.0):
+                                  f"da_abs={da_e:.2e},da_err_over_tol={da_ratio:.3f},"
+                                  f"same_bits_twice={same}")
+                if not (h_err <= SCAN_RTOL_OF_MAX * h_scale and d_e <= d_tol and da_ratio <= 1.0
+                        and same):
                     raise AssertionError(f"diag_scan_bwd {tag}: {ph.fields[tag]}")
 
     # the fused head's three kernels against the plain version, at the LM's
@@ -1574,7 +1600,9 @@ def main() -> int:
         else:  # the profiler saw no device time: the CUDA-event time stands alone
             ph.fields.update(device_busy_ms="not measured")
 
-    # 11. the kernels at the path's shape: time, bound, plain version
+    # 11. the kernels at the path's shape: time, bound, plain version; and
+    # at the LM's shape (8, 1024, 512, complex, (N,) a), for the record
+    lm_a, lm_b = ring((512,)), normal_pair((8, 1024, 512))
     with Phase("kernel_timing") as ph, torch.no_grad():
         lam, (bn_re, bn_im) = seq.lam(), seq.input_matrix()
         a = lam  # the (N,) pair the LRU passes
@@ -1583,41 +1611,39 @@ def main() -> int:
         err, scale = scan_err(diag_scan_cuda(a, b), h)
         if not err <= SCAN_RTOL_OF_MAX * scale:
             raise AssertionError(f"diag_scan at the path's inputs: {err}")
-        cold = sorted(cuda_ms(lambda: diag_scan_cuda(a, b), 21, flush))
-        warm = sorted(cuda_ms(lambda: diag_scan_cuda(a, b), 21))
-        plain = min(cuda_ms(lambda: diag_scan_plain(a, b), 2))
-        n_bytes = sum(distinct_bytes(t) for t in a + b) + sum(distinct_bytes(t) for t in b)
-        flops = 8 * b[0].numel()  # complex multiply-add: 4 mul + 4 add per element
-        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-        flops_ms = flops / FP32_FLOPS_PER_S * 1e3
-        bound_ms = max(bytes_ms, flops_ms)
-        ms = cold[len(cold) // 2]
-        ph.fields.update(ms_cold_median=f"{ms:.5f}", ms_warm_median=f"{warm[len(warm) // 2]:.5f}",
-                         bound_ms=f"{bound_ms:.5f}", bytes=n_bytes, plain_ms=f"{plain:.3f}",
-                         max_abs_err=f"{err:.3e}")
+        scan_times = {}
+        for tag, (ta, tb) in (("", (a, b)), ("_lm_b8_l1024_n512", (lm_a, lm_b))):
+            # each input read once (a, b), h written once; a complex
+            # multiply-add (4 mul + 4 add) per element
+            n_bytes = sum(distinct_bytes(t) for t in ta + tb) + sum(distinct_bytes(t) for t in tb)
+            t = time_scan_kernel(lambda: diag_scan_cuda(ta, tb), lambda: diag_scan_plain(ta, tb),
+                                 n_bytes, 8 * tb[0].numel(), flush)
+            scan_times[tag] = t
+            ph.fields["ms" + tag] = scan_timing_fields(t, n_bytes)
+        ph.fields["max_abs_err"] = f"{err:.3e}"
 
     with Phase("bwd_kernel_timing") as ph, torch.no_grad():
-        g = (torch.randn(h[0].shape, device=dev, generator=gen),
-             torch.randn(h[0].shape, device=dev, generator=gen))
+        g = normal_pair(h[0].shape)
         da, d = diag_scan_bwd_cuda(a, h, g)
         da_ref, d_ref = diag_scan_bwd_plain(a, h, g)
         d_e, d_tol, da_e, da_ratio = bwd_err(a, h, da, d, da_ref, d_ref, False)
         if not (d_e <= d_tol and da_ratio <= 1.0):
             raise AssertionError(f"diag_scan_bwd at the path's inputs: d {d_e}, da {da_ratio}")
-        b_cold = sorted(cuda_ms(lambda: diag_scan_bwd_cuda(a, h, g), 21, flush))
-        b_warm = sorted(cuda_ms(lambda: diag_scan_bwd_cuda(a, h, g), 21))
-        b_plain = min(cuda_ms(lambda: diag_scan_bwd_plain(a, h, g), 2))
-        # each input read once (a, h, g), each output written once (da, d)
-        b_bytes = sum(distinct_bytes(t) for t in a + h + g + da + d)
-        b_flops = 16 * g[0].numel()  # two complex multiply-adds per element
-        b_bytes_ms = b_bytes / HBM_BYTES_PER_S * 1e3
-        b_flops_ms = b_flops / FP32_FLOPS_PER_S * 1e3
-        b_bound = max(b_bytes_ms, b_flops_ms)
-        b_ms = b_cold[len(b_cold) // 2]
-        ph.fields.update(ms_cold_median=f"{b_ms:.5f}",
-                         ms_warm_median=f"{b_warm[len(b_warm) // 2]:.5f}",
-                         bound_ms=f"{b_bound:.5f}", bytes=b_bytes, plain_ms=f"{b_plain:.3f}",
-                         d_max_abs_err=f"{d_e:.3e}", da_max_abs_err=f"{da_e:.3e}")
+        bwd_times = {}
+        lm_h = diag_scan_cuda(lm_a, lm_b)
+        lm_g = normal_pair(lm_b[0].shape)
+        for tag, (ta, th, tg) in (("", (a, h, g)), ("_lm_b8_l1024_n512", (lm_a, lm_h, lm_g))):
+            tda, td = diag_scan_bwd_cuda(ta, th, tg)
+            # each input read once (a, h, g), each output written once (da,
+            # d); two complex multiply-adds per element
+            n_bytes = sum(distinct_bytes(t) for t in ta + th + tg + tda + td)
+            t = time_scan_kernel(lambda: diag_scan_bwd_cuda(ta, th, tg),
+                                 lambda: diag_scan_bwd_plain(ta, th, tg), n_bytes,
+                                 16 * tg[0].numel(), flush)
+            bwd_times[tag] = t
+            ph.fields["ms" + tag] = scan_timing_fields(t, n_bytes)
+        ph.fields.update(d_max_abs_err=f"{d_e:.3e}", da_max_abs_err=f"{da_e:.3e}")
+        del lm_a, lm_b, lm_h, lm_g
 
     # main path 3, the WikiText LM trained through the fused head, then its
     # checkpoint eigen-analysed and served: every count set to 0 before
@@ -1984,10 +2010,10 @@ def main() -> int:
         "replaces": "tlie_tpu/ops/pallas_scan.py:107",
         "launches": path1["diag_scan"] + path2_all["diag_scan"] + path3_all["diag_scan"],
         "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain,
-        "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+        "ms": scan_times[""][0],
+        "plain_ms": scan_times[""][2],
+        "bound_ms": scan_times[""][3],
+        "bound_by": scan_times[""][4],
         "library_ms": None,  # no single PyTorch call computes a diagonal linear recurrence
     }, {
         "name": "diag_scan_bwd",
@@ -1997,10 +2023,10 @@ def main() -> int:
         "launches": (path1["diag_scan_bwd"] + path2_all["diag_scan_bwd"]
                      + path3_all["diag_scan_bwd"]),
         "max_abs_err": max(d_e, da_e),
-        "ms": b_ms,
-        "plain_ms": b_plain,
-        "bound_ms": b_bound,
-        "bound_by": "bytes" if b_bytes_ms >= b_flops_ms else "operations",
+        "ms": bwd_times[""][0],
+        "plain_ms": bwd_times[""][2],
+        "bound_ms": bwd_times[""][3],
+        "bound_by": bwd_times[""][4],
         "library_ms": None,  # no single PyTorch call computes the recurrence's gradient
     }]
     replaces = {"fused_xent_fwd": "tlie_tpu/ops/fused_xent.py:126",

@@ -81,8 +81,11 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
 @pytest.mark.gpu
 @pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
 @pytest.mark.parametrize("shape, a_shape", [((4, 512, 128), (128,)), ((2, 300, 40), (300, 40)),
-                                            ((3, 97, 96), (3, 97, 96))],
-                         ids=["lru_lambda", "per_step", "per_example"])
+                                            ((3, 97, 96), (3, 97, 96)),
+                                            ((8, 1024, 512), (512,)),
+                                            ((3, 1001, 40), (40,))],
+                         ids=["lru_lambda", "per_step", "per_example", "lm_lambda",
+                              "ragged_lambda"])
 def test_backward_kernel_matches_plain(cuda_device, shape, a_shape, reverse):
     g = torch.Generator(device=cuda_device).manual_seed(2)
     r = 0.9 + 0.09 * torch.rand(a_shape, device=cuda_device, generator=g)
@@ -103,6 +106,9 @@ def test_backward_kernel_matches_plain(cuda_device, shape, a_shape, reverse):
     tol = RTOL_OF_MAX * _sum_to(d_abs.max() * h_prev + d_abs * hmax, torch.Size(a_shape))
     for x, y in zip(da, da_ref):
         assert x.shape == a_shape and bool(((x - y).abs() <= tol).all())
+    # no atomics: a second launch gives the same bits
+    da2, d2 = diag_scan_bwd_cuda(a, h, w, reverse=reverse)
+    assert all(torch.equal(x, y) for x, y in zip(da + d, da2 + d2))
 
 
 # -- the fused decoder + cross-entropy kernels ----------------------------------

@@ -14,37 +14,57 @@
 // the LRU's (N,) decay the (B, L, N) da is never written.
 //
 // Bound on the H100: memory. g and h are read once, d is written once; a and
-// da are (N,) for the LRU. At B=64, L=512, N=128, complex: 6 x 16.8 MB, about
-// 30 us at 3.35 TB/s.
+// da are (N,) for the LRU. At B=64, L=512, N=128, complex (and at the LM's
+// B=8, L=1024, N=512, the same 4.2 M elements): 6 x 16.8 MB, about 30 us at
+// 3.35 TB/s.
 //
-// Design: the forward kernel's layout run right to left. A block owns 32
-// neighbouring channels of one batch row and splits time into kChunks chunks,
-// one warp each.
+// Design. A block owns kLanes = 16 neighbouring channels of one batch row
+// (64-byte row segments: 512 blocks at the MQAR shape, 256 at the LM's, to
+// fill 132 SMs two blocks deep) and walks time from the right in rounds of
+// kRound = 256 steps, cut into kChunks = 16 chunks of kSpan = 16 steps, one
+// thread per (channel, chunk). In each round:
+//   loads:  each thread issues every load of its chunk at once (g_t,
+//           h_{t-1}, and a_{t+1} where a varies in time), unrolled, into
+//           registers, where g stays until pass 2: g is read from device
+//           memory once;
 //   pass 1: each thread folds its chunk, last step first, into (A, D): the
 //           product of its conj(a_{t+1}) and its scan from a zero state;
-//   carry:  thread `chunk` folds the chunks after it, through shared memory;
-//   pass 2: each thread walks its chunk again from that state, writes d and
-//           folds d_t * conj(h_{t-1}) into a running sum (or writes it, where
-//           `a` varies in time).
-// Where a is read at time stride 0 the running sums of the kChunks warps are
-// added in shared memory, one partial per (batch row, channel). Where a is
-// also shared across the batch (stride 0), a second kernel adds the partials
-// over the batch rows in a fixed order: a deterministic two-stage sum rather
-// than atomicAdd, so the result does not change from run to run.
+//   carry:  every thread folds the round's 16 aggregates through shared
+//           memory, right to left from the carry the round to the right
+//           left, and keeps the state entering its own chunk and the one
+//           leaving the round (the next round's carry);
+//   pass 2: each thread walks its chunk again from its state, in
+//           registers, writes d and folds d_t * conj(h_{t-1}) into a running
+//           sum (or writes it, where `a` varies in time).
+// The serial chains are 16 steps, twice, and 16 folds a round; 1 or 2
+// blocks of 256 threads an SM keep every chunk's loads in flight at once.
+// Steps past L fold as the identity (a 1, g 0), so a ragged L needs nothing
+// else. Where a is read at time stride 0 the 16 chunks' running sums are
+// added in shared memory in chunk order, one partial per (batch row,
+// channel). Where a is also shared across the batch (stride 0), a second
+// kernel adds the partials over the batch rows, one warp an output: lane l
+// adds rows l, l + 32, ... in order, then the 32 sums meet in a fixed
+// butterfly. A deterministic two-stage sum rather than atomicAdd: the
+// result does not change from run to run.
+//
+// ptxas (nvcc -Xptxas -v, sm_90a, CUDA 12.8): PTXAS_SCAN.
 
 #include <cuda_runtime.h>
 #include <cstdint>
 
 namespace {
 
-constexpr int kLanes = 32;  // channels per block
-constexpr int kChunks = 8;  // time chunks per block, one warp each
+constexpr int kLanes = 16;   // channels per block
+constexpr int kChunks = 16;  // chunks of a round, one thread row each
+constexpr int kSpan = 16;    // steps of a chunk, held in registers from pass 1 to pass 2
+constexpr int kRound = kChunks * kSpan;
+constexpr int kThreads = kLanes * kChunks;
 constexpr int kSumThreads = 256;
 
-__device__ __forceinline__ int64_t imin(int64_t x, int64_t y) { return x < y ? x : y; }
-
-template <bool kComplex>
-__global__ void __launch_bounds__(kLanes * kChunks)
+// kATime: a varies in time (a_tstride != 0), so each step has its own
+// conj(a_{t+1}) and writes its own da_t.
+template <bool kComplex, bool kATime>
+__global__ void __launch_bounds__(kThreads, kATime ? 1 : 2)
 diag_scan_bwd_kernel(const float* __restrict__ a_re, const float* __restrict__ a_im,
                      const float* __restrict__ h_re, const float* __restrict__ h_im,
                      const float* __restrict__ g_re, const float* __restrict__ g_im,
@@ -52,7 +72,7 @@ diag_scan_bwd_kernel(const float* __restrict__ a_re, const float* __restrict__ a
                      float* __restrict__ da_re, float* __restrict__ da_im,
                      int64_t L, int64_t N, int64_t n_tiles,
                      int64_t a_bstride, int64_t a_tstride, int reverse) {
-  __shared__ float agg[4][kChunks][kLanes];
+  __shared__ float agg[2][4][kChunks][kLanes];  // by round parity: A re, A im, D re, D im
   __shared__ float red[2][kChunks][kLanes];
 
   const int lane = threadIdx.x;
@@ -61,99 +81,138 @@ diag_scan_bwd_kernel(const float* __restrict__ a_re, const float* __restrict__ a
   const int64_t n = (blockIdx.x % n_tiles) * kLanes + lane;
   const bool active = n < N;
 
-  const int64_t span = (L + kChunks - 1) / kChunks;
-  const int64_t t0 = imin(L, chunk * span);
-  const int64_t t1 = imin(L, t0 + span);
   const int64_t x_off = batch * L * N + n;
   const int64_t a_off = batch * a_bstride + n;
   // logical step t is physical time index t_base + t_sign * t
   const int64_t t_sign = reverse ? -1 : 1;
   const int64_t t_base = reverse ? L - 1 : 0;
+  // conj(a), where it is the same at every step
+  float car = 0.f, cai = 0.f;
+  if (!kATime && active) {
+    car = a_re[a_off];
+    if constexpr (kComplex) cai = -a_im[a_off];
+  }
 
-  // conj(a_{t+1}), zero past the last step
-  auto alpha = [&](int64_t t, float& ar, float& ai) {
-    ar = 0.f;
-    ai = 0.f;
-    if (t + 1 < L) {
-      const int64_t q = a_off + (t_base + t_sign * (t + 1)) * a_tstride;
-      ar = a_re[q];
-      if constexpr (kComplex) ai = -a_im[q];
-    }
-  };
-
-  // pass 1: aggregate of this chunk, from its last step down
-  float Ar = 1.f, Ai = 0.f, Dr = 0.f, Di = 0.f;
-  if (active) {
-    for (int64_t t = t1 - 1; t >= t0; --t) {
-      float ar, ai;
-      alpha(t, ar, ai);
-      const int64_t x = x_off + (t_base + t_sign * t) * N;
+  float cr = 0.f, ci = 0.f;  // d entering the round from the right (the same in every chunk)
+  float sr = 0.f, si = 0.f;  // sum over time of d_t * conj(h_{t-1}) (where !kATime)
+  const int64_t rounds = (L + kRound - 1) / kRound;
+  for (int64_t r = rounds - 1; r >= 0; --r) {
+    const int64_t t0 = r * kRound + chunk * kSpan;  // the chunk's first logical step
+    const int64_t x0 = x_off + (t_base + t_sign * t0) * N;
+    const int64_t step = t_sign * N;  // from one logical step to the next
+    // the chunk's operands: g_t, h_{t-1}, and conj(a_{t+1}) where it varies
+    // in time; all zero past L
+    float gr[kSpan], gi[kSpan], hr[kSpan], hi[kSpan];
+    float ar[kATime ? kSpan : 1], ai[kATime ? kSpan : 1];
+#pragma unroll
+    for (int s = 0; s < kSpan; ++s) {
+      const int64_t t = t0 + s, x = x0 + s * step;
+      const bool in = active && t < L;
+      gr[s] = in ? g_re[x] : 0.f;
+      hr[s] = in && t > 0 ? h_re[x - step] : 0.f;
+      gi[s] = hi[s] = 0.f;
       if constexpr (kComplex) {
-        const float dr = ar * Dr - ai * Di + g_re[x];
-        const float di = ar * Di + ai * Dr + g_im[x];
-        const float pr = ar * Ar - ai * Ai;
-        const float pi = ar * Ai + ai * Ar;
+        gi[s] = in ? g_im[x] : 0.f;
+        hi[s] = in && t > 0 ? h_im[x - step] : 0.f;
+      }
+      if constexpr (kATime) {
+        const bool next = in && t + 1 < L;
+        const int64_t q = a_off + (t_base + t_sign * (t + 1)) * a_tstride;
+        ar[s] = next ? a_re[q] : 0.f;
+        ai[s] = 0.f;
+        if constexpr (kComplex) ai[s] = next ? -a_im[q] : 0.f;
+      }
+    }
+    // conj(a_{t+1}) of step s: 0 at L - 1, the identity (1) past L
+    auto alpha = [&](int s, float& xr, float& xi) {
+      const int64_t t = t0 + s;
+      if constexpr (kATime) {
+        xr = t < L ? ar[s] : 1.f;
+        xi = ai[s];
+      } else {
+        xr = t + 1 < L ? car : (t < L ? 0.f : 1.f);
+        xi = t + 1 < L ? cai : 0.f;
+      }
+    };
+
+    // pass 1: the chunk's aggregate, from its last step down
+    float Ar = 1.f, Ai = 0.f, Dr = 0.f, Di = 0.f;
+#pragma unroll
+    for (int s = kSpan - 1; s >= 0; --s) {
+      float xr, xi;
+      alpha(s, xr, xi);
+      if constexpr (kComplex) {
+        const float dr = xr * Dr - xi * Di + gr[s];
+        const float di = xr * Di + xi * Dr + gi[s];
+        const float pr = xr * Ar - xi * Ai;
+        const float pi = xr * Ai + xi * Ar;
         Dr = dr; Di = di; Ar = pr; Ai = pi;
       } else {
-        Dr = ar * Dr + g_re[x];
-        Ar = ar * Ar;
+        Dr = xr * Dr + gr[s];
+        Ar = xr * Ar;
       }
     }
-  }
-  agg[0][chunk][lane] = Ar;
-  agg[1][chunk][lane] = Ai;
-  agg[2][chunk][lane] = Dr;
-  agg[3][chunk][lane] = Di;
-  __syncthreads();
+    float (&ag)[4][kChunks][kLanes] = agg[r & 1];
+    ag[0][chunk][lane] = Ar;
+    ag[1][chunk][lane] = Ai;
+    ag[2][chunk][lane] = Dr;
+    ag[3][chunk][lane] = Di;
+    __syncthreads();  // (the other parity's aggregates are free again: every
+                      // thread has folded them before arriving here)
 
-  // state entering this chunk from the right: fold the later chunks in order
-  float cr = 0.f, ci = 0.f;
-  for (int j = kChunks - 1; j > chunk; --j) {
-    const float pr = agg[0][j][lane], pi = agg[1][j][lane];
-    const float nr = pr * cr - pi * ci + agg[2][j][lane];
-    const float ni = pr * ci + pi * cr + agg[3][j][lane];
-    cr = nr; ci = ni;
-  }
+    // carry: fold the round's chunks right to left from the round's carry;
+    // keep the state entering this chunk, and the state leaving the round
+    float er = 0.f, ei = 0.f;
+#pragma unroll
+    for (int j = kChunks - 1; j >= 0; --j) {
+      if (j == chunk) { er = cr; ei = ci; }
+      const float pr = ag[0][j][lane], pi = ag[1][j][lane];
+      const float nr = pr * cr - pi * ci + ag[2][j][lane];
+      const float ni = pr * ci + pi * cr + ag[3][j][lane];
+      cr = nr; ci = ni;
+    }
 
-  // pass 2: rescan from the carried state, write d, form d_t * conj(h_{t-1})
-  float sr = 0.f, si = 0.f;
-  if (active) {
-    for (int64_t t = t1 - 1; t >= t0; --t) {
-      float ar, ai;
-      alpha(t, ar, ai);
-      const int64_t x = x_off + (t_base + t_sign * t) * N;
-      float hr = 0.f, hi = 0.f;
-      if (t > 0) {
-        const int64_t xp = x_off + (t_base + t_sign * (t - 1)) * N;
-        hr = h_re[xp];
-        if constexpr (kComplex) hi = h_im[xp];
-      }
-      float dar, dai = 0.f;
+    // pass 2: rescan from the state entering the chunk, write d, form
+    // d_t * conj(h_{t-1}). The store addresses are formed here again, from
+    // a copy of x0 the compiler cannot see through: kept from the loads,
+    // 16 of them would hold 32 registers across the passes.
+    int64_t y0 = x0;
+    asm volatile("" : "+l"(y0));
+#pragma unroll
+    for (int s = kSpan - 1; s >= 0; --s) {
+      const int64_t t = t0 + s, x = y0 + s * step;
+      const bool in = active && t < L;
+      float xr, xi, dar, dai = 0.f;
+      alpha(s, xr, xi);
       if constexpr (kComplex) {
-        const float nr = ar * cr - ai * ci + g_re[x];
-        const float ni = ar * ci + ai * cr + g_im[x];
-        cr = nr; ci = ni;
-        d_re[x] = cr;
-        d_im[x] = ci;
-        dar = cr * hr + ci * hi;
-        dai = ci * hr - cr * hi;
+        const float nr = xr * er - xi * ei + gr[s];
+        const float ni = xr * ei + xi * er + gi[s];
+        er = nr; ei = ni;
+        if (in) {
+          d_re[x] = er;
+          d_im[x] = ei;
+        }
+        dar = er * hr[s] + ei * hi[s];
+        dai = ei * hr[s] - er * hi[s];
       } else {
-        cr = ar * cr + g_re[x];
-        d_re[x] = cr;
-        dar = cr * hr;
+        er = xr * er + gr[s];
+        if (in) d_re[x] = er;
+        dar = er * hr[s];
       }
-      if (a_tstride == 0) {
+      if constexpr (kATime) {
+        if (in) {
+          da_re[x] = dar;
+          if constexpr (kComplex) da_im[x] = dai;
+        }
+      } else {
         sr += dar;
         si += dai;
-      } else {
-        da_re[x] = dar;
-        if constexpr (kComplex) da_im[x] = dai;
       }
     }
   }
-  if (a_tstride != 0) return;
+  if constexpr (kATime) return;
 
-  // sum over time: add the chunks' running sums in a fixed order
+  // sum over time: add the chunks' running sums in chunk order
   red[0][chunk][lane] = sr;
   red[1][chunk][lane] = si;
   __syncthreads();
@@ -168,20 +227,39 @@ diag_scan_bwd_kernel(const float* __restrict__ a_re, const float* __restrict__ a
   }
 }
 
-// out[m] = sum over r of part[r * M + m], rows in order
-__global__ void sum_rows_kernel(const float* __restrict__ part_re,
-                                const float* __restrict__ part_im,
-                                float* __restrict__ out_re, float* __restrict__ out_im,
-                                int64_t rows, int64_t M) {
-  const int64_t m = static_cast<int64_t>(blockIdx.x) * kSumThreads + threadIdx.x;
-  if (m >= M) return;
+// out[m] = sum over r of part[r * M + m], one warp an m: lane l adds rows l,
+// l + 32, ... in order, then the lanes' sums meet in a fixed butterfly
+__global__ void __launch_bounds__(kSumThreads)
+sum_rows_kernel(const float* __restrict__ part_re, const float* __restrict__ part_im,
+                float* __restrict__ out_re, float* __restrict__ out_im, int64_t rows,
+                int64_t M) {
+  const int64_t m = static_cast<int64_t>(blockIdx.x) * (kSumThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (m >= M) return;  // the whole warp
   float sr = 0.f, si = 0.f;
-  for (int64_t r = 0; r < rows; ++r) {
+  for (int64_t r = lane; r < rows; r += 32) {
     sr += part_re[r * M + m];
     if (part_im != nullptr) si += part_im[r * M + m];
   }
-  out_re[m] = sr;
-  if (out_im != nullptr) out_im[m] = si;
+#pragma unroll
+  for (int o = 16; o > 0; o /= 2) {
+    sr += __shfl_xor_sync(0xffffffffu, sr, o);
+    si += __shfl_xor_sync(0xffffffffu, si, o);
+  }
+  if (lane == 0) {
+    out_re[m] = sr;
+    if (out_im != nullptr) out_im[m] = si;
+  }
+}
+
+template <bool kComplex, bool kATime>
+void launch(dim3 grid, cudaStream_t s, const float* a_re, const float* a_im, const float* h_re,
+            const float* h_im, const float* g_re, const float* g_im, float* d_re, float* d_im,
+            float* da_re, float* da_im, int64_t L, int64_t N, int64_t n_tiles,
+            int64_t a_bstride, int64_t a_tstride, int reverse) {
+  diag_scan_bwd_kernel<kComplex, kATime><<<grid, dim3(kLanes, kChunks), 0, s>>>(
+      a_re, a_im, h_re, h_im, g_re, g_im, d_re, d_im, da_re, da_im, L, N, n_tiles, a_bstride,
+      a_tstride, reverse);
 }
 
 }  // namespace
@@ -208,21 +286,25 @@ extern "C" int tlie_diag_scan_bwd_f32(const float* a_re, const float* a_im,
   float* out_im = reduce ? part_im : da_im;
   const int64_t n_tiles = (N + kLanes - 1) / kLanes;
   const dim3 grid(static_cast<unsigned int>(batch * n_tiles));
-  const dim3 block(kLanes, kChunks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_complex) {
-    diag_scan_bwd_kernel<true><<<grid, block, 0, s>>>(
-        a_re, a_im, h_re, h_im, g_re, g_im, d_re, d_im, out_re, out_im,
-        L, N, n_tiles, a_bstride, a_tstride, reverse);
-  } else {
-    diag_scan_bwd_kernel<false><<<grid, block, 0, s>>>(
-        a_re, nullptr, h_re, nullptr, g_re, nullptr, d_re, nullptr, out_re, nullptr,
-        L, N, n_tiles, a_bstride, a_tstride, reverse);
-  }
+  const bool a_time = a_tstride != 0;
+  if (is_complex && a_time)
+    launch<true, true>(grid, s, a_re, a_im, h_re, h_im, g_re, g_im, d_re, d_im, out_re, out_im,
+                       L, N, n_tiles, a_bstride, a_tstride, reverse);
+  else if (is_complex)
+    launch<true, false>(grid, s, a_re, a_im, h_re, h_im, g_re, g_im, d_re, d_im, out_re, out_im,
+                        L, N, n_tiles, a_bstride, a_tstride, reverse);
+  else if (a_time)
+    launch<false, true>(grid, s, a_re, nullptr, h_re, nullptr, g_re, nullptr, d_re, nullptr,
+                        out_re, nullptr, L, N, n_tiles, a_bstride, a_tstride, reverse);
+  else
+    launch<false, false>(grid, s, a_re, nullptr, h_re, nullptr, g_re, nullptr, d_re, nullptr,
+                         out_re, nullptr, L, N, n_tiles, a_bstride, a_tstride, reverse);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || !reduce) return static_cast<int>(err);
-  const int64_t M = (a_tstride != 0 ? L : 1) * N;
-  const dim3 sum_grid(static_cast<unsigned int>((M + kSumThreads - 1) / kSumThreads));
+  const int64_t M = (a_time ? L : 1) * N;
+  const int64_t per_block = kSumThreads / 32;
+  const dim3 sum_grid(static_cast<unsigned int>((M + per_block - 1) / per_block));
   sum_rows_kernel<<<sum_grid, kSumThreads, 0, s>>>(
       part_re, is_complex ? part_im : nullptr, da_re, is_complex ? da_im : nullptr,
       batch, M);

@@ -48,7 +48,7 @@ DIAG_SCAN_BWD = CudaLibrary(
 )
 LAUNCHES.setdefault("diag_scan", 0)
 LAUNCHES.setdefault("diag_scan_bwd", 0)
-_LANES = 32  # channels per block in the kernels
+_LANES, _BWD_LANES = 32, 16  # channels per block in the forward and backward kernels
 _MAX_BLOCKS = 2**31 - 1
 
 
@@ -215,9 +215,10 @@ def _check_cuda_f32(tensors, what: str, ref: torch.Tensor) -> None:
             raise TypeError(f"{what} takes float32, got {t.dtype}")
 
 
-def _check_planes(planes, what: str) -> Tuple[torch.Size, int, int, int]:
+def _check_planes(planes, what: str, lanes: int) -> Tuple[torch.Size, int, int, int]:
     """Shape checks shared by the launchers: contiguous planes of one
-    (..., L, N) shape; returns (shape, batch, L, N)."""
+    (..., L, N) shape, within the grid of blocks of ``lanes`` channels;
+    returns (shape, batch, L, N)."""
     ref = planes[0]
     if ref.dim() < 2:
         raise ValueError(f"{what}: operands must be (..., L, N)")
@@ -226,7 +227,7 @@ def _check_planes(planes, what: str) -> Tuple[torch.Size, int, int, int]:
             raise ValueError(f"{what}: planes must share a contiguous shape")
     L, N = ref.shape[-2], ref.shape[-1]
     batch = math.prod(ref.shape[:-2])
-    if batch * -(-N // _LANES) > _MAX_BLOCKS:
+    if batch * -(-N // lanes) > _MAX_BLOCKS:
         raise ValueError(f"{what}: shape {tuple(ref.shape)} needs too many blocks")
     return ref.shape, batch, L, N
 
@@ -248,7 +249,7 @@ def diag_scan_cuda(a: TensorOrPair, b: TensorOrPair, reverse: bool = False) -> T
     a_planes, b_planes = _planes(a), _planes(b)
     ref = b_planes[0]
     _check_cuda_f32(a_planes + b_planes, "diag_scan_cuda", ref)
-    shape, batch, L, N = _check_planes(b_planes, "diag_scan_cuda")
+    shape, batch, L, N = _check_planes(b_planes, "diag_scan_cuda", _LANES)
     a_bstride, a_tstride = _a_layout(a_planes, shape, "diag_scan_cuda")
 
     h_planes = tuple(torch.empty_like(ref) for _ in b_planes)
@@ -281,7 +282,7 @@ def diag_scan_bwd_cuda(a: TensorOrPair, h: TensorOrPair, g: TensorOrPair,
     _check_cuda_f32(a_planes + h_planes + g_planes, "diag_scan_bwd_cuda", ref)
     if len(a_planes) != len(g_planes) or len(h_planes) != len(g_planes):
         raise ValueError("diag_scan_bwd_cuda: a, h and g must all be pairs or all real")
-    shape, batch, L, N = _check_planes(h_planes + g_planes, "diag_scan_bwd_cuda")
+    shape, batch, L, N = _check_planes(h_planes + g_planes, "diag_scan_bwd_cuda", _BWD_LANES)
     a_bstride, a_tstride = _a_layout(a_planes, shape, "diag_scan_bwd_cuda")
 
     d_planes = tuple(torch.empty_like(ref) for _ in g_planes)
