@@ -268,20 +268,21 @@ def tensor_core_hmma(lib_paths, nvcc: str) -> dict:
 
 def cuda_ms(fn, repeat: int, flush: torch.Tensor = None):
     """Per-call device times (ms) of ``fn`` from CUDA events, one call per
-    pair of events.  Before each call the stream gets work of its own
-    (``flush`` overwritten, which also leaves the L2 cache cold, or a short
-    device sleep), so the host enqueues the call before the start event fires
-    and the time is the device's, not the wrapper's host overhead.  One
-    untimed call comes first, so the series starts on a card that has just
-    run ``fn``, not on one coming from host-side work."""
+    pair of events.  Before each call ``flush`` is overwritten, where given,
+    which leaves the L2 cache cold, and then the stream sleeps on the device
+    (about 0.6 ms, which touches no memory), so the host enqueues the call
+    before the start event fires and the time is the device's, not the
+    wrapper's host overhead (the flush alone, 256 MB of writes in about 0.08
+    ms, is shorter than some wrappers' Python).  One untimed call comes
+    first, so the series starts on a card that has just run ``fn``, not on
+    one coming from host-side work."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(repeat):
         if flush is not None:
             flush.zero_()
-        else:
-            torch.cuda._sleep(1_000_000)
+        torch.cuda._sleep(1_000_000)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()

@@ -30,14 +30,14 @@
 //   pass 1: each thread folds its chunk, last step first, into (A, D): the
 //           product of its conj(a_{t+1}) and its scan from a zero state;
 //   carry:  every thread folds the round's 16 aggregates through shared
-//           memory, right to left from the carry the round to the right
-//           left, and keeps the state entering its own chunk and the one
-//           leaving the round (the next round's carry);
+//           memory, right to left, starting from the state that the round
+//           to its right handed on, and keeps the state entering its own
+//           chunk and the one leaving the round (the next round's carry);
 //   pass 2: each thread walks its chunk again from its state, in
 //           registers, writes d and folds d_t * conj(h_{t-1}) into a running
 //           sum (or writes it, where `a` varies in time).
-// The serial chains are 16 steps, twice, and 16 folds a round; 1 or 2
-// blocks of 256 threads an SM keep every chunk's loads in flight at once.
+// The serial chains are 16 steps, twice, and 16 folds a round; every
+// chunk's loads are in flight at once.
 // Steps past L fold as the identity (a 1, g 0), so a ragged L needs nothing
 // else. Where a is read at time stride 0 the 16 chunks' running sums are
 // added in shared memory in chunk order, one partial per (batch row,
@@ -47,7 +47,16 @@
 // butterfly. A deterministic two-stage sum rather than atomicAdd: the
 // result does not change from run to run.
 //
-// ptxas (nvcc -Xptxas -v, sm_90a, CUDA 12.8): PTXAS_SCAN.
+// Bytes read at the MQAR shape: g and h once each (4 x 16.8 MB), the (N,)
+// a once a block; written: d once (2 x 16.8 MB), the partials and da
+// (64 x 128 x 2 floats, then 128 x 2). A copy of this design that landed
+// each round in shared memory by cp.async, two rounds in flight, took the
+// same time alone and longer inside the LRU step (PERF.md, PR 14).
+//
+// ptxas (nvcc -Xptxas -v, sm_90a, CUDA 12.8): complex with an (N,) or (B, N)
+// a, the LRU's, 128 registers, 10,240 bytes of shared memory, two blocks of
+// 8 warps an SM (the launch bound); real 112 and the same; where a varies in
+// time 193 (complex) and 211 (real) registers, one block an SM; no spills.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -154,9 +163,11 @@ diag_scan_bwd_kernel(const float* __restrict__ a_re, const float* __restrict__ a
     }
     float (&ag)[4][kChunks][kLanes] = agg[r & 1];
     ag[0][chunk][lane] = Ar;
-    ag[1][chunk][lane] = Ai;
     ag[2][chunk][lane] = Dr;
-    ag[3][chunk][lane] = Di;
+    if constexpr (kComplex) {
+      ag[1][chunk][lane] = Ai;
+      ag[3][chunk][lane] = Di;
+    }
     __syncthreads();  // (the other parity's aggregates are free again: every
                       // thread has folded them before arriving here)
 
@@ -166,10 +177,14 @@ diag_scan_bwd_kernel(const float* __restrict__ a_re, const float* __restrict__ a
 #pragma unroll
     for (int j = kChunks - 1; j >= 0; --j) {
       if (j == chunk) { er = cr; ei = ci; }
-      const float pr = ag[0][j][lane], pi = ag[1][j][lane];
-      const float nr = pr * cr - pi * ci + ag[2][j][lane];
-      const float ni = pr * ci + pi * cr + ag[3][j][lane];
-      cr = nr; ci = ni;
+      if constexpr (kComplex) {
+        const float pr = ag[0][j][lane], pi = ag[1][j][lane];
+        const float nr = pr * cr - pi * ci + ag[2][j][lane];
+        const float ni = pr * ci + pi * cr + ag[3][j][lane];
+        cr = nr; ci = ni;
+      } else {
+        cr = ag[0][j][lane] * cr + ag[2][j][lane];
+      }
     }
 
     // pass 2: rescan from the state entering the chunk, write d, form
