@@ -1190,23 +1190,35 @@ def main() -> int:
                 torch.randn(shape, device=dev, generator=gen))
 
     with Phase("kernel_vs_plain") as ph:
+        # (a, b, reverse); a block takes 16 channels of one batch row and
+        # walks time in rounds of 256 steps (16 chunks of 16)
         cases = {
-            "complex_b64_l512_n128_bcast_a": (ring((512, 128)), normal_pair((64, 512, 128))),
+            "complex_b64_l512_n128_bcast_a": (ring((512, 128)), normal_pair((64, 512, 128)),
+                                              False),
             "real_b64_l512_n128_full_a": (ring((64, 512, 128))[0].abs(),
-                                          torch.randn(64, 512, 128, device=dev, generator=gen)),
-            "complex_b3_l997_n96_const_a": (ring((96,)), normal_pair((3, 997, 96))),
-            # the WikiText LM's shape: 8 x 32-lane tiles of 512 channels,
-            # 8 time chunks of 128 steps
-            "complex_b8_l1024_n512_lambda": (ring((512,)), normal_pair((8, 1024, 512))),
+                                          torch.randn(64, 512, 128, device=dev, generator=gen),
+                                          False),
+            "complex_b3_l997_n96_const_a": (ring((96,)), normal_pair((3, 997, 96)), False),
+            # the WikiText LM's shape: 32 blocks of 16 channels a batch row,
+            # four rounds each
+            "complex_b8_l1024_n512_lambda": (ring((512,)), normal_pair((8, 1024, 512)), False),
+            # a ragged L of five whole rounds and a sixth, ragged N, reversed,
+            # with a decay that varies in time
+            "complex_b3_l1301_n40_full_a_rev": (ring((3, 1301, 40)), normal_pair((3, 1301, 40)),
+                                                True),
         }
-        for name, (a, b) in cases.items():
-            h = diag_scan_cuda(a, b)
+        for name, (a, b, reverse) in cases.items():
+            h = diag_scan_cuda(a, b, reverse=reverse)
             torch.cuda.synchronize()
-            err, scale = scan_err(h, diag_scan_plain(a, b))
+            err, scale = scan_err(h, diag_scan_plain(a, b, reverse=reverse))
             tol = SCAN_RTOL_OF_MAX * scale
-            ph.fields[name] = f"max_abs={err:.3e},rel_to_max={err / scale:.3e},tol={tol:.3e}"
-            if not err <= tol:
-                raise AssertionError(f"diag_scan {name}: max abs err {err} > {tol}")
+            # no atomics, a fixed fold order: a second launch gives the same bits
+            same = all(torch.equal(x, y) for x, y in
+                       zip(_planes(h), _planes(diag_scan_cuda(a, b, reverse=reverse))))
+            ph.fields[name] = (f"max_abs={err:.3e},rel_to_max={err / scale:.3e},tol={tol:.3e},"
+                               f"same_bits_twice={same}")
+            if not (err <= tol and same):
+                raise AssertionError(f"diag_scan {name}: {ph.fields[name]}")
 
     # the backward kernel against diag_scan_bwd_plain, and the forward
     # kernel's reverse mode against the plain reverse scan
@@ -1613,11 +1625,14 @@ def main() -> int:
         if not err <= SCAN_RTOL_OF_MAX * scale:
             raise AssertionError(f"diag_scan at the path's inputs: {err}")
         scan_times = {}
-        for tag, (ta, tb) in (("", (a, b)), ("_lm_b8_l1024_n512", (lm_a, lm_b))):
+        # the reverse mode at the path's inputs, beside the forward in this run
+        for tag, (ta, tb), rev in (("", (a, b), False), ("_rev", (a, b), True),
+                                   ("_lm_b8_l1024_n512", (lm_a, lm_b), False)):
             # each input read once (a, b), h written once; a complex
             # multiply-add (4 mul + 4 add) per element
             n_bytes = sum(distinct_bytes(t) for t in ta + tb) + sum(distinct_bytes(t) for t in tb)
-            t = time_scan_kernel(lambda: diag_scan_cuda(ta, tb), lambda: diag_scan_plain(ta, tb),
+            t = time_scan_kernel(lambda: diag_scan_cuda(ta, tb, reverse=rev),
+                                 lambda: diag_scan_plain(ta, tb, reverse=rev),
                                  n_bytes, 8 * tb[0].numel(), flush)
             scan_times[tag] = t
             ph.fields["ms" + tag] = scan_timing_fields(t, n_bytes)

@@ -65,6 +65,38 @@ def test_real_scan_kernel_matches_plain(cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("complex_mode, a_kind, reverse",
+                         [(True, "per_example", False), (True, "per_example", True),
+                          (False, "per_channel", True), (False, "per_example", True)],
+                         ids=["complex_time_a", "complex_time_a_rev", "real_lambda_rev",
+                              "real_time_a_rev"])
+def test_forward_kernel_crosses_rounds_at_a_ragged_length(cuda_device, complex_mode, a_kind,
+                                                          reverse):
+    """L 1301 is five whole rounds of the kernel's 256 steps and a ragged
+    sixth, N 40 two whole 16-channel blocks and a ragged third; a (B, L, N)
+    decay varies in time, as a selective scan's does."""
+    shape = (3, 1301, 40)
+    a_shape = shape if a_kind == "per_example" else shape[-1:]
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    r = 0.9 + 0.09 * torch.rand(a_shape, device=cuda_device, generator=g)
+    th = 6.28 * torch.rand(a_shape, device=cuda_device, generator=g)
+    if complex_mode:
+        a = (r * torch.cos(th), r * torch.sin(th))
+        b = tuple(torch.randn(shape, device=cuda_device, generator=g) for _ in range(2))
+    else:
+        a, b = r, torch.randn(shape, device=cuda_device, generator=g)
+    before = LAUNCHES["diag_scan"]
+    h = diag_scan_cuda(a, b, reverse=reverse)
+    torch.cuda.synchronize()
+    assert LAUNCHES["diag_scan"] == before + 1
+    assert _close(h, diag_scan_plain(a, b, reverse=reverse))
+    # no atomics, a fixed fold order: a second launch gives the same bits
+    h2 = diag_scan_cuda(a, b, reverse=reverse)
+    h, h2 = (x if isinstance(x, tuple) else (x,) for x in (h, h2))
+    assert all(torch.equal(x, y) for x, y in zip(h, h2))
+
+
+@pytest.mark.gpu
 def test_kernel_rejects_what_it_does_not_take(cuda_device):
     b = torch.randn(2, 8, 4, device=cuda_device)
     with pytest.raises(TypeError):

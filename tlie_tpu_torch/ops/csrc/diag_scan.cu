@@ -9,43 +9,75 @@
 // L-1-t, so nothing is copied.  The backward is diag_scan_bwd.cu.
 //
 // Bound on the H100: memory. Every element of b is read once and every
-// element of h written once, with a handful of flops per element. At the
-// LRU's shape (B=64, L=512, N=128, complex) that is 33.6 MB of b, 33.6 MB of
-// h and 0.5 MB of a broadcast a: about 20 us at 3.35 TB/s.
+// element of h written once, with a handful of flops per element; a is read
+// once a block where it is the same at every step. At the LRU's shape (B=64,
+// L=512, N=128, complex; and at the LM's B=8, L=1024, N=512, the same 4.2 M
+// elements) that is 33.6 MB of b, 33.6 MB of h and a's (N,) pair: about
+// 20 us at 3.35 TB/s.
 //
 // Design. The TPU kernel walks time chunks on a sequential grid and carries
 // the state in VMEM scratch between grid steps. Blocks on Hopper run in no
-// order, so here the carry stays inside one block: a block owns 32
-// neighbouring channels (one warp row, 128-byte coalesced loads) of one
-// batch row and splits time into kChunks chunks, one warp each.
-//   pass 1: each thread folds its chunk into (A, H): the product of its
-//           a_t and its scan from a zero state;
-//   carry:  thread `chunk` folds the aggregates of the chunks before it,
-//           through shared memory, into its starting state;
-//   pass 2: each thread walks its chunk again from that state and writes h.
-// Pass 2 reads a and b again; a block's slice (32 channels x L) is small,
-// so the second read is served by L2, and device memory sees each byte once.
-// `a` is read through a batch stride and a time stride, so a decay shared
-// across the batch (stride 0) or constant in time is never materialised.
+// order, so the carry stays inside one block, as in diag_scan_bwd.cu: a
+// block owns kLanes = 16 neighbouring channels of one batch row (64-byte row
+// segments: 512 blocks at the MQAR shape, 256 at the LM's, for 132 SMs) and
+// walks time from the left (from the right under `reverse`) in rounds of
+// kRound = kChunks x kSpan steps, kChunks = 16 chunks of kSpan steps, one
+// thread per (channel, chunk). In each round:
+//   loads:  each thread issues every load of its chunk at once (b_t, and
+//           a_t where a varies in time), unrolled, into registers, where b
+//           stays until pass 2: b is read from device memory once;
+//   pass 1: each thread folds its chunk from a zero state into (A, H): the
+//           product of its a_t and its scan;
+//   carry:  every thread folds the round's 16 aggregates through shared
+//           memory, in chunk order, starting from the state the round before
+//           handed on, and keeps the state entering its own chunk and the one
+//           leaving the round (the next round's carry, in registers);
+//   pass 2: each thread rescans its chunk from its state, out of registers,
+//           and writes h.
+// The serial chains are kSpan steps, twice, and 16 folds a round; every
+// chunk's loads are in flight at once. Steps past L load as the identity
+// (a 1, b 0), so a ragged L needs nothing else. `a` is read through a batch
+// stride and a time stride, so a decay shared across the batch (stride 0) or
+// constant in time is never materialised; where it is constant in time each
+// thread loads it once, before the first round. No atomics, and the fold
+// order is fixed: two launches give the same bits.
+//
+// kSpan and the launch bound were chosen on the card
+// (tlie_tpu_torch/tools/scan_fwd_variants.py, NVIDIA H100 80GB HBM3 at 700 W,
+// L2-cold medians of two runs; PERF.md §6):
+// kSpan 16 at two blocks an SM took 0.0345-0.0353 ms at both shapes
+// (bound 0.0200). kSpan 8 at four blocks an SM took 0.0325-0.0330 at the
+// MQAR shape but 0.0396 at the LM's, where 256 blocks fill half its slots;
+// kSpan 32 took 0.0404-0.0409 at one block an SM and spilled at two
+// (0.061-0.065), as kSpan 16 did at four (0.062-0.068).
+//
+// ptxas (nvcc -Xptxas -v, sm_90a, CUDA 12.8), 8,192 bytes of shared memory
+// and "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" for
+// each instantiation: complex with a constant in time (the LRU's) 128
+// registers and real 89, two blocks of 8 warps an SM (the launch bound);
+// where a varies in time 192 (complex) and 190 (real), one block an SM.
 
 #include <cuda_runtime.h>
 #include <cstdint>
 
 namespace {
 
-constexpr int kLanes = 32;  // channels per block
-constexpr int kChunks = 8;  // time chunks per block, one warp each
+constexpr int kLanes = 16;     // channels per block
+constexpr int kChunks = 16;    // chunks of a round, one thread row each
+constexpr int kSpan = 16;      // steps of a chunk, held in registers from pass 1 to pass 2
+constexpr int kMinBlocks = 2;  // the launch bound's blocks an SM where a is constant in time
+constexpr int kRound = kChunks * kSpan;
+constexpr int kThreads = kLanes * kChunks;
 
-__device__ __forceinline__ int64_t imin(int64_t x, int64_t y) { return x < y ? x : y; }
-
-template <bool kComplex>
-__global__ void __launch_bounds__(kLanes * kChunks)
+// kATime: a varies in time (a_tstride != 0), so each step loads its own a_t.
+template <bool kComplex, bool kATime>
+__global__ void __launch_bounds__(kThreads, kATime ? 1 : kMinBlocks)
 diag_scan_kernel(const float* __restrict__ a_re, const float* __restrict__ a_im,
                  const float* __restrict__ b_re, const float* __restrict__ b_im,
                  float* __restrict__ h_re, float* __restrict__ h_im,
                  int64_t L, int64_t N, int64_t n_tiles,
                  int64_t a_bstride, int64_t a_tstride, int reverse) {
-  __shared__ float agg[4][kChunks][kLanes];
+  __shared__ float agg[2][4][kChunks][kLanes];  // by round parity: A re, A im, H re, H im
 
   const int lane = threadIdx.x;
   const int chunk = threadIdx.y;
@@ -53,72 +85,131 @@ diag_scan_kernel(const float* __restrict__ a_re, const float* __restrict__ a_im,
   const int64_t n = (blockIdx.x % n_tiles) * kLanes + lane;
   const bool active = n < N;
 
-  const int64_t span = (L + kChunks - 1) / kChunks;
-  const int64_t t0 = imin(L, chunk * span);
-  const int64_t t1 = imin(L, t0 + span);
-  const int64_t b_off = batch * L * N + n;
+  const int64_t x_off = batch * L * N + n;
   const int64_t a_off = batch * a_bstride + n;
-  // logical step t is physical time index p = t_base + t_sign * t
+  // logical step t is physical time index t_base + t_sign * t
   const int64_t t_sign = reverse ? -1 : 1;
   const int64_t t_base = reverse ? L - 1 : 0;
+  // a, where it is the same at every step (the identity in idle lanes)
+  float car = 1.f, cai = 0.f;
+  if (!kATime && active) {
+    car = a_re[a_off];
+    if constexpr (kComplex) cai = a_im[a_off];
+  }
 
-  // pass 1: aggregate of this chunk
-  float Ar = 1.f, Ai = 0.f, Hr = 0.f, Hi = 0.f;
-  if (active) {
-#pragma unroll 8
-    for (int64_t t = t0; t < t1; ++t) {
-      const int64_t p = t_base + t_sign * t;
-      const float ar = a_re[a_off + p * a_tstride];
-      const float br = b_re[b_off + p * N];
+  float cr = 0.f, ci = 0.f;  // h leaving the round before (the same in every chunk)
+  const int64_t rounds = (L + kRound - 1) / kRound;
+  for (int64_t r = 0; r < rounds; ++r) {
+    const int64_t t0 = r * kRound + chunk * kSpan;  // the chunk's first logical step
+    const int64_t p0 = t_base + t_sign * t0;        // its physical time index
+    const int64_t x0 = x_off + p0 * N;
+    const int64_t step = t_sign * N;  // from one logical step to the next
+    const int64_t q0 = a_off + p0 * a_tstride, a_step = t_sign * a_tstride;
+    // steps of the chunk inside [0, L): the rest are the identity
+    const int64_t left = L - t0;
+    const int n_in = active ? static_cast<int>(left < 0 ? 0 : (left < kSpan ? left : kSpan)) : 0;
+    // the chunk's operands: b_t, and a_t where it varies in time
+    float br[kSpan], bi[kSpan];
+    float ar[kATime ? kSpan : 1], ai[kATime ? kSpan : 1];
+#pragma unroll
+    for (int s = 0; s < kSpan; ++s) {
+      const bool in = s < n_in;
+      br[s] = in ? b_re[x0 + s * step] : 0.f;
+      bi[s] = 0.f;
+      if constexpr (kComplex) bi[s] = in ? b_im[x0 + s * step] : 0.f;
+      if constexpr (kATime) {
+        ar[s] = in ? a_re[q0 + s * a_step] : 1.f;
+        ai[s] = 0.f;
+        if constexpr (kComplex) ai[s] = in ? a_im[q0 + s * a_step] : 0.f;
+      }
+    }
+    // a_t of step s
+    auto alpha = [&](int s, float& xr, float& xi) {
+      if constexpr (kATime) {
+        xr = ar[s];
+        xi = ai[s];
+      } else {
+        xr = s < n_in ? car : 1.f;
+        xi = s < n_in ? cai : 0.f;
+      }
+    };
+
+    // pass 1: the chunk's aggregate, from a zero state
+    float Ar = 1.f, Ai = 0.f, Hr = 0.f, Hi = 0.f;
+#pragma unroll
+    for (int s = 0; s < kSpan; ++s) {
+      float xr, xi;
+      alpha(s, xr, xi);
       if constexpr (kComplex) {
-        const float ai = a_im[a_off + p * a_tstride];
-        const float bi = b_im[b_off + p * N];
-        const float hr = ar * Hr - ai * Hi + br;
-        const float hi = ar * Hi + ai * Hr + bi;
-        const float pr = ar * Ar - ai * Ai;
-        const float pi = ar * Ai + ai * Ar;
+        const float hr = xr * Hr - xi * Hi + br[s];
+        const float hi = xr * Hi + xi * Hr + bi[s];
+        const float pr = xr * Ar - xi * Ai;
+        const float pi = xr * Ai + xi * Ar;
         Hr = hr; Hi = hi; Ar = pr; Ai = pi;
       } else {
-        Hr = ar * Hr + br;
-        Ar = ar * Ar;
+        Hr = xr * Hr + br[s];
+        Ar = xr * Ar;
+      }
+    }
+    float (&ag)[4][kChunks][kLanes] = agg[r & 1];
+    ag[0][chunk][lane] = Ar;
+    ag[2][chunk][lane] = Hr;
+    if constexpr (kComplex) {
+      ag[1][chunk][lane] = Ai;
+      ag[3][chunk][lane] = Hi;
+    }
+    __syncthreads();  // (the other parity's aggregates are free again: every
+                      // thread has folded them before arriving here)
+
+    // carry: fold the round's chunks in order from the round's carry; keep
+    // the state entering this chunk, and the state leaving the round
+    float er = 0.f, ei = 0.f;
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+      if (j == chunk) { er = cr; ei = ci; }
+      if constexpr (kComplex) {
+        const float pr = ag[0][j][lane], pi = ag[1][j][lane];
+        const float nr = pr * cr - pi * ci + ag[2][j][lane];
+        const float ni = pr * ci + pi * cr + ag[3][j][lane];
+        cr = nr; ci = ni;
+      } else {
+        cr = ag[0][j][lane] * cr + ag[2][j][lane];
+      }
+    }
+
+    // pass 2: rescan from the state entering the chunk and write h. The
+    // store addresses are formed here again, from a copy of x0 the compiler
+    // cannot see through: kept from the loads, they would hold registers
+    // across the passes.
+    int64_t y0 = x0;
+    asm volatile("" : "+l"(y0));
+#pragma unroll
+    for (int s = 0; s < kSpan; ++s) {
+      float xr, xi;
+      alpha(s, xr, xi);
+      const int64_t y = y0 + s * step;
+      if constexpr (kComplex) {
+        const float nr = xr * er - xi * ei + br[s];
+        const float ni = xr * ei + xi * er + bi[s];
+        er = nr; ei = ni;
+        if (s < n_in) {
+          h_re[y] = er;
+          h_im[y] = ei;
+        }
+      } else {
+        er = xr * er + br[s];
+        if (s < n_in) h_re[y] = er;
       }
     }
   }
-  agg[0][chunk][lane] = Ar;
-  agg[1][chunk][lane] = Ai;
-  agg[2][chunk][lane] = Hr;
-  agg[3][chunk][lane] = Hi;
-  __syncthreads();
+}
 
-  // state entering this chunk: fold the earlier chunks in order
-  float cr = 0.f, ci = 0.f;
-  for (int j = 0; j < chunk; ++j) {
-    const float pr = agg[0][j][lane], pi = agg[1][j][lane];
-    const float nr = pr * cr - pi * ci + agg[2][j][lane];
-    const float ni = pr * ci + pi * cr + agg[3][j][lane];
-    cr = nr; ci = ni;
-  }
-  if (!active) return;
-
-  // pass 2: rescan from the carried state and write h
-#pragma unroll 8
-  for (int64_t t = t0; t < t1; ++t) {
-    const int64_t p = t_base + t_sign * t;
-    const float ar = a_re[a_off + p * a_tstride];
-    const float br = b_re[b_off + p * N];
-    if constexpr (kComplex) {
-      const float ai = a_im[a_off + p * a_tstride];
-      const float bi = b_im[b_off + p * N];
-      const float nr = ar * cr - ai * ci + br;
-      const float ni = ar * ci + ai * cr + bi;
-      cr = nr; ci = ni;
-      h_re[b_off + p * N] = cr;
-      h_im[b_off + p * N] = ci;
-    } else {
-      cr = ar * cr + br;
-      h_re[b_off + p * N] = cr;
-    }
-  }
+template <bool kComplex, bool kATime>
+void launch(dim3 grid, cudaStream_t s, const float* a_re, const float* a_im,
+            const float* b_re, const float* b_im, float* h_re, float* h_im, int64_t L,
+            int64_t N, int64_t n_tiles, int64_t a_bstride, int64_t a_tstride, int reverse) {
+  diag_scan_kernel<kComplex, kATime><<<grid, dim3(kLanes, kChunks), 0, s>>>(
+      a_re, a_im, b_re, b_im, h_re, h_im, L, N, n_tiles, a_bstride, a_tstride, reverse);
 }
 
 }  // namespace
@@ -126,8 +217,7 @@ diag_scan_kernel(const float* __restrict__ a_re, const float* __restrict__ a_im,
 // b and h are contiguous (batch, L, N); a is read at
 // a[batch * a_bstride + t * a_tstride + n]. For the real recurrence the
 // *_im pointers are ignored. `reverse` scans right to left. Launches on
-// `stream` and returns
-// cudaGetLastError() (0 on success).
+// `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int tlie_diag_scan_f32(const float* a_re, const float* a_im,
                                   const float* b_re, const float* b_im,
                                   float* h_re, float* h_im,
@@ -136,16 +226,19 @@ extern "C" int tlie_diag_scan_f32(const float* a_re, const float* a_im,
                                   int is_complex, int reverse, void* stream) {
   const int64_t n_tiles = (N + kLanes - 1) / kLanes;
   const dim3 grid(static_cast<unsigned int>(batch * n_tiles));
-  const dim3 block(kLanes, kChunks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_complex) {
-    diag_scan_kernel<true><<<grid, block, 0, s>>>(
-        a_re, a_im, b_re, b_im, h_re, h_im, L, N, n_tiles, a_bstride, a_tstride,
-        reverse);
-  } else {
-    diag_scan_kernel<false><<<grid, block, 0, s>>>(
-        a_re, nullptr, b_re, nullptr, h_re, nullptr, L, N, n_tiles, a_bstride,
-        a_tstride, reverse);
-  }
+  const bool a_time = a_tstride != 0;
+  if (is_complex && a_time)
+    launch<true, true>(grid, s, a_re, a_im, b_re, b_im, h_re, h_im, L, N, n_tiles, a_bstride,
+                       a_tstride, reverse);
+  else if (is_complex)
+    launch<true, false>(grid, s, a_re, a_im, b_re, b_im, h_re, h_im, L, N, n_tiles, a_bstride,
+                        a_tstride, reverse);
+  else if (a_time)
+    launch<false, true>(grid, s, a_re, nullptr, b_re, nullptr, h_re, nullptr, L, N, n_tiles,
+                        a_bstride, a_tstride, reverse);
+  else
+    launch<false, false>(grid, s, a_re, nullptr, b_re, nullptr, h_re, nullptr, L, N, n_tiles,
+                         a_bstride, a_tstride, reverse);
   return static_cast<int>(cudaGetLastError());
 }
