@@ -229,6 +229,13 @@ TC_KERNELS = {"fwd_p64": "fused_xent", "dh_p64": "fused_xent", "dh_p32": "fused_
               "decay_bwd_j": "decay_attention"}
 
 
+def ptxas_spills(log: str) -> list:
+    """The bytes each function of a ``nvcc -Xptxas -v`` report spills, stores
+    and loads together, in the report's order."""
+    return [int(m.group(1)) + int(m.group(2)) for m in
+            re.finditer(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
+
+
 def tensor_core_hmma(lib_paths, nvcc: str) -> dict:
     """The HMMA opcodes, with their counts, of each tensor-core kernel in the
     built libraries, from ``cuobjdump -sass`` (beside ``nvcc``): each
@@ -1167,6 +1174,7 @@ def main() -> int:
                     if "registers" in ln]
             ph.fields[f"{name}_nvcc_s"] = f"{report.seconds:.2f}"
             ph.fields[f"{name}_ptxas"] = repr(regs)
+            ph.fields[f"{name}_spill_bytes"] = repr(ptxas_spills(report.log))
         # the fused head's three kernels, the flash attention's three and the
         # decay attention's three run their products on the tensor cores:
         # each one's SASS holds TF32 HMMAs

@@ -6,7 +6,7 @@ time (flipped under ``reverse``) in rounds of KCHUNKS chunks of KSPAN steps;
 each chunk folded from a zero state into (A, H); the round's aggregates
 folded in chunk order from the state the round before handed on; each
 chunk rescanned from the state entering it; steps past L the identity (a 1,
-b 0).  KSPAN and KCHUNKS are read from the kernel's source, and the source
+b 0).  KSPAN and KCHUNKS are pinned to the kernel's source, and the source
 is checked for the fold order the emulation follows.
 
 It is held to the float64 plain scan and to ``tlie_tpu``'s associative scan
@@ -41,7 +41,7 @@ def _source_const(name: str) -> int:
     return int(re.search(rf"constexpr int {name} = (\d+);", SCAN_SOURCE.read_text()).group(1))
 
 
-KSPAN, KCHUNKS = _source_const("kSpan"), _source_const("kChunks")  # steps of a chunk, chunks of a round
+KSPAN, KCHUNKS = 16, 16  # steps of a chunk, chunks of a round (diag_scan.cu)
 KROUND = KSPAN * KCHUNKS
 RTOL_OF_MAX = 1e-5
 B, N = 3, 24
@@ -146,7 +146,7 @@ def test_kernel_fold_matches_float64_and_jax(complex_mode, a_kind, reverse, L):
 
 def test_fold_emulation_follows_the_kernel_source():
     src = SCAN_SOURCE.read_text()
-    assert (KSPAN, KCHUNKS) == (_source_const("kSpan"), _source_const("kChunks"))
+    assert (_source_const("kSpan"), _source_const("kChunks")) == (KSPAN, KCHUNKS)
     assert _source_const("kLanes") == scan._LANES
     assert "constexpr int kRound = kChunks * kSpan;" in src
     # rounds from the left; the loads and each chunk's two passes first step
@@ -162,3 +162,25 @@ def test_fold_emulation_follows_the_kernel_source():
     assert "xr = s < n_in ? car : 1.f;" in src
     # a constant in time is loaded once, before the first round
     assert src.index("car = a_re[a_off];") < src.index("for (int64_t r = 0; r < rounds; ++r) {")
+
+
+def test_chip_smoke_reads_each_functions_spills_from_ptxas():
+    """The build phase's ``*_spill_bytes``: spill stores and loads of each
+    function in a ``-Xptxas -v`` report, in its order."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    log = """ptxas info    : Compiling entry function '_Z1fv' for 'sm_90a'
+ptxas info    : Function properties for _Z1fv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 8192 bytes smem
+ptxas info    : Compiling entry function '_Z1gv' for 'sm_90a'
+ptxas info    : Function properties for _Z1gv
+    328 bytes stack frame, 324 bytes spill stores, 240 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 8192 bytes smem
+"""
+    assert cs.ptxas_spills(log) == [0, 564]
+    assert cs.ptxas_spills("") == []

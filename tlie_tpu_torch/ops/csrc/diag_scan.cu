@@ -42,14 +42,9 @@
 // thread loads it once, before the first round. No atomics, and the fold
 // order is fixed: two launches give the same bits.
 //
-// kSpan and the launch bound were chosen on the card
-// (tlie_tpu_torch/tools/scan_fwd_variants.py, NVIDIA H100 80GB HBM3 at 700 W,
-// L2-cold medians of two runs; PERF.md §6):
-// kSpan 16 at two blocks an SM took 0.0345-0.0353 ms at both shapes
-// (bound 0.0200). kSpan 8 at four blocks an SM took 0.0325-0.0330 at the
-// MQAR shape but 0.0396 at the LM's, where 256 blocks fill half its slots;
-// kSpan 32 took 0.0404-0.0409 at one block an SM and spilled at two
-// (0.061-0.065), as kSpan 16 did at four (0.062-0.068).
+// kSpan and the launch bound were chosen on the card: chip_smoke.py ran from
+// git archives of this source and of copies with kSpan 8 at four blocks an SM
+// and kSpan 32 at one, in one call; PERF.md §6 holds the times.
 //
 // ptxas (nvcc -Xptxas -v, sm_90a, CUDA 12.8), 8,192 bytes of shared memory
 // and "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" for
@@ -65,13 +60,12 @@ namespace {
 constexpr int kLanes = 16;     // channels per block
 constexpr int kChunks = 16;    // chunks of a round, one thread row each
 constexpr int kSpan = 16;      // steps of a chunk, held in registers from pass 1 to pass 2
-constexpr int kMinBlocks = 2;  // the launch bound's blocks an SM where a is constant in time
 constexpr int kRound = kChunks * kSpan;
 constexpr int kThreads = kLanes * kChunks;
 
 // kATime: a varies in time (a_tstride != 0), so each step loads its own a_t.
 template <bool kComplex, bool kATime>
-__global__ void __launch_bounds__(kThreads, kATime ? 1 : kMinBlocks)
+__global__ void __launch_bounds__(kThreads, kATime ? 1 : 2)
 diag_scan_kernel(const float* __restrict__ a_re, const float* __restrict__ a_im,
                  const float* __restrict__ b_re, const float* __restrict__ b_im,
                  float* __restrict__ h_re, float* __restrict__ h_im,
