@@ -8,9 +8,10 @@ It builds the port's CUDA kernels from ``tlie_tpu_torch/ops/csrc`` with
 once), holds each kernel against its plain PyTorch version on the card
 (the diagonal scan forward and backward, the three kernels of the fused
 decoder + cross-entropy head, the three of the SSD's decay attention and the
-three of the flash attention), and drives four full-width models along five
-paths, each with the launch counts set to 0 just before it and read just
-after:
+three of the flash attention), the scan's two kernels also on a decay that
+varies by example and is constant in time, and drives six full-width models
+along seven paths, each with the launch counts set to 0 just before it and
+read just after:
 
 1. the MQAR LRU (``MQAR_LRU_FULL``: L=512, d_model=128, N=128, 2 layers,
    vocab 8192, batch 64, weights from the config's seed): evaluation,
@@ -34,10 +35,22 @@ after:
    (AdamW behind the clip, the sparse head) on the same cut train split, the
    checkpoint reloaded and eigen-analysed from activations, and serving (64
    prompts cut to 384 tokens, prefill plus 16 greedy tokens over the KV
-   cache, the step path against the full forward).
+   cache, the step path against the full forward);
+6. the MQAR linear attention transformer (``MQAR_LIN_ATTENTION_FULL``: the
+   transformer's widths and position table, elu+1 features, the chunked
+   linear attention with its normaliser): its forward on the test batch,
+   200 training steps, the checkpoint eigen-analysed (η of the normaliser
+   from activations) and serving (64 prompts of 496 tokens, prefill plus 16
+   greedy tokens over the O(1) state), then the step's time and its six
+   largest device kernels;
+7. the MQAR norm attention transformer (``MQAR_NORM_ATTENTION_CONV_FULL``:
+   the learned softplus decay with its offset, conv 4, no position table)
+   along the same phases with 50 training steps.
+Paths 6 and 7 reach no Pallas kernel in ``tlie_tpu``: no port kernel
+launches on them, and the script checks that.
 
 It also checks one MQAR training step of the LRU, of the Mamba-2 and of the
-transformer on the card against the same step on the CPU, one fused-head
+transformers on the card against the same step on the CPU, one fused-head
 WikiText step against the dense-head step on the card, and times each kernel
 against its bound, its plain version and, where one exists, the PyTorch
 library call computing the same function.  Each
@@ -172,6 +185,14 @@ ATTN_RTOL = 1e-5
 # serving takes the test batch's prompts cut to 384 tokens (a multiple of the
 # TPU kernel's 128-row block) and 16 greedy tokens, inside max_pos_embed 512
 TF_STEPS, TF_EVAL_EVERY, TF_PROMPT = 200, 100, 384
+# the MQAR linear and norm attention paths: 200 and 50 steps with 2 evals each
+# (the configs run 40,000 with an eval every 200), on the same train split
+# cut as the LRU's; serving takes the test batch's prompts cut to 496 tokens
+# and 16 greedy tokens, which fills the linear attention's position table of
+# 512 (the norm attention has none)
+LIN_STEPS, LIN_EVAL_EVERY = 200, 100
+NORM_STEPS, NORM_EVAL_EVERY = 50, 25
+ATT_PROMPT = 496
 # one transformer step's gradients, card vs CPU, both held to float64 on the
 # CPU: the card's error may be GRAD_F64_FACTOR times the CPU's, or 1e-4 of
 # the leaf's max, the tolerance the CPU tests hold the port's gradients to
@@ -796,13 +817,14 @@ def time_flash_attention(fa, q, k, v, do, lse, di, flush):
     return out, (backend, sdpa_kernels)
 
 
-def step_profile(one_step, tokens_per_step: int, kernel_pattern: str, kernel_field: str,
-                 n_warm: int = 3, n_timed: int = 20):
+def step_profile(one_step, tokens_per_step: int, kernel_pattern, kernel_field: str,
+                 n_warm: int = 3, n_timed: int = 20, n_top: int = 12):
     """Fields of a training step's timing phase: ms per step from CUDA events
     around ``n_timed`` back-to-back steps after ``n_warm`` warm ones, train
     tokens/s, and from ``torch.profiler`` over one step the device busy time,
     the idle share, the time and share of the kernels whose names hold
-    ``kernel_pattern``, and device time by kind."""
+    ``kernel_pattern`` (where one is given), device time by kind, and the
+    ``n_top`` kernels with the most device time, by name."""
     for _ in range(n_warm):
         one_step()
     torch.cuda.synchronize()
@@ -820,18 +842,77 @@ def step_profile(one_step, tokens_per_step: int, kernel_pattern: str, kernel_fie
     if busy <= 0:  # the profiler saw no device time: the CUDA-event time stands alone
         fields["device_busy_ms"] = "not measured"
         return fields
-    k_ms = sum(t for name, t in ops if kernel_pattern in name)
     by_kind = {}
     for name, t in ops:
         op_kind = next((k for k, pats in OP_KINDS if any(p in name for p in pats)), "other")
         by_kind[op_kind] = round(by_kind.get(op_kind, 0.0) + t, 4)
     fields.update({"device_busy_ms": f"{busy:.4f}",
-                   "idle_share": f"{max(0.0, 1 - busy / step_ms):.3f}",
-                   f"{kernel_field}_ms": f"{k_ms:.4f}",
-                   f"{kernel_field}_share_of_device": f"{k_ms / busy:.4f}",
-                   "device_ms_by_kind": repr(sorted(by_kind.items(), key=lambda kv: -kv[1])),
-                   "top_device_ops_ms": repr(short(ops[:12]))})
+                   "idle_share": f"{max(0.0, 1 - busy / step_ms):.3f}"})
+    if kernel_pattern is not None:
+        k_ms = sum(t for name, t in ops if kernel_pattern in name)
+        fields.update({f"{kernel_field}_ms": f"{k_ms:.4f}",
+                       f"{kernel_field}_share_of_device": f"{k_ms / busy:.4f}"})
+    fields.update({"device_ms_by_kind": repr(sorted(by_kind.items(), key=lambda kv: -kv[1])),
+                   "top_device_ops_ms": repr(short(ops[:n_top]))})
     return fields
+
+
+def step_card_vs_cpu(ph, what: str, fresh, dev, x_step, y_step, lrs, sparse_k,
+                     rtol_of_max: float, watch=None):
+    """One training step (sparse head, AdamW behind the global-norm clip)
+    from the same weights and batch on the card and on the CPU, both held
+    to the same step in float64 on the CPU: each gradient's error on the
+    card may be GRAD_F64_FACTOR times the CPU's or ``rtol_of_max`` of the
+    leaf's max|g|; the parameters within PARAM_ATOL where |g| is at least
+    1e-2 of its leaf's max and within the movement bound 2·lr + PARAM_ATOL
+    everywhere.  ``fresh(device)`` gives (model, optimizer, clip norm);
+    ``watch`` is (field, name predicate) for leaves whose error ratios are
+    printed one by one.  Fills ``ph.fields``, raises on a failed check, and
+    returns the card's (model, optimizer, clip norm) after its step."""
+    from tlie_tpu_torch.training import train_step
+    from tlie_tpu_torch.training.state import clip_by_global_norm_
+    from tlie_tpu_torch.training.steps import cross_entropy_loss, head_logits
+
+    card_m, card_opt, clip = fresh(dev)
+    cpu_m, cpu_opt, _ = fresh("cpu")
+    train_step(card_m, card_opt, x_step, y_step, lrs, sparse_k, clip_norm=clip)
+    t0 = time.perf_counter()
+    train_step(cpu_m, cpu_opt, x_step.cpu(), y_step.cpu(), lrs, sparse_k, clip_norm=clip)
+    cpu_g = {n: p.grad for n, p in cpu_m.named_parameters()}
+    card_g = {n: p.grad.cpu() for n, p in card_m.named_parameters()}
+    ref_m = fresh("cpu")[0].double()
+    cross_entropy_loss(*head_logits(ref_m, x_step.cpu(), y_step.cpu(), sparse_k)).backward()
+    raw_norm = float(clip_by_global_norm_(ref_m.parameters(), clip))
+    cpu_s = time.perf_counter() - t0
+    g_ratio, g_leaf, watched = 0.0, "", {}
+    for n, p in ref_m.named_parameters():
+        g64 = p.grad
+        e_card = (card_g[n].double() - g64).abs().max().item()
+        e_cpu = (cpu_g[n].double() - g64).abs().max().item()
+        allowed = max(GRAD_F64_FACTOR * e_cpu, rtol_of_max * g64.abs().max().item())
+        if watch is not None and watch[1](n):
+            watched[n] = round(e_card / allowed, 4)
+        if e_card / allowed > g_ratio:
+            g_ratio, g_leaf = e_card / allowed, n
+    g_worst = grad_err(card_g, cpu_g)
+    p_worst = p_anywhere = 0.0
+    for (n, p), q in zip(card_m.named_parameters(), cpu_m.parameters()):
+        p_err = (p.detach().cpu() - q.detach()).abs()
+        g_abs = cpu_g[n].abs()
+        det = g_abs >= 1e-2 * g_abs.max()
+        p_worst = max(p_worst, p_err[det].max().item() if bool(det.any()) else 0.0)
+        p_anywhere = max(p_anywhere, p_err.max().item())
+    ph.fields.update(raw_grad_norm_f64=f"{raw_norm:.4f}", clip=clip,
+                     grad_err_over_allowed=f"{g_ratio:.3f}({g_leaf})")
+    if watch is not None:
+        ph.fields[watch[0]] = repr(watched)
+    ph.fields.update(grad_card_vs_cpu_worst_rel_to_leaf_max=f"{g_worst:.3e}",
+                     param_worst_where_grad_determined=f"{p_worst:.3e}",
+                     param_worst_anywhere=f"{p_anywhere:.3e}", cpu_steps_s=f"{cpu_s:.1f}")
+    if not (g_ratio <= 1.0 and p_worst <= PARAM_ATOL
+            and p_anywhere <= 2 * lrs["regular"] + PARAM_ATOL):
+        raise AssertionError(f"{what} card vs CPU step: {ph.fields}")
+    return card_m, card_opt, clip
 
 
 def transformer_path(dev, gen, flush, test_x, test_y, train_split, want_files):
@@ -856,8 +937,7 @@ def transformer_path(dev, gen, flush, test_x, test_y, train_split, want_files):
     from tlie_tpu_torch.ops import attention as fa
     from tlie_tpu_torch.training import prep_batch, restore_checkpoint, train, train_step
     from tlie_tpu_torch.training.scan_loop import sparse_head_k_for
-    from tlie_tpu_torch.training.state import clip_by_global_norm_, make_family_optimizer
-    from tlie_tpu_torch.training.steps import cross_entropy_loss, head_logits
+    from tlie_tpu_torch.training.state import make_family_optimizer
 
     kernels = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
     with Phase("flash_attention_vs_plain") as ph:
@@ -956,7 +1036,7 @@ def transformer_path(dev, gen, flush, test_x, test_y, train_split, want_files):
                 tcfg, {"save_path": eig_dir}, perf, ckpt_path, device=dev, batch=test_x[:bsz])
             if LAUNCHES["flash_attention_fwd"] - before != 2 * n_layers:
                 raise AssertionError("eval_eig's two forwards did not go through the kernel")
-            live = extract_attention_family(result.eval_model, inputs)
+            live = extract_attention_family(result.eval_model, inputs, smm)
             (run_dir,) = os.listdir(eig_dir)
             files = sorted(os.listdir(os.path.join(eig_dir, run_dir)))
             saved = np.load(os.path.join(eig_dir, run_dir, "eig.npy"))
@@ -1047,46 +1127,10 @@ def transformer_path(dev, gen, flush, test_x, test_y, train_split, want_files):
         return m, opt, clip
 
     with Phase("tf_train_step_card_vs_cpu") as ph:
-        card_m, card_opt, clip = fresh(dev)
-        cpu_m, cpu_opt, _ = fresh("cpu")
-        train_step(card_m, card_opt, x_step, y_step, lrs, sparse_k, clip_norm=clip)
-        t0 = time.perf_counter()
-        train_step(cpu_m, cpu_opt, x_step.cpu(), y_step.cpu(), lrs, sparse_k, clip_norm=clip)
-        cpu_g = {n: p.grad for n, p in cpu_m.named_parameters()}
-        card_g = {n: p.grad.cpu() for n, p in card_m.named_parameters()}
-        ref_m = fresh("cpu")[0].double()
-        cross_entropy_loss(*head_logits(ref_m, x_step.cpu(), y_step.cpu(), sparse_k)).backward()
-        raw_norm = float(clip_by_global_norm_(ref_m.parameters(), clip))
-        cpu_s = time.perf_counter() - t0
-        g_ratio, g_leaf = 0.0, ""
-        wqkv = {}  # the projection that the dK/dV kernel's gradients sum into
-        for n, p in ref_m.named_parameters():
-            g64 = p.grad
-            e_card = (card_g[n].double() - g64).abs().max().item()
-            e_cpu = (cpu_g[n].double() - g64).abs().max().item()
-            allowed = max(GRAD_F64_FACTOR * e_cpu, TF_GRAD_RTOL_OF_MAX * g64.abs().max().item())
-            if "Wqkv" in n:
-                wqkv[n] = round(e_card / allowed, 4)
-            if e_card / allowed > g_ratio:
-                g_ratio, g_leaf = e_card / allowed, n
-        g_worst = grad_err(card_g, cpu_g)
-        p_worst = p_anywhere = 0.0
-        for (n, p), q in zip(card_m.named_parameters(), cpu_m.parameters()):
-            p_err = (p.detach().cpu() - q.detach()).abs()
-            g_abs = cpu_g[n].abs()
-            det = g_abs >= 1e-2 * g_abs.max()
-            p_worst = max(p_worst, p_err[det].max().item() if bool(det.any()) else 0.0)
-            p_anywhere = max(p_anywhere, p_err.max().item())
-        ph.fields.update(raw_grad_norm_f64=f"{raw_norm:.4f}", clip=clip,
-                         grad_err_over_allowed=f"{g_ratio:.3f}({g_leaf})",
-                         wqkv_grad_err_over_allowed=repr(wqkv),
-                         grad_card_vs_cpu_worst_rel_to_leaf_max=f"{g_worst:.3e}",
-                         param_worst_where_grad_determined=f"{p_worst:.3e}",
-                         param_worst_anywhere=f"{p_anywhere:.3e}", cpu_steps_s=f"{cpu_s:.1f}")
-        if not (g_ratio <= 1.0 and p_worst <= PARAM_ATOL
-                and p_anywhere <= 2 * f["lr"] + PARAM_ATOL):
-            raise AssertionError(f"transformer card vs CPU step: {ph.fields}")
-        del cpu_m, cpu_opt, ref_m, cpu_g, card_g
+        # Wqkv: the projection that the dK/dV kernel's gradients sum into
+        card_m, card_opt, clip = step_card_vs_cpu(
+            ph, "transformer", fresh, dev, x_step, y_step, lrs, sparse_k, TF_GRAD_RTOL_OF_MAX,
+            watch=("wqkv_grad_err_over_allowed", lambda n: "Wqkv" in n))
 
     with Phase("tf_train_step_timing") as ph:
         ph.fields.update(step_profile(
@@ -1111,6 +1155,231 @@ def transformer_path(dev, gen, flush, test_x, test_y, train_split, want_files):
     return path5_all, attn_times, attn_errs
 
 
+def attention_family_path(dev, test_x, test_y, train_split, want_files, full, tag: str,
+                          steps: int, eval_every: int):
+    """Main path 6 (``MQAR_LIN_ATTENTION_FULL``: 2 layers, d_model 128, one
+    head of 128, vocab 8192, position table 512, L 512, batch 64, dropout
+    0.1) or 7 (``MQAR_NORM_ATTENTION_CONV_FULL``: the same widths, softplus
+    decay with its offset, elu features, scale_B, conv 4, no position table),
+    weights from seed 1919.  Neither reaches a Pallas kernel in tlie_tpu (the
+    chunked linear attention is XLA einsums there, PyTorch matmuls here), so
+    no port kernel may launch on it: with every launch count set to 0, the
+    forward on the test batch (card against CPU), ``steps`` training steps
+    with 2 evals, the checkpoint reloaded and eigen-analysed (η from
+    activations, against the live model's), and serving (64 prompts of 496
+    tokens, prefill plus 16 greedy tokens, the step path against the full
+    forward); the counts are read and printed there.  Then one card step
+    against the CPU step and the step's time, device busy time, idle share
+    and six largest device kernels, and the chunked linear attention's
+    forward and backward alone, with its share of the step's device time.
+    Returns the path's launch counts."""
+    from tlie_tpu_torch.analysis import eval_eig
+    from tlie_tpu_torch.analysis.eval_eig import extract_attention_family
+    from tlie_tpu_torch.config import derive_runtime_fields, train_fields
+    from tlie_tpu_torch.data import masked_accuracy
+    from tlie_tpu_torch.inference import Decoder
+    from tlie_tpu_torch.models import build_models
+    from tlie_tpu_torch.ops import LAUNCHES
+    from tlie_tpu_torch.ops.linear_attention import chunked_linear_attention
+    from tlie_tpu_torch.training import prep_batch, restore_checkpoint, train, train_step
+    from tlie_tpu_torch.training.scan_loop import sparse_head_k_for
+    from tlie_tpu_torch.training.state import make_family_optimizer
+
+    mc = full["model"]
+    n_layers, bsz, L = mc["num_layers"], full["train"]["batch_size"], mc["seq_len"]
+    _, model, _ = build_models(mc, generator=torch.Generator().manual_seed(full["seed"]),
+                               device=dev)
+    inputs, labels = prep_batch((test_x[:bsz], test_y[:bsz]), L, mc["input_dim"],
+                                lang_model=True, device=dev)
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    with Phase(f"{tag}_forward") as ph, torch.no_grad():
+        logits = model(inputs)
+        torch.cuda.synchronize()
+        if logits.shape != (bsz, L, mc["output_dim"]) or not torch.isfinite(logits).all():
+            raise AssertionError(f"{tag} forward output {tuple(logits.shape)}")
+        acc = float(masked_accuracy(logits, labels))
+        fwd_ms = min(cuda_ms(lambda: model(inputs), 3))
+        top = top_device_ops(lambda: model(inputs))
+        _, cpu_model, _ = build_models(mc, generator=torch.Generator(), device="cpu")
+        cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        ref = cpu_model(inputs[:2].cpu())
+        cpu_err = (logits[:2].cpu() - ref).abs().max().item()
+        if not torch.allclose(logits[:2].cpu(), ref, rtol=LOGIT_RTOL, atol=LOGIT_ATOL):
+            raise AssertionError(f"{tag} card vs CPU forward: max abs err {cpu_err}")
+        ph.fields.update(masked_acc=f"{acc:.6f}", forward_ms=f"{fwd_ms:.3f}",
+                         vs_cpu_max_abs=f"{cpu_err:.3e}", top_device_ops_ms=repr(short(top)))
+        del cpu_model, ref
+
+    tcfg = copy.deepcopy(full)
+    tmp = tempfile.mkdtemp(prefix=f"tlie_{tag}_")
+    tcfg["save"] = os.path.join(tmp, "checkpoint", os.path.basename(full["save"]))
+    tcfg["train"].update(total_steps=steps, eval_every=eval_every)
+    tcfg["dataset"]["num_train_examples"] = TRAIN_EXAMPLES
+    tcfg = derive_runtime_fields(tcfg, L, len(train_split[0]))
+    try:
+        with Phase(f"{tag}_train") as ph:
+            t0 = time.perf_counter()
+            result = train(tcfg, train_split, (test_x, test_y), device=dev)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            for rec in result.history:
+                if not all(np.isfinite(v) for v in rec.values()):
+                    raise AssertionError(f"non-finite {tag} training numbers {rec}")
+            trained = result.model.state_dict()
+            init = build_models(mc, generator=torch.Generator().manual_seed(full["seed"]),
+                                device=dev)[0].state_dict()
+            frozen = [k for k, v in trained.items() if torch.equal(v, init[k])]
+            if frozen:
+                raise AssertionError(f"{tag} parameters that did not move: {frozen}")
+            ph.fields.update(steps=steps, seconds=f"{train_s:.2f}",
+                             history=repr([{k: round(v, 4) for k, v in r.items()}
+                                           for r in result.history]))
+
+        with Phase(f"{tag}_checkpoint_eval_eig") as ph:
+            ckpt_path, perf = result
+            ckpt = restore_checkpoint(ckpt_path)
+            for k, v in trained.items():
+                if not torch.equal(ckpt["model"][k], v.cpu()):
+                    raise AssertionError(f"{tag} checkpoint entry {k} differs from the live "
+                                         "weights")
+            eig_dir = os.path.join(tmp, "analysis")
+            eig, eig_init, perc, perc_init, _, _ = eval_eig(
+                tcfg, {"save_path": eig_dir}, perf, ckpt_path, device=dev, batch=test_x[:bsz])
+            live = extract_attention_family(result.eval_model, inputs, mc)
+            (run_dir,) = os.listdir(eig_dir)
+            files = sorted(os.listdir(os.path.join(eig_dir, run_dir)))
+            saved = np.load(os.path.join(eig_dir, run_dir, "eig.npy"))
+            want_shape = (bsz, L - 1, mc["num_heads"], n_layers)
+            if eig.shape != want_shape or eig_init.shape != want_shape:
+                raise AssertionError(f"{tag} spectra {eig.shape}, {eig_init.shape}")
+            live_rel = float(np.max(np.abs(eig - live) / np.abs(live)))
+            if not (np.array_equal(saved, eig) and live_rel <= 1e-6):
+                raise AssertionError(f"{tag} spectra from the checkpoint differ from the live "
+                                     f"model's: {live_rel}")
+            if not (np.all(eig_init > 0) and np.all(eig > 0) and np.isfinite(eig).all()
+                    and np.isfinite(eig_init).all()):
+                raise AssertionError(f"{tag} η not finite and positive")
+            if files != want_files or not run_dir.startswith(f"MQARdmodel{mc['hidden_dim']}"):
+                raise AssertionError(f"{tag} artifacts {run_dir}: {files}")
+            ph.fields.update(checkpoint=os.path.basename(ckpt_path), perf=f"{perf:.4f}",
+                             artifacts=run_dir, n_files=len(files),
+                             eig_vs_live_max_rel=f"{live_rel:.3e}",
+                             eta_range_trained=f"[{eig.min():.4g}, {eig.max():.4g}]",
+                             eta_median_init_trained=f"{np.median(eig_init):.4g},"
+                                                     f"{np.median(eig):.4g}",
+                             radius_pct_mean_layer0=np.round(perc[:, :, 0, 0].mean(1), 2).tolist(),
+                             radius_pct_init_mean_layer0=np.round(
+                                 perc_init[:, :, 0, 0].mean(1), 2).tolist())
+
+        with Phase(f"{tag}_serving") as ph:
+            n_new = 16
+            dec = Decoder(mc, result.eval_model)
+            prompts = inputs[:, :ATT_PROMPT]
+            _, last = dec.prefill(prompts, ATT_PROMPT + n_new)
+            with torch.no_grad():
+                full_prompt = result.eval_model(prompts)[:, -1]
+            prefill_err = (last - full_prompt).abs().max().item()
+            if not torch.allclose(last, full_prompt, rtol=LOGIT_RTOL, atol=LOGIT_ATOL):
+                raise AssertionError(f"{tag} prefill vs forward: {prefill_err}")
+            dec.generate(prompts, n_new)  # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = dec.generate(prompts, n_new)
+            torch.cuda.synchronize()
+            gen_s = time.perf_counter() - t0
+            if out.shape != (bsz, ATT_PROMPT + n_new) or not torch.equal(out[:, :ATT_PROMPT],
+                                                                         prompts):
+                raise AssertionError(f"{tag} generate output {tuple(out.shape)}")
+            if int(out.min()) < 0 or int(out.max()) >= mc["output_dim"]:
+                raise AssertionError("generated ids out of the vocab")
+            # the step path over the O(1) state against the full forward on
+            # the generated tokens, every position
+            n_check = 4
+            sw = dec.stepwise_logits(out[:n_check])
+            with torch.no_grad():
+                full_logits = result.eval_model(out[:n_check])
+            step_err = (sw - full_logits).abs().max().item()
+            if not torch.allclose(sw, full_logits, rtol=LOGIT_RTOL, atol=LOGIT_ATOL):
+                raise AssertionError(f"{tag} stepwise vs forward: {step_err}")
+            past = "no position table"
+            if mc["max_pos_embed"] > 0:
+                try:
+                    dec.generate(inputs[:2], n_new)  # 512 + 16 positions, a table of 512
+                    raise AssertionError("generation past max_pos_embed did not raise")
+                except ValueError:
+                    past = "ValueError"
+            ph.fields.update(prefill_plus_generate_s=f"{gen_s:.4f}",
+                             tokens_per_s=f"{bsz * n_new / gen_s:.1f}",
+                             prefill_vs_forward_max_abs=f"{prefill_err:.3e}",
+                             stepwise_vs_forward_max_abs=f"{step_err:.3e}",
+                             past_max_pos_embed=past)
+        launches = dict(LAUNCHES)
+        print(f"[launches] {tag} attention forward, training, eval_eig and serving: {launches} "
+              "(expected: none; tlie_tpu reaches no Pallas kernel on this path)", flush=True)
+        if any(launches.values()):
+            raise AssertionError(f"the {tag} attention path launched port kernels: {launches}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # one step (sparse head, AdamW behind the global-norm clip) from the same
+    # weights and batch at dropout 0, on the card and on the CPU, both held to
+    # the same step in float64 on the CPU
+    step_cfg = dict(mc, dropout=0.0)
+    f = train_fields(tcfg)
+    sparse_k = sparse_head_k_for(mc, train_split[1], test_y)
+    lrs = {"regular": f["lr"]}
+    x_step = torch.as_tensor(train_split[0][:bsz], device=dev).long()
+    y_step = torch.as_tensor(train_split[1][:bsz], device=dev).long()
+
+    def fresh(device):
+        m, _, family = build_models(step_cfg,
+                                    generator=torch.Generator().manual_seed(full["seed"]),
+                                    device=device)
+        opt, clip = make_family_optimizer(m, family, step_cfg, tcfg["train"], f)
+        return m, opt, clip
+
+    with Phase(f"{tag}_train_step_card_vs_cpu") as ph:
+        card_m, card_opt, clip = step_card_vs_cpu(ph, tag, fresh, dev, x_step, y_step, lrs,
+                                                  sparse_k, TF_GRAD_RTOL_OF_MAX)
+
+    with Phase(f"{tag}_train_step_timing") as ph:
+        fields = step_profile(
+            lambda: train_step(card_m, card_opt, x_step, y_step, lrs, sparse_k, clip_norm=clip),
+            bsz * L, None, "", n_top=6)
+        ph.fields.update(fields)
+        # the chunked linear attention alone, forward and backward, at the
+        # path's (B, L, H, head_dim) with positive features and the layer's
+        # normaliser choice: its share of the step's device time, the
+        # number that says whether the op earns a kernel
+        att = card_m.layers[0].attention
+        normalizer = not hasattr(att, "Wvqkn")
+        g = torch.Generator(device=dev).manual_seed(7)
+        qkv = [torch.randn(bsz, L, att.num_heads, d, device=dev, generator=g)
+               for d in (att.head_dim, att.head_dim, att.v_dim)]
+        q, k = (torch.nn.functional.elu(x) + 1 for x in qkv[:2])
+        leaves = [x.requires_grad_() for x in (q, k, qkv[2])]
+        cot = torch.randn(bsz, L, att.num_heads, att.v_dim, device=dev, generator=g)
+
+        def fwd_bwd():
+            out = chunked_linear_attention(*leaves, return_normalizer=normalizer)
+            y = out[0] / out[1][..., None] if normalizer else out
+            torch.autograd.grad((y * cot).sum(), leaves)
+
+        # between events (host waits inside it included) and, from the
+        # profiler, the device time of its own kernels
+        op_ms = median(cuda_ms(fwd_bwd, 11))
+        op_busy = sum(t for _, t in top_device_ops(fwd_bwd, k=1000))
+        ph.fields["chunked_linear_attention_fwd_bwd_ms"] = f"{op_ms:.4f}"
+        ph.fields["chunked_linear_attention_fwd_bwd_device_busy_ms"] = f"{op_busy:.4f}"
+        if fields["device_busy_ms"] != "not measured" and op_busy > 0:
+            share = n_layers * op_busy / float(fields["device_busy_ms"])
+            ph.fields["chunked_linear_attention_share_of_device"] = f"{share:.4f}"
+        del card_m, card_opt, leaves, qkv, q, k, cot
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card",
@@ -1122,7 +1391,8 @@ def main() -> int:
         extract_attention_family, extract_ssm_family, ssm_layer_params,
     )
     from tlie_tpu_torch.config import (
-        MQAR_LRU_FULL, MQAR_MAMBA2_FULL, WIKITEXT_LRU_SHORT, derive_runtime_fields, train_fields,
+        MQAR_LIN_ATTENTION_FULL, MQAR_LRU_FULL, MQAR_MAMBA2_FULL, MQAR_NORM_ATTENTION_CONV_FULL,
+        WIKITEXT_LRU_SHORT, derive_runtime_fields, train_fields,
     )
     from tlie_tpu_torch.data import MQAR, WikiText, masked_accuracy
     from tlie_tpu_torch.inference import Decoder
@@ -1139,9 +1409,7 @@ def main() -> int:
     )
     from tlie_tpu_torch.training import prep_batch, restore_checkpoint, train, train_step
     from tlie_tpu_torch.training.scan_loop import sparse_head_k_for
-    from tlie_tpu_torch.training.state import (
-        clip_by_global_norm_, make_family_optimizer, make_optimizer,
-    )
+    from tlie_tpu_torch.training.state import make_family_optimizer, make_optimizer
     from tlie_tpu_torch.training.steps import cross_entropy_loss, head_logits
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1261,6 +1529,56 @@ def main() -> int:
                 if not (h_err <= SCAN_RTOL_OF_MAX * h_scale and d_e <= d_tol and da_ratio <= 1.0
                         and same):
                     raise AssertionError(f"diag_scan_bwd {tag}: {ph.fields[tag]}")
+
+    # a decay that varies by example and is constant in time, (B, 1, N):
+    # the forward reads it at batch stride N and time stride 0, the backward
+    # sums da over time within each row; (B1, 1, 1, N) against (B1, B2, L, N)
+    # fits no one batch stride and is read from a broadcast copy.  Both
+    # kernels through autograd against diag_scan_plain's autograd, real and
+    # complex, forward and reversed, at a ragged L.
+    with Phase("scan_per_example_decay_vs_plain") as ph:
+        for a_shape, shape in (((3, 1, 40), (3, 601, 40)), ((3, 1, 1, 40), (3, 2, 601, 40))):
+            for complex_mode in (False, True):
+                for reverse in (False, True):
+                    tag = (f"{'complex' if complex_mode else 'real'}_a{'x'.join(map(str, a_shape))}"
+                           f"_{'rev' if reverse else 'fwd'}")
+                    a = ring(a_shape) if complex_mode else ring(a_shape)[0].abs()
+                    b = normal_pair(shape) if complex_mode else torch.randn(
+                        shape, device=dev, generator=gen)
+                    w = tuple(torch.randn(shape, device=dev, generator=gen) for _ in _planes(b))
+                    k = len(_planes(a))
+
+                    def run(leaves, scan):
+                        args = ((tuple(leaves[:k]), tuple(leaves[k:])) if complex_mode
+                                else (leaves[0], leaves[1]))
+                        h = scan(*args, reverse=reverse)
+                        sum((x * y).sum() for x, y in zip(_planes(h), w)).backward()
+                        return tuple(x.detach() for x in _planes(h))
+
+                    leaves = [x.clone().requires_grad_() for x in _planes(a) + _planes(b)]
+                    ref_leaves = [x.clone().requires_grad_() for x in _planes(a) + _planes(b)]
+                    before = dict(LAUNCHES)
+                    h = run(leaves, diag_linear_scan)
+                    torch.cuda.synchronize()
+                    if (LAUNCHES["diag_scan"] != before["diag_scan"] + 1
+                            or LAUNCHES["diag_scan_bwd"] != before["diag_scan_bwd"] + 1):
+                        raise AssertionError(f"scan {tag} did not go through both kernels")
+                    ref = run(ref_leaves, diag_scan_plain)
+                    h_err, h_scale = scan_err(h, ref)
+                    db = tuple(x.grad for x in leaves[k:])
+                    db_ref = tuple(x.grad for x in ref_leaves[k:])
+                    d_err, d_scale = scan_err(db, db_ref)
+                    da = tuple(x.grad for x in leaves[:k])
+                    da_ref = tuple(x.grad for x in ref_leaves[:k])
+                    _, _, da_e, da_ratio = bwd_err(a, ref, da, db, da_ref, db_ref, reverse)
+                    ok_shape = all(x.shape == a_shape for x in da)
+                    ph.fields[tag] = (f"h_rel={h_err / h_scale:.2e},db_rel={d_err / d_scale:.2e},"
+                                      f"da_abs={da_e:.2e},da_err_over_tol={da_ratio:.3f},"
+                                      f"da_shape_ok={ok_shape}")
+                    if not (h_err <= SCAN_RTOL_OF_MAX * h_scale
+                            and d_err <= SCAN_RTOL_OF_MAX * d_scale and da_ratio <= 1.0
+                            and ok_shape):
+                        raise AssertionError(f"scan per-example decay {tag}: {ph.fields[tag]}")
 
     # the fused head's three kernels against the plain version, at the LM's
     # (B·L, D, V) and two small shapes; times at the LM's shape
@@ -1918,7 +2236,7 @@ def main() -> int:
             batch = test_x[:bsz]  # the analysis config's batch_size: the first 64 test examples
             eig, eig_init, perc, perc_init, _, _ = eval_eig(mcfg4, {"save_path": eig_dir}, perf,
                                                             ckpt_path, device=dev, batch=batch)
-            live = extract_attention_family(m_result.eval_model, m_inputs)
+            live = extract_attention_family(m_result.eval_model, m_inputs, mm)
             (run_dir,) = os.listdir(eig_dir)
             files = sorted(os.listdir(os.path.join(eig_dir, run_dir)))
             saved = np.load(os.path.join(eig_dir, run_dir, "eig.npy"))
@@ -1958,47 +2276,13 @@ def main() -> int:
         return m, opt, clip
 
     with Phase("mamba_train_step_card_vs_cpu") as ph:
-        card_m, card_opt, clip = m_fresh(dev)
-        cpu_m, cpu_opt, _ = m_fresh("cpu")
-        train_step(card_m, card_opt, x_step, y_step, m_lrs, m_sparse_k, clip_norm=clip)
-        t0 = time.perf_counter()
-        train_step(cpu_m, cpu_opt, x_step.cpu(), y_step.cpu(), m_lrs, m_sparse_k, clip_norm=clip)
-        cpu_g = {n: p.grad for n, p in cpu_m.named_parameters()}
-        card_g = {n: p.grad.cpu() for n, p in card_m.named_parameters()}
-        ref_m = m_fresh("cpu")[0].double()
-        cross_entropy_loss(*head_logits(ref_m, x_step.cpu(), y_step.cpu(), m_sparse_k)).backward()
-        raw_norm = float(clip_by_global_norm_(ref_m.parameters(), clip))
-        cpu_s = time.perf_counter() - t0
-        g_ratio, g_leaf = 0.0, ""
-        per_head = {}  # the leaves that sum dcs = dcs_i + dcs_j over every position
-        for n, p in ref_m.named_parameters():
-            g64 = p.grad
-            e_card = (card_g[n].double() - g64).abs().max().item()
-            e_cpu = (cpu_g[n].double() - g64).abs().max().item()
-            allowed = max(GRAD_F64_FACTOR * e_cpu,
-                          MAMBA_GRAD_RTOL_OF_MAX * g64.abs().max().item())
-            if n.endswith(("dt_bias", "A_log")):
-                per_head[n] = round(e_card / allowed, 4)
-            if e_card / allowed > g_ratio:
-                g_ratio, g_leaf = e_card / allowed, n
-        g_worst = grad_err(card_g, cpu_g)
-        p_worst = p_anywhere = 0.0
-        for (n, p), q in zip(card_m.named_parameters(), cpu_m.parameters()):
-            p_err = (p.detach().cpu() - q.detach()).abs()
-            g_abs = cpu_g[n].abs()
-            det = g_abs >= 1e-2 * g_abs.max()
-            p_worst = max(p_worst, p_err[det].max().item() if bool(det.any()) else 0.0)
-            p_anywhere = max(p_anywhere, p_err.max().item())
-        ph.fields.update(raw_grad_norm_f64=f"{raw_norm:.4f}", clip=clip,
-                         grad_err_over_allowed=f"{g_ratio:.3f}({g_leaf})",
-                         dt_bias_a_log_grad_err_over_allowed=repr(per_head),
-                         grad_card_vs_cpu_worst_rel_to_leaf_max=f"{g_worst:.3e}",
-                         param_worst_where_grad_determined=f"{p_worst:.3e}",
-                         param_worst_anywhere=f"{p_anywhere:.3e}", cpu_steps_s=f"{cpu_s:.1f}")
-        if not (g_ratio <= 1.0 and p_worst <= PARAM_ATOL
-                and p_anywhere <= 2 * m_f["lr"] + PARAM_ATOL):
-            raise AssertionError(f"Mamba-2 card vs CPU step: {ph.fields}")
-        del cpu_m, cpu_opt, ref_m, cpu_g, card_g
+        # dt_bias and A_log: the leaves that sum dcs = dcs_i + dcs_j over
+        # every position
+        card_m, card_opt, clip = step_card_vs_cpu(
+            ph, "Mamba-2", m_fresh, dev, x_step, y_step, m_lrs, m_sparse_k,
+            MAMBA_GRAD_RTOL_OF_MAX,
+            watch=("dt_bias_a_log_grad_err_over_allowed",
+                   lambda n: n.endswith(("dt_bias", "A_log"))))
 
     # a Mamba-2 training step's time and where it goes
     with Phase("mamba_train_step_timing") as ph:
@@ -2027,12 +2311,24 @@ def main() -> int:
     path5_all, attn_times, attn_errs = transformer_path(dev, gen, flush, test_x, test_y,
                                                         train_split, want_files)
 
+    # main paths 6 and 7, the MQAR linear and norm attention transformers:
+    # no port kernel on either
+    path6_all = attention_family_path(dev, test_x, test_y, train_split, want_files,
+                                      MQAR_LIN_ATTENTION_FULL, "lin", LIN_STEPS, LIN_EVAL_EVERY)
+    path7_all = attention_family_path(dev, test_x, test_y, train_split, want_files,
+                                      MQAR_NORM_ATTENTION_CONV_FULL, "norm", NORM_STEPS,
+                                      NORM_EVAL_EVERY)
+
+    def late(name):
+        return path6_all[name] + path7_all[name]
+
     kernels = [{
         "name": "diag_scan",
         "route": "cuda",
         "source": "tlie_tpu_torch/ops/csrc/diag_scan.cu",
         "replaces": "tlie_tpu/ops/pallas_scan.py:107",
-        "launches": path1["diag_scan"] + path2_all["diag_scan"] + path3_all["diag_scan"],
+        "launches": (path1["diag_scan"] + path2_all["diag_scan"] + path3_all["diag_scan"]
+                     + late("diag_scan")),
         "max_abs_err": err,
         "ms": scan_times[""][0],
         "plain_ms": scan_times[""][2],
@@ -2045,7 +2341,7 @@ def main() -> int:
         "source": "tlie_tpu_torch/ops/csrc/diag_scan_bwd.cu",
         "replaces": "tlie_tpu/ops/pallas_scan.py:192",
         "launches": (path1["diag_scan_bwd"] + path2_all["diag_scan_bwd"]
-                     + path3_all["diag_scan_bwd"]),
+                     + path3_all["diag_scan_bwd"] + late("diag_scan_bwd")),
         "max_abs_err": max(d_e, da_e),
         "ms": bwd_times[""][0],
         "plain_ms": bwd_times[""][2],
@@ -2062,7 +2358,7 @@ def main() -> int:
             "route": "cuda",
             "source": "tlie_tpu_torch/ops/csrc/fused_xent.cu",
             "replaces": replaces[name],
-            "launches": path3_all[name],
+            "launches": path3_all[name] + late(name),
             "max_abs_err": xent_errs[name],
             "ms": k_ms,
             "plain_ms": p_ms,
@@ -2079,7 +2375,7 @@ def main() -> int:
             "route": "cuda",
             "source": "tlie_tpu_torch/ops/csrc/decay_attention.cu",
             "replaces": replaces[name],
-            "launches": path4_all[name],
+            "launches": path4_all[name] + late(name),
             "max_abs_err": decay_errs[name],
             "ms": k_ms,
             "plain_ms": p_ms,
@@ -2096,7 +2392,7 @@ def main() -> int:
             "route": "cuda",
             "source": "tlie_tpu_torch/ops/csrc/flash_attention.cu",
             "replaces": replaces[name],
-            "launches": path5_all[name],
+            "launches": path5_all[name] + late(name),
             "max_abs_err": attn_errs[name],
             "ms": k_ms,
             "plain_ms": p_ms,

@@ -68,6 +68,15 @@ tf(x).sum().backward()
 assert tf.layers[0].attention.Wqkv.weight.grad is not None
 out = Decoder(tcfg, tf_eval).generate(x[:, :8], 4)
 assert out.shape == (4, 12), out.shape
+from tlie_tpu_torch.config import MQAR_LIN_ATTENTION_FULL, MQAR_NORM_ATTENTION_CONV_FULL
+from tlie_tpu_torch.analysis.eval_eig import extract_attention_family
+for full in (MQAR_LIN_ATTENTION_FULL, MQAR_NORM_ATTENTION_CONV_FULL):
+    acfg = dict(full["model"], vocab_size=64, output_dim=64, hidden_dim=16, state_dim=16,
+                num_heads=2, seq_len=16, max_pos_embed=16 if full["model"]["max_pos_embed"] else 0)
+    am, am_eval, _ = build_models(acfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    am(x).sum().backward()
+    assert extract_attention_family(am_eval, x, acfg).shape == (4, 15, 2, 2)
+    assert Decoder(acfg, am_eval).generate(x[:, :8], 4).shape == (4, 12)
 assert not any(m in sys.modules and sys.modules[m] is not None for m in {forbidden!r})
 print("ok", acc)
 """

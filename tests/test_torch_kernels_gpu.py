@@ -143,6 +143,61 @@ def test_backward_kernel_matches_plain(cuda_device, shape, a_shape, reverse):
     assert all(torch.equal(x, y) for x, y in zip(da + d, da2 + d2))
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
+@pytest.mark.parametrize("complex_mode", [False, True], ids=["real", "complex"])
+@pytest.mark.parametrize("a_shape, shape",
+                         [((3, 1, 40), (3, 1001, 40)), ((2, 3, 1, 40), (2, 3, 1001, 40)),
+                          ((3, 1, 1, 40), (3, 2, 1001, 40))],
+                         ids=["per_example", "per_example_two_batch_dims", "partial_broadcast"])
+def test_per_example_decay_through_autograd_matches_plain(cuda_device, a_shape, shape,
+                                                          complex_mode, reverse):
+    """A decay that varies by example and is constant in time, read at batch
+    stride N and time stride 0 (or, where no batch stride fits, from a
+    broadcast copy), at a ragged L 1001: the forward against
+    ``diag_scan_plain`` and the gradients of a and b against the plain
+    scan's autograd on the same inputs, da at a's own shape."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    r = 0.9 + 0.09 * torch.rand(a_shape, device=cuda_device, generator=g)
+    th = 6.28 * torch.rand(a_shape, device=cuda_device, generator=g)
+    if complex_mode:
+        a = (r * torch.cos(th), r * torch.sin(th))
+        b = tuple(torch.randn(shape, device=cuda_device, generator=g) for _ in range(2))
+    else:
+        a, b = r, torch.randn(shape, device=cuda_device, generator=g)
+    w = tuple(torch.randn(shape, device=cuda_device, generator=g) for _ in range(len(_pl(b))))
+    leaves = [x.clone().requires_grad_() for x in _pl(a) + _pl(b)]
+    k = len(_pl(a))
+    args = (tuple(leaves[:k]), tuple(leaves[k:])) if complex_mode else (leaves[0], leaves[1])
+    before = dict(LAUNCHES)
+    h = diag_linear_scan(*args, reverse=reverse)
+    sum(((x * y).sum() for x, y in zip(_pl(h), w))).backward()
+    torch.cuda.synchronize()
+    assert LAUNCHES["diag_scan"] == before["diag_scan"] + 1
+    assert LAUNCHES["diag_scan_bwd"] == before["diag_scan_bwd"] + 1
+    ref_leaves = [x.detach().clone().requires_grad_() for x in leaves]
+    ref_args = ((tuple(ref_leaves[:k]), tuple(ref_leaves[k:])) if complex_mode
+                else (ref_leaves[0], ref_leaves[1]))
+    ref = diag_scan_plain(*ref_args, reverse=reverse)
+    sum(((x * y).sum() for x, y in zip(_pl(ref), w))).backward()
+    assert _close(tuple(x.detach() for x in _pl(h)), tuple(x.detach() for x in _pl(ref)))
+    db, db_ref = tuple(x.grad for x in leaves[k:]), tuple(x.grad for x in ref_leaves[k:])
+    assert _close(db, db_ref)
+    # da sums d_t·conj(h_{t−1}) over time (and the broadcast batch dims):
+    # within 1e-5 of Σ (max|d|·|h_{t−1}| + |d_t|·max|h|) over those axes
+    d_abs = sum(x.abs() for x in db_ref)
+    hs = tuple(x.detach() for x in _pl(ref))
+    h_prev = sum(_shift(x, 1 if reverse else -1).abs() for x in hs)
+    hmax = max(x.abs().max() for x in hs)
+    tol = RTOL_OF_MAX * _sum_to(d_abs.max() * h_prev + d_abs * hmax, torch.Size(a_shape))
+    for x, y in zip(leaves[:k], ref_leaves[:k]):
+        assert x.grad.shape == a_shape and bool(((x.grad - y.grad).abs() <= tol).all())
+
+
+def _pl(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
 # -- the fused decoder + cross-entropy kernels ----------------------------------
 # loss and lse within 1e-5 relative (float32 sums of D products, exp and log),
 # each row's loss within 1e-5 of |lse| + |picked logit| (fx.loss_term_scales);
@@ -417,3 +472,60 @@ def test_flash_attention_autograd_goes_through_the_kernels(cuda_device):
     with pytest.raises(ValueError, match="head dim"):
         big = torch.zeros(1, 8, 1, 136, device=cuda_device)
         fa.causal_softmax_attention(big, big, big)
+
+
+# -- linear and norm attention: no port kernel, the step on the card ------------
+# one training step (sparse head, AdamW behind the global-norm clip) of the
+# MQAR linear and norm attention transformers, cut to d_model 64, two heads,
+# L 128, vocab 512, batch 8, at dropout 0, on the card and on the CPU from
+# the same weights and batch: each gradient within 1e-4 of its leaf's max|g|
+# (float32 sums in other orders), the parameters within 1e-6 where |g| is at
+# least 1e-2 of its leaf's max and within the movement bound 2·lr + 1e-6
+# everywhere; no port kernel launches.
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["lin", "norm"])
+def test_attention_family_step_on_the_card_matches_the_cpu(cuda_device, which):
+    import numpy as np
+
+    from tlie_tpu_torch.config import (
+        MQAR_LIN_ATTENTION_FULL, MQAR_NORM_ATTENTION_CONV_FULL, train_fields,
+    )
+    from tlie_tpu_torch.data import MQAR
+    from tlie_tpu_torch.models import build_models
+    from tlie_tpu_torch.training import train_step
+    from tlie_tpu_torch.training.scan_loop import sparse_head_k_for
+    from tlie_tpu_torch.training.state import make_family_optimizer
+
+    torch.backends.cudnn.allow_tf32 = False
+    full = MQAR_LIN_ATTENTION_FULL if which == "lin" else MQAR_NORM_ATTENTION_CONV_FULL
+    cfg = dict(full["model"], hidden_dim=64, state_dim=64, num_heads=2, vocab_size=512,
+               output_dim=512, seq_len=128, dropout=0.0,
+               max_pos_embed=128 if full["model"]["max_pos_embed"] else 0)
+    data = MQAR(input_seq_length=128, num_kv_pairs=16, vocab_size=512, num_train_examples=64,
+                num_test_examples=16)
+    (xs, ys), (_, ty) = data.split("train"), data.split("test")
+    k = sparse_head_k_for(cfg, ys, ty)
+    f = train_fields(full)
+    x, y = torch.from_numpy(xs[:8]).long(), torch.from_numpy(ys[:8]).long()
+    steps = []
+    for device in (cuda_device, torch.device("cpu")):
+        model, _, family = build_models(cfg, generator=torch.Generator().manual_seed(3),
+                                        device=device)
+        opt, clip = make_family_optimizer(model, family, cfg, full["train"], f)
+        before = dict(LAUNCHES)
+        train_step(model, opt, x.to(device), y.to(device), {"regular": f["lr"]}, k,
+                   clip_norm=clip)
+        assert LAUNCHES == before
+        steps.append({n: (p.detach().cpu(), p.grad.cpu()) for n, p in model.named_parameters()})
+    card, cpu = steps
+    for name, (p_cpu, g_cpu) in cpu.items():
+        p_card, g_card = card[name]
+        g_max = g_cpu.abs().max().item()
+        assert (g_card - g_cpu).abs().max().item() <= 1e-4 * g_max, name
+        det = g_cpu.abs() >= 1e-2 * g_max
+        err = (p_card - p_cpu).abs()
+        if bool(det.any()):
+            assert float(err[det].max()) <= 1e-6, name
+        assert float(err.max()) <= 2 * f["lr"] + 1e-6, name
+    assert np.isfinite(sum(float(g.abs().sum()) for _, g in card.values()))

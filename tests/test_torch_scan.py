@@ -127,18 +127,37 @@ def test_missing_nvcc_raises(monkeypatch):
 
 @pytest.mark.parametrize(
     "a_shape, want",
-    [((N,), (0, 0)), ((L, N), (0, N)), ((1, L, N), (0, N)), ((B, L, N), (L * N, N))],
-    ids=["per_channel", "shared_over_batch", "leading_one", "per_example"],
+    [((N,), (0, 0)), ((L, N), (0, N)), ((1, L, N), (0, N)), ((B, L, N), (L * N, N)),
+     ((B, 1, N), (N, 0))],
+    ids=["per_channel", "shared_over_batch", "leading_one", "per_example",
+         "per_example_constant_in_time"],
 )
 def test_kernel_reads_a_through_strides(a_shape, want):
     """How the kernel reads a broadcast decay: a batch stride of 0 for a
-    decay shared across the batch, never a materialised copy."""
+    decay shared across the batch, N for a per-example decay constant in
+    time (time stride 0), never a materialised copy."""
     assert scan._a_strides(torch.zeros(a_shape), torch.Size((B, L, N))) == want
 
 
-def test_kernel_rejects_partial_batch_broadcast():
-    with pytest.raises(ValueError, match="shared across the batch"):
-        scan._a_strides(torch.zeros(B, 1, N), torch.Size((B, L, N)))
+@pytest.mark.parametrize("a_shape", [(2, 1, 1, N), (3, 1, N), (2, 3, L, N)],
+                         ids=["first_of_two_batch_dims", "second_of_two_batch_dims",
+                              "transposed_full"])
+def test_kernel_reads_a_copy_where_no_batch_stride_fits(a_shape):
+    """Where the leading dims of a cannot be read at one batch stride (a
+    partial broadcast over two batch dims, or a full a that is not
+    contiguous), the launchers read a contiguous broadcast copy at the
+    strides of a full or a per-example decay, and the gradient still comes
+    back at a's own shape (_sum_to)."""
+    shape = torch.Size((2, 3, L, N))
+    a = torch.zeros(a_shape)
+    if a_shape == (2, 3, L, N):
+        a = torch.zeros(3, 2, L, N).transpose(0, 1)
+    assert scan._a_strides(a, shape) is None
+    read, bstride, tstride = scan._a_layout((a,), shape, "test")
+    time = a.shape[-2]
+    assert read[0].shape == (2, 3, time, N) and read[0].is_contiguous()
+    assert (bstride, tstride) == (time * N, N if time > 1 else 0)
+    assert scan._sum_to(torch.ones(read[0].shape), a.shape).shape == a.shape
 
 
 def test_expanded_decay_view_needs_no_copy():

@@ -288,14 +288,15 @@ def test_state_dict_keys_are_the_reference_names(small, variant):
 def test_registry_refuses_what_is_not_ported(small):
     _, model_cfg, _, _, _, _, _ = small
     g = torch.Generator()
-    for bad in ({"attention_fn": "lin-attention"}, {"attention_fn": "norm-attention"},
-                {"mixer": "mlp"}, {"mixer": "hybrid"}, {"use_gate": True},
+    for bad in ({"mixer": "mlp"}, {"mixer": "hybrid"}, {"use_gate": True},
                 {"classifier": True}, {"dual": True}, {"embedding": False},
                 {"compute_dtype": "bfloat16"}):
         with pytest.raises(NotImplementedError):
             build_models(dict(model_cfg, **bad), generator=g, device="cpu")
     with pytest.raises(RuntimeError):
         build_models(dict(model_cfg, mixer="moe"), generator=g, device="cpu")
+    with pytest.raises(RuntimeError):
+        build_models(dict(model_cfg, attention_fn="rnn-attention"), generator=g, device="cpu")
     model, eval_model, _ = build_models(model_cfg, generator=g, device="cpu")
     assert model.training and not eval_model.training
     assert all(p is q for p, q in zip(model.parameters(), eval_model.parameters()))

@@ -61,3 +61,38 @@ def jax_apply(eval_model, params, batch_stats, x):
     """tlie_tpu's forward (jitted: one compile instead of eager dispatch)."""
     variables = {"params": params, **({"batch_stats": batch_stats} if batch_stats else {})}
     return np.asarray(jax.jit(eval_model.apply)(variables, np.asarray(x)))
+
+
+# -- the transformer family ------------------------------------------------------
+
+def jax_transformer_params(model_cfg, seed=0):
+    """(eval_model, params) of tlie_tpu's transformer for ``model_cfg``,
+    initialised under jit."""
+    _, jeval, _ = jax_build_models(dict(model_cfg), padded=False)
+    toks = np.zeros((1, model_cfg["seq_len"]), np.int32)
+    return jeval, to_numpy(jax.jit(jeval.init)(jax.random.PRNGKey(seed), toks)["params"])
+
+
+def port_transformer(model_cfg, params):
+    """The port's (train model, eval model) on the CPU carrying ``params``."""
+    model, eval_model, family = build_models(model_cfg, generator=torch.Generator(), device="cpu")
+    assert family == "transformer"
+    model.load_state_dict(params_from_jax(params))
+    return model, eval_model
+
+
+def jax_sparse_loss(model, k):
+    """tlie_tpu's sparse-head masked CE of ``model`` as a function of
+    (params, x, y): the features at the k labelled positions of each row
+    through the decoder kernel."""
+    import jax.numpy as jnp
+
+    from tlie_tpu.training import scan_loop
+
+    def loss(params, x, y):
+        feats = model.apply({"params": params}, x, method=type(model).features)
+        _, pos = jax.lax.top_k((y != -100).astype(jnp.int32), k)
+        f_sel = jnp.take_along_axis(feats, pos[..., None], axis=1)
+        y_sel = jnp.take_along_axis(y, pos, axis=1)
+        return scan_loop.cross_entropy_loss(f_sel @ params["decoder"]["kernel"], y_sel)
+    return loss

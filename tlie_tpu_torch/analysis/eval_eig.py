@@ -1,14 +1,15 @@
 """Eigen-spectroscopy: per-layer spectra → binning → artifacts, counterpart
 of ``tlie_tpu/analysis/eval_eig.py::eval_eig`` for the LRU (its SSM branch,
-:384-433) and for Mamba-2 and the softmax transformer (its attention-family
-branch, :324-382).
+:384-433) and for Mamba-2 and the softmax, linear and norm attention
+transformers (its attention-family branch, :324-382).
 
 For the LRU the spectra depend on the parameters only, so no batch runs
 through the model.  For Mamba-2 and the transformer they come from a forward
 pass: one analysis batch goes through the blocks, and layer i's spectrum is
 taken from layer i's *own output* re-projected through its own projection —
 Mamba-2's λ_t = exp(dt_t·A) through ``in_proj``, the transformer's η_t of
-the softmax normaliser through ``Wqkv`` — the reference's layer-chain quirk
+its normaliser through ``Wqkv`` (softmax, linear) or ``Wvqkn`` (norm
+attention's learned decay) — the reference's layer-chain quirk
 (``eval_eig.py:12-17``), kept for parity.  Both passes run in evaluation
 mode.
 
@@ -39,7 +40,7 @@ from .artifacts import (
 from .binning import (
     PHASE_THRESHOLDS, RADIUS_THRESHOLDS, threshold_analysis, threshold_analysis_ssm,
 )
-from .extractors import eig_att_softmax, eig_lru, eig_mamba2
+from .extractors import eig_att_linear, eig_att_norm, eig_att_softmax, eig_lru, eig_mamba2
 
 _SEQ_KEY = re.compile(r"^encoder\.layers\.(\d+)\.seq\.(\w+)$")
 
@@ -64,12 +65,16 @@ def extract_ssm_family(layer_list, model_config) -> np.ndarray:
 
 
 @torch.no_grad()
-def extract_attention_family(model: nn.Module, inputs: torch.Tensor) -> np.ndarray:
+def extract_attention_family(model: nn.Module, inputs: torch.Tensor,
+                             model_config: Mapping[str, Any]) -> np.ndarray:
     """Per-layer spectra from the activations after each block
     (``_extract_attention_family``): Mamba-2's λ → float32 (B, L, nheads,
-    layers), the softmax transformer's η → float32 (B, L−1, H, layers).
-    The encoder runs without its dropout and the final norm is not applied,
-    as the reference's collector runs them."""
+    layers); for the transformer, dispatched on ``attention_fn``, softmax,
+    linear or norm attention's η → float32 (B, L−1, H, layers), norm
+    attention's with the offset only where the config sets ``offset``.  An
+    unknown ``attention_fn`` raises.  The encoder runs without its dropout
+    and the final norm is not applied, as the reference's collector runs
+    them."""
     h = model.encoder(inputs)
     etas = []
     for block in model.blocks if hasattr(model, "blocks") else model.layers:
@@ -79,8 +84,17 @@ def extract_attention_family(model: nn.Module, inputs: torch.Tensor) -> np.ndarr
             eta = eig_mamba2(h, m.in_proj.weight, m.in_proj.bias, m.dt_bias, m.A_log,
                              m.d_inner, m.ngroups, m.d_state)
         else:
-            a = block.attention
-            eta = eig_att_softmax(h, a.Wqkv.weight, a.Wqkv.bias, a.d_qk, a.num_heads)
+            a, attention_fn = block.attention, model_config["attention_fn"]
+            if attention_fn == "sm-attention":
+                eta = eig_att_softmax(h, a.Wqkv.weight, a.Wqkv.bias, a.d_qk, a.num_heads)
+            elif attention_fn == "lin-attention":
+                eta = eig_att_linear(h, a.Wqkv.weight, a.Wqkv.bias, a.d_qk, a.num_heads)
+            elif attention_fn == "norm-attention":
+                offset = a.offset if model_config.get("offset", False) else None
+                eta = eig_att_norm(h, a.Wvqkn.weight, a.Wvqkn.bias, a.d_qk, a.d_model,
+                                   model_config["norm_fn"], offset=offset)
+            else:
+                raise RuntimeError(f"unsupported attention_fn {attention_fn}")
         etas.append(eta.cpu().numpy()[..., None])
     return np.concatenate(etas, axis=-1)
 
@@ -95,7 +109,7 @@ def _trained_state(params) -> Mapping[str, torch.Tensor]:
 
 def eval_eig(args: Dict[str, Any], conf_args: Dict[str, Any], perf: float,
              params, *, device="cuda", batch=None):
-    """Spectra pipeline for the LRU, Mamba-2 and the softmax transformer.
+    """Spectra pipeline for the LRU, Mamba-2 and the transformers.
 
     ``params`` is the trained model, its ``state_dict``, or the path of the
     port's checkpoint (``training.save_checkpoint``); ``batch`` is the
@@ -147,16 +161,17 @@ def _attention_arrays(init_model, trained, batch, model_config, device) -> Dict[
     """The attention-family branch (``eval_eig.py:324-382``): spectra of the
     init and the trained model on the analysis batch, radius and phase
     binned per (example, head, layer), with the batch mean and std.  The
-    Mamba family bins |λ| and its angle; the transformer's η is real and is
-    binned as it is, its phase as 0·η (ref :668-674)."""
+    Mamba family bins |λ| and its angle; the transformers' η (softmax,
+    linear, norm) is real and is binned as it is, its phase as 0·η (ref
+    :668-674)."""
     if batch is None:
         raise ValueError(f"the {model_config['layer']} family's spectra need an analysis batch "
                          "(batch=...)")
     inputs = torch.as_tensor(np.asarray(batch), device=device).long()
-    eig_init = extract_attention_family(init_model, inputs)
+    eig_init = extract_attention_family(init_model, inputs, model_config)
     _, model, _ = build_models(model_config, generator=torch.Generator(), device=device)
     model.load_state_dict(trained)
-    eig = extract_attention_family(model, inputs)
+    eig = extract_attention_family(model, inputs, model_config)
 
     arrays: Dict[str, Any] = {}
     if model_config["layer"] == "mamba":

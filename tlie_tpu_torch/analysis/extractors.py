@@ -1,6 +1,6 @@
 """Eigenvalue extractors, counterpart of ``tlie_tpu/analysis/extractors.py``
-for the LRU, Mamba-2 and softmax attention.  Complex spectra are native
-complex tensors (ROADMAP rule 5)."""
+for the LRU, Mamba-2, and softmax, linear and norm attention.  Complex
+spectra are native complex tensors (ROADMAP rule 5)."""
 
 from __future__ import annotations
 
@@ -8,6 +8,12 @@ from typing import Mapping
 
 import torch
 import torch.nn.functional as F
+
+from ..models.attention_layers import norm_fn_by_name
+
+# the reference's guard: an exact-zero normaliser becomes this before the
+# ratio (ref eval_eig.py:127)
+ZERO_GUARD = 2e-23
 
 
 def eig_lru(layer_params: Mapping[str, torch.Tensor]) -> torch.Tensor:
@@ -62,3 +68,41 @@ def eig_att_softmax(x: torch.Tensor, wqkv_weight: torch.Tensor, wqkv_bias, d_qk:
     q = qkv[..., :d_qk].reshape(B, L, num_heads, head_dim)
     k = qkv[..., d_qk: 2 * d_qk].reshape(B, L, num_heads, head_dim)
     return eta_softmax_from_qk(q, k)
+
+
+def _guard(nu: torch.Tensor) -> torch.Tensor:
+    return torch.where(nu == 0.0, torch.full((), ZERO_GUARD, dtype=nu.dtype, device=nu.device),
+                       nu)
+
+
+def eig_att_linear(x: torch.Tensor, wqkv_weight: torch.Tensor, wqkv_bias, d_qk: int,
+                   num_heads: int) -> torch.Tensor:
+    """η_t of linear attention (``eig_att_linear``, ref eval_eig.py:97-135):
+    ν_t = (elu(q_t)+1)·Σ_{s≤t}(elu(k_s)+1) from x through ``Wqkv`` (no conv,
+    as the reference), an exact-zero ν replaced by 2e-23, η_t = ν_t/ν_{t+1}.
+    Returns (B, L−1, H) float32."""
+    B, L, _ = x.shape
+    head_dim = d_qk // num_heads
+    qkv = x @ wqkv_weight.t()
+    if wqkv_bias is not None:
+        qkv = qkv + wqkv_bias
+    q = F.elu(qkv[..., :d_qk].reshape(B, L, num_heads, head_dim)) + 1
+    k = F.elu(qkv[..., d_qk: 2 * d_qk].reshape(B, L, num_heads, head_dim)) + 1
+    nu = _guard(torch.einsum("blhd,blhd->blh", q, torch.cumsum(k, dim=1)))
+    return nu[:, :-1] / nu[:, 1:]
+
+
+def eig_att_norm(x: torch.Tensor, wvqkn_weight: torch.Tensor, wvqkn_bias, d_qk: int,
+                 d_model: int, norm_fn: str, offset=None) -> torch.Tensor:
+    """η_t of norm attention (``eig_att_norm``, ref eval_eig.py:137-174):
+    n_t = exp(−norm_fn(n-proj (+ offset))) from the n block of ``Wvqkn``,
+    an exact-zero n replaced by 2e-23, η_t = n_{t+1}/n_t.  Returns (B, L−1,
+    H) float32."""
+    proj = x @ wvqkn_weight.t()
+    if wvqkn_bias is not None:
+        proj = proj + wvqkn_bias
+    n = proj[..., d_model + 2 * d_qk:]
+    if offset is not None:
+        n = n + offset
+    n = _guard(torch.exp(-norm_fn_by_name(norm_fn)(n)))
+    return n[:, 1:] / n[:, :-1]

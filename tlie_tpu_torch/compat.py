@@ -10,7 +10,7 @@ names (``encoder.word_embeddings``, ``blocks.{i}.mamba.*``,
 ``blocks_i/glu_layer/linear`` and ``blocks_i/norm_layer`` as
 ``tlie_tpu/analysis/compat.py`` maps them; so does the transformer family
 (``encoder.position_embeddings``,
-``layers.{i}.attention.{Wqkv,out_proj,conv1d}``, ``layers.{i}.norm``,
+``layers.{i}.attention.{Wqkv,Wvqkn,offset,out_proj,conv1d}``, ``layers.{i}.norm``,
 ``layers.{i}.mixer.linear``, ``norm``) onto ``layers_i/attention/*``,
 ``layers_i/norm``, ``layers_i/mixer/linear`` and ``norm``.  Dense kernels
 (in, out) become ``nn.Linear`` weights (out, in); the SSM token encoder keeps flax's (in,
@@ -38,7 +38,7 @@ _FLAX_BLOCK = r"params/blocks_(?P<i>\d+)"
 _PROJ = r"(?P<pr>in_proj|out_proj)"
 _TF = r"layers\.(?P<i>\d+)"
 _FLAX_TF = r"params/layers_(?P<i>\d+)"
-_ATT = r"(?P<a>Wqkv|out_proj)"
+_ATT = r"(?P<a>Wqkv|Wvqkn|out_proj)"
 # layout changes between the two sides
 T, CONV = "T", "conv"
 # (state_dict key, flax "collection/path", layout change), as regexes with
@@ -71,6 +71,7 @@ _RULES = (
      None),
     (_TF + r"\.attention\." + _ATT + r"\.weight", _FLAX_TF + r"/attention/" + _ATT + r"/kernel", T),
     (_TF + r"\.attention\." + _ATT + r"\.bias", _FLAX_TF + r"/attention/" + _ATT + r"/bias", None),
+    (_TF + r"\.attention\.offset", _FLAX_TF + r"/attention/offset", None),
     (_TF + r"\.attention\.conv1d\.weight", _FLAX_TF + r"/attention/conv1d/weight", CONV),
     (_TF + r"\.attention\.conv1d\.bias", _FLAX_TF + r"/attention/conv1d/bias", None),
     (_TF + r"\.norm\.weight", _FLAX_TF + r"/norm/scale", None),

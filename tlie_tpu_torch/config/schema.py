@@ -1,21 +1,30 @@
-"""Experiment configuration: the parts of ``tlie_tpu/config/schema.py`` the
-LRU slices use (runtime fields, ``lang_model``, ``checkpoint_name``), the
-train fields and the step-driven choice of ``tlie_tpu/training/loop.py``,
-and the full-width MQAR LRU, MQAR Mamba-2, MQAR softmax transformer and
+"""Experiment configuration: ``tlie_tpu/config/schema.py`` copied
+(``ExperimentConfig``, ``load_experiment``, the sweep files' ``load_sweep``,
+``expand_sweep``, ``apply_sweep_point`` and ``iter_sweep``), with its derived
+fields also as functions on plain dicts (``derive_runtime_fields``,
+``lang_model``, ``checkpoint_name``); the train fields and the step-driven
+choice of ``tlie_tpu/training/loop.py``; and the full-width MQAR LRU, MQAR
+Mamba-2, MQAR softmax, linear and norm attention transformers and the
 WikiText LRU as Python dicts.
 
 YAML is read only inside :func:`load_yaml`, so that the package and the card
-run (``chip_smoke.py``) need no ``yaml`` module.
+run (``chip_smoke.py``) need no ``yaml`` module.  Running a sweep is not
+ported yet: ``launch --sweep`` raises.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
+import itertools
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 # Next-token style tasks (ref launch.py:119).
 LANG_MODEL_DATASETS = ("WikiText", "MQAR")
+
+# Model families of the framework (ref train.py:732-743).
+MODEL_FAMILIES = ("mamba", "transformer", "lru", "s4", "s5")
 
 
 def load_yaml(path: str | Path) -> Dict[str, Any]:
@@ -28,11 +37,136 @@ def load_yaml(path: str | Path) -> Dict[str, Any]:
     return data
 
 
-def derive_runtime_fields(raw: Dict[str, Any], l_max: int, train_size: int) -> Dict[str, Any]:
-    """Copy of ``raw`` with the fields the launcher derives from the dataset
-    (``ExperimentConfig.derive_runtime_fields``): ``lang_model``,
-    ``train.padded``, ``train.train_size`` and ``model.seq_len``."""
-    cfg = copy.deepcopy(raw)
+@dataclasses.dataclass
+class ExperimentConfig:
+    """One experiment point (``ExperimentConfig``): the raw dict sections,
+    kept as they are so that any reference YAML key round-trips, and the
+    fields the launcher derives at run time."""
+
+    raw: Dict[str, Any]
+
+    @property
+    def seed(self) -> int:
+        return int(self.raw.get("seed", 0))
+
+    @property
+    def save(self) -> Optional[str]:
+        return self.raw.get("save")
+
+    @property
+    def dataset(self) -> Dict[str, Any]:
+        return self.raw["dataset"]
+
+    @property
+    def train(self) -> Dict[str, Any]:
+        return self.raw["train"]
+
+    @property
+    def model(self) -> Dict[str, Any]:
+        return self.raw["model"]
+
+    @property
+    def wandb(self) -> Optional[Dict[str, Any]]:
+        return self.raw.get("wandb")
+
+    @property
+    def layer(self) -> str:
+        return self.model["layer"]
+
+    @property
+    def lang_model(self) -> bool:
+        return self.dataset.get("name") in LANG_MODEL_DATASETS
+
+    @property
+    def is_torch_family(self) -> bool:
+        """The families that were torch modules in the reference."""
+        return self.layer in ("mamba", "transformer")
+
+    def validate(self) -> "ExperimentConfig":
+        for section in ("dataset", "train", "model"):
+            if section not in self.raw:
+                raise ValueError(f"Config missing required section '{section}'")
+        if self.layer not in MODEL_FAMILIES:
+            raise ValueError(f"model.layer={self.layer!r} not in {MODEL_FAMILIES}")
+        return self
+
+    def derive_runtime_fields(self, dataset) -> "ExperimentConfig":
+        """Fill the fields the launcher derives from a set-up dataset (ref
+        launch.py:119, :141-148): ``lang_model``, ``train.padded``,
+        ``train.train_size`` and ``model.seq_len``."""
+        _fill_runtime_fields(self.raw, dataset.l_max, len(dataset.train_inputs))
+        return self
+
+    def copy(self) -> "ExperimentConfig":
+        return ExperimentConfig(copy.deepcopy(self.raw))
+
+    def checkpoint_name(self) -> Optional[str]:
+        """Checkpoint path stem embedding the run's hyperparameters."""
+        return checkpoint_name(self.raw)
+
+
+def load_experiment(path: str | Path) -> ExperimentConfig:
+    return ExperimentConfig(load_yaml(path)).validate()
+
+
+def load_sweep(path: str | Path,
+               config_root: str | Path = "configs") -> Tuple[ExperimentConfig, Dict[str, Any]]:
+    """A sweep file's (base experiment config, sweep mapping).  ``base_config``
+    resolves against ``config_root``, the sweep file's own directory, then
+    the sweep file's nearest ``configs/`` ancestor (ref launch.py:77-86)."""
+    sweep_cfg = load_yaml(path)
+    base_rel = sweep_cfg["base_config"]
+    candidates = [Path(config_root) / base_rel, Path(path).parent / base_rel]
+    for ancestor in Path(path).resolve().parents:
+        if ancestor.name == "configs":
+            candidates.append(ancestor / base_rel)
+    base_path = next((c for c in candidates if c.exists()), candidates[0])
+    return load_experiment(base_path), sweep_cfg["sweep"]
+
+
+def expand_sweep(sweep: Dict[str, Any]) -> List[Dict[Tuple[str, ...], Any]]:
+    """The Cartesian product of a sweep mapping, as flat overrides from a
+    ``(section, param)`` path, or ``(section,)`` for a whole-section sweep
+    such as ``seed``, to one value, in ``itertools.product``'s order (ref
+    launch.py:19-36)."""
+    paths: List[Tuple[str, ...]] = []
+    value_lists: List[Sequence[Any]] = []
+    for section, spec in sweep.items():
+        if isinstance(spec, list):
+            paths.append((section,))
+            value_lists.append(spec)
+        elif isinstance(spec, dict):
+            for param, values in spec.items():
+                if not isinstance(values, list):
+                    raise ValueError("Sweep values must be lists "
+                                     f"(got {type(values).__name__} for {section}.{param})")
+                paths.append((section, param))
+                value_lists.append(values)
+        else:
+            raise ValueError(f"Sweep section {section!r} must be a list or dict")
+    return [dict(zip(paths, combo)) for combo in itertools.product(*value_lists)]
+
+
+def apply_sweep_point(base: ExperimentConfig,
+                      point: Dict[Tuple[str, ...], Any]) -> ExperimentConfig:
+    """A deep copy of ``base`` with one sweep point applied (ref
+    launch.py:38-49, :169-170)."""
+    cfg = base.copy()
+    for path, value in point.items():
+        if len(path) == 1:
+            cfg.raw[path[0]] = value
+        else:
+            section, param = path
+            cfg.raw[section][param] = value
+    return cfg
+
+
+def iter_sweep(base: ExperimentConfig, sweep: Dict[str, Any]) -> Iterator[ExperimentConfig]:
+    for point in expand_sweep(sweep):
+        yield apply_sweep_point(base, point)
+
+
+def _fill_runtime_fields(cfg: Dict[str, Any], l_max: int, train_size: int) -> None:
     cfg["lang_model"] = cfg["dataset"].get("name") in LANG_MODEL_DATASETS
     if "fixed_size" in cfg["dataset"]:
         cfg["train"]["padded"] = not cfg["dataset"]["fixed_size"]
@@ -40,6 +174,14 @@ def derive_runtime_fields(raw: Dict[str, Any], l_max: int, train_size: int) -> D
         cfg["train"]["padded"] = False
     cfg["train"]["train_size"] = int(train_size)
     cfg["model"]["seq_len"] = int(l_max)
+
+
+def derive_runtime_fields(raw: Dict[str, Any], l_max: int, train_size: int) -> Dict[str, Any]:
+    """Copy of ``raw`` with the fields the launcher derives from the dataset
+    (``ExperimentConfig.derive_runtime_fields``): ``lang_model``,
+    ``train.padded``, ``train.train_size`` and ``model.seq_len``."""
+    cfg = copy.deepcopy(raw)
+    _fill_runtime_fields(cfg, l_max, train_size)
     return cfg
 
 
@@ -222,6 +364,67 @@ MQAR_SM_ATTENTION_FULL: Dict[str, Any] = {
         "mixer": "none", "mixer_dim": 128, "dropout": 0.1, "classifier": False,
         "pooling": "mean", "dual": False, "attention_fn": "sm-attention", "use_flash": True,
         "seq_len": 512,
+    },
+    "lang_model": True,
+}
+
+
+# configs/tasks/mqar/mqar-lin-attention.yaml after derive_runtime_fields with
+# the MQAR dataset it names (L = 512, 100 000 training examples by default); a
+# CPU test pins this dict to the YAML as tlie_tpu.config resolves it.  Linear
+# attention ignores use_flash; a transformer with classifier: false ignores
+# its pooling: mean.
+MQAR_LIN_ATTENTION_FULL: Dict[str, Any] = {
+    "seed": 1919,
+    "save": "./checkpoint/mqar-lin-attention",
+    "dataset": {
+        "name": "MQAR", "_name_": "mqar", "input_seq_length": 512,
+        "num_kv_pairs": 64, "data_dir": "", "fixed_size": True,
+    },
+    "train": {
+        "total_steps": 40000, "batch_size": 64, "eval_every": 200,
+        "stop_criterion": 0.99, "cosine_anneal": True, "param_group": None,
+        "wd": 0.1, "warmup_steps": 4000, "lr": 0.01,
+        "padded": False, "train_size": 100000,
+    },
+    "model": {
+        "input_dim": 1, "output_dim": 8192, "layer": "transformer", "num_layers": 2,
+        "hidden_dim": 128, "state_dim": 128, "num_heads": 1, "att_dropout": 0.0,
+        "norm": "layer", "embedding": True, "vocab_size": 8192, "max_pos_embed": 512,
+        "mixer": "none", "mixer_dim": 128, "dropout": 0.1, "classifier": False,
+        "pooling": "mean", "dual": False, "attention_fn": "lin-attention", "use_flash": False,
+        "seq_len": 512,
+    },
+    "lang_model": True,
+}
+
+
+# configs/tasks/mqar/mqar-norm-attention-conv.yaml after derive_runtime_fields
+# with the MQAR dataset it names; a CPU test pins this dict to the YAML as
+# tlie_tpu.config resolves it.  No position table; the keys mode and learn_A
+# are read by neither package.
+MQAR_NORM_ATTENTION_CONV_FULL: Dict[str, Any] = {
+    "seed": 1919,
+    "save": "./checkpoint/mqar-norm-attention-conv",
+    "dataset": {
+        "name": "MQAR", "_name_": "mqar", "input_seq_length": 512,
+        "num_kv_pairs": 64, "data_dir": "", "fixed_size": True,
+    },
+    "train": {
+        "total_steps": 40000, "batch_size": 64, "eval_every": 200,
+        "stop_criterion": 0.99, "cosine_anneal": True, "param_group": None,
+        "wd": 0.1, "warmup_steps": 4000, "lr": 0.001,
+        "padded": False, "train_size": 100000,
+    },
+    "model": {
+        "input_dim": 1, "output_dim": 8192, "layer": "transformer", "num_layers": 2,
+        "hidden_dim": 128, "state_dim": 128, "num_heads": 1, "att_dropout": 0.0,
+        "norm": "layer", "embedding": True, "vocab_size": 8192, "max_pos_embed": 0,
+        "mixer": "none", "mixer_dim": 128, "dropout": 0.1, "classifier": False,
+        "pooling": "mean", "dual": False, "attention_fn": "norm-attention",
+        "mode": "attention", "norm_fn": "softplus", "approx_fn": "elu", "scale_B": True,
+        "offset": True, "offset_init": "exp", "learn_A": False, "dim_conv": 4,
+        "use_flash": False, "seq_len": 512,
     },
     "lang_model": True,
 }

@@ -1,9 +1,129 @@
-"""The metrics of ``tlie_tpu/data/base.py`` on torch tensors."""
+"""The dataset contract and the metrics of ``tlie_tpu/data/base.py``.
+
+:class:`SequenceDataset` is the reference's registry contract (ref
+dataloaders/base.py:159-231), numpy-only: a subclass with a ``_name_``
+registers itself, ``SequenceDataset.registry[_name_](**cfg)`` builds it with
+its ``init_defaults`` under the config's keys, ``setup()`` fills the
+``{train,test}_{inputs,labels}`` arrays, and ``l_max`` and ``d_output`` are
+what the launcher reads.  The port's datasets give their splits with
+``split(name)``, which ``setup`` calls, and batches come from
+``train_dataloader`` and ``test_dataloader`` as (x, y, aux) numpy triples;
+the trainer itself puts whole splits on the device.  The metrics are torch
+functions.
+"""
 
 from __future__ import annotations
 
+from typing import Any, Dict, Iterator, Optional, Tuple
+
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+Batch = Tuple[np.ndarray, np.ndarray, Dict[str, Any]]
+
+
+class HostArrayLoader:
+    """Minibatches of contiguous host arrays, (x, y, aux) as the reference's
+    collated loaders yield them (``HostArrayLoader`` without the device
+    sharding); a short last batch is dropped unless ``drop_last`` is
+    False."""
+
+    def __init__(self, inputs: np.ndarray, labels: np.ndarray, batch_size: int,
+                 shuffle: bool = False, seed: int = 0, lengths: Optional[np.ndarray] = None,
+                 aux_static: Optional[Dict[str, Any]] = None, drop_last: bool = True):
+        self.inputs, self.labels, self.lengths = inputs, labels, lengths
+        self.batch_size, self.shuffle = batch_size, shuffle
+        self.aux_static = aux_static or {}
+        self._rng = np.random.default_rng(seed)
+        n = len(inputs)
+        self._n_batches = n // batch_size if drop_last else -(-n // batch_size)
+
+    def __len__(self) -> int:
+        return self._n_batches
+
+    def __iter__(self) -> Iterator[Batch]:
+        order = np.arange(len(self.inputs))
+        if self.shuffle:
+            self._rng.shuffle(order)
+        for i in range(self._n_batches):
+            idx = order[i * self.batch_size: (i + 1) * self.batch_size]
+            aux = dict(self.aux_static)
+            if self.lengths is not None:
+                aux["lengths"] = self.lengths[idx]
+            yield self.inputs[idx], self.labels[idx], aux
+
+
+class SequenceDataset:
+    """Registry base (``SequenceDataset``): subclasses with a ``_name_``
+    register themselves on definition."""
+
+    registry: Dict[str, type] = {}
+    _name_: str = ""
+    #: subclasses override; merged under the constructor's keyword arguments
+    init_defaults: Dict[str, Any] = {}
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        if cls._name_:
+            SequenceDataset.registry[cls._name_] = cls
+
+    def __init__(self, _name_: Optional[str] = None, data_dir: Optional[str] = None, **cfg):
+        if _name_ is not None and _name_ != self._name_:
+            raise ValueError(f"Dataset name mismatch: {_name_} != {self._name_}")
+        self.data_dir = data_dir or None
+        merged = dict(self.init_defaults)
+        merged.update(cfg)
+        for k, v in merged.items():
+            setattr(self, k, v)
+        # filled by setup()
+        self.train_inputs: Optional[np.ndarray] = None
+        self.train_labels: Optional[np.ndarray] = None
+        self.test_inputs: Optional[np.ndarray] = None
+        self.test_labels: Optional[np.ndarray] = None
+
+    #: subclasses provide l_max (the sequence length) and d_output (the
+    #: number of classes or the vocabulary)
+    l_max: int = None  # type: ignore[assignment]
+    d_output: int = None  # type: ignore[assignment]
+
+    def split(self, name: str) -> Tuple[np.ndarray, np.ndarray]:
+        """(inputs, labels) of the ``"train"`` or ``"test"`` split."""
+        raise NotImplementedError
+
+    def setup(self) -> None:
+        self.train_inputs, self.train_labels = self.split("train")
+        self.test_inputs, self.test_labels = self.split("test")
+
+    @staticmethod
+    def get_metrics():
+        """The metric ``f(logits, labels) -> scalar`` of the task."""
+        raise NotImplementedError
+
+    def _loader(self, split: str, batch_size: int, shuffle: bool, **kw) -> HostArrayLoader:
+        inputs = getattr(self, f"{split}_inputs")
+        if inputs is None:
+            raise RuntimeError(f"Dataset {self._name_}: call setup() first")
+        return HostArrayLoader(inputs, getattr(self, f"{split}_labels"), batch_size,
+                               shuffle=shuffle, seed=getattr(self, "seed", 0),
+                               aux_static={"lengths": self.l_max}, **kw)
+
+    def train_dataloader(self, batch_size: int, shuffle: bool = True, **kw) -> HostArrayLoader:
+        return self._loader("train", batch_size, shuffle, **kw)
+
+    def test_dataloader(self, batch_size: int, shuffle: bool = False, **kw) -> HostArrayLoader:
+        return self._loader("test", batch_size, shuffle, **kw)
+
+    def val_dataloader(self, batch_size: int, shuffle: bool = False, **kw) -> HostArrayLoader:
+        return self.test_dataloader(batch_size, shuffle, **kw)
+
+    @property
+    def dataset_train(self):
+        """The train inputs, whose length the launcher records."""
+        return self.train_inputs
+
+    def __str__(self) -> str:
+        return self._name_
 
 
 def masked_accuracy(logits: torch.Tensor, labels: torch.Tensor, ignore_idx: int = -100):

@@ -15,7 +15,7 @@ from typing import Tuple
 
 import numpy as np
 
-from .base import masked_accuracy
+from .base import SequenceDataset, masked_accuracy
 from .native import mqar_generate_native
 
 
@@ -81,11 +81,12 @@ def multiquery_ar(
     return inputs, labels
 
 
-class MQAR:
+class MQAR(SequenceDataset):
     """MQAR splits as ``tlie_tpu.data.mqar.MQAR`` draws them: the train split
     from ``seed``, the test split from its own stream ``seed + 1``, with the
     native generator unless ``use_native`` is False (``generator``)."""
 
+    _name_ = "mqar"
     # ref dataloaders/mqar.py:143-155
     init_defaults = {
         "seed": 42,
@@ -100,12 +101,7 @@ class MQAR:
     }
 
     def __init__(self, _name_: str = "mqar", data_dir=None, use_native: bool = True, **cfg):
-        if _name_ != "mqar":
-            raise ValueError(f"Dataset name mismatch: {_name_} != mqar")
-        merged = dict(self.init_defaults)
-        merged.update(cfg)
-        for k, v in merged.items():
-            setattr(self, k, v)
+        super().__init__(_name_, data_dir, **cfg)
         self.use_native = use_native
 
     @property

@@ -18,12 +18,12 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from .base import perplexity
+from .base import SequenceDataset, perplexity
 
 GPT2_VOCAB_SIZE = 50257
 
 
-class WikiText:
+class WikiText(SequenceDataset):
     """WikiText splits as ``tlie_tpu.data.WikiText`` builds them."""
 
     _name_ = "wikitext"
@@ -38,13 +38,7 @@ class WikiText:
     }
 
     def __init__(self, _name_: str = "wikitext", data_dir: Optional[str] = None, **cfg):
-        if _name_ != self._name_:
-            raise ValueError(f"Dataset name mismatch: {_name_} != {self._name_}")
-        self.data_dir = data_dir or None
-        merged = dict(self.init_defaults)
-        merged.update(cfg)
-        for k, v in merged.items():
-            setattr(self, k, v)
+        super().__init__(_name_, data_dir, **cfg)
         self._splits = None
 
     @property

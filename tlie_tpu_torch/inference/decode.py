@@ -1,21 +1,31 @@
-"""Autoregressive serving for the LRU and the softmax transformer,
-counterpart of ``tlie_tpu/inference/decode.py::Decoder`` (families ``lru``
-and ``attention`` with ``sm-attention``).
+"""Autoregressive serving for the LRU and the transformers (softmax, linear
+and norm attention), counterpart of ``tlie_tpu/inference/decode.py::Decoder``
+(families ``lru`` and ``attention``).
 
 The decode state of an LRU layer is the complex diagonal state h (B, N),
 kept as a (re, im) pair; ``prefill`` runs the prompt through the
 full-sequence path (on the card, the diagonal-scan kernel) and keeps the
 last state, and ``step`` advances one token in O(1).  The decode state of a
-transformer layer is its float32 KV cache, k (B, max_len, H, head_dim) and v
-(B, max_len, H, v_dim), behind the conv's trailing K−1 inputs where the
-layer has a conv; ``prefill`` runs the prompt through the full-sequence
-attention (on the card, the flash forward kernel) and writes its k and v
-into the cache, and ``step`` attends one token over the cache up to its
-position, writing its k and v in place (the port updates the cache where
-JAX returns a new one).  A position past the position table
+transformer layer sits behind the conv's trailing K−1 inputs where the layer
+has a conv:
+- softmax attention: its float32 KV cache, k (B, max_len, H, head_dim) and v
+  (B, max_len, H, v_dim); ``prefill`` runs the prompt through the
+  full-sequence attention (on the card, the flash forward kernel) and writes
+  its k and v into the cache, and ``step`` attends one token over the cache
+  up to its position, writing its k and v in place (the port updates the
+  cache where JAX returns a new one);
+- linear attention: the float32 running state S = Σ k vᵀ (B, H, head_dim,
+  v_dim) of the elu+1 features and the key sum Σ k (B, H, head_dim), the
+  normaliser's; ``step`` adds one token to both and reads them with its q;
+- norm attention: S alone (k scaled where ``scale_B`` is set), read with q
+  and multiplied by the token's learned decay.
+``prefill`` builds S (and the key sum) from the whole prompt beside the
+chunked full-sequence attention.  A position past the position table
 (``max_pos_embed``) raises ``ValueError``: the reference's gather fills NaN
-there.  ``stepwise_logits`` is the teacher-forced step path, the parity
-surface against the full forward.
+there.  The linear and norm states do not grow with the position, so
+without a position table (the MQAR norm attention has none) nothing bounds
+it.  ``stepwise_logits`` is the teacher-forced step path, the parity surface
+against the full forward.
 
 The decoder serves an eval-mode copy of the model it is given (embeddings,
 norms, mixers, head): the weights as they were when it was built, as
@@ -33,12 +43,13 @@ from typing import Any, Dict, Mapping, Optional, Union
 import torch
 from torch import nn
 
+from ..models.attention_layers import MHNA
 from ..models.backbone import glu_activation
 from ..models.registry import build_models
 
 
 class Decoder:
-    """Per-token decoder for LRU and softmax-transformer weights.
+    """Per-token decoder for LRU and transformer weights.
 
     >>> dec = Decoder(model_cfg, state_dict)            # on the card
     >>> out = dec.generate(prompt_tokens, n_new=16)     # greedy
@@ -59,8 +70,8 @@ class Decoder:
         elif cfg["layer"] == "transformer":
             if not cfg.get("embedding", False):
                 raise ValueError("transformer decode requires a token encoder")
-            if cfg["attention_fn"] != "sm-attention":
-                raise NotImplementedError(f"decoding {cfg['attention_fn']} is not ported yet")
+            if cfg["attention_fn"] not in ("sm-attention", "lin-attention", "norm-attention"):
+                raise RuntimeError(f"attention_fn {cfg['attention_fn']} not implemented")
             self.family, self.vocab = "attention", cfg["vocab_size"]
             self.max_pos = cfg.get("max_pos_embed", 0)
         else:
@@ -88,21 +99,32 @@ class Decoder:
 
     def init_cache(self, bsz: int, max_len: Optional[int] = None):
         """Zero decode state: per LRU layer (h_re, h_im); per transformer
-        layer ([conv tail,] k cache, v cache) for ``max_len`` positions."""
+        layer ([conv tail,] k cache, v cache) for ``max_len`` positions
+        (softmax), ([conv tail,] S, key sum) (linear) or ([conv tail,] S)
+        (norm attention).  ``max_len``, which the softmax cache needs, is
+        checked against the position table."""
         if self.family == "lru":
             n = self.cfg["state_dim"]
             z = lambda: torch.zeros(bsz, n, device=self.device)  # noqa: E731
             return tuple((z(), z()) for _ in self.model.encoder.layers)
-        if max_len is None:
+        if max_len is None and self.cfg["attention_fn"] == "sm-attention":
             raise ValueError("the transformer's KV cache needs max_len")
-        self._check_positions(max_len)
+        if max_len is not None:
+            self._check_positions(max_len)
         layers = []
         for layer in self.model.layers:
-            mha = layer.attention
-            c = (torch.zeros(bsz, max_len, mha.num_heads, mha.head_dim, device=self.device),
-                 torch.zeros(bsz, max_len, mha.num_heads, mha.v_dim, device=self.device))
-            if mha.conv1d is not None:
-                width, _, K = mha.conv1d.weight.shape
+            att = layer.attention
+            H, hd, vd = att.num_heads, att.head_dim, att.v_dim
+            if isinstance(att, MHNA):
+                c = (torch.zeros(bsz, H, hd, vd, device=self.device),)
+            elif att.lin_att:
+                c = (torch.zeros(bsz, H, hd, vd, device=self.device),
+                     torch.zeros(bsz, H, hd, device=self.device))
+            else:
+                c = (torch.zeros(bsz, max_len, H, hd, device=self.device),
+                     torch.zeros(bsz, max_len, H, vd, device=self.device))
+            if att.conv1d is not None:
+                width, _, K = att.conv1d.weight.shape
                 c = (torch.zeros(bsz, K - 1, width, device=self.device),) + c
             layers.append(c)
         return tuple(layers)
@@ -159,37 +181,66 @@ class Decoder:
 
     def _tf_step(self, cache, tok, pos):
         """``_tf_step``: the embeddings at ``pos``, each block's one-token
-        attention over its cache, the final norm and the decoder."""
+        attention over its state, the final norm and the decoder."""
         if pos is None:
             raise ValueError("the transformer's step needs the token's position")
         self._check_positions(pos + 1)
-        if pos >= cache[0][-1].shape[1]:
-            raise ValueError(f"position {pos} is past the KV cache of {cache[0][-1].shape[1]}")
         x = self.model.encoder(tok, torch.tensor(pos, device=self.device))
         new = []
         for layer, c in zip(self.model.layers, cache):
-            a, c = self._mha_step(layer.attention, c, layer.norm(x), pos)
+            att = layer.attention
+            xn = layer.norm(x)
+            if isinstance(att, MHNA):
+                a, c = self._mhna_step(att, c, xn)
+            else:
+                a, c = self._mha_step(att, c, xn, pos)
             new.append(c)
             x = layer.mix(x + a)
         return tuple(new), self.model.decoder(self.model.norm(x))
 
     @staticmethod
-    def _mha_step(mha, c, x, pos):
-        """``_mha_step``: one token's q attends over the cached k, v of
-        positions 0 .. pos (its own k and v written at ``pos`` first)."""
-        qkv = mha.Wqkv(x)
-        if mha.conv1d is not None:
-            pre = mha.conv_input(qkv)
-            window = torch.cat([c[0], pre[:, None]], dim=1)  # (B, K, C)
-            y = torch.einsum("bkc,ck->bc", window, mha.conv1d.weight[:, 0]) + mha.conv1d.bias
-            qkv = mha.after_conv(qkv, y)
-            c = (window[:, 1:],) + c[1:]
+    def _conv_step(att, c, proj):
+        """``_att_conv``: the conv's one-token output from its cached tail
+        and this token's input (the part ``conv_input`` takes of [q | k | v]
+        or [v | q | k]); returns (cache with the tail moved on, proj)."""
+        if att.conv1d is None:
+            return c, proj
+        pre = att.conv_input(proj)
+        window = torch.cat([c[0], pre[:, None]], dim=1)  # (B, K, C)
+        y = torch.einsum("bkc,ck->bc", window, att.conv1d.weight[:, 0]) + att.conv1d.bias
+        return (window[:, 1:],) + c[1:], att.after_conv(proj, y)
+
+    def _mha_step(self, mha, c, x, pos):
+        """``_mha_step``: softmax attention of one token's q over the cached
+        k, v of positions 0 .. pos (its own k and v written at ``pos``
+        first), or linear attention's one-token update of (S, key sum) and
+        its read by q, numerator over normaliser."""
+        c, qkv = self._conv_step(mha, c, mha.Wqkv(x))
         q, k, v = mha.split(qkv)  # (B, H, D)
+        if mha.lin_att:
+            q, k = mha.features(q), mha.features(k)
+            S = c[-2] + k[..., :, None] * v[..., None, :]
+            ksum = c[-1] + k
+            num = torch.einsum("bhd,bhde->bhe", q, S)
+            ctx = num / torch.einsum("bhd,bhd->bh", q, ksum)[..., None]
+            return mha.project(ctx), c[:-2] + (S, ksum)
         kc, vc = c[-2], c[-1]
+        if pos >= kc.shape[1]:
+            raise ValueError(f"position {pos} is past the KV cache of {kc.shape[1]}")
         kc[:, pos], vc[:, pos] = k, v
         scores = torch.einsum("bhd,blhd->bhl", q, kc[:, : pos + 1]) / math.sqrt(mha.head_dim)
         ctx = torch.einsum("bhl,blhd->bhd", torch.softmax(scores, dim=-1), vc[:, : pos + 1])
         return mha.project(ctx), c
+
+    def _mhna_step(self, mhna, c, x):
+        """``_mhna_step``: one token added to S (k scaled where ``scale_B``
+        is set), read by q, times the token's learned decay."""
+        vqk, n = mhna.project_in(x)
+        c, vqk = self._conv_step(mhna, c, vqk)
+        q, k, v = mhna.split(vqk)
+        S = c[-1] + k[..., :, None] * v[..., None, :]
+        out = mhna.decay(n)[..., None] * torch.einsum("bhd,bhde->bhe", q, S)
+        return mhna.project(out), c[:-1] + (S,)
 
     # -- full-sequence prefill -----------------------------------------------
 
@@ -217,26 +268,40 @@ class Decoder:
 
     def _tf_prefill(self, prompt, max_len: int):
         """``_tf_prefill``: the blocks over the whole prompt, each attention
-        through ``causal_softmax_attention`` (the flash forward kernel on the
-        card), its k and v written into the first L0 rows of the cache."""
+        through its full-sequence path (softmax: ``causal_softmax_attention``,
+        the flash forward kernel on the card; linear and norm: the chunked
+        linear attention), the conv's tail kept, and the state built: the
+        prompt's k and v in the first L0 rows of the KV cache, or S = Σ k vᵀ
+        (and the key sum) over the prompt in float32."""
         bsz, L = prompt.shape
         if max_len < L:
             raise ValueError(f"max_len {max_len} is shorter than the prompt ({L})")
         cache = list(self.init_cache(bsz, max_len))
         x = self.model.encoder(prompt)
         for i, layer in enumerate(self.model.layers):
-            mha = layer.attention
-            qkv = mha.Wqkv(layer.norm(x))
-            c = cache[i]
-            if mha.conv1d is not None:
-                pre = mha.conv_input(qkv)
-                K = mha.conv1d.weight.shape[-1]
+            att, c = layer.attention, cache[i]
+            norm_att = isinstance(att, MHNA)
+            xn = layer.norm(x)
+            proj, n = att.project_in(xn) if norm_att else (att.Wqkv(xn), None)
+            if att.conv1d is not None:
+                pre = att.conv_input(proj)
+                K = att.conv1d.weight.shape[-1]
                 tail = pre[:, max(L - (K - 1), 0):]
                 c[0][:, K - 1 - tail.shape[1]:] = tail  # front-padded for short prompts
-                qkv = mha.after_conv(qkv, mha.conv1d(pre))
-            q, k, v = mha.split(qkv)
-            c[-2][:, :L], c[-1][:, :L] = k, v
-            x = layer.mix(x + mha.project(mha.attend(q, k, v)))
+                proj = att.after_conv(proj, att.conv1d(pre))
+            q, k, v = att.split(proj)
+            if norm_att:
+                out = att.attend(q, k, v, n)
+                c[-1].copy_(torch.einsum("blhd,blhe->bhde", k.float(), v.float()))
+            elif att.lin_att:
+                out = att.attend(q, k, v)
+                kf = att.features(k).float()
+                c[-2].copy_(torch.einsum("blhd,blhe->bhde", kf, v.float()))
+                c[-1].copy_(kf.sum(dim=1))
+            else:
+                out = att.attend(q, k, v)
+                c[-2][:, :L], c[-1][:, :L] = k, v
+            x = layer.mix(x + att.project(out))
         return tuple(cache), self.model.decoder(self.model.norm(x[:, -1]))
 
     # -- teacher-forced scan and generation ----------------------------------
@@ -255,8 +320,9 @@ class Decoder:
 
     @torch.no_grad()
     def generate(self, prompt, n_new: int, temperature: float = 0.0) -> torch.Tensor:
-        """Greedy generation: prompt (B, L0) → (B, L0 + n_new).  For the
-        transformer L0 + n_new must fit ``max_pos_embed``.  Sampling
+        """Greedy generation: prompt (B, L0) → (B, L0 + n_new).  For a
+        transformer with a position table L0 + n_new must fit
+        ``max_pos_embed``.  Sampling
         (temperature, top-k, top-p) is not ported yet."""
         if temperature != 0.0:
             raise NotImplementedError("sampled generation is not ported yet; use temperature 0")

@@ -4,17 +4,23 @@
         --analysis_config configs/analysis/mqar.yaml [--device cpu]
 
 The model families are the LRU (``layer: lru``), Mamba-2 (``layer: mamba``,
-e.g. ``configs/tasks/mqar/mqar-mamba2.yaml``) and the softmax transformer
-(``layer: transformer`` with ``attention_fn: sm-attention``, e.g.
-``configs/tasks/mqar/mqar-sm-attention.yaml``).
+e.g. ``configs/tasks/mqar/mqar-mamba2.yaml``) and the transformer (``layer:
+transformer``) with softmax attention (``attention_fn: sm-attention``, e.g.
+``configs/tasks/mqar/mqar-sm-attention.yaml``), linear attention
+(``lin-attention``, e.g. ``configs/tasks/mqar/mqar-lin-attention.yaml`` and
+the CPU-sized ``configs/mqar-lin-attention-small.yaml``) or norm attention
+(``norm-attention``, e.g. ``configs/tasks/mqar/mqar-norm-attention-conv.yaml``):
+
+    python -m tlie_tpu_torch.launch --config configs/tasks/mqar/mqar-lin-attention.yaml \\
+        --analysis_config configs/analysis/mqar.yaml
 
 ``--config`` paths resolve against ``configs/`` first, then as given.  The
 run trains on the card unless ``--device cpu`` is given (a CUDA request
 without a card raises), writes the checkpoint named by the config's
 ``save``, and runs ``eval_eig`` of the trained weights into the analysis
 config's ``save_path``.  The datasets are those of
-:data:`tlie_tpu_torch.data.DATASETS` (MQAR, WikiText); ``--sweep`` and W&B
-are not ported yet and raise.
+:data:`tlie_tpu_torch.data.DATASETS`, the ``SequenceDataset`` registry (MQAR,
+WikiText); ``--sweep`` and W&B are not ported yet and raise.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """The transformer family, counterpart of ``tlie_tpu/models/transformer.py``
-(``TransformerBlock`` at ``:24``, ``Transformer`` at ``:138``) with softmax
-attention.
+(``TransformerBlock`` at ``:24``, ``Transformer`` at ``:138``) with softmax,
+linear or norm attention (``attention_fn``: ``sm-attention``,
+``lin-attention``, ``norm-attention``).
 
 A block is ``x + drop(attention(norm(x)))`` then ``norm`` again and the
 mixer; with ``mixer: none`` it returns ``norm(x + drop(attention(norm(x))))``
@@ -11,12 +12,13 @@ embeddings, element-wise dropout, the blocks, a final LayerNorm and a
 bias-free per-position decoder; it returns logits.  Parameter names are the
 reference's torch names (``encoder.word_embeddings``,
 ``encoder.position_embeddings``, ``layers.{i}.attention.{Wqkv,out_proj}``,
+for norm attention ``layers.{i}.attention.{Wvqkn,offset}``,
 ``layers.{i}.norm``, ``norm``, ``decoder``).
 
 Weights are drawn from an explicit ``torch.Generator`` with the reference's
-distributions.  Not ported yet, and refused: linear and norm attention, the
-``mlp`` and ``hybrid`` mixers, ``use_gate``, the classifier and dual heads,
-the dense input encoder (``embedding: false``), bf16.
+distributions.  Not ported yet, and refused: the ``mlp`` and ``hybrid``
+mixers, ``use_gate``, the classifier and dual heads, the dense input
+encoder (``embedding: false``), bf16.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from typing import Any, Dict
 import torch
 from torch import nn
 
-from .attention_layers import MHA
+from .attention_layers import MHA, MHNA
 from .layers import GLU, Dropout, TokenEmbeddings, linear
 
 
@@ -37,18 +39,21 @@ class TransformerBlock(nn.Module):
     def __init__(self, hidden_dim: int, cfg: Dict[str, Any], generator: torch.Generator):
         super().__init__()
         attention_fn = cfg["attention_fn"]
-        if attention_fn in ("lin-attention", "norm-attention"):
-            raise NotImplementedError(f"attention_fn {attention_fn} is not ported yet")
-        if attention_fn != "sm-attention":
-            raise RuntimeError(f"attention_fn {attention_fn} not implemented")
         if cfg.get("use_gate", False):
             raise NotImplementedError("use_gate is not ported yet")
-        self.attention = MHA(
-            hidden_dim, generator, d_qk=cfg["state_dim"], num_heads=cfg["num_heads"],
-            dim_conv=cfg.get("dim_conv", 0), lin_att=False,
-            dropout=cfg.get("att_dropout", 0.0), use_flash=cfg.get("use_flash", False),
-            conv_type=cfg.get("conv_type", "full"),
-        )
+        common = dict(d_qk=cfg["state_dim"], num_heads=cfg["num_heads"],
+                      dropout=cfg.get("att_dropout", 0.0), conv_type=cfg.get("conv_type", "full"))
+        if attention_fn in ("sm-attention", "lin-attention"):
+            self.attention = MHA(hidden_dim, generator, dim_conv=cfg.get("dim_conv", 0),
+                                 lin_att=attention_fn == "lin-attention",
+                                 use_flash=cfg.get("use_flash", False), **common)
+        elif attention_fn == "norm-attention":
+            self.attention = MHNA(hidden_dim, generator, norm_fn=cfg["norm_fn"],
+                                  approx_fn=cfg["approx_fn"], scale_B=cfg["scale_B"],
+                                  offset=cfg["offset"], offset_init=cfg["offset_init"],
+                                  dim_conv=cfg["dim_conv"], **common)
+        else:
+            raise RuntimeError(f"attention_fn {attention_fn} not implemented")
         mixer = cfg["mixer"]
         if mixer in ("mlp", "hybrid"):
             raise NotImplementedError(f"the {mixer} mixer is not ported yet")

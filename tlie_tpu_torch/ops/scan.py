@@ -20,8 +20,12 @@ Where the work runs follows the tensors:
   ``tlie_tpu/ops/pallas_scan.py::_run_scan_planes`` and the backward built
   on it.  A block of either takes 16 channels of one batch row, and each
   thread holds its chunk of time in registers between two passes, so b
-  (forward) and g (backward) are read from device memory once.  There is
-  no fallback: a tensor the kernels do not take raises.
+  (forward) and g (backward) are read from device memory once.  The kernels
+  read ``a`` at a batch stride and a time stride (:func:`_a_strides`): 0 for
+  a decay shared across the batch, N for one per example and constant in
+  time ((B, 1, N)), L·N for the full (B, L, N); a decay whose leading dims
+  fit no one batch stride is read from a broadcast copy.  There is no
+  fallback: a tensor the kernels do not take raises.
 * CPU tensors go to :func:`diag_scan_plain` and :func:`diag_scan_bwd_plain`,
   the sequential loops that are the counterparts of
   ``_scan_sequential_real`` / ``_scan_sequential_pair`` and of
@@ -33,7 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -190,22 +194,23 @@ def diag_scan_bwd_plain(a: TensorOrPair, h: TensorOrPair, g: TensorOrPair,
     return _sum_to(d * h_prev[0], a.shape), d
 
 
-def _a_strides(a: torch.Tensor, shape: torch.Size) -> Tuple[int, int]:
+def _a_strides(a: torch.Tensor, shape: torch.Size) -> Optional[Tuple[int, int]]:
     """(batch, time) element strides at which the kernel reads ``a`` broadcast
-    to ``shape`` (leading dims flattened into one batch axis)."""
+    to ``shape`` (leading dims flattened into one batch axis): batch stride 0
+    for a decay shared across the batch, N for a per-example decay constant
+    in time ((B, 1, N) against (B, L, N)), L·N for the full contiguous
+    (B, L, N).  None where the leading dims of ``a`` cannot be read at one
+    batch stride; the launchers then read a broadcast copy."""
     full = torch.broadcast_to(a, shape)  # raises if a does not broadcast
     L, N = shape[-2], shape[-1]
     if N > 1 and full.stride(-1) != 1:
-        raise ValueError("diag_scan_cuda: a must be contiguous along channels")
+        return None
     t_stride = full.stride(-2) if L > 1 else 0
     if all(s == 1 for s in a.shape[:-2]):
         return 0, t_stride
-    if a.shape == shape and a.is_contiguous():
-        return L * N, t_stride
-    raise ValueError(
-        f"diag_scan_cuda: a {tuple(a.shape)} must be shared across the batch "
-        f"or match b {tuple(shape)} and be contiguous"
-    )
+    if tuple(a.shape[:-2]) == tuple(shape[:-2]) and a.is_contiguous():
+        return a.shape[-2] * N, t_stride
+    return None
 
 
 def _check_cuda_f32(tensors, what: str, ref: torch.Tensor) -> None:
@@ -235,12 +240,22 @@ def _check_planes(planes, what: str) -> Tuple[torch.Size, int, int, int]:
     return ref.shape, batch, L, N
 
 
-def _a_layout(a_planes, shape, what: str) -> Tuple[int, int]:
-    a_bstride, a_tstride = _a_strides(a_planes[0], shape)
+def _a_layout(a_planes, shape, what: str) -> Tuple[tuple, int, int]:
+    """(a planes as the kernel reads them, batch stride, time stride): the
+    planes themselves, or, where :func:`_a_strides` cannot read them at one
+    batch stride, contiguous copies broadcast over the leading dims of
+    ``shape`` (time and channels kept as ``a`` has them)."""
     if len(a_planes) == 2 and (a_planes[1].shape != a_planes[0].shape
                                or a_planes[1].stride() != a_planes[0].stride()):
         raise ValueError(f"{what}: a planes must share shape and strides")
-    return a_bstride, a_tstride
+    strides = _a_strides(a_planes[0], shape)
+    if strides is None:
+        a = a_planes[0]
+        time = a.shape[-2] if a.dim() >= 2 else 1
+        full = torch.Size((*shape[:-2], time, shape[-1]))
+        a_planes = tuple(torch.broadcast_to(p, full).contiguous() for p in a_planes)
+        strides = _a_strides(a_planes[0], shape)
+    return (a_planes, *strides)
 
 
 def diag_scan_cuda(a: TensorOrPair, b: TensorOrPair, reverse: bool = False) -> TensorOrPair:
@@ -253,7 +268,7 @@ def diag_scan_cuda(a: TensorOrPair, b: TensorOrPair, reverse: bool = False) -> T
     ref = b_planes[0]
     _check_cuda_f32(a_planes + b_planes, "diag_scan_cuda", ref)
     shape, batch, L, N = _check_planes(b_planes, "diag_scan_cuda")
-    a_bstride, a_tstride = _a_layout(a_planes, shape, "diag_scan_cuda")
+    a_planes, a_bstride, a_tstride = _a_layout(a_planes, shape, "diag_scan_cuda")
 
     h_planes = tuple(torch.empty_like(ref) for _ in b_planes)
     if ref.numel() == 0:
@@ -286,7 +301,7 @@ def diag_scan_bwd_cuda(a: TensorOrPair, h: TensorOrPair, g: TensorOrPair,
     if len(a_planes) != len(g_planes) or len(h_planes) != len(g_planes):
         raise ValueError("diag_scan_bwd_cuda: a, h and g must all be pairs or all real")
     shape, batch, L, N = _check_planes(h_planes + g_planes, "diag_scan_bwd_cuda")
-    a_bstride, a_tstride = _a_layout(a_planes, shape, "diag_scan_bwd_cuda")
+    read, a_bstride, a_tstride = _a_layout(a_planes, shape, "diag_scan_bwd_cuda")
 
     d_planes = tuple(torch.empty_like(ref) for _ in g_planes)
     # da at a's reduced shape (see the C entry); per-row partials where the
@@ -304,7 +319,7 @@ def diag_scan_bwd_cuda(a: TensorOrPair, h: TensorOrPair, g: TensorOrPair,
         with torch.cuda.device(ref.device):
             stream = torch.cuda.current_stream(ref.device).cuda_stream
             err = fn(
-                a_planes[0].data_ptr(), a_planes[1].data_ptr() if pair else None,
+                read[0].data_ptr(), read[1].data_ptr() if pair else None,
                 h_planes[0].data_ptr(), h_planes[1].data_ptr() if pair else None,
                 g_planes[0].data_ptr(), g_planes[1].data_ptr() if pair else None,
                 d_planes[0].data_ptr(), d_planes[1].data_ptr() if pair else None,
@@ -314,7 +329,8 @@ def diag_scan_bwd_cuda(a: TensorOrPair, h: TensorOrPair, g: TensorOrPair,
             )
         check(err, "diag_scan_bwd")
         LAUNCHES["diag_scan_bwd"] += 1
-    da = tuple(x.reshape(p.shape) for x, p in zip(da_planes, a_planes))
+    # at the shape the kernel read a at, summed over a copy's broadcast dims
+    da = tuple(_sum_to(x.reshape(r.shape), p.shape) for x, r, p in zip(da_planes, read, a_planes))
     if pair:
         return da, d_planes
     return da[0], d_planes[0]
