@@ -7,11 +7,11 @@ It builds the port's CUDA kernels from ``tlie_tpu_torch/ops/csrc`` with
 ``nvcc`` (into ``tlie_tpu_torch/_build/``, one ``nvcc`` per source, all at
 once), holds each kernel against its plain PyTorch version on the card
 (the diagonal scan forward and backward, the three kernels of the fused
-decoder + cross-entropy head, the three of the SSD's decay attention and the
-three of the flash attention), the scan's two kernels also on a decay that
-varies by example and is constant in time, and drives six full-width models
-along seven paths, each with the launch counts set to 0 just before it and
-read just after:
+decoder + cross-entropy head, the three of the SSD's decay attention on
+float32 and on bfloat16 operands and the three of the flash attention), the
+scan's two kernels also on a decay that varies by example and is constant in
+time, and drives seven full-width models along ten paths, each with the
+launch counts set to 0 just before it and read just after:
 
 1. the MQAR LRU (``MQAR_LRU_FULL``: L=512, d_model=128, N=128, 2 layers,
    vocab 8192, batch 64, weights from the config's seed): evaluation,
@@ -45,9 +45,28 @@ read just after:
    largest device kernels;
 7. the MQAR norm attention transformer (``MQAR_NORM_ATTENTION_CONV_FULL``:
    the learned softplus decay with its offset, conv 4, no position table)
-   along the same phases with 50 training steps.
-Paths 6 and 7 reach no Pallas kernel in ``tlie_tpu``: no port kernel
-launches on them, and the script checks that.
+   along the same phases with 50 training steps;
+8. the WikiText-103 Mamba-2 LM (``configs/wikitext-mamba2-short.yaml``: 6
+   layers, d_model and N 512, 8 heads of 64, block 1024, batch 8, vocab
+   50,257, the dense head, float32): 20 training steps and one perplexity
+   eval through the decay attention's float32 kernels, the checkpoint
+   eigen-analysed, the step's time, idle share and the decay attention's
+   share of device time;
+9. the same model in bfloat16 (``configs/wikitext-mamba2-short-bf16.yaml``,
+   ``compute_dtype: bfloat16``) along the same phases, through the decay
+   attention's bfloat16 kernels and no float32 one, its checkpoint
+   eigen-analysed in float32;
+10. the stacked seed sweep (``tlie_tpu_torch.parallel.run_sweep``, ``launch
+   --sweep_parallel``) of ``MQAR_LIN_ATTENTION_FULL`` over bench.py's four
+   seeds: 200 stacked steps with an eval every 100, each point
+   checkpointed, journaled and eigen-analysed, its point-steps/s; a rerun
+   that skips every point; one point at dropout 0 against its serial run;
+   the stacked step's time against a serial step's.
+Paths 6, 7 and 10 reach no Pallas kernel in ``tlie_tpu``: no port kernel
+launches on them, and the script checks that.  The decay attention's three
+kernels are also held on bfloat16 operands against the plain bfloat16
+version (the WikiText Mamba-2, MQAR and a ragged shape) and timed against
+the bfloat16 tensor-core bound.
 
 It also checks one MQAR training step of the LRU, of the Mamba-2 and of the
 transformers on the card against the same step on the CPU, one fused-head
@@ -94,6 +113,9 @@ FP32_FLOPS_PER_S = 67e12
 # products there, as three TF32 products each (the split x = big + small
 # that keeps float32 accuracy)
 TF32_FLOPS_PER_S = 495e12
+# dense bfloat16 on the tensor cores (the same data sheet): the decay
+# attention's bfloat16 kernels take one bfloat16 product a product
+BF16_FLOPS_PER_S = 989e12
 
 # kernel vs plain on the card: f32 sequential and chunked accumulation over
 # up to ~1000 steps with |a| < 1; rounding grows like sqrt(steps) * eps, so
@@ -159,6 +181,23 @@ SSD_SHAPES = {"mqar_bg64_q512_n128_hg1_p128": (64, 512, 128, 1, 128),
 # N, then the scores over j), rounded in another order; the decay exp(cs_i -
 # cs_j) is formed from the same difference on both sides
 SSD_RTOL = 1e-5
+# the bfloat16 kernels against the plain bfloat16 version: y, dC, dB and dxdt
+# are rounded to bfloat16, and so are the scores and dCB inside; the two sum
+# in float32 in other orders, so a sum (or a score) near a rounding midpoint
+# may round one bfloat16 step apart (at most 2^-7 of the value): each of
+# those outputs within SSD_RTOL of its term sums plus BF16_STEP of (|value| +
+# its term sums); dcs_i and dcs_j, float32 sums of float32 terms, within
+# SSD_RTOL alone.  That band is wider than leaving out the rounding of the
+# score or of dCB would move an output, so at least BF16_EQUAL_SHARE of each
+# bfloat16 output must also equal the plain version's bit for bit: the card gave
+# 0.9998-1.0000, and the plain version without those two roundings gives
+# 0.60-0.64 against itself with them (on the CPU, at three shapes).  The
+# WikiText Mamba-2 shape (path 9's), the MQAR shape and the ragged one.
+BF16_STEP = 2.0 ** -7
+BF16_EQUAL_SHARE = 0.99
+SSD_BF16_SHAPES = {"wikitext_bg8_q1024_n512_hg8_p64": (8, 1024, 512, 8, 64),
+                   "mqar_bg64_q512_n128_hg1_p128": (64, 512, 128, 1, 128),
+                   "ragged_bg3_q77_n40_hg3_p33": (3, 77, 40, 3, 33)}
 # one Mamba-2 step's gradients, card vs CPU, both held to float64 on the
 # CPU: the card's error may be GRAD_F64_FACTOR times the CPU's, or 1e-4 of
 # the leaf's max, the tolerance the CPU tests hold the port's gradients to
@@ -192,6 +231,22 @@ TF_STEPS, TF_EVAL_EVERY, TF_PROMPT = 200, 100, 384
 # 512 (the norm attention has none)
 LIN_STEPS, LIN_EVAL_EVERY = 200, 100
 NORM_STEPS, NORM_EVAL_EVERY = 50, 25
+# the WikiText Mamba-2 paths (8: float32, 9: bfloat16): 20 steps and one
+# perplexity eval each (the configs run 3,000 and 1,500 with an eval every 500)
+WT_STEPS = 20
+# the stacked sweep (path 10): bench.py's four seeds of the linear attention
+# grid at the config's rate, 200 stacked steps with an eval every 100 (the
+# north-star sweep runs 8,000), on the train split cut as the LRU's; its
+# card check trains the same grid at dropout 0 for 20 steps and holds the
+# first point to its serial run
+SWEEP_SEEDS = (1919, 2222, 2929, 1717)
+SWEEP_STEPS, SWEEP_EVAL_EVERY, SWEEP_CHECK_STEPS = 200, 100, 20
+# a stacked point against its serial run, as tests/test_torch_sweep.py holds
+# it: the train loss, test loss and test accuracy of every eval within 1e-5
+# relative or 1e-7 absolute (pytest.approx's rule), and every parameter
+# within 1e-5 absolute (the stacked step batches the same float32 products,
+# so its sums may run in another order)
+SWEEP_RTOL, SWEEP_ATOL, SWEEP_PARAM_ATOL = 1e-5, 1e-7, 1e-5
 ATT_PROMPT = 496
 # one transformer step's gradients, card vs CPU, both held to float64 on the
 # CPU: the card's error may be GRAD_F64_FACTOR times the CPU's, or 1e-4 of
@@ -247,7 +302,12 @@ TC_KERNELS = {"fwd_p64": "fused_xent", "dh_p64": "fused_xent", "dh_p32": "fused_
               "flash_fwd": "flash_attention", "flash_bwd_dkv": "flash_attention",
               "flash_bwd_dq": "flash_attention",
               "decay_fwd": "decay_attention", "decay_bwd_i": "decay_attention",
-              "decay_bwd_j": "decay_attention"}
+              "decay_bwd_j": "decay_attention", "decay_fwd_bf16": "decay_attention",
+              "decay_bwd_i_bf16": "decay_attention", "decay_bwd_j_bf16": "decay_attention"}
+# the HMMA each tensor-core kernel must hold: TF32 for the float32 kernels,
+# bfloat16 for the decay attention's bfloat16 instantiations
+TC_HMMA = {name: "HMMA.16816.F32.BF16" if name.endswith("_bf16") else "HMMA.1688.F32.TF32"
+           for name in TC_KERNELS}
 
 
 def ptxas_spills(log: str) -> list:
@@ -262,7 +322,8 @@ def tensor_core_hmma(lib_paths, nvcc: str) -> dict:
     built libraries, from ``cuobjdump -sass`` (beside ``nvcc``): each
     instantiation of the fused head's forward and backward kernels, the
     flash attention's three, and the decay attention's forward, bwd_i and
-    bwd_j, {"dh_p64": {"HMMA.1688.F32.TF32": 192}, ...}."""
+    bwd_j on float32 and on bfloat16 operands,
+    {"dh_p64": {"HMMA.1688.F32.TF32": 192}, ...}."""
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     instr = re.compile(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?(HMMA\S*)")
     names = ((re.compile(r"xent_bwd_kernelILb([01])ELi(\d+)E"),
@@ -271,9 +332,8 @@ def tensor_core_hmma(lib_paths, nvcc: str) -> dict:
              (re.compile(r"flash_attention_fwd_kernel"), lambda m: "flash_fwd"),
              (re.compile(r"flash_attention_bwd_dkv_kernel"), lambda m: "flash_bwd_dkv"),
              (re.compile(r"flash_attention_bwd_dq_kernel"), lambda m: "flash_bwd_dq"),
-             (re.compile(r"decay_attention_fwd_kernel"), lambda m: "decay_fwd"),
-             (re.compile(r"decay_attention_bwd_i_kernel"), lambda m: "decay_bwd_i"),
-             (re.compile(r"decay_attention_bwd_j_kernel"), lambda m: "decay_bwd_j"))
+             (re.compile(r"decay_attention_(fwd|bwd_i|bwd_j)_kernelI(f|13__nv_bfloat16)E"),
+              lambda m: f"decay_{m.group(1)}" + ("" if m.group(2) == "f" else "_bf16")))
     counts = {}
     for lib_path in lib_paths:
         sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True,
@@ -545,18 +605,18 @@ def time_fused_xent(fx, h, w, b, labels, lse, gscale, flush):
     return out
 
 
-def decay_inputs(dev, gen, BG, Q, N, Hg, P):
+def decay_inputs(dev, gen, BG, Q, N, Hg, P, dtype=torch.float32):
     """C as a row-strided view (the SSD slices C and B out of the conv
     output), B, cs as the within-chunk cumsum of dt·A with dt in [0, 0.1)
     and A in (-16, -1] (|cs| reaches hundreds at Q = 512), xdt and a
-    cotangent dy."""
-    C = torch.randn(BG, Q, N + 8, device=dev, generator=gen)[:, :, 4:4 + N]
-    B = torch.randn(BG, Q, N, device=dev, generator=gen)
+    cotangent dy; all but cs (float32) in ``dtype``."""
+    C = torch.randn(BG, Q, N + 8, device=dev, generator=gen).to(dtype)[:, :, 4:4 + N]
+    B = torch.randn(BG, Q, N, device=dev, generator=gen).to(dtype)
     dt = 0.1 * torch.rand(BG, Hg, Q, device=dev, generator=gen)
     A = -1 - 15 * torch.rand(1, Hg, 1, device=dev, generator=gen)
     cs = torch.cumsum(dt * A, -1).contiguous()
-    x = torch.randn(BG, Hg, Q, P, device=dev, generator=gen)
-    dy = torch.randn(BG, Hg, Q, P, device=dev, generator=gen)
+    x = torch.randn(BG, Hg, Q, P, device=dev, generator=gen).to(dtype)
+    dy = torch.randn(BG, Hg, Q, P, device=dev, generator=gen).to(dtype)
     return C, B, cs, x, dy
 
 
@@ -567,8 +627,10 @@ DECAY_OUTPUTS = (("y", "decay_attention_fwd"), ("dC", "decay_attention_bwd_i"),
 
 def check_decay_attention(dattn, C, B, cs, x, dy, f64: bool):
     """The three kernels against the plain version on the same inputs:
-    (fields, max abs error by kernel).  With ``f64`` both are also held to
-    the plain version in float64, for the record."""
+    (fields, max abs error by kernel's launch name).  With ``f64`` both are
+    also held to the plain version in float64, for the record.  On bfloat16
+    operands the bfloat16 outputs take BF16_STEP more, and at least
+    BF16_EQUAL_SHARE of them must equal the plain version's (see there)."""
     got = ((dattn.decay_attention_fwd_cuda(C, B, cs, x),)
            + dattn.decay_attention_bwd_i_cuda(C, B, cs, x, dy)
            + dattn.decay_attention_bwd_j_cuda(C, B, cs, x, dy))
@@ -578,7 +640,15 @@ def check_decay_attention(dattn, C, B, cs, x, dy, f64: bool):
     scales = dattn.term_scales(C, B, cs, x, dy)
     fields, errs, ok = {}, {}, True
     for (name, kernel), a, b, sc in zip(DECAY_OUTPUTS, got, want, scales):
-        ratio = ((a - b).abs() / (SSD_RTOL * sc + 1e-30)).max().item()
+        kernel = dattn.launch_name(kernel[len("decay_attention_"):], x.dtype)
+        tol = SSD_RTOL * sc + 1e-30
+        if b.dtype == torch.bfloat16:
+            tol = tol + BF16_STEP * (b.float().abs() + sc)
+            share = (a == b).float().mean().item()
+            fields[f"{name}_equal_share"] = f"{share:.4f}"
+            ok = ok and share >= BF16_EQUAL_SHARE
+        a, b = a.float(), b.float()
+        ratio = ((a - b).abs() / tol).max().item()
         fields[f"{name}_err_over_tol"] = f"{ratio:.3e}"
         errs[kernel] = max(errs.get(kernel, 0.0), (a - b).abs().max().item())
         ok = ok and ratio <= 1.0 and bool(torch.isfinite(a).all())
@@ -598,12 +668,13 @@ def check_decay_attention(dattn, C, B, cs, x, dy, f64: bool):
 
 def decay_einsum(C, B, cs, x):
     """The materialised form as tlie_tpu's XLA path writes it
-    (ops/ssd.py:215-223), in einsums: cuBLAS products, autograd backward."""
+    (ops/ssd.py:215-223), in einsums: cuBLAS products, autograd backward;
+    the decay in the operands' dtype, as tlie_tpu casts it to ``mm_dtype``."""
     Q = cs.shape[-1]
     seg = cs[..., :, None] - cs[..., None, :]
     causal = torch.ones(Q, Q, dtype=torch.bool, device=cs.device).tril()
     scores = torch.einsum("bin,bjn->bij", C, B)[:, None] * torch.exp(
-        seg.masked_fill(~causal, float("-inf")))
+        seg.masked_fill(~causal, float("-inf"))).to(C.dtype)
     return torch.einsum("bhij,bhjp->bhip", scores, x)
 
 
@@ -615,12 +686,15 @@ DECAY_TC = ("decay_attention_fwd", "decay_attention_bwd_i", "decay_attention_bwd
 def time_decay_attention(dattn, C, B, cs, x, dy, flush):
     """L2-cold medians of 21 launches of each kernel, warm medians, the plain
     version's and the einsum form's cold medians, and each kernel's bound:
-    {kernel: (ms, warm_ms, plain_ms, einsum_ms, bound_ms, bound_by, bytes,
-    flops, bound_f32_ms)}.  The kernels of DECAY_TC run their products on
-    the tensor cores as three TF32 products each: their bound is the lesser
-    of that and float32 outside them."""
+    {kernel's launch name: (ms, warm_ms, plain_ms, einsum_ms, bound_ms,
+    bound_by, bytes, flops, bound_f32_ms)}.  The kernels of DECAY_TC run
+    their products on the tensor cores, on float32 operands as three TF32
+    products each (the bound is the lesser of that and float32 outside
+    them), on bfloat16 operands as one bfloat16 product (the bound is that,
+    and the bytes count 2 for each bfloat16 element)."""
     BG, Hg, Q, P = x.shape
     N = C.shape[2]
+    bf16 = x.dtype == torch.bfloat16
     ms = {
         "decay_attention_fwd": lambda: dattn.decay_attention_fwd_cuda(C, B, cs, x),
         "decay_attention_bwd_i": lambda: dattn.decay_attention_bwd_i_cuda(C, B, cs, x, dy),
@@ -643,14 +717,14 @@ def time_decay_attention(dattn, C, B, cs, x, dy, flush):
     # bytes: each input read once, each output written once; operations: the
     # products over the causal pairs (j <= i), per group for C·B and its
     # gradients (2N each), per head for the P-wide ones (2P each)
-    f4 = 4
+    f4, e = 4, x.element_size()  # cs and dcs are float32; the rest in x's dtype
     pairs = BG * Q * (Q + 1) // 2
-    ins = (2 * BG * Q * N + BG * Hg * Q + BG * Hg * Q * P) * f4  # C, B, cs, x
-    io = {"decay_attention_fwd": (ins + BG * Hg * Q * P * f4, pairs * (2 * N + 2 * Hg * P)),
-          "decay_attention_bwd_i": (ins + BG * Hg * Q * P * f4 + (BG * Q * N + BG * Hg * Q) * f4,
+    ins = (2 * BG * Q * N + BG * Hg * Q * P) * e + BG * Hg * Q * f4  # C, B, x, cs
+    io = {"decay_attention_fwd": (ins + BG * Hg * Q * P * e, pairs * (2 * N + 2 * Hg * P)),
+          "decay_attention_bwd_i": (ins + BG * Hg * Q * P * e + BG * Q * N * e + BG * Hg * Q * f4,
                                     pairs * (4 * N + 2 * Hg * P)),
-          "decay_attention_bwd_j": (ins + BG * Hg * Q * P * f4
-                                    + (BG * Q * N + BG * Hg * Q * P + BG * Hg * Q) * f4,
+          "decay_attention_bwd_j": (ins + BG * Hg * Q * P * e
+                                    + (BG * Q * N + BG * Hg * Q * P) * e + BG * Hg * Q * f4,
                                     pairs * (4 * N + 4 * Hg * P))}
     out = {}
     for name in ms:
@@ -662,10 +736,13 @@ def time_decay_attention(dattn, C, B, cs, x, dy, flush):
         n_bytes, flops = io[name]
         bytes_ms, f32_ms = n_bytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
         flops_ms = f32_ms
-        if name in DECAY_TC:
+        if bf16:
+            flops_ms = flops / BF16_FLOPS_PER_S * 1e3
+        elif name in DECAY_TC:
             flops_ms = min(f32_ms, 3 * flops / TF32_FLOPS_PER_S * 1e3)
-        out[name] = (k_ms, w_ms, p_ms, e_ms, max(bytes_ms, flops_ms),
-                     "bytes" if bytes_ms >= flops_ms else "operations", n_bytes, flops, f32_ms)
+        key = dattn.launch_name(name[len("decay_attention_"):], x.dtype)
+        out[key] = (k_ms, w_ms, p_ms, e_ms, max(bytes_ms, flops_ms),
+                    "bytes" if bytes_ms >= flops_ms else "operations", n_bytes, flops, f32_ms)
     del y_lib, leaves
     return out
 
@@ -1380,6 +1457,304 @@ def attention_family_path(dev, test_x, test_y, train_split, want_files, full, ta
     return launches
 
 
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+def wikitext_splits():
+    """The synthetic WikiText-103 stream of ``configs/wikitext-mamba2-short.yaml``
+    (block 1024), built once for paths 8 and 9: (train, test, l_max)."""
+    from tlie_tpu_torch.config import load_yaml
+    from tlie_tpu_torch.data import WikiText
+
+    with Phase("wt_mamba2_data") as ph:
+        cfg = load_yaml(os.path.join(REPO, "configs", "wikitext-mamba2-short.yaml"))
+        data = WikiText(**cfg["dataset"])
+        train_split, test_split = data.split("train"), data.split("test")
+        ph.fields.update(train_blocks=len(train_split[0]), test_blocks=len(test_split[0]),
+                         block=data.l_max, vocab=data.d_output)
+    return train_split, test_split, data.l_max
+
+
+def wikitext_mamba2_path(dev, splits, config: str, tag: str, want_files):
+    """Main path 8 (``configs/wikitext-mamba2-short.yaml``: 6 layers, d_model
+    and N 512, 8 heads of 64, block 1024, batch 8, vocab 50,257, the dense
+    head, float32) or 9 (``configs/wikitext-mamba2-short-bf16.yaml``, the
+    same model with ``compute_dtype: bfloat16``), weights from seed 1919, on
+    the synthetic stream: with every count set to 0, ``WT_STEPS`` training
+    steps and one perplexity eval; the counts read there must be the
+    decay attention's three kernels of the path's dtype alone (the forward
+    once per layer per step and eval batch, each backward once per layer per
+    step).  Then the checkpoint reloaded and eigen-analysed (float32, as
+    tlie_tpu extracts: the analysis launches the float32 forward, counted
+    apart), and a training step's time, idle share and the decay
+    attention's share of device time.  Returns the counts after the
+    eigen-analysis (training's and the analysis's float32 forwards)."""
+    from tlie_tpu_torch.analysis import eval_eig
+    from tlie_tpu_torch.analysis.eval_eig import extract_attention_family
+    from tlie_tpu_torch.config import derive_runtime_fields, load_yaml, train_fields
+    from tlie_tpu_torch.models import build_models
+    from tlie_tpu_torch.ops import LAUNCHES
+    from tlie_tpu_torch.ops.decay_attention import launch_name
+    from tlie_tpu_torch.training import restore_checkpoint, train, train_step
+    from tlie_tpu_torch.training.state import make_family_optimizer
+
+    train_split, test_split, l_max = splits
+    cfg = load_yaml(os.path.join(REPO, "configs", config))
+    m = cfg["model"]
+    bsz, layers = cfg["train"]["batch_size"], m["num_layers"]
+    dtype = torch.bfloat16 if m.get("compute_dtype") == "bfloat16" else torch.float32
+    names = {k: launch_name(k, dtype) for k in ("fwd", "bwd_i", "bwd_j")}
+    tmp = tempfile.mkdtemp(prefix=f"tlie_{tag}_")
+    cfg["save"] = os.path.join(tmp, "checkpoint", os.path.basename(cfg["save"]))
+    cfg["train"].update(total_steps=WT_STEPS, eval_every=WT_STEPS)
+    cfg = derive_runtime_fields(cfg, l_max, len(train_split[0]))
+    m = cfg["model"]
+    try:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        with Phase(f"{tag}_train") as ph:
+            t0 = time.perf_counter()
+            result = train(cfg, train_split, test_split, device=dev)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            launches = dict(LAUNCHES)
+            n_eval = len(result.history) * (len(test_split[0]) // bsz)
+            want = dict.fromkeys(LAUNCHES, 0)
+            want.update({names["fwd"]: layers * (WT_STEPS + n_eval),
+                         names["bwd_i"]: layers * WT_STEPS, names["bwd_j"]: layers * WT_STEPS})
+            if launches != want:
+                raise AssertionError(f"{tag} training launches {launches}, expected {want}")
+            for rec in result.history:
+                if not all(np.isfinite(v) for v in rec.values()) or rec["test_perf"] < 1.0:
+                    raise AssertionError(f"{tag} training numbers {rec}")
+            trained = result.model.state_dict()
+            init = build_models(m, generator=torch.Generator().manual_seed(cfg["seed"]),
+                                device=dev)[0].state_dict()
+            bad = [k for k, v in trained.items()
+                   if v.dtype != torch.float32 or torch.equal(v, init[k])]
+            if bad:
+                raise AssertionError(f"{tag} parameters not float32 or not moved: {bad}")
+            ph.fields.update(steps=WT_STEPS, seconds=f"{train_s:.2f}", eval_batches=n_eval,
+                             compute_dtype=str(dtype),
+                             history=repr([{k: round(v, 4) for k, v in r.items()}
+                                           for r in result.history]),
+                             launches=repr({k: v for k, v in launches.items() if v}))
+            del init
+
+        with Phase(f"{tag}_checkpoint_eval_eig") as ph:
+            ckpt_path, perf = result
+            ckpt = restore_checkpoint(ckpt_path)
+            for k, v in trained.items():
+                if not torch.equal(ckpt["model"][k], v.cpu()):
+                    raise AssertionError(f"{tag} checkpoint entry {k} differs from the live "
+                                         "weights")
+            batch = test_split[0][:bsz]  # configs/analysis/wikitext.yaml's batch_size: 8
+            before = dict(LAUNCHES)
+            eig_dir = os.path.join(tmp, "analysis")
+            eig, eig_init, perc, perc_init, _, _ = eval_eig(cfg, {"save_path": eig_dir}, perf,
+                                                            ckpt_path, device=dev, batch=batch)
+            eig_launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
+                            if LAUNCHES[k] != before[k]}
+            path_all = dict(LAUNCHES)  # the path's: training and the analysis
+            # the spectra of the trained weights in a float32 model
+            f32_cfg = {k: v for k, v in m.items() if k != "compute_dtype"}
+            _, f32_model, _ = build_models(f32_cfg, generator=torch.Generator(), device=dev)
+            f32_model.load_state_dict(ckpt["model"])
+            live = extract_attention_family(
+                f32_model, torch.as_tensor(np.asarray(batch), device=dev).long(), f32_cfg)
+            (run_dir,) = os.listdir(eig_dir)
+            files = sorted(os.listdir(os.path.join(eig_dir, run_dir)))
+            want_shape = (bsz, m["seq_len"], m["num_heads"], layers)
+            if eig.shape != want_shape or eig.dtype != np.float32 or not np.array_equal(eig, live):
+                raise AssertionError(f"{tag} spectra {eig.shape} {eig.dtype} differ from the "
+                                     "float32 extraction of the trained weights")
+            if not (np.all((eig_init > 0) & (eig_init <= 1)) and np.all((eig > 0) & (eig <= 1))):
+                raise AssertionError(f"{tag} eigenvalues outside (0, 1]")
+            if files != want_files or not run_dir.startswith("WikiText"):
+                raise AssertionError(f"{tag} artifacts {run_dir}: {files}")
+            if eig_launches != {"decay_attention_fwd": 2 * layers}:
+                raise AssertionError(f"{tag} eigen-analysis launches {eig_launches}, expected "
+                                     "the float32 forward of the init and trained models")
+            ph.fields.update(checkpoint=os.path.basename(ckpt_path), perplexity=f"{perf:.3f}",
+                             artifacts=run_dir, n_files=len(files),
+                             eig_launches=repr(eig_launches),
+                             radius_pct_mean_layer0=np.round(perc[:, :, 0, 0].mean(1), 2).tolist(),
+                             radius_pct_init_mean_layer0=np.round(
+                                 perc_init[:, :, 0, 0].mean(1), 2).tolist())
+            del f32_model, ckpt
+
+        with Phase(f"{tag}_train_step_timing") as ph:
+            f = train_fields(cfg)
+            opt, clip = make_family_optimizer(result.model, "mamba", m, cfg["train"], f)
+            x = torch.as_tensor(train_split[0][:bsz], device=dev).long()
+            y = torch.as_tensor(train_split[1][:bsz], device=dev).long()
+            lrs = {"regular": f["lr"]}
+            ph.fields.update(step_profile(
+                lambda: train_step(result.model, opt, x, y, lrs, None, clip_norm=clip),
+                bsz * m["seq_len"], "decay_attention", "decay_attention", n_warm=2, n_timed=5))
+            del opt, x, y
+        print(f"[launches] {tag} training: {launches}; eval_eig (float32): {eig_launches}",
+              flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del result
+    torch.cuda.empty_cache()
+    return path_all
+
+
+def sweep_path(dev, test_x, test_y, train_split, want_files):
+    """Main path 10: ``tlie_tpu_torch.parallel.run_sweep`` (``launch
+    --sweep_parallel``) on the four seeds of ``bench.py::_bench_sweep_grid``
+    (SWEEP_SEEDS) of ``MQAR_LIN_ATTENTION_FULL`` at its rate, stacked on the
+    card: SWEEP_STEPS steps with an eval every SWEEP_EVAL_EVERY, each point
+    checkpointed, journaled and eigen-analysed, and the stacked training's
+    point-steps/s; no port kernel may launch (the counts are set to 0 before
+    and read after).  Then the same sweep again, which must skip every point
+    from the journal; one point of the grid at dropout 0 against the same
+    point trained alone, SWEEP_CHECK_STEPS steps; and a stacked step of the
+    four points against a serial step of one (path 6's model), both timed
+    at dropout 0.  Returns the counts."""
+    from tlie_tpu_torch.config import (
+        MQAR_LIN_ATTENTION_FULL, ExperimentConfig, apply_sweep_point, derive_runtime_fields,
+        train_fields,
+    )
+    from tlie_tpu_torch.models import build_models
+    from tlie_tpu_torch.ops import LAUNCHES
+    from tlie_tpu_torch.parallel import run_sweep
+    from tlie_tpu_torch.parallel.sweep import (
+        _journal_path, _load_journal, _stacked_state, optimizer_groups, stacked_adamw_step,
+        stacked_grads,
+    )
+    from tlie_tpu_torch.training import restore_checkpoint, train, train_step
+    from tlie_tpu_torch.training.scan_loop import sparse_head_k_for
+    from tlie_tpu_torch.training.state import make_family_optimizer
+
+    full = MQAR_LIN_ATTENTION_FULL
+    mc = full["model"]
+    bsz, L, G = full["train"]["batch_size"], mc["seq_len"], len(SWEEP_SEEDS)
+    tmp = tempfile.mkdtemp(prefix="tlie_sweep_")
+    raw = copy.deepcopy(full)
+    raw["save"] = os.path.join(tmp, "checkpoint", "mqar-lin-attention")
+    raw["train"].update(total_steps=SWEEP_STEPS, eval_every=SWEEP_EVAL_EVERY)
+    raw["dataset"]["num_train_examples"] = TRAIN_EXAMPLES
+    base = ExperimentConfig(raw)
+    points = [{("seed",): seed} for seed in SWEEP_SEEDS]
+    conf = {"batch_size": bsz, "save_path": os.path.join(tmp, "analysis")}
+    test_split = (test_x, test_y)
+    try:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        with Phase("sweep_train") as ph:
+            t0 = time.perf_counter()
+            res, waves = run_sweep(base, points, train_split, test_split, L, conf, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(LAUNCHES)
+            if any(launches.values()):
+                raise AssertionError(f"the stacked sweep launched port kernels: {launches}")
+            (group,) = waves
+            journal = _load_journal(_journal_path(base))
+            runs = sorted(os.listdir(conf["save_path"]))
+            if len(journal) != G or len(runs) != G:
+                raise AssertionError(f"sweep journal {len(journal)} lines, {len(runs)} analyses")
+            for (path, perf), seed, hist in zip(res, SWEEP_SEEDS, group["histories"]):
+                ckpt = restore_checkpoint(path)
+                if ckpt["config"]["train"]["lr"] != raw["train"]["lr"] or \
+                        f"-seed-{seed}-" not in path:
+                    raise AssertionError(f"sweep checkpoint {path}")
+                if not hist or not all(np.isfinite(v) for r in hist for v in r.values()):
+                    raise AssertionError(f"sweep history {hist}")
+            for run in runs:
+                if sorted(os.listdir(os.path.join(conf["save_path"], run))) != want_files:
+                    raise AssertionError(f"sweep artifacts {run}")
+            ph.fields.update(points=G, steps=group["steps"],
+                             train_seconds=f"{group['train_seconds']:.2f}",
+                             point_steps_per_s=f"{group['point_steps_per_s']:.1f}",
+                             wall_seconds_with_evals_checkpoints_eval_eig=f"{wall:.2f}",
+                             perfs=repr([round(p, 4) for _, p in res]),
+                             histories=repr([[{k: round(v, 4) for k, v in r.items()} for r in h]
+                                             for h in group["histories"]]))
+
+        with Phase("sweep_resume") as ph:
+            t0 = time.perf_counter()
+            again, again_waves = run_sweep(base, points, train_split, test_split, L, conf,
+                                           device=dev)
+            if again_waves or again != res:
+                raise AssertionError("the rerun of the sweep trained points in its journal")
+            if len(_load_journal(_journal_path(base))) != G:
+                raise AssertionError("the rerun of the sweep wrote to its journal")
+            ph.fields.update(seconds=f"{time.perf_counter() - t0:.2f}", skipped=G)
+
+        with Phase("sweep_point_vs_serial") as ph:
+            check = copy.deepcopy(raw)
+            check["model"]["dropout"] = 0.0
+            check["save"] = os.path.join(tmp, "check", "mqar-lin-attention")
+            check["train"].update(total_steps=SWEEP_CHECK_STEPS, eval_every=SWEEP_CHECK_STEPS)
+            stacked, stacked_waves = run_sweep(ExperimentConfig(check), points, train_split,
+                                               test_split, L, device=dev)
+            one = derive_runtime_fields(apply_sweep_point(ExperimentConfig(check), points[0]).raw,
+                                        L, len(train_split[0]))
+            one["save"] = None
+            serial = train(one, train_split, test_split, device=dev)
+            hist, ser = stacked_waves[0]["histories"][0], serial.history
+            # each eval's loss or metric error over its tolerance
+            over = max(abs(h[k] - s[k]) / max(SWEEP_RTOL * abs(s[k]), SWEEP_ATOL)
+                       for h, s in zip(hist, ser) for k in ("train_loss", "test_loss", "test_perf"))
+            got = restore_checkpoint(stacked[0][0])["model"]
+            param_worst = max((got[n] - v.cpu()).abs().max().item()
+                              for n, v in serial.model.state_dict().items())
+            ph.fields.update(evals=len(hist), metric_err_over_tol=f"{over:.3e}",
+                             param_worst=f"{param_worst:.3e}")
+            if not (len(hist) == len(ser) and over <= 1.0 and param_worst <= SWEEP_PARAM_ATOL):
+                raise AssertionError(f"stacked point vs serial run: {ph.fields}")
+            del serial, stacked, got
+
+        with Phase("sweep_step_timing") as ph:
+            # the four points' stacked step and one point's serial step, at
+            # dropout 0 and the config's rate, on the same batches
+            step_cfg = dict(mc, dropout=0.0)
+            f = train_fields(derive_runtime_fields(raw, L, len(train_split[0])))
+            sparse_k = sparse_head_k_for(mc, train_split[1], test_y)
+            grid = [ExperimentConfig(dict(raw, seed=seed, model=step_cfg)) for seed in SWEEP_SEEDS]
+            model0, _, _, params, buffers = _stacked_state(grid, list(range(G)), dev)
+            group_of, clip = optimizer_groups(model0, "transformer", step_cfg, raw["train"], f)
+            moments = {n: (torch.zeros_like(p), torch.zeros_like(p)) for n, p in params.items()}
+            grads_fn = stacked_grads(model0, sparse_k)
+            x = torch.as_tensor(train_split[0][:bsz], device=dev).long()
+            y = torch.as_tensor(train_split[1][:bsz], device=dev).long()
+            xs, ys = x.expand(G, -1, -1), y.expand(G, -1, -1)
+            lrs = {"regular": torch.full((G,), f["lr"], device=dev)}
+            n_step = [0]
+
+            def stacked_step():
+                n_step[0] += 1
+                grads, _ = grads_fn(params, buffers, xs, ys)
+                stacked_adamw_step(params, grads, moments, n_step[0], lrs, group_of, f["betas"],
+                                   clip)
+
+            stacked_fields = step_profile(stacked_step, G * bsz * L, None, "", n_top=6)
+            serial_m = build_models(step_cfg, generator=torch.Generator().manual_seed(full["seed"]),
+                                    device=dev)[0]
+            serial_opt, _ = make_family_optimizer(serial_m, "transformer", step_cfg, raw["train"],
+                                                  f)
+            serial_fields = step_profile(
+                lambda: train_step(serial_m, serial_opt, x, y, {"regular": f["lr"]}, sparse_k,
+                                   clip_norm=clip), bsz * L, None, "", n_top=6)
+            stacked_ms, serial_ms = (float(stacked_fields["ms_per_step"]),
+                                     float(serial_fields["ms_per_step"]))
+            ph.fields.update({f"stacked_{k}": v for k, v in stacked_fields.items()})
+            ph.fields.update({f"serial_{k}": v for k, v in serial_fields.items()})
+            ph.fields.update(stacked_point_steps_per_s=f"{G * 1e3 / stacked_ms:.1f}",
+                             serial_steps_per_s=f"{1e3 / serial_ms:.1f}",
+                             stacking_gain=f"{G * serial_ms / stacked_ms:.3f}")
+            del model0, params, moments, serial_m, serial_opt
+        print(f"[launches] stacked sweep: {launches} (expected: none)", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card",
@@ -1445,13 +1820,14 @@ def main() -> int:
             ph.fields[f"{name}_spill_bytes"] = repr(ptxas_spills(report.log))
         # the fused head's three kernels, the flash attention's three and the
         # decay attention's three run their products on the tensor cores:
-        # each one's SASS holds TF32 HMMAs
+        # each one's SASS holds TF32 HMMAs, and the decay attention's
+        # bfloat16 instantiations bfloat16 ones
         hmma = tensor_core_hmma(
             [reports[lib].path for lib in sorted(set(TC_KERNELS.values()))], find_nvcc())
         ph.fields["tensor_core_sass_hmma"] = repr(hmma)
         if sorted(hmma) != sorted(TC_KERNELS) or not all(
-                ops.get("HMMA.1688.F32.TF32", 0) > 0 for ops in hmma.values()):
-            raise AssertionError(f"tensor-core kernels without HMMA.1688.F32.TF32: {hmma}")
+                hmma[name].get(op, 0) > 0 for name, op in TC_HMMA.items()):
+            raise AssertionError(f"tensor-core kernels without their HMMA: {hmma}")
 
     # 3. each kernel against its plain version, at the path's shape and two others
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1618,6 +1994,20 @@ def main() -> int:
             ph.fields[name] = repr(fields)
             if not decay_errs:  # the MQAR shape comes first
                 decay_errs, decay_io = errs, ins
+            del ins
+        torch.cuda.empty_cache()
+
+    # the decay attention's bfloat16 kernels against the plain bfloat16
+    # version, at the WikiText Mamba-2 shape (path 9's), the MQAR shape and a
+    # ragged one
+    with Phase("decay_attention_bf16_vs_plain") as ph:
+        decay_bf16_errs = {}
+        for name, (BG, Q, N, Hg, P) in SSD_BF16_SHAPES.items():
+            ins = decay_inputs(dev, gen, BG, Q, N, Hg, P, dtype=torch.bfloat16)
+            fields, errs = check_decay_attention(dattn, *ins, f64=False)
+            ph.fields[name] = repr(fields)
+            for k, v in errs.items():
+                decay_bf16_errs[k] = max(decay_bf16_errs.get(k, 0.0), v)
             del ins
         torch.cuda.empty_cache()
 
@@ -2307,6 +2697,21 @@ def main() -> int:
         del wt
         torch.cuda.empty_cache()
 
+    # the bfloat16 kernels at the WikiText Mamba-2 shape (path 9's, the one
+    # the kernel line reports) and the MQAR shape: time, bound (the bfloat16
+    # tensor-core rate), plain version and the bfloat16 einsum form
+    with Phase("decay_attention_bf16_timing") as ph:
+        for shape in ("wikitext_bg8_q1024_n512_hg8_p64", "mqar_bg64_q512_n128_hg1_p128"):
+            ins = decay_inputs(dev, gen, *SSD_BF16_SHAPES[shape], dtype=torch.bfloat16)
+            times = time_decay_attention(dattn, *ins, flush)
+            for name, t in times.items():
+                ph.fields[f"{name}_{shape}"] = timing_fields(t, "einsum_autograd_ms",
+                                                             "over_einsum")
+            if shape.startswith("wikitext"):
+                decay_bf16_times = times
+            del ins
+        torch.cuda.empty_cache()
+
     # main path 5, the MQAR softmax transformer through the flash kernels
     path5_all, attn_times, attn_errs = transformer_path(dev, gen, flush, test_x, test_y,
                                                         train_split, want_files)
@@ -2319,8 +2724,20 @@ def main() -> int:
                                       MQAR_NORM_ATTENTION_CONV_FULL, "norm", NORM_STEPS,
                                       NORM_EVAL_EVERY)
 
+    # main paths 8 and 9, the WikiText Mamba-2 LM in float32 and in bfloat16
+    # (the decay attention's float32 and bfloat16 kernels), and 10, the
+    # stacked seed sweep of the MQAR linear attention (no port kernel)
+    wt_splits = wikitext_splits()
+    path8_all = wikitext_mamba2_path(dev, wt_splits, "wikitext-mamba2-short.yaml", "wt_mamba2",
+                                     want_files)
+    path9_all = wikitext_mamba2_path(dev, wt_splits, "wikitext-mamba2-short-bf16.yaml",
+                                     "wt_mamba2_bf16", want_files)
+    del wt_splits
+    path10_all = sweep_path(dev, test_x, test_y, train_split, want_files)
+
     def late(name):
-        return path6_all[name] + path7_all[name]
+        return (path6_all[name] + path7_all[name] + path8_all[name] + path9_all[name]
+                + path10_all[name])
 
     kernels = [{
         "name": "diag_scan",
@@ -2382,6 +2799,25 @@ def main() -> int:
             "bound_ms": bound,
             "bound_by": by,
             "library_ms": None,  # no single PyTorch call computes the decay attention
+        })
+    replaces = {"decay_attention_fwd_bf16": "tlie_tpu/ops/pallas_ssd.py:252",
+                "decay_attention_bwd_i_bf16": "tlie_tpu/ops/pallas_ssd.py:272",
+                "decay_attention_bwd_j_bf16": "tlie_tpu/ops/pallas_ssd.py:293"}
+    for name, (k_ms, _, p_ms, e_ms, bound, by, _, _, _) in decay_bf16_times.items():
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "tlie_tpu_torch/ops/csrc/decay_attention.cu",
+            "replaces": replaces[name],
+            "launches": path4_all[name] + late(name),
+            "max_abs_err": decay_bf16_errs[name],
+            "ms": k_ms,
+            "plain_ms": p_ms,
+            "bound_ms": bound,
+            "bound_by": by,
+            # the einsum form is several cuBLAS calls and elementwise passes,
+            # not one library call: reported in the timing phase, not here
+            "library_ms": None,
         })
     replaces = {"flash_attention_fwd": "tlie_tpu/ops/attention.py:49",
                 "flash_attention_bwd_dkv": "tlie_tpu/ops/attention.py:49",

@@ -77,9 +77,29 @@ for full in (MQAR_LIN_ATTENTION_FULL, MQAR_NORM_ATTENTION_CONV_FULL):
     am(x).sum().backward()
     assert extract_attention_family(am_eval, x, acfg).shape == (4, 15, 2, 2)
     assert Decoder(acfg, am_eval).generate(x[:, :8], 4).shape == (4, 12)
+from tlie_tpu_torch.parallel import check_stackable
+from tlie_tpu_torch.parallel.sweep import stacked_grads
+check_stackable(acfg)
+models = [build_models(acfg, generator=torch.Generator().manual_seed(s), device="cpu")[0]
+          for s in (1, 2)]
+params, buffers = torch.func.stack_module_state(models)
+grads, losses = stacked_grads(models[0], None)(
+    {{k: v.detach() for k, v in params.items()}}, buffers, x[None].expand(2, -1, -1),
+    y[None].expand(2, -1, -1))
+assert losses.shape == (2,) and grads["decoder.weight"].shape[0] == 2
+bcfg = dict(mcfg, compute_dtype="bfloat16")
+_, bm, _ = build_models(bcfg, generator=torch.Generator().manual_seed(0), device="cpu")
+with torch.no_grad():
+    assert bm(x).dtype == torch.bfloat16
 assert not any(m in sys.modules and sys.modules[m] is not None for m in {forbidden!r})
 print("ok", acc)
 """
+
+
+def test_the_scan_covers_every_package_of_the_port():
+    """parallel/ (the sweeps) is among the files scanned for imports."""
+    scanned = {p.relative_to(ROOT).parts[1] for p in PORT_FILES if p.parent != ROOT}
+    assert {"parallel", "ops", "models", "training", "analysis"} <= scanned
 
 
 def test_port_runs_with_jax_unimportable():

@@ -392,6 +392,72 @@ def test_decay_attention_autograd_and_the_ssd_go_through_the_kernels(cuda_device
         da.decay_attention(C, B, cs, x.transpose(2, 3).contiguous().transpose(2, 3))
 
 
+# bfloat16 operands: y, dC, dB and dxdt are rounded to bfloat16, and so are
+# the scores and dCB inside; the kernel and the plain version sum in float32
+# in other orders, so where a sum lands near a rounding midpoint the two may
+# round it one bfloat16 step apart (at most 2^-7 of the value), and a score
+# so rounded moves its terms by as much: each of those outputs within 2^-7
+# of (|value| + the sum of its terms' magnitudes), plus the float32 tolerance
+# above; dcs_i and dcs_j, float32 sums of float32 terms, within the float32
+# tolerance alone.  That band is wider than leaving out the rounding of the
+# score or of dCB would move an output, so at least BF16_EQUAL_SHARE of each
+# bfloat16 output must equal the plain version's bit for bit (chip_smoke.py
+# reads 0.9998-1.0000 on the card; the plain version without those two
+# roundings gives 0.60-0.64 against itself with them).
+BF16_STEP = 2.0 ** -7
+BF16_EQUAL_SHARE = 0.99
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("BG, Q, N, Hg, P, pad, x_offset", [
+    (4, 512, 128, 1, 128, 8, 0), (2, 1024, 512, 8, 64, 8, 0), (3, 77, 40, 3, 33, 7, 0),
+    (3, 200, 64, 2, 64, 5, 1), (2, 130, 136, 1, 160, 8, 0)],
+    ids=["mqar_like", "wikitext_bg2", "ragged", "unaligned", "ragged_n136_p160"])
+def test_decay_attention_bf16_kernels_through_autograd_match_plain(
+        cuda_device, BG, Q, N, Hg, P, pad, x_offset):
+    """The bfloat16 kernels through ``decay_attention``'s autograd against the
+    plain bfloat16 version (its forward and backward functions) on the card,
+    on the same bfloat16 inputs (cs float32): at the MQAR and WikiText Mamba-2 widths, at ragged
+    Q, N and P (Q 77 and 130 past a 64-row tile, N 40 and 136, P 33 and 160
+    past a 128-wide slice), and with C, xdt and dy unaligned (the kernels
+    then load them 2 bytes at a time).  Each launches once, counted under
+    its ``_bf16`` name, and the float32 counts stay."""
+    from tlie_tpu_torch.ops import decay_attention as da
+
+    _, B, cs, _, _ = _decay_inputs(cuda_device, BG, Q, N, Hg, P, seed=Q + 1)
+    g = torch.Generator(device=cuda_device).manual_seed(Q)
+    C = torch.randn(BG, Q, N + pad, device=cuda_device, generator=g).bfloat16()
+    C = C[:, :, pad // 2:pad // 2 + N]
+    B = B.bfloat16()
+    n = BG * Hg * Q * P
+    x, dy = (torch.randn(n + x_offset, device=cuda_device, generator=g).bfloat16()[x_offset:]
+             .view(BG, Hg, Q, P) for _ in range(2))
+    names = [da.launch_name(k, d) for k in ("fwd", "bwd_i", "bwd_j")
+             for d in (torch.float32, torch.bfloat16)]
+    before = {k: LAUNCHES[k] for k in names}
+    leaves = [t.detach().clone().requires_grad_() for t in (C, B, cs, x)]
+    y = da.decay_attention(*leaves)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    want_counts = {k: int(k.endswith("_bf16")) for k in names}
+    assert {k: LAUNCHES[k] - n for k, n in before.items()} == want_counts
+    got = (y, leaves[0].grad, leaves[2].grad, leaves[1].grad, leaves[3].grad)
+    assert [t.dtype for t in got] == [torch.bfloat16] * 2 + [torch.float32] + [torch.bfloat16] * 2
+    # the plain version's forward and its backward functions (not autograd
+    # through the plain forward, which would not round dCB)
+    dC, dcs_i, dB, dxdt, dcs_j = da.decay_attention_bwd_plain(C, B, cs, x, dy)
+    want = (da.decay_attention_plain(C, B, cs, x), dC, dcs_i + dcs_j, dB, dxdt)
+    sc = da.term_scales(C, B, cs, x, dy)  # (y, dC, dcs_i, dB, dxdt, dcs_j)
+    scales = (sc[0], sc[1], sc[2] + sc[5], sc[3], sc[4])
+    for a, b, scale in zip(got, want, scales):
+        assert a.dtype == b.dtype and a.shape == b.shape and bool(torch.isfinite(a).all())
+        tol = SSD_RTOL_OF_TERMS * scale + 1e-30
+        if b.dtype == torch.bfloat16:
+            tol = tol + BF16_STEP * (b.float().abs() + scale)
+            assert (a.detach() == b).float().mean().item() >= BF16_EQUAL_SHARE
+        assert bool(((a.detach().float() - b.float()).abs() <= tol).all())
+
+
 # -- the flash attention (csrc/flash_attention.cu) -------------------------------
 
 ATTN_RTOL_OF_TERMS = 1e-5  # plus attention.logit_rtol, of the sum of the terms' magnitudes

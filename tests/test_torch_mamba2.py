@@ -339,7 +339,8 @@ def test_registry_refuses_what_is_not_ported(small):
     g = torch.Generator()
     for bad, err in (({"version": "mamba1"}, NotImplementedError),
                      ({"pseudoLTI": True}, NotImplementedError),
-                     ({"compute_dtype": "bfloat16"}, NotImplementedError),
+                     ({"layer": "transformer", "compute_dtype": "bfloat16"},
+                      NotImplementedError),
                      ({"pooling": "mean"}, NotImplementedError),
                      ({"dropout": 0.1}, NotImplementedError),
                      ({"token_embedding": False}, NotImplementedError)):

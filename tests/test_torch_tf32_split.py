@@ -587,8 +587,14 @@ def test_decay_emulation_follows_the_kernel_source():
     # call in each kernel, both warp groups of a backward kernel run it) over
     # their depth steps, the second products (bwd_j's dB and dx, bwd_i's dC:
     # again one call each) over a tile's KT of j or i, in tf32_mma.cuh; the
-    # forward's S x, over a tile's KT of j, in the kernel itself
-    assert src.count("product_nt32<k") == 3 and src.count("product_64<kDLd, kTLd>(") == 2
+    # forward's S x, over a tile's KT of j, in the kernel itself.  The calls
+    # go through first_product and second_product, which take the float32
+    # operands' product_nt32 and product_64 (and the bf16 ones' their own,
+    # tests/test_torch_bf16_tiles.py)
+    assert src.count("first_product<T, k") == 3
+    assert src.count("second_product<T, kDLd, kTLd>(") == 2
+    assert src.count("product_nt32<kLd>(acc, a, bm);") == 1
+    assert src.count("product_64<kALd, kVLd>(acc, a, v);") == 1
     assert shared.count("for (int k0 = 0; k0 < kStep; k0 += kFresh) {") == 1
     assert shared.count("for (int k0 = 0; k0 < kT; k0 += kFresh) {") == 1
     assert src.count("for (int k0 = 0; k0 < kT; k0 += kFresh) {") == 1

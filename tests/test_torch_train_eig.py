@@ -136,9 +136,13 @@ def test_launch_trains_and_analyses_on_the_cpu(tmp_path):
     assert np.load(tmp_path / "analysis_results" / run / "eig.npy").shape == (64, 2)
 
 
-def test_launch_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
+def test_launch_needs_a_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         launch.main(["--config", SMALL_YAML])
-    with pytest.raises(NotImplementedError, match="sweeps"):
-        launch.main(["--config", SMALL_YAML, "--sweep", "--device", "cpu"])
+    # the stacked sweep refuses the LRU, whose scan kernels have no vmap rule
+    sweep = tmp_path / "sweep.yaml"
+    sweep.write_text(yaml.safe_dump({"base_config": str(ROOT / SMALL_YAML),
+                                     "sweep": {"seed": [1919, 2222]}}))
+    with pytest.raises(NotImplementedError, match="the lru family"):
+        launch.main(["--config", str(sweep), "--sweep_parallel", "--device", "cpu"])

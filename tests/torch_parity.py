@@ -96,3 +96,64 @@ def jax_sparse_loss(model, k):
         y_sel = jnp.take_along_axis(y, pos, axis=1)
         return scan_loop.cross_entropy_loss(f_sel @ params["decoder"]["kernel"], y_sel)
     return loss
+
+
+# -- rehearsing chip_smoke.py on the CPU ---------------------------------------------
+
+ARTIFACT_FILES = sorted([f"{k}.npy" for k in (
+    "eig", "eig_init", "percentage", "percentage_init", "percentage_phase",
+    "percentage_phase_init", "percentage_mean", "percentage_init_mean", "percentage_std",
+    "percentage_init_std")] + ["percentage_file.txt", "used_config.yaml"])
+
+
+def load_chip_smoke():
+    """``chip_smoke.py`` as a module, for rehearsing its paths on the CPU."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+def stub_card(monkeypatch, cs, decay_kernels: bool = False):
+    """The card's timers and profiler stubbed for a CPU rehearsal of
+    ``chip_smoke`` (CUDA events that time nothing, a profiler that sees no
+    device time), every launch count set to 0; with ``decay_kernels`` the
+    decay attention's routing forced to its ``*_cuda`` wrappers, which run
+    the plain versions and count their launches under the kernels' names."""
+    from tlie_tpu_torch.ops import LAUNCHES
+    from tlie_tpu_torch.ops import decay_attention as da
+
+    class Event:
+        def __init__(self, **kw):
+            pass
+
+        def record(self):
+            pass
+
+        def elapsed_time(self, other):
+            return 1.0
+
+    for name, stub in (("synchronize", lambda *a, **k: None), ("Event", Event),
+                       ("_sleep", lambda *a: None), ("empty_cache", lambda: None)):
+        monkeypatch.setattr(torch.cuda, name, stub)
+    for key in LAUNCHES:
+        monkeypatch.setitem(LAUNCHES, key, 0)
+    monkeypatch.setattr(cs, "top_device_ops", lambda fn, k=6: (fn(), [])[1])
+    if not decay_kernels:
+        return
+
+    def counting(kernel, plain):
+        def run(*args):
+            LAUNCHES[da.launch_name(kernel, args[3].dtype)] += 1
+            return plain(*args)
+        return run
+
+    monkeypatch.setattr(da, "_on_cuda", lambda t: True)
+    for kernel, plain in (("fwd", da.decay_attention_plain),
+                          ("bwd_i", da.decay_attention_bwd_i_plain),
+                          ("bwd_j", da.decay_attention_bwd_j_plain)):
+        monkeypatch.setattr(da, f"decay_attention_{kernel}_cuda", counting(kernel, plain))

@@ -8,6 +8,12 @@ Module and parameter names are the reference's torch names, so a port
 ``state_dict`` maps onto the flax tree through
 ``tlie_tpu/analysis/compat.py::torch_state_dict_to_flax`` and through
 :mod:`tlie_tpu_torch.compat`.
+
+``compute_dtype`` (``Linear``, ``TokenEmbeddings``, ``DepthwiseCausalConv``)
+is flax's ``dtype=`` of the same module: None computes in the parameters'
+dtype; ``torch.bfloat16`` casts the input and the parameters to bfloat16 and
+computes there, while the parameters stay float32 (``model.compute_dtype:
+bfloat16``).
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.conv import depthwise_causal_conv1d
@@ -37,8 +44,25 @@ def torch_linear_init(lin: nn.Linear, generator: torch.Generator) -> nn.Linear:
     return lin
 
 
-def linear(d_in: int, d_out: int, generator: torch.Generator, bias: bool = True) -> nn.Linear:
-    return torch_linear_init(nn.Linear(d_in, d_out, bias=bias), generator)
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in ``compute_dtype`` where one is set (flax
+    ``Dense(dtype=...)``): x, the weight and the bias cast to it."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+def linear(d_in: int, d_out: int, generator: torch.Generator, bias: bool = True,
+           compute_dtype: Optional[torch.dtype] = None) -> Linear:
+    lin = torch_linear_init(Linear(d_in, d_out, bias=bias), generator)
+    lin.compute_dtype = compute_dtype
+    return lin
 
 
 def torch_embed_init(emb: nn.Embedding, generator: torch.Generator) -> nn.Embedding:
@@ -51,10 +75,11 @@ def torch_embed_init(emb: nn.Embedding, generator: torch.Generator) -> nn.Embedd
 class GLU(nn.Module):
     """x ↦ a · σ(b) from one width-2d projection ``linear`` (``GLU``)."""
 
-    def __init__(self, d: int, generator: torch.Generator):
+    def __init__(self, d: int, generator: torch.Generator,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.d = d
-        self.linear = linear(d, 2 * d, generator)
+        self.linear = linear(d, 2 * d, generator, compute_dtype=compute_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.linear(x)
@@ -69,19 +94,27 @@ class TokenEmbeddings(nn.Module):
     gather fills NaN there."""
 
     def __init__(self, embed_dim: int, vocab_size: int, generator: torch.Generator,
-                 max_position_embeddings: int = 0):
+                 max_position_embeddings: int = 0, compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.word_embeddings = torch_embed_init(nn.Embedding(vocab_size, embed_dim), generator)
         self.position_embeddings = (
             torch_embed_init(nn.Embedding(max_position_embeddings, embed_dim), generator)
             if max_position_embeddings > 0 else None)
+        self.compute_dtype = compute_dtype
+
+    def _embed(self, table: nn.Embedding, ids: torch.Tensor) -> torch.Tensor:
+        """Rows of the table, cast to ``compute_dtype`` first as flax's
+        ``Embed(dtype=...)`` casts its table."""
+        if self.compute_dtype is None:
+            return table(ids)
+        return F.embedding(ids, table.weight.to(self.compute_dtype))
 
     def forward(self, input_ids: torch.Tensor, position_ids=None) -> torch.Tensor:
-        emb = self.word_embeddings(input_ids)
+        emb = self._embed(self.word_embeddings, input_ids)
         if self.position_embeddings is not None:
             if position_ids is None:
                 position_ids = torch.arange(input_ids.shape[-1], device=input_ids.device)
-            emb = emb + self.position_embeddings(position_ids)
+            emb = emb + self._embed(self.position_embeddings, position_ids)
         return emb
 
 
@@ -104,8 +137,14 @@ class Dropout(nn.Module):
         if self.rate == 1.0:
             return torch.zeros_like(x)
         keep = 1.0 - self.rate
-        mask = torch.empty(self.mask_shape(x), device=x.device, dtype=x.dtype)
-        mask.bernoulli_(keep, generator=self.generator)
+        if self.generator is None:
+            # out of place, so that under torch.func.vmap(randomness="different")
+            # each point of a stacked grid draws its own mask
+            mask = torch.bernoulli(torch.full(self.mask_shape(x), keep, device=x.device,
+                                              dtype=x.dtype))
+        else:
+            mask = torch.empty(self.mask_shape(x), device=x.device, dtype=x.dtype)
+            mask.bernoulli_(keep, generator=self.generator)
         return x * mask / keep
 
 
@@ -115,11 +154,16 @@ class DepthwiseCausalConv(nn.Module):
     ``nn.Conv1d(groups=C)``'s layout: ``weight`` (C, 1, K), ``bias`` (C,),
     both U(±1/√K) as torch's default."""
 
-    def __init__(self, dim: int, kernel_size: int, generator: torch.Generator):
+    def __init__(self, dim: int, kernel_size: int, generator: torch.Generator,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         k = 1.0 / math.sqrt(kernel_size)
         self.weight = nn.Parameter(uniform_(torch.empty(dim, 1, kernel_size), k, generator))
         self.bias = nn.Parameter(uniform_(torch.empty(dim), k, generator))
+        self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return depthwise_causal_conv1d(x, self.weight, self.bias)
+        dt = self.compute_dtype
+        if dt is None:
+            return depthwise_causal_conv1d(x, self.weight, self.bias)
+        return depthwise_causal_conv1d(x.to(dt), self.weight.to(dt), self.bias.to(dt))

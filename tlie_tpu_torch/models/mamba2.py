@@ -10,10 +10,21 @@ the hand-written decay-attention kernels on the card) with the D skip, and
 ``blocks.{i}.norm.weight``, ...).
 
 Weights are drawn from an explicit ``torch.Generator`` with the reference's
-distributions; JAX's draws cannot be reproduced.  Not ported yet, and
-refused: ``version: mamba1`` and ``pseudoLTI: true`` (the pseudo-LTI
-``SSD_LTI``), dropout (every Mamba-2 config sets 0), the dense input encoder
-(``token_embedding: false``), the pooled and dual heads, bf16.
+distributions; JAX's draws cannot be reproduced.
+
+``model.compute_dtype: bfloat16`` follows ``tlie_tpu``'s mixed precision
+(``Mamba`` passes ``dtype=bfloat16`` to the modules below): the token
+embedding, ``in_proj``, the conv, ``out_proj``, the GLU's projection and the
+decoder compute in bfloat16 on casts of their float32 parameters, and so do
+the activations between them, the residual stream included (flax's
+promotion keeps bf16 + bf16 in bf16); the LayerNorms compute in float32 and
+return float32, dt = softplus(dt + dt_bias) and the decay math stay float32,
+and the chunked scan takes bfloat16 operands (:mod:`tlie_tpu_torch.ops.ssd`).
+The logits are bfloat16; the loss reduces them in float32.
+
+Not ported yet, and refused: ``version: mamba1`` and ``pseudoLTI: true``
+(the pseudo-LTI ``SSD_LTI``), dropout (every Mamba-2 config sets 0), the
+dense input encoder (``token_embedding: false``), the pooled and dual heads.
 """
 
 from __future__ import annotations
@@ -49,7 +60,7 @@ class SSD(nn.Module):
     def __init__(self, d_model: int, generator: torch.Generator, d_state: int = 64,
                  d_conv: int = 4, expand: int = 1, headdim: int = 32, ngroups: int = 1,
                  dt_limit=(0.0, float("inf")), learnable_init_states: bool = False,
-                 chunk_size: Optional[int] = None):
+                 chunk_size: Optional[int] = None, compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.d_inner = expand * d_model
         self.nheads = self.d_inner // headdim
@@ -58,22 +69,23 @@ class SSD(nn.Module):
         conv_dim = self.d_inner + 2 * ngroups * d_state
         g = generator
         # draw order follows the flax module; in_proj and out_proj have no bias
-        self.in_proj = linear(d_model, conv_dim + self.nheads, g, bias=False)
+        self.in_proj = linear(d_model, conv_dim + self.nheads, g, bias=False,
+                              compute_dtype=compute_dtype)
         self.dt_bias = nn.Parameter(_dt_bias_init(self.nheads, g))
         lo, hi = A_INIT
         self.A_log = nn.Parameter(torch.log(lo + (hi - lo) * torch.rand(self.nheads, generator=g)))
         self.D = nn.Parameter(torch.ones(self.nheads))
-        self.conv1d = DepthwiseCausalConv(conv_dim, d_conv, g)
+        self.conv1d = DepthwiseCausalConv(conv_dim, d_conv, g, compute_dtype=compute_dtype)
         self.init_states = (nn.Parameter(torch.zeros(self.nheads, headdim, d_state))
                             if learnable_init_states else None)
-        self.out_proj = linear(self.d_inner, d_model, g, bias=False)
+        self.out_proj = linear(self.d_inner, d_model, g, bias=False, compute_dtype=compute_dtype)
 
     def forward(self, u: torch.Tensor) -> torch.Tensor:
         d_inner, gn = self.d_inner, self.ngroups * self.d_state
         xbcdt = self.in_proj(u)
         conv_dim = d_inner + 2 * gn
         xBC, dt = xbcdt[..., :conv_dim], xbcdt[..., conv_dim:]
-        dt = F.softplus(dt + self.dt_bias)  # (B, L, nheads)
+        dt = F.softplus(dt + self.dt_bias)  # (B, L, nheads); float32 beside a bf16 xbcdt
         xBC = F.silu(self.conv1d(xBC))
         x = xBC[..., :d_inner]
         B_mat = xBC[..., d_inner : d_inner + gn]
@@ -97,7 +109,8 @@ class MambaBlock(nn.Module):
     (``MambaBlock``), with flax's LayerNorm (eps 1e-5, biased variance, the
     same as ``nn.LayerNorm``) and the exact erf GELU."""
 
-    def __init__(self, cfg: Dict[str, Any], generator: torch.Generator):
+    def __init__(self, cfg: Dict[str, Any], generator: torch.Generator,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         if cfg["version"] != "mamba2":
             if cfg["version"] == "mamba1":
@@ -117,20 +130,25 @@ class MambaBlock(nn.Module):
             ngroups=cfg.get("ngroups", 1), chunk_size=cfg.get("chunk_size"),
             dt_limit=tuple(cfg.get("dt_limit", (0.0, float("inf")))),
             learnable_init_states=cfg.get("learnable_init_states", False),
+            compute_dtype=compute_dtype,
         )
-        self.glu = GLU(hidden, generator) if cfg["glu"] else None
+        self.glu = GLU(hidden, generator, compute_dtype) if cfg["glu"] else None
         self.norm = nn.LayerNorm(hidden, eps=1e-5)
+
+    def _norm(self, x: torch.Tensor) -> torch.Tensor:
+        """flax's LayerNorm: statistics and output at least float32."""
+        return self.norm(x.to(torch.promote_types(x.dtype, torch.float32)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         skip = x
         if self.prenorm:
-            x = self.norm(x)
+            x = self._norm(x)
         x = F.gelu(self.mamba(x))
         if self.glu is not None:
             x = self.glu(x)
         x = x + skip
         if not self.prenorm:
-            x = self.norm(x)
+            x = self._norm(x)
         return x
 
 
@@ -146,9 +164,11 @@ class Mamba(nn.Module):
             raise NotImplementedError("the dense input encoder (token_embedding: false) "
                                       "is not ported yet")
         hidden = cfg["hidden_dim"]
-        self.encoder = TokenEmbeddings(hidden, cfg["vocab_size"], generator)
-        self.blocks = nn.ModuleList(MambaBlock(cfg, generator) for _ in range(cfg["num_layers"]))
-        self.decoder = linear(hidden, cfg["output_dim"], generator)
+        dtype = torch.bfloat16 if cfg.get("compute_dtype") == "bfloat16" else None
+        self.encoder = TokenEmbeddings(hidden, cfg["vocab_size"], generator, compute_dtype=dtype)
+        self.blocks = nn.ModuleList(MambaBlock(cfg, generator, dtype)
+                                    for _ in range(cfg["num_layers"]))
+        self.decoder = linear(hidden, cfg["output_dim"], generator, compute_dtype=dtype)
 
     def features(self, x: torch.Tensor) -> torch.Tensor:
         """Backbone features before the decoder (``features``)."""

@@ -36,8 +36,13 @@ def build_models(model_config: Dict[str, Any], *, generator: torch.Generator,
         if layer in MODEL_FAMILIES:
             raise NotImplementedError(f"model family {layer!r} is not ported yet")
         raise RuntimeError(f"{layer} is not a valid model option")
-    if model_config.get("compute_dtype", "float32") != "float32":
-        raise NotImplementedError("bf16 mixed precision is not ported yet")
+    compute_dtype = model_config.get("compute_dtype", "float32")
+    if compute_dtype not in ("float32", "bfloat16"):
+        raise NotImplementedError(f"compute_dtype {compute_dtype!r} is not ported")
+    if compute_dtype == "bfloat16" and layer != "mamba":
+        raise NotImplementedError(
+            f"compute_dtype: bfloat16 is ported for layer: mamba only, not {layer!r} "
+            "(ROADMAP Queue 1 item 7: bf16 for the lru and transformer families)")
     dev = resolve_device(device)
     family = {"lru": _lru_model, "mamba": Mamba, "transformer": Transformer}[layer]
     model = family(model_config, generator).to(dev)

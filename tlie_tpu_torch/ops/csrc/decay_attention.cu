@@ -1,4 +1,4 @@
-// SSD intra-chunk decay attention, float32, and its gradient:
+// SSD intra-chunk decay attention, on float32 or bfloat16 operands, and its gradient:
 //
 //   y[bg,h,i,:] = sum_{j<=i} (C[bg,i,:] . B[bg,j,:]) * exp(cs[bg,h,i] - cs[bg,h,j]) * x[bg,h,j,:]
 //
@@ -9,6 +9,7 @@
 //   tlie_decay_attention_fwd_f32   <- _fwd (pallas_call at :252, body _fwd_kernel)
 //   tlie_decay_attention_bwd_i_f32 <- the pallas_call at :272 (_bwd_i_kernel): dC, +dcs_i
 //   tlie_decay_attention_bwd_j_f32 <- the pallas_call at :293 (_bwd_j_kernel): dB, dx, -dcs_j
+// and tlie_decay_attention_{fwd,bwd_i,bwd_j}_bf16, the same on bfloat16 operands (below).
 // What they compute is carried over, not their blocks.
 //
 // Layout. C and B are (BG, Q, N) with the last dimension contiguous and any
@@ -102,13 +103,181 @@
 // 75,776 bytes of dynamic shared memory, two blocks an SM; bwd_j 254
 // registers, 194,560 bytes, and bwd_i 216 registers, 176,128 bytes, one
 // block of 8 warps an SM; no spills.
+//
+// bfloat16 operands (tlie_decay_attention_*_bf16, the same three kernels
+// instantiated on T = __nv_bfloat16): C, B, x, dy, y, dC, dB and dx are
+// bfloat16, cs, dcs_i and dcs_j float32. They compute what the Pallas kernels
+// compute on bfloat16 operands: C.B accumulated in float32; the score
+// S = C.B * decay rounded to bfloat16 before S x (forward) and S^T dy (bwd_j);
+// dS = dy x^T in float32, dcs from dS * decay * C.B in float32; dCB = the sum
+// over heads of dS * decay rounded to bfloat16 before dCB B (bwd_i) and
+// dCB^T C (bwd_j); y, dC, dB and dx rounded to bfloat16 once, from their
+// float32 sums. Every operand of a product is then a bfloat16 value, whose
+// product is exact in float32: each product is one mma.sync m16n8k16 on
+// bfloat16 fragments (float32 accumulators) in place of three TF32 ones, 16
+// deep into a fresh sum before the float32 add. The tiles are read from
+// device memory into the same float32 shared-memory tiles (converted as they
+// land, by ordinary loads: cp.async copies bytes and cannot convert), and
+// packed into bfloat16 pairs as each fragment is read. ptxas (CUDA 12.8): the
+// forward 232 registers, bwd_j 244 and bwd_i 248, no spills; the shared
+// memory and launch bounds are the float32 kernels'.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
 
 #include "tf32_mma.cuh"
 
 namespace {
+
+// -- bfloat16 operands -------------------------------------------------------------
+
+template <class T>
+constexpr bool kBf16 = false;
+template <>
+constexpr bool kBf16<__nv_bfloat16> = true;
+
+// v rounded as the operand type holds it: to bfloat16, to nearest even (the
+// Pallas kernels' astype), where T is bfloat16; unchanged for float32.
+template <class T>
+__device__ __forceinline__ float round_as(float v) {
+  if constexpr (kBf16<T>)
+    return __bfloat162float(__float2bfloat16_rn(v));
+  else
+    return v;
+}
+
+__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// the bfloat16 pair (lo, hi) in one register, lo in the low half, as an mma
+// fragment holds two neighbouring elements; exact for bfloat16 values
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// c += a · b for one 16 x 8 x 16 fragment (PTX "mma.m16n8k16", .bf16): with
+// g = lane / 4 and t = lane % 4 the lane's depth slots are 2t, 2t + 1, 2t + 8
+// and 2t + 9 of rows g and g + 8 of A and of column g of B.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// depth of one fresh bfloat16 tensor-core sum (one m16n8k16) before its float32 add
+constexpr int kFreshBf16 = 16;
+
+// One depth-16 step of a warp's 16 x (8 kNT) tile on bfloat16 values:
+// a(m, t) returns row m's four values at the lane's depth slots (which
+// depths they are is the caller's choice, the same for both operands), b(n, t)
+// column n's at the same depths; each pair is packed as it is read.
+template <int kNT, class A, class B>
+__device__ __forceinline__ void mma_step_bf16(float (&c)[1][kNT][4], A a, B b) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const float4 lo = a(g, t), hi = a(g + 8, t);
+  const uint32_t af[4] = {pack_bf16(lo.x, lo.y), pack_bf16(hi.x, hi.y), pack_bf16(lo.z, lo.w),
+                          pack_bf16(hi.z, hi.w)};
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) {
+    const float4 v = b(8 * j + g, t);
+    const uint32_t bf[2] = {pack_bf16(v.x, v.y), pack_bf16(v.z, v.w)};
+    mma_bf16(c[0][j], af, bf);
+  }
+}
+
+// product_64 on bfloat16 values: acc += the warp's 16 rows of A times the
+// 64-deep tile V, 16 deep a fresh sum; a lane's depths are t, t + 4, t + 8 and
+// t + 12 of each 16, read at the strides product_64 reads.
+template <int kALd, int kVLd>
+__device__ __forceinline__ void product_64_bf16(float (&acc)[8][4], const float* a,
+                                                const float* v) {
+#pragma unroll 1
+  for (int kk = 0; kk < kT; kk += kFreshBf16) {
+    float c[1][8][4];
+    zero_frags(c);
+    mma_step_bf16<8>(
+        c,
+        [&](int mm, int t) {
+          const float* row = a + mm * kALd + kk + t;
+          return make_float4(row[0], row[4], row[8], row[12]);
+        },
+        [&](int n, int t) {
+          const float* col = v + (kk + t) * kVLd + n;
+          return make_float4(col[0], col[4 * kVLd], col[8 * kVLd], col[12 * kVLd]);
+        });
+    add_frags(acc, c);
+  }
+}
+
+// product_nt32 on bfloat16 values: acc += kStep deep of A Bm^T, 16 deep a
+// fresh sum, a lane's depths 4t to 4t + 3 of each 16, read as a float4.
+template <int kLd>
+__device__ __forceinline__ void product_nt32_bf16(float (&acc)[8][4], const float* a,
+                                                  const float* bm) {
+#pragma unroll
+  for (int kk = 0; kk < kStep; kk += kFreshBf16) {
+    float c[1][8][4];
+    zero_frags(c);
+    mma_step_bf16<8>(
+        c,
+        [&](int mm, int t) { return *reinterpret_cast<const float4*>(a + mm * kLd + kk + 4 * t); },
+        [&](int n, int t) {
+          return *reinterpret_cast<const float4*>(bm + n * kLd + kk + 4 * t);
+        });
+    add_frags(acc, c);
+  }
+}
+
+// The first and second products of the kernels, on the operand type's tensor cores.
+template <class T, int kLd>
+__device__ __forceinline__ void first_product(float (&acc)[8][4], const float* a, const float* bm) {
+  if constexpr (kBf16<T>)
+    product_nt32_bf16<kLd>(acc, a, bm);
+  else
+    product_nt32<kLd>(acc, a, bm);
+}
+
+template <class T, int kALd, int kVLd>
+__device__ __forceinline__ void second_product(float (&acc)[8][4], const float* a,
+                                               const float* v) {
+  if constexpr (kBf16<T>)
+    product_64_bf16<kALd, kVLd>(acc, a, v);
+  else
+    product_64<kALd, kVLd>(acc, a, v);
+}
+
+// copy_tile for a bfloat16 source: the same tile into the same float32
+// layout, converted on the way by ordinary loads (done on return). 8 bytes a
+// load where `vec` (cols, the strides and the base multiples of 4 elements),
+// else 2.
+template <int kLd, int kWidth>
+__device__ __forceinline__ void copy_tile(float* dst, const __nv_bfloat16* src, int64_t ld,
+                                          int64_t rows, int64_t cols, bool vec,
+                                          const __nv_bfloat16*, int tid, int n) {
+  if (vec) {
+    for (int e = tid; e < kT * kWidth / 4; e += n) {
+      const int r = e / (kWidth / 4), c = 4 * (e % (kWidth / 4));
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < rows && c < cols) {
+        const uint2 raw = *reinterpret_cast<const uint2*>(src + r * ld + c);
+        const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+        const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+        v = make_float4(lo.x, lo.y, hi.x, hi.y);
+      }
+      *reinterpret_cast<float4*>(dst + r * kLd + c) = v;
+    }
+  } else {
+    for (int e = tid; e < kT * kWidth; e += n) {
+      const int r = e / kWidth, c = e % kWidth;
+      dst[r * kLd + c] = r < rows && c < cols ? __bfloat162float(src[r * ld + c]) : 0.f;
+    }
+  }
+}
 
 struct Dims {
   int64_t Q, N, Hg, P;
@@ -162,10 +331,11 @@ static_assert((kFwdThreads / 32) * 16 == kT, "4 warps of 16 rows");
 // (g, t4) holds rows 16w + g and 16w + g + 8 of each C fragment, columns
 // 8n + 2t4 and 8n + 2t4 + 1. The walk is a sequence of depth steps, nk to a
 // j-tile; step q lands in ring stage q % 2 while step q - 1 is multiplied.
+template <class T>
 __global__ void __launch_bounds__(kFwdThreads, 2)
-decay_attention_fwd_kernel(const float* __restrict__ C, const float* __restrict__ B,
-                           const float* __restrict__ cs, const float* __restrict__ x,
-                           float* __restrict__ y, Dims d) {
+decay_attention_fwd_kernel(const T* __restrict__ C, const T* __restrict__ B,
+                           const float* __restrict__ cs, const T* __restrict__ x,
+                           T* __restrict__ y, Dims d) {
   extern __shared__ __align__(16) float smem[];
   float* ring = smem;                  // [2][C_i rows | B_j rows of a depth step]
   float* xs = ring + 2 * kStepFloats;  // [kT][kXLd]: x_j, a 64-column half for each half
@@ -178,11 +348,12 @@ decay_attention_fwd_kernel(const float* __restrict__ C, const float* __restrict_
   const Slab sl = slab_of(blockIdx.x % n_slabs, d);
   const bool two = d.P <= kT;  // the halves are two heads, each with its own S
   const int64_t i0 = static_cast<int64_t>(gridDim.y - 1 - blockIdx.y) * kT;
-  const float* Ci = C + bg * d.c_bs + i0 * d.c_ld;
-  const float* Bb = B + bg * d.b_bs;
+  const T* Ci = C + bg * d.c_bs + i0 * d.c_ld;
+  const T* Bb = B + bg * d.b_bs;
   const bool vec_cb = (d.N | d.c_bs | d.c_ld | d.b_bs | d.b_ld) % 4 == 0 &&
-                      (reinterpret_cast<uintptr_t>(C) | reinterpret_cast<uintptr_t>(B)) % 16 == 0;
-  const bool vec_x = d.P % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+                      (reinterpret_cast<uintptr_t>(C) | reinterpret_cast<uintptr_t>(B)) %
+                              (4 * sizeof(T)) == 0;
+  const bool vec_x = d.P % 4 == 0 && reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T)) == 0;
   const int nk = static_cast<int>((d.N + kStep - 1) / kStep);
   const int n_j = static_cast<int>(i0 / kT) + 1;
   const int total = n_j * nk;
@@ -237,7 +408,7 @@ decay_attention_fwd_kernel(const float* __restrict__ C, const float* __restrict_
         load_cs_halves(j0, cs_j);
       }
       const float* st = ring + (q & 1) * kStepFloats;
-      product_nt32<kStepLd>(s[0], st + r0 * kStepLd, st + kT * kStepLd);
+      first_product<T, kStepLd>(s[0], st + r0 * kStepLd, st + kT * kStepLd);
     }
     const int q_last = jt * nk + nk - 1;
     __syncthreads();  // every warp is past its reads of the last step: its stage takes the S slices
@@ -255,8 +426,9 @@ decay_attention_fwd_kernel(const float* __restrict__ C, const float* __restrict_
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int lj = 8 * n + 2 * t4 + e;
-            v[e] = j0 + lj <= i && i < d.Q ? s[0][n][2 * hh + e] * expf(ci - cs_j[hf * kT + lj])
-                                          : 0.f;
+            v[e] = j0 + lj <= i && i < d.Q
+                       ? round_as<T>(s[0][n][2 * hh + e] * expf(ci - cs_j[hf * kT + lj]))
+                       : 0.f;
           }
           *reinterpret_cast<float2*>(&ss[(g + 8 * hh) * kSLd + 8 * n + 2 * t4]) =
               make_float2(v[0], v[1]);
@@ -275,22 +447,40 @@ decay_attention_fwd_kernel(const float* __restrict__ C, const float* __restrict_
         write_s(1);
         __syncwarp();
       }
+      if constexpr (kBf16<T>) {
 #pragma unroll 1
-      for (int k0 = 0; k0 < kT; k0 += kFresh) {
-        float c[1][8][4];
-        zero_frags(c);
-#pragma unroll
-        for (int kk = k0; kk < k0 + kFresh; kk += 8)
-          mma_step_3xtf32<1, 8>(
+        for (int kk = 0; kk < kT; kk += kFreshBf16) {
+          float c[1][8][4];
+          zero_frags(c);
+          mma_step_bf16<8>(
               c,
               [&](int mm, int t) {
-                return *reinterpret_cast<const float2*>(&ss[mm * kSLd + kk + 2 * t]);
+                return *reinterpret_cast<const float4*>(&ss[mm * kSLd + kk + 4 * t]);
               },
               [&](int n, int t) {
-                const float* col = xs + (kk + 2 * t) * kXLd + hf * kT + n;
-                return make_float2(col[0], col[kXLd]);
+                const float* col = xs + (kk + 4 * t) * kXLd + hf * kT + n;
+                return make_float4(col[0], col[kXLd], col[2 * kXLd], col[3 * kXLd]);
               });
-        add_frags(acc[hf], c);
+          add_frags(acc[hf], c);
+        }
+      } else {
+#pragma unroll 1
+        for (int k0 = 0; k0 < kT; k0 += kFresh) {
+          float c[1][8][4];
+          zero_frags(c);
+#pragma unroll
+          for (int kk = k0; kk < k0 + kFresh; kk += 8)
+            mma_step_3xtf32<1, 8>(
+                c,
+                [&](int mm, int t) {
+                  return *reinterpret_cast<const float2*>(&ss[mm * kSLd + kk + 2 * t]);
+                },
+                [&](int n, int t) {
+                  const float* col = xs + (kk + 2 * t) * kXLd + hf * kT + n;
+                  return make_float2(col[0], col[kXLd]);
+                });
+          add_frags(acc[hf], c);
+        }
       }
     }
   }
@@ -302,13 +492,13 @@ decay_attention_fwd_kernel(const float* __restrict__ C, const float* __restrict_
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       if (sl.cols[hf] == 0) continue;
-      float* yr = y + ((bg * d.Hg + sl.head[hf]) * d.Q + i) * d.P + sl.off[hf];
+      T* yr = y + ((bg * d.Hg + sl.head[hf]) * d.Q + i) * d.P + sl.off[hf];
 #pragma unroll
       for (int n = 0; n < 8; ++n)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = 8 * n + 2 * t4 + e;
-          if (col < sl.cols[hf]) yr[col] = acc[hf][n][2 * hh + e];
+          if (col < sl.cols[hf]) store_as(yr + col, acc[hf][n][2 * hh + e]);
         }
     }
   }
@@ -335,11 +525,12 @@ constexpr int kBwdSmemFloats = 4 * kT * kTLd + kT * kCBLd + 2 * kT * kDLd + 8 * 
 // the ceil(N / 128) 128-wide chunks of N, group A each head's dS^T over the
 // ceil(P / 128) chunks of P (starting late enough that CB^T is published
 // before it needs it for dcs_j); then each group's second product.
+template <class T>
 __global__ void __launch_bounds__(kBwdThreads, 1)
-decay_attention_bwd_j_kernel(const float* __restrict__ C, const float* __restrict__ B,
-                             const float* __restrict__ cs, const float* __restrict__ x,
-                             const float* __restrict__ dy, float* __restrict__ dB,
-                             float* __restrict__ dx, float* __restrict__ dcs_j, Dims d) {
+decay_attention_bwd_j_kernel(const T* __restrict__ C, const T* __restrict__ B,
+                             const float* __restrict__ cs, const T* __restrict__ x,
+                             const T* __restrict__ dy, T* __restrict__ dB,
+                             T* __restrict__ dx, float* __restrict__ dcs_j, Dims d) {
   extern __shared__ __align__(16) float smem[];
   float* tb = smem;              // B_j: a 128-wide chunk of N
   float* tc = tb + kT * kTLd;    // C_i: the same chunk; group A's N-slice for dB
@@ -370,14 +561,16 @@ decay_attention_bwd_j_kernel(const float* __restrict__ C, const float* __restric
   // B_j, and x_j, stay put across the i-tiles; then the C_i and dy_i of the
   // step are also the second products' operands
   const bool one_n = nN == 1, one_p = a_steps == 1;
-  const float* Cb = C + bg * d.c_bs;
-  const float* Bj = B + bg * d.b_bs + j0 * d.b_ld;
-  const float* xb = x + bg * d.Hg * d.Q * d.P;
-  const float* dyb = dy + bg * d.Hg * d.Q * d.P;
+  const T* Cb = C + bg * d.c_bs;
+  const T* Bj = B + bg * d.b_bs + j0 * d.b_ld;
+  const T* xb = x + bg * d.Hg * d.Q * d.P;
+  const T* dyb = dy + bg * d.Hg * d.Q * d.P;
   const bool vec_cb = (d.N | d.c_bs | d.c_ld | d.b_bs | d.b_ld) % 4 == 0 &&
-                      (reinterpret_cast<uintptr_t>(C) | reinterpret_cast<uintptr_t>(B)) % 16 == 0;
+                      (reinterpret_cast<uintptr_t>(C) | reinterpret_cast<uintptr_t>(B)) %
+                              (4 * sizeof(T)) == 0;
   const bool vec_p = d.P % 4 == 0 &&
-                     (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(dy)) % 16 == 0;
+                     (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(dy)) %
+                             (4 * sizeof(T)) == 0;
 
   float acc[2][8][4];  // dB (group A) or dx (group B) of the thread's two rows, by half
 #pragma unroll
@@ -391,7 +584,7 @@ decay_attention_bwd_j_kernel(const float* __restrict__ C, const float* __restric
 
   for (int64_t i0 = j0; i0 < d.Q; i0 += kT) {
     const bool first = i0 == j0;
-    const float* Ci = Cb + i0 * d.c_ld;
+    const T* Ci = Cb + i0 * d.c_ld;
     if (grp_b && b_on) {  // cs of the slab's heads, rows j and i
       for (int e = gtid; e < 4 * kT; e += 128) {
         const int hf = e / (2 * kT), r = e % kT;
@@ -409,8 +602,8 @@ decay_attention_bwd_j_kernel(const float* __restrict__ C, const float* __restric
         // j-tile (B_j or x_j of head h) times rows of the i-tile (C_i or
         // dy_i of head h) over the chunk [c0, c0 + 128) of N or P
         const int64_t c0 = b_step ? k * kW : p0, depth = b_step ? d.N : d.P;
-        const float* src_j = b_step ? Bj : xb + (h * d.Q + j0) * d.P;
-        const float* src_i = b_step ? Ci : dyb + (h * d.Q + i0) * d.P;
+        const T* src_j = b_step ? Bj : xb + (h * d.Q + j0) * d.P;
+        const T* src_i = b_step ? Ci : dyb + (h * d.Q + i0) * d.P;
         const int64_t ld_j = b_step ? d.b_ld : d.P, ld_i = b_step ? d.c_ld : d.P;
         float* tile_j = b_step ? tb : tx;
         float* tile_i = b_step ? tc : ty;
@@ -444,7 +637,7 @@ decay_attention_bwd_j_kernel(const float* __restrict__ C, const float* __restric
           cp_async_wait_n(3 - q);
           group_sync(grp_b ? 2 : 1);  // quarter q of both tiles is in
           if (c0 + q * kStep < depth)
-            product_nt32<kTLd>(f[0], tile_j + r0 * kTLd + q * kStep, tile_i + q * kStep);
+            first_product<T, kTLd>(f[0], tile_j + r0 * kTLd + q * kStep, tile_i + q * kStep);
         }
         if (b_step && k == nN - 1) {  // publish CB^T for group A's dcs_j
 #pragma unroll
@@ -479,13 +672,15 @@ decay_attention_bwd_j_kernel(const float* __restrict__ C, const float* __restric
               part = fmaf(dh[0], cb.x, part);
               part = fmaf(dh[1], cb.y, part);
             }
+            // the sum over heads, rounded as the operand type holds it after the last
             float2* o = reinterpret_cast<float2*>(&dhs[lj * kDLd + 8 * n + 2 * t4]);
-            if (h == 0) {
-              *o = make_float2(dh[0], dh[1]);
-            } else {
+            float2 sum = make_float2(dh[0], dh[1]);
+            if (h > 0) {
               const float2 prev = *o;
-              *o = make_float2(prev.x + dh[0], prev.y + dh[1]);
+              sum = make_float2(prev.x + dh[0], prev.y + dh[1]);
             }
+            if (h == d.Hg - 1) sum = make_float2(round_as<T>(sum.x), round_as<T>(sum.y));
+            *o = sum;
           }
           if (s == 0) {
             part += __shfl_xor_sync(0xffffffffu, part, 1);
@@ -538,8 +733,9 @@ decay_attention_bwd_j_kernel(const float* __restrict__ C, const float* __restric
                 for (int e = 0; e < 2; ++e) {
                   const int li = 8 * n + 2 * t4 + e;
                   const int64_t i = i0 + li;
-                  v[e] = j <= i && i < d.Q ? f[0][n][2 * hh + e] * expf(ch[kT + li] - cj)
-                                           : 0.f;
+                  v[e] = j <= i && i < d.Q
+                             ? round_as<T>(f[0][n][2 * hh + e] * expf(ch[kT + li] - cj))
+                             : 0.f;
                 }
                 *reinterpret_cast<float2*>(&sts[lj * kDLd + 8 * n + 2 * t4]) =
                     make_float2(v[0], v[1]);
@@ -547,7 +743,7 @@ decay_attention_bwd_j_kernel(const float* __restrict__ C, const float* __restric
             }
             __syncwarp();
           }
-          product_64<kDLd, kTLd>(acc[0], slice, tile + hf * kT);
+          second_product<T, kDLd, kTLd>(acc[0], slice, tile + hf * kT);
         }
         swap_frags(acc[0], acc[1]);
       }
@@ -561,7 +757,7 @@ decay_attention_bwd_j_kernel(const float* __restrict__ C, const float* __restric
     if (j >= d.Q) continue;
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
-      float* out;
+      T* out;
       int64_t cols;
       if (grp_b) {
         if (!b_on || sl.cols[hf] == 0) continue;
@@ -577,7 +773,7 @@ decay_attention_bwd_j_kernel(const float* __restrict__ C, const float* __restric
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = 8 * n + 2 * t4 + e;
-          if (col < cols) out[col] = acc[hf][n][2 * hh + e];
+          if (col < cols) store_as(out + col, acc[hf][n][2 * hh + e]);
         }
     }
   }
@@ -609,10 +805,11 @@ constexpr int kBwdISmemFloats = 4 * kT * kTLd + kT * kCBLd + kT * kDLd + 4 * kT;
 // that CB is published before it needs it for dcs_i); then both groups add
 // dCB B_j to dC, group A the first 64 columns of each of the block's chunks
 // of N, group B the last 64.
+template <class T>
 __global__ void __launch_bounds__(kBwdThreads, 1)
-decay_attention_bwd_i_kernel(const float* __restrict__ C, const float* __restrict__ B,
-                             const float* __restrict__ cs, const float* __restrict__ x,
-                             const float* __restrict__ dy, float* __restrict__ dC,
+decay_attention_bwd_i_kernel(const T* __restrict__ C, const T* __restrict__ B,
+                             const float* __restrict__ cs, const T* __restrict__ x,
+                             const T* __restrict__ dy, T* __restrict__ dC,
                              float* __restrict__ dcs_i, Dims d) {
   extern __shared__ __align__(16) float smem[];
   float* tc = smem;              // C_i: a 128-wide chunk of N; dC's second chunk of B_j
@@ -638,14 +835,16 @@ decay_attention_bwd_i_kernel(const float* __restrict__ C, const float* __restric
   // C_i, and dy_i, stay put across the j-tiles; where N <= 128 the B_j that
   // group B copied is also dC's operand
   const bool one_n = nN == 1, one_p = a_steps == 1;
-  const float* Ci = C + bg * d.c_bs + i0 * d.c_ld;
-  const float* Bb = B + bg * d.b_bs;
-  const float* xb = x + bg * d.Hg * d.Q * d.P;
-  const float* dyb = dy + bg * d.Hg * d.Q * d.P;
+  const T* Ci = C + bg * d.c_bs + i0 * d.c_ld;
+  const T* Bb = B + bg * d.b_bs;
+  const T* xb = x + bg * d.Hg * d.Q * d.P;
+  const T* dyb = dy + bg * d.Hg * d.Q * d.P;
   const bool vec_cb = (d.N | d.c_bs | d.c_ld | d.b_bs | d.b_ld) % 4 == 0 &&
-                      (reinterpret_cast<uintptr_t>(C) | reinterpret_cast<uintptr_t>(B)) % 16 == 0;
+                      (reinterpret_cast<uintptr_t>(C) | reinterpret_cast<uintptr_t>(B)) %
+                              (4 * sizeof(T)) == 0;
   const bool vec_p = d.P % 4 == 0 &&
-                     (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(dy)) % 16 == 0;
+                     (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(dy)) %
+                             (4 * sizeof(T)) == 0;
 
   float acc[kIChunks][8][4];  // dC of the thread's two rows, by chunk
 #pragma unroll
@@ -659,7 +858,7 @@ decay_attention_bwd_i_kernel(const float* __restrict__ C, const float* __restric
 
   for (int64_t j0 = 0; j0 <= i0; j0 += kT) {
     const bool first = j0 == 0;
-    const float* Bj = Bb + j0 * d.b_ld;
+    const T* Bj = Bb + j0 * d.b_ld;
     for (int64_t k = 0; k < n_steps; ++k) {
       const bool b_step = grp_b && k < b_steps;
       const bool a_step = !grp_b && k >= a0 && k < a0 + a_steps;
@@ -669,8 +868,8 @@ decay_attention_bwd_i_kernel(const float* __restrict__ C, const float* __restric
         // i-tile (C_i, or dy_i of head h) times rows of the j-tile (B_j, or
         // x_j of head h) over the chunk [c0, c0 + 128) of N or P
         const int64_t c0 = b_step ? k * kW : p0, depth = b_step ? d.N : d.P;
-        const float* src_i = b_step ? Ci : dyb + (h * d.Q + i0) * d.P;
-        const float* src_j = b_step ? Bj : xb + (h * d.Q + j0) * d.P;
+        const T* src_i = b_step ? Ci : dyb + (h * d.Q + i0) * d.P;
+        const T* src_j = b_step ? Bj : xb + (h * d.Q + j0) * d.P;
         const int64_t ld_i = b_step ? d.c_ld : d.P, ld_j = b_step ? d.b_ld : d.P;
         float* tile_i = b_step ? tc : ty;
         float* tile_j = b_step ? tb : tx;
@@ -704,7 +903,7 @@ decay_attention_bwd_i_kernel(const float* __restrict__ C, const float* __restric
           cp_async_wait_n(3 - q);
           group_sync(grp_b ? 2 : 1);  // quarter q of both tiles is in
           if (c0 + q * kStep < depth)
-            product_nt32<kTLd>(f[0], tile_i + r0 * kTLd + q * kStep, tile_j + q * kStep);
+            first_product<T, kTLd>(f[0], tile_i + r0 * kTLd + q * kStep, tile_j + q * kStep);
         }
         if (b_step && k == nN - 1) {  // publish CB for group A's dcs_i
 #pragma unroll
@@ -739,13 +938,15 @@ decay_attention_bwd_i_kernel(const float* __restrict__ C, const float* __restric
               part = fmaf(dh[0], cb.x, part);
               part = fmaf(dh[1], cb.y, part);
             }
+            // the sum over heads, rounded as the operand type holds it after the last
             float2* o = reinterpret_cast<float2*>(&dhs[li * kDLd + 8 * n + 2 * t4]);
-            if (h == 0) {
-              *o = make_float2(dh[0], dh[1]);
-            } else {
+            float2 sum = make_float2(dh[0], dh[1]);
+            if (h > 0) {
               const float2 prev = *o;
-              *o = make_float2(prev.x + dh[0], prev.y + dh[1]);
+              sum = make_float2(prev.x + dh[0], prev.y + dh[1]);
             }
+            if (h == d.Hg - 1) sum = make_float2(round_as<T>(sum.x), round_as<T>(sum.y));
+            *o = sum;
           }
           if (s == 0) {
             part += __shfl_xor_sync(0xffffffffu, part, 1);
@@ -775,7 +976,7 @@ decay_attention_bwd_i_kernel(const float* __restrict__ C, const float* __restric
     for (int c = 0; c < kIChunks; ++c) {
       // acc[0] is the chunk in hand: the two swap places after each chunk
       if ((s * kIChunks + c) * kW + (grp_b ? kT : 0) < d.N)  // uniform over the group
-        product_64<kDLd, kTLd>(acc[0], dhs + r0 * kDLd, (c ? tc : tb) + (grp_b ? kT : 0));
+        second_product<T, kDLd, kTLd>(acc[0], dhs + r0 * kDLd, (c ? tc : tb) + (grp_b ? kT : 0));
       if constexpr (kIChunks == 2) swap_frags(acc[0], acc[kIChunks - 1]);
     }
     __syncthreads();  // every warp is past the j-tile's tiles and dCB
@@ -788,13 +989,13 @@ decay_attention_bwd_i_kernel(const float* __restrict__ C, const float* __restric
 #pragma unroll
     for (int c = 0; c < kIChunks; ++c) {
       const int64_t n0 = (s * kIChunks + c) * kW + (grp_b ? kT : 0);
-      float* out = dC + (bg * d.Q + i) * d.N + n0;
+      T* out = dC + (bg * d.Q + i) * d.N + n0;
 #pragma unroll
       for (int n = 0; n < 8; ++n)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = 8 * n + 2 * t4 + e;
-          if (n0 + col < d.N) out[col] = acc[c][n][2 * hh + e];
+          if (n0 + col < d.N) store_as(out + col, acc[c][n][2 * hh + e]);
         }
     }
   }
@@ -804,56 +1005,48 @@ constexpr int64_t kMaxGridYZ = 65535;
 
 int64_t tiles(int64_t n) { return (n + kT - 1) / kT; }
 
-}  // namespace
-
-// Each entry launches one kernel on `stream` and returns cudaGetLastError()
-// (0 on success), or cudaErrorInvalidValue for a shape the grid cannot hold.
-// Shapes: BG, Q, N, Hg, P >= 1; strides in elements.
-extern "C" int tlie_decay_attention_fwd_f32(const float* C, const float* B, const float* cs,
-                                            const float* x, float* y, int64_t BG, int64_t Q,
-                                            int64_t N, int64_t Hg, int64_t P, int64_t c_bs,
-                                            int64_t c_ld, int64_t b_bs, int64_t b_ld,
-                                            void* stream) {
+template <class T>
+int launch_fwd(const T* C, const T* B, const float* cs, const T* x, T* y, int64_t BG, int64_t Q,
+               int64_t N, int64_t Hg, int64_t P, int64_t c_bs, int64_t c_ld, int64_t b_bs,
+               int64_t b_ld, void* stream) {
   const int64_t slabs = slab_count(Hg, P);
   if (tiles(Q) > kMaxGridYZ || BG * slabs > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   const Dims d{Q, N, Hg, P, c_bs, c_ld, b_bs, b_ld};
   const int smem = kFwdSmemFloats * static_cast<int>(sizeof(float));
   const cudaError_t err = cudaFuncSetAttribute(
-      decay_attention_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      decay_attention_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned int>(BG * slabs), static_cast<unsigned int>(tiles(Q)));
-  decay_attention_fwd_kernel<<<grid, kFwdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  decay_attention_fwd_kernel<T><<<grid, kFwdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       C, B, cs, x, y, d);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int tlie_decay_attention_bwd_i_f32(const float* C, const float* B, const float* cs,
-                                              const float* x, const float* dy, float* dC,
-                                              float* dcs_i, int64_t BG, int64_t Q, int64_t N,
-                                              int64_t Hg, int64_t P, int64_t c_bs, int64_t c_ld,
-                                              int64_t b_bs, int64_t b_ld, void* stream) {
+template <class T>
+int launch_bwd_i(const T* C, const T* B, const float* cs, const T* x, const T* dy, T* dC,
+                 float* dcs_i, int64_t BG, int64_t Q, int64_t N, int64_t Hg, int64_t P,
+                 int64_t c_bs, int64_t c_ld, int64_t b_bs, int64_t b_ld, void* stream) {
   const int64_t blocks = (N + kIChunks * kW - 1) / (kIChunks * kW);
   if (blocks > kMaxGridYZ || tiles(Q) > kMaxGridYZ || BG > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   const Dims d{Q, N, Hg, P, c_bs, c_ld, b_bs, b_ld};
   const int smem = kBwdISmemFloats * static_cast<int>(sizeof(float));
   const cudaError_t err = cudaFuncSetAttribute(
-      decay_attention_bwd_i_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      decay_attention_bwd_i_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned int>(BG), static_cast<unsigned int>(blocks),
                   static_cast<unsigned int>(tiles(Q)));
-  decay_attention_bwd_i_kernel<<<grid, kBwdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      C, B, cs, x, dy, dC, dcs_i, d);
+  decay_attention_bwd_i_kernel<T>
+      <<<grid, kBwdThreads, smem, static_cast<cudaStream_t>(stream)>>>(C, B, cs, x, dy, dC,
+                                                                      dcs_i, d);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int tlie_decay_attention_bwd_j_f32(const float* C, const float* B, const float* cs,
-                                              const float* x, const float* dy, float* dB,
-                                              float* dx, float* dcs_j, int64_t BG, int64_t Q,
-                                              int64_t N, int64_t Hg, int64_t P, int64_t c_bs,
-                                              int64_t c_ld, int64_t b_bs, int64_t b_ld,
-                                              void* stream) {
+template <class T>
+int launch_bwd_j(const T* C, const T* B, const float* cs, const T* x, const T* dy, T* dB, T* dx,
+                 float* dcs_j, int64_t BG, int64_t Q, int64_t N, int64_t Hg, int64_t P,
+                 int64_t c_bs, int64_t c_ld, int64_t b_bs, int64_t b_ld, void* stream) {
   const int64_t n_slices = (N + kW - 1) / kW, slabs = slab_count(Hg, P);
   const int64_t blocks = n_slices > slabs ? n_slices : slabs;
   if (blocks > kMaxGridYZ || tiles(Q) > kMaxGridYZ || BG > INT32_MAX)
@@ -861,11 +1054,43 @@ extern "C" int tlie_decay_attention_bwd_j_f32(const float* C, const float* B, co
   const Dims d{Q, N, Hg, P, c_bs, c_ld, b_bs, b_ld};
   const int smem = kBwdSmemFloats * static_cast<int>(sizeof(float));
   const cudaError_t err = cudaFuncSetAttribute(
-      decay_attention_bwd_j_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      decay_attention_bwd_j_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned int>(BG), static_cast<unsigned int>(blocks),
                   static_cast<unsigned int>(tiles(Q)));
-  decay_attention_bwd_j_kernel<<<grid, kBwdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      C, B, cs, x, dy, dB, dx, dcs_j, d);
+  decay_attention_bwd_j_kernel<T>
+      <<<grid, kBwdThreads, smem, static_cast<cudaStream_t>(stream)>>>(C, B, cs, x, dy, dB, dx,
+                                                                      dcs_j, d);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace
+
+// Each entry launches one kernel on `stream` and returns cudaGetLastError()
+// (0 on success), or cudaErrorInvalidValue for a shape the grid cannot hold.
+// Shapes: BG, Q, N, Hg, P >= 1; strides in elements. The _bf16 entries take
+// bfloat16 C, B, x, dy and outputs, and float32 cs, dcs_i and dcs_j.
+#define TLIE_DECAY_ENTRIES(SUFFIX, T)                                                          \
+  extern "C" int tlie_decay_attention_fwd_##SUFFIX(                                           \
+      const T* C, const T* B, const float* cs, const T* x, T* y, int64_t BG, int64_t Q,       \
+      int64_t N, int64_t Hg, int64_t P, int64_t c_bs, int64_t c_ld, int64_t b_bs,             \
+      int64_t b_ld, void* stream) {                                                           \
+    return launch_fwd<T>(C, B, cs, x, y, BG, Q, N, Hg, P, c_bs, c_ld, b_bs, b_ld, stream);    \
+  }                                                                                           \
+  extern "C" int tlie_decay_attention_bwd_i_##SUFFIX(                                         \
+      const T* C, const T* B, const float* cs, const T* x, const T* dy, T* dC, float* dcs_i,  \
+      int64_t BG, int64_t Q, int64_t N, int64_t Hg, int64_t P, int64_t c_bs, int64_t c_ld,    \
+      int64_t b_bs, int64_t b_ld, void* stream) {                                             \
+    return launch_bwd_i<T>(C, B, cs, x, dy, dC, dcs_i, BG, Q, N, Hg, P, c_bs, c_ld, b_bs,     \
+                           b_ld, stream);                                                     \
+  }                                                                                           \
+  extern "C" int tlie_decay_attention_bwd_j_##SUFFIX(                                         \
+      const T* C, const T* B, const float* cs, const T* x, const T* dy, T* dB, T* dx,         \
+      float* dcs_j, int64_t BG, int64_t Q, int64_t N, int64_t Hg, int64_t P, int64_t c_bs,    \
+      int64_t c_ld, int64_t b_bs, int64_t b_ld, void* stream) {                               \
+    return launch_bwd_j<T>(C, B, cs, x, dy, dB, dx, dcs_j, BG, Q, N, Hg, P, c_bs, c_ld, b_bs,  \
+                           b_ld, stream);                                                     \
+  }
+
+TLIE_DECAY_ENTRIES(f32, float)
+TLIE_DECAY_ENTRIES(bf16, __nv_bfloat16)

@@ -14,8 +14,12 @@ which on CUDA tensors always runs the hand-written kernels; across chunks a
 short recurrence over the L/Q chunk summaries carries the state, in PyTorch
 matmuls and a loop over chunks, as ``tlie_tpu`` computes it outside Pallas.
 
-The scan computes in float32 (float64 inputs stay float64, for references
-on the CPU): the port has no bf16 path yet.
+The decay math (the cumsum of dt·A, its exps, the carried chunk state)
+computes in float32 (float64 inputs stay float64, for references on the
+CPU).  The products' operands follow ``tlie_tpu``'s ``mm_dtype`` rule: where
+x is bfloat16 (``model.compute_dtype: bfloat16``) C, B, xdt and the chunk
+summaries' operands are bfloat16 and the decay attention runs its bfloat16
+kernels; y comes back in x's dtype.
 """
 
 from __future__ import annotations
@@ -118,16 +122,19 @@ def ssd_chunked_scan(x, dt, A, B_mat, C_mat, chunk_size: Optional[int] = None, D
         Q = _largest_divisor_chunk(L, Q)
     C = L // Q
 
+    # the decay math in float32 (or wider); the products' operands in
+    # bfloat16 where x is (tlie_tpu's mm_dtype)
     dtype = torch.promote_types(x.dtype, torch.float32)
-    xf = x.to(dtype)
+    mm_dtype = x.dtype if x.dtype == torch.bfloat16 else dtype
+    xf = x.to(mm_dtype)
     xc = xf.reshape(Bsz, C, Q, G, Hg, P)
     dtc = dt.to(dtype).reshape(Bsz, C, Q, G, Hg)
-    Bc = B_mat.to(dtype).reshape(Bsz, C, Q, G, N)
-    Cc = C_mat.to(dtype).reshape(Bsz, C, Q, G, N)
+    Bc = B_mat.to(mm_dtype).reshape(Bsz, C, Q, G, N)
+    Cc = C_mat.to(mm_dtype).reshape(Bsz, C, Q, G, N)
 
     cs = torch.cumsum(dtc * A.reshape(G, Hg), dim=2)  # inclusive within-chunk cumsum
     # dt rides the value side: y(i) = Σ_j C_i·B_j · decay(i, j) · dt_j x_j
-    xdt = xc * dtc[..., None]  # (B, C, Q, G, Hg, P)
+    xdt = xc * dtc.to(mm_dtype)[..., None]  # (B, C, Q, G, Hg, P)
 
     # intra-chunk: the decay attention on (B·C·G, ...) operands.  C and B are
     # views wherever the layout allows (the kernels read their strides); cs
@@ -146,9 +153,11 @@ def ssd_chunked_scan(x, dt, A, B_mat, C_mat, chunk_size: Optional[int] = None, D
             y = y + D[None, None, :, None] * xf
         return y.to(x.dtype)
 
-    # chunk summaries: the state each chunk contributes at its end
+    # chunk summaries: the state each chunk contributes at its end, carried
+    # in float32 across chunks
     decay_to_end = torch.exp(cs[:, :, -1:] - cs)  # (B, C, Q, G, Hg)
-    S = torch.einsum("bcjgn,bcjghp->bcghnp", Bc, xdt * decay_to_end[..., None])
+    xw = xdt * decay_to_end.to(mm_dtype)[..., None]
+    S = torch.einsum("bcjgn,bcjghp->bcghnp", Bc, xw).to(dtype)
 
     # the recurrence over the C chunk summaries
     chunk_decay = torch.exp(cs[:, :, -1])  # (B, C, G, Hg)
@@ -163,8 +172,8 @@ def ssd_chunked_scan(x, dt, A, B_mat, C_mat, chunk_size: Optional[int] = None, D
     R_prev = torch.stack(prev, 1)  # (B, C, G, Hg, N, P): the state entering each chunk
 
     # inter-chunk output: the queries against the carried-in state
-    y0 = torch.einsum("bcign,bcghnp->bcighp", Cc, R_prev)
-    y_off = y0 * torch.exp(cs)[..., None]
+    y0 = torch.einsum("bcign,bcghnp->bcighp", Cc, R_prev.to(mm_dtype))
+    y_off = y0 * torch.exp(cs).to(mm_dtype)[..., None]
 
     y = (y_diag + y_off).reshape(Bsz, L, H, P)
     if D is not None:

@@ -19,9 +19,10 @@ resume; W&B logging is not carried.
 
 from __future__ import annotations
 
+import os
 import sys
 import time
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Set, Tuple
 
 import numpy as np
 import torch
@@ -67,12 +68,50 @@ def use_fused_head(cfg: Dict[str, Any], batch_size: int) -> bool:
     )
 
 
+def save_trained(cfg: Dict[str, Any], model: torch.nn.Module, perf: float,
+                 used_paths: Optional[Set[str]] = None) -> Optional[str]:
+    """Write the checkpoint of a trained ``model`` to ``checkpoint_name(cfg)
+    + "-perf{perf:.3f}" + ".pth"`` and return its path, or None where the
+    config has no ``save``.  With ``used_paths`` (a sweep's), a path already
+    in it takes the suffix ``-p1``, ``-p2``, ... instead, as
+    ``tlie_tpu/parallel/sweep.py`` disambiguates points whose names
+    collide, and the path chosen joins the set."""
+    stem = checkpoint_name(cfg)
+    if stem is None:
+        return None
+    stem = stem + f"-perf{perf:0.3f}"
+    if used_paths is not None:
+        n, base = 1, stem
+        while os.path.abspath(stem + ".pth") in used_paths:
+            stem = f"{base}-p{n}"
+            n += 1
+        used_paths.add(os.path.abspath(stem + ".pth"))
+    tree = {"model": dict(cfg["model"]), "train": dict(cfg["train"]), "data": dict(cfg["dataset"])}
+    return save_checkpoint(stem, model, tree)
+
+
+def head_choice(cfg: Dict[str, Any], train_split, test_split) -> Tuple[bool, Optional[int]]:
+    """(fused, sparse K) of the training heads, chosen as ``tlie_tpu``
+    chooses them (``loop.py:292-350``)."""
+    f = train_fields(cfg)
+    fused = use_fused_head(cfg, f["batch_size"])
+    if fused and cfg["model"].get("compute_dtype", "float32") != "float32":
+        raise NotImplementedError("the fused head on bfloat16 operands is not ported yet "
+                                  "(ROADMAP Queue 1 item 7)")
+    sparse_k = None
+    if f["sparse_head"] and bool(cfg.get("lang_model", lang_model(cfg))) and not fused:
+        sparse_k = sparse_head_k_for(cfg["model"], train_split[1], test_split[1])
+    return fused, sparse_k
+
+
 def train(cfg: Dict[str, Any], train_split: Tuple[np.ndarray, np.ndarray],
-          test_split: Tuple[np.ndarray, np.ndarray], *, device="cuda") -> TrainResult:
+          test_split: Tuple[np.ndarray, np.ndarray], *, device="cuda",
+          used_paths: Optional[Set[str]] = None) -> TrainResult:
     """Train the configuration ``cfg`` (a resolved config dict, runtime
     fields derived) on the (inputs, labels) splits, evaluating with the
     metric of its dataset (``cfg["dataset"]["_name_"]``); returns a
-    :class:`TrainResult`.  Runs on the card unless ``device="cpu"``."""
+    :class:`TrainResult`.  Runs on the card unless ``device="cpu"``.
+    ``used_paths`` is a sweep's set of checkpoint paths (:func:`save_trained`)."""
     dev = resolve_device(device)
     f = train_fields(cfg)
     model_cfg = cfg["model"]
@@ -93,10 +132,7 @@ def train(cfg: Dict[str, Any], train_split: Tuple[np.ndarray, np.ndarray],
 
     train_data = put_dataset(*train_split, dev)
     test_data = put_dataset(*test_split, dev)
-    fused = use_fused_head(cfg, bsz)
-    sparse_k = None
-    if f["sparse_head"] and bool(cfg.get("lang_model", lang_model(cfg))) and not fused:
-        sparse_k = sparse_head_k_for(model_cfg, train_split[1], test_split[1])
+    fused, sparse_k = head_choice(cfg, train_split, test_split)
     if fused:
         print("[train] fused decoder+softmax-CE head enabled")
     if sparse_k is not None:
@@ -148,9 +184,5 @@ def train(cfg: Dict[str, Any], train_split: Tuple[np.ndarray, np.ndarray],
         test_loss, test_perf = evaluate(eval_model, test_data, eval_idx, sparse_k, metric)
     print(f"Best test perf: {best_perf:.4f}")
 
-    path = None
-    stem = checkpoint_name(cfg)
-    if stem is not None:
-        tree = {"model": dict(model_cfg), "train": dict(cfg["train"]), "data": dict(cfg["dataset"])}
-        path = save_checkpoint(stem + f"-perf{test_perf:0.3f}", model, tree)
+    path = save_trained(cfg, model, test_perf, used_paths)
     return TrainResult(path, test_perf, model, eval_model, history)

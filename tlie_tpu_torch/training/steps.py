@@ -19,17 +19,55 @@ from .state import clip_by_global_norm_, set_group_learning_rates
 IGNORE_IDX = -100
 
 
+# rows of bfloat16 logits widened to float32 at a time by RowNLLWide
+WIDE_ROWS = 1024
+
+
+class RowNLLWide(torch.autograd.Function):
+    """lse − logit[label] of each row of bfloat16 (M, V) logits, reduced in
+    float32 as ``tlie_tpu`` reduces them (``steps.py:41-44``, where XLA fuses
+    the cast into the reduction): WIDE_ROWS rows are widened at a time, so no
+    float32 copy of the whole logits cube is made or kept.  The backward
+    recomputes softmax − onehot from the saved bfloat16 logits and the float32
+    lse, in float32, and rounds it to bfloat16 once, as the cast's VJP does."""
+
+    @staticmethod
+    def forward(ctx, logits, safe):
+        lse = torch.cat([torch.logsumexp(logits[r:r + WIDE_ROWS].float(), -1)
+                         for r in range(0, logits.shape[0], WIDE_ROWS)])
+        picked = torch.gather(logits, -1, safe[:, None])[:, 0].float()
+        ctx.save_for_backward(logits, safe, lse)
+        return lse - picked
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, safe, lse = ctx.saved_tensors
+        grad = torch.empty_like(logits)
+        for r in range(0, logits.shape[0], WIDE_ROWS):
+            rows = slice(r, r + WIDE_ROWS)
+            t = torch.exp(logits[rows].float() - lse[rows, None]) * g[rows, None]
+            t.scatter_add_(-1, safe[rows, None], -g[rows, None])
+            grad[rows] = t
+        return grad, None
+
+
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        ignore_idx: int = IGNORE_IDX) -> torch.Tensor:
     """Mean CE over the positions whose label is not ``ignore_idx``:
     logsumexp minus the gathered logit, summed over valid positions and
-    divided by their count (at least 1)."""
-    logits = logits.float()
+    divided by their count (at least 1).  bfloat16 logits reduce in float32
+    (:class:`RowNLLWide`)."""
     safe = labels.clamp_min(0)
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, -1, safe[..., None])[..., 0]
     mask = labels != ignore_idx
-    ll = torch.where(mask, picked - lse, torch.zeros_like(lse))
+    if logits.dtype == torch.bfloat16:
+        nll = RowNLLWide.apply(logits.reshape(-1, logits.shape[-1]), safe.reshape(-1))
+        ll = -nll.reshape(labels.shape)
+    else:
+        logits = logits.float()
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1, safe[..., None])[..., 0]
+        ll = picked - lse
+    ll = torch.where(mask, ll, torch.zeros_like(ll))
     return -ll.sum() / mask.sum().clamp_min(1)
 
 
