@@ -7,11 +7,12 @@ It builds the port's CUDA kernels from ``tlie_tpu_torch/ops/csrc`` with
 ``nvcc`` (into ``tlie_tpu_torch/_build/``, one ``nvcc`` per source, all at
 once), holds each kernel against its plain PyTorch version on the card
 (the diagonal scan forward and backward, the three kernels of the fused
-decoder + cross-entropy head, the three of the SSD's decay attention on
-float32 and on bfloat16 operands and the three of the flash attention), the
-scan's two kernels also on a decay that varies by example and is constant in
-time, and drives seven full-width models along ten paths, each with the
-launch counts set to 0 just before it and read just after:
+decoder + cross-entropy head on float32 and on bfloat16 operands, the three
+of the SSD's decay attention on float32 and on bfloat16 operands and the
+three of the flash attention), the scan's two kernels also on a decay that
+varies by example and is constant in time, and drives seven full-width
+models along eleven paths, each with the launch counts set to 0 just before
+it and read just after:
 
 1. the MQAR LRU (``MQAR_LRU_FULL``: L=512, d_model=128, N=128, 2 layers,
    vocab 8192, batch 64, weights from the config's seed): evaluation,
@@ -61,12 +62,20 @@ launch counts set to 0 just before it and read just after:
    seeds: 200 stacked steps with an eval every 100, each point
    checkpointed, journaled and eigen-analysed, its point-steps/s; a rerun
    that skips every point; one point at dropout 0 against its serial run;
-   the stacked step's time against a serial step's.
+   the stacked step's time against a serial step's;
+11. the bfloat16 WikiText Mamba-2 through the fused head
+   (``configs/wikitext-mamba2-short-bf16-fused.yaml``, ``fused_xent: true``)
+   along path 9's phases, through the decay attention's and the fused
+   head's bfloat16 kernels alone (the head's once each per training step,
+   none in the dense perplexity eval, no float32 head kernel, no training
+   step through the dense head); its step is timed in the same run as path
+   9's dense head, with the head's share of device time.
 Paths 6, 7 and 10 reach no Pallas kernel in ``tlie_tpu``: no port kernel
 launches on them, and the script checks that.  The decay attention's three
 kernels are also held on bfloat16 operands against the plain bfloat16
 version (the WikiText Mamba-2, MQAR and a ragged shape) and timed against
-the bfloat16 tensor-core bound.
+the bfloat16 tensor-core bound, and so are the fused head's three bfloat16
+kernels (the LM's shape, a vocabulary below one tile and a ragged one).
 
 It also checks one MQAR training step of the LRU, of the Mamba-2 and of the
 transformers on the card against the same step on the CPU, one fused-head
@@ -164,6 +173,16 @@ LM_BLOCK = 1024  # a -100 label ends each block of the LM's shifted labels
 # Z = max|h_m|·max|W_v| + max|b| (Cauchy-Schwarz) and u = 2^-24.
 XENT_RTOL = 1e-5
 F32_UNIT = 2.0 ** -24
+# the fused head's bfloat16 kernels against the plain bfloat16 version: the
+# LM's (B·L, D, V) (path 11's), a vocabulary below one 128-wide tile and a
+# ragged one whose D (100) is no multiple of 8, so its tiles land by ordinary
+# loads.  dh, dW and db are rounded to bfloat16, and so is t inside: each
+# element within the float32 tolerance above plus BF16_STEP of (|value| +
+# its term sums), and at least BF16_EQUAL_SHARE of each equal to the plain
+# version's bit for bit (without the rounding of t the CPU tests find 63-77
+# % against tlie_tpu); loss and lse as for float32
+XENT_BF16_SHAPES = {"m8192_d512_v50257": (8192, 512, 50257), "m128_d512_v100": (128, 512, 100),
+                    "m384_d100_v2001": (384, 100, 2001)}
 # fused-head step vs dense-head step on the card: both are held to the
 # dense step in float64 on the CPU, leaf by leaf; the fused step's error may
 # be at most GRAD_F64_FACTOR times the dense float32 step's own, or 1e-5 of
@@ -299,13 +318,17 @@ def nvidia_smi_line() -> str:
 # library that holds each
 TC_KERNELS = {"fwd_p64": "fused_xent", "dh_p64": "fused_xent", "dh_p32": "fused_xent",
               "dw_p64": "fused_xent", "dw_p32": "fused_xent",
+              "fwd_p64_bf16": "fused_xent_bf16", "dh_p64_bf16": "fused_xent_bf16",
+              "dh_p32_bf16": "fused_xent_bf16", "dw_p64_bf16": "fused_xent_bf16",
+              "dw_p32_bf16": "fused_xent_bf16",
               "flash_fwd": "flash_attention", "flash_bwd_dkv": "flash_attention",
               "flash_bwd_dq": "flash_attention",
               "decay_fwd": "decay_attention", "decay_bwd_i": "decay_attention",
               "decay_bwd_j": "decay_attention", "decay_fwd_bf16": "decay_attention",
               "decay_bwd_i_bf16": "decay_attention", "decay_bwd_j_bf16": "decay_attention"}
 # the HMMA each tensor-core kernel must hold: TF32 for the float32 kernels,
-# bfloat16 for the decay attention's bfloat16 instantiations
+# bfloat16 for the decay attention's bfloat16 instantiations and the fused
+# head's bfloat16 kernels
 TC_HMMA = {name: "HMMA.16816.F32.BF16" if name.endswith("_bf16") else "HMMA.1688.F32.TF32"
            for name in TC_KERNELS}
 
@@ -320,15 +343,18 @@ def ptxas_spills(log: str) -> list:
 def tensor_core_hmma(lib_paths, nvcc: str) -> dict:
     """The HMMA opcodes, with their counts, of each tensor-core kernel in the
     built libraries, from ``cuobjdump -sass`` (beside ``nvcc``): each
-    instantiation of the fused head's forward and backward kernels, the
-    flash attention's three, and the decay attention's forward, bwd_i and
-    bwd_j on float32 and on bfloat16 operands,
-    {"dh_p64": {"HMMA.1688.F32.TF32": 192}, ...}."""
+    instantiation of the fused head's forward and backward kernels on
+    float32 and on bfloat16 operands, the flash attention's three, and the
+    decay attention's forward, bwd_i and bwd_j on float32 and on bfloat16
+    operands, {"dh_p64": {"HMMA.1688.F32.TF32": 192}, ...}."""
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     instr = re.compile(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?(HMMA\S*)")
     names = ((re.compile(r"xent_bwd_kernelILb([01])ELi(\d+)E"),
               lambda m: f"{'dw' if m.group(1) == '1' else 'dh'}_p{m.group(2)}"),
              (re.compile(r"xent_fwd_kernelILi(\d+)E"), lambda m: f"fwd_p{m.group(1)}"),
+             (re.compile(r"xent_bwd_bf16_kernelILb([01])ELi(\d+)E"),
+              lambda m: f"{'dw' if m.group(1) == '1' else 'dh'}_p{m.group(2)}_bf16"),
+             (re.compile(r"xent_fwd_bf16_kernelILi(\d+)E"), lambda m: f"fwd_p{m.group(1)}_bf16"),
              (re.compile(r"flash_attention_fwd_kernel"), lambda m: "flash_fwd"),
              (re.compile(r"flash_attention_bwd_dkv_kernel"), lambda m: "flash_bwd_dkv"),
              (re.compile(r"flash_attention_bwd_dq_kernel"), lambda m: "flash_bwd_dq"),
@@ -474,13 +500,14 @@ def scan_timing_fields(t, n_bytes: int) -> str:
             f"bound_ms={bound:.5f}({by}),over_bound={ms / bound:.3f},bytes={n_bytes}")
 
 
-def xent_inputs(dev, gen, M, D, V):
+def xent_inputs(dev, gen, M, D, V, dtype=torch.float32):
     """h (M, D), the decoder weight as nn.Linear keeps it (V, D) with w its
-    (D, V) transpose, b (V,), labels (M,) with -100 on the last row of each
-    block (or of the whole batch where it is shorter than a block)."""
-    h = torch.randn(M, D, device=dev, generator=gen)
-    weight = torch.randn(V, D, device=dev, generator=gen) / math.sqrt(D)
-    b = 0.1 * torch.randn(V, device=dev, generator=gen)
+    (D, V) transpose, b (V,), all in ``dtype``, labels (M,) with -100 on the
+    last row of each block (or of the whole batch where it is shorter than a
+    block)."""
+    h = torch.randn(M, D, device=dev, generator=gen).to(dtype)
+    weight = (torch.randn(V, D, device=dev, generator=gen) / math.sqrt(D)).to(dtype)
+    b = (0.1 * torch.randn(V, device=dev, generator=gen)).to(dtype)
     labels = torch.randint(0, V, (M,), device=dev, generator=gen)
     labels[min(M, LM_BLOCK) - 1::LM_BLOCK] = -100
     return h, weight, b, labels
@@ -489,14 +516,18 @@ def xent_inputs(dev, gen, M, D, V):
 def xent_grad_rtol(h, w, b) -> float:
     """The stated tolerance of a fused-head gradient element, as a multiple
     of the sum of its terms' magnitudes (see XENT_RTOL)."""
+    h, w, b = h.float(), w.float(), b.float()
     z = (h.norm(dim=1).max() * w.norm(dim=0).max() + b.abs().max()).item()
     return XENT_RTOL + math.sqrt(h.shape[1]) * F32_UNIT * z
 
 
 def check_fused_xent(fx, h, w, b, labels, f64: bool):
     """Each of the three kernels against the plain version on the same
-    inputs: (fields, max abs errors by kernel).  With ``f64`` both are also
-    held to the same function in float64, for the record."""
+    inputs: (fields, max abs errors by kernel's launch name).  With ``f64``
+    both are also held to the same function in float64, for the record.  On
+    bfloat16 operands the gradients take BF16_STEP more, and at least
+    BF16_EQUAL_SHARE of them must equal the plain version's (see
+    XENT_BF16_SHAPES)."""
     loss, lse = fx.fused_xent_fwd_cuda(h, w, b, labels)
     ref_loss, ref_lse = fx.fused_xent_fwd_plain(h, w, b, labels)
     n_valid = int((labels != -100).sum())
@@ -514,16 +545,24 @@ def check_fused_xent(fx, h, w, b, labels, f64: bool):
     fields = {"loss_rel": f"{loss_rel:.2e}", "lse_rel": f"{lse_rel:.2e}",
               "loss_rows_err_over_tol": f"{rows_ratio:.3f}",
               "grad_rtol_of_term_sums": f"{rtol:.2e}"}
-    errs = {"fused_xent_fwd": max((loss - ref_loss).abs().max().item(),
+    kernel_of = {k: fx.launch_name(k, h.dtype) for k in ("fwd", "dh", "dw")}
+    errs = {kernel_of["fwd"]: max((loss - ref_loss).abs().max().item(),
                                   (lse - ref_lse).abs().max().item()),
-            "fused_xent_dh": 0.0, "fused_xent_dw": 0.0}
+            kernel_of["dh"]: 0.0, kernel_of["dw"]: 0.0}
     ok = loss_rel <= XENT_RTOL and lse_rel <= XENT_RTOL and rows_ratio <= 1.0
-    kernel_of = {"dh": "fused_xent_dh", "dw": "fused_xent_dw", "db": "fused_xent_dw"}
     for name, got, want, scale in zip(("dh", "dw", "db"), (dh, dw, db), ref, scales):
-        ratio = ((got - want).abs() / (rtol * scale + 1e-30)).max().item()
+        tol = rtol * scale + 1e-30
+        if want.dtype == torch.bfloat16:
+            tol = tol + BF16_STEP * (want.float().abs() + scale)
+            share = (got == want).float().mean().item()
+            fields[f"{name}_equal_share"] = f"{share:.4f}"
+            ok = ok and share >= BF16_EQUAL_SHARE and got.dtype == torch.bfloat16
+        got, want = got.float(), want.float()
+        ratio = ((got - want).abs() / tol).max().item()
         fields[f"{name}_err_over_tol"] = f"{ratio:.3f}"
-        errs[kernel_of[name]] = max(errs[kernel_of[name]], (got - want).abs().max().item())
-        ok = ok and ratio <= 1.0
+        kernel = kernel_of["dh" if name == "dh" else "dw"]
+        errs[kernel] = max(errs[kernel], (got - want).abs().max().item())
+        ok = ok and ratio <= 1.0 and bool(torch.isfinite(got).all())
     if f64:
         h64, w64, b64 = h.double(), w.double(), b.double()
         loss64, lse64 = fx.fused_xent_fwd_plain(h64, w64, b64, labels)
@@ -549,58 +588,81 @@ def check_fused_xent(fx, h, w, b, labels, f64: bool):
 def time_fused_xent(fx, h, w, b, labels, lse, gscale, flush):
     """L2-cold medians of 21 launches of each kernel, its warm median, the
     cold medians of its plain version and of the library call computing the
-    same function (addmm and F.cross_entropy, autograd for the gradients),
-    and each kernel's bound: {kernel: (ms, warm_ms, plain_ms, library_ms,
-    bound_ms, bound_by, bytes, flops, bound_f32_ms)}.  Each kernel runs its
-    products on the tensor cores, each as three TF32 products at
-    TF32_FLOPS_PER_S; its bound_ms is the lesser of that and float32 outside
-    them (bound_f32_ms, at FP32_FLOPS_PER_S)."""
+    same function, and each kernel's bound: {kernel's launch name: (ms,
+    warm_ms, plain_ms, library_ms, bound_ms, bound_by, bytes, flops,
+    bound_f32_ms)}.  The library call is the dense head: ``addmm`` and
+    ``F.cross_entropy`` on float32 operands, bfloat16 ``addmm`` and the
+    port's ``cross_entropy_loss`` (its float32 reduction of bfloat16 logits,
+    ``RowNLLWide``) on bfloat16 ones, autograd for the gradients.  Each
+    kernel runs its products on the tensor cores, on float32 operands as
+    three TF32 products each (its bound_ms is the lesser of that and float32
+    outside them, bound_f32_ms at FP32_FLOPS_PER_S), on bfloat16 operands as
+    one bfloat16 product (the bound is that, and the bytes count 2 for each
+    bfloat16 element)."""
     import torch.nn.functional as F
+
+    from tlie_tpu_torch.training.steps import cross_entropy_loss
 
     M, D = h.shape
     V = w.shape[1]
+    dt = h.dtype
+    bf16 = dt == torch.bfloat16
+    name = {k: fx.launch_name(k, dt) for k in ("fwd", "dh", "dw")}
     n_valid = int((labels != -100).sum())
+    hw, ww = fx._widen(h, w)
     ms = {
-        "fused_xent_fwd": lambda: fx.fused_xent_fwd_cuda(h, w, b, labels),
-        "fused_xent_dh": lambda: fx.fused_xent_dh_cuda(h, w, b, labels, lse, gscale),
-        "fused_xent_dw": lambda: fx.fused_xent_dw_cuda(h, w, b, labels, lse, gscale),
+        "fwd": lambda: fx.fused_xent_fwd_cuda(h, w, b, labels),
+        "dh": lambda: fx.fused_xent_dh_cuda(h, w, b, labels, lse, gscale),
+        "dw": lambda: fx.fused_xent_dw_cuda(h, w, b, labels, lse, gscale),
     }
+
+    def plain_t():
+        return fx._round_t(fx._dlogits_plain(h, w, b, labels, lse, gscale), dt)
+
     plain = {
-        "fused_xent_fwd": lambda: fx.fused_xent_fwd_plain(h, w, b, labels),
-        "fused_xent_dh": lambda: fx._dlogits_plain(h, w, b, labels, lse, gscale) @ w.t(),
-        "fused_xent_dw": lambda: (lambda t: ((t.t() @ h).t(), t.sum(0)))(
-            fx._dlogits_plain(h, w, b, labels, lse, gscale)),
+        "fwd": lambda: fx.fused_xent_fwd_plain(h, w, b, labels),
+        "dh": lambda: (plain_t() @ ww.t()).to(dt),
+        "dw": lambda: (lambda t: ((t.t() @ hw).to(dt).t(), t.sum(0).to(dt)))(plain_t()),
     }
+
+    def dense(hh, ww_, bb):
+        if bf16:
+            return cross_entropy_loss(torch.addmm(bb, hh, ww_), labels)
+        return F.cross_entropy(torch.addmm(bb, hh, ww_), labels, ignore_index=-100)
+
     hl = h.clone().requires_grad_()
     weight = w.t().detach().clone().requires_grad_()
     bl = b.clone().requires_grad_()
-    lib_loss = F.cross_entropy(torch.addmm(bl, hl, weight.t()), labels, ignore_index=-100)
+    lib_loss = dense(hl, weight.t(), bl)
     library = {
-        "fused_xent_fwd": lambda: F.cross_entropy(torch.addmm(b, h, w), labels, ignore_index=-100),
-        "fused_xent_dh": lambda: torch.autograd.grad(lib_loss, hl, retain_graph=True),
-        "fused_xent_dw": lambda: torch.autograd.grad(lib_loss, (weight, bl), retain_graph=True),
+        "fwd": lambda: dense(h, w, b),
+        "dh": lambda: torch.autograd.grad(lib_loss, hl, retain_graph=True),
+        "dw": lambda: torch.autograd.grad(lib_loss, (weight, bl), retain_graph=True),
     }
     # bytes: each input read once, each output written once; operations: the
     # products (2·M·D·V for the forward's logits over every row, which all
     # get an lse; the backward recomputes the logits and does one more
     # product, over the valid rows its output needs)
-    f4, i8 = 4, 8
-    in_bytes = (M * D + D * V + V) * f4 + M * i8
-    io = {"fused_xent_fwd": (in_bytes + 2 * M * f4, 2 * M * D * V),
-          "fused_xent_dh": (in_bytes + (M + 1) * f4 + M * D * f4, 4 * n_valid * D * V),
-          "fused_xent_dw": (in_bytes + (M + 1) * f4 + (D * V + V) * f4, 4 * n_valid * D * V)}
+    e, f4, i8 = h.element_size(), 4, 8
+    in_bytes = (M * D + D * V + V) * e + M * i8
+    io = {"fwd": (in_bytes + 2 * M * f4, 2 * M * D * V),
+          "dh": (in_bytes + (M + 1) * f4 + M * D * e, 4 * n_valid * D * V),
+          "dw": (in_bytes + (M + 1) * f4 + (D * V + V) * e, 4 * n_valid * D * V)}
     out = {}
-    for name in ms:
+    for k in ms:
         with torch.no_grad():
-            k_ms = median(cuda_ms(ms[name], 21, flush))
-            w_ms = median(cuda_ms(ms[name], 21))
-            p_ms = median(cuda_ms(plain[name], 21, flush))
-        l_ms = median(cuda_ms(library[name], 21, flush))
-        n_bytes, flops = io[name]
+            k_ms = median(cuda_ms(ms[k], 21, flush))
+            w_ms = median(cuda_ms(ms[k], 21))
+            p_ms = median(cuda_ms(plain[k], 21, flush))
+        l_ms = median(cuda_ms(library[k], 21, flush))
+        n_bytes, flops = io[k]
         bytes_ms, f32_ms = n_bytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
-        flops_ms = min(f32_ms, 3 * flops / TF32_FLOPS_PER_S * 1e3)
-        out[name] = (k_ms, w_ms, p_ms, l_ms, max(bytes_ms, flops_ms),
-                     "bytes" if bytes_ms >= flops_ms else "operations", n_bytes, flops, f32_ms)
+        if bf16:
+            flops_ms = flops / BF16_FLOPS_PER_S * 1e3
+        else:
+            flops_ms = min(f32_ms, 3 * flops / TF32_FLOPS_PER_S * 1e3)
+        out[name[k]] = (k_ms, w_ms, p_ms, l_ms, max(bytes_ms, flops_ms),
+                        "bytes" if bytes_ms >= flops_ms else "operations", n_bytes, flops, f32_ms)
     del lib_loss
     return out
 
@@ -748,9 +810,10 @@ def time_decay_attention(dattn, C, B, cs, x, dy, flush):
 
 
 def timing_fields(t, library: str, over: str) -> str:
-    """One kernel's entry of ``time_decay_attention`` or
-    ``time_flash_attention`` as a phase field, the library call's time and
-    the kernel's ratio to it under the names given."""
+    """One kernel's entry of ``time_decay_attention``,
+    ``time_flash_attention`` or ``time_fused_xent`` as a phase field, the
+    library call's time and the kernel's ratio to it under the names
+    given."""
     k_ms, w_ms, p_ms, l_ms, bound, by, n_bytes, flops, f32 = t
     return (f"ms_cold_median={k_ms:.5f},ms_warm_median={w_ms:.5f},plain_ms={p_ms:.5f},"
             f"{library}={l_ms:.5f},{over}={k_ms / l_ms:.3f},"
@@ -895,13 +958,14 @@ def time_flash_attention(fa, q, k, v, do, lse, di, flush):
 
 
 def step_profile(one_step, tokens_per_step: int, kernel_pattern, kernel_field: str,
-                 n_warm: int = 3, n_timed: int = 20, n_top: int = 12):
+                 n_warm: int = 3, n_timed: int = 20, n_top: int = 12, also=None):
     """Fields of a training step's timing phase: ms per step from CUDA events
     around ``n_timed`` back-to-back steps after ``n_warm`` warm ones, train
     tokens/s, and from ``torch.profiler`` over one step the device busy time,
     the idle share, the time and share of the kernels whose names hold
-    ``kernel_pattern`` (where one is given), device time by kind, and the
-    ``n_top`` kernels with the most device time, by name."""
+    ``kernel_pattern`` (where one is given; ``also`` maps more fields to
+    their patterns), device time by kind, and the ``n_top`` kernels with the
+    most device time, by name."""
     for _ in range(n_warm):
         one_step()
     torch.cuda.synchronize()
@@ -925,10 +989,13 @@ def step_profile(one_step, tokens_per_step: int, kernel_pattern, kernel_field: s
         by_kind[op_kind] = round(by_kind.get(op_kind, 0.0) + t, 4)
     fields.update({"device_busy_ms": f"{busy:.4f}",
                    "idle_share": f"{max(0.0, 1 - busy / step_ms):.3f}"})
+    patterns = dict(also or {})
     if kernel_pattern is not None:
-        k_ms = sum(t for name, t in ops if kernel_pattern in name)
-        fields.update({f"{kernel_field}_ms": f"{k_ms:.4f}",
-                       f"{kernel_field}_share_of_device": f"{k_ms / busy:.4f}"})
+        patterns = {kernel_field: kernel_pattern, **patterns}
+    for field, pattern in patterns.items():
+        k_ms = sum(t for name, t in ops if pattern in name)
+        fields.update({f"{field}_ms": f"{k_ms:.4f}",
+                       f"{field}_share_of_device": f"{k_ms / busy:.4f}"})
     fields.update({"device_ms_by_kind": repr(sorted(by_kind.items(), key=lambda kv: -kv[1])),
                    "top_device_ops_ms": repr(short(ops[:n_top]))})
     return fields
@@ -1478,24 +1545,30 @@ def wikitext_splits():
 def wikitext_mamba2_path(dev, splits, config: str, tag: str, want_files):
     """Main path 8 (``configs/wikitext-mamba2-short.yaml``: 6 layers, d_model
     and N 512, 8 heads of 64, block 1024, batch 8, vocab 50,257, the dense
-    head, float32) or 9 (``configs/wikitext-mamba2-short-bf16.yaml``, the
-    same model with ``compute_dtype: bfloat16``), weights from seed 1919, on
-    the synthetic stream: with every count set to 0, ``WT_STEPS`` training
-    steps and one perplexity eval; the counts read there must be the
-    decay attention's three kernels of the path's dtype alone (the forward
-    once per layer per step and eval batch, each backward once per layer per
-    step).  Then the checkpoint reloaded and eigen-analysed (float32, as
-    tlie_tpu extracts: the analysis launches the float32 forward, counted
-    apart), and a training step's time, idle share and the decay
-    attention's share of device time.  Returns the counts after the
-    eigen-analysis (training's and the analysis's float32 forwards)."""
+    head, float32), 9 (``configs/wikitext-mamba2-short-bf16.yaml``, the
+    same model with ``compute_dtype: bfloat16``) or 11
+    (``configs/wikitext-mamba2-short-bf16-fused.yaml``, the bfloat16 model
+    with ``fused_xent: true``), weights from seed 1919, on the synthetic
+    stream: with every count set to 0, ``WT_STEPS`` training steps and one
+    perplexity eval (the dense forward, as tlie_tpu evaluates); the counts
+    read there must be the decay attention's three kernels of the path's
+    dtype alone (the forward once per layer per step and eval batch, each
+    backward once per layer per step) and, on path 11, the fused head's
+    three bfloat16 kernels once each per step, no float32 head kernel and
+    no training step through the dense head.  Then the checkpoint reloaded
+    and eigen-analysed (float32, as tlie_tpu extracts: the analysis launches
+    the float32 forward, counted apart), and a training step's time, idle
+    share and the decay attention's (and the fused head's) share of device
+    time.  Returns the counts after the eigen-analysis (training's and the
+    analysis's float32 forwards)."""
     from tlie_tpu_torch.analysis import eval_eig
     from tlie_tpu_torch.analysis.eval_eig import extract_attention_family
     from tlie_tpu_torch.config import derive_runtime_fields, load_yaml, train_fields
     from tlie_tpu_torch.models import build_models
     from tlie_tpu_torch.ops import LAUNCHES
+    from tlie_tpu_torch.ops import fused_xent as fx
     from tlie_tpu_torch.ops.decay_attention import launch_name
-    from tlie_tpu_torch.training import restore_checkpoint, train, train_step
+    from tlie_tpu_torch.training import restore_checkpoint, steps, train, train_step
     from tlie_tpu_torch.training.state import make_family_optimizer
 
     train_split, test_split, l_max = splits
@@ -1503,7 +1576,9 @@ def wikitext_mamba2_path(dev, splits, config: str, tag: str, want_files):
     m = cfg["model"]
     bsz, layers = cfg["train"]["batch_size"], m["num_layers"]
     dtype = torch.bfloat16 if m.get("compute_dtype") == "bfloat16" else torch.float32
+    fused = bool(cfg["train"].get("fused_xent", False))
     names = {k: launch_name(k, dtype) for k in ("fwd", "bwd_i", "bwd_j")}
+    head_names = [fx.launch_name(k, dtype) for k in ("fwd", "dh", "dw")] if fused else []
     tmp = tempfile.mkdtemp(prefix=f"tlie_{tag}_")
     cfg["save"] = os.path.join(tmp, "checkpoint", os.path.basename(cfg["save"]))
     cfg["train"].update(total_steps=WT_STEPS, eval_every=WT_STEPS)
@@ -1513,17 +1588,27 @@ def wikitext_mamba2_path(dev, splits, config: str, tag: str, want_files):
         for k in LAUNCHES:
             LAUNCHES[k] = 0
         with Phase(f"{tag}_train") as ph:
-            t0 = time.perf_counter()
-            result = train(cfg, train_split, test_split, device=dev)
-            torch.cuda.synchronize()
-            train_s = time.perf_counter() - t0
+            dense_steps = []  # training steps through the dense head
+            real_head_logits = steps.head_logits
+            steps.head_logits = lambda *a: (dense_steps.append(1), real_head_logits(*a))[1]
+            try:
+                t0 = time.perf_counter()
+                result = train(cfg, train_split, test_split, device=dev)
+                torch.cuda.synchronize()
+                train_s = time.perf_counter() - t0
+            finally:
+                steps.head_logits = real_head_logits
             launches = dict(LAUNCHES)
             n_eval = len(result.history) * (len(test_split[0]) // bsz)
             want = dict.fromkeys(LAUNCHES, 0)
             want.update({names["fwd"]: layers * (WT_STEPS + n_eval),
                          names["bwd_i"]: layers * WT_STEPS, names["bwd_j"]: layers * WT_STEPS})
+            want.update(dict.fromkeys(head_names, WT_STEPS))
             if launches != want:
                 raise AssertionError(f"{tag} training launches {launches}, expected {want}")
+            if len(dense_steps) != (0 if fused else WT_STEPS):
+                raise AssertionError(f"{tag}: {len(dense_steps)} training steps through the "
+                                     "dense head")
             for rec in result.history:
                 if not all(np.isfinite(v) for v in rec.values()) or rec["test_perf"] < 1.0:
                     raise AssertionError(f"{tag} training numbers {rec}")
@@ -1535,7 +1620,8 @@ def wikitext_mamba2_path(dev, splits, config: str, tag: str, want_files):
             if bad:
                 raise AssertionError(f"{tag} parameters not float32 or not moved: {bad}")
             ph.fields.update(steps=WT_STEPS, seconds=f"{train_s:.2f}", eval_batches=n_eval,
-                             compute_dtype=str(dtype),
+                             compute_dtype=str(dtype), fused_head=fused,
+                             dense_head_steps=len(dense_steps),
                              history=repr([{k: round(v, 4) for k, v in r.items()}
                                            for r in result.history]),
                              launches=repr({k: v for k, v in launches.items() if v}))
@@ -1590,8 +1676,10 @@ def wikitext_mamba2_path(dev, splits, config: str, tag: str, want_files):
             y = torch.as_tensor(train_split[1][:bsz], device=dev).long()
             lrs = {"regular": f["lr"]}
             ph.fields.update(step_profile(
-                lambda: train_step(result.model, opt, x, y, lrs, None, clip_norm=clip),
-                bsz * m["seq_len"], "decay_attention", "decay_attention", n_warm=2, n_timed=5))
+                lambda: train_step(result.model, opt, x, y, lrs, None, fused_head=fused,
+                                   clip_norm=clip),
+                bsz * m["seq_len"], "decay_attention", "decay_attention", n_warm=2, n_timed=5,
+                also={"fused_head": "xent"} if fused else None))
             del opt, x, y
         print(f"[launches] {tag} training: {launches}; eval_eig (float32): {eig_launches}",
               flush=True)
@@ -1808,8 +1896,8 @@ def main() -> int:
     # 2. the nvcc build: one nvcc per source, all started together
     with Phase("build") as ph:
         libs = {"diag_scan": DIAG_SCAN, "diag_scan_bwd": DIAG_SCAN_BWD,
-                "fused_xent": fx.FUSED_XENT, "decay_attention": dattn.DECAY_ATTENTION,
-                "flash_attention": FLASH_ATTENTION}
+                "fused_xent": fx.FUSED_XENT, "fused_xent_bf16": fx.FUSED_XENT_BF16,
+                "decay_attention": dattn.DECAY_ATTENTION, "flash_attention": FLASH_ATTENTION}
         with ThreadPoolExecutor(len(libs)) as pool:
             reports = dict(zip(libs, pool.map(lambda lib: lib.load(), libs.values())))
         for name, report in reports.items():
@@ -1821,7 +1909,8 @@ def main() -> int:
         # the fused head's three kernels, the flash attention's three and the
         # decay attention's three run their products on the tensor cores:
         # each one's SASS holds TF32 HMMAs, and the decay attention's
-        # bfloat16 instantiations bfloat16 ones
+        # bfloat16 instantiations and the fused head's bfloat16 kernels
+        # bfloat16 ones
         hmma = tensor_core_hmma(
             [reports[lib].path for lib in sorted(set(TC_KERNELS.values()))], find_nvcc())
         ph.fields["tensor_core_sass_hmma"] = repr(hmma)
@@ -1979,6 +2068,28 @@ def main() -> int:
                                f"bound_ms={bound:.4f}({by}),over_bound={k_ms / bound:.3f},"
                                f"bound_f32_ms={f32:.4f},"
                                f"gflop={flops / 1e9:.1f},tflops={flops / k_ms / 1e9:.2f}")
+        del h, weight, b, labels, lse, gscale, xent_io
+        torch.cuda.empty_cache()
+
+    # the fused head's bfloat16 kernels against the plain bfloat16 version, at
+    # the LM's shape (path 11's) and two small ones; times at the LM's shape
+    with Phase("fused_xent_bf16_vs_plain") as ph:
+        xent_bf16_errs = {}
+        for name, (M, D, V) in XENT_BF16_SHAPES.items():
+            h, weight, b, labels = xent_inputs(dev, gen, M, D, V, dtype=torch.bfloat16)
+            fields, errs, (lse, gscale) = check_fused_xent(fx, h, weight.t(), b, labels,
+                                                           f64=False)
+            ph.fields[name] = repr(fields)
+            for k, v in errs.items():
+                xent_bf16_errs[k] = max(xent_bf16_errs.get(k, 0.0), v)
+            if name == "m8192_d512_v50257":
+                xent_io = (h, weight, b, labels, lse, gscale)
+            del h, weight, b, labels, lse, gscale
+    with Phase("fused_xent_bf16_timing") as ph:
+        h, weight, b, labels, lse, gscale = xent_io
+        xent_bf16_times = time_fused_xent(fx, h, weight.t(), b, labels, lse, gscale, flush)
+        for name, t in xent_bf16_times.items():
+            ph.fields[name] = timing_fields(t, "library_ms", "over_library")
         del h, weight, b, labels, lse, gscale, xent_io
         torch.cuda.empty_cache()
 
@@ -2732,12 +2843,16 @@ def main() -> int:
                                      want_files)
     path9_all = wikitext_mamba2_path(dev, wt_splits, "wikitext-mamba2-short-bf16.yaml",
                                      "wt_mamba2_bf16", want_files)
+    # main path 11, the bfloat16 WikiText Mamba-2 through the fused head's
+    # bfloat16 kernels, its step timed in the same run as path 9's dense head
+    path11_all = wikitext_mamba2_path(dev, wt_splits, "wikitext-mamba2-short-bf16-fused.yaml",
+                                      "wt_mamba2_bf16_fused", want_files)
     del wt_splits
     path10_all = sweep_path(dev, test_x, test_y, train_split, want_files)
 
     def late(name):
         return (path6_all[name] + path7_all[name] + path8_all[name] + path9_all[name]
-                + path10_all[name])
+                + path10_all[name] + path11_all[name])
 
     kernels = [{
         "name": "diag_scan",
@@ -2782,6 +2897,25 @@ def main() -> int:
             "bound_ms": bound,
             "bound_by": by,
             "library_ms": l_ms,  # addmm + F.cross_entropy, autograd for the gradients
+        })
+    replaces = {"fused_xent_fwd_bf16": "tlie_tpu/ops/fused_xent.py:126",
+                "fused_xent_dh_bf16": "tlie_tpu/ops/fused_xent.py:228",
+                "fused_xent_dw_bf16": "tlie_tpu/ops/fused_xent.py:246"}
+    for name, (k_ms, _, p_ms, l_ms, bound, by, _, _, _) in xent_bf16_times.items():
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "tlie_tpu_torch/ops/csrc/fused_xent_bf16.cu",
+            "replaces": replaces[name],
+            "launches": path3_all[name] + late(name),
+            "max_abs_err": xent_bf16_errs[name],
+            "ms": k_ms,
+            "plain_ms": p_ms,
+            "bound_ms": bound,
+            "bound_by": by,
+            # bf16 addmm + cross_entropy_loss's float32 reduction, autograd
+            # for the gradients
+            "library_ms": l_ms,
         })
     replaces = {"decay_attention_fwd": "tlie_tpu/ops/pallas_ssd.py:252",
                 "decay_attention_bwd_i": "tlie_tpu/ops/pallas_ssd.py:272",

@@ -365,14 +365,25 @@ def test_bf16_stays_refused_outside_the_mamba_family(layer):
 
 def test_the_fused_head_on_bf16_operands_stays_refused(tmp_path):
     """``configs/wikitext-mamba2-short-bf16-fused.yaml``'s head (the fused
-    decoder + CE on bfloat16 operands) is not ported: training raises before
-    the first step."""
+    decoder + CE on bfloat16 operands) trains (``tests/test_torch_fused_xent_bf16.py``);
+    what stays refused is its operands in mixed dtypes (the features in
+    float32 beside the bfloat16 weight, which ``fused_head_loss`` never
+    hands over) and stacking the config under ``--sweep_parallel``, which
+    takes no Mamba family and no fused head."""
+    from tlie_tpu_torch.ops.fused_xent import fused_softmax_xent
+    from tlie_tpu_torch.parallel.sweep import check_stackable
+
     cfg = _tiny_bf16(tmp_path, fused_xent=True)
     data = WikiText(**cfg["dataset"])
-    tr, te = data.split("train"), data.split("test")
-    cfg = derive_runtime_fields(cfg, data.l_max, len(tr[0]))
-    with pytest.raises(NotImplementedError, match="fused head on bfloat16"):
-        train(cfg, tr, te, device="cpu")
+    tr, _ = data.split("train")
+    cfg = derive_runtime_fields(cfg, data.l_max, len(tr))
+    model, _, _ = build_models(cfg["model"], generator=torch.Generator(), device="cpu")
+    feats = model.features(torch.as_tensor(tr[:2]).long()).float().reshape(-1, 32)
+    with pytest.raises(TypeError, match="all float32 or all bfloat16"):
+        fused_softmax_xent(feats, model.decoder.weight.bfloat16().t(),
+                           model.decoder.bias.bfloat16(), torch.zeros(128).long())
+    with pytest.raises(NotImplementedError, match="mamba"):
+        check_stackable(cfg["model"])
 
 
 # -- the card run's paths 8 and 9, rehearsed ------------------------------------------

@@ -127,11 +127,13 @@ def test_eligibility_and_row_tile_match_the_reference():
 
 
 def test_refuses_bf16_and_other_layouts():
+    """bf16 mixed with float32 operands (all three are float32 or all three
+    bfloat16, as ``_fused_loss`` casts them), and every other layout."""
     h, w, b, y = _inputs(128, 16, 300, seed=1)
     th, weight, tb, ty = _port(h, w, b, y)
-    with pytest.raises(TypeError, match="float32"):
+    with pytest.raises(TypeError, match="all float32 or all bfloat16"):
         fx.fused_softmax_xent(th.bfloat16(), weight.t(), tb, ty)
-    with pytest.raises(TypeError, match="float32"):
+    with pytest.raises(TypeError, match="all float32 or all bfloat16"):
         fx.fused_softmax_xent(th, weight.t().bfloat16(), tb, ty)
     # a contiguous (D, V) weight would need a 103 MB copy at LM width: refused
     with pytest.raises(ValueError, match="transpose of a row-major"):

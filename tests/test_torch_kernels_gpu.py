@@ -303,6 +303,105 @@ def test_fused_xent_autograd_goes_through_the_kernels(cuda_device):
         fx.fused_softmax_xent(h.bfloat16(), w, b, labels)
 
 
+# -- the fused head on bfloat16 operands (csrc/fused_xent_bf16.cu) ---------------
+# loss and lse as above (float32 sums of exact products); dh, dW and db are
+# rounded to bfloat16, and so is t inside, from float32 sums in other orders:
+# each element within the float32 tolerance above plus one bfloat16 step
+# (2^-7) of (|value| + its term sums), and at least 99 % of each equal to the
+# plain version's bit for bit (without the rounding of t the CPU tests find
+# 63-77 % against tlie_tpu).  The same shapes as the float32 kernels': odd_d
+# and ragged_d take the ordinary loads of tiles that 16-byte copies cannot
+# land (D % 8 != 0).
+
+BF16_STEP = 2.0 ** -7
+BF16_EQUAL_SHARE = 0.99
+
+
+def _xent_bf16_inputs(device, M, D, V, seed):
+    h, w, b, labels = _xent_inputs(device, M, D, V, seed)
+    return h.bfloat16(), w.t().bfloat16().t(), b.bfloat16(), labels
+
+
+def _check_bf16_grads(fx, h, w, b, labels, lse, gscale, got):
+    ref = fx.fused_xent_bwd_plain(h, w, b, labels, lse, gscale)
+    scales = fx.grad_term_scales(h, w, b, labels, lse, gscale)
+    rtol = _grad_rtol(h.float(), w.float(), b.float())
+    for name, g, want, scale in zip(("dh", "dw", "db"), got, ref, scales):
+        assert g.dtype == want.dtype == torch.bfloat16, name
+        g, want = g.float(), want.float()
+        tol = rtol * scale + BF16_STEP * (want.abs() + scale) + 1e-30
+        assert bool(((g - want).abs() <= tol).all()), name
+        assert (g == want).float().mean().item() >= BF16_EQUAL_SHARE, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M, D, V", [(128, 32, 100), (1024, 64, 1000), (256, 512, 50257),
+                                     (256, 1024, 3000), (384, 100, 2001), (256, 97, 1000)],
+                         ids=["v_below_tile", "ragged_v", "lm_width", "d_max", "ragged_d",
+                              "odd_d"])
+def test_fused_xent_bf16_kernels_match_plain(cuda_device, M, D, V):
+    from tlie_tpu_torch.ops import fused_xent as fx
+
+    h, w, b, labels = _xent_bf16_inputs(cuda_device, M, D, V, seed=3)
+    before = dict(LAUNCHES)
+    loss, lse = fx.fused_xent_fwd_cuda(h, w, b, labels)
+    ref_loss, ref_lse = fx.fused_xent_fwd_plain(h, w, b, labels)
+    gscale = torch.full((1,), 1.0 / int((labels != -100).sum()), device=cuda_device)
+    dh = fx.fused_xent_dh_cuda(h, w, b, labels, ref_lse, gscale)
+    dw, db = fx.fused_xent_dw_cuda(h, w, b, labels, ref_lse, gscale)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in LAUNCHES.items() if v != before[k]} == {
+        "fused_xent_fwd_bf16": 1, "fused_xent_dh_bf16": 1, "fused_xent_dw_bf16": 1}
+    assert loss.dtype == lse.dtype == torch.float32
+    assert bool(((lse - ref_lse).abs() <= XENT_RTOL * ref_lse.abs()).all())
+    assert float(loss.sum()) == pytest.approx(float(ref_loss.sum()), rel=XENT_RTOL)
+    assert bool(((loss - ref_loss).abs()
+                 <= XENT_RTOL * fx.loss_term_scales(ref_loss, ref_lse)).all())
+    assert dw.shape == w.shape and dw.stride() == w.stride()
+    _check_bf16_grads(fx, h, w, b, labels, ref_lse, gscale, (dh, dw, db))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M, D", [(200, 64), (40, 97)], ids=["ragged_rows", "below_a_tile"])
+def test_fused_xent_bf16_forward_kernel_takes_a_ragged_row_tile(cuda_device, M, D):
+    """As the float32 forward's: rows past M through the C entry itself."""
+    from tlie_tpu_torch.ops import fused_xent as fx
+
+    h, w, b, labels = _xent_bf16_inputs(cuda_device, M, D, 50257, seed=5)
+    loss = torch.empty(M, device=cuda_device)
+    lse = torch.empty(M, device=cuda_device)
+    splits = fx.forward_splits(M, 50257, torch.cuda.get_device_properties(0).multi_processor_count)
+    part = torch.empty(3, splits, M, device=cuda_device)
+    err = fx.FUSED_XENT_BF16.fn("tlie_fused_xent_fwd_bf16")(
+        h.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(), loss.data_ptr(),
+        lse.data_ptr(), part.data_ptr(), M, D, 50257, splits,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    ref_loss, ref_lse = fx.fused_xent_fwd_plain(h, w, b, labels)
+    assert bool(((lse - ref_lse).abs() <= XENT_RTOL * ref_lse.abs()).all())
+    assert bool(((loss - ref_loss).abs()
+                 <= XENT_RTOL * fx.loss_term_scales(ref_loss, ref_lse)).all())
+
+
+@pytest.mark.gpu
+def test_fused_xent_bf16_autograd_goes_through_the_kernels(cuda_device):
+    """bfloat16 leaves: the three bfloat16 kernels once each, none of the
+    float32 ones, gradients in bfloat16 and in the weight's layout."""
+    from tlie_tpu_torch.ops import fused_xent as fx
+
+    h, w, b, labels = _xent_bf16_inputs(cuda_device, 256, 64, 700, seed=4)
+    weight = w.t().contiguous().requires_grad_()
+    hh, bb = h.clone().requires_grad_(), b.clone().requires_grad_()
+    before = dict(LAUNCHES)
+    fx.fused_softmax_xent(hh, weight.t(), bb, labels).backward()
+    assert {k: v - before[k] for k, v in LAUNCHES.items() if v != before[k]} == {
+        "fused_xent_fwd_bf16": 1, "fused_xent_dh_bf16": 1, "fused_xent_dw_bf16": 1}
+    assert hh.grad.dtype == weight.grad.dtype == bb.grad.dtype == torch.bfloat16
+    with pytest.raises(TypeError, match="all float32 or all bfloat16"):
+        fx.fused_softmax_xent(h.float(), w, b, labels)
+
+
 # -- the decay attention of the SSD (csrc/decay_attention.cu) -------------------
 
 SSD_RTOL_OF_TERMS = 1e-5  # each output within 1e-5 of the sum of its terms' magnitudes

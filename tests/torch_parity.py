@@ -118,14 +118,16 @@ def load_chip_smoke():
     return cs
 
 
-def stub_card(monkeypatch, cs, decay_kernels: bool = False):
+def stub_card(monkeypatch, cs, decay_kernels: bool = False, head_kernels: bool = False):
     """The card's timers and profiler stubbed for a CPU rehearsal of
     ``chip_smoke`` (CUDA events that time nothing, a profiler that sees no
     device time), every launch count set to 0; with ``decay_kernels`` the
     decay attention's routing forced to its ``*_cuda`` wrappers, which run
-    the plain versions and count their launches under the kernels' names."""
+    the plain versions and count their launches under the kernels' names,
+    and with ``head_kernels`` the fused head's the same way."""
     from tlie_tpu_torch.ops import LAUNCHES
     from tlie_tpu_torch.ops import decay_attention as da
+    from tlie_tpu_torch.ops import fused_xent as fx
 
     class Event:
         def __init__(self, **kw):
@@ -143,6 +145,22 @@ def stub_card(monkeypatch, cs, decay_kernels: bool = False):
     for key in LAUNCHES:
         monkeypatch.setitem(LAUNCHES, key, 0)
     monkeypatch.setattr(cs, "top_device_ops", lambda fn, k=6: (fn(), [])[1])
+    if head_kernels:
+        def fwd(h, w, b, labels):
+            LAUNCHES[fx.launch_name("fwd", h.dtype)] += 1
+            return fx.fused_xent_fwd_plain(h, w, b, labels)
+
+        def dh(*args):
+            LAUNCHES[fx.launch_name("dh", args[0].dtype)] += 1
+            return fx.fused_xent_bwd_plain(*args)[0]
+
+        def dw(*args):
+            LAUNCHES[fx.launch_name("dw", args[0].dtype)] += 1
+            return fx.fused_xent_bwd_plain(*args)[1:]
+
+        monkeypatch.setattr(fx, "_on_cuda", lambda t: True)
+        for name, stub in (("fwd", fwd), ("dh", dh), ("dw", dw)):
+            monkeypatch.setattr(fx, f"fused_xent_{name}_cuda", stub)
     if not decay_kernels:
         return
 

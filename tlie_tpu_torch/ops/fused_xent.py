@@ -14,21 +14,33 @@ kernels read the (V, D) rows in place, so the 103 MB weight of the WikiText
 LM is never copied, and a contiguous (D, V) ``w`` raises instead of being
 transposed silently.  ``dw`` comes back in the same layout.
 
-Float32 only: bf16 operands (``tlie_tpu/training/scan_loop.py:265-266``)
-raise.
+h, w and b are all float32 or all bfloat16 (``_fused_loss``,
+``tlie_tpu/training/scan_loop.py:265-267``, casts all three under
+``compute_dtype: bfloat16``); a mix raises.  On bfloat16 operands the
+function computes what the Pallas kernels compute there
+(``tlie_tpu/ops/fused_xent.py:23-29``): the logits are float32 sums of the
+(exact) products of bfloat16 values plus the bias widened to float32; lse,
+the picked logit and the loss are float32; t = (softmax − onehot) · g is
+float32 and rounded to bfloat16 before its two products (``_cast_for_dot``);
+dh = bf16(t) wᵀ and dw = hᵀ bf16(t) are float32 sums rounded to bfloat16
+once, and db is the float32 row sum of the unrounded t rounded once.  The
+gradients come back in the primal dtypes (``_vjp_bwd``).
 
 Where the work runs follows the tensors:
 
-* CUDA tensors go to the three kernels of ``csrc/fused_xent.cu``
+* CUDA tensors go to the three kernels of ``csrc/fused_xent.cu`` on float32
+  operands and of ``csrc/fused_xent_bf16.cu`` on bfloat16 ones
   (:func:`fused_xent_fwd_cuda`, :func:`fused_xent_dh_cuda`,
   :func:`fused_xent_dw_cuda`), which replace the reference's three Pallas
-  kernels; the logits never reach device memory.  There is no fallback: a
-  tensor they do not take raises.
+  kernels; the logits never reach device memory.  Their launches count
+  under ``fused_xent_{fwd,dh,dw}`` and ``fused_xent_{fwd,dh,dw}_bf16``.
+  There is no fallback: a tensor they do not take raises.
 * CPU tensors go to :func:`fused_xent_fwd_plain` and
   :func:`fused_xent_bwd_plain`: the materialised ``h @ w + b``, its masked
   logsumexp, and the backward written out as
-  ``(softmax − onehot) · g / n_valid`` (the reference's ``_vjp_bwd``).  They
-  are also what the kernels are held against on the card.
+  ``(softmax − onehot) · g / n_valid`` (the reference's ``_vjp_bwd``), with
+  the rounding points above on bfloat16 operands.  They are also what the
+  kernels are held against on the card.
 """
 
 from __future__ import annotations
@@ -55,13 +67,27 @@ _KERNEL_ROWS = 64  # rows of h per block of the forward kernel (kFwdRows)
 _BLOCKS_PER_SM = 32
 
 _P, _I = ctypes.c_void_p, ctypes.c_int64
-FUSED_XENT = CudaLibrary("fused_xent", {
-    "tlie_fused_xent_fwd_f32": (_P,) * 7 + (_I,) * 4 + (_P,),
-    "tlie_fused_xent_dh_f32": (_P,) * 7 + (_I,) * 3 + (_P,),
-    "tlie_fused_xent_dw_f32": (_P,) * 8 + (_I,) * 3 + (_P,),
-})
-for _name in ("fused_xent_fwd", "fused_xent_dh", "fused_xent_dw"):
-    LAUNCHES.setdefault(_name, 0)
+
+
+def _signatures(sfx: str) -> dict:
+    return {f"tlie_fused_xent_fwd_{sfx}": (_P,) * 7 + (_I,) * 4 + (_P,),
+            f"tlie_fused_xent_dh_{sfx}": (_P,) * 7 + (_I,) * 3 + (_P,),
+            f"tlie_fused_xent_dw_{sfx}": (_P,) * 8 + (_I,) * 3 + (_P,)}
+
+
+FUSED_XENT = CudaLibrary("fused_xent", _signatures("f32"))
+FUSED_XENT_BF16 = CudaLibrary("fused_xent_bf16", _signatures("bf16"))
+# the library and the entry points' suffix of each operand dtype
+_LIBRARY = {torch.float32: (FUSED_XENT, "f32"), torch.bfloat16: (FUSED_XENT_BF16, "bf16")}
+for _kernel in ("fwd", "dh", "dw"):
+    LAUNCHES.setdefault(f"fused_xent_{_kernel}", 0)
+    LAUNCHES.setdefault(f"fused_xent_{_kernel}_bf16", 0)
+
+
+def launch_name(kernel: str, dtype: torch.dtype) -> str:
+    """The name under which a kernel's launches count: ``fused_xent_fwd``
+    for float32 operands, ``fused_xent_fwd_bf16`` for bfloat16."""
+    return f"fused_xent_{kernel}" + ("_bf16" if dtype == torch.bfloat16 else "")
 
 
 def _pick_tm(M: int) -> int:
@@ -87,13 +113,13 @@ def fused_softmax_xent(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def _check_operands(h, w, b, labels) -> None:
-    """The contract of the function on every device: float32 h (M, D)
-    contiguous, w (D, V) as the transpose of a row-major (V, D) weight,
-    b (V,), integer labels (M,), and M a multiple of 128 (``_pick_tm``)."""
-    for name, t in (("h", h), ("w", w), ("b", b)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"fused_softmax_xent takes float32 operands; {name} is {t.dtype} "
-                            "(bf16 operands are not ported yet)")
+    """The contract of the function on every device: h (M, D) contiguous,
+    w (D, V) as the transpose of a row-major (V, D) weight, b (V,), all
+    three float32 or all three bfloat16, integer labels (M,), and M a
+    multiple of 128 (``_pick_tm``)."""
+    if h.dtype not in _LIBRARY or not h.dtype == w.dtype == b.dtype:
+        raise TypeError("fused_softmax_xent takes h, w and b all float32 or all bfloat16; "
+                        f"got {h.dtype}, {w.dtype}, {b.dtype}")
     if h.dim() != 2 or w.dim() != 2 or b.dim() != 1 or labels.dim() != 1:
         raise ValueError("fused_softmax_xent takes h (M, D), w (D, V), b (V,), labels (M,)")
     (M, D), V = h.shape, w.shape[1]
@@ -127,7 +153,8 @@ def _on_cuda(t: torch.Tensor) -> bool:
 class FusedXentFn(torch.autograd.Function):
     """Autograd around the fused head: the kernels for CUDA tensors, the
     plain versions for CPU tensors, forward and backward alike.  Saves
-    (h, w, b, labels, lse, n_valid) as the reference's ``_vjp_fwd`` does."""
+    (h, w, b, labels, lse, n_valid) as the reference's ``_vjp_fwd`` does;
+    the loss is float32 and the gradients come in the primal dtypes."""
 
     @staticmethod
     def forward(ctx, h, w, b, labels):
@@ -154,9 +181,18 @@ class FusedXentFn(torch.autograd.Function):
 # -- plain versions -------------------------------------------------------------
 
 
+def _widen(*ts):
+    """bfloat16 tensors as float32, the precision their products are taken
+    in (a product of two bfloat16 values is exact in float32); others as
+    they are."""
+    return tuple(t.float() if t.dtype == torch.bfloat16 else t for t in ts)
+
+
 def fused_xent_fwd_plain(h, w, b, labels) -> Tuple[torch.Tensor, torch.Tensor]:
     """(loss per row, lse per row) from the materialised logits; the loss
-    is 0 on ignored rows, the lse is every row's."""
+    is 0 on ignored rows, the lse is every row's.  bfloat16 operands are
+    widened to float32 first."""
+    h, w, b = _widen(h, w, b)
     logits = torch.addmm(b, h, w)
     lse = torch.logsumexp(logits, dim=-1)
     valid = labels != IGNORE
@@ -167,15 +203,28 @@ def fused_xent_fwd_plain(h, w, b, labels) -> Tuple[torch.Tensor, torch.Tensor]:
 def fused_xent_bwd_plain(h, w, b, labels, lse, gscale):
     """(dh, dw, db) for the cotangent ``gscale`` (g / n_valid, shape (1,))
     on every valid row's loss: t = (softmax − onehot) · gscale on valid rows
-    and 0 on ignored ones; dh = t wᵀ, dw = hᵀ t, db = Σ_rows t.  dw comes
-    back in w's layout."""
+    and 0 on ignored ones; dh = t wᵀ, dw = hᵀ t, db = Σ_rows t, in the
+    operands' dtype.  dw comes back in w's layout.  On bfloat16 operands t
+    is rounded to bfloat16 before both products, which sum in float32 and
+    round once, and db sums the unrounded t in float32 and rounds once."""
+    dtype = h.dtype
+    h, w, b = _widen(h, w, b)
     t = _dlogits_plain(h, w, b, labels, lse, gscale)
-    dw = (t.t() @ h).t()  # (D, V) with strides (1, D), as w
-    return t @ w.t(), dw, t.sum(0)
+    tr = _round_t(t, dtype)
+    dw = (tr.t() @ h).to(dtype).t()  # (D, V) with strides (1, D), as w
+    return (tr @ w.t()).to(dtype), dw, t.sum(0).to(dtype)
+
+
+def _round_t(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """t as the products take it: rounded to bfloat16 (to nearest even) and
+    widened back on bfloat16 operands (``_cast_for_dot``), else as it is."""
+    return t.to(torch.bfloat16).float() if dtype == torch.bfloat16 else t
 
 
 def _dlogits_plain(h, w, b, labels, lse, gscale) -> torch.Tensor:
-    """The materialised (M, V) t = (softmax − onehot) · gscale · valid."""
+    """The materialised (M, V) t = (softmax − onehot) · gscale · valid, in
+    float32 on bfloat16 operands."""
+    h, w, b = _widen(h, w, b)
     t = torch.exp(torch.addmm(b, h, w) - lse[:, None])
     valid = labels != IGNORE
     rows = torch.arange(labels.shape[0], device=labels.device)
@@ -210,8 +259,9 @@ def _stream(dev: torch.device) -> int:
 
 
 def fused_xent_fwd_cuda(h, w, b, labels) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the forward of ``csrc/fused_xent.cu``: (loss per row, lse per
-    row), as :func:`fused_xent_fwd_plain`.  Operands as
+    """Launch the forward of ``csrc/fused_xent.cu`` (float32 operands) or
+    ``csrc/fused_xent_bf16.cu`` (bfloat16): (loss per row, lse per row),
+    float32, as :func:`fused_xent_fwd_plain`.  Operands as
     :func:`fused_softmax_xent` takes them, labels int64, all on one card."""
     dev = _check_cuda((h, w, b, labels), "fused_xent_fwd_cuda")
     _check_operands(h, w, b, labels)
@@ -224,12 +274,14 @@ def fused_xent_fwd_cuda(h, w, b, labels) -> Tuple[torch.Tensor, torch.Tensor]:
         return loss, lse
     splits = forward_splits(M, V, torch.cuda.get_device_properties(dev).multi_processor_count)
     part = torch.empty(3, splits, M, device=dev)
-    fn = FUSED_XENT.fn("tlie_fused_xent_fwd_f32")
+    lib, sfx = _LIBRARY[h.dtype]
+    fn = lib.fn(f"tlie_fused_xent_fwd_{sfx}")
     with torch.cuda.device(dev):
         err = fn(h.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(), loss.data_ptr(),
                  lse.data_ptr(), part.data_ptr(), M, D, V, splits, _stream(dev))
-    check(err, "fused_xent_fwd")
-    LAUNCHES["fused_xent_fwd"] += 1
+    name = launch_name("fwd", h.dtype)
+    check(err, name)
+    LAUNCHES[name] += 1
     return loss, lse
 
 
@@ -245,49 +297,59 @@ def _bwd_args(h, w, b, labels, lse, gscale, what):
 
 
 def fused_xent_dh_cuda(h, w, b, labels, lse, gscale) -> torch.Tensor:
-    """Launch the dh kernel of ``csrc/fused_xent.cu``: dh (M, D), as the
-    first output of :func:`fused_xent_bwd_plain`."""
+    """Launch the dh kernel of ``csrc/fused_xent.cu`` or
+    ``csrc/fused_xent_bf16.cu``: dh (M, D) in h's dtype, as the first
+    output of :func:`fused_xent_bwd_plain`."""
     dev, labels = _bwd_args(h, w, b, labels, lse, gscale, "fused_xent_dh_cuda")
     M, D = h.shape
-    dh = torch.empty(M, D, device=dev)
+    dh = torch.empty(M, D, device=dev, dtype=h.dtype)
     if dh.numel() == 0:
         return dh.zero_()
-    fn = FUSED_XENT.fn("tlie_fused_xent_dh_f32")
+    lib, sfx = _LIBRARY[h.dtype]
+    fn = lib.fn(f"tlie_fused_xent_dh_{sfx}")
     with torch.cuda.device(dev):
         err = fn(h.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(), lse.data_ptr(),
                  gscale.data_ptr(), dh.data_ptr(), M, D, w.shape[1], _stream(dev))
-    check(err, "fused_xent_dh")
-    LAUNCHES["fused_xent_dh"] += 1
+    name = launch_name("dh", h.dtype)
+    check(err, name)
+    LAUNCHES[name] += 1
     return dh
 
 
 def fused_xent_dw_cuda(h, w, b, labels, lse, gscale) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the dW/db kernel of ``csrc/fused_xent.cu``: (dw, db), dw
-    (D, V) in w's layout (written as its (V, D) rows), as
-    :func:`fused_xent_bwd_plain`."""
+    """Launch the dW/db kernel of ``csrc/fused_xent.cu`` or
+    ``csrc/fused_xent_bf16.cu``: (dw, db) in w's dtype, dw (D, V) in w's
+    layout (written as its (V, D) rows), as :func:`fused_xent_bwd_plain`."""
     dev, labels = _bwd_args(h, w, b, labels, lse, gscale, "fused_xent_dw_cuda")
     M, D = h.shape
     V = w.shape[1]
-    dw_rows = torch.empty(V, D, device=dev)
-    db = torch.empty(V, device=dev)
+    dw_rows = torch.empty(V, D, device=dev, dtype=w.dtype)
+    db = torch.empty(V, device=dev, dtype=w.dtype)
     if M == 0 or dw_rows.numel() == 0:
         return dw_rows.zero_().t(), db.zero_()
-    fn = FUSED_XENT.fn("tlie_fused_xent_dw_f32")
+    lib, sfx = _LIBRARY[h.dtype]
+    fn = lib.fn(f"tlie_fused_xent_dw_{sfx}")
     with torch.cuda.device(dev):
         err = fn(h.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(), lse.data_ptr(),
                  gscale.data_ptr(), dw_rows.data_ptr(), db.data_ptr(), M, D, V, _stream(dev))
-    check(err, "fused_xent_dw")
-    LAUNCHES["fused_xent_dw"] += 1
+    name = launch_name("dw", h.dtype)
+    check(err, name)
+    LAUNCHES[name] += 1
     return dw_rows.t(), db
 
 
 def grad_term_scales(h, w, b, labels, lse, gscale):
     """Σ|terms| of every gradient element, the scale to which float32
     rounding of a sum is held: (|t| |w|ᵀ, |h|ᵀ |t| in w's layout, Σ_rows |t|)
-    with t as in :func:`fused_xent_bwd_plain`.  dh sums V terms per element
-    and dw M, so their errors are held to these sums, not to max|dh|."""
+    with t as in :func:`fused_xent_bwd_plain` (rounded to bfloat16 in the
+    two products on bfloat16 operands), in float32 or float64.  dh sums V
+    terms per element and dw M, so their errors are held to these sums, not
+    to max|dh|."""
+    dtype = h.dtype
+    h, w, b = _widen(h, w, b)
     t = _dlogits_plain(h, w, b, labels, lse, gscale).abs()
-    return t @ w.t().abs(), (t.t() @ h.abs()).t(), t.sum(0)
+    tr = _round_t(t, dtype)
+    return tr @ w.t().abs(), (tr.t() @ h.abs()).t(), t.sum(0)
 
 
 def loss_term_scales(loss, lse):

@@ -95,9 +95,6 @@ def head_choice(cfg: Dict[str, Any], train_split, test_split) -> Tuple[bool, Opt
     chooses them (``loop.py:292-350``)."""
     f = train_fields(cfg)
     fused = use_fused_head(cfg, f["batch_size"])
-    if fused and cfg["model"].get("compute_dtype", "float32") != "float32":
-        raise NotImplementedError("the fused head on bfloat16 operands is not ported yet "
-                                  "(ROADMAP Queue 1 item 7)")
     sparse_k = None
     if f["sparse_head"] and bool(cfg.get("lang_model", lang_model(cfg))) and not fused:
         sparse_k = sparse_head_k_for(cfg["model"], train_split[1], test_split[1])

@@ -99,17 +99,24 @@ def fused_head_loss(model: nn.Module, x: torch.Tensor, y: torch.Tensor) -> torch
     """The loss through the fused decoder + CE head (``_fused_loss``,
     ``scan_loop.py:252-269``): the backbone features on (B·L, d) rows,
     then ``fused_softmax_xent`` with the decoder's weight read in place
-    (``weight.t()``, no copy) and its bias, or zeros where it has none.  The
-    features run in the model's own mode, so a training-mode BatchNorm
-    updates its running statistics here as in the dense and sparse heads
-    (the reference's fused head fails on BatchNorm models; this one does
-    not)."""
+    (``weight.t()``, no copy) and its bias, or zeros where it has none.
+    Where the decoder computes in bfloat16 (``model.compute_dtype:
+    bfloat16``), the features, the weight and the bias are cast to it first,
+    as ``_fused_loss`` casts them to ``fused_head_dtype``: the (V, D) weight
+    is cast and then transposed, so the kernels read its bfloat16 rows in
+    place, and the casts' backward widens the bfloat16 dW and db into the
+    float32 parameters' gradients.  The features run in the model's own
+    mode, so a training-mode BatchNorm updates its running statistics here
+    as in the dense and sparse heads (the reference's fused head fails on
+    BatchNorm models; this one does not)."""
     feats = model.features(x)
     d = feats.shape[-1]
     dec = model.decoder
-    w = dec.weight.t()
-    b = dec.bias if dec.bias is not None else torch.zeros(w.shape[1], device=w.device)
-    return fused_softmax_xent(feats.reshape(-1, d), w, b, y.reshape(-1))
+    dtype = getattr(dec, "compute_dtype", None) or torch.float32
+    w = dec.weight.to(dtype).t()
+    b = (dec.bias.to(dtype) if dec.bias is not None
+         else torch.zeros(w.shape[1], device=w.device, dtype=dtype))
+    return fused_softmax_xent(feats.reshape(-1, d).to(dtype), w, b, y.reshape(-1))
 
 
 def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, x: torch.Tensor,
