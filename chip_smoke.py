@@ -324,11 +324,12 @@ TC_KERNELS = {"fwd_p64": "fused_xent", "dh_p64": "fused_xent", "dh_p32": "fused_
               "flash_fwd": "flash_attention", "flash_bwd_dkv": "flash_attention",
               "flash_bwd_dq": "flash_attention",
               "decay_fwd": "decay_attention", "decay_bwd_i": "decay_attention",
-              "decay_bwd_j": "decay_attention", "decay_fwd_bf16": "decay_attention",
-              "decay_bwd_i_bf16": "decay_attention", "decay_bwd_j_bf16": "decay_attention"}
+              "decay_bwd_j": "decay_attention", "decay_fwd_bf16": "decay_attention_bf16",
+              "decay_bwd_i_bf16": "decay_attention", "decay_bwd_j_bf16": "decay_attention_bf16"}
 # the HMMA each tensor-core kernel must hold: TF32 for the float32 kernels,
-# bfloat16 for the decay attention's bfloat16 instantiations and the fused
-# head's bfloat16 kernels
+# bfloat16 for the decay attention's bfloat16 kernels (bwd_i's instantiation
+# and decay_attention_bf16.cu's forward and bwd_j) and the fused head's
+# bfloat16 kernels
 TC_HMMA = {name: "HMMA.16816.F32.BF16" if name.endswith("_bf16") else "HMMA.1688.F32.TF32"
            for name in TC_KERNELS}
 
@@ -346,7 +347,9 @@ def tensor_core_hmma(lib_paths, nvcc: str) -> dict:
     instantiation of the fused head's forward and backward kernels on
     float32 and on bfloat16 operands, the flash attention's three, and the
     decay attention's forward, bwd_i and bwd_j on float32 and on bfloat16
-    operands, {"dh_p64": {"HMMA.1688.F32.TF32": 192}, ...}."""
+    operands (every instantiation of ``decay_attention_bf16.cu``'s forward
+    and bwd_j counted under one name each), {"dh_p64": {"HMMA.1688.F32.TF32":
+    192}, ...}."""
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     instr = re.compile(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?(HMMA\S*)")
     names = ((re.compile(r"xent_bwd_kernelILb([01])ELi(\d+)E"),
@@ -359,7 +362,9 @@ def tensor_core_hmma(lib_paths, nvcc: str) -> dict:
              (re.compile(r"flash_attention_bwd_dkv_kernel"), lambda m: "flash_bwd_dkv"),
              (re.compile(r"flash_attention_bwd_dq_kernel"), lambda m: "flash_bwd_dq"),
              (re.compile(r"decay_attention_(fwd|bwd_i|bwd_j)_kernelI(f|13__nv_bfloat16)E"),
-              lambda m: f"decay_{m.group(1)}" + ("" if m.group(2) == "f" else "_bf16")))
+              lambda m: f"decay_{m.group(1)}" + ("" if m.group(2) == "f" else "_bf16")),
+             (re.compile(r"decay_attention_(fwd|bwd_j)_bf16_kernelILi\d+E"),
+              lambda m: f"decay_{m.group(1)}_bf16"))
     counts = {}
     for lib_path in lib_paths:
         sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True,
@@ -667,12 +672,16 @@ def time_fused_xent(fx, h, w, b, labels, lse, gscale, flush):
     return out
 
 
-def decay_inputs(dev, gen, BG, Q, N, Hg, P, dtype=torch.float32):
+def decay_inputs(dev, gen, BG, Q, N, Hg, P, dtype=torch.float32, c_offset_bytes=16):
     """C as a row-strided view (the SSD slices C and B out of the conv
     output), B, cs as the within-chunk cumsum of dt·A with dt in [0, 0.1)
     and A in (-16, -1] (|cs| reaches hundreds at Q = 512), xdt and a
-    cotangent dy; all but cs (float32) in ``dtype``."""
-    C = torch.randn(BG, Q, N + 8, device=dev, generator=gen).to(dtype)[:, :, 4:4 + N]
+    cotangent dy; all but cs (float32) in ``dtype``.  C starts
+    ``c_offset_bytes`` into rows of N + 2 · that many bytes' elements: 16,
+    as ops/ssd.py's views of the conv output are aligned (4 float32 or 8
+    bfloat16 elements); 8 puts a bfloat16 C off a 16-byte boundary."""
+    off = c_offset_bytes // torch.empty(0, dtype=dtype).element_size()
+    C = torch.randn(BG, Q, N + 2 * off, device=dev, generator=gen).to(dtype)[:, :, off:off + N]
     B = torch.randn(BG, Q, N, device=dev, generator=gen).to(dtype)
     dt = 0.1 * torch.rand(BG, Hg, Q, device=dev, generator=gen)
     A = -1 - 15 * torch.rand(1, Hg, 1, device=dev, generator=gen)
@@ -705,6 +714,7 @@ def check_decay_attention(dattn, C, B, cs, x, dy, f64: bool):
         kernel = dattn.launch_name(kernel[len("decay_attention_"):], x.dtype)
         tol = SSD_RTOL * sc + 1e-30
         if b.dtype == torch.bfloat16:
+            fields["load_route"] = dattn.load_route(C, B, x, dy)
             tol = tol + BF16_STEP * (b.float().abs() + sc)
             share = (a == b).float().mean().item()
             fields[f"{name}_equal_share"] = f"{share:.4f}"
@@ -1567,7 +1577,7 @@ def wikitext_mamba2_path(dev, splits, config: str, tag: str, want_files):
     from tlie_tpu_torch.models import build_models
     from tlie_tpu_torch.ops import LAUNCHES
     from tlie_tpu_torch.ops import fused_xent as fx
-    from tlie_tpu_torch.ops.decay_attention import launch_name
+    from tlie_tpu_torch.ops.decay_attention import LOAD_ROUTES, launch_name
     from tlie_tpu_torch.training import restore_checkpoint, steps, train, train_step
     from tlie_tpu_torch.training.state import make_family_optimizer
 
@@ -1587,6 +1597,7 @@ def wikitext_mamba2_path(dev, splits, config: str, tag: str, want_files):
     try:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
+        LOAD_ROUTES.clear()
         with Phase(f"{tag}_train") as ph:
             dense_steps = []  # training steps through the dense head
             real_head_logits = steps.head_logits
@@ -1606,6 +1617,13 @@ def wikitext_mamba2_path(dev, splits, config: str, tag: str, want_files):
             want.update(dict.fromkeys(head_names, WT_STEPS))
             if launches != want:
                 raise AssertionError(f"{tag} training launches {launches}, expected {want}")
+            # how the bfloat16 forward's and bwd_j's tiles landed: by 16-byte
+            # cp.async, C and B (views into the conv output) and xdt alike
+            routes = dict(LOAD_ROUTES)
+            if dtype == torch.bfloat16 and (
+                    sum(routes.values()) != launches[names["fwd"]] + launches[names["bwd_j"]]
+                    or any(not k.endswith(":cp.async16") for k in routes)):
+                raise AssertionError(f"{tag} bfloat16 load routes {routes}")
             if len(dense_steps) != (0 if fused else WT_STEPS):
                 raise AssertionError(f"{tag}: {len(dense_steps)} training steps through the "
                                      "dense head")
@@ -1621,7 +1639,7 @@ def wikitext_mamba2_path(dev, splits, config: str, tag: str, want_files):
                 raise AssertionError(f"{tag} parameters not float32 or not moved: {bad}")
             ph.fields.update(steps=WT_STEPS, seconds=f"{train_s:.2f}", eval_batches=n_eval,
                              compute_dtype=str(dtype), fused_head=fused,
-                             dense_head_steps=len(dense_steps),
+                             dense_head_steps=len(dense_steps), load_routes=repr(routes),
                              history=repr([{k: round(v, 4) for k, v in r.items()}
                                            for r in result.history]),
                              launches=repr({k: v for k, v in launches.items() if v}))
@@ -1897,7 +1915,9 @@ def main() -> int:
     with Phase("build") as ph:
         libs = {"diag_scan": DIAG_SCAN, "diag_scan_bwd": DIAG_SCAN_BWD,
                 "fused_xent": fx.FUSED_XENT, "fused_xent_bf16": fx.FUSED_XENT_BF16,
-                "decay_attention": dattn.DECAY_ATTENTION, "flash_attention": FLASH_ATTENTION}
+                "decay_attention": dattn.DECAY_ATTENTION,
+                "decay_attention_bf16": dattn.DECAY_ATTENTION_BF16,
+                "flash_attention": FLASH_ATTENTION}
         with ThreadPoolExecutor(len(libs)) as pool:
             reports = dict(zip(libs, pool.map(lambda lib: lib.load(), libs.values())))
         for name, report in reports.items():
@@ -2818,9 +2838,22 @@ def main() -> int:
             for name, t in times.items():
                 ph.fields[f"{name}_{shape}"] = timing_fields(t, "einsum_autograd_ms",
                                                              "over_einsum")
+            ph.fields[f"load_route_{shape}"] = dattn.load_route(ins[0], ins[1], ins[3], ins[4])
             if shape.startswith("wikitext"):
                 decay_bf16_times = times
             del ins
+        # the forward and bwd_j at the WikiText Mamba-2 shape with C 8 bytes
+        # off a 16-byte boundary, so every tile lands by ordinary loads (no
+        # main path hands them so): what that route costs
+        ins = decay_inputs(dev, gen, *SSD_BF16_SHAPES["wikitext_bg8_q1024_n512_hg8_p64"],
+                           dtype=torch.bfloat16, c_offset_bytes=8)
+        ph.fields["c_8_bytes_off_load_route"] = dattn.load_route(ins[0], ins[1], ins[3], ins[4])
+        with torch.no_grad():
+            for name, fn in (("fwd", lambda: dattn.decay_attention_fwd_cuda(*ins[:4])),
+                             ("bwd_j", lambda: dattn.decay_attention_bwd_j_cuda(*ins))):
+                ph.fields[f"decay_attention_{name}_bf16_ordinary_route_ms_cold_median"] = (
+                    f"{median(cuda_ms(fn, 21, flush)):.5f}")
+        del ins
         torch.cuda.empty_cache()
 
     # main path 5, the MQAR softmax transformer through the flash kernels
@@ -2941,7 +2974,9 @@ def main() -> int:
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": "tlie_tpu_torch/ops/csrc/decay_attention.cu",
+            "source": "tlie_tpu_torch/ops/csrc/" + (
+                "decay_attention.cu" if name == "decay_attention_bwd_i_bf16"
+                else "decay_attention_bf16.cu"),
             "replaces": replaces[name],
             "launches": path4_all[name] + late(name),
             "max_abs_err": decay_bf16_errs[name],

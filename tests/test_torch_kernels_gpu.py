@@ -508,19 +508,29 @@ BF16_EQUAL_SHARE = 0.99
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("BG, Q, N, Hg, P, pad, x_offset", [
-    (4, 512, 128, 1, 128, 8, 0), (2, 1024, 512, 8, 64, 8, 0), (3, 77, 40, 3, 33, 7, 0),
-    (3, 200, 64, 2, 64, 5, 1), (2, 130, 136, 1, 160, 8, 0)],
-    ids=["mqar_like", "wikitext_bg2", "ragged", "unaligned", "ragged_n136_p160"])
+@pytest.mark.parametrize("BG, Q, N, Hg, P, pad, x_offset, route", [
+    (4, 512, 128, 1, 128, 8, 0, None), (2, 1024, 512, 8, 64, 8, 0, None),
+    (3, 77, 40, 3, 33, 7, 0, None), (3, 200, 64, 2, 64, 5, 1, None),
+    (2, 130, 136, 1, 160, 8, 0, None),
+    (2, 1024, 512, 8, 64, 16, 0, "cp.async16"), (2, 192, 65, 2, 64, 16, 0, "ordinary"),
+    (2, 1000, 512, 8, 64, 16, 0, "cp.async16")],
+    ids=["mqar_like", "wikitext_bg2", "ragged", "unaligned", "ragged_n136_p160",
+         "wikitext_bg2_c_b_16_byte_views", "odd_n_ordinary_loads", "q1000_past_a_tile"])
 def test_decay_attention_bf16_kernels_through_autograd_match_plain(
-        cuda_device, BG, Q, N, Hg, P, pad, x_offset):
+        cuda_device, BG, Q, N, Hg, P, pad, x_offset, route):
     """The bfloat16 kernels through ``decay_attention``'s autograd against the
     plain bfloat16 version (its forward and backward functions) on the card,
     on the same bfloat16 inputs (cs float32): at the MQAR and WikiText Mamba-2 widths, at ragged
     Q, N and P (Q 77 and 130 past a 64-row tile, N 40 and 136, P 33 and 160
     past a 128-wide slice), and with C, xdt and dy unaligned (the kernels
     then load them 2 bytes at a time).  Each launches once, counted under
-    its ``_bf16`` name, and the float32 counts stay."""
+    its ``_bf16`` name, and the float32 counts stay.  Where ``route`` is
+    given the case pins how the forward and bwd_j land their tiles
+    (``decay_attention.load_route``): C and B as 16-byte aligned strided
+    views, as ``ops/ssd.py`` hands them over (``pad`` 16: 8 elements into
+    rows of N + 16), by 16-byte ``cp.async``; an odd N by ordinary loads;
+    and Q 1000, not a multiple of the 64-row tile.  Every case's launches
+    are counted under the route ``load_route`` gives."""
     from tlie_tpu_torch.ops import decay_attention as da
 
     _, B, cs, _, _ = _decay_inputs(cuda_device, BG, Q, N, Hg, P, seed=Q + 1)
@@ -534,13 +544,26 @@ def test_decay_attention_bf16_kernels_through_autograd_match_plain(
     names = [da.launch_name(k, d) for k in ("fwd", "bwd_i", "bwd_j")
              for d in (torch.float32, torch.bfloat16)]
     before = {k: LAUNCHES[k] for k in names}
-    leaves = [t.detach().clone().requires_grad_() for t in (C, B, cs, x)]
-    y = da.decay_attention(*leaves)
+    routes_before = dict(da.LOAD_ROUTES)
+    # C and xdt reach the kernels as the views they are (their storage
+    # differentiated through the view), B and cs as leaves
+    c_base, x_base = (t._base.detach().clone().requires_grad_() for t in (C, x))
+    c_in = c_base[:, :, pad // 2:pad // 2 + N]
+    x_in = x_base[x_offset:].view(BG, Hg, Q, P)
+    b_in, cs_in = (t.detach().clone().requires_grad_() for t in (B, cs))
+    assert c_in.stride() == C.stride() and x_in.data_ptr() % 16 == x.data_ptr() % 16
+    y = da.decay_attention(c_in, b_in, cs_in, x_in)
     y.backward(dy)
     torch.cuda.synchronize()
     want_counts = {k: int(k.endswith("_bf16")) for k in names}
     assert {k: LAUNCHES[k] - n for k, n in before.items()} == want_counts
-    got = (y, leaves[0].grad, leaves[2].grad, leaves[1].grad, leaves[3].grad)
+    got_route = da.load_route(c_in, b_in, x_in, dy)
+    assert route is None or got_route == route
+    assert {k: n - routes_before.get(k, 0) for k, n in da.LOAD_ROUTES.items()
+            if n != routes_before.get(k, 0)} == {
+        f"decay_attention_fwd_bf16:{got_route}": 1, f"decay_attention_bwd_j_bf16:{got_route}": 1}
+    got = (y, c_base.grad[:, :, pad // 2:pad // 2 + N], cs_in.grad, b_in.grad,
+           x_base.grad[x_offset:].view(BG, Hg, Q, P))
     assert [t.dtype for t in got] == [torch.bfloat16] * 2 + [torch.float32] + [torch.bfloat16] * 2
     # the plain version's forward and its backward functions (not autograd
     # through the plain forward, which would not round dCB)

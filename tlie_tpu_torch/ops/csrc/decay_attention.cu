@@ -9,7 +9,8 @@
 //   tlie_decay_attention_fwd_f32   <- _fwd (pallas_call at :252, body _fwd_kernel)
 //   tlie_decay_attention_bwd_i_f32 <- the pallas_call at :272 (_bwd_i_kernel): dC, +dcs_i
 //   tlie_decay_attention_bwd_j_f32 <- the pallas_call at :293 (_bwd_j_kernel): dB, dx, -dcs_j
-// and tlie_decay_attention_{fwd,bwd_i,bwd_j}_bf16, the same on bfloat16 operands (below).
+// and tlie_decay_attention_bwd_i_bf16, bwd_i on bfloat16 operands (below); the
+// forward and bwd_j on bfloat16 operands are decay_attention_bf16.cu's.
 // What they compute is carried over, not their blocks.
 //
 // Layout. C and B are (BG, Q, N) with the last dimension contiguous and any
@@ -104,9 +105,11 @@
 // registers, 194,560 bytes, and bwd_i 216 registers, 176,128 bytes, one
 // block of 8 warps an SM; no spills.
 //
-// bfloat16 operands (tlie_decay_attention_*_bf16, the same three kernels
-// instantiated on T = __nv_bfloat16): C, B, x, dy, y, dC, dB and dx are
-// bfloat16, cs, dcs_i and dcs_j float32. They compute what the Pallas kernels
+// bfloat16 operands (tlie_decay_attention_bwd_i_bf16, bwd_i instantiated on
+// T = __nv_bfloat16; the forward and bwd_j on bfloat16 operands, once these
+// templates on it too, are redesigned in decay_attention_bf16.cu, and the
+// templates' bfloat16 paths below serve bwd_i alone): C, B, x, dy, y, dC, dB
+// and dx are bfloat16, cs, dcs_i and dcs_j float32. They compute what the Pallas kernels
 // compute on bfloat16 operands: C.B accumulated in float32; the score
 // S = C.B * decay rounded to bfloat16 before S x (forward) and S^T dy (bwd_j);
 // dS = dy x^T in float32, dcs from dS * decay * C.B in float32; dCB = the sum
@@ -118,9 +121,9 @@
 // deep into a fresh sum before the float32 add. The tiles are read from
 // device memory into the same float32 shared-memory tiles (converted as they
 // land, by ordinary loads: cp.async copies bytes and cannot convert), and
-// packed into bfloat16 pairs as each fragment is read. ptxas (CUDA 12.8): the
-// forward 232 registers, bwd_j 244 and bwd_i 248, no spills; the shared
-// memory and launch bounds are the float32 kernels'.
+// packed into bfloat16 pairs as each fragment is read. ptxas (CUDA 12.8): bwd_i
+// 248 registers, no spills; the shared memory and launch bounds are the
+// float32 kernel's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1093,4 +1096,12 @@ int launch_bwd_j(const T* C, const T* B, const float* cs, const T* x, const T* d
   }
 
 TLIE_DECAY_ENTRIES(f32, float)
-TLIE_DECAY_ENTRIES(bf16, __nv_bfloat16)
+
+// bwd_i on bfloat16 operands (the bfloat16 forward and bwd_j are in decay_attention_bf16.cu)
+extern "C" int tlie_decay_attention_bwd_i_bf16(
+    const __nv_bfloat16* C, const __nv_bfloat16* B, const float* cs, const __nv_bfloat16* x,
+    const __nv_bfloat16* dy, __nv_bfloat16* dC, float* dcs_i, int64_t BG, int64_t Q, int64_t N,
+    int64_t Hg, int64_t P, int64_t c_bs, int64_t c_ld, int64_t b_bs, int64_t b_ld, void* stream) {
+  return launch_bwd_i<__nv_bfloat16>(C, B, cs, x, dy, dC, dcs_i, BG, Q, N, Hg, P, c_bs, c_ld,
+                                     b_bs, b_ld, stream);
+}

@@ -11,13 +11,17 @@ the j-indexed one dB, dxdt and −dcs_j, and ``dcs = dcs_i + dcs_j``.
 
 Where the work runs follows the tensors:
 
-* CUDA tensors go to the three kernels of ``csrc/decay_attention.cu``
-  (:func:`decay_attention_fwd_cuda`, :func:`decay_attention_bwd_i_cuda`,
-  :func:`decay_attention_bwd_j_cuda`), which replace the reference's three
-  Pallas kernels; the (Q, Q) scores never reach device memory.  All three
-  run their products on the tensor cores: on float32 operands each as three
-  TF32 products of a split operand (float32 accuracy), on bfloat16 operands
-  as one bfloat16 product.  There is no fallback: a tensor they
+* CUDA tensors go to three kernels (:func:`decay_attention_fwd_cuda`,
+  :func:`decay_attention_bwd_i_cuda`, :func:`decay_attention_bwd_j_cuda`),
+  which replace the reference's three Pallas kernels; the (Q, Q) scores
+  never reach device memory.  On float32 operands all three are
+  ``csrc/decay_attention.cu``'s, each product three TF32 products of a
+  split operand (float32 accuracy); on bfloat16 operands the forward and
+  bwd_j are ``csrc/decay_attention_bf16.cu``'s (bfloat16 tiles in shared
+  memory, landed by 16-byte ``cp.async`` where the shapes and pointers
+  allow it, else by ordinary loads, see :func:`load_route`) and bwd_i
+  ``decay_attention.cu``'s,
+  each product one bfloat16 product.  There is no fallback: a tensor they
   do not take raises.
 * CPU tensors go to :func:`decay_attention_plain`,
   :func:`decay_attention_bwd_i_plain` and :func:`decay_attention_bwd_j_plain`:
@@ -37,7 +41,8 @@ the score C·B·decay rounded to bfloat16 before its product with xdt (and
 dy), dS = dy·xdtᵀ and both halves of dcs in float32, the sum over heads of
 dS·decay rounded to bfloat16 before its products with B and C, and y, dC, dB
 and dxdt rounded to bfloat16 from their float32 sums; dcs comes back in
-float32.  Their launches count under ``decay_attention_*_bf16``.
+float32.  Their launches count under ``decay_attention_*_bf16``, and the
+forward's and bwd_j's also under their load route in :data:`LOAD_ROUTES`.
 C and B may be views with any batch and row strides (the SSD
 slices them out of the conv output, and the kernels read them in place);
 their last dimension, and all of cs, xdt and the cotangent, must be
@@ -47,7 +52,7 @@ contiguous.  Anything else raises, on every device.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -58,12 +63,20 @@ _ARGS = {"fwd": (_P,) * 5 + (_I,) * 9 + (_P,), "bwd_i": (_P,) * 7 + (_I,) * 9 + 
          "bwd_j": (_P,) * 8 + (_I,) * 9 + (_P,)}
 # the entry points of each operand dtype, and the suffix of their names and counts
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# the bfloat16 forward and bwd_j, redesigned for bfloat16 tiles in shared memory
+_BF16_OWN = ("fwd", "bwd_j")
 DECAY_ATTENTION = CudaLibrary("decay_attention", {
-    f"tlie_decay_attention_{k}_{sfx}": args for k, args in _ARGS.items()
-    for sfx in _SUFFIX.values()})
+    **{f"tlie_decay_attention_{k}_f32": args for k, args in _ARGS.items()},
+    "tlie_decay_attention_bwd_i_bf16": _ARGS["bwd_i"]})
+DECAY_ATTENTION_BF16 = CudaLibrary("decay_attention_bf16", {
+    f"tlie_decay_attention_{k}_bf16": _ARGS[k] for k in _BF16_OWN})
 for _k in _ARGS:
     LAUNCHES.setdefault(f"decay_attention_{_k}", 0)
     LAUNCHES.setdefault(f"decay_attention_{_k}_bf16", 0)
+# Launches of the bfloat16 forward and bwd_j by how their tiles land,
+# "<launch name>:<route>" (see load_route); each wrapper adds one where it
+# launches, beside its LAUNCHES count.
+LOAD_ROUTES: Dict[str, int] = {}
 
 
 def launch_name(kernel: str, dtype: torch.dtype) -> str:
@@ -244,13 +257,44 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _library(kernel: str, dtype: torch.dtype) -> CudaLibrary:
+    """The library that holds ``kernel`` on operands of ``dtype``."""
+    return DECAY_ATTENTION_BF16 if dtype == torch.bfloat16 and kernel in _BF16_OWN \
+        else DECAY_ATTENTION
+
+
 def _entry(kernel: str, dtype: torch.dtype):
-    return DECAY_ATTENTION.fn(f"tlie_decay_attention_{kernel}_{_SUFFIX[dtype]}")
+    return _library(kernel, dtype).fn(f"tlie_decay_attention_{kernel}_{_SUFFIX[dtype]}")
+
+
+def load_route(Cm, Bm, xdt, dy=None) -> str:
+    """How ``csrc/decay_attention_bf16.cu`` lands these bfloat16 operands in
+    shared memory, by its ``vec_tiles``: ``cp.async16`` (16-byte
+    ``cp.async``) where N, P and C's and B's batch and row strides are
+    multiples of 8 elements and the bases of C, B, xdt (and dy) 16-byte
+    aligned, else ``ordinary`` (ordinary loads, for every tile)."""
+    strides = (*Cm.stride()[:2], *Bm.stride()[:2])
+    ptrs = Cm.data_ptr() | Bm.data_ptr() | xdt.data_ptr() | (dy.data_ptr() if dy is not None
+                                                             else 0)
+    vec = (Cm.shape[2] % 8 == 0 and xdt.shape[3] % 8 == 0 and all(s % 8 == 0 for s in strides)
+           and ptrs % 16 == 0)
+    return "cp.async16" if vec else "ordinary"
+
+
+def _count(kernel: str, dtype: torch.dtype, *operands) -> None:
+    """Add one launch of ``kernel`` on ``dtype`` operands to LAUNCHES and,
+    for the bfloat16 forward and bwd_j, to LOAD_ROUTES."""
+    name = launch_name(kernel, dtype)
+    LAUNCHES[name] += 1
+    if dtype == torch.bfloat16 and kernel in _BF16_OWN:
+        key = f"{name}:{load_route(*operands)}"
+        LOAD_ROUTES[key] = LOAD_ROUTES.get(key, 0) + 1
 
 
 def decay_attention_fwd_cuda(Cm, Bm, cs, xdt) -> torch.Tensor:
-    """Launch the forward of ``csrc/decay_attention.cu`` for the operands'
-    dtype: y, as :func:`decay_attention_plain`."""
+    """Launch the forward for the operands' dtype (``csrc/decay_attention.cu``
+    on float32, ``csrc/decay_attention_bf16.cu`` on bfloat16): y, as
+    :func:`decay_attention_plain`."""
     dev, dims, empty = _cuda_args("decay_attention_fwd_cuda", Cm, Bm, cs, xdt)
     y = torch.empty_like(xdt)
     if empty:
@@ -259,9 +303,8 @@ def decay_attention_fwd_cuda(Cm, Bm, cs, xdt) -> torch.Tensor:
     with torch.cuda.device(dev):
         err = fn(Cm.data_ptr(), Bm.data_ptr(), cs.data_ptr(), xdt.data_ptr(), y.data_ptr(),
                  *dims, _stream(dev))
-    name = launch_name("fwd", xdt.dtype)
-    check(err, name)
-    LAUNCHES[name] += 1
+    check(err, launch_name("fwd", xdt.dtype))
+    _count("fwd", xdt.dtype, Cm, Bm, xdt)
     return y
 
 
@@ -278,16 +321,16 @@ def decay_attention_bwd_i_cuda(Cm, Bm, cs, xdt, dy) -> Tuple[torch.Tensor, torch
     with torch.cuda.device(dev):
         err = fn(Cm.data_ptr(), Bm.data_ptr(), cs.data_ptr(), xdt.data_ptr(), dy.data_ptr(),
                  dC.data_ptr(), dcs_i.data_ptr(), *dims, _stream(dev))
-    name = launch_name("bwd_i", xdt.dtype)
-    check(err, name)
-    LAUNCHES[name] += 1
+    check(err, launch_name("bwd_i", xdt.dtype))
+    _count("bwd_i", xdt.dtype)
     return dC, dcs_i
 
 
 def decay_attention_bwd_j_cuda(Cm, Bm, cs, xdt, dy):
-    """Launch the j-indexed backward of ``csrc/decay_attention.cu``:
-    (dB, dxdt, dcs_j), as :func:`decay_attention_bwd_plain`; dB is
-    contiguous (BG, Q, N)."""
+    """Launch the j-indexed backward for the operands' dtype
+    (``csrc/decay_attention.cu`` on float32, ``csrc/decay_attention_bf16.cu``
+    on bfloat16): (dB, dxdt, dcs_j), as :func:`decay_attention_bwd_plain`;
+    dB is contiguous (BG, Q, N)."""
     dev, dims, empty = _cuda_args("decay_attention_bwd_j_cuda", Cm, Bm, cs, xdt, dy)
     dB = torch.empty(Bm.shape, device=dev, dtype=Bm.dtype)
     dxdt = torch.empty_like(xdt)
@@ -298,7 +341,6 @@ def decay_attention_bwd_j_cuda(Cm, Bm, cs, xdt, dy):
     with torch.cuda.device(dev):
         err = fn(Cm.data_ptr(), Bm.data_ptr(), cs.data_ptr(), xdt.data_ptr(), dy.data_ptr(),
                  dB.data_ptr(), dxdt.data_ptr(), dcs_j.data_ptr(), *dims, _stream(dev))
-    name = launch_name("bwd_j", xdt.dtype)
-    check(err, name)
-    LAUNCHES[name] += 1
+    check(err, launch_name("bwd_j", xdt.dtype))
+    _count("bwd_j", xdt.dtype, Cm, Bm, xdt, dy)
     return dB, dxdt, dcs_j
