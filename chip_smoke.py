@@ -319,19 +319,32 @@ def nvidia_smi_line() -> str:
 TC_KERNELS = {"fwd_p64": "fused_xent", "dh_p64": "fused_xent", "dh_p32": "fused_xent",
               "dw_p64": "fused_xent", "dw_p32": "fused_xent",
               "fwd_p64_bf16": "fused_xent_bf16", "dh_p64_bf16": "fused_xent_bf16",
-              "dh_p32_bf16": "fused_xent_bf16", "dw_p64_bf16": "fused_xent_bf16",
-              "dw_p32_bf16": "fused_xent_bf16",
+              "dh_p32_bf16": "fused_xent_bf16", "dw_v64_bf16": "fused_xent_bf16",
+              "dw_v32_bf16": "fused_xent_bf16",
               "flash_fwd": "flash_attention", "flash_bwd_dkv": "flash_attention",
               "flash_bwd_dq": "flash_attention",
               "decay_fwd": "decay_attention", "decay_bwd_i": "decay_attention",
               "decay_bwd_j": "decay_attention", "decay_fwd_bf16": "decay_attention_bf16",
-              "decay_bwd_i_bf16": "decay_attention", "decay_bwd_j_bf16": "decay_attention_bf16"}
+              "decay_bwd_i_bf16": "decay_attention_bf16",
+              "decay_bwd_j_bf16": "decay_attention_bf16"}
 # the HMMA each tensor-core kernel must hold: TF32 for the float32 kernels,
-# bfloat16 for the decay attention's bfloat16 kernels (bwd_i's instantiation
-# and decay_attention_bf16.cu's forward and bwd_j) and the fused head's
-# bfloat16 kernels
+# bfloat16 for the decay attention's bfloat16 kernels (decay_attention_bf16.cu)
+# and the fused head's bfloat16 kernels
 TC_HMMA = {name: "HMMA.16816.F32.BF16" if name.endswith("_bf16") else "HMMA.1688.F32.TF32"
            for name in TC_KERNELS}
+# the kernels whose products may run on wgmma instead: a bfloat16 HGMMA
+# (HGMMA.<shape>.F32.BF16) stands for their HMMA
+TC_HGMMA = {"dw_v64_bf16"}
+
+
+def tensor_core_ops_ok(hmma: dict) -> bool:
+    """Whether every tensor-core kernel of TC_KERNELS holds its HMMA, or,
+    for those of TC_HGMMA, a bfloat16 HGMMA: a kernel with neither fails."""
+    return sorted(hmma) == sorted(TC_KERNELS) and all(
+        hmma[name].get(op, 0) > 0 or (name in TC_HGMMA and any(
+            o.startswith("HGMMA.") and o.endswith(".F32.BF16") and n > 0
+            for o, n in hmma[name].items()))
+        for name, op in TC_HMMA.items())
 
 
 def ptxas_spills(log: str) -> list:
@@ -342,28 +355,29 @@ def ptxas_spills(log: str) -> list:
 
 
 def tensor_core_hmma(lib_paths, nvcc: str) -> dict:
-    """The HMMA opcodes, with their counts, of each tensor-core kernel in the
+    """The HMMA and HGMMA opcodes, with their counts, of each tensor-core kernel in the
     built libraries, from ``cuobjdump -sass`` (beside ``nvcc``): each
     instantiation of the fused head's forward and backward kernels on
-    float32 and on bfloat16 operands, the flash attention's three, and the
-    decay attention's forward, bwd_i and bwd_j on float32 and on bfloat16
-    operands (every instantiation of ``decay_attention_bf16.cu``'s forward
-    and bwd_j counted under one name each), {"dh_p64": {"HMMA.1688.F32.TF32":
-    192}, ...}."""
+    float32 and on bfloat16 operands (on bfloat16 the dh instantiations and
+    the dW/db kernel's, ``dw_v64_bf16`` and ``dw_v32_bf16`` by vocabulary
+    rows a block), the flash attention's three, and the decay attention's
+    forward, bwd_i and bwd_j on float32 and on bfloat16 operands (every
+    instantiation of ``decay_attention_bf16.cu``'s three counted under one
+    name each), {"dh_p64": {"HMMA.1688.F32.TF32": 192}, ...}."""
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
-    instr = re.compile(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?(HMMA\S*)")
+    instr = re.compile(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?((?:HMMA|HGMMA)\S*)")
     names = ((re.compile(r"xent_bwd_kernelILb([01])ELi(\d+)E"),
               lambda m: f"{'dw' if m.group(1) == '1' else 'dh'}_p{m.group(2)}"),
              (re.compile(r"xent_fwd_kernelILi(\d+)E"), lambda m: f"fwd_p{m.group(1)}"),
-             (re.compile(r"xent_bwd_bf16_kernelILb([01])ELi(\d+)E"),
-              lambda m: f"{'dw' if m.group(1) == '1' else 'dh'}_p{m.group(2)}_bf16"),
+             (re.compile(r"xent_dh_bf16_kernelILi(\d+)E"), lambda m: f"dh_p{m.group(1)}_bf16"),
              (re.compile(r"xent_fwd_bf16_kernelILi(\d+)E"), lambda m: f"fwd_p{m.group(1)}_bf16"),
+             (re.compile(r"xent_dw_bf16_kernelILi(\d+)E"), lambda m: f"dw_v{m.group(1)}_bf16"),
              (re.compile(r"flash_attention_fwd_kernel"), lambda m: "flash_fwd"),
              (re.compile(r"flash_attention_bwd_dkv_kernel"), lambda m: "flash_bwd_dkv"),
              (re.compile(r"flash_attention_bwd_dq_kernel"), lambda m: "flash_bwd_dq"),
-             (re.compile(r"decay_attention_(fwd|bwd_i|bwd_j)_kernelI(f|13__nv_bfloat16)E"),
-              lambda m: f"decay_{m.group(1)}" + ("" if m.group(2) == "f" else "_bf16")),
-             (re.compile(r"decay_attention_(fwd|bwd_j)_bf16_kernelILi\d+E"),
+             (re.compile(r"decay_attention_(fwd|bwd_i|bwd_j)_kernelE"),
+              lambda m: f"decay_{m.group(1)}"),
+             (re.compile(r"decay_attention_(fwd|bwd_i|bwd_j)_bf16_kernelILi\d+E"),
               lambda m: f"decay_{m.group(1)}_bf16"))
     counts = {}
     for lib_path in lib_paths:
@@ -1617,11 +1631,11 @@ def wikitext_mamba2_path(dev, splits, config: str, tag: str, want_files):
             want.update(dict.fromkeys(head_names, WT_STEPS))
             if launches != want:
                 raise AssertionError(f"{tag} training launches {launches}, expected {want}")
-            # how the bfloat16 forward's and bwd_j's tiles landed: by 16-byte
-            # cp.async, C and B (views into the conv output) and xdt alike
+            # how the bfloat16 kernels' tiles landed: by 16-byte cp.async, C
+            # and B (views into the conv output), xdt and dy alike
             routes = dict(LOAD_ROUTES)
             if dtype == torch.bfloat16 and (
-                    sum(routes.values()) != launches[names["fwd"]] + launches[names["bwd_j"]]
+                    sum(routes.values()) != sum(launches[n] for n in names.values())
                     or any(not k.endswith(":cp.async16") for k in routes)):
                 raise AssertionError(f"{tag} bfloat16 load routes {routes}")
             if len(dense_steps) != (0 if fused else WT_STEPS):
@@ -1928,15 +1942,13 @@ def main() -> int:
             ph.fields[f"{name}_spill_bytes"] = repr(ptxas_spills(report.log))
         # the fused head's three kernels, the flash attention's three and the
         # decay attention's three run their products on the tensor cores:
-        # each one's SASS holds TF32 HMMAs, and the decay attention's
-        # bfloat16 instantiations and the fused head's bfloat16 kernels
-        # bfloat16 ones
+        # each one's SASS holds TF32 HMMAs, and the decay attention's and
+        # the fused head's bfloat16 kernels bfloat16 ones
         hmma = tensor_core_hmma(
             [reports[lib].path for lib in sorted(set(TC_KERNELS.values()))], find_nvcc())
         ph.fields["tensor_core_sass_hmma"] = repr(hmma)
-        if sorted(hmma) != sorted(TC_KERNELS) or not all(
-                hmma[name].get(op, 0) > 0 for name, op in TC_HMMA.items()):
-            raise AssertionError(f"tensor-core kernels without their HMMA: {hmma}")
+        if not tensor_core_ops_ok(hmma):
+            raise AssertionError(f"tensor-core kernels without their HMMA or HGMMA: {hmma}")
 
     # 3. each kernel against its plain version, at the path's shape and two others
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -2842,14 +2854,15 @@ def main() -> int:
             if shape.startswith("wikitext"):
                 decay_bf16_times = times
             del ins
-        # the forward and bwd_j at the WikiText Mamba-2 shape with C 8 bytes
-        # off a 16-byte boundary, so every tile lands by ordinary loads (no
-        # main path hands them so): what that route costs
+        # the three at the WikiText Mamba-2 shape with C 8 bytes off a
+        # 16-byte boundary, so every tile lands by ordinary loads (no main
+        # path hands them so): what that route costs
         ins = decay_inputs(dev, gen, *SSD_BF16_SHAPES["wikitext_bg8_q1024_n512_hg8_p64"],
                            dtype=torch.bfloat16, c_offset_bytes=8)
         ph.fields["c_8_bytes_off_load_route"] = dattn.load_route(ins[0], ins[1], ins[3], ins[4])
         with torch.no_grad():
             for name, fn in (("fwd", lambda: dattn.decay_attention_fwd_cuda(*ins[:4])),
+                             ("bwd_i", lambda: dattn.decay_attention_bwd_i_cuda(*ins)),
                              ("bwd_j", lambda: dattn.decay_attention_bwd_j_cuda(*ins))):
                 ph.fields[f"decay_attention_{name}_bf16_ordinary_route_ms_cold_median"] = (
                     f"{median(cuda_ms(fn, 21, flush)):.5f}")
@@ -2974,9 +2987,7 @@ def main() -> int:
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": "tlie_tpu_torch/ops/csrc/" + (
-                "decay_attention.cu" if name == "decay_attention_bwd_i_bf16"
-                else "decay_attention_bf16.cu"),
+            "source": "tlie_tpu_torch/ops/csrc/decay_attention_bf16.cu",
             "replaces": replaces[name],
             "launches": path4_all[name] + late(name),
             "max_abs_err": decay_bf16_errs[name],

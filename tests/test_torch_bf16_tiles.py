@@ -1,7 +1,6 @@
 """The numerical design of the decay attention's bfloat16 kernels
-(``tlie_decay_attention_*_bf16``: the forward and bwd_j in
-``tlie_tpu_torch/ops/csrc/decay_attention_bf16.cu``, bwd_i in
-``decay_attention.cu``), emulated on the CPU.
+(``tlie_decay_attention_*_bf16``, all three in
+``tlie_tpu_torch/ops/csrc/decay_attention_bf16.cu``), emulated on the CPU.
 
 On bfloat16 operands every product of the three kernels takes bfloat16
 values, whose products are exact in float32, so each runs as one
@@ -18,9 +17,7 @@ algebra in float64 within 1e-5 of each element's sum of term magnitudes
 (``decay_attention.term_scales``), the tolerance the card holds the float32
 kernels to.  Leaving the scores or dCB unrounded fails it, so the test sees
 the rounding points.  The tile and depth constants and the rounding calls
-are read from the sources: the forward's and bwd_j's from
-``decay_attention_bf16.cu``, bwd_i's from ``decay_attention.cu`` (and its
-``tf32_mma.cuh``).
+are read from ``decay_attention_bf16.cu``.
 """
 
 import re
@@ -34,8 +31,7 @@ from tlie_tpu_torch.ops import decay_attention as da
 
 torch.set_num_threads(1)
 CSRC = Path(da.__file__).resolve().parent / "csrc"
-SOURCE = (CSRC / "decay_attention.cu").read_text()        # bwd_i
-SOURCE_BF16 = (CSRC / "decay_attention_bf16.cu").read_text()  # the forward and bwd_j
+SOURCE_BF16 = (CSRC / "decay_attention_bf16.cu").read_text()
 SSD_RTOL = 1e-5
 
 
@@ -55,30 +51,29 @@ def test_the_source_is_what_the_emulation_follows():
     their float32 sums."""
     assert (KT, KFRESH) == (64, 16)
     assert _constant((CSRC / "tf32_mma.cuh").read_text(), "kT") == KT
-    assert _constant(SOURCE, "kFreshBf16") == KFRESH
-    for src in (SOURCE, SOURCE_BF16):
-        assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in SOURCE_BF16
     # the forward: S = C.B * decay, rounded as it is packed into A fragments
     assert SOURCE_BF16.count(
         "? cb[2 * kk + u][2 * hh + e] * decay_exp(csi[c][hh] - csj[lj])") == 1
     assert SOURCE_BF16.count("a[0] = pack_bf16(s[0][0][0], s[0][0][1]);") == 1
-    # bwd_j: S^T and Dh from one decay, dCB^T summed head after head from
-    # zero in the head loop and rounded once after it, S^T rounded once
-    assert SOURCE_BF16.count("const float dh = ds[n][2 * hh + e] * dec;") == 1
+    # bwd_j and bwd_i: Dh from one decay, dCB^T (dCB) summed head after head
+    # from zero in the head loop and rounded once after it; bwd_j's S^T
+    # rounded once
+    assert SOURCE_BF16.count("const float dh = ds[n][2 * hh + e] * dec;") == 2
     assert SOURCE_BF16.count(
-        "dcb[n][2 * hh + e] = h > 0 ? dcb[n][2 * hh + e] + dh : dh;") == 1
-    assert SOURCE_BF16.count("for (int h = 0; h < Hg; ++h) {") == 1
+        "dcb[n][2 * hh + e] = h > 0 ? dcb[n][2 * hh + e] + dh : dh;") == 2
+    assert SOURCE_BF16.count("for (int h = 0; h < Hg; ++h) {") == 2
     assert SOURCE_BF16.count("st2[e] = cb * dec;") == 1
     assert SOURCE_BF16.count("__floats2bfloat162_rn(st2[0], st2[1])") == 1
-    assert SOURCE_BF16.count("__floats2bfloat162_rn(dcb[n][2 * hh], dcb[n][2 * hh + 1])") == 1
+    assert SOURCE_BF16.count("__floats2bfloat162_rn(dcb[n][2 * hh], dcb[n][2 * hh + 1])") == 2
     assert SOURCE_BF16.count("yr[col] = __float2bfloat16_rn(acc[c][n][2 * hh + e]);") == 1
     assert SOURCE_BF16.count("out[lj * ld + col] = __float2bfloat16_rn(v[n][2 * hh + e]);") == 1
     assert SOURCE_BF16.count("constexpr int kT = 64;") == 1
-    # bwd_i (and the float32 bwd_j template beside it): dCB rounded after the last head
-    assert len(re.findall(r"if \(h == d\.Hg - 1\) sum = make_float2\(round_as<T>", SOURCE)) == 2
-    assert len(re.findall(r"store_as\(", SOURCE)) >= 5
-    assert 'extern "C" int tlie_decay_attention_bwd_i_bf16(' in SOURCE
-    assert "return launch_bwd_i<__nv_bfloat16>(" in SOURCE
+    # bwd_i: dcs_i from Dh and CB in float32, dC rounded once from its float32 sums
+    assert SOURCE_BF16.count("part = fmaf(dh, e ? cb2.y : cb2.x, part);") == 1
+    assert SOURCE_BF16.count(
+        "if (n0 + col < N) out[li * d.N + col] = __float2bfloat16_rn(v[n][2 * hh + e]);") == 1
+    assert 'extern "C" int tlie_decay_attention_bwd_i_bf16(' in SOURCE_BF16
 
 
 def _bf16(t: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
-"""The decay attention's bfloat16 kernels as the port binds them: the forward
-and bwd_j from ``csrc/decay_attention_bf16.cu``, bwd_i from
-``csrc/decay_attention.cu`` beside the three float32 kernels.
+"""The decay attention's bfloat16 kernels as the port binds them: all three
+from ``csrc/decay_attention_bf16.cu``, the three float32 kernels from
+``csrc/decay_attention.cu``.
 
 On the CPU no kernel builds or runs: these tests hold the bindings to the
 sources (one library entry for each kernel and operand dtype, no symbol
@@ -43,13 +43,13 @@ def _exported(src: str) -> set:
 @pytest.mark.parametrize("dtype", list(DTYPES), ids=list(DTYPES.values()))
 def test_each_kernel_and_dtype_has_one_library_entry(kernel, dtype):
     """Each of the six (kernel, dtype) pairs is an entry of exactly one
-    library, the one the wrappers take it from: the bfloat16 forward and
-    bwd_j of ``decay_attention_bf16``, the rest of ``decay_attention``."""
+    library, the one the wrappers take it from: the bfloat16 kernels of
+    ``decay_attention_bf16``, the float32 ones of ``decay_attention``."""
     entry = f"tlie_decay_attention_{kernel}_{DTYPES[dtype]}"
     owners = [lib for lib in (da.DECAY_ATTENTION, da.DECAY_ATTENTION_BF16)
               if entry in lib.signatures]
     assert owners == [da._library(kernel, dtype)]
-    new = dtype == torch.bfloat16 and kernel != "bwd_i"
+    new = dtype == torch.bfloat16
     assert owners[0].name == ("decay_attention_bf16" if new else "decay_attention")
     assert da.launch_name(kernel, dtype) in LAUNCHES
 
@@ -63,7 +63,7 @@ def test_the_sources_define_each_entry_once():
     assert old == set(da.DECAY_ATTENTION.signatures)
     assert new == set(da.DECAY_ATTENTION_BF16.signatures)
     assert len(old | new) == 6
-    assert "TLIE_DECAY_ENTRIES(bf16" not in OLD
+    assert "TLIE_DECAY_ENTRIES(bf16" not in OLD and "_bwd_i_bf16(" not in OLD
 
 
 def _inputs(BG, Q, N, Hg, P, seed, dtype=torch.bfloat16):
@@ -116,7 +116,9 @@ def test_load_route_follows_the_sources_conditions(N, pad, off, P, x_off, want):
     strides are multiples of 8 elements and the bases of C, B, xdt and dy
     16-byte aligned (``vec_tiles``), ordinary loads otherwise.  The source
     tests those conditions in the same terms, and picks its kernels'
-    instantiation by them on the host."""
+    instantiation by them on the host: the forward on C, B and xdt, bwd_i
+    and bwd_j on C, B, xdt and dy.  A launch of each counts under the
+    route it takes."""
     C, B, x, dy = _views(N, pad, off, P, x_off)
     if pad:
         assert C.data_ptr() - C._base.data_ptr() == 2 * off
@@ -126,7 +128,22 @@ def test_load_route_follows_the_sources_conditions(N, pad, off, P, x_off, want):
             "          reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(dy)) % 16 == 0"
             ) in NEW
     assert NEW.count("if (vec_tiles(C, B, x, x, d))") == 1
-    assert NEW.count("if (vec_tiles(C, B, x, dy, d))") == 1
+    assert NEW.count("if (vec_tiles(C, B, x, dy, d))") == 2
+    routes = {}
+    for kernel in ("fwd", "bwd_i", "bwd_j"):
+        saved = dict(da.LOAD_ROUTES)
+        try:
+            da.LOAD_ROUTES.clear()
+            da._count(kernel, torch.bfloat16, C, B, x, *((dy,) if kernel != "fwd" else ()))
+            routes.update(da.LOAD_ROUTES)
+        finally:
+            LAUNCHES[da.launch_name(kernel, torch.bfloat16)] -= 1
+            da.LOAD_ROUTES.clear()
+            da.LOAD_ROUTES.update(saved)
+    want_fwd = da.load_route(C, B, x)
+    assert routes == {f"decay_attention_fwd_bf16:{want_fwd}": 1,
+                      f"decay_attention_bwd_i_bf16:{want}": 1,
+                      f"decay_attention_bwd_j_bf16:{want}": 1}
     assert re.search(r"constexpr int kChunk = 8;", NEW)
 
 
@@ -141,14 +158,14 @@ def test_the_independence_checks_cover_the_binding():
 
 
 def test_chip_smoke_holds_the_new_kernels_to_bfloat16_hmma():
-    """``chip_smoke.py``'s build phase reads the bfloat16 forward and bwd_j
-    from the new library and demands ``HMMA.16816.F32.BF16`` of them, bwd_i
-    on bfloat16 from the old one."""
+    """``chip_smoke.py``'s build phase reads the three bfloat16 kernels from
+    the new library and demands ``HMMA.16816.F32.BF16`` of them."""
     cs = load_chip_smoke()
     assert cs.TC_KERNELS["decay_fwd_bf16"] == "decay_attention_bf16"
     assert cs.TC_KERNELS["decay_bwd_j_bf16"] == "decay_attention_bf16"
-    assert cs.TC_KERNELS["decay_bwd_i_bf16"] == "decay_attention"
+    assert cs.TC_KERNELS["decay_bwd_i_bf16"] == "decay_attention_bf16"
     for name in ("decay_fwd_bf16", "decay_bwd_j_bf16", "decay_bwd_i_bf16"):
         assert cs.TC_HMMA[name] == "HMMA.16816.F32.BF16"
     assert "decay_attention_fwd_bf16_kernel<kFC, kVec>" in NEW
     assert "decay_attention_bwd_j_bf16_kernel<kParts, kVec>" in NEW
+    assert "decay_attention_bwd_i_bf16_kernel<kParts, kVec>" in NEW

@@ -201,25 +201,73 @@ def _constant(name: str) -> int:
 KQ, KBK, KTD, KKC, KFWD = (_constant(n) for n in ("kQ", "kBK", "kTD", "kKC", "kFwdRows"))
 
 
+def _dw_q_tile(D: int) -> int:
+    """Rows of h in a q-tile of the dW/db kernel (``DwPlan``'s kHQ, equal to
+    its vocabulary rows a block): 64 where D rounded up to kBK is at most
+    512, 32 above.  The tile's product with bf16(t) is one fresh sum."""
+    return 64 if -(-D // KBK) * KBK <= 512 else 32
+
+
 def test_the_source_is_what_the_emulation_follows():
     """One m16n8k16 bfloat16 product with float32 accumulators; the logits
-    summed kBK deep into fresh sums, the second product over a tile's kQ
-    rows; t rounded to bfloat16 once (the pair written to shared memory),
-    db summed from the float32 t, the outputs rounded once; the forward's
-    row tile that forward_splits assumes."""
+    summed kBK deep into fresh sums; dh's second product over a tile's kQ
+    rows of the vocabulary, dW's over a q-tile's kHQ rows of h (64 at D <=
+    512, 32 above), each one fresh sum; t rounded to bfloat16 once (dh:
+    the pair written to shared memory; dW: the pair packed into an A
+    fragment), db summed from the float32 t, the outputs rounded once from
+    their float32 sums; the forward's row tile that forward_splits
+    assumes."""
     assert (KQ, KBK, KTD, KKC, KFWD) == (128, 64, 128, 32, fx._KERNEL_ROWS)
     assert KQ == fx._KERNEL_Q
     assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in SOURCE
     assert "mma.sync.aligned.m16n8k8" not in SOURCE  # no TF32 product
     assert SOURCE.count("__floats2bfloat162_rn(t[0], t[1])") == 1
-    assert SOURCE.count("db_acc[i][hh] += t[e];") == 1
     assert SOURCE.count("__float2bfloat16_rn(out_s[r * ostride + d])") == 1
-    assert SOURCE.count("db[p0 + r] = __float2bfloat16_rn(sum)") == 1
+    # the dW/db kernel's plan and rounding points
+    assert SOURCE.count("static constexpr int kHQ = kVRows;") == 1
+    assert SOURCE.count("static constexpr int kMaxD = 512 * (64 / kVRows);") == 1
+    assert SOURCE.count("? launch_dw_rows<64>(") == 1 and SOURCE.count(": launch_dw_rows<32>(") == 1
+    assert [_dw_q_tile(d) for d in (96, 512, 513, 1024)] == [64, 64, 32, 32]
+    assert SOURCE.count("ta[m / 2][2 * (m % 2)] = pack_bf16(t[0][0], t[0][1]);") == 1
+    assert SOURCE.count("if (split == 0) db_acc[hh] += t[hh][e];") == 1
+    assert SOURCE.count("for (int kk = 0; kk < kHQ / 16; ++kk) {") == 1
+    assert SOURCE.count("for (int r = 0; r < 4; ++r) acc[2 * j0 + u][r] += c[u][r];") == 1
+    # dW's logits: a kBK-deep box a fresh sum (wgmma at 64 rows a block,
+    # mma.sync at 32), added in order
+    assert SOURCE.count("static_assert(kBK == kBox && PL::kQW % 8 == 0") == 1
+    assert SOURCE.count("sw128_desc(hb + 16 * kk), kk > 0);") == 1
+    assert SOURCE.count("for (int r = 0; r < 4; ++r) s[n][r] += c[4 * n + r];") == 1
+    assert SOURCE.count("__floats2bfloat162_rn(acc[n][2 * hh], acc[n][2 * hh + 1])") == 1
+    assert SOURCE.count("db[v0 + 16 * band + g + 8 * hh] = __float2bfloat16_rn(v)") == 1
     for entry in ("tlie_fused_xent_fwd_bf16", "tlie_fused_xent_dh_bf16",
                   "tlie_fused_xent_dw_bf16"):
         assert f'extern "C" int {entry}(' in SOURCE
-    # no library call computes the products
-    assert not re.search(r"cublas|cutlass|#include <(?!cuda_bf16|cuda_runtime|cstdint)", SOURCE)
+    # no library call computes the products (cuda.h and cudaTypedefs.h for
+    # cuTensorMapEncodeTiled, which only describes h to the tensor memory
+    # accelerator)
+    assert not re.search(
+        r"cublas|cutlass|#include <(?!cuda_bf16|cuda_runtime|cstdint|cuda\.h|cudaTypedefs\.h)",
+        SOURCE)
+
+
+def test_chip_smoke_holds_the_dw_kernel_to_bfloat16_tensor_core_ops():
+    """``chip_smoke.py``'s build phase reads the dW/db kernel's two
+    instantiations from the bfloat16 library: the 32-row one must hold
+    ``HMMA.16816.F32.BF16`` (mma.sync), the 64-row one may hold a bfloat16
+    ``HGMMA`` (wgmma) in its place, and a kernel with neither fails."""
+    cs = load_chip_smoke()
+    assert cs.TC_KERNELS["dw_v64_bf16"] == cs.TC_KERNELS["dw_v32_bf16"] == "fused_xent_bf16"
+    assert "dw_p64_bf16" not in cs.TC_KERNELS and cs.TC_HGMMA == {"dw_v64_bf16"}
+    assert SOURCE.count("xent_dw_bf16_kernel<kVRows><<<") == 1
+    good = {name: {op: 4} for name, op in cs.TC_HMMA.items()}
+    assert cs.tensor_core_ops_ok(good)
+    good["dw_v64_bf16"] = {"HGMMA.64x64x16.F32.BF16": 16}
+    assert cs.tensor_core_ops_ok(good)
+    for name, ops in (("dw_v64_bf16", {"HGMMA.64x64x16.F32": 16}), ("dw_v32_bf16", {}),
+                      ("dw_v32_bf16", {"HGMMA.64x64x16.F32.BF16": 16})):
+        bad = dict(good, **{name: ops})
+        assert not cs.tensor_core_ops_ok(bad), (name, ops)
+    assert not cs.tensor_core_ops_ok({k: v for k, v in good.items() if k != "dh_p64_bf16"})
 
 
 def _logits(hp, wq, bq):
@@ -237,8 +285,9 @@ def emulated(h, w_rows, b, labels, g, round_t=True):
     rounded to bfloat16, and the float32 t that the dh and the dW pass each
     formed (M, V).  The forward walks 128-wide vocabulary tiles with a
     running (max, sum-exp, picked); each backward recomputes a tile's logits,
-    forms t, rounds it where ``round_t``, and adds the tile's product (its kQ
-    rows in one fresh sum) to a float32 accumulator, tile by tile."""
+    forms t, rounds it where ``round_t``, and adds the tile's product (dh:
+    kQ rows of the vocabulary, dW: a q-tile's rows of h, each in one fresh
+    sum) to a float32 accumulator, tile by tile."""
     M, V = h.shape[0], w_rows.shape[0]
     valid = labels != -100
     m = torch.full((M,), -1e30)
@@ -268,9 +317,10 @@ def emulated(h, w_rows, b, labels, g, round_t=True):
     for q0 in range(0, V, KQ):  # dh: the vocabulary's rows are the streamed tiles
         t = t_dh[:, q0:q0 + KQ] = t_of(slice(None), q0, q0 + KQ)
         dh += rounded(t) @ w_rows[q0:q0 + KQ]
-    for r0 in range(0, M, KQ):  # dW, db: the rows of h are the streamed tiles
-        t = t_dw[r0:r0 + KQ] = t_of(slice(r0, r0 + KQ), 0, V)
-        dw += rounded(t).t() @ h[r0:r0 + KQ]
+    hq = _dw_q_tile(h.shape[1])
+    for r0 in range(0, M, hq):  # dW, db: the rows of h are the streamed tiles
+        t = t_dw[r0:r0 + hq] = t_of(slice(r0, r0 + hq), 0, V)
+        dw += rounded(t).t() @ h[r0:r0 + hq]
         db += t.sum(0)
     return loss, lse, dh, dw, db, t_dh, t_dw
 

@@ -310,8 +310,10 @@ def test_fused_xent_autograd_goes_through_the_kernels(cuda_device):
 # (2^-7) of (|value| + its term sums), and at least 99 % of each equal to the
 # plain version's bit for bit (without the rounding of t the CPU tests find
 # 63-77 % against tlie_tpu).  The same shapes as the float32 kernels': odd_d
-# and ragged_d take the ordinary loads of tiles that 16-byte copies cannot
-# land (D % 8 != 0).
+# and ragged_d take the ordinary loads of tiles that 16-byte copies and the
+# tensor memory accelerator cannot land (D % 8 != 0), d_max the dW/db
+# kernel's 32-row plan on mma.sync (the others its 64-row plan on wgmma);
+# and once the LM head's own shape, (8192, 512, 50257).
 
 BF16_STEP = 2.0 ** -7
 BF16_EQUAL_SHARE = 0.99
@@ -336,9 +338,10 @@ def _check_bf16_grads(fx, h, w, b, labels, lse, gscale, got):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("M, D, V", [(128, 32, 100), (1024, 64, 1000), (256, 512, 50257),
-                                     (256, 1024, 3000), (384, 100, 2001), (256, 97, 1000)],
+                                     (256, 1024, 3000), (384, 100, 2001), (256, 97, 1000),
+                                     (8192, 512, 50257)],
                          ids=["v_below_tile", "ragged_v", "lm_width", "d_max", "ragged_d",
-                              "odd_d"])
+                              "odd_d", "lm_shape"])
 def test_fused_xent_bf16_kernels_match_plain(cuda_device, M, D, V):
     from tlie_tpu_torch.ops import fused_xent as fx
 
@@ -525,7 +528,7 @@ def test_decay_attention_bf16_kernels_through_autograd_match_plain(
     past a 128-wide slice), and with C, xdt and dy unaligned (the kernels
     then load them 2 bytes at a time).  Each launches once, counted under
     its ``_bf16`` name, and the float32 counts stay.  Where ``route`` is
-    given the case pins how the forward and bwd_j land their tiles
+    given the case pins how the three kernels land their tiles
     (``decay_attention.load_route``): C and B as 16-byte aligned strided
     views, as ``ops/ssd.py`` hands them over (``pad`` 16: 8 elements into
     rows of N + 16), by 16-byte ``cp.async``; an odd N by ordinary loads;
@@ -561,7 +564,7 @@ def test_decay_attention_bf16_kernels_through_autograd_match_plain(
     assert route is None or got_route == route
     assert {k: n - routes_before.get(k, 0) for k, n in da.LOAD_ROUTES.items()
             if n != routes_before.get(k, 0)} == {
-        f"decay_attention_fwd_bf16:{got_route}": 1, f"decay_attention_bwd_j_bf16:{got_route}": 1}
+        f"decay_attention_{k}_bf16:{got_route}": 1 for k in ("fwd", "bwd_i", "bwd_j")}
     got = (y, c_base.grad[:, :, pad // 2:pad // 2 + N], cs_in.grad, b_in.grad,
            x_base.grad[x_offset:].view(BG, Hg, Q, P))
     assert [t.dtype for t in got] == [torch.bfloat16] * 2 + [torch.float32] + [torch.bfloat16] * 2

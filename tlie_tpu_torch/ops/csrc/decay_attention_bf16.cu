@@ -1,16 +1,17 @@
-// The SSD decay attention's forward and its j-indexed backward on bfloat16
-// operands, designed for Hopper's shared memory and mma.sync:
+// The SSD decay attention's forward and both its backward kernels on
+// bfloat16 operands, designed for Hopper's shared memory and mma.sync:
 //
 //   y[bg,h,i,:] = sum_{j<=i} bf16(C_i . B_j * exp(cs_i - cs_j)) * x[bg,h,j,:]
 //
-// Replaces, on bfloat16 operands, two TPU kernels of tlie_tpu/ops/pallas_ssd.py:
+// Replaces, on bfloat16 operands, the three TPU kernels of tlie_tpu/ops/pallas_ssd.py:
 //   tlie_decay_attention_fwd_bf16   <- _fwd (pallas_call at :252, body _fwd_kernel :103)
+//   tlie_decay_attention_bwd_i_bf16 <- the pallas_call at :272 (_bwd_i_kernel :132): dC, +dcs_i
 //   tlie_decay_attention_bwd_j_bf16 <- the pallas_call at :293 (_bwd_j_kernel :174): dB, dx, -dcs_j
-// The i-indexed backward on bfloat16 (tlie_decay_attention_bwd_i_bf16) and the
-// float32 kernels stay in decay_attention.cu, whose header gives the layout:
-// C and B (BG, Q, N) with any batch and row strides and the last dimension
-// contiguous, cs (BG, Hg, Q) float32, x, y, dy, dx (BG, Hg, Q, P), dB (BG,
-// Q, N), dcs_j (BG, Hg, Q) float32, all but C and B contiguous.
+// The float32 kernels are decay_attention.cu's, whose header gives the
+// layout: C and B (BG, Q, N) with any batch and row strides and the last
+// dimension contiguous, cs (BG, Hg, Q) float32, x, y, dy, dx (BG, Hg, Q, P),
+// dC and dB (BG, Q, N), dcs_i and dcs_j (BG, Hg, Q) float32, all but C and
+// B contiguous.
 //
 // What they compute, as the Pallas kernels on bfloat16 operands: C.B summed
 // in float32 from exact products of bfloat16 values; the score S = C.B *
@@ -18,16 +19,18 @@
 // (forward) and S^T dy (bwd_j); dS^T = x dy^T in float32, dcs_j = -sum_i
 // dS^T * decay * C.B in float32; dCB^T = sum over heads of dS^T * decay,
 // summed in float32 in the order h = 0 .. Hg - 1 and rounded to bfloat16
-// after the last head, before dCB^T C; y, dB and dx rounded to bfloat16 once
-// from their float32 sums. The decay is exp(cs_i - cs_j), never a product of
+// after the last head, before dCB^T C; bwd_i the same mirrored (dS = dy x^T,
+// dcs_i = +sum_j dS * decay * C.B, dCB rounded after the last head before
+// dCB B); y, dC, dB and dx rounded to bfloat16 once from their float32
+// sums. The decay is exp(cs_i - cs_j), never a product of
 // two exps, and is evaluated only where j <= i < Q. Each output element has
 // one writer: no atomics, and every launch is deterministic.
 //
 // Bound on the H100: at the WikiText Mamba-2 shape (BG 8, Q 1024, N 512, Hg
-// 8, P 64) the forward moves 33.8 MB (0.010 ms at 3.35 TB/s) and bwd_j does
-// 17.2 GFLOP of bfloat16 products over the causal pairs (0.017 ms at 989
-// TFLOP/s). Neither is near either bound: the time goes to the walk over
-// the tile pairs (PERF.md).
+// 8, P 64) the forward moves 33.8 MB (0.010 ms at 3.35 TB/s), bwd_i does
+// 12.9 GFLOP and bwd_j 17.2 GFLOP of bfloat16 products over the causal pairs
+// (0.013 and 0.017 ms at 989 TFLOP/s). None is near its bound: the time
+// goes to the walk over the tile pairs and its epilogues (PERF.md).
 //
 // Design, for both kernels:
 //   tiles:  bfloat16 in shared memory, 64 x 64 (kT x kT) a tile, rows kLd =
@@ -56,10 +59,10 @@
 //           added to its float32 accumulator.
 //   pairs:  a block walks two tiles, the one with the longest walk and the
 //           one with the shortest (tiles t and last - t: i-tiles in the
-//           forward, which walk j <= i, j-tiles in bwd_j, which walk i >=
-//           j), so every block walks tiles + 1 tile pairs and none waits on
-//           a long one at the end; the ring runs on from the first tile into
-//           the second.
+//           forward and bwd_i, which walk j <= i, j-tiles in bwd_j, which
+//           walk i >= j), so every block walks tiles + 1 tile pairs and none
+//           waits on a long one at the end; the ring runs on from the first
+//           tile into the second.
 //
 //   forward: block (bg, slab, pair of i-tiles). A slab is up to 2 kFC
 //           chunks of y's columns, a chunk 64 columns of one head's P
@@ -114,6 +117,31 @@
 //           two parts (or all four) in registers ptxas spilled.
 //           mma.sync per tile pair and block at the WikiText shape: 8 warps
 //           x (4 n8 x 4 k16 x (8 + 8) stages + 4 x 32) = 12,288.
+//   bwd_i:  bwd_j mirrored. Block (bg, s, pair of i-tiles), walking the
+//           j-tiles j <= i; warp (r, c) owns rows 16 r .. of the i-tile and
+//           j-half c (32 columns) of every score-like tile. Per j-tile: in
+//           block s = 0 only (CB serves dcs_i alone), ceil(N / 64) stages of
+//           CB = C_i B_j^T; then, for each head in order, ceil(P / 64)
+//           stages of dS = dy_i x_j^T, after the head's last of which the
+//           warp forms, on its 16 x 32, the decay (one exp an element), Dh =
+//           dS * decay, the row sums of Dh * CB for dcs_i (block s = 0, the
+//           two halves' partials summed through shared memory when the
+//           i-tile ends) and dCB += Dh (registers, float32, head after head);
+//           after the last head dCB goes to shared memory as bfloat16. Then
+//           kParts stages of dC += dCB B_j, each B_j's columns [128 (kParts
+//           s + q), +128) as two tiles read [j][n] by ldmatrix.trans, warp c
+//           adding the second 64 into its part q (32 mma.sync a stage).
+//           Split between blocks: a warp holds kParts x 64 columns of dC, so
+//           a block holds kParts x 128 of N and there are ceil(N / (128
+//           kParts)) blocks per (bg, i-tile pair), each forming every head's
+//           dS and exp for itself. kParts = 2 at the WikiText shape: dC (64 x
+//           512 float32, 128 KB a tile) over two blocks, each with one part
+//           in registers and one parked in shared memory as bwd_j parks its
+//           (one block holding all four parts, one in registers, took longer,
+//           PERF.md row 3b); kParts = 1 and one block where N <= 128 (the
+//           MQAR shape). mma.sync per tile pair at the WikiText shape: 8
+//           warps x (4 n8 x 4 k16 x (8 + 8) + 2 x 32) = 2,560 in block s = 0,
+//           8 x (4 x 4 x 8 + 2 x 32) = 1,536 in block s = 1.
 // Each tile's values live only inside its loop (C.B, CB^T, dS^T and dCB^T
 // are zeroed where a tile or head starts), so the accumulators and one
 // tile's fragments are all a warp holds at a time.
@@ -121,7 +149,10 @@
 // S^T slots kParts x 9,216, dCB^T 9,216, CB^T 18,432 (float32: each lane
 // parks its own elements there between heads), the parked accumulator
 // parts 32,768 each and the dcs_j partials 512 Hg (223,744 bytes at the
-// WikiText shape; where Hg leaves no room for kParts = 4, kParts = 2).
+// WikiText shape; where Hg leaves no room for kParts = 4, kParts = 2);
+// bwd_i's dCB 9,216, CB 18,432 (float32, as bwd_j's CB^T), the parked dC
+// parts 32,768 each and the dcs_i partials 512 Hg (121,344 bytes at the
+// WikiText shape; where Hg leaves no room for kParts = 2, kParts = 1).
 // ptxas (nvcc -Xptxas -v, sm_90a, CUDA 12.8): see PERF.md; chip_smoke.py
 // prints each kernel's registers and spill bytes.
 
@@ -846,6 +877,275 @@ decay_attention_bwd_j_bf16_kernel(const bf16* __restrict__ C, const bf16* __rest
   cp_async_wait<0>();
 }
 
+// -- bwd_i ---------------------------------------------------------------------------
+
+// Bytes of bwd_i's dynamic shared memory: the ring, dCB (bfloat16), CB
+// (float32), the parked dC parts and the two halves' dcs_i partials.
+__host__ __device__ constexpr int64_t bwd_i_smem_bytes(int kParts, int64_t Hg) {
+  return kStages * kSlotBytes + kTileElems * 2 + kT * kCBLd * 4 +
+         (kParts > kRegParts ? kParts - kRegParts : 0) * kParkedPartFloats * 4 + 2 * Hg * kT * 4;
+}
+
+// grid (BG, blocks, ceil(tiles / 2)), dynamic shared memory
+// bwd_i_smem_bytes; block (bg, s, pair of i-tiles). Warp w: band r = w % 4
+// (rows 16 r.. of the i-tile), half c = w / 4 (j-columns 32 c.. of each
+// score-like tile; dC columns 64 c.. of each 128-wide part). A tile pair
+// (i-tile, j-tile) is n_st = nCB + Hg nP + kParts stages: stage k < nCB
+// (nCB = nN in block s = 0, else 0) holds C_i's and B_j's columns [64 k,
+// 64 k + 64); stage nCB + h nP + p head h's dy_i and x_j columns [64 p,
+// 64 p + 64), with cs of the i-tile and the j-tile in its last; stage nCB +
+// Hg nP + q B_j's columns [128 (kParts s + q), +128) as two tiles, one for
+// each half.
+template <int kParts, bool kVec>
+__global__ void __launch_bounds__(kThreads, 1)
+decay_attention_bwd_i_bf16_kernel(const bf16* __restrict__ C, const bf16* __restrict__ B,
+                                  const float* __restrict__ cs, const bf16* __restrict__ x,
+                                  const bf16* __restrict__ dy, bf16* __restrict__ dC,
+                                  float* __restrict__ dcs_i, Dims d) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* dcbx = reinterpret_cast<bf16*>(smem + kStages * kSlotBytes);  // dCB [kT][kLd]
+  float* cbs = reinterpret_cast<float*>(dcbx + kTileElems);           // CB [kT][kCBLd]
+  float4* parked = reinterpret_cast<float4*>(cbs + kT * kCBLd);       // parts >= kRegParts
+  float* dcs_acc = reinterpret_cast<float*>(parked) +                 // [2][Hg][kT]
+                   (kParts > kRegParts ? kParts - kRegParts : 0) * kParkedPartFloats;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+  const int band = warp % 4, half = warp / 4, r0 = 16 * band;
+  const int64_t bg = blockIdx.x;
+  const int s = blockIdx.y;
+  const TilePair tp(static_cast<int>(parts(d.Q)), blockIdx.z, true);  // i-tile t walks 0..t
+  const int nN = static_cast<int>(parts(d.N)), nP = static_cast<int>(parts(d.P));
+  const int Hg = static_cast<int>(d.Hg);
+  const int nCB = s == 0 ? nN : 0;  // CB serves dcs_i alone: block s = 0 forms it
+  const int n_st = nCB + Hg * nP + kParts;
+  const int col0 = s * kParts * 2 * kT;  // the block's first column of dC
+  const int Q = static_cast<int>(d.Q), N = static_cast<int>(d.N), P = static_cast<int>(d.P);
+  const int c_ld = static_cast<int>(d.c_ld), b_ld = static_cast<int>(d.b_ld);
+  const bf16* Cb = C + bg * d.c_bs;  // the batch's C, B, x, dy and cs; each also the
+  const bf16* Bb = B + bg * d.b_bs;  // address a zero-filled copy is handed
+  const bf16* xb = x + bg * d.Hg * d.Q * d.P;
+  const bf16* dyb = dy + bg * d.Hg * d.Q * d.P;
+  const float* csb = cs + bg * d.Hg * d.Q;
+  if (s == 0)
+    for (int e = threadIdx.x; e < 2 * Hg * kT; e += kThreads) dcs_acc[e] = 0.f;
+  __syncthreads();
+
+  auto slot = [&](int q) { return reinterpret_cast<bf16*>(smem + q % kStages * kSlotBytes); };
+  auto slot_cs = [&](int q) {
+    return reinterpret_cast<float*>(smem + q % kStages * kSlotBytes + 2 * kTileElems * 2);
+  };
+  // the stage the next issue lands (stage qi, in slot qi): its i-tile (first
+  // or second), j-tile, step, and within the dS steps head and part of P
+  int c_tile = 0, c_jt = 0, c_k = 0, c_h = 0, c_p = 0;
+  auto issue = [&](int qi) {
+    if (c_tile < tp.n) {
+      const int it = c_tile == 0 ? tp.first : tp.second;
+      const int i0 = it * kT, j0 = c_jt * kT;
+      bf16* st = slot(qi);
+      if (c_k < nCB) {
+        const int n0 = c_k * kT;
+        land_tile<kVec>(st, Cb + static_cast<int64_t>(i0) * c_ld + n0, c_ld, Q - i0, N - n0, Cb);
+        land_tile<kVec>(st + kTileElems, Bb + static_cast<int64_t>(j0) * b_ld + n0, b_ld, Q - j0,
+                        N - n0, Bb);
+      } else if (c_h < Hg) {
+        const int64_t hrow = static_cast<int64_t>(c_h) * Q;
+        const int p0 = c_p * kT;
+        land_tile<kVec>(st, dyb + (hrow + i0) * P + p0, P, Q - i0, P - p0, dyb);
+        land_tile<kVec>(st + kTileElems, xb + (hrow + j0) * P + p0, P, Q - j0, P - p0, xb);
+        if (c_p == nP - 1) {  // the head's last step: cs of the i-tile and of the j-tile
+          land_cs(slot_cs(qi), csb + hrow + i0, Q - i0, csb);
+          land_cs(slot_cs(qi) + kT, csb + hrow + j0, Q - j0, csb);
+        }
+        if (++c_p == nP) {
+          c_p = 0;
+          ++c_h;
+        }
+      } else {
+        const int n0 = col0 + (c_k - nCB - Hg * nP) * 2 * kT;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          if (n0 + hf * kT < N)
+            land_tile<kVec>(st + hf * kTileElems,
+                            Bb + static_cast<int64_t>(j0) * b_ld + n0 + hf * kT, b_ld, Q - j0,
+                            N - n0 - hf * kT, Bb);
+      }
+      if (++c_k == n_st) {  // an i-tile t walks j-tiles 0..t
+        c_k = c_h = 0;
+        if (++c_jt > it) {
+          c_jt = 0;
+          ++c_tile;
+        }
+      }
+    }
+    cp_async_commit();  // one group a stage, empty past the end
+  };
+  int q = 0;  // the next stage to multiply
+  // waits for stage q, lets every warp past the stage before, issues stage
+  // q + kAhead into that stage's slot and returns q
+  auto next = [&]() {
+    cp_async_wait<kAhead - 1>();
+    __syncthreads();
+    issue(q + kAhead);
+    return q++;
+  };
+
+#pragma unroll
+  for (int a = 0; a < kAhead; ++a) issue(a);
+  for (int tt = 0; tt < tp.n; ++tt) {
+    const int it = tt == 0 ? tp.first : tp.second;
+    const int64_t i0 = static_cast<int64_t>(it) * kT;
+    const int rows = static_cast<int>(imin(d.Q - i0, kT));  // rows of the i-tile inside Q
+    // dC of the warp's 16 rows and 64 columns of each part: parts below
+    // kRegParts in registers, the others parked in shared memory, the lane's
+    // 32 floats of a part as 8 float4 a lane apart
+    constexpr int kInRegs = kParts < kRegParts ? kParts : kRegParts;
+    float acc[kInRegs][8][4];
+#pragma unroll
+    for (int c = 0; c < kInRegs; ++c) zero(acc[c]);
+    auto park = [&](int c, int n) {
+      return parked + ((warp * (kParts - kInRegs) + c - kInRegs) * 8 + n) * 32 + lane;
+    };
+#pragma unroll
+    for (int c = kInRegs; c < kParts; ++c)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) *park(c, n) = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int jt = 0; jt <= it; ++jt) {
+      if (s == 0) {
+        float cb[4][4];  // the warp's 16 x 32 of CB, to shared memory when whole
+        zero(cb);
+        for (int k = 0; k < nN; ++k) {  // CB = C_i B_j^T
+          const bf16* st = slot(next());
+          product_nt(cb, st, st + kTileElems, r0, 32 * half);
+        }
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+            *reinterpret_cast<float2*>(
+                &cbs[(r0 + g + 8 * hh) * kCBLd + 32 * half + 8 * n + 2 * t4]) =
+                make_float2(cb[n][2 * hh], cb[n][2 * hh + 1]);
+      }
+      // the last j of the tile (local) that row g + 8 hh reaches, -1 past Q
+      int lim[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int li = r0 + g + 8 * hh;
+        lim[hh] = li < rows ? (it - jt) * kT + li : -1;
+      }
+      float dcb[4][4];  // the warp's 16 x 32 of dCB, head after head
+      for (int h = 0; h < Hg; ++h) {
+        float ds[4][4];  // the warp's 16 x 32 of head h's dS = dy_i x_j^T
+        zero(ds);
+        int sq = 0;
+        for (int p = 0; p < nP; ++p) {
+          sq = next();
+          const bf16* st = slot(sq);
+          product_nt(ds, st, st + kTileElems, r0, 32 * half);
+        }
+        // head h's dS is whole: the epilogue on the warp's 16 x 32
+        const float* csi = slot_cs(sq);
+        const float* csj = csi + kT;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int li = r0 + g + 8 * hh;
+          const float ci = csi[li];
+          float part = 0.f;
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            const int col = 32 * half + 8 * n + 2 * t4;
+            const float2 cj = *reinterpret_cast<const float2*>(&csj[col]);
+            // CB at the lane's own elements, as it wrote them (block s = 0)
+            const float2 cb2 = s == 0 ? *reinterpret_cast<const float2*>(&cbs[li * kCBLd + col])
+                                      : make_float2(0.f, 0.f);
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float dec = col + e <= lim[hh] ? decay_exp(ci - (e ? cj.y : cj.x)) : 0.f;
+              const float dh = ds[n][2 * hh + e] * dec;
+              part = fmaf(dh, e ? cb2.y : cb2.x, part);
+              // the sum over heads in order, from head 0's own
+              dcb[n][2 * hh + e] = h > 0 ? dcb[n][2 * hh + e] + dh : dh;
+            }
+          }
+          if (s == 0) {
+            part += __shfl_xor_sync(0xffffffffu, part, 1);
+            part += __shfl_xor_sync(0xffffffffu, part, 2);
+            if (t4 == 0) dcs_acc[(half * Hg + h) * kT + li] += part;
+          }
+        }
+      }
+      // the sum over heads is whole: rounded to bfloat16 for dCB B_j
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+          *reinterpret_cast<__nv_bfloat162*>(
+              &dcbx[(r0 + g + 8 * hh) * kLd + 32 * half + 8 * n + 2 * t4]) =
+              __floats2bfloat162_rn(dcb[n][2 * hh], dcb[n][2 * hh + 1]);
+      // the second products: dC += dCB B_j, half c into columns 64 c.. of each part
+      auto afrag = [&](int kk, uint32_t (&a)[4]) { afrag_smem(a, dcbx, r0, kk); };
+#pragma unroll
+      for (int c = 0; c < kParts; ++c) {
+        const bf16* st = slot(next());
+        if (col0 + (2 * c + half) * kT >= N) continue;  // uniform over the warp
+        if (c < kInRegs) {
+          product_kn<false>(acc[c < kInRegs ? c : 0], afrag, st + half * kTileElems);
+        } else {  // a parked part: in, multiplied, back
+          float pa[8][4];
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+            const float4 v = *park(c, n);
+            pa[n][0] = v.x, pa[n][1] = v.y, pa[n][2] = v.z, pa[n][3] = v.w;
+          }
+          product_kn<false>(pa, afrag, st + half * kTileElems);
+#pragma unroll
+          for (int n = 0; n < 8; ++n)
+            *park(c, n) = make_float4(pa[n][0], pa[n][1], pa[n][2], pa[n][3]);
+        }
+      }
+    }
+    __syncthreads();  // the dcs_i partials of the i-tile are whole
+    if (s == 0) {
+      for (int e = threadIdx.x; e < Hg * kT; e += kThreads) {
+        const int h = e / kT, li = e % kT;
+        float* a0 = &dcs_acc[h * kT + li];
+        float* a1 = &dcs_acc[(Hg + h) * kT + li];
+        if (li < rows) dcs_i[(bg * d.Hg + h) * d.Q + i0 + li] = *a0 + *a1;
+        *a0 = 0.f;  // for the pair's next i-tile (its epilogues come after the next barrier)
+        *a1 = 0.f;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kParts; ++c) {
+      const int n0 = col0 + (2 * c + half) * kT;
+      if (n0 >= N) continue;
+      float v[8][4];  // the part's float32 sums
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        if (c < kInRegs) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) v[n][r] = acc[c < kInRegs ? c : 0][n][r];
+        } else {
+          const float4 pv = *park(c, n);
+          v[n][0] = pv.x, v[n][1] = pv.y, v[n][2] = pv.z, v[n][3] = pv.w;
+        }
+      }
+      bf16* out = dC + (bg * d.Q + i0) * d.N + n0;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int li = r0 + g + 8 * hh;
+        if (li >= rows) continue;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = 8 * n + 2 * t4 + e;
+            if (n0 + col < N) out[li * d.N + col] = __float2bfloat16_rn(v[n][2 * hh + e]);
+          }
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
 constexpr int64_t kMaxGridYZ = 65535;
 constexpr int64_t kMaxSmem = 232448;  // 227 KB, the most a block may take on the H100
 
@@ -898,14 +1198,34 @@ int launch_bwd_j(const bf16* C, const bf16* B, const float* cs, const bf16* x, c
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int kParts, bool kVec>
+int launch_bwd_i(const bf16* C, const bf16* B, const float* cs, const bf16* x, const bf16* dy,
+                 bf16* dC, float* dcs_i, const Dims& d, int64_t BG, cudaStream_t stream) {
+  const int64_t w = 2 * kParts * kT;
+  const int64_t blocks = (d.N + w - 1) / w;
+  const int64_t smem = bwd_i_smem_bytes(kParts, d.Hg);
+  if (blocks > kMaxGridYZ || tiles(d.Q) > kMaxGridYZ || BG > INT32_MAX || smem > kMaxSmem ||
+      !fits_int(d))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaFuncSetAttribute(decay_attention_bwd_i_bf16_kernel<kParts, kVec>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned int>(BG), static_cast<unsigned int>(blocks),
+                  static_cast<unsigned int>((tiles(d.Q) + 1) / 2));
+  decay_attention_bwd_i_bf16_kernel<kParts, kVec><<<grid, kThreads, smem, stream>>>(
+      C, B, cs, x, dy, dC, dcs_i, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Each entry launches one kernel on `stream` and returns cudaGetLastError()
 // (0 on success), or cudaErrorInvalidValue for a shape the grid (or, for
-// bwd_j, shared memory: Hg up to about 190) cannot hold, or with a size or
-// row stride of 2^24 or more. Shapes: BG, Q, N,
-// Hg, P >= 1; strides in elements; C, B, x, dy and the outputs bfloat16, cs
-// and dcs_j float32.
+// bwd_j, shared memory: Hg up to about 190; for bwd_i about 280) cannot
+// hold, or with a size or row stride of 2^24 or more. Shapes: BG, Q, N,
+// Hg, P >= 1; strides in elements; C, B, x, dy and the outputs bfloat16, cs,
+// dcs_i and dcs_j float32.
 extern "C" int tlie_decay_attention_fwd_bf16(const bf16* C, const bf16* B, const float* cs,
                                              const bf16* x, bf16* y, int64_t BG, int64_t Q,
                                              int64_t N, int64_t Hg, int64_t P, int64_t c_bs,
@@ -939,4 +1259,24 @@ extern "C" int tlie_decay_attention_bwd_j_bf16(const bf16* C, const bf16* B, con
                : launch_bwd_j<4, true>(C, B, cs, x, dy, dB, dx, dcs_j, d, BG, s);
   return two ? launch_bwd_j<2, false>(C, B, cs, x, dy, dB, dx, dcs_j, d, BG, s)
              : launch_bwd_j<4, false>(C, B, cs, x, dy, dB, dx, dcs_j, d, BG, s);
+}
+
+extern "C" int tlie_decay_attention_bwd_i_bf16(const bf16* C, const bf16* B, const float* cs,
+                                               const bf16* x, const bf16* dy, bf16* dC,
+                                               float* dcs_i, int64_t BG, int64_t Q, int64_t N,
+                                               int64_t Hg, int64_t P, int64_t c_bs,
+                                               int64_t c_ld, int64_t b_bs, int64_t b_ld,
+                                               void* stream) {
+  const Dims d{Q, N, Hg, P, c_bs, c_ld, b_bs, b_ld};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // 128 columns of dC a block where N holds no more (or where 256 would not
+  // fit beside Hg's dcs_i partials in shared memory), else 256: two blocks an
+  // i-tile pair at the WikiText Mamba-2's N, which beat one block of 512
+  // (PERF.md, row 3b)
+  const bool one = N <= 2 * kT || bwd_i_smem_bytes(2, Hg) > kMaxSmem;
+  if (vec_tiles(C, B, x, dy, d))
+    return one ? launch_bwd_i<1, true>(C, B, cs, x, dy, dC, dcs_i, d, BG, s)
+               : launch_bwd_i<2, true>(C, B, cs, x, dy, dC, dcs_i, d, BG, s);
+  return one ? launch_bwd_i<1, false>(C, B, cs, x, dy, dC, dcs_i, d, BG, s)
+             : launch_bwd_i<2, false>(C, B, cs, x, dy, dC, dcs_i, d, BG, s);
 }

@@ -16,12 +16,11 @@ Where the work runs follows the tensors:
   which replace the reference's three Pallas kernels; the (Q, Q) scores
   never reach device memory.  On float32 operands all three are
   ``csrc/decay_attention.cu``'s, each product three TF32 products of a
-  split operand (float32 accuracy); on bfloat16 operands the forward and
-  bwd_j are ``csrc/decay_attention_bf16.cu``'s (bfloat16 tiles in shared
-  memory, landed by 16-byte ``cp.async`` where the shapes and pointers
-  allow it, else by ordinary loads, see :func:`load_route`) and bwd_i
-  ``decay_attention.cu``'s,
-  each product one bfloat16 product.  There is no fallback: a tensor they
+  split operand (float32 accuracy); on bfloat16 operands all three are
+  ``csrc/decay_attention_bf16.cu``'s (bfloat16 tiles in shared memory,
+  landed by 16-byte ``cp.async`` where the shapes and pointers allow it,
+  else by ordinary loads, see :func:`load_route`), each product one
+  bfloat16 product.  There is no fallback: a tensor they
   do not take raises.
 * CPU tensors go to :func:`decay_attention_plain`,
   :func:`decay_attention_bwd_i_plain` and :func:`decay_attention_bwd_j_plain`:
@@ -41,8 +40,8 @@ the score C·B·decay rounded to bfloat16 before its product with xdt (and
 dy), dS = dy·xdtᵀ and both halves of dcs in float32, the sum over heads of
 dS·decay rounded to bfloat16 before its products with B and C, and y, dC, dB
 and dxdt rounded to bfloat16 from their float32 sums; dcs comes back in
-float32.  Their launches count under ``decay_attention_*_bf16``, and the
-forward's and bwd_j's also under their load route in :data:`LOAD_ROUTES`.
+float32.  Their launches count under ``decay_attention_*_bf16``, and also
+under their load route in :data:`LOAD_ROUTES`.
 C and B may be views with any batch and row strides (the SSD
 slices them out of the conv output, and the kernels read them in place);
 their last dimension, and all of cs, xdt and the cotangent, must be
@@ -63,17 +62,14 @@ _ARGS = {"fwd": (_P,) * 5 + (_I,) * 9 + (_P,), "bwd_i": (_P,) * 7 + (_I,) * 9 + 
          "bwd_j": (_P,) * 8 + (_I,) * 9 + (_P,)}
 # the entry points of each operand dtype, and the suffix of their names and counts
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-# the bfloat16 forward and bwd_j, redesigned for bfloat16 tiles in shared memory
-_BF16_OWN = ("fwd", "bwd_j")
 DECAY_ATTENTION = CudaLibrary("decay_attention", {
-    **{f"tlie_decay_attention_{k}_f32": args for k, args in _ARGS.items()},
-    "tlie_decay_attention_bwd_i_bf16": _ARGS["bwd_i"]})
+    f"tlie_decay_attention_{k}_f32": args for k, args in _ARGS.items()})
 DECAY_ATTENTION_BF16 = CudaLibrary("decay_attention_bf16", {
-    f"tlie_decay_attention_{k}_bf16": _ARGS[k] for k in _BF16_OWN})
+    f"tlie_decay_attention_{k}_bf16": args for k, args in _ARGS.items()})
 for _k in _ARGS:
     LAUNCHES.setdefault(f"decay_attention_{_k}", 0)
     LAUNCHES.setdefault(f"decay_attention_{_k}_bf16", 0)
-# Launches of the bfloat16 forward and bwd_j by how their tiles land,
+# Launches of the bfloat16 kernels by how their tiles land,
 # "<launch name>:<route>" (see load_route); each wrapper adds one where it
 # launches, beside its LAUNCHES count.
 LOAD_ROUTES: Dict[str, int] = {}
@@ -259,8 +255,7 @@ def _stream(dev: torch.device) -> int:
 
 def _library(kernel: str, dtype: torch.dtype) -> CudaLibrary:
     """The library that holds ``kernel`` on operands of ``dtype``."""
-    return DECAY_ATTENTION_BF16 if dtype == torch.bfloat16 and kernel in _BF16_OWN \
-        else DECAY_ATTENTION
+    return DECAY_ATTENTION_BF16 if dtype == torch.bfloat16 else DECAY_ATTENTION
 
 
 def _entry(kernel: str, dtype: torch.dtype):
@@ -283,10 +278,10 @@ def load_route(Cm, Bm, xdt, dy=None) -> str:
 
 def _count(kernel: str, dtype: torch.dtype, *operands) -> None:
     """Add one launch of ``kernel`` on ``dtype`` operands to LAUNCHES and,
-    for the bfloat16 forward and bwd_j, to LOAD_ROUTES."""
+    on bfloat16 operands, to LOAD_ROUTES."""
     name = launch_name(kernel, dtype)
     LAUNCHES[name] += 1
-    if dtype == torch.bfloat16 and kernel in _BF16_OWN:
+    if dtype == torch.bfloat16:
         key = f"{name}:{load_route(*operands)}"
         LOAD_ROUTES[key] = LOAD_ROUTES.get(key, 0) + 1
 
@@ -309,9 +304,10 @@ def decay_attention_fwd_cuda(Cm, Bm, cs, xdt) -> torch.Tensor:
 
 
 def decay_attention_bwd_i_cuda(Cm, Bm, cs, xdt, dy) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the i-indexed backward of ``csrc/decay_attention.cu``:
-    (dC, dcs_i), as :func:`decay_attention_bwd_plain`; dC is contiguous
-    (BG, Q, N)."""
+    """Launch the i-indexed backward for the operands' dtype
+    (``csrc/decay_attention.cu`` on float32, ``csrc/decay_attention_bf16.cu``
+    on bfloat16): (dC, dcs_i), as :func:`decay_attention_bwd_plain`; dC is
+    contiguous (BG, Q, N)."""
     dev, dims, empty = _cuda_args("decay_attention_bwd_i_cuda", Cm, Bm, cs, xdt, dy)
     dC = torch.empty(Cm.shape, device=dev, dtype=Cm.dtype)
     dcs_i = torch.empty_like(cs)
@@ -322,7 +318,7 @@ def decay_attention_bwd_i_cuda(Cm, Bm, cs, xdt, dy) -> Tuple[torch.Tensor, torch
         err = fn(Cm.data_ptr(), Bm.data_ptr(), cs.data_ptr(), xdt.data_ptr(), dy.data_ptr(),
                  dC.data_ptr(), dcs_i.data_ptr(), *dims, _stream(dev))
     check(err, launch_name("bwd_i", xdt.dtype))
-    _count("bwd_i", xdt.dtype)
+    _count("bwd_i", xdt.dtype, Cm, Bm, xdt, dy)
     return dC, dcs_i
 
 

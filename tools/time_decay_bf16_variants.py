@@ -1,20 +1,23 @@
 #!/usr/bin/env python3
-"""Where the decay attention's bfloat16 forward and bwd_j spend their time,
-on the card: the kernels timed as they are and with parts of their work cut.
+"""Where the decay attention's bfloat16 kernels spend their time, on the
+card: the forward, bwd_i and bwd_j timed as they are and with parts of their
+work cut.
 
     python3 tools/time_decay_bf16_variants.py [--csrc DIR] [--source NAME]
 
 It reads ``NAME`` (default ``decay_attention_bf16.cu``) from ``DIR``
 (default the port's ``tlie_tpu_torch/ops/csrc``; point it at the ``csrc``
 of a tree unpacked with ``git archive`` to measure that tree's kernels:
-``--source decay_attention.cu`` takes the bfloat16 forward and bwd_j of a
-tree from before ``decay_attention_bf16.cu``, when ``decay_attention.cu``
-instantiated its templates on bfloat16 for all three), writes one
+``--source decay_attention.cu`` takes the bfloat16 kernels of a tree from
+before ``decay_attention_bf16.cu`` held them: the forward and bwd_j of a
+tree before it existed, bwd_i of one before bwd_i moved there, when
+``decay_attention.cu`` instantiated its templates on bfloat16), writes one
 copy of it per variant with the edits of ``VARIANTS`` applied (each edit
 must match the source exactly once, or the script fails), builds each copy
 with ``nvcc`` beside the port's own kernel builds (``tlie_tpu_torch/_build/
-variants/``, in parallel) and times ``tlie_decay_attention_fwd_bf16`` and
-``tlie_decay_attention_bwd_j_bf16`` of each at the WikiText Mamba-2 shape
+variants/``, in parallel) and times ``tlie_decay_attention_fwd_bf16``,
+``tlie_decay_attention_bwd_i_bf16`` and ``tlie_decay_attention_bwd_j_bf16``
+of each (those the copy exports) at the WikiText Mamba-2 shape
 (BG 8, Q 1024, N 512, Hg 8, P 64): L2-cold and warm medians of 21
 launches, as ``chip_smoke.py`` times every kernel.  The variants:
 
@@ -23,13 +26,16 @@ launches, as ``chip_smoke.py`` times every kernel.  The variants:
   shared memory return at once), so the products and the epilogue run on
   whatever the shared tiles hold: what the walk costs without its loads;
 * ``no_epilogue``: the CUDA-core epilogue cut (the exps of the decay; in
-  bwd_j also Dh, the sum over heads of dS·decay, dcs_j and S^T), the
-  products kept (they are ``asm volatile``, so the compiler keeps them);
+  bwd_j and bwd_i also Dh, the sum over heads of dS·decay and dcs, in
+  bwd_j S^T), the products kept (they are ``asm volatile``, so the
+  compiler keeps them);
 * ``products``: both cuts;
 * for ``decay_attention_bf16.cu`` also ``fwd_one_slab`` (the forward with
-  four chunks a warp, all eight heads in one block) and
-  ``bwd_j_four_blocks`` (bwd_j with two parts a warp, four blocks a j-tile
-  pair): the splits the entries do not choose at this shape.
+  four chunks a warp, all eight heads in one block), ``bwd_j_four_blocks``
+  (bwd_j with two parts a warp, four blocks a j-tile pair) and
+  ``bwd_i_one_block`` (bwd_i with four parts a warp, all of N in one block
+  an i-tile pair, where the entry splits N over two blocks that each form
+  every head's dS): the splits the entries do not choose at this shape.
 
 The timed outputs of the cut variants are meaningless; the others are
 held to the plain version (the largest error is printed).  Prints one
@@ -66,6 +72,8 @@ _EPILOGUE_FLOAT = [
      "round_as<T>(f[0][n][2 * hh + e])"),
     ("if (a_step && p0 + kW >= d.P) {  // head h's dS^T is whole",
      "if (false) {  // head h's dS^T is whole"),
+    ("if (a_step && p0 + kW >= d.P) {  // head h's dS is whole",
+     "if (false) {  // head h's dS is whole"),
 ]
 _LOADS_BF16 = [
     ("                                          const bf16* safe) {\n  if constexpr (kVec) {",
@@ -79,6 +87,10 @@ _EPILOGUE_BF16 = [
      "          const int lo",
      "        for (int hh = 0; hh < 0; ++hh) {\n          const int lj = r0 + g + 8 * hh;\n"
      "          const int lo"),
+    ("        for (int hh = 0; hh < 2; ++hh) {\n          const int li = r0 + g + 8 * hh;\n"
+     "          const float ci = csi[li];",
+     "        for (int hh = 0; hh < 0; ++hh) {\n          const int li = r0 + g + 8 * hh;\n"
+     "          const float ci = csi[li];"),
 ]
 VARIANTS = {
     "decay_attention.cu": {
@@ -97,11 +109,15 @@ VARIANTS = {
                           "               : launch_fwd<4, true>(C, B, cs, x, y, d, BG, s);")],
         "bwd_j_four_blocks": [("  const bool two = (N <= 2 * kT && Hg * parts(P) <= 2) ||",
                                "  const bool two = true ||")],
+        "bwd_i_one_block": [(
+            "               : launch_bwd_i<2, true>(C, B, cs, x, dy, dC, dcs_i, d, BG, s);",
+            "               : launch_bwd_i<4, true>(C, B, cs, x, dy, dC, dcs_i, d, BG, s);")],
     },
 }
 SHAPE = (8, 1024, 512, 8, 64)  # BG, Q, N, Hg, P: the WikiText Mamba-2's
 _P, _I = ctypes.c_void_p, ctypes.c_int64
-ARGS = {"fwd": (_P,) * 5 + (_I,) * 9 + (_P,), "bwd_j": (_P,) * 8 + (_I,) * 9 + (_P,)}
+ARGS = {"fwd": (_P,) * 5 + (_I,) * 9 + (_P,), "bwd_i": (_P,) * 7 + (_I,) * 9 + (_P,),
+        "bwd_j": (_P,) * 8 + (_I,) * 9 + (_P,)}
 
 
 def patched(text: str, edits) -> str:
@@ -157,40 +173,53 @@ def main() -> int:
     dims = (BG, Q, N, Hg, P, C.stride(0), C.stride(1), B.stride(0), B.stride(1))
     flush = torch.empty(64 * 2**20, device=dev)
     y, dB, dx = torch.empty_like(x), torch.empty_like(B), torch.empty_like(x)
-    dcs = torch.empty_like(cs_)
+    dC, dcs, dcs_i = torch.empty_like(B), torch.empty_like(cs_), torch.empty_like(cs_)
     stream = torch.cuda.current_stream().cuda_stream
     print(f"csrc={csrc} source={args.source} shape={SHAPE}", flush=True)
     for variant, (lib_path, regs) in built.items():
         lib = ctypes.CDLL(str(lib_path))
         fns = {}
         for k, argtypes in ARGS.items():
-            fns[k] = getattr(lib, f"tlie_decay_attention_{k}_bf16")
-            fns[k].argtypes, fns[k].restype = list(argtypes), ctypes.c_int
+            fn = getattr(lib, f"tlie_decay_attention_{k}_bf16", None)
+            if fn is not None:  # a copy exports those of the three it holds
+                fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+                fns[k] = fn
 
         def fwd():
             da.check(fns["fwd"](C.data_ptr(), B.data_ptr(), cs_.data_ptr(), x.data_ptr(),
                                 y.data_ptr(), *dims, stream), variant)
+
+        def bwd_i():
+            da.check(fns["bwd_i"](C.data_ptr(), B.data_ptr(), cs_.data_ptr(), x.data_ptr(),
+                                  dy.data_ptr(), dC.data_ptr(), dcs_i.data_ptr(), *dims,
+                                  stream), variant)
 
         def bwd_j():
             da.check(fns["bwd_j"](C.data_ptr(), B.data_ptr(), cs_.data_ptr(), x.data_ptr(),
                                   dy.data_ptr(), dB.data_ptr(), dx.data_ptr(), dcs.data_ptr(),
                                   *dims, stream), variant)
 
+        runs = {k: f for k, f in (("fwd", fwd), ("bwd_i", bwd_i), ("bwd_j", bwd_j)) if k in fns}
         fields = {}
-        for name, fn in (("fwd", fwd), ("bwd_j", bwd_j)):
+        for name, fn in runs.items():
             cold = cs.median(cs.cuda_ms(fn, 21, flush))
             warm = cs.median(cs.cuda_ms(fn, 21))
             fields[name] = f"cold={cold:.5f},warm={warm:.5f}"
         if variant not in ("resident", "no_epilogue", "products"):
-            fwd()
-            bwd_j()
+            for fn in runs.values():
+                fn()
             torch.cuda.synchronize()
-            want_y = da.decay_attention_plain(C, B, cs_, x)
-            want_dB, want_dx, want_dcs = da.decay_attention_bwd_j_plain(C, B, cs_, x, dy)
+            pairs = []
+            if "fwd" in runs:
+                pairs.append(("y", y, da.decay_attention_plain(C, B, cs_, x)))
+            if "bwd_i" in runs:
+                pairs += zip(("dC", "dcs_i"), (dC, dcs_i),
+                             da.decay_attention_bwd_i_plain(C, B, cs_, x, dy))
+            if "bwd_j" in runs:
+                pairs += zip(("dB", "dxdt", "dcs_j"), (dB, dx, dcs),
+                             da.decay_attention_bwd_j_plain(C, B, cs_, x, dy))
             fields["max_abs_err"] = ",".join(
-                f"{n}={(a.float() - b.float()).abs().max().item():.3e}" for n, a, b in
-                (("y", y, want_y), ("dB", dB, want_dB), ("dxdt", dx, want_dx),
-                 ("dcs_j", dcs, want_dcs)))
+                f"{n}={(a.float() - b.float()).abs().max().item():.3e}" for n, a, b in pairs)
         print(f"[variant] {variant}: " + " ".join(f"{k}={v}" for k, v in fields.items())
               + f" ptxas={regs!r}", flush=True)
     print(cs.nvidia_smi_line(), flush=True)
