@@ -318,7 +318,8 @@ def nvidia_smi_line() -> str:
 # library that holds each
 TC_KERNELS = {"fwd_p64": "fused_xent", "dh_p64": "fused_xent", "dh_p32": "fused_xent",
               "dw_p64": "fused_xent", "dw_p32": "fused_xent",
-              "fwd_p64_bf16": "fused_xent_bf16", "dh_p64_bf16": "fused_xent_bf16",
+              "fwd_p128_bf16": "fused_xent_bf16", "fwd_p64_bf16": "fused_xent_bf16",
+              "dh_p64_bf16": "fused_xent_bf16",
               "dh_p32_bf16": "fused_xent_bf16", "dw_v64_bf16": "fused_xent_bf16",
               "dw_v32_bf16": "fused_xent_bf16",
               "flash_fwd": "flash_attention", "flash_bwd_dkv": "flash_attention",
@@ -333,8 +334,9 @@ TC_KERNELS = {"fwd_p64": "fused_xent", "dh_p64": "fused_xent", "dh_p32": "fused_
 TC_HMMA = {name: "HMMA.16816.F32.BF16" if name.endswith("_bf16") else "HMMA.1688.F32.TF32"
            for name in TC_KERNELS}
 # the kernels whose products may run on wgmma instead: a bfloat16 HGMMA
-# (HGMMA.<shape>.F32.BF16) stands for their HMMA
-TC_HGMMA = {"dw_v64_bf16"}
+# (HGMMA.<shape>.F32.BF16) stands for their HMMA (the 64-row dW/db and dh,
+# the forward at 128 rows of h a block and at 64)
+TC_HGMMA = {"dw_v64_bf16", "dh_p64_bf16", "fwd_p128_bf16", "fwd_p64_bf16"}
 
 
 def tensor_core_ops_ok(hmma: dict) -> bool:
@@ -354,13 +356,47 @@ def ptxas_spills(log: str) -> list:
             re.finditer(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
 
 
+def kernel_name(mangled: str) -> str:
+    """A kernel's name from its mangled one, with the template's integer and
+    bool arguments: ``xent_dh_bf16_kernel<64>``, ``..._kernel<2, 1>``."""
+    pos = 3 if mangled.startswith("_ZN") else 2
+    while (m := re.match(r"\d+", mangled[pos:])):
+        start = pos + m.end()
+        pos = start + int(m.group())
+        if mangled[start:pos].endswith("_kernel"):
+            block = re.match(r"I((?:L[ib]\d+E)+)E", mangled[pos:])
+            args = re.findall(r"(\d+)E", block.group(1)) if block else []
+            return mangled[start:pos] + (f"<{', '.join(args)}>" if args else "")
+    return mangled
+
+
+def ptxas_kernels(log: str) -> dict:
+    """Each entry function of a ``nvcc -Xptxas -v`` report, by
+    :func:`kernel_name`, with its registers and the bytes it spills (stores
+    and loads together): {"xent_dh_bf16_kernel<64>": (224, 0), ...}."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = kernel_name(m.group(1))
+            out[name] = [0, 0]
+        elif name is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                out[name][1] = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out[name][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
 def tensor_core_hmma(lib_paths, nvcc: str) -> dict:
     """The HMMA and HGMMA opcodes, with their counts, of each tensor-core kernel in the
     built libraries, from ``cuobjdump -sass`` (beside ``nvcc``): each
     instantiation of the fused head's forward and backward kernels on
-    float32 and on bfloat16 operands (on bfloat16 the dh instantiations and
-    the dW/db kernel's, ``dw_v64_bf16`` and ``dw_v32_bf16`` by vocabulary
-    rows a block), the flash attention's three, and the decay attention's
+    float32 and on bfloat16 operands (on bfloat16 by rows a block: the
+    forward's ``fwd_p128_bf16`` and ``fwd_p64_bf16``, dh's ``dh_p64_bf16``
+    and ``dh_p32_bf16``, dW/db's ``dw_v64_bf16`` and ``dw_v32_bf16``), the flash attention's three, and the decay attention's
     forward, bwd_i and bwd_j on float32 and on bfloat16 operands (every
     instantiation of ``decay_attention_bf16.cu``'s three counted under one
     name each), {"dh_p64": {"HMMA.1688.F32.TF32": 192}, ...}."""
@@ -1935,11 +1971,13 @@ def main() -> int:
         with ThreadPoolExecutor(len(libs)) as pool:
             reports = dict(zip(libs, pool.map(lambda lib: lib.load(), libs.values())))
         for name, report in reports.items():
-            regs = [ln.split(":", 1)[1].strip() for ln in report.log.splitlines()
-                    if "registers" in ln]
             ph.fields[f"{name}_nvcc_s"] = f"{report.seconds:.2f}"
-            ph.fields[f"{name}_ptxas"] = repr(regs)
+            ph.fields[f"{name}_ptxas"] = repr(ptxas_kernels(report.log))
             ph.fields[f"{name}_spill_bytes"] = repr(ptxas_spills(report.log))
+        spilled = {name: ptxas_spills(report.log) for name, report in reports.items()
+                   if any(ptxas_spills(report.log))}
+        if spilled:
+            raise AssertionError(f"kernels that spill registers (bytes): {spilled}")
         # the fused head's three kernels, the flash attention's three and the
         # decay attention's three run their products on the tensor cores:
         # each one's SASS holds TF32 HMMAs, and the decay attention's and

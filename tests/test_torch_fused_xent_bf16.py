@@ -198,47 +198,66 @@ def _constant(name: str) -> int:
     return int(re.search(rf"constexpr int {name} = (\d+);", SOURCE).group(1))
 
 
-KQ, KBK, KTD, KKC, KFWD = (_constant(n) for n in ("kQ", "kBK", "kTD", "kKC", "kFwdRows"))
+KBK, KFWD_SLOTS = _constant("kBK"), _constant("kFwdSlots")
 
 
-def _dw_q_tile(D: int) -> int:
-    """Rows of h in a q-tile of the dW/db kernel (``DwPlan``'s kHQ, equal to
-    its vocabulary rows a block): 64 where D rounded up to kBK is at most
-    512, 32 above.  The tile's product with bf16(t) is one fresh sum."""
+def _bwd_tile(D: int) -> int:
+    """Rows of a streamed tile of the dh and the dW/db kernels (``BwdPlan``'s
+    kHQ, equal to their resident rows a block): vocabulary rows for dh, rows
+    of h for dW; 64 where D rounded up to kBK is at most 512, 32 above.  The
+    tile's product with bf16(t) is one fresh sum."""
     return 64 if -(-D // KBK) * KBK <= 512 else 32
 
 
 def test_the_source_is_what_the_emulation_follows():
     """One m16n8k16 bfloat16 product with float32 accumulators; the logits
-    summed kBK deep into fresh sums; dh's second product over a tile's kQ
-    rows of the vocabulary, dW's over a q-tile's kHQ rows of h (64 at D <=
-    512, 32 above), each one fresh sum; t rounded to bfloat16 once (dh:
-    the pair written to shared memory; dW: the pair packed into an A
-    fragment), db summed from the float32 t, the outputs rounded once from
-    their float32 sums; the forward's row tile that forward_splits
-    assumes."""
-    assert (KQ, KBK, KTD, KKC, KFWD) == (128, 64, 128, 32, fx._KERNEL_ROWS)
-    assert KQ == fx._KERNEL_Q
+    summed kBK deep into fresh sums; dh and dW/db one walk (``BwdPlan``,
+    ``bwd_walk_bf16``) with the roles of h and W swapped: dh's second
+    product over a tile of kHQ vocabulary rows, dW's over a tile of kHQ rows
+    of h (64 at D <= 512, 32 above), each one fresh sum; t rounded to
+    bfloat16 once, the pair packed into an A fragment, db summed from the
+    float32 t, the outputs rounded once from their float32 sums; the
+    forward's tiles (``FwdPlan``: 128 rows of h a block and 32 vocabulary
+    rows a tile where D <= 512, 64 and 16 above) that forward_splits_bf16
+    and the emulation assume, a tile's boxes summed in order before its
+    statistics."""
+    assert (KBK, KFWD_SLOTS) == (64, 3)
+    assert SOURCE.count("static constexpr int kVT = kHRows / 4;") == 1
+    assert SOURCE.count("static constexpr int kMaxD = 512 * 128 / kHRows;") == 1
+    assert SOURCE.count("? launch_fwd_rows<128>(") == 1 and SOURCE.count(": launch_fwd_rows<64>(") == 1
+    assert [fx.forward_tiles_bf16(d) for d in (96, 512, 513, 1024)] == [
+        (128, 32), (128, 32), (64, 16), (64, 16)]
+    assert SOURCE.count("fwd_products<kHRows>(c, ha, ws + i % kFwdSlots * kVT * Dpad") == 1
+    assert SOURCE.count("    fwd_logits<kHRows>(x, c, n_box);\n") == 1
+    assert SOURCE.count("for (int r = 0; r < PL::kNF * 4; ++r) x[r] += c[k][r];") == 1
     assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in SOURCE
     assert "mma.sync.aligned.m16n8k8" not in SOURCE  # no TF32 product
-    assert SOURCE.count("__floats2bfloat162_rn(t[0], t[1])") == 1
-    assert SOURCE.count("__float2bfloat16_rn(out_s[r * ostride + d])") == 1
-    # the dW/db kernel's plan and rounding points
-    assert SOURCE.count("static constexpr int kHQ = kVRows;") == 1
-    assert SOURCE.count("static constexpr int kMaxD = 512 * (64 / kVRows);") == 1
-    assert SOURCE.count("? launch_dw_rows<64>(") == 1 and SOURCE.count(": launch_dw_rows<32>(") == 1
-    assert [_dw_q_tile(d) for d in (96, 512, 513, 1024)] == [64, 64, 32, 32]
+    # the backward walk's plan, for both kernels, and its rounding points
+    assert SOURCE.count("static constexpr int kHQ = kRows;") == 1
+    assert SOURCE.count("static constexpr int kMaxD = 512 * (64 / kRows);") == 1
+    for kernel in ("true", "false"):  # dh, dW/db
+        assert SOURCE.count(f"? launch_bwd_rows<64, {kernel}>(") == 1
+        assert SOURCE.count(f": launch_bwd_rows<32, {kernel}>(") == 1
+    assert SOURCE.count("bwd_walk_bf16<kPRows, true>(&w_map, h, w,") == 1
+    assert SOURCE.count("bwd_walk_bf16<kVRows, false>(&h_map, h, w,") == 1
+    assert [_bwd_tile(d) for d in (96, 512, 513, 1024)] == [64, 64, 32, 32]
     assert SOURCE.count("ta[m / 2][2 * (m % 2)] = pack_bf16(t[0][0], t[0][1]);") == 1
+    assert SOURCE.count("pack_bf16(") == 3  # t's two halves, and the helper itself
+    # t's two forms: dh matches each row's label against the tile's
+    # vocabulary rows, dW each vocabulary row against the tile's labels
+    assert SOURCE.count("t[hh][e] = (pv[2 * hh + e] - (v == r_lab[hh] ? 1.f : 0.f)) * g_scale;") == 1
+    assert SOURCE.count("t[hh][e] = (pv[2 * hh + e] - (v32[hh] == lab ? 1.f : 0.f)) * g_scale;") == 1
     assert SOURCE.count("if (split == 0) db_acc[hh] += t[hh][e];") == 1
     assert SOURCE.count("for (int kk = 0; kk < kHQ / 16; ++kk) {") == 1
     assert SOURCE.count("for (int r = 0; r < 4; ++r) acc[2 * j0 + u][r] += c[u][r];") == 1
-    # dW's logits: a kBK-deep box a fresh sum (wgmma at 64 rows a block,
-    # mma.sync at 32), added in order
+    assert SOURCE.count("for (int r = 0; r < 4; ++r) acc[kBox / 8 * j + n][r] += c[4 * n + r];") == 1
+    # the walk's logits: a kBK-deep box a fresh sum (wgmma at 64 rows a
+    # block, mma.sync at 32), added in order
     assert SOURCE.count("static_assert(kBK == kBox && PL::kQW % 8 == 0") == 1
     assert SOURCE.count("sw128_desc(hb + 16 * kk), kk > 0);") == 1
     assert SOURCE.count("for (int r = 0; r < 4; ++r) s[n][r] += c[4 * n + r];") == 1
     assert SOURCE.count("__floats2bfloat162_rn(acc[n][2 * hh], acc[n][2 * hh + 1])") == 1
-    assert SOURCE.count("db[v0 + 16 * band + g + 8 * hh] = __float2bfloat16_rn(v)") == 1
+    assert SOURCE.count("db[r0 + 16 * band + g + 8 * hh] = __float2bfloat16_rn(v)") == 1
     for entry in ("tlie_fused_xent_fwd_bf16", "tlie_fused_xent_dh_bf16",
                   "tlie_fused_xent_dw_bf16"):
         assert f'extern "C" int {entry}(' in SOURCE
@@ -250,24 +269,98 @@ def test_the_source_is_what_the_emulation_follows():
         SOURCE)
 
 
-def test_chip_smoke_holds_the_dw_kernel_to_bfloat16_tensor_core_ops():
-    """``chip_smoke.py``'s build phase reads the dW/db kernel's two
-    instantiations from the bfloat16 library: the 32-row one must hold
+def _holds_bfloat16_tensor_core_ops(kernel):
+    """chip_smoke's rule for the two instantiations of ``kernel`` (dw, dh)
+    in the bfloat16 library: the 32-row one must hold
     ``HMMA.16816.F32.BF16`` (mma.sync), the 64-row one may hold a bfloat16
     ``HGMMA`` (wgmma) in its place, and a kernel with neither fails."""
     cs = load_chip_smoke()
-    assert cs.TC_KERNELS["dw_v64_bf16"] == cs.TC_KERNELS["dw_v32_bf16"] == "fused_xent_bf16"
-    assert "dw_p64_bf16" not in cs.TC_KERNELS and cs.TC_HGMMA == {"dw_v64_bf16"}
-    assert SOURCE.count("xent_dw_bf16_kernel<kVRows><<<") == 1
+    rows = "v" if kernel == "dw" else "p"
+    k64, k32 = f"{kernel}_{rows}64_bf16", f"{kernel}_{rows}32_bf16"
+    assert cs.TC_KERNELS[k64] == cs.TC_KERNELS[k32] == "fused_xent_bf16"
+    assert "dw_p64_bf16" not in cs.TC_KERNELS
+    assert cs.TC_HGMMA == {"dw_v64_bf16", "dh_p64_bf16", "fwd_p128_bf16", "fwd_p64_bf16"}
     good = {name: {op: 4} for name, op in cs.TC_HMMA.items()}
     assert cs.tensor_core_ops_ok(good)
-    good["dw_v64_bf16"] = {"HGMMA.64x64x16.F32.BF16": 16}
+    good[k64] = {"HGMMA.64x64x16.F32.BF16": 16}
     assert cs.tensor_core_ops_ok(good)
-    for name, ops in (("dw_v64_bf16", {"HGMMA.64x64x16.F32": 16}), ("dw_v32_bf16", {}),
-                      ("dw_v32_bf16", {"HGMMA.64x64x16.F32.BF16": 16})):
+    for name, ops in ((k64, {"HGMMA.64x64x16.F32": 16}), (k64, {}), (k32, {}),
+                      (k32, {"HGMMA.64x64x16.F32.BF16": 16})):
         bad = dict(good, **{name: ops})
         assert not cs.tensor_core_ops_ok(bad), (name, ops)
-    assert not cs.tensor_core_ops_ok({k: v for k, v in good.items() if k != "dh_p64_bf16"})
+    assert not cs.tensor_core_ops_ok({k: v for k, v in good.items() if k != k64})
+
+
+def test_chip_smoke_holds_the_dw_kernel_to_bfloat16_tensor_core_ops():
+    """``chip_smoke.py``'s build phase holds the dW/db kernel's two
+    instantiations (``dw_v64_bf16``, ``dw_v32_bf16``) to the rule above;
+    ``launch_bwd_rows`` launches the dW/db kernel for dW."""
+    assert SOURCE.count(": xent_dw_bf16_kernel<kRows>;") == 1
+    _holds_bfloat16_tensor_core_ops("dw")
+
+
+def test_chip_smoke_holds_the_dh_kernel_to_bfloat16_tensor_core_ops():
+    """The same for the dh kernel's (``dh_p64_bf16``, ``dh_p32_bf16``), which
+    runs the dW/db kernel's walk with the rows of h resident: its 64-row
+    instantiation on wgmma too."""
+    assert SOURCE.count("kDh ? xent_dh_bf16_kernel<kRows> :") == 1
+    _holds_bfloat16_tensor_core_ops("dh")
+
+
+def test_chip_smoke_holds_the_forward_kernel_to_bfloat16_tensor_core_ops():
+    """The forward kernel's two instantiations (128 rows of h a block where D
+    <= 512, 64 above) run their products on wgmma alone: each must hold a
+    bfloat16 ``HGMMA``, and one with neither that nor a bfloat16 HMMA fails."""
+    cs = load_chip_smoke()
+    assert SOURCE.count("mma_bf16(") == 4  # the helper and the 32-row dh and dW/db's
+    good = {name: {op: 4} for name, op in cs.TC_HMMA.items()}
+    for name in ("fwd_p128_bf16", "fwd_p64_bf16"):
+        assert cs.TC_KERNELS[name] == "fused_xent_bf16" and name in cs.TC_HGMMA
+        good[name] = {"HGMMA.64x32x16.F32.BF16": 32} if name == "fwd_p128_bf16" else {
+            "HGMMA.64x8x16.F32.BF16": 64}
+    assert cs.tensor_core_ops_ok(good)
+    for name in ("fwd_p128_bf16", "fwd_p64_bf16"):
+        for ops in ({}, {"HGMMA.64x32x16.F32.TF32": 32}):
+            assert not cs.tensor_core_ops_ok(dict(good, **{name: ops})), (name, ops)
+
+
+def test_chip_smoke_names_each_kernels_registers_and_spills():
+    """The build phase's ``*_ptxas``: each entry function of a ``nvcc
+    -Xptxas -v`` report by its name and template arguments, with its
+    registers and spill bytes (stores and loads), which the phase holds to
+    0."""
+    cs = load_chip_smoke()
+    mangled = ("_ZN51_GLOBAL__N__1899cf91_18_fused_xent_bf16_cu_1546ab3319"
+               "xent_dh_bf16_kernelILi64EEEv14CUtensorMap_stPK13__nv_bfloat16")
+    assert cs.kernel_name(mangled) == "xent_dh_bf16_kernel<64>"
+    assert cs.kernel_name("_ZN12_GLOBAL__N_133decay_attention_bwd_j_bf16_kernelILi2ELb1EEEvPKf"
+                          ) == "decay_attention_bwd_j_bf16_kernel<2, 1>"
+    assert cs.kernel_name("tlie_entry") == "tlie_entry"
+    log = (f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "ptxas info    : Used 241 registers, used 16 barriers\n"
+           "ptxas info    : Compiling entry function '_Z16diag_scan_kernelPKf' for 'sm_90a'\n"
+           "    8 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads\n"
+           "ptxas info    : Used 255 registers\n")
+    assert cs.ptxas_kernels(log) == {"xent_dh_bf16_kernel<64>": (241, 0),
+                                     "diag_scan_kernel": (255, 12)}
+    assert cs.ptxas_spills(log) == [0, 12]
+
+
+def test_bf16_forward_splits_fill_one_wave_and_cover_the_vocabulary():
+    """The bfloat16 forward runs one block an SM: its splits give at most
+    one wave of blocks where the row blocks alone do not exceed it, every
+    split at least one tile of ``forward_tiles_bf16``, and the splits cover
+    the vocabulary; the LM's shape takes 64 row blocks x 2 splits."""
+    for M, D, V, sms in ((8192, 512, 50257, 132), (128, 512, 100, 132), (384, 100, 2001, 132),
+                         (256, 1024, 3000, 132), (40, 97, 50257, 8), (32768, 512, 50257, 132)):
+        rows, tile = fx.forward_tiles_bf16(D)
+        splits = fx.forward_splits_bf16(M, D, V, sms)
+        row_tiles, n_tiles = -(-M // rows), -(-V // tile)
+        per = -(-n_tiles // splits)
+        assert 1 <= splits <= n_tiles and (splits - 1) * per < n_tiles <= splits * per
+        assert row_tiles * splits <= max(sms, row_tiles)
+    assert fx.forward_splits_bf16(8192, 512, 50257, 132) == 2
 
 
 def _logits(hp, wq, bq):
@@ -279,22 +372,25 @@ def _logits(hp, wq, bq):
     return s + bq
 
 
-def emulated(h, w_rows, b, labels, g, round_t=True):
+def emulated(h, w_rows, b, labels, g, round_t=True, saved_lse=None):
     """The three kernels' float32 results on bfloat16 values held in float32:
     (loss rows, lse, dh, dW rows, db), tile by tile, before dh, dW and db are
     rounded to bfloat16, and the float32 t that the dh and the dW pass each
-    formed (M, V).  The forward walks 128-wide vocabulary tiles with a
-    running (max, sum-exp, picked); each backward recomputes a tile's logits,
-    forms t, rounds it where ``round_t``, and adds the tile's product (dh:
-    kQ rows of the vocabulary, dW: a q-tile's rows of h, each in one fresh
-    sum) to a float32 accumulator, tile by tile."""
+    formed (M, V).  The forward walks the kernel's vocabulary tiles
+    (``forward_tiles_bf16``) with a running (max, sum-exp, picked); each backward recomputes a streamed
+    tile's logits, forms t, rounds it where ``round_t``, and adds the tile's
+    product (dh: a tile of the vocabulary's rows, dW: a tile of h's rows,
+    ``_bwd_tile`` rows each, in one fresh sum) to a float32 accumulator,
+    tile by tile.  The backward takes ``saved_lse`` where given (the kernels
+    take the forward's lse as an input), else the emulated forward's."""
     M, V = h.shape[0], w_rows.shape[0]
     valid = labels != -100
     m = torch.full((M,), -1e30)
     s = torch.zeros(M)
     pk = torch.zeros(M)
-    for q0 in range(0, V, KQ):
-        x = _logits(h, w_rows[q0:q0 + KQ], b[q0:q0 + KQ])
+    vt = fx.forward_tiles_bf16(h.shape[1])[1]
+    for q0 in range(0, V, vt):
+        x = _logits(h, w_rows[q0:q0 + vt], b[q0:q0 + vt])
         mn = torch.maximum(m, x.max(1).values)
         s = s * torch.exp(m - mn) + torch.exp(x - mn[:, None]).sum(1)
         m = mn
@@ -302,11 +398,12 @@ def emulated(h, w_rows, b, labels, g, round_t=True):
         pk += torch.where(cols[None, :] == labels[:, None], x, torch.zeros_like(x)).sum(1)
     lse = m + torch.log(s)
     loss = torch.where(valid, lse - pk, torch.zeros_like(lse))
+    lse_in = lse if saved_lse is None else saved_lse
 
     def t_of(rows, q0, q1):
         x = _logits(h[rows], w_rows[q0:q1], b[q0:q1])
         cols = torch.arange(q0, q0 + x.shape[1])
-        t = torch.exp(x - lse[rows, None]) - (cols[None, :] == labels[rows, None]).float()
+        t = torch.exp(x - lse_in[rows, None]) - (cols[None, :] == labels[rows, None]).float()
         return t * g * valid[rows, None].float()
 
     def rounded(t):
@@ -314,10 +411,10 @@ def emulated(h, w_rows, b, labels, g, round_t=True):
 
     dh, dw, db = torch.zeros_like(h), torch.zeros_like(w_rows), torch.zeros(V)
     t_dh, t_dw = torch.zeros(M, V), torch.zeros(M, V)
-    for q0 in range(0, V, KQ):  # dh: the vocabulary's rows are the streamed tiles
-        t = t_dh[:, q0:q0 + KQ] = t_of(slice(None), q0, q0 + KQ)
-        dh += rounded(t) @ w_rows[q0:q0 + KQ]
-    hq = _dw_q_tile(h.shape[1])
+    hq = _bwd_tile(h.shape[1])
+    for q0 in range(0, V, hq):  # dh: the vocabulary's rows are the streamed tiles
+        t = t_dh[:, q0:q0 + hq] = t_of(slice(None), q0, q0 + hq)
+        dh += rounded(t) @ w_rows[q0:q0 + hq]
     for r0 in range(0, M, hq):  # dW, db: the rows of h are the streamed tiles
         t = t_dw[r0:r0 + hq] = t_of(slice(r0, r0 + hq), 0, V)
         dw += rounded(t).t() @ h[r0:r0 + hq]
@@ -387,18 +484,20 @@ def test_leaving_t_unrounded_fails_it(shape):
 
 
 def test_the_plain_version_is_the_rounded_emulation():
-    """The port's plain bfloat16 backward (the kernels' CPU path and their
-    card reference) against the emulated kernels rounded to bfloat16: at
-    least 99 % of the bfloat16 outputs equal, the rest one bfloat16 step
-    apart at most (a float32 sum in another order near a rounding
-    midpoint)."""
+    """The port's plain bfloat16 forward and backward (the kernels' CPU path
+    and their card reference) against the emulated kernels rounded to
+    bfloat16, the backward given the same lse (as the kernels are held to
+    the plain version on the card): at least 99 % of the bfloat16 outputs
+    equal, the rest one bfloat16 step apart at most (a float32 sum in
+    another order near a rounding midpoint)."""
     h, w, b, y = _inputs(256, 96, 700, seed=11)
     th, weight, tb, ty = _port(h, w, b, y)
     g = 1.0 / int((ty != -100).sum())
-    em = emulated(th.detach().float(), weight.detach().float(), tb.detach().float(), ty, g)[:5]
     with torch.no_grad():
         rows, lse = fx.fused_xent_fwd_plain(th, weight.t(), tb, ty)
         plain = fx.fused_xent_bwd_plain(th, weight.t(), tb, ty, lse, torch.tensor([g]))
+    em = emulated(th.detach().float(), weight.detach().float(), tb.detach().float(), ty, g,
+                  saved_lse=lse)[:5]
     torch.testing.assert_close(rows, em[0], rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(lse, em[1], rtol=1e-6, atol=0)
     for name, e, p in (("dh", em[2], plain[0]), ("dW", em[3], plain[1].t()),

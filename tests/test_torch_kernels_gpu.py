@@ -311,8 +311,8 @@ def test_fused_xent_autograd_goes_through_the_kernels(cuda_device):
 # plain version's bit for bit (without the rounding of t the CPU tests find
 # 63-77 % against tlie_tpu).  The same shapes as the float32 kernels': odd_d
 # and ragged_d take the ordinary loads of tiles that 16-byte copies and the
-# tensor memory accelerator cannot land (D % 8 != 0), d_max the dW/db
-# kernel's 32-row plan on mma.sync (the others its 64-row plan on wgmma);
+# tensor memory accelerator cannot land (D % 8 != 0), d_max the dh and dW/db
+# kernels' 32-row plan on mma.sync (the others their 64-row plan on wgmma);
 # and once the LM head's own shape, (8192, 512, 50257).
 
 BF16_STEP = 2.0 ** -7
@@ -373,7 +373,8 @@ def test_fused_xent_bf16_forward_kernel_takes_a_ragged_row_tile(cuda_device, M, 
     h, w, b, labels = _xent_bf16_inputs(cuda_device, M, D, 50257, seed=5)
     loss = torch.empty(M, device=cuda_device)
     lse = torch.empty(M, device=cuda_device)
-    splits = fx.forward_splits(M, 50257, torch.cuda.get_device_properties(0).multi_processor_count)
+    splits = fx.forward_splits_bf16(
+        M, D, 50257, torch.cuda.get_device_properties(0).multi_processor_count)
     part = torch.empty(3, splits, M, device=cuda_device)
     err = fx.FUSED_XENT_BF16.fn("tlie_fused_xent_fwd_bf16")(
         h.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(), loss.data_ptr(),
@@ -385,6 +386,38 @@ def test_fused_xent_bf16_forward_kernel_takes_a_ragged_row_tile(cuda_device, M, 
     assert bool(((lse - ref_lse).abs() <= XENT_RTOL * ref_lse.abs()).all())
     assert bool(((loss - ref_loss).abs()
                  <= XENT_RTOL * fx.loss_term_scales(ref_loss, ref_lse)).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M, D, V, b_offset", [(200, 512, 777, 0), (200, 512, 777, 1),
+                                               (40, 1024, 300, 1)],
+                         ids=["ragged_rows", "ragged_rows_odd_bias", "d_max_ragged_rows"])
+def test_fused_xent_bf16_backward_kernels_take_a_ragged_row_tile(cuda_device, M, D, V,
+                                                                 b_offset):
+    """dh and dW/db through their C entries (the wrapper takes multiples of
+    128 rows) at a row count no multiple of 64, or of 32 for D > 512, with
+    ignored rows (every 7th) and the bias ``b_offset`` elements into its
+    storage (1: not 4-byte aligned, so dh reads each bias from the aligned
+    word that holds it): held to the plain version as above."""
+    from tlie_tpu_torch.ops import fused_xent as fx
+
+    h, w, b, labels = _xent_bf16_inputs(cuda_device, M, D, V, seed=6)
+    b = torch.cat([b.new_zeros(b_offset), b])[b_offset:]
+    assert b.data_ptr() % 4 == 2 * b_offset
+    _, lse = fx.fused_xent_fwd_plain(h, w, b, labels)
+    gscale = torch.full((1,), 1.0 / int((labels != -100).sum()), device=cuda_device)
+    dh = torch.empty_like(h)
+    dw_rows = torch.empty(V, D, device=cuda_device, dtype=torch.bfloat16)
+    db = torch.empty(V, device=cuda_device, dtype=torch.bfloat16)
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (h.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(), lse.data_ptr(),
+            gscale.data_ptr())
+    assert fx.FUSED_XENT_BF16.fn("tlie_fused_xent_dh_bf16")(
+        *args, dh.data_ptr(), M, D, V, stream) == 0
+    assert fx.FUSED_XENT_BF16.fn("tlie_fused_xent_dw_bf16")(
+        *args, dw_rows.data_ptr(), db.data_ptr(), M, D, V, stream) == 0
+    torch.cuda.synchronize()
+    _check_bf16_grads(fx, h, w, b, labels, lse, gscale, (dh, dw_rows.t(), db))
 
 
 @pytest.mark.gpu

@@ -58,12 +58,13 @@ IGNORE = -100
 # kernels tile rows by their own 64 (forward) and 64 or 32 (backward);
 # _pick_tm keeps the reference's rule for which row counts the function takes.
 _TM_CANDIDATES = (1024, 512, 256, 128)
-_MAX_D = 1024  # the backward's (64 or 32, D) accumulator lives in shared memory
-_KERNEL_Q = 128  # vocabulary rows per tile of the forward kernel
-_KERNEL_ROWS = 64  # rows of h per block of the forward kernel (kFwdRows)
-# Blocks of the forward kernel per SM, two at a time: many short blocks
-# shorten the last wave's tail.  On an H100 at the LM's shape (M 8192, D
-# 512, V 50257) 33 splits (4,224 blocks) took 7.35 ms, 5 splits (640) 7.58.
+_MAX_D = 1024  # the kernels' plans go to 1024 (64 or 32 rows a block past 512)
+_KERNEL_Q = 128  # vocabulary rows per tile of the float32 forward kernel
+_KERNEL_ROWS = 64  # rows of h per block of the float32 forward kernel (kFwdRows)
+# Blocks of the float32 forward kernel per SM, two at a time: many short
+# blocks shorten the last wave's tail.  On an H100 at the LM's shape (M
+# 8192, D 512, V 50257) 33 splits (4,224 blocks) took 7.35 ms, 5 splits
+# (640) 7.58.
 _BLOCKS_PER_SM = 32
 
 _P, _I = ctypes.c_void_p, ctypes.c_int64
@@ -244,12 +245,35 @@ def _check_cuda(tensors, what: str) -> torch.device:
 
 
 def forward_splits(M: int, V: int, n_sms: int) -> int:
-    """Vocabulary splits of the forward kernel: enough blocks for about
-    ``_BLOCKS_PER_SM`` per SM, each split with at least one 128-row
+    """Vocabulary splits of the float32 forward kernel: enough blocks for
+    about ``_BLOCKS_PER_SM`` per SM, each split with at least one 128-row
     vocabulary tile."""
     row_tiles = -(-M // _KERNEL_ROWS)
     n_tiles = -(-V // _KERNEL_Q)
     want = max(1, min(n_tiles, -(-_BLOCKS_PER_SM * n_sms // row_tiles)))
+    per_split = -(-n_tiles // want)
+    return -(-n_tiles // per_split)
+
+
+def forward_tiles_bf16(D: int) -> Tuple[int, int]:
+    """(rows of h a block, vocabulary rows a tile) of the bfloat16 forward
+    kernel (``FwdPlan``): 128 and 32 where D rounded up to 64 is at most
+    512, 64 and 16 above.  A block keeps its rows of h resident and walks
+    its split's tiles."""
+    rows = 128 if -(-D // 64) * 64 <= 512 else 64
+    return rows, rows // 4
+
+
+def forward_splits_bf16(M: int, D: int, V: int, n_sms: int) -> int:
+    """Vocabulary splits of the bfloat16 forward kernel: it runs one block
+    an SM (225 KB of shared memory at D 512), so as many splits as fill one
+    wave with row blocks (at least one), each split with the same whole
+    number of tiles.  At the LM's shape (M 8192, D 512, V 50257) on 132 SMs:
+    64 row blocks, 2 splits, 128 blocks."""
+    rows, tile = forward_tiles_bf16(D)
+    row_tiles = -(-M // rows)
+    n_tiles = -(-V // tile)
+    want = max(1, min(n_tiles, n_sms // row_tiles))
     per_split = -(-n_tiles // want)
     return -(-n_tiles // per_split)
 
@@ -272,7 +296,9 @@ def fused_xent_fwd_cuda(h, w, b, labels) -> Tuple[torch.Tensor, torch.Tensor]:
     lse = torch.empty(M, device=dev)
     if M == 0:
         return loss, lse
-    splits = forward_splits(M, V, torch.cuda.get_device_properties(dev).multi_processor_count)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = (forward_splits_bf16(M, D, V, n_sms) if h.dtype == torch.bfloat16
+              else forward_splits(M, V, n_sms))
     part = torch.empty(3, splits, M, device=dev)
     lib, sfx = _LIBRARY[h.dtype]
     fn = lib.fn(f"tlie_fused_xent_fwd_{sfx}")
