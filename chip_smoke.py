@@ -10,9 +10,9 @@ once), holds each kernel against its plain PyTorch version on the card
 decoder + cross-entropy head on float32 and on bfloat16 operands, the three
 of the SSD's decay attention on float32 and on bfloat16 operands and the
 three of the flash attention), the scan's two kernels also on a decay that
-varies by example and is constant in time, and drives seven full-width
-models along eleven paths, each with the launch counts set to 0 just before
-it and read just after:
+varies by example and is constant in time and at S5's shape, and drives
+nine full-width models along thirteen paths, each with the launch counts
+set to 0 just before it and read just after:
 
 1. the MQAR LRU (``MQAR_LRU_FULL``: L=512, d_model=128, N=128, 2 layers,
    vocab 8192, batch 64, weights from the config's seed): evaluation,
@@ -69,8 +69,23 @@ it and read just after:
    head's bfloat16 kernels alone (the head's once each per training step,
    none in the dense perplexity eval, no float32 head kernel, no training
    step through the dense head); its step is timed in the same run as path
-   9's dense head, with the head's share of device time.
-Paths 6, 7 and 10 reach no Pallas kernel in ``tlie_tpu``: no port kernel
+   9's dense head, with the head's share of device time;
+12. the MQAR S5 (``MQAR_S5_FULL``: 2 layers, d_model 128, state 128, P 64
+   complex channels after conj-sym, ZOH, vocab 8192, L 512, batch 64,
+   BatchNorm, dropout 0.1): its forward on the test batch, 200 training
+   steps with an eval every 100 on the cut train split (the scan's forward
+   and backward kernels, two of each a step, at a (P,) decay), the
+   checkpoint reloaded and eigen-analysed at init and trained, serving (64
+   prompts of 496 tokens, prefill through the scan plus 16 greedy tokens,
+   the step path against the full forward), the card step against the CPU
+   step, the step's time, and the scan kernels held to their plain
+   versions and timed at its shape (64, 512, 64), forward, reverse and
+   backward;
+13. the MQAR S4 (``MQAR_S4_FULL``: the same widths, N 128 DPLR, the CNN
+   mode through ``torch.fft``) along path 12's phases (serving: the dense
+   DPLR recurrence, prefill step by step), with the generating-function
+   kernel's share of the step.
+Paths 6, 7, 10 and 13 reach no Pallas kernel in ``tlie_tpu``: no port kernel
 launches on them, and the script checks that.  The decay attention's three
 kernels are also held on bfloat16 operands against the plain bfloat16
 version (the WikiText Mamba-2, MQAR and a ragged shape) and timed against
@@ -267,6 +282,10 @@ SWEEP_STEPS, SWEEP_EVAL_EVERY, SWEEP_CHECK_STEPS = 200, 100, 20
 # so its sums may run in another order)
 SWEEP_RTOL, SWEEP_ATOL, SWEEP_PARAM_ATOL = 1e-5, 1e-7, 1e-5
 ATT_PROMPT = 496
+# the MQAR S5 and S4 paths (12, 13): 200 steps with an eval every 100 (the
+# configs run 40,000 with an eval every 200) on the train split cut as the
+# LRU's; serving takes ATT_PROMPT tokens and 16 greedy ones
+SSM_STEPS, SSM_EVAL_EVERY = 200, 100
 # one transformer step's gradients, card vs CPU, both held to float64 on the
 # CPU: the card's error may be GRAD_F64_FACTOR times the CPU's, or 1e-4 of
 # the leaf's max, the tolerance the CPU tests hold the port's gradients to
@@ -1062,7 +1081,7 @@ def step_profile(one_step, tokens_per_step: int, kernel_pattern, kernel_field: s
 
 
 def step_card_vs_cpu(ph, what: str, fresh, dev, x_step, y_step, lrs, sparse_k,
-                     rtol_of_max: float, watch=None):
+                     rtol_of_max: float, watch=None, check_stats: bool = False):
     """One training step (sparse head, AdamW behind the global-norm clip)
     from the same weights and batch on the card and on the CPU, both held
     to the same step in float64 on the CPU: each gradient's error on the
@@ -1071,7 +1090,8 @@ def step_card_vs_cpu(ph, what: str, fresh, dev, x_step, y_step, lrs, sparse_k,
     1e-2 of its leaf's max and within the movement bound 2·lr + PARAM_ATOL
     everywhere.  ``fresh(device)`` gives (model, optimizer, clip norm);
     ``watch`` is (field, name predicate) for leaves whose error ratios are
-    printed one by one.  Fills ``ph.fields``, raises on a failed check, and
+    printed one by one; with ``check_stats`` the BatchNorm statistics must
+    agree within STATS_RTOL.  Fills ``ph.fields``, raises on a failed check, and
     returns the card's (model, optimizer, clip norm) after its step."""
     from tlie_tpu_torch.training import train_step
     from tlie_tpu_torch.training.state import clip_by_global_norm_
@@ -1086,7 +1106,11 @@ def step_card_vs_cpu(ph, what: str, fresh, dev, x_step, y_step, lrs, sparse_k,
     card_g = {n: p.grad.cpu() for n, p in card_m.named_parameters()}
     ref_m = fresh("cpu")[0].double()
     cross_entropy_loss(*head_logits(ref_m, x_step.cpu(), y_step.cpu(), sparse_k)).backward()
-    raw_norm = float(clip_by_global_norm_(ref_m.parameters(), clip))
+    if clip is None:  # the SSM families take no clip
+        raw_norm = float(torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(p.grad) for p in ref_m.parameters()])))
+    else:
+        raw_norm = float(clip_by_global_norm_(ref_m.parameters(), clip))
     cpu_s = time.perf_counter() - t0
     g_ratio, g_leaf, watched = 0.0, "", {}
     for n, p in ref_m.named_parameters():
@@ -1113,8 +1137,14 @@ def step_card_vs_cpu(ph, what: str, fresh, dev, x_step, y_step, lrs, sparse_k,
     ph.fields.update(grad_card_vs_cpu_worst_rel_to_leaf_max=f"{g_worst:.3e}",
                      param_worst_where_grad_determined=f"{p_worst:.3e}",
                      param_worst_anywhere=f"{p_anywhere:.3e}", cpu_steps_s=f"{cpu_s:.1f}")
+    s_worst = 0.0
+    if check_stats:  # BatchNorm's running statistics after the step
+        s_worst = max(((b.cpu() - c).abs() / c.abs().clamp_min(1.0)).max().item()
+                      for b, c in zip(card_m.buffers(), cpu_m.buffers()))
+        ph.fields["batch_stats_worst_rel"] = f"{s_worst:.3e}"
+    # each group moves an element by at most its own learning rate
     if not (g_ratio <= 1.0 and p_worst <= PARAM_ATOL
-            and p_anywhere <= 2 * lrs["regular"] + PARAM_ATOL):
+            and p_anywhere <= 2 * max(lrs.values()) + PARAM_ATOL and s_worst <= STATS_RTOL):
         raise AssertionError(f"{what} card vs CPU step: {ph.fields}")
     return card_m, card_opt, clip
 
@@ -1584,6 +1614,310 @@ def attention_family_path(dev, test_x, test_y, train_split, want_files, full, ta
     return launches
 
 
+def scan_s5_phase(dev, seq, u, flush):
+    """The scan kernels at S5's shape, from the S5 layer ``seq`` at its
+    inputs ``u`` (B, L, H): Λ̄ as its (P,) pair (batch and time stride 0),
+    B̄u as (B, L, P) pair planes.  Forward and reverse against the plain
+    loop, the backward against the plain backward with da summed to (P,),
+    then their L2-cold and warm medians of 21 against the bytes bound.
+    Returns {name: time_scan_kernel's tuple} and the worst errors."""
+    from tlie_tpu_torch.ops.scan import (
+        diag_scan_bwd_cuda, diag_scan_bwd_plain, diag_scan_cuda, diag_scan_plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    with torch.no_grad():
+        lam_bar, b_bar = seq.discretized()
+        a = (lam_bar.real.contiguous(), lam_bar.imag.contiguous())
+        b = (u @ b_bar.real.T, u @ b_bar.imag.T)
+    times, errs = {}, {}
+    with Phase("s5_scan_kernels_vs_plain") as ph, torch.no_grad():
+        for rev in (False, True):
+            tag = "rev" if rev else "fwd"
+            h = diag_scan_cuda(a, b, reverse=rev)
+            ref = diag_scan_plain(a, b, reverse=rev)
+            torch.cuda.synchronize()
+            err, scale = scan_err(h, ref)
+            g = tuple(torch.randn(x.shape, device=dev, generator=gen) for x in b)
+            da, d = diag_scan_bwd_cuda(a, ref, g, reverse=rev)
+            da_ref, d_ref = diag_scan_bwd_plain(a, ref, g, reverse=rev)
+            d_e, d_tol, da_e, da_ratio = bwd_err(a, ref, da, d, da_ref, d_ref, rev)
+            shape_ok = all(x.shape == a[0].shape for x in da)
+            ph.fields[tag] = (f"h_rel={err / scale:.2e},d_abs={d_e:.2e}/tol={d_tol:.2e},"
+                              f"da_abs={da_e:.2e},da_err_over_tol={da_ratio:.3f},"
+                              f"da_shape={tuple(da[0].shape)}")
+            if not (err <= SCAN_RTOL_OF_MAX * scale and d_e <= d_tol and da_ratio <= 1.0
+                    and shape_ok):
+                raise AssertionError(f"scan kernels at S5's shape, {tag}: {ph.fields[tag]}")
+            errs[tag] = (err, max(d_e, da_e))
+        ph.fields.update(shape=f"b={tuple(b[0].shape)}x2,a={tuple(a[0].shape)}x2")
+    with Phase("s5_scan_kernel_timing") as ph, torch.no_grad():
+        h = diag_scan_cuda(a, b)
+        g = tuple(torch.randn(x.shape, device=dev, generator=gen) for x in b)
+        da, d = diag_scan_bwd_cuda(a, h, g)
+        fwd_bytes = sum(distinct_bytes(t) for t in a + b + h)
+        for rev in (False, True):
+            name = "diag_scan" + ("_rev" if rev else "")
+            times[name] = time_scan_kernel(lambda: diag_scan_cuda(a, b, reverse=rev),
+                                           lambda: diag_scan_plain(a, b, reverse=rev),
+                                           fwd_bytes, 8 * b[0].numel(), flush)
+            ph.fields[name] = scan_timing_fields(times[name], fwd_bytes)
+        bwd_bytes = sum(distinct_bytes(t) for t in a + h + g + da + d)
+        times["diag_scan_bwd"] = time_scan_kernel(lambda: diag_scan_bwd_cuda(a, h, g),
+                                                  lambda: diag_scan_bwd_plain(a, h, g),
+                                                  bwd_bytes, 16 * g[0].numel(), flush)
+        ph.fields["diag_scan_bwd"] = scan_timing_fields(times["diag_scan_bwd"], bwd_bytes)
+    return times, errs
+
+
+def ssm_family_path(dev, test_x, test_y, train_split, want_files, full, tag: str, steps: int,
+                    eval_every: int, flush=None):
+    """Main path 12 (``MQAR_S5_FULL``: 2 layers, d_model 128, state 128 (P 64
+    complex channels after conj-sym), ZOH, vocab 8192, L 512, batch 64,
+    BatchNorm, dropout 0.1, full_glu) or 13 (``MQAR_S4_FULL``: the same
+    widths, N 128 DPLR, the CNN mode), weights from seed 1919.  With every
+    launch count set to 0: the forward on the test batch (card against
+    CPU), ``steps`` training steps with an eval every ``eval_every``, the
+    checkpoint reloaded and eigen-analysed at init and trained (against the
+    live model's spectra), serving (64 prompts of ATT_PROMPT tokens, prefill
+    plus 16 greedy tokens, the step path against the full forward); the
+    counts are read there.  S5 launches the scan's forward kernel once a
+    layer a forward and its backward once a layer a step; S4 launches no
+    port kernel (its FFT and Cauchy reduction are XLA code in tlie_tpu,
+    library calls here).  Then one card step against the CPU step and the
+    step's time, device busy time, idle share and six largest kernels; for
+    S4 the generating-function kernel (Cauchy reduction and inverse FFT)
+    alone with its share of the step; for S5 the scan kernels at its shape
+    (:func:`scan_s5_phase`).  Returns (launches, S5's kernel times and
+    errors or None)."""
+    from tlie_tpu_torch.analysis import eval_eig
+    from tlie_tpu_torch.analysis.eval_eig import extract_ssm_family, ssm_layer_params
+    from tlie_tpu_torch.config import derive_runtime_fields, train_fields
+    from tlie_tpu_torch.data import masked_accuracy
+    from tlie_tpu_torch.inference import Decoder
+    from tlie_tpu_torch.models import build_models
+    from tlie_tpu_torch.models.s4 import s4_kernel_dplr
+    from tlie_tpu_torch.ops import LAUNCHES
+    from tlie_tpu_torch.training import prep_batch, restore_checkpoint, train, train_step
+    from tlie_tpu_torch.training.scan_loop import sparse_head_k_for
+    from tlie_tpu_torch.training.state import make_family_optimizer
+
+    mc = full["model"]
+    is_s5 = mc["layer"] == "s5"
+    n_layers, bsz, L = mc["num_layers"], full["train"]["batch_size"], mc["seq_len"]
+    _, model, _ = build_models(mc, generator=torch.Generator().manual_seed(full["seed"]),
+                               device=dev)
+    inputs, labels = prep_batch((test_x[:bsz], test_y[:bsz]), L, mc["input_dim"],
+                                lang_model=True, device=dev)
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    with Phase(f"{tag}_forward") as ph, torch.no_grad():
+        logits = model(inputs)
+        torch.cuda.synchronize()
+        if LAUNCHES["diag_scan"] != (n_layers if is_s5 else 0):
+            raise AssertionError(f"{tag} forward launched diag_scan {LAUNCHES['diag_scan']} times")
+        if logits.shape != (bsz, L, mc["output_dim"]) or not torch.isfinite(logits).all():
+            raise AssertionError(f"{tag} forward output {tuple(logits.shape)}")
+        acc = float(masked_accuracy(logits, labels))
+        fwd_ms = min(cuda_ms(lambda: model(inputs), 3))
+        top = top_device_ops(lambda: model(inputs))
+        _, cpu_model, _ = build_models(mc, generator=torch.Generator(), device="cpu")
+        cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        ref = cpu_model(inputs[:2].cpu())
+        cpu_err = (logits[:2].cpu() - ref).abs().max().item()
+        if not torch.allclose(logits[:2].cpu(), ref, rtol=LOGIT_RTOL, atol=LOGIT_ATOL):
+            raise AssertionError(f"{tag} card vs CPU forward: max abs err {cpu_err}")
+        ph.fields.update(masked_acc=f"{acc:.6f}", forward_ms=f"{fwd_ms:.3f}",
+                         vs_cpu_max_abs=f"{cpu_err:.3e}", top_device_ops_ms=repr(short(top)))
+        del cpu_model, ref
+
+    tcfg = copy.deepcopy(full)
+    tmp = tempfile.mkdtemp(prefix=f"tlie_{tag}_")
+    tcfg["save"] = os.path.join(tmp, "checkpoint", os.path.basename(full["save"]))
+    tcfg["train"].update(total_steps=steps, eval_every=eval_every)
+    tcfg["dataset"]["num_train_examples"] = TRAIN_EXAMPLES
+    tcfg = derive_runtime_fields(tcfg, L, len(train_split[0]))
+    try:
+        with Phase(f"{tag}_train") as ph:
+            before = dict(LAUNCHES)
+            t0 = time.perf_counter()
+            result = train(tcfg, train_split, (test_x, test_y), device=dev)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            trained_launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+            n_eval_batches = len(result.history) * (len(test_x) // bsz)
+            want = dict.fromkeys(LAUNCHES, 0)
+            if is_s5:  # the sparse head; one forward a layer per step and eval batch
+                want.update(diag_scan=n_layers * (steps + n_eval_batches),
+                            diag_scan_bwd=n_layers * steps)
+            if trained_launches != want:
+                raise AssertionError(f"{tag} training launches {trained_launches}, expected {want}")
+            for rec in result.history:
+                if not all(np.isfinite(v) for v in rec.values()):
+                    raise AssertionError(f"non-finite {tag} training numbers {rec}")
+            trained = result.model.state_dict()
+            init = build_models(mc, generator=torch.Generator().manual_seed(full["seed"]),
+                                device=dev)[0].state_dict()
+            frozen = [k for k, v in trained.items() if torch.equal(v, init[k])]
+            if frozen:
+                raise AssertionError(f"{tag} parameters that did not move: {frozen}")
+            ph.fields.update(steps=steps, seconds=f"{train_s:.2f}",
+                             history=repr([{k: round(v, 4) for k, v in r.items()}
+                                           for r in result.history]),
+                             launches=repr(trained_launches))
+
+        with Phase(f"{tag}_checkpoint_eval_eig") as ph:
+            ckpt_path, perf = result
+            ckpt = restore_checkpoint(ckpt_path)
+            for k, v in trained.items():
+                if not torch.equal(ckpt["model"][k], v.cpu()):
+                    raise AssertionError(f"{tag} checkpoint entry {k} differs from the live "
+                                         "weights")
+            eig_dir = os.path.join(tmp, "analysis")
+            eig, eig_init, perc, perc_init, _, _ = eval_eig(tcfg, {"save_path": eig_dir}, perf,
+                                                            ckpt_path, device=dev)
+            live = extract_ssm_family(ssm_layer_params({k: v.cpu() for k, v in trained.items()}),
+                                      mc)
+            (run_dir,) = os.listdir(eig_dir)
+            files = sorted(os.listdir(os.path.join(eig_dir, run_dir)))
+            saved = np.load(os.path.join(eig_dir, run_dir, "eig.npy"))
+            n_eig = mc["state_dim"] // 2 if is_s5 and mc.get("conj_sym", True) else mc["state_dim"]
+            if eig.shape != (n_eig, n_layers) or eig_init.shape != eig.shape:
+                raise AssertionError(f"{tag} spectra {eig.shape}, {eig_init.shape}")
+            if not (np.array_equal(saved, eig) and np.array_equal(eig, live)):
+                raise AssertionError(f"{tag} spectra from the checkpoint differ from the live "
+                                     "model's")
+            r_init, r = np.abs(eig_init), np.abs(eig)
+            if not (np.isfinite(r).all() and np.all(r_init < 1) and np.all(r_init > 0)):
+                raise AssertionError(f"{tag} spectra not finite or outside the unit disc")
+            if files != want_files or not run_dir.startswith(f"MQARdmodel{mc['hidden_dim']}"):
+                raise AssertionError(f"{tag} artifacts {run_dir}: {files}")
+            ph.fields.update(checkpoint=os.path.basename(ckpt_path), perf=f"{perf:.4f}",
+                             artifacts=run_dir, n_files=len(files), eig_shape=eig.shape,
+                             radius_range_init=f"[{r_init.min():.5f}, {r_init.max():.5f}]",
+                             radius_range_trained=f"[{r.min():.5f}, {r.max():.5f}]",
+                             radius_pct_layer0=np.round(perc[:, 0], 1).tolist(),
+                             radius_pct_init_layer0=np.round(perc_init[:, 0], 1).tolist())
+
+        with Phase(f"{tag}_serving") as ph:
+            n_new = 16
+            dec = Decoder(mc, result.eval_model)
+            prompts = inputs[:, :ATT_PROMPT]
+            before = LAUNCHES["diag_scan"]
+            _, last = dec.prefill(prompts)
+            torch.cuda.synchronize()
+            if LAUNCHES["diag_scan"] - before != (n_layers if is_s5 else 0):
+                raise AssertionError(f"{tag} prefill launched diag_scan "
+                                     f"{LAUNCHES['diag_scan'] - before} times")
+            with torch.no_grad():
+                full_prompt = result.eval_model(prompts)[:, -1]
+            prefill_err = (last - full_prompt).abs().max().item()
+            # S4's prefill and step path run the dense DPLR recurrence (C̄
+            # through (I − Ā^L)⁻¹), its forward the generating function: at
+            # these weights they agree within the same bound as S5's
+            if not torch.allclose(last, full_prompt, rtol=LOGIT_RTOL, atol=LOGIT_ATOL):
+                raise AssertionError(f"{tag} prefill vs forward: {prefill_err}")
+            dec.generate(prompts, n_new)  # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = dec.generate(prompts, n_new)
+            torch.cuda.synchronize()
+            gen_s = time.perf_counter() - t0
+            if out.shape != (bsz, ATT_PROMPT + n_new) or not torch.equal(out[:, :ATT_PROMPT],
+                                                                         prompts):
+                raise AssertionError(f"{tag} generate output {tuple(out.shape)}")
+            if int(out.min()) < 0 or int(out.max()) >= mc["output_dim"]:
+                raise AssertionError("generated ids out of the vocab")
+            # the step path against the full forward on the generated
+            # tokens, every position
+            n_check = 4
+            sw = dec.stepwise_logits(out[:n_check])
+            with torch.no_grad():
+                full_logits = result.eval_model(out[:n_check])
+            step_err = (sw - full_logits).abs().max().item()
+            if not torch.allclose(sw, full_logits, rtol=LOGIT_RTOL, atol=LOGIT_ATOL):
+                raise AssertionError(f"{tag} stepwise vs forward: {step_err}")
+            ph.fields.update(prefill_plus_generate_s=f"{gen_s:.4f}",
+                             tokens_per_s=f"{bsz * n_new / gen_s:.1f}",
+                             prefill_vs_forward_max_abs=f"{prefill_err:.3e}",
+                             stepwise_vs_forward_max_abs=f"{step_err:.3e}",
+                             logits_max_abs=f"{full_logits.abs().max().item():.3e}")
+        launches = dict(LAUNCHES)
+        if is_s5:
+            print(f"[launches] {tag} forward, training, eval_eig and serving: {launches}; "
+                  f"training alone: {trained_launches} ({n_layers} + {n_layers} a step)",
+                  flush=True)
+            # the forward, training and prefill counts were checked in their
+            # phases; the backward launches only in training, the forward
+            # also in the forward phase and serving; no other kernel
+            others = {k: v for k, v in launches.items() if not k.startswith("diag_scan") and v}
+            if (launches["diag_scan_bwd"] != want["diag_scan_bwd"] or want["diag_scan_bwd"] == 0
+                    or launches["diag_scan"] < want["diag_scan"] + 2 * n_layers or others):
+                raise AssertionError(f"the {tag} path's launches {launches}")
+        else:
+            print(f"[launches] {tag} forward, training, eval_eig and serving: {launches} "
+                  "(expected: none; tlie_tpu reaches no Pallas kernel on this path)", flush=True)
+            if any(launches.values()):
+                raise AssertionError(f"the {tag} path launched port kernels: {launches}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # one step (sparse head, the family's groups, no clip) from the same
+    # weights and batch at dropout 0, on the card and on the CPU, both held to
+    # the same step in float64 on the CPU
+    step_cfg = dict(mc, dropout=0.0)
+    f = train_fields(tcfg)
+    sparse_k = sparse_head_k_for(mc, train_split[1], test_y)
+    lrs = {"regular": f["lr"], "ssm": f["ssm_lr"]}
+    x_step = torch.as_tensor(train_split[0][:bsz], device=dev).long()
+    y_step = torch.as_tensor(train_split[1][:bsz], device=dev).long()
+
+    def fresh(device):
+        m, _, family = build_models(step_cfg,
+                                    generator=torch.Generator().manual_seed(full["seed"]),
+                                    device=device)
+        opt, clip = make_family_optimizer(m, family, step_cfg, tcfg["train"], f)
+        return m, opt, clip
+
+    with Phase(f"{tag}_train_step_card_vs_cpu") as ph:
+        card_m, card_opt, clip = step_card_vs_cpu(ph, tag, fresh, dev, x_step, y_step, lrs,
+                                                  sparse_k, TF_GRAD_RTOL_OF_MAX,
+                                                  check_stats=True)
+
+    with Phase(f"{tag}_train_step_timing") as ph:
+        fields = step_profile(
+            lambda: train_step(card_m, card_opt, x_step, y_step, lrs, sparse_k, clip_norm=clip),
+            bsz * L, "diag_scan" if is_s5 else None, "scan_kernels", n_top=6)
+        ph.fields.update(fields)
+        if not is_s5:
+            # the generating-function kernel alone (the Cauchy reduction over
+            # the (H, L, N) cube, then the inverse FFT), forward and backward,
+            # at the layer's parameters: its share of the step's device time
+            seq = card_m.encoder.layers[0].seq
+            params = [p for p in seq.parameters()]
+
+            def kernel_fwd_bwd():
+                K = s4_kernel_dplr(*seq.parameters_complex(), seq.l_max)
+                torch.autograd.grad(K.sum(), params, allow_unused=True)
+
+            op_ms = median(cuda_ms(kernel_fwd_bwd, 11))
+            op_busy = sum(t for _, t in top_device_ops(kernel_fwd_bwd, k=1000))
+            ph.fields["s4_kernel_fwd_bwd_ms"] = f"{op_ms:.4f}"
+            ph.fields["s4_kernel_fwd_bwd_device_busy_ms"] = f"{op_busy:.4f}"
+            if fields["device_busy_ms"] != "not measured" and op_busy > 0:
+                share = n_layers * op_busy / float(fields["device_busy_ms"])
+                ph.fields["s4_kernel_share_of_device"] = f"{share:.4f}"
+        del card_m, card_opt
+        torch.cuda.empty_cache()
+
+    s5_times = None
+    if is_s5:
+        with torch.no_grad():
+            u = model.encoder.encoder(inputs)
+        s5_times = scan_s5_phase(dev, model.encoder.layers[0].seq, u, flush)
+    return launches, s5_times
+
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -1923,7 +2257,7 @@ def main() -> int:
     )
     from tlie_tpu_torch.config import (
         MQAR_LIN_ATTENTION_FULL, MQAR_LRU_FULL, MQAR_MAMBA2_FULL, MQAR_NORM_ATTENTION_CONV_FULL,
-        WIKITEXT_LRU_SHORT, derive_runtime_fields, train_fields,
+        MQAR_S4_FULL, MQAR_S5_FULL, WIKITEXT_LRU_SHORT, derive_runtime_fields, train_fields,
     )
     from tlie_tpu_torch.data import MQAR, WikiText, masked_accuracy
     from tlie_tpu_torch.inference import Decoder
@@ -2934,9 +3268,18 @@ def main() -> int:
     del wt_splits
     path10_all = sweep_path(dev, test_x, test_y, train_split, want_files)
 
+    # main paths 12 and 13, the MQAR S5 (the scan kernels at P 64, a (P,)
+    # decay) and S4 (no port kernel)
+    path12_all, (s5_scan_times, s5_scan_errs) = ssm_family_path(
+        dev, test_x, test_y, train_split, want_files, MQAR_S5_FULL, "s5", SSM_STEPS,
+        SSM_EVAL_EVERY, flush)
+    path13_all, _ = ssm_family_path(dev, test_x, test_y, train_split, want_files, MQAR_S4_FULL,
+                                    "s4", SSM_STEPS, SSM_EVAL_EVERY, flush)
+    print(f"[s5 scan kernels] {s5_scan_times} errors {s5_scan_errs}", flush=True)
+
     def late(name):
         return (path6_all[name] + path7_all[name] + path8_all[name] + path9_all[name]
-                + path10_all[name] + path11_all[name])
+                + path10_all[name] + path11_all[name] + path12_all[name] + path13_all[name])
 
     kernels = [{
         "name": "diag_scan",

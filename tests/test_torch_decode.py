@@ -77,4 +77,4 @@ def test_sampling_and_other_families_are_not_ported(decoders):
     with pytest.raises(NotImplementedError, match="sampled"):
         dec.generate(tokens(cfg, batch=1, length=4), 2, temperature=0.7)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        Decoder(dict(cfg, layer="s5"), model)
+        Decoder(dict(cfg, layer="mamba"), model)

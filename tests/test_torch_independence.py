@@ -87,6 +87,16 @@ grads, losses = stacked_grads(models[0], None)(
     {{k: v.detach() for k, v in params.items()}}, buffers, x[None].expand(2, -1, -1),
     y[None].expand(2, -1, -1))
 assert losses.shape == (2,) and grads["decoder.weight"].shape[0] == 2
+from tlie_tpu_torch.config import MQAR_S4_FULL, MQAR_S5_FULL
+from tlie_tpu_torch.analysis.eval_eig import extract_ssm_family, ssm_layer_params
+for full in (MQAR_S5_FULL, MQAR_S4_FULL):
+    scfg = dict(full["model"], input_dim=64, output_dim=64, hidden_dim=8, state_dim=16,
+                num_blocks=2, seq_len=16)
+    sm, sm_eval, _ = build_models(scfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    sm(x).sum().backward()
+    eig = extract_ssm_family(ssm_layer_params(sm.state_dict()), scfg)
+    assert eig.shape == (8 if full is MQAR_S5_FULL else 16, 2), eig.shape
+    assert Decoder(scfg, sm_eval).generate(x[:, :8], 4).shape == (4, 12)
 bcfg = dict(mcfg, compute_dtype="bfloat16")
 _, bm, _ = build_models(bcfg, generator=torch.Generator().manual_seed(0), device="cpu")
 with torch.no_grad():

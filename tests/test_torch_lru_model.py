@@ -117,15 +117,19 @@ def test_prep_batch_and_accuracy_match_jax():
 
 def test_eval_only_and_other_families_raise():
     """Training mode used to raise; it runs now (dropout, BatchNorm batch
-    statistics), and the families not ported yet still raise."""
+    statistics).  Every family is ported now (S5 builds on the same
+    backbone), and a layer that names none raises."""
     cfg = dict(small_config()["model"], input_dim=32, output_dim=32, hidden_dim=8, state_dim=8)
     model, eval_model, _ = build_models(cfg, generator=torch.Generator(), device="cpu")
     x = torch.zeros(2, 4, dtype=torch.long)
     logits = model(x)
     assert model.training and logits.shape == (2, 4, 32) and torch.isfinite(logits).all()
     assert logits.requires_grad
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_models(dict(cfg, layer="s5"), generator=torch.Generator(), device="cpu")
+    s5, _, family = build_models(dict(cfg, layer="s5", num_blocks=2),
+                                 generator=torch.Generator(), device="cpu")
+    assert family == "s5" and s5(x).shape == (2, 4, 32)
+    with pytest.raises(RuntimeError, match="not a valid model option"):
+        build_models(dict(cfg, layer="s6"), generator=torch.Generator(), device="cpu")
 
 
 def test_cuda_default_without_card_raises(monkeypatch):

@@ -460,6 +460,22 @@ def test_positions_past_the_table_raise(decoders, small):
         dec.stepwise_logits(long)
 
 
+def test_positions_past_the_kv_cache_raise(decoders, small):
+    """A KV cache of ``max_len`` below ``max_pos_embed``: the step at
+    position ``max_len`` lies inside the position table, so the cache's own
+    bound must raise (``Decoder._mha_step``), not the table's."""
+    cfg, params, jdec, dec, model = decoders
+    prompt = small[5][0][:2]  # L0 = 32, the table holds 40
+    max_len = L + 2
+    assert max_len < MAX_POS
+    cache, _ = dec.prefill(prompt, max_len)
+    tok = torch.zeros(2, dtype=torch.long)
+    cache, _ = dec.step(cache, tok, L)
+    cache, _ = dec.step(cache, tok, L + 1)
+    with pytest.raises(ValueError, match="past the KV cache of 34"):
+        dec.step(cache, tok, max_len)
+
+
 # -- launch ---------------------------------------------------------------------
 
 def test_launch_trains_checkpoints_and_analyses_the_transformer_on_the_cpu(tmp_path, monkeypatch,

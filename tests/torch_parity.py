@@ -44,6 +44,14 @@ def jax_weights(model_cfg, seed=0, stats_seed=1):
     return eval_model, params, (stats or None)
 
 
+class Jitted:
+    """A flax module whose ``init`` runs jitted (eager flax init costs
+    seconds), for tlie_tpu's state factories."""
+
+    def __init__(self, module):
+        self.init, self.apply = jax.jit(module.init), module.apply
+
+
 def port_model(model_cfg, params, batch_stats):
     """The port's eval-mode model on the CPU, carrying the JAX weights."""
     _, model, _ = build_models(model_cfg, generator=torch.Generator().manual_seed(0), device="cpu")
@@ -118,16 +126,19 @@ def load_chip_smoke():
     return cs
 
 
-def stub_card(monkeypatch, cs, decay_kernels: bool = False, head_kernels: bool = False):
+def stub_card(monkeypatch, cs, decay_kernels: bool = False, head_kernels: bool = False,
+              scan_kernels: bool = False):
     """The card's timers and profiler stubbed for a CPU rehearsal of
     ``chip_smoke`` (CUDA events that time nothing, a profiler that sees no
     device time), every launch count set to 0; with ``decay_kernels`` the
     decay attention's routing forced to its ``*_cuda`` wrappers, which run
     the plain versions and count their launches under the kernels' names,
-    and with ``head_kernels`` the fused head's the same way."""
+    and with ``head_kernels`` the fused head's, with ``scan_kernels`` the
+    diagonal scan's the same way."""
     from tlie_tpu_torch.ops import LAUNCHES
     from tlie_tpu_torch.ops import decay_attention as da
     from tlie_tpu_torch.ops import fused_xent as fx
+    from tlie_tpu_torch.ops import scan as sc
 
     class Event:
         def __init__(self, **kw):
@@ -162,6 +173,18 @@ def stub_card(monkeypatch, cs, decay_kernels: bool = False, head_kernels: bool =
         monkeypatch.setattr(fx, "_on_cuda", lambda t: True)
         for name, stub in (("fwd", fwd), ("dh", dh), ("dw", dw)):
             monkeypatch.setattr(fx, f"fused_xent_{name}_cuda", stub)
+    if scan_kernels:
+        def scan_fwd(a, b, reverse=False):
+            LAUNCHES["diag_scan"] += 1
+            return sc.diag_scan_plain(a, b, reverse)
+
+        def scan_bwd(a, h, g, reverse=False):
+            LAUNCHES["diag_scan_bwd"] += 1
+            return sc.diag_scan_bwd_plain(a, h, g, reverse)
+
+        monkeypatch.setattr(sc, "_on_cuda", lambda t: True)
+        monkeypatch.setattr(sc, "diag_scan_cuda", scan_fwd)
+        monkeypatch.setattr(sc, "diag_scan_bwd_cuda", scan_bwd)
     if not decay_kernels:
         return
 
@@ -176,3 +199,48 @@ def stub_card(monkeypatch, cs, decay_kernels: bool = False, head_kernels: bool =
                           ("bwd_i", da.decay_attention_bwd_i_plain),
                           ("bwd_j", da.decay_attention_bwd_j_plain)):
         monkeypatch.setattr(da, f"decay_attention_{kernel}_cuda", counting(kernel, plain))
+
+
+def load_chip_smoke():
+    """``chip_smoke.py`` imported as a module."""
+    import importlib.util
+    import os
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(__file__), "..", "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+ARTIFACT_FILES = sorted([f"{k}.npy" for k in (
+    "eig", "eig_init", "percentage", "percentage_init", "percentage_phase",
+    "percentage_phase_init", "percentage_mean", "percentage_init_mean", "percentage_std",
+    "percentage_init_std")] + ["percentage_file.txt", "used_config.yaml"])
+
+
+def run_ssm_path(monkeypatch, full, tag, steps=4, eval_every=2):
+    """``chip_smoke.ssm_family_path`` (paths 12 and 13) on the CPU at a tiny
+    cut of ``full`` (L 64, vocab 256, d_model and state 32, batch 32, 256
+    train and 96 test examples, prompts of 48 tokens), the card stubbed
+    and the scan kernels replaced by counting plain versions.  Returns the
+    path's launch counts and its step count."""
+    import copy
+
+    from tlie_tpu_torch.data import MQAR
+
+    cs = load_chip_smoke()
+    stub_card(monkeypatch, cs, scan_kernels=True)
+    monkeypatch.setattr(cs, "ATT_PROMPT", 48)
+    tiny = copy.deepcopy(full)
+    tiny["dataset"].update(input_seq_length=64, num_kv_pairs=8, vocab_size=256)
+    tiny["train"]["batch_size"] = 32
+    tiny["model"].update(seq_len=64, input_dim=256, output_dim=256, hidden_dim=32, state_dim=32)
+    data = MQAR(input_seq_length=64, num_kv_pairs=8, vocab_size=256, num_train_examples=256,
+                num_test_examples=96)
+    test_x, test_y = data.split("test")
+    launches, s5_times = cs.ssm_family_path(torch.device("cpu"), test_x, test_y,
+                                            data.split("train"), ARTIFACT_FILES, tiny, tag,
+                                            steps, eval_every)
+    assert (s5_times is not None) == (full["model"]["layer"] == "s5")
+    return launches, steps

@@ -1,10 +1,11 @@
 """Eigen-spectroscopy: per-layer spectra → binning → artifacts, counterpart
-of ``tlie_tpu/analysis/eval_eig.py::eval_eig`` for the LRU (its SSM branch,
-:384-433) and for Mamba-2 and the softmax, linear and norm attention
-transformers (its attention-family branch, :324-382).
+of ``tlie_tpu/analysis/eval_eig.py::eval_eig`` for the LRU, S5 and S4 (its
+SSM branch, :384-433) and for Mamba-2 and the softmax, linear and norm
+attention transformers (its attention-family branch, :324-382).
 
-For the LRU the spectra depend on the parameters only, so no batch runs
-through the model.  For Mamba-2 and the transformer they come from a forward
+For the SSM families the spectra depend on the parameters only, so no batch
+runs through the model: the LRU's λ, S5's exp(ΛΔ), and the eigenvalues of
+S4's discretised Ā at channel 1 and ``seq_len`` (``eval_eig.py:244-259``).  For Mamba-2 and the transformer they come from a forward
 pass: one analysis batch goes through the blocks, and layer i's spectrum is
 taken from layer i's *own output* re-projected through its own projection —
 Mamba-2's λ_t = exp(dt_t·A) through ``in_proj``, the transformer's η_t of
@@ -15,7 +16,9 @@ mode.
 
 The init spectra come from the port's own seeded init (``torch.Generator``
 seeded with ``args["seed"]``); JAX's draws cannot be reproduced, so they
-match ``tlie_tpu``'s in distribution, not pointwise.  The trained spectra
+match ``tlie_tpu``'s in distribution, not pointwise.  S5's Λ is the
+deterministic HiPPO one, so its init spectrum differs from ``tlie_tpu``'s
+only through the drawn Δ.  The trained spectra
 come from the parameters handed in.
 
 Nothing is written unless the caller names the directory:
@@ -40,7 +43,9 @@ from .artifacts import (
 from .binning import (
     PHASE_THRESHOLDS, RADIUS_THRESHOLDS, threshold_analysis, threshold_analysis_ssm,
 )
-from .extractors import eig_att_linear, eig_att_norm, eig_att_softmax, eig_lru, eig_mamba2
+from .extractors import (
+    eig_att_linear, eig_att_norm, eig_att_softmax, eig_lru, eig_mamba2, eig_s4, eig_s5,
+)
 
 _SEQ_KEY = re.compile(r"^encoder\.layers\.(\d+)\.seq\.(\w+)$")
 
@@ -55,12 +60,22 @@ def ssm_layer_params(state_dict: Mapping[str, torch.Tensor]) -> list:
     return [layers[i] for i in sorted(layers)]
 
 
-def extract_ssm_family(layer_list, model_config) -> np.ndarray:
-    """Per-layer complex spectra → complex64 (N, layers), the dtype
-    ``tlie_tpu``'s float32 (re, im) planes combine into under numpy 2."""
-    if model_config["layer"] != "lru":
-        raise NotImplementedError(f"spectra of {model_config['layer']!r} are not ported yet")
-    cols = [eig_lru(lp).cpu().numpy()[:, None] for lp in layer_list]
+def extract_ssm_family(layer_list, model_config, eig_impl: str = "host") -> np.ndarray:
+    """Per-layer complex spectra of the LRU, S5 or S4 → complex64 (N,
+    layers), the dtype ``tlie_tpu``'s float32 (re, im) planes combine into
+    under numpy 2.  S4's are the eigenvalues of channel 1's Ā at
+    ``seq_len`` (``_extract_ssm_family``), by ``eig_impl``."""
+    family = model_config["layer"]
+    if family == "lru":
+        eig = eig_lru
+    elif family == "s5":
+        eig = eig_s5
+    elif family == "s4":
+        def eig(lp):
+            return eig_s4(lp, idx=1, seq_len=model_config["seq_len"], eig_impl=eig_impl)
+    else:
+        raise RuntimeError(f"unsupported ssm family {family}")
+    cols = [eig(lp).cpu().numpy()[:, None] for lp in layer_list]
     return np.concatenate(cols, axis=-1)
 
 
@@ -109,14 +124,15 @@ def _trained_state(params) -> Mapping[str, torch.Tensor]:
 
 def eval_eig(args: Dict[str, Any], conf_args: Dict[str, Any], perf: float,
              params, *, device="cuda", batch=None):
-    """Spectra pipeline for the LRU, Mamba-2 and the transformers.
+    """Spectra pipeline for the LRU, S5, S4, Mamba-2 and the transformers.
 
     ``params`` is the trained model, its ``state_dict``, or the path of the
     port's checkpoint (``training.save_checkpoint``); ``batch`` is the
     analysis batch of integer tokens (B, L) the Mamba and transformer
     families' spectra are taken on (``tlie_tpu`` takes the first batch of the
-    unshuffled test split, of the analysis config's ``batch_size``); the LRU
-    needs none.  The
+    unshuffled test split, of the analysis config's ``batch_size``); the SSM
+    families need none.  ``conf_args["eig_impl"]`` picks S4's eigensolver
+    ("host", the default, or "device").  The
     artifacts go to ``conf_args["save_path"]/<artifact name>-perf<perf>``.
     Returns (eig, eig_init, percentage, percentage_init, percentage_phase,
     percentage_phase_init) as ``tlie_tpu``'s ``eval_eig`` does."""
@@ -141,7 +157,8 @@ def eval_eig(args: Dict[str, Any], conf_args: Dict[str, Any], perf: float,
             arrays["percentage_std"], arrays["percentage_init_std"],
         )
     else:
-        arrays = _ssm_arrays(init_model, _trained_state(params), model_config)
+        arrays = _ssm_arrays(init_model, _trained_state(params), model_config,
+                             conf_args.get("eig_impl", "host"))
         os.makedirs(out_dir, exist_ok=True)
         write_percentage_file_ssm(
             os.path.join(out_dir, "percentage_file.txt"),
@@ -192,10 +209,11 @@ def _attention_arrays(init_model, trained, batch, model_config, device) -> Dict[
     return arrays
 
 
-def _ssm_arrays(init_model, trained, model_config) -> Dict[str, Any]:
-    """The SSM branch (``eval_eig.py:384-433``) for the LRU."""
-    eig_init = extract_ssm_family(ssm_layer_params(init_model.state_dict()), model_config)
-    eig = extract_ssm_family(ssm_layer_params(trained), model_config)
+def _ssm_arrays(init_model, trained, model_config, eig_impl: str = "host") -> Dict[str, Any]:
+    """The SSM branch (``eval_eig.py:384-433``) for the LRU, S5 and S4."""
+    eig_init = extract_ssm_family(ssm_layer_params(init_model.state_dict()), model_config,
+                                  eig_impl)
+    eig = extract_ssm_family(ssm_layer_params(trained), model_config, eig_impl)
     arrays: Dict[str, Any] = {}
     arrays["percentage_init"] = threshold_analysis_ssm(np.abs(eig_init), RADIUS_THRESHOLDS)
     arrays["percentage"] = threshold_analysis_ssm(np.abs(eig), RADIUS_THRESHOLDS)

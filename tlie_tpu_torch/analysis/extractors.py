@@ -1,6 +1,6 @@
 """Eigenvalue extractors, counterpart of ``tlie_tpu/analysis/extractors.py``
-for the LRU, Mamba-2, and softmax, linear and norm attention.  Complex
-spectra are native complex tensors (ROADMAP rule 5)."""
+for the LRU, S5, S4, Mamba-2, and softmax, linear and norm attention.
+Complex spectra are native complex tensors (ROADMAP rule 5)."""
 
 from __future__ import annotations
 
@@ -10,6 +10,8 @@ import torch
 import torch.nn.functional as F
 
 from ..models.attention_layers import norm_fn_by_name
+from ..models.s4 import discrete_dplr
+from ..ops.eig import eigvals
 
 # the reference's guard: an exact-zero normaliser becomes this before the
 # ratio (ref eval_eig.py:127)
@@ -22,6 +24,46 @@ def eig_lru(layer_params: Mapping[str, torch.Tensor]) -> torch.Tensor:
     nu_log = torch.as_tensor(layer_params["nu_log"], dtype=torch.float32)
     theta_log = torch.as_tensor(layer_params["theta_log"], dtype=torch.float32)
     return torch.polar(torch.exp(-torch.exp(nu_log)), torch.exp(theta_log))
+
+
+def eig_s5(layer_params: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """λ = exp(Λ · exp(log_step)) elementwise (``eig_s5``), as complex64,
+    computed in float32 as e^{Re}·(cos Im + i sin Im) like ``tlie_tpu``."""
+    step = torch.exp(torch.as_tensor(layer_params["log_step"], dtype=torch.float32).flatten())
+    lam_re = torch.as_tensor(layer_params["Lambda_re"], dtype=torch.float32)
+    lam_im = torch.as_tensor(layer_params["Lambda_im"], dtype=torch.float32)
+    return torch.polar(torch.exp(lam_re * step), lam_im * step)
+
+
+def _complex_param(p) -> torch.Tensor:
+    """A complex parameter from the trailing (re, im) layout or a complex
+    array, as a reference checkpoint restored on the CPU holds S4's P and B
+    (``_pair_from_param``); a real array without that axis is taken as real."""
+    t = torch.as_tensor(p)
+    if t.is_complex():
+        return t.to(torch.complex64)
+    t = t.float()
+    if t.shape[-1] == 2:
+        return torch.complex(t[..., 0], t[..., 1])
+    return torch.complex(t, torch.zeros_like(t))
+
+
+def eig_s4(layer_params: Mapping[str, torch.Tensor], idx: int, seq_len: int,
+           eig_impl: str = "host") -> torch.Tensor:
+    """Eigenvalues (N,) complex64 of channel ``idx``'s dense discretised DPLR
+    Ā (``eig_s4``): :func:`discrete_dplr` on the parameters' device, then
+    :func:`tlie_tpu_torch.ops.eig.eigvals` (host LAPACK, as ``tlie_tpu``, or
+    ``torch.linalg.eigvals`` with ``eig_impl="device"``)."""
+    f32 = torch.float32
+    step = torch.exp(torch.as_tensor(layer_params["log_step"], dtype=f32)[0, idx])
+    lam = torch.complex(
+        torch.as_tensor(layer_params["Lambda_re"], dtype=f32)[:, idx].clamp(max=-1e-4),
+        torch.as_tensor(layer_params["Lambda_im"], dtype=f32)[:, idx])
+    p = _complex_param(layer_params["P"])[:, idx].to(lam.device)
+    b = _complex_param(layer_params["B"])[:, idx].to(lam.device)
+    c = _complex_param(layer_params["C"])[:, idx].to(lam.device)
+    ab, _, _ = discrete_dplr(lam, p, p, b, c, step, seq_len)
+    return eigvals(ab, impl=eig_impl)
 
 
 def eig_mamba2(x: torch.Tensor, in_proj_weight: torch.Tensor, in_proj_bias, dt_bias: torch.Tensor,

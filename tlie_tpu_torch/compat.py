@@ -3,7 +3,9 @@ the port's ``state_dict``.
 
 The flax tree of the SSM backbone (``encoder/encoder``,
 ``encoder/layers_i/{seq,out1,out2,normalize}``, ``decoder``) maps name for
-name onto the port's modules.  The Mamba family keeps the reference's torch
+name onto the port's modules, the LRU's, S5's and S4's cores (``seq``) leaf
+for leaf at the same shapes; complex S4 ``P`` and ``B`` arrays, as the
+reference's checkpoints store them, load with a trailing (re, im) axis.  The Mamba family keeps the reference's torch
 names (``encoder.word_embeddings``, ``blocks.{i}.mamba.*``,
 ``blocks.{i}.glu.linear``, ``blocks.{i}.norm``), which map onto
 ``encoder/word_embeddings/embedding``, ``blocks_i/mamba/*``,
@@ -29,10 +31,13 @@ import numpy as np
 import torch
 
 LRU_PARAMS = ("nu_log", "theta_log", "gamma_log", "B_re", "B_im", "C_re", "C_im", "D")
+# S5's and S4's leaves (D is the LRU's name too); complex values carry a
+# trailing (re, im) axis on both sides
+S5_S4_PARAMS = ("Lambda_re", "Lambda_im", "log_step", "B", "C", "C1", "C2", "P")
 
 _LAYER = r"encoder\.layers\.(?P<i>\d+)"
 _FLAX_LAYER = r"encoder/layers_(?P<i>\d+)"
-_LRU = "(?P<p>" + "|".join(LRU_PARAMS) + ")"
+_SSM = "(?P<p>" + "|".join(LRU_PARAMS + S5_S4_PARAMS) + ")"
 _BLOCK = r"blocks\.(?P<i>\d+)"
 _FLAX_BLOCK = r"params/blocks_(?P<i>\d+)"
 _PROJ = r"(?P<pr>in_proj|out_proj)"
@@ -46,7 +51,7 @@ T, CONV = "T", "conv"
 _RULES = (
     (r"encoder\.encoder\.weight", r"params/encoder/encoder/kernel", None),
     (r"encoder\.encoder\.bias", r"params/encoder/encoder/bias", None),
-    (_LAYER + r"\.seq\." + _LRU, r"params/" + _FLAX_LAYER + r"/seq/" + _LRU, None),
+    (_LAYER + r"\.seq\." + _SSM, r"params/" + _FLAX_LAYER + r"/seq/" + _SSM, None),
     (_LAYER + r"\.(?P<o>out[12])\.weight", r"params/" + _FLAX_LAYER + r"/(?P<o>out[12])/kernel", T),
     (_LAYER + r"\.(?P<o>out[12])\.bias", r"params/" + _FLAX_LAYER + r"/(?P<o>out[12])/bias", None),
     (_LAYER + r"\.normalize\.weight", r"params/" + _FLAX_LAYER + r"/normalize/scale", None),
@@ -137,7 +142,7 @@ def _leaves(tree: Mapping, prefix=()):
 
 def params_from_jax(params: Mapping[str, Any],
                     batch_stats: Optional[Mapping[str, Any]] = None) -> Dict[str, torch.Tensor]:
-    """The port's ``state_dict`` for an LRU ``ClassificationModel``, a
+    """The port's ``state_dict`` for an LRU, S5 or S4 ``ClassificationModel``, a
     ``Mamba`` or a ``Transformer`` from the flax ``params`` (and
     ``batch_stats`` for ``norm: batch``) as numpy arrays.  Raises if a flax leaf has no place in the
     port."""
@@ -151,7 +156,10 @@ def params_from_jax(params: Mapping[str, Any],
                 left.append((collection,) + path)
                 continue
             key, change = found
-            arr = np.asarray(value, dtype=np.float32)
+            arr = np.asarray(value)
+            if np.iscomplexobj(arr):  # a reference checkpoint's complex S4 P or B
+                arr = np.stack([arr.real, arr.imag], axis=-1)
+            arr = arr.astype(np.float32)
             out[key] = torch.tensor(np.ascontiguousarray(_to_port_layout(arr, change)))
     if left:
         raise ValueError(f"flax leaves with no place in the port: {left}")

@@ -1,13 +1,13 @@
 from .schema import (
     MQAR_LIN_ATTENTION_FULL, MQAR_LRU_FULL, MQAR_MAMBA2_FULL, MQAR_NORM_ATTENTION_CONV_FULL,
-    MQAR_SM_ATTENTION_FULL, WIKITEXT_LRU_SHORT, ExperimentConfig, apply_sweep_point,
+    MQAR_S4_FULL, MQAR_S5_FULL, MQAR_SM_ATTENTION_FULL, WIKITEXT_LRU_SHORT, ExperimentConfig, apply_sweep_point,
     checkpoint_name, derive_runtime_fields, expand_sweep, iter_sweep, lang_model, load_experiment,
     load_sweep, load_yaml, step_driven, train_fields,
 )
 
 __all__ = [
     "MQAR_LIN_ATTENTION_FULL", "MQAR_LRU_FULL", "MQAR_MAMBA2_FULL",
-    "MQAR_NORM_ATTENTION_CONV_FULL", "MQAR_SM_ATTENTION_FULL", "WIKITEXT_LRU_SHORT",
+    "MQAR_NORM_ATTENTION_CONV_FULL", "MQAR_S4_FULL", "MQAR_S5_FULL", "MQAR_SM_ATTENTION_FULL", "WIKITEXT_LRU_SHORT",
     "ExperimentConfig", "apply_sweep_point", "checkpoint_name", "derive_runtime_fields",
     "expand_sweep", "iter_sweep", "lang_model", "load_experiment", "load_sweep", "load_yaml",
     "step_driven", "train_fields",

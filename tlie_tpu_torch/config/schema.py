@@ -428,3 +428,24 @@ MQAR_NORM_ATTENTION_CONV_FULL: Dict[str, Any] = {
     },
     "lang_model": True,
 }
+
+
+def _mqar_ssm_full(layer: str, **model) -> Dict[str, Any]:
+    """configs/tasks/mqar/mqar-{layer}.yaml after derive_runtime_fields with
+    the MQAR dataset it names (L = 512, 100 000 training examples by
+    default), the S5 and S4 configs differing only in their model keys."""
+    full = copy.deepcopy(MQAR_LRU_FULL)
+    full["save"] = f"./checkpoint/mqar-{layer}"
+    m = full["model"]
+    del m["r_min"], m["r_max"]
+    seq_len = m.pop("seq_len")
+    m.update(layer=layer, **model, seq_len=seq_len)
+    return full
+
+
+# configs/tasks/mqar/mqar-s5.yaml and mqar-s4.yaml resolved; a CPU test pins
+# each dict to its YAML as tlie_tpu.config resolves it.  S5 ignores its
+# ssm_lr_vars (create_train_state_s5's fixed set).
+MQAR_S5_FULL = _mqar_ssm_full("s5", C_init="lecun_normal", discretization="zoh",
+                              conj_sym=True, num_blocks=8)
+MQAR_S4_FULL = _mqar_ssm_full("s4")

@@ -1,11 +1,18 @@
-"""Autoregressive serving for the LRU and the transformers (softmax, linear
-and norm attention), counterpart of ``tlie_tpu/inference/decode.py::Decoder``
-(families ``lru`` and ``attention``).
+"""Autoregressive serving for the SSM families (LRU, S5, S4) and the
+transformers (softmax, linear and norm attention), counterpart of
+``tlie_tpu/inference/decode.py::Decoder`` (families ``lru``, ``s5``, ``s4``
+and ``attention``).
 
-The decode state of an LRU layer is the complex diagonal state h (B, N),
-kept as a (re, im) pair; ``prefill`` runs the prompt through the
-full-sequence path (on the card, the diagonal-scan kernel) and keeps the
-last state, and ``step`` advances one token in O(1).  The decode state of a
+The decode state of an LRU or S5 layer is the complex diagonal state h (B,
+N), or (B, P), kept as a (re, im) pair; ``prefill`` runs the prompt through
+the full-sequence path (on the card, the diagonal-scan kernel) and keeps
+the last state, and ``step`` advances one token in O(1) with the layer's
+discretised constants (S5: Λ̄, B̄ and the ×2 of conj-sym).  A bidirectional
+S5 has no causal decode and raises ``ValueError``.  The decode state of an
+S4 layer is the complex state x (B, H, N) of each channel's dense DPLR
+recurrence (Ā, B̄, C̄ from ``discrete_dplr`` at ``l_max = seq_len``); its
+CNN mode exposes no state, so ``prefill`` runs the prompt through ``step``
+one token at a time.  The decode state of a
 transformer layer sits behind the conv's trailing K−1 inputs where the layer
 has a conv:
 - softmax attention: its float32 KV cache, k (B, max_len, H, head_dim) and v
@@ -46,10 +53,13 @@ from torch import nn
 from ..models.attention_layers import MHNA
 from ..models.backbone import glu_activation
 from ..models.registry import build_models
+from ..models.s4 import S4
+
+SSM_FAMILIES = ("lru", "s5", "s4")
 
 
 class Decoder:
-    """Per-token decoder for LRU and transformer weights.
+    """Per-token decoder for LRU, S5, S4 and transformer weights.
 
     >>> dec = Decoder(model_cfg, state_dict)            # on the card
     >>> out = dec.generate(prompt_tokens, n_new=16)     # greedy
@@ -63,10 +73,12 @@ class Decoder:
         if cfg.get("classifier", False) or cfg.get("dual", False):
             raise ValueError("decode targets per-position LM heads "
                              "(classifier/dual models have no AR semantics)")
-        if cfg["layer"] == "lru":
+        if cfg["layer"] in SSM_FAMILIES:
             if cfg.get("pooling", "none") != "none":
                 raise ValueError("decode requires pooling: none")
-            self.family, self.vocab, self.max_pos = "lru", cfg["input_dim"], 0
+            if cfg["layer"] == "s5" and cfg.get("bidirectional", False):
+                raise ValueError("bidirectional S5 cannot decode causally")
+            self.family, self.vocab, self.max_pos = cfg["layer"], cfg["input_dim"], 0
         elif cfg["layer"] == "transformer":
             if not cfg.get("embedding", False):
                 raise ValueError("transformer decode requires a token encoder")
@@ -83,30 +95,45 @@ class Decoder:
             _, self.model, _ = build_models(cfg, generator=torch.Generator(), device=device)
             self.model.load_state_dict(params)
         self.device = next(self.model.parameters()).device
-        if self.family == "lru":
+        if self.family in SSM_FAMILIES:
             self._prep_ssm()
 
     # -- per-layer recurrence constants (computed once) --------------------
 
     @torch.no_grad()
     def _prep_ssm(self):
+        """Each layer's step constants: the LRU's λ, γ-normalised B, C, D;
+        S5's Λ̄, B̄, C̃, D and the readout's 2 (conj-sym) or 1; S4's (Ā, B̄,
+        C̄) and D."""
         self._ssm_consts = []
         for layer in self.model.encoder.layers:
             seq = layer.seq
-            self._ssm_consts.append(dict(
-                lam=seq.lam(), bn=seq.input_matrix(), c=(seq.C_re, seq.C_im), d=seq.D,
-            ))
+            if self.family == "lru":
+                consts = dict(lam=seq.lam(), bn=seq.input_matrix(), c=(seq.C_re, seq.C_im),
+                              d=seq.D, mult=1.0)
+            elif self.family == "s5":
+                lam_bar, b_bar = seq.discretized()
+                consts = dict(lam=(lam_bar.real, lam_bar.imag), bn=(b_bar.real, b_bar.imag),
+                              c=seq.c_tilde(), d=seq.D, mult=2.0 if seq.conj_sym else 1.0)
+            else:
+                consts = dict(dplr=seq.recurrence(), d=seq.D[0])
+            self._ssm_consts.append(consts)
 
     def init_cache(self, bsz: int, max_len: Optional[int] = None):
-        """Zero decode state: per LRU layer (h_re, h_im); per transformer
+        """Zero decode state: per LRU or S5 layer (h_re, h_im), per S4 layer
+        the complex (bsz, H, N) state; per transformer
         layer ([conv tail,] k cache, v cache) for ``max_len`` positions
         (softmax), ([conv tail,] S, key sum) (linear) or ([conv tail,] S)
         (norm attention).  ``max_len``, which the softmax cache needs, is
         checked against the position table."""
-        if self.family == "lru":
-            n = self.cfg["state_dim"]
-            z = lambda: torch.zeros(bsz, n, device=self.device)  # noqa: E731
-            return tuple((z(), z()) for _ in self.model.encoder.layers)
+        if self.family == "s4":
+            return tuple(torch.zeros(bsz, seq.d_model, seq.d_state, dtype=torch.complex64,
+                                     device=self.device)
+                         for seq in (layer.seq for layer in self.model.encoder.layers))
+        if self.family in SSM_FAMILIES:
+            def z(consts):
+                return torch.zeros(bsz, consts["lam"][0].shape[0], device=self.device)
+            return tuple((z(c), z(c)) for c in self._ssm_consts)
         if max_len is None and self.cfg["attention_fn"] == "sm-attention":
             raise ValueError("the transformer's KV cache needs max_len")
         if max_len is not None:
@@ -150,8 +177,9 @@ class Decoder:
 
     @torch.no_grad()
     def step(self, cache, tok: torch.Tensor, pos: Optional[int] = None):
-        """(cache, tokens (B,), pos) → (cache, logits (B, V)).  The LRU's
-        state carries no position; the transformer's step needs ``pos``."""
+        """(cache, tokens (B,), pos) → (cache, logits (B, V)).  The SSM
+        families' state carries no position; the transformer's step needs
+        ``pos``."""
         if self.family == "attention":
             return self._tf_step(cache, tok, pos)
         x = self.model.encoder.encoder(tok)
@@ -169,6 +197,9 @@ class Decoder:
 
     @staticmethod
     def _ssm_core_step(consts, c, u):
+        if "dplr" in consts:  # S4: the dense DPLR recurrence
+            x, y = S4.rnn_step(consts["dplr"], c, u)
+            return y + consts["d"] * u, x
         lam_re, lam_im = consts["lam"]
         br, bi = consts["bn"]
         hr, hi = c
@@ -176,7 +207,7 @@ class Decoder:
         nr = lam_re * hr - lam_im * hi + bur
         ni = lam_re * hi + lam_im * hr + bui
         cr, ci = consts["c"]
-        y = nr @ cr.T - ni @ ci.T
+        y = consts["mult"] * (nr @ cr.T - ni @ ci.T)
         return y + consts["d"] * u, (nr, ni)
 
     def _tf_step(self, cache, tok, pos):
@@ -248,18 +279,24 @@ class Decoder:
     def prefill(self, prompt, max_len: Optional[int] = None):
         """Run the prompt (B, L0) through the full-sequence path and build the
         decode cache from it (for the transformer, a KV cache of ``max_len``
-        positions, L0 by default).  Returns (cache, logits at the last prompt
+        positions, L0 by default).  S4 runs the prompt through ``step``,
+        one token at a time.  Returns (cache, logits at the last prompt
         position)."""
         prompt = self._tokens(prompt)
         if self.family == "attention":
             return self._tf_prefill(prompt, prompt.shape[1] if max_len is None else max_len)
+        if self.family == "s4":
+            cache = self.init_cache(prompt.shape[0])
+            for t in range(prompt.shape[1]):
+                cache, logits = self.step(cache, prompt[:, t])
+            return cache, logits
         x = self.model.encoder.encoder(prompt)  # (B, L, d)
         cache = []
         for layer in self.model.encoder.layers:
             skip = x
             if layer.prenorm:
                 x = layer.normalize(x)
-            h = layer.seq.scan(x)  # the diagonal-scan kernel on the card
+            h = layer.seq.scan(x)  # the diagonal-scan kernel on the card (LRU, S5)
             cache.append((h[0][:, -1].contiguous(), h[1][:, -1].contiguous()))
             x = skip + glu_activation(layer, layer.seq.readout(h, x))
             if not layer.prenorm:

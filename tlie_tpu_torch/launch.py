@@ -3,7 +3,10 @@
     python -m tlie_tpu_torch.launch --config configs/tasks/mqar/mqar-lru.yaml \\
         --analysis_config configs/analysis/mqar.yaml [--device cpu]
 
-The model families are the LRU (``layer: lru``), Mamba-2 (``layer: mamba``,
+The model families are the SSM backbones, the LRU (``layer: lru``), S5
+(``layer: s5``, e.g. ``configs/tasks/mqar/mqar-s5.yaml`` and the CPU-sized
+``configs/mqar-s5-small.yaml``) and S4 (``layer: s4``, ``mqar-s4.yaml``,
+``mqar-s4-small.yaml``), Mamba-2 (``layer: mamba``,
 e.g. ``configs/tasks/mqar/mqar-mamba2.yaml``) and the transformer (``layer:
 transformer``) with softmax attention (``attention_fn: sm-attention``, e.g.
 ``configs/tasks/mqar/mqar-sm-attention.yaml``), linear attention
@@ -28,7 +31,8 @@ once, and trains and analyses its points one after another, each with
 ``apply_sweep_point``, ``derive_runtime_fields``, ``train`` and ``eval_eig``;
 ``--sweep_parallel`` (which implies ``--sweep``) trains the points stacked on
 one device instead (:func:`tlie_tpu_torch.parallel.run_sweep`; the
-transformer with linear or norm attention only).  Both journal each finished
+transformer with linear or norm attention only: it raises for the other
+families, whose kernels' autograd functions have no ``vmap`` rule).  Both journal each finished
 point in ``<save>.sweep_journal.jsonl`` and skip the points a rerun finds
 there:
 

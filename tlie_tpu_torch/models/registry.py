@@ -1,6 +1,7 @@
 """Model registry: config dict → (train model, eval model, family),
-counterpart of ``tlie_tpu/models/registry.py::build_models`` for the ``lru``,
-``mamba`` and ``transformer`` families."""
+counterpart of ``tlie_tpu/models/registry.py::build_models`` for all five
+families: the SSM backbones (``lru``, ``s4``, ``s5``), ``mamba`` and
+``transformer``."""
 
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ from .backbone import ClassificationModel
 from .layers import Dropout
 from .lru import LRU
 from .mamba2 import Mamba
+from .s4 import init_S4
+from .s5 import init_S5
 from .transformer import Transformer
 
 MODEL_FAMILIES = ("mamba", "transformer", "lru", "s4", "s5")
@@ -32,9 +35,7 @@ def build_models(model_config: Dict[str, Any], *, generator: torch.Generator,
     generator seeded from it.  Like ``tlie_tpu``'s registry the models return
     logits, not log-probs (argmax, masked CE and perplexity do not change)."""
     layer = model_config["layer"]
-    if layer not in ("lru", "mamba", "transformer"):
-        if layer in MODEL_FAMILIES:
-            raise NotImplementedError(f"model family {layer!r} is not ported yet")
+    if layer not in MODEL_FAMILIES:
         raise RuntimeError(f"{layer} is not a valid model option")
     compute_dtype = model_config.get("compute_dtype", "float32")
     if compute_dtype not in ("float32", "bfloat16"):
@@ -44,7 +45,8 @@ def build_models(model_config: Dict[str, Any], *, generator: torch.Generator,
             f"compute_dtype: bfloat16 is ported for layer: mamba only, not {layer!r} "
             "(ROADMAP Queue 1 item 7: bf16 for the lru and transformer families)")
     dev = resolve_device(device)
-    family = {"lru": _lru_model, "mamba": Mamba, "transformer": Transformer}[layer]
+    family = {"lru": _ssm_model, "s4": _ssm_model, "s5": _ssm_model, "mamba": Mamba,
+              "transformer": Transformer}[layer]
     model = family(model_config, generator).to(dev)
     seed = int(torch.randint(2**62, (1,), generator=generator))
     dropout_gen = torch.Generator(device=dev).manual_seed(seed)
@@ -57,12 +59,14 @@ def build_models(model_config: Dict[str, Any], *, generator: torch.Generator,
     return model.train(), eval_model.eval(), layer
 
 
-def _lru_model(model_config: Dict[str, Any], generator: torch.Generator) -> ClassificationModel:
-    ssm = partial(
-        LRU, model_config["state_dim"], model_config["hidden_dim"], generator,
-        model_config.get("r_min", 0.0), model_config.get("r_max", 1.0),
-        model_config.get("max_phase", 6.28),
-    )
+def _ssm_model(model_config: Dict[str, Any], generator: torch.Generator) -> ClassificationModel:
+    """The SSM backbone around the family's core (``ssm_backbone_partial``)."""
+    layer, n, h = model_config["layer"], model_config["state_dim"], model_config["hidden_dim"]
+    if layer == "lru":
+        ssm = partial(LRU, n, h, generator, model_config.get("r_min", 0.0),
+                      model_config.get("r_max", 1.0), model_config.get("max_phase", 6.28))
+    else:
+        ssm = (init_S5 if layer == "s5" else init_S4)(n, h, generator, **model_config)
     return ClassificationModel(
         ssm,
         d_output=model_config["output_dim"],

@@ -15,7 +15,14 @@ into ``inject_hyperparams``.
 
 The MQAR LRU configs list ``Lambda_re, Lambda_im, P, B, log_step``, none of
 which is an LRU leaf name, so there every parameter is ``regular``, as it is
-in ``tlie_tpu``.
+in ``tlie_tpu``.  S4 takes these groups as they are, with ``train.betas``.
+
+S5 takes ``create_train_state_s5``'s layout instead: the ``ssm`` set is
+fixed to :data:`S5_SSM_VARS` whatever the config's ``ssm_lr_vars`` says (the
+MQAR S5 configs list ``B``, which is decayed in ``regular`` all the same),
+and both groups take optax's default betas (0.9, 0.999), not
+``train.betas``.  (``norm`` names no leaf: BatchNorm's are ``scale`` and
+``bias``, so the norms are ``regular``, as in ``tlie_tpu``.)
 """
 
 from __future__ import annotations
@@ -26,6 +33,10 @@ import torch
 from torch import nn
 
 from ..compat import flax_path
+
+# create_train_state_s5's hardcoded SSM group (tlie_tpu/training/state.py:126)
+S5_SSM_VARS = ("Lambda_re", "Lambda_im", "log_step", "norm")
+OPTAX_BETAS = (0.9, 0.999)
 
 
 def param_groups(model: nn.Module, ssm_vars: Iterable[str]) -> Dict[str, List[Tuple[str, nn.Parameter]]]:
@@ -59,7 +70,8 @@ def set_group_learning_rates(optimizer: torch.optim.Optimizer, lrs: Dict[str, fl
 def make_family_optimizer(model: nn.Module, family: str, model_cfg: Dict[str, Any],
                           train_cfg: Dict[str, Any], f: Dict[str, Any]):
     """``(optimizer, clip_norm)`` for the family (``loop.py::_make_state``):
-    the SSM families take the ``{ssm, regular}`` groups and no clip; the
+    the SSM families take the ``{ssm, regular}`` groups and no clip (S5 with
+    its fixed ``ssm`` set and optax's default betas); the
     Mamba and transformer families ``create_train_state_adamw``'s one AdamW group,
     ``regular``, decaying every parameter (optax's ``adamw``, eps 1e-8),
     behind a clip at global norm 1.0 (:func:`clip_by_global_norm_`, applied
@@ -71,6 +83,8 @@ def make_family_optimizer(model: nn.Module, family: str, model_cfg: Dict[str, An
         group = {"params": list(model.parameters()), "name": "regular", "lr": f["lr"],
                  "weight_decay": f["wd"]}
         return torch.optim.AdamW([group], betas=tuple(f["betas"]), eps=1e-8), 1.0
+    if family == "s5":
+        return make_optimizer(model, S5_SSM_VARS, f["lr"], f["ssm_lr"], f["wd"], OPTAX_BETAS), None
     return make_optimizer(model, model_cfg.get("ssm_lr_vars", []), f["lr"], f["ssm_lr"],
                           f["wd"], f["betas"]), None
 
