@@ -10,9 +10,9 @@ once), holds each kernel against its plain PyTorch version on the card
 decoder + cross-entropy head on float32 and on bfloat16 operands, the three
 of the SSD's decay attention on float32 and on bfloat16 operands and the
 three of the flash attention), the scan's two kernels also on a decay that
-varies by example and is constant in time and at S5's shape, and drives
-nine full-width models along thirteen paths, each with the launch counts
-set to 0 just before it and read just after:
+varies by example and is constant in time and at S5's shapes (MQAR and
+ListOps), and drives eleven full-width models along fifteen paths, each with
+the launch counts set to 0 just before it and read just after:
 
 1. the MQAR LRU (``MQAR_LRU_FULL``: L=512, d_model=128, N=128, 2 layers,
    vocab 8192, batch 64, weights from the config's seed): evaluation,
@@ -84,16 +84,31 @@ set to 0 just before it and read just after:
 13. the MQAR S4 (``MQAR_S4_FULL``: the same widths, N 128 DPLR, the CNN
    mode through ``torch.fft``) along path 12's phases (serving: the dense
    DPLR recurrence, prefill step by step), with the generating-function
-   kernel's share of the step.
-Paths 6, 7, 10 and 13 reach no Pallas kernel in ``tlie_tpu``: no port kernel
-launches on them, and the script checks that.  The decay attention's three
+   kernel's share of the step;
+14. the ListOps S5 (``LISTOPS_S5_FULL``: 6 layers, d_model 128, state 64, P
+   32 after conj-sym, ZOH, BatchNorm, a masked mean pool, batch 50, l_max
+   2048, 10 classes) on ListOps generated natively (lengths 500-2000, the
+   train split cut to 4,000 examples and the test split to 500): its
+   forward on a test batch, 3 epochs of training (80 steps each, 1 of
+   warmup, an eval at each epoch's end; the scan's forward and backward
+   kernels, six of each a step), the checkpoint reloaded and
+   eigen-analysed at init and trained, a resume from the snapshot written
+   at step 160 held to the uninterrupted run, the card step against the
+   CPU step (10 examples), the step's time and idle share, and the scan
+   kernels held to their plain versions and timed at (50, 2048, 32);
+15. the ListOps S4 (``LISTOPS_S4_FULL``: the same widths, N 64 DPLR)
+   along path 14's phases but the kernels', with the generating function's
+   share of the step.
+Paths 6, 7, 10, 13 and 15 reach no Pallas kernel in ``tlie_tpu``: no port
+kernel launches on them, and the script checks that.  The decay attention's three
 kernels are also held on bfloat16 operands against the plain bfloat16
 version (the WikiText Mamba-2, MQAR and a ragged shape) and timed against
 the bfloat16 tensor-core bound, and so are the fused head's three bfloat16
 kernels (the LM's shape, a vocabulary below one tile and a ragged one).
 
-It also checks one MQAR training step of the LRU, of the Mamba-2 and of the
-transformers on the card against the same step on the CPU, one fused-head
+It also checks one MQAR training step of the LRU, of the Mamba-2, of the
+transformers and of S5 and S4, and one ListOps step of S5 and S4, on the
+card against the same step on the CPU, one fused-head
 WikiText step against the dense-head step on the card, and times each kernel
 against its bound, its plain version and, where one exists, the PyTorch
 library call computing the same function.  Each
@@ -286,6 +301,18 @@ ATT_PROMPT = 496
 # configs run 40,000 with an eval every 200) on the train split cut as the
 # LRU's; serving takes ATT_PROMPT tokens and 16 greedy ones
 SSM_STEPS, SSM_EVAL_EVERY = 200, 100
+# the ListOps S5 and S4 paths (14, 15): the train split cut to 4,000 examples
+# (96,000) and the test split to 500 (2,000), 3 epochs (50) with 1 of warmup
+# (5): 80 steps an epoch, 240 in all, 3 evals; a resume snapshot every 160
+# steps (4,800), so one at step 160; the card-vs-CPU step on 10 examples
+LISTOPS_TRAIN, LISTOPS_TEST = 4000, 500
+LISTOPS_EPOCHS, LISTOPS_WARMUP, LISTOPS_SNAPSHOT = 3, 1, 160
+LISTOPS_STEP_EXAMPLES = 10
+# a resumed run against the uninterrupted one on the card: the same float32
+# operations on the same data from the same state, so the same bits are
+# expected (cuBLAS and the scan kernels fix their reduction order); every
+# parameter, BatchNorm statistic and eval number within 1e-6 absolute
+RESUME_PARAM_ATOL = 1e-6
 # one transformer step's gradients, card vs CPU, both held to float64 on the
 # CPU: the card's error may be GRAD_F64_FACTOR times the CPU's, or 1e-4 of
 # the leaf's max, the tolerance the CPU tests hold the port's gradients to
@@ -1083,7 +1110,8 @@ def step_profile(one_step, tokens_per_step: int, kernel_pattern, kernel_field: s
 def step_card_vs_cpu(ph, what: str, fresh, dev, x_step, y_step, lrs, sparse_k,
                      rtol_of_max: float, watch=None, check_stats: bool = False):
     """One training step (sparse head, AdamW behind the global-norm clip)
-    from the same weights and batch on the card and on the CPU, both held
+    from the same weights and batch on the card and on the CPU (``x_step``
+    the tokens, or a padded model's ``(tokens, lengths)``), both held
     to the same step in float64 on the CPU: each gradient's error on the
     card may be GRAD_F64_FACTOR times the CPU's or ``rtol_of_max`` of the
     leaf's max|g|; the parameters within PARAM_ATOL where |g| is at least
@@ -1101,11 +1129,12 @@ def step_card_vs_cpu(ph, what: str, fresh, dev, x_step, y_step, lrs, sparse_k,
     cpu_m, cpu_opt, _ = fresh("cpu")
     train_step(card_m, card_opt, x_step, y_step, lrs, sparse_k, clip_norm=clip)
     t0 = time.perf_counter()
-    train_step(cpu_m, cpu_opt, x_step.cpu(), y_step.cpu(), lrs, sparse_k, clip_norm=clip)
+    x_cpu = tuple(t.cpu() for t in x_step) if isinstance(x_step, tuple) else x_step.cpu()
+    train_step(cpu_m, cpu_opt, x_cpu, y_step.cpu(), lrs, sparse_k, clip_norm=clip)
     cpu_g = {n: p.grad for n, p in cpu_m.named_parameters()}
     card_g = {n: p.grad.cpu() for n, p in card_m.named_parameters()}
     ref_m = fresh("cpu")[0].double()
-    cross_entropy_loss(*head_logits(ref_m, x_step.cpu(), y_step.cpu(), sparse_k)).backward()
+    cross_entropy_loss(*head_logits(ref_m, x_cpu, y_step.cpu(), sparse_k)).backward()
     if clip is None:  # the SSM families take no clip
         raw_norm = float(torch.linalg.vector_norm(torch.stack(
             [torch.linalg.vector_norm(p.grad) for p in ref_m.parameters()])))
@@ -1614,12 +1643,13 @@ def attention_family_path(dev, test_x, test_y, train_split, want_files, full, ta
     return launches
 
 
-def scan_s5_phase(dev, seq, u, flush):
+def scan_s5_phase(dev, seq, u, flush, tag: str = "s5"):
     """The scan kernels at S5's shape, from the S5 layer ``seq`` at its
     inputs ``u`` (B, L, H): Λ̄ as its (P,) pair (batch and time stride 0),
     B̄u as (B, L, P) pair planes.  Forward and reverse against the plain
     loop, the backward against the plain backward with da summed to (P,),
-    then their L2-cold and warm medians of 21 against the bytes bound.
+    then their L2-cold and warm medians of 21 against the bytes bound, in
+    the phases ``{tag}_scan_kernels_vs_plain`` and ``{tag}_scan_kernel_timing``.
     Returns {name: time_scan_kernel's tuple} and the worst errors."""
     from tlie_tpu_torch.ops.scan import (
         diag_scan_bwd_cuda, diag_scan_bwd_plain, diag_scan_cuda, diag_scan_plain,
@@ -1631,9 +1661,9 @@ def scan_s5_phase(dev, seq, u, flush):
         a = (lam_bar.real.contiguous(), lam_bar.imag.contiguous())
         b = (u @ b_bar.real.T, u @ b_bar.imag.T)
     times, errs = {}, {}
-    with Phase("s5_scan_kernels_vs_plain") as ph, torch.no_grad():
+    with Phase(f"{tag}_scan_kernels_vs_plain") as ph, torch.no_grad():
         for rev in (False, True):
-            tag = "rev" if rev else "fwd"
+            mode = "rev" if rev else "fwd"
             h = diag_scan_cuda(a, b, reverse=rev)
             ref = diag_scan_plain(a, b, reverse=rev)
             torch.cuda.synchronize()
@@ -1643,15 +1673,15 @@ def scan_s5_phase(dev, seq, u, flush):
             da_ref, d_ref = diag_scan_bwd_plain(a, ref, g, reverse=rev)
             d_e, d_tol, da_e, da_ratio = bwd_err(a, ref, da, d, da_ref, d_ref, rev)
             shape_ok = all(x.shape == a[0].shape for x in da)
-            ph.fields[tag] = (f"h_rel={err / scale:.2e},d_abs={d_e:.2e}/tol={d_tol:.2e},"
-                              f"da_abs={da_e:.2e},da_err_over_tol={da_ratio:.3f},"
-                              f"da_shape={tuple(da[0].shape)}")
+            ph.fields[mode] = (f"h_rel={err / scale:.2e},d_abs={d_e:.2e}/tol={d_tol:.2e},"
+                               f"da_abs={da_e:.2e},da_err_over_tol={da_ratio:.3f},"
+                               f"da_shape={tuple(da[0].shape)}")
             if not (err <= SCAN_RTOL_OF_MAX * scale and d_e <= d_tol and da_ratio <= 1.0
                     and shape_ok):
-                raise AssertionError(f"scan kernels at S5's shape, {tag}: {ph.fields[tag]}")
-            errs[tag] = (err, max(d_e, da_e))
+                raise AssertionError(f"scan kernels at S5's shape, {mode}: {ph.fields[mode]}")
+            errs[mode] = (err, max(d_e, da_e))
         ph.fields.update(shape=f"b={tuple(b[0].shape)}x2,a={tuple(a[0].shape)}x2")
-    with Phase("s5_scan_kernel_timing") as ph, torch.no_grad():
+    with Phase(f"{tag}_scan_kernel_timing") as ph, torch.no_grad():
         h = diag_scan_cuda(a, b)
         g = tuple(torch.randn(x.shape, device=dev, generator=gen) for x in b)
         da, d = diag_scan_bwd_cuda(a, h, g)
@@ -1668,6 +1698,71 @@ def scan_s5_phase(dev, seq, u, flush):
                                                   bwd_bytes, 16 * g[0].numel(), flush)
         ph.fields["diag_scan_bwd"] = scan_timing_fields(times["diag_scan_bwd"], bwd_bytes)
     return times, errs
+
+
+def ssm_checkpoint_eval_eig(ph, tag: str, dev, result, trained, tcfg, tmp: str, want_files):
+    """An S5 or S4 run's checkpoint reloaded, each entry held to the live
+    weights, and eigen-analysed at init and trained into ``tmp``: the
+    spectra (P or N, layers) equal to the live model's, finite, inside the
+    unit disc at init, and the artifact files named after the dataset.
+    Fills ``ph.fields``."""
+    from tlie_tpu_torch.analysis import eval_eig
+    from tlie_tpu_torch.analysis.eval_eig import extract_ssm_family, ssm_layer_params
+    from tlie_tpu_torch.training import restore_checkpoint
+
+    mc = tcfg["model"]
+    ckpt_path, perf = result
+    ckpt = restore_checkpoint(ckpt_path)
+    for k, v in trained.items():
+        if not torch.equal(ckpt["model"][k], v.cpu()):
+            raise AssertionError(f"{tag} checkpoint entry {k} differs from the live weights")
+    eig_dir = os.path.join(tmp, "analysis")
+    eig, eig_init, perc, perc_init, _, _ = eval_eig(tcfg, {"save_path": eig_dir}, perf,
+                                                    ckpt_path, device=dev)
+    live = extract_ssm_family(ssm_layer_params({k: v.cpu() for k, v in trained.items()}), mc)
+    (run_dir,) = os.listdir(eig_dir)
+    files = sorted(os.listdir(os.path.join(eig_dir, run_dir)))
+    saved = np.load(os.path.join(eig_dir, run_dir, "eig.npy"))
+    conj = mc["layer"] == "s5" and mc.get("conj_sym", True)
+    n_eig = mc["state_dim"] // 2 if conj else mc["state_dim"]
+    if eig.shape != (n_eig, mc["num_layers"]) or eig_init.shape != eig.shape:
+        raise AssertionError(f"{tag} spectra {eig.shape}, {eig_init.shape}")
+    if not (np.array_equal(saved, eig) and np.array_equal(eig, live)):
+        raise AssertionError(f"{tag} spectra from the checkpoint differ from the live model's")
+    r_init, r = np.abs(eig_init), np.abs(eig)
+    if not (np.isfinite(r).all() and np.all(r_init < 1) and np.all(r_init > 0)):
+        raise AssertionError(f"{tag} spectra not finite or outside the unit disc")
+    prefix = f"{tcfg['dataset']['name']}dmodel{mc['hidden_dim']}"
+    if files != want_files or not run_dir.startswith(prefix):
+        raise AssertionError(f"{tag} artifacts {run_dir}: {files}")
+    ph.fields.update(checkpoint=os.path.basename(ckpt_path), perf=f"{perf:.4f}",
+                     artifacts=run_dir, n_files=len(files), eig_shape=eig.shape,
+                     radius_range_init=f"[{r_init.min():.5f}, {r_init.max():.5f}]",
+                     radius_range_trained=f"[{r.min():.5f}, {r.max():.5f}]",
+                     radius_pct_layer0=np.round(perc[:, 0], 1).tolist(),
+                     radius_pct_init_layer0=np.round(perc_init[:, 0], 1).tolist())
+
+
+def s4_kernel_share(ph, seq, n_layers: int, busy_ms):
+    """S4's generating-function kernel alone (the Cauchy reduction over the
+    (H, L, N) cube, then the inverse FFT), forward and backward, at the
+    layer ``seq``'s parameters: its time and, from the step's device busy
+    time ``busy_ms``, its share of the step (one a layer).  Fills
+    ``ph.fields``."""
+    from tlie_tpu_torch.models.s4 import s4_kernel_dplr
+
+    params = list(seq.parameters())
+
+    def kernel_fwd_bwd():
+        K = s4_kernel_dplr(*seq.parameters_complex(), seq.l_max)
+        torch.autograd.grad(K.sum(), params, allow_unused=True)
+
+    op_ms = median(cuda_ms(kernel_fwd_bwd, 11))
+    op_busy = sum(t for _, t in top_device_ops(kernel_fwd_bwd, k=1000))
+    ph.fields["s4_kernel_fwd_bwd_ms"] = f"{op_ms:.4f}"
+    ph.fields["s4_kernel_fwd_bwd_device_busy_ms"] = f"{op_busy:.4f}"
+    if busy_ms != "not measured" and op_busy > 0:
+        ph.fields["s4_kernel_share_of_device"] = f"{n_layers * op_busy / float(busy_ms):.4f}"
 
 
 def ssm_family_path(dev, test_x, test_y, train_split, want_files, full, tag: str, steps: int,
@@ -1690,15 +1785,12 @@ def ssm_family_path(dev, test_x, test_y, train_split, want_files, full, tag: str
     alone with its share of the step; for S5 the scan kernels at its shape
     (:func:`scan_s5_phase`).  Returns (launches, S5's kernel times and
     errors or None)."""
-    from tlie_tpu_torch.analysis import eval_eig
-    from tlie_tpu_torch.analysis.eval_eig import extract_ssm_family, ssm_layer_params
     from tlie_tpu_torch.config import derive_runtime_fields, train_fields
     from tlie_tpu_torch.data import masked_accuracy
     from tlie_tpu_torch.inference import Decoder
     from tlie_tpu_torch.models import build_models
-    from tlie_tpu_torch.models.s4 import s4_kernel_dplr
     from tlie_tpu_torch.ops import LAUNCHES
-    from tlie_tpu_torch.training import prep_batch, restore_checkpoint, train, train_step
+    from tlie_tpu_torch.training import prep_batch, train, train_step
     from tlie_tpu_torch.training.scan_loop import sparse_head_k_for
     from tlie_tpu_torch.training.state import make_family_optimizer
 
@@ -1767,37 +1859,7 @@ def ssm_family_path(dev, test_x, test_y, train_split, want_files, full, tag: str
                              launches=repr(trained_launches))
 
         with Phase(f"{tag}_checkpoint_eval_eig") as ph:
-            ckpt_path, perf = result
-            ckpt = restore_checkpoint(ckpt_path)
-            for k, v in trained.items():
-                if not torch.equal(ckpt["model"][k], v.cpu()):
-                    raise AssertionError(f"{tag} checkpoint entry {k} differs from the live "
-                                         "weights")
-            eig_dir = os.path.join(tmp, "analysis")
-            eig, eig_init, perc, perc_init, _, _ = eval_eig(tcfg, {"save_path": eig_dir}, perf,
-                                                            ckpt_path, device=dev)
-            live = extract_ssm_family(ssm_layer_params({k: v.cpu() for k, v in trained.items()}),
-                                      mc)
-            (run_dir,) = os.listdir(eig_dir)
-            files = sorted(os.listdir(os.path.join(eig_dir, run_dir)))
-            saved = np.load(os.path.join(eig_dir, run_dir, "eig.npy"))
-            n_eig = mc["state_dim"] // 2 if is_s5 and mc.get("conj_sym", True) else mc["state_dim"]
-            if eig.shape != (n_eig, n_layers) or eig_init.shape != eig.shape:
-                raise AssertionError(f"{tag} spectra {eig.shape}, {eig_init.shape}")
-            if not (np.array_equal(saved, eig) and np.array_equal(eig, live)):
-                raise AssertionError(f"{tag} spectra from the checkpoint differ from the live "
-                                     "model's")
-            r_init, r = np.abs(eig_init), np.abs(eig)
-            if not (np.isfinite(r).all() and np.all(r_init < 1) and np.all(r_init > 0)):
-                raise AssertionError(f"{tag} spectra not finite or outside the unit disc")
-            if files != want_files or not run_dir.startswith(f"MQARdmodel{mc['hidden_dim']}"):
-                raise AssertionError(f"{tag} artifacts {run_dir}: {files}")
-            ph.fields.update(checkpoint=os.path.basename(ckpt_path), perf=f"{perf:.4f}",
-                             artifacts=run_dir, n_files=len(files), eig_shape=eig.shape,
-                             radius_range_init=f"[{r_init.min():.5f}, {r_init.max():.5f}]",
-                             radius_range_trained=f"[{r.min():.5f}, {r.max():.5f}]",
-                             radius_pct_layer0=np.round(perc[:, 0], 1).tolist(),
-                             radius_pct_init_layer0=np.round(perc_init[:, 0], 1).tolist())
+            ssm_checkpoint_eval_eig(ph, tag, dev, result, trained, tcfg, tmp, want_files)
 
         with Phase(f"{tag}_serving") as ph:
             n_new = 16
@@ -1890,23 +1952,7 @@ def ssm_family_path(dev, test_x, test_y, train_split, want_files, full, tag: str
             bsz * L, "diag_scan" if is_s5 else None, "scan_kernels", n_top=6)
         ph.fields.update(fields)
         if not is_s5:
-            # the generating-function kernel alone (the Cauchy reduction over
-            # the (H, L, N) cube, then the inverse FFT), forward and backward,
-            # at the layer's parameters: its share of the step's device time
-            seq = card_m.encoder.layers[0].seq
-            params = [p for p in seq.parameters()]
-
-            def kernel_fwd_bwd():
-                K = s4_kernel_dplr(*seq.parameters_complex(), seq.l_max)
-                torch.autograd.grad(K.sum(), params, allow_unused=True)
-
-            op_ms = median(cuda_ms(kernel_fwd_bwd, 11))
-            op_busy = sum(t for _, t in top_device_ops(kernel_fwd_bwd, k=1000))
-            ph.fields["s4_kernel_fwd_bwd_ms"] = f"{op_ms:.4f}"
-            ph.fields["s4_kernel_fwd_bwd_device_busy_ms"] = f"{op_busy:.4f}"
-            if fields["device_busy_ms"] != "not measured" and op_busy > 0:
-                share = n_layers * op_busy / float(fields["device_busy_ms"])
-                ph.fields["s4_kernel_share_of_device"] = f"{share:.4f}"
+            s4_kernel_share(ph, card_m.encoder.layers[0].seq, n_layers, fields["device_busy_ms"])
         del card_m, card_opt
         torch.cuda.empty_cache()
 
@@ -1915,6 +1961,217 @@ def ssm_family_path(dev, test_x, test_y, train_split, want_files, full, tag: str
         with torch.no_grad():
             u = model.encoder.encoder(inputs)
         s5_times = scan_s5_phase(dev, model.encoder.layers[0].seq, u, flush)
+    return launches, s5_times
+
+
+def listops_path(dev, want_files, full, tag: str, flush=None):
+    """Main path 14 (``LISTOPS_S5_FULL``: 6 layers, d_model 128, state 64 (P
+    32 complex channels after conj-sym), ZOH, 8 blocks, BatchNorm, a masked
+    mean pool, batch 50, l_max 2048, 10 classes) or 15 (``LISTOPS_S4_FULL``:
+    the same widths, N 64 DPLR, the CNN mode), weights from seed 1919, on
+    ListOps generated natively with the config's lengths (500-2000 tokens)
+    and l_max.  Cuts, each against the config: LISTOPS_TRAIN training and
+    LISTOPS_TEST test examples (96,000 and 2,000), LISTOPS_EPOCHS epochs
+    (50) with LISTOPS_WARMUP of warmup (5), so 80 steps an epoch and 240 in
+    all, an eval at each epoch's end; a resume snapshot every
+    LISTOPS_SNAPSHOT steps (4,800), so one at step 160; the card-vs-CPU
+    step on LISTOPS_STEP_EXAMPLES of the batch's 50 examples (the CPU runs
+    the plain scan, 2,048 steps a layer, in Python).
+
+    With every launch count set to 0: the forward on a test batch (card
+    against CPU), training through ``train`` (the snapshot at step 160 kept
+    as it is written), the checkpoint reloaded and eigen-analysed at init
+    and trained, and the resume: the kept snapshot put back and the run
+    resumed to its end, its final weights, BatchNorm statistics and eval
+    lines held to the uninterrupted run's within RESUME_PARAM_ATOL; the
+    counts are read there.  S5 launches the scan's forward kernel once a
+    layer a forward and its backward once a layer a step; S4 no port
+    kernel.  Then one card step against the CPU step, the step's time,
+    device busy time and idle share (S4: the generating function's share),
+    and for S5 the scan kernels held to their plain versions and timed at
+    (50, 2048, 32) (:func:`scan_s5_phase`).  Returns (launches, S5's kernel
+    times and errors or None)."""
+    import tlie_tpu_torch.training.loop as loop_mod
+    from tlie_tpu_torch.config import derive_runtime_fields, train_fields
+    from tlie_tpu_torch.data import ListOps, argmax_accuracy
+    from tlie_tpu_torch.models import build_models
+    from tlie_tpu_torch.ops import LAUNCHES
+    from tlie_tpu_torch.training import prep_batch, train, train_step
+    from tlie_tpu_torch.training.state import make_family_optimizer
+
+    mc = full["model"]
+    is_s5 = mc["layer"] == "s5"
+    n_layers, bsz, L = mc["num_layers"], full["train"]["batch_size"], mc["seq_len"]
+    with Phase(f"{tag}_data") as ph:
+        data = ListOps(**dict(full["dataset"], num_train=LISTOPS_TRAIN, num_test=LISTOPS_TEST))
+        train_split, test_split = data.split("train"), data.split("test")
+        lengths = np.concatenate([train_split[2], test_split[2]])
+        ph.fields.update(generator=data.source, vocab_size=data.vocab_size,
+                         train=f"{len(train_split[0])}(cut_from_96000)",
+                         test=f"{len(test_split[0])}(cut_from_2000)",
+                         l_max=data.l_max, lengths=f"[{lengths.min()}, {lengths.max()}]")
+        # tlie_tpu generates with the native generator wherever c++ builds it
+        if data.source != "native" or data.l_max != L or data.vocab_size > mc["input_dim"]:
+            raise AssertionError(f"ListOps data: {ph.fields}")
+
+    _, model, _ = build_models(mc, True, generator=torch.Generator().manual_seed(full["seed"]),
+                               device=dev)
+    test_batch = (test_split[0][:bsz], test_split[1][:bsz], {"lengths": test_split[2][:bsz]})
+    inputs, labels = prep_batch(test_batch, L, mc["input_dim"], device=dev)
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    with Phase(f"{tag}_forward") as ph, torch.no_grad():
+        logits = model(inputs)
+        torch.cuda.synchronize()
+        if LAUNCHES["diag_scan"] != (n_layers if is_s5 else 0):
+            raise AssertionError(f"{tag} forward launched diag_scan {LAUNCHES['diag_scan']} times")
+        if logits.shape != (bsz, mc["output_dim"]) or not torch.isfinite(logits).all():
+            raise AssertionError(f"{tag} forward output {tuple(logits.shape)}")
+        acc = float(argmax_accuracy(logits, labels))
+        fwd_ms = min(cuda_ms(lambda: model(inputs), 3))
+        _, cpu_model, _ = build_models(mc, True, generator=torch.Generator(), device="cpu")
+        cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        ref = cpu_model((inputs[0][:2].cpu(), inputs[1][:2].cpu()))
+        cpu_err = (logits[:2].cpu() - ref).abs().max().item()
+        if not torch.allclose(logits[:2].cpu(), ref, rtol=LOGIT_RTOL, atol=LOGIT_ATOL):
+            raise AssertionError(f"{tag} card vs CPU forward: max abs err {cpu_err}")
+        ph.fields.update(accuracy=f"{acc:.4f}", forward_ms=f"{fwd_ms:.3f}",
+                         vs_cpu_max_abs=f"{cpu_err:.3e}")
+        del cpu_model, ref
+
+    tcfg = copy.deepcopy(full)
+    tmp = tempfile.mkdtemp(prefix=f"tlie_{tag}_")
+    tcfg["save"] = os.path.join(tmp, "checkpoint", os.path.basename(full["save"]))
+    tcfg["train"].update(num_epochs=LISTOPS_EPOCHS, warmup=LISTOPS_WARMUP,
+                         checkpoint_every=LISTOPS_SNAPSHOT)
+    tcfg = derive_runtime_fields(tcfg, L, len(train_split[0]))
+    f = train_fields(tcfg)
+    kept = []
+    save_resume = loop_mod.save_resume
+
+    def keep_snapshot(path, model, optimizer, meta):
+        out = save_resume(path, model, optimizer, meta)
+        shutil.copyfile(out, out + ".kept")
+        kept.append((out, meta["step"]))
+        return out
+
+    try:
+        with Phase(f"{tag}_train") as ph:
+            before = dict(LAUNCHES)
+            loop_mod.save_resume = keep_snapshot
+            try:
+                t0 = time.perf_counter()
+                result = train(tcfg, train_split, test_split, device=dev)
+                torch.cuda.synchronize()
+                train_s = time.perf_counter() - t0
+            finally:
+                loop_mod.save_resume = save_resume
+            trained_launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+            steps = f["total_steps"]
+            n_eval_batches = len(result.history) * (len(test_split[0]) // bsz)
+            want = dict.fromkeys(LAUNCHES, 0)
+            if is_s5:  # one forward a layer per step and eval batch, one backward a step
+                want.update(diag_scan=n_layers * (steps + n_eval_batches),
+                            diag_scan_bwd=n_layers * steps)
+            if trained_launches != want:
+                raise AssertionError(f"{tag} training launches {trained_launches}, expected {want}")
+            for rec in result.history:
+                if not all(np.isfinite(v) for v in rec.values()):
+                    raise AssertionError(f"non-finite {tag} training numbers {rec}")
+            if (len(result.history) != LISTOPS_EPOCHS or len(kept) != 1
+                    or os.path.exists(kept[0][0])):
+                raise AssertionError(f"{tag}: {len(result.history)} evals, snapshots {kept} "
+                                     "(one expected, removed at the end)")
+            trained = result.model.state_dict()
+            init = build_models(mc, True, generator=torch.Generator().manual_seed(full["seed"]),
+                                device=dev)[0].state_dict()
+            frozen = [k for k, v in trained.items() if torch.equal(v, init[k])]
+            if frozen:
+                raise AssertionError(f"{tag} parameters that did not move: {frozen}")
+            ph.fields.update(steps=steps, steps_per_epoch=f["eval_every"], warmup=f["warmup"],
+                             seconds=f"{train_s:.2f}", steps_per_s=f"{steps / train_s:.2f}",
+                             history=repr([{k: round(v, 4) for k, v in r.items()}
+                                           for r in result.history]),
+                             launches=repr({k: v for k, v in trained_launches.items() if v}))
+
+        with Phase(f"{tag}_checkpoint_eval_eig") as ph:
+            ssm_checkpoint_eval_eig(ph, tag, dev, result, trained, tcfg, tmp, want_files)
+
+        with Phase(f"{tag}_resume") as ph:
+            # the run stopped at its snapshot and picked up with resume: true
+            snap, snap_step = kept[0]
+            os.replace(snap + ".kept", snap)
+            rcfg = copy.deepcopy(tcfg)
+            rcfg["train"]["resume"] = True
+            rcfg["save"] = tcfg["save"]
+            resumed = train(rcfg, train_split, test_split, device=dev)
+            torch.cuda.synchronize()
+            p_err = max((a.cpu() - b.cpu()).abs().max().item()
+                        for a, b in zip(resumed.model.state_dict().values(), trained.values()))
+            differ = [k for (k, a), b in zip(resumed.model.state_dict().items(),
+                                             trained.values()) if not torch.equal(a, b)]
+            h_err = max(abs(a[k] - b[k]) for a, b in zip(resumed.history, result.history)
+                        for k in ("step", "train_loss", "test_loss", "test_perf"))
+            ph.fields.update(resumed_at_step=snap_step,
+                             evals=len(resumed.history), param_max_abs=f"{p_err:.3e}",
+                             entries_not_bit_equal=f"{len(differ)}/{len(trained)}",
+                             first_not_bit_equal=differ[:4], history_max_abs=f"{h_err:.3e}")
+            if (len(resumed.history) != len(result.history) or p_err > RESUME_PARAM_ATOL
+                    or h_err > RESUME_PARAM_ATOL or os.path.exists(snap)):
+                raise AssertionError(f"{tag} resumed run vs the uninterrupted one: {ph.fields}")
+        launches = dict(LAUNCHES)
+        nonzero = {k: v for k, v in launches.items() if v}
+        print(f"[launches] {tag} forward, training, eval_eig and resume: {nonzero}; training "
+              f"alone: {({k: v for k, v in trained_launches.items() if v})}"
+              + (f" ({n_layers} + {n_layers} a step)" if is_s5 else " (expected: none)"),
+              flush=True)
+        if is_s5:
+            others = {k: v for k, v in launches.items() if not k.startswith("diag_scan") and v}
+            if launches["diag_scan_bwd"] <= want["diag_scan_bwd"] or others:
+                raise AssertionError(f"the {tag} path's launches {launches}")
+        elif any(launches.values()):
+            raise AssertionError(f"the {tag} path launched port kernels: {launches}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # one step from the same weights on LISTOPS_STEP_EXAMPLES examples, on
+    # the card and on the CPU, both held to the same step in float64
+    lrs = {"regular": f["lr"], "ssm": f["ssm_lr"]}
+    n = LISTOPS_STEP_EXAMPLES
+    x_step = (torch.as_tensor(train_split[0][:n], device=dev).long(),
+              torch.as_tensor(train_split[2][:n], device=dev).float())
+    y_step = torch.as_tensor(train_split[1][:n], device=dev).long()
+
+    def fresh(device):
+        m, _, family = build_models(mc, True,
+                                    generator=torch.Generator().manual_seed(full["seed"]),
+                                    device=device)
+        opt, clip = make_family_optimizer(m, family, mc, tcfg["train"], f)
+        return m, opt, clip
+
+    with Phase(f"{tag}_train_step_card_vs_cpu") as ph:
+        card_m, card_opt, clip = step_card_vs_cpu(ph, tag, fresh, dev, x_step, y_step, lrs,
+                                                  None, TF_GRAD_RTOL_OF_MAX, check_stats=True)
+        ph.fields["examples"] = n
+
+    with Phase(f"{tag}_train_step_timing") as ph:
+        x_full = (torch.as_tensor(train_split[0][:bsz], device=dev).long(),
+                  torch.as_tensor(train_split[2][:bsz], device=dev).float())
+        y_full = torch.as_tensor(train_split[1][:bsz], device=dev).long()
+        fields = step_profile(
+            lambda: train_step(card_m, card_opt, x_full, y_full, lrs, None, clip_norm=clip),
+            bsz * L, "diag_scan" if is_s5 else None, "scan_kernels", n_top=6)
+        ph.fields.update(fields)
+        if not is_s5:
+            s4_kernel_share(ph, card_m.encoder.layers[0].seq, n_layers, fields["device_busy_ms"])
+        del card_m, card_opt
+        torch.cuda.empty_cache()
+
+    s5_times = None
+    if is_s5:
+        with torch.no_grad():
+            u = model.encoder.encoder(inputs[0])
+        s5_times = scan_s5_phase(dev, model.encoder.layers[0].seq, u, flush, tag)
     return launches, s5_times
 
 
@@ -2256,7 +2513,7 @@ def main() -> int:
         extract_attention_family, extract_ssm_family, ssm_layer_params,
     )
     from tlie_tpu_torch.config import (
-        MQAR_LIN_ATTENTION_FULL, MQAR_LRU_FULL, MQAR_MAMBA2_FULL, MQAR_NORM_ATTENTION_CONV_FULL,
+        LISTOPS_S4_FULL, LISTOPS_S5_FULL, MQAR_LIN_ATTENTION_FULL, MQAR_LRU_FULL, MQAR_MAMBA2_FULL, MQAR_NORM_ATTENTION_CONV_FULL,
         MQAR_S4_FULL, MQAR_S5_FULL, WIKITEXT_LRU_SHORT, derive_runtime_fields, train_fields,
     )
     from tlie_tpu_torch.data import MQAR, WikiText, masked_accuracy
@@ -3277,9 +3534,19 @@ def main() -> int:
                                     "s4", SSM_STEPS, SSM_EVAL_EVERY, flush)
     print(f"[s5 scan kernels] {s5_scan_times} errors {s5_scan_errs}", flush=True)
 
+    # main paths 14 and 15, the ListOps S5 (the scan kernels at (50, 2048, P
+    # 32), a (P,) decay) and S4 (no port kernel): padded, mean-pooled,
+    # epoch-driven, with a resume
+    path14_all, (listops_scan_times, listops_scan_errs) = listops_path(
+        dev, want_files, LISTOPS_S5_FULL, "listops_s5", flush)
+    path15_all, _ = listops_path(dev, want_files, LISTOPS_S4_FULL, "listops_s4", flush)
+    print(f"[listops s5 scan kernels] {listops_scan_times} errors {listops_scan_errs}",
+          flush=True)
+
     def late(name):
         return (path6_all[name] + path7_all[name] + path8_all[name] + path9_all[name]
-                + path10_all[name] + path11_all[name] + path12_all[name] + path13_all[name])
+                + path10_all[name] + path11_all[name] + path12_all[name] + path13_all[name]
+                + path14_all[name] + path15_all[name])
 
     kernels = [{
         "name": "diag_scan",

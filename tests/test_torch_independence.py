@@ -97,6 +97,14 @@ for full in (MQAR_S5_FULL, MQAR_S4_FULL):
     eig = extract_ssm_family(ssm_layer_params(sm.state_dict()), scfg)
     assert eig.shape == (8 if full is MQAR_S5_FULL else 16, 2), eig.shape
     assert Decoder(scfg, sm_eval).generate(x[:, :8], 4).shape == (4, 12)
+from tlie_tpu_torch.config import LISTOPS_S5_FULL
+from tlie_tpu_torch.data import ListOps
+lx, ly, ll = ListOps(data_dir="tests/fixtures/listops", l_max=32).split("train")
+lcfg = dict(LISTOPS_S5_FULL["model"], hidden_dim=8, state_dim=16, num_blocks=2, num_layers=1,
+            seq_len=32)
+_, lm, _ = build_models(lcfg, True, generator=torch.Generator().manual_seed(0), device="cpu")
+with torch.no_grad():
+    assert lm((torch.as_tensor(lx), torch.as_tensor(ll).float())).shape == (len(ly), 10)
 bcfg = dict(mcfg, compute_dtype="bfloat16")
 _, bm, _ = build_models(bcfg, generator=torch.Generator().manual_seed(0), device="cpu")
 with torch.no_grad():

@@ -108,15 +108,19 @@ def test_train_fields_refuse_what_is_not_ported():
     cfg = small_config()
     cfg["lang_model"] = True
     assert train_fields(cfg)["warmup"] == 60
-    for key, value in (("checkpoint_every", 100), ("sequence_parallel", 2)):
+    for key, value in (("model_parallel", 2), ("sequence_parallel", 2)):
         bad = dict(cfg, train=dict(cfg["train"], **{key: value}))
         with pytest.raises(NotImplementedError, match=key):
             train_fields(bad)
-    # the fused head is ported: the flag is taken
+    # the fused head, resume snapshots and epoch-driven runs are ported: taken
     assert train_fields(dict(cfg, train=dict(cfg["train"], fused_xent=True)))["warmup"] == 60
-    epochs = dict(cfg, lang_model=False, dataset=dict(cfg["dataset"], _name_="cifar"))
-    with pytest.raises(NotImplementedError, match="epoch-driven"):
-        train_fields(epochs)
+    snap = train_fields(dict(cfg, train=dict(cfg["train"], checkpoint_every=100, resume=True)))
+    assert snap["checkpoint_every"] == 100 and snap["resume"] is True
+    bsz = cfg["train"]["batch_size"]
+    epochs = dict(cfg, lang_model=False, dataset=dict(cfg["dataset"], _name_="cifar"),
+                  train=dict(cfg["train"], num_epochs=3, warmup=1, train_size=10 * bsz + 1))
+    f = train_fields(epochs)
+    assert (f["eval_every"], f["total_steps"], f["warmup"]) == (10, 30, 10)
 
 
 def test_launch_trains_and_analyses_on_the_cpu(tmp_path):

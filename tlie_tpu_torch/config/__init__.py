@@ -1,4 +1,5 @@
 from .schema import (
+    LISTOPS_S4_FULL, LISTOPS_S5_FULL,
     MQAR_LIN_ATTENTION_FULL, MQAR_LRU_FULL, MQAR_MAMBA2_FULL, MQAR_NORM_ATTENTION_CONV_FULL,
     MQAR_S4_FULL, MQAR_S5_FULL, MQAR_SM_ATTENTION_FULL, WIKITEXT_LRU_SHORT, ExperimentConfig, apply_sweep_point,
     checkpoint_name, derive_runtime_fields, expand_sweep, iter_sweep, lang_model, load_experiment,
@@ -6,6 +7,7 @@ from .schema import (
 )
 
 __all__ = [
+    "LISTOPS_S4_FULL", "LISTOPS_S5_FULL",
     "MQAR_LIN_ATTENTION_FULL", "MQAR_LRU_FULL", "MQAR_MAMBA2_FULL",
     "MQAR_NORM_ATTENTION_CONV_FULL", "MQAR_S4_FULL", "MQAR_S5_FULL", "MQAR_SM_ATTENTION_FULL", "WIKITEXT_LRU_SHORT",
     "ExperimentConfig", "apply_sweep_point", "checkpoint_name", "derive_runtime_fields",

@@ -2,10 +2,11 @@
 (``ExperimentConfig``, ``load_experiment``, the sweep files' ``load_sweep``,
 ``expand_sweep``, ``apply_sweep_point`` and ``iter_sweep``), with its derived
 fields also as functions on plain dicts (``derive_runtime_fields``,
-``lang_model``, ``checkpoint_name``); the train fields and the step-driven
-choice of ``tlie_tpu/training/loop.py``; and the full-width MQAR LRU, MQAR
-Mamba-2, MQAR softmax, linear and norm attention transformers and the
-WikiText LRU as Python dicts.
+``lang_model``, ``checkpoint_name``); the train fields of
+``tlie_tpu/training/loop.py``, step-driven or epoch-driven as it chooses; and
+the full-width MQAR LRU, MQAR Mamba-2, MQAR softmax, linear and norm
+attention transformers, MQAR and ListOps S5 and S4 and the WikiText LRU as
+Python dicts.
 
 YAML is read only inside :func:`load_yaml`, so that the package and the card
 run (``chip_smoke.py``) need no ``yaml`` module.  Running a sweep is not
@@ -214,29 +215,41 @@ def step_driven(cfg: Dict[str, Any]) -> bool:
 
 
 # train options the port does not carry yet, with the value that leaves them off
-_NOT_PORTED = {
-    "checkpoint_every": None, "resume": False, "model_parallel": 1, "sequence_parallel": 1,
-}
+_NOT_PORTED = {"model_parallel": 1, "sequence_parallel": 1}
 
 
 def train_fields(cfg: Dict[str, Any]) -> Dict[str, Any]:
-    """The train settings the step-driven loop reads, with
-    ``tlie_tpu/training/loop.py``'s defaults (``warmup_steps`` wins over
-    ``warmup``; ``ssm_lr`` defaults to ``lr``; plateau decay is on when
-    ``reduce_factor`` is given).  Raises for what the port does not run yet:
-    epoch-driven training, resume snapshots and the multi-device modes."""
-    if not step_driven(cfg):
-        raise NotImplementedError("epoch-driven training is not ported yet")
+    """The train settings the loop reads, with ``tlie_tpu/training/loop.py``'s
+    defaults (``ssm_lr`` defaults to ``lr``; plateau decay is on when
+    ``reduce_factor`` is given).  Step-driven runs (:func:`step_driven`)
+    take ``total_steps`` and ``eval_every`` (``warmup_steps`` wins over
+    ``warmup``); epoch-driven ones (``loop.py:174-182``) take
+    ``train_size // batch_size`` steps an epoch (at least 1), ``num_epochs``
+    of them, an eval at each epoch's end, and ``warmup`` in epochs.
+    ``checkpoint_every`` (steps between resume snapshots, or None) and
+    ``resume`` come through.  Raises for the multi-device modes, which the
+    port does not run yet."""
     train = cfg["train"]
     for key, off in _NOT_PORTED.items():
         if train.get(key) not in (None, off):
             raise NotImplementedError(f"train.{key} is not ported yet")
+    bsz = int(train["batch_size"])
+    if step_driven(cfg):
+        total = int(train["total_steps"])
+        eval_every = int(train["eval_every"])
+        warmup = int(train.get("warmup_steps", train.get("warmup", 0)) or 0)
+    else:
+        per_epoch = max(1, int(train["train_size"]) // bsz)
+        total = per_epoch * int(train["num_epochs"])
+        eval_every = per_epoch
+        warmup = int(train.get("warmup", 0) or 0) * per_epoch
     lr = train["lr"]
+    every = train.get("checkpoint_every")
     return {
-        "total_steps": int(train["total_steps"]),
-        "eval_every": int(train["eval_every"]),
-        "warmup": int(train.get("warmup_steps", train.get("warmup", 0)) or 0),
-        "batch_size": int(train["batch_size"]),
+        "total_steps": total,
+        "eval_every": eval_every,
+        "warmup": warmup,
+        "batch_size": bsz,
         "lr": lr,
         "ssm_lr": train.get("ssm_lr", lr),
         "lr_min": train.get("lr_min", 1e-6),
@@ -248,6 +261,8 @@ def train_fields(cfg: Dict[str, Any]) -> Dict[str, Any]:
         "reduce_factor": train.get("reduce_factor", 0.2),
         "lr_patience": train.get("lr_patience", 20),
         "sparse_head": train.get("sparse_head", True),
+        "checkpoint_every": int(every) if every else None,
+        "resume": bool(train.get("resume", False)),
     }
 
 
@@ -449,3 +464,38 @@ def _mqar_ssm_full(layer: str, **model) -> Dict[str, Any]:
 MQAR_S5_FULL = _mqar_ssm_full("s5", C_init="lecun_normal", discretization="zoh",
                               conj_sym=True, num_blocks=8)
 MQAR_S4_FULL = _mqar_ssm_full("s4")
+
+
+def _listops_ssm_full(layer: str, **model) -> Dict[str, Any]:
+    """configs/tasks/listops/listops-{layer}.yaml after derive_runtime_fields
+    with the ListOps dataset it names (l_max 2048, 96,000 training examples
+    by default, padded), the S5 and S4 configs differing only in their
+    model keys."""
+    return {
+        "seed": 1919,
+        "save": f"./checkpoint/listops-{layer}",
+        "dataset": {"name": "LISTOPS", "_name_": "listops", "data_dir": "./data/listops",
+                    "fixed_size": False},
+        "train": {
+            "num_epochs": 50, "batch_size": 50, "param_group": None, "wd": 0.0,
+            "cosine_anneal": True, "warmup": 5, "lr": 0.0005, "ssm_lr": 0.001,
+            "lr_min": 1.0e-07, "reduce_factor": 0.5, "lr_patience": 5,
+            "checkpoint_every": 4800, "padded": True, "train_size": 96000,
+        },
+        "model": {
+            "layer": layer, "dt_min": 0.001, "dt_max": 0.1, "num_layers": 6,
+            "activation": "full_glu", "input_dim": 20, "output_dim": 10, "hidden_dim": 128,
+            "state_dim": 64, "dropout": 0, "norm": "batch", "pooling": "mean",
+            "ssm_lr_vars": ["Lambda_re", "Lambda_im", "P", "B", "log_step"],
+            "prenorm": True, "dual": False, "decode": False, **model, "seq_len": 2048,
+        },
+        "lang_model": False,
+    }
+
+
+# configs/tasks/listops/listops-s5.yaml and listops-s4.yaml resolved; a CPU
+# test pins each dict to its YAML as tlie_tpu.config resolves it.  Both are
+# epoch-driven: 1,920 steps an epoch at 96,000 / 50, 96,000 steps in all.
+LISTOPS_S5_FULL = _listops_ssm_full("s5", C_init="lecun_normal", discretization="zoh",
+                                    conj_sym=True, num_blocks=8)
+LISTOPS_S4_FULL = _listops_ssm_full("s4")

@@ -1,4 +1,5 @@
-from .base import SequenceDataset, masked_accuracy, perplexity
+from .base import SequenceDataset, argmax_accuracy, masked_accuracy, perplexity
+from .listops import ListOps
 from .mqar import MQAR, multiquery_ar
 from .wikitext import WikiText
 
@@ -6,5 +7,5 @@ from .wikitext import WikiText
 # registry each subclass of SequenceDataset enters on definition
 DATASETS = SequenceDataset.registry
 
-__all__ = ["DATASETS", "MQAR", "SequenceDataset", "WikiText", "masked_accuracy",
-           "multiquery_ar", "perplexity"]
+__all__ = ["DATASETS", "ListOps", "MQAR", "SequenceDataset", "WikiText", "argmax_accuracy",
+           "masked_accuracy", "multiquery_ar", "perplexity"]

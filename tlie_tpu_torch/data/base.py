@@ -4,10 +4,13 @@
 dataloaders/base.py:159-231), numpy-only: a subclass with a ``_name_``
 registers itself, ``SequenceDataset.registry[_name_](**cfg)`` builds it with
 its ``init_defaults`` under the config's keys, ``setup()`` fills the
-``{train,test}_{inputs,labels}`` arrays, and ``l_max`` and ``d_output`` are
-what the launcher reads.  The port's datasets give their splits with
-``split(name)``, which ``setup`` calls, and batches come from
-``train_dataloader`` and ``test_dataloader`` as (x, y, aux) numpy triples;
+``{train,test}_{inputs,labels}`` arrays (and ``{train,test}_lengths`` for a
+padded dataset such as ListOps), and ``l_max`` and ``d_output`` are what the
+launcher reads.  The port's datasets give their splits with
+``split(name)``, which ``setup`` calls: (inputs, labels), or (inputs,
+labels, lengths) where the sequences are padded.  Batches come from
+``train_dataloader`` and ``test_dataloader`` as (x, y, aux) numpy triples,
+with the per-example lengths in ``aux["lengths"]`` where the split has them;
 the trainer itself puts whole splits on the device.  The metrics are torch
 functions.
 """
@@ -81,19 +84,25 @@ class SequenceDataset:
         self.train_labels: Optional[np.ndarray] = None
         self.test_inputs: Optional[np.ndarray] = None
         self.test_labels: Optional[np.ndarray] = None
+        self.train_lengths: Optional[np.ndarray] = None
+        self.test_lengths: Optional[np.ndarray] = None
 
     #: subclasses provide l_max (the sequence length) and d_output (the
     #: number of classes or the vocabulary)
     l_max: int = None  # type: ignore[assignment]
     d_output: int = None  # type: ignore[assignment]
 
-    def split(self, name: str) -> Tuple[np.ndarray, np.ndarray]:
-        """(inputs, labels) of the ``"train"`` or ``"test"`` split."""
+    def split(self, name: str) -> Tuple[np.ndarray, ...]:
+        """(inputs, labels) of the ``"train"`` or ``"test"`` split, and the
+        per-example lengths third where the sequences are padded."""
         raise NotImplementedError
 
     def setup(self) -> None:
-        self.train_inputs, self.train_labels = self.split("train")
-        self.test_inputs, self.test_labels = self.split("test")
+        for name in ("train", "test"):
+            inputs, labels, *lengths = self.split(name)
+            setattr(self, f"{name}_inputs", inputs)
+            setattr(self, f"{name}_labels", labels)
+            setattr(self, f"{name}_lengths", lengths[0] if lengths else None)
 
     @staticmethod
     def get_metrics():
@@ -104,9 +113,11 @@ class SequenceDataset:
         inputs = getattr(self, f"{split}_inputs")
         if inputs is None:
             raise RuntimeError(f"Dataset {self._name_}: call setup() first")
+        lengths = getattr(self, f"{split}_lengths")
         return HostArrayLoader(inputs, getattr(self, f"{split}_labels"), batch_size,
-                               shuffle=shuffle, seed=getattr(self, "seed", 0),
-                               aux_static={"lengths": self.l_max}, **kw)
+                               shuffle=shuffle, seed=getattr(self, "seed", 0), lengths=lengths,
+                               aux_static={} if lengths is not None else {"lengths": self.l_max},
+                               **kw)
 
     def train_dataloader(self, batch_size: int, shuffle: bool = True, **kw) -> HostArrayLoader:
         return self._loader("train", batch_size, shuffle, **kw)
@@ -133,6 +144,12 @@ def masked_accuracy(logits: torch.Tensor, labels: torch.Tensor, ignore_idx: int 
     mask = labels != ignore_idx
     correct = (mask & (pred == labels)).sum()
     return correct / mask.sum().clamp_min(1)
+
+
+def argmax_accuracy(logits: torch.Tensor, labels: torch.Tensor):
+    """Share of rows whose argmax is the label (the ListOps metric, one
+    label a sequence)."""
+    return (torch.argmax(logits, dim=-1) == labels).float().mean()
 
 
 def perplexity(logits: torch.Tensor, labels: torch.Tensor, ignore_idx: int = -100):

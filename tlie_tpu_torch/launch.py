@@ -17,13 +17,22 @@ the CPU-sized ``configs/mqar-lin-attention-small.yaml``) or norm attention
     python -m tlie_tpu_torch.launch --config configs/tasks/mqar/mqar-lin-attention.yaml \\
         --analysis_config configs/analysis/mqar.yaml
 
+The LRA ListOps classifiers, S5 and S4 (``configs/tasks/listops/listops-s5.yaml``,
+``listops-s4.yaml``: padded sequences, a masked mean pool, epoch-driven),
+run the same way with ``configs/analysis/listops.yaml``; ``--resume`` picks
+a run up from its resume snapshot (the config's ``train.checkpoint_every``
+writes one every so many steps, at an epoch's end):
+
+    python -m tlie_tpu_torch.launch --config configs/tasks/listops/listops-s5.yaml \
+        --analysis_config configs/analysis/listops.yaml [--resume]
+
 ``--config`` paths resolve against ``configs/`` first, then as given.  The
 run trains on the card unless ``--device cpu`` is given (a CUDA request
 without a card raises), writes the checkpoint named by the config's
 ``save``, and runs ``eval_eig`` of the trained weights into the analysis
 config's ``save_path``.  The datasets are those of
 :data:`tlie_tpu_torch.data.DATASETS`, the ``SequenceDataset`` registry (MQAR,
-WikiText); W&B is not ported and raises.
+WikiText, ListOps); W&B is not ported and raises.
 
 ``--sweep`` takes a sweep file (``base_config`` + ``sweep`` lists, e.g.
 ``configs/sweep/mqar-lin-attention-seeds-lrs-8k.yaml``), builds the dataset
@@ -66,6 +75,9 @@ def main(argv=None) -> int:
                         help="train the sweep's points stacked on one device")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (the default) or cpu")
+    parser.add_argument("--resume", action="store_true", default=False,
+                        help="resume from the run's mid-training snapshot if one exists "
+                             "(requires train.checkpoint_every in the config)")
     args = parser.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -82,6 +94,8 @@ def main(argv=None) -> int:
         cfg = load_yaml(_resolve(args.config))
     if cfg.pop("wandb", None):
         raise NotImplementedError("W&B logging is not ported")
+    if args.resume:
+        cfg["train"]["resume"] = True
     do_analysis = args.analysis_config != "no-analysis"
     conf_args = load_yaml(_resolve(args.analysis_config)) if do_analysis else None
 

@@ -1,6 +1,11 @@
 """SSM sequence backbone, counterpart of ``tlie_tpu/models/backbone.py``:
 Dense encoder → N × (SSM → GLU-variant activation → residual, with the norm
-before or after) → Dense decoder → log-softmax (or logits).
+before or after) → pooling over time (``mean``, ``last`` or ``none``) →
+Dense decoder → log-softmax (or logits).  A padded model
+(``padded=True``, ListOps) takes ``(inputs, lengths)`` and its mean pool
+covers each sequence's valid prefix only (:func:`masked_meanpool`); every
+other layer sees the padding as it sees any token, as in ``tlie_tpu``: a
+training-mode BatchNorm takes its statistics over every position.
 
 Module names follow the flax tree (``encoder.encoder``,
 ``encoder.layers.{i}.{seq,out1,out2,normalize}``, ``decoder``) so that
@@ -166,31 +171,53 @@ class StackedEncoderModel(nn.Module):
         return x
 
 
+def masked_meanpool(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Mean over the valid prefix of the time axis (``masked_meanpool``):
+    x (B, L, d), lengths (B,) float32 → (B, d), the masked sum divided by
+    the lengths."""
+    mask = torch.arange(x.shape[-2], device=x.device)[None, :] < lengths[:, None]
+    return (mask[..., None] * x).sum(-2) / lengths[:, None]
+
+
 class ClassificationModel(nn.Module):
-    """Backbone + per-position Dense decoder (``pooling: none``) +
-    log-softmax, or logits when ``logits_output`` is set
-    (``ClassificationModel``).  ``.train()`` is flax's ``training=True``."""
+    """Backbone + pooling + Dense decoder + log-softmax, or logits when
+    ``logits_output`` is set (``ClassificationModel``).  With ``padded`` the
+    input is ``(inputs, lengths)``, which ``pooling: last`` refuses when
+    called, as flax's module does.
+    ``.train()`` is flax's ``training=True``."""
 
     def __init__(self, ssm, d_output: int, d_model: int, n_layers: int, d_input: int,
                  generator: torch.Generator, activation: str = "full_glu",
                  pooling: str = "none", prenorm: bool = True, norm: str = "layer",
-                 logits_output: bool = False, dropout: float = 0.0):
+                 logits_output: bool = False, dropout: float = 0.0, padded: bool = False):
         super().__init__()
-        if pooling != "none":
-            raise NotImplementedError(f"pooling {pooling!r} is not ported yet")
-        self.logits_output = logits_output
+        if pooling not in ("mean", "last", "none"):
+            raise NotImplementedError("pooling must be in ['mean', 'last', 'none']")
+        self.pooling, self.padded, self.logits_output = pooling, padded, logits_output
         self.encoder = StackedEncoderModel(
             ssm, d_model, n_layers, d_input, generator, activation, prenorm, norm, dropout
         )
         self.decoder = dense(d_model, d_output, generator)
 
-    def features(self, x: torch.Tensor) -> torch.Tensor:
-        """Backbone features before the decoder (``features``), which the
-        sparse decoder head gathers from."""
+    def features(self, x) -> torch.Tensor:
+        """Backbone features before pooling and the decoder (``features``),
+        which the sparse decoder head gathers from."""
+        if self.padded:
+            x, _ = x
         return self.encoder(x)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.decoder(self.encoder(x))
+    def forward(self, x) -> torch.Tensor:
+        if self.padded:
+            x, lengths = x
+        x = self.encoder(x)
+        if self.pooling == "mean":
+            x = masked_meanpool(x, lengths) if self.padded else x.mean(-2)
+        elif self.pooling == "last":
+            if self.padded:
+                raise NotImplementedError(
+                    "pooling='last' with padded sequences is not supported")
+            x = x[..., -1, :]
+        x = self.decoder(x)
         if self.logits_output:
             return x
         return F.log_softmax(x, dim=-1)

@@ -25,10 +25,13 @@ from .transformer import Transformer
 MODEL_FAMILIES = ("mamba", "transformer", "lru", "s4", "s5")
 
 
-def build_models(model_config: Dict[str, Any], *, generator: torch.Generator,
-                 device="cuda") -> Tuple[nn.Module, nn.Module, str]:
+def build_models(model_config: Dict[str, Any], padded: bool = False, *,
+                 generator: torch.Generator, device="cuda") -> Tuple[nn.Module, nn.Module, str]:
     """``(train_model, eval_model, family)`` for ``model_config`` on
-    ``device``: one module in ``.train()`` and one in ``.eval()`` that share
+    ``device``; ``padded`` (the config's ``train.padded``) makes the SSM
+    backbone take ``(inputs, lengths)``, as in ``tlie_tpu``, and is refused
+    by the Mamba and transformer families, which take no lengths here.  One
+    module in ``.train()`` and one in ``.eval()`` that share
     every parameter and BatchNorm statistic, so a step on the first shows in
     the second.  Weights are drawn from ``generator`` (a CPU generator, so
     they do not depend on the device); the dropout masks from a device
@@ -45,9 +48,13 @@ def build_models(model_config: Dict[str, Any], *, generator: torch.Generator,
             f"compute_dtype: bfloat16 is ported for layer: mamba only, not {layer!r} "
             "(ROADMAP Queue 1 item 7: bf16 for the lru and transformer families)")
     dev = resolve_device(device)
-    family = {"lru": _ssm_model, "s4": _ssm_model, "s5": _ssm_model, "mamba": Mamba,
-              "transformer": Transformer}[layer]
-    model = family(model_config, generator).to(dev)
+    if layer in ("lru", "s4", "s5"):
+        model = _ssm_model(model_config, generator, padded)
+    elif padded:
+        raise NotImplementedError(f"padded inputs are not ported for the {layer} family")
+    else:
+        model = {"mamba": Mamba, "transformer": Transformer}[layer](model_config, generator)
+    model = model.to(dev)
     seed = int(torch.randint(2**62, (1,), generator=generator))
     dropout_gen = torch.Generator(device=dev).manual_seed(seed)
     for m in model.modules():
@@ -59,7 +66,8 @@ def build_models(model_config: Dict[str, Any], *, generator: torch.Generator,
     return model.train(), eval_model.eval(), layer
 
 
-def _ssm_model(model_config: Dict[str, Any], generator: torch.Generator) -> ClassificationModel:
+def _ssm_model(model_config: Dict[str, Any], generator: torch.Generator,
+               padded: bool = False) -> ClassificationModel:
     """The SSM backbone around the family's core (``ssm_backbone_partial``)."""
     layer, n, h = model_config["layer"], model_config["state_dim"], model_config["hidden_dim"]
     if layer == "lru":
@@ -80,4 +88,5 @@ def _ssm_model(model_config: Dict[str, Any], generator: torch.Generator) -> Clas
         norm=model_config["norm"],
         logits_output=True,
         dropout=model_config.get("dropout", 0.0),
+        padded=padded,
     )

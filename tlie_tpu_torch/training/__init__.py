@@ -1,8 +1,9 @@
-from .checkpoint import restore_checkpoint, save_checkpoint
+from .checkpoint import restore_checkpoint, restore_resume, save_checkpoint, save_resume
 from .loop import TrainResult, train
 from .steps import compute_accuracy, cross_entropy_loss, prep_batch, train_step
 
 __all__ = [
     "TrainResult", "compute_accuracy", "cross_entropy_loss", "prep_batch",
-    "restore_checkpoint", "save_checkpoint", "train", "train_step",
+    "restore_checkpoint", "restore_resume", "save_checkpoint", "save_resume", "train",
+    "train_step",
 ]

@@ -1,11 +1,14 @@
-"""The step-driven training loop of ``tlie_tpu/training/loop.py::train``.
+"""The training loop of ``tlie_tpu/training/loop.py::train``, step-driven or
+epoch-driven (an eval period of ``train_size // batch_size`` steps, the
+ListOps S5 and S4), as :func:`tlie_tpu_torch.config.train_fields` says.
 
 Each eval period draws its (steps, batch) index matrix from
 ``numpy.random.default_rng(seed)`` as ``tlie_tpu`` does, runs that many
 steps one at a time, evaluates the test split, prints one line with the
-steps/s, tracks the best result, decays the plateau rates, and stops early
-once the test metric exceeds ``stop_criterion``.  The final checkpoint goes
-to ``checkpoint_name() + "-perf{:.3f}"`` as a ``.pth`` file.
+steps/s, tracks the best result, decays the plateau rates, stops early
+once the test metric exceeds ``stop_criterion``, and writes a resume
+snapshot where ``checkpoint_every`` asks for one.  The final checkpoint
+goes to ``checkpoint_name() + "-perf{:.3f}"`` as a ``.pth`` file.
 
 The decoder head of the training steps is the dense one, the sparse one
 (MQAR's few valid labels) or, with ``train.fused_xent``, the fused decoder +
@@ -13,8 +16,7 @@ CE head, chosen as ``tlie_tpu`` chooses it (``loop.py:292-350``).  The eval
 runs the dense or sparse head and the dataset's metric.
 
 Not ported yet, and refused by :func:`tlie_tpu_torch.config.train_fields`:
-epoch-driven runs, data/tensor/sequence parallelism, ``checkpoint_every``/
-resume; W&B logging is not carried.
+data/tensor/sequence parallelism; W&B logging is not carried.
 """
 
 from __future__ import annotations
@@ -30,11 +32,13 @@ import torch
 from ..config import checkpoint_name, lang_model, train_fields
 from ..data import DATASETS
 from ..device import resolve_device
+from ..models.layers import Dropout
 from ..models.registry import build_models
 from ..ops.fused_xent import fused_xent_eligible
-from .checkpoint import save_checkpoint
+from .checkpoint import restore_resume, save_checkpoint, save_resume
 from .scan_loop import (
-    batch_indices, eval_indices, evaluate, per_position, put_dataset, sparse_head_k_for,
+    DeviceData, batch_indices, eval_indices, evaluate, gather_batch, per_position, put_dataset,
+    sparse_head_k_for,
 )
 from .schedules import PlateauState, lr_for_step, reduce_lr_on_plateau
 from .state import make_family_optimizer
@@ -44,12 +48,14 @@ from .steps import train_step
 class TrainResult(tuple):
     """``(checkpoint_path | None, final perf)``, the reference ``train()``
     contract, carrying the trained models as ``.model`` (train mode) and
-    ``.eval_model`` (eval mode, sharing its parameters), and ``.history``,
-    one dict per eval with the numbers of its printed line."""
+    ``.eval_model`` (eval mode, sharing its parameters), the optimiser as
+    ``.optimizer``, and ``.history``, one dict per eval with the numbers of
+    its printed line."""
 
-    def __new__(cls, path, perf, model, eval_model, history):
+    def __new__(cls, path, perf, model, eval_model, history, optimizer):
         result = super().__new__(cls, (path, perf))
         result.model, result.eval_model, result.history = model, eval_model, history
+        result.optimizer = optimizer
         return result
 
 
@@ -101,18 +107,50 @@ def head_choice(cfg: Dict[str, Any], train_split, test_split) -> Tuple[bool, Opt
     return fused, sparse_k
 
 
-def train(cfg: Dict[str, Any], train_split: Tuple[np.ndarray, np.ndarray],
-          test_split: Tuple[np.ndarray, np.ndarray], *, device="cuda",
+def _device_split(split, dev, padded: bool) -> DeviceData:
+    """A host split on the device: (inputs, labels) or, for a padded
+    config, (inputs, labels, lengths) with the lengths carried."""
+    if padded and len(split) < 3:
+        raise ValueError("a padded config (dataset.fixed_size: false) needs the split's lengths")
+    return put_dataset(split[0], split[1], dev, split[2] if padded else None)
+
+
+def _dropout_generator(model: torch.nn.Module) -> Optional[torch.Generator]:
+    """The generator the model's dropout masks are drawn from (one a model,
+    set by ``build_models``), or None where it has no dropout."""
+    return next((m.generator for m in model.modules() if isinstance(m, Dropout)), None)
+
+
+def resume_path(cfg: Dict[str, Any]) -> Optional[str]:
+    """Where the run's resume snapshot lives: ``checkpoint_name(cfg) +
+    "-resume.pth"``, or None where the config has no ``save`` or no
+    ``train.checkpoint_every`` (``tlie_tpu``'s ``<stem>-resume``)."""
+    stem = checkpoint_name(cfg)
+    every = cfg["train"].get("checkpoint_every")
+    return stem + "-resume.pth" if stem is not None and every else None
+
+
+def train(cfg: Dict[str, Any], train_split: Tuple[np.ndarray, ...],
+          test_split: Tuple[np.ndarray, ...], *, device="cuda",
           used_paths: Optional[Set[str]] = None) -> TrainResult:
     """Train the configuration ``cfg`` (a resolved config dict, runtime
-    fields derived) on the (inputs, labels) splits, evaluating with the
-    metric of its dataset (``cfg["dataset"]["_name_"]``); returns a
-    :class:`TrainResult`.  Runs on the card unless ``device="cpu"``.
-    ``used_paths`` is a sweep's set of checkpoint paths (:func:`save_trained`)."""
+    fields derived) on the (inputs, labels) splits, or (inputs, labels,
+    lengths) for a padded config, evaluating with the metric of its dataset
+    (``cfg["dataset"]["_name_"]``); returns a :class:`TrainResult`.  Runs
+    on the card unless ``device="cpu"``.  ``used_paths`` is a sweep's set
+    of checkpoint paths (:func:`save_trained`).
+
+    With ``train.checkpoint_every`` a resume snapshot (:func:`resume_path`)
+    is written after an eval once that many steps have passed since the
+    last one, unless the run stops there; with ``train.resume`` a snapshot
+    that exists is restored and the host's batch-index stream replayed to
+    its step, so the run goes on as if never stopped.  The snapshot is
+    removed when the run completes (``loop.py:367-404, 455-476``)."""
     dev = resolve_device(device)
     f = train_fields(cfg)
     model_cfg = cfg["model"]
     bsz = f["batch_size"]
+    padded = bool(cfg["train"].get("padded", False))
     for name, split in (("train", train_split), ("test", test_split)):
         if len(split[0]) < bsz:
             raise ValueError(f"the {name} split holds {len(split[0])} examples, fewer than "
@@ -120,41 +158,62 @@ def train(cfg: Dict[str, Any], train_split: Tuple[np.ndarray, np.ndarray],
     metric = DATASETS[cfg["dataset"]["_name_"]].get_metrics()
 
     model, eval_model, family = build_models(
-        model_cfg, generator=torch.Generator().manual_seed(cfg["seed"]), device=dev)
+        model_cfg, padded, generator=torch.Generator().manual_seed(cfg["seed"]), device=dev)
     nr_params = sum(p.numel() for p in model.parameters())
     embed = getattr(model.encoder, "encoder", model.encoder)  # the SSM backbone nests it
     nr_encoder = sum(p.numel() for p in embed.parameters())
     print(f"Nr. of parameters: {nr_params} (encoder: {nr_encoder})")
     optimizer, clip_norm = make_family_optimizer(model, family, model_cfg, cfg["train"], f)
 
-    train_data = put_dataset(*train_split, dev)
-    test_data = put_dataset(*test_split, dev)
+    train_data = _device_split(train_split, dev, padded)
+    test_data = _device_split(test_split, dev, padded)
     fused, sparse_k = head_choice(cfg, train_split, test_split)
     if fused:
         print("[train] fused decoder+softmax-CE head enabled")
     if sparse_k is not None:
         print(f"[train] sparse decoder head: K={sparse_k} of L={model_cfg['seq_len']}")
     eval_idx = torch.as_tensor(eval_indices(len(test_split[0]), bsz), device=dev).long()
+    n_train = len(train_split[0])
     nprng = np.random.default_rng(cfg["seed"])
+    dropout_gen = _dropout_generator(model)
 
-    total, warmup = f["total_steps"], f["warmup"]
+    total, warmup, every = f["total_steps"], f["warmup"], f["eval_every"]
     plateau = PlateauState(f["lr"], f["ssm_lr"], 0, -np.inf)
     step, stop = 0, False
-    best_perf = -np.inf
+    best = {"perf": -np.inf, "loss": np.inf, "step": 0}
     test_perf, test_loss = 0.0, np.inf
-    t_start, steps_timed = time.perf_counter(), 0
     history = []
+    snap_path = resume_path(cfg)
+    if snap_path and f["resume"] and os.path.isfile(snap_path):
+        meta = restore_resume(snap_path, model, optimizer)
+        step, history, best = int(meta["step"]), list(meta["history"]), dict(meta["best"])
+        plateau = PlateauState(*meta["plateau"])
+        if dropout_gen is not None:
+            dropout_gen.set_state(meta["dropout_rng"])
+        # replay the host's batch-index stream to the restored step, so the
+        # data order goes on exactly
+        s = 0
+        while s < step:
+            k = int(min(every, total - s))
+            batch_indices(nprng, n_train, bsz, k)
+            s += k
+        if nprng.bit_generator.state != meta["data_rng"]:
+            raise RuntimeError(f"the batch-index stream replayed to step {step} differs from "
+                               f"the snapshot's: {snap_path} belongs to another split")
+        print(f"[train] resumed at step {step} from {snap_path}")
+    since_snap = 0
+    t_start, steps_timed = time.perf_counter(), step
 
     while step < total and not stop:
-        k = int(min(f["eval_every"], total - step))
-        idx = torch.as_tensor(batch_indices(nprng, len(train_split[0]), bsz, k), device=dev).long()
+        k = int(min(every, total - step))
+        idx = torch.as_tensor(batch_indices(nprng, n_train, bsz, k), device=dev).long()
         loss_sum = torch.zeros((), device=dev)
         for j in range(k):
             lrs = {
                 "regular": lr_for_step(step + j, plateau.lr, warmup, total, f["cosine"], f["lr_min"]),
                 "ssm": lr_for_step(step + j, plateau.ssm_lr, warmup, total, f["cosine"], f["lr_min"]),
             }
-            x, y = train_data.inputs[idx[j]], train_data.labels[idx[j]]
+            x, y = gather_batch(train_data, idx[j])
             loss_sum += train_step(model, optimizer, x, y, lrs, sparse_k, fused, clip_norm)
         step += k
         test_loss, test_perf = evaluate(eval_model, test_data, eval_idx, sparse_k, metric)
@@ -169,17 +228,30 @@ def train(cfg: Dict[str, Any], train_split: Tuple[np.ndarray, np.ndarray],
                         "test_perf": test_perf, "steps_per_s": sps})
         # higher is better for every metric, perplexity included, as in
         # tlie_tpu (loop.py:449, schedules.py:44)
-        best_perf = max(best_perf, test_perf)
+        if test_perf > best["perf"]:
+            best = {"perf": test_perf, "loss": test_loss, "step": step}
         if f["plateau"]:
             plateau = reduce_lr_on_plateau(plateau, test_perf, factor=f["reduce_factor"],
                                            patience=f["lr_patience"], lr_min=f["lr_min"])
         if f["stop_criterion"] is not None and test_perf > f["stop_criterion"]:
             print(f"Stopping: test perf {test_perf:.4f} exceeded criterion {f['stop_criterion']}")
             stop = True
+        since_snap += k
+        if snap_path and since_snap >= f["checkpoint_every"] and not stop and step < total:
+            save_resume(snap_path, model, optimizer, {
+                "step": step, "plateau": tuple(plateau), "best": best, "history": history,
+                "data_rng": nprng.bit_generator.state,
+                "dropout_rng": None if dropout_gen is None else dropout_gen.get_state(),
+            })
+            since_snap = 0
+            print(f"[train] resume snapshot at step {step}")
 
+    if snap_path and os.path.isfile(snap_path):
+        os.remove(snap_path)  # the run completed: the snapshot is obsolete
     if np.isinf(test_loss):  # no eval boundary was reached
         test_loss, test_perf = evaluate(eval_model, test_data, eval_idx, sparse_k, metric)
-    print(f"Best test perf: {best_perf:.4f}")
+    print(f"Best test perf: {best['perf']:.4f} (test loss {best['loss']:.4f}, "
+          f"step {best['step']})")
 
     path = save_trained(cfg, model, test_perf, used_paths)
-    return TrainResult(path, test_perf, model, eval_model, history)
+    return TrainResult(path, test_perf, model, eval_model, history, optimizer)

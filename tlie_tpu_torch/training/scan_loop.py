@@ -3,8 +3,11 @@ without its ``lax.scan`` blocks: PyTorch runs one step at a time, so a block
 of steps is a Python loop (``loop.py``).
 
 Both splits live on the device as integer tensors (:func:`put_dataset`) and
-each step gathers its batch by index, from the (steps, batch) index matrix
-that :func:`batch_indices` draws on the host exactly as ``tlie_tpu`` does.
+each step gathers its batch by index (:func:`gather_batch`), from the
+(steps, batch) index matrix that :func:`batch_indices` draws on the host
+exactly as ``tlie_tpu`` does.  A padded split (ListOps) carries its
+per-example lengths, gathered with each batch into the ``(inputs,
+lengths)`` input of the padded model (``scan_loop.py:143-149``).
 """
 
 from __future__ import annotations
@@ -20,15 +23,30 @@ from .steps import compute_accuracy, cross_entropy_loss, head_logits
 
 class DeviceData(NamedTuple):
     inputs: torch.Tensor  # (n, L) tokens
-    labels: torch.Tensor  # (n, L) labels, -100 where ignored
+    labels: torch.Tensor  # (n, L) labels, -100 where ignored, or (n,) classes
+    lengths: Optional[torch.Tensor] = None  # (n,) float32 for a padded split
 
 
-def put_dataset(inputs: np.ndarray, labels: np.ndarray, device) -> DeviceData:
-    """Move a whole split of integer tokens and labels to ``device`` (once)."""
+def put_dataset(inputs: np.ndarray, labels: np.ndarray, device,
+                lengths: Optional[np.ndarray] = None) -> DeviceData:
+    """Move a whole split of integer tokens and labels, and the lengths of a
+    padded split (as float32, exact below 2^24), to ``device`` (once)."""
     if not (np.issubdtype(inputs.dtype, np.integer) and np.issubdtype(labels.dtype, np.integer)):
         raise NotImplementedError("only integer-token splits are ported yet")
-    return DeviceData(torch.as_tensor(inputs, dtype=torch.long, device=device),
-                      torch.as_tensor(labels, dtype=torch.long, device=device))
+    return DeviceData(
+        torch.as_tensor(inputs, dtype=torch.long, device=device),
+        torch.as_tensor(labels, dtype=torch.long, device=device),
+        None if lengths is None else torch.as_tensor(lengths, dtype=torch.float32,
+                                                     device=device))
+
+
+def gather_batch(data: DeviceData, idx: torch.Tensor):
+    """(x, y) of the examples ``idx``: x is the tokens, or ``(tokens,
+    lengths)`` where the split is padded (``_gather_batch``)."""
+    x = data.inputs[idx]
+    if data.lengths is not None:
+        x = (x, data.lengths[idx])
+    return x, data.labels[idx]
 
 
 def per_position(model_cfg) -> bool:
@@ -94,12 +112,13 @@ def evaluate(eval_model: nn.Module, data: DeviceData, idx: torch.Tensor,
              sparse_k: Optional[int], metric: Callable = compute_accuracy) -> Tuple[float, float]:
     """(mean loss, mean metric) over the batches of ``idx``: the means of
     the per-batch values, as ``make_eval_block`` takes them.  ``metric`` is
-    the dataset's (masked accuracy for MQAR, perplexity for WikiText).  The
+    the dataset's (masked accuracy for MQAR, perplexity for WikiText, the
+    argmax accuracy for ListOps).  The
     eval runs the dense head, or the sparse one with ``sparse_k``, never the
     fused head, as in ``tlie_tpu``."""
     losses, metrics = [], []
     for idx_t in idx:
-        logits, y = head_logits(eval_model, data.inputs[idx_t], data.labels[idx_t], sparse_k)
+        logits, y = head_logits(eval_model, *gather_batch(data, idx_t), sparse_k)
         losses.append(cross_entropy_loss(logits, y))
         metrics.append(metric(logits, y))
     return float(torch.stack(losses).mean()), float(torch.stack(metrics).mean())

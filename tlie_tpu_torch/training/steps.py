@@ -1,7 +1,9 @@
 """One training step and the per-batch pieces around it, counterparts of
 ``tlie_tpu/training/steps.py`` (``cross_entropy_loss``, ``compute_accuracy``,
 ``prep_batch``, ``train_step``) and of the sparse and fused decoder heads of
-``tlie_tpu/training/scan_loop.py`` (:222-269)."""
+``tlie_tpu/training/scan_loop.py`` (:222-269).  A pooled classifier's
+(B, classes) logits and (B,) labels go through the same masked CE, every
+label valid: the mean CE over the batch."""
 
 from __future__ import annotations
 
@@ -147,13 +149,15 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, x: torch.Tens
 
 
 def prep_batch(batch, seq_len: int, in_dim: int, lang_model: bool = False,
-               device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+               device="cuda") -> Tuple[Any, torch.Tensor]:
     """Standardise a loader batch to (inputs, labels) tensors on ``device``.
 
     Inputs are right-padded to ``seq_len``.  Integer tokens pass through (the
     encoder gathers their rows); float inputs of width != ``in_dim`` are
-    one-hot expanded, as in ``tlie_tpu``.  Padded sequences with per-example
-    lengths belong to the pooled classifier, which is not ported yet."""
+    one-hot expanded, as in ``tlie_tpu``.  A classification batch with
+    per-example lengths (``aux["lengths"]``, ListOps) gives ``(inputs,
+    lengths)`` as its inputs, the lengths in float32, for the padded
+    model's masked mean pool (``tlie_tpu/training/steps.py:80-96``)."""
     if len(batch) == 2:
         inputs, targets = batch
         aux: Dict[str, Any] = {}
@@ -162,8 +166,6 @@ def prep_batch(batch, seq_len: int, in_dim: int, lang_model: bool = False,
     inputs = torch.as_tensor(np.asarray(inputs), device=device)
     targets = torch.as_tensor(np.asarray(targets), device=device)
     lengths = aux.get("lengths") if isinstance(aux, dict) else None
-    if lengths is not None and not lang_model and not np.isscalar(lengths):
-        raise NotImplementedError("padded classification batches are not ported yet")
 
     num_pad = seq_len - inputs.shape[1]
     if num_pad > 0:
@@ -172,4 +174,7 @@ def prep_batch(batch, seq_len: int, in_dim: int, lang_model: bool = False,
 
     if inputs.dim() < 3 and inputs.shape[-1] != in_dim and torch.is_floating_point(inputs):
         inputs = F.one_hot(inputs.long(), in_dim).float()
+    if lengths is not None and not lang_model and not np.isscalar(lengths):
+        lengths = torch.as_tensor(np.asarray(lengths), dtype=torch.float32, device=device)
+        return (inputs, lengths), targets
     return inputs, targets
