@@ -11,8 +11,9 @@ decoder + cross-entropy head on float32 and on bfloat16 operands, the three
 of the SSD's decay attention on float32 and on bfloat16 operands and the
 three of the flash attention), the scan's two kernels also on a decay that
 varies by example and is constant in time and at S5's shapes (MQAR and
-ListOps), and drives eleven full-width models along fifteen paths, each with
-the launch counts set to 0 just before it and read just after:
+ListOps) and at Mamba-1's (B, L, d_inner·N) view, and drives thirteen models
+(all at their published widths) along eighteen paths, each with the launch
+counts set to 0 just before it and read just after:
 
 1. the MQAR LRU (``MQAR_LRU_FULL``: L=512, d_model=128, N=128, 2 layers,
    vocab 8192, batch 64, weights from the config's seed): evaluation,
@@ -98,9 +99,33 @@ the launch counts set to 0 just before it and read just after:
    kernels held to their plain versions and timed at (50, 2048, 32);
 15. the ListOps S4 (``LISTOPS_S4_FULL``: the same widths, N 64 DPLR)
    along path 14's phases but the kernels', with the generating function's
-   share of the step.
-Paths 6, 7, 10, 13 and 15 reach no Pallas kernel in ``tlie_tpu``: no port
-kernel launches on them, and the script checks that.  The decay attention's three
+   share of the step;
+16. the WikiText-103 norm-attention LM (``WIKITEXT_NORM_ATTENTION_SHORT``:
+   6 layers, d_model and d_qk 512, 8 heads, the MLP mixer of 512, conv 4,
+   block 1024, batch 8, vocab 50,257, the dense head; about 61M
+   parameters): 20 training steps and one perplexity eval, the checkpoint
+   eigen-analysed (η of the learned decay), serving (prefill of 1,008
+   tokens plus 16 greedy ones against the forward's argmax), the card step
+   against the CPU step, the step's time, idle share and norm attention's
+   share;
+17. the stacked sweep ``configs/sweep/wikitext-norm-attention-seeds-lrs.yaml``
+   (2 seeds × 2 rates of path 16's LM) in one wave of four points: 10
+   steps and one eval, each point checkpointed, journaled and
+   eigen-analysed, the wave's peak memory and point-steps/s, each point's
+   stacked step against its serial step, the stacked step's time;
+   then ``lm_attention_spectra`` (the pretrained-LM spectroscopy) on a
+   Llama-layout stand-in at the LM's widths, held to the CPU and resumed
+   from its cache;
+18. the MQAR Mamba-1 (``MQAR_MAMBA1_SMALL``: 2 layers, d_model 64, d_state
+   16, d_inner 128, L 64, vocab 256, batch 32, dropout 0.1) on its own
+   split: its forward (card against CPU), 200 training steps through the
+   scan's forward and backward kernels on the (32, 64, 2048) view with a
+   decay that varies in time (2 + 2 a step), the checkpoint reloaded and
+   eigen-analysed, the card step against the CPU step, the step's time,
+   and the scan kernels held to their plain versions and timed at the
+   trained model's own decay.
+Paths 6, 7, 10, 13, 15, 16 and 17 reach no Pallas kernel in ``tlie_tpu``: no
+port kernel launches on them, and the script checks that.  The decay attention's three
 kernels are also held on bfloat16 operands against the plain bfloat16
 version (the WikiText Mamba-2, MQAR and a ragged shape) and timed against
 the bfloat16 tensor-core bound, and so are the fused head's three bfloat16
@@ -318,6 +343,27 @@ RESUME_PARAM_ATOL = 1e-6
 # the leaf's max, the tolerance the CPU tests hold the port's gradients to
 # JAX's with
 TF_GRAD_RTOL_OF_MAX = 1e-4
+# the WikiText norm-attention LM (path 16): 20 steps and one perplexity eval
+# (the config runs 2,000 with an eval every 500), serving 16 greedy tokens
+# after prompts of 1,008, and its card-vs-CPU step on 2 of the batch's 8
+# blocks (the float32 and float64 steps of a 61M-parameter LM run on the
+# card machine's CPU)
+WTN_STEPS, WTN_NEW, WTN_STEP_BLOCKS = 20, 16, 2
+# the stacked WikiText sweep (path 17): the four points of
+# configs/sweep/wikitext-norm-attention-seeds-lrs.yaml in one wave, 10 steps
+# and one eval (the sweep runs 2,000 with an eval every 500)
+WTS_STEPS = 10
+WTS_SWEEP = os.path.join("configs", "sweep", "wikitext-norm-attention-seeds-lrs.yaml")
+# the lm_spectra phase: a Llama-layout stand-in at the WikiText LM's widths,
+# 2 batches of 2 blocks; η from the same q and k on the card and on the CPU
+# within 1e-5 relative (the spectra tolerance of the CPU tests), the whole
+# run within that plus 6 times the runs' largest score difference
+LMS_LAYERS, LMS_D, LMS_HEADS, LMS_BLOCK, LMS_BATCHES, LMS_BSZ = 6, 512, 8, 1024, 2, 2
+LMS_RTOL = 1e-5
+# the MQAR Mamba-1 (path 18): 200 steps with an eval every 100 (the config
+# runs 8,000 with an eval every 400) on its own split; the analysis batch is
+# configs/analysis/mqar.yaml's 64 test examples
+M1_STEPS, M1_EVAL_EVERY, M1_ANALYSIS_BATCH = 200, 100, 64
 # device kernels of a training step by kind, from their names (first match)
 OP_KINDS = (
     ("scan kernels", ("diag_scan", "sum_rows")),
@@ -2502,6 +2548,749 @@ def sweep_path(dev, test_x, test_y, train_split, want_files):
     return launches
 
 
+def norm_attention_share(ph, att, bsz: int, L: int, n_layers: int, busy_ms, dev):
+    """Norm attention alone (``MHNA.attend``: the chunked linear attention
+    of the features times the learned decay), forward and backward, at the
+    path's (B, L, d_model) on random inputs through the layer ``att``'s own
+    projections: its time and, from the step's device busy time ``busy_ms``,
+    its share of the step (one a layer).  Fills ``ph.fields``."""
+    g = torch.Generator(device=dev).manual_seed(16)
+    x = torch.randn(bsz, L, att.d_model, device=dev, generator=g)
+    with torch.no_grad():
+        q, k, v, n = att.heads(x)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, n)]
+    cot = torch.randn(v.shape, device=dev, generator=g)
+
+    def fwd_bwd():
+        torch.autograd.grad((att.attend(*leaves) * cot).sum(), leaves)
+
+    op_ms = median(cuda_ms(fwd_bwd, 11))
+    op_busy = sum(t for _, t in top_device_ops(fwd_bwd, k=1000))
+    ph.fields["norm_attention_fwd_bwd_ms"] = f"{op_ms:.4f}"
+    ph.fields["norm_attention_fwd_bwd_device_busy_ms"] = f"{op_busy:.4f}"
+    if busy_ms != "not measured" and op_busy > 0:
+        ph.fields["norm_attention_share_of_device"] = f"{n_layers * op_busy / float(busy_ms):.4f}"
+
+
+def greedy_vs_argmax(model, out, n_prompt: int):
+    """Tokens ``out[:, n_prompt:]`` generated greedily against the argmax of
+    the full forward over ``out`` at the positions before them: (mismatches,
+    worst gap).  A token may differ only where the forward's top logit beats
+    the generated token's by at most LOGIT_ATOL + LOGIT_RTOL·max|logit| (a
+    near tie that the step path's rounding may break the other way)."""
+    with torch.no_grad():
+        logits = model(out)[:, n_prompt - 1: -1]
+    gen = out[:, n_prompt:]
+    picked = torch.gather(logits, -1, gen[..., None])[..., 0]
+    gap = logits.amax(-1) - picked
+    mism = int((logits.argmax(-1) != gen).sum())
+    tol = LOGIT_ATOL + LOGIT_RTOL * logits.abs().max().item()
+    worst = gap.max().item()
+    if worst > tol:
+        raise AssertionError(f"greedy tokens off the forward's argmax: gap {worst} > {tol}")
+    return mism, worst
+
+
+def wikitext_norm_attention_path(dev, splits, want_files):
+    """Main path 16 (``WIKITEXT_NORM_ATTENTION_SHORT``: 6 layers, d_model
+    and d_qk 512, 8 heads of 64, the MLP mixer of 512, softplus decay with
+    its offset, elu features, conv 4, no position table, block 1024, batch
+    8, vocab 50,257, the dense head; about 61M parameters), weights from
+    seed 1919, on the synthetic stream.  tlie_tpu reaches no Pallas kernel
+    on it (norm attention is einsums there, PyTorch products here; the
+    config trains through the dense head), so no port kernel may launch:
+    with every count set to 0, WTN_STEPS training steps and one perplexity
+    eval, the checkpoint reloaded and eigen-analysed (η of the learned
+    decay from activations, 8 blocks of 1,024, against the live model's),
+    and serving (8 prompts of 1,008 tokens, prefill plus WTN_NEW greedy
+    tokens, each against the full forward's argmax); the counts are read
+    there.  Then one step on the card against the CPU step (WTN_STEP_BLOCKS
+    blocks) and the step's time, idle share and norm attention's share of
+    device time.  Returns the counts."""
+    from tlie_tpu_torch.analysis import eval_eig
+    from tlie_tpu_torch.analysis.eval_eig import extract_attention_family
+    from tlie_tpu_torch.config import (
+        WIKITEXT_NORM_ATTENTION_SHORT, derive_runtime_fields, train_fields,
+    )
+    from tlie_tpu_torch.inference import Decoder
+    from tlie_tpu_torch.models import build_models
+    from tlie_tpu_torch.ops import LAUNCHES
+    from tlie_tpu_torch.training import restore_checkpoint, train, train_step
+    from tlie_tpu_torch.training.state import make_family_optimizer
+
+    train_split, test_split, l_max = splits
+    full = WIKITEXT_NORM_ATTENTION_SHORT
+    cfg = copy.deepcopy(full)
+    mc = cfg["model"]
+    bsz, layers, heads = cfg["train"]["batch_size"], mc["num_layers"], mc["num_heads"]
+    tmp = tempfile.mkdtemp(prefix="tlie_wt_norm_")
+    cfg["save"] = os.path.join(tmp, "checkpoint", os.path.basename(full["save"]))
+    cfg["train"].update(total_steps=WTN_STEPS, eval_every=WTN_STEPS)
+    cfg = derive_runtime_fields(cfg, l_max, len(train_split[0]))
+    if cfg["train"]["train_size"] != full["train"]["train_size"]:
+        raise AssertionError("the synthetic stream is not the config's")
+    try:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        with Phase("wt_norm_train") as ph:
+            t0 = time.perf_counter()
+            result = train(cfg, train_split, test_split, device=dev)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            for rec in result.history:
+                if not all(np.isfinite(v) for v in rec.values()) or rec["test_perf"] < 1.0:
+                    raise AssertionError(f"wt_norm training numbers {rec}")
+            trained = result.model.state_dict()
+            init = build_models(mc, generator=torch.Generator().manual_seed(cfg["seed"]),
+                                device=dev)[0].state_dict()
+            frozen = [k for k, v in trained.items() if torch.equal(v, init[k])]
+            if frozen:
+                raise AssertionError(f"wt_norm parameters that did not move: {frozen}")
+            n_params = sum(v.numel() for v in trained.values())
+            ph.fields.update(steps=WTN_STEPS, seconds=f"{train_s:.2f}", params=n_params,
+                             eval_batches=len(result.history) * (len(test_split[0]) // bsz),
+                             history=repr([{k: round(v, 4) for k, v in r.items()}
+                                           for r in result.history]))
+            del init
+
+        with Phase("wt_norm_checkpoint_eval_eig") as ph:
+            ckpt_path, perf = result
+            ckpt = restore_checkpoint(ckpt_path)
+            for k, v in trained.items():
+                if not torch.equal(ckpt["model"][k], v.cpu()):
+                    raise AssertionError(f"wt_norm checkpoint entry {k} differs from the live "
+                                         "weights")
+            batch = test_split[0][:bsz]  # configs/analysis/wikitext.yaml's batch_size: 8
+            eig_dir = os.path.join(tmp, "analysis")
+            eig, eig_init, perc, perc_init, _, _ = eval_eig(cfg, {"save_path": eig_dir}, perf,
+                                                            ckpt_path, device=dev, batch=batch)
+            live = extract_attention_family(
+                result.eval_model, torch.as_tensor(batch, device=dev).long(), mc)
+            (run_dir,) = os.listdir(eig_dir)
+            files = sorted(os.listdir(os.path.join(eig_dir, run_dir)))
+            saved = np.load(os.path.join(eig_dir, run_dir, "eig.npy"))
+            want_shape = (bsz, l_max - 1, heads, layers)
+            if eig.shape != want_shape or eig_init.shape != want_shape:
+                raise AssertionError(f"wt_norm spectra {eig.shape}, {eig_init.shape}")
+            live_rel = float(np.max(np.abs(eig - live) / np.abs(live)))
+            if not (np.array_equal(saved, eig) and live_rel <= 1e-6):
+                raise AssertionError(f"wt_norm spectra from the checkpoint differ from the live "
+                                     f"model's: {live_rel}")
+            if not (np.all(eig_init > 0) and np.all(eig > 0) and np.isfinite(eig).all()
+                    and np.isfinite(eig_init).all()):
+                raise AssertionError("wt_norm η not finite and positive")
+            if files != want_files or not run_dir.startswith("WikiText"):
+                raise AssertionError(f"wt_norm artifacts {run_dir}: {files}")
+            ph.fields.update(checkpoint=os.path.basename(ckpt_path), perplexity=f"{perf:.3f}",
+                             artifacts=run_dir, n_files=len(files),
+                             eig_vs_live_max_rel=f"{live_rel:.3e}",
+                             eta_range_trained=f"[{eig.min():.4g}, {eig.max():.4g}]",
+                             eta_median_init_trained=f"{np.median(eig_init):.4g},"
+                                                     f"{np.median(eig):.4g}",
+                             radius_pct_mean_layer0=np.round(perc[:, :, 0, 0].mean(1), 2).tolist(),
+                             radius_pct_init_mean_layer0=np.round(
+                                 perc_init[:, :, 0, 0].mean(1), 2).tolist())
+            del ckpt
+
+        with Phase("wt_norm_serving") as ph:
+            n_prompt = l_max - WTN_NEW
+            dec = Decoder(mc, result.eval_model)
+            prompts = torch.as_tensor(test_split[0][:bsz, :n_prompt], device=dev)
+            _, last = dec.prefill(prompts, l_max)
+            with torch.no_grad():
+                full_prompt = result.eval_model(prompts)[:, -1]
+            prefill_err = (last - full_prompt).abs().max().item()
+            if not torch.allclose(last, full_prompt, rtol=LOGIT_RTOL, atol=LOGIT_ATOL):
+                raise AssertionError(f"wt_norm prefill vs forward: {prefill_err}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = dec.generate(prompts, WTN_NEW)
+            torch.cuda.synchronize()
+            gen_s = time.perf_counter() - t0
+            if out.shape != (bsz, l_max) or not torch.equal(out[:, :n_prompt], prompts):
+                raise AssertionError(f"wt_norm generate output {tuple(out.shape)}")
+            if int(out.min()) < 0 or int(out.max()) >= mc["output_dim"]:
+                raise AssertionError("generated ids out of the vocab")
+            mism, gap = greedy_vs_argmax(result.eval_model, out, n_prompt)
+            ph.fields.update(prefill_plus_generate_s=f"{gen_s:.4f}",
+                             tokens_per_s=f"{bsz * WTN_NEW / gen_s:.1f}",
+                             prefill_vs_forward_max_abs=f"{prefill_err:.3e}",
+                             greedy_vs_argmax_mismatches=mism,
+                             greedy_vs_argmax_worst_gap=f"{gap:.3e}")
+        launches = dict(LAUNCHES)
+        print(f"[launches] wt_norm training, eval_eig and serving: {launches} (expected: none; "
+              "tlie_tpu reaches no Pallas kernel on this path)", flush=True)
+        if any(launches.values()):
+            raise AssertionError(f"the WikiText norm-attention path launched port kernels: "
+                                 f"{launches}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del result, trained
+    torch.cuda.empty_cache()
+
+    # one step (the dense head, AdamW behind the global-norm clip) from the
+    # same weights on WTN_STEP_BLOCKS blocks, on the card and on the CPU, both
+    # held to the same step in float64 on the CPU
+    f = train_fields(cfg)
+    lrs = {"regular": f["lr"]}
+    x_step = torch.as_tensor(train_split[0][:WTN_STEP_BLOCKS], device=dev).long()
+    y_step = torch.as_tensor(train_split[1][:WTN_STEP_BLOCKS], device=dev).long()
+
+    def fresh(device):
+        m, _, family = build_models(mc, generator=torch.Generator().manual_seed(cfg["seed"]),
+                                    device=device)
+        opt, clip = make_family_optimizer(m, family, mc, cfg["train"], f)
+        return m, opt, clip
+
+    with Phase("wt_norm_train_step_card_vs_cpu") as ph:
+        card_m, card_opt, clip = step_card_vs_cpu(ph, "wt_norm", fresh, dev, x_step, y_step, lrs,
+                                                  None, TF_GRAD_RTOL_OF_MAX)
+    with Phase("wt_norm_train_step_timing") as ph:
+        x = torch.as_tensor(train_split[0][:bsz], device=dev).long()
+        y = torch.as_tensor(train_split[1][:bsz], device=dev).long()
+        fields = step_profile(lambda: train_step(card_m, card_opt, x, y, lrs, None, clip_norm=clip),
+                              bsz * l_max, None, "", n_warm=2, n_timed=5, n_top=6)
+        ph.fields.update(fields)
+        norm_attention_share(ph, card_m.layers[0].attention, bsz, l_max, layers,
+                             fields["device_busy_ms"], dev)
+        del card_m, card_opt, x, y
+    torch.cuda.empty_cache()
+    return launches
+
+
+def wikitext_sweep_path(dev, splits, want_files):
+    """Main path 17: ``WTS_SWEEP``, ``configs/sweep/wikitext-norm-attention-seeds-lrs.yaml``
+    (two seeds × two rates of path 16's LM), through
+    ``tlie_tpu_torch.parallel.run_sweep`` (``launch --sweep_parallel``), its
+    four 61M-parameter points stacked in one wave: WTS_STEPS steps and one
+    eval, each point checkpointed, journaled and eigen-analysed, the wave's
+    point-steps/s and peak device memory; no port kernel may launch (the
+    counts are set to 0 before and read after).  Then each point's first
+    step in the stacked step against the same point's serial ``train_step``
+    on the same batch (the config's dropout is 0): loss and every
+    parameter; and the stacked step's time against a serial step's.
+    Returns the counts."""
+    from tlie_tpu_torch.config import (
+        ExperimentConfig, apply_sweep_point, derive_runtime_fields, expand_sweep, load_sweep,
+        train_fields,
+    )
+    from tlie_tpu_torch.models import build_models
+    from tlie_tpu_torch.ops import LAUNCHES
+    from tlie_tpu_torch.parallel import run_sweep
+    from tlie_tpu_torch.parallel.sweep import (
+        _journal_path, _load_journal, _stacked_state, optimizer_groups, stacked_adamw_step,
+        stacked_grads,
+    )
+    from tlie_tpu_torch.training import restore_checkpoint, train_step
+    from tlie_tpu_torch.training.state import make_family_optimizer
+
+    train_split, test_split, l_max = splits
+    base, sweep = load_sweep(os.path.join(REPO, WTS_SWEEP),
+                             config_root=os.path.join(REPO, "configs"))
+    points = expand_sweep(sweep)
+    G = len(points)
+    raw = copy.deepcopy(base.raw)
+    mc, bsz = raw["model"], raw["train"]["batch_size"]
+    tmp = tempfile.mkdtemp(prefix="tlie_wt_sweep_")
+    raw["save"] = os.path.join(tmp, "checkpoint", "wikitext-norm-attention-short")
+    raw["train"].update(total_steps=WTS_STEPS, eval_every=WTS_STEPS)
+    base = ExperimentConfig(raw)
+    conf = {"batch_size": bsz, "save_path": os.path.join(tmp, "analysis")}
+    try:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        with Phase("wt_sweep_train") as ph:
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            res, waves = run_sweep(base, points, train_split, test_split, l_max, conf, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated(dev)
+            launches = dict(LAUNCHES)
+            if any(launches.values()):
+                raise AssertionError(f"the stacked WikiText sweep launched port kernels: "
+                                     f"{launches}")
+            if len(waves) != 1 or len(waves[0]["points"]) != G:
+                raise AssertionError(f"the {G} points did not train in one wave: "
+                                     f"{[len(w['points']) for w in waves]}")
+            (wave,) = waves
+            journal = _load_journal(_journal_path(base))
+            runs = sorted(os.listdir(conf["save_path"]))
+            if len(journal) != G or len(runs) != G:
+                raise AssertionError(f"sweep journal {len(journal)} lines, {len(runs)} analyses")
+            for (path, perf), point, hist in zip(res, points, wave["histories"]):
+                ckpt = restore_checkpoint(path)["config"]
+                if (ckpt["train"]["lr"] != point[("train", "lr")]
+                        or f"-seed-{point[('seed',)]}-" not in path):
+                    raise AssertionError(f"sweep checkpoint {path} for {point}")
+                if not hist or not all(np.isfinite(v) for r in hist for v in r.values()):
+                    raise AssertionError(f"sweep history {hist}")
+            for run in runs:
+                if sorted(os.listdir(os.path.join(conf["save_path"], run))) != want_files:
+                    raise AssertionError(f"sweep artifacts {run}")
+            ph.fields.update(points=G, steps=wave["steps"],
+                             train_seconds=f"{wave['train_seconds']:.2f}",
+                             point_steps_per_s=f"{wave['point_steps_per_s']:.3f}",
+                             peak_memory_gib=f"{peak / 2**30:.2f}",
+                             wall_seconds_with_evals_checkpoints_eval_eig=f"{wall:.2f}",
+                             perplexities=repr([round(p, 4) for _, p in res]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    with Phase("wt_sweep_step_vs_serial") as ph:
+        grid = [derive_runtime_fields(apply_sweep_point(base, p).raw, l_max, len(train_split[0]))
+                for p in points]
+        fs = [train_fields(c) for c in grid]
+        model0, _, _, params, buffers = _stacked_state([ExperimentConfig(c) for c in grid],
+                                                       list(range(G)), dev)
+        group_of, clip = optimizer_groups(model0, "transformer", mc, raw["train"], fs[0])
+        moments = {n: (torch.zeros_like(p), torch.zeros_like(p)) for n, p in params.items()}
+        grads_fn = stacked_grads(model0, None)
+        x = torch.as_tensor(train_split[0][:bsz], device=dev).long()
+        y = torch.as_tensor(train_split[1][:bsz], device=dev).long()
+        xs, ys = x.expand(G, -1, -1), y.expand(G, -1, -1)
+        lrs = {"regular": torch.tensor([f["lr"] for f in fs], device=dev)}
+        grads, losses = grads_fn(params, buffers, xs, ys)
+        stacked_adamw_step(params, grads, moments, 1, lrs, group_of, fs[0]["betas"], clip)
+        del grads
+        loss_rel = p_worst = p_anywhere = 0.0
+        for i, c in enumerate(grid):
+            m = build_models(mc, generator=torch.Generator().manual_seed(c["seed"]),
+                             device=dev)[0]
+            opt, serial_clip = make_family_optimizer(m, "transformer", mc, c["train"], fs[i])
+            loss = float(train_step(m, opt, x, y, {"regular": fs[i]["lr"]}, None,
+                                    clip_norm=serial_clip))
+            loss_rel = max(loss_rel, abs(float(losses[i]) - loss) / abs(loss))
+            # Adam moves an element by about lr·g/|g|: where |g| is at least
+            # 1e-2 of its leaf's max the two steps agree to SWEEP_PARAM_ATOL,
+            # elsewhere within the movement bound 2·lr + SWEEP_PARAM_ATOL
+            for n, p in m.named_parameters():
+                err = (params[n][i] - p.detach()).abs()
+                g = p.grad.abs()
+                det = g >= 1e-2 * g.max()
+                p_worst = max(p_worst, err[det].max().item() if bool(det.any()) else 0.0)
+                p_anywhere = max(p_anywhere, err.max().item() / (2 * fs[i]["lr"]
+                                                                 + SWEEP_PARAM_ATOL))
+            del m, opt
+        ph.fields.update(points=G, loss_worst_rel=f"{loss_rel:.3e}",
+                         param_worst_where_grad_determined=f"{p_worst:.3e}",
+                         param_worst_anywhere_over_movement_bound=f"{p_anywhere:.3e}")
+        if not (loss_rel <= SWEEP_RTOL and p_worst <= SWEEP_PARAM_ATOL and p_anywhere <= 1.0):
+            raise AssertionError(f"stacked WikiText points vs their serial steps: {ph.fields}")
+        torch.cuda.empty_cache()
+
+    with Phase("wt_sweep_step_timing") as ph:
+        n_step = [1]
+
+        def stacked_step():
+            n_step[0] += 1
+            g, _ = grads_fn(params, buffers, xs, ys)
+            stacked_adamw_step(params, g, moments, n_step[0], lrs, group_of, fs[0]["betas"],
+                               clip)
+
+        stacked_fields = step_profile(stacked_step, G * bsz * l_max, None, "", n_warm=1,
+                                      n_timed=3, n_top=6)
+        ph.fields.update({f"stacked_{k}": v for k, v in stacked_fields.items()})
+        del model0, params, buffers, moments, grads_fn
+        torch.cuda.empty_cache()
+        serial_m = build_models(mc, generator=torch.Generator().manual_seed(grid[0]["seed"]),
+                                device=dev)[0]
+        serial_opt, serial_clip = make_family_optimizer(serial_m, "transformer", mc,
+                                                        raw["train"], fs[0])
+        serial_fields = step_profile(
+            lambda: train_step(serial_m, serial_opt, x, y, {"regular": fs[0]["lr"]}, None,
+                               clip_norm=serial_clip), bsz * l_max, None, "", n_warm=1,
+            n_timed=3, n_top=6)
+        ph.fields.update({f"serial_{k}": v for k, v in serial_fields.items()})
+        stacked_ms, serial_ms = (float(stacked_fields["ms_per_step"]),
+                                 float(serial_fields["ms_per_step"]))
+        ph.fields.update(stacked_point_steps_per_s=f"{G * 1e3 / stacked_ms:.3f}",
+                         serial_steps_per_s=f"{1e3 / serial_ms:.3f}",
+                         stacking_gain=f"{G * serial_ms / stacked_ms:.3f}")
+        del serial_m, serial_opt
+    print(f"[launches] stacked WikiText sweep: {launches} (expected: none)", flush=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+class LlamaStandIn(torch.nn.Module):
+    """A Llama-layout causal LM for ``lm_attention_spectra`` (no pretrained
+    model is in the repository): token embeddings, then per layer a pre-norm
+    softmax attention whose projections sit at
+    ``model.layers[i].self_attn.{q,k,v,o}_proj`` and a GELU MLP, residual
+    around each; returns the last hidden states.  Weights are torch's
+    default distributions drawn from ``generator``."""
+
+    def __init__(self, vocab: int, d: int, n_layers: int, heads: int, generator):
+        super().__init__()
+        nn = torch.nn
+        self.embed = nn.Embedding(vocab, d)
+        self.heads = heads
+        self.model = nn.Module()
+        self.model.layers = nn.ModuleList()
+        for _ in range(n_layers):
+            layer = nn.Module()
+            layer.norm = nn.LayerNorm(d)
+            layer.self_attn = nn.Module()
+            for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
+                setattr(layer.self_attn, name, nn.Linear(d, d))
+            layer.mlp = nn.Sequential(nn.LayerNorm(d), nn.Linear(d, 2 * d), nn.GELU(),
+                                      nn.Linear(2 * d, d))
+            self.model.layers.append(layer)
+        with torch.no_grad():
+            self.embed.weight.normal_(0.0, 1.0, generator=generator)
+            for m in self.modules():
+                if isinstance(m, nn.Linear):
+                    bound = 1.0 / math.sqrt(m.in_features)
+                    m.weight.uniform_(-bound, bound, generator=generator)
+                    m.bias.uniform_(-bound, bound, generator=generator)
+
+    def forward(self, ids):
+        x = self.embed(ids)
+        B, L, d = x.shape
+        for layer in self.model.layers:
+            a = layer.self_attn
+            h = layer.norm(x)
+            q, k, v = (p(h).reshape(B, L, self.heads, -1).transpose(1, 2)
+                       for p in (a.q_proj, a.k_proj, a.v_proj))
+            o = torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True)
+            x = x + a.o_proj(o.transpose(1, 2).reshape(B, L, d))
+            x = x + layer.mlp(x)
+        return x
+
+
+def lm_spectra_phase(dev):
+    """``lm_attention_spectra`` on the card with a Llama-layout stand-in
+    (:class:`LlamaStandIn`) at the WikiText LM's widths (LMS_LAYERS layers,
+    d LMS_D, LMS_HEADS heads, block LMS_BLOCK, the GPT-2 vocabulary),
+    LMS_BATCHES batches of LMS_BSZ.  The cache resumes (a first call of one
+    batch, a second that runs only the others, a third that runs none and
+    gives the same spectra).  η (B, L−1, H, layers) from the card's own q
+    and k is held to η of the same q and k on the CPU within LMS_RTOL
+    relative; the whole run to the same weights' run on the CPU within
+    LMS_RTOL + 6·δs relative, δs the largest difference of a score q·k
+    between the two runs (log η is a difference of two log-sums of exp of
+    a row's scores and its row max, each moved by at most 2·δs).  No port
+    kernel may launch."""
+    from tlie_tpu_torch.analysis.lm_spectra import (
+        QKHooks, bin_lm_spectra, eta_from_torch_qk, lm_attention_spectra,
+    )
+    from tlie_tpu_torch.ops import LAUNCHES
+
+    model = LlamaStandIn(50257, LMS_D, LMS_LAYERS, LMS_HEADS,
+                         torch.Generator().manual_seed(24))
+    rng = np.random.default_rng(24)
+    batches = [rng.integers(0, 50257, (LMS_BSZ, LMS_BLOCK)) for _ in range(LMS_BATCHES)]
+    card = copy.deepcopy(model).to(dev)
+    tmp = tempfile.mkdtemp(prefix="tlie_lm_spectra_")
+    before = dict(LAUNCHES)
+    try:
+        with Phase("lm_spectra") as ph:
+            calls = []
+            hook = card.register_forward_hook(lambda *a: calls.append(1))
+            runs = []
+            for max_batches in (1, None, None):
+                n0 = len(calls)
+                t0 = time.perf_counter()
+                eigs = lm_attention_spectra(card, batches, LMS_HEADS, os.path.join(tmp, "card"),
+                                            max_batches=max_batches)
+                torch.cuda.synchronize()
+                runs.append((len(calls) - n0, time.perf_counter() - t0, eigs))
+            hook.remove()
+            if [r[0] for r in runs] != [1, LMS_BATCHES - 1, 0]:
+                raise AssertionError(f"the cache did not resume: forwards {[r[0] for r in runs]}")
+            eigs = runs[1][2]
+            if not np.array_equal(runs[2][2], eigs):
+                raise AssertionError("the resumed spectra differ from the computed ones")
+            t0 = time.perf_counter()
+            cpu = lm_attention_spectra(model, batches, LMS_HEADS, os.path.join(tmp, "cpu"))
+            cpu_s = time.perf_counter() - t0
+            model_rel = float(np.max(np.abs(eigs - cpu) / np.abs(cpu)))
+            # each batch's q and k from both runs: η of the card's on the CPU,
+            # and the largest score difference
+            extract_rel = d_score = 0.0
+            causal = torch.ones(LMS_BLOCK, LMS_BLOCK, dtype=torch.bool).tril()[None, :, :, None]
+            hooks = (QKHooks(card), QKHooks(model))
+            try:
+                for batch in batches:
+                    with torch.no_grad():
+                        card(torch.as_tensor(batch, device=dev))
+                        model(torch.as_tensor(batch))
+                    for (qc, kc), (q, k) in zip(hooks[0].pop_qk(LMS_HEADS),
+                                                hooks[1].pop_qk(LMS_HEADS)):
+                        on_card = eta_from_torch_qk(qc, kc)
+                        on_cpu = eta_from_torch_qk(qc.cpu(), kc.cpu())
+                        extract_rel = max(extract_rel, float(np.max(np.abs(on_card - on_cpu)
+                                                                    / np.abs(on_cpu))))
+                        diff = (torch.einsum("bthd,bshd->btsh", qc.cpu(), kc.cpu())
+                                - torch.einsum("bthd,bshd->btsh", q, k)).abs()
+                        d_score = max(d_score, torch.where(causal, diff, 0.0).max().item())
+            finally:
+                for h in hooks:
+                    h.remove()
+            model_tol = LMS_RTOL + 6 * d_score
+            stats = bin_lm_spectra(eigs)
+            ph.fields.update(shape=eigs.shape, extract_card_vs_cpu_max_rel=f"{extract_rel:.3e}",
+                             run_card_vs_cpu_max_rel=f"{model_rel:.3e}",
+                             score_card_vs_cpu_max_abs=f"{d_score:.3e}",
+                             run_tol=f"{model_tol:.3e}", tol=LMS_RTOL,
+                             card_seconds=f"{runs[1][1]:.3f}", cpu_seconds=f"{cpu_s:.2f}",
+                             eta_range=f"[{eigs.min():.4g}, {eigs.max():.4g}]",
+                             pct_mean_layer0_head0=np.round(
+                                 stats["percentage_mean"][:, 0, 0], 2).tolist())
+            launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
+            want_shape = (LMS_BATCHES * LMS_BSZ, LMS_BLOCK - 1, LMS_HEADS, LMS_LAYERS)
+            if (eigs.shape != want_shape or not np.isfinite(eigs).all()
+                    or extract_rel > LMS_RTOL or model_rel > model_tol):
+                raise AssertionError(f"lm_spectra on the card: {ph.fields}")
+            if launched:
+                raise AssertionError(f"lm_attention_spectra launched port kernels: {launched}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del model, card
+    torch.cuda.empty_cache()
+
+
+def mamba1_scan_phase(dev, model, inputs, flush):
+    """The scan kernels where Mamba-1 runs them: the trained model's own
+    decay a (time-varying, (B, L, d_inner·N), real) and input bx, captured
+    from its first block's call of ``diag_linear_scan`` on ``inputs``, forward
+    and reversed, and the backward against the plain versions; then their
+    L2-cold and warm medians of 21 against the bytes bound.  Returns
+    ({name: time_scan_kernel's tuple}, worst errors, a's range)."""
+    import tlie_tpu_torch.models.mamba2 as m2
+    from tlie_tpu_torch.ops.scan import (
+        diag_scan_bwd_cuda, diag_scan_bwd_plain, diag_scan_cuda, diag_scan_plain,
+    )
+
+    seen, real = [], m2.diag_linear_scan
+    m2.diag_linear_scan = lambda a, b, **kw: (seen.append((a, b)), real(a, b, **kw))[1]
+    try:
+        with torch.no_grad():
+            model(inputs)
+    finally:
+        m2.diag_linear_scan = real
+    a, b = (t.contiguous() for t in seen[0])
+    gen = torch.Generator(device=dev).manual_seed(18)
+    times, errs = {}, {}
+    with Phase("mamba1_scan_kernels_vs_plain") as ph, torch.no_grad():
+        for rev in (False, True):
+            mode = "rev" if rev else "fwd"
+            h = diag_scan_cuda(a, b, reverse=rev)
+            ref = diag_scan_plain(a, b, reverse=rev)
+            torch.cuda.synchronize()
+            err, scale = scan_err(h, ref)
+            g = torch.randn(b.shape, device=dev, generator=gen)
+            da, d = diag_scan_bwd_cuda(a, ref, g, reverse=rev)
+            da_ref, d_ref = diag_scan_bwd_plain(a, ref, g, reverse=rev)
+            d_e, d_tol, da_e, da_ratio = bwd_err(a, ref, da, d, da_ref, d_ref, rev)
+            ph.fields[mode] = (f"h_rel={err / scale:.2e},d_abs={d_e:.2e}/tol={d_tol:.2e},"
+                               f"da_abs={da_e:.2e},da_err_over_tol={da_ratio:.3f},"
+                               f"da_shape={tuple(da.shape)}")
+            if not (err <= SCAN_RTOL_OF_MAX * scale and d_e <= d_tol and da_ratio <= 1.0
+                    and da.shape == a.shape):
+                raise AssertionError(f"scan kernels at Mamba-1's trained a, {mode}: "
+                                     f"{ph.fields[mode]}")
+            errs[mode] = (err, max(d_e, da_e))
+        a_range = (a.min().item(), a.max().item())
+        ph.fields.update(shape=tuple(b.shape), a_range=f"[{a_range[0]:.4g}, {a_range[1]:.4g}]")
+    with Phase("mamba1_scan_kernel_timing") as ph, torch.no_grad():
+        h = diag_scan_cuda(a, b)
+        g = torch.randn(b.shape, device=dev, generator=gen)
+        da, d = diag_scan_bwd_cuda(a, h, g)
+        # each input read once (a, b; a, h, g), each output written once (h;
+        # d, da at a's full shape); one multiply-add a step, two backward
+        fwd_bytes = sum(distinct_bytes(t) for t in (a, b, h))
+        for rev in (False, True):
+            name = "diag_scan" + ("_rev" if rev else "")
+            times[name] = time_scan_kernel(lambda: diag_scan_cuda(a, b, reverse=rev),
+                                           lambda: diag_scan_plain(a, b, reverse=rev),
+                                           fwd_bytes, 2 * b.numel(), flush)
+            ph.fields[name] = scan_timing_fields(times[name], fwd_bytes)
+        bwd_bytes = sum(distinct_bytes(t) for t in (a, h, g, da, d))
+        times["diag_scan_bwd"] = time_scan_kernel(lambda: diag_scan_bwd_cuda(a, h, g),
+                                                  lambda: diag_scan_bwd_plain(a, h, g),
+                                                  bwd_bytes, 4 * g.numel(), flush)
+        ph.fields["diag_scan_bwd"] = scan_timing_fields(times["diag_scan_bwd"], bwd_bytes)
+    return times, errs, a_range
+
+
+def mamba1_path(dev, want_files, flush):
+    """Main path 18 (``MQAR_MAMBA1_SMALL``: 2 layers, d_model 64, d_state
+    16, d_inner 128, dt_rank 4, conv 4, GLU, prenorm, L 64, 8 pairs, vocab
+    256, batch 32, dropout 0.1), weights from seed 1919, on its own natively
+    drawn split (20,000 train and 512 test examples).  Its scan runs on the
+    (B, L, d_inner·N) = (32, 64, 2048) view with a decay that varies in
+    time: the scan's forward kernel once a layer a forward, its backward
+    once a layer a step.  With every count set to 0: the forward on a test
+    batch (card against CPU), M1_STEPS training steps at dropout 0.1 with
+    an eval every M1_EVAL_EVERY, the checkpoint reloaded and eigen-analysed
+    (λ over the (d_inner, N) lattice from activations, against the live
+    model's); the counts are read there (2 + 2 a training step).  Then one
+    card step against the CPU step at dropout 0, the step's time, idle
+    share and the scan kernels' share, and the kernels at the trained
+    model's own a (:func:`mamba1_scan_phase`).  Returns (launches, kernel
+    times, errors)."""
+    from tlie_tpu_torch.analysis import eval_eig
+    from tlie_tpu_torch.analysis.eval_eig import extract_attention_family
+    from tlie_tpu_torch.config import MQAR_MAMBA1_SMALL, derive_runtime_fields, train_fields
+    from tlie_tpu_torch.data import MQAR, masked_accuracy
+    from tlie_tpu_torch.models import build_models
+    from tlie_tpu_torch.ops import LAUNCHES
+    from tlie_tpu_torch.training import prep_batch, restore_checkpoint, train, train_step
+    from tlie_tpu_torch.training.scan_loop import sparse_head_k_for
+    from tlie_tpu_torch.training.state import make_family_optimizer
+
+    full = MQAR_MAMBA1_SMALL
+    mc = full["model"]
+    n_layers, bsz, L = mc["num_layers"], full["train"]["batch_size"], mc["seq_len"]
+    lattice = mc["expansion"] * mc["hidden_dim"] * mc["state_dim"]
+    with Phase("mamba1_data") as ph:
+        data = MQAR(**full["dataset"])
+        train_split, (test_x, test_y) = data.split("train"), data.split("test")
+        if data.generator != "native":
+            raise AssertionError(f"MQAR drew with {data.generator}, not the native generator")
+        ph.fields.update(generator=data.generator, train_examples=len(train_split[0]),
+                         test_examples=len(test_x))
+    _, model, _ = build_models(mc, generator=torch.Generator().manual_seed(full["seed"]),
+                               device=dev)
+    inputs, labels = prep_batch((test_x[:bsz], test_y[:bsz]), L, mc["input_dim"],
+                                lang_model=True, device=dev)
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    with Phase("mamba1_forward") as ph, torch.no_grad():
+        logits = model(inputs)
+        torch.cuda.synchronize()
+        if LAUNCHES["diag_scan"] != n_layers:
+            raise AssertionError(f"the Mamba-1 forward launched diag_scan "
+                                 f"{LAUNCHES['diag_scan']} times, expected {n_layers}")
+        if logits.shape != (bsz, L, mc["output_dim"]) or not torch.isfinite(logits).all():
+            raise AssertionError(f"Mamba-1 forward output {tuple(logits.shape)}")
+        acc = float(masked_accuracy(logits, labels))
+        fwd_ms = min(cuda_ms(lambda: model(inputs), 3))
+        _, cpu_model, _ = build_models(mc, generator=torch.Generator(), device="cpu")
+        cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        ref = cpu_model(inputs[:4].cpu())
+        cpu_err = (logits[:4].cpu() - ref).abs().max().item()
+        if not torch.allclose(logits[:4].cpu(), ref, rtol=LOGIT_RTOL, atol=LOGIT_ATOL):
+            raise AssertionError(f"Mamba-1 card vs CPU forward: max abs err {cpu_err}")
+        ph.fields.update(masked_acc=f"{acc:.6f}", forward_ms=f"{fwd_ms:.3f}",
+                         scan_view=(bsz, L, lattice), vs_cpu_max_abs=f"{cpu_err:.3e}")
+        del cpu_model, ref
+
+    tcfg = copy.deepcopy(full)
+    tmp = tempfile.mkdtemp(prefix="tlie_mamba1_")
+    tcfg["save"] = os.path.join(tmp, "checkpoint", os.path.basename(full["save"]))
+    tcfg["train"].update(total_steps=M1_STEPS, eval_every=M1_EVAL_EVERY)
+    tcfg = derive_runtime_fields(tcfg, L, len(train_split[0]))
+    try:
+        with Phase("mamba1_train") as ph:
+            before = dict(LAUNCHES)
+            t0 = time.perf_counter()
+            result = train(tcfg, train_split, (test_x, test_y), device=dev)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            trained_launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+            n_eval_batches = len(result.history) * (len(test_x) // bsz)
+            want = dict.fromkeys(LAUNCHES, 0)
+            want.update(diag_scan=n_layers * (M1_STEPS + n_eval_batches),
+                        diag_scan_bwd=n_layers * M1_STEPS)
+            if trained_launches != want:
+                raise AssertionError(f"Mamba-1 training launches {trained_launches}, expected "
+                                     f"{want}")
+            for rec in result.history:
+                if not all(np.isfinite(v) for v in rec.values()):
+                    raise AssertionError(f"non-finite Mamba-1 training numbers {rec}")
+            trained = result.model.state_dict()
+            init = build_models(mc, generator=torch.Generator().manual_seed(full["seed"]),
+                                device=dev)[0].state_dict()
+            frozen = [k for k, v in trained.items() if torch.equal(v, init[k])]
+            if frozen:
+                raise AssertionError(f"Mamba-1 parameters that did not move: {frozen}")
+            ph.fields.update(steps=M1_STEPS, seconds=f"{train_s:.2f}",
+                             steps_per_s=f"{M1_STEPS / train_s:.1f}", eval_batches=n_eval_batches,
+                             history=repr([{k: round(v, 4) for k, v in r.items()}
+                                           for r in result.history]),
+                             launches=repr(trained_launches))
+
+        with Phase("mamba1_checkpoint_eval_eig") as ph:
+            ckpt_path, perf = result
+            ckpt = restore_checkpoint(ckpt_path)
+            for k, v in trained.items():
+                if not torch.equal(ckpt["model"][k], v.cpu()):
+                    raise AssertionError(f"Mamba-1 checkpoint entry {k} differs from the live "
+                                         "weights")
+            eig_dir = os.path.join(tmp, "analysis")
+            batch = test_x[:M1_ANALYSIS_BATCH]  # configs/analysis/mqar.yaml's batch_size
+            eig, eig_init, perc, perc_init, _, _ = eval_eig(tcfg, {"save_path": eig_dir}, perf,
+                                                            ckpt_path, device=dev, batch=batch)
+            live = extract_attention_family(result.eval_model,
+                                            torch.as_tensor(batch, device=dev).long(), mc)
+            (run_dir,) = os.listdir(eig_dir)
+            files = sorted(os.listdir(os.path.join(eig_dir, run_dir)))
+            saved = np.load(os.path.join(eig_dir, run_dir, "eig.npy"))
+            want_shape = (M1_ANALYSIS_BATCH, L, lattice, n_layers)
+            if eig.shape != want_shape or eig_init.shape != want_shape:
+                raise AssertionError(f"Mamba-1 spectra {eig.shape}, {eig_init.shape}")
+            if not (np.array_equal(saved, eig) and np.abs(eig - live).max() <= 1e-6):
+                raise AssertionError("Mamba-1 spectra from the checkpoint differ from the live "
+                                     "model's")
+            if not (np.all((eig_init > 0) & (eig_init < 1)) and np.all((eig >= 0) & (eig < 1))):
+                raise AssertionError("Mamba-1 eigenvalues outside [0, 1)")
+            if files != want_files or not run_dir.startswith(f"MQARdmodel{mc['hidden_dim']}"):
+                raise AssertionError(f"Mamba-1 artifacts {run_dir}: {files}")
+            ph.fields.update(checkpoint=os.path.basename(ckpt_path), perf=f"{perf:.4f}",
+                             artifacts=run_dir, n_files=len(files),
+                             eig_vs_live_max_abs=f"{np.abs(eig - live).max():.3e}",
+                             lambda_range_init=f"[{eig_init.min():.4g}, {eig_init.max():.4g}]",
+                             lambda_range_trained=f"[{eig.min():.4g}, {eig.max():.4g}]",
+                             radius_pct_mean_layer0=np.round(perc[:, :, 0, 0].mean(1), 2).tolist(),
+                             radius_pct_init_mean_layer0=np.round(
+                                 perc_init[:, :, 0, 0].mean(1), 2).tolist())
+        launches = dict(LAUNCHES)
+        print(f"[launches] Mamba-1 forward, training and eval_eig: {launches}; training "
+              f"alone: {trained_launches} ({n_layers} + {n_layers} a step)", flush=True)
+        others = {k: v for k, v in launches.items() if not k.startswith("diag_scan") and v}
+        if launches["diag_scan_bwd"] != want["diag_scan_bwd"] or others:
+            raise AssertionError(f"the Mamba-1 path's launches {launches}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # one step (the sparse head, AdamW behind the global-norm clip) from the
+    # same weights and batch at dropout 0, on the card and on the CPU, both
+    # held to the same step in float64 on the CPU
+    step_cfg = dict(mc, dropout=0.0)
+    f = train_fields(tcfg)
+    sparse_k = sparse_head_k_for(mc, train_split[1], test_y)
+    lrs = {"regular": f["lr"]}
+    x_step = torch.as_tensor(train_split[0][:bsz], device=dev).long()
+    y_step = torch.as_tensor(train_split[1][:bsz], device=dev).long()
+
+    def fresh(device):
+        m, _, family = build_models(step_cfg,
+                                    generator=torch.Generator().manual_seed(full["seed"]),
+                                    device=device)
+        opt, clip = make_family_optimizer(m, family, step_cfg, tcfg["train"], f)
+        return m, opt, clip
+
+    with Phase("mamba1_train_step_card_vs_cpu") as ph:
+        # dt_proj and A_log: the leaves the backward kernel's da feeds
+        card_m, card_opt, clip = step_card_vs_cpu(
+            ph, "Mamba-1", fresh, dev, x_step, y_step, lrs, sparse_k, MAMBA_GRAD_RTOL_OF_MAX,
+            watch=("dt_proj_a_log_grad_err_over_allowed",
+                   lambda n: n.endswith(("dt_proj.weight", "dt_proj.bias", "A_log"))))
+    with Phase("mamba1_train_step_timing") as ph:
+        ph.fields.update(step_profile(
+            lambda: train_step(card_m, card_opt, x_step, y_step, lrs, sparse_k, clip_norm=clip),
+            bsz * L, "diag_scan", "scan_kernels", n_top=6))
+        del card_m, card_opt
+    times, errs, a_range = mamba1_scan_phase(dev, result.eval_model, inputs, flush)
+    del result
+    torch.cuda.empty_cache()
+    return launches, (times, errs, a_range)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card",
@@ -2609,6 +3398,15 @@ def main() -> int:
             "complex_b3_l1301_n40_full_a_rev": (ring((3, 1301, 40)), normal_pair((3, 1301, 40)),
                                                 True),
         }
+        # Mamba-1's (B, L, d_inner·N) view (path 18): 32 × 128 blocks, a walk
+        # of a quarter round, forward and reversed, and a ragged L; decays
+        # spread over (0, 1) as exp(Δ·A) spreads them
+        for L_m1 in (64, 61):
+            a_m1 = torch.rand((32, L_m1, 2048), device=dev, generator=gen)
+            b_m1 = torch.randn(32, L_m1, 2048, device=dev, generator=gen)
+            for reverse in (False, True):
+                cases[f"real_b32_l{L_m1}_n2048_full_a{'_rev' if reverse else ''}"] = (
+                    a_m1, b_m1, reverse)
         for name, (a, b, reverse) in cases.items():
             h = diag_scan_cuda(a, b, reverse=reverse)
             torch.cuda.synchronize()
@@ -2631,6 +3429,11 @@ def main() -> int:
                                          torch.randn(8, 512, 128, device=dev, generator=gen)),
             "complex_b3_l997_n96_lambda": (ring((96,)), normal_pair((3, 997, 96))),
             "complex_b8_l1024_n512_lambda": (ring((512,)), normal_pair((8, 1024, 512))),
+            # Mamba-1's view (path 18): da at a's full shape, no batch sum
+            "real_b32_l64_n2048_full_a": (torch.rand((32, 64, 2048), device=dev, generator=gen),
+                                          torch.randn(32, 64, 2048, device=dev, generator=gen)),
+            "real_b32_l61_n2048_full_a": (torch.rand((32, 61, 2048), device=dev, generator=gen),
+                                          torch.randn(32, 61, 2048, device=dev, generator=gen)),
         }
         for name, (a, b) in cases.items():
             for reverse in (False, True):
@@ -3522,6 +4325,19 @@ def main() -> int:
     # bfloat16 kernels, its step timed in the same run as path 9's dense head
     path11_all = wikitext_mamba2_path(dev, wt_splits, "wikitext-mamba2-short-bf16-fused.yaml",
                                       "wt_mamba2_bf16_fused", want_files)
+    # main paths 16 and 17, the WikiText norm-attention LM alone and its
+    # stacked seeds × rates sweep, then the pretrained-LM spectroscopy on a
+    # stand-in at its widths (no port kernel on any of them)
+    new_s = {}
+    t0 = time.perf_counter()
+    path16_all = wikitext_norm_attention_path(dev, wt_splits, want_files)
+    new_s["path_16"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    path17_all = wikitext_sweep_path(dev, wt_splits, want_files)
+    new_s["path_17"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lm_spectra_phase(dev)
+    new_s["lm_spectra"] = time.perf_counter() - t0
     del wt_splits
     path10_all = sweep_path(dev, test_x, test_y, train_split, want_files)
 
@@ -3543,10 +4359,21 @@ def main() -> int:
     print(f"[listops s5 scan kernels] {listops_scan_times} errors {listops_scan_errs}",
           flush=True)
 
+    # main path 18, the MQAR Mamba-1: the scan kernels where a varies in
+    # time, on its (32, 64, 2048) view
+    t0 = time.perf_counter()
+    path18_all, (m1_scan_times, m1_scan_errs, m1_a_range) = mamba1_path(dev, want_files, flush)
+    new_s["path_18"] = time.perf_counter() - t0
+    print(f"[mamba1 scan kernels] {m1_scan_times} errors {m1_scan_errs} trained a in "
+          f"{m1_a_range}", flush=True)
+    print(f"[paths 16-18 seconds] {json.dumps({k: round(v, 2) for k, v in new_s.items()})} "
+          f"total {sum(new_s.values()):.2f}", flush=True)
+
     def late(name):
         return (path6_all[name] + path7_all[name] + path8_all[name] + path9_all[name]
                 + path10_all[name] + path11_all[name] + path12_all[name] + path13_all[name]
-                + path14_all[name] + path15_all[name])
+                + path14_all[name] + path15_all[name] + path16_all[name] + path17_all[name]
+                + path18_all[name])
 
     kernels = [{
         "name": "diag_scan",

@@ -105,6 +105,34 @@ lcfg = dict(LISTOPS_S5_FULL["model"], hidden_dim=8, state_dim=16, num_blocks=2, 
 _, lm, _ = build_models(lcfg, True, generator=torch.Generator().manual_seed(0), device="cpu")
 with torch.no_grad():
     assert lm((torch.as_tensor(lx), torch.as_tensor(ll).float())).shape == (len(ly), 10)
+from tlie_tpu_torch.config import MQAR_MAMBA1_SMALL, WIKITEXT_NORM_ATTENTION_SHORT
+m1cfg = dict(MQAR_MAMBA1_SMALL["model"], vocab_size=64, output_dim=64, hidden_dim=16,
+             state_dim=4, seq_len=16)
+m1, m1_eval, _ = build_models(m1cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+m1(x).sum().backward()
+assert m1.blocks[0].mamba.dt_proj.weight.grad is not None
+assert extract_attention_family(m1_eval, x, m1cfg).shape == (4, 16, 32 * 4, 2)
+wcfg = dict(WIKITEXT_NORM_ATTENTION_SHORT["model"], vocab_size=64, output_dim=64, hidden_dim=16,
+            state_dim=16, num_heads=2, mixer_dim=24, num_layers=2, seq_len=16)
+wm, wm_eval, _ = build_models(wcfg, generator=torch.Generator().manual_seed(0), device="cpu")
+check_stackable(wcfg)
+wm(x).sum().backward()
+assert wm.layers[0].mixer.encoder.weight.grad is not None
+assert Decoder(wcfg, wm_eval).generate(x[:, :8], 4).shape == (4, 12)
+import tempfile
+from tlie_tpu_torch.analysis.lm_spectra import bin_lm_spectra, lm_attention_spectra
+from tlie_tpu_torch.tools import lm_eigvals  # noqa: F401
+stand_in = torch.nn.Module()
+stand_in.model = torch.nn.Module()
+stand_in.model.layers = torch.nn.ModuleList([torch.nn.Module()])
+stand_in.model.layers[0].self_attn = torch.nn.Module()
+stand_in.model.layers[0].self_attn.q_proj = torch.nn.Linear(1, 4)
+stand_in.model.layers[0].self_attn.k_proj = torch.nn.Linear(1, 4)
+stand_in.forward = lambda ids: stand_in.model.layers[0].self_attn.q_proj(ids[..., None].float()) \
+    + stand_in.model.layers[0].self_attn.k_proj(ids[..., None].float())
+with tempfile.TemporaryDirectory() as d:
+    eigs = lm_attention_spectra(stand_in, [x.numpy()], 2, d)
+assert eigs.shape == (4, 15, 2, 1) and bin_lm_spectra(eigs)["percentage"].shape == (7, 4, 2, 1)
 bcfg = dict(mcfg, compute_dtype="bfloat16")
 _, bm, _ = build_models(bcfg, generator=torch.Generator().manual_seed(0), device="cpu")
 with torch.no_grad():
@@ -115,9 +143,10 @@ print("ok", acc)
 
 
 def test_the_scan_covers_every_package_of_the_port():
-    """parallel/ (the sweeps) is among the files scanned for imports."""
+    """parallel/ (the sweeps) and tools/ (the lm_eigvals CLI) are among the
+    files scanned for imports."""
     scanned = {p.relative_to(ROOT).parts[1] for p in PORT_FILES if p.parent != ROOT}
-    assert {"parallel", "ops", "models", "training", "analysis"} <= scanned
+    assert {"parallel", "ops", "models", "training", "analysis", "tools"} <= scanned
 
 
 def test_port_runs_with_jax_unimportable():

@@ -337,12 +337,12 @@ def test_state_dict_keys_are_the_reference_names(small):
 def test_registry_refuses_what_is_not_ported(small):
     _, model_cfg, _, _, _, _, _ = small
     g = torch.Generator()
-    for bad, err in (({"version": "mamba1"}, NotImplementedError),
+    for bad, err in (({"version": "mamba1", "compute_dtype": "bfloat16"}, NotImplementedError),
+                     ({"version": "mamba3"}, RuntimeError),
                      ({"pseudoLTI": True}, NotImplementedError),
                      ({"layer": "transformer", "compute_dtype": "bfloat16"},
                       NotImplementedError),
                      ({"pooling": "mean"}, NotImplementedError),
-                     ({"dropout": 0.1}, NotImplementedError),
                      ({"token_embedding": False}, NotImplementedError)):
         with pytest.raises(err):
             build_models(dict(model_cfg, **bad), generator=g, device="cpu")

@@ -288,7 +288,7 @@ def test_state_dict_keys_are_the_reference_names(small, variant):
 def test_registry_refuses_what_is_not_ported(small):
     _, model_cfg, _, _, _, _, _ = small
     g = torch.Generator()
-    for bad in ({"mixer": "mlp"}, {"mixer": "hybrid"}, {"use_gate": True},
+    for bad in ({"mixer": "hybrid"}, {"use_gate": True},
                 {"classifier": True}, {"dual": True}, {"embedding": False},
                 {"compute_dtype": "bfloat16"}):
         with pytest.raises(NotImplementedError):

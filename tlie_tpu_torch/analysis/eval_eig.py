@@ -1,16 +1,19 @@
 """Eigen-spectroscopy: per-layer spectra → binning → artifacts, counterpart
 of ``tlie_tpu/analysis/eval_eig.py::eval_eig`` for the LRU, S5 and S4 (its
-SSM branch, :384-433) and for Mamba-2 and the softmax, linear and norm
-attention transformers (its attention-family branch, :324-382).
+SSM branch, :384-433) and for Mamba-2, Mamba-1 and the softmax, linear and
+norm attention transformers (its attention-family branch, :324-382).
 
 For the SSM families the spectra depend on the parameters only, so no batch
 runs through the model: the LRU's λ, S5's exp(ΛΔ), and the eigenvalues of
-S4's discretised Ā at channel 1 and ``seq_len`` (``eval_eig.py:244-259``).  For Mamba-2 and the transformer they come from a forward
-pass: one analysis batch goes through the blocks, and layer i's spectrum is
-taken from layer i's *own output* re-projected through its own projection —
-Mamba-2's λ_t = exp(dt_t·A) through ``in_proj``, the transformer's η_t of
-its normaliser through ``Wqkv`` (softmax, linear) or ``Wvqkn`` (norm
-attention's learned decay) — the reference's layer-chain quirk
+S4's discretised Ā at channel 1 and ``seq_len`` (``eval_eig.py:244-259``).
+For Mamba-2, Mamba-1 and the transformer they come from a forward pass: one
+analysis batch goes through the blocks, and layer i's spectrum is taken from
+layer i's *own output* re-projected through its own projection — Mamba-2's
+λ_t = exp(dt_t·A) through ``in_proj``, Mamba-1's exp(Δ_t·A) over its
+(d_inner, N) lattice through ``in_proj``, the conv, ``x_proj`` and
+``dt_proj``, the transformer's η_t of its normaliser through ``Wqkv``
+(softmax, linear) or ``Wvqkn`` (norm attention's learned decay) — the
+reference's layer-chain quirk
 (``eval_eig.py:12-17``), kept for parity.  Both passes run in evaluation
 mode.
 
@@ -44,7 +47,8 @@ from .binning import (
     PHASE_THRESHOLDS, RADIUS_THRESHOLDS, threshold_analysis, threshold_analysis_ssm,
 )
 from .extractors import (
-    eig_att_linear, eig_att_norm, eig_att_softmax, eig_lru, eig_mamba2, eig_s4, eig_s5,
+    eig_att_linear, eig_att_norm, eig_att_softmax, eig_lru, eig_mamba1, eig_mamba2, eig_s4,
+    eig_s5,
 )
 
 _SEQ_KEY = re.compile(r"^encoder\.layers\.(\d+)\.seq\.(\w+)$")
@@ -84,8 +88,9 @@ def extract_attention_family(model: nn.Module, inputs: torch.Tensor,
                              model_config: Mapping[str, Any]) -> np.ndarray:
     """Per-layer spectra from the activations after each block
     (``_extract_attention_family``): Mamba-2's λ → float32 (B, L, nheads,
-    layers); for the transformer, dispatched on ``attention_fn``, softmax,
-    linear or norm attention's η → float32 (B, L−1, H, layers), norm
+    layers), Mamba-1's → (B, L, d_inner·N, layers); for the transformer,
+    dispatched on ``attention_fn``, softmax, linear or norm attention's η →
+    float32 (B, L−1, H, layers), norm
     attention's with the offset only where the config sets ``offset``.  An
     unknown ``attention_fn`` raises.  The encoder runs without its dropout
     and the final norm is not applied, as the reference's collector runs
@@ -94,7 +99,12 @@ def extract_attention_family(model: nn.Module, inputs: torch.Tensor,
     etas = []
     for block in model.blocks if hasattr(model, "blocks") else model.layers:
         h = block(h)
-        if hasattr(block, "mamba"):
+        if hasattr(block, "mamba") and model_config.get("version", "mamba2") == "mamba1":
+            m = block.mamba
+            eta = eig_mamba1(h, m.in_proj.weight, m.in_proj.bias, m.conv1d.weight,
+                             m.conv1d.bias, m.x_proj.weight, m.dt_proj.weight, m.dt_proj.bias,
+                             m.A_log, m.d_inner, m.dt_rank)
+        elif hasattr(block, "mamba"):
             m = block.mamba
             eta = eig_mamba2(h, m.in_proj.weight, m.in_proj.bias, m.dt_bias, m.A_log,
                              m.d_inner, m.ngroups, m.d_state)

@@ -1,5 +1,6 @@
 """Eigenvalue extractors, counterpart of ``tlie_tpu/analysis/extractors.py``
-for the LRU, S5, S4, Mamba-2, and softmax, linear and norm attention.
+for the LRU, S5, S4, Mamba-2, Mamba-1, and softmax, linear and norm
+attention.
 Complex spectra are native complex tensors (ROADMAP rule 5)."""
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ import torch.nn.functional as F
 
 from ..models.attention_layers import norm_fn_by_name
 from ..models.s4 import discrete_dplr
+from ..ops.conv import depthwise_causal_conv1d
 from ..ops.eig import eigvals
 
 # the reference's guard: an exact-zero normaliser becomes this before the
@@ -77,6 +79,26 @@ def eig_mamba2(x: torch.Tensor, in_proj_weight: torch.Tensor, in_proj_bias, dt_b
         proj = proj + in_proj_bias
     dt = F.softplus(proj[..., d_inner + 2 * ngroups * d_state:] + dt_bias)
     return torch.exp(dt * (-torch.exp(A_log)))
+
+
+def eig_mamba1(x: torch.Tensor, in_proj_weight: torch.Tensor, in_proj_bias,
+               conv_weight: torch.Tensor, conv_bias: torch.Tensor, x_proj_weight: torch.Tensor,
+               dt_proj_weight: torch.Tensor, dt_proj_bias: torch.Tensor, A_log: torch.Tensor,
+               d_inner: int, dt_rank: int) -> torch.Tensor:
+    """λ_t = exp(Δ_t[d]·A[d, n]) for Mamba-1 (``eig_mamba1``), flattened
+    over the (d_inner, d_state) lattice → (B, L, d_inner·N) float32.  Δ is
+    the layer's own step: the x half of ``in_proj(x)`` → the depthwise
+    causal conv → SiLU → the dt slice of ``x_proj`` → ``dt_proj`` →
+    softplus.  Weights in ``nn.Linear``'s (out, in) and ``nn.Conv1d``'s
+    (C, 1, K) layouts."""
+    proj = x @ in_proj_weight.t()
+    if in_proj_bias is not None:
+        proj = proj + in_proj_bias
+    xm = F.silu(depthwise_causal_conv1d(proj[..., :d_inner], conv_weight, conv_bias))
+    dt_lr = (xm @ x_proj_weight.t())[..., :dt_rank]
+    dt = F.softplus(dt_lr @ dt_proj_weight.t() + dt_proj_bias)  # (B, L, d_inner)
+    lam = torch.exp(dt[..., None] * (-torch.exp(A_log)))  # (B, L, d_inner, N)
+    return lam.reshape(lam.shape[0], lam.shape[1], -1)
 
 
 def eta_softmax_from_qk(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:

@@ -6,16 +6,19 @@ The flax tree of the SSM backbone (``encoder/encoder``,
 name onto the port's modules, the LRU's, S5's and S4's cores (``seq``) leaf
 for leaf at the same shapes; complex S4 ``P`` and ``B`` arrays, as the
 reference's checkpoints store them, load with a trailing (re, im) axis.  The Mamba family keeps the reference's torch
-names (``encoder.word_embeddings``, ``blocks.{i}.mamba.*``,
-``blocks.{i}.glu.linear``, ``blocks.{i}.norm``), which map onto
+names (``encoder.word_embeddings``, ``blocks.{i}.mamba.*`` with Mamba-1's
+``x_proj`` and ``dt_proj``, ``blocks.{i}.glu.linear``, ``blocks.{i}.norm``),
+which map onto
 ``encoder/word_embeddings/embedding``, ``blocks_i/mamba/*``,
 ``blocks_i/glu_layer/linear`` and ``blocks_i/norm_layer`` as
-``tlie_tpu/analysis/compat.py`` maps them; so does the transformer family
+``tlie_tpu/analysis/compat.py`` maps them (it has no rule for ``x_proj``
+and ``dt_proj``); so does the transformer family
 (``encoder.position_embeddings``,
 ``layers.{i}.attention.{Wqkv,Wvqkn,offset,out_proj,conv1d}``, ``layers.{i}.norm``,
-``layers.{i}.mixer.linear``, ``norm``) onto ``layers_i/attention/*``,
-``layers_i/norm``, ``layers_i/mixer/linear`` and ``norm``.  Dense kernels
-(in, out) become ``nn.Linear`` weights (out, in); the SSM token encoder keeps flax's (in,
+``layers.{i}.mixer.{linear,encoder,decoder}``, ``norm``) onto
+``layers_i/attention/*``, ``layers_i/norm``, ``layers_i/mixer/*`` and
+``norm``.  Dense kernels (in, out) become ``nn.Linear`` weights (out, in);
+the SSM token encoder keeps flax's (in,
 out) layout, since it is a gather table; the depthwise conv's (K, C) becomes
 ``nn.Conv1d``'s (C, 1, K).  ``batch_stats`` {mean, var} are the BatchNorm
 running statistics.  One table of rules serves both directions, so
@@ -44,6 +47,7 @@ _PROJ = r"(?P<pr>in_proj|out_proj)"
 _TF = r"layers\.(?P<i>\d+)"
 _FLAX_TF = r"params/layers_(?P<i>\d+)"
 _ATT = r"(?P<a>Wqkv|Wvqkn|out_proj)"
+_MLP = r"(?P<m>encoder|decoder)"
 # layout changes between the two sides
 T, CONV = "T", "conv"
 # (state_dict key, flax "collection/path", layout change), as regexes with
@@ -63,6 +67,10 @@ _RULES = (
     # the Mamba family
     (r"encoder\.word_embeddings\.weight", r"params/encoder/word_embeddings/embedding", None),
     (_BLOCK + r"\.mamba\." + _PROJ + r"\.weight", _FLAX_BLOCK + r"/mamba/" + _PROJ + r"/kernel", T),
+    # Mamba-1's x_proj (no bias) and dt_proj
+    (_BLOCK + r"\.mamba\.(?P<q>x_proj|dt_proj)\.weight",
+     _FLAX_BLOCK + r"/mamba/(?P<q>x_proj|dt_proj)/kernel", T),
+    (_BLOCK + r"\.mamba\.dt_proj\.bias", _FLAX_BLOCK + r"/mamba/dt_proj/bias", None),
     (_BLOCK + r"\.mamba\.conv1d\.weight", _FLAX_BLOCK + r"/mamba/conv1d/weight", CONV),
     (_BLOCK + r"\.mamba\.conv1d\.bias", _FLAX_BLOCK + r"/mamba/conv1d/bias", None),
     (_BLOCK + r"\.mamba\.(?P<p>dt_bias|A_log|D|init_states)",
@@ -83,6 +91,9 @@ _RULES = (
     (_TF + r"\.norm\.bias", _FLAX_TF + r"/norm/bias", None),
     (_TF + r"\.mixer\.linear\.weight", _FLAX_TF + r"/mixer/linear/kernel", T),
     (_TF + r"\.mixer\.linear\.bias", _FLAX_TF + r"/mixer/linear/bias", None),
+    # the MLP mixer
+    (_TF + r"\.mixer\." + _MLP + r"\.weight", _FLAX_TF + r"/mixer/" + _MLP + r"/kernel", T),
+    (_TF + r"\.mixer\." + _MLP + r"\.bias", _FLAX_TF + r"/mixer/" + _MLP + r"/bias", None),
     (r"norm\.weight", r"params/norm/scale", None),
     (r"norm\.bias", r"params/norm/bias", None),
 )

@@ -1,7 +1,8 @@
 from .schema import (
     LISTOPS_S4_FULL, LISTOPS_S5_FULL,
     MQAR_LIN_ATTENTION_FULL, MQAR_LRU_FULL, MQAR_MAMBA2_FULL, MQAR_NORM_ATTENTION_CONV_FULL,
-    MQAR_S4_FULL, MQAR_S5_FULL, MQAR_SM_ATTENTION_FULL, WIKITEXT_LRU_SHORT, ExperimentConfig, apply_sweep_point,
+    MQAR_MAMBA1_SMALL, MQAR_S4_FULL, MQAR_S5_FULL, MQAR_SM_ATTENTION_FULL, WIKITEXT_LRU_SHORT,
+    WIKITEXT_NORM_ATTENTION_SHORT, ExperimentConfig, apply_sweep_point,
     checkpoint_name, derive_runtime_fields, expand_sweep, iter_sweep, lang_model, load_experiment,
     load_sweep, load_yaml, step_driven, train_fields,
 )
@@ -9,7 +10,8 @@ from .schema import (
 __all__ = [
     "LISTOPS_S4_FULL", "LISTOPS_S5_FULL",
     "MQAR_LIN_ATTENTION_FULL", "MQAR_LRU_FULL", "MQAR_MAMBA2_FULL",
-    "MQAR_NORM_ATTENTION_CONV_FULL", "MQAR_S4_FULL", "MQAR_S5_FULL", "MQAR_SM_ATTENTION_FULL", "WIKITEXT_LRU_SHORT",
+    "MQAR_MAMBA1_SMALL", "MQAR_NORM_ATTENTION_CONV_FULL", "MQAR_S4_FULL", "MQAR_S5_FULL",
+    "MQAR_SM_ATTENTION_FULL", "WIKITEXT_LRU_SHORT", "WIKITEXT_NORM_ATTENTION_SHORT",
     "ExperimentConfig", "apply_sweep_point", "checkpoint_name", "derive_runtime_fields",
     "expand_sweep", "iter_sweep", "lang_model", "load_experiment", "load_sweep", "load_yaml",
     "step_driven", "train_fields",

@@ -5,8 +5,8 @@ fields also as functions on plain dicts (``derive_runtime_fields``,
 ``lang_model``, ``checkpoint_name``); the train fields of
 ``tlie_tpu/training/loop.py``, step-driven or epoch-driven as it chooses; and
 the full-width MQAR LRU, MQAR Mamba-2, MQAR softmax, linear and norm
-attention transformers, MQAR and ListOps S5 and S4 and the WikiText LRU as
-Python dicts.
+attention transformers, MQAR and ListOps S5 and S4, the WikiText LRU and
+norm-attention LMs and the small MQAR Mamba-1 as Python dicts.
 
 YAML is read only inside :func:`load_yaml`, so that the package and the card
 run (``chip_smoke.py``) need no ``yaml`` module.  Running a sweep is not
@@ -499,3 +499,64 @@ def _listops_ssm_full(layer: str, **model) -> Dict[str, Any]:
 LISTOPS_S5_FULL = _listops_ssm_full("s5", C_init="lecun_normal", discretization="zoh",
                                     conj_sym=True, num_blocks=8)
 LISTOPS_S4_FULL = _listops_ssm_full("s4")
+
+
+# configs/wikitext-norm-attention-short.yaml after derive_runtime_fields with
+# the synthetic WikiText-103 it names (block 1024: 1,953 train blocks); a CPU
+# test pins this dict to the YAML as tlie_tpu.config resolves it.  The MLP
+# mixer, norm attention with its conv and no position table; a transformer
+# with classifier: false ignores its pooling: mean, and neither package reads
+# mode or learn_A.  About 61M parameters, 51.5M of them the embedding and the
+# bias-free decoder.
+WIKITEXT_NORM_ATTENTION_SHORT: Dict[str, Any] = {
+    "seed": 1919,
+    "save": "./checkpoint/wikitext-norm-attention-short",
+    "dataset": {
+        "name": "WikiText", "_name_": "wikitext", "version": 103, "block_size": 1024,
+        "data_dir": "", "fixed_size": True, "synthetic": True,
+    },
+    "train": {
+        "total_steps": 2000, "batch_size": 8, "eval_every": 500, "betas": [0.9, 0.95],
+        "param_group": None, "wd": 0.1, "cosine_anneal": True, "warmup_steps": 200,
+        "lr": 0.001, "padded": False, "train_size": 1953,
+    },
+    "model": {
+        "input_dim": 1, "output_dim": 50257, "layer": "transformer", "num_layers": 6,
+        "hidden_dim": 512, "state_dim": 512, "num_heads": 8, "att_dropout": 0.0,
+        "norm": "layer", "embedding": True, "vocab_size": 50257, "max_pos_embed": 0,
+        "mixer": "mlp", "mixer_dim": 512, "dropout": 0.0, "classifier": False,
+        "pooling": "mean", "dual": False, "attention_fn": "norm-attention",
+        "mode": "attention", "norm_fn": "softplus", "approx_fn": "elu", "scale_B": True,
+        "offset": True, "offset_init": "exp", "learn_A": False, "dim_conv": 4,
+        "use_flash": False, "seq_len": 1024,
+    },
+    "lang_model": True,
+}
+
+
+# configs/mqar-mamba1-small.yaml after derive_runtime_fields with the MQAR
+# dataset it names (L 64, 8 pairs, vocab 256, 20,000 training examples); a
+# CPU test pins this dict to the YAML as tlie_tpu.config resolves it.
+# Mamba-1 (d_inner 128, dt_rank 4, d_state 16) with dropout 0.1.
+MQAR_MAMBA1_SMALL: Dict[str, Any] = {
+    "seed": 1919,
+    "save": "./checkpoint/mqar-mamba1-small",
+    "dataset": {
+        "name": "MQAR", "_name_": "mqar", "input_seq_length": 64, "num_kv_pairs": 8,
+        "vocab_size": 256, "num_train_examples": 20000, "num_test_examples": 512,
+        "fixed_size": True,
+    },
+    "train": {
+        "total_steps": 8000, "batch_size": 32, "lr": 0.003, "wd": 0.1, "warmup_steps": 400,
+        "cosine_anneal": True, "eval_every": 400, "param_group": None, "stop_criterion": 0.99,
+        "padded": False, "train_size": 20000,
+    },
+    "model": {
+        "layer": "mamba", "version": "mamba1", "num_layers": 2, "hidden_dim": 64,
+        "state_dim": 16, "num_heads": 2, "conv_dim": 4, "expansion": 2, "dropout": 0.1,
+        "glu": True, "norm": "layer", "prenorm": True, "pooling": "none", "embedding": True,
+        "token_embedding": True, "vocab_size": 256, "input_dim": 1, "output_dim": 256,
+        "classifier": False, "dual": False, "seq_len": 64,
+    },
+    "lang_model": True,
+}

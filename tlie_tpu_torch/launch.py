@@ -7,12 +7,15 @@ The model families are the SSM backbones, the LRU (``layer: lru``), S5
 (``layer: s5``, e.g. ``configs/tasks/mqar/mqar-s5.yaml`` and the CPU-sized
 ``configs/mqar-s5-small.yaml``) and S4 (``layer: s4``, ``mqar-s4.yaml``,
 ``mqar-s4-small.yaml``), Mamba-2 (``layer: mamba``,
-e.g. ``configs/tasks/mqar/mqar-mamba2.yaml``) and the transformer (``layer:
+e.g. ``configs/tasks/mqar/mqar-mamba2.yaml``) and Mamba-1 (``version:
+mamba1``, ``configs/mqar-mamba1-small.yaml``), and the transformer (``layer:
 transformer``) with softmax attention (``attention_fn: sm-attention``, e.g.
 ``configs/tasks/mqar/mqar-sm-attention.yaml``), linear attention
 (``lin-attention``, e.g. ``configs/tasks/mqar/mqar-lin-attention.yaml`` and
 the CPU-sized ``configs/mqar-lin-attention-small.yaml``) or norm attention
-(``norm-attention``, e.g. ``configs/tasks/mqar/mqar-norm-attention-conv.yaml``):
+(``norm-attention``, e.g. ``configs/tasks/mqar/mqar-norm-attention-conv.yaml``,
+and the WikiText LM ``configs/wikitext-norm-attention-short.yaml`` with the
+MLP mixer, analysed with ``configs/analysis/wikitext.yaml``):
 
     python -m tlie_tpu_torch.launch --config configs/tasks/mqar/mqar-lin-attention.yaml \\
         --analysis_config configs/analysis/mqar.yaml
@@ -47,6 +50,8 @@ there:
 
     python -m tlie_tpu_torch.launch --config sweep/mqar-lin-attention-seeds-lrs-8k.yaml \\
         --sweep_parallel --analysis_config configs/analysis/mqar.yaml
+    python -m tlie_tpu_torch.launch --config sweep/wikitext-norm-attention-seeds-lrs.yaml \\
+        --sweep_parallel --analysis_config configs/analysis/wikitext.yaml
 """
 
 from __future__ import annotations

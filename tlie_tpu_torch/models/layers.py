@@ -1,6 +1,6 @@
 """Shared blocks of the Mamba and transformer families, counterparts of
 ``tlie_tpu/models/layers.py``: the torch default initialisers drawn from an
-explicit ``torch.Generator``, ``GLU``, ``TokenEmbeddings`` (with the
+explicit ``torch.Generator``, ``GLU``, ``MLP``, ``TokenEmbeddings`` (with the
 transformer's position table), ``DepthwiseCausalConv`` and the element-wise
 ``Dropout``.
 
@@ -84,6 +84,21 @@ class GLU(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.linear(x)
         return out[..., : self.d] * torch.sigmoid(out[..., self.d :])
+
+
+class MLP(nn.Module):
+    """Dense(``mlp_dim``) → exact erf GELU → Dropout → Dense(d) → Dropout
+    (``MLP``): ``encoder`` and ``decoder`` with torch's default init, the
+    two Dropouts independent masks."""
+
+    def __init__(self, d: int, mlp_dim: int, generator: torch.Generator, dropout: float = 0.0):
+        super().__init__()
+        self.encoder = linear(d, mlp_dim, generator)
+        self.decoder = linear(mlp_dim, d, generator)
+        self.drop = Dropout(dropout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.drop(self.decoder(self.drop(F.gelu(self.encoder(x)))))
 
 
 class TokenEmbeddings(nn.Module):

@@ -22,9 +22,16 @@ return float32, dt = softplus(dt + dt_bias) and the decay math stay float32,
 and the chunked scan takes bfloat16 operands (:mod:`tlie_tpu_torch.ops.ssd`).
 The logits are bfloat16; the loss reduces them in float32.
 
-Not ported yet, and refused: ``version: mamba1`` and ``pseudoLTI: true``
-(the pseudo-LTI ``SSD_LTI``), dropout (every Mamba-2 config sets 0), the
-dense input encoder (``token_embedding: false``), the pooled and dual heads.
+``Mamba1`` (``version: mamba1``) is the selective-scan layer: ``in_proj`` →
+[x, z], the depthwise causal conv and SiLU on x, ``x_proj`` → [dt, B, C],
+the float32 ``dt_proj``, and the diagonal recurrence over the (d_inner,
+d_state) lattice through :func:`tlie_tpu_torch.ops.scan.diag_linear_scan`
+(on the card, the scan's forward and backward kernels with a decay that
+varies in time), then y·SiLU(z) and ``out_proj``.  It computes in float32.
+
+Not ported yet, and refused: ``pseudoLTI: true`` (the pseudo-LTI
+``SSD_LTI``), bfloat16 for Mamba-1, the dense input encoder
+(``token_embedding: false``), the pooled and dual heads.
 """
 
 from __future__ import annotations
@@ -36,8 +43,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.scan import diag_linear_scan
 from ..ops.ssd import ssd_chunked_scan
-from .layers import GLU, DepthwiseCausalConv, TokenEmbeddings, linear
+from .layers import GLU, DepthwiseCausalConv, Dropout, TokenEmbeddings, linear, uniform_
 
 
 # the SSD's init ranges, which no config changes: dt log-uniform on
@@ -47,7 +55,8 @@ A_INIT = (1.0, 16.0)
 
 
 def _dt_bias_init(nheads: int, generator: torch.Generator) -> torch.Tensor:
-    """Inverse softplus of a log-uniform dt sample on [DT_MIN, DT_MAX]."""
+    """Inverse softplus of a log-uniform dt sample on [DT_MIN, DT_MAX], one
+    per head (SSD) or per channel (Mamba-1's ``dt_proj.bias``)."""
     u = torch.rand(nheads, generator=generator)
     dt = torch.exp(u * (math.log(DT_MAX) - math.log(DT_MIN)) + math.log(DT_MIN))
     dt = torch.clamp(dt, min=DT_INIT_FLOOR)
@@ -104,36 +113,90 @@ class SSD(nn.Module):
         return self.out_proj(y.reshape(bsz, L, d_inner))
 
 
+class Mamba1(nn.Module):
+    """Mamba-1 selective-scan layer (``Mamba1``): the recurrence
+    h_t[d, n] = exp(Δ_t[d]·A[d, n])·h_{t−1}[d, n] + Δ_t[d]·B_t[n]·x_t[d],
+    diagonal over the (d_inner, d_state) lattice, with A = −exp(A_log)
+    varying over the state axis.  ``dt_proj``'s weight is U(±dt_rank^−½) and
+    its bias the inverse softplus of a log-uniform Δ; ``A_log`` = log(1..N)
+    for every channel, ``D`` = 1.  The decay a and the input bx are built at
+    (B, L, d_inner, N) and scanned as their contiguous (B, L, d_inner·N)
+    view, time at −2, which the scan's kernels read as a full decay; no
+    transposed copy."""
+
+    def __init__(self, d_model: int, generator: torch.Generator, d_state: int = 16,
+                 d_conv: int = 4, expand: int = 2):
+        super().__init__()
+        self.d_inner, self.d_state = expand * d_model, d_state
+        self.dt_rank = -(-d_model // 16)  # ceil(d_model / 16), as mamba_ssm
+        d_inner, r, g = self.d_inner, self.dt_rank, generator
+        # draw order follows the flax module; in_proj, x_proj and out_proj have no bias
+        self.in_proj = linear(d_model, 2 * d_inner, g, bias=False)
+        self.conv1d = DepthwiseCausalConv(d_inner, d_conv, g) if d_conv > 0 else None
+        self.x_proj = linear(d_inner, r + 2 * d_state, g, bias=False)
+        self.dt_proj = nn.Linear(r, d_inner)
+        uniform_(self.dt_proj.weight, r ** -0.5, g)
+        with torch.no_grad():
+            self.dt_proj.bias.copy_(_dt_bias_init(d_inner, g))
+        self.A_log = nn.Parameter(torch.log(torch.arange(1, d_state + 1, dtype=torch.float32))
+                                  .expand(d_inner, d_state).clone())
+        self.D = nn.Parameter(torch.ones(d_inner))
+        self.out_proj = linear(d_inner, d_model, g, bias=False)
+
+    def forward(self, u: torch.Tensor) -> torch.Tensor:
+        x, z = self.in_proj(u).chunk(2, dim=-1)
+        if self.conv1d is not None:
+            x = F.silu(self.conv1d(x))
+        x_db = self.x_proj(x)
+        r, n = self.dt_rank, self.d_state
+        B_mat, C_mat = x_db[..., r: r + n], x_db[..., r + n:]
+        dt = F.softplus(self.dt_proj(x_db[..., :r]))  # (B, L, d_inner)
+        a = torch.exp(dt[..., None] * (-torch.exp(self.A_log)))  # (B, L, d_inner, N)
+        bx = (dt * x)[..., None] * B_mat[..., None, :]
+        bsz, L = a.shape[0], a.shape[1]
+        h = diag_linear_scan(a.reshape(bsz, L, -1), bx.reshape(bsz, L, -1))
+        y = torch.einsum("bldn,bln->bld", h.view(a.shape), C_mat) + self.D * x
+        return self.out_proj(y * F.silu(z))
+
+
 class MambaBlock(nn.Module):
-    """Residual block: [norm] → mamba → GELU → [GLU] → residual → [norm]
-    (``MambaBlock``), with flax's LayerNorm (eps 1e-5, biased variance, the
-    same as ``nn.LayerNorm``) and the exact erf GELU."""
+    """Residual block: [norm] → mamba (``SSD`` or ``Mamba1``) → GELU →
+    dropout → [GLU] → dropout → residual → [norm] (``MambaBlock``), with
+    flax's LayerNorm (eps 1e-5, biased variance, the same as
+    ``nn.LayerNorm``) and the exact erf GELU."""
 
     def __init__(self, cfg: Dict[str, Any], generator: torch.Generator,
                  compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if cfg["version"] != "mamba2":
-            if cfg["version"] == "mamba1":
-                raise NotImplementedError("version: mamba1 is not ported yet")
-            raise RuntimeError(f"Non supported version {cfg['version']}")
-        if cfg.get("pseudoLTI", False):
-            raise NotImplementedError("pseudoLTI (SSD_LTI) is not ported yet")
+        version = cfg["version"]
+        if version not in ("mamba1", "mamba2"):
+            raise RuntimeError(f"Non supported version {version}")
         if cfg["norm"] != "layer":
             raise RuntimeError("only layer norm is supported for Mamba blocks")
-        if cfg["dropout"] != 0.0:
-            raise NotImplementedError("dropout in Mamba blocks is not ported yet")
         hidden = cfg["hidden_dim"]
         self.prenorm = cfg["prenorm"]
-        self.mamba = SSD(
-            hidden, generator, d_state=cfg["state_dim"], d_conv=cfg["conv_dim"],
-            expand=cfg["expansion"], headdim=hidden // cfg["num_heads"],
-            ngroups=cfg.get("ngroups", 1), chunk_size=cfg.get("chunk_size"),
-            dt_limit=tuple(cfg.get("dt_limit", (0.0, float("inf")))),
-            learnable_init_states=cfg.get("learnable_init_states", False),
-            compute_dtype=compute_dtype,
-        )
+        if version == "mamba1":
+            if compute_dtype is not None:
+                raise NotImplementedError("compute_dtype: bfloat16 is not ported for Mamba-1")
+            # only d_model, d_state, d_conv and expand reach the layer, as in tlie_tpu
+            self.mamba = Mamba1(hidden, generator, d_state=cfg["state_dim"],
+                                d_conv=cfg["conv_dim"], expand=cfg["expansion"])
+        elif cfg.get("pseudoLTI", False):
+            raise NotImplementedError("pseudoLTI (SSD_LTI) is not ported yet")
+        else:
+            self.mamba = SSD(
+                hidden, generator, d_state=cfg["state_dim"], d_conv=cfg["conv_dim"],
+                expand=cfg["expansion"], headdim=hidden // cfg["num_heads"],
+                ngroups=cfg.get("ngroups", 1), chunk_size=cfg.get("chunk_size"),
+                dt_limit=tuple(cfg.get("dt_limit", (0.0, float("inf")))),
+                learnable_init_states=cfg.get("learnable_init_states", False),
+                compute_dtype=compute_dtype,
+            )
         self.glu = GLU(hidden, generator, compute_dtype) if cfg["glu"] else None
         self.norm = nn.LayerNorm(hidden, eps=1e-5)
+        # one module applied twice, after the GELU and after the GLU (or
+        # twice in a row without it): two independent masks, as in tlie_tpu
+        self.drop = Dropout(cfg["dropout"])
 
     def _norm(self, x: torch.Tensor) -> torch.Tensor:
         """flax's LayerNorm: statistics and output at least float32."""
@@ -143,10 +206,10 @@ class MambaBlock(nn.Module):
         skip = x
         if self.prenorm:
             x = self._norm(x)
-        x = F.gelu(self.mamba(x))
+        x = self.drop(F.gelu(self.mamba(x)))
         if self.glu is not None:
             x = self.glu(x)
-        x = x + skip
+        x = self.drop(x) + skip
         if not self.prenorm:
             x = self._norm(x)
         return x

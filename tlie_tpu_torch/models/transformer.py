@@ -5,7 +5,9 @@ linear or norm attention (``attention_fn``: ``sm-attention``,
 
 A block is ``x + drop(attention(norm(x)))`` then ``norm`` again and the
 mixer; with ``mixer: none`` it returns ``norm(x + drop(attention(norm(x))))``
-(no second residual), with ``mixer: glu`` ``x + glu(norm(x))``.  Both
+(no second residual), with ``mixer: glu`` ``x + glu(norm(x))`` and with
+``mixer: mlp`` ``x + mlp(norm(x))`` (``MLP``: ``mixer_dim`` wide, the
+block's dropout after the GELU and after the second projection).  Both
 LayerNorms of a block are one module, ``layers.{i}.norm``, so they share
 weights: the reference's quirk, kept.  The model is token (+ position)
 embeddings, element-wise dropout, the blocks, a final LayerNorm and a
@@ -13,11 +15,12 @@ bias-free per-position decoder; it returns logits.  Parameter names are the
 reference's torch names (``encoder.word_embeddings``,
 ``encoder.position_embeddings``, ``layers.{i}.attention.{Wqkv,out_proj}``,
 for norm attention ``layers.{i}.attention.{Wvqkn,offset}``,
-``layers.{i}.norm``, ``norm``, ``decoder``).
+``layers.{i}.norm``, ``layers.{i}.mixer.{linear,encoder,decoder}``, ``norm``,
+``decoder``).
 
 Weights are drawn from an explicit ``torch.Generator`` with the reference's
-distributions.  Not ported yet, and refused: the ``mlp`` and ``hybrid``
-mixers, ``use_gate``, the classifier and dual heads, the dense input
+distributions.  Not ported yet, and refused: the ``hybrid`` mixer,
+``use_gate``, the classifier and dual heads, the dense input
 encoder (``embedding: false``), bf16.
 """
 
@@ -29,7 +32,7 @@ import torch
 from torch import nn
 
 from .attention_layers import MHA, MHNA
-from .layers import GLU, Dropout, TokenEmbeddings, linear
+from .layers import GLU, MLP, Dropout, TokenEmbeddings, linear
 
 
 class TransformerBlock(nn.Module):
@@ -55,11 +58,16 @@ class TransformerBlock(nn.Module):
         else:
             raise RuntimeError(f"attention_fn {attention_fn} not implemented")
         mixer = cfg["mixer"]
-        if mixer in ("mlp", "hybrid"):
-            raise NotImplementedError(f"the {mixer} mixer is not ported yet")
-        if mixer not in ("glu", "none"):
+        if mixer == "hybrid":
+            raise NotImplementedError("the hybrid mixer is not ported yet")
+        if mixer == "mlp":
+            self.mixer = MLP(hidden_dim, cfg["mixer_dim"], generator, cfg["dropout"])
+        elif mixer == "glu":
+            self.mixer = GLU(hidden_dim, generator)
+        elif mixer == "none":
+            self.mixer = None
+        else:
             raise RuntimeError(f"{mixer} mixer not implemented yet!")
-        self.mixer = GLU(hidden_dim, generator) if mixer == "glu" else None
         if cfg["norm"] != "layer":
             raise RuntimeError(f"{cfg['norm']} norm not implemented yet!")
         self.norm = nn.LayerNorm(hidden_dim, eps=1e-5)
