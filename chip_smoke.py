@@ -8,12 +8,13 @@ It builds the port's CUDA kernels from ``tlie_tpu_torch/ops/csrc`` with
 once), holds each kernel against its plain PyTorch version on the card
 (the diagonal scan forward and backward, the three kernels of the fused
 decoder + cross-entropy head on float32 and on bfloat16 operands, the three
-of the SSD's decay attention on float32 and on bfloat16 operands and the
-three of the flash attention), the scan's two kernels also on a decay that
+of the SSD's decay attention on float32 and on bfloat16 operands (the
+float32 ones also at the CIFAR Mamba-2's shapes) and the three of the flash
+attention), the scan's two kernels also on a decay that
 varies by example and is constant in time and at S5's shapes (MQAR and
-ListOps) and at Mamba-1's (B, L, d_inner·N) view, and drives thirteen models
-(all at their published widths) along eighteen paths, each with the launch
-counts set to 0 just before it and read just after:
+ListOps) and at Mamba-1's (B, L, d_inner·N) view, and drives sixteen models
+(all at their published widths) along twenty-one paths, each with the
+launch counts set to 0 just before it and read just after:
 
 1. the MQAR LRU (``MQAR_LRU_FULL``: L=512, d_model=128, N=128, 2 layers,
    vocab 8192, batch 64, weights from the config's seed): evaluation,
@@ -123,9 +124,26 @@ counts set to 0 just before it and read just after:
    decay that varies in time (2 + 2 a step), the checkpoint reloaded and
    eigen-analysed, the card step against the CPU step, the step's time,
    and the scan kernels held to their plain versions and timed at the
-   trained model's own decay.
-Paths 6, 7, 10, 13, 15, 16 and 17 reach no Pallas kernel in ``tlie_tpu``: no
-port kernel launches on them, and the script checks that.  The decay attention's three
+   trained model's own decay;
+19. the sequential CIFAR-10 Mamba-2 classifier (``CIFAR_MAMBA2_FULL``: 6
+   layers, d_model 512, 4 heads of 128, N 64, conv 4, GLU, post-norm, the
+   dense encoder from one grayscale feature, a mean pool, 10 classes, batch
+   50, L 1024) on the loader's synthetic split (2,048 / 512 images; the
+   CIFAR-10 files are not in the repository): its forward (card against
+   CPU, and the same weights at four chunks of 256, the SSD's inter-chunk
+   arm, against the card's own one chunk of 1,024), 2 epochs of 40 steps
+   through the decay attention's float32 kernels (6 + 6 + 6 a step), the
+   checkpoint eigen-analysed on 64 float images, the kernels at the
+   trained model's steepest layer, the card step against the CPU step at
+   chunk 256, the step's time and the decay attention's share;
+20. its pseudo-LTI variant (``CIFAR_MAMBA2_LTI_FULL``, ``SSD_LTI``) along
+   path 19's phases at 1 epoch, its spectra held to exp(−softplus(A)) of
+   the checkpoint;
+21. the CIFAR-10 S4 (``CIFAR_S4_FULL``: 6 layers, d_model 512, N 64,
+   BatchNorm, a mean pool) along the same phases at 1 epoch, no port
+   kernel, with the generating function's share of the step.
+Paths 6, 7, 10, 13, 15, 16, 17 and 21 reach no Pallas kernel in
+``tlie_tpu``: no port kernel launches on them, and the script checks that.  The decay attention's three
 kernels are also held on bfloat16 operands against the plain bfloat16
 version (the WikiText Mamba-2, MQAR and a ragged shape) and timed against
 the bfloat16 tensor-core bound, and so are the fused head's three bfloat16
@@ -248,7 +266,18 @@ XENT_BF16_SHAPES = {"m8192_d512_v50257": (8192, 512, 50257), "m128_d512_v100": (
 # Hg, P)
 SSD_SHAPES = {"mqar_bg64_q512_n128_hg1_p128": (64, 512, 128, 1, 128),
               "wikitext_bg8_q1024_n512_hg8_p64": (8, 1024, 512, 8, 64),
-              "ragged_bg3_q77_n40_hg3_p33": (3, 77, 40, 3, 33)}
+              "ragged_bg3_q77_n40_hg3_p33": (3, 77, 40, 3, 33),
+              # the CIFAR Mamba-2 (paths 19, 20: 4 heads of 128, N 64) at
+              # batch 50: the card's own chunk, one of 1,024, and tlie_tpu's
+              # and the CPU's, four of 256
+              "f32_bg50_q1024_n64_hg4_p128": (50, 1024, 64, 4, 128),
+              "f32_bg200_q256_n64_hg4_p128": (200, 256, 64, 4, 128)}
+# the shapes the decay attention's float32 kernels are also held to the
+# plain version in float64 at, and timed at beside the MQAR shape
+SSD_F64_SHAPES = ("ragged_bg3_q77_n40_hg3_p33", "f32_bg50_q1024_n64_hg4_p128",
+                  "f32_bg200_q256_n64_hg4_p128")
+SSD_TIMED_SHAPES = ("wikitext_bg8_q1024_n512_hg8_p64", "f32_bg50_q1024_n64_hg4_p128",
+                    "f32_bg200_q256_n64_hg4_p128")
 # decay attention vs plain: each output element (y, dC, dcs_i, dB, dxdt,
 # dcs_j) within SSD_RTOL of the sum of its terms' magnitudes
 # (decay_attention.term_scales): float32 sums of up to N + Q terms (C·B over
@@ -364,6 +393,17 @@ LMS_RTOL = 1e-5
 # runs 8,000 with an eval every 400) on its own split; the analysis batch is
 # configs/analysis/mqar.yaml's 64 test examples
 M1_STEPS, M1_EVAL_EVERY, M1_ANALYSIS_BATCH = 200, 100, 64
+# the sequential CIFAR-10 paths (19: the Mamba-2, 20: its pseudo-LTI
+# variant, 21: S4) on the loader's synthetic split (2,048 train and 512 test
+# images; the CIFAR-10 files are not in the repository): 40 steps an epoch at
+# batch 50, CIFAR_EPOCHS epochs (the configs run 50) with CIFAR_WARMUP of
+# warmup (5); the analysis batch is configs/analysis/cifar.yaml's 64 test
+# images; the card-vs-CPU step on CIFAR_STEP_EXAMPLES of the batch's 50
+# images at dropout 0 and, for the Mamba-2, at the chunk CIFAR_STEP_CHUNK on
+# both sides (the card picks 1,024 for the full batch, the CPU 256)
+CIFAR_EPOCHS = {"cifar_mamba2": 2, "cifar_mamba2_lti": 1, "cifar_s4": 1}
+CIFAR_WARMUP, CIFAR_ANALYSIS_BATCH = 1, 64
+CIFAR_STEP_EXAMPLES, CIFAR_STEP_CHUNK = 4, 256
 # device kernels of a training step by kind, from their names (first match)
 OP_KINDS = (
     ("scan kernels", ("diag_scan", "sum_rows")),
@@ -1157,7 +1197,7 @@ def step_card_vs_cpu(ph, what: str, fresh, dev, x_step, y_step, lrs, sparse_k,
                      rtol_of_max: float, watch=None, check_stats: bool = False):
     """One training step (sparse head, AdamW behind the global-norm clip)
     from the same weights and batch on the card and on the CPU (``x_step``
-    the tokens, or a padded model's ``(tokens, lengths)``), both held
+    the tokens or features, or a padded model's ``(tokens, lengths)``), both held
     to the same step in float64 on the CPU: each gradient's error on the
     card may be GRAD_F64_FACTOR times the CPU's or ``rtol_of_max`` of the
     leaf's max|g|; the parameters within PARAM_ATOL where |g| is at least
@@ -1180,7 +1220,8 @@ def step_card_vs_cpu(ph, what: str, fresh, dev, x_step, y_step, lrs, sparse_k,
     cpu_g = {n: p.grad for n, p in cpu_m.named_parameters()}
     card_g = {n: p.grad.cpu() for n, p in card_m.named_parameters()}
     ref_m = fresh("cpu")[0].double()
-    cross_entropy_loss(*head_logits(ref_m, x_cpu, y_step.cpu(), sparse_k)).backward()
+    x_ref = x_cpu.double() if torch.is_tensor(x_cpu) and x_cpu.is_floating_point() else x_cpu
+    cross_entropy_loss(*head_logits(ref_m, x_ref, y_step.cpu(), sparse_k)).backward()
     if clip is None:  # the SSM families take no clip
         raw_norm = float(torch.linalg.vector_norm(torch.stack(
             [torch.linalg.vector_norm(p.grad) for p in ref_m.parameters()])))
@@ -3291,6 +3332,298 @@ def mamba1_path(dev, want_files, flush):
     return launches, (times, errs, a_range)
 
 
+def steepest_decay_operands(model, inputs):
+    """The decay attention's operands (C, B, cs, xdt) as ``model``'s
+    forward on ``inputs`` hands them to the kernels, at the layer whose cs
+    falls furthest within a chunk (the steepest decay), and that fall."""
+    import tlie_tpu_torch.ops.ssd as ssd_mod
+
+    seen = []
+    real = ssd_mod.decay_attention
+
+    def grab(*args):
+        seen.append(args)
+        return real(*args)
+
+    ssd_mod.decay_attention = grab
+    try:
+        with torch.no_grad():
+            model(inputs)
+    finally:
+        ssd_mod.decay_attention = real
+    falls = [float(ops[2].min()) for ops in seen]
+    i = int(np.argmin(falls))
+    return seen[i], falls[i]
+
+
+def cifar_path(dev, want_files, full, tag: str, flush=None):
+    """Main path 19 (``CIFAR_MAMBA2_FULL``: 6 layers, d_model 512, 4 heads
+    of 128, N 64, conv 4, GLU, post-norm, the dense encoder from 1 input
+    feature, a mean pool, 10 classes, batch 50, L 1024), 20
+    (``CIFAR_MAMBA2_LTI_FULL``: the same widths, the pseudo-LTI ``SSD_LTI``)
+    or 21 (``CIFAR_S4_FULL``: 6 layers, d_model 512, N 64 DPLR, BatchNorm,
+    dropout 0.1, a mean pool), weights from seed 1919, on the grayscale
+    synthetic split (2,048 / 512 images).  Cuts, each against the config:
+    CIFAR_EPOCHS[tag] epochs (50) of 40 steps with CIFAR_WARMUP of warmup
+    (5).
+
+    With every count set to 0: the forward on a test batch (card against
+    CPU; for the Mamba-2 also the same weights at chunk 256, the
+    inter-chunk arm, against the card's own chunk of 1,024), training
+    through ``train`` with an eval at each epoch's end, the checkpoint
+    reloaded and eigen-analysed on the analysis batch of 64 float images
+    (the pseudo-LTI spectra held to exp(−softplus(A)) of the checkpoint,
+    constant over the batch and time); the counts are read there.  The
+    Mamba-2 launches the decay attention's float32 forward once a layer a
+    forward and each backward once a layer a step (6 + 6 + 6 a step), S4 no
+    port kernel.  Then (not counted) the three kernels held to their plain
+    versions at the trained model's steepest layer, one card step against
+    the CPU step on CIFAR_STEP_EXAMPLES images (the chunk stated), and the
+    step's time, idle share and the decay attention's (S4: the generating
+    function's) share of device time.  Returns the counts."""
+    from tlie_tpu_torch.analysis import eval_eig
+    from tlie_tpu_torch.analysis.eval_eig import extract_attention_family
+    from tlie_tpu_torch.config import derive_runtime_fields, train_fields
+    from tlie_tpu_torch.data import CIFAR10, argmax_accuracy
+    from tlie_tpu_torch.models import build_models
+    from tlie_tpu_torch.ops import LAUNCHES
+    from tlie_tpu_torch.ops import decay_attention as dattn
+    from tlie_tpu_torch.ops.ssd import _auto_chunk
+    from tlie_tpu_torch.training import prep_batch, restore_checkpoint, train, train_step
+    from tlie_tpu_torch.training.state import make_family_optimizer
+
+    mc = full["model"]
+    is_mamba, lti = mc["layer"] == "mamba", mc.get("pseudoLTI", False)
+    n_layers, bsz, L = mc["num_layers"], full["train"]["batch_size"], mc["seq_len"]
+    heads = mc.get("num_heads", 1)
+    seed = full["seed"]
+    with Phase(f"{tag}_data") as ph:
+        data = CIFAR10(**dict(full["dataset"], synthetic=True))
+        train_split, (test_x, test_y) = data.split("train"), data.split("test")
+        ph.fields.update(train=train_split[0].shape, test=test_x.shape,
+                         dtype=str(train_split[0].dtype), d_input=data.d_input)
+        if (train_split[0].shape != (full["train"]["train_size"], L, mc["input_dim"])
+                or test_x.shape != (data.synthetic_test, L, mc["input_dim"])
+                or train_split[0].dtype != np.float32 or train_split[1].dtype != np.int64):
+            raise AssertionError(f"{tag} data: {ph.fields}")
+
+    _, model, _ = build_models(mc, generator=torch.Generator().manual_seed(seed), device=dev)
+    inputs, labels = prep_batch((test_x[:bsz], test_y[:bsz]), L, mc["input_dim"], device=dev)
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    with Phase(f"{tag}_forward") as ph, torch.no_grad():
+        logits = model(inputs)
+        torch.cuda.synchronize()
+        want_fwd = n_layers if is_mamba else 0
+        if LAUNCHES["decay_attention_fwd"] != want_fwd or sum(LAUNCHES.values()) != want_fwd:
+            raise AssertionError(f"{tag} forward launches {LAUNCHES}")
+        if logits.shape != (bsz, mc["output_dim"]) or not torch.isfinite(logits).all():
+            raise AssertionError(f"{tag} forward output {tuple(logits.shape)}")
+        acc = float(argmax_accuracy(logits, labels))
+        fwd_ms = min(cuda_ms(lambda: model(inputs), 3))
+        _, cpu_model, _ = build_models(mc, generator=torch.Generator(), device="cpu")
+        cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        ref = cpu_model(inputs[:2].cpu())
+        cpu_err = (logits[:2].cpu() - ref).abs().max().item()
+        if not torch.allclose(logits[:2].cpu(), ref, rtol=LOGIT_RTOL, atol=LOGIT_ATOL):
+            raise AssertionError(f"{tag} card vs CPU forward: max abs err {cpu_err}")
+        ph.fields.update(accuracy=f"{acc:.4f}", forward_ms=f"{fwd_ms:.3f}",
+                         vs_cpu_max_abs=f"{cpu_err:.3e}")
+        if is_mamba:
+            ph.fields.update(chunk=_auto_chunk(bsz, L, heads, dev),
+                             chunk_cpu_2_examples=_auto_chunk(2, L, heads, "cpu"),
+                             chunk_cpu_full_batch=_auto_chunk(bsz, L, heads, "cpu"))
+        del cpu_model, ref
+
+    if is_mamba:
+        # the inter-chunk arm on the card: the same weights at four chunks
+        # of 256 against the card's own one chunk of 1,024
+        with Phase(f"{tag}_chunk256_vs_auto") as ph, torch.no_grad():
+            _, m256, _ = build_models(dict(mc, chunk_size=256), generator=torch.Generator(),
+                                      device=dev)
+            m256.load_state_dict(model.state_dict())
+            before = LAUNCHES["decay_attention_fwd"]
+            l256, f256 = m256(inputs), m256.features(inputs)
+            f_auto = model.features(inputs)
+            torch.cuda.synchronize()
+            l_err = (l256 - logits).abs().max().item()
+            f_err = (f256 - f_auto).abs().max().item()
+            ph.fields.update(chunks=f"{L // 256}x256_vs_1x{_auto_chunk(bsz, L, heads, dev)}",
+                             logits_max_abs=f"{l_err:.3e}", features_max_abs=f"{f_err:.3e}",
+                             features_max=f"{f_auto.abs().max().item():.3f}",
+                             launches=LAUNCHES["decay_attention_fwd"] - before)
+            if not (torch.allclose(l256, logits, rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
+                    and torch.allclose(f256, f_auto, rtol=LOGIT_RTOL, atol=LOGIT_ATOL)):
+                raise AssertionError(f"{tag} chunk 256 vs the auto chunk: {ph.fields}")
+            del m256, l256, f256, f_auto
+
+    tcfg = copy.deepcopy(full)
+    tmp = tempfile.mkdtemp(prefix=f"tlie_{tag}_")
+    tcfg["save"] = os.path.join(tmp, "checkpoint", os.path.basename(full["save"]))
+    tcfg["dataset"]["synthetic"] = True
+    tcfg["train"].update(num_epochs=CIFAR_EPOCHS[tag], warmup=CIFAR_WARMUP)
+    tcfg = derive_runtime_fields(tcfg, L, len(train_split[0]))
+    f = train_fields(tcfg)
+    try:
+        with Phase(f"{tag}_train") as ph:
+            before = dict(LAUNCHES)
+            t0 = time.perf_counter()
+            result = train(tcfg, train_split, (test_x, test_y), device=dev)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            trained_launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+            steps = f["total_steps"]
+            n_eval_batches = len(result.history) * (len(test_x) // bsz)
+            want = dict.fromkeys(LAUNCHES, 0)
+            if is_mamba:  # 6 + 6 + 6 a step, the forward also per eval batch
+                want.update(decay_attention_fwd=n_layers * (steps + n_eval_batches),
+                            decay_attention_bwd_i=n_layers * steps,
+                            decay_attention_bwd_j=n_layers * steps)
+            if trained_launches != want:
+                raise AssertionError(f"{tag} training launches {trained_launches}, expected {want}")
+            for rec in result.history:
+                if not all(np.isfinite(v) for v in rec.values()):
+                    raise AssertionError(f"non-finite {tag} training numbers {rec}")
+            if len(result.history) != CIFAR_EPOCHS[tag]:
+                raise AssertionError(f"{tag}: {len(result.history)} evals")
+            trained = result.model.state_dict()
+            init = build_models(mc, generator=torch.Generator().manual_seed(seed),
+                                device=dev)[0].state_dict()
+            frozen = [k for k, v in trained.items() if torch.equal(v, init[k])]
+            if frozen:
+                raise AssertionError(f"{tag} parameters that did not move: {frozen}")
+            ph.fields.update(steps=steps, steps_per_epoch=f["eval_every"], warmup=f["warmup"],
+                             seconds=f"{train_s:.2f}", steps_per_s=f"{steps / train_s:.2f}",
+                             history=repr([{k: round(v, 4) for k, v in r.items()}
+                                           for r in result.history]),
+                             launches=repr({k: v for k, v in trained_launches.items() if v}))
+            del init
+
+        with Phase(f"{tag}_checkpoint_eval_eig") as ph:
+            if not is_mamba:
+                ssm_checkpoint_eval_eig(ph, tag, dev, result, trained, tcfg, tmp, want_files)
+            else:
+                ckpt_path, perf = result
+                ckpt = restore_checkpoint(ckpt_path)
+                for k, v in trained.items():
+                    if not torch.equal(ckpt["model"][k], v.cpu()):
+                        raise AssertionError(f"{tag} checkpoint entry {k} differs from the live "
+                                             "weights")
+                batch = test_x[:CIFAR_ANALYSIS_BATCH]  # configs/analysis/cifar.yaml's batch_size
+                eig_dir = os.path.join(tmp, "analysis")
+                eig, eig_init, perc, perc_init, _, _ = eval_eig(
+                    tcfg, {"save_path": eig_dir}, perf, ckpt_path, device=dev, batch=batch)
+                live = extract_attention_family(result.eval_model,
+                                                torch.as_tensor(batch, device=dev), mc)
+                (run_dir,) = os.listdir(eig_dir)
+                files = sorted(os.listdir(os.path.join(eig_dir, run_dir)))
+                saved = np.load(os.path.join(eig_dir, run_dir, "eig.npy"))
+                want_shape = (CIFAR_ANALYSIS_BATCH, L, heads, n_layers)
+                if eig.shape != want_shape or eig_init.shape != want_shape:
+                    raise AssertionError(f"{tag} spectra {eig.shape}, {eig_init.shape}")
+                if not (np.array_equal(saved, eig) and np.abs(eig - live).max() <= 1e-6):
+                    raise AssertionError(f"{tag} spectra from the checkpoint differ from the "
+                                         "live model's")
+                if not (np.all((eig_init > 0) & (eig_init <= 1))
+                        and np.all((eig > 0) & (eig <= 1))):
+                    raise AssertionError(f"{tag} eigenvalues outside (0, 1]")
+                if files != want_files or not run_dir.startswith(f"CIFAR-10dmodel{mc['hidden_dim']}"):
+                    raise AssertionError(f"{tag} artifacts {run_dir}: {files}")
+                if lti:
+                    # exp(−softplus(A)) of the checkpoint's A, constant over
+                    # the batch and time, within the spectra's 1e-5
+                    lam = np.stack([torch.exp(-torch.nn.functional.softplus(
+                        ckpt["model"][f"blocks.{i}.mamba.A"].double())).numpy()
+                        for i in range(n_layers)], -1)  # (heads, layers)
+                    flat = eig.reshape(-1, heads, n_layers)
+                    lti_err = float(np.abs(flat - lam[None]).max() / lam.max())
+                    constant = bool((flat == flat[:1]).all())
+                    ph.fields.update(lti_vs_exp_neg_softplus_a_rel=f"{lti_err:.3e}",
+                                     lti_constant_over_batch_and_time=constant,
+                                     lambda_trained=np.round(lam, 5).tolist())
+                    if not (constant and lti_err <= 1e-5):
+                        raise AssertionError(f"{tag} pseudo-LTI spectra: {ph.fields}")
+                ph.fields.update(checkpoint=os.path.basename(ckpt_path), perf=f"{perf:.4f}",
+                                 artifacts=run_dir, n_files=len(files),
+                                 eig_vs_live_max_abs=f"{np.abs(eig - live).max():.3e}",
+                                 lambda_range_init=f"[{eig_init.min():.4g}, {eig_init.max():.4g}]",
+                                 lambda_range_trained=f"[{eig.min():.4g}, {eig.max():.4g}]",
+                                 radius_pct_mean_layer0=np.round(
+                                     perc[:, :, 0, 0].mean(1), 2).tolist())
+                del ckpt
+        launches = dict(LAUNCHES)
+        nonzero = {k: v for k, v in launches.items() if v}
+        print(f"[launches] {tag} forward, training and eval_eig: {nonzero}; training alone: "
+              f"{({k: v for k, v in trained_launches.items() if v})}"
+              + (f" ({n_layers} + {n_layers} + {n_layers} a step)" if is_mamba
+                 else " (expected: none)"), flush=True)
+        if is_mamba:
+            others = set(nonzero) - {"decay_attention_fwd", "decay_attention_bwd_i",
+                                     "decay_attention_bwd_j"}
+            if launches["decay_attention_bwd_j"] != want["decay_attention_bwd_j"] or others:
+                raise AssertionError(f"the {tag} path's launches {launches}")
+        elif nonzero:
+            raise AssertionError(f"the {tag} path launched port kernels: {launches}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    if is_mamba:
+        # the three kernels against their plain versions on the operands the
+        # trained model hands them at its steepest layer (cs falls furthest)
+        with Phase(f"{tag}_decay_attention_at_trained_weights") as ph:
+            (C, B, cs, xdt), fall = steepest_decay_operands(result.eval_model, inputs)
+            dy = torch.randn(xdt.shape, device=dev, generator=torch.Generator(
+                device=dev).manual_seed(0))
+            fields, _ = check_decay_attention(dattn, C, B, cs, xdt, dy, f64=False)
+            ph.fields.update(shape=tuple(xdt.shape), cs_min=f"{fall:.2f}", **fields)
+            del C, B, cs, xdt, dy
+
+    # one step from the same weights at dropout 0 on CIFAR_STEP_EXAMPLES
+    # images, on the card and on the CPU, both held to the same step in
+    # float64; the Mamba-2 at CIFAR_STEP_CHUNK on both sides
+    step_cfg = dict(mc, dropout=0.0)
+    if is_mamba:
+        step_cfg["chunk_size"] = CIFAR_STEP_CHUNK
+    lrs = {"regular": f["lr"], "ssm": f["ssm_lr"]}
+    n = CIFAR_STEP_EXAMPLES
+    x_step = torch.as_tensor(train_split[0][:n], device=dev)
+    y_step = torch.as_tensor(train_split[1][:n], device=dev)
+
+    def fresh(device):
+        m, _, family = build_models(step_cfg, generator=torch.Generator().manual_seed(seed),
+                                    device=device)
+        opt, clip = make_family_optimizer(m, family, step_cfg, tcfg["train"], f)
+        return m, opt, clip
+
+    with Phase(f"{tag}_train_step_card_vs_cpu") as ph:
+        watch = (("dt_bias_a_grad_err_over_allowed",
+                  lambda k: k.endswith(("dt_bias", "mamba.A", "A_log"))) if is_mamba else None)
+        card_m, card_opt, clip = step_card_vs_cpu(
+            ph, tag, fresh, dev, x_step, y_step, lrs, None,
+            MAMBA_GRAD_RTOL_OF_MAX if is_mamba else TF_GRAD_RTOL_OF_MAX, watch=watch,
+            check_stats=not is_mamba)
+        ph.fields.update(examples=n, chunk=step_cfg.get("chunk_size", "none"))
+
+    with Phase(f"{tag}_train_step_timing") as ph:
+        if is_mamba:  # the timed step at the card's own chunk, as training runs it
+            card_m = build_models(mc, generator=torch.Generator().manual_seed(seed),
+                                  device=dev)[0]
+            card_opt, clip = make_family_optimizer(card_m, "mamba", mc, tcfg["train"], f)
+        x_full = torch.as_tensor(train_split[0][:bsz], device=dev)
+        y_full = torch.as_tensor(train_split[1][:bsz], device=dev)
+        fields = step_profile(
+            lambda: train_step(card_m, card_opt, x_full, y_full, lrs, None, clip_norm=clip),
+            bsz * L, "decay_attention" if is_mamba else None, "decay_attention", n_warm=2,
+            n_timed=10, n_top=8)
+        ph.fields.update(fields)
+        if not is_mamba:
+            s4_kernel_share(ph, card_m.encoder.layers[0].seq, n_layers, fields["device_busy_ms"])
+        del card_m, card_opt
+    del result, model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card",
@@ -3302,7 +3635,7 @@ def main() -> int:
         extract_attention_family, extract_ssm_family, ssm_layer_params,
     )
     from tlie_tpu_torch.config import (
-        LISTOPS_S4_FULL, LISTOPS_S5_FULL, MQAR_LIN_ATTENTION_FULL, MQAR_LRU_FULL, MQAR_MAMBA2_FULL, MQAR_NORM_ATTENTION_CONV_FULL,
+        CIFAR_MAMBA2_FULL, CIFAR_MAMBA2_LTI_FULL, CIFAR_S4_FULL, LISTOPS_S4_FULL, LISTOPS_S5_FULL, MQAR_LIN_ATTENTION_FULL, MQAR_LRU_FULL, MQAR_MAMBA2_FULL, MQAR_NORM_ATTENTION_CONV_FULL,
         MQAR_S4_FULL, MQAR_S5_FULL, WIKITEXT_LRU_SHORT, derive_runtime_fields, train_fields,
     )
     from tlie_tpu_torch.data import MQAR, WikiText, masked_accuracy
@@ -3558,14 +3891,14 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # the decay attention's three kernels against the plain version, at the
-    # MQAR Mamba-2 shape, the WikiText Mamba-2 shape and a ragged one (with
-    # float64 for the record there); the MQAR shape's inputs are kept for the
-    # timing
+    # MQAR Mamba-2 shape, the WikiText Mamba-2 shape, a ragged one and the
+    # CIFAR Mamba-2's two (with float64 for the record at the last three);
+    # the MQAR shape's inputs are kept for the timing
     with Phase("decay_attention_vs_plain") as ph:
         decay_errs = {}
         for name, (BG, Q, N, Hg, P) in SSD_SHAPES.items():
             ins = decay_inputs(dev, gen, BG, Q, N, Hg, P)
-            fields, errs = check_decay_attention(dattn, *ins, f64=name.startswith("ragged"))
+            fields, errs = check_decay_attention(dattn, *ins, f64=name in SSD_F64_SHAPES)
             ph.fields[name] = repr(fields)
             if not decay_errs:  # the MQAR shape comes first
                 decay_errs, decay_io = errs, ins
@@ -4258,19 +4591,20 @@ def main() -> int:
         del card_m, card_opt
 
     # the decay attention's kernels at the MQAR Mamba-2 shape and, for the
-    # record, the WikiText Mamba-2 shape: time, bound, plain version and the
-    # einsum form
+    # record, the WikiText Mamba-2 shape and the CIFAR Mamba-2's two: time,
+    # bound, plain version and the einsum form
     with Phase("decay_attention_timing") as ph:
         decay_times = time_decay_attention(dattn, *decay_io, flush)
         for name, t in decay_times.items():
             ph.fields[name] = timing_fields(t, "einsum_autograd_ms", "over_einsum")
         del decay_io
-        wt_name = "wikitext_bg8_q1024_n512_hg8_p64"
-        wt = decay_inputs(dev, gen, *SSD_SHAPES[wt_name])
-        for name, t in time_decay_attention(dattn, *wt, flush).items():
-            ph.fields[f"{name}_{wt_name}"] = timing_fields(t, "einsum_autograd_ms", "over_einsum")
-        del wt
-        torch.cuda.empty_cache()
+        for shape in SSD_TIMED_SHAPES:
+            ins = decay_inputs(dev, gen, *SSD_SHAPES[shape])
+            for name, t in time_decay_attention(dattn, *ins, flush).items():
+                ph.fields[f"{name}_{shape}"] = timing_fields(t, "einsum_autograd_ms",
+                                                             "over_einsum")
+            del ins
+            torch.cuda.empty_cache()
 
     # the bfloat16 kernels at the WikiText Mamba-2 shape (path 9's, the one
     # the kernel line reports) and the MQAR shape: time, bound (the bfloat16
@@ -4369,11 +4703,23 @@ def main() -> int:
     print(f"[paths 16-18 seconds] {json.dumps({k: round(v, 2) for k, v in new_s.items()})} "
           f"total {sum(new_s.values()):.2f}", flush=True)
 
+    # main paths 19-21, sequential CIFAR-10: the Mamba-2 classifier and its
+    # pseudo-LTI variant (the decay attention's float32 kernels at 4 heads of
+    # 128, N 64, L 1024) and S4 (no port kernel)
+    cifar_s, cifar_all = {}, {}
+    for tag, full in (("cifar_mamba2", CIFAR_MAMBA2_FULL),
+                      ("cifar_mamba2_lti", CIFAR_MAMBA2_LTI_FULL), ("cifar_s4", CIFAR_S4_FULL)):
+        t0 = time.perf_counter()
+        cifar_all[tag] = cifar_path(dev, want_files, full, tag, flush)
+        cifar_s[tag] = time.perf_counter() - t0
+    print(f"[paths 19-21 seconds] {json.dumps({k: round(v, 2) for k, v in cifar_s.items()})} "
+          f"total {sum(cifar_s.values()):.2f}", flush=True)
+
     def late(name):
         return (path6_all[name] + path7_all[name] + path8_all[name] + path9_all[name]
                 + path10_all[name] + path11_all[name] + path12_all[name] + path13_all[name]
                 + path14_all[name] + path15_all[name] + path16_all[name] + path17_all[name]
-                + path18_all[name])
+                + path18_all[name] + sum(c[name] for c in cifar_all.values()))
 
     kernels = [{
         "name": "diag_scan",

@@ -133,6 +133,27 @@ stand_in.forward = lambda ids: stand_in.model.layers[0].self_attn.q_proj(ids[...
 with tempfile.TemporaryDirectory() as d:
     eigs = lm_attention_spectra(stand_in, [x.numpy()], 2, d)
 assert eigs.shape == (4, 15, 2, 1) and bin_lm_spectra(eigs)["percentage"].shape == (7, 4, 2, 1)
+from tlie_tpu_torch.config import CIFAR_MAMBA2_LTI_FULL, CIFAR_S4_FULL
+from tlie_tpu_torch.data import CIFAR10, MNIST
+from tlie_tpu_torch.training.scan_loop import put_dataset
+import contextlib, io
+with contextlib.redirect_stdout(io.StringIO()):  # the loader's summary line
+    cx, cy = CIFAR10(grayscale=True, permute="hilbert", augment=True, cutout=True,
+                     synthetic=True, synthetic_train=4, synthetic_test=2).split("train")
+cdata = put_dataset(cx[:, :64], cy, "cpu")
+assert cdata.inputs.dtype == torch.float32 and cdata.inputs.shape == (4, 64, 1)
+assert MNIST(permute=False, synthetic=True, synthetic_train=2,
+             synthetic_test=2).split("test")[0].shape == (2, 784, 1)
+ccfg = dict(CIFAR_MAMBA2_LTI_FULL["model"], hidden_dim=16, num_heads=2, state_dim=8,
+            num_layers=2, seq_len=64, chunk_size=16)
+cm, cm_eval, _ = build_models(ccfg, generator=torch.Generator().manual_seed(0), device="cpu")
+cm(cdata.inputs).sum().backward()
+assert cm.encoder.weight.grad is not None and cm.blocks[0].mamba.A.grad is not None
+assert extract_attention_family(cm_eval, cdata.inputs, ccfg).shape == (4, 64, 2, 2)
+s4cfg = dict(CIFAR_S4_FULL["model"], hidden_dim=8, state_dim=8, num_layers=1, seq_len=64)
+_, s4m, _ = build_models(s4cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+with torch.no_grad():
+    assert s4m(cdata.inputs).shape == (4, 10)
 bcfg = dict(mcfg, compute_dtype="bfloat16")
 _, bm, _ = build_models(bcfg, generator=torch.Generator().manual_seed(0), device="cpu")
 with torch.no_grad():
@@ -147,6 +168,37 @@ def test_the_scan_covers_every_package_of_the_port():
     files scanned for imports."""
     scanned = {p.relative_to(ROOT).parts[1] for p in PORT_FILES if p.parent != ROOT}
     assert {"parallel", "ops", "models", "training", "analysis", "tools"} <= scanned
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_the_copied_permutations_and_augmentations_give_the_originals_outputs(seed):
+    """``data/permutations.py`` and ``data/augmentations.py`` are copies of
+    tlie_tpu's: every permutation at image sizes, and every augmentation on
+    the same images from generators of the same seed, bit for bit, with the
+    generators left in the same state."""
+    import numpy as np
+
+    from tlie_tpu.data import augmentations as jax_aug
+    from tlie_tpu.data import permutations as jax_perm
+    from tlie_tpu_torch.data import augmentations as aug
+    from tlie_tpu_torch.data import permutations as perm
+
+    for fn, args in (("bitreversal_permutation", (1024,)), ("transpose_permutation", (32, 28)),
+                     ("snake_permutation", (28, 32)), ("hilbert_permutation", (32,))):
+        np.testing.assert_array_equal(getattr(perm, fn)(*args), getattr(jax_perm, fn)(*args))
+    images = np.random.default_rng(seed).random((5, 32, 32, 3), dtype=np.float32)
+    calls = (("random_crop", {}), ("random_hflip", {}), ("cutout", {"n_holes": 2, "length": 8}),
+             ("random_erasing", {"p": 0.9}))
+    ours, theirs = np.random.default_rng(seed + 10), np.random.default_rng(seed + 10)
+    for name, kw in calls:
+        got = getattr(aug, name)(images, ours, **kw)
+        want = getattr(jax_aug, name)(images, theirs, **kw)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want, err_msg=name)
+    assert ours.bit_generator.state == theirs.bit_generator.state
+    mean, std = [0.4914, 0.4822, 0.4465], [0.247, 0.243, 0.261]
+    np.testing.assert_array_equal(aug.np_normalize(images, mean, std),
+                                  jax_aug.np_normalize(images, mean, std))
 
 
 def test_port_runs_with_jax_unimportable():

@@ -339,11 +339,9 @@ def test_registry_refuses_what_is_not_ported(small):
     g = torch.Generator()
     for bad, err in (({"version": "mamba1", "compute_dtype": "bfloat16"}, NotImplementedError),
                      ({"version": "mamba3"}, RuntimeError),
-                     ({"pseudoLTI": True}, NotImplementedError),
                      ({"layer": "transformer", "compute_dtype": "bfloat16"},
                       NotImplementedError),
-                     ({"pooling": "mean"}, NotImplementedError),
-                     ({"token_embedding": False}, NotImplementedError)):
+                     ({"dual": True}, NotImplementedError)):
         with pytest.raises(err):
             build_models(dict(model_cfg, **bad), generator=g, device="cpu")
     with pytest.raises(NotImplementedError):

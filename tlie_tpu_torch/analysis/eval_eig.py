@@ -1,7 +1,8 @@
 """Eigen-spectroscopy: per-layer spectra → binning → artifacts, counterpart
 of ``tlie_tpu/analysis/eval_eig.py::eval_eig`` for the LRU, S5 and S4 (its
-SSM branch, :384-433) and for Mamba-2, Mamba-1 and the softmax, linear and
-norm attention transformers (its attention-family branch, :324-382).
+SSM branch, :384-433) and for Mamba-2 (and its pseudo-LTI variant), Mamba-1
+and the softmax, linear and norm attention transformers (its
+attention-family branch, :324-382).
 
 For the SSM families the spectra depend on the parameters only, so no batch
 runs through the model: the LRU's λ, S5's exp(ΛΔ), and the eigenvalues of
@@ -47,8 +48,8 @@ from .binning import (
     PHASE_THRESHOLDS, RADIUS_THRESHOLDS, threshold_analysis, threshold_analysis_ssm,
 )
 from .extractors import (
-    eig_att_linear, eig_att_norm, eig_att_softmax, eig_lru, eig_mamba1, eig_mamba2, eig_s4,
-    eig_s5,
+    eig_att_linear, eig_att_norm, eig_att_softmax, eig_lru, eig_mamba1, eig_mamba2,
+    eig_mamba2_lti, eig_s4, eig_s5,
 )
 
 _SEQ_KEY = re.compile(r"^encoder\.layers\.(\d+)\.seq\.(\w+)$")
@@ -88,7 +89,9 @@ def extract_attention_family(model: nn.Module, inputs: torch.Tensor,
                              model_config: Mapping[str, Any]) -> np.ndarray:
     """Per-layer spectra from the activations after each block
     (``_extract_attention_family``): Mamba-2's λ → float32 (B, L, nheads,
-    layers), Mamba-1's → (B, L, d_inner·N, layers); for the transformer,
+    layers), the pseudo-LTI ``SSD_LTI``'s (``pseudoLTI: true``)
+    exp(−softplus(A)) broadcast to the same shape, Mamba-1's → (B, L,
+    d_inner·N, layers); for the transformer,
     dispatched on ``attention_fn``, softmax, linear or norm attention's η →
     float32 (B, L−1, H, layers), norm
     attention's with the offset only where the config sets ``offset``.  An
@@ -104,6 +107,8 @@ def extract_attention_family(model: nn.Module, inputs: torch.Tensor,
             eta = eig_mamba1(h, m.in_proj.weight, m.in_proj.bias, m.conv1d.weight,
                              m.conv1d.bias, m.x_proj.weight, m.dt_proj.weight, m.dt_proj.bias,
                              m.A_log, m.d_inner, m.dt_rank)
+        elif hasattr(block, "mamba") and model_config.get("pseudoLTI", False):
+            eta = eig_mamba2_lti(h, block.mamba.A)
         elif hasattr(block, "mamba"):
             m = block.mamba
             eta = eig_mamba2(h, m.in_proj.weight, m.in_proj.bias, m.dt_bias, m.A_log,
@@ -138,8 +143,9 @@ def eval_eig(args: Dict[str, Any], conf_args: Dict[str, Any], perf: float,
 
     ``params`` is the trained model, its ``state_dict``, or the path of the
     port's checkpoint (``training.save_checkpoint``); ``batch`` is the
-    analysis batch of integer tokens (B, L) the Mamba and transformer
-    families' spectra are taken on (``tlie_tpu`` takes the first batch of the
+    analysis batch, integer tokens (B, L) or float features (B, L, d) such
+    as CIFAR's pixels, that the Mamba and transformer families' spectra are
+    taken on (``tlie_tpu`` takes the first batch of the
     unshuffled test split, of the analysis config's ``batch_size``); the SSM
     families need none.  ``conf_args["eig_impl"]`` picks S4's eigensolver
     ("host", the default, or "device").  The
@@ -194,7 +200,10 @@ def _attention_arrays(init_model, trained, batch, model_config, device) -> Dict[
     if batch is None:
         raise ValueError(f"the {model_config['layer']} family's spectra need an analysis batch "
                          "(batch=...)")
-    inputs = torch.as_tensor(np.asarray(batch), device=device).long()
+    inputs = torch.as_tensor(np.asarray(batch), device=device)
+    # tokens to the embedding as int64, features (CIFAR's pixels) to the
+    # dense encoder as float32
+    inputs = inputs.float() if torch.is_floating_point(inputs) else inputs.long()
     eig_init = extract_attention_family(init_model, inputs, model_config)
     _, model, _ = build_models(model_config, generator=torch.Generator(), device=device)
     model.load_state_dict(trained)

@@ -1,6 +1,6 @@
 """Eigenvalue extractors, counterpart of ``tlie_tpu/analysis/extractors.py``
-for the LRU, S5, S4, Mamba-2, Mamba-1, and softmax, linear and norm
-attention.
+for the LRU, S5, S4, Mamba-2 and its pseudo-LTI variant, Mamba-1, and
+softmax, linear and norm attention.
 Complex spectra are native complex tensors (ROADMAP rule 5)."""
 
 from __future__ import annotations
@@ -79,6 +79,15 @@ def eig_mamba2(x: torch.Tensor, in_proj_weight: torch.Tensor, in_proj_bias, dt_b
         proj = proj + in_proj_bias
     dt = F.softplus(proj[..., d_inner + 2 * ngroups * d_state:] + dt_bias)
     return torch.exp(dt * (-torch.exp(A_log)))
+
+
+def eig_mamba2_lti(x: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
+    """λ = exp(β·A) with β ≡ 1 and A = −softplus(A) per head for
+    ``SSD_LTI`` (``eig_mamba2_lti``, ref eval_eig.py:192-205): constant over
+    the batch and time, broadcast to (B, L, nheads) float32 by the layer's
+    output ``x`` (B, L, d)."""
+    lam = torch.exp(-F.softplus(A))
+    return lam.expand(x.shape[0], x.shape[1], lam.shape[-1])
 
 
 def eig_mamba1(x: torch.Tensor, in_proj_weight: torch.Tensor, in_proj_bias,

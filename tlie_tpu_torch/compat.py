@@ -6,10 +6,11 @@ The flax tree of the SSM backbone (``encoder/encoder``,
 name onto the port's modules, the LRU's, S5's and S4's cores (``seq``) leaf
 for leaf at the same shapes; complex S4 ``P`` and ``B`` arrays, as the
 reference's checkpoints store them, load with a trailing (re, im) axis.  The Mamba family keeps the reference's torch
-names (``encoder.word_embeddings``, ``blocks.{i}.mamba.*`` with Mamba-1's
-``x_proj`` and ``dt_proj``, ``blocks.{i}.glu.linear``, ``blocks.{i}.norm``),
-which map onto
-``encoder/word_embeddings/embedding``, ``blocks_i/mamba/*``,
+names (``encoder.word_embeddings`` or the dense ``encoder``,
+``blocks.{i}.mamba.*`` with Mamba-1's ``x_proj`` and ``dt_proj`` and
+``SSD_LTI``'s ``A``, ``blocks.{i}.glu.linear``, ``blocks.{i}.norm``), which
+map onto ``encoder/word_embeddings/embedding``, ``encoder/{kernel,bias}``,
+``blocks_i/mamba/*``,
 ``blocks_i/glu_layer/linear`` and ``blocks_i/norm_layer`` as
 ``tlie_tpu/analysis/compat.py`` maps them (it has no rule for ``x_proj``
 and ``dt_proj``); so does the transformer family
@@ -64,8 +65,11 @@ _RULES = (
     (_LAYER + r"\.normalize\.running_var", r"batch_stats/" + _FLAX_LAYER + r"/normalize/var", None),
     (r"decoder\.weight", r"params/decoder/kernel", T),
     (r"decoder\.bias", r"params/decoder/bias", None),
-    # the Mamba family
+    # the Mamba family: the token embedding, or the dense encoder (an
+    # nn.Linear; encoder.encoder.* above is the SSM backbone's)
     (r"encoder\.word_embeddings\.weight", r"params/encoder/word_embeddings/embedding", None),
+    (r"encoder\.weight", r"params/encoder/kernel", T),
+    (r"encoder\.bias", r"params/encoder/bias", None),
     (_BLOCK + r"\.mamba\." + _PROJ + r"\.weight", _FLAX_BLOCK + r"/mamba/" + _PROJ + r"/kernel", T),
     # Mamba-1's x_proj (no bias) and dt_proj
     (_BLOCK + r"\.mamba\.(?P<q>x_proj|dt_proj)\.weight",
@@ -73,8 +77,9 @@ _RULES = (
     (_BLOCK + r"\.mamba\.dt_proj\.bias", _FLAX_BLOCK + r"/mamba/dt_proj/bias", None),
     (_BLOCK + r"\.mamba\.conv1d\.weight", _FLAX_BLOCK + r"/mamba/conv1d/weight", CONV),
     (_BLOCK + r"\.mamba\.conv1d\.bias", _FLAX_BLOCK + r"/mamba/conv1d/bias", None),
-    (_BLOCK + r"\.mamba\.(?P<p>dt_bias|A_log|D|init_states)",
-     _FLAX_BLOCK + r"/mamba/(?P<p>dt_bias|A_log|D|init_states)", None),
+    # SSD's A_log, SSD_LTI's A
+    (_BLOCK + r"\.mamba\.(?P<p>dt_bias|A_log|A|D|init_states)",
+     _FLAX_BLOCK + r"/mamba/(?P<p>dt_bias|A_log|A|D|init_states)", None),
     (_BLOCK + r"\.glu\.linear\.weight", _FLAX_BLOCK + r"/glu_layer/linear/kernel", T),
     (_BLOCK + r"\.glu\.linear\.bias", _FLAX_BLOCK + r"/glu_layer/linear/bias", None),
     (_BLOCK + r"\.norm\.weight", _FLAX_BLOCK + r"/norm_layer/scale", None),

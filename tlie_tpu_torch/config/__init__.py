@@ -1,4 +1,5 @@
 from .schema import (
+    CIFAR_LRU_FULL, CIFAR_MAMBA2_FULL, CIFAR_MAMBA2_LTI_FULL, CIFAR_S4_FULL, CIFAR_S5_FULL,
     LISTOPS_S4_FULL, LISTOPS_S5_FULL,
     MQAR_LIN_ATTENTION_FULL, MQAR_LRU_FULL, MQAR_MAMBA2_FULL, MQAR_NORM_ATTENTION_CONV_FULL,
     MQAR_MAMBA1_SMALL, MQAR_S4_FULL, MQAR_S5_FULL, MQAR_SM_ATTENTION_FULL, WIKITEXT_LRU_SHORT,
@@ -8,7 +9,8 @@ from .schema import (
 )
 
 __all__ = [
-    "LISTOPS_S4_FULL", "LISTOPS_S5_FULL",
+    "CIFAR_LRU_FULL", "CIFAR_MAMBA2_FULL", "CIFAR_MAMBA2_LTI_FULL", "CIFAR_S4_FULL",
+    "CIFAR_S5_FULL", "LISTOPS_S4_FULL", "LISTOPS_S5_FULL",
     "MQAR_LIN_ATTENTION_FULL", "MQAR_LRU_FULL", "MQAR_MAMBA2_FULL",
     "MQAR_MAMBA1_SMALL", "MQAR_NORM_ATTENTION_CONV_FULL", "MQAR_S4_FULL", "MQAR_S5_FULL",
     "MQAR_SM_ATTENTION_FULL", "WIKITEXT_LRU_SHORT", "WIKITEXT_NORM_ATTENTION_SHORT",

@@ -6,7 +6,11 @@ fields also as functions on plain dicts (``derive_runtime_fields``,
 ``tlie_tpu/training/loop.py``, step-driven or epoch-driven as it chooses; and
 the full-width MQAR LRU, MQAR Mamba-2, MQAR softmax, linear and norm
 attention transformers, MQAR and ListOps S5 and S4, the WikiText LRU and
-norm-attention LMs and the small MQAR Mamba-1 as Python dicts.
+norm-attention LMs, the small MQAR Mamba-1, and the CIFAR-10 Mamba-2, its
+pseudo-LTI variant, S4, S5 and LRU as Python dicts.  The raw sections keep
+every key a YAML gives (``pseudoLTI``, CIFAR's ``grayscale``, ``permute``,
+``tokenize``, ``augment``, ``cutout``, ``synthetic``, ...), which the
+modules read with their defaults.
 
 YAML is read only inside :func:`load_yaml`, so that the package and the card
 run (``chip_smoke.py``) need no ``yaml`` module.  Running a sweep is not
@@ -560,3 +564,74 @@ MQAR_MAMBA1_SMALL: Dict[str, Any] = {
     },
     "lang_model": True,
 }
+
+
+def _cifar_mamba2_full(name: str, **model) -> Dict[str, Any]:
+    """configs/tasks/cifar/cifar-mamba2{name}.yaml after
+    derive_runtime_fields with the CIFAR-10 dataset it names: grayscale
+    pixels, L 1024, and the 2,048 training images of the synthetic split
+    that stands in while the CIFAR-10 files are not in the repository."""
+    return {
+        "seed": 1919,
+        "save": f"./checkpoint/cifar-mamba2{name}",
+        "dataset": {"name": "CIFAR-10", "_name_": "cifar", "grayscale": True},
+        "train": {
+            "num_epochs": 50, "batch_size": 50, "param_group": None, "wd": 0.0,
+            "cosine_anneal": True, "warmup": 5, "lr": 0.0002, "padded": False,
+            "train_size": 2048,
+        },
+        "model": {
+            "layer": "mamba", "version": "mamba2", "num_layers": 6, "num_heads": 4,
+            "input_dim": 1, "output_dim": 10, "hidden_dim": 512, "state_dim": 64,
+            "conv_dim": 4, "expansion": 1, "dropout": 0.0, "glu": True, "norm": "layer",
+            "dual": False, "prenorm": False, "pooling": "mean", "embedding": True,
+            "token_embedding": False, "vocab_size": 256, "max_pos_embed": 1024,
+            "mixer": "none", "mixer_dim": 128, "classifier": False, **model, "seq_len": 1024,
+        },
+        "lang_model": False,
+    }
+
+
+# configs/tasks/cifar/cifar-mamba2.yaml and cifar-mamba2-pseudoLTI.yaml
+# resolved; a CPU test pins each dict to its YAML as tlie_tpu.config
+# resolves it.  Epoch-driven: 40 steps an epoch at 2,048 / 50, 2,000 in all.
+# The dense encoder (token_embedding: false) takes the (B, 1024, 1) pixels;
+# 6 layers of d 512, 4 heads of 128, N 64; a mean pool before the decoder.
+CIFAR_MAMBA2_FULL = _cifar_mamba2_full("")
+CIFAR_MAMBA2_LTI_FULL = _cifar_mamba2_full("-pseudoLTI", pseudoLTI=True)
+
+
+def _cifar_ssm_full(layer: str, **model) -> Dict[str, Any]:
+    """configs/tasks/cifar/cifar-{layer}.yaml after derive_runtime_fields
+    with the CIFAR-10 dataset it names (grayscale, L 1024, the 2,048
+    synthetic training images), the S4, S5 and LRU configs differing only
+    in their model keys."""
+    return {
+        "seed": 1919,
+        "save": f"./checkpoint/cifar-{layer}",
+        "dataset": {"name": "CIFAR-10", "_name_": "cifar", "grayscale": True},
+        "train": {
+            "num_epochs": 50, "batch_size": 50, "param_group": None, "wd": 0.05,
+            "cosine_anneal": True, "warmup": 5, "lr": 0.005, "ssm_lr": 0.001,
+            "lr_min": 1.0e-07, "reduce_factor": 0.5, "lr_patience": 20, "padded": False,
+            "train_size": 2048,
+        },
+        "model": {
+            "layer": layer, "dt_min": 0.001, "dt_max": 0.1, "num_layers": 6,
+            "activation": "full_glu", "input_dim": 1, "output_dim": 10, "hidden_dim": 512,
+            "state_dim": 64, "dropout": 0.1, "norm": "batch", "pooling": "mean",
+            "ssm_lr_vars": ["Lambda_re", "Lambda_im", "P", "B", "log_step"],
+            "prenorm": False, "dual": False, "decode": False, **model, "seq_len": 1024,
+        },
+        "lang_model": False,
+    }
+
+
+# configs/tasks/cifar/cifar-s4.yaml, cifar-s5.yaml and cifar-lru.yaml
+# resolved; a CPU test pins each dict to its YAML as tlie_tpu.config resolves
+# it.  S4 is the slice's accuracy gate (tlie_tpu: test accuracy 1.000 after 15
+# epochs on the synthetic split, RESULTS.md:255).
+CIFAR_S4_FULL = _cifar_ssm_full("s4")
+CIFAR_S5_FULL = _cifar_ssm_full("s5", C_init="lecun_normal", discretization="zoh",
+                                conj_sym=True, num_blocks=8)
+CIFAR_LRU_FULL = _cifar_ssm_full("lru", r_min=0.9, r_max=0.99)

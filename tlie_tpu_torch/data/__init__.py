@@ -1,4 +1,5 @@
 from .base import SequenceDataset, argmax_accuracy, masked_accuracy, perplexity
+from .cifar import CIFAR10, MNIST
 from .listops import ListOps
 from .mqar import MQAR, multiquery_ar
 from .wikitext import WikiText
@@ -7,5 +8,5 @@ from .wikitext import WikiText
 # registry each subclass of SequenceDataset enters on definition
 DATASETS = SequenceDataset.registry
 
-__all__ = ["DATASETS", "ListOps", "MQAR", "SequenceDataset", "WikiText", "argmax_accuracy",
+__all__ = ["CIFAR10", "DATASETS", "ListOps", "MNIST", "MQAR", "SequenceDataset", "WikiText", "argmax_accuracy",
            "masked_accuracy", "multiquery_ar", "perplexity"]

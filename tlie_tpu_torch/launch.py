@@ -29,13 +29,27 @@ writes one every so many steps, at an epoch's end):
     python -m tlie_tpu_torch.launch --config configs/tasks/listops/listops-s5.yaml \
         --analysis_config configs/analysis/listops.yaml [--resume]
 
+Sequential CIFAR-10 (``configs/tasks/cifar/*.yaml``: the Mamba-2
+classifier ``cifar-mamba2.yaml``, its pseudo-LTI variant
+``cifar-mamba2-pseudoLTI.yaml``, ``cifar-s4.yaml``, ``cifar-s5.yaml``,
+``cifar-lru.yaml``; grayscale pixels through a dense encoder, a mean pool,
+epoch-driven) runs with ``configs/analysis/cifar.yaml``.  Its images are
+read from the CIFAR-10 files under ``data/cifar`` (``dataset.data_dir``);
+where they are missing, as in this repository, the loader prints so and
+trains on its class-conditional synthetic split (2,048 / 512 images), as
+``tlie_tpu`` does; ``dataset.synthetic: true`` in a copy of the config
+asks for that split without the message:
+
+    python -m tlie_tpu_torch.launch --config tasks/cifar/cifar-mamba2.yaml \
+        --analysis_config configs/analysis/cifar.yaml
+
 ``--config`` paths resolve against ``configs/`` first, then as given.  The
 run trains on the card unless ``--device cpu`` is given (a CUDA request
 without a card raises), writes the checkpoint named by the config's
 ``save``, and runs ``eval_eig`` of the trained weights into the analysis
 config's ``save_path``.  The datasets are those of
 :data:`tlie_tpu_torch.data.DATASETS`, the ``SequenceDataset`` registry (MQAR,
-WikiText, ListOps); W&B is not ported and raises.
+WikiText, ListOps, CIFAR-10, MNIST); W&B is not ported and raises.
 
 ``--sweep`` takes a sweep file (``base_config`` + ``sweep`` lists, e.g.
 ``configs/sweep/mqar-lin-attention-seeds-lrs-8k.yaml``), builds the dataset

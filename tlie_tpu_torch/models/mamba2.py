@@ -1,5 +1,5 @@
 """The Mamba-2 / SSD family, counterpart of ``tlie_tpu/models/mamba2.py``
-(``SSD``, ``MambaBlock``, ``Mamba``).
+(``SSD``, ``SSD_LTI``, ``Mamba1``, ``MambaBlock``, ``Mamba``).
 
 ``SSD`` is the fused ``in_proj`` → [x, B, C, dt], dt = softplus(dt +
 dt_bias), the depthwise causal conv and SiLU on xBC, the chunked scan
@@ -22,6 +22,15 @@ return float32, dt = softplus(dt + dt_bias) and the decay math stay float32,
 and the chunked scan takes bfloat16 operands (:mod:`tlie_tpu_torch.ops.ssd`).
 The logits are bfloat16; the loss reduces them in float32.
 
+``SSD_LTI`` (``pseudoLTI: true``) is the paper's pseudo-LTI ablation on the
+same chunked scan: the step is β ≡ 1, the decay −softplus(A) with A drawn
+per head on U(−8, −2), and the input-dependent step is folded into B.
+
+``Mamba`` takes tokens through the token embedding (``token_embedding:
+true``) or float features through the dense encoder (``token_embedding:
+false``, CIFAR's pixels), and pools over time (``pooling: mean``, ``max``
+or ``last``) before the decoder for a classifier.
+
 ``Mamba1`` (``version: mamba1``) is the selective-scan layer: ``in_proj`` →
 [x, z], the depthwise causal conv and SiLU on x, ``x_proj`` → [dt, B, C],
 the float32 ``dt_proj``, and the diagonal recurrence over the (d_inner,
@@ -29,9 +38,8 @@ d_state) lattice through :func:`tlie_tpu_torch.ops.scan.diag_linear_scan`
 (on the card, the scan's forward and backward kernels with a decay that
 varies in time), then y·SiLU(z) and ``out_proj``.  It computes in float32.
 
-Not ported yet, and refused: ``pseudoLTI: true`` (the pseudo-LTI
-``SSD_LTI``), bfloat16 for Mamba-1, the dense input encoder
-(``token_embedding: false``), the pooled and dual heads.
+Not ported yet, and refused: bfloat16 for Mamba-1 and the dual (``MATCH``)
+head.
 """
 
 from __future__ import annotations
@@ -113,6 +121,68 @@ class SSD(nn.Module):
         return self.out_proj(y.reshape(bsz, L, d_inner))
 
 
+class SSD_LTI(nn.Module):
+    """Pseudo-LTI SSD core (``SSD_LTI``).  ``in_proj`` gives [x, B, C, dt]
+    with dt ngroups wide, not nheads (d_inner + 2·ngroups·N + ngroups), so
+    dt = softplus(dt + dt_bias) broadcasts each group's step over its heads,
+    which differ only by their bias; dt, each head's repeated N·ngroups /
+    nheads times, multiplies B; the scan runs on the step β ≡ 1 with the
+    decay −softplus(A), A ~ U(−8, −2) per head (not −exp(A_log)); and
+    ``dt_limit`` clamps β, not dt."""
+
+    def __init__(self, d_model: int, generator: torch.Generator, d_state: int = 64,
+                 d_conv: int = 4, expand: int = 1, headdim: int = 32, ngroups: int = 1,
+                 dt_limit=(0.0, float("inf")), learnable_init_states: bool = False,
+                 chunk_size: Optional[int] = None, compute_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.d_inner = expand * d_model
+        self.nheads = self.d_inner // headdim
+        self.headdim, self.ngroups, self.d_state = headdim, ngroups, d_state
+        self.dt_limit, self.chunk_size = tuple(dt_limit), chunk_size
+        if (d_state * ngroups) % self.nheads:
+            raise ValueError(f"SSD_LTI needs nheads ({self.nheads}) to divide "
+                             f"d_state·ngroups ({d_state * ngroups})")
+        self.khead_dim = d_state * ngroups // self.nheads
+        conv_dim = self.d_inner + 2 * ngroups * d_state
+        g = generator
+        # draw order follows the flax module; in_proj and out_proj have no bias
+        self.in_proj = linear(d_model, conv_dim + ngroups, g, bias=False,
+                              compute_dtype=compute_dtype)
+        self.dt_bias = nn.Parameter(_dt_bias_init(self.nheads, g))
+        self.A = nn.Parameter(-8.0 + 6.0 * torch.rand(self.nheads, generator=g))
+        self.D = nn.Parameter(torch.ones(self.nheads))
+        self.conv1d = DepthwiseCausalConv(conv_dim, d_conv, g, compute_dtype=compute_dtype)
+        self.init_states = (nn.Parameter(torch.zeros(self.nheads, headdim, d_state))
+                            if learnable_init_states else None)
+        self.out_proj = linear(self.d_inner, d_model, g, bias=False, compute_dtype=compute_dtype)
+
+    def forward(self, u: torch.Tensor) -> torch.Tensor:
+        d_inner, gn = self.d_inner, self.ngroups * self.d_state
+        xbcdt = self.in_proj(u)
+        conv_dim = d_inner + 2 * gn
+        xBC, dt = xbcdt[..., :conv_dim], xbcdt[..., conv_dim:]
+        dt = F.softplus(dt + self.dt_bias)  # (B, L, ngroups) + (nheads,) -> (B, L, nheads)
+        xBC = F.silu(self.conv1d(xBC))
+        x = xBC[..., :d_inner]
+        B_mat = xBC[..., d_inner : d_inner + gn]
+        C_mat = xBC[..., d_inner + gn :]
+        bsz, L = x.shape[0], x.shape[1]
+        # the input-dependent step rides on B; the scan's step is β ≡ 1
+        B_mat = (torch.repeat_interleave(dt, self.khead_dim, dim=-1) * B_mat).to(x.dtype)
+        beta = torch.ones(bsz, L, self.nheads, device=x.device)
+        initial_states = None
+        if self.init_states is not None:
+            initial_states = self.init_states.expand((bsz,) + self.init_states.shape)
+        y = ssd_chunked_scan(
+            x.reshape(bsz, L, self.nheads, self.headdim), beta, -F.softplus(self.A),
+            B_mat.reshape(bsz, L, self.ngroups, self.d_state),
+            C_mat.reshape(bsz, L, self.ngroups, self.d_state),
+            chunk_size=self.chunk_size, D=self.D, initial_states=initial_states,
+            dt_limit=self.dt_limit,
+        )
+        return self.out_proj(y.reshape(bsz, L, d_inner))
+
+
 class Mamba1(nn.Module):
     """Mamba-1 selective-scan layer (``Mamba1``): the recurrence
     h_t[d, n] = exp(Δ_t[d]·A[d, n])·h_{t−1}[d, n] + Δ_t[d]·B_t[n]·x_t[d],
@@ -181,10 +251,8 @@ class MambaBlock(nn.Module):
             # only d_model, d_state, d_conv and expand reach the layer, as in tlie_tpu
             self.mamba = Mamba1(hidden, generator, d_state=cfg["state_dim"],
                                 d_conv=cfg["conv_dim"], expand=cfg["expansion"])
-        elif cfg.get("pseudoLTI", False):
-            raise NotImplementedError("pseudoLTI (SSD_LTI) is not ported yet")
         else:
-            self.mamba = SSD(
+            self.mamba = (SSD_LTI if cfg.get("pseudoLTI", False) else SSD)(
                 hidden, generator, d_state=cfg["state_dim"], d_conv=cfg["conv_dim"],
                 expand=cfg["expansion"], headdim=hidden // cfg["num_heads"],
                 ngroups=cfg.get("ngroups", 1), chunk_size=cfg.get("chunk_size"),
@@ -216,19 +284,26 @@ class MambaBlock(nn.Module):
 
 
 class Mamba(nn.Module):
-    """Embedding → N × MambaBlock → per-position decoder (``Mamba`` with
-    ``pooling: none``); returns logits."""
+    """Encoder → N × MambaBlock → [pooling over time] → decoder (``Mamba``);
+    returns logits.  The encoder is the token embedding (``token_embedding:
+    true``) or a dense ``input_dim`` → ``hidden_dim`` layer with torch's
+    default init (``encoder.weight``, ``encoder.bias``).  ``pooling: mean``,
+    ``max`` or ``last`` reduces the time axis before the decoder (no mask:
+    the inputs are not padded); any other value keeps a decoder on every
+    position, as in ``tlie_tpu``."""
 
     def __init__(self, cfg: Dict[str, Any], generator: torch.Generator):
         super().__init__()
-        if cfg.get("pooling", "none") != "none" or cfg.get("dual", False):
-            raise NotImplementedError("pooled and dual Mamba heads are not ported yet")
-        if not cfg.get("token_embedding", False):
-            raise NotImplementedError("the dense input encoder (token_embedding: false) "
-                                      "is not ported yet")
+        if cfg.get("dual", False):
+            raise NotImplementedError("the dual (MATCH) Mamba head is not ported yet")
         hidden = cfg["hidden_dim"]
         dtype = torch.bfloat16 if cfg.get("compute_dtype") == "bfloat16" else None
-        self.encoder = TokenEmbeddings(hidden, cfg["vocab_size"], generator, compute_dtype=dtype)
+        self.pooling = cfg.get("pooling", "none")
+        if cfg.get("token_embedding", False):
+            self.encoder = TokenEmbeddings(hidden, cfg["vocab_size"], generator,
+                                           compute_dtype=dtype)
+        else:
+            self.encoder = linear(cfg["input_dim"], hidden, generator, compute_dtype=dtype)
         self.blocks = nn.ModuleList(MambaBlock(cfg, generator, dtype)
                                     for _ in range(cfg["num_layers"]))
         self.decoder = linear(hidden, cfg["output_dim"], generator, compute_dtype=dtype)
@@ -241,4 +316,11 @@ class Mamba(nn.Module):
         return x
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.decoder(self.features(x))
+        x = self.features(x)
+        if self.pooling == "mean":
+            x = x.mean(dim=-2)
+        elif self.pooling == "max":
+            x = x.amax(dim=-2)
+        elif self.pooling == "last":
+            x = x[..., -1, :]
+        return self.decoder(x)

@@ -30,7 +30,9 @@ def build_models(model_config: Dict[str, Any], padded: bool = False, *,
     """``(train_model, eval_model, family)`` for ``model_config`` on
     ``device``; ``padded`` (the config's ``train.padded``) makes the SSM
     backbone take ``(inputs, lengths)``, as in ``tlie_tpu``, and is refused
-    by the Mamba and transformer families, which take no lengths here.  One
+    by the Mamba and transformer families, which take no lengths here (the
+    Mamba family's pooled classifier, ``pooling: mean`` on CIFAR, takes
+    unpadded inputs).  One
     module in ``.train()`` and one in ``.eval()`` that share
     every parameter and BatchNorm statistic, so a step on the first shows in
     the second.  Weights are drawn from ``generator`` (a CPU generator, so

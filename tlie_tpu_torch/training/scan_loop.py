@@ -2,10 +2,11 @@
 without its ``lax.scan`` blocks: PyTorch runs one step at a time, so a block
 of steps is a Python loop (``loop.py``).
 
-Both splits live on the device as integer tensors (:func:`put_dataset`) and
-each step gathers its batch by index (:func:`gather_batch`), from the
-(steps, batch) index matrix that :func:`batch_indices` draws on the host
-exactly as ``tlie_tpu`` does.  A padded split (ListOps) carries its
+Both splits live on the device (:func:`put_dataset`): integer tokens as
+int64, float features (CIFAR's pixels) as float32, as ``tlie_tpu`` puts
+them.  Each step gathers its batch by index (:func:`gather_batch`), from
+the (steps, batch) index matrix that :func:`batch_indices` draws on the
+host exactly as ``tlie_tpu`` does.  A padded split (ListOps) carries its
 per-example lengths, gathered with each batch into the ``(inputs,
 lengths)`` input of the padded model (``scan_loop.py:143-149``).
 """
@@ -22,26 +23,29 @@ from .steps import compute_accuracy, cross_entropy_loss, head_logits
 
 
 class DeviceData(NamedTuple):
-    inputs: torch.Tensor  # (n, L) tokens
+    inputs: torch.Tensor  # (n, L) int64 tokens or (n, L, d) float32 features
     labels: torch.Tensor  # (n, L) labels, -100 where ignored, or (n,) classes
     lengths: Optional[torch.Tensor] = None  # (n,) float32 for a padded split
 
 
 def put_dataset(inputs: np.ndarray, labels: np.ndarray, device,
                 lengths: Optional[np.ndarray] = None) -> DeviceData:
-    """Move a whole split of integer tokens and labels, and the lengths of a
-    padded split (as float32, exact below 2^24), to ``device`` (once)."""
-    if not (np.issubdtype(inputs.dtype, np.integer) and np.issubdtype(labels.dtype, np.integer)):
-        raise NotImplementedError("only integer-token splits are ported yet")
+    """Move a whole split to ``device`` (once): integer inputs as int64
+    tokens, float inputs as float32 (``tlie_tpu/training/scan_loop.py:56-62``,
+    int32 there), the labels as int64, and the lengths of a padded split as
+    float32 (exact below 2^24).  Labels that are not integers raise."""
+    if not np.issubdtype(labels.dtype, np.integer):
+        raise TypeError(f"labels must be integers, not {labels.dtype}")
+    in_dtype = torch.long if np.issubdtype(inputs.dtype, np.integer) else torch.float32
     return DeviceData(
-        torch.as_tensor(inputs, dtype=torch.long, device=device),
+        torch.as_tensor(inputs, dtype=in_dtype, device=device),
         torch.as_tensor(labels, dtype=torch.long, device=device),
         None if lengths is None else torch.as_tensor(lengths, dtype=torch.float32,
                                                      device=device))
 
 
 def gather_batch(data: DeviceData, idx: torch.Tensor):
-    """(x, y) of the examples ``idx``: x is the tokens, or ``(tokens,
+    """(x, y) of the examples ``idx``: x is the inputs, or ``(tokens,
     lengths)`` where the split is padded (``_gather_batch``)."""
     x = data.inputs[idx]
     if data.lengths is not None:
