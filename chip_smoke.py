@@ -9,18 +9,18 @@ once), holds each kernel against its plain PyTorch version on the card
 (the diagonal scan forward and backward, the three kernels of the fused
 decoder + cross-entropy head on float32 and on bfloat16 operands, the three
 of the SSD's decay attention on float32 and on bfloat16 operands (the
-float32 ones also at the CIFAR Mamba-2's shapes) and the three of the flash
-attention), the scan's two kernels also on a decay that
+float32 ones also at the CIFAR, ListOps and IMDB Mamba-2's shapes) and the
+three of the flash attention), the scan's two kernels also on a decay that
 varies by example and is constant in time and at S5's shapes (MQAR and
-ListOps) and at Mamba-1's (B, L, d_inner·N) view, and drives sixteen models
-(all at their published widths) along twenty-one paths, each with the
+ListOps) and at Mamba-1's (B, L, d_inner·N) view, and drives twenty models
+(all at their published widths) along twenty-five paths, each with the
 launch counts set to 0 just before it and read just after:
 
 1. the MQAR LRU (``MQAR_LRU_FULL``: L=512, d_model=128, N=128, 2 layers,
    vocab 8192, batch 64, weights from the config's seed): evaluation,
    eigen-analysis and serving of the random-weight model;
-2. the same model trained through ``tlie_tpu_torch.training.train`` (200
-   steps, an eval every 100, on a train split cut to 8,192 examples), the
+2. the same model trained through ``tlie_tpu_torch.training.train`` (100
+   steps, an eval every 50, on a train split cut to 8,192 examples), the
    checkpoint, and eval_eig and serving of the trained weights;
 3. the WikiText-103 LRU language model (``WIKITEXT_LRU_SHORT``: 6 layers,
    d_model and N 512, block 1024, batch 8, the GPT-2 vocabulary of 50,257,
@@ -29,12 +29,12 @@ launch counts set to 0 just before it and read just after:
    checkpoint and served;
 4. the MQAR Mamba-2 (``MQAR_MAMBA2_FULL``: 2 layers, d_model 128, N 128, one
    head of 128, vocab 8192, L 512, batch 64): its forward on the test batch,
-   200 training steps (AdamW behind the global-norm clip, the sparse head) on
+   100 training steps (AdamW behind the global-norm clip, the sparse head) on
    the same cut train split, the checkpoint reloaded and eigen-analysed from
    activations;
 5. the MQAR softmax transformer (``MQAR_SM_ATTENTION_FULL``: 2 layers,
    d_model 128, one head of 128, vocab 8192, position table 512, L 512,
-   batch 64, dropout 0.1): its forward on the test batch, 200 training steps
+   batch 64, dropout 0.1): its forward on the test batch, 100 training steps
    (AdamW behind the clip, the sparse head) on the same cut train split, the
    checkpoint reloaded and eigen-analysed from activations, and serving (64
    prompts cut to 384 tokens, prefill plus 16 greedy tokens over the KV
@@ -42,7 +42,7 @@ launch counts set to 0 just before it and read just after:
 6. the MQAR linear attention transformer (``MQAR_LIN_ATTENTION_FULL``: the
    transformer's widths and position table, elu+1 features, the chunked
    linear attention with its normaliser): its forward on the test batch,
-   200 training steps, the checkpoint eigen-analysed (η of the normaliser
+   100 training steps, the checkpoint eigen-analysed (η of the normaliser
    from activations) and serving (64 prompts of 496 tokens, prefill plus 16
    greedy tokens over the O(1) state), then the step's time and its six
    largest device kernels;
@@ -61,7 +61,7 @@ launch counts set to 0 just before it and read just after:
    eigen-analysed in float32;
 10. the stacked seed sweep (``tlie_tpu_torch.parallel.run_sweep``, ``launch
    --sweep_parallel``) of ``MQAR_LIN_ATTENTION_FULL`` over bench.py's four
-   seeds: 200 stacked steps with an eval every 100, each point
+   seeds: 100 stacked steps with an eval every 50, each point
    checkpointed, journaled and eigen-analysed, its point-steps/s; a rerun
    that skips every point; one point at dropout 0 against its serial run;
    the stacked step's time against a serial step's;
@@ -74,8 +74,8 @@ launch counts set to 0 just before it and read just after:
    9's dense head, with the head's share of device time;
 12. the MQAR S5 (``MQAR_S5_FULL``: 2 layers, d_model 128, state 128, P 64
    complex channels after conj-sym, ZOH, vocab 8192, L 512, batch 64,
-   BatchNorm, dropout 0.1): its forward on the test batch, 200 training
-   steps with an eval every 100 on the cut train split (the scan's forward
+   BatchNorm, dropout 0.1): its forward on the test batch, 100 training
+   steps with an eval every 50 on the cut train split (the scan's forward
    and backward kernels, two of each a step, at a (P,) decay), the
    checkpoint reloaded and eigen-analysed at init and trained, serving (64
    prompts of 496 tokens, prefill through the scan plus 16 greedy tokens,
@@ -90,13 +90,13 @@ launch counts set to 0 just before it and read just after:
 14. the ListOps S5 (``LISTOPS_S5_FULL``: 6 layers, d_model 128, state 64, P
    32 after conj-sym, ZOH, BatchNorm, a masked mean pool, batch 50, l_max
    2048, 10 classes) on ListOps generated natively (lengths 500-2000, the
-   train split cut to 4,000 examples and the test split to 500): its
-   forward on a test batch, 3 epochs of training (80 steps each, 1 of
+   train split cut to 1,500 examples and the test split to 250): its
+   forward on a test batch, 3 epochs of training (30 steps each, 1 of
    warmup, an eval at each epoch's end; the scan's forward and backward
    kernels, six of each a step), the checkpoint reloaded and
    eigen-analysed at init and trained, a resume from the snapshot written
-   at step 160 held to the uninterrupted run, the card step against the
-   CPU step (10 examples), the step's time and idle share, and the scan
+   at step 60 held to the uninterrupted run, the card step against the
+   CPU step (5 examples), the step's time and idle share, and the scan
    kernels held to their plain versions and timed at (50, 2048, 32);
 15. the ListOps S4 (``LISTOPS_S4_FULL``: the same widths, N 64 DPLR)
    along path 14's phases but the kernels', with the generating function's
@@ -129,9 +129,10 @@ launch counts set to 0 just before it and read just after:
    layers, d_model 512, 4 heads of 128, N 64, conv 4, GLU, post-norm, the
    dense encoder from one grayscale feature, a mean pool, 10 classes, batch
    50, L 1024) on the loader's synthetic split (2,048 / 512 images; the
-   CIFAR-10 files are not in the repository): its forward (card against
-   CPU, and the same weights at four chunks of 256, the SSD's inter-chunk
-   arm, against the card's own one chunk of 1,024), 2 epochs of 40 steps
+   CIFAR-10 files are not in the repository), the train split cut to 1,024
+   images: its forward (card against CPU, and the same weights at four
+   chunks of 256, the SSD's inter-chunk arm, against the card's own one
+   chunk of 1,024), 1 epoch of 20 steps
    through the decay attention's float32 kernels (6 + 6 + 6 a step), the
    checkpoint eigen-analysed on 64 float images, the kernels at the
    trained model's steepest layer, the card step against the CPU step at
@@ -141,8 +142,34 @@ launch counts set to 0 just before it and read just after:
    the checkpoint;
 21. the CIFAR-10 S4 (``CIFAR_S4_FULL``: 6 layers, d_model 512, N 64,
    BatchNorm, a mean pool) along the same phases at 1 epoch, no port
-   kernel, with the generating function's share of the step.
-Paths 6, 7, 10, 13, 15, 16, 17 and 21 reach no Pallas kernel in
+   kernel, with the generating function's share of the step;
+22. the CIFAR-10 softmax transformer classifier
+   (``CIFAR_SM_ATTENTION_FULL``: 6 layers, d_model 512, 4 heads, d_qk 64,
+   so head_dim 16 beside v_dim 128 and the softmax materialised, the MLP
+   mixer of 128, a position table of 1,024, the tokenized grey levels, a
+   mean pool into the classifier MLP of 128, batch 50) along path 19's
+   phases at 1 epoch (the forward, 20 steps, eval_eig's η on 64 images,
+   the card step against the CPU step, the step's time and the
+   attention's share): no port kernel, the flash kernels none;
+23. the CIFAR-10 norm attention classifier with the SiLU gate
+   (``CIFAR_NORM_ATTENTION_GATING_FULL``: softplus decay with its offset,
+   conv 4, ``use_gate``) along path 22's phases, on the tokenized grey
+   levels (its YAML asks for float pixels, which the token embedding
+   refuses, as in ``tlie_tpu``);
+24. the ListOps Mamba-2 classifier (``LISTOPS_MAMBA2_FULL``: 6 layers,
+   d_model 128, 4 heads of 32, N 64, pre-norm, GLU, a mean pool over the
+   padding, batch 50, l_max 2048) on padded ``(tokens, lengths)`` of
+   path 14's cut ListOps split: the forward (and the same weights at
+   chunks of 256 against the card's own four of 512), 1 epoch of 30 steps
+   through the decay attention's float32 kernels at (200, 512, 64, 4, 32),
+   6 + 6 + 6 a step, eval_eig on 32 examples, the kernels at the trained
+   weights, the card step against the CPU step, the step's time;
+25. the IMDB Mamba-2 classifier (``IMDB_MAMBA2_FULL``: 4 layers of path
+   24's widths, batch 6, l_max 4096) on the loader's synthetic char-level
+   corpus (2,048 / 512 reviews; the IMDB files are not in the repository)
+   along path 24's phases, cut to 1,200 / 256 reviews, 1 epoch of 200
+   steps, the decay attention at (24, 1024, 64, 4, 32), 4 + 4 + 4 a step.
+Paths 6, 7, 10, 13, 15, 16, 17, 21, 22 and 23 reach no Pallas kernel in
 ``tlie_tpu``: no port kernel launches on them, and the script checks that.  The decay attention's three
 kernels are also held on bfloat16 operands against the plain bfloat16
 version (the WikiText Mamba-2, MQAR and a ragged shape) and timed against
@@ -150,8 +177,9 @@ the bfloat16 tensor-core bound, and so are the fused head's three bfloat16
 kernels (the LM's shape, a vocabulary below one tile and a ragged one).
 
 It also checks one MQAR training step of the LRU, of the Mamba-2, of the
-transformers and of S5 and S4, and one ListOps step of S5 and S4, on the
-card against the same step on the CPU, one fused-head
+transformers and of S5 and S4, one ListOps step of S5 and S4, and one step
+of each classifier of paths 19-25, on the card against the same step on the
+CPU, one fused-head
 WikiText step against the dense-head step on the card, and times each kernel
 against its bound, its plain version and, where one exists, the PyTorch
 library call computing the same function.  Each
@@ -229,7 +257,9 @@ GRAD_F64_FACTOR = 8.0
 # max(1, |x|).
 PARAM_ATOL = 1e-6
 STATS_RTOL = 1e-5
-TRAIN_STEPS, EVAL_EVERY, TRAIN_EXAMPLES = 200, 100, 8192
+# (200 steps with an eval every 100 until paths 22-25 came, for this path
+# and paths 4-6)
+TRAIN_STEPS, EVAL_EVERY, TRAIN_EXAMPLES = 100, 50, 8192
 # the WikiText LM path: 20 steps and one eval (the config runs 1,500 with an
 # eval every 500); its train and test streams are the config's own
 LM_STEPS = 20
@@ -238,6 +268,10 @@ LM_STEPS = 20
 XENT_SHAPES = {"m8192_d512_v50257": (8192, 512, 50257), "m128_d512_v300": (128, 512, 300),
                "m1024_d512_v1000": (1024, 512, 1000)}
 LM_BLOCK = 1024  # a -100 label ends each block of the LM's shifted labels
+# the fused-head step against the dense-head step (and both against float64
+# on the CPU) on LM_STEP_BLOCKS of the batch's 8 blocks (all 8 until paths
+# 22-25 came: the float64 step took 15 s of CPU); the step is timed on all 8
+LM_STEP_BLOCKS = 2
 # fused head vs plain: loss and lse within 1e-5 relative.  A gradient element
 # sums V (dh) or M (dW, db) terms t·x with t = softmax - onehot; it is held to
 # XENT_RTOL of the sum of its terms' magnitudes for the rounding of that sum,
@@ -271,13 +305,20 @@ SSD_SHAPES = {"mqar_bg64_q512_n128_hg1_p128": (64, 512, 128, 1, 128),
               # batch 50: the card's own chunk, one of 1,024, and tlie_tpu's
               # and the CPU's, four of 256
               "f32_bg50_q1024_n64_hg4_p128": (50, 1024, 64, 4, 128),
-              "f32_bg200_q256_n64_hg4_p128": (200, 256, 64, 4, 128)}
+              "f32_bg200_q256_n64_hg4_p128": (200, 256, 64, 4, 128),
+              # the padded Mamba-2 classifiers (4 heads of 32, N 64): ListOps
+              # (path 24) at batch 50 and L 2048 in the card's four chunks of
+              # 512, IMDB (path 25) at batch 6 and L 4096 in four of 1,024
+              "listops_bg200_q512_n64_hg4_p32": (200, 512, 64, 4, 32),
+              "imdb_bg24_q1024_n64_hg4_p32": (24, 1024, 64, 4, 32)}
 # the shapes the decay attention's float32 kernels are also held to the
 # plain version in float64 at, and timed at beside the MQAR shape
 SSD_F64_SHAPES = ("ragged_bg3_q77_n40_hg3_p33", "f32_bg50_q1024_n64_hg4_p128",
-                  "f32_bg200_q256_n64_hg4_p128")
+                  "f32_bg200_q256_n64_hg4_p128", "listops_bg200_q512_n64_hg4_p32",
+                  "imdb_bg24_q1024_n64_hg4_p32")
 SSD_TIMED_SHAPES = ("wikitext_bg8_q1024_n512_hg8_p64", "f32_bg50_q1024_n64_hg4_p128",
-                    "f32_bg200_q256_n64_hg4_p128")
+                    "f32_bg200_q256_n64_hg4_p128", "listops_bg200_q512_n64_hg4_p32",
+                    "imdb_bg24_q1024_n64_hg4_p32")
 # decay attention vs plain: each output element (y, dC, dcs_i, dB, dxdt,
 # dcs_j) within SSD_RTOL of the sum of its terms' magnitudes
 # (decay_attention.term_scales): float32 sums of up to N + Q terms (C·B over
@@ -308,9 +349,9 @@ SSD_BF16_SHAPES = {"wikitext_bg8_q1024_n512_hg8_p64": (8, 1024, 512, 8, 64),
 # 64*512 positions through dcs = dcs_i + dcs_j, two sums that cancel, so one
 # float32 draw of the CPU's error says little about the card's.
 MAMBA_GRAD_RTOL_OF_MAX = 1e-4
-# the MQAR Mamba-2 path: 200 steps and an eval every 100 (the config runs
+# the MQAR Mamba-2 path: 100 steps and an eval every 50 (the config runs
 # 40,000 with an eval every 200), on the same train split cut as the LRU's
-MAMBA_STEPS, MAMBA_EVAL_EVERY = 200, 100
+MAMBA_STEPS, MAMBA_EVAL_EVERY = 100, 50
 # the flash attention's three kernels against their plain version: the MQAR
 # transformer's (B, L, H, D), a multi-head shape and a ragged one
 ATTN_SHAPES = {"mqar_b64_l512_h1_d128": (64, 512, 1, 128),
@@ -322,28 +363,28 @@ ATTN_SHAPES = {"mqar_b64_l512_h1_d128": (64, 512, 1, 128),
 # another order, and the rounding of the logits, which enter P's exponent;
 # lse within the same fraction of max(1, |lse|)
 ATTN_RTOL = 1e-5
-# the MQAR transformer path: 200 steps and an eval every 100 (the config runs
+# the MQAR transformer path: 100 steps and an eval every 50 (the config runs
 # 40,000 with an eval every 200), on the same train split cut as the LRU's;
 # serving takes the test batch's prompts cut to 384 tokens (a multiple of the
 # TPU kernel's 128-row block) and 16 greedy tokens, inside max_pos_embed 512
-TF_STEPS, TF_EVAL_EVERY, TF_PROMPT = 200, 100, 384
-# the MQAR linear and norm attention paths: 200 and 50 steps with 2 evals each
+TF_STEPS, TF_EVAL_EVERY, TF_PROMPT = 100, 50, 384
+# the MQAR linear and norm attention paths: 100 and 50 steps with 2 evals each
 # (the configs run 40,000 with an eval every 200), on the same train split
 # cut as the LRU's; serving takes the test batch's prompts cut to 496 tokens
 # and 16 greedy tokens, which fills the linear attention's position table of
 # 512 (the norm attention has none)
-LIN_STEPS, LIN_EVAL_EVERY = 200, 100
+LIN_STEPS, LIN_EVAL_EVERY = 100, 50
 NORM_STEPS, NORM_EVAL_EVERY = 50, 25
 # the WikiText Mamba-2 paths (8: float32, 9: bfloat16): 20 steps and one
 # perplexity eval each (the configs run 3,000 and 1,500 with an eval every 500)
 WT_STEPS = 20
 # the stacked sweep (path 10): bench.py's four seeds of the linear attention
-# grid at the config's rate, 200 stacked steps with an eval every 100 (the
-# north-star sweep runs 8,000), on the train split cut as the LRU's; its
-# card check trains the same grid at dropout 0 for 20 steps and holds the
-# first point to its serial run
+# grid at the config's rate, 100 stacked steps with an eval every 50 (the
+# north-star sweep runs 8,000; 200 with an eval every 100 until paths 22-25
+# came), on the train split cut as the LRU's; its card check trains the same
+# grid at dropout 0 for 20 steps and holds the first point to its serial run
 SWEEP_SEEDS = (1919, 2222, 2929, 1717)
-SWEEP_STEPS, SWEEP_EVAL_EVERY, SWEEP_CHECK_STEPS = 200, 100, 20
+SWEEP_STEPS, SWEEP_EVAL_EVERY, SWEEP_CHECK_STEPS = 100, 50, 20
 # a stacked point against its serial run, as tests/test_torch_sweep.py holds
 # it: the train loss, test loss and test accuracy of every eval within 1e-5
 # relative or 1e-7 absolute (pytest.approx's rule), and every parameter
@@ -351,17 +392,20 @@ SWEEP_STEPS, SWEEP_EVAL_EVERY, SWEEP_CHECK_STEPS = 200, 100, 20
 # so its sums may run in another order)
 SWEEP_RTOL, SWEEP_ATOL, SWEEP_PARAM_ATOL = 1e-5, 1e-7, 1e-5
 ATT_PROMPT = 496
-# the MQAR S5 and S4 paths (12, 13): 200 steps with an eval every 100 (the
-# configs run 40,000 with an eval every 200) on the train split cut as the
-# LRU's; serving takes ATT_PROMPT tokens and 16 greedy ones
-SSM_STEPS, SSM_EVAL_EVERY = 200, 100
-# the ListOps S5 and S4 paths (14, 15): the train split cut to 4,000 examples
-# (96,000) and the test split to 500 (2,000), 3 epochs (50) with 1 of warmup
-# (5): 80 steps an epoch, 240 in all, 3 evals; a resume snapshot every 160
-# steps (4,800), so one at step 160; the card-vs-CPU step on 10 examples
-LISTOPS_TRAIN, LISTOPS_TEST = 4000, 500
-LISTOPS_EPOCHS, LISTOPS_WARMUP, LISTOPS_SNAPSHOT = 3, 1, 160
-LISTOPS_STEP_EXAMPLES = 10
+# the MQAR S5 and S4 paths (12, 13): 100 steps with an eval every 50 (the
+# configs run 40,000 with an eval every 200; 200 and 100 until paths 22-25
+# came) on the train split cut as the LRU's; serving takes ATT_PROMPT tokens
+# and 16 greedy ones
+SSM_STEPS, SSM_EVAL_EVERY = 100, 50
+# the ListOps S5 and S4 paths (14, 15): the train split cut to 1,500 examples
+# (96,000) and the test split to 250 (2,000), 3 epochs (50) with 1 of warmup
+# (5): 30 steps an epoch, 90 in all, 3 evals; a resume snapshot every 60
+# steps (4,800), so one at step 60; the card-vs-CPU step on 5 examples
+# (until paths 22-25 came: 4,000 and 500 examples, 240 steps, the snapshot
+# at 160, 10 examples)
+LISTOPS_TRAIN, LISTOPS_TEST = 1500, 250
+LISTOPS_EPOCHS, LISTOPS_WARMUP, LISTOPS_SNAPSHOT = 3, 1, 60
+LISTOPS_STEP_EXAMPLES = 5
 # a resumed run against the uninterrupted one on the card: the same float32
 # operations on the same data from the same state, so the same bits are
 # expected (cuBLAS and the scan kernels fix their reduction order); every
@@ -374,14 +418,16 @@ RESUME_PARAM_ATOL = 1e-6
 TF_GRAD_RTOL_OF_MAX = 1e-4
 # the WikiText norm-attention LM (path 16): 20 steps and one perplexity eval
 # (the config runs 2,000 with an eval every 500), serving 16 greedy tokens
-# after prompts of 1,008, and its card-vs-CPU step on 2 of the batch's 8
-# blocks (the float32 and float64 steps of a 61M-parameter LM run on the
-# card machine's CPU)
-WTN_STEPS, WTN_NEW, WTN_STEP_BLOCKS = 20, 16, 2
+# after prompts of 1,008, and its card-vs-CPU step on the first 512 tokens
+# of 1 of the batch's 8 blocks (2 whole blocks until paths 22-25 came; the
+# float32 and float64 steps of a 61M-parameter LM run on the card machine's
+# CPU; norm attention has no position table, so any length runs)
+WTN_STEPS, WTN_NEW, WTN_STEP_BLOCKS, WTN_STEP_TOKENS = 20, 16, 1, 512
 # the stacked WikiText sweep (path 17): the four points of
-# configs/sweep/wikitext-norm-attention-seeds-lrs.yaml in one wave, 10 steps
-# and one eval (the sweep runs 2,000 with an eval every 500)
-WTS_STEPS = 10
+# configs/sweep/wikitext-norm-attention-seeds-lrs.yaml in one wave, 5 steps
+# and one eval (the sweep runs 2,000 with an eval every 500; 10 steps until
+# paths 22-25 came)
+WTS_STEPS = 5
 WTS_SWEEP = os.path.join("configs", "sweep", "wikitext-norm-attention-seeds-lrs.yaml")
 # the lm_spectra phase: a Llama-layout stand-in at the WikiText LM's widths,
 # 2 batches of 2 blocks; η from the same q and k on the card and on the CPU
@@ -391,19 +437,36 @@ LMS_LAYERS, LMS_D, LMS_HEADS, LMS_BLOCK, LMS_BATCHES, LMS_BSZ = 6, 512, 8, 1024,
 LMS_RTOL = 1e-5
 # the MQAR Mamba-1 (path 18): 200 steps with an eval every 100 (the config
 # runs 8,000 with an eval every 400) on its own split; the analysis batch is
-# configs/analysis/mqar.yaml's 64 test examples
-M1_STEPS, M1_EVAL_EVERY, M1_ANALYSIS_BATCH = 200, 100, 64
+# 16 test examples (configs/analysis/mqar.yaml's 64 until paths 22-25 came:
+# each spectrum is (B, 64, 2048, 2), 67 MB at 64)
+M1_STEPS, M1_EVAL_EVERY, M1_ANALYSIS_BATCH = 200, 100, 16
 # the sequential CIFAR-10 paths (19: the Mamba-2, 20: its pseudo-LTI
-# variant, 21: S4) on the loader's synthetic split (2,048 train and 512 test
-# images; the CIFAR-10 files are not in the repository): 40 steps an epoch at
+# variant, 21: S4, 22-23: the transformer classifiers) on the loader's
+# synthetic split (2,048 train and 512 test images; the CIFAR-10 files are
+# not in the repository), the train split cut to CIFAR_TRAIN images (all
+# 2,048, 40 steps an epoch, until paths 22-25 came): 20 steps an epoch at
 # batch 50, CIFAR_EPOCHS epochs (the configs run 50) with CIFAR_WARMUP of
 # warmup (5); the analysis batch is configs/analysis/cifar.yaml's 64 test
 # images; the card-vs-CPU step on CIFAR_STEP_EXAMPLES of the batch's 50
 # images at dropout 0 and, for the Mamba-2, at the chunk CIFAR_STEP_CHUNK on
 # both sides (the card picks 1,024 for the full batch, the CPU 256)
-CIFAR_EPOCHS = {"cifar_mamba2": 2, "cifar_mamba2_lti": 1, "cifar_s4": 1}
-CIFAR_WARMUP, CIFAR_ANALYSIS_BATCH = 1, 64
-CIFAR_STEP_EXAMPLES, CIFAR_STEP_CHUNK = 4, 256
+# (path 19 ran 2 epochs until paths 22-25 came; its second epoch repeated
+# the first's launches and checks)
+CIFAR_EPOCHS = {"cifar_mamba2": 1, "cifar_mamba2_lti": 1, "cifar_s4": 1,
+                "cifar_sm_attention": 1, "cifar_norm_attention_gating": 1}
+CIFAR_WARMUP, CIFAR_ANALYSIS_BATCH, CIFAR_TRAIN = 1, 64, 1024
+# (the card-vs-CPU step took 4 images until paths 22-25 came; the CPU's
+# float32 and float64 steps of these 6-layer d 512 models at L 1024 are the
+# slow part)
+CIFAR_STEP_EXAMPLES, CIFAR_STEP_CHUNK = 2, 256
+# the padded Mamba-2 classifiers (24: ListOps on the train split cut as
+# path 14's, 30 steps an epoch; 25: IMDB on the synthetic corpus cut to
+# IMDB_TRAIN and IMDB_TEST reviews (2,048 and 512), 200 steps an epoch at
+# batch 6): LRA_EPOCHS epochs each (the configs run 50 and 30), the analysis
+# batch configs/analysis/{listops,imdb}.yaml's 32 test examples, the
+# card-vs-CPU step on CIFAR_STEP_EXAMPLES at chunk CIFAR_STEP_CHUNK
+LRA_EPOCHS, LRA_ANALYSIS_BATCH = 1, 32
+IMDB_TRAIN, IMDB_TEST = 1200, 256
 # device kernels of a training step by kind, from their names (first match)
 OP_KINDS = (
     ("scan kernels", ("diag_scan", "sum_rows")),
@@ -1272,7 +1335,7 @@ def transformer_path(dev, gen, flush, test_x, test_y, train_split, want_files):
     from seed 1919) through the three flash-attention kernels: first each
     kernel against its plain version at three shapes; then, with every
     launch count set to 0, the forward on the test batch (card against CPU),
-    200 training steps with 2 evals, the checkpoint reloaded and
+    TF_STEPS training steps with 2 evals, the checkpoint reloaded and
     eigen-analysed, and serving; the counts are read there.  Then one card
     step against the CPU step, the step's time and where it goes, and the
     kernels' times.  Returns (launches of the path, kernel times, max abs
@@ -2059,14 +2122,14 @@ def listops_path(dev, want_files, full, tag: str, flush=None):
     ListOps generated natively with the config's lengths (500-2000 tokens)
     and l_max.  Cuts, each against the config: LISTOPS_TRAIN training and
     LISTOPS_TEST test examples (96,000 and 2,000), LISTOPS_EPOCHS epochs
-    (50) with LISTOPS_WARMUP of warmup (5), so 80 steps an epoch and 240 in
+    (50) with LISTOPS_WARMUP of warmup (5), so 30 steps an epoch and 90 in
     all, an eval at each epoch's end; a resume snapshot every
-    LISTOPS_SNAPSHOT steps (4,800), so one at step 160; the card-vs-CPU
+    LISTOPS_SNAPSHOT steps (4,800), so one at step 60; the card-vs-CPU
     step on LISTOPS_STEP_EXAMPLES of the batch's 50 examples (the CPU runs
     the plain scan, 2,048 steps a layer, in Python).
 
     With every launch count set to 0: the forward on a test batch (card
-    against CPU), training through ``train`` (the snapshot at step 160 kept
+    against CPU), training through ``train`` (the snapshot at step 60 kept
     as it is written), the checkpoint reloaded and eigen-analysed at init
     and trained, and the resume: the kept snapshot put back and the run
     resumed to its end, its final weights, BatchNorm statistics and eval
@@ -2589,28 +2652,31 @@ def sweep_path(dev, test_x, test_y, train_split, want_files):
     return launches
 
 
-def norm_attention_share(ph, att, bsz: int, L: int, n_layers: int, busy_ms, dev):
+def norm_attention_share(ph, att, bsz: int, L: int, n_layers: int, busy_ms, dev,
+                         name: str = "norm_attention"):
     """Norm attention alone (``MHNA.attend``: the chunked linear attention
-    of the features times the learned decay), forward and backward, at the
-    path's (B, L, d_model) on random inputs through the layer ``att``'s own
-    projections: its time and, from the step's device busy time ``busy_ms``,
-    its share of the step (one a layer).  Fills ``ph.fields``."""
+    of the features times the learned decay; or another layer's ``attend``,
+    such as ``MHA``'s materialised softmax, under ``name``), forward and
+    backward, at the path's (B, L, d_model) on random inputs through the
+    layer ``att``'s own projections: its time and, from the step's device
+    busy time ``busy_ms``, its share of the step (one a layer).  Fills
+    ``ph.fields``."""
     g = torch.Generator(device=dev).manual_seed(16)
     x = torch.randn(bsz, L, att.d_model, device=dev, generator=g)
     with torch.no_grad():
-        q, k, v, n = att.heads(x)
-    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, n)]
-    cot = torch.randn(v.shape, device=dev, generator=g)
+        qkv = att.heads(x)
+    leaves = [t.detach().clone().requires_grad_() for t in qkv]
+    cot = torch.randn(qkv[2].shape, device=dev, generator=g)
 
     def fwd_bwd():
         torch.autograd.grad((att.attend(*leaves) * cot).sum(), leaves)
 
     op_ms = median(cuda_ms(fwd_bwd, 11))
     op_busy = sum(t for _, t in top_device_ops(fwd_bwd, k=1000))
-    ph.fields["norm_attention_fwd_bwd_ms"] = f"{op_ms:.4f}"
-    ph.fields["norm_attention_fwd_bwd_device_busy_ms"] = f"{op_busy:.4f}"
+    ph.fields[f"{name}_fwd_bwd_ms"] = f"{op_ms:.4f}"
+    ph.fields[f"{name}_fwd_bwd_device_busy_ms"] = f"{op_busy:.4f}"
     if busy_ms != "not measured" and op_busy > 0:
-        ph.fields["norm_attention_share_of_device"] = f"{n_layers * op_busy / float(busy_ms):.4f}"
+        ph.fields[f"{name}_share_of_device"] = f"{n_layers * op_busy / float(busy_ms):.4f}"
 
 
 def greedy_vs_argmax(model, out, n_prompt: int):
@@ -2770,12 +2836,15 @@ def wikitext_norm_attention_path(dev, splits, want_files):
     torch.cuda.empty_cache()
 
     # one step (the dense head, AdamW behind the global-norm clip) from the
-    # same weights on WTN_STEP_BLOCKS blocks, on the card and on the CPU, both
-    # held to the same step in float64 on the CPU
+    # same weights on the first WTN_STEP_TOKENS tokens of WTN_STEP_BLOCKS
+    # blocks, on the card and on the CPU, both held to the same step in
+    # float64 on the CPU
     f = train_fields(cfg)
     lrs = {"regular": f["lr"]}
-    x_step = torch.as_tensor(train_split[0][:WTN_STEP_BLOCKS], device=dev).long()
-    y_step = torch.as_tensor(train_split[1][:WTN_STEP_BLOCKS], device=dev).long()
+    x_step = torch.as_tensor(train_split[0][:WTN_STEP_BLOCKS, :WTN_STEP_TOKENS],
+                             device=dev).long()
+    y_step = torch.as_tensor(train_split[1][:WTN_STEP_BLOCKS, :WTN_STEP_TOKENS],
+                             device=dev).long()
 
     def fresh(device):
         m, _, family = build_models(mc, generator=torch.Generator().manual_seed(cfg["seed"]),
@@ -3263,7 +3332,7 @@ def mamba1_path(dev, want_files, flush):
                     raise AssertionError(f"Mamba-1 checkpoint entry {k} differs from the live "
                                          "weights")
             eig_dir = os.path.join(tmp, "analysis")
-            batch = test_x[:M1_ANALYSIS_BATCH]  # configs/analysis/mqar.yaml's batch_size
+            batch = test_x[:M1_ANALYSIS_BATCH]
             eig, eig_init, perc, perc_init, _, _ = eval_eig(tcfg, {"save_path": eig_dir}, perf,
                                                             ckpt_path, device=dev, batch=batch)
             live = extract_attention_family(result.eval_model,
@@ -3356,35 +3425,110 @@ def steepest_decay_operands(model, inputs):
     return seen[i], falls[i]
 
 
+def cifar_splits(full, tag: str):
+    """The config's CIFAR-10 splits from the loader's synthetic images
+    (2,048 / 512; the CIFAR-10 files are not in the repository), the train
+    split cut to its first CIFAR_TRAIN images: float pixels (N, 1024, 1),
+    or with ``tokenize`` the grey levels as int64 tokens (N, 1024)."""
+    from tlie_tpu_torch.data import CIFAR10
+
+    mc, L = full["model"], full["model"]["seq_len"]
+    with Phase(f"{tag}_data") as ph:
+        data = CIFAR10(**dict(full["dataset"], synthetic=True))
+        train_split = tuple(a[:CIFAR_TRAIN] for a in data.split("train"))
+        test_split = data.split("test")
+        ph.fields.update(train=train_split[0].shape, test=test_split[0].shape,
+                         dtype=str(train_split[0].dtype), d_input=data.d_input)
+        tokens = full["dataset"].get("tokenize", False)
+        row = (L,) if tokens else (L, mc["input_dim"])
+        n_train = min(CIFAR_TRAIN, full["train"]["train_size"])
+        if (train_split[0].shape != (n_train,) + row
+                or test_split[0].shape != (data.synthetic_test,) + row
+                or train_split[0].dtype != (np.int64 if tokens else np.float32)
+                or train_split[1].dtype != np.int64
+                or (tokens and int(train_split[0].max()) >= mc["vocab_size"])):
+            raise AssertionError(f"{tag} data: {ph.fields}")
+    return train_split, test_split
+
+
 def cifar_path(dev, want_files, full, tag: str, flush=None):
-    """Main path 19 (``CIFAR_MAMBA2_FULL``: 6 layers, d_model 512, 4 heads
-    of 128, N 64, conv 4, GLU, post-norm, the dense encoder from 1 input
-    feature, a mean pool, 10 classes, batch 50, L 1024), 20
-    (``CIFAR_MAMBA2_LTI_FULL``: the same widths, the pseudo-LTI ``SSD_LTI``)
-    or 21 (``CIFAR_S4_FULL``: 6 layers, d_model 512, N 64 DPLR, BatchNorm,
-    dropout 0.1, a mean pool), weights from seed 1919, on the grayscale
-    synthetic split (2,048 / 512 images).  Cuts, each against the config:
-    CIFAR_EPOCHS[tag] epochs (50) of 40 steps with CIFAR_WARMUP of warmup
-    (5).
+    """Main paths 19-23 on the CIFAR-10 splits of ``full`` (:func:`cifar_splits`)
+    through :func:`classifier_path`, CIFAR_EPOCHS[tag] epochs, an analysis
+    batch of CIFAR_ANALYSIS_BATCH images and a card-vs-CPU step on
+    CIFAR_STEP_EXAMPLES of them.  Returns the path's launch counts."""
+    return classifier_path(dev, want_files, full, tag, cifar_splits(full, tag),
+                           CIFAR_EPOCHS[tag], CIFAR_ANALYSIS_BATCH, CIFAR_STEP_EXAMPLES, flush)
+
+
+def lra_mamba2_splits(full, tag: str):
+    """The padded splits of path 24 (``LISTOPS_MAMBA2_FULL``: ListOps
+    generated natively with the config's lengths, the train split cut to
+    LISTOPS_TRAIN examples and the test split to LISTOPS_TEST, as path 14
+    cuts it) or path 25 (``IMDB_MAMBA2_FULL``: the loader's synthetic
+    corpus at char level, since the IMDB files are not in the repository,
+    cut to IMDB_TRAIN and IMDB_TEST reviews (2,048 and 512)): (tokens,
+    labels, lengths) each."""
+    from tlie_tpu_torch.data import IMDB, ListOps
+
+    mc, L = full["model"], full["model"]["seq_len"]
+    with Phase(f"{tag}_data") as ph:
+        listops = full["dataset"]["_name_"] == "listops"
+        if listops:
+            data = ListOps(**dict(full["dataset"], num_train=LISTOPS_TRAIN,
+                                  num_test=LISTOPS_TEST))
+            want_train = LISTOPS_TRAIN
+        else:
+            data = IMDB(**dict(full["dataset"], synthetic=True, synthetic_train=IMDB_TRAIN,
+                               synthetic_test=IMDB_TEST))
+            want_train = IMDB_TRAIN
+        train_split, test_split = data.split("train"), data.split("test")
+        # tlie_tpu generates ListOps with the native generator wherever c++
+        # builds it
+        source = data.source if listops else "synthetic"
+        lengths = np.concatenate([train_split[2], test_split[2]])
+        ph.fields.update(source=source, vocab_size=data.vocab_size,
+                         train=train_split[0].shape, test=test_split[0].shape,
+                         l_max=data.l_max, lengths=f"[{lengths.min()}, {lengths.max()}]")
+        if (train_split[0].shape != (want_train, L) or data.l_max != L
+                or data.vocab_size > mc["vocab_size"] or lengths.max() > L
+                or (listops and source != "native")):
+            raise AssertionError(f"{tag} data: {ph.fields}")
+    return train_split, test_split
+
+
+def classifier_path(dev, want_files, full, tag: str, splits, epochs: int,
+                    analysis_batch: int, step_examples: int, flush=None):
+    """A pooled classifier's main path on ``splits`` ((inputs, labels) or,
+    padded, (tokens, labels, lengths) for the train and the test split),
+    weights from the config's seed 1919, ``epochs`` epochs with CIFAR_WARMUP
+    of warmup (each path names its cuts).  The families:
+
+    - the Mamba-2 (paths 19, 24, 25) and its pseudo-LTI variant (20): the
+      decay attention's float32 kernels, the forward once a layer a forward
+      and each backward once a layer a step (n + n + n a step);
+    - S4 (21): no port kernel;
+    - the transformer classifier (22: softmax attention, materialised since
+      its head dims differ; 23: norm attention with the SiLU gate): no port
+      kernel, the flash kernels among them.
 
     With every count set to 0: the forward on a test batch (card against
     CPU; for the Mamba-2 also the same weights at chunk 256, the
-    inter-chunk arm, against the card's own chunk of 1,024), training
-    through ``train`` with an eval at each epoch's end, the checkpoint
-    reloaded and eigen-analysed on the analysis batch of 64 float images
-    (the pseudo-LTI spectra held to exp(−softplus(A)) of the checkpoint,
-    constant over the batch and time); the counts are read there.  The
-    Mamba-2 launches the decay attention's float32 forward once a layer a
-    forward and each backward once a layer a step (6 + 6 + 6 a step), S4 no
-    port kernel.  Then (not counted) the three kernels held to their plain
-    versions at the trained model's steepest layer, one card step against
-    the CPU step on CIFAR_STEP_EXAMPLES images (the chunk stated), and the
-    step's time, idle share and the decay attention's (S4: the generating
-    function's) share of device time.  Returns the counts."""
+    inter-chunk arm, against the card's own chunk), training through
+    ``train`` with an eval at each epoch's end, the checkpoint reloaded and
+    eigen-analysed on the first ``analysis_batch`` test examples (tokens
+    alone for a padded split, as ``launch`` hands them; the pseudo-LTI
+    spectra held to exp(−softplus(A)) of the checkpoint, constant over the
+    batch and time); the counts are read there.  Then (not counted) the
+    three kernels held to their plain versions at the trained Mamba-2's
+    steepest layer, one card step against the CPU step on
+    ``step_examples`` examples (the Mamba-2 at chunk CIFAR_STEP_CHUNK on
+    both sides), and the step's time, idle share and the decay attention's
+    (S4: the generating function's; the transformers: one attention's)
+    share of device time.  Returns the counts."""
     from tlie_tpu_torch.analysis import eval_eig
     from tlie_tpu_torch.analysis.eval_eig import extract_attention_family
     from tlie_tpu_torch.config import derive_runtime_fields, train_fields
-    from tlie_tpu_torch.data import CIFAR10, argmax_accuracy
+    from tlie_tpu_torch.data import argmax_accuracy
     from tlie_tpu_torch.models import build_models
     from tlie_tpu_torch.ops import LAUNCHES
     from tlie_tpu_torch.ops import decay_attention as dattn
@@ -3394,21 +3538,21 @@ def cifar_path(dev, want_files, full, tag: str, flush=None):
 
     mc = full["model"]
     is_mamba, lti = mc["layer"] == "mamba", mc.get("pseudoLTI", False)
+    is_tf = mc["layer"] == "transformer"
     n_layers, bsz, L = mc["num_layers"], full["train"]["batch_size"], mc["seq_len"]
     heads = mc.get("num_heads", 1)
     seed = full["seed"]
-    with Phase(f"{tag}_data") as ph:
-        data = CIFAR10(**dict(full["dataset"], synthetic=True))
-        train_split, (test_x, test_y) = data.split("train"), data.split("test")
-        ph.fields.update(train=train_split[0].shape, test=test_x.shape,
-                         dtype=str(train_split[0].dtype), d_input=data.d_input)
-        if (train_split[0].shape != (full["train"]["train_size"], L, mc["input_dim"])
-                or test_x.shape != (data.synthetic_test, L, mc["input_dim"])
-                or train_split[0].dtype != np.float32 or train_split[1].dtype != np.int64):
-            raise AssertionError(f"{tag} data: {ph.fields}")
+    train_split, test_split = splits
+    padded = len(test_split) == 3
+    test_x, test_y = test_split[0], test_split[1]
 
-    _, model, _ = build_models(mc, generator=torch.Generator().manual_seed(seed), device=dev)
-    inputs, labels = prep_batch((test_x[:bsz], test_y[:bsz]), L, mc["input_dim"], device=dev)
+    _, model, _ = build_models(mc, padded, generator=torch.Generator().manual_seed(seed),
+                               device=dev)
+    aux = {"lengths": test_split[2][:bsz]} if padded else {}
+    inputs, labels = prep_batch((test_x[:bsz], test_y[:bsz], aux), L, mc["input_dim"],
+                                device=dev)
+    if padded != isinstance(inputs, tuple):
+        raise AssertionError(f"{tag}: prep_batch gave {type(inputs)} for a padded={padded} split")
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     with Phase(f"{tag}_forward") as ph, torch.no_grad():
@@ -3421,14 +3565,19 @@ def cifar_path(dev, want_files, full, tag: str, flush=None):
             raise AssertionError(f"{tag} forward output {tuple(logits.shape)}")
         acc = float(argmax_accuracy(logits, labels))
         fwd_ms = min(cuda_ms(lambda: model(inputs), 3))
-        _, cpu_model, _ = build_models(mc, generator=torch.Generator(), device="cpu")
+        _, cpu_model, _ = build_models(mc, padded, generator=torch.Generator(), device="cpu")
         cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-        ref = cpu_model(inputs[:2].cpu())
+        ref = cpu_model(tuple(t[:2].cpu() for t in inputs) if padded else inputs[:2].cpu())
         cpu_err = (logits[:2].cpu() - ref).abs().max().item()
         if not torch.allclose(logits[:2].cpu(), ref, rtol=LOGIT_RTOL, atol=LOGIT_ATOL):
             raise AssertionError(f"{tag} card vs CPU forward: max abs err {cpu_err}")
         ph.fields.update(accuracy=f"{acc:.4f}", forward_ms=f"{fwd_ms:.3f}",
                          vs_cpu_max_abs=f"{cpu_err:.3e}")
+        if padded:  # the lengths are dropped: the tokens alone give the same logits
+            same = torch.equal(model(inputs[0]), logits)
+            ph.fields["lengths_change_nothing"] = same
+            if not same:
+                raise AssertionError(f"{tag}: the lengths changed the logits")
         if is_mamba:
             ph.fields.update(chunk=_auto_chunk(bsz, L, heads, dev),
                              chunk_cpu_2_examples=_auto_chunk(2, L, heads, "cpu"),
@@ -3436,11 +3585,11 @@ def cifar_path(dev, want_files, full, tag: str, flush=None):
         del cpu_model, ref
 
     if is_mamba:
-        # the inter-chunk arm on the card: the same weights at four chunks
-        # of 256 against the card's own one chunk of 1,024
+        # the inter-chunk arm on the card: the same weights at chunks of 256
+        # against the card's own chunk
         with Phase(f"{tag}_chunk256_vs_auto") as ph, torch.no_grad():
-            _, m256, _ = build_models(dict(mc, chunk_size=256), generator=torch.Generator(),
-                                      device=dev)
+            _, m256, _ = build_models(dict(mc, chunk_size=256), padded,
+                                      generator=torch.Generator(), device=dev)
             m256.load_state_dict(model.state_dict())
             before = LAUNCHES["decay_attention_fwd"]
             l256, f256 = m256(inputs), m256.features(inputs)
@@ -3448,7 +3597,8 @@ def cifar_path(dev, want_files, full, tag: str, flush=None):
             torch.cuda.synchronize()
             l_err = (l256 - logits).abs().max().item()
             f_err = (f256 - f_auto).abs().max().item()
-            ph.fields.update(chunks=f"{L // 256}x256_vs_1x{_auto_chunk(bsz, L, heads, dev)}",
+            auto = _auto_chunk(bsz, L, heads, dev)
+            ph.fields.update(chunks=f"{L // 256}x256_vs_{L // auto}x{auto}",
                              logits_max_abs=f"{l_err:.3e}", features_max_abs=f"{f_err:.3e}",
                              features_max=f"{f_auto.abs().max().item():.3f}",
                              launches=LAUNCHES["decay_attention_fwd"] - before)
@@ -3460,22 +3610,23 @@ def cifar_path(dev, want_files, full, tag: str, flush=None):
     tcfg = copy.deepcopy(full)
     tmp = tempfile.mkdtemp(prefix=f"tlie_{tag}_")
     tcfg["save"] = os.path.join(tmp, "checkpoint", os.path.basename(full["save"]))
-    tcfg["dataset"]["synthetic"] = True
-    tcfg["train"].update(num_epochs=CIFAR_EPOCHS[tag], warmup=CIFAR_WARMUP)
+    if full["dataset"]["_name_"] in ("cifar", "imdb"):  # the loader's synthetic split
+        tcfg["dataset"]["synthetic"] = True
+    tcfg["train"].update(num_epochs=epochs, warmup=CIFAR_WARMUP)
     tcfg = derive_runtime_fields(tcfg, L, len(train_split[0]))
     f = train_fields(tcfg)
     try:
         with Phase(f"{tag}_train") as ph:
             before = dict(LAUNCHES)
             t0 = time.perf_counter()
-            result = train(tcfg, train_split, (test_x, test_y), device=dev)
+            result = train(tcfg, train_split, test_split, device=dev)
             torch.cuda.synchronize()
             train_s = time.perf_counter() - t0
             trained_launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
             steps = f["total_steps"]
             n_eval_batches = len(result.history) * (len(test_x) // bsz)
             want = dict.fromkeys(LAUNCHES, 0)
-            if is_mamba:  # 6 + 6 + 6 a step, the forward also per eval batch
+            if is_mamba:  # n + n + n a step, the forward also per eval batch
                 want.update(decay_attention_fwd=n_layers * (steps + n_eval_batches),
                             decay_attention_bwd_i=n_layers * steps,
                             decay_attention_bwd_j=n_layers * steps)
@@ -3484,10 +3635,10 @@ def cifar_path(dev, want_files, full, tag: str, flush=None):
             for rec in result.history:
                 if not all(np.isfinite(v) for v in rec.values()):
                     raise AssertionError(f"non-finite {tag} training numbers {rec}")
-            if len(result.history) != CIFAR_EPOCHS[tag]:
+            if len(result.history) != epochs:
                 raise AssertionError(f"{tag}: {len(result.history)} evals")
             trained = result.model.state_dict()
-            init = build_models(mc, generator=torch.Generator().manual_seed(seed),
+            init = build_models(mc, padded, generator=torch.Generator().manual_seed(seed),
                                 device=dev)[0].state_dict()
             frozen = [k for k, v in trained.items() if torch.equal(v, init[k])]
             if frozen:
@@ -3500,7 +3651,7 @@ def cifar_path(dev, want_files, full, tag: str, flush=None):
             del init
 
         with Phase(f"{tag}_checkpoint_eval_eig") as ph:
-            if not is_mamba:
+            if not (is_mamba or is_tf):
                 ssm_checkpoint_eval_eig(ph, tag, dev, result, trained, tcfg, tmp, want_files)
             else:
                 ckpt_path, perf = result
@@ -3509,7 +3660,9 @@ def cifar_path(dev, want_files, full, tag: str, flush=None):
                     if not torch.equal(ckpt["model"][k], v.cpu()):
                         raise AssertionError(f"{tag} checkpoint entry {k} differs from the live "
                                              "weights")
-                batch = test_x[:CIFAR_ANALYSIS_BATCH]  # configs/analysis/cifar.yaml's batch_size
+                # the analysis config's batch_size of test examples, tokens
+                # alone for a padded split
+                batch = test_x[:analysis_batch]
                 eig_dir = os.path.join(tmp, "analysis")
                 eig, eig_init, perc, perc_init, _, _ = eval_eig(
                     tcfg, {"save_path": eig_dir}, perf, ckpt_path, device=dev, batch=batch)
@@ -3518,16 +3671,28 @@ def cifar_path(dev, want_files, full, tag: str, flush=None):
                 (run_dir,) = os.listdir(eig_dir)
                 files = sorted(os.listdir(os.path.join(eig_dir, run_dir)))
                 saved = np.load(os.path.join(eig_dir, run_dir, "eig.npy"))
-                want_shape = (CIFAR_ANALYSIS_BATCH, L, heads, n_layers)
+                want_shape = (analysis_batch, L - 1 if is_tf else L, heads, n_layers)
                 if eig.shape != want_shape or eig_init.shape != want_shape:
                     raise AssertionError(f"{tag} spectra {eig.shape}, {eig_init.shape}")
-                if not (np.array_equal(saved, eig) and np.abs(eig - live).max() <= 1e-6):
+                live_err = (float(np.max(np.abs(eig - live) / np.abs(live))) if is_tf
+                            else float(np.abs(eig - live).max()))
+                if not (np.array_equal(saved, eig) and live_err <= 1e-6):
                     raise AssertionError(f"{tag} spectra from the checkpoint differ from the "
-                                         "live model's")
-                if not (np.all((eig_init > 0) & (eig_init <= 1))
-                        and np.all((eig > 0) & (eig <= 1))):
-                    raise AssertionError(f"{tag} eigenvalues outside (0, 1]")
-                if files != want_files or not run_dir.startswith(f"CIFAR-10dmodel{mc['hidden_dim']}"):
+                                         f"live model's: {live_err}")
+                if is_tf:
+                    if not (np.all(eig_init > 0) and np.all(eig > 0) and np.isfinite(eig).all()
+                            and np.isfinite(eig_init).all()):
+                        raise AssertionError(f"{tag} η not finite and positive")
+                # λ = exp(dt·A): in (0, 1] at init; a trained dt can take
+                # dt·A below float32's exp range, where λ is 0 (IMDB's)
+                elif not (np.all((eig_init > 0) & (eig_init <= 1))
+                          and np.all((eig >= 0) & (eig <= 1))):
+                    raise AssertionError(f"{tag} eigenvalues outside (0, 1] at init or "
+                                         "[0, 1] trained")
+                if not is_tf:
+                    ph.fields["lambda_zero_share_trained"] = f"{float(np.mean(eig == 0)):.3e}"
+                prefix = f"{full['dataset']['name']}dmodel{mc['hidden_dim']}"
+                if files != want_files or not run_dir.startswith(prefix):
                     raise AssertionError(f"{tag} artifacts {run_dir}: {files}")
                 if lti:
                     # exp(−softplus(A)) of the checkpoint's A, constant over
@@ -3543,11 +3708,14 @@ def cifar_path(dev, want_files, full, tag: str, flush=None):
                                      lambda_trained=np.round(lam, 5).tolist())
                     if not (constant and lti_err <= 1e-5):
                         raise AssertionError(f"{tag} pseudo-LTI spectra: {ph.fields}")
+                name = "eta" if is_tf else "lambda"
                 ph.fields.update(checkpoint=os.path.basename(ckpt_path), perf=f"{perf:.4f}",
                                  artifacts=run_dir, n_files=len(files),
-                                 eig_vs_live_max_abs=f"{np.abs(eig - live).max():.3e}",
-                                 lambda_range_init=f"[{eig_init.min():.4g}, {eig_init.max():.4g}]",
-                                 lambda_range_trained=f"[{eig.min():.4g}, {eig.max():.4g}]",
+                                 eig_vs_live=f"{live_err:.3e}",
+                                 **{f"{name}_range_init": f"[{eig_init.min():.4g}, "
+                                                          f"{eig_init.max():.4g}]",
+                                    f"{name}_range_trained": f"[{eig.min():.4g}, "
+                                                             f"{eig.max():.4g}]"},
                                  radius_pct_mean_layer0=np.round(
                                      perc[:, :, 0, 0].mean(1), 2).tolist())
                 del ckpt
@@ -3556,6 +3724,7 @@ def cifar_path(dev, want_files, full, tag: str, flush=None):
         print(f"[launches] {tag} forward, training and eval_eig: {nonzero}; training alone: "
               f"{({k: v for k, v in trained_launches.items() if v})}"
               + (f" ({n_layers} + {n_layers} + {n_layers} a step)" if is_mamba
+                 else " (expected: none; the flash kernels 0)" if is_tf
                  else " (expected: none)"), flush=True)
         if is_mamba:
             others = set(nonzero) - {"decay_attention_fwd", "decay_attention_bwd_i",
@@ -3578,20 +3747,25 @@ def cifar_path(dev, want_files, full, tag: str, flush=None):
             ph.fields.update(shape=tuple(xdt.shape), cs_min=f"{fall:.2f}", **fields)
             del C, B, cs, xdt, dy
 
-    # one step from the same weights at dropout 0 on CIFAR_STEP_EXAMPLES
-    # images, on the card and on the CPU, both held to the same step in
-    # float64; the Mamba-2 at CIFAR_STEP_CHUNK on both sides
+    # one step from the same weights at dropout 0 on step_examples examples,
+    # on the card and on the CPU, both held to the same step in float64; the
+    # Mamba-2 at CIFAR_STEP_CHUNK on both sides
     step_cfg = dict(mc, dropout=0.0)
     if is_mamba:
         step_cfg["chunk_size"] = CIFAR_STEP_CHUNK
     lrs = {"regular": f["lr"], "ssm": f["ssm_lr"]}
-    n = CIFAR_STEP_EXAMPLES
-    x_step = torch.as_tensor(train_split[0][:n], device=dev)
-    y_step = torch.as_tensor(train_split[1][:n], device=dev)
+
+    def on_card(split, n):
+        x = torch.as_tensor(split[0][:n], device=dev)
+        if padded:
+            x = (x, torch.as_tensor(split[2][:n], device=dev).float())
+        return x, torch.as_tensor(split[1][:n], device=dev)
+
+    x_step, y_step = on_card(train_split, step_examples)
 
     def fresh(device):
-        m, _, family = build_models(step_cfg, generator=torch.Generator().manual_seed(seed),
-                                    device=device)
+        m, _, family = build_models(step_cfg, padded,
+                                    generator=torch.Generator().manual_seed(seed), device=device)
         opt, clip = make_family_optimizer(m, family, step_cfg, tcfg["train"], f)
         return m, opt, clip
 
@@ -3601,22 +3775,26 @@ def cifar_path(dev, want_files, full, tag: str, flush=None):
         card_m, card_opt, clip = step_card_vs_cpu(
             ph, tag, fresh, dev, x_step, y_step, lrs, None,
             MAMBA_GRAD_RTOL_OF_MAX if is_mamba else TF_GRAD_RTOL_OF_MAX, watch=watch,
-            check_stats=not is_mamba)
-        ph.fields.update(examples=n, chunk=step_cfg.get("chunk_size", "none"))
+            check_stats=not (is_mamba or is_tf))
+        ph.fields.update(examples=step_examples, chunk=step_cfg.get("chunk_size", "none"))
 
     with Phase(f"{tag}_train_step_timing") as ph:
         if is_mamba:  # the timed step at the card's own chunk, as training runs it
-            card_m = build_models(mc, generator=torch.Generator().manual_seed(seed),
+            card_m = build_models(mc, padded, generator=torch.Generator().manual_seed(seed),
                                   device=dev)[0]
             card_opt, clip = make_family_optimizer(card_m, "mamba", mc, tcfg["train"], f)
-        x_full = torch.as_tensor(train_split[0][:bsz], device=dev)
-        y_full = torch.as_tensor(train_split[1][:bsz], device=dev)
+        x_full, y_full = on_card(train_split, bsz)
         fields = step_profile(
             lambda: train_step(card_m, card_opt, x_full, y_full, lrs, None, clip_norm=clip),
             bsz * L, "decay_attention" if is_mamba else None, "decay_attention", n_warm=2,
             n_timed=10, n_top=8)
         ph.fields.update(fields)
-        if not is_mamba:
+        if is_tf:
+            att = card_m.layers[0].attention
+            norm_attention_share(ph, att, bsz, L, n_layers, fields["device_busy_ms"], dev,
+                                 name="norm_attention" if hasattr(att, "Wvqkn")
+                                 else "softmax_attention")
+        elif not is_mamba:
             s4_kernel_share(ph, card_m.encoder.layers[0].seq, n_layers, fields["device_busy_ms"])
         del card_m, card_opt
     del result, model
@@ -3635,8 +3813,11 @@ def main() -> int:
         extract_attention_family, extract_ssm_family, ssm_layer_params,
     )
     from tlie_tpu_torch.config import (
-        CIFAR_MAMBA2_FULL, CIFAR_MAMBA2_LTI_FULL, CIFAR_S4_FULL, LISTOPS_S4_FULL, LISTOPS_S5_FULL, MQAR_LIN_ATTENTION_FULL, MQAR_LRU_FULL, MQAR_MAMBA2_FULL, MQAR_NORM_ATTENTION_CONV_FULL,
-        MQAR_S4_FULL, MQAR_S5_FULL, WIKITEXT_LRU_SHORT, derive_runtime_fields, train_fields,
+        CIFAR_MAMBA2_FULL, CIFAR_MAMBA2_LTI_FULL, CIFAR_NORM_ATTENTION_GATING_FULL, CIFAR_S4_FULL,
+        CIFAR_SM_ATTENTION_FULL, IMDB_MAMBA2_FULL, LISTOPS_MAMBA2_FULL, LISTOPS_S4_FULL,
+        LISTOPS_S5_FULL, MQAR_LIN_ATTENTION_FULL, MQAR_LRU_FULL, MQAR_MAMBA2_FULL,
+        MQAR_NORM_ATTENTION_CONV_FULL, MQAR_S4_FULL, MQAR_S5_FULL, WIKITEXT_LRU_SHORT,
+        derive_runtime_fields, train_fields,
     )
     from tlie_tpu_torch.data import MQAR, WikiText, masked_accuracy
     from tlie_tpu_torch.inference import Decoder
@@ -3681,8 +3862,17 @@ def main() -> int:
                 "decay_attention": dattn.DECAY_ATTENTION,
                 "decay_attention_bf16": dattn.DECAY_ATTENTION_BF16,
                 "flash_attention": FLASH_ATTENTION}
+        nvcc, tc_libs = find_nvcc(), set(TC_KERNELS.values())
+
+        def build_and_read(name):
+            # a tensor-core library's SASS is read as soon as it is built,
+            # while the slower builds go on
+            report = libs[name].load()
+            return report, (tensor_core_hmma([report.path], nvcc) if name in tc_libs else {})
+
         with ThreadPoolExecutor(len(libs)) as pool:
-            reports = dict(zip(libs, pool.map(lambda lib: lib.load(), libs.values())))
+            built = dict(zip(libs, pool.map(build_and_read, libs)))
+        reports = {name: report for name, (report, _) in built.items()}
         for name, report in reports.items():
             ph.fields[f"{name}_nvcc_s"] = f"{report.seconds:.2f}"
             ph.fields[f"{name}_ptxas"] = repr(ptxas_kernels(report.log))
@@ -3695,8 +3885,12 @@ def main() -> int:
         # decay attention's three run their products on the tensor cores:
         # each one's SASS holds TF32 HMMAs, and the decay attention's and
         # the fused head's bfloat16 kernels bfloat16 ones
-        hmma = tensor_core_hmma(
-            [reports[lib].path for lib in sorted(set(TC_KERNELS.values()))], find_nvcc())
+        hmma = {}
+        for name in sorted(tc_libs):
+            for kernel, ops in built[name][1].items():
+                merged = hmma.setdefault(kernel, {})
+                for op, n in ops.items():
+                    merged[op] = merged.get(op, 0) + n
         ph.fields["tensor_core_sass_hmma"] = repr(hmma)
         if not tensor_core_ops_ok(hmma):
             raise AssertionError(f"tensor-core kernels without their HMMA or HGMMA: {hmma}")
@@ -4366,9 +4560,11 @@ def main() -> int:
 
     # 12. one fused-head LM step against one dense-head step, on the card,
     # from the same weights (dropout 0) and batch
+    # on LM_STEP_BLOCKS of the batch's blocks (the CPU's float64 step is the
+    # slow part)
     with Phase("lm_fused_vs_dense_step") as ph:
-        lm_x = torch.as_tensor(lm_train[0][:lm_bsz], device=dev)
-        lm_y = torch.as_tensor(lm_train[1][:lm_bsz], device=dev)
+        lm_x = torch.as_tensor(lm_train[0][:LM_STEP_BLOCKS], device=dev)
+        lm_y = torch.as_tensor(lm_train[1][:LM_STEP_BLOCKS], device=dev)
         lt = lm_cfg["train"]
         lm_lrs = {"regular": lt["lr"], "ssm": lt["ssm_lr"]}
 
@@ -4439,6 +4635,8 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # 13. an LM training step's time and the fused head's share of it
+    lm_x = torch.as_tensor(lm_train[0][:lm_bsz], device=dev)
+    lm_y = torch.as_tensor(lm_train[1][:lm_bsz], device=dev)
     with Phase("lm_train_step_timing") as ph:
         lm_opt = make_optimizer(lm_result.model, lm_m["ssm_lr_vars"], lt["lr"], lt["ssm_lr"],
                                 lt["wd"], tuple(lt["betas"]))
@@ -4715,11 +4913,37 @@ def main() -> int:
     print(f"[paths 19-21 seconds] {json.dumps({k: round(v, 2) for k, v in cifar_s.items()})} "
           f"total {sum(cifar_s.values()):.2f}", flush=True)
 
+    # main paths 22 and 23, the CIFAR-10 transformer classifiers (softmax
+    # attention, materialised, and norm attention with the SiLU gate: no port
+    # kernel, the flash kernels among them), then 24 and 25, the padded
+    # Mamba-2 classifiers on ListOps and IMDB (the decay attention's float32
+    # kernels at (200, 512, 64, 4, 32) and (24, 1024, 64, 4, 32))
+    cls_s, cls_all = {}, {}
+    # the gated norm-attention YAML asks for no tokenize, so its float pixels
+    # would reach the token embedding, which raises as in tlie_tpu: the path
+    # reads the grey levels as tokens, as the softmax config does
+    gating = copy.deepcopy(CIFAR_NORM_ATTENTION_GATING_FULL)
+    gating["dataset"]["tokenize"] = True
+    for tag, full in (("cifar_sm_attention", CIFAR_SM_ATTENTION_FULL),
+                      ("cifar_norm_attention_gating", gating)):
+        t0 = time.perf_counter()
+        cls_all[tag] = cifar_path(dev, want_files, full, tag, flush)
+        cls_s[tag] = time.perf_counter() - t0
+    for tag, full in (("listops_mamba2", LISTOPS_MAMBA2_FULL), ("imdb_mamba2", IMDB_MAMBA2_FULL)):
+        t0 = time.perf_counter()
+        cls_all[tag] = classifier_path(dev, want_files, full, tag, lra_mamba2_splits(full, tag),
+                                       LRA_EPOCHS, LRA_ANALYSIS_BATCH, CIFAR_STEP_EXAMPLES,
+                                       flush)
+        cls_s[tag] = time.perf_counter() - t0
+    print(f"[paths 22-25 seconds] {json.dumps({k: round(v, 2) for k, v in cls_s.items()})} "
+          f"total {sum(cls_s.values()):.2f}", flush=True)
+
     def late(name):
         return (path6_all[name] + path7_all[name] + path8_all[name] + path9_all[name]
                 + path10_all[name] + path11_all[name] + path12_all[name] + path13_all[name]
                 + path14_all[name] + path15_all[name] + path16_all[name] + path17_all[name]
-                + path18_all[name] + sum(c[name] for c in cifar_all.values()))
+                + path18_all[name] + sum(c[name] for c in cifar_all.values())
+                + sum(c[name] for c in cls_all.values()))
 
     kernels = [{
         "name": "diag_scan",

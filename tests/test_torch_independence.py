@@ -154,6 +154,22 @@ s4cfg = dict(CIFAR_S4_FULL["model"], hidden_dim=8, state_dim=8, num_layers=1, se
 _, s4m, _ = build_models(s4cfg, generator=torch.Generator().manual_seed(0), device="cpu")
 with torch.no_grad():
     assert s4m(cdata.inputs).shape == (4, 10)
+from tlie_tpu_torch.config import CIFAR_NORM_ATTENTION_GATING_FULL, IMDB_MAMBA2_FULL
+from tlie_tpu_torch.data import IMDB
+with contextlib.redirect_stdout(io.StringIO()):  # the loader's summary line
+    ix, iy, il = IMDB(synthetic=True, synthetic_train=4, synthetic_test=2, l_max=64).split("train")
+padded = (torch.as_tensor(ix), torch.as_tensor(il).float())
+gcfg = dict(CIFAR_NORM_ATTENTION_GATING_FULL["model"], hidden_dim=16, state_dim=8, num_heads=2,
+            mixer_dim=8, num_layers=2, seq_len=64)
+gm, gm_eval, _ = build_models(gcfg, True, generator=torch.Generator().manual_seed(0), device="cpu")
+gm(padded).sum().backward()
+assert gm.layers[0].Wz.weight.grad is not None and gm.classifier.decoder.weight.grad is not None
+assert extract_attention_family(gm_eval, padded[0], gcfg).shape == (4, 63, 2, 2)
+pcfg = dict(IMDB_MAMBA2_FULL["model"], hidden_dim=16, num_heads=2, state_dim=8, num_layers=2,
+            seq_len=64, chunk_size=16)
+_, pm, _ = build_models(pcfg, True, generator=torch.Generator().manual_seed(0), device="cpu")
+with torch.no_grad():
+    assert pm(padded).shape == (4, 2)
 bcfg = dict(mcfg, compute_dtype="bfloat16")
 _, bm, _ = build_models(bcfg, generator=torch.Generator().manual_seed(0), device="cpu")
 with torch.no_grad():
@@ -199,6 +215,33 @@ def test_the_copied_permutations_and_augmentations_give_the_originals_outputs(se
     mean, std = [0.4914, 0.4822, 0.4465], [0.247, 0.243, 0.261]
     np.testing.assert_array_equal(aug.np_normalize(images, mean, std),
                                   jax_aug.np_normalize(images, mean, std))
+
+
+def test_the_copied_imdb_module_gives_the_originals_outputs(monkeypatch):
+    """``data/imdb.py`` is a copy of tlie_tpu's without its Hugging Face
+    path: the tokenizer, the vocabulary order, the synthetic corpus and the
+    aclImdb reader give the original's outputs on the same inputs, and the
+    module imports no download package."""
+    import numpy as np
+
+    from tlie_tpu.data import imdb as jax_imdb
+    from tlie_tpu_torch.data import imdb
+
+    text = "It's a <br />GREAT film (really): \"10/10\"; see it!  Twice..."
+    assert imdb.basic_english_tokenize(text) == jax_imdb.basic_english_tokenize(text)
+    lists = [list("mississippi"), ["a", "b", "b"], []]
+    assert imdb.build_vocab(lists, 2, ["<pad>"]) == jax_imdb.build_vocab(lists, 2, ["<pad>"])
+    for seed in (0, 42):
+        (t, y), (jt, jy) = imdb._synthetic_reviews(5, seed), jax_imdb._synthetic_reviews(5, seed)
+        assert t == jt and np.array_equal(y, jy) and y.dtype == jy.dtype
+    got, want = (m._load_acl_imdb(str(ROOT / "tests" / "fixtures" / "aclImdb"))
+                 for m in (imdb, jax_imdb))
+    assert got[0] == want[0] and got[2] == want[2]
+    assert np.array_equal(got[1], want[1]) and np.array_equal(got[3], want[3])
+    assert imdb._load_acl_imdb(None) is None and imdb._load_acl_imdb("") is None
+    assert not hasattr(imdb, "_load_hf_imdb")
+    assert not {"datasets", "huggingface_hub"} & set(_imported_roots(
+        ROOT / "tlie_tpu_torch" / "data" / "imdb.py"))
 
 
 def test_port_runs_with_jax_unimportable():

@@ -466,15 +466,18 @@ def _decay_inputs(device, BG, Q, N, Hg, P, seed, pad=7, x_offset=0):
 @pytest.mark.parametrize("BG, Q, N, Hg, P, pad, x_offset", [
     (4, 512, 128, 1, 128, 7, 0), (2, 256, 64, 4, 64, 7, 0), (3, 77, 40, 3, 33, 7, 0),
     (2, 1024, 512, 8, 64, 8, 0), (3, 200, 64, 2, 64, 5, 0), (2, 256, 64, 1, 160, 8, 0),
-    (2, 256, 128, 1, 128, 8, 1)],
+    (2, 256, 128, 1, 128, 8, 1), (200, 512, 64, 4, 32, 7, 0), (24, 1024, 64, 4, 32, 7, 0)],
     ids=["mqar_like", "heads", "ragged", "wikitext_bg2", "c_stride_not_4", "p160_two_slices",
-         "x_base_not_16_bytes"])
+         "x_base_not_16_bytes", "listops_mamba2", "imdb_mamba2"])
 def test_decay_attention_kernels_match_plain(cuda_device, BG, Q, N, Hg, P, pad, x_offset):
     """The WikiText Mamba-2 shape at a reduced batch (N 512 in four slices of
     bwd_j's dB and of bwd_i's dC, four slabs of two heads), C rows 16-byte
     aligned there and at P 160 (two 128-wide slices of P), unaligned in the
-    other cases; the last case aligns C and starts xdt and dy one float past
-    a 16-byte boundary (``x_offset`` 1), at the MQAR widths."""
+    other cases; the seventh case aligns C and starts xdt and dy one float
+    past a 16-byte boundary (``x_offset`` 1), at the MQAR widths; the last
+    two are the padded Mamba-2 classifiers' full shapes (4 heads of 32, N
+    64): ListOps at batch 50 in four chunks of 512, IMDB at batch 6 in four
+    of 1,024, P 32 filling a quarter of the 128-wide slab."""
     from tlie_tpu_torch.ops import decay_attention as da
 
     C, B, cs, x, dy = _decay_inputs(cuda_device, BG, Q, N, Hg, P, seed=Q, pad=pad,

@@ -177,12 +177,25 @@ def test_last_pooling_refuses_padded_input():
 
 
 def test_padded_inputs_refused_outside_the_ssm_families():
-    from tlie_tpu_torch.config import MQAR_SM_ATTENTION_FULL
+    """Padded input outside the SSM families is ported: the Mamba and
+    transformer families build with ``padded`` and take ``(tokens,
+    lengths)``, dropping the lengths (their parity with tlie_tpu is in
+    tests/test_torch_transformer_classifier.py and
+    tests/test_torch_mamba2_padded.py); what they still refuse is the dual
+    head."""
+    from tlie_tpu_torch.config import MQAR_MAMBA2_FULL, MQAR_SM_ATTENTION_FULL
 
-    mc = dict(MQAR_SM_ATTENTION_FULL["model"], vocab_size=18, output_dim=10, hidden_dim=16,
-              state_dim=16, max_pos_embed=40, seq_len=40)
-    with pytest.raises(NotImplementedError, match="padded"):
-        build_models(mc, True, generator=torch.Generator(), device="cpu")
+    x, lengths, _ = padded_batch()
+    for mc in (dict(MQAR_SM_ATTENTION_FULL["model"], vocab_size=18, output_dim=10,
+                    hidden_dim=16, state_dim=16, max_pos_embed=40, seq_len=40),
+               dict(MQAR_MAMBA2_FULL["model"], vocab_size=18, output_dim=10, hidden_dim=16,
+                    state_dim=8, seq_len=40, pooling="mean", chunk_size=8)):
+        _, model, _ = build_models(mc, True, generator=torch.Generator(), device="cpu")
+        with torch.no_grad():
+            padded = model(port_input(x, lengths))
+            torch.testing.assert_close(padded, model(torch.from_numpy(x).long()), rtol=0, atol=0)
+        with pytest.raises(NotImplementedError, match="dual"):
+            build_models(dict(mc, dual=True), True, generator=torch.Generator(), device="cpu")
 
 
 # -- the classifiers -------------------------------------------------------------------------------

@@ -288,8 +288,10 @@ def test_state_dict_keys_are_the_reference_names(small, variant):
 def test_registry_refuses_what_is_not_ported(small):
     _, model_cfg, _, _, _, _, _ = small
     g = torch.Generator()
-    for bad in ({"mixer": "hybrid"}, {"use_gate": True},
-                {"classifier": True}, {"dual": True}, {"embedding": False},
+    # use_gate and the classifier head are ported (tests/test_torch_transformer_classifier.py)
+    for ported in ({"use_gate": True}, {"classifier": True, "pooling": "mean", "mixer_dim": 8}):
+        build_models(dict(model_cfg, **ported), generator=g, device="cpu")
+    for bad in ({"mixer": "hybrid"}, {"dual": True}, {"embedding": False},
                 {"compute_dtype": "bfloat16"}):
         with pytest.raises(NotImplementedError):
             build_models(dict(model_cfg, **bad), generator=g, device="cpu")

@@ -16,7 +16,11 @@ layer i's *own output* re-projected through its own projection — Mamba-2's
 (softmax, linear) or ``Wvqkn`` (norm attention's learned decay) — the
 reference's layer-chain quirk
 (``eval_eig.py:12-17``), kept for parity.  Both passes run in evaluation
-mode.
+mode.  A classifier's head (the transformer's ``ClassifierHead``, the
+Mamba's pooled decoder) never enters the spectra: the collector runs the
+encoder and the blocks only.  A padded split's analysis batch is its
+tokens alone, as ``tlie_tpu``'s ``prep_batch(..., lang_model=True)``
+leaves them (``eval_eig.py:326-328``).
 
 The init spectra come from the port's own seeded init (``torch.Generator``
 seeded with ``args["seed"]``); JAX's draws cannot be reproduced, so they

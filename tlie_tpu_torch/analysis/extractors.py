@@ -144,15 +144,19 @@ def eig_att_softmax(x: torch.Tensor, wqkv_weight: torch.Tensor, wqkv_bias, d_qk:
 
 
 def _guard(nu: torch.Tensor) -> torch.Tensor:
-    return torch.where(nu == 0.0, torch.full((), ZERO_GUARD, dtype=nu.dtype, device=nu.device),
-                       nu)
+    """``nu`` with its zeros replaced by ZERO_GUARD; a subnormal counts as
+    zero, since XLA flushes float32 subnormals to zero on the CPU and the
+    TPU (a norm-attention n of exp(−90) would otherwise divide its successor
+    to inf where ``tlie_tpu`` gives successor / 2e-23)."""
+    zero = nu.abs() < torch.finfo(nu.dtype).tiny
+    return torch.where(zero, torch.full((), ZERO_GUARD, dtype=nu.dtype, device=nu.device), nu)
 
 
 def eig_att_linear(x: torch.Tensor, wqkv_weight: torch.Tensor, wqkv_bias, d_qk: int,
                    num_heads: int) -> torch.Tensor:
     """η_t of linear attention (``eig_att_linear``, ref eval_eig.py:97-135):
     ν_t = (elu(q_t)+1)·Σ_{s≤t}(elu(k_s)+1) from x through ``Wqkv`` (no conv,
-    as the reference), an exact-zero ν replaced by 2e-23, η_t = ν_t/ν_{t+1}.
+    as the reference), a zero or subnormal ν replaced by 2e-23, η_t = ν_t/ν_{t+1}.
     Returns (B, L−1, H) float32."""
     B, L, _ = x.shape
     head_dim = d_qk // num_heads
@@ -169,7 +173,8 @@ def eig_att_norm(x: torch.Tensor, wvqkn_weight: torch.Tensor, wvqkn_bias, d_qk: 
                  d_model: int, norm_fn: str, offset=None) -> torch.Tensor:
     """η_t of norm attention (``eig_att_norm``, ref eval_eig.py:137-174):
     n_t = exp(−norm_fn(n-proj (+ offset))) from the n block of ``Wvqkn``,
-    an exact-zero n replaced by 2e-23, η_t = n_{t+1}/n_t.  Returns (B, L−1,
+    a zero or subnormal n replaced by 2e-23 (:func:`_guard`), η_t =
+    n_{t+1}/n_t.  Returns (B, L−1,
     H) float32."""
     proj = x @ wvqkn_weight.t()
     if wvqkn_bias is not None:

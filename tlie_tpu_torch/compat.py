@@ -15,10 +15,12 @@ map onto ``encoder/word_embeddings/embedding``, ``encoder/{kernel,bias}``,
 ``tlie_tpu/analysis/compat.py`` maps them (it has no rule for ``x_proj``
 and ``dt_proj``); so does the transformer family
 (``encoder.position_embeddings``,
-``layers.{i}.attention.{Wqkv,Wvqkn,offset,out_proj,conv1d}``, ``layers.{i}.norm``,
-``layers.{i}.mixer.{linear,encoder,decoder}``, ``norm``) onto
-``layers_i/attention/*``, ``layers_i/norm``, ``layers_i/mixer/*`` and
-``norm``.  Dense kernels (in, out) become ``nn.Linear`` weights (out, in);
+``layers.{i}.attention.{Wqkv,Wvqkn,offset,out_proj,conv1d}``, the gate's
+``layers.{i}.Wz``, ``layers.{i}.norm``,
+``layers.{i}.mixer.{linear,encoder,decoder}``, ``norm``, the classifier's
+``classifier.{encoder,decoder}``) onto ``layers_i/attention/*``,
+``layers_i/Wz``, ``layers_i/norm``, ``layers_i/mixer/*``, ``norm`` and
+``classifier/*``.  Dense kernels (in, out) become ``nn.Linear`` weights (out, in);
 the SSM token encoder keeps flax's (in,
 out) layout, since it is a gather table; the depthwise conv's (K, C) becomes
 ``nn.Conv1d``'s (C, 1, K).  ``batch_stats`` {mean, var} are the BatchNorm
@@ -92,6 +94,9 @@ _RULES = (
     (_TF + r"\.attention\.offset", _FLAX_TF + r"/attention/offset", None),
     (_TF + r"\.attention\.conv1d\.weight", _FLAX_TF + r"/attention/conv1d/weight", CONV),
     (_TF + r"\.attention\.conv1d\.bias", _FLAX_TF + r"/attention/conv1d/bias", None),
+    # the SiLU gate (use_gate)
+    (_TF + r"\.Wz\.weight", _FLAX_TF + r"/Wz/kernel", T),
+    (_TF + r"\.Wz\.bias", _FLAX_TF + r"/Wz/bias", None),
     (_TF + r"\.norm\.weight", _FLAX_TF + r"/norm/scale", None),
     (_TF + r"\.norm\.bias", _FLAX_TF + r"/norm/bias", None),
     (_TF + r"\.mixer\.linear\.weight", _FLAX_TF + r"/mixer/linear/kernel", T),
@@ -101,6 +106,9 @@ _RULES = (
     (_TF + r"\.mixer\." + _MLP + r"\.bias", _FLAX_TF + r"/mixer/" + _MLP + r"/bias", None),
     (r"norm\.weight", r"params/norm/scale", None),
     (r"norm\.bias", r"params/norm/bias", None),
+    # the transformer's classifier head
+    (r"classifier\." + _MLP + r"\.weight", r"params/classifier/" + _MLP + r"/kernel", T),
+    (r"classifier\." + _MLP + r"\.bias", r"params/classifier/" + _MLP + r"/bias", None),
 )
 
 

@@ -1,6 +1,7 @@
 from .schema import (
-    CIFAR_LRU_FULL, CIFAR_MAMBA2_FULL, CIFAR_MAMBA2_LTI_FULL, CIFAR_S4_FULL, CIFAR_S5_FULL,
-    LISTOPS_S4_FULL, LISTOPS_S5_FULL,
+    CIFAR_LRU_FULL, CIFAR_MAMBA2_FULL, CIFAR_MAMBA2_LTI_FULL, CIFAR_NORM_ATTENTION_GATING_FULL,
+    CIFAR_S4_FULL, CIFAR_S5_FULL, CIFAR_SM_ATTENTION_FULL, IMDB_MAMBA2_FULL,
+    LISTOPS_MAMBA2_FULL, LISTOPS_S4_FULL, LISTOPS_S5_FULL,
     MQAR_LIN_ATTENTION_FULL, MQAR_LRU_FULL, MQAR_MAMBA2_FULL, MQAR_NORM_ATTENTION_CONV_FULL,
     MQAR_MAMBA1_SMALL, MQAR_S4_FULL, MQAR_S5_FULL, MQAR_SM_ATTENTION_FULL, WIKITEXT_LRU_SHORT,
     WIKITEXT_NORM_ATTENTION_SHORT, ExperimentConfig, apply_sweep_point,
@@ -9,8 +10,10 @@ from .schema import (
 )
 
 __all__ = [
-    "CIFAR_LRU_FULL", "CIFAR_MAMBA2_FULL", "CIFAR_MAMBA2_LTI_FULL", "CIFAR_S4_FULL",
-    "CIFAR_S5_FULL", "LISTOPS_S4_FULL", "LISTOPS_S5_FULL",
+    "CIFAR_LRU_FULL", "CIFAR_MAMBA2_FULL", "CIFAR_MAMBA2_LTI_FULL",
+    "CIFAR_NORM_ATTENTION_GATING_FULL", "CIFAR_S4_FULL", "CIFAR_S5_FULL",
+    "CIFAR_SM_ATTENTION_FULL", "IMDB_MAMBA2_FULL", "LISTOPS_MAMBA2_FULL", "LISTOPS_S4_FULL",
+    "LISTOPS_S5_FULL",
     "MQAR_LIN_ATTENTION_FULL", "MQAR_LRU_FULL", "MQAR_MAMBA2_FULL",
     "MQAR_MAMBA1_SMALL", "MQAR_NORM_ATTENTION_CONV_FULL", "MQAR_S4_FULL", "MQAR_S5_FULL",
     "MQAR_SM_ATTENTION_FULL", "WIKITEXT_LRU_SHORT", "WIKITEXT_NORM_ATTENTION_SHORT",

@@ -6,8 +6,9 @@ fields also as functions on plain dicts (``derive_runtime_fields``,
 ``tlie_tpu/training/loop.py``, step-driven or epoch-driven as it chooses; and
 the full-width MQAR LRU, MQAR Mamba-2, MQAR softmax, linear and norm
 attention transformers, MQAR and ListOps S5 and S4, the WikiText LRU and
-norm-attention LMs, the small MQAR Mamba-1, and the CIFAR-10 Mamba-2, its
-pseudo-LTI variant, S4, S5 and LRU as Python dicts.  The raw sections keep
+norm-attention LMs, the small MQAR Mamba-1, the CIFAR-10 Mamba-2, its
+pseudo-LTI variant, S4, S5 and LRU, the CIFAR-10 softmax and gated norm
+attention classifiers, and the ListOps and IMDB Mamba-2 as Python dicts.  The raw sections keep
 every key a YAML gives (``pseudoLTI``, CIFAR's ``grayscale``, ``permute``,
 ``tokenize``, ``augment``, ``cutout``, ``synthetic``, ...), which the
 modules read with their defaults.
@@ -635,3 +636,89 @@ CIFAR_S4_FULL = _cifar_ssm_full("s4")
 CIFAR_S5_FULL = _cifar_ssm_full("s5", C_init="lecun_normal", discretization="zoh",
                                 conj_sym=True, num_blocks=8)
 CIFAR_LRU_FULL = _cifar_ssm_full("lru", r_min=0.9, r_max=0.99)
+
+
+def _cifar_transformer_full(name: str, dataset: Dict[str, Any], **model) -> Dict[str, Any]:
+    """configs/tasks/cifar/cifar-{name}.yaml after derive_runtime_fields with
+    the CIFAR-10 dataset it names (grayscale, L 1024, the 2,048 synthetic
+    training images): the transformer classifier, 6 layers of d 512, 4
+    heads (head_dim 16 of d_qk 64 beside v_dim 128, so the softmax takes
+    its materialised form), the MLP mixer of 128 and a mean pool into the
+    classifier MLP of 128."""
+    return {
+        "seed": 1919,
+        "save": f"./checkpoint/cifar-{name}",
+        "dataset": {"name": "CIFAR-10", "_name_": "cifar", "grayscale": True, **dataset},
+        "train": {
+            "num_epochs": 50, "batch_size": 50, "param_group": None, "wd": 0.0,
+            "cosine_anneal": True, "warmup": 5, "lr": 0.0002, "padded": False,
+            "train_size": 2048,
+        },
+        "model": {
+            "input_dim": 1, "output_dim": 10, "layer": "transformer", "num_layers": 6,
+            "hidden_dim": 512, "state_dim": 64, "num_heads": 4, "att_dropout": 0.0,
+            "norm": "layer", "embedding": True, "vocab_size": 256, **model,
+            "seq_len": 1024,
+        },
+        "lang_model": False,
+    }
+
+
+_CIFAR_CLASSIFIER = {"mixer": "mlp", "mixer_dim": 128, "dropout": 0.0, "classifier": True,
+                     "pooling": "mean", "dual": False}
+# configs/tasks/cifar/cifar-sm-attention.yaml and
+# cifar-norm-attention-gating.yaml resolved; a CPU test pins each dict to its
+# YAML as tlie_tpu.config resolves it.  Epoch-driven: 40 steps an epoch.  The
+# softmax one reads tokenized pixels (256 grey levels) with a position table
+# of 1,024.  The gated norm attention (softplus decay with its offset, conv
+# 4, the SiLU gate) asks for no tokenize, so its float pixels reach the
+# token embedding, which raises there as in tlie_tpu; its card path reads
+# the tokenized pixels instead.
+CIFAR_SM_ATTENTION_FULL = _cifar_transformer_full(
+    "sm-attention", {"tokenize": True}, max_pos_embed=1024, **_CIFAR_CLASSIFIER,
+    attention_fn="sm-attention", use_flash=True)
+CIFAR_NORM_ATTENTION_GATING_FULL = _cifar_transformer_full(
+    "norm-attention-gating", {}, max_pos_embed=0, **_CIFAR_CLASSIFIER,
+    attention_fn="norm-attention", mode="attention", norm_fn="softplus", approx_fn="elu",
+    scale_B=True, offset=True, offset_init="exp", learn_A=False, dim_conv=4, use_flash=False,
+    use_gate=True)
+
+
+def _lra_mamba2_full(task: str, dataset: Dict[str, Any], train: Dict[str, Any],
+                     seq_len: int, **model) -> Dict[str, Any]:
+    """configs/tasks/{task}/{task}-mamba2.yaml after derive_runtime_fields
+    with the dataset it names: padded tokens through the token embedding,
+    Mamba-2 blocks of d 128 with 4 heads of 32 and N 64, pre-norm, GLU, an
+    unmasked mean pool before the decoder."""
+    return {
+        "seed": 1919,
+        "save": f"./checkpoint/{task}-mamba2",
+        "dataset": {**dataset, "fixed_size": False},
+        "train": {"param_group": None, "wd": 0.01, "cosine_anneal": True, "warmup": 5,
+                  "lr": 0.0005, **train, "padded": True},
+        "model": {
+            "layer": "mamba", "version": "mamba2", "num_layers": 6, "num_heads": 4,
+            "input_dim": 1, "output_dim": 10, "hidden_dim": 128, "state_dim": 64,
+            "conv_dim": 4, "expansion": 1, "dropout": 0.0, "glu": True, "norm": "layer",
+            "dual": False, "prenorm": True, "pooling": "mean", "embedding": True,
+            "token_embedding": True, **model, "seq_len": seq_len,
+        },
+        "lang_model": False,
+    }
+
+
+# configs/tasks/listops/listops-mamba2.yaml and imdb/imdb-mamba2.yaml
+# resolved; a CPU test pins each dict to its YAML as tlie_tpu.config resolves
+# it.  ListOps: l_max 2048, 96,000 training examples, 1,920 steps an epoch at
+# batch 50, 6 layers.  IMDB: char level, l_max 4096, the 2,048 reviews of
+# the synthetic corpus that stands in while the IMDB files are not in the
+# repository, 341 steps an epoch at batch 6 (10,230 in all), 4 layers.
+LISTOPS_MAMBA2_FULL = _lra_mamba2_full(
+    "listops", {"name": "LISTOPS", "_name_": "listops", "data_dir": "./data/listops"},
+    {"num_epochs": 50, "batch_size": 50, "train_size": 96000}, 2048,
+    vocab_size=18, max_pos_embed=2048, mixer="none", mixer_dim=256, classifier=False)
+IMDB_MAMBA2_FULL = _lra_mamba2_full(
+    "imdb", {"name": "IMDB", "_name_": "imdb", "data_dir": ""},
+    {"num_epochs": 30, "batch_size": 6, "train_size": 2048}, 4096,
+    num_layers=4, output_dim=2, vocab_size=134, max_pos_embed=4096, mixer="none",
+    mixer_dim=512, classifier=False)

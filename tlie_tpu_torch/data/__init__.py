@@ -1,5 +1,6 @@
 from .base import SequenceDataset, argmax_accuracy, masked_accuracy, perplexity
 from .cifar import CIFAR10, MNIST
+from .imdb import IMDB
 from .listops import ListOps
 from .mqar import MQAR, multiquery_ar
 from .wikitext import WikiText
@@ -8,5 +9,5 @@ from .wikitext import WikiText
 # registry each subclass of SequenceDataset enters on definition
 DATASETS = SequenceDataset.registry
 
-__all__ = ["CIFAR10", "DATASETS", "ListOps", "MNIST", "MQAR", "SequenceDataset", "WikiText", "argmax_accuracy",
+__all__ = ["CIFAR10", "DATASETS", "IMDB", "ListOps", "MNIST", "MQAR", "SequenceDataset", "WikiText", "argmax_accuracy",
            "masked_accuracy", "multiquery_ar", "perplexity"]

@@ -84,6 +84,9 @@ class Decoder:
                 raise ValueError("transformer decode requires a token encoder")
             if cfg["attention_fn"] not in ("sm-attention", "lin-attention", "norm-attention"):
                 raise RuntimeError(f"attention_fn {cfg['attention_fn']} not implemented")
+            if cfg.get("use_gate", False):  # only classifiers set it
+                raise NotImplementedError("decoding a gated (use_gate) transformer is not "
+                                          "ported yet")
             self.family, self.vocab = "attention", cfg["vocab_size"]
             self.max_pos = cfg.get("max_pos_embed", 0)
         else:

@@ -43,13 +43,26 @@ asks for that split without the message:
     python -m tlie_tpu_torch.launch --config tasks/cifar/cifar-mamba2.yaml \
         --analysis_config configs/analysis/cifar.yaml
 
+The transformer classifiers (``classifier: true``, a pooled
+``ClassifierHead``; ``use_gate`` for the SiLU gate) run on CIFAR's
+tokenized pixels (``cifar-sm-attention.yaml``, ``cifar-lin-attention*.yaml``)
+and on the padded ListOps and IMDB tokens, as do the ListOps and IMDB
+Mamba-2 (``listops-mamba2.yaml``, ``imdb-mamba2.yaml``): both families take
+``(tokens, lengths)`` and drop the lengths.  IMDB (``configs/tasks/imdb/``,
+analysed with ``configs/analysis/imdb.yaml``) reads the aclImdb folders
+under ``dataset.data_dir`` or, where there are none, prints so and trains on
+the loader's synthetic corpus:
+
+    python -m tlie_tpu_torch.launch --config tasks/imdb/imdb-mamba2.yaml \
+        --analysis_config configs/analysis/imdb.yaml
+
 ``--config`` paths resolve against ``configs/`` first, then as given.  The
 run trains on the card unless ``--device cpu`` is given (a CUDA request
 without a card raises), writes the checkpoint named by the config's
 ``save``, and runs ``eval_eig`` of the trained weights into the analysis
 config's ``save_path``.  The datasets are those of
 :data:`tlie_tpu_torch.data.DATASETS`, the ``SequenceDataset`` registry (MQAR,
-WikiText, ListOps, CIFAR-10, MNIST); W&B is not ported and raises.
+WikiText, ListOps, CIFAR-10, MNIST, IMDB); W&B is not ported and raises.
 
 ``--sweep`` takes a sweep file (``base_config`` + ``sweep`` lists, e.g.
 ``configs/sweep/mqar-lin-attention-seeds-lrs-8k.yaml``), builds the dataset
@@ -140,7 +153,7 @@ def main(argv=None) -> int:
 
             # the Mamba and transformer families' spectra are taken on the first
             # analysis batch of the test split, as tlie_tpu's unshuffled analysis
-            # loader gives it
+            # loader gives it (a padded split's tokens alone)
             batch = test_split[0][: conf_args["batch_size"]]
             eval_eig(point_cfg, conf_args, perf, result.model, device=device, batch=batch)
             print("Finished!")

@@ -1,8 +1,8 @@
 """Shared blocks of the Mamba and transformer families, counterparts of
 ``tlie_tpu/models/layers.py``: the torch default initialisers drawn from an
-explicit ``torch.Generator``, ``GLU``, ``MLP``, ``TokenEmbeddings`` (with the
-transformer's position table), ``DepthwiseCausalConv`` and the element-wise
-``Dropout``.
+explicit ``torch.Generator``, ``GLU``, ``MLP``, the transformer's
+``ClassifierHead``, ``TokenEmbeddings`` (with the transformer's position
+table), ``DepthwiseCausalConv`` and the element-wise ``Dropout``.
 
 Module and parameter names are the reference's torch names, so a port
 ``state_dict`` maps onto the flax tree through
@@ -101,12 +101,46 @@ class MLP(nn.Module):
         return self.drop(self.decoder(self.drop(F.gelu(self.encoder(x)))))
 
 
+class ClassifierHead(nn.Module):
+    """Pooling over time, then where ``mlp_dim`` ≠ 0 ``encoder`` (to
+    ``mlp_dim``) → ReLU → ``decoder`` (to ``num_classes``) with torch's
+    default init (``ClassifierHead``).  ``pooling`` is ``mean``, ``max``,
+    ``sum`` or ``cls`` (the first position); any other value pools nothing.
+    The pool takes no mask: a padded batch is pooled over its padding too,
+    as in ``tlie_tpu`` and the reference."""
+
+    def __init__(self, d: int, mlp_dim: int, num_classes: int, pooling: str,
+                 generator: torch.Generator):
+        super().__init__()
+        self.pooling = pooling
+        self.encoder = self.decoder = None
+        if mlp_dim != 0:
+            self.encoder = linear(d, mlp_dim, generator)
+            self.decoder = linear(mlp_dim, num_classes, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.pooling == "mean":
+            x = x.mean(dim=-2)
+        elif self.pooling == "max":
+            x = x.amax(dim=-2)
+        elif self.pooling == "sum":
+            x = x.sum(dim=-2)
+        elif self.pooling == "cls":
+            x = x[..., 0, :]
+        if self.encoder is None:
+            return x
+        return self.decoder(F.relu(self.encoder(x)))
+
+
 class TokenEmbeddings(nn.Module):
     """Learnable token embeddings plus, where ``max_position_embeddings`` >
     0, learnable position embeddings (``TokenEmbeddings``), both N(0, 1).
     The Mamba family passes 0, so it has no position table.  A position past
     the table raises (``F.embedding``'s ``IndexError``); the reference's
-    gather fills NaN there."""
+    gather fills NaN there.  Float inputs raise flax ``Embed``'s
+    ``ValueError``: the six CIFAR norm-attention YAMLs set ``embedding:
+    true`` without the dataset's ``tokenize: true``, so their pixels reach
+    the table as floats, and ``tlie_tpu`` raises there too."""
 
     def __init__(self, embed_dim: int, vocab_size: int, generator: torch.Generator,
                  max_position_embeddings: int = 0, compute_dtype: Optional[torch.dtype] = None):
@@ -125,6 +159,8 @@ class TokenEmbeddings(nn.Module):
         return F.embedding(ids, table.weight.to(self.compute_dtype))
 
     def forward(self, input_ids: torch.Tensor, position_ids=None) -> torch.Tensor:
+        if input_ids.is_floating_point():
+            raise ValueError("Input type must be an integer or unsigned integer.")
         emb = self._embed(self.word_embeddings, input_ids)
         if self.position_embeddings is not None:
             if position_ids is None:

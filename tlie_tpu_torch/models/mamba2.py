@@ -29,7 +29,9 @@ per head on U(−8, −2), and the input-dependent step is folded into B.
 ``Mamba`` takes tokens through the token embedding (``token_embedding:
 true``) or float features through the dense encoder (``token_embedding:
 false``, CIFAR's pixels), and pools over time (``pooling: mean``, ``max``
-or ``last``) before the decoder for a classifier.
+or ``last``) before the decoder for a classifier.  A padded batch,
+``(tokens, lengths)`` (ListOps, IMDB), runs as its tokens: the lengths are
+dropped and the pool takes the padding too.
 
 ``Mamba1`` (``version: mamba1``) is the selective-scan layer: ``in_proj`` →
 [x, z], the depthwise causal conv and SiLU on x, ``x_proj`` → [dt, B, C],
@@ -288,9 +290,9 @@ class Mamba(nn.Module):
     returns logits.  The encoder is the token embedding (``token_embedding:
     true``) or a dense ``input_dim`` → ``hidden_dim`` layer with torch's
     default init (``encoder.weight``, ``encoder.bias``).  ``pooling: mean``,
-    ``max`` or ``last`` reduces the time axis before the decoder (no mask:
-    the inputs are not padded); any other value keeps a decoder on every
-    position, as in ``tlie_tpu``."""
+    ``max`` or ``last`` reduces the time axis before the decoder, with no
+    mask: a padded batch (ListOps, IMDB) is pooled over its padding too, as
+    in ``tlie_tpu``; any other value keeps a decoder on every position."""
 
     def __init__(self, cfg: Dict[str, Any], generator: torch.Generator):
         super().__init__()
@@ -308,14 +310,18 @@ class Mamba(nn.Module):
                                     for _ in range(cfg["num_layers"]))
         self.decoder = linear(hidden, cfg["output_dim"], generator, compute_dtype=dtype)
 
-    def features(self, x: torch.Tensor) -> torch.Tensor:
-        """Backbone features before the decoder (``features``)."""
+    def features(self, x) -> torch.Tensor:
+        """Backbone features before the decoder (``features``); a padded
+        batch, ``(tokens, lengths)``, runs as its tokens alone, the lengths
+        dropped as ``tlie_tpu`` and the reference drop them."""
+        if isinstance(x, tuple):
+            x, _ = x
         x = self.encoder(x)
         for block in self.blocks:
             x = block(x)
         return x
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x) -> torch.Tensor:
         x = self.features(x)
         if self.pooling == "mean":
             x = x.mean(dim=-2)

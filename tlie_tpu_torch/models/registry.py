@@ -29,10 +29,12 @@ def build_models(model_config: Dict[str, Any], padded: bool = False, *,
                  generator: torch.Generator, device="cuda") -> Tuple[nn.Module, nn.Module, str]:
     """``(train_model, eval_model, family)`` for ``model_config`` on
     ``device``; ``padded`` (the config's ``train.padded``) makes the SSM
-    backbone take ``(inputs, lengths)``, as in ``tlie_tpu``, and is refused
-    by the Mamba and transformer families, which take no lengths here (the
-    Mamba family's pooled classifier, ``pooling: mean`` on CIFAR, takes
-    unpadded inputs).  One
+    backbone take ``(inputs, lengths)`` for its masked pool, as in
+    ``tlie_tpu``; the Mamba and transformer families take ``(tokens,
+    lengths)`` whatever ``padded`` says and drop the lengths, so their pools
+    (the Mamba decoder's and the transformer's ``ClassifierHead``) run over
+    the padding too, as in ``tlie_tpu`` (``models/mamba2.py:488-493``,
+    ``models/transformer.py:181-188``).  One
     module in ``.train()`` and one in ``.eval()`` that share
     every parameter and BatchNorm statistic, so a step on the first shows in
     the second.  Weights are drawn from ``generator`` (a CPU generator, so
@@ -52,8 +54,6 @@ def build_models(model_config: Dict[str, Any], padded: bool = False, *,
     dev = resolve_device(device)
     if layer in ("lru", "s4", "s5"):
         model = _ssm_model(model_config, generator, padded)
-    elif padded:
-        raise NotImplementedError(f"padded inputs are not ported for the {layer} family")
     else:
         model = {"mamba": Mamba, "transformer": Transformer}[layer](model_config, generator)
     model = model.to(dev)

@@ -7,32 +7,41 @@ A block is ``x + drop(attention(norm(x)))`` then ``norm`` again and the
 mixer; with ``mixer: none`` it returns ``norm(x + drop(attention(norm(x))))``
 (no second residual), with ``mixer: glu`` ``x + glu(norm(x))`` and with
 ``mixer: mlp`` ``x + mlp(norm(x))`` (``MLP``: ``mixer_dim`` wide, the
-block's dropout after the GELU and after the second projection).  Both
+block's dropout after the GELU and after the second projection).  With
+``use_gate`` the block's *input* also goes through ``Wz`` (xavier-uniform of
+gain 0.1, bias 1), and the block's output is multiplied by SiLU of it: the
+mixer's output alone with ``mixer: none``, the residual sum otherwise.  Both
 LayerNorms of a block are one module, ``layers.{i}.norm``, so they share
 weights: the reference's quirk, kept.  The model is token (+ position)
-embeddings, element-wise dropout, the blocks, a final LayerNorm and a
-bias-free per-position decoder; it returns logits.  Parameter names are the
+embeddings, element-wise dropout, the blocks and a final LayerNorm, then a
+bias-free per-position decoder, or with ``classifier: true`` the
+``ClassifierHead`` (``pooling`` over time, no mask, then ``mixer_dim`` →
+ReLU → classes); it returns logits.  A padded batch, ``(tokens,
+lengths)``, runs as its tokens alone: the lengths are dropped, as
+``tlie_tpu`` and the reference drop them.  Parameter names are the
 reference's torch names (``encoder.word_embeddings``,
 ``encoder.position_embeddings``, ``layers.{i}.attention.{Wqkv,out_proj}``,
 for norm attention ``layers.{i}.attention.{Wvqkn,offset}``,
-``layers.{i}.norm``, ``layers.{i}.mixer.{linear,encoder,decoder}``, ``norm``,
-``decoder``).
+``layers.{i}.Wz``, ``layers.{i}.norm``,
+``layers.{i}.mixer.{linear,encoder,decoder}``, ``norm``, ``decoder`` or
+``classifier.{encoder,decoder}``).
 
 Weights are drawn from an explicit ``torch.Generator`` with the reference's
-distributions.  Not ported yet, and refused: the ``hybrid`` mixer,
-``use_gate``, the classifier and dual heads, the dense input
-encoder (``embedding: false``), bf16.
+distributions.  Not ported yet, and refused: the ``hybrid`` mixer, the dual
+(``MATCH``) head, the dense input encoder (``embedding: false``), bf16.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import math
+from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .attention_layers import MHA, MHNA
-from .layers import GLU, MLP, Dropout, TokenEmbeddings, linear
+from .layers import GLU, MLP, ClassifierHead, Dropout, TokenEmbeddings, linear, uniform_
 
 
 class TransformerBlock(nn.Module):
@@ -42,8 +51,6 @@ class TransformerBlock(nn.Module):
     def __init__(self, hidden_dim: int, cfg: Dict[str, Any], generator: torch.Generator):
         super().__init__()
         attention_fn = cfg["attention_fn"]
-        if cfg.get("use_gate", False):
-            raise NotImplementedError("use_gate is not ported yet")
         common = dict(d_qk=cfg["state_dim"], num_heads=cfg["num_heads"],
                       dropout=cfg.get("att_dropout", 0.0), conv_type=cfg.get("conv_type", "full"))
         if attention_fn in ("sm-attention", "lin-attention"):
@@ -57,6 +64,14 @@ class TransformerBlock(nn.Module):
                                   dim_conv=cfg["dim_conv"], **common)
         else:
             raise RuntimeError(f"attention_fn {attention_fn} not implemented")
+        self.Wz = None
+        if cfg.get("use_gate", False):
+            # xavier_uniform_(gain=0.1), bias 1.0: tlie_tpu's
+            # variance_scaling(0.01, "fan_avg", "uniform")
+            self.Wz = nn.Linear(hidden_dim, hidden_dim)
+            uniform_(self.Wz.weight, 0.1 * math.sqrt(6.0 / (2 * hidden_dim)), generator)
+            with torch.no_grad():
+                self.Wz.bias.fill_(1.0)
         mixer = cfg["mixer"]
         if mixer == "hybrid":
             raise NotImplementedError("the hybrid mixer is not ported yet")
@@ -73,28 +88,30 @@ class TransformerBlock(nn.Module):
         self.norm = nn.LayerNorm(hidden_dim, eps=1e-5)
         self.drop = Dropout(cfg["dropout"])
 
-    def mix(self, x: torch.Tensor) -> torch.Tensor:
+    def mix(self, x: torch.Tensor, z: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The second half of the block on the residual stream x: norm, the
-        mixer, and the residual unless the mixer is ``none``."""
+        mixer, and the residual unless the mixer is ``none``; times SiLU(z)
+        where the block has its gate (z = Wz of the block's input)."""
         y = self.norm(x)
-        if self.mixer is None:
-            return y
-        return x + self.mixer(y)
+        if self.mixer is not None:
+            y = x + self.mixer(y)
+        return y if z is None else y * F.silu(z)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        z = None if self.Wz is None else self.Wz(x)
         x = x + self.drop(self.attention(self.norm(x)))
-        return self.mix(x)
+        return self.mix(x, z)
 
 
 class Transformer(nn.Module):
-    """Embeddings → dropout → N × TransformerBlock → LayerNorm → decoder
-    (``Transformer`` with ``classifier: false``); returns logits."""
+    """Embeddings → dropout → N × TransformerBlock → LayerNorm → the
+    per-position decoder, or the classifier head with ``classifier: true``
+    (``Transformer``); returns logits."""
 
     def __init__(self, cfg: Dict[str, Any], generator: torch.Generator):
         super().__init__()
-        if cfg.get("classifier", False) or cfg.get("dual", False):
-            raise NotImplementedError("the transformer's classifier and dual heads are not "
-                                      "ported yet")
+        if cfg.get("dual", False):
+            raise NotImplementedError("the transformer's dual (MATCH) head is not ported yet")
         if not cfg.get("embedding", False):
             raise NotImplementedError("the dense input encoder (embedding: false) is not "
                                       "ported yet")
@@ -103,18 +120,26 @@ class Transformer(nn.Module):
                                        cfg.get("max_pos_embed", 0))
         self.layers = nn.ModuleList(
             TransformerBlock(hidden, cfg, generator) for _ in range(cfg["num_layers"]))
-        self.decoder = linear(hidden, cfg["output_dim"], generator, bias=False)
+        if cfg.get("classifier", False):
+            self.classifier = ClassifierHead(hidden, cfg["mixer_dim"], cfg["output_dim"],
+                                             cfg["pooling"], generator)
+        else:
+            self.decoder = linear(hidden, cfg["output_dim"], generator, bias=False)
         if cfg["norm"] != "layer":
             raise RuntimeError(f"{cfg['norm']} norm not implemented yet!")
         self.norm = nn.LayerNorm(hidden, eps=1e-5)
         self.drop = Dropout(cfg["dropout"])
 
-    def features(self, x: torch.Tensor) -> torch.Tensor:
-        """Backbone features before the decoder (``features``)."""
+    def features(self, x) -> torch.Tensor:
+        """Backbone features before the head (``features``); a padded batch's
+        lengths are dropped."""
+        if isinstance(x, tuple):
+            x, _ = x
         x = self.drop(self.encoder(x))
         for layer in self.layers:
             x = layer(x)
         return self.norm(x)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.decoder(self.features(x))
+    def forward(self, x) -> torch.Tensor:
+        head = self.classifier if hasattr(self, "classifier") else self.decoder
+        return head(self.features(x))

@@ -6,9 +6,11 @@ Both splits live on the device (:func:`put_dataset`): integer tokens as
 int64, float features (CIFAR's pixels) as float32, as ``tlie_tpu`` puts
 them.  Each step gathers its batch by index (:func:`gather_batch`), from
 the (steps, batch) index matrix that :func:`batch_indices` draws on the
-host exactly as ``tlie_tpu`` does.  A padded split (ListOps) carries its
-per-example lengths, gathered with each batch into the ``(inputs,
-lengths)`` input of the padded model (``scan_loop.py:143-149``).
+host exactly as ``tlie_tpu`` does.  A padded split (ListOps, IMDB) carries
+its per-example lengths, gathered with each batch into the ``(inputs,
+lengths)`` input of the padded model (``scan_loop.py:143-149``): the SSM
+backbone's masked pool reads them, the Mamba and transformer families drop
+them.
 """
 
 from __future__ import annotations

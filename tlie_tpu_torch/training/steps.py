@@ -155,9 +155,12 @@ def prep_batch(batch, seq_len: int, in_dim: int, lang_model: bool = False,
     Inputs are right-padded to ``seq_len``.  Integer tokens pass through (the
     encoder gathers their rows); float inputs of width != ``in_dim`` are
     one-hot expanded, as in ``tlie_tpu``.  A classification batch with
-    per-example lengths (``aux["lengths"]``, ListOps) gives ``(inputs,
-    lengths)`` as its inputs, the lengths in float32, for the padded
-    model's masked mean pool (``tlie_tpu/training/steps.py:80-96``)."""
+    per-example lengths (``aux["lengths"]``, ListOps, IMDB) gives ``(inputs,
+    lengths)`` as its inputs, the lengths in float32, for the SSM
+    backbone's masked mean pool; the Mamba and transformer families take
+    the pair and drop the lengths (``tlie_tpu/training/steps.py:80-96``).
+    With ``lang_model`` the tokens come alone, as eval_eig's analysis
+    batch does in ``tlie_tpu``."""
     if len(batch) == 2:
         inputs, targets = batch
         aux: Dict[str, Any] = {}
