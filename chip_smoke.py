@@ -11,10 +11,11 @@ decoder + cross-entropy head on float32 and on bfloat16 operands, the three
 of the SSD's decay attention on float32 and on bfloat16 operands (the
 float32 ones also at the CIFAR, ListOps and IMDB Mamba-2's shapes) and the
 three of the flash attention), the scan's two kernels also on a decay that
-varies by example and is constant in time and at S5's shapes (MQAR and
-ListOps) and at Mamba-1's (B, L, d_inner·N) view, and drives twenty models
-(all at their published widths) along twenty-five paths, each with the
-launch counts set to 0 just before it and read just after:
+varies by example and is constant in time and at S5's shapes (MQAR,
+ListOps and Speech Commands) and at Mamba-1's (B, L, d_inner·N) view, and
+drives twenty-four models (all but one at their published widths) along
+twenty-eight paths, each with the launch counts set to 0 just before it and
+read just after:
 
 1. the MQAR LRU (``MQAR_LRU_FULL``: L=512, d_model=128, N=128, 2 layers,
    vocab 8192, batch 64, weights from the config's seed): evaluation,
@@ -168,9 +169,35 @@ launch counts set to 0 just before it and read just after:
    24's widths, batch 6, l_max 4096) on the loader's synthetic char-level
    corpus (2,048 / 512 reviews; the IMDB files are not in the repository)
    along path 24's phases, cut to 1,200 / 256 reviews, 1 epoch of 200
-   steps, the decay attention at (24, 1024, 64, 4, 32), 4 + 4 + 4 a step.
-Paths 6, 7, 10, 13, 15, 16, 17, 21, 22 and 23 reach no Pallas kernel in
-``tlie_tpu``: no port kernel launches on them, and the script checks that.  The decay attention's three
+   steps, the decay attention at (24, 1024, 64, 4, 32), 4 + 4 + 4 a step;
+26. the LRA PathFinder S4 (``PATHFINDER_S4_FULL``: 4 layers, d_model 256,
+   N 64, ``full_glu``, BatchNorm, a mean pool, batch 50, L 1,024 centred
+   pixels, 2 classes) on the loader's synthetic connected-path images
+   (16,384 / 2,048; the LRA files are not in the repository), cut to 2,048
+   / 512: path 21's phases at 1 epoch of 40 steps, no port kernel;
+27. the LRA AAN retrieval transformer (``AAN_TRANSFORMER_FULL``: 4 layers,
+   d_model 128, 4 heads, linear attention, the GLU mixer of 128, a position
+   table of 4,000, the classifier MLP of 128 and the dual ``MATCH`` head,
+   batch 8 pairs, 16 documents of 4,000 characters) on the loader's
+   synthetic topic-matched pairs cut to 512 / 128: the pairs folded into the
+   batch, path 22's phases at 1 epoch of 64 steps (η from the pair-folded
+   analysis batch of 8 pairs), no port kernel and no flash kernel; then a
+   dual Mamba-2 at ``LISTOPS_MAMBA2_FULL``'s widths (the ``MATCH`` head of 2
+   → 1 → 2) on the first 160 of those pairs cut to 1,024 tokens a document:
+   path 24's phases at 1 epoch of 20 steps through the decay attention's
+   float32 kernels, 6 + 6 + 6 a step;
+28. the Speech Commands S5 (``SC_S5_MFCC_FULL``: 4 layers, H 96, state 96,
+   P 48 after conj-sym, ZOH, ``half_glu1``, lecun_normal C, BatchNorm, a
+   mean pool, batch 32, 161 MFCC frames of 20, 10 classes) on the loader's
+   synthetic keyword clips (2,048 / 512; the corpus is not in the
+   repository) cut to 1,024 / 256: the forward, 1 epoch of 32 steps through
+   the scan's kernels at (32, 161, 48), 4 + 4 a step, the checkpoint
+   eigen-analysed, the card step against the CPU step, the step's time, and
+   the scan's forward, reverse and backward held to their plain versions
+   and to float64 and timed at the trained layer's Λ̄.
+Paths 6, 7, 10, 13, 15, 16, 17, 21, 22, 23, 26 and 27's transformer reach
+no Pallas kernel in ``tlie_tpu``: no port kernel launches on them, and the
+script checks that.  The decay attention's three
 kernels are also held on bfloat16 operands against the plain bfloat16
 version (the WikiText Mamba-2, MQAR and a ragged shape) and timed against
 the bfloat16 tensor-core bound, and so are the fused head's three bfloat16
@@ -178,7 +205,7 @@ kernels (the LM's shape, a vocabulary below one tile and a ragged one).
 
 It also checks one MQAR training step of the LRU, of the Mamba-2, of the
 transformers and of S5 and S4, one ListOps step of S5 and S4, and one step
-of each classifier of paths 19-25, on the card against the same step on the
+of each classifier of paths 19-28, on the card against the same step on the
 CPU, one fused-head
 WikiText step against the dense-head step on the card, and times each kernel
 against its bound, its plain version and, where one exists, the PyTorch
@@ -254,7 +281,14 @@ GRAD_F64_FACTOR = 8.0
 # so where |g| is at least 1e-2 of its leaf's max (far above the 1e-4 noise)
 # the two steps agree to f32 rounding of the weights (1e-6); elsewhere
 # within the movement bound 2*lr + 1e-6.  BatchNorm statistics: 1e-5 of
-# max(1, |x|).
+# max(1, |x|).  In step_card_vs_cpu the determined elements are also held
+# to the same step taken in float64 on the CPU: a leaf's card error there
+# may be GRAD_F64_FACTOR times the CPU's own float32 error, or 1e-6.  Where
+# a leaf's gradients are small (PathFinder S4's: max|g| 2e-5 to 1e-3 on two
+# images) the float32 step on the CPU itself misses the float64 step by up
+# to 3.9e-6 at such elements (Lambda_im, whose |w| reach 32 and beyond, and
+# elements with |g| near 1e-7, where Adam's lr·g/(|g| + 1e-8) still follows
+# g's rounding), so card and CPU, both float32, may differ by more than 1e-6.
 PARAM_ATOL = 1e-6
 STATS_RTOL = 1e-5
 # (200 steps with an eval every 100 until paths 22-25 came, for this path
@@ -467,6 +501,31 @@ CIFAR_STEP_EXAMPLES, CIFAR_STEP_CHUNK = 2, 256
 # card-vs-CPU step on CIFAR_STEP_EXAMPLES at chunk CIFAR_STEP_CHUNK
 LRA_EPOCHS, LRA_ANALYSIS_BATCH = 1, 32
 IMDB_TRAIN, IMDB_TEST = 1200, 256
+# the last three LRA-style tasks, each on its loader's synthetic split (the
+# LRA and Speech Commands files are not in the repository), LRA_EPOCHS
+# epochs each (the configs run 20) with CIFAR_WARMUP of warmup (2, 2, 1),
+# the card-vs-CPU step on CIFAR_STEP_EXAMPLES examples (pairs for AAN):
+# 26, PathFinder S4: the split cut to PF_TRAIN / PF_TEST images (16,384 /
+# 2,048), 40 steps an epoch at batch 50;
+PF_TRAIN, PF_TEST = 2048, 512
+# 27, the AAN transformer: the pair corpus cut to AAN_TRAIN / AAN_TEST pairs
+# (4,096 / 512), 64 steps an epoch at batch 8 pairs, the analysis batch
+# AAN_ANALYSIS_BATCH test pairs (16 documents; the repository has no AAN
+# analysis config); then a dual Mamba-2 at LISTOPS_MAMBA2_FULL's widths on
+# the first AAN_MAMBA_TRAIN of those pairs, each document cut to its first
+# AAN_MAMBA_L tokens (4,000), 20 steps at batch 8 pairs, and all the test
+# pairs so cut;
+AAN_TRAIN, AAN_TEST, AAN_ANALYSIS_BATCH = 512, 128, 8
+AAN_MAMBA_TRAIN, AAN_MAMBA_L = 160, 1024
+# the dual Mamba-2's weights come from seed AAN_MAMBA_SEED: its MATCH head
+# (2 → 1 → 2, as in tlie_tpu) has one middle ReLU unit, and at LISTOPS_MAMBA2_FULL's
+# seed 1919 that unit is dead on every pair, so no gradient reaches the
+# backbone (ROADMAP Queue 3); at 7 it and the two encoder units are live at
+# init.  The path records the live share at both seeds.
+AAN_MAMBA_SEED = 7
+# 28, Speech Commands S5: the keyword corpus cut to SC_TRAIN / SC_TEST clips
+# (2,048 / 512), 32 steps an epoch at batch 32
+SC_TRAIN, SC_TEST = 1024, 256
 # device kernels of a training step by kind, from their names (first match)
 OP_KINDS = (
     ("scan kernels", ("diag_scan", "sum_rows")),
@@ -1265,13 +1324,16 @@ def step_card_vs_cpu(ph, what: str, fresh, dev, x_step, y_step, lrs, sparse_k,
     card may be GRAD_F64_FACTOR times the CPU's or ``rtol_of_max`` of the
     leaf's max|g|; the parameters within PARAM_ATOL where |g| is at least
     1e-2 of its leaf's max and within the movement bound 2·lr + PARAM_ATOL
-    everywhere.  ``fresh(device)`` gives (model, optimizer, clip norm);
+    everywhere, or, leaf by leaf at those elements, within GRAD_F64_FACTOR
+    times the CPU's own distance from the same step in float64 (the
+    optimiser's step taken on the float64 model).  ``fresh(device)`` gives
+    (model, optimizer, clip norm);
     ``watch`` is (field, name predicate) for leaves whose error ratios are
     printed one by one; with ``check_stats`` the BatchNorm statistics must
     agree within STATS_RTOL.  Fills ``ph.fields``, raises on a failed check, and
     returns the card's (model, optimizer, clip norm) after its step."""
     from tlie_tpu_torch.training import train_step
-    from tlie_tpu_torch.training.state import clip_by_global_norm_
+    from tlie_tpu_torch.training.state import clip_by_global_norm_, set_group_learning_rates
     from tlie_tpu_torch.training.steps import cross_entropy_loss, head_logits
 
     card_m, card_opt, clip = fresh(dev)
@@ -1282,7 +1344,8 @@ def step_card_vs_cpu(ph, what: str, fresh, dev, x_step, y_step, lrs, sparse_k,
     train_step(cpu_m, cpu_opt, x_cpu, y_step.cpu(), lrs, sparse_k, clip_norm=clip)
     cpu_g = {n: p.grad for n, p in cpu_m.named_parameters()}
     card_g = {n: p.grad.cpu() for n, p in card_m.named_parameters()}
-    ref_m = fresh("cpu")[0].double()
+    ref_m, ref_opt, _ = fresh("cpu")
+    ref_m.double()
     x_ref = x_cpu.double() if torch.is_tensor(x_cpu) and x_cpu.is_floating_point() else x_cpu
     cross_entropy_loss(*head_logits(ref_m, x_ref, y_step.cpu(), sparse_k)).backward()
     if clip is None:  # the SSM families take no clip
@@ -1290,6 +1353,8 @@ def step_card_vs_cpu(ph, what: str, fresh, dev, x_step, y_step, lrs, sparse_k,
             [torch.linalg.vector_norm(p.grad) for p in ref_m.parameters()])))
     else:
         raw_norm = float(clip_by_global_norm_(ref_m.parameters(), clip))
+    set_group_learning_rates(ref_opt, lrs)
+    ref_opt.step()  # the same step in float64
     cpu_s = time.perf_counter() - t0
     g_ratio, g_leaf, watched = 0.0, "", {}
     for n, p in ref_m.named_parameters():
@@ -1302,19 +1367,31 @@ def step_card_vs_cpu(ph, what: str, fresh, dev, x_step, y_step, lrs, sparse_k,
         if e_card / allowed > g_ratio:
             g_ratio, g_leaf = e_card / allowed, n
     g_worst = grad_err(card_g, cpu_g)
-    p_worst = p_anywhere = 0.0
-    for (n, p), q in zip(card_m.named_parameters(), cpu_m.parameters()):
-        p_err = (p.detach().cpu() - q.detach()).abs()
+    p_worst = p_anywhere = p_ratio = 0.0
+    p_leaf = ""
+    for (n, p), q, r in zip(card_m.named_parameters(), cpu_m.parameters(), ref_m.parameters()):
+        p_card, p_cpu, p64 = p.detach().cpu().double(), q.detach().double(), r.detach()
+        p_err = (p_card - p_cpu).abs()
         g_abs = cpu_g[n].abs()
         det = g_abs >= 1e-2 * g_abs.max()
-        p_worst = max(p_worst, p_err[det].max().item() if bool(det.any()) else 0.0)
         p_anywhere = max(p_anywhere, p_err.max().item())
+        if not bool(det.any()):
+            continue
+        leaf_worst = p_err[det].max().item()
+        p_worst = max(p_worst, leaf_worst)
+        # the card as near the float64 step as the CPU's float32 step is
+        e_card = (p_card - p64).abs()[det].max().item()
+        e_cpu = (p_cpu - p64).abs()[det].max().item()
+        ratio = min(leaf_worst / PARAM_ATOL, e_card / max(GRAD_F64_FACTOR * e_cpu, PARAM_ATOL))
+        if ratio > p_ratio:
+            p_ratio, p_leaf = ratio, n
     ph.fields.update(raw_grad_norm_f64=f"{raw_norm:.4f}", clip=clip,
                      grad_err_over_allowed=f"{g_ratio:.3f}({g_leaf})")
     if watch is not None:
         ph.fields[watch[0]] = repr(watched)
     ph.fields.update(grad_card_vs_cpu_worst_rel_to_leaf_max=f"{g_worst:.3e}",
                      param_worst_where_grad_determined=f"{p_worst:.3e}",
+                     param_err_over_allowed=f"{p_ratio:.3f}({p_leaf})",
                      param_worst_anywhere=f"{p_anywhere:.3e}", cpu_steps_s=f"{cpu_s:.1f}")
     s_worst = 0.0
     if check_stats:  # BatchNorm's running statistics after the step
@@ -1322,7 +1399,7 @@ def step_card_vs_cpu(ph, what: str, fresh, dev, x_step, y_step, lrs, sparse_k,
                       for b, c in zip(card_m.buffers(), cpu_m.buffers()))
         ph.fields["batch_stats_worst_rel"] = f"{s_worst:.3e}"
     # each group moves an element by at most its own learning rate
-    if not (g_ratio <= 1.0 and p_worst <= PARAM_ATOL
+    if not (g_ratio <= 1.0 and p_ratio <= 1.0
             and p_anywhere <= 2 * max(lrs.values()) + PARAM_ATOL and s_worst <= STATS_RTOL):
         raise AssertionError(f"{what} card vs CPU step: {ph.fields}")
     return card_m, card_opt, clip
@@ -1793,13 +1870,15 @@ def attention_family_path(dev, test_x, test_y, train_split, want_files, full, ta
     return launches
 
 
-def scan_s5_phase(dev, seq, u, flush, tag: str = "s5"):
+def scan_s5_phase(dev, seq, u, flush, tag: str = "s5", f64: bool = False):
     """The scan kernels at S5's shape, from the S5 layer ``seq`` at its
     inputs ``u`` (B, L, H): Λ̄ as its (P,) pair (batch and time stride 0),
     B̄u as (B, L, P) pair planes.  Forward and reverse against the plain
-    loop, the backward against the plain backward with da summed to (P,),
-    then their L2-cold and warm medians of 21 against the bytes bound, in
-    the phases ``{tag}_scan_kernels_vs_plain`` and ``{tag}_scan_kernel_timing``.
+    loop, the backward against the plain backward with da summed to (P,)
+    (with ``f64`` each also against the plain loop in float64 on the same
+    inputs, within the same tolerances), then their L2-cold and warm
+    medians of 21 against the bytes bound, in the phases
+    ``{tag}_scan_kernels_vs_plain`` and ``{tag}_scan_kernel_timing``.
     Returns {name: time_scan_kernel's tuple} and the worst errors."""
     from tlie_tpu_torch.ops.scan import (
         diag_scan_bwd_cuda, diag_scan_bwd_plain, diag_scan_cuda, diag_scan_plain,
@@ -1826,9 +1905,23 @@ def scan_s5_phase(dev, seq, u, flush, tag: str = "s5"):
             ph.fields[mode] = (f"h_rel={err / scale:.2e},d_abs={d_e:.2e}/tol={d_tol:.2e},"
                                f"da_abs={da_e:.2e},da_err_over_tol={da_ratio:.3f},"
                                f"da_shape={tuple(da[0].shape)}")
-            if not (err <= SCAN_RTOL_OF_MAX * scale and d_e <= d_tol and da_ratio <= 1.0
-                    and shape_ok):
-                raise AssertionError(f"scan kernels at S5's shape, {mode}: {ph.fields[mode]}")
+            ok = (err <= SCAN_RTOL_OF_MAX * scale and d_e <= d_tol and da_ratio <= 1.0
+                  and shape_ok)
+            if f64:  # the same inputs in float64 through the plain loops
+                dbl = lambda xs: tuple(x.double() for x in xs)  # noqa: E731
+                h64 = diag_scan_plain(dbl(a), dbl(b), reverse=rev)
+                e64, s64 = scan_err(h, tuple(x.float() for x in h64))
+                da64, d64 = diag_scan_bwd_plain(dbl(a), h64, dbl(g), reverse=rev)
+                d_e64, d_tol64, _, da_ratio64 = bwd_err(
+                    a, tuple(x.float() for x in h64), da, d, tuple(x.float() for x in da64),
+                    tuple(x.float() for x in d64), rev)
+                ph.fields[f"{mode}_vs_f64"] = (f"h_rel={e64 / s64:.2e},d_abs={d_e64:.2e}/"
+                                               f"tol={d_tol64:.2e},"
+                                               f"da_err_over_tol={da_ratio64:.3f}")
+                ok = (ok and e64 <= SCAN_RTOL_OF_MAX * s64 and d_e64 <= d_tol64
+                      and da_ratio64 <= 1.0)
+            if not ok:
+                raise AssertionError(f"scan kernels at S5's shape, {mode}: {ph.fields}")
             errs[mode] = (err, max(d_e, da_e))
         ph.fields.update(shape=f"b={tuple(b[0].shape)}x2,a={tuple(a[0].shape)}x2")
     with Phase(f"{tag}_scan_kernel_timing") as ph, torch.no_grad():
@@ -3497,19 +3590,29 @@ def lra_mamba2_splits(full, tag: str):
 
 
 def classifier_path(dev, want_files, full, tag: str, splits, epochs: int,
-                    analysis_batch: int, step_examples: int, flush=None):
+                    analysis_batch: int, step_examples: int, flush=None, out=None):
     """A pooled classifier's main path on ``splits`` ((inputs, labels) or,
     padded, (tokens, labels, lengths) for the train and the test split),
     weights from the config's seed 1919, ``epochs`` epochs with CIFAR_WARMUP
     of warmup (each path names its cuts).  The families:
 
-    - the Mamba-2 (paths 19, 24, 25) and its pseudo-LTI variant (20): the
-      decay attention's float32 kernels, the forward once a layer a forward
-      and each backward once a layer a step (n + n + n a step);
-    - S4 (21): no port kernel;
+    - the Mamba-2 (paths 19, 24, 25, and the dual one of 27) and its
+      pseudo-LTI variant (20): the decay attention's float32 kernels, the
+      forward once a layer a forward and each backward once a layer a step
+      (n + n + n a step);
+    - S4 (21, 26): no port kernel;
+    - S5 (28): the scan's forward kernel once a layer a forward and its
+      backward once a layer a step (n + n a step); after the step's time,
+      both held to their plain versions and to float64 and timed at the
+      trained layer 0's Λ̄ and inputs (:func:`scan_s5_phase`), their times
+      and errors put in ``out["scan"]``;
     - the transformer classifier (22: softmax attention, materialised since
-      its head dims differ; 23: norm attention with the SiLU gate): no port
-      kernel, the flash kernels among them.
+      its head dims differ; 23: norm attention with the SiLU gate; 27: AAN's
+      linear attention with the dual MATCH head): no port kernel, the flash
+      kernels among them.
+
+    A dual model's inputs are pairs (B, 2, L): its logits are (B, classes),
+    its spectra have 2B document rows, and a step runs 2B documents.
 
     With every count set to 0: the forward on a test batch (card against
     CPU; for the Mamba-2 also the same weights at chunk 256, the
@@ -3538,7 +3641,12 @@ def classifier_path(dev, want_files, full, tag: str, splits, epochs: int,
 
     mc = full["model"]
     is_mamba, lti = mc["layer"] == "mamba", mc.get("pseudoLTI", False)
-    is_tf = mc["layer"] == "transformer"
+    is_tf, is_s5 = mc["layer"] == "transformer", mc["layer"] == "s5"
+    docs = 2 if mc.get("dual", False) else 1  # documents an example
+    # the kernel the forward launches once a layer, and the backward's
+    fwd_kernel, bwd_kernels = (("decay_attention_fwd", ("decay_attention_bwd_i",
+                                                        "decay_attention_bwd_j")) if is_mamba
+                               else ("diag_scan", ("diag_scan_bwd",)) if is_s5 else (None, ()))
     n_layers, bsz, L = mc["num_layers"], full["train"]["batch_size"], mc["seq_len"]
     heads = mc.get("num_heads", 1)
     seed = full["seed"]
@@ -3558,8 +3666,8 @@ def classifier_path(dev, want_files, full, tag: str, splits, epochs: int,
     with Phase(f"{tag}_forward") as ph, torch.no_grad():
         logits = model(inputs)
         torch.cuda.synchronize()
-        want_fwd = n_layers if is_mamba else 0
-        if LAUNCHES["decay_attention_fwd"] != want_fwd or sum(LAUNCHES.values()) != want_fwd:
+        want_fwd = {fwd_kernel: n_layers} if fwd_kernel else {}
+        if {k: v for k, v in LAUNCHES.items() if v} != want_fwd:
             raise AssertionError(f"{tag} forward launches {LAUNCHES}")
         if logits.shape != (bsz, mc["output_dim"]) or not torch.isfinite(logits).all():
             raise AssertionError(f"{tag} forward output {tuple(logits.shape)}")
@@ -3610,7 +3718,7 @@ def classifier_path(dev, want_files, full, tag: str, splits, epochs: int,
     tcfg = copy.deepcopy(full)
     tmp = tempfile.mkdtemp(prefix=f"tlie_{tag}_")
     tcfg["save"] = os.path.join(tmp, "checkpoint", os.path.basename(full["save"]))
-    if full["dataset"]["_name_"] in ("cifar", "imdb"):  # the loader's synthetic split
+    if full["dataset"]["_name_"] in ("cifar", "imdb", "sc"):  # the loader's synthetic split
         tcfg["dataset"]["synthetic"] = True
     tcfg["train"].update(num_epochs=epochs, warmup=CIFAR_WARMUP)
     tcfg = derive_runtime_fields(tcfg, L, len(train_split[0]))
@@ -3626,10 +3734,9 @@ def classifier_path(dev, want_files, full, tag: str, splits, epochs: int,
             steps = f["total_steps"]
             n_eval_batches = len(result.history) * (len(test_x) // bsz)
             want = dict.fromkeys(LAUNCHES, 0)
-            if is_mamba:  # n + n + n a step, the forward also per eval batch
-                want.update(decay_attention_fwd=n_layers * (steps + n_eval_batches),
-                            decay_attention_bwd_i=n_layers * steps,
-                            decay_attention_bwd_j=n_layers * steps)
+            if fwd_kernel:  # n + n (+ n) a step, the forward also per eval batch
+                want[fwd_kernel] = n_layers * (steps + n_eval_batches)
+                want.update(dict.fromkeys(bwd_kernels, n_layers * steps))
             if trained_launches != want:
                 raise AssertionError(f"{tag} training launches {trained_launches}, expected {want}")
             for rec in result.history:
@@ -3671,7 +3778,7 @@ def classifier_path(dev, want_files, full, tag: str, splits, epochs: int,
                 (run_dir,) = os.listdir(eig_dir)
                 files = sorted(os.listdir(os.path.join(eig_dir, run_dir)))
                 saved = np.load(os.path.join(eig_dir, run_dir, "eig.npy"))
-                want_shape = (analysis_batch, L - 1 if is_tf else L, heads, n_layers)
+                want_shape = (docs * analysis_batch, L - 1 if is_tf else L, heads, n_layers)
                 if eig.shape != want_shape or eig_init.shape != want_shape:
                     raise AssertionError(f"{tag} spectra {eig.shape}, {eig_init.shape}")
                 live_err = (float(np.max(np.abs(eig - live) / np.abs(live))) if is_tf
@@ -3723,13 +3830,12 @@ def classifier_path(dev, want_files, full, tag: str, splits, epochs: int,
         nonzero = {k: v for k, v in launches.items() if v}
         print(f"[launches] {tag} forward, training and eval_eig: {nonzero}; training alone: "
               f"{({k: v for k, v in trained_launches.items() if v})}"
-              + (f" ({n_layers} + {n_layers} + {n_layers} a step)" if is_mamba
-                 else " (expected: none; the flash kernels 0)" if is_tf
+              + (f" ({' + '.join([str(n_layers)] * (1 + len(bwd_kernels)))} a step)"
+                 if fwd_kernel else " (expected: none; the flash kernels 0)" if is_tf
                  else " (expected: none)"), flush=True)
-        if is_mamba:
-            others = set(nonzero) - {"decay_attention_fwd", "decay_attention_bwd_i",
-                                     "decay_attention_bwd_j"}
-            if launches["decay_attention_bwd_j"] != want["decay_attention_bwd_j"] or others:
+        if fwd_kernel:
+            others = set(nonzero) - {fwd_kernel, *bwd_kernels}
+            if any(launches[k] != want[k] for k in bwd_kernels) or others:
                 raise AssertionError(f"the {tag} path's launches {launches}")
         elif nonzero:
             raise AssertionError(f"the {tag} path launched port kernels: {launches}")
@@ -3786,20 +3892,137 @@ def classifier_path(dev, want_files, full, tag: str, splits, epochs: int,
         x_full, y_full = on_card(train_split, bsz)
         fields = step_profile(
             lambda: train_step(card_m, card_opt, x_full, y_full, lrs, None, clip_norm=clip),
-            bsz * L, "decay_attention" if is_mamba else None, "decay_attention", n_warm=2,
-            n_timed=10, n_top=8)
+            docs * bsz * L, "decay_attention" if is_mamba else "diag_scan" if is_s5 else None,
+            "decay_attention" if is_mamba else "scan_kernels", n_warm=2, n_timed=10, n_top=8)
         ph.fields.update(fields)
         if is_tf:
             att = card_m.layers[0].attention
-            norm_attention_share(ph, att, bsz, L, n_layers, fields["device_busy_ms"], dev,
-                                 name="norm_attention" if hasattr(att, "Wvqkn")
-                                 else "softmax_attention")
-        elif not is_mamba:
+            name = ("norm_attention" if hasattr(att, "Wvqkn") else "linear_attention"
+                    if att.lin_att else "softmax_attention")
+            norm_attention_share(ph, att, docs * bsz, L, n_layers, fields["device_busy_ms"], dev,
+                                 name=name)
+        elif not (is_mamba or is_s5):
             s4_kernel_share(ph, card_m.encoder.layers[0].seq, n_layers, fields["device_busy_ms"])
         del card_m, card_opt
+    if is_s5:  # the scan kernels at the trained layer 0's Λ̄ and inputs
+        trained_m = result.eval_model
+        with torch.no_grad():
+            u = trained_m.encoder.encoder(inputs)
+        scan = scan_s5_phase(dev, trained_m.encoder.layers[0].seq, u, flush, tag, f64=True)
+        if out is not None:
+            out["scan"] = scan
+        del trained_m, u
     del result, model
     torch.cuda.empty_cache()
     return launches
+
+
+def synthetic_splits(full, tag: str, n_train: int, n_test: int):
+    """The splits of path 26 (PathFinder: float pixels (n, 1024, 1)), 27
+    (AAN: token pairs (n, 2, 4000)) or 28 (Speech Commands: MFCC frames (n,
+    161, 20)) from the loader of the dataset ``full`` names, on its
+    synthetic split of ``n_train`` and ``n_test`` examples (the LRA and
+    Speech Commands files are not in the repository), built once and
+    timed: (inputs, labels) each, and the loader."""
+    from tlie_tpu_torch.data import DATASETS
+
+    mc, L = full["model"], full["model"]["seq_len"]
+    with Phase(f"{tag}_data") as ph:
+        t0 = time.perf_counter()
+        data = DATASETS[full["dataset"]["_name_"]](**dict(
+            full["dataset"], synthetic=True, synthetic_train=n_train, synthetic_test=n_test))
+        train_split, test_split = data.split("train"), data.split("test")
+        build_s = time.perf_counter() - t0
+        pairs = mc.get("dual", False)
+        row = (2, L) if pairs else (L, mc["input_dim"])
+        ph.fields.update(train=train_split[0].shape, test=test_split[0].shape,
+                         dtype=str(train_split[0].dtype), l_max=data.l_max,
+                         classes=data.d_output, build_s=f"{build_s:.2f}")
+        if pairs:
+            ph.fields["vocab_size"] = data.vocab_size
+        if (train_split[0].shape != (n_train,) + row or test_split[0].shape != (n_test,) + row
+                or train_split[0].dtype != (np.int64 if pairs else np.float32)
+                or data.l_max != L or data.d_output != mc["output_dim"]
+                or set(np.unique(train_split[1])) != set(range(mc["output_dim"]))
+                or (pairs and data.vocab_size > mc["vocab_size"])):
+            raise AssertionError(f"{tag} data: {ph.fields}")
+    return (train_split, test_split), data
+
+
+def aan_mamba2_dual(vocab_size: int):
+    """A dual Mamba-2 classifier for AAN's pairs at LISTOPS_MAMBA2_FULL's
+    widths and training settings (6 layers, d_model 128, 4 heads of 32, N
+    64, pre-norm, GLU, a mean pool, the MATCH head of 2 → 1 → 2), batch 8
+    pairs, on documents cut to AAN_MAMBA_L tokens, weights from
+    AAN_MAMBA_SEED; the repository has no such config: the card's check of
+    the Mamba-2's dual head."""
+    from tlie_tpu_torch.config import AAN_TRANSFORMER_FULL, LISTOPS_MAMBA2_FULL
+
+    full = copy.deepcopy(LISTOPS_MAMBA2_FULL)
+    full["seed"] = AAN_MAMBA_SEED
+    full["save"] = "./checkpoint/aan-mamba2-dual"
+    full["dataset"] = dict(AAN_TRANSFORMER_FULL["dataset"], l_max=AAN_MAMBA_L)
+    full["train"].update(batch_size=AAN_TRANSFORMER_FULL["train"]["batch_size"], padded=False,
+                         train_size=AAN_MAMBA_TRAIN)
+    full["model"].update(dual=True, output_dim=2, vocab_size=vocab_size,
+                         max_pos_embed=AAN_MAMBA_L, seq_len=AAN_MAMBA_L)
+    return full
+
+
+def aan_path(dev, want_files, flush=None):
+    """Main path 27: the AAN transformer (``AAN_TRANSFORMER_FULL``: 4 layers,
+    d_model 128, 4 heads, linear attention, the GLU mixer, a position table
+    of 4,000, the classifier MLP of 128 and the dual MATCH head; batch 8
+    pairs, 16 documents of 4,000 tokens) on AAN_TRAIN / AAN_TEST synthetic
+    pairs through :func:`classifier_path` (no port kernel, no flash
+    kernel), then the dual Mamba-2 (:func:`aan_mamba2_dual`) on the same
+    pairs cut as its docstring says, 20 steps through the decay attention's
+    float32 kernels, n + n + n launches a step counted exactly.  Returns
+    {tag: launch counts}."""
+    from tlie_tpu_torch.config import AAN_TRANSFORMER_FULL
+
+    splits, data = synthetic_splits(AAN_TRANSFORMER_FULL, "aan_transformer", AAN_TRAIN,
+                                    AAN_TEST)
+    out = {"aan_transformer": classifier_path(
+        dev, want_files, AAN_TRANSFORMER_FULL, "aan_transformer", splits, LRA_EPOCHS,
+        AAN_ANALYSIS_BATCH, CIFAR_STEP_EXAMPLES, flush)}
+    (tr_x, tr_y), (te_x, te_y) = splits
+    cut = ((np.ascontiguousarray(tr_x[:AAN_MAMBA_TRAIN, :, :AAN_MAMBA_L]), tr_y[:AAN_MAMBA_TRAIN]),
+           (np.ascontiguousarray(te_x[:, :, :AAN_MAMBA_L]), te_y))
+    full = aan_mamba2_dual(AAN_TRANSFORMER_FULL["model"]["vocab_size"])
+    with Phase("aan_mamba2_dual_match_units") as ph:
+        # the share of test pairs on which each ReLU of the MATCH head is live
+        # at init, at the config's seed and at the path's
+        x = torch.as_tensor(cut[1][0][:AAN_ANALYSIS_BATCH], device=dev)
+        for seed in (1919, AAN_MAMBA_SEED):
+            live = match_live_share(dict(full["model"]), seed, x, dev)
+            ph.fields[f"seed_{seed}"] = repr(live)
+        if min(live.values()) <= 0:
+            raise AssertionError(f"a MATCH unit is dead at seed {AAN_MAMBA_SEED}: {ph.fields}")
+    out["aan_mamba2_dual"] = classifier_path(
+        dev, want_files, full, "aan_mamba2_dual", cut, LRA_EPOCHS, AAN_ANALYSIS_BATCH,
+        CIFAR_STEP_EXAMPLES, flush)
+    return out
+
+
+def match_live_share(model_cfg, seed: int, x, dev):
+    """{"encoder": …, "middle": …}: the share of the pairs ``x`` on which
+    the MATCH head's encoder units (any of them) and its middle unit(s) are
+    live (ReLU input > 0), for the model of ``model_cfg`` drawn from
+    ``seed``, in eval mode."""
+    from tlie_tpu_torch.models import build_models
+
+    _, model, _ = build_models(model_cfg, generator=torch.Generator().manual_seed(seed),
+                               device=dev)
+    seen = {}
+    hooks = [getattr(model.match, name).register_forward_hook(
+        lambda mod, inp, out, name=name: seen.__setitem__(name, out)) for name in
+        ("encoder", "middle")]
+    with torch.no_grad():
+        model(x)
+    for h in hooks:
+        h.remove()
+    return {name: round(float((out > 0).any(-1).float().mean()), 4) for name, out in seen.items()}
 
 
 def main() -> int:
@@ -3816,8 +4039,8 @@ def main() -> int:
         CIFAR_MAMBA2_FULL, CIFAR_MAMBA2_LTI_FULL, CIFAR_NORM_ATTENTION_GATING_FULL, CIFAR_S4_FULL,
         CIFAR_SM_ATTENTION_FULL, IMDB_MAMBA2_FULL, LISTOPS_MAMBA2_FULL, LISTOPS_S4_FULL,
         LISTOPS_S5_FULL, MQAR_LIN_ATTENTION_FULL, MQAR_LRU_FULL, MQAR_MAMBA2_FULL,
-        MQAR_NORM_ATTENTION_CONV_FULL, MQAR_S4_FULL, MQAR_S5_FULL, WIKITEXT_LRU_SHORT,
-        derive_runtime_fields, train_fields,
+        MQAR_NORM_ATTENTION_CONV_FULL, MQAR_S4_FULL, MQAR_S5_FULL, PATHFINDER_S4_FULL,
+        SC_S5_MFCC_FULL, WIKITEXT_LRU_SHORT, derive_runtime_fields, train_fields,
     )
     from tlie_tpu_torch.data import MQAR, WikiText, masked_accuracy
     from tlie_tpu_torch.inference import Decoder
@@ -3924,6 +4147,9 @@ def main() -> int:
             # with a decay that varies in time
             "complex_b3_l1301_n40_full_a_rev": (ring((3, 1301, 40)), normal_pair((3, 1301, 40)),
                                                 True),
+            # Speech Commands S5's shape (path 28): 161 MFCC frames fill 161
+            # of a round's 256 steps, P 48 three blocks of 16 channels
+            "complex_b32_l161_n48_lambda": (ring((48,)), normal_pair((32, 161, 48)), False),
         }
         # Mamba-1's (B, L, d_inner·N) view (path 18): 32 × 128 blocks, a walk
         # of a quarter round, forward and reversed, and a ragged L; decays
@@ -3956,6 +4182,8 @@ def main() -> int:
                                          torch.randn(8, 512, 128, device=dev, generator=gen)),
             "complex_b3_l997_n96_lambda": (ring((96,)), normal_pair((3, 997, 96))),
             "complex_b8_l1024_n512_lambda": (ring((512,)), normal_pair((8, 1024, 512))),
+            # Speech Commands S5's (path 28): a ragged round, da summed to (48,)
+            "complex_b32_l161_n48_lambda": (ring((48,)), normal_pair((32, 161, 48))),
             # Mamba-1's view (path 18): da at a's full shape, no batch sum
             "real_b32_l64_n2048_full_a": (torch.rand((32, 64, 2048), device=dev, generator=gen),
                                           torch.randn(32, 64, 2048, device=dev, generator=gen)),
@@ -4937,6 +5165,33 @@ def main() -> int:
         cls_s[tag] = time.perf_counter() - t0
     print(f"[paths 22-25 seconds] {json.dumps({k: round(v, 2) for k, v in cls_s.items()})} "
           f"total {sum(cls_s.values()):.2f}", flush=True)
+
+    # main paths 26-28: PathFinder S4 (no port kernel); AAN, the transformer
+    # with the dual MATCH head (no port kernel) and a dual Mamba-2 (the decay
+    # attention's float32 kernels on 16 documents a step); Speech Commands S5
+    # on MFCC frames (the scan's kernels at (32, 161, 48), 4 + 4 a step)
+    lra_s = {}
+    t0 = time.perf_counter()
+    pf_splits, _ = synthetic_splits(PATHFINDER_S4_FULL, "pathfinder_s4", PF_TRAIN, PF_TEST)
+    cls_all["pathfinder_s4"] = classifier_path(dev, want_files, PATHFINDER_S4_FULL,
+                                               "pathfinder_s4", pf_splits, LRA_EPOCHS,
+                                               CIFAR_ANALYSIS_BATCH, CIFAR_STEP_EXAMPLES, flush)
+    lra_s["pathfinder_s4"] = time.perf_counter() - t0
+    del pf_splits
+    t0 = time.perf_counter()
+    cls_all.update(aan_path(dev, want_files, flush))
+    lra_s["aan"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sc_splits, _ = synthetic_splits(SC_S5_MFCC_FULL, "sc_s5", SC_TRAIN, SC_TEST)
+    sc_out = {}
+    cls_all["sc_s5"] = classifier_path(dev, want_files, SC_S5_MFCC_FULL, "sc_s5", sc_splits,
+                                       LRA_EPOCHS, CIFAR_ANALYSIS_BATCH, CIFAR_STEP_EXAMPLES,
+                                       flush, out=sc_out)
+    lra_s["sc_s5"] = time.perf_counter() - t0
+    del sc_splits
+    print(f"[sc s5 scan kernels] {sc_out['scan'][0]} errors {sc_out['scan'][1]}", flush=True)
+    print(f"[paths 26-28 seconds] {json.dumps({k: round(v, 2) for k, v in lra_s.items()})} "
+          f"total {sum(lra_s.values()):.2f}", flush=True)
 
     def late(name):
         return (path6_all[name] + path7_all[name] + path8_all[name] + path9_all[name]

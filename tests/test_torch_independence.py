@@ -170,6 +170,28 @@ pcfg = dict(IMDB_MAMBA2_FULL["model"], hidden_dim=16, num_heads=2, state_dim=8, 
 _, pm, _ = build_models(pcfg, True, generator=torch.Generator().manual_seed(0), device="cpu")
 with torch.no_grad():
     assert pm(padded).shape == (4, 2)
+from tlie_tpu_torch.config import AAN_TRANSFORMER_FULL, PATHFINDER_S4_FULL, SC_S5_MFCC_FULL
+from tlie_tpu_torch.data import AAN, PathFinder, SpeechCommands
+with contextlib.redirect_stdout(io.StringIO()):  # the loaders' summary lines
+    ax, ay = AAN(synthetic=True, synthetic_train=4, synthetic_test=2, l_max=32).split("train")
+    fx, fy = PathFinder(synthetic=True, synthetic_train=2, synthetic_test=2).split("train")
+    sx, sy = SpeechCommands(mfcc=True, synthetic=True, synthetic_train=2,
+                            synthetic_test=2).split("test")
+assert ax.shape == (4, 2, 32) and fx.shape == (2, 1024, 1) and sx.shape == (2, 161, 20)
+pairs = torch.as_tensor(ax)
+for dcfg in (dict(AAN_TRANSFORMER_FULL["model"], hidden_dim=16, state_dim=16, num_heads=2,
+                  mixer_dim=8, num_layers=1, max_pos_embed=32, seq_len=32),
+             dict(pcfg, dual=True)):
+    dm, dm_eval, _ = build_models(dcfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    dm(pairs).sum().backward()
+    assert dm.match.encoder.weight.grad is not None
+    assert extract_attention_family(dm_eval, pairs, dcfg).shape[0] == 8
+for full, fin in ((PATHFINDER_S4_FULL, fx[:, :64]), (SC_S5_MFCC_FULL, sx)):
+    fcfg = dict(full["model"], hidden_dim=8, state_dim=8, num_layers=1, num_blocks=1,
+                seq_len=fin.shape[1])
+    _, fm, _ = build_models(fcfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    with torch.no_grad():
+        assert fm(torch.as_tensor(fin)).shape == (2, full["model"]["output_dim"])
 bcfg = dict(mcfg, compute_dtype="bfloat16")
 _, bm, _ = build_models(bcfg, generator=torch.Generator().manual_seed(0), device="cpu")
 with torch.no_grad():

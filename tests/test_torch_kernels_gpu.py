@@ -39,8 +39,9 @@ def _close(h, ref):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape, a_shape", [((2, 256, 128), (256, 128)), ((3, 77, 40), (40,))],
-                         ids=["lru_like", "ragged"])
+@pytest.mark.parametrize("shape, a_shape", [((2, 256, 128), (256, 128)), ((3, 77, 40), (40,)),
+                                            ((32, 161, 48), (48,))],
+                         ids=["lru_like", "ragged", "speech_commands_s5"])
 def test_complex_scan_kernel_matches_plain(cuda_device, shape, a_shape):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     r = 0.9 + 0.09 * torch.rand(a_shape, device=cuda_device, generator=g)
@@ -115,9 +116,10 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
 @pytest.mark.parametrize("shape, a_shape", [((4, 512, 128), (128,)), ((2, 300, 40), (300, 40)),
                                             ((3, 97, 96), (3, 97, 96)),
                                             ((8, 1024, 512), (512,)),
-                                            ((3, 1001, 40), (40,))],
+                                            ((3, 1001, 40), (40,)),
+                                            ((32, 161, 48), (48,))],
                          ids=["lru_lambda", "per_step", "per_example", "lm_lambda",
-                              "ragged_lambda"])
+                              "ragged_lambda", "speech_commands_s5"])
 def test_backward_kernel_matches_plain(cuda_device, shape, a_shape, reverse):
     g = torch.Generator(device=cuda_device).manual_seed(2)
     r = 0.9 + 0.09 * torch.rand(a_shape, device=cuda_device, generator=g)

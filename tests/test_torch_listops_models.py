@@ -181,8 +181,9 @@ def test_padded_inputs_refused_outside_the_ssm_families():
     transformer families build with ``padded`` and take ``(tokens,
     lengths)``, dropping the lengths (their parity with tlie_tpu is in
     tests/test_torch_transformer_classifier.py and
-    tests/test_torch_mamba2_padded.py); what they still refuse is the dual
-    head."""
+    tests/test_torch_mamba2_padded.py); so is the dual head, whose model
+    takes pairs of them (tests/test_torch_aan_dual.py): the padded batch's
+    rows as (B, 2, L) pairs give (B, classes) logits, the lengths dropped."""
     from tlie_tpu_torch.config import MQAR_MAMBA2_FULL, MQAR_SM_ATTENTION_FULL
 
     x, lengths, _ = padded_batch()
@@ -194,8 +195,13 @@ def test_padded_inputs_refused_outside_the_ssm_families():
         with torch.no_grad():
             padded = model(port_input(x, lengths))
             torch.testing.assert_close(padded, model(torch.from_numpy(x).long()), rtol=0, atol=0)
-        with pytest.raises(NotImplementedError, match="dual"):
-            build_models(dict(mc, dual=True), True, generator=torch.Generator(), device="cpu")
+        dcfg = dict(mc, dual=True, classifier=True, mixer_dim=8)
+        _, dual, _ = build_models(dcfg, True, generator=torch.Generator(), device="cpu")
+        pairs = torch.from_numpy(x[: len(x) // 2 * 2]).long().reshape(-1, 2, x.shape[1])
+        with torch.no_grad():
+            out = dual((pairs, torch.from_numpy(lengths[: len(pairs)]).float()))
+            torch.testing.assert_close(out, dual(pairs), rtol=0, atol=0)
+        assert out.shape == (len(pairs), 10)
 
 
 # -- the classifiers -------------------------------------------------------------------------------

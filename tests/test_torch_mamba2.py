@@ -340,10 +340,13 @@ def test_registry_refuses_what_is_not_ported(small):
     for bad, err in (({"version": "mamba1", "compute_dtype": "bfloat16"}, NotImplementedError),
                      ({"version": "mamba3"}, RuntimeError),
                      ({"layer": "transformer", "compute_dtype": "bfloat16"},
-                      NotImplementedError),
-                     ({"dual": True}, NotImplementedError)):
+                      NotImplementedError)):
         with pytest.raises(err):
             build_models(dict(model_cfg, **bad), generator=g, device="cpu")
+    # the dual MATCH head is ported (tests/test_torch_aan_dual.py)
+    dual, _, _ = build_models(dict(model_cfg, dual=True), generator=g, device="cpu")
+    assert {n for n in dual.state_dict() if n.startswith("match.")} == {
+        f"match.{m}.{k}" for m in ("encoder", "middle", "decoder") for k in ("weight", "bias")}
     with pytest.raises(NotImplementedError):
         model, _, _ = build_models(model_cfg, generator=g, device="cpu")
         make_family_optimizer(model, "mamba", model_cfg, {"param_group": "A_log"},

@@ -228,11 +228,12 @@ def test_compat_carries_the_classifier_and_the_gate_both_ways():
 
 
 def test_what_stays_refused():
-    """The dual head still raises, and so does decoding a gated or
-    classifier transformer."""
+    """The dual head builds (tests/test_torch_aan_dual.py) and decoding it
+    raises, as decoding a gated or classifier transformer does."""
     mc = tiny()
-    with pytest.raises(NotImplementedError, match="dual"):
-        build_models(dict(mc, dual=True), generator=torch.Generator(), device="cpu")
+    dual = build_models(dict(mc, dual=True), generator=torch.Generator(), device="cpu")[1]
+    with pytest.raises(ValueError, match="dual"):
+        Decoder(dict(mc, dual=True, classifier=False), dual, device="cpu")
     lm = dict(mc, classifier=False, use_gate=True)
     model = build_models(lm, generator=torch.Generator(), device="cpu")[1]
     with pytest.raises(NotImplementedError, match="use_gate"):

@@ -20,7 +20,10 @@ mode.  A classifier's head (the transformer's ``ClassifierHead``, the
 Mamba's pooled decoder) never enters the spectra: the collector runs the
 encoder and the blocks only.  A padded split's analysis batch is its
 tokens alone, as ``tlie_tpu``'s ``prep_batch(..., lang_model=True)``
-leaves them (``eval_eig.py:326-328``).
+leaves them (``eval_eig.py:326-328``).  A dual model's analysis batch is
+its pairs (B, 2, L), folded into 2B documents as its forward folds them;
+``tlie_tpu`` first pads the pair axis to ``seq_len`` and reads rows 0 and
+1 alone, so both give the same spectra.
 
 The init spectra come from the port's own seeded init (``torch.Generator``
 seeded with ``args["seed"]``); JAX's draws cannot be reproduced, so they
@@ -43,6 +46,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..models.layers import fold_pairs
 from ..models.registry import build_models
 from ..training.checkpoint import restore_checkpoint
 from .artifacts import (
@@ -101,7 +105,11 @@ def extract_attention_family(model: nn.Module, inputs: torch.Tensor,
     attention's with the offset only where the config sets ``offset``.  An
     unknown ``attention_fn`` raises.  The encoder runs without its dropout
     and the final norm is not applied, as the reference's collector runs
-    them."""
+    them.  A dual model's pairs (B, 2, L) are folded into the batch first,
+    as its forward folds them (``tlie_tpu/analysis/eval_eig.py:117-126``):
+    the spectra then have 2B per-document rows, the first documents first."""
+    if getattr(model, "dual", False):
+        inputs = fold_pairs(inputs)
     h = model.encoder(inputs)
     etas = []
     for block in model.blocks if hasattr(model, "blocks") else model.layers:

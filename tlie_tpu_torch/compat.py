@@ -20,7 +20,8 @@ and ``dt_proj``); so does the transformer family
 ``layers.{i}.mixer.{linear,encoder,decoder}``, ``norm``, the classifier's
 ``classifier.{encoder,decoder}``) onto ``layers_i/attention/*``,
 ``layers_i/Wz``, ``layers_i/norm``, ``layers_i/mixer/*``, ``norm`` and
-``classifier/*``.  Dense kernels (in, out) become ``nn.Linear`` weights (out, in);
+``classifier/*``; the dual models' ``match.{encoder,middle,decoder}``
+onto ``match/*``.  Dense kernels (in, out) become ``nn.Linear`` weights (out, in);
 the SSM token encoder keeps flax's (in,
 out) layout, since it is a gather table; the depthwise conv's (K, C) becomes
 ``nn.Conv1d``'s (C, 1, K).  ``batch_stats`` {mean, var} are the BatchNorm
@@ -51,6 +52,7 @@ _TF = r"layers\.(?P<i>\d+)"
 _FLAX_TF = r"params/layers_(?P<i>\d+)"
 _ATT = r"(?P<a>Wqkv|Wvqkn|out_proj)"
 _MLP = r"(?P<m>encoder|decoder)"
+_MATCH = r"(?P<mt>encoder|middle|decoder)"
 # layout changes between the two sides
 T, CONV = "T", "conv"
 # (state_dict key, flax "collection/path", layout change), as regexes with
@@ -109,6 +111,9 @@ _RULES = (
     # the transformer's classifier head
     (r"classifier\." + _MLP + r"\.weight", r"params/classifier/" + _MLP + r"/kernel", T),
     (r"classifier\." + _MLP + r"\.bias", r"params/classifier/" + _MLP + r"/bias", None),
+    # the dual models' retrieval head
+    (r"match\." + _MATCH + r"\.weight", r"params/match/" + _MATCH + r"/kernel", T),
+    (r"match\." + _MATCH + r"\.bias", r"params/match/" + _MATCH + r"/bias", None),
 )
 
 

@@ -722,3 +722,82 @@ IMDB_MAMBA2_FULL = _lra_mamba2_full(
     {"num_epochs": 30, "batch_size": 6, "train_size": 2048}, 4096,
     num_layers=4, output_dim=2, vocab_size=134, max_pos_embed=4096, mixer="none",
     mixer_dim=512, classifier=False)
+
+
+# configs/tasks/pathfinder/pathfinder-s4.yaml resolved with the PathFinder
+# dataset it names: 32×32 images as L 1024 float pixels (centred), the 16,384
+# images of the synthetic split the YAML asks for (327 steps an epoch at
+# batch 50); 4 S4 layers of d 256, N 64, BatchNorm, a mean pool.  A CPU test
+# pins the dict to the YAML as tlie_tpu.config resolves it.
+PATHFINDER_S4_FULL: Dict[str, Any] = {
+    "seed": 1919,
+    "save": "./checkpoint/pathfinder-s4",
+    "dataset": {"name": "PathFinder", "_name_": "pathfinder", "synthetic": True,
+                "synthetic_train": 16384, "synthetic_test": 2048},
+    "train": {
+        "num_epochs": 20, "batch_size": 50, "param_group": None, "wd": 0.05,
+        "cosine_anneal": True, "warmup": 2, "lr": 0.004, "ssm_lr": 0.001, "lr_min": 1.0e-07,
+        "reduce_factor": 0.5, "lr_patience": 10, "padded": False, "train_size": 16384,
+    },
+    "model": {
+        "layer": "s4", "dt_min": 0.001, "dt_max": 0.1, "num_layers": 4,
+        "activation": "full_glu", "input_dim": 1, "output_dim": 2, "hidden_dim": 256,
+        "state_dim": 64, "dropout": 0.1, "norm": "batch", "pooling": "mean",
+        "ssm_lr_vars": ["Lambda_re", "Lambda_im", "P", "B", "log_step"],
+        "prenorm": False, "dual": False, "decode": False, "seq_len": 1024,
+    },
+    "lang_model": False,
+}
+
+# configs/tasks/aan/aan-transformer.yaml resolved with the AAN dataset it
+# names: pairs of char-level documents of l_max 4,000, the 4,096 pairs of the
+# synthetic corpus the YAML asks for (512 steps an epoch at batch 8 pairs, 16
+# documents); 4 linear-attention layers of d 128, 4 heads, the GLU mixer, a
+# position table of 4,000, the classifier MLP of 128 and the dual MATCH head.
+# A CPU test pins the dict to the YAML as tlie_tpu.config resolves it.
+AAN_TRANSFORMER_FULL: Dict[str, Any] = {
+    "seed": 1919,
+    "save": "./checkpoint/aan-transformer",
+    "dataset": {"name": "AAN", "_name_": "aan", "l_max": 4000, "synthetic": True,
+                "synthetic_train": 4096, "synthetic_test": 512},
+    "train": {
+        "num_epochs": 20, "batch_size": 8, "param_group": None, "wd": 0.01,
+        "cosine_anneal": True, "warmup": 2, "lr": 0.002, "lr_min": 1.0e-07,
+        "reduce_factor": 0.5, "lr_patience": 5, "padded": False, "train_size": 4096,
+    },
+    "model": {
+        "layer": "transformer", "attention_fn": "lin-attention", "use_flash": False,
+        "num_layers": 4, "hidden_dim": 128, "state_dim": 128, "num_heads": 4,
+        "att_dropout": 0.0, "norm": "layer", "embedding": True, "vocab_size": 128,
+        "max_pos_embed": 4000, "mixer": "glu", "mixer_dim": 128, "dropout": 0.1,
+        "input_dim": 1, "output_dim": 2, "classifier": True, "pooling": "mean", "dual": True,
+        "seq_len": 4000,
+    },
+    "lang_model": False,
+}
+
+# configs/sc-s5-mfcc.yaml resolved with the Speech Commands dataset it names:
+# 161 MFCC frames of 20 coefficients, the 2,048 clips of the synthetic corpus
+# the YAML asks for (64 steps an epoch at batch 32), 10 classes; 4 S5 layers of
+# H 96, state 96 (P 48 after conj-sym), ZOH, half_glu1, BatchNorm, a mean
+# pool.  A CPU test pins the dict to the YAML as tlie_tpu.config resolves it.
+SC_S5_MFCC_FULL: Dict[str, Any] = {
+    "seed": 1919,
+    "save": "./checkpoint/sc-s5-mfcc",
+    "dataset": {"name": "SC", "_name_": "sc", "mfcc": True, "all_classes": False,
+                "length": 16000, "synthetic_train": 2048, "synthetic_test": 512},
+    "train": {
+        "num_epochs": 20, "batch_size": 32, "lr": 0.004, "wd": 0.05, "ssm_lr": 0.001,
+        "lr_min": 1.0e-07, "reduce_factor": 0.5, "lr_patience": 10, "warmup": 1,
+        "cosine_anneal": True, "param_group": None, "padded": False, "train_size": 2048,
+    },
+    "model": {
+        "layer": "s5", "dt_min": 0.001, "dt_max": 0.1, "num_layers": 4,
+        "activation": "half_glu1", "C_init": "lecun_normal", "discretization": "zoh",
+        "conj_sym": True, "num_blocks": 8, "input_dim": 20, "output_dim": 10,
+        "hidden_dim": 96, "state_dim": 96, "dropout": 0.1, "norm": "batch", "pooling": "mean",
+        "ssm_lr_vars": ["Lambda_re", "Lambda_im", "B", "log_step"],
+        "prenorm": False, "dual": False, "decode": False, "seq_len": 161,
+    },
+    "lang_model": False,
+}

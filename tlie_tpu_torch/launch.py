@@ -56,13 +56,26 @@ the loader's synthetic corpus:
     python -m tlie_tpu_torch.launch --config tasks/imdb/imdb-mamba2.yaml \
         --analysis_config configs/analysis/imdb.yaml
 
+PathFinder's S4 (``tasks/pathfinder/pathfinder-s4.yaml``: (n, 1024, 1)
+pixels), AAN's dual transformer (``tasks/aan/aan-transformer.yaml``: pairs
+of char tokens (n, 2, 4000), folded into the batch and joined by the
+``MATCH`` head) and the Speech Commands S5 (``sc-s5-mfcc.yaml``: 161 MFCC
+frames of 20) read the lra_release and Speech Commands files under
+``dataset.data_dir`` or, where there are none, as in this repository, the
+loaders' synthetic splits; no analysis config is named for them, and
+``configs/analysis/listops.yaml`` serves:
+
+    python -m tlie_tpu_torch.launch --config tasks/aan/aan-transformer.yaml \
+        --analysis_config configs/analysis/listops.yaml
+
 ``--config`` paths resolve against ``configs/`` first, then as given.  The
 run trains on the card unless ``--device cpu`` is given (a CUDA request
 without a card raises), writes the checkpoint named by the config's
 ``save``, and runs ``eval_eig`` of the trained weights into the analysis
 config's ``save_path``.  The datasets are those of
 :data:`tlie_tpu_torch.data.DATASETS`, the ``SequenceDataset`` registry (MQAR,
-WikiText, ListOps, CIFAR-10, MNIST, IMDB); W&B is not ported and raises.
+WikiText, ListOps, CIFAR-10, MNIST, IMDB, PathFinder, AAN, Speech
+Commands); W&B is not ported and raises.
 
 ``--sweep`` takes a sweep file (``base_config`` + ``sweep`` lists, e.g.
 ``configs/sweep/mqar-lin-attention-seeds-lrs-8k.yaml``), builds the dataset

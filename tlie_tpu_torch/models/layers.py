@@ -1,8 +1,10 @@
 """Shared blocks of the Mamba and transformer families, counterparts of
 ``tlie_tpu/models/layers.py``: the torch default initialisers drawn from an
 explicit ``torch.Generator``, ``GLU``, ``MLP``, the transformer's
-``ClassifierHead``, ``TokenEmbeddings`` (with the transformer's position
-table), ``DepthwiseCausalConv`` and the element-wise ``Dropout``.
+``ClassifierHead``, the retrieval head ``MATCH`` and the pair fold of the
+dual models (:func:`fold_pairs`), ``TokenEmbeddings`` (with the
+transformer's position table), ``DepthwiseCausalConv`` and the
+element-wise ``Dropout``.
 
 Module and parameter names are the reference's torch names, so a port
 ``state_dict`` maps onto the flax tree through
@@ -130,6 +132,36 @@ class ClassifierHead(nn.Module):
         if self.encoder is None:
             return x
         return self.decoder(F.relu(self.encoder(x)))
+
+
+def fold_pairs(x):
+    """A retrieval batch of pairs, integer tokens (B, 2, L), as (2B, L): the
+    first documents, then the second ones (the dual models' fold,
+    ``tlie_tpu/models/transformer.py:189-193``); any other input as it
+    is."""
+    if torch.is_tensor(x) and x.dim() == 3 and not torch.is_floating_point(x):
+        return torch.cat([x[:, 0], x[:, 1]], dim=0)
+    return x
+
+
+class MATCH(nn.Module):
+    """The retrieval head (``MATCH``): the two halves of a folded batch's
+    rows side by side, (B, 2d), then ``encoder`` (to ``mlp_dim``) → ReLU →
+    ``middle`` (to ``mlp_dim // 2``) → ReLU → ``decoder`` (to
+    ``output_dim``), torch's default init.  It computes in float32 at
+    least, as flax's ``Dense`` promotes a bfloat16 input."""
+
+    def __init__(self, d: int, mlp_dim: int, output_dim: int, generator: torch.Generator):
+        super().__init__()
+        self.encoder = linear(2 * d, mlp_dim, generator)
+        self.middle = linear(mlp_dim, mlp_dim // 2, generator)
+        self.decoder = linear(mlp_dim // 2, output_dim, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x1, x2 = torch.chunk(x, 2, dim=0)
+        x = torch.cat([x1, x2], dim=-1)
+        x = x.to(torch.promote_types(x.dtype, self.encoder.weight.dtype))
+        return self.decoder(F.relu(self.middle(F.relu(self.encoder(x)))))
 
 
 class TokenEmbeddings(nn.Module):

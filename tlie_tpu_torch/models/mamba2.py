@@ -40,8 +40,13 @@ d_state) lattice through :func:`tlie_tpu_torch.ops.scan.diag_linear_scan`
 (on the card, the scan's forward and backward kernels with a decay that
 varies in time), then y·SiLU(z) and ``out_proj``.  It computes in float32.
 
-Not ported yet, and refused: bfloat16 for Mamba-1 and the dual (``MATCH``)
-head.
+With ``dual: true`` (AAN retrieval) a batch of pairs, tokens (B, 2, L), is
+folded into (2B, L) documents before the encoder, and the decoder's 2B
+pooled rows go through ``MATCH(output_dim, output_dim)`` as B pairs
+(``match.{encoder,middle,decoder}``: 2·classes → classes → classes // 2 →
+classes, as in ``tlie_tpu``).
+
+Not ported yet, and refused: bfloat16 for Mamba-1.
 """
 
 from __future__ import annotations
@@ -55,7 +60,9 @@ from torch import nn
 
 from ..ops.scan import diag_linear_scan
 from ..ops.ssd import ssd_chunked_scan
-from .layers import GLU, DepthwiseCausalConv, Dropout, TokenEmbeddings, linear, uniform_
+from .layers import (
+    GLU, MATCH, DepthwiseCausalConv, Dropout, TokenEmbeddings, fold_pairs, linear, uniform_,
+)
 
 
 # the SSD's init ranges, which no config changes: dt log-uniform on
@@ -296,8 +303,6 @@ class Mamba(nn.Module):
 
     def __init__(self, cfg: Dict[str, Any], generator: torch.Generator):
         super().__init__()
-        if cfg.get("dual", False):
-            raise NotImplementedError("the dual (MATCH) Mamba head is not ported yet")
         hidden = cfg["hidden_dim"]
         dtype = torch.bfloat16 if cfg.get("compute_dtype") == "bfloat16" else None
         self.pooling = cfg.get("pooling", "none")
@@ -309,13 +314,19 @@ class Mamba(nn.Module):
         self.blocks = nn.ModuleList(MambaBlock(cfg, generator, dtype)
                                     for _ in range(cfg["num_layers"]))
         self.decoder = linear(hidden, cfg["output_dim"], generator, compute_dtype=dtype)
+        self.dual = bool(cfg.get("dual", False))
+        if self.dual:
+            self.match = MATCH(cfg["output_dim"], cfg["output_dim"], cfg["output_dim"], generator)
 
     def features(self, x) -> torch.Tensor:
         """Backbone features before the decoder (``features``); a padded
         batch, ``(tokens, lengths)``, runs as its tokens alone, the lengths
-        dropped as ``tlie_tpu`` and the reference drop them."""
+        dropped as ``tlie_tpu`` and the reference drop them, and a dual
+        model's pairs are folded into the batch."""
         if isinstance(x, tuple):
             x, _ = x
+        if self.dual:
+            x = fold_pairs(x)
         x = self.encoder(x)
         for block in self.blocks:
             x = block(x)
@@ -329,4 +340,5 @@ class Mamba(nn.Module):
             x = x.amax(dim=-2)
         elif self.pooling == "last":
             x = x[..., -1, :]
-        return self.decoder(x)
+        x = self.decoder(x)
+        return self.match(x) if self.dual else x

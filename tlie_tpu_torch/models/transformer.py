@@ -18,17 +18,21 @@ bias-free per-position decoder, or with ``classifier: true`` the
 ``ClassifierHead`` (``pooling`` over time, no mask, then ``mixer_dim`` →
 ReLU → classes); it returns logits.  A padded batch, ``(tokens,
 lengths)``, runs as its tokens alone: the lengths are dropped, as
-``tlie_tpu`` and the reference drop them.  Parameter names are the
+``tlie_tpu`` and the reference drop them.  With ``dual: true`` (AAN
+retrieval, which needs ``classifier: true``) a batch of pairs, tokens (B,
+2, L), is folded into (2B, L) documents before the encoder, and the
+classifier's 2B rows go through ``MATCH(mixer_dim, output_dim)`` as B
+pairs.  Parameter names are the
 reference's torch names (``encoder.word_embeddings``,
 ``encoder.position_embeddings``, ``layers.{i}.attention.{Wqkv,out_proj}``,
 for norm attention ``layers.{i}.attention.{Wvqkn,offset}``,
 ``layers.{i}.Wz``, ``layers.{i}.norm``,
 ``layers.{i}.mixer.{linear,encoder,decoder}``, ``norm``, ``decoder`` or
-``classifier.{encoder,decoder}``).
+``classifier.{encoder,decoder}``, ``match.{encoder,middle,decoder}``).
 
 Weights are drawn from an explicit ``torch.Generator`` with the reference's
-distributions.  Not ported yet, and refused: the ``hybrid`` mixer, the dual
-(``MATCH``) head, the dense input encoder (``embedding: false``), bf16.
+distributions.  Not ported yet, and refused: the ``hybrid`` mixer, the
+dense input encoder (``embedding: false``), bf16.
 """
 
 from __future__ import annotations
@@ -41,7 +45,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from .attention_layers import MHA, MHNA
-from .layers import GLU, MLP, ClassifierHead, Dropout, TokenEmbeddings, linear, uniform_
+from .layers import (
+    GLU, MATCH, MLP, ClassifierHead, Dropout, TokenEmbeddings, fold_pairs, linear, uniform_,
+)
 
 
 class TransformerBlock(nn.Module):
@@ -106,12 +112,11 @@ class TransformerBlock(nn.Module):
 class Transformer(nn.Module):
     """Embeddings → dropout → N × TransformerBlock → LayerNorm → the
     per-position decoder, or the classifier head with ``classifier: true``
-    (``Transformer``); returns logits."""
+    (then ``MATCH`` over the pairs with ``dual: true``) (``Transformer``);
+    returns logits."""
 
     def __init__(self, cfg: Dict[str, Any], generator: torch.Generator):
         super().__init__()
-        if cfg.get("dual", False):
-            raise NotImplementedError("the transformer's dual (MATCH) head is not ported yet")
         if not cfg.get("embedding", False):
             raise NotImplementedError("the dense input encoder (embedding: false) is not "
                                       "ported yet")
@@ -125,6 +130,9 @@ class Transformer(nn.Module):
                                              cfg["pooling"], generator)
         else:
             self.decoder = linear(hidden, cfg["output_dim"], generator, bias=False)
+        self.dual = bool(cfg.get("dual", False))
+        if self.dual and hasattr(self, "classifier"):  # flax makes it only where it is used
+            self.match = MATCH(cfg["output_dim"], cfg["mixer_dim"], cfg["output_dim"], generator)
         if cfg["norm"] != "layer":
             raise RuntimeError(f"{cfg['norm']} norm not implemented yet!")
         self.norm = nn.LayerNorm(hidden, eps=1e-5)
@@ -132,14 +140,19 @@ class Transformer(nn.Module):
 
     def features(self, x) -> torch.Tensor:
         """Backbone features before the head (``features``); a padded batch's
-        lengths are dropped."""
+        lengths are dropped, and a dual model's pairs folded into the
+        batch."""
         if isinstance(x, tuple):
             x, _ = x
+        if self.dual:
+            x = fold_pairs(x)
         x = self.drop(self.encoder(x))
         for layer in self.layers:
             x = layer(x)
         return self.norm(x)
 
     def forward(self, x) -> torch.Tensor:
-        head = self.classifier if hasattr(self, "classifier") else self.decoder
-        return head(self.features(x))
+        if not hasattr(self, "classifier"):
+            return self.decoder(self.features(x))
+        x = self.classifier(self.features(x))
+        return self.match(x) if self.dual else x

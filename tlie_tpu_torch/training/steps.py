@@ -160,7 +160,14 @@ def prep_batch(batch, seq_len: int, in_dim: int, lang_model: bool = False,
     backbone's masked mean pool; the Mamba and transformer families take
     the pair and drop the lengths (``tlie_tpu/training/steps.py:80-96``).
     With ``lang_model`` the tokens come alone, as eval_eig's analysis
-    batch does in ``tlie_tpu``."""
+    batch does in ``tlie_tpu``.
+
+    A retrieval batch of pairs, integer tokens (B, 2, L) (AAN), is not
+    padded: its axis 1 is the pair, not time.  ``tlie_tpu``'s
+    ``prep_batch`` pads that axis up to ``seq_len`` (``steps.py:82-85``),
+    (B, 2, L) → (B, seq_len, L) tokens, B·seq_len·L at l_max 4000 where
+    2·B·L are read; the dual models read only rows 0 and 1, so the logits
+    are the same, and the port gives them without the padded copy."""
     if len(batch) == 2:
         inputs, targets = batch
         aux: Dict[str, Any] = {}
@@ -170,8 +177,9 @@ def prep_batch(batch, seq_len: int, in_dim: int, lang_model: bool = False,
     targets = torch.as_tensor(np.asarray(targets), device=device)
     lengths = aux.get("lengths") if isinstance(aux, dict) else None
 
+    pairs = inputs.dim() == 3 and not torch.is_floating_point(inputs)
     num_pad = seq_len - inputs.shape[1]
-    if num_pad > 0:
+    if num_pad > 0 and not pairs:
         pad = [0, 0] * (inputs.dim() - 2) + [0, num_pad]
         inputs = F.pad(inputs, pad)
 
