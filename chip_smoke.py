@@ -32,7 +32,13 @@ read just after:
    head of 128, vocab 8192, L 512, batch 64): its forward on the test batch,
    100 training steps (AdamW behind the global-norm clip, the sparse head) on
    the same cut train split, the checkpoint reloaded and eigen-analysed from
-   activations;
+   activations, and served from it (``Decoder.from_checkpoint``: 64 prompts
+   of 384 tokens, three chunks of 128, and of 496, 31 chunks of 16, each
+   prefill through the decay attention's forward once a layer and held to
+   the forward and to the step path's state, 16 greedy tokens with their
+   step path held to the forward, seeded sampling with top-k and top-p, and
+   ``python -m tlie_tpu_torch.tools.generate`` in a subprocess); then its
+   untrained pseudo-LTI variant (``SSD_LTI``) served the same way;
 5. the MQAR softmax transformer (``MQAR_SM_ATTENTION_FULL``: 2 layers,
    d_model 128, one head of 128, vocab 8192, position table 512, L 512,
    batch 64, dropout 0.1): its forward on the test batch, 100 training steps
@@ -54,8 +60,10 @@ read just after:
    layers, d_model and N 512, 8 heads of 64, block 1024, batch 8, vocab
    50,257, the dense head, float32): 20 training steps and one perplexity
    eval through the decay attention's float32 kernels, the checkpoint
-   eigen-analysed, the step's time, idle share and the decay attention's
-   share of device time;
+   eigen-analysed, serving (8 prompts of a whole block, one chunk of 1,024,
+   through the decay attention's forward, held to the forward and the step
+   path, 16 greedy tokens, with the state in float32 and in bfloat16), the
+   step's time, idle share and the decay attention's share of device time;
 9. the same model in bfloat16 (``configs/wikitext-mamba2-short-bf16.yaml``,
    ``compute_dtype: bfloat16``) along the same phases, through the decay
    attention's bfloat16 kernels and no float32 one, its checkpoint
@@ -123,9 +131,12 @@ read just after:
    split: its forward (card against CPU), 200 training steps through the
    scan's forward and backward kernels on the (32, 64, 2048) view with a
    decay that varies in time (2 + 2 a step), the checkpoint reloaded and
-   eigen-analysed, the card step against the CPU step, the step's time,
-   and the scan kernels held to their plain versions and timed at the
-   trained model's own decay;
+   eigen-analysed, serving (32 prompts of 48 tokens, the prefill through
+   the scan's forward once a layer on the (32, 48, 2048) view, held to the
+   forward and the step path, 16 greedy tokens), the card step against the
+   CPU step, the step's time, and the scan kernels held to their plain
+   versions and timed at the trained model's own decay and the forward at
+   the prefill's;
 19. the sequential CIFAR-10 Mamba-2 classifier (``CIFAR_MAMBA2_FULL``: 6
    layers, d_model 512, 4 heads of 128, N 64, conv 4, GLU, post-norm, the
    dense encoder from one grayscale feature, a mean pool, 10 classes, batch
@@ -197,7 +208,9 @@ read just after:
    and to float64 and timed at the trained layer's Λ̄.
 Paths 6, 7, 10, 13, 15, 16, 17, 21, 22, 23, 26 and 27's transformer reach
 no Pallas kernel in ``tlie_tpu``: no port kernel launches on them, and the
-script checks that.  The decay attention's three
+script checks that.  The decay attention's forward is also held and timed at the serving
+prefills' own operands (path 4's (192, 128, 128, 1, 128) and (1984, 16, 128,
+1, 128)).  The decay attention's three
 kernels are also held on bfloat16 operands against the plain bfloat16
 version (the WikiText Mamba-2, MQAR and a ragged shape) and timed against
 the bfloat16 tensor-core bound, and so are the fused head's three bfloat16
@@ -474,6 +487,31 @@ LMS_RTOL = 1e-5
 # 16 test examples (configs/analysis/mqar.yaml's 64 until paths 22-25 came:
 # each spectrum is (B, 64, 2048, 2), 67 MB at 64)
 M1_STEPS, M1_EVAL_EVERY, M1_ANALYSIS_BATCH = 200, 100, 16
+# serving the Mamba family (paths 4, 8 and 18, and the untrained pseudo-LTI
+# variant beside path 4): MAMBA_NEW greedy tokens after each prompt; path 4
+# prefills TF_PROMPT tokens (the chunk 128, three chunks) and
+# MAMBA_PROMPT_Q16 (16 · 31: the chunk 16, 31 chunks), samples at
+# SAMPLE_ARGS from generators seeded SAMPLE_SEED, and the pseudo-LTI variant
+# draws its weights from LTI_SEED (MQAR_MAMBA2_FULL's seed; no config sets
+# pseudoLTI for an LM); path 8 prefills WT_SERVE_ROWS whole blocks (one chunk
+# of 1,024) and holds WT_CHECK_ROWS generated rows to the forward; path 18
+# prefills M1_PROMPT tokens of its test batch
+MAMBA_NEW, MAMBA_PROMPT_Q16 = 16, 496
+# the serving times are the best of SERVE_REPEATS calls after a warm one: a
+# step is host-paced, and one call's time moves with the host
+SERVE_REPEATS = 3
+SAMPLE_ARGS, SAMPLE_SEED = {"temperature": 0.8, "top_k": 40, "top_p": 0.9}, 28
+LTI_SEED = 1919
+WT_SERVE_ROWS, WT_CHECK_ROWS = 8, 2
+M1_PROMPT = 48
+# a prefill's decode state against the state the step path reaches after
+# the same tokens, layer by layer: the conv's tail and h each within
+# STATE_RTOL_OF_MAX of the step path's max|.|.  Both are float32 sums in
+# other orders (the chunked scan's products over a chunk, or the scan
+# kernel's fold, against one update a step); on the CPU they agree to
+# 1e-6 of max|h| at the MQAR and WikiText widths over 384 and 1,024 steps,
+# so 1e-4 leaves the margin LOGIT_RTOL leaves the logits
+STATE_RTOL_OF_MAX = 1e-4
 # the sequential CIFAR-10 paths (19: the Mamba-2, 20: its pseudo-LTI
 # variant, 21: S4, 22-23: the transformer classifiers) on the loader's
 # synthetic split (2,048 train and 512 test images; the CIFAR-10 files are
@@ -1059,8 +1097,9 @@ def decay_einsum(C, B, cs, x):
 DECAY_TC = ("decay_attention_fwd", "decay_attention_bwd_i", "decay_attention_bwd_j")
 
 
-def time_decay_attention(dattn, C, B, cs, x, dy, flush):
-    """L2-cold medians of 21 launches of each kernel, warm medians, the plain
+def time_decay_attention(dattn, C, B, cs, x, dy, flush, kernels=DECAY_TC):
+    """L2-cold medians of 21 launches of each of ``kernels`` (all three by
+    default; the forward alone needs no dy), warm medians, the plain
     version's and the einsum form's cold medians, and each kernel's bound:
     {kernel's launch name: (ms, warm_ms, plain_ms, einsum_ms, bound_ms,
     bound_by, bytes, flops, bound_f32_ms)}.  The kernels of DECAY_TC run
@@ -1082,7 +1121,7 @@ def time_decay_attention(dattn, C, B, cs, x, dy, flush):
         "decay_attention_bwd_j": lambda: dattn.decay_attention_bwd_j_plain(C, B, cs, x, dy),
     }
     leaves = [t.detach().clone().requires_grad_() for t in (C, B, cs, x)]
-    y_lib = decay_einsum(*leaves)
+    y_lib = decay_einsum(*leaves) if kernels != ("decay_attention_fwd",) else None
     einsum = {
         "decay_attention_fwd": lambda: decay_einsum(C, B, cs, x),
         "decay_attention_bwd_i": lambda: torch.autograd.grad(
@@ -1103,7 +1142,7 @@ def time_decay_attention(dattn, C, B, cs, x, dy, flush):
                                     + (BG * Q * N + BG * Hg * Q * P) * e + BG * Hg * Q * f4,
                                     pairs * (4 * N + 4 * Hg * P))}
     out = {}
-    for name in ms:
+    for name in kernels:
         with torch.no_grad():
             k_ms = median(cuda_ms(ms[name], 21, flush))
             w_ms = median(cuda_ms(ms[name], 21))
@@ -2418,6 +2457,306 @@ def listops_path(dev, want_files, full, tag: str, flush=None):
     return launches, s5_times
 
 
+def launches_since(before) -> dict:
+    """The port's kernel launches since the counts ``before`` (a copy of
+    ``LAUNCHES``), those that moved."""
+    from tlie_tpu_torch.ops import LAUNCHES
+
+    return {k: v - before.get(k, 0) for k, v in LAUNCHES.items() if v != before.get(k, 0)}
+
+
+def rel_state_err(cache, ref) -> float:
+    """Worst max|a − b| / max|b| over the layers and entries (conv tail, h)
+    of two Mamba decode caches, ``ref`` the step path's."""
+    return max((a.float() - b.float()).abs().max().item() / max(b.float().abs().max().item(), 1e-30)
+               for ca, cb in zip(cache, ref) for a, b in zip(ca, cb))
+
+
+def mamba_prefill_vs_step(ph, dec, model, prompts, kernel, n_layers: int, key: str = ""):
+    """The prefill of ``prompts`` through ``dec``: it must launch ``kernel``
+    exactly ``n_layers`` times and no other kernel; its last logits are held
+    to the full forward's, and its logits and its cache, layer by layer, to
+    the step path's (which launches no kernel) after the same tokens (conv
+    tail and h within STATE_RTOL_OF_MAX of the step path's max).  Fields
+    under ``key``; returns the prefill's wall seconds."""
+    from tlie_tpu_torch.ops import LAUNCHES
+
+    bsz, L = prompts.shape
+    before = dict(LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache, last = dec.prefill(prompts)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launched = launches_since(before)
+    if launched != {kernel: n_layers}:
+        raise AssertionError(f"{key}prefill launched {launched}, expected {kernel} {n_layers} "
+                             "times and nothing else")
+    with torch.no_grad():
+        full = model(prompts)[:, -1]
+    prefill_err = (last - full).abs().max().item()
+    if not torch.allclose(last, full, rtol=LOGIT_RTOL, atol=LOGIT_ATOL):
+        raise AssertionError(f"{key}prefill vs forward: {prefill_err}")
+    before = dict(LAUNCHES)
+    stepped = dec.init_cache(bsz)
+    for t in range(L):
+        stepped, logits = dec.step(stepped, prompts[:, t])
+    torch.cuda.synchronize()
+    if launches_since(before):
+        raise AssertionError(f"{key}step path launched {launches_since(before)}")
+    step_err = (last - logits).abs().max().item()
+    if not torch.allclose(last, logits, rtol=LOGIT_RTOL, atol=LOGIT_ATOL):
+        raise AssertionError(f"{key}prefill vs step path logits: {step_err}")
+    state_err = rel_state_err(cache, stepped)
+    if state_err > STATE_RTOL_OF_MAX:
+        raise AssertionError(f"{key}prefill state vs step path: {state_err} of max")
+    ph.fields.update({f"{key}prefill_shape": (bsz, L), f"{key}prefill_s": f"{prefill_s:.4f}",
+                      f"{key}prefill_launches": repr(launched),
+                      f"{key}prefill_vs_forward_max_abs": f"{prefill_err:.3e}",
+                      f"{key}prefill_vs_step_logits_max_abs": f"{step_err:.3e}",
+                      f"{key}state_vs_step_max_over_max": f"{state_err:.3e}"})
+    return prefill_s
+
+
+def mamba_generate(ph, dec, model, prompts, n_new: int, n_check: int, vocab: int, key: str = ""):
+    """Greedy generation of ``n_new`` tokens after ``prompts`` (one warm
+    call, then the prefill and the whole generation timed apart, the best
+    of SERVE_REPEATS each), the output's shape, prompt and ids checked, and
+    ``stepwise_logits`` of its first ``n_check`` rows held to the full
+    forward at every position.  Fields under ``key``: the prefill's and the
+    generation's seconds, the tokens/s and the time of one decode step;
+    returns the output."""
+    bsz, L0 = prompts.shape
+    dec.generate(prompts, n_new)  # warm
+    prefill_s, gen_s = [], []
+    for _ in range(SERVE_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dec.prefill(prompts)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = dec.generate(prompts, n_new)
+        torch.cuda.synchronize()
+        prefill_s.append(t1 - t0)
+        gen_s.append(time.perf_counter() - t1)
+    prefill_s, gen_s = min(prefill_s), min(gen_s)
+    if out.shape != (bsz, L0 + n_new) or not torch.equal(out[:, :L0], prompts):
+        raise AssertionError(f"{key}generate output {tuple(out.shape)}")
+    if int(out.min()) < 0 or int(out.max()) >= vocab:
+        raise AssertionError(f"{key}generated ids out of the vocab")
+    ph.fields.update({f"{key}warm_prefill_s": f"{prefill_s:.4f}",
+                      f"{key}prefill_plus_generate_s": f"{gen_s:.4f}",
+                      f"{key}tokens_per_s": f"{bsz * n_new / gen_s:.1f}",
+                      f"{key}decode_step_ms": f"{(gen_s - prefill_s) / (n_new - 1) * 1e3:.3f}"})
+    if n_check:
+        sw = dec.stepwise_logits(out[:n_check])
+        with torch.no_grad():
+            full = model(out[:n_check])
+        step_err = (sw - full).abs().max().item()
+        if not torch.allclose(sw, full, rtol=LOGIT_RTOL, atol=LOGIT_ATOL):
+            raise AssertionError(f"{key}stepwise vs forward: {step_err}")
+        ph.fields.update({f"{key}stepwise_vs_forward_max_abs": f"{step_err:.3e}",
+                          f"{key}stepwise_rows": (n_check, L0 + n_new)})
+    return out
+
+
+def decode_step_profile(ph, dec, cache, tok, key: str):
+    """One decode step's time from CUDA events around 20 back-to-back steps
+    from ``cache`` (:func:`step_profile`), and from ``torch.profiler`` its
+    device busy time, idle share and device time by kind, under ``key``:
+    how far the host paces a step."""
+    fields = step_profile(lambda: dec.step(cache, tok), tok.shape[0], None, "", n_top=8)
+    fields.pop("train_tokens_per_s")
+    ph.fields.update({key + k: v for k, v in fields.items()})
+
+
+def mqar_mamba_serving(dev, ckpt_path, model, inputs, n_layers: int, vocab: int):
+    """Path 4's serving (``mamba_serving``): the decoder from the
+    checkpoint (``Decoder.from_checkpoint``), the prefill of the first
+    TF_PROMPT tokens of ``inputs`` (the chunk 128, three chunks) held to the
+    forward and to the step path, MAMBA_NEW greedy tokens and their
+    stepwise logits against the forward, the prefill of MAMBA_PROMPT_Q16
+    tokens (the chunk 16, 31 chunks) likewise, sampling at SAMPLE_ARGS from
+    a seeded generator (the ids in the vocabulary, a second generator of
+    the same seed drawing the same tokens, top_k 1 equal to greedy), and
+    ``python -m tlie_tpu_torch.tools.generate`` on the checkpoint in a
+    subprocess (64 rows of TF_PROMPT + MAMBA_NEW ids), and a decode step's
+    profile (:func:`decode_step_profile`).  Returns the decoder."""
+    from tlie_tpu_torch.inference import Decoder
+
+    with Phase("mamba_serving") as ph:
+        dec = Decoder.from_checkpoint(ckpt_path, device=dev)
+        bsz = inputs.shape[0]
+        prompts = inputs[:, :TF_PROMPT]
+        mamba_prefill_vs_step(ph, dec, model, prompts, "decay_attention_fwd", n_layers)
+        greedy = mamba_generate(ph, dec, model, prompts, MAMBA_NEW, 4, vocab)
+        decode_step_profile(ph, dec, dec.prefill(prompts)[0], greedy[:, TF_PROMPT],
+                            "decode_step_")
+        mamba_prefill_vs_step(ph, dec, model, inputs[:, :MAMBA_PROMPT_Q16],
+                              "decay_attention_fwd", n_layers, key="q16_")
+        draws = [dec.generate(prompts, MAMBA_NEW, generator=torch.Generator(
+            device=dev).manual_seed(SAMPLE_SEED), **SAMPLE_ARGS) for _ in range(2)]
+        if not torch.equal(draws[0], draws[1]):
+            raise AssertionError("two generators of one seed drew different tokens")
+        if int(draws[0].min()) < 0 or int(draws[0].max()) >= vocab:
+            raise AssertionError("sampled ids out of the vocab")
+        top1 = dec.generate(prompts, MAMBA_NEW, temperature=SAMPLE_ARGS["temperature"], top_k=1,
+                            generator=torch.Generator(device=dev).manual_seed(SAMPLE_SEED))
+        if not torch.equal(top1, greedy):
+            raise AssertionError("top_k 1 sampling differs from greedy generation")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "tlie_tpu_torch.tools.generate", ckpt_path, "--n_new",
+             str(MAMBA_NEW), "--batch", str(bsz), "--prompt_len", str(TF_PROMPT), "--seed", "0",
+             "--device", dev.type],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        rows = [[int(t) for t in line.split()] for line in proc.stdout.splitlines()]
+        if proc.returncode != 0 or len(rows) != bsz or any(
+                len(r) != TF_PROMPT + MAMBA_NEW or min(r) < 0 or max(r) >= vocab for r in rows):
+            raise AssertionError(f"tools.generate: exit {proc.returncode}, {len(rows)} rows; "
+                                 f"{proc.stderr[-2000:]}")
+        ph.fields.update(sampled=f"{SAMPLE_ARGS},seed={SAMPLE_SEED}:repeats,in_vocab",
+                         sampled_differs_from_greedy=not torch.equal(draws[0], greedy),
+                         top_k_1="greedy", cli_rows=(len(rows), len(rows[0])),
+                         cli_s=f"{cli_s:.2f}")
+    return dec
+
+
+def mamba_lti_serving(dev, mm, inputs, n_layers: int):
+    """The pseudo-LTI variant (``SSD_LTI``) at path 4's widths, untrained,
+    weights from LTI_SEED (``mamba_lti_serving``): the prefill of
+    TF_PROMPT tokens held to the forward and the step path, with its
+    launches, then MAMBA_NEW greedy tokens and their stepwise logits
+    against the forward.  Returns (decoder, model)."""
+    from tlie_tpu_torch.inference import Decoder
+    from tlie_tpu_torch.models import build_models
+
+    with Phase("mamba_lti_serving") as ph:
+        cfg = dict(mm, pseudoLTI=True)
+        _, model, _ = build_models(cfg, generator=torch.Generator().manual_seed(LTI_SEED),
+                                   device=dev)
+        dec = Decoder(cfg, model, device=dev)
+        prompts = inputs[:, :TF_PROMPT]
+        mamba_prefill_vs_step(ph, dec, model, prompts, "decay_attention_fwd", n_layers)
+        mamba_generate(ph, dec, model, prompts, MAMBA_NEW, 4, cfg["output_dim"])
+    return dec, model
+
+
+def wt_mamba2_serving(dev, m, model, blocks):
+    """Path 8's serving (``wt_mamba2_serving``): WT_SERVE_ROWS prompts of a
+    whole block (one chunk of 1,024) and MAMBA_NEW greedy tokens, the
+    prefill held to the forward and the step path, the stepwise logits of
+    WT_CHECK_ROWS generated rows to the forward at every position, then the
+    same with the state stored in bfloat16 (``state_dtype``): its times and
+    its largest logit drift from the float32 state over the MAMBA_NEW steps
+    of the float32 state's tokens; then a decode step's profile with each
+    state (:func:`decode_step_profile`)."""
+    from tlie_tpu_torch.inference import Decoder
+
+    with Phase("wt_mamba2_serving") as ph:
+        prompts = torch.as_tensor(np.asarray(blocks[:WT_SERVE_ROWS]), device=dev).long()
+        n_layers = m["num_layers"]
+        dec = Decoder(m, model, device=dev)
+        mamba_prefill_vs_step(ph, dec, model, prompts, "decay_attention_fwd", n_layers)
+        out = mamba_generate(ph, dec, model, prompts, MAMBA_NEW, WT_CHECK_ROWS, m["output_dim"])
+        dec16 = Decoder(m, model, device=dev, state_dtype=torch.bfloat16)
+        out16 = mamba_generate(ph, dec16, model, prompts, MAMBA_NEW, 0, m["output_dim"],
+                               key="bf16_state_")
+        L0 = prompts.shape[1]
+        (c32, lg32), (c16, lg16) = dec.prefill(prompts), dec16.prefill(prompts)
+        if {h.dtype for _, h in c16} != {torch.bfloat16}:
+            raise AssertionError("the bfloat16 state is not stored in bfloat16")
+        drift = []
+        for i in range(MAMBA_NEW):
+            drift.append((lg16 - lg32).abs().max().item())
+            if i + 1 < MAMBA_NEW:
+                tok = out[:, L0 + i]
+                c32, lg32 = dec.step(c32, tok)
+                c16, lg16 = dec16.step(c16, tok)
+        for key, d, c in (("f32_state_step_", dec, c32), ("bf16_state_step_", dec16, c16)):
+            decode_step_profile(ph, d, c, out[:, -1], key)
+        ph.fields.update(bf16_state_logit_drift_max_abs=f"{max(drift):.3e}",
+                         bf16_state_logit_drift_by_step=[f"{d:.2e}" for d in drift],
+                         bf16_state_tokens_equal_share=f"{(out16 == out).float().mean().item():.4f}")
+    return dec
+
+
+def mamba1_serving(dev, mc, model, prompts):
+    """Path 18's serving (``mamba1_serving``): the prefill of ``prompts``
+    through the scan's forward kernel on the (B, L, d_inner·N) view, held to
+    the forward and the step path, MAMBA_NEW greedy tokens and the stepwise
+    logits of 4 generated rows against the forward.  Returns the
+    decoder."""
+    from tlie_tpu_torch.inference import Decoder
+
+    with Phase("mamba1_serving") as ph:
+        dec = Decoder(mc, model, device=dev)
+        mamba_prefill_vs_step(ph, dec, model, prompts, "diag_scan", mc["num_layers"])
+        mamba_generate(ph, dec, model, prompts, MAMBA_NEW, 4, mc["output_dim"])
+        ph.fields["scan_view"] = (prompts.shape[0], prompts.shape[1],
+                                  mc["expansion"] * mc["hidden_dim"] * mc["state_dim"])
+    return dec
+
+
+def prefill_operands(module, name: str, dec, prompts):
+    """The operands of the first call of ``module.name`` (the decay
+    attention inside the SSD's chunked scan, or Mamba-1's scan) in one
+    prefill of ``prompts``: the kernel's inputs at the serving shape."""
+    seen, real = [], getattr(module, name)
+    setattr(module, name, lambda *a, **kw: (seen.append(a), real(*a, **kw))[1])
+    try:
+        dec.prefill(prompts)
+    finally:
+        setattr(module, name, real)
+    return seen[0]
+
+
+def decay_fwd_at_prefill(ph, dattn, dec, prompts, flush, key: str):
+    """The decay attention's forward kernel at a prefill's own operands:
+    held to the plain version (each element within SSD_RTOL of its term
+    sums) and timed against its bound and the plain version
+    (:func:`time_decay_attention`)."""
+    import tlie_tpu_torch.ops.ssd as ssd_mod
+
+    C, B, cs, x = prefill_operands(ssd_mod, "decay_attention", dec, prompts)
+    y = dattn.decay_attention_fwd_cuda(C, B, cs, x)
+    want = dattn.decay_attention_plain(C, B, cs, x)
+    scale = dattn.term_scales(C, B, cs, x, torch.zeros_like(x))[0]
+    ratio = ((y - want).abs() / (SSD_RTOL * scale + 1e-30)).max().item()
+    if not (ratio <= 1.0 and bool(torch.isfinite(y).all())):
+        raise AssertionError(f"decay_attention_fwd at {key}: err over tol {ratio}")
+    t = time_decay_attention(dattn, C, B, cs, x, None, flush, kernels=("decay_attention_fwd",))
+    shape = (x.shape[0], x.shape[2], C.shape[2], x.shape[1], x.shape[3])  # (BG, Q, N, Hg, P)
+    ph.fields[f"{key}_bg_q_n_hg_p"] = shape
+    ph.fields[f"{key}_err_over_tol"] = f"{ratio:.3e}"
+    ph.fields[f"{key}_max_abs_err"] = f"{(y - want).abs().max().item():.3e}"
+    ph.fields[key] = timing_fields(t["decay_attention_fwd"], "einsum_ms", "over_einsum")
+    return t["decay_attention_fwd"]
+
+
+def scan_fwd_at_prefill(ph, dec, prompts, flush, key: str):
+    """The scan's forward kernel at a Mamba-1 prefill's own decay and input
+    ((B, L, d_inner·N), a full and varying in time): held to the plain
+    version (within SCAN_RTOL_OF_MAX of max|h|) and timed against its bytes
+    bound and the plain loop (:func:`time_scan_kernel`)."""
+    import tlie_tpu_torch.models.mamba2 as m2
+    from tlie_tpu_torch.ops.scan import diag_scan_cuda, diag_scan_plain
+
+    a, b = (t.contiguous() for t in prefill_operands(m2, "diag_linear_scan", dec, prompts))
+    h = diag_scan_cuda(a, b)
+    err, scale = scan_err(h, diag_scan_plain(a, b))
+    if not err <= SCAN_RTOL_OF_MAX * scale:
+        raise AssertionError(f"diag_scan at {key}: {err} of max {scale}")
+    n_bytes = sum(distinct_bytes(t) for t in (a, b, h))
+    t = time_scan_kernel(lambda: diag_scan_cuda(a, b), lambda: diag_scan_plain(a, b), n_bytes,
+                         2 * b.numel(), flush)
+    ph.fields[f"{key}_shape"] = tuple(b.shape)
+    ph.fields[f"{key}_rel_err"] = f"{err / scale:.3e}"
+    ph.fields[key] = scan_timing_fields(t, n_bytes)
+    return t
+
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -2436,7 +2775,7 @@ def wikitext_splits():
     return train_split, test_split, data.l_max
 
 
-def wikitext_mamba2_path(dev, splits, config: str, tag: str, want_files):
+def wikitext_mamba2_path(dev, splits, config: str, tag: str, want_files, serve: bool = False):
     """Main path 8 (``configs/wikitext-mamba2-short.yaml``: 6 layers, d_model
     and N 512, 8 heads of 64, block 1024, batch 8, vocab 50,257, the dense
     head, float32), 9 (``configs/wikitext-mamba2-short-bf16.yaml``, the
@@ -2453,8 +2792,10 @@ def wikitext_mamba2_path(dev, splits, config: str, tag: str, want_files):
     and eigen-analysed (float32, as tlie_tpu extracts: the analysis launches
     the float32 forward, counted apart), and a training step's time, idle
     share and the decay attention's (and the fused head's) share of device
-    time.  Returns the counts after the eigen-analysis (training's and the
-    analysis's float32 forwards)."""
+    time.  With ``serve`` (path 8) the trained model is served after the
+    eigen-analysis (:func:`wt_mamba2_serving`).  Returns the counts after
+    the eigen-analysis (training's and the analysis's float32 forwards) and
+    the serving."""
     from tlie_tpu_torch.analysis import eval_eig
     from tlie_tpu_torch.analysis.eval_eig import extract_attention_family
     from tlie_tpu_torch.config import derive_runtime_fields, load_yaml, train_fields
@@ -2570,6 +2911,10 @@ def wikitext_mamba2_path(dev, splits, config: str, tag: str, want_files):
                              radius_pct_init_mean_layer0=np.round(
                                  perc_init[:, :, 0, 0].mean(1), 2).tolist())
             del f32_model, ckpt
+
+        if serve:
+            wt_mamba2_serving(dev, m, result.eval_model, test_split[0])
+            path_all = dict(LAUNCHES)
 
         with Phase(f"{tag}_train_step_timing") as ph:
             f = train_fields(cfg)
@@ -3330,11 +3675,13 @@ def mamba1_path(dev, want_files, flush):
     batch (card against CPU), M1_STEPS training steps at dropout 0.1 with
     an eval every M1_EVAL_EVERY, the checkpoint reloaded and eigen-analysed
     (λ over the (d_inner, N) lattice from activations, against the live
-    model's); the counts are read there (2 + 2 a training step).  Then one
-    card step against the CPU step at dropout 0, the step's time, idle
-    share and the scan kernels' share, and the kernels at the trained
-    model's own a (:func:`mamba1_scan_phase`).  Returns (launches, kernel
-    times, errors)."""
+    model's) and served (:func:`mamba1_serving`: the prefill of M1_PROMPT
+    tokens of the test batch, one scan launch a layer); the counts are read
+    there (2 + 2 a training step).  Then one card step against the CPU
+    step at dropout 0, the step's time, idle share and the scan kernels'
+    share, the kernels at the trained model's own a
+    (:func:`mamba1_scan_phase`) and the forward kernel at the prefill's
+    (32, M1_PROMPT, 2048).  Returns (launches, kernel times, errors)."""
     from tlie_tpu_torch.analysis import eval_eig
     from tlie_tpu_torch.analysis.eval_eig import extract_attention_family
     from tlie_tpu_torch.config import MQAR_MAMBA1_SMALL, derive_runtime_fields, train_fields
@@ -3451,8 +3798,9 @@ def mamba1_path(dev, want_files, flush):
                              radius_pct_mean_layer0=np.round(perc[:, :, 0, 0].mean(1), 2).tolist(),
                              radius_pct_init_mean_layer0=np.round(
                                  perc_init[:, :, 0, 0].mean(1), 2).tolist())
+        m1_dec = mamba1_serving(dev, mc, result.eval_model, inputs[:, :M1_PROMPT])
         launches = dict(LAUNCHES)
-        print(f"[launches] Mamba-1 forward, training and eval_eig: {launches}; training "
+        print(f"[launches] Mamba-1 forward, training, eval_eig and serving: {launches}; training "
               f"alone: {trained_launches} ({n_layers} + {n_layers} a step)", flush=True)
         others = {k: v for k, v in launches.items() if not k.startswith("diag_scan") and v}
         if launches["diag_scan_bwd"] != want["diag_scan_bwd"] or others:
@@ -3489,7 +3837,10 @@ def mamba1_path(dev, want_files, flush):
             bsz * L, "diag_scan", "scan_kernels", n_top=6))
         del card_m, card_opt
     times, errs, a_range = mamba1_scan_phase(dev, result.eval_model, inputs, flush)
-    del result
+    # the scan's forward kernel at the serving prefill's own (B, L, d_inner·N)
+    with Phase("mamba1_scan_kernel_prefill_timing") as ph, torch.no_grad():
+        scan_fwd_at_prefill(ph, m1_dec, inputs[:, :M1_PROMPT], flush, "diag_scan_prefill")
+    del result, m1_dec
     torch.cuda.empty_cache()
     return launches, (times, errs, a_range)
 
@@ -4980,11 +5331,25 @@ def main() -> int:
                              radius_pct_mean_layer0=np.round(perc[:, :, 0, 0].mean(1), 2).tolist(),
                              radius_pct_init_mean_layer0=np.round(
                                  perc_init[:, :, 0, 0].mean(1), 2).tolist())
+        # serving from the checkpoint, then the untrained pseudo-LTI variant
+        m_dec = mqar_mamba_serving(dev, ckpt_path, m_result.eval_model, m_inputs, m_layers,
+                                   mm["output_dim"])
+        lti_dec, _ = mamba_lti_serving(dev, mm, m_inputs, m_layers)
         path4_all = dict(LAUNCHES)
-        print(f"[launches] Mamba-2 forward and training: {path4}; with eval_eig: {path4_all}",
-              flush=True)
+        print(f"[launches] Mamba-2 forward and training: {path4}; with eval_eig and serving: "
+              f"{path4_all}", flush=True)
     finally:
         shutil.rmtree(m_tmp, ignore_errors=True)
+
+    # the decay attention's forward kernel at the serving prefills' own
+    # operands: (192, 128, 128, 1, 128) after TF_PROMPT tokens, (1984, 16,
+    # 128, 1, 128) after MAMBA_PROMPT_Q16, and the pseudo-LTI variant's
+    with Phase("decay_attention_fwd_prefill_timing") as ph:
+        for n in (TF_PROMPT, MAMBA_PROMPT_Q16):
+            decay_fwd_at_prefill(ph, dattn, m_dec, m_inputs[:, :n], flush, f"prefill_{n}")
+        decay_fwd_at_prefill(ph, dattn, lti_dec, m_inputs[:, :TF_PROMPT], flush,
+                             f"lti_prefill_{TF_PROMPT}")
+        del m_dec, lti_dec
 
     # one Mamba-2 step (sparse head, AdamW behind the global-norm clip) from
     # the same weights and batch, on the card (kernels) and on the CPU (plain
@@ -5078,7 +5443,7 @@ def main() -> int:
     # stacked seed sweep of the MQAR linear attention (no port kernel)
     wt_splits = wikitext_splits()
     path8_all = wikitext_mamba2_path(dev, wt_splits, "wikitext-mamba2-short.yaml", "wt_mamba2",
-                                     want_files)
+                                     want_files, serve=True)
     path9_all = wikitext_mamba2_path(dev, wt_splits, "wikitext-mamba2-short-bf16.yaml",
                                      "wt_mamba2_bf16", want_files)
     # main path 11, the bfloat16 WikiText Mamba-2 through the fused head's

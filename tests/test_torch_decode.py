@@ -1,6 +1,7 @@
 """The port's LRU Decoder against tlie_tpu's on carried weights: prefill
 logits and cache (2e-5 absolute, f32 on the CPU), greedy tokens (equal), and
-the step path against the full forward."""
+the step path against the full forward.  The Mamba family and sampling are
+tests/test_torch_decode_mamba.py's and tests/test_torch_decode_sampling.py's."""
 
 import numpy as np
 import pytest
@@ -73,8 +74,14 @@ def test_prompt_ids_outside_the_vocab_raise(decoders, bad):
 
 
 def test_sampling_and_other_families_are_not_ported(decoders):
+    """Sampling and the Mamba family are served now: sampling without a
+    ``torch.Generator`` raises, and so does a Mamba model without a token
+    embedding (the decoder serves token LMs)."""
     cfg, _, dec, model = decoders
-    with pytest.raises(NotImplementedError, match="sampled"):
+    with pytest.raises(ValueError, match="Generator"):
         dec.generate(tokens(cfg, batch=1, length=4), 2, temperature=0.7)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        Decoder(dict(cfg, layer="mamba"), model)
+    out = dec.generate(tokens(cfg, batch=1, length=4), 2, temperature=0.7,
+                       generator=torch.Generator().manual_seed(0))
+    assert out.shape == (1, 6) and int(out.max()) < cfg["input_dim"]
+    with pytest.raises(ValueError, match="token_embedding"):
+        Decoder(dict(cfg, layer="mamba", token_embedding=False), model, device="cpu")

@@ -192,6 +192,11 @@ for full, fin in ((PATHFINDER_S4_FULL, fx[:, :64]), (SC_S5_MFCC_FULL, sx)):
     _, fm, _ = build_models(fcfg, generator=torch.Generator().manual_seed(0), device="cpu")
     with torch.no_grad():
         assert fm(torch.as_tensor(fin)).shape == (2, full["model"]["output_dim"])
+out = Decoder(mcfg, mamba).generate(x[:, :8], 4)
+assert out.shape == (4, 12), out.shape
+sampled = Decoder(m1cfg, m1_eval).generate(x[:, :8], 4, temperature=0.8, top_k=8, top_p=0.9,
+                                           generator=torch.Generator().manual_seed(0))
+assert sampled.shape == (4, 12) and int(sampled.max()) < 64
 bcfg = dict(mcfg, compute_dtype="bfloat16")
 _, bm, _ = build_models(bcfg, generator=torch.Generator().manual_seed(0), device="cpu")
 with torch.no_grad():

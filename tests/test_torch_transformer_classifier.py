@@ -229,15 +229,20 @@ def test_compat_carries_the_classifier_and_the_gate_both_ways():
 
 def test_what_stays_refused():
     """The dual head builds (tests/test_torch_aan_dual.py) and decoding it
-    raises, as decoding a gated or classifier transformer does."""
+    raises, as decoding a classifier transformer does; a gated LM decodes
+    (tests/test_torch_decode_mamba.py holds it to tlie_tpu), its step path
+    equal to its forward (2e-5 of max|logit|)."""
     mc = tiny()
     dual = build_models(dict(mc, dual=True), generator=torch.Generator(), device="cpu")[1]
     with pytest.raises(ValueError, match="dual"):
         Decoder(dict(mc, dual=True, classifier=False), dual, device="cpu")
     lm = dict(mc, classifier=False, use_gate=True)
     model = build_models(lm, generator=torch.Generator(), device="cpu")[1]
-    with pytest.raises(NotImplementedError, match="use_gate"):
-        Decoder(lm, model, device="cpu")
+    x = torch.randint(0, lm["vocab_size"], (2, 12), generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        full = model(x)
+    torch.testing.assert_close(Decoder(lm, model, device="cpu").stepwise_logits(x), full,
+                               rtol=0, atol=2e-5 * full.abs().max().item())
     with pytest.raises(ValueError, match="classifier"):
         Decoder(mc, build_models(mc, generator=torch.Generator(), device="cpu")[1],
                 device="cpu")

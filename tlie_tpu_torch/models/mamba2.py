@@ -58,6 +58,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.conv import conv_tail
 from ..ops.scan import diag_linear_scan
 from ..ops.ssd import ssd_chunked_scan
 from .layers import (
@@ -106,12 +107,15 @@ class SSD(nn.Module):
                             if learnable_init_states else None)
         self.out_proj = linear(self.d_inner, d_model, g, bias=False, compute_dtype=compute_dtype)
 
-    def forward(self, u: torch.Tensor) -> torch.Tensor:
+    def forward(self, u: torch.Tensor, return_state: bool = False):
+        """``return_state`` (a prompt's prefill) also returns the decode
+        state after the last step: (the conv's tail, h (B, H, P, N))."""
         d_inner, gn = self.d_inner, self.ngroups * self.d_state
         xbcdt = self.in_proj(u)
         conv_dim = d_inner + 2 * gn
         xBC, dt = xbcdt[..., :conv_dim], xbcdt[..., conv_dim:]
         dt = F.softplus(dt + self.dt_bias)  # (B, L, nheads); float32 beside a bf16 xbcdt
+        tail = conv_tail(xBC, self.conv1d.weight.shape[-1]) if return_state else None
         xBC = F.silu(self.conv1d(xBC))
         x = xBC[..., :d_inner]
         B_mat = xBC[..., d_inner : d_inner + gn]
@@ -125,8 +129,11 @@ class SSD(nn.Module):
             B_mat.reshape(bsz, L, self.ngroups, self.d_state),
             C_mat.reshape(bsz, L, self.ngroups, self.d_state),
             chunk_size=self.chunk_size, D=self.D, initial_states=initial_states,
-            dt_limit=self.dt_limit,
+            dt_limit=self.dt_limit, return_final_state=return_state,
         )
+        if return_state:
+            y, h = y
+            return self.out_proj(y.reshape(bsz, L, d_inner)), (tail, h)
         return self.out_proj(y.reshape(bsz, L, d_inner))
 
 
@@ -165,12 +172,14 @@ class SSD_LTI(nn.Module):
                             if learnable_init_states else None)
         self.out_proj = linear(self.d_inner, d_model, g, bias=False, compute_dtype=compute_dtype)
 
-    def forward(self, u: torch.Tensor) -> torch.Tensor:
+    def forward(self, u: torch.Tensor, return_state: bool = False):
+        """``return_state`` as in :meth:`SSD.forward`."""
         d_inner, gn = self.d_inner, self.ngroups * self.d_state
         xbcdt = self.in_proj(u)
         conv_dim = d_inner + 2 * gn
         xBC, dt = xbcdt[..., :conv_dim], xbcdt[..., conv_dim:]
         dt = F.softplus(dt + self.dt_bias)  # (B, L, ngroups) + (nheads,) -> (B, L, nheads)
+        tail = conv_tail(xBC, self.conv1d.weight.shape[-1]) if return_state else None
         xBC = F.silu(self.conv1d(xBC))
         x = xBC[..., :d_inner]
         B_mat = xBC[..., d_inner : d_inner + gn]
@@ -187,8 +196,11 @@ class SSD_LTI(nn.Module):
             B_mat.reshape(bsz, L, self.ngroups, self.d_state),
             C_mat.reshape(bsz, L, self.ngroups, self.d_state),
             chunk_size=self.chunk_size, D=self.D, initial_states=initial_states,
-            dt_limit=self.dt_limit,
+            dt_limit=self.dt_limit, return_final_state=return_state,
         )
+        if return_state:
+            y, h = y
+            return self.out_proj(y.reshape(bsz, L, d_inner)), (tail, h)
         return self.out_proj(y.reshape(bsz, L, d_inner))
 
 
@@ -222,8 +234,13 @@ class Mamba1(nn.Module):
         self.D = nn.Parameter(torch.ones(d_inner))
         self.out_proj = linear(d_inner, d_model, g, bias=False)
 
-    def forward(self, u: torch.Tensor) -> torch.Tensor:
+    def forward(self, u: torch.Tensor, return_state: bool = False):
+        """``return_state`` (a prompt's prefill) also returns the decode
+        state after the last step: (the conv's tail, h (B, d_inner, N))."""
         x, z = self.in_proj(u).chunk(2, dim=-1)
+        tail = None
+        if return_state:
+            tail = conv_tail(x, 0 if self.conv1d is None else self.conv1d.weight.shape[-1])
         if self.conv1d is not None:
             x = F.silu(self.conv1d(x))
         x_db = self.x_proj(x)
@@ -235,7 +252,10 @@ class Mamba1(nn.Module):
         bsz, L = a.shape[0], a.shape[1]
         h = diag_linear_scan(a.reshape(bsz, L, -1), bx.reshape(bsz, L, -1))
         y = torch.einsum("bldn,bln->bld", h.view(a.shape), C_mat) + self.D * x
-        return self.out_proj(y * F.silu(z))
+        out = self.out_proj(y * F.silu(z))
+        if return_state:
+            return out, (tail, h.view(a.shape)[:, -1].contiguous())
+        return out
 
 
 class MambaBlock(nn.Module):

@@ -28,3 +28,24 @@ def depthwise_causal_conv1d(x: torch.Tensor, weight: torch.Tensor,
     xr = x.reshape(-1, L, C).transpose(1, 2)
     y = F.conv1d(xr, weight, bias, padding=K - 1, groups=C)[..., :L]
     return y.transpose(1, 2).contiguous().reshape(x.shape)
+
+
+def conv_tail(x: torch.Tensor, K: int) -> torch.Tensor:
+    """The conv's decode state after a prompt x (B, L, C): its last K − 1
+    inputs (B, K − 1, C), front-padded with zeros where L < K − 1, and (B,
+    0, C) where K ≤ 1 (``Decoder._conv_tail``)."""
+    n = max(K - 1, 0)
+    tail = x[:, x.shape[1] - min(n, x.shape[1]):]
+    if tail.shape[1] < n:
+        tail = torch.cat([x.new_zeros(x.shape[0], n - tail.shape[1], x.shape[2]), tail], dim=1)
+    return tail
+
+
+def conv_step(tail: torch.Tensor, x_t: torch.Tensor, weight: torch.Tensor,
+              bias: Optional[torch.Tensor] = None):
+    """One token through the conv (``_conv_step``): its cached tail (B, K −
+    1, C) and the token's input x_t (B, C) → (the tail moved on, y_t (B,
+    C)); ``weight`` (C, 1, K) as in :func:`depthwise_causal_conv1d`."""
+    window = torch.cat([tail, x_t[:, None]], dim=1)  # (B, K, C)
+    y = torch.einsum("bkc,ck->bc", window, weight[:, 0])
+    return window[:, 1:], (y if bias is None else y + bias)
