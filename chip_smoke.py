@@ -12,10 +12,13 @@ of the SSD's decay attention on float32 and on bfloat16 operands (the
 float32 ones also at the CIFAR, ListOps and IMDB Mamba-2's shapes) and the
 three of the flash attention), the scan's two kernels also on a decay that
 varies by example and is constant in time and at S5's shapes (MQAR,
-ListOps and Speech Commands) and at Mamba-1's (B, L, d_inner·N) view, and
-drives twenty-four models (all but one at their published widths) along
-twenty-eight paths, each with the launch counts set to 0 just before it and
-read just after:
+ListOps and Speech Commands) and at Mamba-1's (B, L, d_inner·N) view, holds
+the ``vmap`` rules of the scan's, the decay attention's and the flash
+attention's Functions (a stacked sweep's grid of 4 points in one launch of
+each kernel) to the points' separate calls and times each kernel at the
+grid's folded shape, and drives twenty-four models (all but one at their
+published widths) along thirty-one paths, each with the launch counts set to
+0 just before it and read just after:
 
 1. the MQAR LRU (``MQAR_LRU_FULL``: L=512, d_model=128, N=128, 2 layers,
    vocab 8192, batch 64, weights from the config's seed): evaluation,
@@ -205,7 +208,22 @@ read just after:
    the scan's kernels at (32, 161, 48), 4 + 4 a step, the checkpoint
    eigen-analysed, the card step against the CPU step, the step's time, and
    the scan's forward, reverse and backward held to their plain versions
-   and to float64 and timed at the trained layer's Λ̄.
+   and to float64 and timed at the trained layer's Λ̄;
+29. the stacked seed sweep of the MQAR LRU (``MQAR_LRU_FULL`` over bench.py's
+   four seeds, ``launch --sweep_parallel``): 100 stacked steps with an eval
+   every 50 through the scan's kernels, 2 + 2 launches a stacked step for
+   all four points, each point checkpointed, journaled and eigen-analysed,
+   the rerun that skips every point, one point at dropout 0 against its
+   serial run (BatchNorm statistics too), a stacked step's launches against
+   a serial step's, point-steps/s against serial steps/s and the wave's
+   peak memory;
+30. ``configs/sweep/mqar-mamba2-layers.yaml`` (4 rates × ``num_layers`` 1
+   and 4, two waves of four MQAR Mamba-2s) along path 29's phases, 50
+   stacked steps with an eval every 25 (the decay attention's float32
+   kernels, 1 + 1 + 1 and 4 + 4 + 4 a stacked step);
+31. ``configs/sweep/mqar-sm-attention-seeds.yaml`` (four seeds of the MQAR
+   softmax transformer) along path 30's phases (the flash kernels, 2 + 2 +
+   2 a stacked step).
 Paths 6, 7, 10, 13, 15, 16, 17, 21, 22, 23, 26 and 27's transformer reach
 no Pallas kernel in ``tlie_tpu``: no port kernel launches on them, and the
 script checks that.  The decay attention's forward is also held and timed at the serving
@@ -438,6 +456,31 @@ SWEEP_STEPS, SWEEP_EVAL_EVERY, SWEEP_CHECK_STEPS = 100, 50, 20
 # within 1e-5 absolute (the stacked step batches the same float32 products,
 # so its sums may run in another order)
 SWEEP_RTOL, SWEEP_ATOL, SWEEP_PARAM_ATOL = 1e-5, 1e-7, 1e-5
+# the vmap-rule phase and paths 29-31: GRID points a wave, as run_sweep
+# stacks them; the rules' path shapes: the scan at the MQAR LRU's (B, L, N),
+# the decay attention at the MQAR Mamba-2's and, on bfloat16 operands, the
+# WikiText Mamba-2's (BG, Q, N, Hg, P), the flash attention at the MQAR
+# transformer's (B, L, H, D)
+GRID = 4
+VMAP_SCAN_SHAPE = (64, 512, 128)
+VMAP_DECAY_SHAPE = (64, 512, 128, 1, 128)
+VMAP_DECAY_BF16_SHAPE = (8, 1024, 512, 8, 64)
+VMAP_ATTN_SHAPE = (64, 512, 1, 128)
+# a rule's grid against the points' separate calls: each output and gradient
+# within 1e-5 of its max|.| (float32 sums in other orders: the scan's da sums
+# each point's batch in PyTorch where a lone call sums it in the kernel's
+# second launch), bfloat16 outputs within one bfloat16 step (BF16_STEP)
+VMAP_RTOL_OF_MAX = 1e-5
+# the stacked sweeps of the kernel families: path 29 (the MQAR LRU's seeds)
+# as path 10 runs, 100 stacked steps with an eval every 50; paths 30 and 31
+# (configs/sweep/mqar-mamba2-layers.yaml and mqar-sm-attention-seeds.yaml,
+# whose configs run 40,000 steps with an eval every 200) cut in steps alone,
+# to 50 with an eval every 25; each holds its first group's first point to
+# its serial run over SWEEP_CHECK_STEPS at dropout 0, as path 10 does
+KSWEEP_STEPS, KSWEEP_EVAL_EVERY = 100, 50
+KSWEEP_SHORT_STEPS, KSWEEP_SHORT_EVAL_EVERY = 50, 25
+MAMBA2_LAYERS_SWEEP = os.path.join("configs", "sweep", "mqar-mamba2-layers.yaml")
+SM_SEEDS_SWEEP = os.path.join("configs", "sweep", "mqar-sm-attention-seeds.yaml")
 ATT_PROMPT = 496
 # the MQAR S5 and S4 paths (12, 13): 100 steps with an eval every 50 (the
 # configs run 40,000 with an eval every 200; 200 and 100 until paths 22-25
@@ -2941,149 +2984,434 @@ def sweep_path(dev, test_x, test_y, train_split, want_files):
     """Main path 10: ``tlie_tpu_torch.parallel.run_sweep`` (``launch
     --sweep_parallel``) on the four seeds of ``bench.py::_bench_sweep_grid``
     (SWEEP_SEEDS) of ``MQAR_LIN_ATTENTION_FULL`` at its rate, stacked on the
-    card: SWEEP_STEPS steps with an eval every SWEEP_EVAL_EVERY, each point
-    checkpointed, journaled and eigen-analysed, and the stacked training's
-    point-steps/s; no port kernel may launch (the counts are set to 0 before
-    and read after).  Then the same sweep again, which must skip every point
-    from the journal; one point of the grid at dropout 0 against the same
-    point trained alone, SWEEP_CHECK_STEPS steps; and a stacked step of the
-    four points against a serial step of one (path 6's model), both timed
-    at dropout 0.  Returns the counts."""
+    card, along :func:`kernel_sweep_path`'s phases: SWEEP_STEPS steps with an
+    eval every SWEEP_EVAL_EVERY, no port kernel launched (the linear
+    attention reaches none), the rerun from the journal, one point against
+    its serial run at dropout 0 and the stacked step against a serial step.
+    Returns the counts."""
+    from tlie_tpu_torch.config import MQAR_LIN_ATTENTION_FULL
+
+    return kernel_sweep_path(dev, "sweep", MQAR_LIN_ATTENTION_FULL,
+                             [{("seed",): seed} for seed in SWEEP_SEEDS], train_split,
+                             (test_x, test_y), want_files, SWEEP_STEPS, SWEEP_EVAL_EVERY,
+                             lambda mc: {})
+
+
+def gradient_free(name: str, model_cfg, shape) -> torch.Tensor:
+    """The elements of parameter ``name`` whose gradient is 0 in exact
+    arithmetic, so that their float32 gradient is rounding noise, which
+    Adam (dividing each element by its own magnitude) turns into steps of
+    ±lr that two runs need not share: the softmax attention's key bias
+    (adding it shifts every score of a query by one constant, which the
+    softmax removes).  A bool mask of ``shape``, on the CPU."""
+    free = torch.zeros(shape, dtype=torch.bool)
+    if model_cfg.get("attention_fn") == "sm-attention" and name.endswith("attention.Wqkv.bias"):
+        d_qk = (shape[0] - model_cfg["hidden_dim"]) // 2
+        free[d_qk:2 * d_qk] = True
+    return free
+
+
+def _flat(xs):
+    return [t for x in xs for t in (x if isinstance(x, (list, tuple)) else [x])]
+
+
+def vmap_check(ph, tag: str, loss, args, n_diff: int, per_point, launches, rtol_of_max: float):
+    """One vmap rule at a path shape: ``torch.func.vmap(grad_and_value(loss,
+    has_aux=True))`` over ``args`` (each (GRID, ...)), whose aux is the
+    kernel's output, against ``per_point(g)`` (the output and gradients of
+    point g's own call; the first ``n_diff`` arguments differentiated), each
+    output and gradient within ``rtol_of_max``
+    of its max|.|; the launches of the grid's one call must be
+    ``launches`` exactly.  Records the worst error over its tolerance and
+    whether every tensor came out bit for bit."""
+    from tlie_tpu_torch.ops import LAUNCHES
+
+    before = dict(LAUNCHES)
+    grads, (_, out) = torch.func.vmap(
+        torch.func.grad_and_value(loss, argnums=tuple(range(n_diff)), has_aux=True))(*args)
+    torch.cuda.synchronize()
+    got = {k: LAUNCHES[k] - before.get(k, 0) for k in LAUNCHES if LAUNCHES[k] != before.get(k, 0)}
+    if got != launches:
+        raise AssertionError(f"vmap rule {tag}: the grid launched {got}, not {launches}")
+    worst, bitwise = 0.0, True
+    for g in range(GRID):
+        want_out, want_grads = per_point(g)
+        for a, b in zip([out] + _flat(grads), [want_out] + _flat(want_grads), strict=True):
+            a, b = a[g].float(), b.float()
+            bitwise = bitwise and torch.equal(a, b)
+            worst = max(worst, (a - b).abs().max().item()
+                        / max(rtol_of_max * b.abs().max().item(), 1e-30))
+    ph.fields[tag] = f"launches={got},err_over_tol={worst:.3e},bitwise={bitwise}"
+    if worst > 1.0:
+        raise AssertionError(f"vmap rule {tag}: {ph.fields[tag]}")
+    return worst
+
+
+def vmap_rules_phase(dev, flush):
+    """The vmap rules of the scan's, the decay attention's and the flash
+    attention's Functions at one path shape each, GRID points with their own
+    operands under ``vmap(grad_and_value)`` as a stacked sweep runs them,
+    against each point's own call (output and every gradient, VMAP_RTOL_OF_MAX
+    of max|.|, or one bfloat16 step on bfloat16 outputs): the scan, (re, im)
+    pairs at the MQAR LRU's (64, 512, 128) and real at the same shape, each
+    point its own (N,) decay; the decay attention's float32 kernels at the
+    MQAR Mamba-2's (64, 512, 128, 1, 128) and bfloat16 ones at the WikiText
+    Mamba-2's (8, 1024, 512, 8, 64); the flash kernels at the MQAR
+    transformer's (64, 512, 1, 128).  The grid takes one launch of each
+    kernel.  Then each kernel is timed at the grid's folded shape against
+    its bound.  Returns the folded timings {name: (ms, warm_ms, plain_ms,
+    library_ms or None, bound_ms, bound_by)}."""
+    from tlie_tpu_torch.ops import attention as fa
+    from tlie_tpu_torch.ops import decay_attention as dattn
+    from tlie_tpu_torch.ops.scan import (
+        diag_linear_scan, diag_scan_bwd_cuda, diag_scan_bwd_plain, diag_scan_cuda,
+        diag_scan_plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(29)
+    G = GRID
+    with Phase("vmap_rules") as ph:
+        B, L, N = VMAP_SCAN_SHAPE
+        for pair in (True, False):
+            planes = 2 if pair else 1
+            r = 0.9 + 0.09 * torch.rand(G, N, device=dev, generator=gen)
+            th = 6.28 * torch.rand(G, N, device=dev, generator=gen)
+            a = [r * torch.cos(th), r * torch.sin(th)][:planes] if pair else [r]
+            b = [torch.randn(G, B, L, N, device=dev, generator=gen) for _ in range(planes)]
+            w = torch.randn(B, L, N, device=dev, generator=gen)
+
+            def scan_loss(a, b, pair=pair, w=w):
+                h = diag_linear_scan(tuple(a) if pair else a[0], tuple(b) if pair else b[0])
+                h0 = h[0] if pair else h
+                return (h0 * w).sum() + ((h[1] * w).sum() if pair else 0.0), h0
+
+            def scan_point(g, a=a, b=b, scan_loss=scan_loss):
+                leaves = [[t[g].clone().requires_grad_() for t in x] for x in (a, b)]
+                value, h0 = scan_loss(*leaves)
+                value.backward()
+                return h0.detach(), [[t.grad for t in x] for x in leaves]
+
+            vmap_check(ph, f"scan_{'pair' if pair else 'real'}_g{G}_b{B}_l{L}_n{N}", scan_loss,
+                       [a, b], 2, scan_point, {"diag_scan": 1, "diag_scan_bwd": 1},
+                       VMAP_RTOL_OF_MAX)
+            del a, b
+
+        for dtype, (BG, Q, Nd, Hg, P) in ((torch.float32, VMAP_DECAY_SHAPE),
+                                          (torch.bfloat16, VMAP_DECAY_BF16_SHAPE)):
+            # the grid's operands: C a row-strided view, as the SSD's
+            C, Bm, cs, x, dy = (t.reshape(G, BG, *t.shape[1:]) for t in decay_inputs(
+                dev, gen, G * BG, Q, Nd, Hg, P, dtype))
+
+            def decay_loss(C, Bm, cs, x, dy=dy):
+                y = dattn.decay_attention(C, Bm, cs, x)
+                return (y.float() * dy.float()).sum(), y
+
+            def decay_point(g, C=C, Bm=Bm, cs=cs, x=x, decay_loss=decay_loss):
+                leaves = [t[g].clone().requires_grad_() for t in (C, Bm, cs, x)]
+                value, y = decay_loss(*leaves, dy=dy[g])
+                value.backward()
+                return y.detach(), [t.grad for t in leaves]
+
+            suffix = "_bf16" if dtype == torch.bfloat16 else ""
+            vmap_check(ph, f"decay_attention{suffix}_g{G}_bg{BG}_q{Q}_n{Nd}_hg{Hg}_p{P}",
+                       lambda C, Bm, cs, x, dy: decay_loss(C, Bm, cs, x, dy),
+                       [C, Bm, cs, x, dy], 4, decay_point,
+                       {f"decay_attention_{k}{suffix}": 1 for k in ("fwd", "bwd_i", "bwd_j")},
+                       BF16_STEP if dtype == torch.bfloat16 else VMAP_RTOL_OF_MAX)
+            del C, Bm, cs, x, dy
+
+        Ba, La, H, D = VMAP_ATTN_SHAPE
+        qkv = torch.randn(G, Ba, La, 3 * H * D + 8, device=dev, generator=gen)
+        q, k, v = (qkv[..., i * H * D:(i + 1) * H * D].reshape(G, Ba, La, H, D)
+                   for i in range(3))
+        do = torch.randn(G, Ba, La, H, D, device=dev, generator=gen)
+
+        def attn_loss(q, k, v, do):
+            o = fa.causal_softmax_attention(q, k, v)
+            return (o * do).sum(), o
+
+        def attn_point(g):
+            leaves = [t[g].clone().requires_grad_() for t in (q, k, v)]
+            value, o = attn_loss(*leaves, do[g])
+            value.backward()
+            return o.detach(), [t.grad for t in leaves]
+
+        vmap_check(ph, f"flash_attention_g{G}_b{Ba}_l{La}_h{H}_d{D}", attn_loss, [q, k, v, do],
+                   3, attn_point, {f"flash_attention_{k}": 1 for k in ("fwd", "bwd_dkv", "bwd_dq")},
+                   VMAP_RTOL_OF_MAX)
+        del qkv, q, k, v, do
+        torch.cuda.empty_cache()
+
+    # each kernel at the grid's folded shape: GRID points' batch in one launch
+    folded = {}
+    with Phase("vmap_fold_timing") as ph:
+        B, L, N = VMAP_SCAN_SHAPE
+        r = 0.9 + 0.09 * torch.rand(G, 1, 1, N, device=dev, generator=gen)
+        th = 6.28 * torch.rand(G, 1, 1, N, device=dev, generator=gen)
+        # the rule's a: each point's (N,) decay broadcast over its batch
+        a = tuple((r * f(th)).expand(G, B, 1, N).contiguous() for f in (torch.cos, torch.sin))
+        b = tuple(torch.randn(G, B, L, N, device=dev, generator=gen) for _ in range(2))
+        g = tuple(torch.randn(G, B, L, N, device=dev, generator=gen) for _ in range(2))
+        with torch.no_grad():
+            h = diag_scan_cuda(a, b)
+            da, d = diag_scan_bwd_cuda(a, h, g)
+        fwd_bytes = sum(distinct_bytes(t) for t in a + b + h)
+        bwd_bytes = sum(distinct_bytes(t) for t in a + h + g + da + d)
+        for name, fn, plain, n_bytes, flops in (
+                ("diag_scan", lambda: diag_scan_cuda(a, b), lambda: diag_scan_plain(a, b),
+                 fwd_bytes, 8 * b[0].numel()),
+                ("diag_scan_bwd", lambda: diag_scan_bwd_cuda(a, h, g),
+                 lambda: diag_scan_bwd_plain(a, h, g), bwd_bytes, 16 * g[0].numel())):
+            t = time_scan_kernel(fn, plain, n_bytes, flops, flush)
+            folded[name] = (t[0], t[1], t[2], None, t[3], t[4])
+            ph.fields[f"{name}_g{G}_b{G * B}_l{L}_n{N}"] = scan_timing_fields(t, n_bytes)
+        del a, b, h, g, da, d
+        for dtype, (BG, Q, Nd, Hg, P) in ((torch.float32, VMAP_DECAY_SHAPE),
+                                          (torch.bfloat16, VMAP_DECAY_BF16_SHAPE)):
+            ins = decay_inputs(dev, gen, G * BG, Q, Nd, Hg, P, dtype)
+            for name, t in time_decay_attention(dattn, *ins, flush).items():
+                folded[name] = (t[0], t[1], t[2], None, t[4], t[5])
+                ph.fields[f"{name}_bg{G * BG}_q{Q}_n{Nd}_hg{Hg}_p{P}"] = timing_fields(
+                    t, "einsum_ms", "over_einsum")
+            del ins
+        Ba, La, H, D = VMAP_ATTN_SHAPE
+        q, k, v, do = attention_inputs(dev, gen, G * Ba, La, H, D)
+        o, lse = fa.flash_attention_fwd_cuda(q, k, v, 1.0 / math.sqrt(D))
+        for name, t in time_flash_attention(fa, q, k, v, do, lse, fa.attention_di(o, do),
+                                            flush)[0].items():
+            folded[name] = (t[0], t[1], t[2], t[3], t[4], t[5])
+            ph.fields[f"{name}_b{G * Ba}_l{La}_h{H}_d{D}"] = timing_fields(t, "sdpa_ms",
+                                                                          "over_library")
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    return folded
+
+
+def kernel_sweep_specs():
+    """Paths 29-31 as ``{tag: (base config, points, steps, eval_every,
+    per_step)}``, ``per_step`` giving a model config's kernel launches a
+    training step: the MQAR LRU's seeds (SWEEP_SEEDS; the scan's two
+    kernels, one of each a layer), ``configs/sweep/mqar-mamba2-layers.yaml``
+    (the decay attention's three, one of each a layer) and
+    ``configs/sweep/mqar-sm-attention-seeds.yaml`` (the flash attention's
+    three, one of each a layer)."""
+    from tlie_tpu_torch.config import MQAR_LRU_FULL, expand_sweep, load_sweep
+
+    specs = {"lru_sweep": (MQAR_LRU_FULL, [{("seed",): s} for s in SWEEP_SEEDS], KSWEEP_STEPS,
+                           KSWEEP_EVAL_EVERY, lambda mc: {"diag_scan": mc["num_layers"],
+                                                          "diag_scan_bwd": mc["num_layers"]})}
+    for tag, sweep_file, kinds in (
+            ("mamba2_layers_sweep", MAMBA2_LAYERS_SWEEP,
+             ("decay_attention_fwd", "decay_attention_bwd_i", "decay_attention_bwd_j")),
+            ("sm_seeds_sweep", SM_SEEDS_SWEEP,
+             ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq"))):
+        base, spec = load_sweep(os.path.join(REPO, sweep_file),
+                                config_root=os.path.join(REPO, "configs"))
+        specs[tag] = (base.raw, expand_sweep(spec), KSWEEP_SHORT_STEPS, KSWEEP_SHORT_EVAL_EVERY,
+                      lambda mc, kinds=kinds: dict.fromkeys(kinds, mc["num_layers"]))
+    return specs
+
+
+def kernel_sweep_path(dev, tag: str, base_raw, points, train_split, test_split, want_files,
+                      steps: int, eval_every: int, per_step):
+    """Main paths 10 and 29-31: a stacked sweep through
+    ``tlie_tpu_torch.parallel.run_sweep`` (``launch --sweep_parallel``):
+    ``points`` over ``base_raw`` (waves of GRID points, one for each group of
+    the sweep), ``steps`` stacked steps with an eval every ``eval_every``,
+    each point checkpointed, journaled and eigen-analysed, the waves'
+    point-steps/s and peak device memory; the counts set to 0 before and
+    read after, each backward kernel launched exactly ``per_step(model
+    config)`` times a stacked step and no kernel outside ``per_step``.  Then the sweep again, which must skip
+    every point from the journal; the first group at dropout 0 for
+    SWEEP_CHECK_STEPS, its first point against the same point trained alone
+    (losses, metrics, parameters and BatchNorm statistics); and for each
+    group one stacked step's launches against one serial step's (both
+    ``per_step``), and the two steps timed.  Returns the counts."""
     from tlie_tpu_torch.config import (
-        MQAR_LIN_ATTENTION_FULL, ExperimentConfig, apply_sweep_point, derive_runtime_fields,
-        train_fields,
+        ExperimentConfig, apply_sweep_point, derive_runtime_fields, train_fields,
     )
     from tlie_tpu_torch.models import build_models
     from tlie_tpu_torch.ops import LAUNCHES
     from tlie_tpu_torch.parallel import run_sweep
     from tlie_tpu_torch.parallel.sweep import (
-        _journal_path, _load_journal, _stacked_state, optimizer_groups, stacked_adamw_step,
-        stacked_grads,
+        _group_signature, _journal_path, _load_journal, _stacked_state, optimizer_groups,
+        stacked_adamw_step, stacked_grads,
     )
     from tlie_tpu_torch.training import restore_checkpoint, train, train_step
     from tlie_tpu_torch.training.scan_loop import sparse_head_k_for
     from tlie_tpu_torch.training.state import make_family_optimizer
 
-    full = MQAR_LIN_ATTENTION_FULL
-    mc = full["model"]
-    bsz, L, G = full["train"]["batch_size"], mc["seq_len"], len(SWEEP_SEEDS)
-    tmp = tempfile.mkdtemp(prefix="tlie_sweep_")
-    raw = copy.deepcopy(full)
-    raw["save"] = os.path.join(tmp, "checkpoint", "mqar-lin-attention")
-    raw["train"].update(total_steps=SWEEP_STEPS, eval_every=SWEEP_EVAL_EVERY)
+    L = train_split[0].shape[1]
+    tmp = tempfile.mkdtemp(prefix=f"tlie_{tag}_")
+    raw = copy.deepcopy(base_raw)
+    raw["save"] = os.path.join(tmp, "checkpoint", tag)
+    raw["train"].update(total_steps=steps, eval_every=eval_every)
     raw["dataset"]["num_train_examples"] = TRAIN_EXAMPLES
     base = ExperimentConfig(raw)
-    points = [{("seed",): seed} for seed in SWEEP_SEEDS]
+    derived = [derive_runtime_fields(apply_sweep_point(base, p).raw, L, len(train_split[0]))
+               for p in points]
+    groups = {}
+    for p, c in zip(points, derived):
+        groups.setdefault(_group_signature(ExperimentConfig(c)), []).append((p, c))
+    groups = list(groups.values())
+    bsz = raw["train"]["batch_size"]
     conf = {"batch_size": bsz, "save_path": os.path.join(tmp, "analysis")}
-    test_split = (test_x, test_y)
+    G = len(points)
     try:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
-        with Phase("sweep_train") as ph:
+        with Phase(f"{tag}_train") as ph:
+            torch.cuda.reset_peak_memory_stats(dev)
             t0 = time.perf_counter()
             res, waves = run_sweep(base, points, train_split, test_split, L, conf, device=dev)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated(dev)
             launches = dict(LAUNCHES)
-            if any(launches.values()):
-                raise AssertionError(f"the stacked sweep launched port kernels: {launches}")
-            (group,) = waves
+            if [len(w["points"]) for w in waves] != [len(m) for m in groups]:
+                raise AssertionError(f"{tag}: waves of {[len(w['points']) for w in waves]} "
+                                     f"points, groups of {[len(m) for m in groups]}")
+            # the training steps' launches: per_step of each wave's model
+            # times its stacked steps, whatever the grid's size; every
+            # backward launch is a step's, and the forward kernels launch in
+            # the evals and eval_eig as well
+            want = {}
+            for wave, members in zip(waves, groups):
+                for name, n in per_step(members[0][1]["model"]).items():
+                    want[name] = want.get(name, 0) + n * wave["steps"]
+            if not all(launches.get(name, 0) == n if "bwd" in name else
+                       launches.get(name, 0) >= n for name, n in want.items()) or any(
+                    n for name, n in launches.items() if name not in want):
+                raise AssertionError(f"{tag}: launches {launches}, the steps' {want} and "
+                                     "no other kernel")
             journal = _load_journal(_journal_path(base))
             runs = sorted(os.listdir(conf["save_path"]))
             if len(journal) != G or len(runs) != G:
-                raise AssertionError(f"sweep journal {len(journal)} lines, {len(runs)} analyses")
-            for (path, perf), seed, hist in zip(res, SWEEP_SEEDS, group["histories"]):
-                ckpt = restore_checkpoint(path)
-                if ckpt["config"]["train"]["lr"] != raw["train"]["lr"] or \
-                        f"-seed-{seed}-" not in path:
-                    raise AssertionError(f"sweep checkpoint {path}")
+                raise AssertionError(f"{tag}: journal {len(journal)} lines, {len(runs)} analyses")
+            hists = [h for w in waves for h in w["histories"]]
+            for (path, perf), point, cfg in zip(res, points, derived):
+                ckpt = restore_checkpoint(path)["config"]
+                if ckpt["train"]["lr"] != cfg["train"]["lr"]:
+                    raise AssertionError(f"{tag}: checkpoint {path} for {point}")
+                for key, value in point.items():
+                    ok = (f"-seed-{value}-" in path if key == ("seed",) else
+                          ckpt[{"dataset": "data"}.get(key[0], key[0])][key[-1]] == value)
+                    if not ok:
+                        raise AssertionError(f"{tag}: checkpoint {path} for {point}")
+            for hist in hists:
                 if not hist or not all(np.isfinite(v) for r in hist for v in r.values()):
-                    raise AssertionError(f"sweep history {hist}")
+                    raise AssertionError(f"{tag}: history {hist}")
             for run in runs:
                 if sorted(os.listdir(os.path.join(conf["save_path"], run))) != want_files:
-                    raise AssertionError(f"sweep artifacts {run}")
-            ph.fields.update(points=G, steps=group["steps"],
-                             train_seconds=f"{group['train_seconds']:.2f}",
-                             point_steps_per_s=f"{group['point_steps_per_s']:.1f}",
+                    raise AssertionError(f"{tag}: artifacts {run}")
+            ph.fields.update(points=G, groups=len(groups), steps=[w["steps"] for w in waves],
+                             train_seconds=[round(w["train_seconds"], 2) for w in waves],
+                             point_steps_per_s=[round(w["point_steps_per_s"], 1) for w in waves],
+                             peak_memory_gib=f"{peak / 2**30:.2f}",
                              wall_seconds_with_evals_checkpoints_eval_eig=f"{wall:.2f}",
-                             perfs=repr([round(p, 4) for _, p in res]),
-                             histories=repr([[{k: round(v, 4) for k, v in r.items()} for r in h]
-                                             for h in group["histories"]]))
+                             launches=launches, perfs=repr([round(p, 4) for _, p in res]))
 
-        with Phase("sweep_resume") as ph:
-            t0 = time.perf_counter()
+        with Phase(f"{tag}_resume") as ph:
             again, again_waves = run_sweep(base, points, train_split, test_split, L, conf,
                                            device=dev)
-            if again_waves or again != res:
-                raise AssertionError("the rerun of the sweep trained points in its journal")
-            if len(_load_journal(_journal_path(base))) != G:
-                raise AssertionError("the rerun of the sweep wrote to its journal")
-            ph.fields.update(seconds=f"{time.perf_counter() - t0:.2f}", skipped=G)
+            if again_waves or again != res or len(_load_journal(_journal_path(base))) != G:
+                raise AssertionError(f"{tag}: the rerun trained points in its journal")
+            ph.fields.update(skipped=G)
 
-        with Phase("sweep_point_vs_serial") as ph:
+        with Phase(f"{tag}_point_vs_serial") as ph:
             check = copy.deepcopy(raw)
             check["model"]["dropout"] = 0.0
-            check["save"] = os.path.join(tmp, "check", "mqar-lin-attention")
+            check["save"] = os.path.join(tmp, "check", tag)
             check["train"].update(total_steps=SWEEP_CHECK_STEPS, eval_every=SWEEP_CHECK_STEPS)
-            stacked, stacked_waves = run_sweep(ExperimentConfig(check), points, train_split,
+            first = [p for p, _ in groups[0]]
+            stacked, stacked_waves = run_sweep(ExperimentConfig(check), first, train_split,
                                                test_split, L, device=dev)
-            one = derive_runtime_fields(apply_sweep_point(ExperimentConfig(check), points[0]).raw,
+            one = derive_runtime_fields(apply_sweep_point(ExperimentConfig(check), first[0]).raw,
                                         L, len(train_split[0]))
             one["save"] = None
             serial = train(one, train_split, test_split, device=dev)
             hist, ser = stacked_waves[0]["histories"][0], serial.history
-            # each eval's loss or metric error over its tolerance
             over = max(abs(h[k] - s[k]) / max(SWEEP_RTOL * abs(s[k]), SWEEP_ATOL)
                        for h, s in zip(hist, ser) for k in ("train_loss", "test_loss", "test_perf"))
             got = restore_checkpoint(stacked[0][0])["model"]
-            param_worst = max((got[n] - v.cpu()).abs().max().item()
-                              for n, v in serial.model.state_dict().items())
-            ph.fields.update(evals=len(hist), metric_err_over_tol=f"{over:.3e}",
-                             param_worst=f"{param_worst:.3e}")
-            if not (len(hist) == len(ser) and over <= 1.0 and param_worst <= SWEEP_PARAM_ATOL):
-                raise AssertionError(f"stacked point vs serial run: {ph.fields}")
+            lr = max(one["train"]["lr"], one["train"].get("ssm_lr", one["train"]["lr"]))
+            bound = 2 * SWEEP_CHECK_STEPS * lr + SWEEP_PARAM_ATOL
+            param_worst = anywhere = 0.0
+            for n, v in serial.model.state_dict().items():
+                err = (got[n] - v.cpu()).abs()
+                free = gradient_free(n, one["model"], err.shape)
+                param_worst = max(param_worst, err[~free].max().item() if bool((~free).any())
+                                  else 0.0)
+                anywhere = max(anywhere, err.max().item() / bound)
+            ph.fields.update(points=len(first), evals=len(hist),
+                             metric_err_over_tol=f"{over:.3e}", param_worst=f"{param_worst:.3e}",
+                             param_worst_anywhere_over_movement_bound=f"{anywhere:.3e}")
+            if not (len(hist) == len(ser) and over <= 1.0 and param_worst <= SWEEP_PARAM_ATOL
+                    and anywhere <= 1.0):
+                raise AssertionError(f"{tag}: stacked point vs serial run: {ph.fields}")
             del serial, stacked, got
 
-        with Phase("sweep_step_timing") as ph:
-            # the four points' stacked step and one point's serial step, at
-            # dropout 0 and the config's rate, on the same batches
-            step_cfg = dict(mc, dropout=0.0)
-            f = train_fields(derive_runtime_fields(raw, L, len(train_split[0])))
-            sparse_k = sparse_head_k_for(mc, train_split[1], test_y)
-            grid = [ExperimentConfig(dict(raw, seed=seed, model=step_cfg)) for seed in SWEEP_SEEDS]
-            model0, _, _, params, buffers = _stacked_state(grid, list(range(G)), dev)
-            group_of, clip = optimizer_groups(model0, "transformer", step_cfg, raw["train"], f)
-            moments = {n: (torch.zeros_like(p), torch.zeros_like(p)) for n, p in params.items()}
-            grads_fn = stacked_grads(model0, sparse_k)
-            x = torch.as_tensor(train_split[0][:bsz], device=dev).long()
-            y = torch.as_tensor(train_split[1][:bsz], device=dev).long()
-            xs, ys = x.expand(G, -1, -1), y.expand(G, -1, -1)
-            lrs = {"regular": torch.full((G,), f["lr"], device=dev)}
-            n_step = [0]
+        for gi, members in enumerate(groups):
+            with Phase(f"{tag}_step_timing_group{gi}") as ph:
+                grid = [dict(c, model=dict(c["model"], dropout=0.0)) for _, c in members]
+                mc, f = grid[0]["model"], train_fields(grid[0])
+                family = mc["layer"]
+                sparse_k = sparse_head_k_for(mc, train_split[1], test_split[1])
+                model0, _, _, params, buffers = _stacked_state(
+                    [ExperimentConfig(c) for c in grid], list(range(len(grid))), dev)
+                group_of, clip = optimizer_groups(model0, family, mc, grid[0]["train"], f)
+                moments = {n: (torch.zeros_like(p), torch.zeros_like(p))
+                           for n, p in params.items()}
+                grads_fn = stacked_grads(model0, sparse_k)
+                x = torch.as_tensor(train_split[0][:bsz], device=dev).long()
+                y = torch.as_tensor(train_split[1][:bsz], device=dev).long()
+                xs, ys = x.expand(len(grid), -1, -1), y.expand(len(grid), -1, -1)
+                lrs = {name: torch.tensor([train_fields(c)[key] for c in grid], device=dev)
+                       for name, key in (("regular", "lr"), ("ssm", "ssm_lr"))}
+                n_step = [0]
 
-            def stacked_step():
-                n_step[0] += 1
-                grads, _ = grads_fn(params, buffers, xs, ys)
-                stacked_adamw_step(params, grads, moments, n_step[0], lrs, group_of, f["betas"],
-                                   clip)
+                def stacked_step():
+                    n_step[0] += 1
+                    g, _ = grads_fn(params, buffers, xs, ys)
+                    stacked_adamw_step(params, g, moments, n_step[0], lrs, group_of, f["betas"],
+                                       clip)
 
-            stacked_fields = step_profile(stacked_step, G * bsz * L, None, "", n_top=6)
-            serial_m = build_models(step_cfg, generator=torch.Generator().manual_seed(full["seed"]),
-                                    device=dev)[0]
-            serial_opt, _ = make_family_optimizer(serial_m, "transformer", step_cfg, raw["train"],
-                                                  f)
-            serial_fields = step_profile(
-                lambda: train_step(serial_m, serial_opt, x, y, {"regular": f["lr"]}, sparse_k,
-                                   clip_norm=clip), bsz * L, None, "", n_top=6)
-            stacked_ms, serial_ms = (float(stacked_fields["ms_per_step"]),
-                                     float(serial_fields["ms_per_step"]))
-            ph.fields.update({f"stacked_{k}": v for k, v in stacked_fields.items()})
-            ph.fields.update({f"serial_{k}": v for k, v in serial_fields.items()})
-            ph.fields.update(stacked_point_steps_per_s=f"{G * 1e3 / stacked_ms:.1f}",
-                             serial_steps_per_s=f"{1e3 / serial_ms:.1f}",
-                             stacking_gain=f"{G * serial_ms / stacked_ms:.3f}")
-            del model0, params, moments, serial_m, serial_opt
-        print(f"[launches] stacked sweep: {launches} (expected: none)", flush=True)
+                serial_m = build_models(mc, generator=torch.Generator().manual_seed(
+                    grid[0]["seed"]), device=dev)[0]
+                serial_opt, serial_clip = make_family_optimizer(serial_m, family, mc,
+                                                                grid[0]["train"], f)
+
+                def serial_step():
+                    train_step(serial_m, serial_opt, x, y, {"regular": f["lr"], "ssm": f["ssm_lr"]},
+                               sparse_k, clip_norm=serial_clip)
+
+                counts = []
+                for step in (stacked_step, serial_step):
+                    for k in LAUNCHES:
+                        LAUNCHES[k] = 0
+                    step()
+                    torch.cuda.synchronize()
+                    counts.append({k: v for k, v in LAUNCHES.items() if v})
+                if not counts[0] == counts[1] == per_step(mc):
+                    raise AssertionError(f"{tag}: a stacked step launched {counts[0]}, a serial "
+                                         f"step {counts[1]}, expected {per_step(mc)}")
+                stacked_fields = step_profile(stacked_step, len(grid) * bsz * L, None, "",
+                                              n_top=6)
+                serial_fields = step_profile(serial_step, bsz * L, None, "", n_top=6)
+                stacked_ms, serial_ms = (float(stacked_fields["ms_per_step"]),
+                                         float(serial_fields["ms_per_step"]))
+                ph.fields.update(points=len(grid), num_layers=mc["num_layers"],
+                                 launches_per_stacked_step=counts[0],
+                                 launches_per_serial_step=counts[1])
+                ph.fields.update({f"stacked_{k}": v for k, v in stacked_fields.items()})
+                ph.fields.update({f"serial_{k}": v for k, v in serial_fields.items()})
+                ph.fields.update(
+                    stacked_point_steps_per_s=f"{len(grid) * 1e3 / stacked_ms:.1f}",
+                    serial_steps_per_s=f"{1e3 / serial_ms:.1f}",
+                    stacking_gain=f"{len(grid) * serial_ms / stacked_ms:.3f}")
+                del model0, params, buffers, moments, grads_fn, serial_m, serial_opt
+                torch.cuda.empty_cache()
+        print(f"[launches] {tag}: {launches}", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -5466,6 +5794,27 @@ def main() -> int:
     del wt_splits
     path10_all = sweep_path(dev, test_x, test_y, train_split, want_files)
 
+    # the vmap rules of the kernels' Functions (one launch for a grid), then
+    # main paths 29-31, the stacked sweeps of the kernel families: the MQAR
+    # LRU's seeds (the scan kernels, 2 + 2 a stacked step), the Mamba-2's
+    # rates × layers (the decay attention's three, 1 + 1 + 1 and 4 + 4 + 4)
+    # and the softmax transformer's seeds (the flash kernels, 2 + 2 + 2)
+    kernel_sweep_s = {}
+    t0 = time.perf_counter()
+    fold_times = vmap_rules_phase(dev, flush)
+    kernel_sweep_s["vmap_rules"] = time.perf_counter() - t0
+    kernel_sweeps = kernel_sweep_specs()
+    kernel_sweep_all = {}
+    for tag, (base_raw, points, steps, every, per_step) in kernel_sweeps.items():
+        t0 = time.perf_counter()
+        kernel_sweep_all[tag] = kernel_sweep_path(dev, tag, base_raw, points, train_split,
+                                                  (test_x, test_y), want_files, steps, every,
+                                                  per_step)
+        kernel_sweep_s[tag] = time.perf_counter() - t0
+    print(f"[vmap rules and paths 29-31 seconds] "
+          f"{json.dumps({k: round(v, 2) for k, v in kernel_sweep_s.items()})} "
+          f"total {sum(kernel_sweep_s.values()):.2f}; folded kernels {fold_times}", flush=True)
+
     # main paths 12 and 13, the MQAR S5 (the scan kernels at P 64, a (P,)
     # decay) and S4 (no port kernel)
     path12_all, (s5_scan_times, s5_scan_errs) = ssm_family_path(
@@ -5563,7 +5912,8 @@ def main() -> int:
                 + path10_all[name] + path11_all[name] + path12_all[name] + path13_all[name]
                 + path14_all[name] + path15_all[name] + path16_all[name] + path17_all[name]
                 + path18_all[name] + sum(c[name] for c in cifar_all.values())
-                + sum(c[name] for c in cls_all.values()))
+                + sum(c[name] for c in cls_all.values())
+                + sum(c[name] for c in kernel_sweep_all.values()))
 
     kernels = [{
         "name": "diag_scan",

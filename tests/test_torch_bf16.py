@@ -30,7 +30,7 @@ from tlie_tpu.training.steps import cross_entropy_loss as jax_cross_entropy_loss
 from tlie_tpu_torch import launch
 from tlie_tpu_torch.analysis import eval_eig
 from tlie_tpu_torch.compat import params_from_jax
-from tlie_tpu_torch.config import derive_runtime_fields, load_yaml
+from tlie_tpu_torch.config import ExperimentConfig, derive_runtime_fields, load_yaml
 from tlie_tpu_torch.data import WikiText
 from tlie_tpu_torch.models import build_models
 from tlie_tpu_torch.ops import decay_attention as da
@@ -368,10 +368,14 @@ def test_the_fused_head_on_bf16_operands_stays_refused(tmp_path):
     decoder + CE on bfloat16 operands) trains (``tests/test_torch_fused_xent_bf16.py``);
     what stays refused is its operands in mixed dtypes (the features in
     float32 beside the bfloat16 weight, which ``fused_head_loss`` never
-    hands over) and stacking the config under ``--sweep_parallel``, which
-    takes no Mamba family and no fused head."""
+    hands over).  Stacking the config under ``--sweep_parallel``, which
+    this once refused too, trains it: through the dense head, as
+    ``tlie_tpu``'s stacked block takes no fused head, one stacked step
+    equal to a serial dense-head step of the same point (bfloat16 products
+    batched may round apart: the loss within 2e-2 relative)."""
     from tlie_tpu_torch.ops.fused_xent import fused_softmax_xent
-    from tlie_tpu_torch.parallel.sweep import check_stackable
+    from tlie_tpu_torch.parallel import run_sweep
+    from tlie_tpu_torch.training import steps as steps_mod
 
     cfg = _tiny_bf16(tmp_path, fused_xent=True)
     data = WikiText(**cfg["dataset"])
@@ -382,8 +386,21 @@ def test_the_fused_head_on_bf16_operands_stays_refused(tmp_path):
     with pytest.raises(TypeError, match="all float32 or all bfloat16"):
         fused_softmax_xent(feats, model.decoder.weight.bfloat16().t(),
                            model.decoder.bias.bfloat16(), torch.zeros(128).long())
-    with pytest.raises(NotImplementedError, match="mamba"):
-        check_stackable(cfg["model"])
+    cfg["train"].update(total_steps=1, eval_every=1)
+    cfg["save"] = str(tmp_path / "stacked" / "ckpt")
+    mp = pytest.MonkeyPatch()
+    mp.setattr(steps_mod, "fused_head_loss", lambda *a: pytest.fail("the fused head trained"))
+    try:
+        (res,), (wave,) = run_sweep(ExperimentConfig(cfg), [{("seed",): cfg["seed"]}],
+                                    data.split("train"), data.split("test"), data.l_max,
+                                    device="cpu")
+    finally:
+        mp.undo()
+    assert os.path.exists(res[0])
+    dense = dict(cfg, save=None, train=dict(cfg["train"], fused_xent=False))
+    serial = train(dense, data.split("train"), data.split("test"), device="cpu")
+    assert wave["histories"][0][0]["train_loss"] == pytest.approx(
+        serial.history[0]["train_loss"], rel=2e-2)
 
 
 # -- the card run's paths 8 and 9, rehearsed ------------------------------------------

@@ -77,9 +77,7 @@ for full in (MQAR_LIN_ATTENTION_FULL, MQAR_NORM_ATTENTION_CONV_FULL):
     am(x).sum().backward()
     assert extract_attention_family(am_eval, x, acfg).shape == (4, 15, 2, 2)
     assert Decoder(acfg, am_eval).generate(x[:, :8], 4).shape == (4, 12)
-from tlie_tpu_torch.parallel import check_stackable
 from tlie_tpu_torch.parallel.sweep import stacked_grads
-check_stackable(acfg)
 models = [build_models(acfg, generator=torch.Generator().manual_seed(s), device="cpu")[0]
           for s in (1, 2)]
 params, buffers = torch.func.stack_module_state(models)
@@ -115,7 +113,6 @@ assert extract_attention_family(m1_eval, x, m1cfg).shape == (4, 16, 32 * 4, 2)
 wcfg = dict(WIKITEXT_NORM_ATTENTION_SHORT["model"], vocab_size=64, output_dim=64, hidden_dim=16,
             state_dim=16, num_heads=2, mixer_dim=24, num_layers=2, seq_len=16)
 wm, wm_eval, _ = build_models(wcfg, generator=torch.Generator().manual_seed(0), device="cpu")
-check_stackable(wcfg)
 wm(x).sum().backward()
 assert wm.layers[0].mixer.encoder.weight.grad is not None
 assert Decoder(wcfg, wm_eval).generate(x[:, :8], 4).shape == (4, 12)

@@ -347,10 +347,12 @@ def test_registry_refuses_what_is_not_ported(small):
     dual, _, _ = build_models(dict(model_cfg, dual=True), generator=g, device="cpu")
     assert {n for n in dual.state_dict() if n.startswith("match.")} == {
         f"match.{m}.{k}" for m in ("encoder", "middle", "decoder") for k in ("weight", "bias")}
-    with pytest.raises(NotImplementedError):
-        model, _, _ = build_models(model_cfg, generator=g, device="cpu")
-        make_family_optimizer(model, "mamba", model_cfg, {"param_group": "A_log"},
-                              {"lr": 1e-3, "wd": 0.1, "betas": (0.9, 0.999)})
+    # train.param_group is ported (tests/test_torch_param_group.py): a group
+    # beside the regular one, no longer a raise
+    model, _, _ = build_models(model_cfg, generator=g, device="cpu")
+    opt, _ = make_family_optimizer(model, "mamba", model_cfg, {"param_group": "A_log"},
+                                   {"lr": 1e-3, "wd": 0.1, "betas": (0.9, 0.999)})
+    assert [grp["name"] for grp in opt.param_groups] == ["regular", "group"]
     model, eval_model, _ = build_models(model_cfg, generator=g, device="cpu")
     assert model.training and not eval_model.training
     assert all(p is q for p, q in zip(model.parameters(), eval_model.parameters()))

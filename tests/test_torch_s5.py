@@ -422,23 +422,37 @@ def test_launch_trains_checkpoints_and_analyses_on_the_cpu(tmp_path):
 
 def test_sweeps_serial_runs_and_stacked_raises(tmp_path):
     """``--sweep`` trains two seeds one after another; ``--sweep_parallel``
-    refuses S5 (the scan kernels have no vmap rule) before anything trains."""
+    (which refused S5 until the scan's Functions had ``vmap`` rules) trains
+    them stacked, each point checkpointed under its seed and journaled, and
+    each stacked checkpoint equals its serial one at dropout 0 within 1e-5
+    (the stacked step batches the same float32 products)."""
     from tlie_tpu_torch import launch
 
     base = _cut_config(tmp_path, SMALL_YAML, steps=4)
-    sweep = tmp_path / "sweep.yaml"
-    sweep.write_text(yaml.safe_dump({"base_config": str(base), "sweep": {"seed": [1919, 2222]}}))
-    with pytest.raises(NotImplementedError, match="the s5 family"):
-        launch.main(["--config", str(sweep), "--sweep_parallel", "--device", "cpu"])
-    cwd = os.getcwd()
-    try:
-        os.chdir(tmp_path)
-        assert launch.main(["--config", str(sweep), "--sweep", "--device", "cpu"]) == 0
-    finally:
-        os.chdir(cwd)
-    ckpts = [c for c in os.listdir(tmp_path / "checkpoint") if c.endswith(".pth")]
-    assert sorted(c.split("-layers")[0] for c in ckpts) == ["mqar-s5-small-seed-1919",
-                                                             "mqar-s5-small-seed-2222"]
+    cfg = yaml.safe_load(base.read_text())
+    cfg["model"]["dropout"] = 0.0
+    base.write_text(yaml.safe_dump(cfg))
+    found = {}
+    for mode in ("--sweep", "--sweep_parallel"):
+        sweep = tmp_path / mode / "sweep.yaml"
+        sweep.parent.mkdir()
+        sweep.write_text(yaml.safe_dump({"base_config": str(base),
+                                         "sweep": {"seed": [1919, 2222]}}))
+        cwd = os.getcwd()
+        try:
+            os.chdir(sweep.parent)
+            assert launch.main(["--config", str(sweep), mode, "--device", "cpu"]) == 0
+        finally:
+            os.chdir(cwd)
+        ckpts = sorted(c for c in os.listdir(sweep.parent / "checkpoint") if c.endswith(".pth"))
+        assert [c.split("-layers")[0] for c in ckpts] == ["mqar-s5-small-seed-1919",
+                                                           "mqar-s5-small-seed-2222"]
+        found[mode] = [torch.load(sweep.parent / "checkpoint" / c, weights_only=True)["model"]
+                       for c in ckpts]
+    for serial, stacked in zip(found["--sweep"], found["--sweep_parallel"]):
+        for name, want in serial.items():
+            np.testing.assert_allclose(stacked[name].numpy(), want.numpy(), rtol=0, atol=1e-5,
+                                       err_msg=name)
 
 
 # -- the card run's path 12, rehearsed ------------------------------------------------------------

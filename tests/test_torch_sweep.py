@@ -137,7 +137,6 @@ def test_grid_of_the_north_star_sweep():
     assert len(points) == 16
     sigs = {sweep_mod._group_signature(apply_sweep_point(base, p)) for p in points}
     assert len(sigs) == 1
-    sweep_mod.check_stackable(base.model)
 
 
 # -- the serial sweep ----------------------------------------------------------------
@@ -420,21 +419,48 @@ def test_stacked_adamw_step_is_torch_adamw_behind_the_clip():
     assert not any(torch.equal(params[n][1], frozen[n][1]) for n in shapes)
 
 
-# -- the families the stacked step does not take ------------------------------------------
+# -- the kernel families, stacked ------------------------------------------------------------
 
 @pytest.mark.parametrize("base_yaml, attention", [
     ("mqar-lru-small.yaml", None), ("mqar-mamba2-small.yaml", None),
     ("mqar-lin-attention-small.yaml", "sm-attention")], ids=["lru", "mamba", "softmax"])
 def test_sweep_parallel_raises_for_kernel_families(tmp_path, base_yaml, attention):
     """``--sweep_parallel`` over a family whose step runs a port kernel (the
-    scan, the decay attention, the flash attention) raises before anything
-    trains, naming the family; nothing is journaled."""
-    path = _write_cut_sweep(tmp_path, base_yaml=ROOT / "configs" / base_yaml, attention=attention)
-    family = {"mqar-lru-small.yaml": "lru", "mqar-mamba2-small.yaml": "mamba"}.get(
-        base_yaml, "transformer (sm-attention)")
-    with pytest.raises(NotImplementedError, match=re.escape(f"the {family} family")):
-        launch.main(["--config", str(path), "--sweep_parallel", "--device", "cpu"])
-    assert not (tmp_path / "checkpoint").exists()
+    scan, the decay attention, the flash attention), which it refused until
+    the kernels' Functions had ``vmap`` rules, now trains the cut sweep
+    stacked: one group of two points, each checkpointed and journaled, each
+    kernel's plain version called once a stacked step for both points (as
+    the kernel launches once on the card)."""
+    from tlie_tpu_torch.ops import attention as attn_mod
+    from tlie_tpu_torch.ops import decay_attention as decay_mod
+    from tlie_tpu_torch.ops import scan as scan_mod
+
+    path = _write_cut_sweep(tmp_path, base_yaml=ROOT / "configs" / base_yaml, attention=attention,
+                            steps=2, eval_every=2)
+    if attention == "sm-attention":  # through the flash route (the config sets it off)
+        base = load_yaml(tmp_path / "base.yaml")
+        base["model"]["use_flash"] = True
+        (tmp_path / "base.yaml").write_text(yaml.safe_dump(base))
+    module, plain = {"mqar-lru-small.yaml": (scan_mod, "diag_scan_bwd_plain"),
+                     "mqar-mamba2-small.yaml": (decay_mod, "decay_attention_bwd_j_plain")}.get(
+        base_yaml, (attn_mod, "flash_attention_bwd_dq_plain"))
+    calls = [0]
+    real = getattr(module, plain)
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return real(*args, **kw)
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(module, plain, counted)
+    try:
+        assert launch.main(["--config", str(path), "--sweep_parallel", "--device", "cpu"]) == 0
+    finally:
+        mp.undo()
+    layers = load_yaml(ROOT / "configs" / base_yaml)["model"]["num_layers"]
+    assert calls[0] == 2 * layers  # 2 stacked steps, one backward call a layer
+    records = _journal(tmp_path)
+    assert len(records) == 2 and all(os.path.exists(r["path"]) for r in records)
 
 
 # -- the card run's path 10, rehearsed ---------------------------------------------------
@@ -451,6 +477,9 @@ def test_chip_smoke_path_10_runs_on_the_cpu(monkeypatch):
 
     cs = load_chip_smoke()
     stub_card(monkeypatch, cs)
+    # the path records the wave's peak device memory (chip_smoke.kernel_sweep_path)
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
     tiny = copy.deepcopy(config_mod.MQAR_LIN_ATTENTION_FULL)
     tiny["dataset"].update(input_seq_length=64, num_kv_pairs=8, vocab_size=256)
     tiny["train"]["batch_size"] = 32

@@ -144,9 +144,10 @@ def test_launch_needs_a_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         launch.main(["--config", SMALL_YAML])
-    # the stacked sweep refuses the LRU, whose scan kernels have no vmap rule
+    # the stacked sweep of the LRU (whose scan kernels it once refused) too
+    # runs on the card unless asked for the CPU
     sweep = tmp_path / "sweep.yaml"
     sweep.write_text(yaml.safe_dump({"base_config": str(ROOT / SMALL_YAML),
                                      "sweep": {"seed": [1919, 2222]}}))
-    with pytest.raises(NotImplementedError, match="the lru family"):
-        launch.main(["--config", str(sweep), "--sweep_parallel", "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch.main(["--config", str(sweep), "--sweep_parallel"])

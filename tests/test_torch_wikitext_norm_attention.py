@@ -47,7 +47,6 @@ from tlie_tpu_torch.inference import Decoder
 from tlie_tpu_torch.models import build_models
 from tlie_tpu_torch.models.layers import MLP
 from tlie_tpu_torch.parallel import run_sweep
-from tlie_tpu_torch.parallel.sweep import check_stackable
 from tlie_tpu_torch.training import (
     cross_entropy_loss, restore_checkpoint, save_checkpoint, schedules, train, train_step,
 )
@@ -344,7 +343,6 @@ def test_two_stacked_points_equal_their_serial_runs(tmp_path):
     data = WikiText(**raw["dataset"])
     tr, te = data.split("train"), data.split("test")
     base = ExperimentConfig(raw)
-    check_stackable(base.model)
     points = [{("seed",): 1919, ("train", "lr"): 0.0005}, {("seed",): 2222, ("train", "lr"): 0.001}]
     stacked, (wave,) = run_sweep(base, points, tr, te, data.l_max, device="cpu")
     for point, hist, (path, perf) in zip(points, wave["histories"], stacked):

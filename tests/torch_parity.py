@@ -127,14 +127,15 @@ def load_chip_smoke():
 
 
 def stub_card(monkeypatch, cs, decay_kernels: bool = False, head_kernels: bool = False,
-              scan_kernels: bool = False):
+              scan_kernels: bool = False, attention_kernels: bool = False):
     """The card's timers and profiler stubbed for a CPU rehearsal of
     ``chip_smoke`` (CUDA events that time nothing, a profiler that sees no
     device time), every launch count set to 0; with ``decay_kernels`` the
     decay attention's routing forced to its ``*_cuda`` wrappers, which run
     the plain versions and count their launches under the kernels' names,
     and with ``head_kernels`` the fused head's, with ``scan_kernels`` the
-    diagonal scan's the same way."""
+    diagonal scan's and with ``attention_kernels`` the flash attention's the
+    same way."""
     from tlie_tpu_torch.ops import LAUNCHES
     from tlie_tpu_torch.ops import decay_attention as da
     from tlie_tpu_torch.ops import fused_xent as fx
@@ -185,6 +186,21 @@ def stub_card(monkeypatch, cs, decay_kernels: bool = False, head_kernels: bool =
         monkeypatch.setattr(sc, "_on_cuda", lambda t: True)
         monkeypatch.setattr(sc, "diag_scan_cuda", scan_fwd)
         monkeypatch.setattr(sc, "diag_scan_bwd_cuda", scan_bwd)
+    if attention_kernels:
+        from tlie_tpu_torch.ops import attention as fa
+
+        def counted(name, plain):
+            def launch(*args):
+                LAUNCHES[name] += 1
+                return plain(*args)
+            return launch
+
+        monkeypatch.setattr(fa, "_on_cuda", lambda t: True)
+        for kind, plain in (("fwd", fa.flash_attention_plain),
+                            ("bwd_dkv", fa.flash_attention_bwd_dkv_plain),
+                            ("bwd_dq", fa.flash_attention_bwd_dq_plain)):
+            monkeypatch.setattr(fa, f"flash_attention_{kind}_cuda",
+                                counted(f"flash_attention_{kind}", plain))
     if not decay_kernels:
         return
 

@@ -268,6 +268,9 @@ def train_fields(cfg: Dict[str, Any]) -> Dict[str, Any]:
         "sparse_head": train.get("sparse_head", True),
         "checkpoint_every": int(every) if every else None,
         "resume": bool(train.get("resume", False)),
+        # train.param_group's optimiser group (training/state.py): its fixed
+        # rate, with tlie_tpu's default (loop.py:197-198, 347)
+        "group_lr": train.get("group_lr", 1e-3),
     }
 
 

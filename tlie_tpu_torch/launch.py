@@ -82,16 +82,17 @@ Commands); W&B is not ported and raises.
 once, and trains and analyses its points one after another, each with
 ``apply_sweep_point``, ``derive_runtime_fields``, ``train`` and ``eval_eig``;
 ``--sweep_parallel`` (which implies ``--sweep``) trains the points stacked on
-one device instead (:func:`tlie_tpu_torch.parallel.run_sweep`; the
-transformer with linear or norm attention only: it raises for the other
-families, whose kernels' autograd functions have no ``vmap`` rule).  Both journal each finished
-point in ``<save>.sweep_journal.jsonl`` and skip the points a rerun finds
-there:
+one device instead (:func:`tlie_tpu_torch.parallel.run_sweep`, every
+family: each kernel launches once a stacked step for all the points).  Both
+journal each finished point in ``<save>.sweep_journal.jsonl`` and skip the
+points a rerun finds there:
 
     python -m tlie_tpu_torch.launch --config sweep/mqar-lin-attention-seeds-lrs-8k.yaml \\
         --sweep_parallel --analysis_config configs/analysis/mqar.yaml
     python -m tlie_tpu_torch.launch --config sweep/wikitext-norm-attention-seeds-lrs.yaml \\
         --sweep_parallel --analysis_config configs/analysis/wikitext.yaml
+    python -m tlie_tpu_torch.launch --config sweep/mqar-mamba2-layers.yaml \\
+        --sweep_parallel --analysis_config configs/analysis/mqar.yaml
 """
 
 from __future__ import annotations
@@ -117,7 +118,8 @@ def main(argv=None) -> int:
     parser.add_argument("--analysis_config", type=str, default="no-analysis")
     parser.add_argument("--sweep", action="store_true", default=False)
     parser.add_argument("--sweep_parallel", action="store_true", default=False,
-                        help="train the sweep's points stacked on one device")
+                        help="train the sweep's points stacked on one device, any family "
+                             "(at most 4 points a wave, one kernel launch a step for all)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (the default) or cpu")
     parser.add_argument("--resume", action="store_true", default=False,
@@ -131,10 +133,6 @@ def main(argv=None) -> int:
     if args.sweep or args.sweep_parallel:
         base, sweep = load_sweep(_resolve(args.config), config_root="configs")
         cfg = base.raw
-        if args.sweep_parallel:
-            from .parallel import check_stackable
-
-            check_stackable(base.model)  # before the dataset is built
     else:
         cfg = load_yaml(_resolve(args.config))
     if cfg.pop("wandb", None):

@@ -126,10 +126,14 @@ class S4(nn.Module):
     def parameters_complex(self) -> Tuple[torch.Tensor, ...]:
         """(Λ, P, B, C̃) as (N, H) complex tensors, Re Λ clipped at −1e-4,
         and Δ (H,)."""
+        # view_as_complex, not torch.complex: the same values and gradients,
+        # and a batching rule under a stacked sweep's vmap, where
+        # torch.complex's backward takes .imag of a conjugate view, which
+        # vmap cannot batch
         def cx(w):
-            return torch.complex(w[..., 0], w[..., 1])
+            return torch.view_as_complex(w.contiguous())
 
-        lam = torch.complex(self.Lambda_re.clamp(max=-1e-4), self.Lambda_im)
+        lam = cx(torch.stack([self.Lambda_re.clamp(max=-1e-4), self.Lambda_im], -1))
         return lam, cx(self.P), cx(self.B), cx(self.C), torch.exp(self.log_step[0])
 
     def recurrence(self):

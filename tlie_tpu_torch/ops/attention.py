@@ -46,6 +46,7 @@ from typing import Optional, Tuple
 import torch
 
 from ._build import LAUNCHES, CudaLibrary, check
+from ._grid import fold, unfold
 
 MAX_HEAD_DIM = 128  # the kernels hold two 64-wide column tiles of D
 F32_UNIT = 2.0 ** -24
@@ -70,7 +71,7 @@ def causal_softmax_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scale = 1.0 / math.sqrt(q.shape[-1])
     if impl in (None, "flash"):
         _check_operands(q, k, v)
-        return FlashAttentionFn.apply(q, k, v, float(scale))
+        return FlashAttentionFn.apply(q, k, v, float(scale))[0]
     if impl == "xla":
         return xla_causal_attention(q, k, v, scale)
     raise ValueError(f"Unknown attention impl {impl!r}")
@@ -107,27 +108,67 @@ def _on_cuda(t: torch.Tensor) -> bool:
 
 class FlashAttentionFn(torch.autograd.Function):
     """Autograd around the flash attention: the kernels for CUDA tensors,
-    the plain versions for CPU tensors, forward and backward alike.  Saves
-    q, k, v, o and lse."""
+    the plain versions for CPU tensors, forward and backward alike.
+    ``apply(q, k, v, scale) -> (o, lse)``, lse not differentiable; saves q,
+    k, v, o and lse.  The backward is :class:`FlashAttentionBwdFn`; both have
+    a ``vmap`` rule (``ops/_grid.py``) that folds a stacked sweep's grid into
+    B, so the grid takes one launch of each kernel."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale):
-        ctx.cuda, ctx.scale = _on_cuda(q), scale
-        fwd = flash_attention_fwd_cuda if ctx.cuda else flash_attention_plain
-        o, lse = fwd(q, k, v, scale)
+    def forward(q, k, v, scale):
+        fwd = flash_attention_fwd_cuda if _on_cuda(q) else flash_attention_plain
+        return fwd(q, k, v, scale)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, ctx.scale = inputs
+        o, lse = output
         ctx.save_for_backward(q, k, v, o, lse)
-        return o
+        ctx.mark_non_differentiable(lse)
 
     @staticmethod
-    def backward(ctx, do):
+    def backward(ctx, do, _dlse):
         q, k, v, o, lse = ctx.saved_tensors
         do = do.contiguous()
-        di = attention_di(o, do)
-        bwd_dkv = flash_attention_bwd_dkv_cuda if ctx.cuda else flash_attention_bwd_dkv_plain
-        bwd_dq = flash_attention_bwd_dq_cuda if ctx.cuda else flash_attention_bwd_dq_plain
-        dk, dv = bwd_dkv(q, k, v, do, lse, di, ctx.scale)
-        dq = bwd_dq(q, k, v, do, lse, di, ctx.scale)
+        dq, dk, dv = FlashAttentionBwdFn.apply(q, k, v, do, lse, attention_di(o, do), ctx.scale)
         return dq, dk, dv, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, scale):
+        G = info.batch_size
+        q, k, v = (fold(t, d, G) for t, d in zip((q, k, v), in_dims))
+        o, lse = FlashAttentionFn.apply(q, k, v, scale)
+        return (unfold(o, G), unfold(lse, G)), (0, 0)
+
+
+class FlashAttentionBwdFn(torch.autograd.Function):
+    """The flash attention's backward as a Function of its own,
+    ``apply(q, k, v, do, lse, di, scale) -> (dq, dk, dv)``: the dK/dV and
+    dQ kernels (or plain versions)."""
+
+    @staticmethod
+    def forward(q, k, v, do, lse, di, scale):
+        cuda = _on_cuda(q)
+        bwd_dkv = flash_attention_bwd_dkv_cuda if cuda else flash_attention_bwd_dkv_plain
+        bwd_dq = flash_attention_bwd_dq_cuda if cuda else flash_attention_bwd_dq_plain
+        dk, dv = bwd_dkv(q, k, v, do, lse, di, scale)
+        return bwd_dq(q, k, v, do, lse, di, scale), dk, dv
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("the flash attention's backward is not differentiable")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, do, lse, di, scale):
+        G = info.batch_size
+        q, k, v = (fold(t, d, G) for t, d in zip((q, k, v), in_dims))
+        do, lse, di = (fold(t, d, G).contiguous() for t, d in zip((do, lse, di), in_dims[3:]))
+        out = FlashAttentionBwdFn.apply(q, k, v, do, lse, di, scale)
+        return tuple(unfold(x, G) for x in out), (0, 0, 0)
 
 
 def attention_di(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:

@@ -56,6 +56,7 @@ from typing import Dict, Tuple
 import torch
 
 from ._build import LAUNCHES, CudaLibrary, check
+from ._grid import fold, unfold
 
 _P, _I = ctypes.c_void_p, ctypes.c_int64
 _ARGS = {"fwd": (_P,) * 5 + (_I,) * 9 + (_P,), "bwd_i": (_P,) * 7 + (_I,) * 9 + (_P,),
@@ -134,24 +135,64 @@ def _on_cuda(t: torch.Tensor) -> bool:
 class DecayAttentionFn(torch.autograd.Function):
     """Autograd around the decay attention: the kernels for CUDA tensors,
     the plain versions for CPU tensors, forward and backward alike.  Saves
-    the four inputs, as the reference's ``_fwd`` does."""
+    the four inputs, as the reference's ``_fwd`` does.  The backward is
+    :class:`DecayAttentionBwdFn`; both have a ``vmap`` rule
+    (``ops/_grid.py``) that folds a stacked sweep's grid into BG, so the grid
+    takes one launch of each kernel (float32 and bfloat16 alike)."""
 
     @staticmethod
-    def forward(ctx, Cm, Bm, cs, xdt):
-        ctx.cuda = _on_cuda(xdt)
-        fwd = decay_attention_fwd_cuda if ctx.cuda else decay_attention_plain
-        ctx.save_for_backward(Cm, Bm, cs, xdt)
+    def forward(Cm, Bm, cs, xdt):
+        fwd = decay_attention_fwd_cuda if _on_cuda(xdt) else decay_attention_plain
         return fwd(Cm, Bm, cs, xdt)
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
     def backward(ctx, dy):
-        Cm, Bm, cs, xdt = ctx.saved_tensors
-        dy = dy.contiguous()
-        bwd_i = decay_attention_bwd_i_cuda if ctx.cuda else decay_attention_bwd_i_plain
-        bwd_j = decay_attention_bwd_j_cuda if ctx.cuda else decay_attention_bwd_j_plain
+        return DecayAttentionBwdFn.apply(*ctx.saved_tensors, dy.contiguous())
+
+    @staticmethod
+    def vmap(info, in_dims, *operands):
+        G = info.batch_size
+        return unfold(DecayAttentionFn.apply(*_fold_operands(G, operands, in_dims)), G), 0
+
+
+class DecayAttentionBwdFn(torch.autograd.Function):
+    """The decay attention's backward as a Function of its own,
+    ``apply(C, B, cs, xdt, dy) -> (dC, dB, dcs, dxdt)``: the i-indexed and
+    j-indexed kernels (or plain versions), ``dcs = dcs_i + dcs_j``."""
+
+    @staticmethod
+    def forward(Cm, Bm, cs, xdt, dy):
+        cuda = _on_cuda(xdt)
+        bwd_i = decay_attention_bwd_i_cuda if cuda else decay_attention_bwd_i_plain
+        bwd_j = decay_attention_bwd_j_cuda if cuda else decay_attention_bwd_j_plain
         dC, dcs_i = bwd_i(Cm, Bm, cs, xdt, dy)
         dB, dxdt, dcs_j = bwd_j(Cm, Bm, cs, xdt, dy)
         return dC, dB, dcs_i + dcs_j, dxdt
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("the decay attention's backward is not differentiable")
+
+    @staticmethod
+    def vmap(info, in_dims, *operands):
+        G = info.batch_size
+        out = DecayAttentionBwdFn.apply(*_fold_operands(G, operands, in_dims))
+        return tuple(unfold(x, G) for x in out), (0,) * 4
+
+
+def _fold_operands(G: int, operands, in_dims):
+    """C and B (views, their last dim contiguous) and cs, xdt (and dy)
+    contiguous, each with the grid of G points folded into BG."""
+    folded = [fold(t, d, G) for t, d in zip(operands, in_dims)]
+    return (*folded[:2], *(t.contiguous() for t in folded[2:]))
 
 
 # -- plain versions -------------------------------------------------------------

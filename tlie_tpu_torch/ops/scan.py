@@ -42,6 +42,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from ._build import LAUNCHES, CudaLibrary, check
+from ._grid import to_front
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 TensorOrPair = Union[torch.Tensor, Pair]
@@ -100,31 +101,104 @@ def diag_linear_scan(
 class DiagScanFn(torch.autograd.Function):
     """Autograd around the scan: ``apply(reverse, *a_planes, *b_planes)``
     with one plane each (real) or two (re, im).  The kernels run for CUDA
-    tensors, the plain loops for CPU tensors, forward and backward alike."""
+    tensors, the plain loops for CPU tensors, forward and backward alike.
+    The backward is :class:`DiagScanBwdFn`; both have a ``vmap`` rule
+    (``ops/_grid.py``) that folds a stacked sweep's grid into the scan's
+    batch axis, so the grid takes one launch of each kernel."""
 
     @staticmethod
-    def forward(ctx, reverse: bool, *planes):
+    def forward(reverse: bool, *planes):
+        a, b = _operands(planes, 2)
+        scan = diag_scan_cuda if _on_cuda(planes[-1]) else diag_scan_plain
+        return scan(a, b, reverse=reverse)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        reverse, *planes = inputs
         k = len(planes) // 2
-        a = planes[:k] if k == 2 else planes[0]
-        b = planes[k:] if k == 2 else planes[k]
-        ctx.reverse, ctx.cuda = reverse, _on_cuda(planes[k])
-        ctx.b_shape = planes[k].shape
-        scan = diag_scan_cuda if ctx.cuda else diag_scan_plain
-        h = scan(a, b, reverse=reverse)
-        ctx.save_for_backward(*planes[:k], *_planes(h))
-        return h
+        ctx.reverse, ctx.b_shape = reverse, planes[k].shape
+        ctx.save_for_backward(*planes[:k], *_planes(output))
 
     @staticmethod
     def backward(ctx, *grads):
         saved = ctx.saved_tensors
         k = len(saved) // 2
-        a = saved[:k] if k == 2 else saved[0]
-        h = saved[k:] if k == 2 else saved[k]
-        g = tuple(x.contiguous() for x in grads) if k == 2 else grads[0].contiguous()
-        bwd = diag_scan_bwd_cuda if ctx.cuda else diag_scan_bwd_plain
-        da, db = bwd(a, h, g, reverse=ctx.reverse)
-        db = tuple(_sum_to(x, ctx.b_shape) for x in _planes(db))  # b may broadcast too
-        return (None, *_planes(da), *db)
+        out = DiagScanBwdFn.apply(ctx.reverse, *saved, *(g.contiguous() for g in grads))
+        db = tuple(_sum_to(x, ctx.b_shape) for x in out[k:])  # b may broadcast too
+        return (None, *out[:k], *db)
+
+    @staticmethod
+    def vmap(info, in_dims, reverse, *planes):
+        k = len(planes) // 2
+        a, b = _grid_planes(info.batch_size, planes[:k], in_dims[1:k + 1], planes[k:],
+                            in_dims[k + 1:])
+        h = DiagScanFn.apply(reverse, *a, *b)
+        return h, (0, 0) if k == 2 else 0
+
+
+class DiagScanBwdFn(torch.autograd.Function):
+    """The scan's backward as a Function of its own, ``apply(reverse,
+    *a_planes, *h_planes, *g_planes) -> (*da_planes, *db_planes)`` with
+    ``da`` at ``a``'s shape: :func:`diag_scan_bwd_cuda` for CUDA tensors,
+    :func:`diag_scan_bwd_plain` for CPU tensors.  Its ``vmap`` rule folds
+    the grid as :class:`DiagScanFn`'s does and sums ``da`` per point."""
+
+    @staticmethod
+    def forward(reverse: bool, *planes):
+        a, h, g = _operands(planes, 3)
+        bwd = diag_scan_bwd_cuda if _on_cuda(planes[-1]) else diag_scan_bwd_plain
+        da, db = bwd(a, h, g, reverse=reverse)
+        return (*_planes(da), *_planes(db))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("the scan's backward is not differentiable")
+
+    @staticmethod
+    def vmap(info, in_dims, reverse, *planes):
+        k = len(planes) // 3
+        G = info.batch_size
+        a, hg = _grid_planes(G, planes[:k], in_dims[1:k + 1], planes[k:], in_dims[k + 1:])
+        out = DiagScanBwdFn.apply(reverse, *a, *hg)
+        # da at the folded a's (G, 1, ..., *a_shape): summed over each point's
+        # own batch, never across points
+        da = tuple(x.reshape(G, *_point_shape(p, d))
+                   for x, p, d in zip(out[:k], planes[:k], in_dims[1:k + 1]))
+        return (*da, *out[k:]), (0,) * len(out)
+
+
+def _operands(planes, n: int) -> tuple:
+    """``apply``'s planes as its ``n`` operands, each a tensor (real) or a
+    (re, im) pair."""
+    k = len(planes) // n
+    return tuple(planes[i * k:(i + 1) * k] if k == 2 else planes[i] for i in range(n))
+
+
+def _point_shape(x: torch.Tensor, bdim) -> tuple:
+    """One grid point's shape of a plane vmap holds with grid dim ``bdim``."""
+    return tuple(x.shape) if bdim is None else tuple(s for i, s in enumerate(x.shape)
+                                                      if i != bdim)
+
+
+def _grid_planes(G: int, a_planes, a_dims, rest, rest_dims):
+    """The operands of one launch for the whole grid of G points: each of
+    ``rest`` (b, or h and g: per point (..., L, N)) with the grid at dim 0,
+    contiguous (G, ..., L, N), and each a plane (per point any shape that
+    broadcasts to them: the LRU's and S5's (N,) decay of each point, or
+    Mamba-1's (B, L, N)) as a contiguous (G, 1, ..., 1, *a_shape) of the
+    same rank, which the launchers read at its batch stride or from a
+    broadcast copy.  An operand the grid shares is expanded over it."""
+    rest = tuple(to_front(x, d, G).contiguous() for x, d in zip(rest, rest_dims))
+    rank = rest[0].dim()
+    folded = []
+    for x, d in zip(a_planes, a_dims):
+        x = to_front(x, d, G)
+        folded.append(x.reshape(G, *(1,) * (rank - x.dim()), *x.shape[1:]).contiguous())
+    return tuple(folded), rest
 
 
 def diag_scan_plain(a: TensorOrPair, b: TensorOrPair, reverse: bool = False):

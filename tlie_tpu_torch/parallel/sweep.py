@@ -8,17 +8,30 @@ A group is trained in waves of at most ``_MAX_POINTS_PER_DEVICE`` points:
 each point's model is built from its own seed exactly as ``build_models``
 builds it for a serial run, the points' parameters are stacked on a leading
 grid axis (``torch.func.stack_module_state``), and one step trains them all
-(``torch.func.vmap`` over ``functional_call`` and ``grad``).  Per point: its
-learning rate and ssm learning rate ((G,) tensors through the warmup/cosine
-schedule and the plateau decay), its AdamW moments and global-norm clip
-(:func:`stacked_adamw_step`, the arithmetic of ``torch.optim.AdamW`` and
-``clip_by_global_norm_`` with the groups of ``make_family_optimizer``), its
-batch stream (``np.random.default_rng(seed)`` through ``batch_indices``, as
-the serial loop draws it) and its dropout masks (``vmap(randomness=
-"different")``: the masks differ from a serial run's, whose generator
-cannot be drawn from under ``vmap``, so a stacked point reproduces its
-serial run at dropout 0, not above it).  Early stopping is masked: a point
-whose test metric passes ``stop_criterion`` steps on with learning rate 0,
+(``torch.func.vmap`` over ``functional_call`` and ``grad``).  Every family
+stacks: the LRU, S5 and S4 (their ``{ssm, regular}`` groups, no clip,
+BatchNorm statistics stacked per point), the Mamba family (Mamba-2,
+``SSD_LTI``, Mamba-1, bfloat16 compute) and the transformer (softmax through
+the flash kernels or materialised, linear, norm, the classifier and dual
+heads), padded splits with their lengths.  The kernels' autograd Functions
+have ``vmap`` rules (``ops/_grid.py``) that fold the grid into each kernel's
+batch axis, so a stacked step launches each kernel as often as one serial
+step does, whatever the number of points.  ``train.fused_xent`` trains
+stacked through the dense head, or the sparse one where
+``sparse_head_k_for`` gives a K, as ``tlie_tpu``'s stacked block does.
+
+Per point: its learning rate and ssm learning rate ((G,) tensors through
+the warmup/cosine schedule and the plateau decay), its AdamW moments and
+global-norm clip (:func:`stacked_adamw_step`, the arithmetic of
+``torch.optim.AdamW`` and ``clip_by_global_norm_`` with the groups of
+``make_family_optimizer``, ``train.param_group``'s ``MultiSteps`` group
+included: :class:`StackedMultiSteps`), its batch stream
+(``np.random.default_rng(seed)`` through ``batch_indices``, as the serial
+loop draws it) and its dropout masks (``vmap(randomness="different")``: the
+masks differ from a serial run's, whose generator cannot be drawn from under
+``vmap``, so a stacked point reproduces its serial run at dropout 0, not
+above it).  Early stopping is masked: a point whose test metric passes
+``stop_criterion`` steps on with learning rate 0 (its param group's too),
 which leaves its parameters exactly as they are.
 
 After training, each point is unstacked, checkpointed (a path that collides
@@ -28,11 +41,13 @@ eigen-analysed from its in-memory weights.  The journal
 lets a rerun skip every point it holds; the serial ``--sweep`` writes and
 reads the same journal.
 
-The stacked step runs families whose training step reaches no hand-written
-kernel: the transformer with linear or norm attention.  The others'
-kernels are ``autograd.Function``\\ s bound with ``ctypes``, which have no
-``vmap`` rule: :func:`run_sweep` raises ``NotImplementedError`` for them,
-and ``--sweep`` trains them one point after another.
+Where the port departs from ``tlie_tpu``'s stacked block (ROADMAP Queue 3):
+it carries a padded split's lengths (the reference's block puts inputs and
+labels alone on the device and its padded model raises), it steps
+``train.param_group`` at the config's ``group_lr`` (the reference's block
+takes ``make_train_block``'s default 1e-3), and an epoch-driven config's
+``warmup`` counts epochs, as in the serial loop (the reference's block reads
+it as steps).
 """
 
 from __future__ import annotations
@@ -53,10 +68,10 @@ from ..data import DATASETS
 from ..device import resolve_device
 from ..models.layers import Dropout
 from ..models.registry import build_models
-from ..training.loop import head_choice, save_trained
-from ..training.scan_loop import batch_indices, eval_indices, put_dataset
+from ..training.loop import _device_split, save_trained
+from ..training.scan_loop import batch_indices, eval_indices, gather_batch, sparse_head_k_for
 from ..training.schedules import PlateauState, lr_for_step, reduce_lr_on_plateau
-from ..training.state import make_family_optimizer
+from ..training.state import GROUP, OPTAX_BETAS, make_family_optimizer
 from ..training.steps import cross_entropy_loss, head_logits
 
 # the keys a point may vary inside a group: the seed and the two learning
@@ -68,9 +83,6 @@ _PER_POINT_KEYS = (("seed",), ("train", "lr"), ("train", "ssm_lr"))
 # step transients, so this bounds the memory); the reference's
 # ``max_points_per_device``
 _MAX_POINTS_PER_DEVICE = 4
-
-# the transformer's attention functions whose training step runs no port kernel
-STACKED_ATTENTION = ("lin-attention", "norm-attention")
 
 
 def _group_signature(cfg: ExperimentConfig) -> str:
@@ -109,28 +121,14 @@ def write_journal(path: str, point: Dict, ckpt: Optional[str], perf: float) -> N
         f.write(json.dumps({"point_key": _point_key(point), "path": ckpt, "perf": perf}) + "\n")
 
 
-def check_stackable(model_cfg: Dict[str, Any]) -> None:
-    """Raise ``NotImplementedError``, naming the family, where the stacked
-    step cannot run the model: every family but the transformer with linear
-    or norm attention reaches a kernel whose ``autograd.Function`` has no
-    ``vmap`` rule."""
-    layer = model_cfg["layer"]
-    attention = model_cfg.get("attention_fn")
-    if layer != "transformer" or attention not in STACKED_ATTENTION:
-        what = f"{layer} ({attention})" if layer == "transformer" else layer
-        raise NotImplementedError(
-            f"--sweep_parallel stacks the transformer with {' or '.join(STACKED_ATTENTION)} "
-            f"only; the {what} family's kernels have no vmap rule yet (ROADMAP Queue 1 item 6): "
-            "run it with --sweep, one point after another")
-
-
 def run_sweep(base: ExperimentConfig, points: List[Dict], train_split, test_split, l_max: int,
               conf_args: Optional[Dict[str, Any]] = None, *, device="cuda"
               ) -> Tuple[List[Tuple[Optional[str], float]], List[Dict[str, Any]]]:
     """Train every sweep point stacked on one device (``run_sweep_on_mesh``
     on a mesh of one); then checkpoint, journal and eigen-analyse each point.
     ``train_split`` and ``test_split`` are the (inputs, labels) splits of
-    the dataset, built once for all points; ``l_max`` is its sequence
+    the dataset, built once for all points, or (inputs, labels, lengths)
+    for a padded config; ``l_max`` is its sequence
     length.  Points already in the journal are skipped and their journaled
     (path, perf) returned.  Returns (results, waves): results the
     reference's ``[(checkpoint_path | None, perf)]`` in point order, waves
@@ -141,7 +139,6 @@ def run_sweep(base: ExperimentConfig, points: List[Dict], train_split, test_spli
     for point in points:
         c = apply_sweep_point(base, point)
         c.raw = derive_runtime_fields(c.raw, l_max, len(train_split[0]))
-        check_stackable(c.model)
         cfgs.append(c)
 
     journal_path = _journal_path(base)
@@ -191,7 +188,8 @@ class _Eval(nn.Module):
         return cross_entropy_loss(logits, labels), self.metric(logits, labels)
 
 
-def _stacked_state(cfgs: List[ExperimentConfig], members: List[int], device):
+def _stacked_state(cfgs: List[ExperimentConfig], members: List[int], device,
+                   padded: bool = False):
     """Each member point's model built from its own seed exactly as
     ``build_models`` builds it for a serial run (``tlie_tpu``'s
     ``_stacked_state`` vmaps its state factory over the seeds), its
@@ -199,8 +197,9 @@ def _stacked_state(cfgs: List[ExperimentConfig], members: List[int], device):
     eval model, family, params, buffers), the models those of the first
     point, the templates ``functional_call`` runs."""
     model_cfg = cfgs[members[0]].model
-    built = [build_models(model_cfg, generator=torch.Generator().manual_seed(cfgs[i].seed),
-                          device=device) for i in members]
+    built = [build_models(model_cfg, padded,
+                          generator=torch.Generator().manual_seed(cfgs[i].seed), device=device)
+             for i in members]
     model, eval_model, family = built[0]
     params, buffers = stack_module_state([b[0] for b in built])
     return (model, eval_model, family, {k: v.detach() for k, v in params.items()},
@@ -249,40 +248,75 @@ def stacked_eval(eval_model: nn.Module, sparse_k: Optional[int], metric):
     return vmap(one, in_dims=(0, 0, None, None))
 
 
+class StackedMultiSteps:
+    """``optax.MultiSteps`` of ``train.param_group``'s leaves for a stacked
+    grid (``MultiStepsAdamW``'s, each leaf (G, ...)): the running mean of
+    each leaf's gradients, the mini-step and the count of the group's AdamW
+    steps, which the grid's points share (they step together)."""
+
+    def __init__(self, params: Dict[str, torch.Tensor], names: List[str], every_k: int):
+        self.every_k, self.mini_step, self.count = every_k, 0, 0
+        self.acc = {n: torch.zeros_like(params[n]) for n in names}
+
+
+def _adamw_(p, g, moments, lr, wd: float, betas, t: int, eps: float) -> None:
+    """``torch.optim.AdamW``'s update of one stacked leaf at step ``t``."""
+    b1, b2 = betas
+    bc1, bc2 = 1 - b1 ** t, 1 - b2 ** t
+    m, v = moments
+    p.mul_(1 - lr * wd)
+    m.lerp_(g, 1 - b1)
+    v.mul_(b2).addcmul_(g, g, value=1 - b2)
+    denom = (v.sqrt() / bc2 ** 0.5).add_(eps)
+    p.addcdiv_(m * (-lr / bc1), denom)
+
+
 @torch.no_grad()
 def stacked_adamw_step(params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
                        moments: Dict[str, Tuple[torch.Tensor, torch.Tensor]], step: int,
                        lrs: Dict[str, torch.Tensor], group_of: Dict[str, Tuple[str, float]],
                        betas: Tuple[float, float], clip_norm: Optional[float],
-                       eps: float = 1e-8) -> torch.Tensor:
+                       eps: float = 1e-8,
+                       multi_steps: Optional[StackedMultiSteps] = None) -> torch.Tensor:
     """One optimiser step of every stacked point, in place: each point's
     gradients clipped to its own global norm ``clip_norm`` (optax's
     ``clip_by_global_norm``, as ``clip_by_global_norm_``), then
     ``torch.optim.AdamW``'s update with the point's learning rate.
     ``group_of`` maps each parameter to its optimiser group's (name, weight
     decay); ``lrs[name]`` is the group's (G,) learning rates; ``step`` counts
-    from 1.  A point at learning rate 0 keeps its parameters exactly.
-    Returns the (G,) gradient norms."""
+    from 1.  The leaves of ``train.param_group``'s group (``GROUP``) go
+    through ``multi_steps`` instead: outside the clip, their gradients
+    averaged over its ``every_k`` steps and applied on the last with optax's
+    default betas and the group's own step count.  A point at learning rate
+    0 keeps its parameters exactly.  Returns the (G,) gradient norms of the
+    clipped leaves."""
     names = list(params)
     G = params[names[0]].shape[0]
+    clipped = [n for n in names if group_of[n][0] != GROUP]
     norm = torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(grads[n].reshape(G, -1), dim=1) for n in names], 1), dim=1)
-    b1, b2 = betas
-    bc1, bc2 = 1 - b1 ** step, 1 - b2 ** step
+        [torch.linalg.vector_norm(grads[n].reshape(G, -1), dim=1) for n in clipped], 1), dim=1)
+    emit = multi_steps is not None and multi_steps.mini_step == multi_steps.every_k - 1
     for n in names:
         p, g = params[n], grads[n]
         view = (G,) + (1,) * (p.dim() - 1)
-        if clip_norm is not None:
-            keep = (norm < clip_norm).reshape(view)
-            g = torch.where(keep, g, g / norm.reshape(view) * clip_norm)
         group, wd = group_of[n]
-        lr = lrs[group].reshape(view)
-        m, v = moments[n]
-        p.mul_(1 - lr * wd)
-        m.lerp_(g, 1 - b1)
-        v.mul_(b2).addcmul_(g, g, value=1 - b2)
-        denom = (v.sqrt() / bc2 ** 0.5).add_(eps)
-        p.addcdiv_(m * (-lr / bc1), denom)
+        if group == GROUP:
+            acc = multi_steps.acc[n]
+            acc.add_((g - acc) / (multi_steps.mini_step + 1))
+            if not emit:
+                continue
+            g = acc.clone()
+            acc.zero_()
+            group_betas, t = OPTAX_BETAS, multi_steps.count + 1
+        else:
+            if clip_norm is not None:
+                keep = (norm < clip_norm).reshape(view)
+                g = torch.where(keep, g, g / norm.reshape(view) * clip_norm)
+            group_betas, t = betas, step
+        _adamw_(p, g, moments[n], lrs[group].reshape(view), wd, group_betas, t, eps)
+    if multi_steps is not None:
+        multi_steps.mini_step = 0 if emit else multi_steps.mini_step + 1
+        multi_steps.count += int(emit)
     return norm
 
 
@@ -295,20 +329,25 @@ def _run_group(cfgs, points, members, train_split, test_split, results, journal_
     cfg0 = cfgs[members[0]]
     model_cfg, f = cfg0.model, train_fields(cfg0.raw)
     bsz = f["batch_size"]
-    fused, sparse_k = head_choice(cfg0.raw, train_split, test_split)
-    if fused:
-        raise NotImplementedError("--sweep_parallel does not stack the fused head")
+    padded = bool(cfg0.train.get("padded", False))
+    # the heads of tlie_tpu's stacked block (sweep.py:256-262): the sparse one
+    # where it applies, else the dense one; train.fused_xent takes no part
+    sparse_k = (sparse_head_k_for(model_cfg, train_split[1], test_split[1])
+                if f["sparse_head"] else None)
     metric = DATASETS[cfg0.dataset["_name_"]].get_metrics()
     print(f"[sweep] group {g_real} points on one device ({dev})")
 
-    model, eval_model, family, params, buffers = _stacked_state(cfgs, members, dev)
+    model, eval_model, family, params, buffers = _stacked_state(cfgs, members, dev, padded)
     group_of, clip_norm = optimizer_groups(model, family, model_cfg, cfg0.train, f)
     moments = {n: (torch.zeros_like(p), torch.zeros_like(p)) for n, p in params.items()}
+    in_group = [n for n, (g, _) in group_of.items() if g == GROUP]
+    multi_steps = (StackedMultiSteps(params, in_group, int(cfg0.train.get("update_step", 1)))
+                   if in_group else None)
     grads_fn = stacked_grads(model, sparse_k)
     eval_fn = stacked_eval(eval_model, sparse_k, metric)
 
-    data = put_dataset(*train_split, dev)
-    test = put_dataset(*test_split, dev)
+    data = _device_split(train_split, dev, padded)
+    test = _device_split(test_split, dev, padded)
     eval_idx = torch.as_tensor(eval_indices(len(test_split[0]), bsz), device=dev).long()
     nprngs = [np.random.default_rng(cfgs[i].seed) for i in members]
     plateaus = [PlateauState(cfgs[i].train["lr"], cfgs[i].train.get("ssm_lr", cfgs[i].train["lr"]),
@@ -334,20 +373,23 @@ def _run_group(cfgs, points, members, train_split, test_split, results, journal_
                               f["lr_min"]) if on else 0.0 for pl, on in zip(plateaus, active)]
                  for j in range(k)], device=dev)
                 for name, attr in (("regular", "lr"), ("ssm", "ssm_lr"))}
+            # train.param_group's fixed rate (no schedule), 0 for a frozen point
+            rates[GROUP] = torch.tensor([[f["group_lr"] if on else 0.0 for on in active]] * k,
+                                        device=dev)
             loss_sum = torch.zeros(g_real, device=dev)
             for j in range(k):
-                x, y = data.inputs[idx[:, j]], data.labels[idx[:, j]]
+                x, y = gather_batch(data, idx[:, j])
                 grads, losses = grads_fn(params, buffers, x, y)
                 stacked_adamw_step(params, grads, moments, step + j + 1,
                                    {name: r[j] for name, r in rates.items()}, group_of,
-                                   f["betas"], clip_norm)
+                                   f["betas"], clip_norm, multi_steps=multi_steps)
                 loss_sum += losses.detach()
             step += k
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             t_train += time.perf_counter() - t0
             with torch.no_grad():
-                ev = [eval_fn(params, buffers, test.inputs[i], test.labels[i]) for i in eval_idx]
+                ev = [eval_fn(params, buffers, *gather_batch(test, i)) for i in eval_idx]
                 test_loss = torch.stack([e[0] for e in ev]).mean(0).cpu().numpy()
                 perf_now = torch.stack([e[1] for e in ev]).float().mean(0).cpu().numpy()
             train_loss = (loss_sum / k).cpu().numpy()

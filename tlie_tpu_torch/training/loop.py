@@ -212,6 +212,7 @@ def train(cfg: Dict[str, Any], train_split: Tuple[np.ndarray, ...],
             lrs = {
                 "regular": lr_for_step(step + j, plateau.lr, warmup, total, f["cosine"], f["lr_min"]),
                 "ssm": lr_for_step(step + j, plateau.ssm_lr, warmup, total, f["cosine"], f["lr_min"]),
+                "group": f["group_lr"],
             }
             x, y = gather_batch(train_data, idx[j])
             loss_sum += train_step(model, optimizer, x, y, lrs, sparse_k, fused, clip_norm)

@@ -16,7 +16,7 @@ from torch import nn
 
 from ..data.base import masked_accuracy as compute_accuracy
 from ..ops.fused_xent import fused_softmax_xent
-from .state import clip_by_global_norm_, set_group_learning_rates
+from .state import clip_by_global_norm_, clipped_parameters, set_group_learning_rates
 
 IGNORE_IDX = -100
 
@@ -31,18 +31,28 @@ class RowNLLWide(torch.autograd.Function):
     the cast into the reduction): WIDE_ROWS rows are widened at a time, so no
     float32 copy of the whole logits cube is made or kept.  The backward
     recomputes softmax − onehot from the saved bfloat16 logits and the float32
-    lse, in float32, and rounds it to bfloat16 once, as the cast's VJP does."""
+    lse, in float32, and rounds it to bfloat16 once, as the cast's VJP does.
+    ``apply`` returns (nll, lse), lse not differentiable; both passes are
+    plain PyTorch, so a stacked sweep's ``vmap`` batches them as they are
+    (``generate_vmap_rule``)."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, logits, safe):
+    def forward(logits, safe):
         lse = torch.cat([torch.logsumexp(logits[r:r + WIDE_ROWS].float(), -1)
                          for r in range(0, logits.shape[0], WIDE_ROWS)])
         picked = torch.gather(logits, -1, safe[:, None])[:, 0].float()
-        ctx.save_for_backward(logits, safe, lse)
-        return lse - picked
+        return lse - picked, lse
 
     @staticmethod
-    def backward(ctx, g):
+    def setup_context(ctx, inputs, output):
+        logits, safe = inputs
+        ctx.save_for_backward(logits, safe, output[1])
+        ctx.mark_non_differentiable(output[1])
+
+    @staticmethod
+    def backward(ctx, g, _dlse):
         logits, safe, lse = ctx.saved_tensors
         grad = torch.empty_like(logits)
         for r in range(0, logits.shape[0], WIDE_ROWS):
@@ -62,7 +72,7 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     safe = labels.clamp_min(0)
     mask = labels != ignore_idx
     if logits.dtype == torch.bfloat16:
-        nll = RowNLLWide.apply(logits.reshape(-1, logits.shape[-1]), safe.reshape(-1))
+        nll = RowNLLWide.apply(logits.reshape(-1, logits.shape[-1]), safe.reshape(-1))[0]
         ll = -nll.reshape(labels.shape)
     else:
         logits = logits.float()
@@ -128,9 +138,10 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, x: torch.Tens
     """One optimisation step of ``model`` (in training mode) on the batch:
     the group learning rates are set, the gradients zeroed, the loss taken
     (its forward updates the BatchNorm running statistics, as flax's
-    ``mutable=["batch_stats"]`` apply does), back-propagated, clipped to
-    the global norm ``clip_norm`` where one is given (the Mamba family's
-    optax chain), and the optimiser stepped.  The loss goes through the dense head, the sparse
+    ``mutable=["batch_stats"]`` apply does), back-propagated, the
+    ``regular`` group clipped to the global norm ``clip_norm`` where one is
+    given (the Mamba and transformer families' optax chain), and the
+    optimiser stepped.  The loss goes through the dense head, the sparse
     head (``sparse_k``) or the fused head (``fused_head``), which exclude
     each other.  Returns the loss, detached, on the device."""
     if fused_head and sparse_k is not None:
@@ -143,7 +154,7 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, x: torch.Tens
         loss = cross_entropy_loss(*head_logits(model, x, y, sparse_k))
     loss.backward()
     if clip_norm is not None:
-        clip_by_global_norm_(model.parameters(), clip_norm)
+        clip_by_global_norm_(clipped_parameters(optimizer), clip_norm)
     optimizer.step()
     return loss.detach()
 
