@@ -17,8 +17,8 @@ the ``vmap`` rules of the scan's, the decay attention's and the flash
 attention's Functions (a stacked sweep's grid of 4 points in one launch of
 each kernel) to the points' separate calls and times each kernel at the
 grid's folded shape, and drives twenty-four models (all but one at their
-published widths) along thirty-one paths, each with the launch counts set to
-0 just before it and read just after:
+published widths) along thirty-four paths, each with the launch counts set
+to 0 just before it and read just after:
 
 1. the MQAR LRU (``MQAR_LRU_FULL``: L=512, d_model=128, N=128, 2 layers,
    vocab 8192, batch 64, weights from the config's seed): evaluation,
@@ -223,7 +223,29 @@ published widths) along thirty-one paths, each with the launch counts set to
    kernels, 1 + 1 + 1 and 4 + 4 + 4 a stacked step);
 31. ``configs/sweep/mqar-sm-attention-seeds.yaml`` (four seeds of the MQAR
    softmax transformer) along path 30's phases (the flash kernels, 2 + 2 +
-   2 a stacked step).
+   2 a stacked step);
+32. path 3's WikiText LRU LM with ``compute_dtype: bfloat16`` and
+   ``fused_xent: true`` (a temporary copy of its YAML) through ``python -m
+   tlie_tpu_torch.tools.run_truncated``: 20 steps through the fused head's
+   three bfloat16 kernels (once each a step, no float32 head kernel) and
+   the scan's two (6 + 6 a step, the forward also 6 an eval batch), one
+   perplexity eval, the checkpoint and eval_eig of the trained weights (the
+   float32 extraction), serving from the checkpoint in float32 (8 prompts
+   of 1,008 tokens, 16 greedy tokens, the step path held to the float32
+   forward), one card step against the CPU step at the bf16 tolerances, a
+   step traced by ``profile_trace`` with ``annotate`` regions, and the
+   step's time, device time and idle share beside path 3's float32 step;
+33. path 5's MQAR softmax transformer in bfloat16: its log-probs against
+   the float32 model's on the same weights, 100 training steps through the
+   float32 flash kernels (a bf16 transformer upcasts q, k and v, as
+   ``tlie_tpu`` does; no materialised softmax), the checkpoint
+   eigen-analysed and served in float32 (64 prompts of 384 tokens, 16
+   greedy tokens), one card step against the CPU step;
+34. a stacked wave of four bf16 seeds of ``MQAR_LIN_ATTENTION_FULL``
+   (BASELINE.json's primary config) along path 10's phases at 50 steps,
+   the point against its serial run at the bf16 tolerances, then one bf16
+   step of the MQAR S5 (a pre-norm stack: its residual stream stays
+   bfloat16) against its CPU step through the scan's kernels.
 Paths 6, 7, 10, 13, 15, 16, 17, 21, 22, 23, 26 and 27's transformer reach
 no Pallas kernel in ``tlie_tpu``: no port kernel launches on them, and the
 script checks that.  The decay attention's forward is also held and timed at the serving
@@ -237,7 +259,8 @@ kernels (the LM's shape, a vocabulary below one tile and a ragged one).
 It also checks one MQAR training step of the LRU, of the Mamba-2, of the
 transformers and of S5 and S4, one ListOps step of S5 and S4, and one step
 of each classifier of paths 19-28, on the card against the same step on the
-CPU, one fused-head
+CPU, one bf16 step of the WikiText LRU LM, the MQAR softmax transformer and
+S5 against the same bf16 step on the CPU (paths 32-34), one fused-head
 WikiText step against the dense-head step on the card, and times each kernel
 against its bound, its plain version and, where one exists, the PyTorch
 library call computing the same function.  Each
@@ -248,8 +271,10 @@ JSON, the card's name and power limit from ``nvidia-smi``, and
 
 Without a CUDA device, or outside a checkout of the repository, it fails and
 prints no result.  It writes nothing inside the checkout except the kernel
-build; the checkpoints and the eigen-analysis artifacts go to temporary
-directories that are removed at the end.
+build and the training runs' records under ``logs/`` (the run logger's, as
+``tlie_tpu`` writes them; ignored by git); the checkpoints, the traces and
+the eigen-analysis artifacts go to temporary directories that are removed
+at the end.
 """
 
 from __future__ import annotations
@@ -608,6 +633,41 @@ AAN_MAMBA_SEED = 7
 # (2,048 / 512), 32 steps an epoch at batch 32
 SC_TRAIN, SC_TEST = 1024, 256
 # device kernels of a training step by kind, from their names (first match)
+# paths 32-34, model.compute_dtype: bfloat16 for the LRU, S5, S4 and
+# transformer families (the parameters float32, the activations bfloat16)
+BF16_U = 2.0 ** -8  # bfloat16's unit roundoff, half the spacing of its values
+# a bf16 model's log-probs against the float32 model's on the same weights,
+# as the CPU tests hold the bf16 families to tlie_tpu's bf16 models
+# (tests/test_torch_bf16_families.py): each within two roundings (2u) of the
+# largest |log-prob|, their mean within 0.004 (0.0019 and a largest 0.013
+# of 12.6 for the MQAR softmax transformer at init on the CPU)
+BF16_LOGPROB_MEAN = 4e-3
+# one bf16 training step on the card against the same bf16 step on the CPU
+# (the same rounding points, GEMMs that sum in other orders), both beside the
+# float32 step's gradients on the CPU (step_card_vs_cpu_bf16): the loss within
+# 1e-3 relative; each gradient within four times the CPU's bf16 distance from
+# float32 (a bias summed over 32k positions keeps as little as 0.2 of its
+# value in bf16: the MQAR S5's out1.bias on the CPU, 0.803 of its max) or ten
+# bfloat16 roundings (0.04) of its leaf's max|g|, the tests' bound, but never
+# more than the leaf's max|g| (BF16_GRAD_CAP_OF_MAX), so that no leaf passes
+# whatever the card returns (a sign flip of its largest element or twice its
+# scale fails); a leaf whose four CPU distances reach the cap is named, and
+# fails where a kernel of the path writes its gradient.  Not half the max: the
+# WikiText LRU LM's layer-0 out1.bias, summed over 8,192 positions, is 0.638
+# of its max from float32 on the CPU and 0.58 from the CPU on the card;
+# the weights within BF16_PARAM_ATOL where the float32 gradient fixes Adam's
+# step, within the movement bound 2·lr everywhere; the BatchNorm statistics
+# within 1e-3 (relative above 1)
+BF16_LOSS_RTOL, BF16_GRAD_FACTOR, BF16_GRAD_RTOL_OF_MAX = 1e-3, 4.0, 0.04
+BF16_GRAD_CAP_OF_MAX = 1.0
+BF16_PARAM_ATOL, BF16_STATS_ATOL = 1e-6, 1e-3
+# a stacked bf16 point against its serial run (path 34, and
+# tests/test_torch_bf16.py's bound): the metrics within 2e-2 relative and 99 %
+# of the elements within 1e-3
+BF16_SWEEP_RTOL, BF16_SWEEP_ATOL, BF16_SWEEP_SHARE = 2e-2, 1e-3, 0.99
+WT_BF16_PROMPT = 1008  # path 32's prompts: a block of 1,024 less the 16 new tokens
+P34_STEPS, P34_EVAL_EVERY = 50, 25
+
 OP_KINDS = (
     ("scan kernels", ("diag_scan", "sum_rows")),
     ("decay attention kernels", ("decay_attention",)),
@@ -3331,23 +3391,34 @@ def kernel_sweep_path(dev, tag: str, base_raw, points, train_split, test_split, 
             one["save"] = None
             serial = train(one, train_split, test_split, device=dev)
             hist, ser = stacked_waves[0]["histories"][0], serial.history
-            over = max(abs(h[k] - s[k]) / max(SWEEP_RTOL * abs(s[k]), SWEEP_ATOL)
+            # a bf16 point: batched bfloat16 products round apart from the
+            # serial ones, so the metrics within BF16_SWEEP_RTOL and a share
+            # of the elements within BF16_SWEEP_ATOL (a weight whose gradient
+            # is bfloat16 noise takes Adam's ±lr either way)
+            bf16 = one["model"].get("compute_dtype") == "bfloat16"
+            rtol = BF16_SWEEP_RTOL if bf16 else SWEEP_RTOL
+            over = max(abs(h[k] - s[k]) / max(rtol * abs(s[k]), SWEEP_ATOL)
                        for h, s in zip(hist, ser) for k in ("train_loss", "test_loss", "test_perf"))
             got = restore_checkpoint(stacked[0][0])["model"]
             lr = max(one["train"]["lr"], one["train"].get("ssm_lr", one["train"]["lr"]))
             bound = 2 * SWEEP_CHECK_STEPS * lr + SWEEP_PARAM_ATOL
             param_worst = anywhere = 0.0
+            close = count = 0
             for n, v in serial.model.state_dict().items():
                 err = (got[n] - v.cpu()).abs()
                 free = gradient_free(n, one["model"], err.shape)
                 param_worst = max(param_worst, err[~free].max().item() if bool((~free).any())
                                   else 0.0)
                 anywhere = max(anywhere, err.max().item() / bound)
+                close, count = close + int((err <= BF16_SWEEP_ATOL).sum()), count + err.numel()
             ph.fields.update(points=len(first), evals=len(hist),
+                             compute_dtype="bfloat16" if bf16 else "float32",
                              metric_err_over_tol=f"{over:.3e}", param_worst=f"{param_worst:.3e}",
-                             param_worst_anywhere_over_movement_bound=f"{anywhere:.3e}")
-            if not (len(hist) == len(ser) and over <= 1.0 and param_worst <= SWEEP_PARAM_ATOL
-                    and anywhere <= 1.0):
+                             param_worst_anywhere_over_movement_bound=f"{anywhere:.3e}",
+                             share_within_bf16_sweep_atol=f"{close / count:.4f}")
+            params_ok = (close >= BF16_SWEEP_SHARE * count if bf16
+                         else param_worst <= SWEEP_PARAM_ATOL)
+            if not (len(hist) == len(ser) and over <= 1.0 and params_ok and anywhere <= 1.0):
                 raise AssertionError(f"{tag}: stacked point vs serial run: {ph.fields}")
             del serial, stacked, got
 
@@ -4704,6 +4775,572 @@ def match_live_share(model_cfg, seed: int, x, dev):
     return {name: round(float((out > 0).any(-1).float().mean()), 4) for name, out in seen.items()}
 
 
+def step_card_vs_cpu_bf16(ph, what: str, fresh, dev, x_step, y_step, lrs, kernel_leaves,
+                          sparse_k=None, fused: bool = False):
+    """One bf16 training step (``fused``: through the fused head) from the
+    same weights and batch on the card (its kernels) and on the CPU (their
+    plain versions).  A float64 model is no reference for a bf16 one; the
+    same weights and step in float32 on the CPU are: each bf16 gradient's
+    error on the card against the CPU's may be BF16_GRAD_FACTOR times the
+    CPU's own distance from the float32 gradient (a sum of many bfloat16
+    terms that cancel, as a bias's over 32k positions, keeps little of its
+    value in either), or BF16_GRAD_RTOL_OF_MAX of the leaf's max|g|, and
+    at most BF16_GRAD_CAP_OF_MAX of it; a leaf whose BF16_GRAD_FACTOR CPU
+    distances reach that cap is listed (``grad_capped_leaves``) and fails
+    where its name holds one of ``kernel_leaves`` (the leaves whose
+    gradients the path's kernels write, or feed at first hand); the
+    loss within BF16_LOSS_RTOL; where the float32 gradient exceeds
+    (BF16_GRAD_FACTOR + 1) times that distance (so both bf16 gradients have
+    its sign), the float32 weights within BF16_GRAD_FACTOR times the CPU's
+    own distance from the float32 step there, or BF16_PARAM_ATOL; within
+    the movement bound 2·lr everywhere; the BatchNorm statistics within
+    BF16_STATS_ATOL.  ``fresh(device, float32=False)`` gives (model,
+    optimizer, clip norm), the model in float32 with ``float32``.  Fills
+    ``ph.fields``, raises on a failed check, and returns the launches of
+    the card's step."""
+    from tlie_tpu_torch.ops import LAUNCHES
+    from tlie_tpu_torch.training import train_step
+
+    card_m, card_opt, clip = fresh(dev)
+    cpu_m, cpu_opt, _ = fresh("cpu")
+    before = dict(LAUNCHES)
+    card_loss = float(train_step(card_m, card_opt, x_step, y_step, lrs, sparse_k,
+                                 fused_head=fused, clip_norm=clip))
+    torch.cuda.synchronize()
+    card_launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
+    t0 = time.perf_counter()
+    x_cpu, y_cpu = x_step.cpu(), y_step.cpu()
+    cpu_loss = float(train_step(cpu_m, cpu_opt, x_cpu, y_cpu, lrs, sparse_k, fused_head=fused,
+                                clip_norm=clip))
+    # the same weights and step in float32
+    ref_m, ref_opt, _ = fresh("cpu", float32=True)
+    ref_loss = float(train_step(ref_m, ref_opt, x_cpu, y_cpu, lrs, sparse_k, fused_head=fused,
+                                clip_norm=clip))
+    cpu_s = time.perf_counter() - t0
+    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    g_ratio, g_leaf, p_ratio, p_leaf, p_anywhere, n_det, n_all = 0.0, "", 0.0, "", 0.0, 0, 0
+    not_f32, capped = [], {}
+    for (n, p), q, r in zip(card_m.named_parameters(), cpu_m.parameters(), ref_m.parameters()):
+        if p.dtype != torch.float32 or p.grad.dtype != torch.float32:
+            not_f32.append(n)
+        g_card, g_cpu, g32 = p.grad.cpu(), q.grad, r.grad
+        e_cpu = (g_cpu - g32).abs().max().item()  # the CPU's bf16 error in this leaf
+        g_max = g_cpu.abs().max().item()
+        if BF16_GRAD_FACTOR * e_cpu >= BF16_GRAD_CAP_OF_MAX * g_max:
+            capped[n] = round(e_cpu / max(g_max, 1e-30), 3)  # the CPU's distance over max|g|
+        allowed = min(max(BF16_GRAD_FACTOR * e_cpu, BF16_GRAD_RTOL_OF_MAX * g_max),
+                      BF16_GRAD_CAP_OF_MAX * g_max)
+        ratio = (g_card - g_cpu).abs().max().item() / (allowed + 1e-30)
+        if ratio > g_ratio:
+            g_ratio, g_leaf = ratio, n
+        err = (p.detach().cpu() - q.detach()).abs()
+        p_anywhere = max(p_anywhere, err.max().item())
+        # where the float32 gradient fixes the sign of both bf16 ones, the
+        # card's weight as near the CPU's as the CPU's is to the float32 step
+        # (Adam's eps weighs gradients near 1e-8 apart), or BF16_PARAM_ATOL
+        det = g32.abs() > (BF16_GRAD_FACTOR + 1) * e_cpu
+        n_det, n_all = n_det + int(det.sum()), n_all + det.numel()
+        if not bool(det.any()):
+            continue
+        e_step = (q.detach() - r.detach()).abs()[det].max().item()
+        ratio = err[det].max().item() / max(BF16_PARAM_ATOL, BF16_GRAD_FACTOR * e_step)
+        if ratio > p_ratio:
+            p_ratio, p_leaf = ratio, n
+    s_worst = max([((b.cpu() - c).abs() / c.abs().clamp_min(1.0)).max().item()
+                   for b, c in zip(card_m.buffers(), cpu_m.buffers())], default=0.0)
+    ph.fields.update(loss_card=f"{card_loss:.6f}", loss_cpu=f"{cpu_loss:.6f}",
+                     loss_f32_cpu=f"{ref_loss:.6f}", loss_rel=f"{loss_rel:.2e}",
+                     grad_err_over_allowed=f"{g_ratio:.3f}({g_leaf})",
+                     grad_capped_leaves=f"{len(capped)}{capped}",
+                     param_err_over_allowed_where_grad_determined=f"{p_ratio:.3f}({p_leaf})",
+                     determined_share=f"{n_det / n_all:.3f}",
+                     param_worst_anywhere=f"{p_anywhere:.3e}",
+                     batch_stats_worst_rel=f"{s_worst:.3e}", cpu_steps_s=f"{cpu_s:.1f}",
+                     card_step_launches=repr(card_launches))
+    if not (loss_rel <= BF16_LOSS_RTOL and g_ratio <= 1.0 and p_ratio <= 1.0
+            and p_anywhere <= 2 * max(lrs.values()) + BF16_PARAM_ATOL
+            and s_worst <= BF16_STATS_ATOL and not not_f32
+            and not [n for n in capped if any(k in n for k in kernel_leaves)]):
+        raise AssertionError(f"{what} bf16 card vs CPU step (leaves not float32: "
+                             f"{not_f32}): {ph.fields}")
+    return card_launches
+
+
+def bf16_logprobs_vs_float32(ph, model16, model32, inputs):
+    """A bf16 model's log-probs on ``inputs`` against the float32 model's on
+    the same weights: within 2u of the largest |log-prob| each, their mean
+    within BF16_LOGPROB_MEAN; the bf16 model's logits bfloat16."""
+    with torch.no_grad():
+        logits = model16(inputs)
+        lp16 = torch.log_softmax(logits.float(), -1)
+        lp32 = torch.log_softmax(model32(inputs).float(), -1)
+    err = (lp16 - lp32).abs()
+    top = lp32.abs().max().item()
+    ph.fields.update(logits_dtype=str(logits.dtype), logprob_max_abs_diff=f"{err.max().item():.3e}",
+                     logprob_mean_abs_diff=f"{err.mean().item():.3e}", max_abs_logprob=f"{top:.3f}",
+                     logprob_tol=f"{2 * BF16_U * top:.3e}")
+    if not (logits.dtype == torch.bfloat16 and err.max().item() <= 2 * BF16_U * top
+            and err.mean().item() <= BF16_LOGPROB_MEAN):
+        raise AssertionError(f"bf16 log-probs against float32: {ph.fields}")
+    return logits
+
+
+def float32_copy(model_cfg, state, dev):
+    """The float32 eval model of ``model_cfg`` (its ``compute_dtype``
+    dropped) carrying ``state``: the model ``tlie_tpu`` serves and
+    eigen-analyses for a bf16 checkpoint."""
+    from tlie_tpu_torch.models import build_models
+
+    cfg = {k: v for k, v in model_cfg.items() if k != "compute_dtype"}
+    _, model, _ = build_models(cfg, generator=torch.Generator(), device=dev)
+    model.load_state_dict(state)
+    return model
+
+
+def wikitext_lru_bf16_path(dev, splits, want_files, f32_step):
+    """Main path 32, the WikiText-103 LRU LM (``WIKITEXT_LRU_SHORT``: 6
+    layers, d_model and N 512, block 1024, batch 8, the GPT-2 vocabulary of
+    50,257, post-norm BatchNorm) with ``compute_dtype: bfloat16`` and
+    ``fused_xent: true`` set in a temporary copy of its YAML, weights from
+    seed 1919, on path 8's synthetic stream (``splits``).  With every count
+    set to 0 it goes through ``python -m tlie_tpu_torch.tools.run_truncated``
+    (:func:`run`): LM_STEPS training steps through the fused head's three
+    bfloat16 kernels (once each a step, no float32 head kernel) and the
+    scan's two kernels (each once a layer a step, the forward also once a
+    layer an eval batch), one perplexity eval, the checkpoint, and eval_eig
+    of the trained weights (the float32 extraction, no launch), then
+    serving from the checkpoint in float32 (8 prompts of WT_BF16_PROMPT
+    tokens through the scan's forward once a layer, 16 greedy tokens, the
+    step path held to the float32 forward); the counts are read there.
+    Then one card step against the CPU step on LM_STEP_BLOCKS blocks
+    through the fused head (the bf16 tolerances), one step traced by
+    ``profile_trace`` with ``annotate`` regions into a temporary directory,
+    and the step's time, device time, idle share and head share beside path
+    3's float32 figures (``f32_step``).  Returns the path's launch counts
+    and its step fields."""
+    import yaml
+
+    from tlie_tpu_torch.analysis.eval_eig import extract_ssm_family, ssm_layer_params
+    from tlie_tpu_torch.config import derive_runtime_fields, load_yaml, train_fields
+    from tlie_tpu_torch.inference import Decoder
+    from tlie_tpu_torch.models import build_models
+    from tlie_tpu_torch.ops import LAUNCHES
+    from tlie_tpu_torch.ops import fused_xent as fx
+    from tlie_tpu_torch.tools import run_truncated
+    from tlie_tpu_torch.training import restore_checkpoint, train_step
+    from tlie_tpu_torch.training.state import make_family_optimizer
+    from tlie_tpu_torch.utils import annotate, profile_trace
+
+    train_split, test_split, l_max = splits
+    tmp = tempfile.mkdtemp(prefix="tlie_wt_lru_bf16_")
+    raw = load_yaml(os.path.join(REPO, "configs", "wikitext-lru-short.yaml"))
+    raw["model"]["compute_dtype"] = "bfloat16"
+    raw["train"]["fused_xent"] = True
+    raw["save"] = os.path.join(tmp, "checkpoint", "wikitext-lru-short-bf16")
+    yaml_path = os.path.join(tmp, "wikitext-lru-short-bf16.yaml")
+    with open(yaml_path, "w") as f:
+        yaml.safe_dump(raw, f)
+    cfg = derive_runtime_fields(load_yaml(yaml_path), l_max, len(train_split[0]))
+    m = cfg["model"]
+    layers, bsz, L = m["num_layers"], cfg["train"]["batch_size"], m["seq_len"]
+    head = [fx.launch_name(k, torch.bfloat16) for k in ("fwd", "dh", "dw")]
+    f = train_fields(cfg)
+    lrs = {"regular": f["lr"], "ssm": f["ssm_lr"]}
+    try:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        with Phase("wt_lru_bf16_run_truncated") as ph:
+            eig_dir = os.path.join(tmp, "analysis")
+            t0 = time.perf_counter()
+            result, arrays = run_truncated.run(load_yaml(yaml_path), steps=LM_STEPS,
+                                               analysis_batch=bsz, save_path=eig_dir, device=dev,
+                                               data=(l_max, train_split, test_split))
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            launches = dict(LAUNCHES)
+            n_eval = len(result.history) * (len(test_split[0]) // bsz)
+            want = dict.fromkeys(LAUNCHES, 0)
+            want.update(diag_scan=layers * (LM_STEPS + n_eval), diag_scan_bwd=layers * LM_STEPS)
+            want.update(dict.fromkeys(head, LM_STEPS))
+            if launches != want:
+                raise AssertionError(f"bf16 LRU LM launches {launches}, expected {want}")
+            for rec in result.history:
+                if not all(np.isfinite(v) for v in rec.values()) or rec["test_perf"] < 1.0:
+                    raise AssertionError(f"bf16 LRU LM training numbers {rec}")
+            trained = result.model.state_dict()
+            init = build_models(m, generator=torch.Generator().manual_seed(cfg["seed"]),
+                                device=dev)[0].state_dict()
+            bad = [k for k, v in trained.items() if v.dtype != torch.float32
+                   or (v.is_floating_point() and torch.equal(v, init[k]))]
+            if bad:
+                raise AssertionError(f"bf16 LRU LM parameters not float32 or not moved: {bad}")
+            ckpt_path, perf = result
+            ckpt = restore_checkpoint(ckpt_path)
+            for k, v in trained.items():
+                if not torch.equal(ckpt["model"][k], v.cpu()):
+                    raise AssertionError(f"bf16 LRU LM checkpoint entry {k} differs")
+            live = extract_ssm_family(ssm_layer_params({k: v.cpu() for k, v in trained.items()}),
+                                      m)
+            (run_dir,) = os.listdir(eig_dir)
+            files = sorted(os.listdir(os.path.join(eig_dir, run_dir)))
+            # eval_eig took the live (card) weights: the float32 extraction
+            # there against the same on the CPU, within float32's rounding
+            eig = arrays[0]
+            eig_rel = float(np.abs(eig - live).max() / np.abs(live).max())
+            if eig.shape != (m["state_dim"], layers) or eig.dtype != live.dtype or eig_rel > 1e-6:
+                raise AssertionError(f"bf16 LRU LM spectra differ from the float32 extraction "
+                                     f"of the trained weights: {eig_rel}")
+            if files != want_files or not run_dir.startswith("WikiText"):
+                raise AssertionError(f"bf16 LRU LM artifacts {run_dir}: {files}")
+            ph.fields.update(steps=LM_STEPS, seconds_with_eval_eig=f"{run_s:.2f}",
+                             eval_batches=n_eval, perplexity=f"{perf:.3f}",
+                             eig_vs_cpu_extraction_max_rel=f"{eig_rel:.3e}",
+                             checkpoint=os.path.basename(ckpt_path),
+                             history=repr([{k: round(v, 4) for k, v in r.items()}
+                                           for r in result.history]),
+                             launches=repr({k: v for k, v in launches.items() if v}))
+            del init
+
+        with Phase("wt_lru_bf16_serving") as ph:
+            n_new = 16
+            dec = Decoder.from_checkpoint(ckpt_path, device=dev)
+            f32_model = float32_copy(m, ckpt["model"], dev)
+            prompts = torch.as_tensor(test_split[0][:8, :WT_BF16_PROMPT], device=dev)
+            before = LAUNCHES["diag_scan"]
+            _, last = dec.prefill(prompts)
+            torch.cuda.synchronize()
+            if LAUNCHES["diag_scan"] - before != layers:
+                raise AssertionError("the bf16 LRU LM's prefill did not go through diag_scan "
+                                     "once a layer")
+            with torch.no_grad():
+                full_prompt = f32_model(prompts)[:, -1]
+                own = result.eval_model(prompts)[:, -1]
+            prefill_err = (last - full_prompt).abs().max().item()
+            if last.dtype != torch.float32 or not torch.allclose(last, full_prompt,
+                                                                 rtol=LOGIT_RTOL, atol=LOGIT_ATOL):
+                raise AssertionError(f"bf16 LRU LM prefill vs the float32 forward: {prefill_err}")
+            dec.generate(prompts, n_new)  # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = dec.generate(prompts, n_new)
+            torch.cuda.synchronize()
+            gen_s = time.perf_counter() - t0
+            if (out.shape != (8, WT_BF16_PROMPT + n_new)
+                    or not torch.equal(out[:, :WT_BF16_PROMPT], prompts)
+                    or int(out.min()) < 0 or int(out.max()) >= m["output_dim"]):
+                raise AssertionError(f"bf16 LRU LM generation {tuple(out.shape)}")
+            # the O(1) step path against the float32 forward, 64 positions of 2 rows
+            sw = dec.stepwise_logits(out[:2, :64])
+            with torch.no_grad():
+                full = f32_model(out[:2, :64])
+            step_err = (sw - full).abs().max().item()
+            if not torch.allclose(sw, full, rtol=LOGIT_RTOL, atol=LOGIT_ATOL):
+                raise AssertionError(f"bf16 LRU LM stepwise vs the float32 forward: {step_err}")
+            own_err = (own.float() - full_prompt).abs().max().item()
+            ph.fields.update(prefill_plus_generate_s=f"{gen_s:.4f}",
+                             tokens_per_s=f"{8 * n_new / gen_s:.1f}",
+                             prefill_vs_f32_forward_max_abs=f"{prefill_err:.3e}",
+                             stepwise_vs_f32_forward_max_abs=f"{step_err:.3e}",
+                             bf16_forward_vs_f32_max_abs=f"{own_err:.3e}")
+            del dec, f32_model, ckpt
+        path_all = dict(LAUNCHES)  # training, eval_eig and serving
+
+        with Phase("wt_lru_bf16_train_step_card_vs_cpu") as ph:
+            x = torch.as_tensor(train_split[0][:LM_STEP_BLOCKS], device=dev)
+            y = torch.as_tensor(train_split[1][:LM_STEP_BLOCKS], device=dev)
+
+            def fresh(device, float32=False):
+                mc = {k: v for k, v in m.items() if k != "compute_dtype"} if float32 else m
+                model, _, family = build_models(
+                    mc, generator=torch.Generator().manual_seed(cfg["seed"]), device=device)
+                opt, clip = make_family_optimizer(model, family, mc, cfg["train"], f)
+                return model, opt, clip
+
+            step_launches = step_card_vs_cpu_bf16(ph, "bf16 LRU LM", fresh, dev, x, y, lrs,
+                                                  ("decoder.", ".seq."), fused=True)
+            want = dict.fromkeys(head, 1)
+            want.update(diag_scan=layers, diag_scan_bwd=layers)
+            if step_launches != want:
+                raise AssertionError(f"the bf16 LRU LM's card step launched {step_launches}")
+
+        with Phase("wt_lru_bf16_train_step_timing") as ph:
+            x = torch.as_tensor(train_split[0][:bsz], device=dev)
+            y = torch.as_tensor(train_split[1][:bsz], device=dev)
+            opt, clip = make_family_optimizer(result.model, "lru", m, cfg["train"], f)
+
+            def one_step():
+                train_step(result.model, opt, x, y, lrs, fused_head=True, clip_norm=clip)
+
+            one_step()
+            trace_dir = os.path.join(tmp, "profile")
+            with profile_trace(trace_dir):
+                with annotate("wt_lru_bf16_train_step"):
+                    one_step()
+                with annotate("wt_lru_bf16_eval_forward"), torch.no_grad():
+                    result.eval_model(x)
+                torch.cuda.synchronize()
+            traces = sorted(os.listdir(trace_dir)) if os.path.isdir(trace_dir) else []
+            if len(traces) != 1:
+                raise AssertionError(f"profile_trace wrote {traces}")
+            with open(os.path.join(trace_dir, traces[0])) as fh:
+                names = {e.get("name") for e in json.load(fh).get("traceEvents", [])}
+            regions = {"wt_lru_bf16_train_step", "wt_lru_bf16_eval_forward"}
+            if not regions <= names:
+                raise AssertionError(f"the trace lacks the annotated regions {regions - names}")
+            step = step_profile(one_step, bsz * L, "xent", "fused_head", n_warm=2, n_timed=5)
+            ph.fields.update(step)
+            ph.fields.update(trace_file=traces[0], trace_events=len(names))
+            ph.fields.update({f"f32_path3_{k}": f32_step.get(k, "not measured")
+                              for k in ("ms_per_step", "device_busy_ms", "idle_share",
+                                        "fused_head_share_of_device")})
+            del opt, x, y
+
+        print(f"[launches] path 32, bf16 LRU LM: {path_all}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del result
+    torch.cuda.empty_cache()
+    return path_all, step
+
+
+def sm_attention_bf16_path(dev, test_x, test_y, train_split, want_files):
+    """Main path 33, the MQAR softmax transformer (``MQAR_SM_ATTENTION_FULL``:
+    2 layers, d_model 128, one head of 128, vocab 8192, position table 512,
+    L 512, batch 64) with ``compute_dtype: bfloat16``, weights from seed
+    1919.  A bf16 transformer upcasts q, k and v to float32 before the
+    softmax attention, as ``tlie_tpu`` does, so with ``use_flash`` it runs
+    the float32 flash kernels (rows 8a-8c).  With every count set to 0: the
+    forward on the test batch (its log-probs against the float32 model's on
+    the same weights, the bf16 tolerance), TF_STEPS training steps through
+    the sparse head with 2 evals (the flash forward once a layer a step and
+    eval batch, each backward once a layer a step, no other kernel, and no
+    call of the materialised softmax), the checkpoint eigen-analysed (the
+    float32 extraction: the flash forward twice a layer) and served in
+    float32 (64 prompts of TF_PROMPT tokens, prefill through the flash
+    forward once a layer, 16 greedy tokens, the step path against the
+    float32 forward).  Then one card step against the CPU step at the bf16
+    tolerances.  Returns the path's launch counts."""
+    from tlie_tpu_torch.analysis import eval_eig
+    from tlie_tpu_torch.analysis.eval_eig import extract_attention_family
+    from tlie_tpu_torch.config import MQAR_SM_ATTENTION_FULL, derive_runtime_fields, train_fields
+    from tlie_tpu_torch.inference import Decoder
+    from tlie_tpu_torch.models import build_models
+    from tlie_tpu_torch.ops import LAUNCHES
+    from tlie_tpu_torch.ops import attention as fa
+    from tlie_tpu_torch.training import prep_batch, restore_checkpoint, train
+    from tlie_tpu_torch.training.scan_loop import sparse_head_k_for
+    from tlie_tpu_torch.training.state import make_family_optimizer
+
+    sm = copy.deepcopy(MQAR_SM_ATTENTION_FULL)
+    sm["model"]["compute_dtype"] = "bfloat16"
+    smm = sm["model"]
+    n_layers, bsz, L = smm["num_layers"], sm["train"]["batch_size"], smm["seq_len"]
+    kernels = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+    inputs, _ = prep_batch((test_x[:bsz], test_y[:bsz]), L, smm["input_dim"], lang_model=True,
+                           device=dev)
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    with Phase("sm_bf16_forward") as ph:
+        _, model, _ = build_models(smm, generator=torch.Generator().manual_seed(sm["seed"]),
+                                   device=dev)
+        if any(p.dtype != torch.float32 for p in model.parameters()):
+            raise AssertionError("bf16 transformer parameters not float32")
+        bf16_logprobs_vs_float32(ph, model, float32_copy(smm, model.state_dict(), dev), inputs)
+        torch.cuda.synchronize()
+        if LAUNCHES["flash_attention_fwd"] != 2 * n_layers:  # the bf16 and float32 forwards
+            raise AssertionError(f"the forwards launched flash_attention_fwd "
+                                 f"{LAUNCHES['flash_attention_fwd']} times")
+        del model
+
+    tcfg = copy.deepcopy(sm)
+    tmp = tempfile.mkdtemp(prefix="tlie_sm_bf16_")
+    tcfg["save"] = os.path.join(tmp, "checkpoint", "mqar-sm-attention-bf16")
+    tcfg["train"].update(total_steps=TF_STEPS, eval_every=TF_EVAL_EVERY)
+    tcfg["dataset"]["num_train_examples"] = TRAIN_EXAMPLES
+    tcfg = derive_runtime_fields(tcfg, L, len(train_split[0]))
+    test_split = (test_x, test_y)
+    materialised = []
+    real_xla = fa.xla_causal_attention
+    try:
+        with Phase("sm_bf16_train") as ph:
+            fwd_before = LAUNCHES["flash_attention_fwd"]
+            fa.xla_causal_attention = lambda *a: (materialised.append(1), real_xla(*a))[1]
+            try:
+                t0 = time.perf_counter()
+                result = train(tcfg, train_split, test_split, device=dev)
+                torch.cuda.synchronize()
+                train_s = time.perf_counter() - t0
+            finally:
+                fa.xla_causal_attention = real_xla
+            launches = dict(LAUNCHES)
+            n_eval = len(result.history) * (len(test_x) // bsz)
+            want = dict.fromkeys(LAUNCHES, 0)
+            want.update(flash_attention_fwd=fwd_before + n_layers * (TF_STEPS + n_eval),
+                        flash_attention_bwd_dkv=n_layers * TF_STEPS,
+                        flash_attention_bwd_dq=n_layers * TF_STEPS)
+            if launches != want or materialised:
+                raise AssertionError(f"bf16 transformer training launches {launches}, expected "
+                                     f"{want}; materialised softmax calls {len(materialised)}")
+            for rec in result.history:
+                if not all(np.isfinite(v) for v in rec.values()):
+                    raise AssertionError(f"non-finite bf16 transformer numbers {rec}")
+            if any(p.dtype != torch.float32 for p in result.model.parameters()):
+                raise AssertionError("bf16 transformer parameters not float32 after training")
+            ph.fields.update(steps=TF_STEPS, seconds=f"{train_s:.2f}", eval_batches=n_eval,
+                             materialised_softmax_calls=len(materialised),
+                             history=repr([{k: round(v, 4) for k, v in r.items()}
+                                           for r in result.history]),
+                             launches=repr({k: v for k, v in launches.items() if v}))
+
+        with Phase("sm_bf16_checkpoint_eval_eig") as ph:
+            ckpt_path, perf = result
+            ckpt = restore_checkpoint(ckpt_path)
+            eig_dir = os.path.join(tmp, "analysis")
+            before = LAUNCHES["flash_attention_fwd"]
+            eig, eig_init, _, _, _, _ = eval_eig(tcfg, {"save_path": eig_dir}, perf, ckpt_path,
+                                                 device=dev, batch=test_x[:bsz])
+            if LAUNCHES["flash_attention_fwd"] - before != 2 * n_layers:
+                raise AssertionError("eval_eig's two float32 forwards did not go through the "
+                                     "flash kernel")
+            f32_model = float32_copy(smm, ckpt["model"], dev)
+            f32_cfg = {k: v for k, v in smm.items() if k != "compute_dtype"}
+            live = extract_attention_family(f32_model, inputs, f32_cfg)
+            (run_dir,) = os.listdir(eig_dir)
+            files = sorted(os.listdir(os.path.join(eig_dir, run_dir)))
+            live_rel = float(np.max(np.abs(eig - live) / np.abs(live)))
+            if (eig.shape != (bsz, L - 1, smm["num_heads"], n_layers) or eig.dtype != np.float32
+                    or live_rel > 1e-6 or not np.isfinite(eig).all()):
+                raise AssertionError(f"bf16 transformer spectra {eig.shape} {eig.dtype}, "
+                                     f"{live_rel} from the float32 extraction")
+            if files != want_files:
+                raise AssertionError(f"bf16 transformer artifacts {run_dir}: {files}")
+            ph.fields.update(perf=f"{perf:.4f}", artifacts=run_dir,
+                             eig_vs_f32_extraction_max_rel=f"{live_rel:.3e}")
+
+        with Phase("sm_bf16_serving") as ph:
+            n_new = 16
+            dec = Decoder.from_checkpoint(ckpt_path, device=dev)
+            prompts = inputs[:, :TF_PROMPT]
+            before = LAUNCHES["flash_attention_fwd"]
+            _, last = dec.prefill(prompts, TF_PROMPT + n_new)
+            torch.cuda.synchronize()
+            if LAUNCHES["flash_attention_fwd"] - before != n_layers:
+                raise AssertionError("the bf16 transformer's prefill did not go through "
+                                     "flash_attention_fwd once a layer")
+            with torch.no_grad():
+                full_prompt = f32_model(prompts)[:, -1]
+            prefill_err = (last - full_prompt).abs().max().item()
+            if last.dtype != torch.float32 or not torch.allclose(last, full_prompt,
+                                                                 rtol=LOGIT_RTOL, atol=LOGIT_ATOL):
+                raise AssertionError(f"bf16 transformer prefill vs float32 forward: {prefill_err}")
+            dec.generate(prompts, n_new)  # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = dec.generate(prompts, n_new)
+            torch.cuda.synchronize()
+            gen_s = time.perf_counter() - t0
+            if (out.shape != (bsz, TF_PROMPT + n_new) or int(out.min()) < 0
+                    or int(out.max()) >= smm["output_dim"]):
+                raise AssertionError(f"bf16 transformer generation {tuple(out.shape)}")
+            sw = dec.stepwise_logits(out[:8])
+            with torch.no_grad():
+                full = f32_model(out[:8])
+            step_err = (sw - full).abs().max().item()
+            if not torch.allclose(sw, full, rtol=LOGIT_RTOL, atol=LOGIT_ATOL):
+                raise AssertionError(f"bf16 transformer stepwise vs float32 forward: {step_err}")
+            ph.fields.update(prefill_plus_generate_s=f"{gen_s:.4f}",
+                             tokens_per_s=f"{bsz * n_new / gen_s:.1f}",
+                             prefill_vs_f32_forward_max_abs=f"{prefill_err:.3e}",
+                             stepwise_vs_f32_forward_max_abs=f"{step_err:.3e}")
+            del dec, f32_model, ckpt
+        path_all = dict(LAUNCHES)
+        if any(path_all[k] for k in LAUNCHES if k not in kernels):
+            raise AssertionError(f"path 33 launched other kernels: {path_all}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del result
+
+    step_cfg = dict(smm, dropout=0.0)
+    f = train_fields(tcfg)
+    sparse_k = sparse_head_k_for(smm, train_split[1], test_y)
+    x_step = torch.as_tensor(train_split[0][:bsz], device=dev).long()
+    y_step = torch.as_tensor(train_split[1][:bsz], device=dev).long()
+
+    def fresh(device, float32=False):
+        mc = dict(step_cfg, compute_dtype="float32") if float32 else step_cfg
+        m, _, family = build_models(mc, generator=torch.Generator().manual_seed(sm["seed"]),
+                                    device=device)
+        opt, clip = make_family_optimizer(m, family, mc, tcfg["train"], f)
+        return m, opt, clip
+
+    with Phase("sm_bf16_train_step_card_vs_cpu") as ph:
+        step_launches = step_card_vs_cpu_bf16(ph, "bf16 transformer", fresh, dev, x_step,
+                                              y_step, {"regular": f["lr"]}, (".attention.",),
+                                              sparse_k)
+        if step_launches != dict.fromkeys(kernels, n_layers):
+            raise AssertionError(f"the bf16 transformer's card step launched {step_launches}")
+    print(f"[launches] path 33, bf16 softmax transformer: {path_all}", flush=True)
+    torch.cuda.empty_cache()
+    return path_all
+
+
+def bf16_wave_path(dev, test_x, test_y, train_split, want_files):
+    """Main path 34: a stacked wave of four bf16 points, the seeds
+    (SWEEP_SEEDS) of ``MQAR_LIN_ATTENTION_FULL`` (BASELINE.json's primary
+    config) with ``compute_dtype: bfloat16`` at dropout 0, through
+    :func:`kernel_sweep_path` (P34_STEPS stacked steps with an eval every
+    P34_EVAL_EVERY, checkpoints, journal, eval_eig, the resume, one point
+    against its serial run at the bf16 tolerances, a stacked step against a
+    serial one, point-steps/s against serial steps/s and the wave's peak
+    memory; no port kernel, as in ``tlie_tpu``).  Then one serial bf16 step
+    of the MQAR S5 (``MQAR_S5_FULL``: a pre-norm stack, whose residual
+    stream stays bfloat16) against its CPU step, its scan's two kernels
+    once a layer each.  Returns the launch counts of both."""
+    from tlie_tpu_torch.config import (
+        MQAR_LIN_ATTENTION_FULL, MQAR_S5_FULL, derive_runtime_fields, train_fields,
+    )
+    from tlie_tpu_torch.models import build_models
+    from tlie_tpu_torch.ops import LAUNCHES
+    from tlie_tpu_torch.training.scan_loop import sparse_head_k_for
+    from tlie_tpu_torch.training.state import make_family_optimizer
+
+    base = copy.deepcopy(MQAR_LIN_ATTENTION_FULL)
+    base["model"].update(compute_dtype="bfloat16", dropout=0.0)
+    launches = kernel_sweep_path(dev, "lin_bf16_wave", base,
+                                 [{("seed",): s} for s in SWEEP_SEEDS], train_split,
+                                 (test_x, test_y), want_files, P34_STEPS, P34_EVAL_EVERY,
+                                 lambda mc: {})
+
+    s5 = copy.deepcopy(MQAR_S5_FULL)
+    s5["model"].update(compute_dtype="bfloat16", dropout=0.0)
+    s5 = derive_runtime_fields(s5, train_split[0].shape[1], len(train_split[0]))
+    s5m = s5["model"]
+    n_layers, bsz = s5m["num_layers"], s5["train"]["batch_size"]
+    f = train_fields(s5)
+    sparse_k = sparse_head_k_for(s5m, train_split[1], test_y)
+    x_step = torch.as_tensor(train_split[0][:bsz], device=dev).long()
+    y_step = torch.as_tensor(train_split[1][:bsz], device=dev).long()
+
+    def fresh(device, float32=False):
+        mc = dict(s5m, compute_dtype="float32") if float32 else s5m
+        m, _, family = build_models(mc, generator=torch.Generator().manual_seed(s5["seed"]),
+                                    device=device)
+        opt, clip = make_family_optimizer(m, family, mc, s5["train"], f)
+        return m, opt, clip
+
+    with Phase("s5_bf16_train_step_card_vs_cpu") as ph:
+        s5_launches = step_card_vs_cpu_bf16(ph, "bf16 S5", fresh, dev, x_step, y_step,
+                                            {"regular": f["lr"], "ssm": f["ssm_lr"]}, (".seq.",),
+                                            sparse_k)
+        if s5_launches != {"diag_scan": n_layers, "diag_scan_bwd": n_layers}:
+            raise AssertionError(f"the bf16 S5 step launched {s5_launches}")
+    total = dict(launches)
+    for k, v in s5_launches.items():
+        total[k] = total.get(k, 0) + v
+    print(f"[launches] path 34, bf16 stacked wave and the bf16 S5 step: {total}", flush=True)
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card",
@@ -5547,9 +6184,10 @@ def main() -> int:
     with Phase("lm_train_step_timing") as ph:
         lm_opt = make_optimizer(lm_result.model, lm_m["ssm_lr_vars"], lt["lr"], lt["ssm_lr"],
                                 lt["wd"], tuple(lt["betas"]))
-        ph.fields.update(step_profile(
+        lm_step_fields = step_profile(
             lambda: train_step(lm_result.model, lm_opt, lm_x, lm_y, lm_lrs, fused_head=True),
-            lm_bsz * lm_L, "xent", "fused_head", n_warm=2, n_timed=5))
+            lm_bsz * lm_L, "xent", "fused_head", n_warm=2, n_timed=5)
+        ph.fields.update(lm_step_fields)
     del lm_opt, lm_result, lm_x, lm_y
     torch.cuda.empty_cache()
 
@@ -5778,6 +6416,23 @@ def main() -> int:
     # bfloat16 kernels, its step timed in the same run as path 9's dense head
     path11_all = wikitext_mamba2_path(dev, wt_splits, "wikitext-mamba2-short-bf16-fused.yaml",
                                       "wt_mamba2_bf16_fused", want_files)
+    # main path 32, the WikiText LRU LM in bfloat16 through run_truncated: the
+    # fused head's bfloat16 kernels and the scan's, beside path 3's float32
+    # step; 33, the bf16 MQAR softmax transformer (the float32 flash
+    # kernels); 34, a stacked wave of four bf16 linear-attention seeds and
+    # one bf16 S5 step (the scan)
+    bf16_s = {}
+    t0 = time.perf_counter()
+    path32_all, _ = wikitext_lru_bf16_path(dev, wt_splits, want_files, lm_step_fields)
+    bf16_s["path_32"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    path33_all = sm_attention_bf16_path(dev, test_x, test_y, train_split, want_files)
+    bf16_s["path_33"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    path34_all = bf16_wave_path(dev, test_x, test_y, train_split, want_files)
+    bf16_s["path_34"] = time.perf_counter() - t0
+    print(f"[paths 32-34 seconds] {json.dumps({k: round(v, 2) for k, v in bf16_s.items()})} "
+          f"total {sum(bf16_s.values()):.2f}", flush=True)
     # main paths 16 and 17, the WikiText norm-attention LM alone and its
     # stacked seeds × rates sweep, then the pretrained-LM spectroscopy on a
     # stand-in at its widths (no port kernel on any of them)
@@ -5913,7 +6568,8 @@ def main() -> int:
                 + path14_all[name] + path15_all[name] + path16_all[name] + path17_all[name]
                 + path18_all[name] + sum(c[name] for c in cifar_all.values())
                 + sum(c[name] for c in cls_all.values())
-                + sum(c[name] for c in kernel_sweep_all.values()))
+                + sum(c[name] for c in kernel_sweep_all.values())
+                + path32_all[name] + path33_all[name] + path34_all.get(name, 0))
 
     kernels = [{
         "name": "diag_scan",

@@ -7,7 +7,8 @@ Mamba-2's log-probs against ``tlie_tpu``'s bf16 model on the same weights and
 against the port's own float32 model; the float32 reduction of bf16 logits
 against ``tlie_tpu``'s ``cross_entropy_loss``; eval_eig of a bf16 checkpoint
 against the float32 extraction; training and ``launch`` on a cut of
-``configs/wikitext-mamba2-short-bf16.yaml``; and the refusals that stay.
+``configs/wikitext-mamba2-short-bf16.yaml``; and the refusals that stay
+(float16 for every family).
 
 Inputs are made with numpy from a seed and rounded to bfloat16 once, so both
 packages see the same values; JAX runs jitted at HIGHEST matmul precision
@@ -349,17 +350,19 @@ def test_launch_trains_and_analyses_bf16_mamba2_on_the_cpu(tmp_path, monkeypatch
     assert np.load(tmp_path / "analysis" / run / "eig.npy").dtype == np.float32
 
 
-@pytest.mark.parametrize("layer", ["lru", "transformer"])
-def test_bf16_stays_refused_outside_the_mamba_family(layer):
-    """compute_dtype: bfloat16 for the LRU and the transformer raises,
-    naming the ROADMAP item; float16 raises for every family."""
-    cfg = load_yaml(ROOT / ("configs/mqar-lru-small.yaml" if layer == "lru"
-                            else "configs/mqar-lin-attention-small.yaml"))["model"]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        build_models(dict(cfg, compute_dtype="bfloat16", seq_len=64),
-                     generator=torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        build_models(dict(MAMBA_BF16, compute_dtype="float16"), generator=torch.Generator(),
+FLOAT16_CONFIGS = {"lru": "configs/mqar-lru-small.yaml", "s5": "configs/mqar-s5-small.yaml",
+                   "s4": "configs/mqar-s4-small.yaml",
+                   "transformer": "configs/mqar-lin-attention-small.yaml"}
+
+
+@pytest.mark.parametrize("layer", ["lru", "s5", "s4", "transformer", "mamba"])
+def test_float16_stays_refused_for_every_family(layer):
+    """compute_dtype: float16 raises for every family (bfloat16 builds for
+    all five: ``tests/test_torch_bf16_families.py``)."""
+    cfg = (dict(MAMBA_BF16) if layer == "mamba"
+           else dict(load_yaml(ROOT / FLOAT16_CONFIGS[layer])["model"], seq_len=64))
+    with pytest.raises(NotImplementedError, match="float16"):
+        build_models(dict(cfg, compute_dtype="float16"), generator=torch.Generator(),
                      device="cpu")
 
 

@@ -213,8 +213,11 @@ def test_launch_resume_end_to_end(tmp_path, monkeypatch):
     assert os.listdir(tmp_path / "checkpoint") == [ckpt_name]
     got = restore_checkpoint(str(tmp_path / "checkpoint" / ckpt_name))["model"]
     assert all(torch.equal(got[k], v) for k, v in want.items())
-    # nothing else written: no cache of the generated split either
-    assert sorted(os.listdir(tmp_path)) == ["analysis", "analysis.yaml", "checkpoint", "run.yaml"]
+    # nothing else written but the run logger's records (logs/<run name>.jsonl,
+    # as tlie_tpu writes them): no cache of the generated split either
+    assert sorted(os.listdir(tmp_path)) == ["analysis", "analysis.yaml", "checkpoint", "logs",
+                                            "run.yaml"]
+    assert all(name.endswith(".jsonl") for name in os.listdir(tmp_path / "logs"))
     (run,) = os.listdir(tmp_path / "analysis")
     assert np.load(tmp_path / "analysis" / run / "eig.npy").shape == (8, 2)
     assert whole.history[-1]["step"] == 32

@@ -1,5 +1,6 @@
-"""The port stands alone: no import of JAX, flax, orbax or tlie_tpu anywhere
-in tlie_tpu_torch/ or chip_smoke.py, it runs with JAX made unimportable, and
+"""The port stands alone: no import of JAX, flax, orbax, tlie_tpu or wandb
+anywhere in tlie_tpu_torch/ or chip_smoke.py, and none of matplotlib when a
+module is imported; it runs with JAX and matplotlib made unimportable, and
 chip_smoke.py fails without a card instead of printing a result."""
 
 import ast
@@ -13,6 +14,9 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "tlie_tpu", "wandb")
+# blocked too where the port runs with JAX unimportable: the card machine has
+# no matplotlib, and importing the port must not need it
+BLOCKED = FORBIDDEN + ("matplotlib",)
 PORT_FILES = sorted((ROOT / "tlie_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -118,7 +122,12 @@ assert wm.layers[0].mixer.encoder.weight.grad is not None
 assert Decoder(wcfg, wm_eval).generate(x[:, :8], 4).shape == (4, 12)
 import tempfile
 from tlie_tpu_torch.analysis.lm_spectra import bin_lm_spectra, lm_attention_spectra
-from tlie_tpu_torch.tools import lm_eigvals  # noqa: F401
+from tlie_tpu_torch.tools import lm_eigvals, plot_spectra, run_truncated  # noqa: F401
+from tlie_tpu_torch.utils import RunLogger, profile_trace  # noqa: F401
+for bf in (dict(cfg, compute_dtype="bfloat16"), dict(tcfg, compute_dtype="bfloat16")):
+    _, bfm, _ = build_models(bf, generator=torch.Generator().manual_seed(0), device="cpu")
+    with torch.no_grad():
+        assert bfm(x).dtype == torch.bfloat16
 stand_in = torch.nn.Module()
 stand_in.model = torch.nn.Module()
 stand_in.model.layers = torch.nn.ModuleList([torch.nn.Module()])
@@ -204,10 +213,33 @@ print("ok", acc)
 
 
 def test_the_scan_covers_every_package_of_the_port():
-    """parallel/ (the sweeps) and tools/ (the lm_eigvals CLI) are among the
-    files scanned for imports."""
+    """parallel/ (the sweeps), tools/ (the lm_eigvals, generate,
+    run_truncated and plot_spectra CLIs) and utils/ (the run logger and the
+    profiling hooks) are among the files scanned for imports."""
     scanned = {p.relative_to(ROOT).parts[1] for p in PORT_FILES if p.parent != ROOT}
-    assert {"parallel", "ops", "models", "training", "analysis", "tools"} <= scanned
+    assert {"parallel", "ops", "models", "training", "analysis", "tools", "utils"} <= scanned
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"tlie_tpu_torch/tools/run_truncated.py", "tlie_tpu_torch/tools/plot_spectra.py",
+            "tlie_tpu_torch/utils/logging.py", "tlie_tpu_torch/utils/profiling.py"} <= names
+
+
+def _module_level_roots(path: Path):
+    """The roots a module imports when it is imported: its top-level
+    statements' imports, not those inside functions."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_port_module_imports_matplotlib_when_imported(path):
+    """The card machine has no matplotlib: ``plot_spectra`` imports it in
+    ``main`` alone, so that every module of the port imports there."""
+    assert "matplotlib" not in set(_module_level_roots(path))
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -270,7 +302,7 @@ def test_the_copied_imdb_module_gives_the_originals_outputs(monkeypatch):
 
 def test_port_runs_with_jax_unimportable():
     proc = subprocess.run(
-        [sys.executable, "-c", _BLOCKED_RUN.format(forbidden=FORBIDDEN)],
+        [sys.executable, "-c", _BLOCKED_RUN.format(forbidden=BLOCKED)],
         cwd=ROOT, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr

@@ -339,7 +339,7 @@ def test_registry_refuses_what_is_not_ported(small):
     g = torch.Generator()
     for bad, err in (({"version": "mamba1", "compute_dtype": "bfloat16"}, NotImplementedError),
                      ({"version": "mamba3"}, RuntimeError),
-                     ({"layer": "transformer", "compute_dtype": "bfloat16"},
+                     ({"layer": "transformer", "compute_dtype": "float16"},
                       NotImplementedError)):
         with pytest.raises(err):
             build_models(dict(model_cfg, **bad), generator=g, device="cpu")

@@ -288,12 +288,14 @@ def test_state_dict_keys_are_the_reference_names(small, variant):
 def test_registry_refuses_what_is_not_ported(small):
     _, model_cfg, _, _, _, _, _ = small
     g = torch.Generator()
-    # use_gate, the classifier head (tests/test_torch_transformer_classifier.py)
-    # and the dual MATCH head (tests/test_torch_aan_dual.py) are ported
+    # use_gate, the classifier head (tests/test_torch_transformer_classifier.py),
+    # the dual MATCH head (tests/test_torch_aan_dual.py) and bf16 compute
+    # (tests/test_torch_bf16_families.py) are ported
     for ported in ({"use_gate": True}, {"classifier": True, "pooling": "mean", "mixer_dim": 8},
-                   {"classifier": True, "pooling": "mean", "mixer_dim": 8, "dual": True}):
+                   {"classifier": True, "pooling": "mean", "mixer_dim": 8, "dual": True},
+                   {"compute_dtype": "bfloat16"}):
         build_models(dict(model_cfg, **ported), generator=g, device="cpu")
-    for bad in ({"mixer": "hybrid"}, {"embedding": False}, {"compute_dtype": "bfloat16"}):
+    for bad in ({"mixer": "hybrid"}, {"embedding": False}, {"compute_dtype": "float16"}):
         with pytest.raises(NotImplementedError):
             build_models(dict(model_cfg, **bad), generator=g, device="cpu")
     with pytest.raises(RuntimeError):

@@ -36,10 +36,12 @@ layer's full-sequence path and keeps the state after its last token:
 Mamba-2's chunked scan (on the card, the decay-attention forward kernel
 inside each chunk), Mamba-1's diagonal scan over its (B, L, d_inner·N) view
 (on the card, the diagonal-scan kernel); ``step`` advances one token in
-O(1).  A ``compute_dtype: bfloat16`` Mamba-2 is served as ``tlie_tpu``
-serves it: float32 arithmetic on its float32 weights (flax keeps the
-parameters float32, and ``tlie_tpu``'s decoder multiplies them as stored),
-so its prefill runs the float32 decay attention, not the bfloat16 one.
+O(1).  A ``compute_dtype: bfloat16`` model of any family (the LRU, S5,
+S4, the transformers, Mamba-2) is served as ``tlie_tpu`` serves it: float32
+arithmetic on its float32 weights (flax keeps the parameters float32, and
+``tlie_tpu``'s decoder multiplies them as stored, ``decode.py:54``), so a
+Mamba-2's prefill runs the float32 decay attention, not the bfloat16 one,
+and a bf16 LRU's logits are float32.
 
 ``state_dtype`` (``torch.float32`` by default) is the dtype the large decode
 states are stored in: the Mamba-2 and Mamba-1 h and the linear and norm
@@ -124,8 +126,9 @@ class Decoder:
         else:
             raise ValueError(f"unknown family {cfg['layer']}")
         self.cfg, self.state_dtype = cfg, state_dtype
-        if self.family == "mamba" and cfg.get("compute_dtype", "float32") != "float32":
+        if cfg.get("compute_dtype", "float32") != "float32":
             # float32 arithmetic on the float32 weights, as tlie_tpu serves it
+            # (its decoder multiplies the parameters as stored)
             if isinstance(params, nn.Module):
                 device = next(params.parameters()).device
                 params = params.state_dict()
@@ -293,14 +296,14 @@ class Decoder:
         core → exact GELU → [GLU] → residual → [LayerNorm]; (x, state)."""
         skip = x
         if block.prenorm:
-            x = block._norm(x)
+            x = block.norm(x)
         y, c = core(x)
         x = F.gelu(y)
         if block.glu is not None:
             x = block.glu(x)
         x = x + skip
         if not block.prenorm:
-            x = block._norm(x)
+            x = block.norm(x)
         return x, c
 
     def _mamba_step(self, cache, tok):

@@ -75,7 +75,11 @@ without a card raises), writes the checkpoint named by the config's
 config's ``save_path``.  The datasets are those of
 :data:`tlie_tpu_torch.data.DATASETS`, the ``SequenceDataset`` registry (MQAR,
 WikiText, ListOps, CIFAR-10, MNIST, IMDB, PathFinder, AAN, Speech
-Commands); W&B is not ported and raises.
+Commands).  Each run logs its evals to ``./logs/<run name>.jsonl``
+(:class:`tlie_tpu_torch.utils.RunLogger`); a config's ``wandb`` section
+names the run and is logged locally, as the port has no W&B sink.
+``--profile DIR`` traces the whole run with ``torch.profiler``
+(:func:`tlie_tpu_torch.utils.profile_trace`) into a Chrome trace in ``DIR``.
 
 ``--sweep`` takes a sweep file (``base_config`` + ``sweep`` lists, e.g.
 ``configs/sweep/mqar-lin-attention-seeds-lrs-8k.yaml``), builds the dataset
@@ -98,6 +102,7 @@ points a rerun finds there:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 from pathlib import Path
 
@@ -122,6 +127,8 @@ def main(argv=None) -> int:
                              "(at most 4 points a wave, one kernel launch a step for all)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (the default) or cpu")
+    parser.add_argument("--profile", type=str, default=None, metavar="DIR",
+                        help="trace the run with torch.profiler into a Chrome trace in DIR")
     parser.add_argument("--resume", action="store_true", default=False,
                         help="resume from the run's mid-training snapshot if one exists "
                              "(requires train.checkpoint_every in the config)")
@@ -135,8 +142,7 @@ def main(argv=None) -> int:
         cfg = base.raw
     else:
         cfg = load_yaml(_resolve(args.config))
-    if cfg.pop("wandb", None):
-        raise NotImplementedError("W&B logging is not ported")
+    wandb_config = cfg.pop("wandb", None)
     if args.resume:
         cfg["train"]["resume"] = True
     do_analysis = args.analysis_config != "no-analysis"
@@ -154,7 +160,8 @@ def main(argv=None) -> int:
     from .training import train
 
     def run_one(point_cfg, used_paths=None):
-        result = train(point_cfg, train_split, test_split, device=device, used_paths=used_paths)
+        result = train(point_cfg, train_split, test_split, device=device, used_paths=used_paths,
+                       wandb_config=wandb_config)
         path, perf = result
         if path is None:
             print("Path is None, no eval")
@@ -170,17 +177,20 @@ def main(argv=None) -> int:
             print("Finished!")
         return path, perf
 
-    if sweep is None:
-        run_one(derive_runtime_fields(cfg, data.l_max, len(train_split[0])))
-        return 0
-    points = expand_sweep(sweep)
-    print(f"Found {len(points)} sweep configurations ...")
-    if args.sweep_parallel:
-        from .parallel import run_sweep
+    from .utils import profile_trace
 
-        run_sweep(base, points, train_split, test_split, data.l_max, conf_args, device=device)
-        return 0
-    _run_serial(base, points, run_one, data.l_max, len(train_split[0]))
+    with profile_trace(args.profile) if args.profile else contextlib.nullcontext():
+        if sweep is None:
+            run_one(derive_runtime_fields(cfg, data.l_max, len(train_split[0])))
+            return 0
+        points = expand_sweep(sweep)
+        print(f"Found {len(points)} sweep configurations ...")
+        if args.sweep_parallel:
+            from .parallel import run_sweep
+
+            run_sweep(base, points, train_split, test_split, data.l_max, conf_args, device=device)
+            return 0
+        _run_serial(base, points, run_one, data.l_max, len(train_split[0]))
     return 0
 
 

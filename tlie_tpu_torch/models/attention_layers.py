@@ -5,8 +5,8 @@ linear, and ``MHNA`` (``:153-232``), norm attention.
 ``MHA``'s ``Wqkv`` projects to [q | k | v] (2·d_qk + d_model wide, the
 reference's fused layout, which eigen-analysis reads back), an optional
 depthwise causal conv with SiLU runs over all of it (``conv_type: full``) or
-over [q | k] alone, and the heads are split as views of the projection,
-upcast to float32.  Softmax attention goes through
+over [q | k] alone, and the heads are split as views of the projection.
+Softmax attention upcasts them to float32 and goes through
 :func:`tlie_tpu_torch.ops.attention.causal_softmax_attention` (on the card:
 the three flash kernels, which read q, k and v through their strides).
 Linear attention (``lin_att``, ``attention_fn: lin-attention``) takes the
@@ -22,7 +22,16 @@ and multiplies its output by the learned decay exp(−norm_fn(n (+ offset)))
 computed in float32; ``offset`` is a (num_heads,) parameter initialised by
 :func:`init_offset` (``offset_init: uniform``) or linspace(4, 9) (``exp``).
 
-In both, ``att_dropout`` acts on the context, then ``out_proj``.  The
+In both, ``att_dropout`` acts on the context, then ``out_proj``.
+
+``compute_dtype`` (``model.compute_dtype: bfloat16``) is flax's ``dtype=``
+of ``tlie_tpu``'s mixers: ``Wqkv``, ``Wvqkn``, the conv and ``out_proj``
+compute in bfloat16.  Softmax attention still runs in float32 on the upcast
+q, k and v (``attention_layers.py:136-141``), so a bf16 transformer with
+``use_flash`` and equal head dims reaches the float32 flash kernels; linear
+attention takes bfloat16 elu+1 features, its chunked scores in bfloat16
+and its normaliser in float32; norm attention takes bfloat16 q, k and v and
+promotes n alone.  The
 projections are ``nn.Linear``s with torch's default init, drawn from an
 explicit ``torch.Generator`` (``tlie_tpu`` also draws the reference's torch
 init: with flax's it plateaued on MQAR).
@@ -89,7 +98,7 @@ class MHA(nn.Module):
     def __init__(self, d_model: int, generator: torch.Generator, d_qk: Optional[int] = None,
                  num_heads: int = 1, dim_conv: int = 0, lin_att: bool = True,
                  dropout: float = 0.0, bias: bool = True, use_flash: bool = True,
-                 conv_type: str = "full"):
+                 conv_type: str = "full", compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.lin_att = lin_att
         self.d_model, self.d_qk = d_model, d_qk if d_qk is not None else d_model
@@ -100,13 +109,14 @@ class MHA(nn.Module):
         # when the config asks for it and the head dims agree
         self.impl = None if use_flash and self.head_dim == self.v_dim else "xla"
         g = generator
-        self.Wqkv = linear(d_model, 2 * self.d_qk + d_model, g, bias=bias)
+        self.Wqkv = linear(d_model, 2 * self.d_qk + d_model, g, bias=bias,
+                           compute_dtype=compute_dtype)
         self.conv1d = None
         if dim_conv > 0:
             width = d_model + 2 * self.d_qk if self.conv_full else 2 * self.d_qk
-            self.conv1d = DepthwiseCausalConv(width, dim_conv, g)
+            self.conv1d = DepthwiseCausalConv(width, dim_conv, g, compute_dtype=compute_dtype)
         self.drop = Dropout(dropout)
-        self.out_proj = linear(d_model, d_model, g)
+        self.out_proj = linear(d_model, d_model, g, compute_dtype=compute_dtype)
 
     def conv_input(self, qkv: torch.Tensor) -> torch.Tensor:
         """The part of the projection the conv reads: all of it, or [q | k]."""
@@ -126,11 +136,13 @@ class MHA(nn.Module):
         return self.split(qkv)
 
     def split(self, qkv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """q, k (…, H, head_dim) and v (…, H, v_dim) in at least float32
-        (the reference's upcast, ``promote_types(dtype, float32)``), views of
-        the projection [q | k | v]."""
+        """q, k (…, H, head_dim) and v (…, H, v_dim), views of the
+        projection [q | k | v]; for softmax attention in at least float32
+        (the reference's upcast, ``promote_types(dtype, float32)``), for
+        linear attention in the projection's dtype."""
         lead, H, d = qkv.shape[:-1], self.num_heads, self.d_qk
-        qkv = qkv.to(torch.promote_types(qkv.dtype, torch.float32))
+        if not self.lin_att:
+            qkv = qkv.to(torch.promote_types(qkv.dtype, torch.float32))
         q = qkv[..., :d].reshape(*lead, H, self.head_dim)
         k = qkv[..., d: 2 * d].reshape(*lead, H, self.head_dim)
         v = qkv[..., 2 * d:].reshape(*lead, H, self.v_dim)
@@ -168,7 +180,7 @@ class MHNA(nn.Module):
                  num_heads: int = 1, norm_fn: str = "exp", approx_fn: str = "none",
                  scale_B: bool = False, offset: bool = False, offset_init: str = "uniform",
                  dim_conv: int = 0, dropout: float = 0.0, bias: bool = True,
-                 conv_type: str = "full"):
+                 conv_type: str = "full", compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.d_model, self.d_qk = d_model, d_qk if d_qk is not None else d_model
         self.num_heads, self.conv_full = num_heads, conv_type == "full"
@@ -177,17 +189,18 @@ class MHNA(nn.Module):
         self.norm_fn, self.approx_fn = norm_fn_by_name(norm_fn), approx_fn_by_name(approx_fn)
         self.scale = 1.0 / math.sqrt(self.head_dim) if scale_B else 1.0
         g = generator
-        self.Wvqkn = linear(d_model, d_model + 2 * self.d_qk + num_heads, g, bias=bias)
+        self.Wvqkn = linear(d_model, d_model + 2 * self.d_qk + num_heads, g, bias=bias,
+                            compute_dtype=compute_dtype)
         self.conv1d = None
         if dim_conv > 0:
             width = d_model + 2 * self.d_qk if self.conv_full else 2 * self.d_qk
-            self.conv1d = DepthwiseCausalConv(width, dim_conv, g)
+            self.conv1d = DepthwiseCausalConv(width, dim_conv, g, compute_dtype=compute_dtype)
         if offset:
             self.offset = nn.Parameter(torch.from_numpy(_offset_init(offset_init)(num_heads)))
         else:
             self.register_parameter("offset", None)
         self.drop = Dropout(dropout)
-        self.out_proj = linear(d_model, d_model, g)
+        self.out_proj = linear(d_model, d_model, g, compute_dtype=compute_dtype)
 
     def project_in(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """``Wvqkn(x)`` split into [v | q | k] and the normaliser's

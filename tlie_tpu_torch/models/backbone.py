@@ -16,18 +16,29 @@ field: dropout draws one mask per (example, feature), shared across time,
 and BatchNorm normalises with the batch's statistics and updates its running
 ones as flax does (momentum 0.99, the biased E[x²]−E[x]² variance).  In
 evaluation dropout is the identity and BatchNorm uses the running statistics.
+
+``compute_dtype`` (``model.compute_dtype: bfloat16``) is flax's ``dtype=``
+of ``tlie_tpu``'s backbone (``backbone.py:25-57``, ``:60-120``,
+``:194-212``): the encoder, the GLU variants' ``out1``/``out2`` and the
+decoder compute in bfloat16 on casts of their float32 parameters; the SSM
+core always receives float32; the norms take their statistics and give
+their output in float32, as flax's norms do on float32 parameters; the
+residual sum keeps the dtype PyTorch promotes it to, as XLA keeps it.  So in
+a pre-norm stack with a full GLU the residual stream stays bfloat16 from the
+encoder onwards, while a post-norm stack's BatchNorm turns the bfloat16 sum
+into float32 again.  The parameters stay float32.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from .initializers import lecun_normal_
-from .layers import Dropout
+from .layers import Dropout, LayerNorm, Linear, at_least_float32
 
 ACTIVATIONS = ("full_glu", "half_glu1", "half_glu2", "gelu")
 
@@ -37,30 +48,40 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def dense(d_in: int, d_out: int, generator: torch.Generator) -> nn.Linear:
-    """``nn.Linear`` initialised as flax's ``nn.Dense``: lecun-normal weight,
-    zero bias."""
-    lin = nn.Linear(d_in, d_out)
+def dense(d_in: int, d_out: int, generator: torch.Generator,
+          compute_dtype: Optional[torch.dtype] = None) -> Linear:
+    """A :class:`~tlie_tpu_torch.models.layers.Linear` initialised as flax's
+    ``nn.Dense``: lecun-normal weight, zero bias, computing in
+    ``compute_dtype`` where one is set."""
+    lin = Linear(d_in, d_out)
     lecun_normal_(lin.weight, d_in, generator)
     nn.init.zeros_(lin.bias)
+    lin.compute_dtype = compute_dtype
     return lin
 
 
 class DenseEmbed(nn.Module):
     """Dense layer with a gather for integer tokens, counterpart of
     ``DenseEmbed``: ``weight`` keeps flax's (in_features, features) kernel
-    layout, so a token's embedding is its row plus the bias."""
+    layout, so a token's embedding is its row plus the bias.  With
+    ``compute_dtype`` the kernel and the bias are cast first (and a float
+    input too), so a token's row and the bias are bfloat16."""
 
-    def __init__(self, in_features: int, features: int, generator: torch.Generator):
+    def __init__(self, in_features: int, features: int, generator: torch.Generator,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(in_features, features))
         self.bias = nn.Parameter(torch.zeros(features))
         lecun_normal_(self.weight, in_features, generator)
+        self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w, b = self.weight, self.bias
+        if self.compute_dtype is not None:
+            w, b = w.to(self.compute_dtype), b.to(self.compute_dtype)
         if not torch.is_floating_point(x):
-            return F.embedding(x, self.weight) + self.bias
-        return x @ self.weight + self.bias
+            return F.embedding(x, w) + b
+        return x.to(w.dtype) @ w + b
 
 
 class BatchNorm(nn.Module):
@@ -69,7 +90,9 @@ class BatchNorm(nn.Module):
 
     In training mode the statistics are the batch's, over every axis but the
     last, with the biased variance E[x²]−E[x]² (clipped at 0), and the
-    running statistics become ``0.99·running + 0.01·batch``.
+    running statistics become ``0.99·running + 0.01·batch``.  A bfloat16
+    input is widened to float32 first: the statistics, their running
+    averages and the output are float32, as flax's are.
     ``torch.nn.BatchNorm1d`` differs in both (momentum 0.1, an unbiased
     running variance), so it is not used."""
 
@@ -83,6 +106,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = at_least_float32(x)
         if self.training:
             dims = tuple(range(x.dim() - 1))
             mean = x.mean(dims)
@@ -110,7 +134,7 @@ class SequenceLayer(nn.Module):
 
     def __init__(self, ssm: Callable[[], nn.Module], d_model: int, generator: torch.Generator,
                  activation: str = "full_glu", prenorm: bool = True, norm: str = "layer",
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         if activation not in ACTIVATIONS:
             raise NotImplementedError(f"Activation: {activation} not implemented")
@@ -118,17 +142,19 @@ class SequenceLayer(nn.Module):
         self.seq = ssm()
         self.drop = BroadcastDropout(dropout)
         if activation == "full_glu":
-            self.out1 = dense(d_model, d_model, generator)
+            self.out1 = dense(d_model, d_model, generator, compute_dtype)
         if activation in ("full_glu", "half_glu1", "half_glu2"):
-            self.out2 = dense(d_model, d_model, generator)
+            self.out2 = dense(d_model, d_model, generator, compute_dtype)
         # flax LayerNorm's eps is 1e-6
-        self.normalize = BatchNorm(d_model) if norm == "batch" else nn.LayerNorm(d_model, eps=1e-6)
+        self.normalize = BatchNorm(d_model) if norm == "batch" else LayerNorm(d_model, eps=1e-6)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         skip = x
         if self.prenorm:
             x = self.normalize(x)
-        x = self.seq(x)
+        # the SSM core always computes in float32 (a bfloat16 input reaches
+        # here on a post-norm stack, straight from the encoder)
+        x = self.seq(at_least_float32(x))
         x = glu_activation(self, x)
         x = skip + x
         if not self.prenorm:
@@ -156,11 +182,13 @@ class StackedEncoderModel(nn.Module):
 
     def __init__(self, ssm, d_model: int, n_layers: int, d_input: int,
                  generator: torch.Generator, activation: str = "full_glu",
-                 prenorm: bool = True, norm: str = "layer", dropout: float = 0.0):
+                 prenorm: bool = True, norm: str = "layer", dropout: float = 0.0,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.encoder = DenseEmbed(d_input, d_model, generator)
+        self.encoder = DenseEmbed(d_input, d_model, generator, compute_dtype)
         self.layers = nn.ModuleList(
-            SequenceLayer(ssm, d_model, generator, activation, prenorm, norm, dropout)
+            SequenceLayer(ssm, d_model, generator, activation, prenorm, norm, dropout,
+                          compute_dtype)
             for _ in range(n_layers)
         )
 
@@ -184,20 +212,24 @@ class ClassificationModel(nn.Module):
     ``logits_output`` is set (``ClassificationModel``).  With ``padded`` the
     input is ``(inputs, lengths)``, which ``pooling: last`` refuses when
     called, as flax's module does.
-    ``.train()`` is flax's ``training=True``."""
+    ``.train()`` is flax's ``training=True``.  With ``compute_dtype`` the
+    logits are bfloat16 (the decoder's dtype); the loss reduces them in
+    float32."""
 
     def __init__(self, ssm, d_output: int, d_model: int, n_layers: int, d_input: int,
                  generator: torch.Generator, activation: str = "full_glu",
                  pooling: str = "none", prenorm: bool = True, norm: str = "layer",
-                 logits_output: bool = False, dropout: float = 0.0, padded: bool = False):
+                 logits_output: bool = False, dropout: float = 0.0, padded: bool = False,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         if pooling not in ("mean", "last", "none"):
             raise NotImplementedError("pooling must be in ['mean', 'last', 'none']")
         self.pooling, self.padded, self.logits_output = pooling, padded, logits_output
         self.encoder = StackedEncoderModel(
-            ssm, d_model, n_layers, d_input, generator, activation, prenorm, norm, dropout
+            ssm, d_model, n_layers, d_input, generator, activation, prenorm, norm, dropout,
+            compute_dtype
         )
-        self.decoder = dense(d_model, d_output, generator)
+        self.decoder = dense(d_model, d_output, generator, compute_dtype)
 
     def features(self, x) -> torch.Tensor:
         """Backbone features before pooling and the decoder (``features``),

@@ -11,11 +11,13 @@ Module and parameter names are the reference's torch names, so a port
 ``tlie_tpu/analysis/compat.py::torch_state_dict_to_flax`` and through
 :mod:`tlie_tpu_torch.compat`.
 
-``compute_dtype`` (``Linear``, ``TokenEmbeddings``, ``DepthwiseCausalConv``)
-is flax's ``dtype=`` of the same module: None computes in the parameters'
-dtype; ``torch.bfloat16`` casts the input and the parameters to bfloat16 and
-computes there, while the parameters stay float32 (``model.compute_dtype:
-bfloat16``).
+``compute_dtype`` (``Linear``, ``GLU``, ``MLP``, ``TokenEmbeddings``,
+``DepthwiseCausalConv``) is flax's ``dtype=`` of the same module: None
+computes in the parameters' dtype; ``torch.bfloat16`` casts the input and
+the parameters to bfloat16 and computes there, while the parameters stay
+float32 (``model.compute_dtype: bfloat16``).  ``ClassifierHead`` and
+``MATCH`` take none, as in ``tlie_tpu``: they compute in float32 on their
+promoted input.
 """
 
 from __future__ import annotations
@@ -28,6 +30,28 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.conv import depthwise_causal_conv1d
+
+
+def compute_dtype_of(cfg) -> Optional[torch.dtype]:
+    """flax's ``dtype=`` of a model config: bfloat16 for ``compute_dtype:
+    bfloat16``, else None (the parameters' float32)."""
+    return torch.bfloat16 if cfg.get("compute_dtype") == "bfloat16" else None
+
+
+def at_least_float32(x: torch.Tensor) -> torch.Tensor:
+    """x promoted to float32 or wider: what flax's norms compute on (and
+    give back) beside float32 parameters."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax ``nn.LayerNorm`` on float32 parameters: the input is widened to
+    at least float32 first, so the statistics and the output are float32
+    under a bfloat16 compute dtype too, where ``nn.LayerNorm`` would return
+    a bfloat16 input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(at_least_float32(x))
 
 
 def uniform_(t: torch.Tensor, bound: float, generator: torch.Generator) -> torch.Tensor:
@@ -48,7 +72,11 @@ def torch_linear_init(lin: nn.Linear, generator: torch.Generator) -> nn.Linear:
 
 class Linear(nn.Linear):
     """``nn.Linear`` computing in ``compute_dtype`` where one is set (flax
-    ``Dense(dtype=...)``): x, the weight and the bias cast to it."""
+    ``Dense(dtype=...)``): x, the weight and the bias cast to it.  The bias
+    joins the product before its one rounding (one ``addmm``, the bias in
+    the GEMM's epilogue on the card), where flax rounds the product and then
+    adds the bias: the two differ by at most one rounding of the output,
+    inside the bf16 tolerances the tests state."""
 
     compute_dtype: Optional[torch.dtype] = None
 
@@ -93,10 +121,11 @@ class MLP(nn.Module):
     (``MLP``): ``encoder`` and ``decoder`` with torch's default init, the
     two Dropouts independent masks."""
 
-    def __init__(self, d: int, mlp_dim: int, generator: torch.Generator, dropout: float = 0.0):
+    def __init__(self, d: int, mlp_dim: int, generator: torch.Generator, dropout: float = 0.0,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.encoder = linear(d, mlp_dim, generator)
-        self.decoder = linear(mlp_dim, d, generator)
+        self.encoder = linear(d, mlp_dim, generator, compute_dtype=compute_dtype)
+        self.decoder = linear(mlp_dim, d, generator, compute_dtype=compute_dtype)
         self.drop = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -62,7 +62,8 @@ from ..ops.conv import conv_tail
 from ..ops.scan import diag_linear_scan
 from ..ops.ssd import ssd_chunked_scan
 from .layers import (
-    GLU, MATCH, DepthwiseCausalConv, Dropout, TokenEmbeddings, fold_pairs, linear, uniform_,
+    GLU, MATCH, DepthwiseCausalConv, Dropout, LayerNorm, TokenEmbeddings, compute_dtype_of,
+    fold_pairs, linear, uniform_,
 )
 
 
@@ -290,25 +291,21 @@ class MambaBlock(nn.Module):
                 compute_dtype=compute_dtype,
             )
         self.glu = GLU(hidden, generator, compute_dtype) if cfg["glu"] else None
-        self.norm = nn.LayerNorm(hidden, eps=1e-5)
+        self.norm = LayerNorm(hidden, eps=1e-5)
         # one module applied twice, after the GELU and after the GLU (or
         # twice in a row without it): two independent masks, as in tlie_tpu
         self.drop = Dropout(cfg["dropout"])
 
-    def _norm(self, x: torch.Tensor) -> torch.Tensor:
-        """flax's LayerNorm: statistics and output at least float32."""
-        return self.norm(x.to(torch.promote_types(x.dtype, torch.float32)))
-
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         skip = x
         if self.prenorm:
-            x = self._norm(x)
+            x = self.norm(x)
         x = self.drop(F.gelu(self.mamba(x)))
         if self.glu is not None:
             x = self.glu(x)
         x = self.drop(x) + skip
         if not self.prenorm:
-            x = self._norm(x)
+            x = self.norm(x)
         return x
 
 
@@ -324,7 +321,7 @@ class Mamba(nn.Module):
     def __init__(self, cfg: Dict[str, Any], generator: torch.Generator):
         super().__init__()
         hidden = cfg["hidden_dim"]
-        dtype = torch.bfloat16 if cfg.get("compute_dtype") == "bfloat16" else None
+        dtype = compute_dtype_of(cfg)
         self.pooling = cfg.get("pooling", "none")
         if cfg.get("token_embedding", False):
             self.encoder = TokenEmbeddings(hidden, cfg["vocab_size"], generator,

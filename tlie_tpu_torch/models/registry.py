@@ -15,7 +15,7 @@ from torch import nn
 
 from ..device import resolve_device
 from .backbone import ClassificationModel
-from .layers import Dropout
+from .layers import Dropout, compute_dtype_of
 from .lru import LRU
 from .mamba2 import Mamba
 from .s4 import init_S4
@@ -40,17 +40,16 @@ def build_models(model_config: Dict[str, Any], padded: bool = False, *,
     the second.  Weights are drawn from ``generator`` (a CPU generator, so
     they do not depend on the device); the dropout masks from a device
     generator seeded from it.  Like ``tlie_tpu``'s registry the models return
-    logits, not log-probs (argmax, masked CE and perplexity do not change)."""
+    logits, not log-probs (argmax, masked CE and perplexity do not change).
+    ``model.compute_dtype`` is ``float32`` (the default) or ``bfloat16`` for
+    every family, which the models read as flax's ``dtype=`` (the
+    parameters stay float32); any other dtype raises."""
     layer = model_config["layer"]
     if layer not in MODEL_FAMILIES:
         raise RuntimeError(f"{layer} is not a valid model option")
     compute_dtype = model_config.get("compute_dtype", "float32")
     if compute_dtype not in ("float32", "bfloat16"):
         raise NotImplementedError(f"compute_dtype {compute_dtype!r} is not ported")
-    if compute_dtype == "bfloat16" and layer != "mamba":
-        raise NotImplementedError(
-            f"compute_dtype: bfloat16 is ported for layer: mamba only, not {layer!r} "
-            "(ROADMAP Queue 1 item 7: bf16 for the lru and transformer families)")
     dev = resolve_device(device)
     if layer in ("lru", "s4", "s5"):
         model = _ssm_model(model_config, generator, padded)
@@ -70,7 +69,9 @@ def build_models(model_config: Dict[str, Any], padded: bool = False, *,
 
 def _ssm_model(model_config: Dict[str, Any], generator: torch.Generator,
                padded: bool = False) -> ClassificationModel:
-    """The SSM backbone around the family's core (``ssm_backbone_partial``)."""
+    """The SSM backbone around the family's core (``ssm_backbone_partial``),
+    computing in bfloat16 where ``compute_dtype`` asks for it (the core
+    always in float32)."""
     layer, n, h = model_config["layer"], model_config["state_dim"], model_config["hidden_dim"]
     if layer == "lru":
         ssm = partial(LRU, n, h, generator, model_config.get("r_min", 0.0),
@@ -91,4 +92,5 @@ def _ssm_model(model_config: Dict[str, Any], generator: torch.Generator,
         logits_output=True,
         dropout=model_config.get("dropout", 0.0),
         padded=padded,
+        compute_dtype=compute_dtype_of(model_config),
     )

@@ -31,8 +31,17 @@ for norm attention ``layers.{i}.attention.{Wvqkn,offset}``,
 ``classifier.{encoder,decoder}``, ``match.{encoder,middle,decoder}``).
 
 Weights are drawn from an explicit ``torch.Generator`` with the reference's
-distributions.  Not ported yet, and refused: the ``hybrid`` mixer, the
-dense input encoder (``embedding: false``), bf16.
+distributions.  ``model.compute_dtype: bfloat16`` is flax's ``dtype=`` of
+``tlie_tpu``'s transformer (``transformer.py:40-105``, ``:150-173``): the
+token embeddings, ``Wz``, the mixers (:mod:`.attention_layers`), the MLP
+and GLU mixers and the bias-free decoder compute in bfloat16 on casts of
+their float32 parameters; the block's LayerNorm and the final one compute
+in float32 and give float32, as flax's do (``:115-135``); the classifier
+head and ``MATCH`` take no dtype and compute in float32.  The residual
+stream keeps the dtype PyTorch promotes it to: bfloat16 from the encoder
+onwards where the mixer adds its output back.  Not ported yet, and
+refused: the ``hybrid`` mixer, the dense input encoder (``embedding:
+false``).
 """
 
 from __future__ import annotations
@@ -46,19 +55,23 @@ from torch import nn
 
 from .attention_layers import MHA, MHNA
 from .layers import (
-    GLU, MATCH, MLP, ClassifierHead, Dropout, TokenEmbeddings, fold_pairs, linear, uniform_,
+    GLU, MATCH, MLP, ClassifierHead, Dropout, LayerNorm, Linear, TokenEmbeddings,
+    compute_dtype_of, fold_pairs, linear, uniform_,
 )
 
 
 class TransformerBlock(nn.Module):
     """One pre-norm attention block (``TransformerBlock``), with flax's
-    LayerNorm (eps 1e-5, biased variance, the same as ``nn.LayerNorm``)."""
+    LayerNorm (eps 1e-5, biased variance, the same as ``nn.LayerNorm``; its
+    statistics and output in at least float32)."""
 
     def __init__(self, hidden_dim: int, cfg: Dict[str, Any], generator: torch.Generator):
         super().__init__()
         attention_fn = cfg["attention_fn"]
+        dtype = compute_dtype_of(cfg)
         common = dict(d_qk=cfg["state_dim"], num_heads=cfg["num_heads"],
-                      dropout=cfg.get("att_dropout", 0.0), conv_type=cfg.get("conv_type", "full"))
+                      dropout=cfg.get("att_dropout", 0.0), conv_type=cfg.get("conv_type", "full"),
+                      compute_dtype=dtype)
         if attention_fn in ("sm-attention", "lin-attention"):
             self.attention = MHA(hidden_dim, generator, dim_conv=cfg.get("dim_conv", 0),
                                  lin_att=attention_fn == "lin-attention",
@@ -74,7 +87,8 @@ class TransformerBlock(nn.Module):
         if cfg.get("use_gate", False):
             # xavier_uniform_(gain=0.1), bias 1.0: tlie_tpu's
             # variance_scaling(0.01, "fan_avg", "uniform")
-            self.Wz = nn.Linear(hidden_dim, hidden_dim)
+            self.Wz = Linear(hidden_dim, hidden_dim)
+            self.Wz.compute_dtype = dtype
             uniform_(self.Wz.weight, 0.1 * math.sqrt(6.0 / (2 * hidden_dim)), generator)
             with torch.no_grad():
                 self.Wz.bias.fill_(1.0)
@@ -82,16 +96,16 @@ class TransformerBlock(nn.Module):
         if mixer == "hybrid":
             raise NotImplementedError("the hybrid mixer is not ported yet")
         if mixer == "mlp":
-            self.mixer = MLP(hidden_dim, cfg["mixer_dim"], generator, cfg["dropout"])
+            self.mixer = MLP(hidden_dim, cfg["mixer_dim"], generator, cfg["dropout"], dtype)
         elif mixer == "glu":
-            self.mixer = GLU(hidden_dim, generator)
+            self.mixer = GLU(hidden_dim, generator, dtype)
         elif mixer == "none":
             self.mixer = None
         else:
             raise RuntimeError(f"{mixer} mixer not implemented yet!")
         if cfg["norm"] != "layer":
             raise RuntimeError(f"{cfg['norm']} norm not implemented yet!")
-        self.norm = nn.LayerNorm(hidden_dim, eps=1e-5)
+        self.norm = LayerNorm(hidden_dim, eps=1e-5)
         self.drop = Dropout(cfg["dropout"])
 
     def mix(self, x: torch.Tensor, z: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -121,21 +135,23 @@ class Transformer(nn.Module):
             raise NotImplementedError("the dense input encoder (embedding: false) is not "
                                       "ported yet")
         hidden = cfg["hidden_dim"]
+        dtype = compute_dtype_of(cfg)
         self.encoder = TokenEmbeddings(hidden, cfg["vocab_size"], generator,
-                                       cfg.get("max_pos_embed", 0))
+                                       cfg.get("max_pos_embed", 0), compute_dtype=dtype)
         self.layers = nn.ModuleList(
             TransformerBlock(hidden, cfg, generator) for _ in range(cfg["num_layers"]))
         if cfg.get("classifier", False):
             self.classifier = ClassifierHead(hidden, cfg["mixer_dim"], cfg["output_dim"],
                                              cfg["pooling"], generator)
         else:
-            self.decoder = linear(hidden, cfg["output_dim"], generator, bias=False)
+            self.decoder = linear(hidden, cfg["output_dim"], generator, bias=False,
+                                  compute_dtype=dtype)
         self.dual = bool(cfg.get("dual", False))
         if self.dual and hasattr(self, "classifier"):  # flax makes it only where it is used
             self.match = MATCH(cfg["output_dim"], cfg["mixer_dim"], cfg["output_dim"], generator)
         if cfg["norm"] != "layer":
             raise RuntimeError(f"{cfg['norm']} norm not implemented yet!")
-        self.norm = nn.LayerNorm(hidden, eps=1e-5)
+        self.norm = LayerNorm(hidden, eps=1e-5)
         self.drop = Dropout(cfg["dropout"])
 
     def features(self, x) -> torch.Tensor:

@@ -15,8 +15,14 @@ The decoder head of the training steps is the dense one, the sparse one
 CE head, chosen as ``tlie_tpu`` chooses it (``loop.py:292-350``).  The eval
 runs the dense or sparse head and the dataset's metric.
 
+The run logs through :class:`tlie_tpu_torch.utils.RunLogger` where
+``tlie_tpu`` logs (``loop.py:146-159``, ``:448``, ``:507``, ``:543-555``):
+the parameter counts, then each eval's numbers, to
+``./logs/<run name>.jsonl``, the run name ``tlie_tpu``'s.  A ``wandb``
+section logs locally as well (the port has no W&B sink).
+
 Not ported yet, and refused by :func:`tlie_tpu_torch.config.train_fields`:
-data/tensor/sequence parallelism; W&B logging is not carried.
+data/tensor/sequence parallelism.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from ..device import resolve_device
 from ..models.layers import Dropout
 from ..models.registry import build_models
 from ..ops.fused_xent import fused_xent_eligible
+from ..utils.logging import RunLogger
 from .checkpoint import restore_resume, save_checkpoint, save_resume
 from .scan_loop import (
     DeviceData, batch_indices, eval_indices, evaluate, gather_batch, per_position, put_dataset,
@@ -130,15 +137,26 @@ def resume_path(cfg: Dict[str, Any]) -> Optional[str]:
     return stem + "-resume.pth" if stem is not None and every else None
 
 
+def run_name(cfg: Dict[str, Any], wandb_config: Optional[Dict[str, Any]] = None) -> str:
+    """The run's name, ``tlie_tpu``'s (``loop.py:146-150``): the W&B name or
+    the family, then d_model, seed, layers, d_qk and the learning rate."""
+    m, t = cfg["model"], cfg["train"]
+    return (f"{(wandb_config or {}).get('name', m['layer'])}-dmodel{m['hidden_dim']}"
+            f"-seed{cfg['seed']}-num_layers{m['num_layers']}-dqk{m['state_dim']}-lr{t['lr']}")
+
+
 def train(cfg: Dict[str, Any], train_split: Tuple[np.ndarray, ...],
           test_split: Tuple[np.ndarray, ...], *, device="cuda",
-          used_paths: Optional[Set[str]] = None) -> TrainResult:
+          used_paths: Optional[Set[str]] = None,
+          wandb_config: Optional[Dict[str, Any]] = None) -> TrainResult:
     """Train the configuration ``cfg`` (a resolved config dict, runtime
     fields derived) on the (inputs, labels) splits, or (inputs, labels,
     lengths) for a padded config, evaluating with the metric of its dataset
     (``cfg["dataset"]["_name_"]``); returns a :class:`TrainResult`.  Runs
     on the card unless ``device="cpu"``.  ``used_paths`` is a sweep's set
-    of checkpoint paths (:func:`save_trained`).
+    of checkpoint paths (:func:`save_trained`); ``wandb_config`` is the
+    config's ``wandb`` section, which names the run and is otherwise logged
+    locally (:class:`~tlie_tpu_torch.utils.RunLogger`).
 
     With ``train.checkpoint_every`` a resume snapshot (:func:`resume_path`)
     is written after an eval once that many steps have passed since the
@@ -157,12 +175,14 @@ def train(cfg: Dict[str, Any], train_split: Tuple[np.ndarray, ...],
                              f"one batch of {bsz}")
     metric = DATASETS[cfg["dataset"]["_name_"]].get_metrics()
 
+    logger = RunLogger(wandb_config, run_name(cfg, wandb_config))
     model, eval_model, family = build_models(
         model_cfg, padded, generator=torch.Generator().manual_seed(cfg["seed"]), device=dev)
     nr_params = sum(p.numel() for p in model.parameters())
     embed = getattr(model.encoder, "encoder", model.encoder)  # the SSM backbone nests it
     nr_encoder = sum(p.numel() for p in embed.parameters())
     print(f"Nr. of parameters: {nr_params} (encoder: {nr_encoder})")
+    logger.log({"params": nr_params, "params without encoder": nr_params - nr_encoder})
     optimizer, clip_norm = make_family_optimizer(model, family, model_cfg, cfg["train"], f)
 
     train_data = _device_split(train_split, dev, padded)
@@ -227,6 +247,8 @@ def train(cfg: Dict[str, Any], train_split: Tuple[np.ndarray, ...],
         sys.stdout.flush()
         history.append({"step": step, "train_loss": train_loss, "test_loss": test_loss,
                         "test_perf": test_perf, "steps_per_s": sps})
+        logger.log({"train loss": train_loss, "test loss": test_loss, "test perf": test_perf,
+                    "steps_per_sec": sps, "lr": plateau.lr, "ssm_lr": plateau.ssm_lr}, step=step)
         # higher is better for every metric, perplexity included, as in
         # tlie_tpu (loop.py:449, schedules.py:44)
         if test_perf > best["perf"]:
@@ -255,4 +277,5 @@ def train(cfg: Dict[str, Any], train_split: Tuple[np.ndarray, ...],
           f"step {best['step']})")
 
     path = save_trained(cfg, model, test_perf, used_paths)
+    logger.finish()
     return TrainResult(path, test_perf, model, eval_model, history, optimizer)
