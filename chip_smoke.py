@@ -16,9 +16,10 @@ ListOps and Speech Commands) and at Mamba-1's (B, L, d_inner·N) view, holds
 the ``vmap`` rules of the scan's, the decay attention's and the flash
 attention's Functions (a stacked sweep's grid of 4 points in one launch of
 each kernel) to the points' separate calls and times each kernel at the
-grid's folded shape, and drives twenty-four models (all but one at their
-published widths) along thirty-four paths, each with the launch counts set
-to 0 just before it and read just after:
+grid's folded shape, and drives twenty-five models (all but one at their
+published widths) along thirty-seven paths, each with the launch counts set
+to 0 just before it and read just after (path 37 also in the two processes
+it starts):
 
 1. the MQAR LRU (``MQAR_LRU_FULL``: L=512, d_model=128, N=128, 2 layers,
    vocab 8192, batch 64, weights from the config's seed): evaluation,
@@ -245,7 +246,24 @@ to 0 just before it and read just after:
    (BASELINE.json's primary config) along path 10's phases at 50 steps,
    the point against its serial run at the bf16 tolerances, then one bf16
    step of the MQAR S5 (a pre-norm stack: its residual stream stays
-   bfloat16) against its CPU step through the scan's kernels.
+   bfloat16) against its CPU step through the scan's kernels;
+35. path 18's MQAR Mamba-1 in bfloat16 (its recurrence float32): its
+   log-probs against the float32 model's, 50 training steps through the
+   scan's kernels (2 + 2 a step), the checkpoint eigen-analysed and served
+   in float32, one bf16 card step against the CPU step;
+36. ``configs/tasks/cifar/cifar-sm-attention.yaml`` at its widths with the
+   hybrid mixer (``LAMBDA``) and the dense encoder on the float grey levels
+   (``embedding: false``, ``tokenize: false``), d_qk 512 so that the flash
+   kernels take its heads: the forward (card against CPU), 1 epoch of 10
+   steps through the flash kernels, ``mixer_alpha_{i}`` in the run logger,
+   the checkpoint eigen-analysed, one card step against the CPU step;
+37. data parallelism on the one card: the MQAR LRU (``MQAR_LRU_FULL``,
+   BatchNorm, dropout, the sparse head) trained 20 steps in one process,
+   then through the data-parallel route in a group of one over NCCL and in
+   two gloo processes sharing the card, each against the one-process run
+   (weights, BatchNorm statistics, losses; the ranks' states equal), the
+   scan's launches counted per rank; then four seeds as one stacked sweep
+   spread over the two ranks against the one-process stacked sweep.
 Paths 6, 7, 10, 13, 15, 16, 17, 21, 22, 23, 26 and 27's transformer reach
 no Pallas kernel in ``tlie_tpu``: no port kernel launches on them, and the
 script checks that.  The decay attention's forward is also held and timed at the serving
@@ -258,9 +276,10 @@ kernels (the LM's shape, a vocabulary below one tile and a ragged one).
 
 It also checks one MQAR training step of the LRU, of the Mamba-2, of the
 transformers and of S5 and S4, one ListOps step of S5 and S4, and one step
-of each classifier of paths 19-28, on the card against the same step on the
-CPU, one bf16 step of the WikiText LRU LM, the MQAR softmax transformer and
-S5 against the same bf16 step on the CPU (paths 32-34), one fused-head
+of each classifier of paths 19-28 and 36, on the card against the same step
+on the CPU, one bf16 step of the WikiText LRU LM, the MQAR softmax
+transformer, S5 and Mamba-1 against the same bf16 step on the CPU (paths
+32-35), one fused-head
 WikiText step against the dense-head step on the card, and times each kernel
 against its bound, its plain version and, where one exists, the PyTorch
 library call computing the same function.  Each
@@ -667,6 +686,29 @@ BF16_PARAM_ATOL, BF16_STATS_ATOL = 1e-6, 1e-3
 BF16_SWEEP_RTOL, BF16_SWEEP_ATOL, BF16_SWEEP_SHARE = 2e-2, 1e-3, 0.99
 WT_BF16_PROMPT = 1008  # path 32's prompts: a block of 1,024 less the 16 new tokens
 P34_STEPS, P34_EVAL_EVERY = 50, 25
+# path 35, the bf16 MQAR Mamba-1: its steps and eval cadence, and the prompt
+# and analysis batch of path 18
+P35_STEPS, P35_EVAL_EVERY = 50, 25
+# path 36, the hybrid dense-encoder CIFAR-10 classifier: one epoch of the
+# train split cut to P36_TRAIN images (P36_TRAIN // 50 steps), eval_eig on
+# CIFAR_ANALYSIS_BATCH images, the card step on CIFAR_STEP_EXAMPLES; its
+# copy of the YAML sets d_qk to d_model (P36_D_QK), since the YAML's 64 over
+# 4 heads gives a head dim of 16 beside the value's 128, which the flash
+# kernels do not take (both packages then materialise the softmax, as path
+# 22 does)
+P36_TRAIN, P36_D_QK = 500, 512
+# path 37, data parallelism: DP_STEPS steps (one eval at the end) of the
+# MQAR LRU with DP_WARMUP steps of warmup (the config's 4,000 would leave the
+# weights where they started), on DP_TRAIN_EXAMPLES / DP_TEST_EXAMPLES drawn
+# natively from its config's dataset; a run through the route against the
+# one-process run from the same seed: the train and test losses within
+# DP_LOSS_RTOL, the weights within the movement bound 2·Σ lr everywhere and
+# within DP_PARAM_ATOL at DP_PARAM_SHARE of the elements at least (the group's
+# sums add in another order; Adam's lr·g/(|g| + eps) may follow an element's
+# rounding where its gradient is near zero), the BatchNorm statistics within
+# STATS_RTOL, and the ranks' states equal bit for bit
+DP_STEPS, DP_WARMUP, DP_TRAIN_EXAMPLES, DP_TEST_EXAMPLES = 20, 2, 2048, 256
+DP_LOSS_RTOL, DP_PARAM_ATOL, DP_PARAM_SHARE = 1e-4, 2e-5, 0.999
 
 OP_KINDS = (
     ("scan kernels", ("diag_scan", "sum_rows")),
@@ -5341,6 +5383,580 @@ def bf16_wave_path(dev, test_x, test_y, train_split, want_files):
     return total
 
 
+def bf16_mamba1_path(dev, want_files):
+    """Main path 35: path 18's MQAR Mamba-1 (``MQAR_MAMBA1_SMALL``: 2 layers,
+    d_model 64, d_state 16, d_inner 128, L 64, vocab 256, batch 32, dropout
+    0.1) with ``compute_dtype: bfloat16``, weights from seed 1919, on its own
+    natively drawn split.  Its recurrence stays float32, so it runs the
+    scan's float32 kernels on the (B, L, d_inner·N) view.  With every count
+    set to 0: the log-probs on the test batch against the float32 model's on
+    the same weights (the bf16 tolerance; the scan's forward once a layer a
+    forward), P35_STEPS training steps with an eval every P35_EVAL_EVERY (2
+    + 2 launches a step, the forward also once a layer an eval batch), the
+    checkpoint (float32 weights) eigen-analysed (the float32 extraction of
+    the stored weights, held to the float32 copy's live extraction) and
+    served in float32 (M1_PROMPT tokens of the test batch, the prefill
+    through the scan's forward once a layer and held to the float32
+    forward, MAMBA_NEW greedy tokens against its argmax).  Then one bf16
+    card step against the CPU step (``step_card_vs_cpu_bf16``), 2 + 2
+    launches.  Returns the path's launch counts."""
+    from tlie_tpu_torch.analysis import eval_eig
+    from tlie_tpu_torch.analysis.eval_eig import extract_attention_family
+    from tlie_tpu_torch.config import MQAR_MAMBA1_SMALL, derive_runtime_fields, train_fields
+    from tlie_tpu_torch.data import MQAR
+    from tlie_tpu_torch.inference import Decoder
+    from tlie_tpu_torch.models import build_models
+    from tlie_tpu_torch.ops import LAUNCHES
+    from tlie_tpu_torch.training import prep_batch, restore_checkpoint, train
+    from tlie_tpu_torch.training.scan_loop import sparse_head_k_for
+    from tlie_tpu_torch.training.state import make_family_optimizer
+
+    full = copy.deepcopy(MQAR_MAMBA1_SMALL)
+    full["model"]["compute_dtype"] = "bfloat16"
+    mc = full["model"]
+    f32_cfg = {k: v for k, v in mc.items() if k != "compute_dtype"}
+    n_layers, bsz, L = mc["num_layers"], full["train"]["batch_size"], mc["seq_len"]
+    lattice = mc["expansion"] * mc["hidden_dim"] * mc["state_dim"]
+    with Phase("m1_bf16_data") as ph:
+        data = MQAR(**full["dataset"])
+        train_split, (test_x, test_y) = data.split("train"), data.split("test")
+        ph.fields.update(generator=data.generator, train_examples=len(train_split[0]))
+    inputs, _ = prep_batch((test_x[:bsz], test_y[:bsz]), L, mc["input_dim"], lang_model=True,
+                           device=dev)
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    with Phase("m1_bf16_forward") as ph:
+        _, model, _ = build_models(mc, generator=torch.Generator().manual_seed(full["seed"]),
+                                   device=dev)
+        if any(p.dtype != torch.float32 for p in model.parameters()):
+            raise AssertionError("bf16 Mamba-1 parameters not float32")
+        bf16_logprobs_vs_float32(ph, model, float32_copy(mc, model.state_dict(), dev), inputs)
+        torch.cuda.synchronize()
+        if LAUNCHES["diag_scan"] != 2 * n_layers:  # the bf16 and the float32 forward
+            raise AssertionError(f"the forwards launched diag_scan {LAUNCHES['diag_scan']} times")
+        del model
+
+    tcfg = copy.deepcopy(full)
+    tmp = tempfile.mkdtemp(prefix="tlie_m1_bf16_")
+    tcfg["save"] = os.path.join(tmp, "checkpoint", "mqar-mamba1-bf16")
+    tcfg["train"].update(total_steps=P35_STEPS, eval_every=P35_EVAL_EVERY)
+    tcfg = derive_runtime_fields(tcfg, L, len(train_split[0]))
+    try:
+        with Phase("m1_bf16_train") as ph:
+            before = dict(LAUNCHES)
+            t0 = time.perf_counter()
+            result = train(tcfg, train_split, (test_x, test_y), device=dev)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            trained_launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+            n_eval = len(result.history) * (len(test_x) // bsz)
+            want = dict.fromkeys(LAUNCHES, 0)
+            want.update(diag_scan=n_layers * (P35_STEPS + n_eval),
+                        diag_scan_bwd=n_layers * P35_STEPS)
+            if trained_launches != want:
+                raise AssertionError(f"bf16 Mamba-1 training launches {trained_launches}, "
+                                     f"expected {want}")
+            for rec in result.history:
+                if not all(np.isfinite(v) for v in rec.values()):
+                    raise AssertionError(f"non-finite bf16 Mamba-1 numbers {rec}")
+            if any(p.dtype != torch.float32 for p in result.model.parameters()):
+                raise AssertionError("bf16 Mamba-1 parameters not float32 after training")
+            ph.fields.update(steps=P35_STEPS, seconds=f"{train_s:.2f}",
+                             steps_per_s=f"{P35_STEPS / train_s:.1f}", eval_batches=n_eval,
+                             history=repr([{k: round(v, 4) for k, v in r.items()}
+                                           for r in result.history]),
+                             launches=repr({k: v for k, v in trained_launches.items() if v}))
+
+        with Phase("m1_bf16_checkpoint_eval_eig") as ph:
+            ckpt_path, perf = result
+            ckpt = restore_checkpoint(ckpt_path)
+            if ckpt["config"]["model"].get("compute_dtype") != "bfloat16":
+                raise AssertionError("the bf16 Mamba-1 checkpoint lost its compute dtype")
+            eig_dir = os.path.join(tmp, "analysis")
+            batch = test_x[:M1_ANALYSIS_BATCH]
+            eig, eig_init, _, _, _, _ = eval_eig(tcfg, {"save_path": eig_dir}, perf, ckpt_path,
+                                                 device=dev, batch=batch)
+            f32_model = float32_copy(mc, ckpt["model"], dev)
+            live = extract_attention_family(f32_model, torch.as_tensor(batch, device=dev).long(),
+                                            f32_cfg)
+            (run_dir,) = os.listdir(eig_dir)
+            files = sorted(os.listdir(os.path.join(eig_dir, run_dir)))
+            want_shape = (M1_ANALYSIS_BATCH, L, lattice, n_layers)
+            live_err = float(np.abs(eig - live).max())
+            if (eig.shape != want_shape or eig_init.shape != want_shape or live_err > 1e-6
+                    or not (np.all((eig >= 0) & (eig < 1)))):
+                raise AssertionError(f"bf16 Mamba-1 spectra {eig.shape}, {live_err} from the "
+                                     "float32 extraction")
+            if files != want_files:
+                raise AssertionError(f"bf16 Mamba-1 artifacts {run_dir}: {files}")
+            ph.fields.update(perf=f"{perf:.4f}", artifacts=run_dir,
+                             eig_vs_f32_extraction_max_abs=f"{live_err:.3e}",
+                             lambda_range_trained=f"[{eig.min():.4g}, {eig.max():.4g}]")
+
+        with Phase("m1_bf16_serving") as ph:
+            dec = Decoder.from_checkpoint(ckpt_path, device=dev)
+            prompts = inputs[:, :M1_PROMPT]
+            before = LAUNCHES["diag_scan"]
+            _, last = dec.prefill(prompts, M1_PROMPT + MAMBA_NEW)
+            torch.cuda.synchronize()
+            if LAUNCHES["diag_scan"] - before != n_layers:
+                raise AssertionError("the bf16 Mamba-1's prefill did not go through diag_scan "
+                                     "once a layer")
+            with torch.no_grad():
+                full_prompt = f32_model(prompts)[:, -1]
+            prefill_err = (last - full_prompt).abs().max().item()
+            if last.dtype != torch.float32 or not torch.allclose(last, full_prompt,
+                                                                 rtol=LOGIT_RTOL, atol=LOGIT_ATOL):
+                raise AssertionError(f"bf16 Mamba-1 prefill vs float32 forward: {prefill_err}")
+            out = dec.generate(prompts, MAMBA_NEW)
+            if out.shape != (bsz, M1_PROMPT + MAMBA_NEW):
+                raise AssertionError(f"bf16 Mamba-1 generation {tuple(out.shape)}")
+            mism, gap = greedy_vs_argmax(f32_model, out, M1_PROMPT)
+            ph.fields.update(prefill_vs_f32_forward_max_abs=f"{prefill_err:.3e}",
+                             greedy_vs_argmax_mismatches=mism, worst_gap=f"{gap:.3e}")
+            del dec, f32_model, ckpt
+        path_all = dict(LAUNCHES)
+        if any(v for k, v in path_all.items() if not k.startswith("diag_scan")):
+            raise AssertionError(f"path 35 launched other kernels: {path_all}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del result
+
+    step_cfg = dict(mc, dropout=0.0)
+    f = train_fields(tcfg)
+    sparse_k = sparse_head_k_for(mc, train_split[1], test_y)
+    x_step = torch.as_tensor(train_split[0][:bsz], device=dev).long()
+    y_step = torch.as_tensor(train_split[1][:bsz], device=dev).long()
+
+    def fresh(device, float32=False):
+        m_cfg = dict(step_cfg, compute_dtype="float32") if float32 else step_cfg
+        m, _, family = build_models(m_cfg, generator=torch.Generator().manual_seed(full["seed"]),
+                                    device=device)
+        opt, clip = make_family_optimizer(m, family, m_cfg, tcfg["train"], f)
+        return m, opt, clip
+
+    with Phase("m1_bf16_train_step_card_vs_cpu") as ph:
+        step_launches = step_card_vs_cpu_bf16(ph, "bf16 Mamba-1", fresh, dev, x_step, y_step,
+                                              {"regular": f["lr"]}, (".mamba.",), sparse_k)
+        if step_launches != {"diag_scan": n_layers, "diag_scan_bwd": n_layers}:
+            raise AssertionError(f"the bf16 Mamba-1's card step launched {step_launches}")
+    print(f"[launches] path 35, bf16 Mamba-1: {path_all}; training alone: "
+          f"{({k: v for k, v in trained_launches.items() if v})} ({n_layers} + {n_layers} a "
+          "step)", flush=True)
+    torch.cuda.empty_cache()
+    return path_all
+
+
+def hybrid_classifier_path(dev, want_files):
+    """Main path 36: ``configs/tasks/cifar/cifar-sm-attention.yaml``
+    (``CIFAR_SM_ATTENTION_FULL``: 6 layers, d_model 512, 4 heads, a mean
+    pool into the classifier MLP of 128, batch 50, L 1,024) in a copy that
+    feeds the float grey levels (``tokenize: false``) to the dense encoder
+    (``embedding: false``, input_dim 1) and mixes with ``hybrid`` (``LAMBDA``),
+    its d_qk at P36_D_QK so that the head dims agree and the softmax runs
+    through the flash kernels; weights from seed 1919, on the loader's
+    synthetic split cut to P36_TRAIN images.  With every count set to 0: the
+    forward on a test batch (card against CPU; the flash forward once a
+    layer), 1 epoch (P36_TRAIN // 50 steps) with one eval (the flash forward
+    once a layer a step and eval batch, its two backward kernels once a
+    layer a step, no materialised softmax), ``mixer_alpha_{i}`` in the run
+    logger's last record equal to σ(α) of the trained mixers, the
+    checkpoint eigen-analysed (η from activations on CIFAR_ANALYSIS_BATCH
+    images, held to the live model's).  Then one card step against the CPU
+    step on CIFAR_STEP_EXAMPLES images.  Returns the path's launch counts."""
+    from tlie_tpu_torch.analysis import eval_eig
+    from tlie_tpu_torch.analysis.eval_eig import extract_attention_family
+    from tlie_tpu_torch.config import CIFAR_SM_ATTENTION_FULL, derive_runtime_fields, train_fields
+    from tlie_tpu_torch.models import build_models
+    from tlie_tpu_torch.ops import LAUNCHES
+    from tlie_tpu_torch.ops import attention as fa
+    from tlie_tpu_torch.training import prep_batch, restore_checkpoint, train
+    from tlie_tpu_torch.training.loop import run_name
+    from tlie_tpu_torch.training.state import make_family_optimizer
+
+    tag = "hybrid_cifar"
+    full = copy.deepcopy(CIFAR_SM_ATTENTION_FULL)
+    full["dataset"]["tokenize"] = False
+    full["model"].update(embedding=False, mixer="hybrid", state_dim=P36_D_QK)
+    mc = full["model"]
+    n_layers, bsz, L, heads = mc["num_layers"], full["train"]["batch_size"], mc["seq_len"], \
+        mc["num_heads"]
+    kernels = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+    train_split, test_split = cifar_splits(full, tag)
+    train_split = tuple(a[:P36_TRAIN] for a in train_split)
+    test_x, test_y = test_split
+    inputs, _ = prep_batch((test_x[:bsz], test_y[:bsz]), L, mc["input_dim"], device=dev)
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    with Phase(f"{tag}_forward") as ph, torch.no_grad():
+        _, model, _ = build_models(mc, generator=torch.Generator().manual_seed(full["seed"]),
+                                   device=dev)
+        if inputs.shape != (bsz, L, 1) or not inputs.is_floating_point():
+            raise AssertionError(f"{tag} inputs {tuple(inputs.shape)} {inputs.dtype}")
+        logits = model(inputs)
+        torch.cuda.synchronize()
+        if {k: v for k, v in LAUNCHES.items() if v} != {"flash_attention_fwd": n_layers}:
+            raise AssertionError(f"{tag} forward launches {LAUNCHES}")
+        if logits.shape != (bsz, mc["output_dim"]) or not torch.isfinite(logits).all():
+            raise AssertionError(f"{tag} forward output {tuple(logits.shape)}")
+        _, cpu_model, _ = build_models(mc, generator=torch.Generator(), device="cpu")
+        cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        ref = cpu_model(inputs[:2].cpu())
+        cpu_err = (logits[:2].cpu() - ref).abs().max().item()
+        if not torch.allclose(logits[:2].cpu(), ref, rtol=LOGIT_RTOL, atol=LOGIT_ATOL):
+            raise AssertionError(f"{tag} card vs CPU forward: max abs err {cpu_err}")
+        ph.fields.update(vs_cpu_max_abs=f"{cpu_err:.3e}",
+                         alpha_init=round(float(torch.sigmoid(model.layers[0].mixer.alpha)), 6))
+        del model, cpu_model, ref
+
+    tcfg = copy.deepcopy(full)
+    tmp = tempfile.mkdtemp(prefix=f"tlie_{tag}_")
+    tcfg["save"] = os.path.join(tmp, "checkpoint", "cifar-hybrid-dense")
+    tcfg["dataset"]["synthetic"] = True
+    tcfg["train"].update(num_epochs=1, warmup=CIFAR_WARMUP)
+    tcfg = derive_runtime_fields(tcfg, L, len(train_split[0]))
+    f = train_fields(tcfg)
+    materialised = []
+    real_xla = fa.xla_causal_attention
+    try:
+        with Phase(f"{tag}_train") as ph:
+            before = dict(LAUNCHES)
+            fa.xla_causal_attention = lambda *a: (materialised.append(1), real_xla(*a))[1]
+            try:
+                t0 = time.perf_counter()
+                result = train(tcfg, train_split, test_split, device=dev)
+                torch.cuda.synchronize()
+                train_s = time.perf_counter() - t0
+            finally:
+                fa.xla_causal_attention = real_xla
+            trained_launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+            steps = f["total_steps"]
+            n_eval = len(result.history) * (len(test_x) // bsz)
+            want = dict.fromkeys(LAUNCHES, 0)
+            want.update(flash_attention_fwd=n_layers * (steps + n_eval),
+                        flash_attention_bwd_dkv=n_layers * steps,
+                        flash_attention_bwd_dq=n_layers * steps)
+            if trained_launches != want or materialised:
+                raise AssertionError(f"{tag} training launches {trained_launches}, expected "
+                                     f"{want}; materialised softmax calls {len(materialised)}")
+            for rec in result.history:
+                if not all(np.isfinite(v) for v in rec.values()):
+                    raise AssertionError(f"non-finite {tag} training numbers {rec}")
+            with open(os.path.join("logs", run_name(tcfg) + ".jsonl")) as fh:
+                last = json.loads(fh.readlines()[-1])
+            alphas = [float(torch.sigmoid(layer.mixer.alpha.detach())[0])
+                      for layer in result.model.layers]
+            logged = [last.get(f"mixer_alpha_{i}") for i in range(n_layers)]
+            if logged != alphas or last.get("step") != steps:
+                raise AssertionError(f"{tag} mixer_alpha logged {logged}, σ(α) {alphas}")
+            ph.fields.update(steps=steps, seconds=f"{train_s:.2f}",
+                             steps_per_s=f"{steps / train_s:.2f}", eval_batches=n_eval,
+                             mixer_alpha=[round(a, 6) for a in alphas],
+                             history=repr([{k: round(v, 4) for k, v in r.items()}
+                                           for r in result.history]),
+                             launches=repr({k: v for k, v in trained_launches.items() if v}))
+
+        with Phase(f"{tag}_checkpoint_eval_eig") as ph:
+            ckpt_path, perf = result
+            ckpt = restore_checkpoint(ckpt_path)
+            for k, v in result.model.state_dict().items():
+                if not torch.equal(ckpt["model"][k], v.cpu()):
+                    raise AssertionError(f"{tag} checkpoint entry {k} differs from the live "
+                                         "weights")
+            batch = test_x[:CIFAR_ANALYSIS_BATCH]
+            eig_dir = os.path.join(tmp, "analysis")
+            eig, eig_init, _, _, _, _ = eval_eig(tcfg, {"save_path": eig_dir}, perf, ckpt_path,
+                                                 device=dev, batch=batch)
+            live = extract_attention_family(result.eval_model,
+                                            torch.as_tensor(batch, device=dev), mc)
+            (run_dir,) = os.listdir(eig_dir)
+            files = sorted(os.listdir(os.path.join(eig_dir, run_dir)))
+            want_shape = (CIFAR_ANALYSIS_BATCH, L - 1, heads, n_layers)
+            live_rel = float(np.max(np.abs(eig - live) / np.abs(live)))
+            if (eig.shape != want_shape or eig_init.shape != want_shape or live_rel > 1e-6
+                    or not (np.all(eig > 0) and np.isfinite(eig).all())):
+                raise AssertionError(f"{tag} spectra {eig.shape}, {live_rel} from the live model")
+            if files != want_files:
+                raise AssertionError(f"{tag} artifacts {run_dir}: {files}")
+            ph.fields.update(perf=f"{perf:.4f}", artifacts=run_dir,
+                             eig_vs_live_max_rel=f"{live_rel:.3e}",
+                             eta_range_trained=f"[{eig.min():.4g}, {eig.max():.4g}]")
+            del ckpt
+        path_all = dict(LAUNCHES)
+        if any(v for k, v in path_all.items() if k not in kernels):
+            raise AssertionError(f"path 36 launched other kernels: {path_all}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del result
+
+    step_cfg = dict(mc, dropout=0.0)
+    x_step = torch.as_tensor(train_split[0][:CIFAR_STEP_EXAMPLES], device=dev)
+    y_step = torch.as_tensor(train_split[1][:CIFAR_STEP_EXAMPLES], device=dev)
+
+    def fresh(device):
+        m, _, family = build_models(step_cfg, generator=torch.Generator().manual_seed(
+            full["seed"]), device=device)
+        opt, clip = make_family_optimizer(m, family, step_cfg, tcfg["train"], f)
+        return m, opt, clip
+
+    with Phase(f"{tag}_train_step_card_vs_cpu") as ph:
+        step_card_vs_cpu(ph, tag, fresh, dev, x_step, y_step, {"regular": f["lr"]}, None,
+                         TF_GRAD_RTOL_OF_MAX,
+                         watch=("mixer_grad_err_over_allowed", lambda n: ".mixer." in n))
+        ph.fields.update(examples=CIFAR_STEP_EXAMPLES)
+    print(f"[launches] path 36, hybrid dense-encoder classifier: {path_all}; training alone: "
+          f"{({k: v for k, v in trained_launches.items() if v})}", flush=True)
+    torch.cuda.empty_cache()
+    return path_all
+
+
+def _count_plain_scan():
+    """On the CPU, where no kernel launches (a rehearsal of path 37), the
+    scan's plain versions counted under the kernels' names, so the counts
+    are checked as on the card."""
+    from tlie_tpu_torch.ops import LAUNCHES
+    from tlie_tpu_torch.ops import scan as sc
+
+    def fwd(a, b, reverse=False):
+        LAUNCHES["diag_scan"] += 1
+        return sc.diag_scan_plain(a, b, reverse)
+
+    def bwd(a, h, g, reverse=False):
+        LAUNCHES["diag_scan_bwd"] += 1
+        return sc.diag_scan_bwd_plain(a, h, g, reverse)
+
+    sc._on_cuda = lambda t: True
+    sc.diag_scan_cuda, sc.diag_scan_bwd_cuda = fwd, bwd
+
+
+def dp_rank_main(spec_path: str) -> int:
+    """One rank of path 37's two-process group (``chip_smoke.py --dp-rank
+    SPEC``, started by :func:`tlie_tpu_torch.parallel.mesh.spawn`): the
+    spec's config trained through the data-parallel route, then the spec's
+    seeds as one stacked sweep spread over the ranks.  Writes this rank's
+    final state (``rank<r>.pt``) and its launch counts of each
+    (``rank<r>.json``) to the spec's ``out``."""
+    from tlie_tpu_torch.config import ExperimentConfig
+    from tlie_tpu_torch.data import MQAR
+    from tlie_tpu_torch.ops import LAUNCHES
+    from tlie_tpu_torch.parallel import mesh, run_sweep
+    from tlie_tpu_torch.training import train
+
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    dev = mesh.init_process_group(spec["device"], spec["backend"])
+    shard = mesh.process_shard()
+    try:
+        if dev.type == "cpu":
+            _count_plain_scan()
+        data = MQAR(**spec["cfg"]["dataset"])
+        train_split, test_split = data.split("train"), data.split("test")
+        out = {}
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        result = train(spec["cfg"], train_split, test_split, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out["train"] = {k: v for k, v in LAUNCHES.items() if v}
+        out["history"] = result.history
+        torch.save({k: v.detach().cpu() for k, v in result.model.state_dict().items()},
+                   os.path.join(spec["out"], f"rank{shard.rank}.pt"))
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        run_sweep(ExperimentConfig(copy.deepcopy(spec["sweep_base"])),
+                  [{("seed",): s} for s in spec["seeds"]], train_split, test_split,
+                  data.l_max, None, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out["sweep"] = {k: v for k, v in LAUNCHES.items() if v}
+        with open(os.path.join(spec["out"], f"rank{shard.rank}.json"), "w") as fh:
+            json.dump(out, fh)
+    finally:
+        mesh.destroy_process_group()
+    return 0
+
+
+def dp_compare(ph, key: str, got, ref, lr_sum: float, got_hist=None, ref_hist=None):
+    """A run through the data-parallel route (``got``, a state dict, and
+    its history) against the one-process run (``ref``): path 37's bounds
+    (DP_*).  Fills ``ph.fields[key]`` and raises on a failed check."""
+    worst = stats = 0.0
+    close = total = 0
+    for name, want in ref.items():
+        w, g = want.detach().cpu(), got[name].detach().cpu()
+        err = (g - w).abs()
+        if name.endswith(("running_mean", "running_var")):
+            stats = max(stats, (err / w.abs().clamp_min(1.0)).max().item())
+        else:
+            worst = max(worst, err.max().item())
+            close, total = close + int((err <= DP_PARAM_ATOL).sum()), total + err.numel()
+    losses = 0.0
+    for h, r in zip(got_hist or [], ref_hist or []):
+        for k in ("train_loss", "test_loss"):
+            losses = max(losses, abs(h[k] - r[k]) / abs(r[k]))
+    ph.fields[key] = (f"param_max_abs={worst:.3e},share_within_{DP_PARAM_ATOL:g}="
+                      f"{close / total:.6f},stats_max_rel={stats:.3e},loss_max_rel={losses:.3e}")
+    if not (worst <= 2 * lr_sum + DP_PARAM_ATOL and close >= DP_PARAM_SHARE * total
+            and stats <= STATS_RTOL and losses <= DP_LOSS_RTOL
+            and len(got_hist or []) == len(ref_hist or [])):
+        raise AssertionError(f"path 37, {key}: {ph.fields[key]}")
+
+
+def data_parallel_path(dev, want_files):
+    """Main path 37, data parallelism on the one card: the MQAR LRU
+    (``MQAR_LRU_FULL``: 2 layers, d_model 128, N 128, L 512, batch 64,
+    BatchNorm, dropout 0.1, the sparse head, the scan's kernels) trained
+    DP_STEPS steps, warmup DP_WARMUP, on DP_TRAIN_EXAMPLES / DP_TEST_EXAMPLES
+    examples, weights from seed 1919: first in one process (the reference),
+    then through the data-parallel route in a group of one over NCCL (gloo
+    on the CPU) in this process, then in a group of two gloo processes
+    sharing the card (``mesh.spawn`` of ``chip_smoke.py --dp-rank``), each
+    against the reference (:func:`dp_compare`; the second's ranks equal bit
+    for bit), the scan's launches counted per rank (2 + 2 a step, the
+    forward also once a layer an eval batch on rank 0, which evaluates).
+    The two ranks then run the stacked sweep of SWEEP_SEEDS at dropout 0,
+    two points a rank, rank 0 writing every checkpoint: each point against
+    the same point of the one-process stacked sweep.  Returns the launch
+    counts: this process's (``world_1``), each rank's (``world_2``, a list)
+    and the ranks' sweep counts (``sweep_2``)."""
+    from tlie_tpu_torch.config import (
+        MQAR_LRU_FULL, ExperimentConfig, derive_runtime_fields, train_fields,
+    )
+    from tlie_tpu_torch.data import MQAR
+    from tlie_tpu_torch.models import build_models
+    from tlie_tpu_torch.ops import LAUNCHES
+    from tlie_tpu_torch.parallel import mesh, run_sweep
+    from tlie_tpu_torch.training import restore_checkpoint, train
+    from tlie_tpu_torch.training.schedules import lr_for_step
+
+    tmp = tempfile.mkdtemp(prefix="tlie_dp_")
+    base = copy.deepcopy(MQAR_LRU_FULL)
+    base["dataset"].update(num_train_examples=DP_TRAIN_EXAMPLES,
+                           num_test_examples=DP_TEST_EXAMPLES)
+    base["train"].update(total_steps=DP_STEPS, eval_every=DP_STEPS, warmup_steps=DP_WARMUP)
+    mc = base["model"]
+    n_layers, bsz, L = mc["num_layers"], base["train"]["batch_size"], mc["seq_len"]
+
+    def run_cfg(tag, **model):
+        cfg = copy.deepcopy(base)
+        cfg["model"].update(model)
+        cfg["save"] = os.path.join(tmp, tag, "mqar-lru")
+        return derive_runtime_fields(cfg, L, DP_TRAIN_EXAMPLES)
+
+    launches = {}
+    try:
+        with Phase("dp_data") as ph:
+            data = MQAR(**base["dataset"])
+            train_split, test_split = data.split("train"), data.split("test")
+            ph.fields.update(generator=data.generator, train=train_split[0].shape)
+        n_eval = DP_TEST_EXAMPLES // bsz
+        f = train_fields(run_cfg("ref"))
+        lr_sum = sum(max(lr_for_step(s, f[k], f["warmup"], f["total_steps"], f["cosine"],
+                                     f["lr_min"]) for k in ("lr", "ssm_lr"))
+                     for s in range(DP_STEPS))
+        with Phase("dp_one_process") as ph:
+            ref = train(run_cfg("ref"), train_split, test_split, device=dev)
+            ref_state = ref.model.state_dict()
+            init = build_models(mc, generator=torch.Generator().manual_seed(base["seed"]),
+                                device=dev)[0].state_dict()
+            moved = max((ref_state[k] - v).abs().max().item() for k, v in init.items()
+                        if not k.endswith(("running_mean", "running_var")))
+            if moved <= 10 * DP_PARAM_ATOL:
+                raise AssertionError(f"path 37's weights moved {moved}: nothing to compare")
+            ph.fields.update(history=repr([{k: round(v, 4) for k, v in r.items()}
+                                           for r in ref.history]),
+                             moved=f"{moved:.3e}", lr_sum=f"{lr_sum:.3e}")
+        with Phase("dp_world_1") as ph:
+            mesh.init_process_group(dev, rank=0, world_size=1,
+                                    init_method=f"tcp://127.0.0.1:{mesh.free_port()}")
+            try:
+                ph.fields["backend"] = torch.distributed.get_backend()
+                for k in LAUNCHES:
+                    LAUNCHES[k] = 0
+                one = train(run_cfg("one"), train_split, test_split, device=dev)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                launches["world_1"] = {k: v for k, v in LAUNCHES.items() if v}
+            finally:
+                mesh.destroy_process_group()
+            want = {"diag_scan": n_layers * (DP_STEPS + n_eval), "diag_scan_bwd": n_layers * DP_STEPS}
+            if launches["world_1"] != want:
+                raise AssertionError(f"path 37, world size 1: launches {launches['world_1']}, "
+                                     f"expected {want}")
+            dp_compare(ph, "vs_one_process", one.model.state_dict(), ref_state, lr_sum,
+                       one.history, ref.history)
+            ph.fields["launches"] = repr(launches["world_1"])
+            del one
+        sweep_raw = run_cfg("sweep_ref", dropout=0.0)
+        with Phase("dp_one_process_sweep") as ph:
+            points = [{("seed",): s} for s in SWEEP_SEEDS]
+            ref_sweep, _ = run_sweep(ExperimentConfig(copy.deepcopy(sweep_raw)), points,
+                                     train_split, test_split, data.l_max, None, device=dev)
+            ph.fields["perfs"] = [round(p, 4) for _, p in ref_sweep]
+        with Phase("dp_world_2_gloo") as ph:
+            out = os.path.join(tmp, "ranks")
+            os.makedirs(out)
+            spec = {"cfg": run_cfg("two"), "sweep_base": run_cfg("sweep_two", dropout=0.0),
+                    "seeds": list(SWEEP_SEEDS), "out": out, "backend": "gloo",
+                    "device": (f"cuda:{torch.cuda.current_device()}" if dev.type == "cuda"
+                               else "cpu")}
+            spec_path = os.path.join(tmp, "spec.json")
+            with open(spec_path, "w") as fh:
+                json.dump(spec, fh)
+            t0 = time.perf_counter()
+            code = mesh.spawn([os.path.abspath(__file__), "--dp-rank", spec_path], 2,
+                              timeout=600)
+            ph.fields["spawn_s"] = f"{time.perf_counter() - t0:.2f}"
+            if code != 0:
+                raise AssertionError(f"path 37's two gloo processes exited with {code}")
+            ranks = []
+            for r in range(2):
+                with open(os.path.join(out, f"rank{r}.json")) as fh:
+                    ranks.append(json.load(fh))
+            states = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=True)
+                      for r in range(2)]
+            unequal = [k for k, v in states[0].items() if not torch.equal(states[1][k], v)]
+            if unequal:
+                raise AssertionError(f"path 37: the two ranks' states differ at {unequal}")
+            dp_compare(ph, "vs_one_process", states[0], ref_state, lr_sum,
+                       ranks[0]["history"], ref.history)
+            launches["world_2"] = [r["train"] for r in ranks]
+            launches["sweep_2"] = [r["sweep"] for r in ranks]
+            want = [{"diag_scan": n_layers * (DP_STEPS + n_eval),
+                     "diag_scan_bwd": n_layers * DP_STEPS},
+                    {"diag_scan": n_layers * DP_STEPS, "diag_scan_bwd": n_layers * DP_STEPS}]
+            # the sweep: each rank's two points stacked, one launch a stacked
+            # step and eval batch, evals on each rank's own points
+            want_sweep = [{"diag_scan": n_layers * (DP_STEPS + n_eval),
+                           "diag_scan_bwd": n_layers * DP_STEPS}] * 2
+            if launches["world_2"] != want or launches["sweep_2"] != want_sweep:
+                raise AssertionError(f"path 37, world size 2: launches {launches}, expected "
+                                     f"{want} and {want_sweep}")
+            ph.fields.update(launches_per_rank=repr(launches["world_2"]),
+                             sweep_launches_per_rank=repr(launches["sweep_2"]))
+        with Phase("dp_world_2_sweep_vs_one_process") as ph:
+            journal = os.path.join(tmp, "sweep_two", "mqar-lru.sweep_journal.jsonl")
+            with open(journal) as fh:
+                recs = [json.loads(line) for line in fh]
+            if len(recs) != len(SWEEP_SEEDS):
+                raise AssertionError(f"path 37's 2-rank sweep journaled {len(recs)} points")
+            sweep_lr = sum(lr_for_step(s, f["lr"], f["warmup"], f["total_steps"], f["cosine"],
+                                       f["lr_min"]) for s in range(DP_STEPS))
+            for rec, (ref_path, ref_perf) in zip(recs, ref_sweep):
+                got = restore_checkpoint(rec["path"])["model"]
+                want_state = restore_checkpoint(ref_path)["model"]
+                key = f"seed_{json.loads(rec['point_key'])['seed']}"
+                dp_compare(ph, key, got, want_state, max(lr_sum, sweep_lr))
+                if abs(rec["perf"] - ref_perf) > 1e-3:
+                    raise AssertionError(f"path 37 sweep {key}: perf {rec['perf']} against "
+                                         f"{ref_perf}")
+    finally:
+        mesh.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[launches] path 37, data parallelism: {launches}", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card",
@@ -6433,6 +7049,24 @@ def main() -> int:
     bf16_s["path_34"] = time.perf_counter() - t0
     print(f"[paths 32-34 seconds] {json.dumps({k: round(v, 2) for k, v in bf16_s.items()})} "
           f"total {sum(bf16_s.values()):.2f}", flush=True)
+    # main path 35, the bf16 MQAR Mamba-1 (the scan's kernels); 36, the hybrid
+    # dense-encoder CIFAR-10 classifier (the flash kernels); 37, data
+    # parallelism in a group of one over NCCL and of two gloo processes on
+    # the card (the scan's kernels, each rank's counted)
+    s18 = {}
+    t0 = time.perf_counter()
+    path35_all = bf16_mamba1_path(dev, want_files)
+    s18["path_35"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    path36_all = hybrid_classifier_path(dev, want_files)
+    s18["path_36"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dp = data_parallel_path(dev, want_files)
+    path37_all = {k: dp["world_1"].get(k, 0) + sum(r.get(k, 0) for r in dp["world_2"])
+                  + sum(r.get(k, 0) for r in dp["sweep_2"]) for k in LAUNCHES}
+    s18["path_37"] = time.perf_counter() - t0
+    print(f"[paths 35-37 seconds] {json.dumps({k: round(v, 2) for k, v in s18.items()})} "
+          f"total {sum(s18.values()):.2f}", flush=True)
     # main paths 16 and 17, the WikiText norm-attention LM alone and its
     # stacked seeds × rates sweep, then the pretrained-LM spectroscopy on a
     # stand-in at its widths (no port kernel on any of them)
@@ -6569,7 +7203,8 @@ def main() -> int:
                 + path18_all[name] + sum(c[name] for c in cifar_all.values())
                 + sum(c[name] for c in cls_all.values())
                 + sum(c[name] for c in kernel_sweep_all.values())
-                + path32_all[name] + path33_all[name] + path34_all.get(name, 0))
+                + path32_all[name] + path33_all[name] + path34_all.get(name, 0)
+                + path35_all[name] + path36_all[name] + path37_all[name])
 
     kernels = [{
         "name": "diag_scan",
@@ -6696,4 +7331,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    # path 37 starts its ranks as ``chip_smoke.py --dp-rank SPEC``; the run
+    # itself takes no arguments
+    if sys.argv[1:2] == ["--dp-rank"]:
+        sys.exit(dp_rank_main(sys.argv[2]))
     sys.exit(main())

@@ -1,8 +1,8 @@
-"""``model.compute_dtype: bfloat16`` for the LRU, S5, S4 and transformer
-families against ``tlie_tpu``'s bf16 models on the same weights: the
-log-probs of the tiny configs of ``tests/test_bf16.py`` (the post-norm LRU,
-S5, S4, the linear, softmax and norm attention transformers) and of a
-post-norm BatchNorm LRU LM, closer to it than the port's float32 model;
+"""``model.compute_dtype: bfloat16`` for the LRU, S5, S4, Mamba-1 and
+transformer families against ``tlie_tpu``'s bf16 models on the same
+weights: the log-probs of the tiny configs of ``tests/test_bf16.py`` (the
+post-norm LRU, S5, S4, the linear, softmax and norm attention transformers,
+and its Mamba at ``version: mamba1``) and of a post-norm BatchNorm LRU LM, closer to it than the port's float32 model;
 the dtype of every parameter-holding module's output against
 ``tlie_tpu``'s module at the same place; the dtypes each core receives (the SSM cores
 float32, linear attention bfloat16, softmax attention float32); and the
@@ -15,13 +15,15 @@ HIGHEST matmul precision (tests/conftest.py).  Tolerances are stated where
 they are used.
 """
 
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from test_bf16 import _ATT_TINY, _LRU_TINY, _NORM_ATT_EXTRA, _S4_TINY, _S5_TINY
+from test_bf16 import _ATT_TINY, _LRU_TINY, _MAMBA_TINY, _NORM_ATT_EXTRA, _S4_TINY, _S5_TINY
 from tlie_tpu.ops.linear_attention import chunked_linear_attention as jax_chunked_linear_attention
 from tlie_tpu.ops.linear_attention import (
     recurrent_linear_attention as jax_recurrent_linear_attention,
@@ -43,6 +45,9 @@ FAMILIES = {
     "lru": _LRU_TINY, "s5": _S5_TINY, "s4": _S4_TINY, "lin_attention": _ATT_TINY,
     "sm_attention": {**_ATT_TINY, "attention_fn": "sm-attention"},
     "norm_attention": {**_ATT_TINY, **_NORM_ATT_EXTRA}, "lru_batchnorm_lm": LRU_BN_LM,
+    # Mamba-1: in_proj, the conv, x_proj and out_proj in bfloat16, dt_proj
+    # and the recurrence in float32
+    "mamba1": {**_MAMBA_TINY, "version": "mamba1"},
 }
 
 
@@ -271,3 +276,85 @@ def test_the_recurrent_oracle_takes_bf16_as_tlie_tpus_does():
     assert np.mean(got.float().numpy() == want) >= 0.999
     chunked = attention_layers.chunked_linear_attention(q, k, v).float().numpy()
     assert np.abs(chunked - want).max() <= 0.05 * np.abs(want).max()
+
+
+# -- bf16 Mamba-1 trains, checkpoints and is eigen-analysed ------------------------------
+
+def test_bf16_mamba1_trains_checkpoints_and_is_eigen_analysed_in_float32(tmp_path):
+    """A tiny bf16 MQAR Mamba-1 (``configs/mqar-mamba1-small.yaml`` at
+    d_model 16, N 4) trained 4 steps through ``train``: finite losses, the
+    parameters float32 before and after, every one of them moved; its
+    checkpoint holds the trained float32 weights and ``compute_dtype`` in its
+    config; eval_eig of it equals eval_eig of the same weights under the
+    float32 config bit for bit (the port extracts in float32, as
+    ``tlie_tpu`` does); and ``Decoder.from_checkpoint`` serves it in
+    float32, as ``tlie_tpu``'s decoder multiplies the stored weights: its
+    prefill logits and stepwise logits those of the float32 model on the
+    same weights (2e-5), which the bf16 model's own forward is not."""
+    from test_torch_sweep_families import _mqar_config
+    from tlie_tpu_torch.analysis import eval_eig
+    from tlie_tpu_torch.inference import Decoder
+    from tlie_tpu_torch.training import restore_checkpoint, train
+
+    raw, tr, te, _ = _mqar_config("mamba1", tmp_path)
+    raw["model"]["compute_dtype"] = "bfloat16"
+    raw["lang_model"] = True
+    result = train(raw, tr, te, device="cpu")
+    assert all(np.isfinite(v) for h in result.history for v in h.values())
+    assert all(p.dtype == torch.float32 for p in result.model.parameters())
+    init, _, _ = build_models(raw["model"], generator=torch.Generator().manual_seed(raw["seed"]),
+                              device="cpu")
+    trained = result.model.state_dict()
+    assert not [k for k, v in init.state_dict().items() if torch.equal(v, trained[k])]
+    path, perf = result
+    ckpt = restore_checkpoint(path)
+    assert ckpt["config"]["model"]["compute_dtype"] == "bfloat16"
+    for k, v in trained.items():
+        assert torch.equal(ckpt["model"][k], v), k
+    batch = te[0][:4]
+    got = eval_eig(raw, {"save_path": str(tmp_path / "a")}, perf, path, device="cpu", batch=batch)
+    f32 = dict(raw, model={k: v for k, v in raw["model"].items() if k != "compute_dtype"})
+    want = eval_eig(f32, {"save_path": str(tmp_path / "b")}, perf, path, device="cpu",
+                    batch=batch)
+    d_inner = raw["model"]["expansion"] * raw["model"]["hidden_dim"]
+    assert got[0].shape == (4, 32, d_inner * raw["model"]["state_dim"], raw["model"]["num_layers"])
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    dec = Decoder.from_checkpoint(path, device="cpu")
+    _, f32_model, _ = build_models(f32["model"], generator=torch.Generator(), device="cpu")
+    f32_model.load_state_dict(ckpt["model"])
+    x = torch.from_numpy(te[0][:3]).long()
+    with torch.no_grad():
+        full, own = f32_model(x), result.eval_model(x)
+    tol = 2e-5 * full.abs().max().item()
+    _, last = dec.prefill(x[:, :20], 32)
+    assert last.dtype == torch.float32
+    torch.testing.assert_close(last, full[:, 19], rtol=0, atol=tol)
+    torch.testing.assert_close(dec.stepwise_logits(x), full, rtol=0, atol=tol)
+    assert own.dtype == torch.bfloat16 and (own.float() - full).abs().max().item() > 10 * tol
+
+
+# -- the card run's path 35, rehearsed ----------------------------------------------------
+
+def test_chip_smoke_path_35_runs_on_the_cpu_with_counting_plain_kernels(monkeypatch):
+    """``chip_smoke.bf16_mamba1_path`` on its config's own widths (the
+    split cut to 256 / 64 examples) at 4 steps with an eval every 2, the
+    card's timers stubbed and the scan kernels replaced by counting plain
+    versions: the bf16 log-probs against float32, 2 + 2 scan launches a
+    training step, the float32 spectra and serving from the checkpoint,
+    and the bf16 card step against the CPU's, as on the card."""
+    from torch_parity import ARTIFACT_FILES, load_chip_smoke, stub_card
+    from tlie_tpu_torch import config as config_mod
+
+    cs = load_chip_smoke()
+    stub_card(monkeypatch, cs, scan_kernels=True)
+    cut = copy.deepcopy(config_mod.MQAR_MAMBA1_SMALL)
+    cut["dataset"].update(num_train_examples=256, num_test_examples=64)
+    monkeypatch.setattr(config_mod, "MQAR_MAMBA1_SMALL", cut)
+    for name, value in (("P35_STEPS", 4), ("P35_EVAL_EVERY", 2), ("M1_ANALYSIS_BATCH", 4)):
+        monkeypatch.setattr(cs, name, value)
+    launches = cs.bf16_mamba1_path(torch.device("cpu"), ARTIFACT_FILES)
+    # training alone is held exactly inside the path (2 layers: 4 steps, 2
+    # evals of 64 // 32 batches); the forwards, eval_eig and serving add more
+    assert launches["diag_scan_bwd"] == 2 * 4 and launches["diag_scan"] > 2 * (4 + 2 * 2)
+    assert not any(v for k, v in launches.items() if not k.startswith("diag_scan"))

@@ -180,7 +180,7 @@ def test_bf16_lru_lm_fused_head_matches_the_dense_bf16_head(monkeypatch):
 
 # -- stacked bf16 points ---------------------------------------------------------------
 
-@pytest.mark.parametrize("fid", ["lru", "s5", "s4", "sm_flash", "lin"])
+@pytest.mark.parametrize("fid", ["lru", "s5", "s4", "sm_flash", "lin", "mamba1"])
 def test_stacked_bf16_points_equal_their_serial_runs(tmp_path, fid):
     """Two bf16 points (seeds 1919 and 2222, each its own rates) of each
     family on tiny MQAR, stacked by ``run_sweep`` as ``tlie_tpu``'s stacked

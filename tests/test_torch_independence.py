@@ -207,6 +207,17 @@ bcfg = dict(mcfg, compute_dtype="bfloat16")
 _, bm, _ = build_models(bcfg, generator=torch.Generator().manual_seed(0), device="cpu")
 with torch.no_grad():
     assert bm(x).dtype == torch.bfloat16
+_, b1m, _ = build_models(dict(m1cfg, compute_dtype="bfloat16"),
+                         generator=torch.Generator().manual_seed(0), device="cpu")
+with torch.no_grad():
+    assert b1m(x).dtype == torch.bfloat16
+hcfg = dict(tcfg, embedding=False, input_dim=1, mixer="hybrid", classifier=True,
+            pooling="mean", output_dim=10)
+hm, hm_eval, _ = build_models(hcfg, generator=torch.Generator().manual_seed(0), device="cpu")
+hm(cdata.inputs[:, :16]).sum().backward()
+assert hm.encoder.weight.grad is not None and hm.layers[0].mixer.alpha.grad.shape == (1,)
+from tlie_tpu_torch.parallel import mesh
+assert mesh.process_shard() is None and mesh.Shard(1, 2).rows(x).shape[0] == 2
 assert not any(m in sys.modules and sys.modules[m] is not None for m in {forbidden!r})
 print("ok", acc)
 """

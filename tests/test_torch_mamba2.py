@@ -337,8 +337,10 @@ def test_state_dict_keys_are_the_reference_names(small):
 def test_registry_refuses_what_is_not_ported(small):
     _, model_cfg, _, _, _, _, _ = small
     g = torch.Generator()
-    for bad, err in (({"version": "mamba1", "compute_dtype": "bfloat16"}, NotImplementedError),
-                     ({"version": "mamba3"}, RuntimeError),
+    # bf16 Mamba-1 is ported (tests/test_torch_bf16_families.py)
+    build_models(dict(model_cfg, version="mamba1", compute_dtype="bfloat16"), generator=g,
+                 device="cpu")
+    for bad, err in (({"version": "mamba3"}, RuntimeError),
                      ({"layer": "transformer", "compute_dtype": "float16"},
                       NotImplementedError)):
         with pytest.raises(err):

@@ -289,13 +289,15 @@ def test_registry_refuses_what_is_not_ported(small):
     _, model_cfg, _, _, _, _, _ = small
     g = torch.Generator()
     # use_gate, the classifier head (tests/test_torch_transformer_classifier.py),
-    # the dual MATCH head (tests/test_torch_aan_dual.py) and bf16 compute
-    # (tests/test_torch_bf16_families.py) are ported
+    # the dual MATCH head (tests/test_torch_aan_dual.py), bf16 compute
+    # (tests/test_torch_bf16_families.py), the hybrid mixer and the dense
+    # encoder (tests/test_torch_transformer_options.py) are ported
     for ported in ({"use_gate": True}, {"classifier": True, "pooling": "mean", "mixer_dim": 8},
                    {"classifier": True, "pooling": "mean", "mixer_dim": 8, "dual": True},
-                   {"compute_dtype": "bfloat16"}):
+                   {"compute_dtype": "bfloat16"}, {"mixer": "hybrid"},
+                   {"embedding": False, "input_dim": 3}):
         build_models(dict(model_cfg, **ported), generator=g, device="cpu")
-    for bad in ({"mixer": "hybrid"}, {"embedding": False}, {"compute_dtype": "float16"}):
+    for bad in ({"compute_dtype": "float16"},):
         with pytest.raises(NotImplementedError):
             build_models(dict(model_cfg, **bad), generator=g, device="cpu")
     with pytest.raises(RuntimeError):

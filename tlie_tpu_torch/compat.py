@@ -17,7 +17,8 @@ and ``dt_proj``); so does the transformer family
 (``encoder.position_embeddings``,
 ``layers.{i}.attention.{Wqkv,Wvqkn,offset,out_proj,conv1d}``, the gate's
 ``layers.{i}.Wz``, ``layers.{i}.norm``,
-``layers.{i}.mixer.{linear,encoder,decoder}``, ``norm``, the classifier's
+``layers.{i}.mixer.{linear,encoder,decoder}``, the hybrid mixer's
+``layers.{i}.mixer.alpha`` (shape (1,) on both sides), ``norm``, the classifier's
 ``classifier.{encoder,decoder}``) onto ``layers_i/attention/*``,
 ``layers_i/Wz``, ``layers_i/norm``, ``layers_i/mixer/*``, ``norm`` and
 ``classifier/*``; the dual models' ``match.{encoder,middle,decoder}``
@@ -106,6 +107,8 @@ _RULES = (
     # the MLP mixer
     (_TF + r"\.mixer\." + _MLP + r"\.weight", _FLAX_TF + r"/mixer/" + _MLP + r"/kernel", T),
     (_TF + r"\.mixer\." + _MLP + r"\.bias", _FLAX_TF + r"/mixer/" + _MLP + r"/bias", None),
+    # the hybrid mixer's (1,) logit
+    (_TF + r"\.mixer\.alpha", _FLAX_TF + r"/mixer/alpha", None),
     (r"norm\.weight", r"params/norm/scale", None),
     (r"norm\.bias", r"params/norm/bias", None),
     # the transformer's classifier head

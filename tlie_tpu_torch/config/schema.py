@@ -219,7 +219,8 @@ def step_driven(cfg: Dict[str, Any]) -> bool:
     )
 
 
-# train options the port does not carry yet, with the value that leaves them off
+# train options the port does not carry yet (ROADMAP Queue 1 items 17b and
+# 17c), with the value that leaves them off
 _NOT_PORTED = {"model_parallel": 1, "sequence_parallel": 1}
 
 
@@ -232,8 +233,8 @@ def train_fields(cfg: Dict[str, Any]) -> Dict[str, Any]:
     ``train_size // batch_size`` steps an epoch (at least 1), ``num_epochs``
     of them, an eval at each epoch's end, and ``warmup`` in epochs.
     ``checkpoint_every`` (steps between resume snapshots, or None) and
-    ``resume`` come through.  Raises for the multi-device modes, which the
-    port does not run yet."""
+    ``resume`` come through, and so does ``data_parallel``.  Raises for
+    tensor and sequence parallelism, which the port does not run yet."""
     train = cfg["train"]
     for key, off in _NOT_PORTED.items():
         if train.get(key) not in (None, off):
@@ -268,6 +269,9 @@ def train_fields(cfg: Dict[str, Any]) -> Dict[str, Any]:
         "sparse_head": train.get("sparse_head", True),
         "checkpoint_every": int(every) if every else None,
         "resume": bool(train.get("resume", False)),
+        # the data-parallel route where a process group runs the loop
+        # (parallel/mesh.py::data_shard; tlie_tpu's loop.py:233)
+        "data_parallel": bool(train.get("data_parallel", True)),
         # train.param_group's optimiser group (training/state.py): its fixed
         # rate, with tlie_tpu's default (loop.py:197-198, 347)
         "group_lr": train.get("group_lr", 1e-3),

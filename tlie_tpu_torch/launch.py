@@ -81,6 +81,20 @@ names the run and is logged locally, as the port has no W&B sink.
 ``--profile DIR`` traces the whole run with ``torch.profiler``
 (:func:`tlie_tpu_torch.utils.profile_trace`) into a Chrome trace in ``DIR``.
 
+Data parallelism (``tlie_tpu``'s ``_data_mesh``, on by default): on a
+machine with more than one visible card, a run whose batch the card count
+divides (and whose ``train.data_parallel`` is not false) starts one process
+per card, NCCL between them; each trains on its rows of every batch, and
+rank 0 evaluates, checkpoints, logs and eigen-analyses
+(:mod:`tlie_tpu_torch.parallel.mesh`).  ``--nproc N`` asks for N processes
+(``--nproc 1`` runs the route in a group of one); with ``--device cpu``
+they are N gloo processes.  Under ``torchrun`` each process joins the group ``torchrun`` describes.
+``--sweep_parallel`` spreads each wave's points over the processes.  With
+one card and no ``--nproc`` nothing changes:
+
+    python -m tlie_tpu_torch.launch --config configs/mqar-lru-small.yaml --device cpu --nproc 4
+    torchrun --nproc_per_node 8 -m tlie_tpu_torch.launch --config tasks/mqar/mqar-lru.yaml
+
 ``--sweep`` takes a sweep file (``base_config`` + ``sweep`` lists, e.g.
 ``configs/sweep/mqar-lin-attention-seeds-lrs-8k.yaml``), builds the dataset
 once, and trains and analyses its points one after another, each with
@@ -106,8 +120,11 @@ import contextlib
 import sys
 from pathlib import Path
 
+import torch
+
 from .config import apply_sweep_point, derive_runtime_fields, expand_sweep, load_sweep, load_yaml
 from .device import resolve_device
+from .parallel import mesh
 
 
 def _resolve(path: str) -> Path:
@@ -132,16 +149,58 @@ def main(argv=None) -> int:
     parser.add_argument("--resume", action="store_true", default=False,
                         help="resume from the run's mid-training snapshot if one exists "
                              "(requires train.checkpoint_every in the config)")
+    parser.add_argument("--nproc", type=int, default=None,
+                        help="data-parallel processes (default: one per visible card where "
+                             "more than one is visible and the batch divides; with --device "
+                             "cpu, N gloo processes)")
     args = parser.parse_args(argv)
 
-    device = resolve_device(args.device)
-    print(f"Using config {args.config}")
-    sweep = None
+    base = sweep = None
     if args.sweep or args.sweep_parallel:
         base, sweep = load_sweep(_resolve(args.config), config_root="configs")
         cfg = base.raw
     else:
         cfg = load_yaml(_resolve(args.config))
+    if mesh.launched():
+        device = mesh.init_process_group(args.device)
+    else:
+        n = _processes(args, cfg)
+        if n > 1:
+            return mesh.spawn(["-m", "tlie_tpu_torch.launch",
+                               *(sys.argv[1:] if argv is None else argv)], n)
+        if n == 1:  # the route in a group of one
+            device = mesh.init_process_group(
+                args.device, rank=0, world_size=1,
+                init_method=f"tcp://127.0.0.1:{mesh.free_port()}")
+        else:
+            device = resolve_device(args.device)
+    try:
+        return _run(args, cfg, base, sweep, device)
+    finally:
+        mesh.destroy_process_group()
+
+
+def _processes(args, cfg) -> int:
+    """How many processes the run takes: ``--nproc``; else, on the card,
+    one per visible card where more than one is visible and the route
+    applies (``tlie_tpu`` shards over every local device by default); else
+    none (0: no process group)."""
+    if args.nproc is not None:
+        return args.nproc
+    if torch.device(args.device).type != "cuda" or not torch.cuda.is_available():
+        return 0
+    n = torch.cuda.device_count()
+    if n < 2:
+        return 0
+    if args.sweep_parallel:
+        return n
+    train = cfg["train"]
+    return n if bool(train.get("data_parallel", True)) and int(train["batch_size"]) % n == 0 else 0
+
+
+def _run(args, cfg, base, sweep, device) -> int:
+    main_rank = mesh.is_main()
+    print(f"Using config {args.config}")
     wandb_config = cfg.pop("wandb", None)
     if args.resume:
         cfg["train"]["resume"] = True
@@ -163,6 +222,8 @@ def main(argv=None) -> int:
         result = train(point_cfg, train_split, test_split, device=device, used_paths=used_paths,
                        wandb_config=wandb_config)
         path, perf = result
+        if not main_rank:
+            return path, perf
         if path is None:
             print("Path is None, no eval")
         elif do_analysis:
@@ -179,7 +240,8 @@ def main(argv=None) -> int:
 
     from .utils import profile_trace
 
-    with profile_trace(args.profile) if args.profile else contextlib.nullcontext():
+    traced = args.profile and main_rank
+    with profile_trace(args.profile) if traced else contextlib.nullcontext():
         if sweep is None:
             run_one(derive_runtime_fields(cfg, data.l_max, len(train_split[0])))
             return 0
@@ -214,7 +276,8 @@ def _run_serial(base, points, run_one, l_max: int, train_size: int) -> None:
         point_cfg = derive_runtime_fields(apply_sweep_point(base, point).raw, l_max, train_size)
         print(yaml.dump(point_cfg))
         path, perf = run_one(point_cfg, used_paths)
-        write_journal(journal, point, path, perf)
+        if mesh.is_main():
+            write_journal(journal, point, path, perf)
         print(f"Done with {idx + 1} of {len(points)} configurations.")
 
 

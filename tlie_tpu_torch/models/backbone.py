@@ -94,9 +94,16 @@ class BatchNorm(nn.Module):
     input is widened to float32 first: the statistics, their running
     averages and the output are float32, as flax's are.
     ``torch.nn.BatchNorm1d`` differs in both (momentum 0.1, an unbiased
-    running variance), so it is not used."""
+    running variance), so it is not used.
+
+    Under the data-parallel route (``shard``, set by the training loop on
+    its train model) the statistics are the global batch's, as the sharded
+    flax ``BatchNorm`` takes them: the sums of x and x² and the row count
+    are all-reduced over the group, with autograd through the all-reduce,
+    so every rank's running statistics stay equal."""
 
     momentum, eps = 0.99, 1e-5
+    shard = None
 
     def __init__(self, num_features: int):
         super().__init__()
@@ -109,8 +116,17 @@ class BatchNorm(nn.Module):
         x = at_least_float32(x)
         if self.training:
             dims = tuple(range(x.dim() - 1))
-            mean = x.mean(dims)
-            var = ((x * x).mean(dims) - mean * mean).clamp_min(0.0)
+            if self.shard is None:
+                mean = x.mean(dims)
+                var = ((x * x).mean(dims) - mean * mean).clamp_min(0.0)
+            else:
+                # the global batch's statistics: the sums and the count over
+                # the group, differentiable through the all-reduce
+                c = x.shape[-1]
+                n = x.new_full((1,), x.numel() // c)
+                sums = self.shard.sum_with_grad(torch.cat([x.sum(dims), (x * x).sum(dims), n]))
+                mean = sums[:c] / sums[-1]
+                var = (sums[c:2 * c] / sums[-1] - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)

@@ -1,7 +1,8 @@
 """Shared blocks of the Mamba and transformer families, counterparts of
 ``tlie_tpu/models/layers.py``: the torch default initialisers drawn from an
 explicit ``torch.Generator``, ``GLU``, ``MLP``, the transformer's
-``ClassifierHead``, the retrieval head ``MATCH`` and the pair fold of the
+``LAMBDA`` (the transformer's ``hybrid`` mixer), ``ClassifierHead``, the
+retrieval head ``MATCH`` and the pair fold of the
 dual models (:func:`fold_pairs`), ``TokenEmbeddings`` (with the
 transformer's position table), ``DepthwiseCausalConv`` and the
 element-wise ``Dropout``.
@@ -11,7 +12,7 @@ Module and parameter names are the reference's torch names, so a port
 ``tlie_tpu/analysis/compat.py::torch_state_dict_to_flax`` and through
 :mod:`tlie_tpu_torch.compat`.
 
-``compute_dtype`` (``Linear``, ``GLU``, ``MLP``, ``TokenEmbeddings``,
+``compute_dtype`` (``Linear``, ``GLU``, ``MLP``, ``LAMBDA``, ``TokenEmbeddings``,
 ``DepthwiseCausalConv``) is flax's ``dtype=`` of the same module: None
 computes in the parameters' dtype; ``torch.bfloat16`` casts the input and
 the parameters to bfloat16 and computes there, while the parameters stay
@@ -132,6 +133,34 @@ class MLP(nn.Module):
         return self.drop(self.decoder(self.drop(F.gelu(self.encoder(x)))))
 
 
+class LAMBDA(nn.Module):
+    """A learned convex combination of a GLU and an MLP sharing one encoder
+    (``LAMBDA``, ``tlie_tpu/models/layers.py:81-106``): ``encoder`` (d → 2d,
+    torch's default init) gives xz; the GLU half is xz[:d]·σ(xz[d:]), the
+    MLP half ``decoder`` (2d → d) of dropout(GELU(xz)) (the exact erf GELU on
+    all of xz); the output is dropout(a·glu + (1 − a)·mlp) with a = σ(α).
+    ``alpha`` is a float32 parameter of shape (1,) set to logit(``init``):
+    beside bfloat16 halves it promotes the mix to float32, as ``jnp``
+    promotes it (a 0-d α would leave the mix in bfloat16).  The two
+    dropouts draw independent masks."""
+
+    def __init__(self, d: int, generator: torch.Generator, init: float = 0.5,
+                 dropout: float = 0.0, compute_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.d = d
+        self.encoder = linear(d, 2 * d, generator, compute_dtype=compute_dtype)
+        self.alpha = nn.Parameter(torch.full((1,), -math.log(1.0 / init - 1.0)))
+        self.decoder = linear(2 * d, d, generator, compute_dtype=compute_dtype)
+        self.drop = Dropout(dropout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xz = self.encoder(x)
+        a = torch.sigmoid(self.alpha)
+        glu = xz[..., : self.d] * torch.sigmoid(xz[..., self.d :])
+        mlp = self.decoder(self.drop(F.gelu(xz)))
+        return self.drop(a * glu + (1 - a) * mlp)
+
+
 class ClassifierHead(nn.Module):
     """Pooling over time, then where ``mlp_dim`` ≠ 0 ``encoder`` (to
     ``mlp_dim``) → ReLU → ``decoder`` (to ``num_classes``) with torch's
@@ -234,7 +263,16 @@ class Dropout(nn.Module):
     """flax ``nn.Dropout(rate)``: in training mode an element-wise keep mask,
     the kept values scaled by 1/(1-rate); the identity in evaluation.  Masks
     come from ``generator`` (the device's default generator when None),
-    which ``build_models`` sets to the model's dropout generator."""
+    which ``build_models`` sets to the model's dropout generator.  Under the
+    data-parallel route (``shard``) every rank draws the global batch's mask
+    from the same generator state and keeps its own rows, so the masks are
+    the one-process run's (a dual model's pair fold reorders the rows, so
+    its masks are not)."""
+
+    # the data-parallel route's shard (tlie_tpu_torch.parallel.mesh.Shard),
+    # set by the training loop on its train model: x then holds the shard's
+    # rows of the global batch, and the mask is the global batch's mask's rows
+    shard = None
 
     def __init__(self, rate: float, generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -249,14 +287,18 @@ class Dropout(nn.Module):
         if self.rate == 1.0:
             return torch.zeros_like(x)
         keep = 1.0 - self.rate
+        shape = self.mask_shape(x)
         if self.generator is None:
             # out of place, so that under torch.func.vmap(randomness="different")
             # each point of a stacked grid draws its own mask
-            mask = torch.bernoulli(torch.full(self.mask_shape(x), keep, device=x.device,
-                                              dtype=x.dtype))
+            mask = torch.bernoulli(torch.full(shape, keep, device=x.device, dtype=x.dtype))
         else:
-            mask = torch.empty(self.mask_shape(x), device=x.device, dtype=x.dtype)
+            if self.shard is not None:  # the whole batch's mask, then this rank's rows
+                shape = (shape[0] * self.shard.world,) + tuple(shape[1:])
+            mask = torch.empty(shape, device=x.device, dtype=x.dtype)
             mask.bernoulli_(keep, generator=self.generator)
+            if self.shard is not None:
+                mask = self.shard.rows(mask)
         return x * mask / keep
 
 

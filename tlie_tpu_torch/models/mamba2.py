@@ -38,15 +38,20 @@ dropped and the pool takes the padding too.
 the float32 ``dt_proj``, and the diagonal recurrence over the (d_inner,
 d_state) lattice through :func:`tlie_tpu_torch.ops.scan.diag_linear_scan`
 (on the card, the scan's forward and backward kernels with a decay that
-varies in time), then y·SiLU(z) and ``out_proj``.  It computes in float32.
+varies in time), then y·SiLU(z) and ``out_proj``.  Under ``compute_dtype:
+bfloat16`` it rounds where ``tlie_tpu``'s ``Mamba1`` does
+(``models/mamba2.py:296-356``):
+``in_proj``, the conv (and the SiLU on its bfloat16 output), ``x_proj`` and
+``out_proj`` compute in bfloat16; ``dt_proj`` runs in float32 on the widened
+dt rank, then softplus; the decay, the input Δ·B·x (x and B widened), the
+scan, the C contraction, D·x and SiLU(z) stay float32; y is rounded to
+bfloat16 before ``out_proj``.  The parameters stay float32.
 
 With ``dual: true`` (AAN retrieval) a batch of pairs, tokens (B, 2, L), is
 folded into (2B, L) documents before the encoder, and the decoder's 2B
 pooled rows go through ``MATCH(output_dim, output_dim)`` as B pairs
 (``match.{encoder,middle,decoder}``: 2·classes → classes → classes // 2 →
 classes, as in ``tlie_tpu``).
-
-Not ported yet, and refused: bfloat16 for Mamba-1.
 """
 
 from __future__ import annotations
@@ -62,8 +67,8 @@ from ..ops.conv import conv_tail
 from ..ops.scan import diag_linear_scan
 from ..ops.ssd import ssd_chunked_scan
 from .layers import (
-    GLU, MATCH, DepthwiseCausalConv, Dropout, LayerNorm, TokenEmbeddings, compute_dtype_of,
-    fold_pairs, linear, uniform_,
+    GLU, MATCH, DepthwiseCausalConv, Dropout, LayerNorm, TokenEmbeddings, at_least_float32,
+    compute_dtype_of, fold_pairs, linear, uniform_,
 )
 
 
@@ -214,18 +219,20 @@ class Mamba1(nn.Module):
     for every channel, ``D`` = 1.  The decay a and the input bx are built at
     (B, L, d_inner, N) and scanned as their contiguous (B, L, d_inner·N)
     view, time at −2, which the scan's kernels read as a full decay; no
-    transposed copy."""
+    transposed copy.  ``compute_dtype`` as in the module docstring."""
 
     def __init__(self, d_model: int, generator: torch.Generator, d_state: int = 16,
-                 d_conv: int = 4, expand: int = 2):
+                 d_conv: int = 4, expand: int = 2, compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.d_inner, self.d_state = expand * d_model, d_state
         self.dt_rank = -(-d_model // 16)  # ceil(d_model / 16), as mamba_ssm
-        d_inner, r, g = self.d_inner, self.dt_rank, generator
+        self.compute_dtype = compute_dtype
+        d_inner, r, g, dt = self.d_inner, self.dt_rank, generator, compute_dtype
         # draw order follows the flax module; in_proj, x_proj and out_proj have no bias
-        self.in_proj = linear(d_model, 2 * d_inner, g, bias=False)
-        self.conv1d = DepthwiseCausalConv(d_inner, d_conv, g) if d_conv > 0 else None
-        self.x_proj = linear(d_inner, r + 2 * d_state, g, bias=False)
+        self.in_proj = linear(d_model, 2 * d_inner, g, bias=False, compute_dtype=dt)
+        self.conv1d = (DepthwiseCausalConv(d_inner, d_conv, g, compute_dtype=dt)
+                       if d_conv > 0 else None)
+        self.x_proj = linear(d_inner, r + 2 * d_state, g, bias=False, compute_dtype=dt)
         self.dt_proj = nn.Linear(r, d_inner)
         uniform_(self.dt_proj.weight, r ** -0.5, g)
         with torch.no_grad():
@@ -233,7 +240,7 @@ class Mamba1(nn.Module):
         self.A_log = nn.Parameter(torch.log(torch.arange(1, d_state + 1, dtype=torch.float32))
                                   .expand(d_inner, d_state).clone())
         self.D = nn.Parameter(torch.ones(d_inner))
-        self.out_proj = linear(d_inner, d_model, g, bias=False)
+        self.out_proj = linear(d_inner, d_model, g, bias=False, compute_dtype=dt)
 
     def forward(self, u: torch.Tensor, return_state: bool = False):
         """``return_state`` (a prompt's prefill) also returns the decode
@@ -246,6 +253,9 @@ class Mamba1(nn.Module):
             x = F.silu(self.conv1d(x))
         x_db = self.x_proj(x)
         r, n = self.dt_rank, self.d_state
+        # the decay math in float32 at least, whatever the compute dtype (x_db,
+        # x and z are bfloat16 under bf16 compute)
+        x_db, x, z = at_least_float32(x_db), at_least_float32(x), at_least_float32(z)
         B_mat, C_mat = x_db[..., r: r + n], x_db[..., r + n:]
         dt = F.softplus(self.dt_proj(x_db[..., :r]))  # (B, L, d_inner)
         a = torch.exp(dt[..., None] * (-torch.exp(self.A_log)))  # (B, L, d_inner, N)
@@ -253,7 +263,10 @@ class Mamba1(nn.Module):
         bsz, L = a.shape[0], a.shape[1]
         h = diag_linear_scan(a.reshape(bsz, L, -1), bx.reshape(bsz, L, -1))
         y = torch.einsum("bldn,bln->bld", h.view(a.shape), C_mat) + self.D * x
-        out = self.out_proj(y * F.silu(z))
+        y = y * F.silu(z)
+        if self.compute_dtype is not None:
+            y = y.to(self.compute_dtype)
+        out = self.out_proj(y)
         if return_state:
             return out, (tail, h.view(a.shape)[:, -1].contiguous())
         return out
@@ -276,11 +289,11 @@ class MambaBlock(nn.Module):
         hidden = cfg["hidden_dim"]
         self.prenorm = cfg["prenorm"]
         if version == "mamba1":
-            if compute_dtype is not None:
-                raise NotImplementedError("compute_dtype: bfloat16 is not ported for Mamba-1")
-            # only d_model, d_state, d_conv and expand reach the layer, as in tlie_tpu
+            # only d_model, d_state, d_conv, expand and the dtype reach the
+            # layer, as in tlie_tpu
             self.mamba = Mamba1(hidden, generator, d_state=cfg["state_dim"],
-                                d_conv=cfg["conv_dim"], expand=cfg["expansion"])
+                                d_conv=cfg["conv_dim"], expand=cfg["expansion"],
+                                compute_dtype=compute_dtype)
         else:
             self.mamba = (SSD_LTI if cfg.get("pseudoLTI", False) else SSD)(
                 hidden, generator, d_state=cfg["state_dim"], d_conv=cfg["conv_dim"],

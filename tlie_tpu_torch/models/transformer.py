@@ -5,15 +5,22 @@ linear or norm attention (``attention_fn``: ``sm-attention``,
 
 A block is ``x + drop(attention(norm(x)))`` then ``norm`` again and the
 mixer; with ``mixer: none`` it returns ``norm(x + drop(attention(norm(x))))``
-(no second residual), with ``mixer: glu`` ``x + glu(norm(x))`` and with
+(no second residual), with ``mixer: glu`` ``x + glu(norm(x))``, with
 ``mixer: mlp`` ``x + mlp(norm(x))`` (``MLP``: ``mixer_dim`` wide, the
-block's dropout after the GELU and after the second projection).  With
+block's dropout after the GELU and after the second projection) and with
+``mixer: hybrid`` ``x + lambda(norm(x))`` (``LAMBDA`` with α at σ⁻¹(0.2),
+the block's dropout inside it; under bf16 compute its float32 α makes the
+mixer's output, and so the residual stream after it, float32, as in
+``tlie_tpu``).  With
 ``use_gate`` the block's *input* also goes through ``Wz`` (xavier-uniform of
 gain 0.1, bias 1), and the block's output is multiplied by SiLU of it: the
 mixer's output alone with ``mixer: none``, the residual sum otherwise.  Both
 LayerNorms of a block are one module, ``layers.{i}.norm``, so they share
 weights: the reference's quirk, kept.  The model is token (+ position)
-embeddings, element-wise dropout, the blocks and a final LayerNorm, then a
+embeddings, or with ``embedding: false`` a dense ``input_dim`` →
+``hidden_dim`` encoder (``encoder.{weight,bias}``, torch's default init, in
+the compute dtype, no position table) of float features (B, L,
+``input_dim``), then element-wise dropout, the blocks and a final LayerNorm, then a
 bias-free per-position decoder, or with ``classifier: true`` the
 ``ClassifierHead`` (``pooling`` over time, no mask, then ``mixer_dim`` →
 ReLU → classes); it returns logits.  A padded batch, ``(tokens,
@@ -27,7 +34,7 @@ reference's torch names (``encoder.word_embeddings``,
 ``encoder.position_embeddings``, ``layers.{i}.attention.{Wqkv,out_proj}``,
 for norm attention ``layers.{i}.attention.{Wvqkn,offset}``,
 ``layers.{i}.Wz``, ``layers.{i}.norm``,
-``layers.{i}.mixer.{linear,encoder,decoder}``, ``norm``, ``decoder`` or
+``layers.{i}.mixer.{linear,encoder,decoder,alpha}``, ``norm``, ``decoder`` or
 ``classifier.{encoder,decoder}``, ``match.{encoder,middle,decoder}``).
 
 Weights are drawn from an explicit ``torch.Generator`` with the reference's
@@ -39,9 +46,7 @@ their float32 parameters; the block's LayerNorm and the final one compute
 in float32 and give float32, as flax's do (``:115-135``); the classifier
 head and ``MATCH`` take no dtype and compute in float32.  The residual
 stream keeps the dtype PyTorch promotes it to: bfloat16 from the encoder
-onwards where the mixer adds its output back.  Not ported yet, and
-refused: the ``hybrid`` mixer, the dense input encoder (``embedding:
-false``).
+onwards where the mixer adds its output back.
 """
 
 from __future__ import annotations
@@ -55,7 +60,7 @@ from torch import nn
 
 from .attention_layers import MHA, MHNA
 from .layers import (
-    GLU, MATCH, MLP, ClassifierHead, Dropout, LayerNorm, Linear, TokenEmbeddings,
+    GLU, LAMBDA, MATCH, MLP, ClassifierHead, Dropout, LayerNorm, Linear, TokenEmbeddings,
     compute_dtype_of, fold_pairs, linear, uniform_,
 )
 
@@ -94,8 +99,9 @@ class TransformerBlock(nn.Module):
                 self.Wz.bias.fill_(1.0)
         mixer = cfg["mixer"]
         if mixer == "hybrid":
-            raise NotImplementedError("the hybrid mixer is not ported yet")
-        if mixer == "mlp":
+            self.mixer = LAMBDA(hidden_dim, generator, init=0.2, dropout=cfg["dropout"],
+                                compute_dtype=dtype)
+        elif mixer == "mlp":
             self.mixer = MLP(hidden_dim, cfg["mixer_dim"], generator, cfg["dropout"], dtype)
         elif mixer == "glu":
             self.mixer = GLU(hidden_dim, generator, dtype)
@@ -131,13 +137,13 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: Dict[str, Any], generator: torch.Generator):
         super().__init__()
-        if not cfg.get("embedding", False):
-            raise NotImplementedError("the dense input encoder (embedding: false) is not "
-                                      "ported yet")
         hidden = cfg["hidden_dim"]
         dtype = compute_dtype_of(cfg)
-        self.encoder = TokenEmbeddings(hidden, cfg["vocab_size"], generator,
-                                       cfg.get("max_pos_embed", 0), compute_dtype=dtype)
+        if cfg.get("embedding", False):
+            self.encoder = TokenEmbeddings(hidden, cfg["vocab_size"], generator,
+                                           cfg.get("max_pos_embed", 0), compute_dtype=dtype)
+        else:
+            self.encoder = linear(cfg["input_dim"], hidden, generator, compute_dtype=dtype)
         self.layers = nn.ModuleList(
             TransformerBlock(hidden, cfg, generator) for _ in range(cfg["num_layers"]))
         if cfg.get("classifier", False):

@@ -106,11 +106,16 @@ def fused_xent_eligible(M: int, D: int, V: int) -> bool:
 
 
 def fused_softmax_xent(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                       labels: torch.Tensor) -> torch.Tensor:
+                       labels: torch.Tensor, shard=None) -> torch.Tensor:
     """Mean masked softmax cross-entropy of ``h @ w + b`` against
-    ``labels`` (−100 ignored), a scalar; differentiable in h, w and b."""
+    ``labels`` (−100 ignored), a scalar; differentiable in h, w and b.
+    With ``shard`` (a data-parallel rank's
+    :class:`~tlie_tpu_torch.parallel.mesh.Shard`, holding its rows of a
+    global batch) the mean divides by the valid count summed over the
+    group, so the ranks' losses and gradients sum to the global batch's."""
     _check_operands(h, w, b, labels)
-    return FusedXentFn.apply(h, w, b, labels)
+    args = (h, w, b, labels) if shard is None else (h, w, b, labels, shard)
+    return FusedXentFn.apply(*args)
 
 
 def _check_operands(h, w, b, labels) -> None:
@@ -158,12 +163,15 @@ class FusedXentFn(torch.autograd.Function):
     the loss is float32 and the gradients come in the primal dtypes."""
 
     @staticmethod
-    def forward(ctx, h, w, b, labels):
+    def forward(ctx, h, w, b, labels, shard=None):
         labels = labels.long()
         ctx.cuda = _on_cuda(h)
         fwd = fused_xent_fwd_cuda if ctx.cuda else fused_xent_fwd_plain
         loss_rows, lse = fwd(h, w, b, labels)
-        n_valid = (labels != IGNORE).sum().clamp_min(1)
+        n_valid = (labels != IGNORE).sum()
+        if shard is not None:
+            n_valid = shard.sum(n_valid)
+        n_valid = n_valid.clamp_min(1)
         ctx.save_for_backward(h, w, b, labels, lse, n_valid)
         return loss_rows.sum() / n_valid
 
@@ -176,7 +184,7 @@ class FusedXentFn(torch.autograd.Function):
             dw, db = fused_xent_dw_cuda(h, w, b, labels, lse, gscale)
         else:
             dh, dw, db = fused_xent_bwd_plain(h, w, b, labels, lse, gscale)
-        return dh, dw, db, None
+        return dh, dw, db, None, None
 
 
 # -- plain versions -------------------------------------------------------------

@@ -1,0 +1,249 @@
+"""Data parallelism over processes: the port's counterpart of
+``tlie_tpu/parallel/mesh.py`` and of the 1-D ``data`` mesh that
+``tlie_tpu/training/loop.py::_data_mesh`` (``:47-55``) lays over every
+local device.
+
+Where ``tlie_tpu`` shards each gathered batch over the devices of one
+program and lets XLA insert the collectives, the port runs one process per
+device in a ``torch.distributed`` group: NCCL on cards, gloo where the
+caller asks for the CPU or names gloo (:func:`init_process_group`).  Nothing
+falls back: a card run whose NCCL cannot start fails with NCCL's error.
+
+A :class:`Shard` is one process's place in the group.  Every rank draws the
+same global batch indices and takes its own rows (:meth:`Shard.rows`), so
+the data order is the one-process run's; the masked CE and the fused head
+divide by the valid count summed over the group (:meth:`Shard.sum`), the
+BatchNorm statistics are the global batch's (:meth:`Shard.sum_with_grad`,
+autograd through the all-reduce), and the gradients are summed over the
+group before the clip (:meth:`Shard.sum_grads`).  Each rank's loss is its
+rows' share of the global mean, so the summed gradient is the one-process
+gradient whatever valid count each shard holds.  The dropout masks are the
+one-process run's too: each rank draws the mask of the whole batch from the
+same generator state and keeps its rows (``models/layers.py::Dropout``).
+
+:func:`spawn` starts the processes of a group on this machine, as
+``torchrun`` would (``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE``,
+``MASTER_ADDR``, ``MASTER_PORT``); :func:`init_process_group` reads that
+environment, ``torchrun``'s own included.
+"""
+
+from __future__ import annotations
+
+import os
+import socket
+import subprocess
+import sys
+import time
+from dataclasses import dataclass
+from typing import Any, Iterable, List, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+@dataclass(frozen=True)
+class Shard:
+    """One process's place in the default process group: its ``rank`` of
+    ``world`` and the rows of a global batch it holds."""
+
+    rank: int
+    world: int
+
+    def rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's contiguous rows of a global batch (its leading axis,
+        which the world size divides)."""
+        n = t.shape[0] // self.world
+        return t[self.rank * n:(self.rank + 1) * n]
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the group (a new tensor; no gradient)."""
+        out = t.detach().clone()
+        dist.all_reduce(out)
+        return out
+
+    def sum_with_grad(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the group, differentiable: the backward sums the
+        ranks' gradients, as the derivative of the group's total loss
+        asks."""
+        return _SumOverGroup.apply(t)
+
+    def sum_grads(self, params: Iterable[torch.nn.Parameter]) -> None:
+        """Every parameter's gradient summed over the group, in place, in one
+        all-reduce of the flattened gradients.  Parameters without a
+        gradient are left out; the ranks run the same model, so they leave
+        out the same ones."""
+        by_dtype = {}
+        for p in params:
+            if p.grad is not None:
+                by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+        for grads in by_dtype.values():
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            dist.all_reduce(flat)
+            offset = 0
+            for g in grads:
+                g.copy_(flat[offset:offset + g.numel()].view_as(g))
+                offset += g.numel()
+
+    def attach(self, model: torch.nn.Module) -> None:
+        """Hand the shard to the modules of ``model`` that read it (those
+        with a ``shard`` attribute: ``BatchNorm``'s global statistics,
+        ``Dropout``'s global masks)."""
+        for m in model.modules():
+            if hasattr(m, "shard"):
+                m.shard = self
+
+    def broadcast_module(self, module: torch.nn.Module) -> None:
+        """Rank 0's parameters and buffers on every rank."""
+        with torch.no_grad():
+            for t in list(module.parameters()) + list(module.buffers()):
+                dist.broadcast(t.data, 0)
+
+    def broadcast(self, obj: Any) -> Any:
+        """Rank 0's (picklable) ``obj`` on every rank."""
+        box = [obj]
+        dist.broadcast_object_list(box, 0)
+        return box[0]
+
+    def gather(self, obj: Any) -> Optional[List[Any]]:
+        """Every rank's (picklable) ``obj``, in rank order, on rank 0; None
+        elsewhere."""
+        out = [None] * self.world if self.rank == 0 else None
+        dist.gather_object(obj, out, dst=0)
+        return out
+
+    def barrier(self) -> None:
+        dist.barrier()
+
+
+class _SumOverGroup(torch.autograd.Function):
+    """All-reduce (sum) with autograd: y = Σ_r t_r on every rank, and each
+    rank's gradient of the group's total loss, Σ_r ∂L_r/∂y, is the sum of
+    the ranks' upstream gradients (``torch.distributed.nn``'s all-reduce,
+    which is deprecated)."""
+
+    @staticmethod
+    def forward(ctx, t):
+        out = t.clone()
+        dist.all_reduce(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g)
+        return g
+
+
+def process_shard() -> Optional[Shard]:
+    """This process's :class:`Shard` in the default group, or None where no
+    group was started."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    return Shard(dist.get_rank(), dist.get_world_size())
+
+
+def data_shard(batch_size: int, enabled: bool = True) -> Optional[Shard]:
+    """The data-parallel route's shard, ``_data_mesh``'s rule
+    (``tlie_tpu/training/loop.py:47-55``, ``:233``): a process group has been
+    started, the world size divides the batch and the route is ``enabled``
+    (``train.data_parallel``, true by default); else None, and the
+    single-process route runs.  A group of one process, which only an
+    explicit start makes, takes the route too."""
+    shard = process_shard()
+    if shard is None or batch_size % shard.world or not enabled:
+        return None
+    return shard
+
+
+def is_main() -> bool:
+    """Rank 0, or the only process: the one that writes files and prints."""
+    shard = process_shard()
+    return shard is None or shard.rank == 0
+
+
+def launched() -> bool:
+    """Whether a launcher (:func:`spawn` or ``torchrun``) started this
+    process as a rank of a group."""
+    return all(k in os.environ for k in ("RANK", "WORLD_SIZE"))
+
+
+def init_process_group(device="cuda", backend: Optional[str] = None, *,
+                       rank: Optional[int] = None, world_size: Optional[int] = None,
+                       init_method: Optional[str] = None) -> torch.device:
+    """Start this process's rank of the default group and return its
+    device.  ``rank``, ``world_size`` and ``init_method`` default to the
+    launcher's environment (``RANK``, ``WORLD_SIZE``, ``env://``).  The
+    backend is NCCL for a card and gloo for the CPU unless ``backend`` names
+    one.  A card without an index becomes ``cuda:LOCAL_RANK``, one card per
+    local rank; an indexed card is taken as it is (gloo ranks may share
+    one)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() is False; "
+                               "pass device='cpu' to run on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(dev)
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+    if backend == "nccl" and dev.type != "cuda":
+        raise ValueError("the NCCL backend needs a card; use gloo on the CPU")
+    rank = int(os.environ["RANK"]) if rank is None else rank
+    world_size = int(os.environ["WORLD_SIZE"]) if world_size is None else world_size
+    kwargs = {"device_id": dev} if backend == "nccl" else {}
+    dist.init_process_group(backend, init_method=init_method or "env://", rank=rank,
+                            world_size=world_size, **kwargs)
+    return dev
+
+
+def destroy_process_group() -> None:
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def free_port() -> int:
+    """A TCP port on localhost that was free a moment ago."""
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn(argv: Sequence[str], world_size: int, env: Optional[dict] = None,
+          timeout: Optional[float] = None) -> int:
+    """Run ``python argv`` as ``world_size`` ranks of one group on this
+    machine, each with the launcher's environment (rank ``i`` is local rank
+    ``i``; ``MASTER_ADDR`` localhost, a free ``MASTER_PORT``), plus ``env``.
+    Waits for all of them; once one fails (or ``timeout`` seconds pass) the
+    others are stopped.  Returns 0, or the first failing exit code (124
+    for a timeout)."""
+    base = dict(os.environ, **(env or {}), WORLD_SIZE=str(world_size),
+                MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+    procs = [subprocess.Popen([sys.executable, *argv],
+                              env=dict(base, RANK=str(i), LOCAL_RANK=str(i)))
+             for i in range(world_size)]
+    deadline = None if timeout is None else time.monotonic() + timeout
+    code = 0
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = [p.returncode for p in procs if p.returncode not in (None, 0)]
+            if failed:
+                code = failed[0]
+                break
+            if deadline is not None and time.monotonic() > deadline:
+                code = 124
+                break
+            time.sleep(0.05)
+        else:
+            code = next((p.returncode for p in procs if p.returncode), 0)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+        for p in procs:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+    return code

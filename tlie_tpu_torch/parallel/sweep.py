@@ -1,6 +1,7 @@
-"""Seed × LR sweeps stacked on one GPU: the port's counterpart of
-``tlie_tpu/parallel/sweep.py`` (``run_sweep_on_mesh``), which
-``python -m tlie_tpu_torch.launch --sweep_parallel`` reaches.
+"""Seed × LR sweeps stacked on one GPU, or spread over the ranks of a
+process group: the port's counterpart of ``tlie_tpu/parallel/sweep.py``
+(``run_sweep_on_mesh``), which ``python -m tlie_tpu_torch.launch
+--sweep_parallel`` reaches.
 
 Sweep points whose configs agree on every key but the seed and the two
 learning rates (``_PER_POINT_KEYS``, ``_group_signature``) share a group.
@@ -33,6 +34,17 @@ masks differ from a serial run's, whose generator cannot be drawn from under
 above it).  Early stopping is masked: a point whose test metric passes
 ``stop_criterion`` steps on with learning rate 0 (its param group's too),
 which leaves its parameters exactly as they are.
+
+In a process group (``launch`` on several cards, ``--nproc`` or
+``torchrun``; :mod:`tlie_tpu_torch.parallel.mesh`) a wave holds up to
+``_MAX_POINTS_PER_DEVICE`` points a rank, padded with copies of its last
+point to a multiple of the world size, as ``run_sweep_on_mesh`` pads the
+grid to the device count (``sweep.py:203-235``): each rank stacks its share
+on its own device, rank 0 gathers the trained points, drops the padding,
+and writes every checkpoint, journal line and eigen-analysis; the others
+wait.  Each point trains as in the one-process wave (its dropout masks
+aside, which each rank draws from the default generator seeded from its
+share's first seed).
 
 After training, each point is unstacked, checkpointed (a path that collides
 with one already written takes the suffix ``-pN``), journaled, and
@@ -73,6 +85,7 @@ from ..training.scan_loop import batch_indices, eval_indices, gather_batch, spar
 from ..training.schedules import PlateauState, lr_for_step, reduce_lr_on_plateau
 from ..training.state import GROUP, OPTAX_BETAS, make_family_optimizer
 from ..training.steps import cross_entropy_loss, head_logits
+from .mesh import process_shard
 
 # the keys a point may vary inside a group: the seed and the two learning
 # rates, which the stacked step carries per point; any other swept key makes
@@ -135,6 +148,7 @@ def run_sweep(base: ExperimentConfig, points: List[Dict], train_split, test_spli
     one dict per trained wave with its points, steps, seconds of stacked
     training, point-steps/s and per-point histories."""
     dev = resolve_device(device)
+    shard = process_shard()
     cfgs: List[ExperimentConfig] = []
     for point in points:
         c = apply_sweep_point(base, point)
@@ -157,10 +171,13 @@ def run_sweep(base: ExperimentConfig, points: List[Dict], train_split, test_spli
             rec = done.get(_point_key(points[i]))
             if rec is not None:
                 results[i] = (rec.get("path"), rec.get("perf", 0.0))
-        for w0 in range(0, len(pending), _MAX_POINTS_PER_DEVICE):
-            waves.append(_run_group(cfgs, points, pending[w0:w0 + _MAX_POINTS_PER_DEVICE],
-                                    train_split, test_split, results, journal_path, conf_args,
-                                    used_paths, dev))
+        wave = _MAX_POINTS_PER_DEVICE * (shard.world if shard is not None else 1)
+        for w0 in range(0, len(pending), wave):
+            waves.append(_run_group(cfgs, points, pending[w0:w0 + wave], train_split,
+                                    test_split, results, journal_path, conf_args, used_paths,
+                                    dev, shard))
+    if shard is not None:  # rank 0's results and records on every rank
+        results, waves = shard.broadcast((results, waves))
     return results, waves
 
 
@@ -321,10 +338,62 @@ def stacked_adamw_step(params: Dict[str, torch.Tensor], grads: Dict[str, torch.T
 
 
 def _run_group(cfgs, points, members, train_split, test_split, results, journal_path,
-               conf_args, used_paths, dev) -> Dict[str, Any]:
-    """Train one wave stacked; then checkpoint, journal and eigen-analyse
-    each of its points, filling ``results``.  Returns the wave's record
-    (see :func:`run_sweep`)."""
+               conf_args, used_paths, dev, shard=None) -> Optional[Dict[str, Any]]:
+    """Train one wave stacked (in a process group: each rank its share of
+    the padded wave, gathered on rank 0); then checkpoint, journal and
+    eigen-analyse each of its points, filling ``results``, on rank 0.
+    Returns the wave's record (see :func:`run_sweep`) on rank 0, None on
+    the others."""
+    g_real = len(members)
+    mine = members
+    if shard is not None:
+        per = -(-g_real // shard.world)
+        padded_wave = members + [members[-1]] * (per * shard.world - g_real)
+        mine = padded_wave[shard.rank * per:(shard.rank + 1) * per]
+    model, *trained = _train_wave(cfgs, mine, train_split, test_split, dev)
+    if shard is not None:
+        gathered = shard.gather(trained)
+        if shard.rank != 0:
+            shard.barrier()  # rank 0 writes the wave's files
+            return None
+        trained = _join_shares(gathered, g_real)
+    states, perfs, histories, step, t_train = trained
+    wave = {"points": [points[i] for i in members], "steps": step, "train_seconds": t_train,
+            "point_steps_per_s": step * g_real / max(t_train, 1e-9), "histories": histories}
+    # checkpoint, journal, analyse: per point
+    for slot, i in enumerate(members):
+        cfg_i, perf = cfgs[i], float(perfs[slot])
+        model.load_state_dict(states[slot])
+        path = save_trained(cfg_i.raw, model, perf, used_paths)
+        results[i] = (path, perf)
+        write_journal(journal_path, points[i], path, perf)
+        if path is not None and conf_args is not None:
+            from ..analysis import eval_eig
+
+            # the in-memory weights, not a re-read of the checkpoint
+            batch = test_split[0][: conf_args["batch_size"]]
+            eval_eig(cfg_i.raw, conf_args, perf, model, device=dev, batch=batch)
+    if shard is not None:
+        shard.barrier()
+    return wave
+
+
+def _join_shares(shares, g_real: int):
+    """The ranks' trained shares (states, perfs, histories, steps, seconds)
+    as one wave of ``g_real`` points, in point order, the padding dropped;
+    the wave's steps and seconds its slowest rank's."""
+    states = [st for share in shares for st in share[0]][:g_real]
+    perfs = np.concatenate([share[1] for share in shares])[:g_real]
+    histories = [h for share in shares for h in share[2]][:g_real]
+    return (states, perfs, histories, max(share[3] for share in shares),
+            max(share[4] for share in shares))
+
+
+def _train_wave(cfgs, members, train_split, test_split, dev):
+    """Train the points ``members`` stacked on ``dev``.  Returns (the first
+    point's train model, the template of the wave's checkpoints; each
+    point's trained state on the CPU; their final test metrics; their
+    histories; the steps taken; the seconds of stacked training)."""
     g_real = len(members)
     cfg0 = cfgs[members[0]]
     model_cfg, f = cfg0.model, train_fields(cfg0.raw)
@@ -413,21 +482,6 @@ def _run_group(cfgs, points, members, train_split, test_split, results, journal_
                   f"| best perf {perfs.max():.4f} "
                   f"| {step * g_real / max(t_train, 1e-9):.1f} point-steps/s", flush=True)
 
-    wave = {"points": [points[i] for i in members], "steps": step, "train_seconds": t_train,
-            "point_steps_per_s": step * g_real / max(t_train, 1e-9), "histories": histories}
-    # unstack, checkpoint, journal, analyse: per point
-    for slot, i in enumerate(members):
-        cfg_i, perf = cfgs[i], float(perfs[slot])
-        state = {**{k: v[slot] for k, v in params.items()},
-                 **{k: v[slot] for k, v in buffers.items()}}
-        model.load_state_dict(state)
-        path = save_trained(cfg_i.raw, model, perf, used_paths)
-        results[i] = (path, perf)
-        write_journal(journal_path, points[i], path, perf)
-        if path is not None and conf_args is not None:
-            from ..analysis import eval_eig
-
-            # the in-memory weights, not a re-read of the checkpoint
-            batch = test_split[0][: conf_args["batch_size"]]
-            eval_eig(cfg_i.raw, conf_args, perf, model, device=dev, batch=batch)
-    return wave
+    states = [{k: v[slot].cpu() for k, v in {**params, **buffers}.items()}
+              for slot in range(g_real)]
+    return model, states, perfs, histories, step, t_train

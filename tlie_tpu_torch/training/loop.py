@@ -21,8 +21,19 @@ the parameter counts, then each eval's numbers, to
 ``./logs/<run name>.jsonl``, the run name ``tlie_tpu``'s.  A ``wandb``
 section logs locally as well (the port has no W&B sink).
 
+With a process group started (``tlie_tpu_torch.launch`` on more than one
+card, ``--nproc``, or ``torchrun``), the data-parallel route runs where
+``tlie_tpu``'s ``_data_mesh`` would shard the batch (``loop.py:47-55``,
+:func:`tlie_tpu_torch.parallel.mesh.data_shard`): every rank draws the same
+batch indices and trains on its rows, with the global batch's loss
+denominator, BatchNorm statistics and dropout masks and the gradients
+summed over the group (:mod:`tlie_tpu_torch.parallel.mesh`), so it takes
+the one-process run's steps.  Evals, checkpoints, resume snapshots and the
+run logger are rank 0's; the other ranks take its eval results and wait
+for its files.  A resume loads on every rank.
+
 Not ported yet, and refused by :func:`tlie_tpu_torch.config.train_fields`:
-data/tensor/sequence parallelism.
+tensor and sequence parallelism.
 """
 
 from __future__ import annotations
@@ -41,6 +52,7 @@ from ..device import resolve_device
 from ..models.layers import Dropout
 from ..models.registry import build_models
 from ..ops.fused_xent import fused_xent_eligible
+from ..parallel.mesh import data_shard
 from ..utils.logging import RunLogger
 from .checkpoint import restore_resume, save_checkpoint, save_resume
 from .scan_loop import (
@@ -174,24 +186,35 @@ def train(cfg: Dict[str, Any], train_split: Tuple[np.ndarray, ...],
             raise ValueError(f"the {name} split holds {len(split[0])} examples, fewer than "
                              f"one batch of {bsz}")
     metric = DATASETS[cfg["dataset"]["_name_"]].get_metrics()
+    shard = data_shard(bsz, f["data_parallel"])
+    main = shard is None or shard.rank == 0
+    say = print if main else (lambda *a, **k: None)
 
-    logger = RunLogger(wandb_config, run_name(cfg, wandb_config))
+    logger = RunLogger(wandb_config, run_name(cfg, wandb_config)) if main else None
     model, eval_model, family = build_models(
         model_cfg, padded, generator=torch.Generator().manual_seed(cfg["seed"]), device=dev)
+    if shard is not None:
+        shard.broadcast_module(model)
+        shard.attach(model)  # BatchNorm's global statistics, Dropout's global masks
+        say(f"[train] data parallel: batch {bsz} over {shard.world} processes "
+            f"({torch.distributed.get_backend()})")
     nr_params = sum(p.numel() for p in model.parameters())
     embed = getattr(model.encoder, "encoder", model.encoder)  # the SSM backbone nests it
     nr_encoder = sum(p.numel() for p in embed.parameters())
-    print(f"Nr. of parameters: {nr_params} (encoder: {nr_encoder})")
-    logger.log({"params": nr_params, "params without encoder": nr_params - nr_encoder})
+    say(f"Nr. of parameters: {nr_params} (encoder: {nr_encoder})")
+    if main:
+        logger.log({"params": nr_params, "params without encoder": nr_params - nr_encoder})
     optimizer, clip_norm = make_family_optimizer(model, family, model_cfg, cfg["train"], f)
 
     train_data = _device_split(train_split, dev, padded)
     test_data = _device_split(test_split, dev, padded)
     fused, sparse_k = head_choice(cfg, train_split, test_split)
     if fused:
-        print("[train] fused decoder+softmax-CE head enabled")
+        say("[train] fused decoder+softmax-CE head enabled")
     if sparse_k is not None:
-        print(f"[train] sparse decoder head: K={sparse_k} of L={model_cfg['seq_len']}")
+        say(f"[train] sparse decoder head: K={sparse_k} of L={model_cfg['seq_len']}")
+    hybrid = ([layer.mixer for layer in model.layers]
+              if family == "transformer" and model_cfg.get("mixer") == "hybrid" else [])
     eval_idx = torch.as_tensor(eval_indices(len(test_split[0]), bsz), device=dev).long()
     n_train = len(train_split[0])
     nprng = np.random.default_rng(cfg["seed"])
@@ -220,7 +243,7 @@ def train(cfg: Dict[str, Any], train_split: Tuple[np.ndarray, ...],
         if nprng.bit_generator.state != meta["data_rng"]:
             raise RuntimeError(f"the batch-index stream replayed to step {step} differs from "
                                f"the snapshot's: {snap_path} belongs to another split")
-        print(f"[train] resumed at step {step} from {snap_path}")
+        say(f"[train] resumed at step {step} from {snap_path}")
     since_snap = 0
     t_start, steps_timed = time.perf_counter(), step
 
@@ -234,21 +257,31 @@ def train(cfg: Dict[str, Any], train_split: Tuple[np.ndarray, ...],
                 "ssm": lr_for_step(step + j, plateau.ssm_lr, warmup, total, f["cosine"], f["lr_min"]),
                 "group": f["group_lr"],
             }
-            x, y = gather_batch(train_data, idx[j])
-            loss_sum += train_step(model, optimizer, x, y, lrs, sparse_k, fused, clip_norm)
+            rows = idx[j] if shard is None else shard.rows(idx[j])
+            x, y = gather_batch(train_data, rows)
+            loss_sum += train_step(model, optimizer, x, y, lrs, sparse_k, fused, clip_norm,
+                                   shard)
         step += k
-        test_loss, test_perf = evaluate(eval_model, test_data, eval_idx, sparse_k, metric)
+        if shard is not None:  # each rank's loss is its share of the global batch's
+            loss_sum = shard.sum(loss_sum)
+        test_loss, test_perf = _evaluate_on_main(eval_model, test_data, eval_idx, sparse_k,
+                                                 metric, shard)
         train_loss = float(loss_sum) / k
         elapsed = time.perf_counter() - t_start
         sps = (step - steps_timed) / max(elapsed, 1e-9)
         t_start, steps_timed = time.perf_counter(), step
-        print(f"step {step}: train loss {train_loss:.4f} | test loss {test_loss:.4f} | "
-              f"test perf {test_perf:.4f} | {sps:.1f} steps/s")
+        say(f"step {step}: train loss {train_loss:.4f} | test loss {test_loss:.4f} | "
+            f"test perf {test_perf:.4f} | {sps:.1f} steps/s")
         sys.stdout.flush()
         history.append({"step": step, "train_loss": train_loss, "test_loss": test_loss,
                         "test_perf": test_perf, "steps_per_s": sps})
-        logger.log({"train loss": train_loss, "test loss": test_loss, "test perf": test_perf,
-                    "steps_per_sec": sps, "lr": plateau.lr, "ssm_lr": plateau.ssm_lr}, step=step)
+        if main:
+            metrics = {"train loss": train_loss, "test loss": test_loss, "test perf": test_perf,
+                       "steps_per_sec": sps, "lr": plateau.lr, "ssm_lr": plateau.ssm_lr}
+            # the hybrid mixers' learned mix, σ(α) (loop.py:441-447)
+            for i, mixer in enumerate(hybrid):
+                metrics[f"mixer_alpha_{i}"] = float(torch.sigmoid(mixer.alpha.detach())[0])
+            logger.log(metrics, step=step)
         # higher is better for every metric, perplexity included, as in
         # tlie_tpu (loop.py:449, schedules.py:44)
         if test_perf > best["perf"]:
@@ -257,25 +290,44 @@ def train(cfg: Dict[str, Any], train_split: Tuple[np.ndarray, ...],
             plateau = reduce_lr_on_plateau(plateau, test_perf, factor=f["reduce_factor"],
                                            patience=f["lr_patience"], lr_min=f["lr_min"])
         if f["stop_criterion"] is not None and test_perf > f["stop_criterion"]:
-            print(f"Stopping: test perf {test_perf:.4f} exceeded criterion {f['stop_criterion']}")
+            say(f"Stopping: test perf {test_perf:.4f} exceeded criterion {f['stop_criterion']}")
             stop = True
         since_snap += k
         if snap_path and since_snap >= f["checkpoint_every"] and not stop and step < total:
-            save_resume(snap_path, model, optimizer, {
-                "step": step, "plateau": tuple(plateau), "best": best, "history": history,
-                "data_rng": nprng.bit_generator.state,
-                "dropout_rng": None if dropout_gen is None else dropout_gen.get_state(),
-            })
+            if main:
+                save_resume(snap_path, model, optimizer, {
+                    "step": step, "plateau": tuple(plateau), "best": best, "history": history,
+                    "data_rng": nprng.bit_generator.state,
+                    "dropout_rng": None if dropout_gen is None else dropout_gen.get_state(),
+                })
+            if shard is not None:
+                shard.barrier()
             since_snap = 0
-            print(f"[train] resume snapshot at step {step}")
+            say(f"[train] resume snapshot at step {step}")
 
-    if snap_path and os.path.isfile(snap_path):
+    if shard is not None:  # every rank has read the snapshot it resumed from
+        shard.barrier()
+    if main and snap_path and os.path.isfile(snap_path):
         os.remove(snap_path)  # the run completed: the snapshot is obsolete
     if np.isinf(test_loss):  # no eval boundary was reached
-        test_loss, test_perf = evaluate(eval_model, test_data, eval_idx, sparse_k, metric)
-    print(f"Best test perf: {best['perf']:.4f} (test loss {best['loss']:.4f}, "
-          f"step {best['step']})")
+        test_loss, test_perf = _evaluate_on_main(eval_model, test_data, eval_idx, sparse_k,
+                                                 metric, shard)
+    say(f"Best test perf: {best['perf']:.4f} (test loss {best['loss']:.4f}, "
+        f"step {best['step']})")
 
-    path = save_trained(cfg, model, test_perf, used_paths)
-    logger.finish()
+    path = save_trained(cfg, model, test_perf, used_paths) if main else None
+    if shard is not None:
+        path = shard.broadcast(path)
+    if main:
+        logger.finish()
     return TrainResult(path, test_perf, model, eval_model, history, optimizer)
+
+
+def _evaluate_on_main(eval_model, test_data, eval_idx, sparse_k, metric, shard):
+    """``evaluate``'s (loss, metric), on rank 0 alone under the data-parallel
+    route and broadcast from there, so every rank takes the same plateau and
+    stopping decisions."""
+    if shard is None:
+        return evaluate(eval_model, test_data, eval_idx, sparse_k, metric)
+    out = evaluate(eval_model, test_data, eval_idx, sparse_k, metric) if shard.rank == 0 else None
+    return shard.broadcast(out)

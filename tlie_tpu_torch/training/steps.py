@@ -64,11 +64,14 @@ class RowNLLWide(torch.autograd.Function):
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
-                       ignore_idx: int = IGNORE_IDX) -> torch.Tensor:
+                       ignore_idx: int = IGNORE_IDX, shard=None) -> torch.Tensor:
     """Mean CE over the positions whose label is not ``ignore_idx``:
     logsumexp minus the gathered logit, summed over valid positions and
     divided by their count (at least 1).  bfloat16 logits reduce in float32
-    (:class:`RowNLLWide`)."""
+    (:class:`RowNLLWide`).  With ``shard`` (the data-parallel route's
+    :class:`~tlie_tpu_torch.parallel.mesh.Shard`) the count is the global
+    batch's, summed over the group: the loss is this rank's share of the
+    global mean, and the shares sum to it."""
     safe = labels.clamp_min(0)
     mask = labels != ignore_idx
     if logits.dtype == torch.bfloat16:
@@ -80,7 +83,8 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
         picked = torch.gather(logits, -1, safe[..., None])[..., 0]
         ll = picked - lse
     ll = torch.where(mask, ll, torch.zeros_like(ll))
-    return -ll.sum() / mask.sum().clamp_min(1)
+    count = mask.sum() if shard is None else shard.sum(mask.sum())
+    return -ll.sum() / count.clamp_min(1)
 
 
 def sparse_positions(labels: torch.Tensor, k: int) -> torch.Tensor:
@@ -107,7 +111,8 @@ def head_logits(model: nn.Module, x: torch.Tensor, y: torch.Tensor,
     return model.decoder(feats), torch.gather(y, 1, pos)
 
 
-def fused_head_loss(model: nn.Module, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def fused_head_loss(model: nn.Module, x: torch.Tensor, y: torch.Tensor,
+                    shard=None) -> torch.Tensor:
     """The loss through the fused decoder + CE head (``_fused_loss``,
     ``scan_loop.py:252-269``): the backbone features on (B·L, d) rows,
     then ``fused_softmax_xent`` with the decoder's weight read in place
@@ -120,7 +125,8 @@ def fused_head_loss(model: nn.Module, x: torch.Tensor, y: torch.Tensor) -> torch
     float32 parameters' gradients.  The features run in the model's own
     mode, so a training-mode BatchNorm updates its running statistics here
     as in the dense and sparse heads (the reference's fused head fails on
-    BatchNorm models; this one does not)."""
+    BatchNorm models; this one does not).  ``shard`` as in
+    :func:`cross_entropy_loss`."""
     feats = model.features(x)
     d = feats.shape[-1]
     dec = model.decoder
@@ -128,13 +134,13 @@ def fused_head_loss(model: nn.Module, x: torch.Tensor, y: torch.Tensor) -> torch
     w = dec.weight.to(dtype).t()
     b = (dec.bias.to(dtype) if dec.bias is not None
          else torch.zeros(w.shape[1], device=w.device, dtype=dtype))
-    return fused_softmax_xent(feats.reshape(-1, d).to(dtype), w, b, y.reshape(-1))
+    return fused_softmax_xent(feats.reshape(-1, d).to(dtype), w, b, y.reshape(-1), shard)
 
 
 def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, x: torch.Tensor,
                y: torch.Tensor, lrs: Dict[str, float],
                sparse_k: Optional[int] = None, fused_head: bool = False,
-               clip_norm: Optional[float] = None) -> torch.Tensor:
+               clip_norm: Optional[float] = None, shard=None) -> torch.Tensor:
     """One optimisation step of ``model`` (in training mode) on the batch:
     the group learning rates are set, the gradients zeroed, the loss taken
     (its forward updates the BatchNorm running statistics, as flax's
@@ -143,16 +149,25 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, x: torch.Tens
     given (the Mamba and transformer families' optax chain), and the
     optimiser stepped.  The loss goes through the dense head, the sparse
     head (``sparse_k``) or the fused head (``fused_head``), which exclude
-    each other.  Returns the loss, detached, on the device."""
+    each other.  Returns the loss, detached, on the device.
+
+    ``shard`` (the data-parallel route's
+    :class:`~tlie_tpu_torch.parallel.mesh.Shard`): x and y are this rank's
+    rows of the global batch, the loss divides by the global valid count,
+    and the gradients are summed over the group before the clip, so every
+    rank takes the one-process step.  The returned loss is this rank's share
+    of the global one."""
     if fused_head and sparse_k is not None:
         raise ValueError("the sparse head is mutually exclusive with the fused head")
     set_group_learning_rates(optimizer, lrs)
     optimizer.zero_grad(set_to_none=True)
     if fused_head:
-        loss = fused_head_loss(model, x, y)
+        loss = fused_head_loss(model, x, y, shard)
     else:
-        loss = cross_entropy_loss(*head_logits(model, x, y, sparse_k))
+        loss = cross_entropy_loss(*head_logits(model, x, y, sparse_k), shard=shard)
     loss.backward()
+    if shard is not None:
+        shard.sum_grads(model.parameters())
     if clip_norm is not None:
         clip_by_global_norm_(clipped_parameters(optimizer), clip_norm)
     optimizer.step()
