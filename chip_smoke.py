@@ -709,6 +709,15 @@ P36_TRAIN, P36_D_QK = 500, 512
 # STATS_RTOL, and the ranks' states equal bit for bit
 DP_STEPS, DP_WARMUP, DP_TRAIN_EXAMPLES, DP_TEST_EXAMPLES = 20, 2, 2048, 256
 DP_LOSS_RTOL, DP_PARAM_ATOL, DP_PARAM_SHARE = 1e-4, 2e-5, 0.999
+# path 38, sequence parallelism: the primitives at the MQAR paths' shapes,
+# each output and gradient within SP_RTOL_OF_MAX of its one-process value's
+# largest magnitude (float32 sums taken in another order, over up to 64·512
+# terms for a decay's gradient: about √(32768)·2^-24 = 1e-5 of the max);
+# then the MQAR LRU and softmax transformer trained SP_STEPS steps (SP_WARMUP
+# of warmup) over two ranks against the one-process run from the same seed,
+# held to path 37's bounds (DP_*)
+SP_STEPS, SP_WARMUP, SP_TRAIN_EXAMPLES, SP_TEST_EXAMPLES = 20, 2, 2048, 256
+SP_RTOL_OF_MAX = 5e-5
 
 OP_KINDS = (
     ("scan kernels", ("diag_scan", "sum_rows")),
@@ -5776,7 +5785,8 @@ def dp_rank_main(spec_path: str) -> int:
     return 0
 
 
-def dp_compare(ph, key: str, got, ref, lr_sum: float, got_hist=None, ref_hist=None):
+def dp_compare(ph, key: str, got, ref, lr_sum: float, got_hist=None, ref_hist=None,
+               path: str = "path 37"):
     """A run through the data-parallel route (``got``, a state dict, and
     its history) against the one-process run (``ref``): path 37's bounds
     (DP_*).  Fills ``ph.fields[key]`` and raises on a failed check."""
@@ -5799,7 +5809,7 @@ def dp_compare(ph, key: str, got, ref, lr_sum: float, got_hist=None, ref_hist=No
     if not (worst <= 2 * lr_sum + DP_PARAM_ATOL and close >= DP_PARAM_SHARE * total
             and stats <= STATS_RTOL and losses <= DP_LOSS_RTOL
             and len(got_hist or []) == len(ref_hist or [])):
-        raise AssertionError(f"path 37, {key}: {ph.fields[key]}")
+        raise AssertionError(f"{path}, {key}: {ph.fields[key]}")
 
 
 def data_parallel_path(dev, want_files):
@@ -5955,6 +5965,288 @@ def data_parallel_path(dev, want_files):
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"[launches] path 37, data parallelism: {launches}", flush=True)
     return launches
+
+
+def sp_primitive_cases(dev, cfg):
+    """Path 38's primitives at the MQAR paths' shapes (``cfg``, the LRU's
+    config: batch 64, L 512, N 128, d_model 128): {name: (global
+    inputs, the time dim of each (None: whole on every rank), the function
+    on a rank's steps (shard, *xs), the one-process function (*xs))}, the
+    inputs drawn on ``dev`` from one seed, so every rank draws the same."""
+    from tlie_tpu_torch.models.layers import DepthwiseCausalConv
+    from tlie_tpu_torch.ops.attention import xla_causal_attention
+    from tlie_tpu_torch.ops.linear_attention import chunked_linear_attention
+    from tlie_tpu_torch.ops.scan import diag_linear_scan, sequence_parallel
+    from tlie_tpu_torch.parallel import (
+        ring_causal_attention, sp_diag_linear_scan, sp_linear_attention,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(38)
+    mc = cfg["model"]
+    B, L, N, D = cfg["train"]["batch_size"], mc["seq_len"], mc["state_dim"], mc["hidden_dim"]
+
+    def randn(*shape):
+        return torch.randn(shape, device=dev, generator=gen)
+
+    def ring(*shape):
+        r = 0.9 + 0.09 * torch.rand(shape, device=dev, generator=gen)
+        th = 6.28 * torch.rand(shape, device=dev, generator=gen)
+        return r * torch.cos(th), r * torch.sin(th)
+
+    def positive(*shape):
+        return torch.nn.functional.elu(randn(*shape)) + 1
+
+    layer = DepthwiseCausalConv(2 * D, 4, torch.Generator()).to(dev)
+
+    def conv(shard, x, w, b):
+        # the module's forward on the given weight and bias, differentiable in both
+        run = lambda: (torch.func.functional_call(layer, {"weight": w, "bias": b}, (x,)),)  # noqa: E731
+        if shard is None:
+            return run()
+        with sequence_parallel(shard):
+            return run()
+
+    scale = 1.0 / math.sqrt(D)
+    return {
+        # the LRU's: a (N,) decay pair over (B, L, N) pairs
+        "scan_lru": ([*ring(N), randn(B, L, N), randn(B, L, N)], (None, None, 1, 1),
+                     lambda sh, *x: sp_diag_linear_scan(x[:2], x[2:], sh),
+                     lambda *x: diag_linear_scan(x[:2], x[2:])),
+        # Mamba-1's: a real decay per step and channel, (B, L, d_inner·N)
+        "scan_real_full": ([torch.rand(8, L, 8 * N, device=dev, generator=gen),
+                            randn(8, L, 8 * N)], (1, 1),
+                           lambda sh, *x: (sp_diag_linear_scan(*x, sh),),
+                           lambda *x: (diag_linear_scan(*x),)),
+        # the bidirectional S5's backward direction
+        "scan_reverse": ([*ring(N), randn(B, L, N), randn(B, L, N)], (None, None, 1, 1),
+                         lambda sh, *x: sp_diag_linear_scan(x[:2], x[2:], sh, reverse=True),
+                         lambda *x: diag_linear_scan(x[:2], x[2:], reverse=True)),
+        "linear_normalizer": ([positive(B, L, 1, D), positive(B, L, 1, D), randn(B, L, 1, D)],
+                              (1, 1, 1),
+                              lambda sh, *x: sp_linear_attention(
+                                  *x, sh, scale=scale, return_normalizer=True, eps=1e-6),
+                              lambda *x: chunked_linear_attention(
+                                  *x, scale=scale, return_normalizer=True, eps=1e-6)),
+        "ring": ([randn(B, L, 1, D), randn(B, L, 1, D), randn(B, L, 1, D)], (1, 1, 1),
+                 lambda sh, *x: (ring_causal_attention(*x, sh, scale=scale),),
+                 lambda *x: (xla_causal_attention(*x, scale),)),
+        # Mamba-1's d_conv 4 over its d_inner 256
+        "halo_conv": ([randn(B, L, 2 * D), 0.5 * randn(2 * D, 1, 4), randn(2 * D)],
+                      (1, None, None),
+                      lambda sh, *x: conv(sh, *x), lambda *x: conv(None, *x)),
+    }
+
+
+def sp_primitive_check(shard, dev, cfg) -> dict:
+    """Each of :func:`sp_primitive_cases` on this rank's steps (``shard``, a
+    time shard) against the one-process function on the same card: the
+    outputs and the gradients of Σ out·w with respect to every input (a
+    whole input's summed over the group), each within SP_RTOL_OF_MAX of
+    its reference's max.  Checks that each scan call launched the forward
+    and the backward kernel once.  Returns {name: "max_rel_err/bound"}."""
+    from tlie_tpu_torch.ops import LAUNCHES
+
+    gen = torch.Generator(device=dev).manual_seed(3838)
+    out = {}
+    for name, (inputs, dims, f_sp, f_one) in sp_primitive_cases(dev, cfg).items():
+        ref_in = [x.clone().requires_grad_() for x in inputs]
+        ref = f_one(*ref_in)
+        ws = [torch.randn(o.shape, device=dev, generator=gen) for o in ref]
+        ref_g = torch.autograd.grad(sum((o * w).sum() for o, w in zip(ref, ws)), ref_in)
+        local = [(shard.steps(x, d) if d is not None else x).clone().requires_grad_()
+                 for x, d in zip(inputs, dims)]
+        before = dict(LAUNCHES)
+        got = f_sp(shard, *local)
+        got_g = torch.autograd.grad(sum((o * shard.steps(w)).sum() for o, w in zip(got, ws)),
+                                    local)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        if name.startswith("scan") and (LAUNCHES["diag_scan"] != before["diag_scan"] + 1 or
+                                        LAUNCHES["diag_scan_bwd"] != before["diag_scan_bwd"] + 1):
+            raise AssertionError(f"path 38 {name}: the local scan did not launch each kernel "
+                                 "once")
+        worst = 0.0
+        pairs = [(o, shard.steps(r)) for o, r in zip(got, ref)]
+        pairs += [(shard.sum(g) if d is None else g, r if d is None else shard.steps(r, d))
+                  for g, r, d in zip(got_g, ref_g, dims)]
+        for g, r in pairs:
+            scale = r.abs().max().item()
+            worst = max(worst, (g.detach() - r.detach()).abs().max().item() / max(scale, 1e-30))
+        out[name] = f"{worst:.3e}/{SP_RTOL_OF_MAX:g}"
+        if not worst <= SP_RTOL_OF_MAX:
+            raise AssertionError(f"path 38 {name} on rank {shard.rank} of {shard.world}: "
+                                 f"{out[name]} of the max")
+    return out
+
+
+def sp_rank_main(spec_path: str) -> int:
+    """One rank of path 38's two-process group (``chip_smoke.py --sp-rank
+    SPEC``): the primitives on this rank's steps, then each of the spec's
+    configs trained through the sequence-parallel route.  Writes this
+    rank's final states (``<job>-rank<r>.pt``), and its primitive errors,
+    launch counts and histories (``rank<r>.json``) to the spec's ``out``."""
+    from tlie_tpu_torch.data import MQAR
+    from tlie_tpu_torch.ops import LAUNCHES
+    from tlie_tpu_torch.parallel import mesh
+    from tlie_tpu_torch.training import train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    dev = mesh.init_process_group(spec["device"], spec["backend"])
+    group = mesh.process_shard()
+    shard = mesh.Shard(group.rank, group.world, axis=1)
+    try:
+        if dev.type == "cpu":
+            _count_plain_scan()
+        jobs = spec["jobs"]
+        out = {"primitives": sp_primitive_check(shard, dev, jobs["lru"])}
+        data = MQAR(**jobs["lru"]["dataset"])
+        train_split, test_split = data.split("train"), data.split("test")
+        for job, cfg in jobs.items():
+            for k in LAUNCHES:
+                LAUNCHES[k] = 0
+            result = train(cfg, train_split, test_split, device=dev)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            out[job] = {"launches": {k: v for k, v in LAUNCHES.items() if v},
+                        "history": result.history}
+            torch.save({k: v.detach().cpu() for k, v in result.model.state_dict().items()},
+                       os.path.join(spec["out"], f"{job}-rank{group.rank}.pt"))
+        with open(os.path.join(spec["out"], f"rank{group.rank}.json"), "w") as fh:
+            json.dump(out, fh)
+    finally:
+        mesh.destroy_process_group()
+    return 0
+
+
+def sequence_parallel_path(dev, want_files):
+    """Main path 38, sequence parallelism on the one card (ROADMAP Queue 1
+    item 17b): the primitives (:func:`sp_primitive_check`: the scan real,
+    as pairs with the LRU's (N,) decay and reversed, the linear attention
+    with its normaliser, the ring attention with its gradients, the halo
+    convolution) in a group of one over NCCL (gloo on the CPU) in this
+    process, then in two gloo processes sharing the card
+    (``chip_smoke.py --sp-rank``), which also train the MQAR LRU
+    (``MQAR_LRU_FULL``: 2 layers, d_model 128, N 128, L 512, batch 64,
+    BatchNorm, dropout 0.1, the sparse head, the scan's kernels) and the
+    MQAR softmax transformer (``MQAR_SM_ATTENTION_FULL``, the ring) SP_STEPS
+    steps each with ``train.sequence_parallel: 2``, weights from seed 1919;
+    each against the one-process run of the same config (:func:`dp_compare`,
+    the two ranks' states equal bit for bit), the scan's launches counted
+    per rank (the LRU's 2 + 2 a step and 2 an eval batch, on both ranks,
+    which evaluate together; the ring launches none).  Returns the launch
+    counts of each rank's training runs (``world_2``: {job: [rank 0's,
+    rank 1's]})."""
+    from tlie_tpu_torch.config import (
+        MQAR_LRU_FULL, MQAR_SM_ATTENTION_FULL, derive_runtime_fields, train_fields,
+    )
+    from tlie_tpu_torch.data import MQAR
+    from tlie_tpu_torch.models import build_models
+    from tlie_tpu_torch.parallel import mesh
+    from tlie_tpu_torch.training import train
+    from tlie_tpu_torch.training.schedules import lr_for_step
+
+    t_start = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="tlie_sp_")
+    bases = {"lru": MQAR_LRU_FULL, "sm": MQAR_SM_ATTENTION_FULL}
+
+    def run_cfg(job, sp):
+        cfg = copy.deepcopy(bases[job])
+        cfg["dataset"].update(num_train_examples=SP_TRAIN_EXAMPLES,
+                              num_test_examples=SP_TEST_EXAMPLES)
+        cfg["train"].update(total_steps=SP_STEPS, eval_every=SP_STEPS, warmup_steps=SP_WARMUP,
+                            sequence_parallel=sp)
+        cfg["save"] = None
+        return derive_runtime_fields(cfg, cfg["model"]["seq_len"], SP_TRAIN_EXAMPLES)
+
+    launches = {}
+    try:
+        lru = run_cfg("lru", 1)
+        with Phase("sp_world_1_primitives") as ph:
+            mesh.init_process_group(dev, rank=0, world_size=1,
+                                    init_method=f"tcp://127.0.0.1:{mesh.free_port()}")
+            try:
+                ph.fields["backend"] = torch.distributed.get_backend()
+                ph.fields.update(sp_primitive_check(mesh.Shard(0, 1, axis=1), dev, lru))
+            finally:
+                mesh.destroy_process_group()
+        with Phase("sp_data") as ph:
+            data = MQAR(**lru["dataset"])
+            train_split, test_split = data.split("train"), data.split("test")
+            ph.fields.update(generator=data.generator, train=train_split[0].shape)
+        refs, lr_sums = {}, {}
+        with Phase("sp_one_process") as ph:
+            for job in bases:
+                cfg = run_cfg(job, 1)
+                if cfg["dataset"] != lru["dataset"]:
+                    raise AssertionError(f"path 38's {job} reads another MQAR split")
+                refs[job] = train(cfg, train_split, test_split, device=dev)
+                f = train_fields(cfg)
+                lr_sums[job] = sum(
+                    max(lr_for_step(s, f[k], f["warmup"], f["total_steps"], f["cosine"],
+                                    f["lr_min"]) for k in ("lr", "ssm_lr"))
+                    for s in range(SP_STEPS))
+                init = build_models(cfg["model"], generator=torch.Generator().manual_seed(
+                    cfg["seed"]), device=dev)[0].state_dict()
+                state = refs[job].model.state_dict()
+                moved = max((state[k] - v).abs().max().item() for k, v in init.items()
+                            if not k.endswith(("running_mean", "running_var")))
+                if moved <= 10 * DP_PARAM_ATOL:
+                    raise AssertionError(f"path 38's {job} weights moved {moved}")
+                ph.fields[f"{job}_history"] = repr([{k: round(v, 4) for k, v in r.items()}
+                                                    for r in refs[job].history])
+                ph.fields[f"{job}_moved"] = f"{moved:.3e}"
+        with Phase("sp_world_2_gloo") as ph:
+            out = os.path.join(tmp, "ranks")
+            os.makedirs(out)
+            spec = {"jobs": {job: run_cfg(job, 2) for job in bases}, "out": out,
+                    "backend": "gloo",
+                    "device": (f"cuda:{torch.cuda.current_device()}" if dev.type == "cuda"
+                               else "cpu")}
+            spec_path = os.path.join(tmp, "spec.json")
+            with open(spec_path, "w") as fh:
+                json.dump(spec, fh)
+            t0 = time.perf_counter()
+            code = mesh.spawn([os.path.abspath(__file__), "--sp-rank", spec_path], 2,
+                              timeout=600)
+            ph.fields["spawn_s"] = f"{time.perf_counter() - t0:.2f}"
+            if code != 0:
+                raise AssertionError(f"path 38's two gloo processes exited with {code}")
+            ranks = []
+            for r in range(2):
+                with open(os.path.join(out, f"rank{r}.json")) as fh:
+                    ranks.append(json.load(fh))
+            for r, rank in enumerate(ranks):
+                ph.fields[f"primitives_rank{r}"] = repr(rank["primitives"])
+            n_layers = lru["model"]["num_layers"]
+            n_eval = SP_TEST_EXAMPLES // lru["train"]["batch_size"]
+            want = {"lru": {"diag_scan": n_layers * (SP_STEPS + n_eval),
+                            "diag_scan_bwd": n_layers * SP_STEPS}, "sm": {}}
+            for job in bases:
+                states = [torch.load(os.path.join(out, f"{job}-rank{r}.pt"), weights_only=True)
+                          for r in range(2)]
+                unequal = [k for k, v in states[0].items() if not torch.equal(states[1][k], v)]
+                if unequal:
+                    raise AssertionError(f"path 38 {job}: the two ranks' states differ at "
+                                         f"{unequal}")
+                dp_compare(ph, f"{job}_vs_one_process", states[0],
+                           refs[job].model.state_dict(), lr_sums[job], ranks[0][job]["history"],
+                           refs[job].history, path="path 38")
+                launches[job] = [rank[job]["launches"] for rank in ranks]
+                if launches[job] != [want[job]] * 2:
+                    raise AssertionError(f"path 38 {job}: launches per rank {launches[job]}, "
+                                         f"expected {want[job]} on each")
+            ph.fields["launches_per_rank"] = repr(launches)
+    finally:
+        mesh.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    secs = time.perf_counter() - t_start
+    print(f"[launches] path 38, sequence parallelism: {launches}", flush=True)
+    print(f"[path 38 seconds] {secs:.2f}", flush=True)
+    return {"world_2": launches, "seconds": secs}
 
 
 def main() -> int:
@@ -7065,7 +7357,15 @@ def main() -> int:
     path37_all = {k: dp["world_1"].get(k, 0) + sum(r.get(k, 0) for r in dp["world_2"])
                   + sum(r.get(k, 0) for r in dp["sweep_2"]) for k in LAUNCHES}
     s18["path_37"] = time.perf_counter() - t0
-    print(f"[paths 35-37 seconds] {json.dumps({k: round(v, 2) for k, v in s18.items()})} "
+    # main path 38, sequence parallelism: the primitives in a group of one
+    # over NCCL and of two gloo processes on the card, and the MQAR LRU (the
+    # scan's kernels, each rank's counted) and softmax transformer (the ring)
+    # trained over the two
+    sp = sequence_parallel_path(dev, want_files)
+    path38_all = {k: sum(r.get(k, 0) for runs in sp["world_2"].values() for r in runs)
+                  for k in LAUNCHES}
+    s18["path_38"] = sp["seconds"]
+    print(f"[paths 35-38 seconds] {json.dumps({k: round(v, 2) for k, v in s18.items()})} "
           f"total {sum(s18.values()):.2f}", flush=True)
     # main paths 16 and 17, the WikiText norm-attention LM alone and its
     # stacked seeds × rates sweep, then the pretrained-LM spectroscopy on a
@@ -7204,7 +7504,8 @@ def main() -> int:
                 + sum(c[name] for c in cls_all.values())
                 + sum(c[name] for c in kernel_sweep_all.values())
                 + path32_all[name] + path33_all[name] + path34_all.get(name, 0)
-                + path35_all[name] + path36_all[name] + path37_all[name])
+                + path35_all[name] + path36_all[name] + path37_all[name]
+                + path38_all[name])
 
     kernels = [{
         "name": "diag_scan",
@@ -7331,8 +7632,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    # path 37 starts its ranks as ``chip_smoke.py --dp-rank SPEC``; the run
-    # itself takes no arguments
+    # paths 37 and 38 start their ranks as ``chip_smoke.py --dp-rank SPEC``
+    # and ``--sp-rank SPEC``; the run itself takes no arguments
     if sys.argv[1:2] == ["--dp-rank"]:
         sys.exit(dp_rank_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--sp-rank"]:
+        sys.exit(sp_rank_main(sys.argv[2]))
     sys.exit(main())

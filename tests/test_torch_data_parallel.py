@@ -261,7 +261,9 @@ def test_the_route_follows_data_mesh_rule(monkeypatch):
     """``data_shard`` is ``_data_mesh``'s rule: no group, no route; a batch
     the world size does not divide, or ``train.data_parallel: false``, no
     route; ``train_fields`` reads the flag (true by default) and still
-    refuses tensor and sequence parallelism."""
+    refuses tensor parallelism; sequence parallelism it takes where the
+    world size divides the length, and its route leaves the data-parallel
+    one off."""
     assert mesh.data_shard(8) is None
     monkeypatch.setattr(mesh, "process_shard", lambda: mesh.Shard(1, 4))
     assert mesh.data_shard(8) == mesh.Shard(1, 4)
@@ -270,9 +272,12 @@ def test_the_route_follows_data_mesh_rule(monkeypatch):
     assert train_fields(cfg)["data_parallel"] is True
     cfg["train"]["data_parallel"] = False
     assert train_fields(cfg)["data_parallel"] is False
-    for key in ("model_parallel", "sequence_parallel"):
-        with pytest.raises(NotImplementedError):
-            train_fields({**cfg, "train": {**cfg["train"], key: 2}})
+    with pytest.raises(NotImplementedError):
+        train_fields({**cfg, "train": {**cfg["train"], "model_parallel": 2}})
+    sp = train_fields({**cfg, "train": {**cfg["train"], "sequence_parallel": 2}})
+    assert sp["sequence_parallel"] == 2 and sp["data_parallel"] is False
+    with pytest.raises(ValueError, match="not divisible"):
+        train_fields({**cfg, "train": {**cfg["train"], "sequence_parallel": 3}})
     rows = mesh.Shard(1, 4).rows(torch.arange(8))
     assert rows.tolist() == [2, 3]
 

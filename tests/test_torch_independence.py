@@ -216,8 +216,19 @@ hcfg = dict(tcfg, embedding=False, input_dim=1, mixer="hybrid", classifier=True,
 hm, hm_eval, _ = build_models(hcfg, generator=torch.Generator().manual_seed(0), device="cpu")
 hm(cdata.inputs[:, :16]).sum().backward()
 assert hm.encoder.weight.grad is not None and hm.layers[0].mixer.alpha.grad.shape == (1,)
-from tlie_tpu_torch.parallel import mesh
+from tlie_tpu_torch.parallel import mesh, sequence_parallel
 assert mesh.process_shard() is None and mesh.Shard(1, 2).rows(x).shape[0] == 2
+# the sequence-parallel route (sp.py, ring.py) in a gloo group of one
+mesh.init_process_group("cpu", rank=0, world_size=1,
+                        init_method="tcp://127.0.0.1:%d" % mesh.free_port())
+try:
+    with torch.no_grad():
+        plain = [m1_eval(x), tf_eval(x)]
+        with sequence_parallel(mesh.Shard(0, 1, axis=1)):
+            routed = [m1_eval(x), tf_eval(x)]
+    assert all(torch.allclose(a, b, atol=1e-5) for a, b in zip(routed, plain))
+finally:
+    mesh.destroy_process_group()
 assert not any(m in sys.modules and sys.modules[m] is not None for m in {forbidden!r})
 print("ok", acc)
 """

@@ -183,8 +183,9 @@ def test_chunked_matches_jax_and_recurrent_in_bfloat16(normalizer):
 def test_chunk_choice_normaliser_eps_and_sequence_parallel():
     """``_pick_chunk`` equals the reference's for every L to 300 at chunk
     128 and 64; ``cumulative_key_normalizer`` equals JAX's (1e-6 relative)
-    and ``eps`` replaces an exact zero in both forms; the sequence-parallel
-    route raises."""
+    and ``eps`` replaces an exact zero in both forms; under the
+    ``sequence_parallel`` context, in a gloo group of one, the call takes
+    the sequence-parallel route and equals the plain chunked form."""
     for Ln in range(1, 301):
         for pref in (128, 64):
             assert pla._pick_chunk(Ln, pref) == jla._pick_chunk(Ln, pref)
@@ -200,8 +201,27 @@ def test_chunk_choice_normaliser_eps_and_sequence_parallel():
     _, n0 = pla.chunked_linear_attention(q_t, torch.from_numpy(k), torch.ones(2, 24, 2, 4),
                                          return_normalizer=True, eps=7.0)
     assert bool((n0[0, :3] == 7.0).all()) and bool((n > 0).all())
-    with pytest.raises(NotImplementedError, match="sequence-parallel"):
-        pla.chunked_linear_attention(q_t, q_t, q_t, sequence_parallel=True)
+    from tlie_tpu_torch.ops.scan import sequence_parallel
+    from tlie_tpu_torch.parallel import mesh, sp
+
+    mesh.init_process_group("cpu", rank=0, world_size=1,
+                            init_method=f"tcp://127.0.0.1:{mesh.free_port()}")
+    try:
+        routed = []
+        real = sp.sp_linear_attention
+        sp.sp_linear_attention = lambda *a, **kw: routed.append(1) or real(*a, **kw)
+        try:
+            with sequence_parallel(mesh.Shard(0, 1, axis=1)):
+                y_sp, n_sp = pla.chunked_linear_attention(q_t, q_t, q_t, return_normalizer=True,
+                                                          eps=7.0)
+        finally:
+            sp.sp_linear_attention = real
+    finally:
+        mesh.destroy_process_group()
+    y, n = pla.chunked_linear_attention(q_t, q_t, q_t, return_normalizer=True, eps=7.0)
+    assert routed == [1]
+    np.testing.assert_allclose(y_sp.numpy(), y.numpy(), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(n_sp.numpy(), n.numpy(), rtol=1e-6, atol=1e-6)
 
 
 # -- the model ----------------------------------------------------------------

@@ -108,10 +108,18 @@ def test_train_fields_refuse_what_is_not_ported():
     cfg = small_config()
     cfg["lang_model"] = True
     assert train_fields(cfg)["warmup"] == 60
-    for key, value in (("model_parallel", 2), ("sequence_parallel", 2)):
-        bad = dict(cfg, train=dict(cfg["train"], **{key: value}))
-        with pytest.raises(NotImplementedError, match=key):
-            train_fields(bad)
+    bad = dict(cfg, train=dict(cfg["train"], model_parallel=2))
+    with pytest.raises(NotImplementedError, match="model_parallel"):
+        train_fields(bad)
+    # sequence parallelism is ported: the LRU takes it where it divides the
+    # length, and refuses it beside model_parallel or where it does not
+    sp = dict(cfg, train=dict(cfg["train"], sequence_parallel=2))
+    assert train_fields(sp)["sequence_parallel"] == 2
+    assert train_fields(cfg)["sequence_parallel"] == 1
+    for train_cfg in (dict(sp["train"], model_parallel=2),
+                      dict(sp["train"], sequence_parallel=cfg["model"]["seq_len"] + 1)):
+        with pytest.raises(ValueError, match="sequence_parallel"):
+            train_fields(dict(cfg, train=train_cfg))
     # the fused head, resume snapshots and epoch-driven runs are ported: taken
     assert train_fields(dict(cfg, train=dict(cfg["train"], fused_xent=True)))["warmup"] == 60
     snap = train_fields(dict(cfg, train=dict(cfg["train"], checkpoint_every=100, resume=True)))

@@ -219,9 +219,37 @@ def step_driven(cfg: Dict[str, Any]) -> bool:
     )
 
 
-# train options the port does not carry yet (ROADMAP Queue 1 items 17b and
-# 17c), with the value that leaves them off
-_NOT_PORTED = {"model_parallel": 1, "sequence_parallel": 1}
+# train options the port does not carry yet (ROADMAP Queue 1 item 17c),
+# with the value that leaves them off
+_NOT_PORTED = {"model_parallel": 1}
+
+
+def sequence_parallel_of(cfg: Dict[str, Any]) -> int:
+    """``train.sequence_parallel`` (1, the route off, by default), checked
+    against the rest of the config as ``tlie_tpu/training/loop.py:243-250``
+    checks it: not beside ``model_parallel``, and a divisor of the
+    sequence length.  Where ``tlie_tpu`` accepts it silently and trains the
+    whole sequence on every device (the SSD of Mamba-2 and ``SSD_LTI``, and
+    S4's convolution, have no sequence-parallel route there), the port
+    raises: the route covers the LRU, S5, Mamba-1 and the transformer."""
+    train, model = cfg["train"], cfg["model"]
+    n = int(train.get("sequence_parallel") or 1)
+    if n <= 1:
+        return 1
+    if int(train.get("model_parallel") or 1) > 1:
+        raise ValueError("sequence_parallel and model_parallel are mutually exclusive")
+    family = model.get("layer")
+    covered = family in ("lru", "s5", "transformer") or (
+        family == "mamba" and model.get("version") == "mamba1")
+    if not covered:
+        name = {"s4": "S4", "mamba": "Mamba-2 (SSD_LTI too)"}.get(family, repr(family))
+        raise ValueError(f"train.sequence_parallel has no route for {name}: it covers the "
+                         "LRU, S5, Mamba-1 and the softmax, linear and norm attention "
+                         "transformer")
+    L = model.get("seq_len")
+    if L is not None and int(L) % n:
+        raise ValueError(f"seq_len {L} not divisible by sequence_parallel {n}")
+    return n
 
 
 def train_fields(cfg: Dict[str, Any]) -> Dict[str, Any]:
@@ -233,9 +261,11 @@ def train_fields(cfg: Dict[str, Any]) -> Dict[str, Any]:
     ``train_size // batch_size`` steps an epoch (at least 1), ``num_epochs``
     of them, an eval at each epoch's end, and ``warmup`` in epochs.
     ``checkpoint_every`` (steps between resume snapshots, or None) and
-    ``resume`` come through, and so does ``data_parallel``.  Raises for
-    tensor and sequence parallelism, which the port does not run yet."""
+    ``resume`` come through, and so do ``data_parallel`` and
+    ``sequence_parallel`` (checked by :func:`sequence_parallel_of`).
+    Raises for tensor parallelism, which the port does not run yet."""
     train = cfg["train"]
+    sequence_parallel = sequence_parallel_of(cfg)
     for key, off in _NOT_PORTED.items():
         if train.get(key) not in (None, off):
             raise NotImplementedError(f"train.{key} is not ported yet")
@@ -270,8 +300,12 @@ def train_fields(cfg: Dict[str, Any]) -> Dict[str, Any]:
         "checkpoint_every": int(every) if every else None,
         "resume": bool(train.get("resume", False)),
         # the data-parallel route where a process group runs the loop
-        # (parallel/mesh.py::data_shard; tlie_tpu's loop.py:233)
-        "data_parallel": bool(train.get("data_parallel", True)),
+        # (parallel/mesh.py::data_shard; tlie_tpu's loop.py:233), off under
+        # the sequence-parallel route, which takes the whole group
+        # (loop.py:251-254)
+        "data_parallel": bool(train.get("data_parallel", True)) and sequence_parallel == 1,
+        # the sequence-parallel route's process count (1: off)
+        "sequence_parallel": sequence_parallel,
         # train.param_group's optimiser group (training/state.py): its fixed
         # rate, with tlie_tpu's default (loop.py:197-198, 347)
         "group_lr": train.get("group_lr", 1e-3),

@@ -95,6 +95,16 @@ one card and no ``--nproc`` nothing changes:
     python -m tlie_tpu_torch.launch --config configs/mqar-lru-small.yaml --device cpu --nproc 4
     torchrun --nproc_per_node 8 -m tlie_tpu_torch.launch --config tasks/mqar/mqar-lru.yaml
 
+Sequence parallelism (``train.sequence_parallel: N``, the LRU, S5,
+Mamba-1 and the transformer): the launcher starts N processes, one per card
+(NCCL), or N gloo processes with ``--device cpu``; each holds L/N time steps
+of every sequence (:mod:`tlie_tpu_torch.parallel.sp`).  A ``--nproc`` other
+than N raises; under ``torchrun`` the group must hold N processes:
+
+    python -m tlie_tpu_torch.launch --config configs/mqar-lru-small.yaml --device cpu \
+        (with train.sequence_parallel: 4 in the config)
+    torchrun --nproc_per_node 4 -m tlie_tpu_torch.launch --config <a config with it>
+
 ``--sweep`` takes a sweep file (``base_config`` + ``sweep`` lists, e.g.
 ``configs/sweep/mqar-lin-attention-seeds-lrs-8k.yaml``), builds the dataset
 once, and trains and analyses its points one after another, each with
@@ -152,7 +162,7 @@ def main(argv=None) -> int:
     parser.add_argument("--nproc", type=int, default=None,
                         help="data-parallel processes (default: one per visible card where "
                              "more than one is visible and the batch divides; with --device "
-                             "cpu, N gloo processes)")
+                             "cpu, N gloo processes); train.sequence_parallel: N takes N")
     args = parser.parse_args(argv)
 
     base = sweep = None
@@ -181,10 +191,23 @@ def main(argv=None) -> int:
 
 
 def _processes(args, cfg) -> int:
-    """How many processes the run takes: ``--nproc``; else, on the card,
-    one per visible card where more than one is visible and the route
-    applies (``tlie_tpu`` shards over every local device by default); else
-    none (0: no process group)."""
+    """How many processes the run takes: ``train.sequence_parallel``'s N
+    where it is above 1 (a ``--nproc`` that differs raises, and so does a
+    card run with fewer than N cards); ``--nproc``; else, on the card, one
+    per visible card where more than one is visible and the data-parallel
+    route applies (``tlie_tpu`` shards over every local device by default);
+    else none (0: no process group)."""
+    sp = int(cfg["train"].get("sequence_parallel") or 1)
+    if sp > 1:
+        if args.nproc is not None and args.nproc != sp:
+            raise ValueError(f"--nproc {args.nproc} differs from train.sequence_parallel {sp}")
+        if args.sweep_parallel:
+            raise ValueError("--sweep_parallel and train.sequence_parallel exclude each other")
+        if torch.device(args.device).type == "cuda" and torch.cuda.is_available() \
+                and torch.cuda.device_count() < sp:
+            raise ValueError(f"train.sequence_parallel {sp} takes one card a process; "
+                             f"{torch.cuda.device_count()} visible")
+        return sp
     if args.nproc is not None:
         return args.nproc
     if torch.device(args.device).type != "cuda" or not torch.cuda.is_available():

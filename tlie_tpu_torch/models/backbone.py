@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.scan import sp_shard
 from .initializers import lecun_normal_
 from .layers import Dropout, LayerNorm, Linear, at_least_float32
 
@@ -96,10 +97,11 @@ class BatchNorm(nn.Module):
     ``torch.nn.BatchNorm1d`` differs in both (momentum 0.1, an unbiased
     running variance), so it is not used.
 
-    Under the data-parallel route (``shard``, set by the training loop on
-    its train model) the statistics are the global batch's, as the sharded
-    flax ``BatchNorm`` takes them: the sums of x and x² and the row count
-    are all-reduced over the group, with autograd through the all-reduce,
+    Under the data- or sequence-parallel route (``shard``, set by the
+    training loop on its train model) the statistics are the global batch's,
+    as the sharded flax ``BatchNorm`` takes them: the sums of x and x² and
+    the count of positions (rows, or the rank's L/n steps of every row) are
+    all-reduced over the group, with autograd through the all-reduce,
     so every rank's running statistics stay equal."""
 
     momentum, eps = 0.99, 1e-5
@@ -140,6 +142,8 @@ class BroadcastDropout(Dropout):
     """flax ``nn.Dropout(rate, broadcast_dims=[-2])``: in training mode one
     keep mask per (example, feature), shared across time (axis -2), with the
     kept values scaled by 1/(1-rate)."""
+
+    time_shared = True
 
     def mask_shape(self, x: torch.Tensor) -> torch.Size:
         return x.shape[:-2] + (1, x.shape[-1])
@@ -258,7 +262,16 @@ class ClassificationModel(nn.Module):
         if self.padded:
             x, lengths = x
         x = self.encoder(x)
-        if self.pooling == "mean":
+        shard = sp_shard()
+        if shard is not None and self.pooling in ("mean", "last"):
+            # the pool over the group's time steps (parallel/sp.py::sp_pool)
+            from ..parallel.sp import sp_pool
+
+            if self.pooling == "last" and self.padded:
+                raise NotImplementedError(
+                    "pooling='last' with padded sequences is not supported")
+            x = sp_pool(x, self.pooling, shard, lengths if self.padded else None)
+        elif self.pooling == "mean":
             x = masked_meanpool(x, lengths) if self.padded else x.mean(-2)
         elif self.pooling == "last":
             if self.padded:

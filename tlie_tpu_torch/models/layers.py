@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.conv import depthwise_causal_conv1d
+from ..ops.scan import sp_shard
 
 
 def compute_dtype_of(cfg) -> Optional[torch.dtype]:
@@ -167,7 +168,9 @@ class ClassifierHead(nn.Module):
     default init (``ClassifierHead``).  ``pooling`` is ``mean``, ``max``,
     ``sum`` or ``cls`` (the first position); any other value pools nothing.
     The pool takes no mask: a padded batch is pooled over its padding too,
-    as in ``tlie_tpu`` and the reference."""
+    as in ``tlie_tpu`` and the reference.  Under the ``sequence_parallel``
+    context the pool spans the group's time steps
+    (:func:`tlie_tpu_torch.parallel.sp.sp_pool`)."""
 
     def __init__(self, d: int, mlp_dim: int, num_classes: int, pooling: str,
                  generator: torch.Generator):
@@ -179,7 +182,12 @@ class ClassifierHead(nn.Module):
             self.decoder = linear(mlp_dim, num_classes, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.pooling == "mean":
+        shard = sp_shard()
+        if shard is not None and self.pooling in ("mean", "max", "sum", "cls"):
+            from ..parallel.sp import sp_pool
+
+            x = sp_pool(x, self.pooling, shard)
+        elif self.pooling == "mean":
             x = x.mean(dim=-2)
         elif self.pooling == "max":
             x = x.amax(dim=-2)
@@ -230,7 +238,9 @@ class TokenEmbeddings(nn.Module):
     gather fills NaN there.  Float inputs raise flax ``Embed``'s
     ``ValueError``: the six CIFAR norm-attention YAMLs set ``embedding:
     true`` without the dataset's ``tokenize: true``, so their pixels reach
-    the table as floats, and ``tlie_tpu`` raises there too."""
+    the table as floats, and ``tlie_tpu`` raises there too.  Under the
+    ``sequence_parallel`` context the default positions start at this
+    rank's first time step."""
 
     def __init__(self, embed_dim: int, vocab_size: int, generator: torch.Generator,
                  max_position_embeddings: int = 0, compute_dtype: Optional[torch.dtype] = None):
@@ -254,7 +264,10 @@ class TokenEmbeddings(nn.Module):
         emb = self._embed(self.word_embeddings, input_ids)
         if self.position_embeddings is not None:
             if position_ids is None:
-                position_ids = torch.arange(input_ids.shape[-1], device=input_ids.device)
+                L = input_ids.shape[-1]
+                shard = sp_shard()
+                start = 0 if shard is None else shard.rank * L
+                position_ids = torch.arange(start, start + L, device=input_ids.device)
             emb = emb + self._embed(self.position_embeddings, position_ids)
         return emb
 
@@ -267,12 +280,16 @@ class Dropout(nn.Module):
     data-parallel route (``shard``) every rank draws the global batch's mask
     from the same generator state and keeps its own rows, so the masks are
     the one-process run's (a dual model's pair fold reorders the rows, so
-    its masks are not)."""
+    its masks are not).  Under the sequence-parallel route (a shard of time
+    steps) every rank draws the whole sequence's mask and keeps its steps
+    (axis 1, the time axis of every input a dropout takes); a mask shared
+    across time (``time_shared``) is the same on every rank."""
 
-    # the data-parallel route's shard (tlie_tpu_torch.parallel.mesh.Shard),
-    # set by the training loop on its train model: x then holds the shard's
-    # rows of the global batch, and the mask is the global batch's mask's rows
+    # the route's shard (tlie_tpu_torch.parallel.mesh.Shard), set by the
+    # training loop on its train model: x then holds the shard's rows (or
+    # time steps) of the global batch, and the mask is the global mask's part
     shard = None
+    time_shared = False
 
     def __init__(self, rate: float, generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -293,12 +310,13 @@ class Dropout(nn.Module):
             # each point of a stacked grid draws its own mask
             mask = torch.bernoulli(torch.full(shape, keep, device=x.device, dtype=x.dtype))
         else:
-            if self.shard is not None:  # the whole batch's mask, then this rank's rows
-                shape = (shape[0] * self.shard.world,) + tuple(shape[1:])
+            part = self.shard is not None and not (self.shard.axis and self.time_shared)
+            if part:  # the whole batch's mask, then this rank's part
+                shape = self.shard.whole(shape)
             mask = torch.empty(shape, device=x.device, dtype=x.dtype)
             mask.bernoulli_(keep, generator=self.generator)
-            if self.shard is not None:
-                mask = self.shard.rows(mask)
+            if part:
+                mask = self.shard.part(mask)
         return x * mask / keep
 
 
@@ -306,7 +324,10 @@ class DepthwiseCausalConv(nn.Module):
     """Depthwise causal conv parameters around
     :func:`tlie_tpu_torch.ops.conv.depthwise_causal_conv1d`, in
     ``nn.Conv1d(groups=C)``'s layout: ``weight`` (C, 1, K), ``bias`` (C,),
-    both U(±1/√K) as torch's default."""
+    both U(±1/√K) as torch's default.  Under the ``sequence_parallel``
+    context x is this rank's time steps, and the convolution reads the K − 1
+    steps before them from the ranks that hold them
+    (:func:`tlie_tpu_torch.parallel.sp.sp_causal_conv`)."""
 
     def __init__(self, dim: int, kernel_size: int, generator: torch.Generator,
                  compute_dtype: Optional[torch.dtype] = None):
@@ -318,6 +339,13 @@ class DepthwiseCausalConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        if dt is None:
-            return depthwise_causal_conv1d(x, self.weight, self.bias)
-        return depthwise_causal_conv1d(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        weight, bias = self.weight, self.bias
+        if dt is not None:
+            x, weight, bias = x.to(dt), weight.to(dt), bias.to(dt)
+        shard = sp_shard()
+        if shard is not None:
+            from ..parallel.sp import sp_causal_conv
+
+            return sp_causal_conv(x, lambda t: depthwise_causal_conv1d(t, weight, bias),
+                                  weight.shape[-1] - 1, shard)
+        return depthwise_causal_conv1d(x, weight, bias)

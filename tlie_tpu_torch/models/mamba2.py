@@ -64,7 +64,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.conv import conv_tail
-from ..ops.scan import diag_linear_scan
+from ..ops.scan import diag_linear_scan, sp_shard
 from ..ops.ssd import ssd_chunked_scan
 from .layers import (
     GLU, MATCH, DepthwiseCausalConv, Dropout, LayerNorm, TokenEmbeddings, at_least_float32,
@@ -364,7 +364,13 @@ class Mamba(nn.Module):
 
     def forward(self, x) -> torch.Tensor:
         x = self.features(x)
-        if self.pooling == "mean":
+        shard = sp_shard()
+        if shard is not None and self.pooling in ("mean", "max", "last"):
+            # the pool over the group's time steps (parallel/sp.py::sp_pool)
+            from ..parallel.sp import sp_pool
+
+            x = sp_pool(x, self.pooling, shard)
+        elif self.pooling == "mean":
             x = x.mean(dim=-2)
         elif self.pooling == "max":
             x = x.amax(dim=-2)

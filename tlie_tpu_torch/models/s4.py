@@ -35,6 +35,7 @@ import torch
 from torch import nn
 
 from ..ops.fft_conv import causal_fft_conv
+from ..ops.scan import sp_shard
 from .initializers import lecun_normal, log_step_initializer, make_dplr_hippo
 
 
@@ -155,6 +156,10 @@ class S4(nn.Module):
         if L > self.l_max:
             raise ValueError(f"S4 takes sequences of at most l_max={self.l_max}, got {L}")
         if not self.decode:
+            if sp_shard() is not None:
+                raise NotImplementedError("S4's convolution has no sequence-parallel route; "
+                                          "train.sequence_parallel covers the LRU, S5, "
+                                          "Mamba-1 and the transformer")
             K = s4_kernel_dplr(*self.parameters_complex(), self.l_max)  # (H, l_max)
             y = causal_fft_conv(u.transpose(-1, -2), K[:, :L]).transpose(-1, -2)
             return y + self.D[0] * u

@@ -27,8 +27,10 @@ Where the work runs follows the tensors:
 ``impl="xla"`` is :func:`xla_causal_attention`, the materialised form under
 autograd, on any device: it is what ``MHA`` runs when a config sets
 ``use_flash: false`` or its head dims differ, a choice of the config and not
-a fallback.  The ring-attention branch of the reference (its sequence-
-parallel mode) is not ported.
+a fallback.  Under the ``sequence_parallel`` context of :mod:`.scan`,
+:func:`causal_softmax_attention` runs
+:func:`tlie_tpu_torch.parallel.ring.ring_causal_attention` on this rank's
+time steps whatever ``impl`` says (``attention.py:85-97``).
 
 Float32, and on the CPU also float64 (the plain version, for references).
 q, k and v may be views with any batch, row and head strides (``MHA`` splits
@@ -47,6 +49,7 @@ import torch
 
 from ._build import LAUNCHES, CudaLibrary, check
 from ._grid import fold, unfold
+from .scan import sp_shard
 
 MAX_HEAD_DIM = 128  # the kernels hold two 64-wide column tiles of D
 F32_UNIT = 2.0 ** -24
@@ -66,9 +69,15 @@ def causal_softmax_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              impl: Optional[str] = None) -> torch.Tensor:
     """o (B, L, H, D), differentiable in q, k and v.  ``impl`` None or
     ``"flash"`` takes :class:`FlashAttentionFn` (the kernels on CUDA tensors),
-    ``"xla"`` the materialised form."""
+    ``"xla"`` the materialised form; under an active ``sequence_parallel``
+    context the ring over the group, whatever ``impl`` says."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    shard = sp_shard()
+    if shard is not None:
+        from ..parallel.ring import ring_causal_attention
+
+        return ring_causal_attention(q, k, v, shard, scale=scale)
     if impl in (None, "flash"):
         _check_operands(q, k, v)
         return FlashAttentionFn.apply(q, k, v, float(scale))[0]

@@ -12,8 +12,10 @@ kernel, so the port computes it with PyTorch's own products on either
 device.
 
 Conventions: q, k are (B, L, H, Dk); v is (B, L, H, Dv); outputs (B, L, H,
-Dv).  The sequence-parallel routing of the reference (``parallel/sp.py``) is
-not ported: :func:`chunked_linear_attention` raises if asked for it.
+Dv).  Under the ``sequence_parallel`` context of :mod:`.scan`,
+:func:`chunked_linear_attention` runs
+:func:`tlie_tpu_torch.parallel.sp.sp_linear_attention` on this rank's time
+steps instead (``linear_attention.py:74-84``).
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from .scan import sp_shard
 
 _DEFAULT_CHUNK = 128
 
@@ -46,8 +50,7 @@ def _f32(dtype: torch.dtype) -> torch.dtype:
 
 def chunked_linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              scale: float = 1.0, chunk: int = _DEFAULT_CHUNK,
-                             return_normalizer: bool = False, eps: Optional[float] = None,
-                             sequence_parallel: bool = False):
+                             return_normalizer: bool = False, eps: Optional[float] = None):
     """Chunked causal linear attention (``chunked_linear_attention``).
 
     With ``return_normalizer`` it also returns n_t = q_t · Σ_{s≤t} k_s (B, L,
@@ -55,10 +58,16 @@ def chunked_linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     inputs the row sums of the masked scores and the prefix of the per-chunk
     key totals; for narrower inputs from q and a cumulative sum of k upcast
     to float32, so the denominator keeps full precision.  ``eps`` replaces
-    an exact-zero n_t.  ``sequence_parallel`` (the reference's seq-mesh
-    route) is not ported and raises."""
-    if sequence_parallel:
-        raise NotImplementedError("sequence-parallel linear attention is not ported yet")
+    an exact-zero n_t.  Under an active ``sequence_parallel`` context (of
+    :mod:`.scan`) q, k and v are this rank's time steps and the attention
+    spans the group (:func:`~tlie_tpu_torch.parallel.sp.sp_linear_attention`,
+    which gives the same numbers up to float reassociation)."""
+    shard = sp_shard()
+    if shard is not None:
+        from ..parallel.sp import sp_linear_attention
+
+        return sp_linear_attention(q, k, v, shard, scale=scale,
+                                   return_normalizer=return_normalizer, eps=eps)
     B, L, H, Dk = q.shape
     Dv = v.shape[-1]
     if L % chunk != 0:

@@ -31,6 +31,14 @@ Where the work runs follows the tensors:
   ``_scan_sequential_real`` / ``_scan_sequential_pair`` and of
   ``_scan_core_real_bwd`` / ``_scan_core_pair_bwd``, and the references the
   kernels are held against.
+
+Under the :class:`sequence_parallel` context (``ops/scan.py:105-132``),
+every :func:`diag_linear_scan` runs
+:func:`tlie_tpu_torch.parallel.sp.sp_diag_linear_scan` over the context's
+time shard instead: each rank scans its own steps through this function's
+kernels and takes its carry from the others.  The linear and softmax
+attention, the causal convolution, the position table and the pooling over
+time read the same context (:func:`sp_shard`).
 """
 
 from __future__ import annotations
@@ -80,6 +88,41 @@ def _on_cuda(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
 
 
+# the sequence-parallel route's time shard while a ``sequence_parallel``
+# context is active (tlie_tpu's ``_SP_STATE``), else None
+_SP_STATE = None
+
+
+class sequence_parallel:
+    """Context manager: route the time-mixing ops over a time shard (a
+    :class:`~tlie_tpu_torch.parallel.mesh.Shard` with ``axis`` 1), as
+    ``tlie_tpu``'s ``sequence_parallel(mesh)`` does (``ops/scan.py:105-132``).
+
+    >>> with sequence_parallel(shard):
+    ...     logits = model(x_steps)   # x_steps: this rank's time steps
+    """
+
+    def __init__(self, shard):
+        self.state = shard
+        self._prev = None
+
+    def __enter__(self):
+        global _SP_STATE
+        self._prev = _SP_STATE
+        _SP_STATE = self.state
+        return self
+
+    def __exit__(self, *exc):
+        global _SP_STATE
+        _SP_STATE = self._prev
+        return False
+
+
+def sp_shard():
+    """The active :class:`sequence_parallel` context's shard, or None."""
+    return _SP_STATE
+
+
 def diag_linear_scan(
     a: TensorOrPair, b: TensorOrPair, *, axis: int = -2, reverse: bool = False
 ) -> TensorOrPair:
@@ -88,7 +131,14 @@ def diag_linear_scan(
 
     ``a``/``b`` are real tensors or (re, im) pairs; if either is a pair the
     result is a pair.  ``a`` may have any shape that broadcasts to ``b``'s
-    (..., L, N), (N,) included; its gradient comes back at that shape."""
+    (..., L, N), (N,) included; its gradient comes back at that shape.
+    Under a :class:`sequence_parallel` context the inputs are this rank's
+    time steps and the scan spans the group
+    (:func:`~tlie_tpu_torch.parallel.sp.sp_diag_linear_scan`)."""
+    if _SP_STATE is not None:
+        from ..parallel.sp import sp_diag_linear_scan
+
+        return sp_diag_linear_scan(a, b, _SP_STATE, axis=axis, reverse=reverse)
     pair = _is_pair(a) or _is_pair(b)
     if pair:
         a, b = _as_pair(a), _as_pair(b)

@@ -30,6 +30,7 @@ from typing import Optional
 import torch
 
 from .decay_attention import decay_attention
+from .scan import sp_shard
 
 # tlie_tpu's operating point: a 75e6-element ceiling for the intra-chunk
 # decay tensor on a 16 GB device, scaled by the device's memory
@@ -112,7 +113,12 @@ def ssd_chunked_scan(x, dt, A, B_mat, C_mat, chunk_size: Optional[int] = None, D
     step comes back too, as (B, H, P, N).
 
     B and C stay at group granularity: the scores C·B are computed once per
-    group and shared by its H/G heads."""
+    group and shared by its H/G heads.  It has no sequence-parallel route, as
+    in ``tlie_tpu``: under the ``sequence_parallel`` context it raises."""
+    if sp_shard() is not None:
+        raise NotImplementedError("the SSD scan (Mamba-2, SSD_LTI) has no sequence-parallel "
+                                  "route; train.sequence_parallel covers the LRU, S5, Mamba-1 "
+                                  "and the transformer")
     dt = _clamp_dt(dt, dt_limit)
     Bsz, L, H, P = x.shape
     G, N = B_mat.shape[2], B_mat.shape[-1]

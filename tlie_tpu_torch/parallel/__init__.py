@@ -1,13 +1,19 @@
 """The port's counterpart of ``tlie_tpu/parallel/``: sweeps stacked on a
-device and spread over the ranks of a process group (``sweep.py``), and
-data parallelism over processes (``mesh.py``; ROADMAP Queue 1 item 17a).
-The sequence, ring and tensor parallelism of ``tlie_tpu/parallel/``
-(``sp.py``, ``ring.py``, ``tp.py``; items 17b and 17c) are not ported yet."""
+device and spread over the ranks of a process group (``sweep.py``), data
+parallelism over processes (``mesh.py``; ROADMAP Queue 1 item 17a), and
+sequence parallelism over processes (``sp.py``, ``ring.py`` and the
+collectives of ``mesh.py``, entered through ``sequence_parallel``; item
+17b).  The tensor parallelism of ``tlie_tpu/parallel/tp.py`` (item 17c) is
+not ported yet."""
 
-from .mesh import Shard, data_shard, init_process_group, is_main, process_shard, spawn
+from ..ops.scan import sequence_parallel
+from .mesh import Shard, data_shard, init_process_group, is_main, process_shard, seq_shard, spawn
+from .ring import ring_causal_attention
+from .sp import sp_diag_linear_scan, sp_linear_attention
 
-__all__ = ["Shard", "data_shard", "init_process_group", "is_main", "process_shard", "run_sweep",
-           "spawn"]
+__all__ = ["Shard", "data_shard", "init_process_group", "is_main", "process_shard",
+           "ring_causal_attention", "run_sweep", "seq_shard", "sequence_parallel",
+           "sp_diag_linear_scan", "sp_linear_attention", "spawn"]
 
 
 def __getattr__(name):

@@ -25,6 +25,22 @@ same generator state and keeps its rows (``models/layers.py::Dropout``).
 ``torchrun`` would (``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE``,
 ``MASTER_ADDR``, ``MASTER_PORT``); :func:`init_process_group` reads that
 environment, ``torchrun``'s own included.
+
+Sequence parallelism (ROADMAP Queue 1 item 17b) splits time instead of
+rows: a :class:`Shard` with ``axis=1`` holds the contiguous time steps
+``[rank·L/n, (rank+1)·L/n)`` of every activation (:meth:`Shard.steps`),
+and the collectives the route needs have autograd:
+:meth:`Shard.all_gather` (``lax.all_gather``), :meth:`Shard.ring_shift`
+(``lax.ppermute`` to rank + 1) and :meth:`Shard.halo` (the time steps
+before the shard, for a causal convolution).  Every collective here is one
+that gloo takes for CUDA tensors (an all-reduce) or, for the ring's
+point-to-point messages, staged through the host under gloo; under NCCL the
+tensors go directly.
+
+A collective's backward is a collective too, so it must run on every rank:
+the callers keep every rank's autograd graph the same, selecting by rank
+with masks and slices, never by leaving a gathered tensor unused on some
+rank.
 """
 
 from __future__ import annotations
@@ -39,20 +55,78 @@ from typing import Any, Iterable, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
+
 
 @dataclass(frozen=True)
 class Shard:
     """One process's place in the default process group: its ``rank`` of
-    ``world`` and the rows of a global batch it holds."""
+    ``world``, and the axis of a global batch it holds a part of: its rows
+    (``axis`` 0, data parallelism) or its time steps (``axis`` 1, sequence
+    parallelism)."""
 
     rank: int
     world: int
+    axis: int = 0
 
     def rows(self, t: torch.Tensor) -> torch.Tensor:
         """This rank's contiguous rows of a global batch (its leading axis,
         which the world size divides)."""
         n = t.shape[0] // self.world
         return t[self.rank * n:(self.rank + 1) * n]
+
+    def steps(self, t: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """This rank's contiguous time steps ``[rank·L/n, (rank+1)·L/n)`` of a
+        global tensor whose time axis is ``dim``; raises where the world
+        size does not divide L."""
+        L = t.shape[dim]
+        if L % self.world:
+            raise ValueError(f"time length {L} not divisible by sequence_parallel {self.world}")
+        n = L // self.world
+        return t.narrow(dim, self.rank * n, n)
+
+    def part(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's part of a global tensor along the shard's axis."""
+        return self.steps(t, self.axis) if self.axis else self.rows(t)
+
+    def whole(self, shape) -> tuple:
+        """The global shape of which ``shape`` is one rank's part."""
+        shape = list(shape)
+        shape[self.axis] *= self.world
+        return tuple(shape)
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``t`` stacked in rank order, (world, *t.shape),
+        differentiable: the backward gives each rank the sum over the group
+        of the gradients of its own slot (``lax.all_gather``'s transpose).
+        Both passes are one all-reduce, which gloo takes for CUDA tensors
+        as well (it has no reduce-scatter for the backward)."""
+        return _GatherOverGroup.apply(t)
+
+    def gather_steps(self, t: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """The global tensor of which every rank holds its time steps ``t``:
+        the ranks' parts concatenated along ``dim``."""
+        return torch.cat(self.all_gather(t).unbind(0), dim=dim)
+
+    def ring_shift(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` sent to rank + 1 and rank − 1's received (a ring,
+        ``lax.ppermute`` with ``(i, i + 1 mod n)``), differentiable: the
+        backward sends the gradient the other way round."""
+        return _RingShift.apply(t)
+
+    def halo(self, x: torch.Tensor, k: int, dim: int = 1) -> torch.Tensor:
+        """The ``k`` time steps just before this rank's shard ``x`` (time at
+        ``dim``), zeros before the sequence's start: the left context of a
+        causal convolution of width k + 1.  Differentiable: the gradient of
+        each step goes back to the rank that holds it.  Built on
+        :meth:`all_gather` of each rank's last min(k, L/n) steps, so a
+        shard shorter than k takes its steps from as many ranks as it
+        needs."""
+        Ls = x.shape[dim]
+        m = min(k, Ls)
+        tails = self.gather_steps(x.narrow(dim, Ls - m, m), dim)  # (.., world·m, ..)
+        pad = [0, 0] * (x.dim() - 1 - dim) + [k, 0]
+        return F.pad(tails, pad).narrow(dim, self.rank * m, k)
 
     def sum(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` summed over the group (a new tensor; no gradient)."""
@@ -114,6 +188,53 @@ class Shard:
         dist.barrier()
 
 
+class _GatherOverGroup(torch.autograd.Function):
+    """All-gather with autograd, as :meth:`Shard.all_gather`: forward and
+    backward each one all-reduce (this rank's slot of a zero buffer)."""
+
+    @staticmethod
+    def forward(ctx, t):
+        out = t.new_zeros((dist.get_world_size(), *t.shape))
+        out[dist.get_rank()] = t
+        dist.all_reduce(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g)
+        return g[dist.get_rank()]
+
+
+def _shift(t: torch.Tensor, by: int) -> torch.Tensor:
+    """``t`` sent to rank + ``by`` and rank − ``by``'s received, both
+    messages in flight at once.  Gloo's point-to-point messages take CPU
+    tensors only, so a CUDA tensor travels through the host there; NCCL
+    takes it directly."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if world == 1:
+        return t.clone()
+    host = t.is_cuda and dist.get_backend() != "nccl"
+    send = (t.cpu() if host else t).contiguous()
+    recv = torch.empty_like(send)
+    for work in dist.batch_isend_irecv([dist.P2POp(dist.isend, send, (rank + by) % world),
+                                        dist.P2POp(dist.irecv, recv, (rank - by) % world)]):
+        work.wait()
+    return recv.to(t.device) if host else recv
+
+
+class _RingShift(torch.autograd.Function):
+    """:meth:`Shard.ring_shift` with autograd."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return _shift(t, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift(g, -1)
+
+
 class _SumOverGroup(torch.autograd.Function):
     """All-reduce (sum) with autograd: y = Σ_r t_r on every rank, and each
     rank's gradient of the group's total loss, Σ_r ∂L_r/∂y, is the sum of
@@ -152,6 +273,19 @@ def data_shard(batch_size: int, enabled: bool = True) -> Optional[Shard]:
     if shard is None or batch_size % shard.world or not enabled:
         return None
     return shard
+
+
+def seq_shard(n: int) -> Shard:
+    """The sequence-parallel route's shard for ``train.sequence_parallel:
+    n``: this process's place in a started group of exactly n processes,
+    holding time steps (``tlie_tpu``'s ``seq_mesh(n)``, which raises where
+    fewer devices are visible).  Raises where no group of n runs."""
+    shard = process_shard()
+    if shard is None or shard.world != n:
+        have = "no process group" if shard is None else f"a group of {shard.world}"
+        raise ValueError(f"sequence_parallel={n} needs a process group of {n} processes "
+                         f"(tlie_tpu_torch.launch starts one); this process has {have}")
+    return Shard(shard.rank, shard.world, axis=1)
 
 
 def is_main() -> bool:

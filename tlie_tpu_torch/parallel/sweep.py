@@ -397,6 +397,8 @@ def _train_wave(cfgs, members, train_split, test_split, dev):
     g_real = len(members)
     cfg0 = cfgs[members[0]]
     model_cfg, f = cfg0.model, train_fields(cfg0.raw)
+    if f["sequence_parallel"] > 1:  # a stacked wave holds every point's whole sequences
+        raise ValueError("a stacked sweep does not take train.sequence_parallel")
     bsz = f["batch_size"]
     padded = bool(cfg0.train.get("padded", False))
     # the heads of tlie_tpu's stacked block (sweep.py:256-262): the sparse one

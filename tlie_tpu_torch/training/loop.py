@@ -32,8 +32,23 @@ the one-process run's steps.  Evals, checkpoints, resume snapshots and the
 run logger are rank 0's; the other ranks take its eval results and wait
 for its files.  A resume loads on every rank.
 
+With ``train.sequence_parallel: N`` (a group of N processes started by the
+launcher) the sequence-parallel route runs instead, whatever
+``train.data_parallel`` says, as ``tlie_tpu`` drops its data mesh under a
+``seq`` mesh (``loop.py:233-254``): every rank takes the whole batch and
+holds its contiguous L/N time steps of it
+(:func:`tlie_tpu_torch.parallel.mesh.seq_shard`), and the model's forward
+and backward and the eval run inside ``ops.scan.sequence_parallel``, so the
+scans, attention, convolutions, positions and pooling span the group
+(:mod:`tlie_tpu_torch.parallel.sp`, :mod:`~tlie_tpu_torch.parallel.ring`).
+The loss divides by the valid count summed over the group, the BatchNorm
+statistics and dropout masks are the whole sequence's, the gradients are
+summed over the group, and the eval gathers the per-position outputs, so the
+route takes the one-process run's steps and numbers.  Rank 0 writes the
+checkpoints and the logs.
+
 Not ported yet, and refused by :func:`tlie_tpu_torch.config.train_fields`:
-tensor and sequence parallelism.
+tensor parallelism.
 """
 
 from __future__ import annotations
@@ -52,7 +67,9 @@ from ..device import resolve_device
 from ..models.layers import Dropout
 from ..models.registry import build_models
 from ..ops.fused_xent import fused_xent_eligible
-from ..parallel.mesh import data_shard
+from ..ops.scan import sequence_parallel
+from ..parallel.mesh import data_shard, seq_shard
+from ..parallel.sp import sp_inputs
 from ..utils.logging import RunLogger
 from .checkpoint import restore_resume, save_checkpoint, save_resume
 from .scan_loop import (
@@ -82,14 +99,16 @@ def use_fused_head(cfg: Dict[str, Any], batch_size: int) -> bool:
     """``train.fused_xent`` on a next-token task with a per-position head
     whose (B·L, D) rows the fused head takes (``loop.py:292-325``, without
     ``tlie_tpu``'s TPU-only condition: the port runs the plain version on
-    the CPU and the kernels on the card)."""
+    the CPU and the kernels on the card); under the sequence-parallel route
+    a rank's B·L/N rows."""
     model_cfg = cfg["model"]
+    n = int(cfg["train"].get("sequence_parallel") or 1)
     return (
         bool(cfg["train"].get("fused_xent", False))
         and bool(cfg.get("lang_model", lang_model(cfg)))
         and per_position(model_cfg)
-        and fused_xent_eligible(batch_size * model_cfg["seq_len"], model_cfg["hidden_dim"],
-                                model_cfg["output_dim"])
+        and fused_xent_eligible(batch_size * model_cfg["seq_len"] // n,
+                                model_cfg["hidden_dim"], model_cfg["output_dim"])
     )
 
 
@@ -186,18 +205,26 @@ def train(cfg: Dict[str, Any], train_split: Tuple[np.ndarray, ...],
             raise ValueError(f"the {name} split holds {len(split[0])} examples, fewer than "
                              f"one batch of {bsz}")
     metric = DATASETS[cfg["dataset"]["_name_"]].get_metrics()
-    shard = data_shard(bsz, f["data_parallel"])
-    main = shard is None or shard.rank == 0
+    # the sequence-parallel route takes the whole group, the data-parallel
+    # one is off under it (tlie_tpu's loop.py:251-254)
+    seq = seq_shard(f["sequence_parallel"]) if f["sequence_parallel"] > 1 else None
+    shard = data_shard(bsz, f["data_parallel"]) if seq is None else None
+    group = seq if seq is not None else shard
+    main = group is None or group.rank == 0
     say = print if main else (lambda *a, **k: None)
 
     logger = RunLogger(wandb_config, run_name(cfg, wandb_config)) if main else None
     model, eval_model, family = build_models(
         model_cfg, padded, generator=torch.Generator().manual_seed(cfg["seed"]), device=dev)
-    if shard is not None:
-        shard.broadcast_module(model)
-        shard.attach(model)  # BatchNorm's global statistics, Dropout's global masks
-        say(f"[train] data parallel: batch {bsz} over {shard.world} processes "
-            f"({torch.distributed.get_backend()})")
+    if group is not None:
+        group.broadcast_module(model)
+        group.attach(model)  # BatchNorm's global statistics, Dropout's global masks
+        backend = torch.distributed.get_backend()
+        if seq is not None:
+            say(f"[train] sequence parallel: time axis {model_cfg['seq_len']} over "
+                f"{seq.world} processes ({backend})")
+        else:
+            say(f"[train] data parallel: batch {bsz} over {shard.world} processes ({backend})")
     nr_params = sum(p.numel() for p in model.parameters())
     embed = getattr(model.encoder, "encoder", model.encoder)  # the SSM backbone nests it
     nr_encoder = sum(p.numel() for p in embed.parameters())
@@ -213,6 +240,12 @@ def train(cfg: Dict[str, Any], train_split: Tuple[np.ndarray, ...],
         say("[train] fused decoder+softmax-CE head enabled")
     if sparse_k is not None:
         say(f"[train] sparse decoder head: K={sparse_k} of L={model_cfg['seq_len']}")
+    # a rank's steps hold at most K of a row's valid labels, and no more
+    # than its L/N positions: the sparse head on the shard at that K is the
+    # dense masked CE of its steps, as on the whole sequence
+    step_k = sparse_k
+    if seq is not None and sparse_k is not None:
+        step_k = min(sparse_k, model_cfg["seq_len"] // seq.world)
     hybrid = ([layer.mixer for layer in model.layers]
               if family == "transformer" and model_cfg.get("mixer") == "hybrid" else [])
     eval_idx = torch.as_tensor(eval_indices(len(test_split[0]), bsz), device=dev).long()
@@ -257,15 +290,22 @@ def train(cfg: Dict[str, Any], train_split: Tuple[np.ndarray, ...],
                 "ssm": lr_for_step(step + j, plateau.ssm_lr, warmup, total, f["cosine"], f["lr_min"]),
                 "group": f["group_lr"],
             }
-            rows = idx[j] if shard is None else shard.rows(idx[j])
-            x, y = gather_batch(train_data, rows)
-            loss_sum += train_step(model, optimizer, x, y, lrs, sparse_k, fused, clip_norm,
-                                   shard)
+            if seq is None:
+                rows = idx[j] if shard is None else shard.rows(idx[j])
+                x, y = gather_batch(train_data, rows)
+                loss_sum += train_step(model, optimizer, x, y, lrs, sparse_k, fused, clip_norm,
+                                       shard)
+            else:
+                x, y = gather_batch(train_data, idx[j])
+                with sequence_parallel(seq):
+                    loss_sum += train_step(model, optimizer, sp_inputs(x, seq),
+                                           seq.steps(y) if y.dim() > 1 else y, lrs, step_k,
+                                           fused, clip_norm, seq)
         step += k
-        if shard is not None:  # each rank's loss is its share of the global batch's
-            loss_sum = shard.sum(loss_sum)
+        if group is not None:  # each rank's loss is its share of the global batch's
+            loss_sum = group.sum(loss_sum)
         test_loss, test_perf = _evaluate_on_main(eval_model, test_data, eval_idx, sparse_k,
-                                                 metric, shard)
+                                                 metric, group)
         train_loss = float(loss_sum) / k
         elapsed = time.perf_counter() - t_start
         sps = (step - steps_timed) / max(elapsed, 1e-9)
@@ -300,24 +340,24 @@ def train(cfg: Dict[str, Any], train_split: Tuple[np.ndarray, ...],
                     "data_rng": nprng.bit_generator.state,
                     "dropout_rng": None if dropout_gen is None else dropout_gen.get_state(),
                 })
-            if shard is not None:
-                shard.barrier()
+            if group is not None:
+                group.barrier()
             since_snap = 0
             say(f"[train] resume snapshot at step {step}")
 
-    if shard is not None:  # every rank has read the snapshot it resumed from
-        shard.barrier()
+    if group is not None:  # every rank has read the snapshot it resumed from
+        group.barrier()
     if main and snap_path and os.path.isfile(snap_path):
         os.remove(snap_path)  # the run completed: the snapshot is obsolete
     if np.isinf(test_loss):  # no eval boundary was reached
         test_loss, test_perf = _evaluate_on_main(eval_model, test_data, eval_idx, sparse_k,
-                                                 metric, shard)
+                                                 metric, group)
     say(f"Best test perf: {best['perf']:.4f} (test loss {best['loss']:.4f}, "
         f"step {best['step']})")
 
     path = save_trained(cfg, model, test_perf, used_paths) if main else None
-    if shard is not None:
-        path = shard.broadcast(path)
+    if group is not None:
+        path = group.broadcast(path)
     if main:
         logger.finish()
     return TrainResult(path, test_perf, model, eval_model, history, optimizer)
@@ -326,8 +366,14 @@ def train(cfg: Dict[str, Any], train_split: Tuple[np.ndarray, ...],
 def _evaluate_on_main(eval_model, test_data, eval_idx, sparse_k, metric, shard):
     """``evaluate``'s (loss, metric), on rank 0 alone under the data-parallel
     route and broadcast from there, so every rank takes the same plateau and
-    stopping decisions."""
+    stopping decisions.  Under the sequence-parallel route every rank runs
+    the eval on its time steps, inside the context (``scan_loop.py:356-363``),
+    and rank 0's numbers are broadcast."""
     if shard is None:
         return evaluate(eval_model, test_data, eval_idx, sparse_k, metric)
+    if shard.axis:
+        with sequence_parallel(shard):
+            out = evaluate(eval_model, test_data, eval_idx, sparse_k, metric, seq=shard)
+        return shard.broadcast(out)
     out = evaluate(eval_model, test_data, eval_idx, sparse_k, metric) if shard.rank == 0 else None
     return shard.broadcast(out)

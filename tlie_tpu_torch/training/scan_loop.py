@@ -21,7 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .steps import compute_accuracy, cross_entropy_loss, head_logits
+from .steps import compute_accuracy, cross_entropy_loss, head_logits, seq_head_logits
 
 
 class DeviceData(NamedTuple):
@@ -115,16 +115,23 @@ def eval_indices(n: int, batch_size: int) -> np.ndarray:
 
 @torch.no_grad()
 def evaluate(eval_model: nn.Module, data: DeviceData, idx: torch.Tensor,
-             sparse_k: Optional[int], metric: Callable = compute_accuracy) -> Tuple[float, float]:
+             sparse_k: Optional[int], metric: Callable = compute_accuracy,
+             seq=None) -> Tuple[float, float]:
     """(mean loss, mean metric) over the batches of ``idx``: the means of
     the per-batch values, as ``make_eval_block`` takes them.  ``metric`` is
     the dataset's (masked accuracy for MQAR, perplexity for WikiText, the
     argmax accuracy for ListOps).  The
     eval runs the dense head, or the sparse one with ``sparse_k``, never the
-    fused head, as in ``tlie_tpu``."""
+    fused head, as in ``tlie_tpu``.  With ``seq`` (the sequence-parallel
+    route's shard, inside its context) each rank runs its time steps and
+    takes the whole batch's numbers (:func:`~.steps.seq_head_logits`)."""
     losses, metrics = [], []
     for idx_t in idx:
-        logits, y = head_logits(eval_model, *gather_batch(data, idx_t), sparse_k)
+        x, y = gather_batch(data, idx_t)
+        if seq is None:
+            logits, y = head_logits(eval_model, x, y, sparse_k)
+        else:
+            logits, y = seq_head_logits(eval_model, seq, x, y, sparse_k)
         losses.append(cross_entropy_loss(logits, y))
         metrics.append(metric(logits, y))
     return float(torch.stack(losses).mean()), float(torch.stack(metrics).mean())

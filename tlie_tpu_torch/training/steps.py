@@ -68,10 +68,12 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     """Mean CE over the positions whose label is not ``ignore_idx``:
     logsumexp minus the gathered logit, summed over valid positions and
     divided by their count (at least 1).  bfloat16 logits reduce in float32
-    (:class:`RowNLLWide`).  With ``shard`` (the data-parallel route's
-    :class:`~tlie_tpu_torch.parallel.mesh.Shard`) the count is the global
-    batch's, summed over the group: the loss is this rank's share of the
-    global mean, and the shares sum to it."""
+    (:class:`RowNLLWide`).  With ``shard`` (the data- or sequence-parallel
+    route's :class:`~tlie_tpu_torch.parallel.mesh.Shard`) the count is the
+    global batch's, summed over the group: the loss is this rank's share of
+    the global mean, and the shares sum to it.  Under the sequence-parallel
+    route a pooled model's logits and labels (no time axis) are the whole
+    batch's on every rank, so each rank's share is 1/n of the loss."""
     safe = labels.clamp_min(0)
     mask = labels != ignore_idx
     if logits.dtype == torch.bfloat16:
@@ -83,7 +85,12 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
         picked = torch.gather(logits, -1, safe[..., None])[..., 0]
         ll = picked - lse
     ll = torch.where(mask, ll, torch.zeros_like(ll))
-    count = mask.sum() if shard is None else shard.sum(mask.sum())
+    if shard is None:
+        count = mask.sum()
+    elif shard.axis and labels.dim() < 2:
+        count = mask.sum() * shard.world
+    else:
+        count = shard.sum(mask.sum())
     return -ll.sum() / count.clamp_min(1)
 
 
@@ -105,10 +112,35 @@ def head_logits(model: nn.Module, x: torch.Tensor, y: torch.Tensor,
     logits, so the loss and gradients are those of the dense head."""
     if sparse_k is None:
         return model(x), y
-    feats = model.features(x)
-    pos = sparse_positions(y, sparse_k)
+    return sparse_head(model, model.features(x), y, sparse_k)
+
+
+def sparse_head(model: nn.Module, feats: torch.Tensor, y: torch.Tensor,
+                k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The decoder on the features (B, L, d) at the k valid positions of
+    each row of y (B, L), and the labels there."""
+    pos = sparse_positions(y, k)
     feats = torch.gather(feats, 1, pos[..., None].expand(-1, -1, feats.shape[-1]))
     return model.decoder(feats), torch.gather(y, 1, pos)
+
+
+def seq_head_logits(model: nn.Module, shard, x, y: torch.Tensor,
+                    sparse_k: Optional[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`head_logits` of the whole batch (x, y) under the
+    sequence-parallel route, for the eval, inside the ``sequence_parallel``
+    context: this rank's time steps of x go through the model; a
+    per-position head's outputs (the logits, or the features before the
+    sparse head) are gathered over the group's steps, so every rank holds
+    the whole batch's and the dataset's metric reads them as in one process;
+    a pooled model's logits are the whole batch's already."""
+    from ..parallel.sp import sp_inputs
+
+    xs = sp_inputs(x, shard)
+    if y.dim() < 2:
+        return model(xs), y
+    if sparse_k is None:
+        return shard.gather_steps(model(xs)), y
+    return sparse_head(model, shard.gather_steps(model.features(xs)), y, sparse_k)
 
 
 def fused_head_loss(model: nn.Module, x: torch.Tensor, y: torch.Tensor,
@@ -156,7 +188,9 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, x: torch.Tens
     rows of the global batch, the loss divides by the global valid count,
     and the gradients are summed over the group before the clip, so every
     rank takes the one-process step.  The returned loss is this rank's share
-    of the global one."""
+    of the global one.  A shard of time steps (the sequence-parallel route,
+    called inside its context) takes x and per-position labels y at this
+    rank's steps in the same way."""
     if fused_head and sparse_k is not None:
         raise ValueError("the sparse head is mutually exclusive with the fused head")
     set_group_learning_rates(optimizer, lrs)
