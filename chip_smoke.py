@@ -17,9 +17,9 @@ the ``vmap`` rules of the scan's, the decay attention's and the flash
 attention's Functions (a stacked sweep's grid of 4 points in one launch of
 each kernel) to the points' separate calls and times each kernel at the
 grid's folded shape, and drives twenty-five models (all but one at their
-published widths) along thirty-seven paths, each with the launch counts set
-to 0 just before it and read just after (path 37 also in the two processes
-it starts):
+published widths) along thirty-nine paths, each with the launch counts set
+to 0 just before it and read just after (paths 37-39 also in the processes
+they start):
 
 1. the MQAR LRU (``MQAR_LRU_FULL``: L=512, d_model=128, N=128, 2 layers,
    vocab 8192, batch 64, weights from the config's seed): evaluation,
@@ -263,7 +263,20 @@ it starts):
    two gloo processes sharing the card, each against the one-process run
    (weights, BatchNorm statistics, losses; the ranks' states equal), the
    scan's launches counted per rank; then four seeds as one stacked sweep
-   spread over the two ranks against the one-process stacked sweep.
+   spread over the two ranks against the one-process stacked sweep;
+38. sequence parallelism on the one card: the time-sharded primitives, then
+   the MQAR LRU and softmax transformer trained 20 steps with
+   ``train.sequence_parallel: 2`` in two gloo processes sharing the card,
+   against the one-process runs;
+39. vocab tensor parallelism on the one card: the vocab-parallel
+   embedding, decoder, CE and argmax at the MQAR shapes, and the route at
+   m = 1, in a group of one over NCCL; then four gloo processes sharing the
+   card (2 × 2): the primitives, the MQAR softmax transformer (the flash
+   kernels) trained 20 steps with ``train.model_parallel: 2``, its gathered
+   checkpoint eigen-analysed, and the one-process checkpoint served over
+   two data ranks; then two of them (1 × 2) train the MQAR LRU (the scan's
+   kernels) 20 steps; each against the one-process run, each rank's
+   launches counted.
 Paths 6, 7, 10, 13, 15, 16, 17, 21, 22, 23, 26 and 27's transformer reach
 no Pallas kernel in ``tlie_tpu``: no port kernel launches on them, and the
 script checks that.  The decay attention's forward is also held and timed at the serving
@@ -718,6 +731,21 @@ DP_LOSS_RTOL, DP_PARAM_ATOL, DP_PARAM_SHARE = 1e-4, 2e-5, 0.999
 # held to path 37's bounds (DP_*)
 SP_STEPS, SP_WARMUP, SP_TRAIN_EXAMPLES, SP_TEST_EXAMPLES = 20, 2, 2048, 256
 SP_RTOL_OF_MAX = 5e-5
+# path 39, vocab tensor parallelism: the primitives at the MQAR shapes
+# TP_PRIM_SHAPE (B, L, V, d), each output and gradient within TP_RTOL_OF_MAX
+# of its one-process value's largest magnitude (float32 sums over the model
+# group's shards and the vocabulary in another order), the argmax equal;
+# the route at m = 1 over NCCL TP_NCCL_STEPS steps; then the MQAR softmax
+# transformer (2 × 2) and LRU (1 × 2) trained TP_STEPS steps (TP_WARMUP of
+# warmup) against the one-process run from the same seed, held to path 37's
+# bounds (DP_*); the gathered checkpoint's η on TP_EIG_BATCH test sequences
+# within TP_SPECTRA_RTOL of the largest of the one-process checkpoint's; the
+# one-process checkpoint served over two data ranks (64 prompts of
+# TP_PROMPT tokens + TP_NEW, greedy and sampled), its tokens equal
+TP_STEPS, TP_WARMUP, TP_TRAIN_EXAMPLES, TP_TEST_EXAMPLES = 20, 2, 2048, 256
+TP_PRIM_SHAPE = (64, 512, 8192, 128)
+TP_RTOL_OF_MAX, TP_SPECTRA_RTOL = 5e-5, 1e-3
+TP_NCCL_STEPS, TP_EIG_BATCH, TP_PROMPT, TP_NEW = 2, 8, 384, 16
 
 OP_KINDS = (
     ("scan kernels", ("diag_scan", "sum_rows")),
@@ -6249,6 +6277,420 @@ def sequence_parallel_path(dev, want_files):
     return {"world_2": launches, "seconds": secs}
 
 
+def _count_plain_flash():
+    """On the CPU (a rehearsal of path 39's ranks) the flash attention's
+    plain versions counted under the kernels' names."""
+    from tlie_tpu_torch.ops import LAUNCHES
+    from tlie_tpu_torch.ops import attention as fa
+
+    def counted(name, plain):
+        def launch(*args):
+            LAUNCHES[name] += 1
+            return plain(*args)
+        return launch
+
+    fa._on_cuda = lambda t: True
+    fa.flash_attention_fwd_cuda = counted("flash_attention_fwd", fa.flash_attention_plain)
+    fa.flash_attention_bwd_dkv_cuda = counted("flash_attention_bwd_dkv",
+                                              fa.flash_attention_bwd_dkv_plain)
+    fa.flash_attention_bwd_dq_cuda = counted("flash_attention_bwd_dq",
+                                             fa.flash_attention_bwd_dq_plain)
+
+
+def tp_primitive_check(data, vocab, dev, shape) -> dict:
+    """Path 39's primitives at ``shape`` (B, L, V, d) on this rank's block
+    (``data``'s rows, ``vocab``'s V/m columns) of seeded global inputs,
+    against the one-process dense forms on the same card: the embedding
+    (its output and its table's gradient), the decoder through its copy
+    into the model region (the logits, dx, dW, db), the CE on float32 and
+    bfloat16 logits with MQAR's share of ``-100`` labels (the loss summed
+    over the data ranks, dlogits) and the argmax, ties placed across the
+    shards at every other position.  Each within TP_RTOL_OF_MAX of its
+    reference's max (the argmax equal).  Returns {name: "err/bound"}."""
+    import torch.nn.functional as F
+
+    from tlie_tpu_torch.parallel.tp import (
+        VocabParallelLinear, vocab_parallel_argmax, vocab_parallel_cross_entropy,
+        vocab_parallel_embedding,
+    )
+    from tlie_tpu_torch.training.steps import cross_entropy_loss
+
+    B, L, V, D = shape
+    gen = torch.Generator(device=dev).manual_seed(39)
+
+    def randn(*s):
+        return torch.randn(s, device=dev, generator=gen)
+
+    def cols(t, dim=-1):
+        n = t.shape[dim] // vocab.world
+        return t.narrow(dim, vocab.rank * n, n)
+
+    out = {}
+
+    def check(name, got, want):
+        got, want = got.detach().float(), want.detach().float()
+        err = (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+        out[name] = f"{err:.3e}/{TP_RTOL_OF_MAX:g}"
+        if not err <= TP_RTOL_OF_MAX:
+            raise AssertionError(f"path 39 {name} on data rank {data.rank}, model rank "
+                                 f"{vocab.rank}: {out[name]} of the max")
+
+    ids = data.rows(torch.randint(V, (B, L), device=dev, generator=gen))
+    table = randn(V, D).requires_grad_()
+    w_emb = data.rows(randn(B, L, D))
+    ref = F.embedding(ids, table)
+    (ref_g,) = torch.autograd.grad((ref * w_emb).sum(), [table])
+    local = cols(table.detach(), 0).clone().requires_grad_()
+    got = vocab_parallel_embedding(ids, local, vocab)
+    (got_g,) = torch.autograd.grad((got * w_emb).sum(), [local])
+    check("embedding", got, ref)
+    check("embedding_dtable", got_g, cols(ref_g, 0))
+
+    x = data.rows(randn(B, L, D)).requires_grad_()
+    weight, bias = randn(V, D).requires_grad_(), randn(V).requires_grad_()
+    w_dec = data.rows(randn(B, L, V))
+    ref = F.linear(x, weight, bias)
+    ref_g = torch.autograd.grad((ref * w_dec).sum(), [x, weight, bias])
+    dec = VocabParallelLinear(cols(weight.detach(), 0).clone(), cols(bias.detach(), 0).clone(),
+                              vocab)
+    xl = x.detach().clone().requires_grad_()
+    got = dec(xl)
+    got_g = torch.autograd.grad((got * cols(w_dec)).sum(), [xl, dec.weight, dec.bias])
+    check("decoder", got, cols(ref))
+    check("decoder_dx", got_g[0], ref_g[0])
+    check("decoder_dweight", got_g[1], cols(ref_g[1], 0))
+    check("decoder_dbias", got_g[2], cols(ref_g[2], 0))
+    del ref, ref_g, got, got_g, w_dec
+
+    labels = torch.randint(V, (B, L), device=dev, generator=gen)
+    labels = torch.where(torch.rand(B, L, device=dev, generator=gen) < 0.125, labels, -100)
+    logits = randn(B, L, V)
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "ce" if dtype == torch.float32 else "ce_bf16"
+        whole = logits.to(dtype).requires_grad_()
+        ref = cross_entropy_loss(whole, labels)
+        (ref_g,) = torch.autograd.grad(ref, [whole])
+        part = cols(data.rows(whole.detach())).clone().requires_grad_()
+        got = vocab_parallel_cross_entropy(part, data.rows(labels), vocab, data)
+        (got_g,) = torch.autograd.grad(got, [part])
+        check(tag, data.sum(got.detach()), ref)
+        check(f"{tag}_dlogits", got_g, cols(data.rows(ref_g)))
+        del whole, ref, ref_g, part, got_g
+    ties = data.rows(logits).clone()
+    ties[:, ::2, 1] = ties[:, ::2, V - 2] = 1e4  # the first and the last shard
+    want = torch.argmax(ties, dim=-1)
+    got = vocab_parallel_argmax(cols(ties), vocab)
+    if not torch.equal(got, want) or not bool((want[:, ::2] == 1).all()):
+        raise AssertionError(f"path 39 argmax on data rank {data.rank}, model rank "
+                             f"{vocab.rank}: {int((got != want).sum())} positions differ")
+    out["argmax"] = "equal"
+    return out
+
+
+def tp_route_steps(cfg, data, vocab, train_split, dev, steps: int):
+    """``steps`` training steps of ``cfg``'s model on the first batches of
+    the train split at the config's peak rate, through the tensor-parallel
+    route's modules on the shards (``data``, ``vocab``) or, with None, in
+    one process; returns the whole state (the split leaves gathered)."""
+    from tlie_tpu_torch.config import train_fields
+    from tlie_tpu_torch.models import build_models
+    from tlie_tpu_torch.parallel.tp import gather_vocab_parallel
+    from tlie_tpu_torch.training import train_step
+    from tlie_tpu_torch.training.state import make_family_optimizer
+
+    f = train_fields(cfg)
+    model, _, family = build_models(cfg["model"],
+                                    generator=torch.Generator().manual_seed(cfg["seed"]),
+                                    device=dev, vocab_shard=vocab)
+    if data is not None:
+        data.attach(model)
+    opt, clip = make_family_optimizer(model, family, cfg["model"], cfg["train"], f)
+    x = torch.as_tensor(train_split[0][:steps * f["batch_size"]], device=dev).long()
+    y = torch.as_tensor(train_split[1][:steps * f["batch_size"]], device=dev).long()
+    for s in range(steps):
+        rows = slice(s * f["batch_size"], (s + 1) * f["batch_size"])
+        xs, ys = x[rows], y[rows]
+        if data is not None:
+            xs, ys = data.rows(xs), data.rows(ys)
+        train_step(model, opt, xs, ys, {"regular": f["lr"], "ssm": f["ssm_lr"]},
+                   clip_norm=clip, shard=data)
+    if vocab is None:
+        return model.state_dict()
+    return gather_vocab_parallel(model, vocab)[0]
+
+
+def tp_rank_main(spec_path: str) -> int:
+    """One rank of path 39's four-process group (``chip_smoke.py --tp-rank
+    SPEC``): the primitives on this rank's block of the (2 × 2) layout, the
+    spec's transformer trained through the tensor-parallel route (rank 0
+    writing its checkpoint), the spec's checkpoint served over this rank's
+    data group; then ranks 0 and 1 start a group of two and train the
+    spec's LRU (1 × 2).  Writes each run's gathered state
+    (``<job>-rank<r>.pt``), the tokens (``decode-rank<r>.pt``) and this
+    rank's primitive errors, launch counts, histories and checkpoint path
+    (``rank<r>.json``) to the spec's ``out``."""
+    from tlie_tpu_torch.data import MQAR
+    from tlie_tpu_torch.inference import Decoder
+    from tlie_tpu_torch.ops import LAUNCHES
+    from tlie_tpu_torch.parallel import mesh
+    from tlie_tpu_torch.training import train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    dev = mesh.init_process_group(spec["device"], spec["backend"])
+    rank = mesh.process_shard().rank
+    out_dir = spec["out"]
+
+    def sync_counts():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        counts = {k: v for k, v in LAUNCHES.items() if v}
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        return counts
+
+    def run(job):
+        sync_counts()
+        result = train(spec["jobs"][job], *splits, device=dev)
+        out[job] = {"launches": sync_counts(), "history": result.history, "path": result[0]}
+        torch.save({k: v.detach().cpu() for k, v in result.model.state_dict().items()},
+                   os.path.join(out_dir, f"{job}-rank{rank}.pt"))
+
+    out = {}
+    try:
+        if dev.type == "cpu":
+            _count_plain_scan()
+            _count_plain_flash()
+        data, vocab = mesh.mesh_2d(2)
+        out["primitives"] = tp_primitive_check(data, vocab, dev, spec["prim_shape"])
+        mqar = MQAR(**spec["jobs"]["sm"]["dataset"])
+        splits = (mqar.split("train"), mqar.split("test"))
+        run("sm")
+        dec = Decoder.from_checkpoint(spec["serve"], device=dev, shard=data)
+        prompts = torch.as_tensor(splits[1][0][:spec["serve_batch"], :spec["prompt"]],
+                                  device=dev)
+        sync_counts()
+        tokens = {"greedy": dec.generate(prompts, spec["n_new"]),
+                  "sampled": dec.generate(prompts, spec["n_new"], temperature=0.8, top_k=10,
+                                          generator=torch.Generator(device=dev).manual_seed(39))}
+        out["decode"] = {"launches": sync_counts()}
+        torch.save({k: v.cpu() for k, v in tokens.items()},
+                   os.path.join(out_dir, f"decode-rank{rank}.pt"))
+        if rank < 2:  # the LRU over 1 × 2: a group of the first two ranks
+            mesh.destroy_process_group()
+            mesh.init_process_group(spec["device"], spec["backend"], rank=rank, world_size=2,
+                                    init_method=f"tcp://127.0.0.1:{spec['port']}")
+            run("lru")
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+            json.dump(out, fh)
+    finally:
+        mesh.destroy_process_group()
+    return 0
+
+
+def tensor_parallel_path(dev, want_files):
+    """Main path 39, vocab tensor parallelism on the one card (ROADMAP Queue
+    1 item 17c): the primitives (:func:`tp_primitive_check`) and
+    TP_NCCL_STEPS steps of the MQAR softmax transformer through the route's
+    modules at m = 1 (:func:`tp_route_steps`, against the same steps in one
+    process) in a group of one over NCCL (gloo on the CPU), the subgroups of
+    ``mesh_2d(1)`` included; then four gloo processes sharing the card
+    (``chip_smoke.py --tp-rank``): the primitives at 2 × 2, the MQAR softmax
+    transformer (``MQAR_SM_ATTENTION_FULL``: 2 layers, d_model 128, vocab
+    8192, L 512, batch 64, dropout 0.1, the flash kernels) trained TP_STEPS
+    steps with ``train.model_parallel: 2`` (2 × 2), the one-process run's
+    checkpoint served over each rank's data group (tokens equal to one
+    process, greedy and sampled), then the MQAR LRU (``MQAR_LRU_FULL``:
+    BatchNorm, dropout 0.1, the scan's kernels) over two of them (1 × 2);
+    each run against the one-process run of the same config
+    (:func:`dp_compare`, every rank's gathered state equal bit for bit), the
+    gathered checkpoint's η against the one-process checkpoint's, and each
+    rank's launches counted (the ranks of data index 0 evaluate).  Returns
+    the launch counts: the group of one's (``world_1``), each rank's
+    training runs (``sm``, ``lru``: lists) and serving (``decode``)."""
+    from tlie_tpu_torch.analysis import eval_eig
+    from tlie_tpu_torch.config import (
+        MQAR_LRU_FULL, MQAR_SM_ATTENTION_FULL, derive_runtime_fields, train_fields,
+    )
+    from tlie_tpu_torch.data import MQAR
+    from tlie_tpu_torch.inference import Decoder
+    from tlie_tpu_torch.models import build_models
+    from tlie_tpu_torch.ops import LAUNCHES
+    from tlie_tpu_torch.parallel import mesh
+    from tlie_tpu_torch.training import train
+    from tlie_tpu_torch.training.schedules import lr_for_step
+
+    t_start = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="tlie_tp_")
+    bases = {"sm": MQAR_SM_ATTENTION_FULL, "lru": MQAR_LRU_FULL}
+
+    def run_cfg(job, mp, save=None):
+        cfg = copy.deepcopy(bases[job])
+        cfg["dataset"].update(num_train_examples=TP_TRAIN_EXAMPLES,
+                              num_test_examples=TP_TEST_EXAMPLES)
+        cfg["train"].update(total_steps=TP_STEPS, eval_every=TP_STEPS, warmup_steps=TP_WARMUP,
+                            model_parallel=mp)
+        cfg["save"] = save
+        return derive_runtime_fields(cfg, cfg["model"]["seq_len"], TP_TRAIN_EXAMPLES)
+
+    def counts():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return {k: v for k, v in LAUNCHES.items() if v}
+
+    launches = {}
+    try:
+        sm1 = run_cfg("sm", 1, save=os.path.join(tmp, "one", "mqar-sm-attention"))
+        n_layers = sm1["model"]["num_layers"]
+        bsz = sm1["train"]["batch_size"]
+        n_eval = TP_TEST_EXAMPLES // bsz
+        with Phase("tp_data") as ph:
+            data = MQAR(**sm1["dataset"])
+            train_split, test_split = data.split("train"), data.split("test")
+            if run_cfg("lru", 1)["dataset"] != sm1["dataset"]:
+                raise AssertionError("path 39's LRU reads another MQAR split")
+            ph.fields.update(generator=data.generator, train=train_split[0].shape)
+        lr_sums = {}
+        for job in bases:
+            f = train_fields(run_cfg(job, 1))
+            lr_sums[job] = sum(max(lr_for_step(s, f[k], f["warmup"], f["total_steps"],
+                                               f["cosine"], f["lr_min"]) for k in ("lr", "ssm_lr"))
+                               for s in range(TP_STEPS))
+        with Phase("tp_world_1_nccl") as ph:
+            mesh.init_process_group(dev, rank=0, world_size=1,
+                                    init_method=f"tcp://127.0.0.1:{mesh.free_port()}")
+            try:
+                ph.fields["backend"] = torch.distributed.get_backend()
+                data_s, vocab_s = mesh.mesh_2d(1)
+                ph.fields.update(tp_primitive_check(data_s, vocab_s, dev, TP_PRIM_SHAPE))
+                counts()
+                for k in LAUNCHES:
+                    LAUNCHES[k] = 0
+                got = tp_route_steps(sm1, data_s, vocab_s, train_split, dev, TP_NCCL_STEPS)
+                launches["world_1"] = counts()
+                want = {f"flash_attention_{k}": n_layers * TP_NCCL_STEPS
+                        for k in ("fwd", "bwd_dkv", "bwd_dq")}
+                if launches["world_1"] != want:
+                    raise AssertionError(f"path 39, m = 1: launches {launches['world_1']}, "
+                                         f"expected {want}")
+            finally:
+                mesh.destroy_process_group()
+            ref = tp_route_steps(sm1, None, None, train_split, dev, TP_NCCL_STEPS)
+            f = train_fields(sm1)
+            dp_compare(ph, "m1_vs_one_process", got, ref, TP_NCCL_STEPS * f["lr"],
+                       path="path 39")
+            ph.fields["launches"] = repr(launches["world_1"])
+        refs = {}
+        with Phase("tp_one_process") as ph:
+            for job, cfg in (("sm", sm1), ("lru", run_cfg("lru", 1))):
+                refs[job] = train(cfg, train_split, test_split, device=dev)
+                init = build_models(cfg["model"], generator=torch.Generator().manual_seed(
+                    cfg["seed"]), device=dev)[0].state_dict()
+                state = refs[job].model.state_dict()
+                moved = max((state[k] - v).abs().max().item() for k, v in init.items()
+                            if not k.endswith(("running_mean", "running_var")))
+                if moved <= 10 * DP_PARAM_ATOL:
+                    raise AssertionError(f"path 39's {job} weights moved {moved}")
+                ph.fields[f"{job}_history"] = repr([{k: round(v, 4) for k, v in r.items()}
+                                                    for r in refs[job].history])
+                ph.fields[f"{job}_moved"] = f"{moved:.3e}"
+        with Phase("tp_one_process_serving") as ph:
+            dec = Decoder.from_checkpoint(refs["sm"][0], device=dev)
+            prompts = torch.as_tensor(test_split[0][:bsz, :TP_PROMPT], device=dev)
+            want_tokens = {"greedy": dec.generate(prompts, TP_NEW),
+                           "sampled": dec.generate(prompts, TP_NEW, temperature=0.8, top_k=10,
+                                                   generator=torch.Generator(
+                                                       device=dev).manual_seed(39))}
+            ph.fields["tokens"] = repr({k: tuple(v.shape) for k, v in want_tokens.items()})
+        with Phase("tp_gloo_ranks") as ph:
+            out = os.path.join(tmp, "ranks")
+            os.makedirs(out)
+            spec = {"jobs": {"sm": run_cfg("sm", 2, save=os.path.join(tmp, "tp",
+                                                                      "mqar-sm-attention")),
+                             "lru": run_cfg("lru", 2)},
+                    "out": out, "backend": "gloo", "prim_shape": list(TP_PRIM_SHAPE),
+                    "serve": refs["sm"][0], "serve_batch": bsz, "prompt": TP_PROMPT,
+                    "n_new": TP_NEW, "port": mesh.free_port(),
+                    "device": (f"cuda:{torch.cuda.current_device()}" if dev.type == "cuda"
+                               else "cpu")}
+            spec_path = os.path.join(tmp, "spec.json")
+            with open(spec_path, "w") as fh:
+                json.dump(spec, fh)
+            t0 = time.perf_counter()
+            code = mesh.spawn([os.path.abspath(__file__), "--tp-rank", spec_path], 4,
+                              timeout=600)
+            ph.fields["spawn_s"] = f"{time.perf_counter() - t0:.2f}"
+            if code != 0:
+                raise AssertionError(f"path 39's four gloo processes exited with {code}")
+            ranks = []
+            for r in range(4):
+                with open(os.path.join(out, f"rank{r}.json")) as fh:
+                    ranks.append(json.load(fh))
+            for r, rank in enumerate(ranks):
+                ph.fields[f"primitives_rank{r}"] = repr(rank["primitives"])
+            flash = {f"flash_attention_{k}": n_layers * TP_STEPS
+                     for k in ("fwd", "bwd_dkv", "bwd_dq")}
+            evals = dict(flash, flash_attention_fwd=n_layers * (TP_STEPS + n_eval))
+            lru_layers = spec["jobs"]["lru"]["model"]["num_layers"]
+            want = {"sm": [evals, evals, flash, flash],
+                    "lru": [{"diag_scan": lru_layers * (TP_STEPS + n_eval),
+                             "diag_scan_bwd": lru_layers * TP_STEPS}] * 2}
+            for job, n in (("sm", 4), ("lru", 2)):
+                states = [torch.load(os.path.join(out, f"{job}-rank{r}.pt"), weights_only=True)
+                          for r in range(n)]
+                unequal = [k for s in states[1:] for k, v in states[0].items()
+                           if not torch.equal(s[k], v)]
+                if unequal:
+                    raise AssertionError(f"path 39 {job}: the ranks' states differ at {unequal}")
+                dp_compare(ph, f"{job}_vs_one_process", states[0], refs[job].model.state_dict(),
+                           lr_sums[job], ranks[0][job]["history"], refs[job].history,
+                           path="path 39")
+                launches[job] = [rank[job]["launches"] for rank in ranks[:n]]
+                if launches[job] != want[job]:
+                    raise AssertionError(f"path 39 {job}: launches per rank {launches[job]}, "
+                                         f"expected {want[job]}")
+            launches["decode"] = [rank["decode"]["launches"] for rank in ranks]
+            if launches["decode"] != [{"flash_attention_fwd": 2 * n_layers}] * 4:
+                raise AssertionError(f"path 39 serving: launches per rank {launches['decode']}")
+            for r in range(4):
+                tokens = torch.load(os.path.join(out, f"decode-rank{r}.pt"), weights_only=True)
+                for how, want_t in want_tokens.items():
+                    if not torch.equal(tokens[how], want_t.cpu()):
+                        raise AssertionError(f"path 39 serving, rank {r}: {how} tokens differ "
+                                             "from one process's")
+            ph.fields["launches_per_rank"] = repr(launches)
+        with Phase("tp_checkpoint_eval_eig") as ph:
+            tp_path = ranks[0]["sm"]["path"]
+            if not tp_path or any(rank["sm"]["path"] != tp_path for rank in ranks):
+                raise AssertionError(f"path 39: checkpoint paths {[r['sm']['path'] for r in ranks]}")
+            batch = test_split[0][:TP_EIG_BATCH]
+            eigs = []
+            for tag, path in (("tp", tp_path), ("one", refs["sm"][0])):
+                eig_dir = os.path.join(tmp, f"analysis_{tag}")
+                eigs.append(eval_eig(sm1, {"save_path": eig_dir}, 0.0, path, device=dev,
+                                     batch=batch)[0])
+                (run_dir,) = os.listdir(eig_dir)
+                files = sorted(os.listdir(os.path.join(eig_dir, run_dir)))
+                if files != want_files:
+                    raise AssertionError(f"path 39 artifacts {run_dir}: {files}")
+            rel = float(np.abs(eigs[0] - eigs[1]).max() / np.abs(eigs[1]).max())
+            ph.fields.update(eta_max_rel=f"{rel:.3e}/{TP_SPECTRA_RTOL:g}",
+                             eta_shape=eigs[0].shape)
+            if not (np.isfinite(eigs[0]).all() and rel <= TP_SPECTRA_RTOL):
+                raise AssertionError(f"path 39: the gathered checkpoint's η against one "
+                                     f"process's: {rel}")
+    finally:
+        mesh.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    secs = time.perf_counter() - t_start
+    print(f"[launches] path 39, vocab tensor parallelism: {launches}", flush=True)
+    print(f"[path 39 seconds] {secs:.2f}", flush=True)
+    return dict(launches, seconds=secs)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card",
@@ -7365,7 +7807,16 @@ def main() -> int:
     path38_all = {k: sum(r.get(k, 0) for runs in sp["world_2"].values() for r in runs)
                   for k in LAUNCHES}
     s18["path_38"] = sp["seconds"]
-    print(f"[paths 35-38 seconds] {json.dumps({k: round(v, 2) for k, v in s18.items()})} "
+    # main path 39, vocab tensor parallelism: the route at m = 1 over NCCL,
+    # then four gloo processes on the card (the softmax transformer's flash
+    # kernels at 2 × 2, serving over the data ranks, the LRU's scan kernels
+    # at 1 × 2), each rank's launches counted
+    tp = tensor_parallel_path(dev, want_files)
+    path39_all = {k: tp["world_1"].get(k, 0)
+                  + sum(r.get(k, 0) for job in ("sm", "lru", "decode") for r in tp[job])
+                  for k in LAUNCHES}
+    s18["path_39"] = tp["seconds"]
+    print(f"[paths 35-39 seconds] {json.dumps({k: round(v, 2) for k, v in s18.items()})} "
           f"total {sum(s18.values()):.2f}", flush=True)
     # main paths 16 and 17, the WikiText norm-attention LM alone and its
     # stacked seeds × rates sweep, then the pretrained-LM spectroscopy on a
@@ -7505,7 +7956,7 @@ def main() -> int:
                 + sum(c[name] for c in kernel_sweep_all.values())
                 + path32_all[name] + path33_all[name] + path34_all.get(name, 0)
                 + path35_all[name] + path36_all[name] + path37_all[name]
-                + path38_all[name])
+                + path38_all[name] + path39_all[name])
 
     kernels = [{
         "name": "diag_scan",
@@ -7632,10 +8083,13 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    # paths 37 and 38 start their ranks as ``chip_smoke.py --dp-rank SPEC``
-    # and ``--sp-rank SPEC``; the run itself takes no arguments
+    # paths 37-39 start their ranks as ``chip_smoke.py --dp-rank SPEC``,
+    # ``--sp-rank SPEC`` and ``--tp-rank SPEC``; the run itself takes no
+    # arguments
     if sys.argv[1:2] == ["--dp-rank"]:
         sys.exit(dp_rank_main(sys.argv[2]))
     if sys.argv[1:2] == ["--sp-rank"]:
         sys.exit(sp_rank_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--tp-rank"]:
+        sys.exit(tp_rank_main(sys.argv[2]))
     sys.exit(main())

@@ -261,9 +261,10 @@ def test_the_route_follows_data_mesh_rule(monkeypatch):
     """``data_shard`` is ``_data_mesh``'s rule: no group, no route; a batch
     the world size does not divide, or ``train.data_parallel: false``, no
     route; ``train_fields`` reads the flag (true by default) and still
-    refuses tensor parallelism; sequence parallelism it takes where the
-    world size divides the length, and its route leaves the data-parallel
-    one off."""
+    takes tensor parallelism, which the launcher refuses where its model
+    group does not divide the process count; sequence parallelism it takes
+    where the world size divides the length, and its route leaves the
+    data-parallel one off."""
     assert mesh.data_shard(8) is None
     monkeypatch.setattr(mesh, "process_shard", lambda: mesh.Shard(1, 4))
     assert mesh.data_shard(8) == mesh.Shard(1, 4)
@@ -272,8 +273,15 @@ def test_the_route_follows_data_mesh_rule(monkeypatch):
     assert train_fields(cfg)["data_parallel"] is True
     cfg["train"]["data_parallel"] = False
     assert train_fields(cfg)["data_parallel"] is False
-    with pytest.raises(NotImplementedError):
-        train_fields({**cfg, "train": {**cfg["train"], "model_parallel": 2}})
+    assert train_fields({**cfg, "train": {**cfg["train"], "model_parallel": 2}})[
+        "model_parallel"] == 2
+    from types import SimpleNamespace
+
+    from tlie_tpu_torch import launch
+
+    with pytest.raises(ValueError, match="not divisible by model_parallel=2"):
+        launch._processes(SimpleNamespace(nproc=3, device="cpu", sweep_parallel=False),
+                          {"train": {**cfg["train"], "model_parallel": 2}})
     sp = train_fields({**cfg, "train": {**cfg["train"], "sequence_parallel": 2}})
     assert sp["sequence_parallel"] == 2 and sp["data_parallel"] is False
     with pytest.raises(ValueError, match="not divisible"):

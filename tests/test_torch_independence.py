@@ -227,6 +227,14 @@ try:
         with sequence_parallel(mesh.Shard(0, 1, axis=1)):
             routed = [m1_eval(x), tf_eval(x)]
     assert all(torch.allclose(a, b, atol=1e-5) for a, b in zip(routed, plain))
+    # the tensor-parallel route (tp.py) at m = 1: one vocab-parallel forward
+    from tlie_tpu_torch.parallel.tp import VocabParallelLinear
+    data, vocab = mesh.mesh_2d(1)
+    tp_eval = build_models(tcfg, generator=torch.Generator().manual_seed(0), device="cpu",
+                           vocab_shard=vocab)[1]
+    with torch.no_grad():
+        assert torch.allclose(tp_eval(x), tf_eval(x), atol=1e-5)
+    assert isinstance(tp_eval.decoder, VocabParallelLinear) and tp_eval.logit_shard is vocab
 finally:
     mesh.destroy_process_group()
 assert not any(m in sys.modules and sys.modules[m] is not None for m in {forbidden!r})

@@ -108,9 +108,18 @@ def test_train_fields_refuse_what_is_not_ported():
     cfg = small_config()
     cfg["lang_model"] = True
     assert train_fields(cfg)["warmup"] == 60
-    bad = dict(cfg, train=dict(cfg["train"], model_parallel=2))
-    with pytest.raises(NotImplementedError, match="model_parallel"):
-        train_fields(bad)
+    # tensor parallelism is ported: model_parallel is taken, with the sparse
+    # and fused heads off, and a model group that does not divide the
+    # vocabulary raises where the leaves are split
+    tp = train_fields(dict(cfg, train=dict(cfg["train"], model_parallel=2)))
+    assert tp["model_parallel"] == 2 and not tp["sparse_head"] and not tp["fused_xent"]
+    assert train_fields(cfg)["model_parallel"] == 1
+    from tlie_tpu_torch.parallel import Shard, shard_vocab_parallel
+
+    model = build_models(cfg["model"], generator=torch.Generator(), device="cpu")[0]
+    assert cfg["model"]["output_dim"] % 3
+    with pytest.raises(ValueError, match="divisible by 3"):
+        shard_vocab_parallel(model, Shard(0, 3, vocab=True))
     # sequence parallelism is ported: the LRU takes it where it divides the
     # length, and refuses it beside model_parallel or where it does not
     sp = dict(cfg, train=dict(cfg["train"], sequence_parallel=2))

@@ -6,7 +6,8 @@ from .schema import (
     MQAR_MAMBA1_SMALL, MQAR_S4_FULL, MQAR_S5_FULL, MQAR_SM_ATTENTION_FULL, PATHFINDER_S4_FULL,
     SC_S5_MFCC_FULL, WIKITEXT_LRU_SHORT, WIKITEXT_NORM_ATTENTION_SHORT, ExperimentConfig,
     apply_sweep_point, checkpoint_name, derive_runtime_fields, expand_sweep, iter_sweep,
-    lang_model, load_experiment, load_sweep, load_yaml, step_driven, train_fields,
+    lang_model, load_experiment, load_sweep, load_yaml, model_parallel_of, step_driven,
+    train_fields,
 )
 
 __all__ = [
@@ -20,5 +21,5 @@ __all__ = [
     "WIKITEXT_NORM_ATTENTION_SHORT",
     "ExperimentConfig", "apply_sweep_point", "checkpoint_name", "derive_runtime_fields",
     "expand_sweep", "iter_sweep", "lang_model", "load_experiment", "load_sweep", "load_yaml",
-    "step_driven", "train_fields",
+    "model_parallel_of", "step_driven", "train_fields",
 ]

@@ -219,9 +219,15 @@ def step_driven(cfg: Dict[str, Any]) -> bool:
     )
 
 
-# train options the port does not carry yet (ROADMAP Queue 1 item 17c),
-# with the value that leaves them off
-_NOT_PORTED = {"model_parallel": 1}
+def model_parallel_of(cfg: Dict[str, Any]) -> int:
+    """``train.model_parallel`` (1, the route off, by default): the size of
+    the model group that splits the vocabulary (``tlie_tpu``'s ``mesh_2d``,
+    ``training/loop.py:221-230``).  Not beside ``sequence_parallel``
+    (:func:`sequence_parallel_of` raises); a count below 1 raises."""
+    m = int(cfg["train"].get("model_parallel") or 1)
+    if m < 1:
+        raise ValueError(f"train.model_parallel must be at least 1, not {m}")
+    return m
 
 
 def sequence_parallel_of(cfg: Dict[str, Any]) -> int:
@@ -261,14 +267,14 @@ def train_fields(cfg: Dict[str, Any]) -> Dict[str, Any]:
     ``train_size // batch_size`` steps an epoch (at least 1), ``num_epochs``
     of them, an eval at each epoch's end, and ``warmup`` in epochs.
     ``checkpoint_every`` (steps between resume snapshots, or None) and
-    ``resume`` come through, and so do ``data_parallel`` and
-    ``sequence_parallel`` (checked by :func:`sequence_parallel_of`).
-    Raises for tensor parallelism, which the port does not run yet."""
+    ``resume`` come through, and so do ``data_parallel``,
+    ``sequence_parallel`` (checked by :func:`sequence_parallel_of`) and
+    ``model_parallel`` (:func:`model_parallel_of`).  Under
+    ``model_parallel`` above 1 the fused and the sparse heads are off, as
+    ``tlie_tpu`` turns them off (``loop.py:302-306``, ``:339-341``)."""
     train = cfg["train"]
     sequence_parallel = sequence_parallel_of(cfg)
-    for key, off in _NOT_PORTED.items():
-        if train.get(key) not in (None, off):
-            raise NotImplementedError(f"train.{key} is not ported yet")
+    model_parallel = model_parallel_of(cfg)
     bsz = int(train["batch_size"])
     if step_driven(cfg):
         total = int(train["total_steps"])
@@ -296,7 +302,8 @@ def train_fields(cfg: Dict[str, Any]) -> Dict[str, Any]:
         "plateau": "reduce_factor" in train,
         "reduce_factor": train.get("reduce_factor", 0.2),
         "lr_patience": train.get("lr_patience", 20),
-        "sparse_head": train.get("sparse_head", True),
+        "sparse_head": bool(train.get("sparse_head", True)) and model_parallel == 1,
+        "fused_xent": bool(train.get("fused_xent", False)) and model_parallel == 1,
         "checkpoint_every": int(every) if every else None,
         "resume": bool(train.get("resume", False)),
         # the data-parallel route where a process group runs the loop
@@ -306,6 +313,8 @@ def train_fields(cfg: Dict[str, Any]) -> Dict[str, Any]:
         "data_parallel": bool(train.get("data_parallel", True)) and sequence_parallel == 1,
         # the sequence-parallel route's process count (1: off)
         "sequence_parallel": sequence_parallel,
+        # the tensor-parallel route's model group size (1: off)
+        "model_parallel": model_parallel,
         # train.param_group's optimiser group (training/state.py): its fixed
         # rate, with tlie_tpu's default (loop.py:197-198, 347)
         "group_lr": train.get("group_lr", 1e-3),

@@ -58,6 +58,16 @@ the teacher-forced step path, the parity surface against the full forward.
 ``generate`` is greedy at temperature 0 and otherwise samples from an
 explicit ``torch.Generator``, with top-k and top-p.
 
+``shard`` (a data :class:`~tlie_tpu_torch.parallel.mesh.Shard`, the
+counterpart of ``tlie_tpu``'s 1-axis serving ``mesh=``, ``decode.py:128-152``,
+``:720-729``) serves over the ranks of a process group: each rank decodes
+its rows of the prompt batch with the whole (replicated) weights, a sampled
+token is drawn from the global batch's probabilities, gathered, with the
+one generator every rank holds in the same state, and each rank keeps its
+rows; ``generate`` gathers the tokens, so every rank returns the one-process
+decode's.  A shard of time steps or of the vocabulary raises, as
+``tlie_tpu`` refuses a mesh of more than one axis.
+
 The decoder serves an eval-mode copy of the model it is given (embeddings,
 norms, mixers, head): the weights as they were when it was built, as
 ``tlie_tpu``'s decoder serves the params tree it was handed.  The caller's
@@ -95,10 +105,16 @@ class Decoder:
     ...                    generator=torch.Generator("cuda").manual_seed(0))
 
     ``params`` is a port ``state_dict`` (as ``compat.params_from_jax`` gives
-    it) or a built model, which is copied, not changed."""
+    it) or a built model, which is copied, not changed.  ``shard`` serves
+    the batch over a process group's data ranks (see the module
+    docstring)."""
 
     def __init__(self, model_cfg: Dict[str, Any], params: Union[Mapping[str, torch.Tensor], nn.Module],
-                 *, device="cuda", state_dtype: torch.dtype = torch.float32):
+                 *, device="cuda", state_dtype: torch.dtype = torch.float32, shard=None):
+        if shard is not None and (shard.vocab or shard.axis != 0):
+            raise ValueError("the serving shard must split the batch alone: a shard of the "
+                             "vocabulary or of time steps is a layout of more than one axis")
+        self.shard = shard
         cfg = dict(model_cfg)
         if cfg.get("classifier", False) or cfg.get("dual", False):
             raise ValueError("decode targets per-position LM heads "
@@ -148,8 +164,8 @@ class Decoder:
         (:func:`tlie_tpu_torch.training.save_checkpoint`'s ``{"model":
         state_dict, "config": {"model", ...}}``): the model built from
         ``config["model"]`` and loaded with the state dict, BatchNorm
-        statistics included.  ``kwargs`` (``device``, ``state_dtype``) pass
-        through."""
+        statistics included.  ``kwargs`` (``device``, ``state_dtype``,
+        ``shard``) pass through."""
         ckpt = restore_checkpoint(path)
         return cls(ckpt["config"]["model"], ckpt["model"], **kwargs)
 
@@ -598,16 +614,32 @@ class Decoder:
         tempered distribution, unlike ``tlie_tpu``, which takes it before
         dividing.  Sampling needs ``generator``, a ``torch.Generator`` on
         the decoder's device.  For a transformer with a position table L0 +
-        n_new must fit ``max_pos_embed``."""
+        n_new must fit ``max_pos_embed``.  With the decoder's ``shard`` every
+        rank passes the whole prompt batch, which the shard's size must
+        divide, and takes the whole output."""
         if temperature > 0.0 and generator is None:
             raise ValueError("sampling requires a torch.Generator (generator=...)")
         prompt = self._tokens(prompt)
+        shard = self.shard
+        if shard is not None:
+            if prompt.shape[0] % shard.world:
+                raise ValueError(f"batch {prompt.shape[0]} not divisible by the serving "
+                                 f"shard's {shard.world} ranks")
+            prompt = shard.rows(prompt)
         L0 = prompt.shape[1]
         cache, logits = self.prefill(prompt, L0 + n_new)
         toks = []
         for i in range(n_new):
-            tok = self.next_token(logits, temperature, top_k, top_p, generator)
+            if shard is not None and temperature > 0.0:
+                # the global batch's draw from the one generator, this rank's rows
+                probs = torch.softmax(self.sampling_logits(logits, temperature, top_k, top_p),
+                                      dim=-1)
+                tok = shard.rows(torch.multinomial(shard.gather_rows(probs), 1,
+                                                   generator=generator)[:, 0])
+            else:
+                tok = self.next_token(logits, temperature, top_k, top_p, generator)
             toks.append(tok)
             if i + 1 < n_new:  # the last token needs no further step
                 cache, logits = self.step(cache, tok, L0 + i)
-        return torch.cat([prompt] + [t[:, None] for t in toks], dim=1)
+        out = torch.cat([prompt] + [t[:, None] for t in toks], dim=1)
+        return out if shard is None else shard.gather_rows(out)

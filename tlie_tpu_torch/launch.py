@@ -95,6 +95,15 @@ one card and no ``--nproc`` nothing changes:
     python -m tlie_tpu_torch.launch --config configs/mqar-lru-small.yaml --device cpu --nproc 4
     torchrun --nproc_per_node 8 -m tlie_tpu_torch.launch --config tasks/mqar/mqar-lru.yaml
 
+Vocab tensor parallelism (``train.model_parallel: m``): the launcher
+starts W processes, W the ``--nproc`` given or every visible card (m with
+``--device cpu`` and no ``--nproc``), m dividing W; rank r holds the
+vocabulary rows of model index r % m and the batch rows of data index
+r // m (:mod:`tlie_tpu_torch.parallel.tp`):
+
+    python -m tlie_tpu_torch.launch --config <a config with it> --device cpu --nproc 4
+    torchrun --nproc_per_node 8 -m tlie_tpu_torch.launch --config <a config with it>
+
 Sequence parallelism (``train.sequence_parallel: N``, the LRU, S5,
 Mamba-1 and the transformer): the launcher starts N processes, one per card
 (NCCL), or N gloo processes with ``--device cpu``; each holds L/N time steps
@@ -162,7 +171,8 @@ def main(argv=None) -> int:
     parser.add_argument("--nproc", type=int, default=None,
                         help="data-parallel processes (default: one per visible card where "
                              "more than one is visible and the batch divides; with --device "
-                             "cpu, N gloo processes); train.sequence_parallel: N takes N")
+                             "cpu, N gloo processes); train.sequence_parallel: N takes N; "
+                             "train.model_parallel: m takes every card, or m on the CPU")
     args = parser.parse_args(argv)
 
     base = sweep = None
@@ -191,13 +201,30 @@ def main(argv=None) -> int:
 
 
 def _processes(args, cfg) -> int:
-    """How many processes the run takes: ``train.sequence_parallel``'s N
-    where it is above 1 (a ``--nproc`` that differs raises, and so does a
-    card run with fewer than N cards); ``--nproc``; else, on the card, one
-    per visible card where more than one is visible and the data-parallel
-    route applies (``tlie_tpu`` shards over every local device by default);
-    else none (0: no process group)."""
+    """How many processes the run takes: under ``train.model_parallel: m``
+    above 1, ``--nproc`` or else every visible card (``tlie_tpu``'s mesh
+    takes every local device), m on the CPU, raising where m does not
+    divide it, where fewer cards are visible, or beside ``--sweep_parallel``;
+    ``train.sequence_parallel``'s N where it is above 1 (a ``--nproc`` that
+    differs raises, and so does a card run with fewer than N cards);
+    ``--nproc``; else, on the card, one per visible card where more than
+    one is visible and the data-parallel route applies (``tlie_tpu`` shards
+    over every local device by default); else none (0: no process
+    group)."""
     sp = int(cfg["train"].get("sequence_parallel") or 1)
+    mp = int(cfg["train"].get("model_parallel") or 1)
+    if mp > 1 and sp == 1:
+        if args.sweep_parallel:
+            raise ValueError("--sweep_parallel and train.model_parallel exclude each other")
+        card = torch.device(args.device).type == "cuda" and torch.cuda.is_available()
+        n = args.nproc if args.nproc is not None else (
+            torch.cuda.device_count() if card else mp)
+        if n % mp:
+            raise ValueError(f"{n} processes not divisible by model_parallel={mp}")
+        if card and torch.cuda.device_count() < n:
+            raise ValueError(f"train.model_parallel takes one card a process: {n} processes, "
+                             f"{torch.cuda.device_count()} cards visible")
+        return n
     if sp > 1:
         if args.nproc is not None and args.nproc != sp:
             raise ValueError(f"--nproc {args.nproc} differs from train.sequence_parallel {sp}")

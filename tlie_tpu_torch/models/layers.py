@@ -251,12 +251,18 @@ class TokenEmbeddings(nn.Module):
             if max_position_embeddings > 0 else None)
         self.compute_dtype = compute_dtype
 
-    def _embed(self, table: nn.Embedding, ids: torch.Tensor) -> torch.Tensor:
+    def _embed(self, table: nn.Module, ids: torch.Tensor) -> torch.Tensor:
         """Rows of the table, cast to ``compute_dtype`` first as flax's
-        ``Embed(dtype=...)`` casts its table."""
+        ``Embed(dtype=...)`` casts its table.  Under tensor parallelism the
+        token table is this rank's rows
+        (:class:`~tlie_tpu_torch.parallel.tp.VocabParallelEmbedding`), which
+        takes the cast table in its own lookup."""
         if self.compute_dtype is None:
             return table(ids)
-        return F.embedding(ids, table.weight.to(self.compute_dtype))
+        weight = table.weight.to(self.compute_dtype)
+        if getattr(table, "vocab_parallel", False):
+            return table(ids, weight)
+        return F.embedding(ids, weight)
 
     def forward(self, input_ids: torch.Tensor, position_ids=None) -> torch.Tensor:
         if input_ids.is_floating_point():

@@ -26,7 +26,8 @@ MODEL_FAMILIES = ("mamba", "transformer", "lru", "s4", "s5")
 
 
 def build_models(model_config: Dict[str, Any], padded: bool = False, *,
-                 generator: torch.Generator, device="cuda") -> Tuple[nn.Module, nn.Module, str]:
+                 generator: torch.Generator, device="cuda",
+                 vocab_shard=None) -> Tuple[nn.Module, nn.Module, str]:
     """``(train_model, eval_model, family)`` for ``model_config`` on
     ``device``; ``padded`` (the config's ``train.padded``) makes the SSM
     backbone take ``(inputs, lengths)`` for its masked pool, as in
@@ -43,7 +44,15 @@ def build_models(model_config: Dict[str, Any], padded: bool = False, *,
     logits, not log-probs (argmax, masked CE and perplexity do not change).
     ``model.compute_dtype`` is ``float32`` (the default) or ``bfloat16`` for
     every family, which the models read as flax's ``dtype=`` (the
-    parameters stay float32); any other dtype raises."""
+    parameters stay float32); any other dtype raises.
+
+    ``vocab_shard`` (tensor parallelism, the model group's
+    :class:`~tlie_tpu_torch.parallel.mesh.Shard` of
+    :func:`~tlie_tpu_torch.parallel.mesh.mesh_2d`): the whole model is
+    built first, from ``generator``, then its model-level token table and
+    decoder are cut to this rank's rows
+    (:func:`~tlie_tpu_torch.parallel.tp.shard_vocab_parallel`), so the
+    route starts from the one-process run's weights."""
     layer = model_config["layer"]
     if layer not in MODEL_FAMILIES:
         raise RuntimeError(f"{layer} is not a valid model option")
@@ -56,6 +65,10 @@ def build_models(model_config: Dict[str, Any], padded: bool = False, *,
     else:
         model = {"mamba": Mamba, "transformer": Transformer}[layer](model_config, generator)
     model = model.to(dev)
+    if vocab_shard is not None:
+        from ..parallel.tp import shard_vocab_parallel
+
+        shard_vocab_parallel(model, vocab_shard)
     seed = int(torch.randint(2**62, (1,), generator=generator))
     dropout_gen = torch.Generator(device=dev).manual_seed(seed)
     for m in model.modules():
@@ -63,6 +76,8 @@ def build_models(model_config: Dict[str, Any], padded: bool = False, *,
             m.generator = dropout_gen
     shared = {id(t): t for t in itertools.chain(model.parameters(), model.buffers())}
     shared[id(dropout_gen)] = dropout_gen
+    if vocab_shard is not None:  # its process group is shared, not copied
+        shared[id(vocab_shard)] = vocab_shard
     eval_model = copy.deepcopy(model, shared)
     return model.train(), eval_model.eval(), layer
 

@@ -37,6 +37,13 @@ that gloo takes for CUDA tensors (an all-reduce) or, for the ring's
 point-to-point messages, staged through the host under gloo; under NCCL the
 tensors go directly.
 
+Tensor parallelism (ROADMAP Queue 1 item 17c) lays the group out in two
+dimensions (:func:`mesh_2d`): a data shard whose collectives run over the
+ranks of one model index, and a model shard over the ranks of one data
+index, which split the vocabulary (:mod:`.tp`).  Every collective of a
+:class:`Shard` runs on its own ``group`` (the default group where it has
+none).
+
 A collective's backward is a collective too, so it must run on every rank:
 the callers keep every rank's autograd graph the same, selecting by rank
 with masks and slices, never by leaving a gathered tensor unused on some
@@ -51,7 +58,7 @@ import subprocess
 import sys
 import time
 from dataclasses import dataclass
-from typing import Any, Iterable, List, Optional, Sequence
+from typing import Any, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -60,14 +67,22 @@ import torch.nn.functional as F
 
 @dataclass(frozen=True)
 class Shard:
-    """One process's place in the default process group: its ``rank`` of
-    ``world``, and the axis of a global batch it holds a part of: its rows
-    (``axis`` 0, data parallelism) or its time steps (``axis`` 1, sequence
-    parallelism)."""
+    """One process's place in a process group: its ``rank`` of ``world``
+    in ``group`` (None: the default group), and the axis of a global batch
+    it holds a part of: its rows (``axis`` 0, data parallelism) or its time
+    steps (``axis`` 1, sequence parallelism).  ``vocab`` marks the model
+    group of tensor parallelism (:func:`mesh_2d`), whose ranks hold the
+    same rows and split the vocabulary (:mod:`.tp`)."""
 
     rank: int
     world: int
     axis: int = 0
+    group: Any = None
+    vocab: bool = False
+
+    def global_rank(self, rank: int) -> int:
+        """The default group's rank of this group's ``rank``."""
+        return rank if self.group is None else dist.get_global_rank(self.group, rank)
 
     def rows(self, t: torch.Tensor) -> torch.Tensor:
         """This rank's contiguous rows of a global batch (its leading axis,
@@ -101,7 +116,11 @@ class Shard:
         of the gradients of its own slot (``lax.all_gather``'s transpose).
         Both passes are one all-reduce, which gloo takes for CUDA tensors
         as well (it has no reduce-scatter for the backward)."""
-        return _GatherOverGroup.apply(t)
+        return _GatherOverGroup.apply(t, self)
+
+    def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """The global batch of which every rank holds its rows ``t``."""
+        return torch.cat(self.all_gather(t).unbind(0), dim=0)
 
     def gather_steps(self, t: torch.Tensor, dim: int = 1) -> torch.Tensor:
         """The global tensor of which every rank holds its time steps ``t``:
@@ -112,7 +131,7 @@ class Shard:
         """``t`` sent to rank + 1 and rank − 1's received (a ring,
         ``lax.ppermute`` with ``(i, i + 1 mod n)``), differentiable: the
         backward sends the gradient the other way round."""
-        return _RingShift.apply(t)
+        return _RingShift.apply(t, self)
 
     def halo(self, x: torch.Tensor, k: int, dim: int = 1) -> torch.Tensor:
         """The ``k`` time steps just before this rank's shard ``x`` (time at
@@ -131,14 +150,14 @@ class Shard:
     def sum(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` summed over the group (a new tensor; no gradient)."""
         out = t.detach().clone()
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=self.group)
         return out
 
     def sum_with_grad(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` summed over the group, differentiable: the backward sums the
         ranks' gradients, as the derivative of the group's total loss
         asks."""
-        return _SumOverGroup.apply(t)
+        return _SumOverGroup.apply(t, self)
 
     def sum_grads(self, params: Iterable[torch.nn.Parameter]) -> None:
         """Every parameter's gradient summed over the group, in place, in one
@@ -151,7 +170,7 @@ class Shard:
                 by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
         for grads in by_dtype.values():
             flat = torch.cat([g.reshape(-1) for g in grads])
-            dist.all_reduce(flat)
+            dist.all_reduce(flat, group=self.group)
             offset = 0
             for g in grads:
                 g.copy_(flat[offset:offset + g.numel()].view_as(g))
@@ -169,23 +188,23 @@ class Shard:
         """Rank 0's parameters and buffers on every rank."""
         with torch.no_grad():
             for t in list(module.parameters()) + list(module.buffers()):
-                dist.broadcast(t.data, 0)
+                dist.broadcast(t.data, self.global_rank(0), group=self.group)
 
     def broadcast(self, obj: Any) -> Any:
         """Rank 0's (picklable) ``obj`` on every rank."""
         box = [obj]
-        dist.broadcast_object_list(box, 0)
+        dist.broadcast_object_list(box, self.global_rank(0), group=self.group)
         return box[0]
 
     def gather(self, obj: Any) -> Optional[List[Any]]:
         """Every rank's (picklable) ``obj``, in rank order, on rank 0; None
         elsewhere."""
         out = [None] * self.world if self.rank == 0 else None
-        dist.gather_object(obj, out, dst=0)
+        dist.gather_object(obj, out, dst=self.global_rank(0), group=self.group)
         return out
 
     def barrier(self) -> None:
-        dist.barrier()
+        dist.barrier(group=self.group)
 
 
 class _GatherOverGroup(torch.autograd.Function):
@@ -193,32 +212,34 @@ class _GatherOverGroup(torch.autograd.Function):
     backward each one all-reduce (this rank's slot of a zero buffer)."""
 
     @staticmethod
-    def forward(ctx, t):
-        out = t.new_zeros((dist.get_world_size(), *t.shape))
-        out[dist.get_rank()] = t
-        dist.all_reduce(out)
+    def forward(ctx, t, shard):
+        ctx.shard = shard
+        out = t.new_zeros((shard.world, *t.shape))
+        out[shard.rank] = t
+        dist.all_reduce(out, group=shard.group)
         return out
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(g)
-        return g[dist.get_rank()]
+        dist.all_reduce(g, group=ctx.shard.group)
+        return g[ctx.shard.rank], None
 
 
-def _shift(t: torch.Tensor, by: int) -> torch.Tensor:
+def _shift(t: torch.Tensor, by: int, shard: Shard) -> torch.Tensor:
     """``t`` sent to rank + ``by`` and rank − ``by``'s received, both
     messages in flight at once.  Gloo's point-to-point messages take CPU
     tensors only, so a CUDA tensor travels through the host there; NCCL
     takes it directly."""
-    world, rank = dist.get_world_size(), dist.get_rank()
+    world, rank = shard.world, shard.rank
     if world == 1:
         return t.clone()
-    host = t.is_cuda and dist.get_backend() != "nccl"
+    host = t.is_cuda and dist.get_backend(shard.group) != "nccl"
     send = (t.cpu() if host else t).contiguous()
     recv = torch.empty_like(send)
-    for work in dist.batch_isend_irecv([dist.P2POp(dist.isend, send, (rank + by) % world),
-                                        dist.P2POp(dist.irecv, recv, (rank - by) % world)]):
+    ops = [dist.P2POp(dist.isend, send, shard.global_rank((rank + by) % world), shard.group),
+           dist.P2POp(dist.irecv, recv, shard.global_rank((rank - by) % world), shard.group)]
+    for work in dist.batch_isend_irecv(ops):
         work.wait()
     return recv.to(t.device) if host else recv
 
@@ -227,12 +248,13 @@ class _RingShift(torch.autograd.Function):
     """:meth:`Shard.ring_shift` with autograd."""
 
     @staticmethod
-    def forward(ctx, t):
-        return _shift(t, 1)
+    def forward(ctx, t, shard):
+        ctx.shard = shard
+        return _shift(t, 1, shard)
 
     @staticmethod
     def backward(ctx, g):
-        return _shift(g, -1)
+        return _shift(g, -1, ctx.shard), None
 
 
 class _SumOverGroup(torch.autograd.Function):
@@ -242,16 +264,17 @@ class _SumOverGroup(torch.autograd.Function):
     which is deprecated)."""
 
     @staticmethod
-    def forward(ctx, t):
+    def forward(ctx, t, shard):
+        ctx.shard = shard
         out = t.clone()
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=shard.group)
         return out
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone()
-        dist.all_reduce(g)
-        return g
+        dist.all_reduce(g, group=ctx.shard.group)
+        return g, None
 
 
 def process_shard() -> Optional[Shard]:
@@ -286,6 +309,29 @@ def seq_shard(n: int) -> Shard:
         raise ValueError(f"sequence_parallel={n} needs a process group of {n} processes "
                          f"(tlie_tpu_torch.launch starts one); this process has {have}")
     return Shard(shard.rank, shard.world, axis=1)
+
+
+def mesh_2d(n_model: int) -> Tuple[Shard, Shard]:
+    """This process's (data, model) shards of a 2-D layout of the default
+    group, ``tlie_tpu/parallel/tp.py::mesh_2d``'s ``reshape(W // m, m)``
+    (``:94-102``): rank r has data index r // m and model index r % m.  The
+    model group of data index d holds ranks {d·m, …, d·m + m − 1} and the
+    data group of model index j ranks {j, j + m, …}.  The data shard holds
+    rows (``axis`` 0) in the data group; the model shard (``vocab``) splits
+    the vocabulary in the model group.  Every rank makes every subgroup, in
+    the same order (``dist.new_group`` is collective over the default
+    group).  Raises where ``n_model`` does not divide the world size."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if n_model < 1 or world % n_model:
+        raise ValueError(f"{world} devices not divisible by model_parallel={n_model}")
+    n_data = world // n_model
+    d, j = divmod(rank, n_model)
+    data_groups = [dist.new_group([i * n_model + k for i in range(n_data)])
+                   for k in range(n_model)]
+    model_groups = [dist.new_group(list(range(i * n_model, (i + 1) * n_model)))
+                    for i in range(n_data)]
+    return (Shard(d, n_data, group=data_groups[j]),
+            Shard(j, n_model, group=model_groups[d], vocab=True))
 
 
 def is_main() -> bool:

@@ -47,8 +47,19 @@ summed over the group, and the eval gathers the per-position outputs, so the
 route takes the one-process run's steps and numbers.  Rank 0 writes the
 checkpoints and the logs.
 
-Not ported yet, and refused by :func:`tlie_tpu_torch.config.train_fields`:
-tensor parallelism.
+With ``train.model_parallel: m`` above 1 the tensor-parallel route runs
+(``tlie_tpu``'s ``mesh_2d``, ``loop.py:221-230``, ``:276-280``): the group
+is laid out as (data, model) (:func:`tlie_tpu_torch.parallel.mesh.mesh_2d`),
+the whole model is built and its token table and decoder cut to the model
+rank's V/m rows (:mod:`tlie_tpu_torch.parallel.tp`), and the data shard
+takes the data-parallel route's part: the rows, the loss denominators,
+BatchNorm's statistics, the dropout masks and the gradient sums.  The loss
+and the eval's metric span the model group; the fused and sparse heads are
+off, as in ``tlie_tpu``.  The ranks of data index 0 evaluate together.
+Rank 0 writes the checkpoint, the resume snapshot and the logs in the
+one-process layout, the split leaves (and their moments) gathered over the
+model group; a resume cuts them again on every rank.  The returned
+``.model`` is the whole model, gathered.
 """
 
 from __future__ import annotations
@@ -61,15 +72,16 @@ from typing import Any, Dict, Optional, Set, Tuple
 import numpy as np
 import torch
 
-from ..config import checkpoint_name, lang_model, train_fields
+from ..config import checkpoint_name, lang_model, model_parallel_of, train_fields
 from ..data import DATASETS
 from ..device import resolve_device
 from ..models.layers import Dropout
 from ..models.registry import build_models
 from ..ops.fused_xent import fused_xent_eligible
 from ..ops.scan import sequence_parallel
-from ..parallel.mesh import data_shard, seq_shard
+from ..parallel.mesh import Shard, data_shard, mesh_2d, process_shard, seq_shard
 from ..parallel.sp import sp_inputs
+from ..parallel.tp import gather_vocab_parallel
 from ..utils.logging import RunLogger
 from .checkpoint import restore_resume, save_checkpoint, save_resume
 from .scan_loop import (
@@ -100,11 +112,13 @@ def use_fused_head(cfg: Dict[str, Any], batch_size: int) -> bool:
     whose (B·L, D) rows the fused head takes (``loop.py:292-325``, without
     ``tlie_tpu``'s TPU-only condition: the port runs the plain version on
     the CPU and the kernels on the card); under the sequence-parallel route
-    a rank's B·L/N rows."""
+    a rank's B·L/N rows; off under ``train.model_parallel`` above 1
+    (``loop.py:302-306``)."""
     model_cfg = cfg["model"]
     n = int(cfg["train"].get("sequence_parallel") or 1)
     return (
         bool(cfg["train"].get("fused_xent", False))
+        and model_parallel_of(cfg) == 1
         and bool(cfg.get("lang_model", lang_model(cfg)))
         and per_position(model_cfg)
         and fused_xent_eligible(batch_size * model_cfg["seq_len"] // n,
@@ -206,16 +220,23 @@ def train(cfg: Dict[str, Any], train_split: Tuple[np.ndarray, ...],
                              f"one batch of {bsz}")
     metric = DATASETS[cfg["dataset"]["_name_"]].get_metrics()
     # the sequence-parallel route takes the whole group, the data-parallel
-    # one is off under it (tlie_tpu's loop.py:251-254)
+    # one is off under it (tlie_tpu's loop.py:251-254); the tensor-parallel
+    # route lays the group out as (data, model)
     seq = seq_shard(f["sequence_parallel"]) if f["sequence_parallel"] > 1 else None
-    shard = data_shard(bsz, f["data_parallel"]) if seq is None else None
+    vocab = None
+    if f["model_parallel"] > 1:
+        shard, vocab = _tensor_shards(f["model_parallel"], bsz)
+    else:
+        shard = data_shard(bsz, f["data_parallel"]) if seq is None else None
     group = seq if seq is not None else shard
-    main = group is None or group.rank == 0
+    world = None if group is None else process_shard()
+    main = (group is None or group.rank == 0) and (vocab is None or vocab.rank == 0)
     say = print if main else (lambda *a, **k: None)
 
     logger = RunLogger(wandb_config, run_name(cfg, wandb_config)) if main else None
     model, eval_model, family = build_models(
-        model_cfg, padded, generator=torch.Generator().manual_seed(cfg["seed"]), device=dev)
+        model_cfg, padded, generator=torch.Generator().manual_seed(cfg["seed"]), device=dev,
+        vocab_shard=vocab)
     if group is not None:
         group.broadcast_module(model)
         group.attach(model)  # BatchNorm's global statistics, Dropout's global masks
@@ -223,11 +244,14 @@ def train(cfg: Dict[str, Any], train_split: Tuple[np.ndarray, ...],
         if seq is not None:
             say(f"[train] sequence parallel: time axis {model_cfg['seq_len']} over "
                 f"{seq.world} processes ({backend})")
+        elif vocab is not None:
+            say(f"[train] tensor parallel: vocabulary over {vocab.world} processes, batch "
+                f"{bsz} over {shard.world} ({backend})")
         else:
             say(f"[train] data parallel: batch {bsz} over {shard.world} processes ({backend})")
-    nr_params = sum(p.numel() for p in model.parameters())
+    nr_params = sum(_whole_numel(p) for p in model.parameters())
     embed = getattr(model.encoder, "encoder", model.encoder)  # the SSM backbone nests it
-    nr_encoder = sum(p.numel() for p in embed.parameters())
+    nr_encoder = sum(_whole_numel(p) for p in embed.parameters())
     say(f"Nr. of parameters: {nr_params} (encoder: {nr_encoder})")
     if main:
         logger.log({"params": nr_params, "params without encoder": nr_params - nr_encoder})
@@ -261,7 +285,7 @@ def train(cfg: Dict[str, Any], train_split: Tuple[np.ndarray, ...],
     history = []
     snap_path = resume_path(cfg)
     if snap_path and f["resume"] and os.path.isfile(snap_path):
-        meta = restore_resume(snap_path, model, optimizer)
+        meta = restore_resume(snap_path, model, optimizer, vocab=vocab)
         step, history, best = int(meta["step"]), list(meta["history"]), dict(meta["best"])
         plateau = PlateauState(*meta["plateau"])
         if dropout_gen is not None:
@@ -334,19 +358,23 @@ def train(cfg: Dict[str, Any], train_split: Tuple[np.ndarray, ...],
             stop = True
         since_snap += k
         if snap_path and since_snap >= f["checkpoint_every"] and not stop and step < total:
+            whole = {}
+            if vocab is not None:  # the split leaves and their moments, joined
+                whole = dict(zip(("state", "optimizer_state"),
+                                 gather_vocab_parallel(model, vocab, optimizer)))
             if main:
                 save_resume(snap_path, model, optimizer, {
                     "step": step, "plateau": tuple(plateau), "best": best, "history": history,
                     "data_rng": nprng.bit_generator.state,
                     "dropout_rng": None if dropout_gen is None else dropout_gen.get_state(),
-                })
-            if group is not None:
-                group.barrier()
+                }, **whole)
+            if world is not None:
+                world.barrier()
             since_snap = 0
             say(f"[train] resume snapshot at step {step}")
 
-    if group is not None:  # every rank has read the snapshot it resumed from
-        group.barrier()
+    if world is not None:  # every rank has read the snapshot it resumed from
+        world.barrier()
     if main and snap_path and os.path.isfile(snap_path):
         os.remove(snap_path)  # the run completed: the snapshot is obsolete
     if np.isinf(test_loss):  # no eval boundary was reached
@@ -355,20 +383,48 @@ def train(cfg: Dict[str, Any], train_split: Tuple[np.ndarray, ...],
     say(f"Best test perf: {best['perf']:.4f} (test loss {best['loss']:.4f}, "
         f"step {best['step']})")
 
+    if vocab is not None:  # the whole model, its split leaves gathered
+        state, _ = gather_vocab_parallel(model, vocab)
+        model, eval_model, _ = build_models(model_cfg, padded, generator=torch.Generator(),
+                                            device=dev)
+        model.load_state_dict(state)
     path = save_trained(cfg, model, test_perf, used_paths) if main else None
-    if group is not None:
-        path = group.broadcast(path)
+    if world is not None:
+        path = world.broadcast(path)
     if main:
         logger.finish()
     return TrainResult(path, test_perf, model, eval_model, history, optimizer)
 
 
+def _tensor_shards(n_model: int, batch_size: int) -> Tuple[Shard, Shard]:
+    """The tensor-parallel route's (data, model) shards of the started
+    group (:func:`~tlie_tpu_torch.parallel.mesh.mesh_2d`); raises where no
+    group runs, where ``n_model`` does not divide it, or where the data
+    size does not divide the batch (``tlie_tpu``'s ``loop.py:226-230``)."""
+    if process_shard() is None:
+        raise ValueError(f"model_parallel={n_model} needs a process group "
+                         "(tlie_tpu_torch.launch starts one); this process has none")
+    data, vocab = mesh_2d(n_model)
+    if batch_size % data.world:
+        raise ValueError(f"batch {batch_size} not divisible by data axis {data.world}")
+    return data, vocab
+
+
+def _whole_numel(p: torch.nn.Parameter) -> int:
+    """A parameter's element count in the one-process model (a split leaf's
+    times the model group's size)."""
+    vocab = getattr(p, "vocab_shard", None)
+    return p.numel() * (1 if vocab is None else vocab.world)
+
+
 def _evaluate_on_main(eval_model, test_data, eval_idx, sparse_k, metric, shard):
     """``evaluate``'s (loss, metric), on rank 0 alone under the data-parallel
-    route and broadcast from there, so every rank takes the same plateau and
-    stopping decisions.  Under the sequence-parallel route every rank runs
-    the eval on its time steps, inside the context (``scan_loop.py:356-363``),
-    and rank 0's numbers are broadcast."""
+    route (data rank 0 under the tensor-parallel one: the ranks of its model
+    group evaluate together) and broadcast from there over the data group,
+    so every rank takes the same plateau and stopping decisions.  Under the
+    sequence-parallel route every rank runs the eval on its time steps,
+    inside the context (``scan_loop.py:356-363``), and rank 0's numbers are
+    broadcast."""
     if shard is None:
         return evaluate(eval_model, test_data, eval_idx, sparse_k, metric)
     if shard.axis:

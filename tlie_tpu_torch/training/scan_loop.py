@@ -124,7 +124,16 @@ def evaluate(eval_model: nn.Module, data: DeviceData, idx: torch.Tensor,
     eval runs the dense head, or the sparse one with ``sparse_k``, never the
     fused head, as in ``tlie_tpu``.  With ``seq`` (the sequence-parallel
     route's shard, inside its context) each rank runs its time steps and
-    takes the whole batch's numbers (:func:`~.steps.seq_head_logits`)."""
+    takes the whole batch's numbers (:func:`~.steps.seq_head_logits`).
+    Where the model's logits are split over a model group
+    (``eval_model.logit_shard``, tensor parallelism) the loss and the
+    metric take their vocab-parallel forms, and every rank of the group
+    evaluates together."""
+    vocab = getattr(eval_model, "logit_shard", None)
+    if vocab is not None:
+        from ..parallel.tp import vocab_parallel_metric
+
+        metric = vocab_parallel_metric(metric, vocab)
     losses, metrics = [], []
     for idx_t in idx:
         x, y = gather_batch(data, idx_t)
@@ -132,6 +141,6 @@ def evaluate(eval_model: nn.Module, data: DeviceData, idx: torch.Tensor,
             logits, y = head_logits(eval_model, x, y, sparse_k)
         else:
             logits, y = seq_head_logits(eval_model, seq, x, y, sparse_k)
-        losses.append(cross_entropy_loss(logits, y))
+        losses.append(cross_entropy_loss(logits, y, vocab=vocab))
         metrics.append(metric(logits, y))
     return float(torch.stack(losses).mean()), float(torch.stack(metrics).mean())

@@ -166,9 +166,21 @@ def clip_by_global_norm_(params: Iterable[nn.Parameter], max_norm: float) -> tor
     where norm ≥ max_norm and stays as it is otherwise.  (Not
     ``torch.nn.utils.clip_grad_norm_``, which scales by max_norm / (norm +
     1e-6) and so moves gradients whose norm is just below max_norm.)
-    Returns the norm, on the device, without a host sync."""
-    grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    Under tensor parallelism a parameter split over the model group
+    (``p.vocab_shard``) adds its squares summed over that group, so the
+    norm is the one over the whole arrays.  Returns the norm, on the
+    device, without a host sync."""
+    params = [p for p in params if p.grad is not None]
+    grads = [p.grad for p in params]
+    norms = torch.stack([torch.linalg.vector_norm(g) for g in grads])
+    split = [getattr(p, "vocab_shard", None) is not None for p in params]
+    if any(split):
+        vocab = next(p.vocab_shard for p, s in zip(params, split) if s)
+        split = torch.tensor(split, device=norms.device)
+        sq = norms * norms
+        norm = torch.sqrt(sq[~split].sum() + vocab.sum(sq[split].sum()))
+    else:
+        norm = torch.linalg.vector_norm(norms)
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm * max_norm))

@@ -16,6 +16,7 @@ from torch import nn
 
 from ..data.base import masked_accuracy as compute_accuracy
 from ..ops.fused_xent import fused_softmax_xent
+from ..parallel.tp import vocab_parallel_nll
 from .state import clip_by_global_norm_, clipped_parameters, set_group_learning_rates
 
 IGNORE_IDX = -100
@@ -64,7 +65,7 @@ class RowNLLWide(torch.autograd.Function):
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
-                       ignore_idx: int = IGNORE_IDX, shard=None) -> torch.Tensor:
+                       ignore_idx: int = IGNORE_IDX, shard=None, vocab=None) -> torch.Tensor:
     """Mean CE over the positions whose label is not ``ignore_idx``:
     logsumexp minus the gathered logit, summed over valid positions and
     divided by their count (at least 1).  bfloat16 logits reduce in float32
@@ -73,10 +74,15 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     global batch's, summed over the group: the loss is this rank's share of
     the global mean, and the shares sum to it.  Under the sequence-parallel
     route a pooled model's logits and labels (no time axis) are the whole
-    batch's on every rank, so each rank's share is 1/n of the loss."""
+    batch's on every rank, so each rank's share is 1/n of the loss.  With
+    ``vocab`` (tensor parallelism, the model group's shard) the logits are
+    this rank's columns of the vocabulary and the logsumexp spans the model
+    group (:func:`~tlie_tpu_torch.parallel.tp.vocab_parallel_nll`)."""
     safe = labels.clamp_min(0)
     mask = labels != ignore_idx
-    if logits.dtype == torch.bfloat16:
+    if vocab is not None:
+        ll = -vocab_parallel_nll(logits, torch.where(mask, labels, -1), vocab)
+    elif logits.dtype == torch.bfloat16:
         nll = RowNLLWide.apply(logits.reshape(-1, logits.shape[-1]), safe.reshape(-1))[0]
         ll = -nll.reshape(labels.shape)
     else:
@@ -190,7 +196,10 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, x: torch.Tens
     rank takes the one-process step.  The returned loss is this rank's share
     of the global one.  A shard of time steps (the sequence-parallel route,
     called inside its context) takes x and per-position labels y at this
-    rank's steps in the same way."""
+    rank's steps in the same way.  Under tensor parallelism ``shard`` is
+    the data group's, and a model whose logits are split
+    (``model.logit_shard``) takes the vocab-parallel CE; the clip adds the
+    split leaves' squares over the model group."""
     if fused_head and sparse_k is not None:
         raise ValueError("the sparse head is mutually exclusive with the fused head")
     set_group_learning_rates(optimizer, lrs)
@@ -198,7 +207,8 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, x: torch.Tens
     if fused_head:
         loss = fused_head_loss(model, x, y, shard)
     else:
-        loss = cross_entropy_loss(*head_logits(model, x, y, sparse_k), shard=shard)
+        loss = cross_entropy_loss(*head_logits(model, x, y, sparse_k), shard=shard,
+                                  vocab=getattr(model, "logit_shard", None))
     loss.backward()
     if shard is not None:
         shard.sum_grads(model.parameters())
